@@ -1,0 +1,275 @@
+// LSTM cell recurrence over time, inference forward, in one cooperative
+// launch per layer (both directions of a bidirectional layer together).
+//
+// Replaces: padertorch_tpu/ops/pallas/lstm.py, `lstm_cell_scan` through
+// `_fwd_call(..., with_residuals=False)` (the lean inference variant of
+// `_fwd_kernel`).
+//
+// What bounds it on the card: the T steps are sequential, and each step
+// is a (rows, H) @ (H, 4H) product that is small (rows = batch of one
+// direction).  Reading W_hh from device memory every step would move
+// D * H * 4H * 4 bytes per step (11.5 MB at H=600, D=2), so the weights
+// have to stay on chip, but one SM holds at most 227 KB of shared memory.
+// What is left per step is latency: reading h_{t-1}, which other blocks
+// wrote, a chain of H dependent FMAs per gate, and one grid-wide sync.
+//
+// Design: each block owns one direction d and a slice of U hidden units,
+// and keeps that slice's four gate columns of W_hh[d] in shared memory for
+// the whole launch (H * U * 4 floats; U is chosen by the host so the grid
+// fits on the card at once).  Per step, for each chunk of up to ROWS rows
+// of its direction, a block copies h_{t-1} of those rows into shared
+// memory with asynchronous L2-only copies (other blocks wrote it; L1 is
+// not coherent) and loads its gate inputs while the copies fly.  The
+// product's K loop (over H) is split into KS slices, one per group of
+// threads, so that each thread's chain of dependent FMAs is H / KS long;
+// a thread owns one (row, unit) pair of one slice, the slices' partial
+// gates meet in shared memory, and the first slice's thread applies the
+// cell and the mask freeze.  c stays in shared memory (it never leaves the
+// block); out[t] and h_t go to device memory, h_t through a ping-pong
+// buffer.  Then the whole grid syncs once.
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+constexpr int ROWS = 16;  // at most this many rows of h staged at once
+
+__device__ __forceinline__ float sigmoidf_(float x) {
+    return 1.0f / (1.0f + expf(-x));
+}
+
+__device__ __forceinline__ void cp_async16_cg(void* smem, const void* gmem) {
+    const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                 :: "r"(dst), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// gx: (T, R, 4H), R = D * Bd rows, row block d belongs to direction d.
+// w: (D, H, 4H) (h @ w layout, gate column blocks i, f, g, o).
+// mask: (T, R) or nullptr.  h0, c0: (R, H).
+// out: (T, R, H); hT, cT: (R, H); hbuf: (2, R, H) scratch.
+// Block b: direction d = b / n_ub, unit block ub = b % n_ub.  Thread tid:
+// K slice ks = tid / P, pair p = tid % P (row p / U of the chunk, unit
+// p % U), P = RS * U with RS = min(Bd, ROWS) rows staged at once.
+// Shared memory: w_s (H, U) of float4 gates | red (KS - 1, P) of float4
+// partial gates | h_s (RS, H) | c_s (Bd, U).
+// vec: H % 4 == 0 and h0 16-byte aligned, so rows of h copy as float4.
+__global__ void __launch_bounds__(1024) lstm_fwd_kernel(
+        const float* __restrict__ gx, const float* __restrict__ w,
+        const float* __restrict__ mask, const float* __restrict__ h0,
+        const float* __restrict__ c0, float* __restrict__ out,
+        float* __restrict__ hT, float* __restrict__ cT,
+        float* hbuf, int T, int Bd, int H, int U, int n_ub, int KS,
+        int vec) {
+    cg::grid_group grid = cg::this_grid();
+    extern __shared__ float4 smem4[];
+    float* smem = reinterpret_cast<float*>(smem4);
+    const int d = blockIdx.x / n_ub;
+    const int ub = blockIdx.x % n_ub;
+    const int R = gridDim.x / n_ub * Bd;
+    const int G = 4 * H;
+    const int RS = min(Bd, ROWS);
+    const int P = RS * U;
+    const float4* w_s = smem4;                        // (H, U) of 4 gates
+    float4* red = smem4 + (size_t)H * U;              // (KS - 1, P)
+    float* h_s = reinterpret_cast<float*>(red + (size_t)(KS - 1) * P);
+    float* c_s = h_s + (size_t)RS * H;                // (Bd, U)
+    const int tid = threadIdx.x;
+    const int nthreads = blockDim.x;
+    const int row0 = d * Bd;
+    const int ks = tid / P;
+    const int p = tid % P;
+    const int u = p % U;
+    const int j = ub * U + u;
+    const int k_len = (H + KS - 1) / KS;
+    const int k_lo = min(H, ks * k_len);
+    const int k_hi = min(H, k_lo + k_len);
+
+    // stage this block's slice of W_hh[d]; units past H are zero
+    const float* wd = w + (size_t)d * H * G;
+    for (int idx = tid; idx < H * U * 4; idx += nthreads) {
+        const int k = idx / (4 * U);
+        const int q = idx % (4 * U);
+        const int g = q / U;
+        const int uu = q % U;
+        const int jj = ub * U + uu;
+        const float v = jj < H ? wd[(size_t)k * G + g * H + jj] : 0.0f;
+        smem[((size_t)k * U + uu) * 4 + g] = v;
+    }
+    for (int q = tid; q < Bd * U; q += nthreads) {
+        const int jj = ub * U + q % U;
+        c_s[q] = jj < H ? c0[(size_t)(row0 + q / U) * H + jj] : 0.0f;
+    }
+
+    for (int t = 0; t < T; ++t) {
+        const float* h_prev = t == 0 ? h0 : hbuf + (size_t)((t - 1) & 1) * R * H;
+        float* h_next = hbuf + (size_t)(t & 1) * R * H;
+        for (int rc = 0; rc < Bd; rc += RS) {
+            const int nr = min(RS, Bd - rc);
+            const float* src = h_prev + (size_t)(row0 + rc) * H;
+            if (rc > 0) __syncthreads();  // the previous chunk's readers
+            if (vec) {
+                for (int idx = tid; idx < nr * H / 4; idx += nthreads) {
+                    cp_async16_cg(h_s + 4 * idx, src + 4 * idx);
+                }
+            } else {
+                for (int idx = tid; idx < nr * H; idx += nthreads) {
+                    h_s[idx] = __ldcg(src + idx);
+                }
+            }
+            const int r = rc + p / U;
+            const int row = row0 + r;
+            const bool active = ks < KS && p < nr * U && j < H;
+            const bool first = active && ks == 0;
+            float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+            float m = 1.f;
+            if (first) {
+                const float* gxr = gx + ((size_t)t * R + row) * G;
+                acc = make_float4(gxr[j], gxr[H + j], gxr[2 * H + j],
+                                  gxr[3 * H + j]);
+                if (mask != nullptr) m = mask[(size_t)t * R + row];
+            }
+            if (vec) cp_async_wait_all();
+            __syncthreads();
+            const float* hr = h_s + (size_t)(r - rc) * H;
+            if (active) {
+#pragma unroll 4
+                for (int k = k_lo; k < k_hi; ++k) {
+                    const float hk = hr[k];
+                    const float4 wk = w_s[(size_t)k * U + u];
+                    acc.x = fmaf(hk, wk.x, acc.x);
+                    acc.y = fmaf(hk, wk.y, acc.y);
+                    acc.z = fmaf(hk, wk.z, acc.z);
+                    acc.w = fmaf(hk, wk.w, acc.w);
+                }
+                if (ks > 0) red[(size_t)(ks - 1) * P + p] = acc;
+            }
+            __syncthreads();
+            if (!first) continue;
+            for (int s = 0; s < KS - 1; ++s) {
+                const float4 v = red[(size_t)s * P + p];
+                acc.x += v.x;
+                acc.y += v.y;
+                acc.z += v.z;
+                acc.w += v.w;
+            }
+            const float i_ = sigmoidf_(acc.x);
+            const float f_ = sigmoidf_(acc.y);
+            const float g_ = tanhf(acc.z);
+            const float o_ = sigmoidf_(acc.w);
+            float* cp = c_s + (size_t)r * U + u;
+            const float c_old = *cp;
+            float c_new = f_ * c_old + i_ * g_;
+            float h_new = o_ * tanhf(c_new);
+            float h_out = h_new;
+            if (mask != nullptr) {
+                if (!(m > 0.0f)) {
+                    h_new = hr[j];
+                    c_new = c_old;
+                }
+                h_out = h_new * m;
+            }
+            *cp = c_new;
+            out[((size_t)t * R + row) * H + j] = h_out;
+            __stcg(h_next + (size_t)row * H + j, h_new);
+            if (t == T - 1) {
+                hT[(size_t)row * H + j] = h_new;
+                cT[(size_t)row * H + j] = c_new;
+            }
+        }
+        grid.sync();
+    }
+}
+
+// K slices per (row, unit) pair: as many as 1024 threads allow, at most 8
+int k_slices(int P, int H) {
+    int ks = 1024 / P;
+    ks = ks > 8 ? 8 : ks;
+    ks = ks > H ? H : ks;
+    return ks < 1 ? 1 : ks;
+}
+
+size_t smem_bytes(int Bd, int H, int U, int KS) {
+    const size_t rs = Bd < ROWS ? Bd : ROWS;
+    return sizeof(float) * ((size_t)H * U * 4 + (size_t)(KS - 1) * rs * U * 4
+                            + rs * H + (size_t)Bd * U);
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* ptt_error_string(int err) {
+    return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// Launch the whole recurrence.  Picks the smallest unit slice U for which
+// the grid (D * ceil(H / U) blocks) is co-resident on the card, and fails
+// with cudaErrorCooperativeLaunchTooLarge when none is.  Returns
+// cudaGetLastError() after the launch.
+int lstm_cell_scan_fwd(const void* gx, const void* w, const void* mask,
+                       const void* h0, const void* c0, void* out, void* hT,
+                       void* cT, void* hbuf, int T, int D, int Bd, int H,
+                       int device, void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return err;
+    int n_sm = 0, max_smem = 0, coop = 0;
+    cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
+    cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+    cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
+    if (!coop) return cudaErrorNotSupported;
+    const int units[] = {4, 8, 16, 32};
+    int U = 0, threads = 0, KS = 1;
+    size_t smem = 0;
+    for (int cand : units) {
+        const int P = (Bd < ROWS ? Bd : ROWS) * cand;
+        const int ks = k_slices(P, H);
+        const size_t s = smem_bytes(Bd, H, cand, ks);
+        if (s > (size_t)max_smem) break;
+        const int th = (ks * P + 31) / 32 * 32;
+        err = cudaFuncSetAttribute(lstm_fwd_kernel,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)s);
+        if (err != cudaSuccess) return err;
+        int per_sm = 0;
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, lstm_fwd_kernel, th, s);
+        if (err != cudaSuccess) return err;
+        const int blocks = D * ((H + cand - 1) / cand);
+        if (per_sm > 0 && blocks <= per_sm * n_sm) {
+            U = cand;
+            KS = ks;
+            threads = th;
+            smem = s;
+            break;
+        }
+    }
+    if (U == 0) return cudaErrorCooperativeLaunchTooLarge;
+    int n_ub = (H + U - 1) / U;
+    int vec = H % 4 == 0 && reinterpret_cast<uintptr_t>(h0) % 16 == 0;
+    const float* gx_ = static_cast<const float*>(gx);
+    const float* w_ = static_cast<const float*>(w);
+    const float* mask_ = static_cast<const float*>(mask);
+    const float* h0_ = static_cast<const float*>(h0);
+    const float* c0_ = static_cast<const float*>(c0);
+    float* out_ = static_cast<float*>(out);
+    float* hT_ = static_cast<float*>(hT);
+    float* cT_ = static_cast<float*>(cT);
+    float* hbuf_ = static_cast<float*>(hbuf);
+    void* args[] = {&gx_, &w_, &mask_, &h0_, &c0_, &out_, &hT_, &cT_,
+                    &hbuf_, &T, &Bd, &H, &U, &n_ub, &KS, &vec};
+    err = cudaLaunchCooperativeKernel(
+        (const void*)lstm_fwd_kernel, dim3(D * n_ub), dim3(threads), args,
+        smem, static_cast<cudaStream_t>(stream));
+    if (err != cudaSuccess) return err;
+    return cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,0 +1,96 @@
+"""Build the hand-written CUDA kernels at first use and load them.
+
+All ``csrc/*.cu`` sources are compiled by ``nvcc`` for ``sm_90a`` into one
+shared library with a plain C interface, which is loaded with ``ctypes``.
+The library lands in ``padertorch_tpu_torch/_build/<hash>/``, keyed by a
+hash of the sources and the flags, so an edited source rebuilds and an
+unchanged one is loaded as it is.  The build runs in the first process
+that asks for a kernel; concurrent builds each write a private file and
+rename it into place.
+"""
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+__all__ = ['load_library', 'check', 'stream_and_device']
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC = _PKG / 'csrc'
+BUILD_DIR = _PKG / '_build'
+NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
+              '-O3', '-shared', '-Xcompiler', '-fPIC')
+_LIB_NAME = 'libptt_kernels.so'
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry points and their argument types (pointers and the stream as
+# c_void_p, so ctypes does not cut them to 32 bits)
+_SIGNATURES = {
+    'lstm_cell_scan_fwd': (_P,) * 9 + (_I,) * 5 + (_P,),
+    'masked_istft_fwd': (_P,) * 5 + (_I,) * 7 + (_P,),
+}
+
+
+def _sources():
+    return sorted(CSRC.glob('*.cu')) + sorted(CSRC.glob('*.cuh'))
+
+
+def _nvcc():
+    for candidate in (os.environ.get('CUDA_HOME'), '/usr/local/cuda'):
+        if candidate and (Path(candidate) / 'bin' / 'nvcc').exists():
+            return str(Path(candidate) / 'bin' / 'nvcc')
+    found = shutil.which('nvcc')
+    if found is None:
+        raise RuntimeError(
+            'nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin '
+            'and PATH): the CUDA kernels cannot be built')
+    return found
+
+
+@functools.lru_cache(maxsize=None)
+def load_library():
+    """Build (if needed) and load the kernel library; returns the CDLL."""
+    digest = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    for src in _sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    out_dir = BUILD_DIR / digest.hexdigest()[:16]
+    lib_path = out_dir / _LIB_NAME
+    if not lib_path.exists():
+        out_dir.mkdir(parents=True, exist_ok=True)
+        tmp = out_dir / f'{_LIB_NAME}.tmp{os.getpid()}'
+        cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp),
+               *[str(s) for s in _sources() if s.suffix == '.cu']]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f'nvcc failed ({proc.returncode}):\n{" ".join(cmd)}\n'
+                f'{proc.stdout}\n{proc.stderr}')
+        os.replace(tmp, lib_path)
+    lib = ctypes.CDLL(str(lib_path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    lib.ptt_error_string.argtypes = [ctypes.c_int]
+    lib.ptt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(lib, err, what):
+    """Raise if a C entry point returned a CUDA error code."""
+    if err != 0:
+        msg = lib.ptt_error_string(err).decode()
+        raise RuntimeError(f'{what} failed: CUDA error {err} ({msg})')
+
+
+def stream_and_device(tensor):
+    """(current stream handle, device index) for a CUDA tensor."""
+    import torch
+    index = tensor.device.index
+    stream = torch.cuda.current_stream(tensor.device).cuda_stream
+    return stream, index
