@@ -1,15 +1,19 @@
-"""Drive the PyTorch port's uPIT separation path once on one CUDA card.
+"""Drive the PyTorch port's uPIT separation and training paths once on one
+CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
 
 Phases, one line each:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions; TF32 off for matmuls and convolutions.
-2. build: both hand-written kernels built from ``padertorch_tpu_torch/csrc``.
+2. build: the hand-written kernels built from ``padertorch_tpu_torch/csrc``
+   (one nvcc per source, started together).
 3. lstm_cell_scan kernel vs its plain version at the flagship shape
    (T=500, D*B=32 with ragged lengths in [250, 500], H=600, f32), and a
-   control: the plain version with TF32 matmuls must fail the limit.
+   control: the plain version with TF32 matmuls must fail the limit.  Also
+   the yardsticks: one bidirectional ``torch.nn.LSTM`` layer (cuDNN) and
+   the input projection alone at that shape.
 4. masked_istft kernel vs its plain version at (K=2, T=127, F=257) and
    (B*K=32, T=500, F=257).
 5. slice: the full-width uPIT model (F=257, 3x600 BLSTM, K=2) from seed 0
@@ -18,33 +22,57 @@ Phases, one line each:
    ``synthetic_database(num_examples=8, seed=2)`` as 8 requests, with the
    kernels' launch counts read around them; then one batched forward at
    B=16, T=500.
+6. training kernels vs plain at the flagship shape: outputs and residuals
+   of the training forward, ``dgates_x``/``dh0``/``dc0`` of the backward
+   on the same residuals and random cotangents, and the whole
+   ``autograd.Function`` (with ``dW_hh``) against autograd through the
+   plain forward; a TF32 control must fail each limit.
+7. the training path: the recipe's ``get_trainer_config`` at full width
+   into a temporary storage dir, ``test_run``, then ``Trainer.train`` for
+   3 epochs of 8 batches of 4 synthetic mixtures with a validation hook
+   and checkpoints, the kernels' launch counts read around it; the first
+   step's loss and gradient norm against the same step on the CPU; the
+   storage dir loaded back and one request served from it; then one timed
+   training step at the recipe's shape and at B=16, T=500, by stage.
 
 The line before the last is a JSON object with each kernel's launches on
-the main path, its largest difference from the plain version and both
-times; the last line is ``{"ok": true, "device": {...}}``.  Any failed
+the main paths, its largest difference from the plain version, its time,
+the plain version's, the library call's where there is one, and the
+least time the card could take (``bound_ms``: the larger of bytes over
+3.35 TB/s and float32 operations over 67 TFLOP/s, NVIDIA's H100 SXM data
+sheet); the last line is ``{"ok": true, "device": {...}}``.  Any failed
 check raises, so the script exits non-zero and prints no result; without
-a CUDA card it fails at phase 1.
+a CUDA card it fails at phase 1.  ``--profile`` adds a ``torch.profiler``
+table of one training step per shape.
 """
 import copy
 import json
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from padertorch_tpu_torch.contrib.examples.source_separation.pit import (
-    data as pit_data)
+    data as pit_data, train as pit_train)
 from padertorch_tpu_torch.contrib.examples.source_separation.pit.evaluate \
     import evaluate_example
 from padertorch_tpu_torch.models.bss import PermutationInvariantTrainingModel
 from padertorch_tpu_torch.ops._stft import HostSTFT, STFT
+from padertorch_tpu_torch.io import dump_config
 from padertorch_tpu_torch.ops.kernels import _build
+from padertorch_tpu_torch.ops.kernels import lstm as lstm_kernels
 from padertorch_tpu_torch.ops.kernels.lstm import (
-    lstm_cell_scan, lstm_cell_scan_plain)
+    lstm_cell_scan, lstm_cell_scan_plain, lstm_cell_scan_train_plain,
+    lstm_cell_scan_bwd_plain, recurrent_weight_grad)
 from padertorch_tpu_torch.ops.kernels.masked_istft import (
     masked_istft, masked_istft_plain)
+from padertorch_tpu_torch.train.hooks import Hook, ValidationHook
+from padertorch_tpu_torch.train.optimizer import Adam
+from padertorch_tpu_torch.train.trainer import Trainer
 
 # f32 sums in another order over 500 recurrent steps; about 20x the
 # difference the card shows, and far below what a TF32 recurrent product
@@ -53,6 +81,20 @@ LSTM_TOL = 1e-5
 ISTFT_TOL = 1e-4   # f32 sums of 2 * 257 * 4 products per sample
 MODEL_TOL = 1e-6   # masks after 3 BLSTM layers of 500 steps, card vs CPU
 SI_SDR_TOL = 1e-2  # dB, card vs CPU on the same request
+# backward kernel vs its plain version on the same residuals: the same f32
+# arithmetic, the 4H-long sum in another order, carried over 500 steps;
+# about 20x what the card shows, and a TF32 product fails it (phase 6)
+LSTM_BWD_TOL = 1e-5
+# the whole Function vs autograd through the plain forward, relative to
+# each gradient's largest entry (dW_hh sums 16,000 products per entry):
+# about 20x what the card shows; autograd through a TF32 forward fails it
+LSTM_GRAD_RTOL = 5e-5
+# first step's loss and gradient norm, card vs CPU, relative: f32 sums in
+# another order (the card shows the same float32 values as the CPU)
+STEP_RTOL = 1e-5
+
+PEAK_BYTES_PER_S = 3.35e12   # H100 SXM, HBM3
+PEAK_F32_FLOPS = 67e12       # H100 SXM, float32 outside the tensor cores
 
 
 def fail(msg):
@@ -76,6 +118,34 @@ def cuda_ms(fn, iters, warmup=1):
 
 def max_err(a, b):
     return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+
+def max_rel_err(a, b):
+    """Largest difference relative to each reference's largest entry."""
+    return max(float((x - y).abs().max() / y.abs().max())
+               for x, y in zip(a, b))
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def bound(n_bytes, flops):
+    """The least time the card could take for the work: each input read
+    and each output written once at the memory's peak rate, or the
+    operations at the float32 peak, whichever is larger."""
+    by_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = flops / PEAK_F32_FLOPS * 1e3
+    return {'bound_ms': max(by_bytes, by_ops),
+            'bound_by': 'bytes' if by_bytes >= by_ops else 'operations'}
+
+
+def lstm_flops(mask, hdim):
+    """Operations the recurrence needs on these inputs: per valid (step,
+    row) one (1, H) x (H, 4H) product (2 per multiply-add) and about 30
+    for the cell; masked steps need none."""
+    return float(mask.sum()) * (2 * hdim * 4 * hdim + 30 * hdim)
 
 
 def phase_device():
@@ -132,15 +202,51 @@ def phase_lstm():
     torch.backends.cuda.matmul.allow_tf32 = False
     ms = cuda_ms(lambda: lstm_cell_scan(*args), iters=20)
     plain_ms = cuda_ms(lambda: lstm_cell_scan_plain(*args), iters=3)
+    library = cudnn_lstm_ms()
+    gx, w, mask, h0, c0 = args
+    limit = bound(nbytes(*args, *got), lstm_flops(mask, 600))
     print(f'phase 3 lstm_cell_scan T=500 D*B=32 H=600: max |kernel - plain| '
           f'{err:.3e} (tol {LSTM_TOL}), plain with TF32 vs f32 '
-          f'{tf32_err:.3e}, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms')
+          f'{tf32_err:.3e}, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, '
+          f'bound {limit["bound_ms"]:.3f} ms by {limit["bound_by"]}')
+    print(f'phase 3 yardsticks at T=500 B=16 in=1200 H=600 f32: one '
+          f'bidirectional torch.nn.LSTM layer (cuDNN; includes the input '
+          f'projection, takes no mask) forward {library["fwd"]:.3f} ms '
+          f'(no grad), {library["fwd_train"]:.3f} ms (grad mode), backward '
+          f'{library["bwd"]:.3f} ms; the einsum input projection alone '
+          f'{library["projection"]:.3f} ms')
     if not err <= LSTM_TOL:
         fail(f'lstm_cell_scan kernel disagrees with plain: {err}')
     if not tf32_err > LSTM_TOL:
         fail(f'the limit {LSTM_TOL} does not tell a TF32 recurrence from '
              f'f32: {tf32_err}')
-    return {'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms}
+    return {'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms, **limit,
+            'library_ms': library['fwd']}, library
+
+
+def cudnn_lstm_ms(t_len=500, batch=16, in_size=1200, hdim=600):
+    """Yardsticks, timed here and used nowhere in the port: one
+    bidirectional ``torch.nn.LSTM`` layer (cuDNN) at the flagship layer's
+    shape, forward without and with grad mode and backward, and the
+    port's input projection (one einsum) alone."""
+    torch.manual_seed(0)
+    layer = torch.nn.LSTM(in_size, hdim, bidirectional=True).cuda()
+    x = torch.randn(t_len, batch, in_size, device='cuda')
+    with torch.no_grad():
+        fwd = cuda_ms(lambda: layer(x), iters=10, warmup=2)
+    fwd_train = cuda_ms(lambda: layer(x), iters=10, warmup=2)
+    out, _ = layer(x)
+    d_out = torch.randn_like(out)
+    bwd = cuda_ms(
+        lambda: torch.autograd.grad(out, list(layer.parameters()), d_out,
+                                    retain_graph=True), iters=10, warmup=2)
+    x_pair = torch.stack([x, x.flip(0)])
+    w_ih = torch.randn(2, 4 * hdim, in_size, device='cuda')
+    projection = cuda_ms(
+        lambda: torch.einsum('dtbf,dgf->tdbg', x_pair, w_ih), iters=10,
+        warmup=2)
+    return {'fwd': fwd, 'fwd_train': fwd_train, 'bwd': bwd,
+            'projection': projection}
 
 
 def istft_inputs(n_rows, frames, seed=0):
@@ -166,13 +272,21 @@ def phase_istft():
         ms = cuda_ms(lambda: masked_istft(spec, mask, stft=stft), iters=20)
         plain_ms = cuda_ms(
             lambda: masked_istft_plain(spec, mask, stft=stft), iters=20)
+        # per row and frame 2 * F * size multiply-adds (two synthesis
+        # matrices of (F, size), themselves an input of F * size * 2)
+        size, n_bins = pit_data.STFT_SIZE, 257
+        limit = bound(
+            nbytes(spec, mask, got) + n_bins * size * 2 * 4,
+            n_rows * frames * 2 * 2 * n_bins * size)
         print(f'phase 4 masked_istft ({n_rows}, {frames}, 257): max '
               f'|kernel - plain| {err:.3e} (tol {ISTFT_TOL}), kernel '
-              f'{ms:.3f} ms, plain {plain_ms:.3f} ms')
+              f'{ms:.3f} ms, plain {plain_ms:.3f} ms, bound '
+              f'{limit["bound_ms"]:.4f} ms by {limit["bound_by"]}')
         if not err <= ISTFT_TOL:
             fail(f'masked_istft kernel disagrees with plain: {err}')
         results[(n_rows, frames)] = {
-            'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms}
+            'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms, **limit,
+            'library_ms': None}
     return results
 
 
@@ -184,6 +298,11 @@ def ragged_batch(batch, frames, seed=0):
     y *= (np.arange(frames)[None, :, None] < lens[:, None, None])
     return {'Y_abs': torch.from_numpy(y),
             'num_frames': torch.from_numpy(lens.astype('int64'))}
+
+
+def reset_launches():
+    for name in lstm_cell_scan.launches:
+        lstm_cell_scan.launches[name] = 0
 
 
 def phase_slice():
@@ -205,7 +324,7 @@ def phase_slice():
     stft = HostSTFT(pit_data.STFT_SIZE, pit_data.STFT_SHIFT, fading='full',
                     complex_representation='complex')
     examples = list(pit_data.synthetic_database(num_examples=8, seed=2))
-    lstm_cell_scan.launches = 0
+    reset_launches()
     masked_istft.launches = 0
     latencies, results = [], {}
     for example in examples:
@@ -213,7 +332,7 @@ def phase_slice():
         example_id, metrics = evaluate_example(model, stft, example)
         latencies.append((time.perf_counter() - start) * 1e3)
         results[example_id] = metrics
-    launches = {'lstm_cell_scan': lstm_cell_scan.launches,
+    launches = {'lstm_cell_scan': lstm_cell_scan.launches['fwd'],
                 'masked_istft': masked_istft.launches}
     print(f'phase 5b served {len(results)} requests, latency ms '
           f'{[round(x, 3) for x in latencies]} (median '
@@ -245,17 +364,346 @@ def phase_slice():
     return launches
 
 
+def phase_train_kernels(library):
+    """Phase 6: the two training kernels and the Function around them."""
+    args = lstm_inputs('cuda')
+    gx, w, mask, h0, c0 = args
+    rng = np.random.RandomState(1)
+    cot = [torch.from_numpy(rng.uniform(-1, 1, shape).astype('float32'))
+           .cuda() for shape in ((500, 32, 600), (32, 600), (32, 600))]
+
+    def fwd_train():
+        return lstm_kernels._launch(gx, w, 2, mask, h0, c0, train=True)
+
+    got = fwd_train()
+    want = lstm_cell_scan_train_plain(*args)
+    torch.cuda.synchronize()
+    err_fwd = max_err(got, want)           # out, c_seq, gates, h_T, c_T
+    out, c_seq, gates, _, _ = want
+
+    def bwd():
+        return lstm_kernels._launch_bwd(gates, c_seq, w, 2, mask, *cot)
+
+    got_bwd = bwd()
+    want_bwd = lstm_cell_scan_bwd_plain(gates, c_seq, w, mask, *cot)
+    torch.cuda.synchronize()
+    err_bwd = max_err(got_bwd, want_bwd)   # dgates_x, dh0, dc0
+    torch.backends.cuda.matmul.allow_tf32 = True
+    tf32_fwd = max_err(lstm_cell_scan_train_plain(*args), want)
+    tf32_bwd = max_err(
+        lstm_cell_scan_bwd_plain(gates, c_seq, w, mask, *cot), want_bwd)
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def grads(fn):
+        leaves = [a.clone().requires_grad_() for a in (gx, w, h0, c0)]
+        outs = fn(leaves[0], leaves[1], mask, leaves[2], leaves[3])
+        if any(o.grad_fn is None for o in outs):
+            fail('lstm_cell_scan under grad mode returned a tensor '
+                 'without grad_fn')
+        return torch.autograd.grad(outs, leaves, cot)
+
+    got_grads = grads(lstm_cell_scan)      # dgates_x, dW_hh, dh0, dc0
+    want_grads = grads(lstm_cell_scan_plain)
+    torch.cuda.synchronize()
+    err_fn = max_rel_err(got_grads, want_grads)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    tf32_fn = max_rel_err(grads(lstm_cell_scan_plain), want_grads)
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    times = {
+        'fwd_train': cuda_ms(fwd_train, iters=20),
+        'fwd_train_plain': cuda_ms(
+            lambda: lstm_cell_scan_train_plain(*args), iters=3),
+        'bwd': cuda_ms(bwd, iters=20),
+        'bwd_plain': cuda_ms(
+            lambda: lstm_cell_scan_bwd_plain(gates, c_seq, w, mask, *cot),
+            iters=3),
+        'dw': cuda_ms(
+            lambda: recurrent_weight_grad(got_bwd[0], out, h0, mask, 2),
+            iters=20),
+    }
+    flops = lstm_flops(mask, 600)
+    limit_fwd = bound(nbytes(*args, *got), flops)
+    limit_bwd = bound(nbytes(gates, c_seq, w, mask, *cot, *got_bwd), flops)
+    print(f'phase 6 training forward T=500 D*B=32 H=600: max |kernel - '
+          f'plain| {err_fwd:.3e} over out, c_seq, gates, h_T, c_T (tol '
+          f'{LSTM_TOL}), plain with TF32 vs f32 {tf32_fwd:.3e}, kernel '
+          f'{times["fwd_train"]:.3f} ms, plain '
+          f'{times["fwd_train_plain"]:.3f} ms, bound '
+          f'{limit_fwd["bound_ms"]:.3f} ms by {limit_fwd["bound_by"]}')
+    print(f'phase 6 backward: max |kernel - plain| {err_bwd:.3e} over '
+          f'dgates_x, dh0, dc0 (tol {LSTM_BWD_TOL}), plain with TF32 vs '
+          f'f32 {tf32_bwd:.3e}, kernel {times["bwd"]:.3f} ms, plain '
+          f'{times["bwd_plain"]:.3f} ms, bound '
+          f'{limit_bwd["bound_ms"]:.3f} ms by {limit_bwd["bound_by"]}; '
+          f'dW_hh product {times["dw"]:.3f} ms')
+    print(f'phase 6 Function vs autograd through plain: max relative '
+          f'difference {err_fn:.3e} over dgates_x, dW_hh, dh0, dc0 (tol '
+          f'{LSTM_GRAD_RTOL}), autograd through plain with TF32 vs f32 '
+          f'{tf32_fn:.3e}')
+    if not err_fwd <= LSTM_TOL:
+        fail(f'training forward kernel disagrees with plain: {err_fwd}')
+    if not err_bwd <= LSTM_BWD_TOL:
+        fail(f'backward kernel disagrees with plain: {err_bwd}')
+    if not err_fn <= LSTM_GRAD_RTOL:
+        fail(f'LSTMCellScan disagrees with autograd through the plain '
+             f'forward: {err_fn}')
+    if not (tf32_fwd > LSTM_TOL and tf32_bwd > LSTM_BWD_TOL
+            and tf32_fn > LSTM_GRAD_RTOL):
+        fail(f'the limits do not tell a TF32 product from f32: forward '
+             f'{tf32_fwd}, backward {tf32_bwd}, Function {tf32_fn}')
+    return {
+        'fwd_train': {'max_abs_err': err_fwd, 'ms': times['fwd_train'],
+                      'plain_ms': times['fwd_train_plain'], **limit_fwd,
+                      'library_ms': library['fwd_train']},
+        'bwd': {'max_abs_err': err_bwd, 'ms': times['bwd'],
+                'plain_ms': times['bwd_plain'], **limit_bwd,
+                'library_ms': library['bwd']},
+    }, times
+
+
+class Recorder(Hook):
+    """Per iteration: the loss and the pre-clip gradient norm (kept on the
+    card); at the first step, that every trained parameter got a finite
+    gradient."""
+
+    def __init__(self):
+        self.losses, self.norms = [], []
+
+    def post_step(self, trainer, example, model_output, review):
+        self.losses.append(review['scalars']['loss'].detach())
+        if len(self.losses) > 1:
+            return
+        for name, p in trainer.model.named_parameters():
+            if not p.requires_grad:
+                continue
+            if p.grad is None or not bool(torch.isfinite(p.grad).all()):
+                fail(f'{name} got no finite gradient on the card')
+            if p.device.type != 'cuda':
+                fail(f'{name} is on {p.device}')
+
+    def post_optimize(self, trainer, summary):
+        self.norms.append(summary['scalars']['grad_norm'].detach())
+
+
+def train_batch(batch, frames, seed=0):
+    """A ragged training batch at a chosen size (magnitudes as the
+    recipe's features have them, random)."""
+    rng = np.random.RandomState(seed)
+    lens = rng.randint(frames // 2, frames + 1, size=batch)
+    lens[0] = frames
+    valid = np.arange(frames)[None, :, None, None] < lens[:, None, None, None]
+    x = np.abs(rng.randn(batch, frames, 2, 257)).astype('float32') * valid
+    return {
+        'Y_abs': x.sum(2).astype('float32'),
+        'X_abs': x.astype('float32'),
+        'cos_phase_difference': rng.uniform(
+            -1, 1, (batch, frames, 2, 257)).astype('float32'),
+        'num_frames': lens.astype('int32'),
+    }
+
+
+def timed_step(trainer, batch, iters=5):
+    """One training step by stage (CUDA events; ms), and the whole step on
+    the host clock ended by a synchronize."""
+    model, optimizer = trainer.model, trainer.optimizer
+    example = model.example_to_device(batch, 'cuda')
+    stages = {}
+
+    def stage(name, fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        stages.setdefault(name, []).append((start, end))
+        return out
+
+    def step():
+        out = stage('forward', lambda: model(example))
+        review = stage('review', lambda: model.review(example, out))
+        loss = review['losses']['pit_mse_loss']
+        stage('backward', loss.backward)
+        stage('clip', optimizer.clip_grad)
+        stage('adam', optimizer.optimizer.step)
+        optimizer.zero_grad()
+
+    model.train()
+    optimizer.zero_grad()
+    step()  # warm-up
+    torch.cuda.synchronize()
+    stages.clear()
+    reset_launches()
+    host = []
+    for _ in range(iters):
+        start = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - start) * 1e3)
+    launches = dict(lstm_cell_scan.launches)
+    if launches != {'fwd': 0, 'fwd_train': 3 * iters, 'bwd': 3 * iters}:
+        fail(f'a training step launches 3 fwd_train and 3 bwd kernels, '
+             f'got {launches} in {iters} steps')
+    out = {name: float(np.mean([a.elapsed_time(b) for a, b in events]))
+           for name, events in stages.items()}
+    out['device_sum'] = sum(out.values())
+    out['host_step'] = float(np.median(host))
+    return out
+
+
+def profile_step(trainer, batch, label):
+    """``--profile``: torch.profiler's kernel table for one step."""
+    from torch.profiler import ProfilerActivity, profile
+    example = trainer.model.example_to_device(batch, 'cuda')
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            loss, _, _ = trainer._loss_and_review(trainer.model, example)
+            loss.backward()
+            trainer.optimizer.step()
+            trainer.optimizer.zero_grad()
+        torch.cuda.synchronize()
+    print(f'profile {label} (3 steps):')
+    print(prof.key_averages().table(sort_by='cuda_time_total', row_limit=25))
+
+
+def phase_training(kernel_times, profile=False):
+    """Phase 7: the recipe's trainer at full width on the card."""
+    torch.manual_seed(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        storage_dir = Path(tmp) / 'pit' / '1'
+        config = pit_train.get_trainer_config(storage_dir, {
+            'stop_trigger': (3, 'epoch'),
+            'summary_trigger': (8, 'iteration')})
+        dump_config({'trainer': config}, storage_dir / 'config.json')
+        trainer = Trainer.from_config(config)
+        model_cpu = copy.deepcopy(trainer.model)
+        trainer.to('cuda')
+
+        train_ds = pit_data.synthetic_database(num_examples=32)
+        dev_ds = pit_data.synthetic_database(num_examples=8, seed=1)
+        train = pit_data.prepare_dataset(
+            train_ds, batch_size=4, shuffle=False, prefetch=False)
+        dev = pit_data.prepare_dataset(
+            dev_ds, batch_size=4, shuffle=False, prefetch=False)
+
+        start = time.perf_counter()
+        trainer.test_run(train, dev)
+        print(f'phase 7a test_run passed on the card in '
+              f'{time.perf_counter() - start:.2f} s')
+
+        recorder = Recorder()
+        trainer.register_hook(recorder)
+        trainer.register_validation_hook(dev)
+        reset_launches()
+        start = time.perf_counter()
+        trainer.train(train)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        launches = dict(lstm_cell_scan.launches)
+        iterations = trainer.iteration
+        losses = [float(x) for x in recorder.losses]
+        norms = [float(x) for x in recorder.norms]
+        hook, = [h for h in trainer.hooks if isinstance(h, ValidationHook)]
+        validations = 4  # iterations 0, 8, 16, 24; 2 batches each
+        print(f'phase 7b trained {iterations} iterations in {seconds:.2f} s '
+              f'(validations and checkpoints included), launches '
+              f'{launches}; training loss first 8 mean '
+              f'{np.mean(losses[:8]):.4f}, last 8 mean '
+              f'{np.mean(losses[-8:]):.4f}; ranking {hook.ckpt_ranking}')
+        if iterations != 24 or len(losses) != 24 or len(norms) != 24:
+            fail(f'expected 24 iterations, got {iterations}')
+        if not (np.isfinite(losses).all() and np.isfinite(norms).all()):
+            fail(f'non-finite loss or gradient norm: {losses} {norms}')
+        want = {'fwd': 3 * 2 * validations, 'fwd_train': 3 * iterations,
+                'bwd': 3 * iterations}
+        if launches != want:
+            fail(f'launches {launches}, expected {want}: 3 fwd_train and 3 '
+                 f'bwd per step, 3 fwd per validation batch')
+        if not np.mean(losses[-8:]) < np.mean(losses[:8]):
+            fail('the training loss did not fall')
+
+        # the first step once more on the CPU, from the same weights
+        batch = next(iter(train))
+        cpu = Trainer(model_cpu.train(), Path(tmp) / 'cpu',
+                      Adam(gradient_clipping=10.0),
+                      loss_weights=config['loss_weights'])
+        loss_cpu, _, _, _ = cpu.train_step(cpu.model, batch)
+        loss_cpu.backward()
+        loss_cpu = float(loss_cpu.detach())
+        norm_cpu = float(cpu.optimizer.clip_grad())
+        rel_loss = abs(losses[0] - loss_cpu) / abs(loss_cpu)
+        rel_norm = abs(norms[0] - norm_cpu) / norm_cpu
+        print(f'phase 7c first step card vs CPU: loss {losses[0]:.9g} vs '
+              f'{loss_cpu:.9g} (relative {rel_loss:.3e}), gradient '
+              f'norm {norms[0]:.9g} vs {norm_cpu:.9g} (relative '
+              f'{rel_norm:.3e}); tol {STEP_RTOL}')
+        if not (rel_loss <= STEP_RTOL and rel_norm <= STEP_RTOL):
+            fail('the first training step on the card disagrees with the '
+                 'CPU')
+
+        ckpt_dir = storage_dir / 'checkpoints'
+        names = sorted(p.name for p in ckpt_dir.iterdir())
+        for name in ('ckpt_24.ptt', 'ckpt_latest.ptt', 'ckpt_best_loss.ptt',
+                     'ckpt_ranking.json'):
+            if name not in names:
+                fail(f'{name} missing from {names}')
+        if not any('tfevents' in p.name for p in storage_dir.iterdir()):
+            fail('no event file in the storage dir')
+        loaded = PermutationInvariantTrainingModel.from_storage_dir(
+            storage_dir).to('cuda').eval()
+        stft = HostSTFT(pit_data.STFT_SIZE, pit_data.STFT_SHIFT,
+                        fading='full', complex_representation='complex')
+        example = next(iter(pit_data.synthetic_database(
+            num_examples=1, seed=2)))
+        _, metrics = evaluate_example(loaded, stft, example)
+        if not np.isfinite(metrics['output_si_sdr']).all():
+            fail(f'bad metrics from the trained model: {metrics}')
+        print(f'phase 7d storage dir {names} loads; one request served '
+              f'from it: SI-SDR {metrics["output_si_sdr"]}')
+
+        for label, batch in (
+                ('B=4 (recipe)', next(iter(train))),
+                ('B=16 T=500', train_batch(16, 500))):
+            t = timed_step(trainer, batch)
+            n_frames = batch['Y_abs'].shape[1]
+            print(f'phase 7e training step {label}, frames {n_frames}: '
+                  + ', '.join(f'{k} {v:.3f} ms' for k, v in t.items()))
+            if profile:
+                profile_step(trainer, batch, label)
+        print(f'phase 7e kernels alone at T=500 D*B=32 (phase 6): 3 x '
+              f'fwd_train {kernel_times["fwd_train"]:.3f} ms, 3 x bwd '
+              f'{kernel_times["bwd"]:.3f} ms, 3 x dW_hh '
+              f'{kernel_times["dw"]:.3f} ms')
+    return launches
+
+
 def main():
     phase_device()
     phase_build()
-    lstm = phase_lstm()
+    lstm, library = phase_lstm()
     istft = phase_istft()
     launches = phase_slice()
+    train_kernels, kernel_times = phase_train_kernels(library)
+    train_launches = phase_training(kernel_times,
+                                    profile='--profile' in sys.argv[1:])
+    for name in ('fwd_train', 'bwd'):
+        if train_launches[name] == 0:
+            fail(f'the training path never launched the {name} kernel')
     kernels = [
         {'name': 'lstm_cell_scan', 'route': 'cuda',
          'source': 'padertorch_tpu_torch/csrc/lstm_cell_scan.cu',
          'replaces': 'padertorch_tpu/ops/pallas/lstm.py:275',
          'launches': launches['lstm_cell_scan'], **lstm},
+        {'name': 'lstm_cell_scan_train', 'route': 'cuda',
+         'source': 'padertorch_tpu_torch/csrc/lstm_cell_scan.cu',
+         'replaces': 'padertorch_tpu/ops/pallas/lstm.py:293',
+         'launches': train_launches['fwd_train'],
+         **train_kernels['fwd_train']},
+        {'name': 'lstm_cell_scan_bwd', 'route': 'cuda',
+         'source': 'padertorch_tpu_torch/csrc/lstm_cell_scan_bwd.cu',
+         'replaces': 'padertorch_tpu/ops/pallas/lstm.py:339',
+         'launches': train_launches['bwd'], **train_kernels['bwd']},
         {'name': 'masked_istft', 'route': 'cuda',
          'source': 'padertorch_tpu_torch/csrc/masked_istft.cu',
          'replaces': 'padertorch_tpu/ops/pallas/masked_istft.py:135',

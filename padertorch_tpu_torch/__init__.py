@@ -19,5 +19,9 @@ from padertorch_tpu_torch import modules
 from padertorch_tpu_torch import models
 from padertorch_tpu_torch import migrate
 from padertorch_tpu_torch import evaluation
+from padertorch_tpu_torch import summary
+from padertorch_tpu_torch import train
+from padertorch_tpu_torch.train.optimizer import Adam, AdamW, SGD
+from padertorch_tpu_torch.train.trainer import Trainer
 
 __version__ = '0.1.0'

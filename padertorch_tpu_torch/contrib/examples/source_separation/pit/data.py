@@ -1,15 +1,16 @@
-"""Evaluation features for uPIT on WSJ0-2mix-style data.
+"""Data pipeline for uPIT on WSJ0-2mix-style data.
 
 Counterpart of ``padertorch_tpu/contrib/examples/source_separation/pit/
 data.py`` (reference ``contrib/examples/source_separation/pit/data.py``):
 on-the-fly host STFT (512/128), magnitude/phase features and padded
 batches, plus the synthetic two-speaker sinusoid database for runs
-without data.  The training pipeline (``prepare_dataset``) and reading
-real databases (``read_audio``) come with the training slice.
+without data.  Reading real databases (``read_audio``) waits until such
+files are in the repository.
 """
 import numpy as np
 
 from padertorch_tpu_torch.data import dataset as lazy
+from padertorch_tpu_torch.data.batch import Sorter
 from padertorch_tpu_torch.data.utils import collate_fn, pad_batch
 from padertorch_tpu_torch.ops._stft import HostSTFT as STFT
 
@@ -73,3 +74,18 @@ def post_batch_transform(batch):
         'cos_phase_difference': cpd,
         'num_frames': np.asarray(num_frames, dtype='int32'),
     }
+
+
+def prepare_dataset(dataset, batch_size=4, shuffle=True, prefetch=True):
+    if shuffle:
+        dataset = dataset.shuffle(reshuffle=True)
+    dataset = (
+        dataset
+        .map(pre_batch_transform)
+        .batch(batch_size)
+        .map(Sorter('num_frames'))
+        .map(post_batch_transform)
+    )
+    if prefetch:
+        dataset = dataset.prefetch(4, 8)
+    return dataset

@@ -2,13 +2,14 @@
 
 Counterpart of ``padertorch_tpu/contrib/examples/source_separation/pit/
 evaluate.py`` (reference ``contrib/examples/source_separation/pit/
-evaluate.py``).  It loads the ``config.json`` and checkpoint of a JAX
-training run; on a CUDA device the BLSTM recurrence and the fused mask +
-iSTFT run in the hand-written kernels.
+evaluate.py``).  It loads the ``config.json`` and checkpoint of a
+training run of either package; on a CUDA device the BLSTM recurrence and
+the fused mask + iSTFT run in the hand-written kernels.
 
-Run:
+Run (on the card, the default; without one it fails):
     python -m padertorch_tpu_torch.contrib.examples.source_separation.pit.evaluate \
-        --model_path /path/to/storage_dir --synthetic [--device cuda]
+        --model_path /path/to/storage_dir --synthetic
+Run on the CPU: add ``--device cpu``.
 """
 import argparse
 import json
@@ -69,8 +70,8 @@ def main():
     parser.add_argument('--synthetic', action='store_true',
                         help='the synthetic mixtures (the only data the '
                              'port reads yet)')
-    parser.add_argument(
-        '--device', default='cuda' if torch.cuda.is_available() else 'cpu')
+    parser.add_argument('--device', default='cuda',
+                        help="'cuda' (the default) or 'cpu'")
     args = parser.parse_args()
 
     model_path = Path(args.model_path)

@@ -1,9 +1,12 @@
-// LSTM cell recurrence over time, inference forward, in one cooperative
-// launch per layer (both directions of a bidirectional layer together).
+// LSTM cell recurrence over time, forward, in one cooperative launch per
+// layer (both directions of a bidirectional layer together).  Two variants
+// of one kernel: the lean inference forward, and the training forward,
+// which also stores what the backward needs (the activated gates and
+// c_{t-1} of every step).
 //
-// Replaces: padertorch_tpu/ops/pallas/lstm.py, `lstm_cell_scan` through
-// `_fwd_call(..., with_residuals=False)` (the lean inference variant of
-// `_fwd_kernel`).
+// Replaces: padertorch_tpu/ops/pallas/lstm.py, `_fwd_kernel` through
+// `_fwd_call(..., with_residuals=False)` (inference, `lstm_cell_scan`) and
+// through `_fwd_call(..., with_residuals=True)` (training, `_vjp_fwd`).
 //
 // What bounds it on the card: the T steps are sequential, and each step
 // is a (rows, H) @ (H, 4H) product that is small (rows = batch of one
@@ -26,10 +29,16 @@
 // gates meet in shared memory, and the first slice's thread applies the
 // cell and the mask freeze.  c stays in shared memory (it never leaves the
 // block); out[t] and h_t go to device memory, h_t through a ping-pong
-// buffer.  Then the whole grid syncs once.
+// buffer.  Then the whole grid syncs once.  The training variant adds two
+// stores per (row, unit) and step: the four activated gates as computed
+// (also on a masked step) and c_{t-1} (on a masked step the frozen c).
+// The inference variant is compiled without them, so it writes a third of
+// the bytes.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "lstm_common.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -37,34 +46,24 @@ namespace {
 
 constexpr int ROWS = 16;  // at most this many rows of h staged at once
 
-__device__ __forceinline__ float sigmoidf_(float x) {
-    return 1.0f / (1.0f + expf(-x));
-}
-
-__device__ __forceinline__ void cp_async16_cg(void* smem, const void* gmem) {
-    const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-                 :: "r"(dst), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
 // gx: (T, R, 4H), R = D * Bd rows, row block d belongs to direction d.
 // w: (D, H, 4H) (h @ w layout, gate column blocks i, f, g, o).
 // mask: (T, R) or nullptr.  h0, c0: (R, H).
 // out: (T, R, H); hT, cT: (R, H); hbuf: (2, R, H) scratch.
+// TRAIN only: c_seq (T, R, H) gets c_{t-1}, gates (T, R, 4H) the activated
+// gates in column blocks i, f, g, o.
 // Block b: direction d = b / n_ub, unit block ub = b % n_ub.  Thread tid:
 // K slice ks = tid / P, pair p = tid % P (row p / U of the chunk, unit
 // p % U), P = RS * U with RS = min(Bd, ROWS) rows staged at once.
 // Shared memory: w_s (H, U) of float4 gates | red (KS - 1, P) of float4
 // partial gates | h_s (RS, H) | c_s (Bd, U).
 // vec: H % 4 == 0 and h0 16-byte aligned, so rows of h copy as float4.
+template <bool TRAIN>
 __global__ void __launch_bounds__(1024) lstm_fwd_kernel(
         const float* __restrict__ gx, const float* __restrict__ w,
         const float* __restrict__ mask, const float* __restrict__ h0,
         const float* __restrict__ c0, float* __restrict__ out,
+        float* __restrict__ c_seq, float* __restrict__ gates,
         float* __restrict__ hT, float* __restrict__ cT,
         float* hbuf, int T, int Bd, int H, int U, int n_ub, int KS,
         int vec) {
@@ -169,6 +168,14 @@ __global__ void __launch_bounds__(1024) lstm_fwd_kernel(
             float c_new = f_ * c_old + i_ * g_;
             float h_new = o_ * tanhf(c_new);
             float h_out = h_new;
+            if (TRAIN) {
+                float* gr = gates + ((size_t)t * R + row) * G;
+                gr[j] = i_;
+                gr[H + j] = f_;
+                gr[2 * H + j] = g_;
+                gr[3 * H + j] = o_;
+                c_seq[((size_t)t * R + row) * H + j] = c_old;
+            }
             if (mask != nullptr) {
                 if (!(m > 0.0f)) {
                     h_new = hr[j];
@@ -188,36 +195,22 @@ __global__ void __launch_bounds__(1024) lstm_fwd_kernel(
     }
 }
 
-// K slices per (row, unit) pair: as many as 1024 threads allow, at most 8
-int k_slices(int P, int H) {
-    int ks = 1024 / P;
-    ks = ks > 8 ? 8 : ks;
-    ks = ks > H ? H : ks;
-    return ks < 1 ? 1 : ks;
-}
-
 size_t smem_bytes(int Bd, int H, int U, int KS) {
     const size_t rs = Bd < ROWS ? Bd : ROWS;
     return sizeof(float) * ((size_t)H * U * 4 + (size_t)(KS - 1) * rs * U * 4
                             + rs * H + (size_t)Bd * U);
 }
 
-}  // namespace
-
-extern "C" {
-
-const char* ptt_error_string(int err) {
-    return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
-
 // Launch the whole recurrence.  Picks the smallest unit slice U for which
 // the grid (D * ceil(H / U) blocks) is co-resident on the card, and fails
 // with cudaErrorCooperativeLaunchTooLarge when none is.  Returns
 // cudaGetLastError() after the launch.
-int lstm_cell_scan_fwd(const void* gx, const void* w, const void* mask,
-                       const void* h0, const void* c0, void* out, void* hT,
-                       void* cT, void* hbuf, int T, int D, int Bd, int H,
-                       int device, void* stream) {
+template <bool TRAIN>
+int launch_fwd(const void* gx, const void* w, const void* mask,
+               const void* h0, const void* c0, void* out, void* c_seq,
+               void* gates, void* hT, void* cT, void* hbuf, int T, int D,
+               int Bd, int H, int device, void* stream) {
+    const auto kernel = lstm_fwd_kernel<TRAIN>;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return err;
     int n_sm = 0, max_smem = 0, coop = 0;
@@ -234,13 +227,13 @@ int lstm_cell_scan_fwd(const void* gx, const void* w, const void* mask,
         const size_t s = smem_bytes(Bd, H, cand, ks);
         if (s > (size_t)max_smem) break;
         const int th = (ks * P + 31) / 32 * 32;
-        err = cudaFuncSetAttribute(lstm_fwd_kernel,
+        err = cudaFuncSetAttribute(kernel,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    (int)s);
         if (err != cudaSuccess) return err;
         int per_sm = 0;
         err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, lstm_fwd_kernel, th, s);
+            &per_sm, kernel, th, s);
         if (err != cudaSuccess) return err;
         const int blocks = D * ((H + cand - 1) / cand);
         if (per_sm > 0 && blocks <= per_sm * n_sm) {
@@ -260,16 +253,45 @@ int lstm_cell_scan_fwd(const void* gx, const void* w, const void* mask,
     const float* h0_ = static_cast<const float*>(h0);
     const float* c0_ = static_cast<const float*>(c0);
     float* out_ = static_cast<float*>(out);
+    float* c_seq_ = static_cast<float*>(c_seq);
+    float* gates_ = static_cast<float*>(gates);
     float* hT_ = static_cast<float*>(hT);
     float* cT_ = static_cast<float*>(cT);
     float* hbuf_ = static_cast<float*>(hbuf);
-    void* args[] = {&gx_, &w_, &mask_, &h0_, &c0_, &out_, &hT_, &cT_,
-                    &hbuf_, &T, &Bd, &H, &U, &n_ub, &KS, &vec};
+    void* args[] = {&gx_, &w_, &mask_, &h0_, &c0_, &out_, &c_seq_, &gates_,
+                    &hT_, &cT_, &hbuf_, &T, &Bd, &H, &U, &n_ub, &KS, &vec};
     err = cudaLaunchCooperativeKernel(
-        (const void*)lstm_fwd_kernel, dim3(D * n_ub), dim3(threads), args,
+        (const void*)kernel, dim3(D * n_ub), dim3(threads), args,
         smem, static_cast<cudaStream_t>(stream));
     if (err != cudaSuccess) return err;
     return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* ptt_error_string(int err) {
+    return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// Inference forward: out, h_T, c_T.
+int lstm_cell_scan_fwd(const void* gx, const void* w, const void* mask,
+                       const void* h0, const void* c0, void* out, void* hT,
+                       void* cT, void* hbuf, int T, int D, int Bd, int H,
+                       int device, void* stream) {
+    return launch_fwd<false>(gx, w, mask, h0, c0, out, nullptr, nullptr, hT,
+                             cT, hbuf, T, D, Bd, H, device, stream);
+}
+
+// Training forward: also c_seq (T, R, H) and gates (T, R, 4H).
+int lstm_cell_scan_fwd_train(const void* gx, const void* w, const void* mask,
+                             const void* h0, const void* c0, void* out,
+                             void* c_seq, void* gates, void* hT, void* cT,
+                             void* hbuf, int T, int D, int Bd, int H,
+                             int device, void* stream) {
+    return launch_fwd<true>(gx, w, mask, h0, c0, out, c_seq, gates, hT, cT,
+                            hbuf, T, D, Bd, H, device, stream);
 }
 
 }  // extern "C"

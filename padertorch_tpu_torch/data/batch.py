@@ -1,13 +1,16 @@
-"""Moving a (nested) numpy example to a torch device.
+"""Moving a (nested) numpy example to a torch device, and sorting a batch.
 
-Counterpart of ``padertorch_tpu/data/batch.py`` ``example_to_device``.
+Counterpart of ``padertorch_tpu/data/batch.py`` ``example_to_device`` and
+``Sorter``.
 """
+import operator
+
 import numpy as np
 import torch
 
 from padertorch_tpu_torch.utils.nested import nested_op
 
-__all__ = ['example_to_device']
+__all__ = ['example_to_device', 'Sorter']
 
 
 def example_to_device(example, device):
@@ -25,3 +28,25 @@ def example_to_device(example, device):
             return leaf.to(device)
         return leaf
     return nested_op(move, example)
+
+
+class Sorter:
+    """Sort a batch (list of examples) by a key, longest first.
+
+    Reference parity: ``data/batch.py:134`` (there used so PackedSequence
+    gets decreasing lengths; here it keeps padding tight).
+
+    >>> batch = [{'num_samples': 2}, {'num_samples': 5}, {'num_samples': 3}]
+    >>> [e['num_samples'] for e in Sorter('num_samples')(batch)]
+    [5, 3, 2]
+    """
+
+    def __init__(self, key='num_samples', reverse=True):
+        if callable(key):
+            self.key = key
+        else:
+            self.key = operator.itemgetter(key)
+        self.reverse = reverse
+
+    def __call__(self, examples):
+        return tuple(sorted(examples, key=self.key, reverse=self.reverse))

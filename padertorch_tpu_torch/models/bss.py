@@ -2,11 +2,15 @@
 
 Counterpart of ``padertorch_tpu/models/bss.py``
 ``PermutationInvariantTrainingModel`` (reference
-``padertorch/contrib/examples/source_separation/pit/model.py:11``), its
-inference forward: log1p -> BLSTM -> Linear/ReLU -> Linear/activation ->
-(B, T, K, F) masks.  Batches are padded arrays plus a ``num_frames``
-length vector, as in the JAX package.
+``padertorch/contrib/examples/source_separation/pit/model.py:11``):
+log1p -> BLSTM -> Linear/ReLU -> Linear/activation -> (B, T, K, F) masks,
+and the review with the permutation-invariant losses.  Batches are padded
+arrays plus a ``num_frames`` length vector, as in the JAX package; the
+losses mask padded frames (mean over the valid frames per example, then
+mean over the batch).
 """
+import itertools
+
 import torch
 
 from padertorch_tpu_torch.base import Model
@@ -17,12 +21,39 @@ from padertorch_tpu_torch.ops.mappings import ACTIVATION_FN_MAP
 __all__ = ['PermutationInvariantTrainingModel']
 
 
+def _masked_pit_mse(estimate, target, num_frames):
+    """PIT MSE over valid frames per example, averaged over the batch.
+
+    estimate/target: (B, T, K, F); num_frames: (B,).
+    Equals the reference's per-example ``pit_loss(..., axis=-2)`` over
+    unpadded tensors, averaged over the batch.  The batch is an axis here
+    (the JAX package maps over it); the minimum over the K! permutations
+    is taken per example on the device.
+    """
+    _, t, k, f = estimate.shape
+    num_frames = torch.as_tensor(num_frames, device=estimate.device)
+    mask = (torch.arange(t, device=estimate.device)[None, :]
+            < num_frames[:, None]).to(estimate.dtype)[:, :, None, None]
+    denom = (num_frames * (k * f)).to(estimate.dtype)
+    parts = estimate.unbind(2)
+    candidates = torch.stack([
+        torch.sum(
+            (torch.stack([parts[i] for i in p], dim=2) - target) ** 2 * mask,
+            dim=(1, 2, 3)) / denom
+        for p in itertools.permutations(range(k))
+    ])                                                      # (K!, B)
+    return torch.mean(torch.min(candidates, dim=0).values)
+
+
 class PermutationInvariantTrainingModel(Model):
     """uPIT BLSTM mask estimator (K speakers, F frequency bins).
 
     forward input: dict with
       - ``Y_abs``: (B, T, F) magnitude spectrogram of the mixture
       - ``num_frames``: (B,) valid frame counts (optional)
+    review additionally uses
+      - ``X_abs``: (B, T, K, F) speaker magnitudes
+      - ``cos_phase_difference``: (B, T, K, F) for the phase-sensitive loss
     """
 
     def __init__(
@@ -78,3 +109,41 @@ class PermutationInvariantTrainingModel(Model):
         h = self.relu(self.linear1(h))
         h = self.output_activation(self.linear2(h))
         return h.reshape(b, t, self.K, self.F)
+
+    def review(self, batch, model_out):
+        observation = batch['Y_abs'][:, :, None, :]  # (B, T, 1, F)
+        target = batch['X_abs']
+        num_frames = batch.get('num_frames')
+        if num_frames is None:
+            num_frames = torch.full((target.shape[0],), target.shape[1])
+        estimate = model_out * observation
+        pit_mse = _masked_pit_mse(estimate, target, num_frames)
+        pit_ips = _masked_pit_mse(
+            estimate, target * batch['cos_phase_difference'], num_frames)
+        review = dict(losses={
+            'pit_mse_loss': pit_mse,
+            'pit_ips_loss': pit_ips,
+        })
+        if self.create_snapshot:
+            # Raw tensors here; modify_summary converts them to images on
+            # the host (the reference's snapshot pattern, base.py:300-306).
+            b = 0
+            snapshots = {'observation': batch['Y_abs'][b]}
+            for i in range(model_out.shape[2]):
+                snapshots[f'mask_{i}'] = model_out[b, :, i, :]
+                snapshots[f'estimation_{i}'] = estimate[b, :, i, :]
+            review['snapshots'] = snapshots
+        return review
+
+    def modify_summary(self, summary):
+        from padertorch_tpu_torch.summary.tbx_utils import (
+            stft_to_image, mask_to_image,
+        )
+        snapshots = summary['snapshots']
+        for key in list(snapshots):
+            value = snapshots.pop(key)
+            if key.startswith('mask'):
+                summary['images'][key] = mask_to_image(value)
+            else:
+                summary['images'][key] = stft_to_image(value)
+        return super().modify_summary(summary)

@@ -17,7 +17,15 @@ Parameters carry ``torch.nn.LSTM``'s names and layouts
 (``weight_ih_l{k}[_reverse]`` (4H, in), ``weight_hh_l{k}[_reverse]``
 (4H, H), ``bias_ih_...`` and ``bias_hh_...``; gate order i, f, g, o), so
 ``padertorch_tpu.migrate.import_torch_state_dict`` maps them onto the JAX
-model unchanged.  The kernel uses the sum of the two biases.
+model unchanged.  The kernel uses the sum of the two biases, and only
+``bias_ih`` is trained: the JAX LSTM has one fused bias, and two trained
+copies of it would each get its gradient, which doubles the bias's share
+of the global gradient norm and its step.  ``bias_hh`` stays in the
+module and in ``state_dict()`` with ``requires_grad=False``.
+
+On CUDA tensors the recurrence trains through the kernels too: under grad
+mode ``lstm_cell_scan`` is a ``torch.autograd.Function`` whose forward
+and backward are kernels, and nothing here detaches.
 """
 import math
 
@@ -33,6 +41,9 @@ class LSTM(torch.nn.Module):
 
     def __init__(self, input_size, hidden_size, num_layers=1,
                  bidirectional=False, dropout=0.0):
+        """``dropout`` acts between layers in training mode; set
+        ``self.generator`` to a ``torch.Generator`` to draw its masks from
+        that instead of the global generator."""
         super().__init__()
         self.input_size = input_size
         self.hidden_size = hidden_size
@@ -40,6 +51,7 @@ class LSTM(torch.nn.Module):
         self.bidirectional = bidirectional
         self.dropout = dropout
         self.num_directions = 2 if bidirectional else 1
+        self.generator = None
         gates = 4 * hidden_size
         for layer in range(num_layers):
             in_size = (input_size if layer == 0
@@ -51,17 +63,23 @@ class LSTM(torch.nn.Module):
                         ('bias_ih', (gates,)), ('bias_hh', (gates,))):
                     self.register_parameter(
                         f'{name}_l{layer}{suffix}',
-                        torch.nn.Parameter(torch.empty(shape)))
+                        torch.nn.Parameter(torch.empty(shape),
+                                           requires_grad=name != 'bias_hh'))
         self.reset_parameters()
 
     def _suffixes(self):
         return ('', '_reverse')[:self.num_directions]
 
     def reset_parameters(self):
-        """torch.nn.LSTM's initialisation: U(-1/sqrt(H), 1/sqrt(H))."""
+        """U(-1/sqrt(H), 1/sqrt(H)) like torch.nn.LSTM and the JAX LSTM,
+        whose one bias ``bias_ih`` stands for; the frozen ``bias_hh``
+        starts at zero (a loaded ``torch.nn.LSTM`` state may hold any)."""
         bound = 1.0 / math.sqrt(self.hidden_size)
-        for p in self.parameters():
-            torch.nn.init.uniform_(p, -bound, bound)
+        for name, p in self.named_parameters():
+            if name.startswith('bias_hh'):
+                torch.nn.init.zeros_(p)
+            else:
+                torch.nn.init.uniform_(p, -bound, bound)
 
     def _layer_weights(self, layer):
         """(w_ih (D, 4H, in), w_hh (D, H, 4H), bias (D, 4H))."""
@@ -120,7 +138,10 @@ class LSTM(torch.nn.Module):
             c_n.append(c_t.reshape(n_dir, batch, hdim))
             if self.dropout and self.training \
                     and layer < self.num_layers - 1:
-                out_t = torch.nn.functional.dropout(out_t, self.dropout)
+                keep = 1.0 - self.dropout
+                drop_mask = torch.empty_like(out_t).bernoulli_(
+                    keep, generator=self.generator)
+                out_t = out_t * drop_mask / keep
         return out_t.transpose(0, 1), (torch.cat(h_n), torch.cat(c_n))
 
     def extra_repr(self):

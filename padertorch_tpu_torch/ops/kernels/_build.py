@@ -1,6 +1,7 @@
 """Build the hand-written CUDA kernels at first use and load them.
 
-All ``csrc/*.cu`` sources are compiled by ``nvcc`` for ``sm_90a`` into one
+All ``csrc/*.cu`` sources are compiled by ``nvcc`` for ``sm_90a``, one
+``nvcc`` process per source, all started together, and linked into one
 shared library with a plain C interface, which is loaded with ``ctypes``.
 The library lands in ``padertorch_tpu_torch/_build/<hash>/``, keyed by a
 hash of the sources and the flags, so an edited source rebuilds and an
@@ -22,7 +23,7 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / 'csrc'
 BUILD_DIR = _PKG / '_build'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-shared', '-Xcompiler', '-fPIC')
+              '-O3', '-Xcompiler', '-fPIC')
 _LIB_NAME = 'libptt_kernels.so'
 
 _P = ctypes.c_void_p
@@ -31,6 +32,8 @@ _I = ctypes.c_int
 # c_void_p, so ctypes does not cut them to 32 bits)
 _SIGNATURES = {
     'lstm_cell_scan_fwd': (_P,) * 9 + (_I,) * 5 + (_P,),
+    'lstm_cell_scan_fwd_train': (_P,) * 11 + (_I,) * 5 + (_P,),
+    'lstm_cell_scan_bwd': (_P,) * 10 + (_I,) * 5 + (_P,),
     'masked_istft_fwd': (_P,) * 5 + (_I,) * 7 + (_P,),
 }
 
@@ -62,15 +65,34 @@ def load_library():
     lib_path = out_dir / _LIB_NAME
     if not lib_path.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f'{_LIB_NAME}.tmp{os.getpid()}'
-        cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp),
-               *[str(s) for s in _sources() if s.suffix == '.cu']]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f'nvcc failed ({proc.returncode}):\n{" ".join(cmd)}\n'
-                f'{proc.stdout}\n{proc.stderr}')
-        os.replace(tmp, lib_path)
+        tag = f'tmp{os.getpid()}'
+        nvcc = _nvcc()
+        units = [src for src in _sources() if src.suffix == '.cu']
+        objects = [out_dir / f'{src.stem}.{tag}.o' for src in units]
+        compiles = [[nvcc, *NVCC_FLAGS, '-c', '-o', str(obj), str(src)]
+                    for src, obj in zip(units, objects)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in compiles]
+        logs = [proc.communicate()[0] for proc in procs]
+        tmp = out_dir / f'{_LIB_NAME}.{tag}'
+        link = [nvcc, *NVCC_FLAGS, '-shared', '-o', str(tmp),
+                *[str(obj) for obj in objects]]
+        try:
+            for cmd, proc, log in zip(compiles, procs, logs):
+                if proc.returncode != 0:
+                    raise RuntimeError(
+                        f'nvcc failed ({proc.returncode}):\n'
+                        f'{" ".join(cmd)}\n{log}')
+            proc = subprocess.run(link, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f'nvcc failed ({proc.returncode}):\n{" ".join(link)}\n'
+                    f'{proc.stdout}\n{proc.stderr}')
+            os.replace(tmp, lib_path)
+        finally:
+            for obj in objects:
+                obj.unlink(missing_ok=True)
     lib = ctypes.CDLL(str(lib_path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -1,0 +1,9 @@
+from padertorch_tpu_torch.train import trigger
+from padertorch_tpu_torch.train import optimizer
+from padertorch_tpu_torch.train import hooks
+from padertorch_tpu_torch.train.trainer import Trainer, ContextTimerDict
+from padertorch_tpu_torch.train.optimizer import Optimizer, Adam, AdamW, SGD
+from padertorch_tpu_torch.train.hooks import (
+    SummaryHook, CheckpointHook, ValidationHook, StopTrainingHook,
+    StopTraining,
+)

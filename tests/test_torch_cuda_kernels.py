@@ -1,7 +1,11 @@
 """The hand-written CUDA kernels against their plain PyTorch versions on
 the card, at shapes off the main path (ragged hidden widths, one
-direction, other STFT geometries).  Marked ``cuda``: they skip without a
-card.  Run them on the card with
+direction, other STFT geometries).  The LSTM training kernels (forward
+with residuals, backward) are held against their step-by-step plain
+versions (1e-5: the same f32 arithmetic, sums in another order) and,
+through the ``autograd.Function``, against autograd through the plain
+forward (1e-4 relative to each gradient's largest entry).  Marked
+``cuda``: they skip without a card.  Run them on the card with
 
     python -m pytest tests/test_torch_cuda_kernels.py -q
 """
@@ -10,8 +14,11 @@ import pytest
 import torch
 
 from padertorch_tpu_torch.ops._stft import HostSTFT, STFT
+from padertorch_tpu_torch.models.bss import PermutationInvariantTrainingModel
+from padertorch_tpu_torch.ops.kernels import lstm as lstm_kernels
 from padertorch_tpu_torch.ops.kernels.lstm import (
-    lstm_cell_scan, lstm_cell_scan_plain)
+    lstm_cell_scan, lstm_cell_scan_plain, lstm_cell_scan_train_plain,
+    lstm_cell_scan_bwd_plain)
 from padertorch_tpu_torch.ops.kernels.masked_istft import (
     masked_istft, masked_istft_plain)
 
@@ -49,11 +56,11 @@ def test_lstm_kernel_matches_plain(cuda, n_dir, batch, hdim, t_len, masked):
     args = [None if a is None else torch.tensor(a, dtype=torch.float32,
                                                 device=cuda)
             for a in arrays]
-    before = lstm_cell_scan.launches
+    before = dict(lstm_cell_scan.launches)
     got = lstm_cell_scan(*args)
     want = lstm_cell_scan_plain(*args)
     torch.cuda.synchronize()
-    assert lstm_cell_scan.launches == before + 1
+    assert lstm_cell_scan.launches == {**before, 'fwd': before['fwd'] + 1}
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, atol=1e-4, rtol=0)
 
@@ -68,6 +75,157 @@ def test_lstm_kernel_rejects_what_it_does_not_take(cuda):
         lstm_cell_scan(gx, w, None, h.t().contiguous().t(), h)
     with pytest.raises(ValueError):
         lstm_cell_scan(gx, w.cpu(), None, h, h)
+
+
+TRAIN_SHAPES = [
+    # n_dir, batch, hdim, t_len, mask
+    (1, 1, 8, 1, 'none'),        # one row, T=1
+    (2, 3, 37, 40, 'ragged'),    # H not a multiple of 4
+    (2, 5, 130, 64, 'ragged'),
+    (1, 20, 64, 33, 'suffix'),   # rows above 16 per direction
+    (2, 24, 50, 21, 'none'),     # no mask, rows above 16
+    (2, 17, 64, 9, 'ragged'),    # rows that do not split evenly in chunks
+    (2, 1, 600, 20, 'ragged'),   # the flagship width, one row a direction
+    (1, 40, 32, 7, 'none'),
+]
+
+
+def _train_inputs(cuda, n_dir, batch, hdim, t_len, mask_kind):
+    rng = np.random.RandomState(hdim + t_len)
+    rows = n_dir * batch
+    mask = None
+    if mask_kind != 'none':
+        lens = rng.randint(1, t_len + 1, size=batch)
+        fwd = np.arange(t_len)[:, None] < lens[None, :]
+        parts = [fwd, fwd[::-1]] if mask_kind == 'ragged' else [fwd, fwd]
+        mask = np.concatenate(parts[:n_dir], axis=1)
+    bound = 1 / np.sqrt(hdim)
+    arrays = [rng.uniform(-1, 1, (t_len, rows, 4 * hdim)),
+              rng.uniform(-bound, bound, (n_dir, hdim, 4 * hdim)), mask,
+              rng.uniform(-0.5, 0.5, (rows, hdim)),
+              rng.uniform(-0.5, 0.5, (rows, hdim)),
+              rng.uniform(-1, 1, (t_len, rows, hdim)),
+              rng.uniform(-1, 1, (rows, hdim)),
+              rng.uniform(-1, 1, (rows, hdim))]
+    tensors = [None if a is None else torch.tensor(
+        a, dtype=torch.float32, device=cuda) for a in arrays]
+    return tensors[:5], tensors[5:]
+
+
+@pytest.mark.parametrize('n_dir,batch,hdim,t_len,mask_kind', TRAIN_SHAPES)
+def test_lstm_training_kernels_match_plain(cuda, n_dir, batch, hdim, t_len,
+                                           mask_kind):
+    args, cotangents = _train_inputs(cuda, n_dir, batch, hdim, t_len,
+                                     mask_kind)
+    gx, w, mask, h0, c0 = args
+    before = dict(lstm_cell_scan.launches)
+    got = lstm_kernels._launch(gx, w, n_dir, mask, h0, c0, train=True)
+    want = lstm_cell_scan_train_plain(*args)
+    torch.cuda.synchronize()
+    for g, e in zip(got, want):  # out, c_seq, gates, h_T, c_T
+        torch.testing.assert_close(g, e, atol=1e-5, rtol=0)
+    _, c_seq, gates, _, _ = want
+    got = lstm_kernels._launch_bwd(gates, c_seq, w, n_dir, mask, *cotangents)
+    want = lstm_cell_scan_bwd_plain(gates, c_seq, w, mask, *cotangents)
+    torch.cuda.synchronize()
+    for g, e in zip(got, want):  # dgates_x, dh0, dc0
+        torch.testing.assert_close(g, e, atol=1e-5, rtol=0)
+    assert lstm_cell_scan.launches == {
+        'fwd': before['fwd'], 'fwd_train': before['fwd_train'] + 1,
+        'bwd': before['bwd'] + 1}
+
+
+@pytest.mark.parametrize('n_dir,batch,hdim,t_len,mask_kind', TRAIN_SHAPES)
+def test_lstm_function_matches_autograd_through_plain(
+        cuda, n_dir, batch, hdim, t_len, mask_kind):
+    args, cotangents = _train_inputs(cuda, n_dir, batch, hdim, t_len,
+                                     mask_kind)
+    gx, w, mask, h0, c0 = args
+
+    def grads(fn):
+        leaves = [a.clone().requires_grad_() for a in (gx, w, h0, c0)]
+        outs = fn(leaves[0], leaves[1], mask, leaves[2], leaves[3])
+        assert all(o.grad_fn is not None for o in outs)
+        return torch.autograd.grad(outs, leaves, cotangents)
+
+    got = grads(lstm_cell_scan)
+    want = grads(lstm_cell_scan_plain)
+    torch.cuda.synchronize()
+    for g, e in zip(got, want):  # dgates_x, dW_hh, dh0, dc0
+        scale = float(e.abs().max()) + 1e-12
+        assert float((g - e).abs().max()) / scale <= 1e-4
+
+
+def test_lstm_kernels_raise_when_the_grid_does_not_fit(cuda):
+    """Two directions of 1024 units: no unit slice leaves the whole grid
+    co-resident on the card, and the wrappers say so instead of launching
+    (the cooperative grid sync would hang otherwise)."""
+    args, cotangents = _train_inputs(cuda, 2, 2, 1024, 3, 'none')
+    gx, w, mask, h0, c0 = args
+    with pytest.raises(RuntimeError, match='lstm_cell_scan kernel failed'):
+        lstm_cell_scan(*args)
+    with pytest.raises(RuntimeError, match='training forward kernel failed'):
+        lstm_cell_scan(gx.clone().requires_grad_(), w, mask, h0, c0)
+    out, c_seq, gates, _, _ = lstm_cell_scan_train_plain(*args)
+    with pytest.raises(RuntimeError, match='backward kernel failed'):
+        lstm_kernels._launch_bwd(gates, c_seq, w, 2, mask, *cotangents)
+    torch.cuda.synchronize()
+
+
+def test_lstm_function_takes_missing_and_strided_cotangents(cuda):
+    """Only ``out`` feeds the loss (h_T and c_T get no cotangent), through
+    a transposed view (a cotangent that is not contiguous)."""
+    args, _ = _train_inputs(cuda, 2, 3, 12, 9, 'ragged')
+    gx, w, mask, h0, c0 = args
+
+    def grads(fn):
+        leaves = [a.clone().requires_grad_() for a in (gx, w, h0, c0)]
+        out, _, _ = fn(leaves[0], leaves[1], mask, leaves[2], leaves[3])
+        loss = (out.transpose(0, 1).reshape(6, -1).cumsum(0) ** 2).sum()
+        return torch.autograd.grad(loss, leaves)
+
+    for g, e in zip(grads(lstm_cell_scan), grads(lstm_cell_scan_plain)):
+        torch.testing.assert_close(g, e, atol=1e-4, rtol=1e-4)
+
+
+def test_no_grad_and_detached_inputs_take_the_lean_kernel(cuda):
+    args, _ = _train_inputs(cuda, 2, 3, 12, 9, 'ragged')
+    before = dict(lstm_cell_scan.launches)
+    out, _, _ = lstm_cell_scan(*args)
+    with torch.no_grad():
+        leaves = [a if a is None else a.clone().requires_grad_(
+            a.is_floating_point()) for a in args]
+        lstm_cell_scan(leaves[0], leaves[1], args[2], *leaves[3:])
+    assert out.grad_fn is None
+    assert lstm_cell_scan.launches == {**before, 'fwd': before['fwd'] + 2}
+
+
+def test_model_on_the_card_gets_every_gradient(cuda):
+    """The fault that only training shows: without the autograd.Function
+    the LSTM parameters' gradients stay None on the card."""
+    torch.manual_seed(0)
+    model = PermutationInvariantTrainingModel(
+        F=33, recurrent_layers=2, units=20, K=2).to(cuda).train()
+    rng = np.random.RandomState(0)
+    batch = {
+        'Y_abs': torch.tensor(np.abs(rng.randn(3, 17, 33)), device=cuda,
+                              dtype=torch.float32),
+        'X_abs': torch.tensor(np.abs(rng.randn(3, 17, 2, 33)), device=cuda,
+                              dtype=torch.float32),
+        'cos_phase_difference': torch.tensor(
+            rng.uniform(-1, 1, (3, 17, 2, 33)), device=cuda,
+            dtype=torch.float32),
+        'num_frames': torch.tensor([17, 11, 5], device=cuda),
+    }
+    review = model.review(batch, model(batch))
+    review['losses']['pit_mse_loss'].backward()
+    for name, p in model.named_parameters():
+        if p.requires_grad:
+            assert p.grad is not None, name
+            assert bool(torch.isfinite(p.grad).all()), name
+            assert float(p.grad.abs().max()) > 0, name
+        else:
+            assert name.startswith('blstm.bias_hh'), name
 
 
 @pytest.mark.parametrize('size,shift,fading,rep,lead', [

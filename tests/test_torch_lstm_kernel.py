@@ -62,7 +62,7 @@ def test_matches_jax_kernel(n_dir, mask_kind):
 
 
 def test_cpu_takes_the_plain_version_without_a_launch():
-    before = lstm_cell_scan.launches
+    before = dict(lstm_cell_scan.launches)
     arrays = _torch(_inputs(2, 'suffix', seed=3))
     got = lstm_cell_scan(*arrays)
     want = lstm_cell_scan_plain(*arrays)

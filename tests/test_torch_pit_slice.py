@@ -1,6 +1,7 @@
 """The port's uPIT separation slice against the JAX package: model masks,
-loading a JAX training's storage dir, ``evaluate_example`` and the
-recipe's evaluate entry point.
+loading a JAX training's storage dir, ``evaluate_example``, the recipe's
+evaluate entry point, and the recipe's train entry point, whose storage
+dir both packages' evaluate entry points load (same SI-SDR, 1e-3 dB).
 
 Sizes are cut (2 BLSTM layers of 16 units) at the recipe's F=257, K=2.
 Masks 1e-4 (f32, two recurrent layers); estimates 1e-4 of their peak;
@@ -153,3 +154,63 @@ def test_evaluate_entry_point(tmp_path):
     results = json.loads((storage_dir / 'eval' / 'result.json').read_text())
     assert len(results) == 8
     assert np.isfinite(means['improvement_si_sdr'])
+
+
+def _run_module(module, *args):
+    env = {**os.environ, 'PYTHONPATH': str(REPO), 'OMP_NUM_THREADS': '2',
+           'JAX_PLATFORMS': 'cpu'}
+    return subprocess.run(
+        [sys.executable, '-m', module, *args], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=600)
+
+
+def test_train_entry_point_and_both_evaluates(tmp_path):
+    recipe = 'contrib.examples.source_separation.pit'
+    proc = _run_module(
+        f'padertorch_tpu_torch.{recipe}.train', '--storage_root',
+        str(tmp_path), '--synthetic', '--epochs', '1', '--units', '16',
+        '--layers', '1', '--device', 'cpu')
+    assert proc.returncode == 0, proc.stderr
+    assert 'Successfully finished test run' in proc.stdout
+    storage_dir = tmp_path / 'pit' / '1'
+    assert f'Finished. storage_dir={storage_dir}' in proc.stdout
+    names = {p.name for p in storage_dir.iterdir()}
+    assert 'config.json' in names and 'checkpoints' in names
+    assert any(n.startswith('events.out.tfevents.') for n in names)
+    assert {p.name for p in (storage_dir / 'checkpoints').iterdir()} == {
+        'ckpt_0.ptt', 'ckpt_8.ptt', 'ckpt_latest.ptt', 'ckpt_best_loss.ptt',
+        'ckpt_ranking.json'}
+
+    results = {}
+    for package, extra in (('padertorch_tpu_torch', ['--device', 'cpu']),
+                           ('padertorch_tpu', [])):
+        proc = _run_module(f'{package}.{recipe}.evaluate', '--model_path',
+                           str(storage_dir), '--synthetic', *extra)
+        assert proc.returncode == 0, proc.stderr
+        results[package] = json.loads(
+            (storage_dir / 'eval' / 'result.json').read_text())
+    port, jax_ = results['padertorch_tpu_torch'], results['padertorch_tpu']
+    assert port.keys() == jax_.keys() and len(port) == 8
+    for example_id in port:
+        for key in ('input_si_sdr', 'output_si_sdr'):
+            np.testing.assert_allclose(
+                port[example_id][key], jax_[example_id][key], atol=1e-3,
+                rtol=0, err_msg=f'{example_id} {key}')
+
+
+@pytest.mark.parametrize('entry', ['train', 'evaluate'])
+def test_entry_points_default_to_the_card(entry, tmp_path):
+    """Without ``--device cpu`` the entry points take the card; where
+    there is none they fail with torch's own error."""
+    if torch.cuda.is_available():
+        pytest.skip('this machine has a card')
+    storage_dir = _jax_storage_dir(tmp_path / 'run', _jax_model(4))
+    args = {'train': ['--storage_root', str(tmp_path), '--synthetic',
+                      '--epochs', '1', '--units', '8', '--layers', '1'],
+            'evaluate': ['--model_path', str(storage_dir), '--synthetic']}
+    proc = _run_module(
+        'padertorch_tpu_torch.contrib.examples.source_separation.pit.'
+        + entry, *args[entry])
+    assert proc.returncode != 0
+    assert 'cuda' in proc.stderr.lower()
+    assert not (storage_dir / 'eval').exists()
