@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's uPIT separation and training paths once on one
-CUDA card.
+"""Drive the PyTorch port's uPIT and DPRNN-TasNet separation and training
+paths once on one CUDA card.
 
     python3 chip_smoke.py [--profile]
 
@@ -35,6 +35,26 @@ Phases, one line each:
    storage dir loaded back and one request served from it; then one timed
    training step at the recipe's shape and at B=16, T=500, by stage.
 
+8. gru_cell_scan kernels (lean forward, training forward, backward, and
+   the ``autograd.Function``) vs their plain versions at the DPRNN's two
+   shapes (T=100, D*B=520, H=128 without mask; T=65, D*B=800, H=128 with
+   the chunk-length mask of a ragged batch) and at (T=500, D*B=32, H=600,
+   ragged), each with the TF32 control that must fail the limit, and one
+   bidirectional ``torch.nn.GRU`` layer (cuDNN) of the same sizes as a
+   yardstick.
+9. the three LSTM kernels vs plain at the DPRNN's two shapes, timed.
+10. TasNet serving, for ``bgru`` and ``blstm`` chunk RNNs: the full-width
+    model (256 filters of length 20, 64 -> 6 blocks of 128 units, K=100,
+    hop 50, 2 speakers) on the card against the same model on the CPU;
+    then the tasnet recipe's ``evaluate_example`` on the 8 mixtures as 8
+    requests, with launch counts.
+11. TasNet training, for ``bgru`` and ``blstm``: the tasnet recipe's
+    ``get_trainer_config`` at full width, ``test_run``, a short
+    ``Trainer.train`` with validation and checkpoints, launch counts; the
+    first step against the CPU; every trained parameter's gradient finite
+    and nonzero; the storage dir loaded back and one request served; then
+    a timed step at B=4 x 32000 samples and at B=4 x 16000, by stage.
+
 The line before the last is a JSON object with each kernel's launches on
 the main paths, its largest difference from the plain version, its time,
 the plain version's, the library call's where there is one, and the
@@ -60,14 +80,22 @@ from padertorch_tpu_torch.contrib.examples.source_separation.pit import (
     data as pit_data, train as pit_train)
 from padertorch_tpu_torch.contrib.examples.source_separation.pit.evaluate \
     import evaluate_example
+from padertorch_tpu_torch.contrib.examples.source_separation.tasnet import (
+    data as tas_data, evaluate as tas_evaluate, train as tas_train)
+from padertorch_tpu_torch.models.tasnet import TasNet
 from padertorch_tpu_torch.models.bss import PermutationInvariantTrainingModel
 from padertorch_tpu_torch.ops._stft import HostSTFT, STFT
 from padertorch_tpu_torch.io import dump_config
 from padertorch_tpu_torch.ops.kernels import _build
+from padertorch_tpu_torch.ops.kernels import gru as gru_kernels
 from padertorch_tpu_torch.ops.kernels import lstm as lstm_kernels
+from padertorch_tpu_torch.ops.kernels.gru import (
+    gru_cell_scan, gru_cell_scan_plain, gru_cell_scan_train_plain,
+    gru_cell_scan_bwd_plain)
 from padertorch_tpu_torch.ops.kernels.lstm import (
     lstm_cell_scan, lstm_cell_scan_plain, lstm_cell_scan_train_plain,
     lstm_cell_scan_bwd_plain, recurrent_weight_grad)
+from padertorch_tpu_torch.utils.nested import nested_merge
 from padertorch_tpu_torch.ops.kernels.masked_istft import (
     masked_istft, masked_istft_plain)
 from padertorch_tpu_torch.train.hooks import Hook, ValidationHook
@@ -92,6 +120,18 @@ LSTM_GRAD_RTOL = 5e-5
 # first step's loss and gradient norm, card vs CPU, relative: f32 sums in
 # another order (the card shows the same float32 values as the CPU)
 STEP_RTOL = 1e-5
+
+# GRU kernels: the LSTM kernels' limits (the same arithmetic with three
+# gates), each with its TF32 control (phase 8)
+GRU_TOL = 1e-5
+GRU_BWD_TOL = 1e-5
+GRU_GRAD_RTOL = 5e-5
+# full-width TasNet `out` (separated signals of amplitude about 1 after
+# twelve recurrences, layer norms and the decoder), card vs CPU
+TASNET_TOL = 1e-4
+# first TasNet step, card vs CPU: the loss is a mean of log10 ratios, the
+# norm sums 2.6 M gradients through twelve recurrences' adjoints
+TASNET_STEP_RTOL = 1e-4
 
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM, HBM3
 PEAK_F32_FLOPS = 67e12       # H100 SXM, float32 outside the tensor cores
@@ -148,6 +188,14 @@ def lstm_flops(mask, hdim):
     return float(mask.sum()) * (2 * hdim * 4 * hdim + 30 * hdim)
 
 
+def gru_flops(valid_steps, hdim):
+    """As ``lstm_flops`` with three gates: per valid (step, row) one
+    (1, H) x (H, 3H) product and about 25 for the cell.  The backward
+    kernel holds one product of the same size (``dgh @ W_hh^T``; ``dW_hh``
+    is a product outside it)."""
+    return float(valid_steps) * (2 * hdim * 3 * hdim + 25 * hdim)
+
+
 def phase_device():
     if not torch.cuda.is_available():
         fail('torch.cuda.is_available() is False: this script needs a card')
@@ -170,29 +218,56 @@ def phase_build():
           f'{time.perf_counter() - start:.2f} s')
 
 
-def lstm_inputs(device, t_len=500, batch=16, hdim=600, seed=0):
-    """Flagship-shaped kernel inputs: both directions stacked (D*B rows),
-    ragged lengths, suffix padding for the forward direction and prefix
-    padding for the flipped backward direction."""
+# the DPRNN's two recurrence shapes at B=4 x 32000 samples (3199 encoder
+# frames, 65 chunks of 100 with hop 50), and the uPIT flagship's:
+# (label, T, rows per direction, H, mask kind)
+RECURRENCE_SHAPES = [
+    ('intra T=100 D*B=520 H=128', 100, 260, 128, None),
+    ('inter T=65 D*B=800 H=128', 65, 400, 128, 'chunks'),
+    ('T=500 D*B=32 H=600', 500, 16, 600, 'ragged'),
+]
+
+
+def recurrence_mask(t_len, batch, kind, rng):
+    """(T, 2 * batch) mask of both directions, or None.  'chunks': the
+    inter-chunk RNN's, every one of the K=100 positions of an example
+    sharing its chunk count (4 examples of 2 to 4 s); 'ragged': lengths in
+    [T/2, T]."""
+    if kind is None:
+        return None
+    if kind == 'chunks':
+        lens = np.repeat([t_len, t_len - 11, t_len - 20, t_len - 30],
+                         batch // 4)
+    else:
+        lens = rng.randint(t_len // 2, t_len + 1, size=batch)
+        lens[0] = t_len
+    fwd = np.arange(t_len)[:, None] < lens[None, :]
+    return np.concatenate([fwd, fwd[::-1]], axis=1).astype('float32')
+
+
+def recurrence_inputs(t_len, batch, hdim, kind, gates, seed=0):
+    """Kernel inputs and cotangents of a bidirectional layer with
+    ``gates`` gate blocks (3: GRU, 4: LSTM)."""
     rng = np.random.RandomState(seed)
     bound = 1 / np.sqrt(hdim)
-    lens = rng.randint(t_len // 2, t_len + 1, size=batch)
-    lens[0] = t_len
-    fwd = np.arange(t_len)[:, None] < lens[None, :]
-    mask = np.concatenate([fwd, fwd[::-1]], axis=1).astype('float32')
-    arrays = [
-        rng.uniform(-1, 1, (t_len, 2 * batch, 4 * hdim)),
-        rng.uniform(-bound, bound, (2, hdim, 4 * hdim)),
-        mask,
-        rng.uniform(-0.1, 0.1, (2 * batch, hdim)),
-        rng.uniform(-0.1, 0.1, (2 * batch, hdim)),
-    ]
-    return [torch.from_numpy(np.ascontiguousarray(a, 'float32')).to(device)
-            for a in arrays]
+    mask = recurrence_mask(t_len, batch, kind, rng)
+    rows = 2 * batch
+    arrays = [rng.uniform(-1, 1, (t_len, rows, gates * hdim)),
+              rng.uniform(-bound, bound, (2, hdim, gates * hdim)), mask]
+    arrays += [rng.uniform(-0.1, 0.1, (rows, hdim))
+               for _ in range(gates - 2)]                  # h0 (, c0)
+    cot = [rng.uniform(-1, 1, (t_len, rows, hdim))]
+    cot += [rng.uniform(-1, 1, (rows, hdim)) for _ in range(gates - 2)]
+
+    def put(a):
+        return None if a is None else torch.from_numpy(
+            np.ascontiguousarray(a, 'float32')).cuda()
+
+    return [put(a) for a in arrays], [put(a) for a in cot]
 
 
 def phase_lstm():
-    args = lstm_inputs('cuda')
+    args, _ = recurrence_inputs(500, 16, 600, 'ragged', gates=4)
     got = lstm_cell_scan(*args)
     want = lstm_cell_scan_plain(*args)
     torch.cuda.synchronize()
@@ -224,13 +299,13 @@ def phase_lstm():
             'library_ms': library['fwd']}, library
 
 
-def cudnn_lstm_ms(t_len=500, batch=16, in_size=1200, hdim=600):
-    """Yardsticks, timed here and used nowhere in the port: one
-    bidirectional ``torch.nn.LSTM`` layer (cuDNN) at the flagship layer's
-    shape, forward without and with grad mode and backward, and the
-    port's input projection (one einsum) alone."""
+def cudnn_layer_ms(layer_cls, t_len, batch, in_size, hdim):
+    """Yardstick, timed here and used nowhere in the port: one
+    bidirectional ``torch.nn.LSTM`` or ``torch.nn.GRU`` layer (cuDNN; it
+    includes the input projection and takes no mask), forward without and
+    with grad mode, and backward."""
     torch.manual_seed(0)
-    layer = torch.nn.LSTM(in_size, hdim, bidirectional=True).cuda()
+    layer = layer_cls(in_size, hdim, bidirectional=True).cuda()
     x = torch.randn(t_len, batch, in_size, device='cuda')
     with torch.no_grad():
         fwd = cuda_ms(lambda: layer(x), iters=10, warmup=2)
@@ -240,13 +315,20 @@ def cudnn_lstm_ms(t_len=500, batch=16, in_size=1200, hdim=600):
     bwd = cuda_ms(
         lambda: torch.autograd.grad(out, list(layer.parameters()), d_out,
                                     retain_graph=True), iters=10, warmup=2)
+    return {'fwd': fwd, 'fwd_train': fwd_train, 'bwd': bwd}
+
+
+def cudnn_lstm_ms(t_len=500, batch=16, in_size=1200, hdim=600):
+    """The cuDNN yardstick at the flagship layer's shape, and the port's
+    input projection (one einsum) alone."""
+    times = cudnn_layer_ms(torch.nn.LSTM, t_len, batch, in_size, hdim)
+    x = torch.randn(t_len, batch, in_size, device='cuda')
     x_pair = torch.stack([x, x.flip(0)])
     w_ih = torch.randn(2, 4 * hdim, in_size, device='cuda')
-    projection = cuda_ms(
+    times['projection'] = cuda_ms(
         lambda: torch.einsum('dtbf,dgf->tdbg', x_pair, w_ih), iters=10,
         warmup=2)
-    return {'fwd': fwd, 'fwd_train': fwd_train, 'bwd': bwd,
-            'projection': projection}
+    return times
 
 
 def istft_inputs(n_rows, frames, seed=0):
@@ -301,8 +383,10 @@ def ragged_batch(batch, frames, seed=0):
 
 
 def reset_launches():
-    for name in lstm_cell_scan.launches:
-        lstm_cell_scan.launches[name] = 0
+    for wrapper in (lstm_cell_scan, gru_cell_scan):
+        for name in wrapper.launches:
+            wrapper.launches[name] = 0
+    masked_istft.launches = 0
 
 
 def phase_slice():
@@ -325,7 +409,6 @@ def phase_slice():
                     complex_representation='complex')
     examples = list(pit_data.synthetic_database(num_examples=8, seed=2))
     reset_launches()
-    masked_istft.launches = 0
     latencies, results = [], {}
     for example in examples:
         start = time.perf_counter()
@@ -366,7 +449,7 @@ def phase_slice():
 
 def phase_train_kernels(library):
     """Phase 6: the two training kernels and the Function around them."""
-    args = lstm_inputs('cuda')
+    args, _ = recurrence_inputs(500, 16, 600, 'ragged', gates=4)
     gx, w, mask, h0, c0 = args
     rng = np.random.RandomState(1)
     cot = [torch.from_numpy(rng.uniform(-1, 1, shape).astype('float32'))
@@ -467,8 +550,9 @@ class Recorder(Hook):
     card); at the first step, that every trained parameter got a finite
     gradient."""
 
-    def __init__(self):
+    def __init__(self, nonzero=False):
         self.losses, self.norms = [], []
+        self.nonzero = nonzero
 
     def post_step(self, trainer, example, model_output, review):
         self.losses.append(review['scalars']['loss'].detach())
@@ -479,6 +563,8 @@ class Recorder(Hook):
                 continue
             if p.grad is None or not bool(torch.isfinite(p.grad).all()):
                 fail(f'{name} got no finite gradient on the card')
+            if self.nonzero and not float(p.grad.abs().max()) > 0:
+                fail(f'{name} got a zero gradient on the card')
             if p.device.type != 'cuda':
                 fail(f'{name} is on {p.device}')
 
@@ -503,9 +589,11 @@ def train_batch(batch, frames, seed=0):
     }
 
 
-def timed_step(trainer, batch, iters=5):
+def timed_step(trainer, batch, iters=5, loss_key='pit_mse_loss',
+               wrapper=lstm_cell_scan, per_step=3):
     """One training step by stage (CUDA events; ms), and the whole step on
-    the host clock ended by a synchronize."""
+    the host clock ended by a synchronize.  ``wrapper`` is the recurrence
+    the model runs, ``per_step`` its launches per step and kind."""
     model, optimizer = trainer.model, trainer.optimizer
     example = model.example_to_device(batch, 'cuda')
     stages = {}
@@ -522,7 +610,7 @@ def timed_step(trainer, batch, iters=5):
     def step():
         out = stage('forward', lambda: model(example))
         review = stage('review', lambda: model.review(example, out))
-        loss = review['losses']['pit_mse_loss']
+        loss = review['losses'][loss_key]
         stage('backward', loss.backward)
         stage('clip', optimizer.clip_grad)
         stage('adam', optimizer.optimizer.step)
@@ -540,10 +628,11 @@ def timed_step(trainer, batch, iters=5):
         step()
         torch.cuda.synchronize()
         host.append((time.perf_counter() - start) * 1e3)
-    launches = dict(lstm_cell_scan.launches)
-    if launches != {'fwd': 0, 'fwd_train': 3 * iters, 'bwd': 3 * iters}:
-        fail(f'a training step launches 3 fwd_train and 3 bwd kernels, '
-             f'got {launches} in {iters} steps')
+    launches = dict(wrapper.launches)
+    if launches != {'fwd': 0, 'fwd_train': per_step * iters,
+                    'bwd': per_step * iters}:
+        fail(f'a training step launches {per_step} fwd_train and '
+             f'{per_step} bwd kernels, got {launches} in {iters} steps')
     out = {name: float(np.mean([a.elapsed_time(b) for a, b in events]))
            for name, events in stages.items()}
     out['device_sum'] = sum(out.values())
@@ -678,36 +767,449 @@ def phase_training(kernel_times, profile=False):
     return launches
 
 
+def with_tf32(fn):
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        return fn()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def phase_gru_kernels():
+    """Phase 8: the three GRU kernels and the Function around them, at
+    each of RECURRENCE_SHAPES.  Returns {label: {kernel: row}}."""
+    results = {}
+    for label, t_len, batch, hdim, kind in RECURRENCE_SHAPES:
+        args, cot = recurrence_inputs(t_len, batch, hdim, kind, gates=3)
+        gx, w, mask, h0 = args
+        valid = t_len * 2 * batch if mask is None else float(mask.sum())
+
+        def fwd_train():
+            return gru_kernels._launch(gx, w, 2, mask, h0, train=True)
+
+        got = gru_cell_scan(*args)
+        want = gru_cell_scan_plain(*args)
+        got_train = fwd_train()
+        want_train = gru_cell_scan_train_plain(*args)
+        torch.cuda.synchronize()
+        err = {'fwd': max_err(got, want),               # out, h_T
+               # out, acts, gh_n, h_prev, h_T
+               'fwd_train': max_err(got_train, want_train)}
+        _, acts, gh_n, h_prev, _ = want_train
+
+        def bwd():
+            return gru_kernels._launch_bwd(acts, gh_n, h_prev, w, 2, mask,
+                                           *cot)
+
+        def bwd_plain():
+            return gru_cell_scan_bwd_plain(acts, gh_n, h_prev, w, mask,
+                                           *cot)
+
+        got_bwd = bwd()
+        want_bwd = bwd_plain()
+        torch.cuda.synchronize()
+        err['bwd'] = max_err(got_bwd, want_bwd)          # dgx, dgh, dh0
+
+        def grads(fn):
+            leaves = [a.clone().requires_grad_() for a in (gx, w, h0)]
+            outs = fn(leaves[0], leaves[1], mask, leaves[2])
+            if any(o.grad_fn is None for o in outs):
+                fail('gru_cell_scan under grad mode returned a tensor '
+                     'without grad_fn')
+            return torch.autograd.grad(outs, leaves, cot)
+
+        want_grads = grads(gru_cell_scan_plain)
+        err_fn = max_rel_err(grads(gru_cell_scan), want_grads)
+        tf32 = {
+            'fwd': with_tf32(lambda: max_err(
+                gru_cell_scan_plain(*args), want)),
+            'fwd_train': with_tf32(lambda: max_err(
+                gru_cell_scan_train_plain(*args), want_train)),
+            'bwd': with_tf32(lambda: max_err(bwd_plain(), want_bwd)),
+            'fn': with_tf32(lambda: max_rel_err(
+                grads(gru_cell_scan_plain), want_grads)),
+        }
+        plain_iters = 2 if t_len > 100 else 3
+        times = {
+            'fwd': cuda_ms(lambda: gru_cell_scan(*args), iters=20),
+            'fwd_train': cuda_ms(fwd_train, iters=20),
+            'bwd': cuda_ms(bwd, iters=20),
+            'fwd_plain': cuda_ms(lambda: gru_cell_scan_plain(*args),
+                                 iters=plain_iters),
+            'fwd_train_plain': cuda_ms(
+                lambda: gru_cell_scan_train_plain(*args),
+                iters=plain_iters),
+            'bwd_plain': cuda_ms(bwd_plain, iters=plain_iters),
+            'dw': cuda_ms(lambda: gru_kernels.recurrent_weight_grad(
+                got_bwd[1], h_prev, 2), iters=20),
+        }
+        # the input of a DPRNN chunk RNN is 64 wide, of the uPIT layers 1200
+        library = cudnn_layer_ms(torch.nn.GRU, t_len, batch,
+                                 64 if hdim == 128 else 1200, hdim)
+        flops = gru_flops(valid, hdim)
+        limits = {
+            'fwd': bound(nbytes(*args, *got), flops),
+            'fwd_train': bound(nbytes(*args, *got_train), flops),
+            'bwd': bound(nbytes(acts, gh_n, h_prev, w, mask, *cot,
+                                *got_bwd), flops),
+        }
+        tols = {'fwd': GRU_TOL, 'fwd_train': GRU_TOL, 'bwd': GRU_BWD_TOL}
+        for name in ('fwd', 'fwd_train', 'bwd'):
+            print(f'phase 8 gru {name} {label}: max |kernel - plain| '
+                  f'{err[name]:.3e} (tol {tols[name]}), plain with TF32 vs '
+                  f'f32 {tf32[name]:.3e}, kernel {times[name]:.3f} ms, '
+                  f'plain {times[name + "_plain"]:.3f} ms, bound '
+                  f'{limits[name]["bound_ms"]:.4f} ms by '
+                  f'{limits[name]["bound_by"]}, cuDNN nn.GRU layer '
+                  f'{library[name]:.3f} ms')
+            if not err[name] <= tols[name]:
+                fail(f'gru {name} kernel disagrees with plain at {label}: '
+                     f'{err[name]}')
+            if not tf32[name] > tols[name]:
+                fail(f'the limit {tols[name]} does not tell a TF32 product '
+                     f'from f32 for gru {name} at {label}: {tf32[name]}')
+        print(f'phase 8 GRUCellScan vs autograd through plain {label}: max '
+              f'relative difference {err_fn:.3e} over dgates_x, dW_hh, dh0 '
+              f'(tol {GRU_GRAD_RTOL}), with TF32 {tf32["fn"]:.3e}; dW_hh '
+              f'product {times["dw"]:.3f} ms')
+        if not err_fn <= GRU_GRAD_RTOL:
+            fail(f'GRUCellScan disagrees with autograd through the plain '
+                 f'forward at {label}: {err_fn}')
+        if not tf32['fn'] > GRU_GRAD_RTOL:
+            fail(f'the limit {GRU_GRAD_RTOL} does not tell TF32 from f32 '
+                 f'for GRUCellScan at {label}: {tf32["fn"]}')
+        results[label] = {
+            name: {'max_abs_err': err[name], 'ms': times[name],
+                   'plain_ms': times[name + '_plain'], **limits[name],
+                   'library_ms': library[name]}
+            for name in ('fwd', 'fwd_train', 'bwd')}
+        results[label]['dw_ms'] = times['dw']
+    return results
+
+
+def phase_lstm_at_dprnn_shapes():
+    """Phase 9: the three LSTM kernels at the DPRNN's two shapes."""
+    results = {}
+    for label, t_len, batch, hdim, kind in RECURRENCE_SHAPES[:2]:
+        args, cot = recurrence_inputs(t_len, batch, hdim, kind, gates=4)
+        gx, w, mask, h0, c0 = args
+        valid = t_len * 2 * batch if mask is None else float(mask.sum())
+
+        def fwd_train():
+            return lstm_kernels._launch(gx, w, 2, mask, h0, c0, train=True)
+
+        got = lstm_cell_scan(*args)
+        want = lstm_cell_scan_plain(*args)
+        got_train = fwd_train()
+        want_train = lstm_cell_scan_train_plain(*args)
+        _, c_seq, gates, _, _ = want_train
+
+        def bwd():
+            return lstm_kernels._launch_bwd(gates, c_seq, w, 2, mask, *cot)
+
+        got_bwd = bwd()
+        want_bwd = lstm_cell_scan_bwd_plain(gates, c_seq, w, mask, *cot)
+        torch.cuda.synchronize()
+        err = {'fwd': max_err(got, want),
+               'fwd_train': max_err(got_train, want_train),
+               'bwd': max_err(got_bwd, want_bwd)}
+        times = {'fwd': cuda_ms(lambda: lstm_cell_scan(*args), iters=10),
+                 'fwd_train': cuda_ms(fwd_train, iters=10),
+                 'bwd': cuda_ms(bwd, iters=10)}
+        flops = valid * (2 * hdim * 4 * hdim + 30 * hdim)
+        limits = {
+            'fwd': bound(nbytes(*args, *got), flops),
+            'fwd_train': bound(nbytes(*args, *got_train), flops),
+            'bwd': bound(nbytes(gates, c_seq, w, mask, *cot, *got_bwd),
+                         flops)}
+        for name, tol in (('fwd', LSTM_TOL), ('fwd_train', LSTM_TOL),
+                          ('bwd', LSTM_BWD_TOL)):
+            print(f'phase 9 lstm {name} {label}: max |kernel - plain| '
+                  f'{err[name]:.3e} (tol {tol}), kernel '
+                  f'{times[name]:.3f} ms, bound '
+                  f'{limits[name]["bound_ms"]:.4f} ms by '
+                  f'{limits[name]["bound_by"]}')
+            if not err[name] <= tol:
+                fail(f'lstm {name} kernel disagrees with plain at {label}: '
+                     f'{err[name]}')
+        results[label] = times
+    return results
+
+
+def tasnet_updates(rnn_type, extra=None):
+    """The config update that chooses the chunk RNNs, as the recipe's
+    users write it."""
+    return nested_merge({'model': {'separator': {
+        'inter_chunk_type': rnn_type, 'intra_chunk_type': rnn_type}}},
+        extra or {})
+
+
+def tasnet_batch(batch, samples, seed=0):
+    """A ragged batch of random two-speaker mixtures."""
+    rng = np.random.RandomState(seed)
+    lens = rng.randint(samples // 2, samples + 1, size=batch)
+    lens[0] = samples
+    valid = np.arange(samples)[None, :] < lens[:, None]
+    s = (rng.randn(batch, 2, samples) * 0.3 * valid[:, None]).astype(
+        'float32')
+    return {'y': s.sum(1), 's': s, 'num_samples': lens.astype('int32')}
+
+
+def recurrence_of(rnn_type):
+    return gru_cell_scan if rnn_type == 'bgru' else lstm_cell_scan
+
+
+def phase_tasnet_serving(rnn_type):
+    """Phase 10: the full-width DPRNN-TasNet serving path."""
+    wrapper = recurrence_of(rnn_type)
+    torch.manual_seed(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        config = tas_train.get_trainer_config(
+            tmp, updates=tasnet_updates(rnn_type))
+        model_cpu = Trainer.from_config(config).model.eval()
+    width = (model_cpu.encoder.feature_size,
+             model_cpu.separator.input_size,
+             len(model_cpu.separator.dprnn_blocks),
+             model_cpu.separator.dprnn_blocks[0].intra_chunk_rnn.rnn
+             .hidden_size)
+    if width != (256, 64, 6, 128):
+        fail(f'not the full-width DPRNN-TasNet: {width}')
+    model = copy.deepcopy(model_cpu).to('cuda')
+    batch = tasnet_batch(4, 16000)
+    with torch.no_grad():
+        want = model_cpu(model_cpu.example_to_device(batch))['out']
+        got = model(model.example_to_device(batch))['out'].cpu()
+    err = float((got - want).abs().max())
+    print(f'phase 10a {rnn_type} full-width TasNet B=4 x 16000 samples, '
+          f'card vs CPU: max |diff| of out {err:.3e} (tol {TASNET_TOL}, '
+          f'peak {float(want.abs().max()):.3f})')
+    if got.shape != (4, 2, 16000) or not err <= TASNET_TOL:
+        fail(f'TasNet on the card disagrees with the CPU: {err}')
+
+    examples = list(tas_data.synthetic_database(num_examples=8, seed=2))
+    reset_launches()
+    latencies, results = [], {}
+    for example in examples:
+        start = time.perf_counter()
+        example_id, metrics = tas_evaluate.evaluate_example(model, example)
+        latencies.append((time.perf_counter() - start) * 1e3)
+        results[example_id] = metrics
+    launches = dict(wrapper.launches)
+    with torch.no_grad():
+        request = model.example_to_device(tas_data.post_batch_transform(
+            [examples[0]]))
+        forward_ms = cuda_ms(lambda: model(request), iters=5, warmup=2)
+    print(f'phase 10b {rnn_type} served {len(results)} requests, latency ms '
+          f'{[round(x, 3) for x in latencies]} (median '
+          f'{np.median(latencies):.3f}), launches {launches}; model forward '
+          f'of one request ({examples[0]["observation"].shape[-1]} samples) '
+          f'{forward_ms:.3f} ms')
+    if launches != {'fwd': 12 * 8, 'fwd_train': 0, 'bwd': 0}:
+        fail(f'8 requests launch 12 lean forward kernels each, got '
+             f'{launches}')
+    for example_id, metrics in results.items():
+        values = np.asarray(metrics['output_si_sdr']
+                            + metrics['output_mir_eval_sxr_sdr'])
+        if values.shape != (4,) or not np.isfinite(values).all():
+            fail(f'{example_id}: bad output metrics {metrics}')
+    _, ref = tas_evaluate.evaluate_example(model_cpu, examples[0])
+    diff = np.abs(np.subtract(
+        ref['output_si_sdr'],
+        results[examples[0]['example_id']]['output_si_sdr'])).max()
+    print(f'phase 10c {rnn_type} {examples[0]["example_id"]} SI-SDR card vs '
+          f'CPU: max |diff| {diff:.3e} dB (tol {SI_SDR_TOL})')
+    if not diff <= SI_SDR_TOL:
+        fail(f'TasNet SI-SDR on the card disagrees with the CPU: {diff}')
+    return launches['fwd']
+
+
+def phase_tasnet_training(rnn_type, profile=False):
+    """Phase 11: the tasnet recipe's trainer at full width on the card."""
+    wrapper = recurrence_of(rnn_type)
+    torch.manual_seed(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        storage_dir = Path(tmp) / 'tasnet' / '1'
+        config = tas_train.get_trainer_config(
+            storage_dir, updates=tasnet_updates(rnn_type, {
+                'stop_trigger': (2, 'epoch'),
+                'summary_trigger': (8, 'iteration')}))
+        dump_config({'trainer': config}, storage_dir / 'config.json')
+        trainer = Trainer.from_config(config)
+        model_cpu = copy.deepcopy(trainer.model)
+        trainer.to('cuda')
+
+        # the recipe's --synthetic data: segments of 8000 samples
+        train_ds = tas_data.synthetic_database(num_examples=32)
+        dev_ds = tas_data.synthetic_database(num_examples=8, seed=1)
+        train = tas_data.prepare_dataset(
+            train_ds, batch_size=4, segment_length=8000, shuffle=False,
+            prefetch=False)
+        dev = tas_data.prepare_dataset(
+            dev_ds, batch_size=4, segment_length=8000, shuffle=False,
+            prefetch=False)
+        n_dev = len(list(dev))
+
+        start = time.perf_counter()
+        trainer.test_run(train, dev)
+        print(f'phase 11a {rnn_type} test_run passed on the card in '
+              f'{time.perf_counter() - start:.2f} s')
+
+        recorder = Recorder(nonzero=True)
+        trainer.register_hook(recorder)
+        trainer.register_validation_hook(dev, metric='si-sdr')
+        reset_launches()
+        start = time.perf_counter()
+        trainer.train(train)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        launches = dict(wrapper.launches)
+        iterations = trainer.iteration
+        losses = [float(x) for x in recorder.losses]
+        norms = [float(x) for x in recorder.norms]
+        hook, = [h for h in trainer.hooks if isinstance(h, ValidationHook)]
+        half = iterations // 2
+        print(f'phase 11b {rnn_type} trained {iterations} iterations in '
+              f'{seconds:.2f} s (validations and checkpoints included), '
+              f'launches {launches}; training loss first half mean '
+              f'{np.mean(losses[:half]):.4f}, second half mean '
+              f'{np.mean(losses[half:]):.4f}; ranking {hook.ckpt_ranking}')
+        if iterations < 8 or len(losses) != iterations:
+            fail(f'expected at least 8 iterations, got {iterations}')
+        if not (np.isfinite(losses).all() and np.isfinite(norms).all()):
+            fail(f'non-finite loss or gradient norm: {losses} {norms}')
+        validations = trainer.epoch + 1  # at iteration 0 and every epoch
+        want = {'fwd': 12 * n_dev * validations,
+                'fwd_train': 12 * iterations, 'bwd': 12 * iterations}
+        if launches != want or validations != 3:
+            fail(f'launches {launches}, expected {want}: 12 fwd_train and '
+                 f'12 bwd per step, 12 fwd per validation batch '
+                 f'({n_dev} batches, {validations} validations)')
+        if not np.mean(losses[half:]) < np.mean(losses[:half]):
+            fail('the training loss did not fall')
+
+        # the first step once more on the CPU, from the same weights
+        batch = next(iter(train))
+        cpu = Trainer(model_cpu.train(), Path(tmp) / 'cpu',
+                      Adam(gradient_clipping=5.0),
+                      loss_weights=config['loss_weights'])
+        loss_cpu, _, _, _ = cpu.train_step(cpu.model, batch)
+        loss_cpu.backward()
+        loss_cpu = float(loss_cpu.detach())
+        norm_cpu = float(cpu.optimizer.clip_grad())
+        rel_loss = abs(losses[0] - loss_cpu) / abs(loss_cpu)
+        rel_norm = abs(norms[0] - norm_cpu) / norm_cpu
+        print(f'phase 11c {rnn_type} first step card vs CPU: loss '
+              f'{losses[0]:.9g} vs {loss_cpu:.9g} (relative '
+              f'{rel_loss:.3e}), gradient norm {norms[0]:.9g} vs '
+              f'{norm_cpu:.9g} (relative {rel_norm:.3e}); tol '
+              f'{TASNET_STEP_RTOL}')
+        if not (rel_loss <= TASNET_STEP_RTOL
+                and rel_norm <= TASNET_STEP_RTOL):
+            fail('the first TasNet training step on the card disagrees '
+                 'with the CPU')
+
+        ckpt_dir = storage_dir / 'checkpoints'
+        names = sorted(p.name for p in ckpt_dir.iterdir())
+        for name in (f'ckpt_{iterations}.ptt', 'ckpt_latest.ptt',
+                     'ckpt_best_si-sdr.ptt', 'ckpt_ranking.json'):
+            if name not in names:
+                fail(f'{name} missing from {names}')
+        if not any('tfevents' in p.name for p in storage_dir.iterdir()):
+            fail('no event file in the storage dir')
+        loaded = TasNet.from_storage_dir(
+            storage_dir, checkpoint_name='ckpt_best_si-sdr.ptt').to(
+                'cuda').eval()
+        example = next(iter(tas_data.synthetic_database(
+            num_examples=1, seed=2)))
+        _, metrics = tas_evaluate.evaluate_example(loaded, example)
+        if not np.isfinite(metrics['output_si_sdr']).all():
+            fail(f'bad metrics from the trained model: {metrics}')
+        print(f'phase 11d {rnn_type} storage dir {names} loads; one request '
+              f'served from it: SI-SDR {metrics["output_si_sdr"]}')
+
+        for samples in (32000, 16000):
+            batch = tasnet_batch(4, samples, seed=1)
+            t = timed_step(trainer, batch, loss_key='si-sdr',
+                           wrapper=wrapper, per_step=12)
+            print(f'phase 11e {rnn_type} training step B=4 x {samples} '
+                  f'samples: '
+                  + ', '.join(f'{k} {v:.3f} ms' for k, v in t.items()))
+            if profile:
+                profile_step(trainer, batch,
+                             f'{rnn_type} B=4 x {samples}')
+    return launches
+
+
 def main():
+    profile = '--profile' in sys.argv[1:]
     phase_device()
     phase_build()
     lstm, library = phase_lstm()
     istft = phase_istft()
     launches = phase_slice()
     train_kernels, kernel_times = phase_train_kernels(library)
-    train_launches = phase_training(kernel_times,
-                                    profile='--profile' in sys.argv[1:])
+    train_launches = phase_training(kernel_times, profile=profile)
     for name in ('fwd_train', 'bwd'):
         if train_launches[name] == 0:
             fail(f'the training path never launched the {name} kernel')
+    gru = phase_gru_kernels()
+    lstm_dprnn = phase_lstm_at_dprnn_shapes()
+    served = {rnn_type: phase_tasnet_serving(rnn_type)
+              for rnn_type in ('bgru', 'blstm')}
+    trained = {rnn_type: phase_tasnet_training(rnn_type, profile=profile)
+               for rnn_type in ('bgru', 'blstm')}
+    gru_launches = {'fwd': served['bgru'] + trained['bgru']['fwd'],
+                    'fwd_train': trained['bgru']['fwd_train'],
+                    'bwd': trained['bgru']['bwd']}
+    for name, n in gru_launches.items():
+        if n == 0:
+            fail(f'the TasNet paths never launched the gru {name} kernel')
+    # the LSTM kernels' launches: the uPIT paths plus the TasNet paths
+    # with LSTM chunk RNNs
+    lstm_launches = {
+        'fwd': launches['lstm_cell_scan'] + served['blstm']
+        + trained['blstm']['fwd'],
+        'fwd_train': train_launches['fwd_train']
+        + trained['blstm']['fwd_train'],
+        'bwd': train_launches['bwd'] + trained['blstm']['bwd']}
+    print(f'launches on the main paths: lstm {lstm_launches} (uPIT serving '
+          f'{launches["lstm_cell_scan"]}, uPIT training {train_launches}, '
+          f'TasNet blstm serving {served["blstm"]}, training '
+          f'{trained["blstm"]}); gru {gru_launches}; LSTM kernels at '
+          f'DPRNN shapes (ms): {lstm_dprnn}')
+    # the GRU rows are those of the intra-chunk shape, which six of a
+    # model's twelve chunk RNNs run
+    gru_rows = gru[RECURRENCE_SHAPES[0][0]]
     kernels = [
         {'name': 'lstm_cell_scan', 'route': 'cuda',
          'source': 'padertorch_tpu_torch/csrc/lstm_cell_scan.cu',
          'replaces': 'padertorch_tpu/ops/pallas/lstm.py:275',
-         'launches': launches['lstm_cell_scan'], **lstm},
+         'launches': lstm_launches['fwd'], **lstm},
         {'name': 'lstm_cell_scan_train', 'route': 'cuda',
          'source': 'padertorch_tpu_torch/csrc/lstm_cell_scan.cu',
          'replaces': 'padertorch_tpu/ops/pallas/lstm.py:293',
-         'launches': train_launches['fwd_train'],
+         'launches': lstm_launches['fwd_train'],
          **train_kernels['fwd_train']},
         {'name': 'lstm_cell_scan_bwd', 'route': 'cuda',
          'source': 'padertorch_tpu_torch/csrc/lstm_cell_scan_bwd.cu',
          'replaces': 'padertorch_tpu/ops/pallas/lstm.py:339',
-         'launches': train_launches['bwd'], **train_kernels['bwd']},
+         'launches': lstm_launches['bwd'], **train_kernels['bwd']},
         {'name': 'masked_istft', 'route': 'cuda',
          'source': 'padertorch_tpu_torch/csrc/masked_istft.cu',
          'replaces': 'padertorch_tpu/ops/pallas/masked_istft.py:135',
          'launches': launches['masked_istft'], **istft[(2, 127)]},
+        {'name': 'gru_cell_scan', 'route': 'cuda',
+         'source': 'padertorch_tpu_torch/csrc/gru_cell_scan.cu',
+         'replaces': 'padertorch_tpu/ops/pallas/gru.py:182',
+         'launches': gru_launches['fwd'], **gru_rows['fwd']},
+        {'name': 'gru_cell_scan_train', 'route': 'cuda',
+         'source': 'padertorch_tpu_torch/csrc/gru_cell_scan.cu',
+         'replaces': 'padertorch_tpu/ops/pallas/gru.py:198',
+         'launches': gru_launches['fwd_train'], **gru_rows['fwd_train']},
+        {'name': 'gru_cell_scan_bwd', 'route': 'cuda',
+         'source': 'padertorch_tpu_torch/csrc/gru_cell_scan_bwd.cu',
+         'replaces': 'padertorch_tpu/ops/pallas/gru.py:259',
+         'launches': gru_launches['bwd'], **gru_rows['bwd']},
     ]
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

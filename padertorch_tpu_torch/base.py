@@ -34,8 +34,9 @@ class Model(torch.nn.Module, Configurable):
       - ``scalars``: dict name -> scalar/tensor (aggregated as means),
       - ``histograms``: dict name -> tensor of values,
       - ``images``: dict name -> image array [*, H, W] in [0, 1],
-      - ``audios``, ``texts``, ``figures``: accepted, but the event writer
-        does not write them yet,
+      - ``audios``: dict name -> signal or (signal, sampling rate),
+      - ``texts``, ``figures``: accepted, but the event writer does not
+        write them yet,
       - ``buffers``: dict name -> tensor, collected across steps for
         custom aggregation in ``modify_summary``,
       - ``snapshots``: dict name -> tensor, keep-last (only computed when

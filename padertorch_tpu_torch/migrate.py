@@ -4,13 +4,20 @@ The JAX package's ``state_dict()`` names arrays by their pytree path and
 keeps its own layouts; the port keeps torch's.  Per layer type (JAX ->
 port):
 
-- ``LSTM``: ``w_ih.{i}`` (in, 4H) -> ``weight_ih_l{k}[_reverse]`` (4H, in)
-  and ``w_hh.{i}`` (H, 4H) -> ``weight_hh_l{k}[_reverse]`` (4H, H),
-  transposed, with i = num_directions * k + direction; the fused bias
-  ``b.{i}`` goes to ``bias_ih`` and ``bias_hh`` is zero (the cell only
-  uses their sum); the other way, ``b.{i} = bias_ih + bias_hh``;
+- ``LSTM``, ``GRU`` (G = 4 or 3 gate blocks): ``w_ih.{i}`` (in, G*H) ->
+  ``weight_ih_l{k}[_reverse]`` (G*H, in) and ``w_hh.{i}`` (H, G*H) ->
+  ``weight_hh_l{k}[_reverse]`` (G*H, H), transposed, with
+  i = num_directions * k + direction; the fused bias ``b.{i}`` goes to
+  ``bias_ih`` and ``bias_hh`` is zero (the cell only uses their sum); the
+  other way, ``b.{i} = bias_ih + bias_hh``.  The JAX GRU has no hidden
+  bias inside ``r * (...)``: a GRU whose ``bias_hh`` n block is not zero
+  (a loaded ``torch.nn.GRU`` state) has no JAX counterpart and is refused;
 - ``Linear``: ``weight`` (in, out) -> (out, in), transposed; ``bias``
-  copied.
+  copied;
+- ``ConvTranspose1d``: ``weight`` (out, in, k) -> (in, out, k), axes 0 and
+  1 swapped (the JAX layer flips the taps in its forward, so the values
+  are torch's); ``bias`` copied;
+- ``Conv1d`` (OIH in both), ``LayerNorm``, ``PReLU``: copied.
 
 :func:`to_jax_state_dict` is the inverse of :func:`from_jax_state_dict`:
 the port's trainer writes its checkpoints' ``model`` entry with it, so
@@ -21,9 +28,13 @@ JAX model.)
 import numpy as np
 import torch
 
-from padertorch_tpu_torch.modules.recurrent import LSTM
+from padertorch_tpu_torch.modules.recurrent import GRU, _RNNBase
 
 __all__ = ['from_jax_state_dict', 'to_jax_state_dict']
+
+
+def _swap01(a):
+    return np.swapaxes(a, 0, 1)
 
 
 def _jax_to_port(model):
@@ -31,7 +42,7 @@ def _jax_to_port(model):
     pairs = {}
     for name, mod in model.named_modules():
         dot = f'{name}.' if name else ''
-        if isinstance(mod, LSTM):
+        if isinstance(mod, _RNNBase):
             for layer in range(mod.num_layers):
                 for d, suffix in enumerate(mod._suffixes()):
                     i = layer * mod.num_directions + d
@@ -41,16 +52,24 @@ def _jax_to_port(model):
                     pairs[f'{dot}w_hh.{i}'] = [(p['weight_hh'], np.transpose)]
                     pairs[f'{dot}b.{i}'] = [(p['bias_ih'], np.asarray),
                                             (p['bias_hh'], np.zeros_like)]
-        elif isinstance(mod, torch.nn.Linear):
-            pairs[f'{dot}weight'] = [(mod.weight, np.transpose)]
-            if mod.bias is not None:
+        elif isinstance(mod, (torch.nn.Linear, torch.nn.ConvTranspose1d,
+                              torch.nn.Conv1d, torch.nn.LayerNorm,
+                              torch.nn.PReLU)):
+            convert = (np.transpose if isinstance(mod, torch.nn.Linear)
+                       else _swap01 if isinstance(mod,
+                                                  torch.nn.ConvTranspose1d)
+                       else np.asarray)
+            if mod.weight is not None:
+                pairs[f'{dot}weight'] = [(mod.weight, convert)]
+            if getattr(mod, 'bias', None) is not None:
                 pairs[f'{dot}bias'] = [(mod.bias, np.asarray)]
     covered = {id(p) for targets in pairs.values() for p, _ in targets}
     missed = [n for n, p in model.named_parameters() if id(p) not in covered]
     if missed:
         raise NotImplementedError(
-            f'no JAX layout known for the parameters {missed}: only LSTM '
-            'and Linear layers move between the packages yet')
+            f'no JAX layout known for the parameters {missed}: only LSTM, '
+            'GRU, Linear, Conv1d, ConvTranspose1d, LayerNorm and PReLU '
+            'layers move between the packages yet')
     return pairs
 
 
@@ -83,10 +102,22 @@ def to_jax_state_dict(model):
     """``model``'s parameters in the JAX model's ``state_dict()`` layout
     (``{dotted name: numpy array}``): the inverse of
     :func:`from_jax_state_dict`.  Where several parameters share one JAX
-    array (the LSTM's two biases), their sum is written."""
+    array (a recurrent layer's two biases), their sum is written.  Raises
+    ``ValueError`` for a GRU whose ``bias_hh`` n block is not zero."""
+    for name, mod in model.named_modules():
+        if not isinstance(mod, GRU):
+            continue
+        for bias_name, p in mod.named_parameters(recurse=False):
+            if bias_name.startswith('bias_hh') and bool(
+                    p.detach()[2 * mod.hidden_size:].ne(0).any()):
+                raise ValueError(
+                    f'{name}.{bias_name}: the n block of a GRU hidden bias '
+                    'sits inside r * (W_hn h + b_hn); the JAX GRU has no '
+                    'such bias, so it cannot be folded into its fused '
+                    'bias')
     sd = {}
     for name, targets in _jax_to_port(model).items():
         params = [param.detach().cpu().numpy() for param, _ in targets]
-        convert = targets[0][1]  # transposes are their own inverse
+        convert = targets[0][1]  # every converter is its own inverse
         sd[name] = np.ascontiguousarray(convert(sum(params[1:], params[0])))
     return sd

@@ -2,13 +2,15 @@
 
 Counterpart of ``padertorch_tpu/nn.py``.  The port uses torch's layers
 and their parameter layouts, e.g. ``Linear.weight`` is (out, in) where the
-JAX package stores (in, out); ``migrate.from_jax_state_dict`` moves
-weights between the two.
+JAX package stores (in, out), and ``ConvTranspose1d.weight`` is
+(in, out, k) where the JAX package stores (out, in, k);
+``migrate.from_jax_state_dict`` moves weights between the two.
 """
 from torch.nn import (  # noqa: F401
-    Dropout, ELU, GELU, GLU, Identity, LeakyReLU, Linear, Module, PReLU,
-    ReLU, Sigmoid, SiLU, Softmax, Tanh,
+    Conv1d, ConvTranspose1d, Dropout, ELU, GELU, GLU, Identity, LayerNorm,
+    LeakyReLU, Linear, Module, PReLU, ReLU, Sigmoid, SiLU, Softmax, Tanh,
 )
 
-__all__ = ['Linear', 'Dropout', 'ReLU', 'LeakyReLU', 'ELU', 'GELU',
-           'Sigmoid', 'Tanh', 'Softmax', 'PReLU', 'GLU', 'SiLU', 'Identity']
+__all__ = ['Linear', 'Conv1d', 'ConvTranspose1d', 'LayerNorm', 'Dropout',
+           'ReLU', 'LeakyReLU', 'ELU', 'GELU', 'Sigmoid', 'Tanh', 'Softmax',
+           'PReLU', 'GLU', 'SiLU', 'Identity']

@@ -1,0 +1,245 @@
+"""GRU cell recurrence over time: inference forward, training forward and
+backward.
+
+Counterpart of ``padertorch_tpu/ops/pallas/gru.py`` ``gru_cell_scan`` with
+its custom VJP (torch semantics, one fused input bias inside ``gates_x``)::
+
+    gh = h_prev @ W_hh                   # (rows, 3H): r, z, n blocks
+    r  = sigmoid(gx_r + gh_r)
+    z  = sigmoid(gx_z + gh_z)
+    n  = tanh(gx_n + r * gh_n)
+    h  = (1 - z) * n + z * h_prev
+
+On a CUDA tensor :func:`gru_cell_scan` launches hand-written kernels, one
+cooperative launch each for all T steps and both directions: without
+gradients the lean forward of ``csrc/gru_cell_scan.cu``; when a gradient is
+asked for, through :class:`GRUCellScan`, the training forward of the same
+file and, in ``backward``, the adjoint recurrence of
+``csrc/gru_cell_scan_bwd.cu``.  ``dW_hh`` is a matrix product outside the
+kernels, as in the JAX package.
+
+The training forward stores, per step, the gates ``acts`` = r|z|n and
+``gh_n`` as computed (also on a masked step), and ``h_prev``, the state the
+step started from.  The JAX package rebuilds ``h_prev`` from the shifted
+outputs plus a segment-start term, which is exact only for
+contiguous-valid masks; the kernel has ``h_prev`` in shared memory anyway,
+so it writes it out, and the backward is exact for any mask.
+
+On a CPU tensor :func:`gru_cell_scan` runs :func:`gru_cell_scan_plain`, a
+Python time loop of per-direction matmuls that autograd differentiates.
+:func:`gru_cell_scan_train_plain` and :func:`gru_cell_scan_bwd_plain`
+repeat the two training kernels' arithmetic step by step; tests hold the
+kernels against them.
+"""
+import torch
+
+from padertorch_tpu_torch.ops.kernels import _build
+from padertorch_tpu_torch.ops.kernels.lstm import (
+    _check, _norm_w, sum_outer)
+
+__all__ = ['gru_cell_scan', 'gru_cell_scan_plain', 'GRUCellScan',
+           'gru_cell_scan_train_plain', 'gru_cell_scan_bwd_plain',
+           'recurrent_weight_grad']
+
+
+def _cell(gx, gh, h, hdim):
+    """One GRU step from the two projections -> (r, z, n, gh_n, h_new)."""
+    gx_r, gx_z, gx_n = gx.split(hdim, dim=-1)
+    gh_r, gh_z, gh_n = gh.split(hdim, dim=-1)
+    r = torch.sigmoid(gx_r + gh_r)
+    z = torch.sigmoid(gx_z + gh_z)
+    n = torch.tanh(gx_n + r * gh_n)
+    return r, z, n, gh_n, (1 - z) * n + z * h
+
+
+def gru_cell_scan_train_plain(gates_x, w_hh, mask, h0):
+    """Plain PyTorch version of the training forward kernel.
+
+    Returns ``(out, acts, gh_n, h_prev, h_T)``: beside the outputs of
+    :func:`gru_cell_scan_plain`, ``acts`` (T, rows, 3H) holds the gates
+    r, z, n and ``gh_n`` (T, rows, H) the n block of ``h_prev @ W_hh``, both
+    as computed (also on a masked step), and ``h_prev`` (T, rows, H) the
+    state every step started from (through padding, the frozen state).
+    """
+    w, n_dir = _norm_w(w_hh)
+    t_len, rows, g3 = gates_x.shape
+    hdim = g3 // 3
+    h = h0
+    outs, acts, ghns, h_prevs = [], [], [], []
+    for t in range(t_len):
+        gh = torch.bmm(h.reshape(n_dir, rows // n_dir, hdim), w)
+        r, z, n, gh_n, h_new = _cell(gates_x[t], gh.reshape(rows, g3), h,
+                                     hdim)
+        if mask is None:
+            h_out = h_new
+        else:
+            m = mask[t][:, None]
+            h_new = torch.where(m > 0, h_new, h)
+            h_out = h_new * m
+        acts.append(torch.cat([r, z, n], dim=-1))
+        ghns.append(gh_n)
+        h_prevs.append(h)
+        outs.append(h_out)
+        h = h_new
+    return (torch.stack(outs), torch.stack(acts), torch.stack(ghns),
+            torch.stack(h_prevs), h)
+
+
+def gru_cell_scan_plain(gates_x, w_hh, mask, h0):
+    """Plain PyTorch version of :func:`gru_cell_scan` (same contract)."""
+    out, _, _, _, h_t = gru_cell_scan_train_plain(gates_x, w_hh, mask, h0)
+    return out, h_t
+
+
+def gru_cell_scan_bwd_plain(acts, gh_n, h_prev, w_hh, mask, d_out, dh_t):
+    """Plain PyTorch version of the backward kernel: the adjoint recurrence
+    in reverse time from the stored residuals.
+
+    Returns ``(dgates_x, dgh, dh0)``: the adjoints of the two
+    pre-activation streams, both (T, rows, 3H), which differ in the n block
+    (``da_n`` against ``da_n * r``); ``dgh`` feeds ``dh_prev`` and
+    ``dW_hh``, ``dgates_x`` the input projection.
+    """
+    w, n_dir = _norm_w(w_hh)
+    t_len, rows, g3 = acts.shape
+    hdim = g3 // 3
+    w_t = w.transpose(1, 2)
+    dh_carry = dh_t
+    dgx, dgh = [None] * t_len, [None] * t_len
+    for t in reversed(range(t_len)):
+        r, z, n = acts[t].split(hdim, dim=-1)
+        dh = dh_carry + d_out[t]
+        dz_pre = dh * (h_prev[t] - n) * z * (1 - z)
+        da_n = dh * (1 - z) * (1 - n * n)
+        da_r = da_n * gh_n[t] * r * (1 - r)
+        dgx_t = torch.cat([da_r, dz_pre, da_n], dim=-1)
+        dgh_t = torch.cat([da_r, dz_pre, da_n * r], dim=-1)
+        if mask is not None:
+            m = mask[t][:, None]
+            dgx_t = dgx_t * m
+            dgh_t = dgh_t * m
+        dh_prev = torch.bmm(dgh_t.reshape(n_dir, rows // n_dir, g3),
+                            w_t).reshape(rows, hdim) + dh * z
+        if mask is not None:
+            dh_prev = torch.where(m > 0, dh_prev, dh_carry)
+        dgx[t], dgh[t] = dgx_t, dgh_t
+        dh_carry = dh_prev
+    return torch.stack(dgx), torch.stack(dgh), dh_carry
+
+
+def recurrent_weight_grad(dgh, h_prev, n_dir):
+    """``dW_hh`` (D, H, 3H) = sum_t h_{t-1}^T dgh_t per direction, from the
+    stored ``h_prev`` (``dgh`` is zero on masked steps)."""
+    return sum_outer(h_prev, dgh, n_dir)
+
+
+def _launch(gates_x, w, n_dir, mask, h0, train=False):
+    """Launch the forward kernel; with ``train`` the variant that also
+    returns the residuals ``acts``, ``gh_n`` and ``h_prev``."""
+    t_len, rows, g3 = gates_x.shape
+    hdim = g3 // 3
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=gates_x.device)
+
+    out, h_t, hbuf = (empty(t_len, rows, hdim), empty(rows, hdim),
+                      empty(2, rows, hdim))
+    lib = _build.load_library()
+    stream, device = _build.stream_and_device(gates_x)
+    inputs = (gates_x.data_ptr(), w.data_ptr(),
+              None if mask is None else mask.data_ptr(),
+              h0.data_ptr(), out.data_ptr())
+    sizes = (t_len, n_dir, rows // n_dir, hdim, device, stream)
+    if train:
+        acts, gh_n, h_prev = (empty(t_len, rows, g3),
+                              empty(t_len, rows, hdim),
+                              empty(t_len, rows, hdim))
+        err = lib.gru_cell_scan_fwd_train(
+            *inputs, acts.data_ptr(), gh_n.data_ptr(), h_prev.data_ptr(),
+            h_t.data_ptr(), hbuf.data_ptr(), *sizes)
+        _build.check(lib, err, 'gru_cell_scan training forward kernel')
+        gru_cell_scan.launches['fwd_train'] += 1
+        return out, acts, gh_n, h_prev, h_t
+    err = lib.gru_cell_scan_fwd(*inputs, h_t.data_ptr(), hbuf.data_ptr(),
+                                *sizes)
+    _build.check(lib, err, 'gru_cell_scan kernel')
+    gru_cell_scan.launches['fwd'] += 1
+    return out, h_t
+
+
+def _launch_bwd(acts, gh_n, h_prev, w, n_dir, mask, d_out, dh_t):
+    t_len, rows, g3 = acts.shape
+    dgx = torch.empty_like(acts)
+    dgh = torch.empty_like(acts)
+    dh0 = torch.empty_like(dh_t)
+    lib = _build.load_library()
+    stream, device = _build.stream_and_device(acts)
+    err = lib.gru_cell_scan_bwd(
+        acts.data_ptr(), gh_n.data_ptr(), h_prev.data_ptr(), w.data_ptr(),
+        None if mask is None else mask.data_ptr(), d_out.data_ptr(),
+        dh_t.data_ptr(), dgx.data_ptr(), dgh.data_ptr(), dh0.data_ptr(),
+        t_len, n_dir, rows // n_dir, g3 // 3, device, stream)
+    _build.check(lib, err, 'gru_cell_scan backward kernel')
+    gru_cell_scan.launches['bwd'] += 1
+    return dgx, dgh, dh0
+
+
+class GRUCellScan(torch.autograd.Function):
+    """:func:`gru_cell_scan` on CUDA tensors with a gradient: ``forward``
+    is the training forward kernel, ``backward`` the backward kernel plus
+    the ``dW_hh`` matrix product.  ``w`` is (D, H, 3H)."""
+
+    @staticmethod
+    def forward(ctx, gates_x, w, mask, h0):
+        out, acts, gh_n, h_prev, h_t = _launch(
+            gates_x, w, w.shape[0], mask, h0, train=True)
+        ctx.save_for_backward(w, mask, acts, gh_n, h_prev)
+        return out, h_t
+
+    @staticmethod
+    def backward(ctx, d_out, dh_t):
+        w, mask, acts, gh_n, h_prev = ctx.saved_tensors
+        n_dir = w.shape[0]
+        d_out = (torch.zeros_like(gh_n) if d_out is None
+                 else d_out.contiguous())
+        dh_t = (torch.zeros_like(gh_n[0]) if dh_t is None
+                else dh_t.contiguous())
+        dgx, dgh, dh0 = _launch_bwd(
+            acts, gh_n, h_prev, w, n_dir, mask, d_out, dh_t)
+        return dgx, recurrent_weight_grad(dgh, h_prev, n_dir), None, dh0
+
+
+def gru_cell_scan(gates_x, w_hh, mask, h0):
+    """Run the GRU cell recurrence over time.
+
+    Args:
+        gates_x: (T, rows, 3H) float32, the precomputed ``x @ W_ih + b``
+            (gate order r, z, n).  For a direction-stacked call,
+            rows = D * B and row block d belongs to direction d.
+        w_hh: (H, 3H) recurrent weights, or (D, H, 3H) per direction
+            (``h @ w_hh`` layout); there is no hidden bias.
+        mask: (T, rows) validity mask or None; where it is 0, h keeps its
+            value and the output is 0.
+        h0: (rows, H) initial state.
+
+    Returns:
+        (out (T, rows, H), h_T).  CPU tensors run the plain version; CUDA
+        tensors launch the kernels (or raise): the lean forward, or, when
+        grad mode is on and an input requires a gradient, the training
+        forward, whose ``backward`` is a kernel too.
+        ``gru_cell_scan.launches`` counts the launches per kernel
+        (``fwd``, ``fwd_train``, ``bwd``).
+    """
+    w, n_dir = _norm_w(w_hh)
+    if gates_x.device.type == 'cpu':
+        return gru_cell_scan_plain(gates_x, w_hh, mask, h0)
+    if gates_x.device.type != 'cuda':
+        raise ValueError(f'no kernel for device {gates_x.device}')
+    _check(gates_x, w, n_dir, mask, h0, n_gates=3)
+    if torch.is_grad_enabled() and any(
+            x.requires_grad for x in (gates_x, w, h0)):
+        return GRUCellScan.apply(gates_x, w, mask, h0)
+    return _launch(gates_x, w, n_dir, mask, h0)
+
+
+gru_cell_scan.launches = {'fwd': 0, 'fwd_train': 0, 'bwd': 0}

@@ -27,11 +27,11 @@ from padertorch_tpu_torch.ops.kernels import _build
 
 __all__ = ['lstm_cell_scan', 'lstm_cell_scan_plain', 'LSTMCellScan',
            'lstm_cell_scan_train_plain', 'lstm_cell_scan_bwd_plain',
-           'recurrent_weight_grad']
+           'recurrent_weight_grad', 'sum_outer', 'time_groups']
 
 
 def _norm_w(w_hh):
-    """-> (w (D, H, 4H), D)."""
+    """-> (w (D, H, gates * H), D)."""
     if w_hh.dim() == 2:
         return w_hh[None], 1
     return w_hh, w_hh.shape[0]
@@ -131,6 +131,37 @@ def lstm_cell_scan_bwd_plain(gates, c_seq, w_hh, mask, d_out, dh_t, dc_t):
     return torch.stack(dgx), dh_carry, dc_carry
 
 
+def time_groups(t_len, out_rows, out_cols, n_dir, device):
+    """Into how many groups of steps to cut a weight-gradient product that
+    reduces over (T, rows) into ``n_dir`` results of (out_rows, out_cols).
+
+    With a small result and many rows (a dual-path RNN's chunk batches:
+    26,000 rows into 128 x 384) one product has too few output tiles to
+    occupy the card.  The groups become a batch axis and their partial
+    results are summed, so that about one tile per multiprocessor is in
+    flight.  The answer divides ``t_len`` and is 1 where the result is
+    large enough by itself, and on the CPU."""
+    if device.type != 'cuda':
+        return 1
+    tiles = n_dir * -(-out_rows // 128) * -(-out_cols // 128)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    want = max(1, sms // tiles)
+    return max(g for g in range(1, min(want, t_len) + 1) if t_len % g == 0)
+
+
+def sum_outer(a, b, n_dir):
+    """sum over t and rows of a_t^T b_t per direction: a (T, D*B, M),
+    b (T, D*B, N) -> (D, M, N), in :func:`time_groups` groups of steps."""
+    t_len, rows, m = a.shape
+    n = b.shape[-1]
+    batch = rows // n_dir
+    groups = time_groups(t_len, m, n, n_dir, a.device)
+    per = t_len // groups
+    return torch.einsum(
+        'sudbm,sudbn->sdmn', a.reshape(groups, per, n_dir, batch, m),
+        b.reshape(groups, per, n_dir, batch, n)).sum(0)
+
+
 def recurrent_weight_grad(dgx, out, h0, mask, n_dir):
     """``dW_hh`` (D, H, 4H) = sum_t h_{t-1}^T dz_t per direction.
 
@@ -139,33 +170,32 @@ def recurrent_weight_grad(dgx, out, h0, mask, n_dir):
     initial state; with contiguous-valid masks that is the segment start
     alone, whose dz joins step 0's in the ``h0`` term.
     """
-    t_len, rows, g4 = dgx.shape
-    hdim = g4 // 4
-    b = rows // n_dir
+    t_len = dgx.shape[0]
     dz0 = dgx[0]
     if mask is not None and t_len > 1:
         starts = mask[1:] * (1.0 - mask[:-1])
         dz0 = dz0 + torch.einsum('tb,tbg->bg', starts, dgx[1:])
-    dw = torch.einsum('dbh,dbg->dhg', h0.reshape(n_dir, b, hdim),
-                      dz0.reshape(n_dir, b, g4))
+    dw = sum_outer(h0[None], dz0[None], n_dir)
     if t_len > 1:
-        dw = dw + torch.einsum(
-            'tdbh,tdbg->dhg', out[:-1].reshape(t_len - 1, n_dir, b, hdim),
-            dgx[1:].reshape(t_len - 1, n_dir, b, g4))
+        dw = dw + sum_outer(out[:-1], dgx[1:], n_dir)
     return dw
 
 
-def _check(gates_x, w, n_dir, mask, h0, c0):
+def _check(gates_x, w, n_dir, mask, h0, c0=None, n_gates=4):
+    """Raise for what the cell-scan kernels do not take (shapes, float32,
+    one device, contiguity).  ``n_gates``: gate blocks per hidden unit
+    (4 for the LSTM; the GRU wrapper passes 3 and no ``c0``)."""
     if gates_x.dim() != 3 or gates_x.shape[0] < 1:
-        raise ValueError(f'gates_x must be (T >= 1, rows, 4H), got '
+        raise ValueError(f'gates_x must be (T >= 1, rows, {n_gates}H), got '
                          f'{tuple(gates_x.shape)}')
-    t_len, rows, g4 = gates_x.shape
-    if g4 % 4 or rows % n_dir:
+    t_len, rows, width = gates_x.shape
+    if width % n_gates or rows % n_dir:
         raise ValueError(f'gates_x {tuple(gates_x.shape)} does not split '
-                         f'into 4 gates and {n_dir} directions')
-    hdim = g4 // 4
-    expected = {'gates_x': (gates_x, (t_len, rows, g4)),
-                'w_hh': (w, (n_dir, hdim, g4)), 'mask': (mask, (t_len, rows)),
+                         f'into {n_gates} gates and {n_dir} directions')
+    hdim = width // n_gates
+    expected = {'gates_x': (gates_x, (t_len, rows, width)),
+                'w_hh': (w, (n_dir, hdim, width)),
+                'mask': (mask, (t_len, rows)),
                 'h0': (h0, (rows, hdim)), 'c0': (c0, (rows, hdim))}
     for name, (tensor, shape) in expected.items():
         if tensor is None:

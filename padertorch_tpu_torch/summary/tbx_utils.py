@@ -3,12 +3,12 @@
 Counterpart of ``padertorch_tpu/summary/tbx_utils.py`` (reference
 ``padertorch/summary/tbx_utils.py``): dB-scaled spectrogram images, mask
 images and ``review_dict``.  Images are grayscale: the colormaps of the
-JAX package come from matplotlib, which the port does not import.  The
-``audio`` and ``figure`` helpers wait for the event writer's
-``add_audio``/``add_figure``.
+JAX package come from matplotlib, which the port does not import.
+``audio`` normalises a signal for the event writer's ``add_audio``; the
+``figure`` helpers wait for ``add_figure``.
 """
 import operator
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,6 +32,7 @@ __all__ = [
     'stft_to_image',
     'spectrogram_to_image',
     'review_dict',
+    'audio',
 ]
 
 
@@ -132,6 +133,29 @@ def spectrogram_to_image(signal, batch_first: bool = False,
         signal = (10 / visible_dB) * np.log10(signal) + 1
     signal = (signal * 255).astype(np.uint8)
     return _colorize(_apply_origin(signal.T, origin=origin), color)
+
+
+def audio(signal, sampling_rate: int = 16000, batch_first: bool = False,
+          normalize: bool = True) -> Tuple[np.ndarray, int]:
+    """(signal, sampling_rate) tuple, normalized to 0.95 peak.
+
+    >>> sig, sr = audio(np.array([0.0, 0.5, -0.25]))
+    >>> sr, float(np.abs(sig).max())
+    (16000, 0.95)
+    >>> audio(torch.tensor([[0.0, 2.0]], dtype=torch.float64), 8000,
+    ...       batch_first=True)[0].tolist()
+    [0.0, 0.95]
+    """
+    signal = _to_numpy_float(signal)
+    if signal.dtype.kind == 'c':
+        raise ValueError(
+            f'Complex dtype ({signal.dtype}) is not supported for audio.')
+    signal = _remove_batch_axis(signal, batch_first=batch_first, ndim=1)
+    if normalize:
+        denominator = np.max(np.abs(signal))
+        if denominator > 0:
+            signal = signal / denominator * 0.95
+    return signal, sampling_rate
 
 
 def review_dict(

@@ -5,7 +5,7 @@ Counterpart of ``padertorch_tpu/summary/tfevents.py`` (reference
 ``[uint64 length][uint32 masked crc32c][payload][uint32 crc]``; the
 payload, an ``Event`` protobuf, is decoded by hand for the fields that
 ``padertorch_tpu_torch.summary.writer`` writes (scalars, histograms,
-images), so no protobuf package is needed.
+images, audio), so no protobuf package is needed.
 
 Used by the framework's own tests to assert which tags a training wrote.
 """
@@ -91,6 +91,21 @@ def _decode_image(data):
     return out
 
 
+def _decode_audio(data):
+    names = {2: 'num_channels', 3: 'length_frames'}
+    out = {}
+    for field, _, value in _fields(data):
+        if field in names:
+            out[names[field]] = value
+        elif field == 1:
+            out['sample_rate'] = struct.unpack('<f', value)[0]
+        elif field == 4:
+            out['encoded_audio_string'] = bytes(value)
+        elif field == 5:
+            out['content_type'] = value.decode()
+    return out
+
+
 def _decode_value(data):
     out = {}
     for field, _, value in _fields(data):
@@ -102,6 +117,8 @@ def _decode_value(data):
             out['image'] = _decode_image(value)
         elif field == 5:
             out['histo'] = _decode_histogram(value)
+        elif field == 6:
+            out['audio'] = _decode_audio(value)
     return out
 
 
@@ -125,7 +142,8 @@ def load_events_as_dict(path):
     """Return a list of event dicts (keys like wall_time, step, summary).
 
     A summary is ``{'value': [{'tag': ..., 'simple_value': ...}, ...]}``;
-    histograms come under ``'histo'`` and images under ``'image'``.
+    histograms come under ``'histo'``, images under ``'image'`` and audio
+    (a WAV in ``'encoded_audio_string'``) under ``'audio'``.
     """
     return [_decode_event(payload) for payload in _iter_records(path)]
 

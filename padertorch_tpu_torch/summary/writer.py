@@ -11,25 +11,30 @@ protobuf, of which the few fields used here are encoded by hand:
   (3, string), summary (5, message);
 - ``Summary``: value (1, repeated message);
 - ``Summary.Value``: tag (1, string), simple_value (2, float), image
-  (4, message), histo (5, message);
+  (4, message), histo (5, message), audio (6, message);
 - ``Summary.Image``: height (1), width (2), colorspace (3),
   encoded_image_string (4, bytes, a PNG written with ``zlib``);
+- ``Summary.Audio``: sample_rate (1, float), num_channels (2),
+  length_frames (3), encoded_audio_string (4, bytes, a 16-bit mono WAV
+  written with ``wave``), content_type (5, string);
 - ``HistogramProto``: min, max, num, sum, sum_squares (1-5, double),
   bucket_limit (6) and bucket (7), packed doubles.
 
 ``padertorch_tpu_torch.summary.tfevents`` reads them back; so do
 tensorboard and the JAX package's ``summary.tfevents``.
 """
+import io
 import os
 import socket
 import struct
 import time
+import wave
 import zlib
 from pathlib import Path
 
 import numpy as np
 
-__all__ = ['SummaryWriter', 'encode_png', 'masked_crc32c']
+__all__ = ['SummaryWriter', 'encode_png', 'encode_wav', 'masked_crc32c']
 
 
 def _crc32c_table():
@@ -130,6 +135,18 @@ def encode_png(image):
             + chunk(b'IEND', b''))
 
 
+def encode_wav(signal, sample_rate):
+    """1-D floats in [-1, 1] (clipped) -> 16-bit mono WAV bytes."""
+    data = np.clip(np.asarray(signal, dtype=np.float64).reshape(-1), -1, 1)
+    buf = io.BytesIO()
+    with wave.open(buf, 'wb') as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(int(sample_rate))
+        w.writeframes((data * 32767).astype('<i2').tobytes())
+    return buf.getvalue()
+
+
 def _default_bins():
     """TensorFlow's default histogram buckets: +-1e-12 * 1.1 ** k, and 0."""
     value, positive = 1e-12, []
@@ -160,7 +177,7 @@ def _histogram(values):
 
 
 class SummaryWriter:
-    """Writes scalars, histograms and images to one tfevents file in
+    """Writes scalars, histograms, images and audio to one tfevents file in
     ``logdir``.  The interface is the part of tensorboardX's that the
     trainer and its hooks use."""
 
@@ -208,13 +225,22 @@ class SummaryWriter:
                  + _bytes(4, encode_png(image)))
         self._add(_bytes(1, _bytes(1, tag) + _bytes(4, proto)), global_step)
 
+    def add_audio(self, tag, snd_tensor, global_step=None,
+                  sample_rate=44100):
+        """``snd_tensor``: one channel of floats in [-1, 1], any shape
+        (flattened; values outside are clipped)."""
+        signal = np.asarray(snd_tensor).reshape(-1)
+        proto = (_float(1, sample_rate) + _int(2, 1)
+                 + _int(3, signal.size)
+                 + _bytes(4, encode_wav(signal, sample_rate))
+                 + _bytes(5, 'audio/wav'))
+        self._add(_bytes(1, _bytes(1, tag) + _bytes(6, proto)), global_step)
+
     def _not_ported(self, name):
         raise NotImplementedError(
             f'SummaryWriter.{name} is not ported yet (ROADMAP Queue 7); '
-            'the event writer has add_scalar, add_histogram and add_image')
-
-    def add_audio(self, *args, **kwargs):
-        self._not_ported('add_audio')
+            'the event writer has add_scalar, add_histogram, add_image and '
+            'add_audio')
 
     def add_figure(self, *args, **kwargs):
         self._not_ported('add_figure')

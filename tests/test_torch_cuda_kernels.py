@@ -4,7 +4,8 @@ direction, other STFT geometries).  The LSTM training kernels (forward
 with residuals, backward) are held against their step-by-step plain
 versions (1e-5: the same f32 arithmetic, sums in another order) and,
 through the ``autograd.Function``, against autograd through the plain
-forward (1e-4 relative to each gradient's largest entry).  Marked
+forward (1e-4 relative to each gradient's largest entry); the GRU
+kernels likewise.  Marked
 ``cuda``: they skip without a card.  Run them on the card with
 
     python -m pytest tests/test_torch_cuda_kernels.py -q
@@ -15,7 +16,13 @@ import torch
 
 from padertorch_tpu_torch.ops._stft import HostSTFT, STFT
 from padertorch_tpu_torch.models.bss import PermutationInvariantTrainingModel
+from padertorch_tpu_torch.models.tasnet import TasDecoder, TasEncoder, TasNet
+from padertorch_tpu_torch.modules.dual_path_rnn import DPRNN
+from padertorch_tpu_torch.ops.kernels import gru as gru_kernels
 from padertorch_tpu_torch.ops.kernels import lstm as lstm_kernels
+from padertorch_tpu_torch.ops.kernels.gru import (
+    gru_cell_scan, gru_cell_scan_plain, gru_cell_scan_train_plain,
+    gru_cell_scan_bwd_plain)
 from padertorch_tpu_torch.ops.kernels.lstm import (
     lstm_cell_scan, lstm_cell_scan_plain, lstm_cell_scan_train_plain,
     lstm_cell_scan_bwd_plain)
@@ -296,3 +303,172 @@ def test_masked_inverse_on_the_card_raises_for_unsupported_geometry(
                             np.ones((2, 4, size // 2 + 1), np.float32),
                             device=cuda)
     assert masked_istft.launches == before
+
+
+GRU_SHAPES = TRAIN_SHAPES + [
+    (2, 70, 128, 12, 'ragged'),  # rows split over blocks, several ranges
+    (1, 300, 16, 5, 'none'),     # more rows than one staging chunk
+    (2, 2, 600, 6, 'ragged'),
+]
+
+
+def _gru_inputs(cuda, n_dir, batch, hdim, t_len, mask_kind):
+    (gx, w, mask, h0, _), (d_out, dh_t, _) = _train_inputs(
+        cuda, n_dir, batch, hdim, t_len, mask_kind)
+    return ([gx[..., :3 * hdim].contiguous(),
+             w[..., :3 * hdim].contiguous(), mask, h0], [d_out, dh_t])
+
+
+@pytest.mark.parametrize('n_dir,batch,hdim,t_len,mask_kind', GRU_SHAPES)
+def test_gru_kernels_match_plain(cuda, n_dir, batch, hdim, t_len, mask_kind):
+    args, cotangents = _gru_inputs(cuda, n_dir, batch, hdim, t_len,
+                                   mask_kind)
+    gx, w, mask, h0 = args
+    before = dict(gru_cell_scan.launches)
+    got = gru_cell_scan(*args)
+    want = gru_cell_scan_plain(*args)
+    torch.cuda.synchronize()
+    for g, e in zip(got, want):  # out, h_T
+        torch.testing.assert_close(g, e, atol=1e-5, rtol=0)
+    got = gru_kernels._launch(gx, w, n_dir, mask, h0, train=True)
+    want = gru_cell_scan_train_plain(*args)
+    torch.cuda.synchronize()
+    for g, e in zip(got, want):  # out, acts, gh_n, h_prev, h_T
+        torch.testing.assert_close(g, e, atol=1e-5, rtol=0)
+    _, acts, gh_n, h_prev, _ = want
+    got = gru_kernels._launch_bwd(acts, gh_n, h_prev, w, n_dir, mask,
+                                  *cotangents)
+    want = gru_cell_scan_bwd_plain(acts, gh_n, h_prev, w, mask, *cotangents)
+    torch.cuda.synchronize()
+    for g, e in zip(got, want):  # dgates_x, dgh, dh0
+        torch.testing.assert_close(g, e, atol=1e-5, rtol=0)
+    assert gru_cell_scan.launches == {
+        'fwd': before['fwd'] + 1, 'fwd_train': before['fwd_train'] + 1,
+        'bwd': before['bwd'] + 1}
+
+
+@pytest.mark.parametrize('n_dir,batch,hdim,t_len,mask_kind', GRU_SHAPES)
+def test_gru_function_matches_autograd_through_plain(
+        cuda, n_dir, batch, hdim, t_len, mask_kind):
+    args, cotangents = _gru_inputs(cuda, n_dir, batch, hdim, t_len,
+                                   mask_kind)
+    gx, w, mask, h0 = args
+
+    def grads(fn):
+        leaves = [a.clone().requires_grad_() for a in (gx, w, h0)]
+        outs = fn(leaves[0], leaves[1], mask, leaves[2])
+        assert all(o.grad_fn is not None for o in outs)
+        return torch.autograd.grad(outs, leaves, cotangents)
+
+    got = grads(gru_cell_scan)
+    want = grads(gru_cell_scan_plain)
+    torch.cuda.synchronize()
+    for g, e in zip(got, want):  # dgates_x, dW_hh, dh0
+        scale = float(e.abs().max()) + 1e-12
+        assert float((g - e).abs().max()) / scale <= 1e-4
+
+
+def test_gru_kernels_raise_when_the_grid_does_not_fit(cuda):
+    """Two directions of 2048 units: no unit slice leaves the whole grid
+    co-resident on the card, and the wrappers say so instead of launching
+    (the cooperative grid sync would hang otherwise)."""
+    args, cotangents = _gru_inputs(cuda, 2, 2, 2048, 3, 'none')
+    gx, w, mask, h0 = args
+    with pytest.raises(RuntimeError, match='gru_cell_scan kernel failed'):
+        gru_cell_scan(*args)
+    with pytest.raises(RuntimeError, match='training forward kernel failed'):
+        gru_cell_scan(gx.clone().requires_grad_(), w, mask, h0)
+    _, acts, gh_n, h_prev, _ = gru_cell_scan_train_plain(*args)
+    with pytest.raises(RuntimeError, match='backward kernel failed'):
+        gru_kernels._launch_bwd(acts, gh_n, h_prev, w, 2, mask, *cotangents)
+    torch.cuda.synchronize()
+
+
+def test_gru_kernel_rejects_what_it_does_not_take(cuda):
+    gx = torch.zeros((3, 2, 12), device=cuda)
+    w = torch.zeros((1, 4, 12), device=cuda)
+    h = torch.zeros((2, 4), device=cuda)
+    with pytest.raises(TypeError):
+        gru_cell_scan(gx.double(), w, None, h)
+    with pytest.raises(ValueError):
+        gru_cell_scan(gx, w, None, h.t().contiguous().t())
+    with pytest.raises(ValueError):
+        gru_cell_scan(gx, w.cpu(), None, h)
+    with pytest.raises(ValueError):
+        gru_cell_scan(gx[..., :11], w, None, h)
+
+
+def test_gru_function_takes_missing_and_strided_cotangents(cuda):
+    args, _ = _gru_inputs(cuda, 2, 3, 12, 9, 'ragged')
+    gx, w, mask, h0 = args
+
+    def grads(fn):
+        leaves = [a.clone().requires_grad_() for a in (gx, w, h0)]
+        out, _ = fn(leaves[0], leaves[1], mask, leaves[2])
+        loss = (out.transpose(0, 1).reshape(6, -1).cumsum(0) ** 2).sum()
+        return torch.autograd.grad(loss, leaves)
+
+    for g, e in zip(grads(gru_cell_scan), grads(gru_cell_scan_plain)):
+        torch.testing.assert_close(g, e, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize('rnn_type', ['bgru', 'blstm', 'gru'])
+def test_tasnet_on_the_card_matches_the_cpu_and_gets_every_gradient(
+        cuda, rnn_type):
+    """A small DPRNN-TasNet: outputs and losses on the card against the
+    CPU (1e-4), every trained parameter with a finite, nonzero gradient,
+    and evaluation twice gives the same bits (the overlap-add has a fixed
+    order)."""
+    torch.manual_seed(0)
+    model = TasNet(
+        encoder=TasEncoder(20, 32), decoder=TasDecoder(20, 32),
+        separator=DPRNN(16, 24, window_length=10, hop_size=5, num_blocks=2,
+                        inter_chunk_type=rnn_type,
+                        intra_chunk_type=rnn_type)).train()
+    rng = np.random.RandomState(0)
+    lens = np.array([1203, 1000, 777])
+    valid = np.arange(1203)[None, :] < lens[:, None]
+    s = (rng.randn(3, 2, 1203) * 0.3 * valid[:, None]).astype('float32')
+    batch = {'y': s.sum(1), 's': s, 'num_samples': lens}
+    want = model.loss(model.example_to_device(batch),
+                      model(model.example_to_device(batch)))
+    model = model.to(cuda)
+    example = model.example_to_device(batch)
+    assert isinstance(example['num_samples'], np.ndarray)
+    out = model(example)
+    losses = model.loss(example, out)
+    for key in losses:
+        torch.testing.assert_close(losses[key].cpu(), want[key], atol=1e-4,
+                                   rtol=1e-4)
+    losses['si-sdr'].backward()
+    for name, p in model.named_parameters():
+        if p.requires_grad:
+            assert p.grad is not None, name
+            assert bool(torch.isfinite(p.grad).all()), name
+            assert float(p.grad.abs().max()) > 0, name
+        else:
+            assert 'bias_hh' in name, name
+    with torch.no_grad():
+        model.eval()
+        assert torch.equal(model(example)['out'], model(example)['out'])
+
+
+def test_time_groups_divide_the_steps_and_fill_the_card(cuda):
+    from padertorch_tpu_torch.ops.kernels.lstm import sum_outer, time_groups
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for t_len, rows, cols in ((100, 128, 384), (65, 384, 64), (33, 128, 512),
+                              (127, 600, 2400), (500, 2400, 1200)):
+        groups = time_groups(t_len, rows, cols, 2, cuda)
+        tiles = 2 * -(-rows // 128) * -(-cols // 128)
+        assert t_len % groups == 0 and 1 <= groups <= max(1, sms // tiles)
+    assert time_groups(100, 128, 384, 2, cuda) > 1
+    assert time_groups(500, 2400, 1200, 2, cuda) == 1
+    rng = np.random.RandomState(0)
+    a = torch.tensor(rng.randn(100, 520, 128), dtype=torch.float32,
+                     device=cuda)
+    b = torch.tensor(rng.randn(100, 520, 384), dtype=torch.float32,
+                     device=cuda)
+    want = torch.einsum('tdbm,tdbn->dmn', a.reshape(100, 2, 260, 128),
+                        b.reshape(100, 2, 260, 384))
+    got = sum_outer(a, b, 2)
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-5

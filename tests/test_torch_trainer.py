@@ -324,7 +324,7 @@ def test_event_file_reads_the_same_in_both_packages(tmp_path):
 def test_writer_refuses_what_it_does_not_write(tmp_path):
     writer = SummaryWriter(tmp_path)
     try:
-        for name in ('add_audio', 'add_figure', 'add_text'):
+        for name in ('add_figure', 'add_text'):
             with pytest.raises(NotImplementedError, match='Queue 7'):
                 getattr(writer, name)('tag', None, 0)
         with pytest.raises(ValueError):
