@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's uPIT and DPRNN-TasNet separation and training
-paths once on one CUDA card.
+"""Drive the PyTorch port's uPIT, DPRNN-TasNet and SepFormer-TasNet
+separation and training paths once on one CUDA card.
 
     python3 chip_smoke.py [--profile]
 
@@ -55,6 +55,31 @@ Phases, one line each:
     and nonzero; the storage dir loaded back and one request served; then
     a timed step at B=4 x 32000 samples and at B=4 x 16000, by stage.
 
+12. flash attention kernels (forward with and without the log-sum-exp,
+    backward through the ``autograd.Function``) vs the plain masked-softmax
+    version at the SepFormer's two shapes ((B*S, H, K, D) = (264, 8, 100,
+    16) without padding and (B*K, H, S, D) = (400, 8, 66, 16) with ragged
+    key lengths, one of 1 and one of 0), at (8, 12, 2048, 64) full, causal,
+    windowed and causal with key padding, grouped-query (4, 8 over 2,
+    1024, 64), Tq != Tk and a head size outside the template set; each
+    timed beside the plain version, ``F.scaled_dot_product_attention``
+    (float32, TF32 off) and its bound.  Then the dispatch table: one
+    ``MultiheadAttention`` forward and forward + backward on the fused and
+    on the dense backend at (8, T, 12 x 64) for T = 512 ... 4096, full,
+    causal and windowed, and at the SepFormer's two shapes; the table
+    is printed beside what ``should_use_flash`` picks.
+13. SepFormer-TasNet serving: the tasnet recipe's ``sepformer`` variant at
+    full width (256 filters of length 20, 128 features, 4 blocks of 2 + 2
+    transformer layers, 8 heads, K=100, hop 50) trained for 4 iterations
+    into a storage dir, loaded back, the fused backend forced as the
+    recipe's ``--flash`` does; the model on the card against the CPU; the
+    8 mixtures as 8 requests with launch counts.
+14. SepFormer-TasNet training: ``get_trainer_config(variant='sepformer')``
+    at full width, the fused backend forced, ``test_run``, 16 iterations
+    with validation and checkpoints, launch counts; the first step against
+    the CPU; timed steps at B=4 x 32000 and B=4 x 16000 samples on the
+    fused and on the dense backend.
+
 The line before the last is a JSON object with each kernel's launches on
 the main paths, its largest difference from the plain version, its time,
 the plain version's, the library call's where there is one, and the
@@ -82,13 +107,21 @@ from padertorch_tpu_torch.contrib.examples.source_separation.pit.evaluate \
     import evaluate_example
 from padertorch_tpu_torch.contrib.examples.source_separation.tasnet import (
     data as tas_data, evaluate as tas_evaluate, train as tas_train)
+from padertorch_tpu_torch.contrib.mk.modules.transformer import (
+    MultiheadAttention, set_attention_backend)
 from padertorch_tpu_torch.models.tasnet import TasNet
+from padertorch_tpu_torch.modules.dual_path_transformer import (
+    DualPathTransformer)
 from padertorch_tpu_torch.models.bss import PermutationInvariantTrainingModel
 from padertorch_tpu_torch.ops._stft import HostSTFT, STFT
 from padertorch_tpu_torch.io import dump_config
 from padertorch_tpu_torch.ops.kernels import _build
+from padertorch_tpu_torch.ops.kernels import attention as attention_kernels
 from padertorch_tpu_torch.ops.kernels import gru as gru_kernels
 from padertorch_tpu_torch.ops.kernels import lstm as lstm_kernels
+from padertorch_tpu_torch.ops.kernels.attention import (
+    flash_attention, flash_attention_fwd_plain, flash_attention_plain,
+    should_use_flash, visible_mask)
 from padertorch_tpu_torch.ops.kernels.gru import (
     gru_cell_scan, gru_cell_scan_plain, gru_cell_scan_train_plain,
     gru_cell_scan_bwd_plain)
@@ -132,6 +165,16 @@ TASNET_TOL = 1e-4
 # first TasNet step, card vs CPU: the loss is a mean of log10 ratios, the
 # norm sums 2.6 M gradients through twelve recurrences' adjoints
 TASNET_STEP_RTOL = 1e-4
+
+# attention kernels vs the plain masked softmax: the same f32 arithmetic,
+# the sum over keys in tiles of 64 with a running maximum (about 10x what
+# the card shows); gradients relative to each gradient's largest entry, as
+# the recurrences' Functions
+ATTENTION_TOL = 1e-5
+ATTENTION_GRAD_RTOL = 5e-5
+# first SepFormer step, card vs CPU, relative
+SEPFORMER_LOSS_RTOL = 1e-5
+SEPFORMER_NORM_RTOL = 1e-4
 
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM, HBM3
 PEAK_F32_FLOPS = 67e12       # H100 SXM, float32 outside the tensor cores
@@ -383,7 +426,7 @@ def ragged_batch(batch, frames, seed=0):
 
 
 def reset_launches():
-    for wrapper in (lstm_cell_scan, gru_cell_scan):
+    for wrapper in (lstm_cell_scan, gru_cell_scan, flash_attention):
         for name in wrapper.launches:
             wrapper.launches[name] = 0
     masked_istft.launches = 0
@@ -936,6 +979,236 @@ def phase_lstm_at_dprnn_shapes():
     return results
 
 
+# the inter-chunk attention's key lengths at B=4 x 32000 samples: the four
+# examples' chunk counts, each repeated over the K=100 positions, and two
+# rows cut to one key and to none
+INTER_LENS = np.repeat([66, 55, 46, 36], 100)
+INTER_LENS[-2:] = (1, 0)
+# (label, B, H, Hkv, Tq, Tk, D, masks, timed); the first is the shape of
+# the rows in the kernels' line, the third the table's (96, 2048, 64)
+ATTENTION_CASES = [
+    ('intra (264, 8, 100, 16)', 264, 8, 8, 100, 100, 16, {}, True),
+    ('inter (400, 8, 66, 16) ragged', 400, 8, 8, 66, 66, 16,
+     {'key_padding_lens': INTER_LENS}, True),
+    ('(8, 12, 2048, 64) full', 8, 12, 12, 2048, 2048, 64, {}, True),
+    ('(8, 12, 2048, 64) causal', 8, 12, 12, 2048, 2048, 64,
+     {'causal': True}, True),
+    ('(8, 12, 2048, 64) window (256, 256)', 8, 12, 12, 2048, 2048, 64,
+     {'window': (256, 256)}, True),
+    ('(8, 12, 2048, 64) causal, ragged', 8, 12, 12, 2048, 2048, 64,
+     {'causal': True,
+      'key_padding_lens': [2048, 1500, 1000, 777, 1, 0, 2000, 64]}, True),
+    ('gqa (4, 8 over 2, 1024, 64)', 4, 8, 2, 1024, 1024, 64, {}, True),
+    ('Tq 300, Tk 517 (2, 4, ., 64)', 2, 4, 4, 300, 517, 64, {}, False),
+    ('D=24 (2, 4, 50, 24) window (7, 3)', 2, 4, 4, 50, 50, 24,
+     {'window': (7, 3)}, False),
+    ('D=128 gqa (2, 8 over 2, 130 x 77) ragged', 2, 8, 2, 130, 77, 128,
+     {'key_padding_lens': [77, 50]}, False),
+]
+
+
+def attention_library(q, k, v, d_o, masks):
+    """Yardstick, timed here and used nowhere in the port:
+    ``F.scaled_dot_product_attention`` in float32 (TF32 is off) on the same
+    inputs, forward and backward (ms).  It takes no key lengths, window or
+    shared KV heads: those become a boolean mask and repeated heads, made
+    outside the timed call."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    group = q.shape[1] // k.shape[1]
+    if group > 1:
+        k, v = (x.repeat_interleave(group, dim=1) for x in (k, v))
+    causal_only = set(masks) == {'causal'}
+    mask = None
+    if masks and not causal_only:
+        lens = attention_kernels._lens_tensor(
+            masks.get('key_padding_lens'), q.shape[0], q.device)
+        mask = visible_mask(q.shape[2], k.shape[2], lens,
+                            masks.get('causal', False), masks.get('window'),
+                            q.device)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+
+    def forward():
+        return sdpa(*leaves, attn_mask=mask, is_causal=causal_only)
+
+    with torch.no_grad():
+        fwd = cuda_ms(forward, iters=5)
+    out = forward()
+    bwd = cuda_ms(lambda: torch.autograd.grad(out, leaves, d_o,
+                                              retain_graph=True), iters=5)
+    return fwd, bwd
+
+
+def attention_case(label, b, h, h_kv, tq, tk, d, masks, timed):
+    """One shape of phase 12: both kernels against the plain version, and
+    (``timed``) their times, the plain version's, the library's and the
+    bounds.  Returns {'fwd': row, 'bwd': row}."""
+    rng = np.random.RandomState(0)
+    q, k, v, d_o = (
+        torch.tensor(rng.randn(*shape), dtype=torch.float32, device='cuda')
+        for shape in ((b, h, tq, d), (b, h_kv, tk, d), (b, h_kv, tk, d),
+                      (b, h, tq, d)))
+    lens = attention_kernels._lens_tensor(
+        masks.get('key_padding_lens'), b, q.device)
+    with torch.no_grad():
+        got = flash_attention(q, k, v, **masks)
+        want, want_lse = flash_attention_fwd_plain(q, k, v, **masks)
+    err = {'o': max_err([got], [want])}
+    if d in attention_kernels.HEAD_SIZES:
+        got_train = attention_kernels._launch_fwd(
+            q, k, v, lens, masks.get('causal', False),
+            *attention_kernels._norm_window(masks.get('window')),
+            1.0 / np.sqrt(d), train=True)
+        err['o, lse (training forward)'] = max_err(got_train,
+                                                   (want, want_lse))
+
+    def graph(fn):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        out = fn(*leaves, **masks)
+        if out.grad_fn is None:
+            fail('flash_attention under grad mode returned a tensor '
+                 'without grad_fn')
+        return out, leaves
+
+    def grads(fn):
+        out, leaves = graph(fn)
+        return torch.autograd.grad(out, leaves, d_o)
+
+    got_grads, want_grads = grads(flash_attention), grads(
+        flash_attention_plain)
+    torch.cuda.synchronize()
+    err['dq, dk, dv'] = max_err(got_grads, want_grads)
+    rel = max_rel_err(got_grads, want_grads)
+    same = all(torch.equal(x, y)
+               for x, y in zip(got_grads, grads(flash_attention)))
+    print(f'phase 12 attention {label}: max |kernel - plain| '
+          + ', '.join(f'{k} {v:.3e}' for k, v in err.items())
+          + f' (tol {ATTENTION_TOL} on o and lse); gradients relative '
+          f'{rel:.3e} (tol {ATTENTION_GRAD_RTOL}); two backward runs the '
+          f'same bits: {same}')
+    if not max(err['o'], err.get('o, lse (training forward)', 0.0)) \
+            <= ATTENTION_TOL:
+        fail(f'attention forward kernel disagrees with plain at {label}: '
+             f'{err}')
+    if not rel <= ATTENTION_GRAD_RTOL:
+        fail(f'attention backward kernels disagree with autograd through '
+             f'plain at {label}: {rel}')
+    if not same:
+        fail(f'two attention backward runs differ at {label}')
+    if lens is not None:
+        for row in torch.nonzero(lens == 0)[:, 0].tolist():
+            if any(float(x[row].abs().max()) != 0.0
+                   for x in (got, *got_grads)):
+                fail(f'{label}: row {row} has no key but a nonzero output '
+                     f'or gradient')
+    if not timed:
+        return None
+
+    out, leaves = graph(flash_attention)
+    out_plain, leaves_plain = graph(flash_attention_plain)
+    with torch.no_grad():
+        times = {
+            'fwd': cuda_ms(lambda: flash_attention(q, k, v, **masks),
+                           iters=10),
+            'fwd_plain': cuda_ms(
+                lambda: flash_attention_plain(q, k, v, **masks), iters=5),
+        }
+    times['fwd_train'] = cuda_ms(lambda: graph(flash_attention), iters=10)
+    times['bwd'] = cuda_ms(lambda: torch.autograd.grad(
+        out, leaves, d_o, retain_graph=True), iters=10)
+    times['bwd_plain'] = cuda_ms(lambda: torch.autograd.grad(
+        out_plain, leaves_plain, d_o, retain_graph=True), iters=5)
+    del out_plain, leaves_plain
+    times['fwd_library'], times['bwd_library'] = attention_library(
+        q, k, v, d_o, masks)
+    # the work these inputs need: the visible (query, key) pairs, each two
+    # products of D in the forward (q k^T, p v) and five in the backward
+    visible = visible_mask(tq, tk, lens, masks.get('causal', False),
+                           masks.get('window'), q.device)
+    pairs = float(visible.sum()) * h * (b // visible.shape[0])
+    limits = {
+        'fwd': bound(nbytes(q, k, v, lens, got), 4 * pairs * d),
+        'bwd': bound(nbytes(q, k, v, lens, got, want_lse, d_o, *got_grads),
+                     10 * pairs * d)}
+    for name in ('fwd', 'bwd'):
+        print(f'phase 12 attention {name} {label}: kernel '
+              f'{times[name]:.3f} ms'
+              + (f' (keeping lse: {times["fwd_train"]:.3f} ms)'
+                 if name == 'fwd' else ' (delta included)')
+              + f', plain {times[name + "_plain"]:.3f} ms, '
+              f'scaled_dot_product_attention '
+              f'{times[name + "_library"]:.3f} ms, bound '
+              f'{limits[name]["bound_ms"]:.4f} ms by '
+              f'{limits[name]["bound_by"]}')
+    return {
+        'fwd': {'max_abs_err': max(
+            err['o'], err.get('o, lse (training forward)', 0.0)),
+            'ms': times['fwd'], 'plain_ms': times['fwd_plain'],
+            **limits['fwd'], 'library_ms': times['fwd_library']},
+        'bwd': {'max_abs_err': err['dq, dk, dv'], 'ms': times['bwd'],
+                'plain_ms': times['bwd_plain'], **limits['bwd'],
+                'library_ms': times['bwd_library']}}
+
+
+def attention_dispatch_table():
+    """One ``MultiheadAttention`` (RoPE, float32) on the fused and on the
+    dense backend, forward alone and forward + backward, beside what
+    ``should_use_flash`` picks there."""
+    shapes = [(8, t, 768, 12, masks, None)
+              for t in (512, 1024, 2048, 4096)
+              for masks in ({}, {'causal': True},
+                            {'attn_window': (256, 256)})]
+    shapes += [(264, 100, 128, 8, {}, None),
+               (400, 66, 128, 8, {}, INTER_LENS)]
+    for batch, t_len, d_model, heads, masks, lens in shapes:
+        torch.manual_seed(0)
+        mha = MultiheadAttention(d_model, heads, use_rope=True).cuda()
+        x = torch.randn((batch, t_len, d_model), device='cuda',
+                        requires_grad=True)
+        d_out = torch.randn_like(x)
+        kwargs = dict(masks)
+        if lens is not None:
+            kwargs['key_padding_lens'] = torch.from_numpy(lens).cuda()
+        leaves = [x, *mha.parameters()]
+        iters = 3 if t_len >= 2048 else 10
+        ms = {}
+        for use_flash in (True, False):
+            set_attention_backend(mha, use_flash)
+            with torch.no_grad():
+                ms[use_flash, 'forward'] = cuda_ms(
+                    lambda: mha(x, **kwargs), iters=iters)
+            ms[use_flash, 'training'] = cuda_ms(
+                lambda: torch.autograd.grad(mha(x, **kwargs), leaves, d_out),
+                iters=iters)
+        picks = {
+            mode: should_use_flash(
+                t_len, causal=masks.get('causal', False),
+                window=masks.get('attn_window'),
+                training=mode == 'training')
+            for mode in ('forward', 'training')}
+        print(f'phase 12 dispatch (B, T, H x D) = ({batch}, {t_len}, '
+              f'{heads} x {d_model // heads}) {masks or "full"}'
+              f'{"" if lens is None else " ragged"}: '
+              + '; '.join(
+                  f'{mode} fused {ms[True, mode]:.3f} ms, dense '
+                  f'{ms[False, mode]:.3f} ms, auto picks '
+                  f'{"fused" if picks[mode] else "dense"}'
+                  for mode in ('forward', 'training')))
+
+
+def phase_attention_kernels():
+    """Phase 12: the two attention kernels at ATTENTION_CASES, then the
+    dispatch table.  Returns {label: {'fwd': row, 'bwd': row}}."""
+    results = {}
+    for label, *shape, masks, timed in ATTENTION_CASES:
+        rows = attention_case(label, *shape, masks, timed)
+        torch.cuda.empty_cache()
+        if rows is not None:
+            results[label] = rows
+    attention_dispatch_table()
+    torch.cuda.empty_cache()
+    return results
+
+
 def tasnet_updates(rnn_type, extra=None):
     """The config update that chooses the chunk RNNs, as the recipe's
     users write it."""
@@ -959,33 +1232,11 @@ def recurrence_of(rnn_type):
     return gru_cell_scan if rnn_type == 'bgru' else lstm_cell_scan
 
 
-def phase_tasnet_serving(rnn_type):
-    """Phase 10: the full-width DPRNN-TasNet serving path."""
-    wrapper = recurrence_of(rnn_type)
-    torch.manual_seed(0)
-    with tempfile.TemporaryDirectory() as tmp:
-        config = tas_train.get_trainer_config(
-            tmp, updates=tasnet_updates(rnn_type))
-        model_cpu = Trainer.from_config(config).model.eval()
-    width = (model_cpu.encoder.feature_size,
-             model_cpu.separator.input_size,
-             len(model_cpu.separator.dprnn_blocks),
-             model_cpu.separator.dprnn_blocks[0].intra_chunk_rnn.rnn
-             .hidden_size)
-    if width != (256, 64, 6, 128):
-        fail(f'not the full-width DPRNN-TasNet: {width}')
-    model = copy.deepcopy(model_cpu).to('cuda')
-    batch = tasnet_batch(4, 16000)
-    with torch.no_grad():
-        want = model_cpu(model_cpu.example_to_device(batch))['out']
-        got = model(model.example_to_device(batch))['out'].cpu()
-    err = float((got - want).abs().max())
-    print(f'phase 10a {rnn_type} full-width TasNet B=4 x 16000 samples, '
-          f'card vs CPU: max |diff| of out {err:.3e} (tol {TASNET_TOL}, '
-          f'peak {float(want.abs().max()):.3f})')
-    if got.shape != (4, 2, 16000) or not err <= TASNET_TOL:
-        fail(f'TasNet on the card disagrees with the CPU: {err}')
-
+def serve_tasnet_requests(label, model, model_cpu, wrapper, per_request):
+    """The tasnet recipe's ``evaluate_example`` on the 8 synthetic mixtures
+    as 8 requests; ``wrapper`` is the kernel wrapper the model runs,
+    ``per_request`` its lean forward launches per request.  Returns the
+    count of those launches."""
     examples = list(tas_data.synthetic_database(num_examples=8, seed=2))
     reset_launches()
     latencies, results = [], {}
@@ -999,14 +1250,14 @@ def phase_tasnet_serving(rnn_type):
         request = model.example_to_device(tas_data.post_batch_transform(
             [examples[0]]))
         forward_ms = cuda_ms(lambda: model(request), iters=5, warmup=2)
-    print(f'phase 10b {rnn_type} served {len(results)} requests, latency ms '
+    print(f'phase {label} served {len(results)} requests, latency ms '
           f'{[round(x, 3) for x in latencies]} (median '
           f'{np.median(latencies):.3f}), launches {launches}; model forward '
           f'of one request ({examples[0]["observation"].shape[-1]} samples) '
           f'{forward_ms:.3f} ms')
-    if launches != {'fwd': 12 * 8, 'fwd_train': 0, 'bwd': 0}:
-        fail(f'8 requests launch 12 lean forward kernels each, got '
-             f'{launches}')
+    if launches != {'fwd': per_request * 8, 'fwd_train': 0, 'bwd': 0}:
+        fail(f'8 requests launch {per_request} lean forward kernels each, '
+             f'got {launches}')
     for example_id, metrics in results.items():
         values = np.asarray(metrics['output_si_sdr']
                             + metrics['output_mir_eval_sxr_sdr'])
@@ -1016,25 +1267,139 @@ def phase_tasnet_serving(rnn_type):
     diff = np.abs(np.subtract(
         ref['output_si_sdr'],
         results[examples[0]['example_id']]['output_si_sdr'])).max()
-    print(f'phase 10c {rnn_type} {examples[0]["example_id"]} SI-SDR card vs '
-          f'CPU: max |diff| {diff:.3e} dB (tol {SI_SDR_TOL})')
+    print(f'phase {label} {examples[0]["example_id"]} SI-SDR card vs CPU: '
+          f'max |diff| {diff:.3e} dB (tol {SI_SDR_TOL})')
     if not diff <= SI_SDR_TOL:
         fail(f'TasNet SI-SDR on the card disagrees with the CPU: {diff}')
     return launches['fwd']
 
 
-def phase_tasnet_training(rnn_type, profile=False):
-    """Phase 11: the tasnet recipe's trainer at full width on the card."""
-    wrapper = recurrence_of(rnn_type)
+def compare_tasnet_with_cpu(label, model, model_cpu):
+    """``out`` of a ragged batch of 4 x 16000 samples, card against CPU."""
+    batch = tasnet_batch(4, 16000)
+    with torch.no_grad():
+        want = model_cpu(model_cpu.example_to_device(batch))['out']
+        got = model(model.example_to_device(batch))['out'].cpu()
+    err = float((got - want).abs().max())
+    print(f'phase {label} full-width TasNet B=4 x 16000 samples, card vs '
+          f'CPU: max |diff| of out {err:.3e} (tol {TASNET_TOL}, peak '
+          f'{float(want.abs().max()):.3f})')
+    if got.shape != (4, 2, 16000) or not err <= TASNET_TOL:
+        fail(f'TasNet on the card disagrees with the CPU: {err}')
+
+
+def phase_tasnet_serving(rnn_type):
+    """Phase 10: the full-width DPRNN-TasNet serving path."""
+    torch.manual_seed(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        config = tas_train.get_trainer_config(
+            tmp, updates=tasnet_updates(rnn_type))
+        model_cpu = Trainer.from_config(config).model.eval()
+    width = (model_cpu.encoder.feature_size,
+             model_cpu.separator.input_size,
+             len(model_cpu.separator.dprnn_blocks),
+             model_cpu.separator.dprnn_blocks[0].intra_chunk_rnn.rnn
+             .hidden_size)
+    if width != (256, 64, 6, 128):
+        fail(f'not the full-width DPRNN-TasNet: {width}')
+    model = copy.deepcopy(model_cpu).to('cuda')
+    compare_tasnet_with_cpu(f'10a {rnn_type}', model, model_cpu)
+    return serve_tasnet_requests(f'10b {rnn_type}', model, model_cpu,
+                                 recurrence_of(rnn_type), 12)
+
+
+def sepformer_width(model):
+    separator = model.separator
+    block = separator.dpt_blocks[0]
+    layer = block.intra_chunk.layers[0]
+    return (model.encoder.feature_size, separator.input_size,
+            separator.window_size, separator.hop_size,
+            len(separator.dpt_blocks), len(block.intra_chunk.layers),
+            len(block.inter_chunk.layers), layer.self_attn.num_heads,
+            layer.self_attn.d_head, layer.ffn.lin1.out_features)
+
+
+SEPFORMER_WIDTH = (256, 128, 100, 50, 4, 2, 2, 8, 16, 512)
+
+
+def phase_sepformer_serving():
+    """Phase 13: the full-width SepFormer-TasNet serving path, from a
+    storage dir the recipe's trainer wrote on the card."""
     torch.manual_seed(0)
     with tempfile.TemporaryDirectory() as tmp:
         storage_dir = Path(tmp) / 'tasnet' / '1'
         config = tas_train.get_trainer_config(
-            storage_dir, updates=tasnet_updates(rnn_type, {
-                'stop_trigger': (2, 'epoch'),
-                'summary_trigger': (8, 'iteration')}))
+            storage_dir, variant='sepformer', updates={
+                'stop_trigger': (1, 'epoch'),
+                'summary_trigger': (4, 'iteration')})
         dump_config({'trainer': config}, storage_dir / 'config.json')
         trainer = Trainer.from_config(config)
+        set_attention_backend(trainer.model, True)   # the recipe's --flash
+        trainer.to('cuda')
+        train, dev = (tas_data.prepare_dataset(
+            tas_data.synthetic_database(num_examples=n, seed=seed),
+            batch_size=4, segment_length=8000, shuffle=False, prefetch=False)
+            for n, seed in ((16, 0), (8, 1)))
+        trainer.register_validation_hook(dev, metric='si-sdr')
+        trainer.train(train)
+        model_cpu = TasNet.from_storage_dir(
+            storage_dir, checkpoint_name='ckpt_best_si-sdr.ptt').eval()
+        print(f'phase 13a storage dir written by {trainer.iteration} '
+              f'iterations of the sepformer recipe on the card and loaded '
+              f'back')
+    if not isinstance(model_cpu.separator, DualPathTransformer) \
+            or sepformer_width(model_cpu) != SEPFORMER_WIDTH:
+        fail(f'not the full-width SepFormer-TasNet: '
+             f'{sepformer_width(model_cpu)}')
+    model = set_attention_backend(copy.deepcopy(model_cpu), True).to('cuda')
+    # on the CPU 'auto' is the dense backend: the card's kernels are held
+    # against other code, not against their own plain version
+    compare_tasnet_with_cpu('13b sepformer', model, model_cpu)
+    return serve_tasnet_requests('13c sepformer', model, model_cpu,
+                                 flash_attention, 16)
+
+
+# the TasNet training paths of phases 11 and 14: the recipe's variant and
+# config update, what the model is switched to after it is built, the
+# kernel wrapper it runs and its launches per step, the limits of the first
+# step against the CPU (loss, gradient norm; relative), and whether every
+# gradient must be nonzero (a key bias has a zero gradient in exact
+# arithmetic: a softmax does not see a shift of all its logits)
+TASNET_TRAINING = {
+    'bgru': dict(phase=11, variant='dprnn', wrapper=gru_cell_scan,
+                 per_step=12, rtol=(TASNET_STEP_RTOL, TASNET_STEP_RTOL),
+                 nonzero=True),
+    'blstm': dict(phase=11, variant='dprnn', wrapper=lstm_cell_scan,
+                  per_step=12, rtol=(TASNET_STEP_RTOL, TASNET_STEP_RTOL),
+                  nonzero=True),
+    'sepformer': dict(phase=14, variant='sepformer', wrapper=flash_attention,
+                      per_step=16,
+                      rtol=(SEPFORMER_LOSS_RTOL, SEPFORMER_NORM_RTOL),
+                      nonzero=False),
+}
+
+
+def phase_tasnet_training(name, profile=False):
+    """Phases 11 and 14: the tasnet recipe's trainer at full width on the
+    card, for one of TASNET_TRAINING."""
+    path = TASNET_TRAINING[name]
+    phase, wrapper, per_step = path['phase'], path['wrapper'], path['per_step']
+    sepformer = path['variant'] == 'sepformer'
+    torch.manual_seed(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        storage_dir = Path(tmp) / 'tasnet' / '1'
+        updates = {'stop_trigger': (2, 'epoch'),
+                   'summary_trigger': (8, 'iteration')}
+        config = tas_train.get_trainer_config(
+            storage_dir, variant=path['variant'],
+            updates=updates if sepformer else tasnet_updates(name, updates))
+        dump_config({'trainer': config}, storage_dir / 'config.json')
+        trainer = Trainer.from_config(config)
+        if sepformer:
+            if sepformer_width(trainer.model) != SEPFORMER_WIDTH:
+                fail(f'not the full-width SepFormer-TasNet: '
+                     f'{sepformer_width(trainer.model)}')
+            set_attention_backend(trainer.model, True)  # the recipe's --flash
         model_cpu = copy.deepcopy(trainer.model)
         trainer.to('cuda')
 
@@ -1051,10 +1416,10 @@ def phase_tasnet_training(rnn_type, profile=False):
 
         start = time.perf_counter()
         trainer.test_run(train, dev)
-        print(f'phase 11a {rnn_type} test_run passed on the card in '
+        print(f'phase {phase}a {name} test_run passed on the card in '
               f'{time.perf_counter() - start:.2f} s')
 
-        recorder = Recorder(nonzero=True)
+        recorder = Recorder(nonzero=path['nonzero'])
         trainer.register_hook(recorder)
         trainer.register_validation_hook(dev, metric='si-sdr')
         reset_launches()
@@ -1068,7 +1433,7 @@ def phase_tasnet_training(rnn_type, profile=False):
         norms = [float(x) for x in recorder.norms]
         hook, = [h for h in trainer.hooks if isinstance(h, ValidationHook)]
         half = iterations // 2
-        print(f'phase 11b {rnn_type} trained {iterations} iterations in '
+        print(f'phase {phase}b {name} trained {iterations} iterations in '
               f'{seconds:.2f} s (validations and checkpoints included), '
               f'launches {launches}; training loss first half mean '
               f'{np.mean(losses[:half]):.4f}, second half mean '
@@ -1078,16 +1443,19 @@ def phase_tasnet_training(rnn_type, profile=False):
         if not (np.isfinite(losses).all() and np.isfinite(norms).all()):
             fail(f'non-finite loss or gradient norm: {losses} {norms}')
         validations = trainer.epoch + 1  # at iteration 0 and every epoch
-        want = {'fwd': 12 * n_dev * validations,
-                'fwd_train': 12 * iterations, 'bwd': 12 * iterations}
+        want = {'fwd': per_step * n_dev * validations,
+                'fwd_train': per_step * iterations,
+                'bwd': per_step * iterations}
         if launches != want or validations != 3:
-            fail(f'launches {launches}, expected {want}: 12 fwd_train and '
-                 f'12 bwd per step, 12 fwd per validation batch '
-                 f'({n_dev} batches, {validations} validations)')
+            fail(f'launches {launches}, expected {want}: {per_step} '
+                 f'fwd_train and {per_step} bwd per step, {per_step} fwd '
+                 f'per validation batch ({n_dev} batches, {validations} '
+                 f'validations)')
         if not np.mean(losses[half:]) < np.mean(losses[:half]):
             fail('the training loss did not fall')
 
-        # the first step once more on the CPU, from the same weights
+        # the first step once more on the CPU, from the same weights (the
+        # SepFormer's forced backend is there the kernels' plain version)
         batch = next(iter(train))
         cpu = Trainer(model_cpu.train(), Path(tmp) / 'cpu',
                       Adam(gradient_clipping=5.0),
@@ -1098,22 +1466,22 @@ def phase_tasnet_training(rnn_type, profile=False):
         norm_cpu = float(cpu.optimizer.clip_grad())
         rel_loss = abs(losses[0] - loss_cpu) / abs(loss_cpu)
         rel_norm = abs(norms[0] - norm_cpu) / norm_cpu
-        print(f'phase 11c {rnn_type} first step card vs CPU: loss '
+        loss_rtol, norm_rtol = path['rtol']
+        print(f'phase {phase}c {name} first step card vs CPU: loss '
               f'{losses[0]:.9g} vs {loss_cpu:.9g} (relative '
-              f'{rel_loss:.3e}), gradient norm {norms[0]:.9g} vs '
-              f'{norm_cpu:.9g} (relative {rel_norm:.3e}); tol '
-              f'{TASNET_STEP_RTOL}')
-        if not (rel_loss <= TASNET_STEP_RTOL
-                and rel_norm <= TASNET_STEP_RTOL):
-            fail('the first TasNet training step on the card disagrees '
-                 'with the CPU')
+              f'{rel_loss:.3e}, tol {loss_rtol}), gradient norm '
+              f'{norms[0]:.9g} vs {norm_cpu:.9g} (relative {rel_norm:.3e}, '
+              f'tol {norm_rtol})')
+        if not (rel_loss <= loss_rtol and rel_norm <= norm_rtol):
+            fail(f'the first {name} TasNet training step on the card '
+                 f'disagrees with the CPU')
 
         ckpt_dir = storage_dir / 'checkpoints'
         names = sorted(p.name for p in ckpt_dir.iterdir())
-        for name in (f'ckpt_{iterations}.ptt', 'ckpt_latest.ptt',
+        for ckpt in (f'ckpt_{iterations}.ptt', 'ckpt_latest.ptt',
                      'ckpt_best_si-sdr.ptt', 'ckpt_ranking.json'):
-            if name not in names:
-                fail(f'{name} missing from {names}')
+            if ckpt not in names:
+                fail(f'{ckpt} missing from {names}')
         if not any('tfevents' in p.name for p in storage_dir.iterdir()):
             fail('no event file in the storage dir')
         loaded = TasNet.from_storage_dir(
@@ -1124,19 +1492,27 @@ def phase_tasnet_training(rnn_type, profile=False):
         _, metrics = tas_evaluate.evaluate_example(loaded, example)
         if not np.isfinite(metrics['output_si_sdr']).all():
             fail(f'bad metrics from the trained model: {metrics}')
-        print(f'phase 11d {rnn_type} storage dir {names} loads; one request '
+        print(f'phase {phase}d {name} storage dir {names} loads; one request '
               f'served from it: SI-SDR {metrics["output_si_sdr"]}')
 
         for samples in (32000, 16000):
             batch = tasnet_batch(4, samples, seed=1)
             t = timed_step(trainer, batch, loss_key='si-sdr',
-                           wrapper=wrapper, per_step=12)
-            print(f'phase 11e {rnn_type} training step B=4 x {samples} '
+                           wrapper=wrapper, per_step=per_step)
+            print(f'phase {phase}e {name} training step B=4 x {samples} '
                   f'samples: '
                   + ', '.join(f'{k} {v:.3f} ms' for k, v in t.items()))
             if profile:
-                profile_step(trainer, batch,
-                             f'{rnn_type} B=4 x {samples}')
+                profile_step(trainer, batch, f'{name} B=4 x {samples}')
+            if not sepformer:
+                continue
+            set_attention_backend(trainer.model, False)
+            t = timed_step(trainer, batch, loss_key='si-sdr',
+                           wrapper=wrapper, per_step=0)
+            set_attention_backend(trainer.model, True)
+            print(f'phase {phase}e {name} the same step on the dense '
+                  f'attention backend: '
+                  + ', '.join(f'{k} {v:.3f} ms' for k, v in t.items()))
     return launches
 
 
@@ -1158,6 +1534,17 @@ def main():
               for rnn_type in ('bgru', 'blstm')}
     trained = {rnn_type: phase_tasnet_training(rnn_type, profile=profile)
                for rnn_type in ('bgru', 'blstm')}
+    attention = phase_attention_kernels()
+    sepformer_served = phase_sepformer_serving()
+    sepformer_trained = phase_tasnet_training('sepformer', profile=profile)
+    attention_launches = {
+        'fwd': sepformer_served + sepformer_trained['fwd']
+        + sepformer_trained['fwd_train'],
+        'bwd': sepformer_trained['bwd']}
+    for name, n in attention_launches.items():
+        if n == 0:
+            fail(f'the SepFormer paths never launched the attention {name} '
+                 f'kernel')
     gru_launches = {'fwd': served['bgru'] + trained['bgru']['fwd'],
                     'fwd_train': trained['bgru']['fwd_train'],
                     'bwd': trained['bgru']['bwd']}
@@ -1176,10 +1563,15 @@ def main():
           f'{launches["lstm_cell_scan"]}, uPIT training {train_launches}, '
           f'TasNet blstm serving {served["blstm"]}, training '
           f'{trained["blstm"]}); gru {gru_launches}; LSTM kernels at '
-          f'DPRNN shapes (ms): {lstm_dprnn}')
+          f'DPRNN shapes (ms): {lstm_dprnn}; attention '
+          f'{attention_launches} (SepFormer serving {sepformer_served} '
+          f'lean forward, training {sepformer_trained})')
     # the GRU rows are those of the intra-chunk shape, which six of a
     # model's twelve chunk RNNs run
     gru_rows = gru[RECURRENCE_SHAPES[0][0]]
+    # the attention rows are those of the intra-chunk shape (8 of a
+    # model's 16 layers); the forward row counts lean and training launches
+    attention_rows = attention[ATTENTION_CASES[0][0]]
     kernels = [
         {'name': 'lstm_cell_scan', 'route': 'cuda',
          'source': 'padertorch_tpu_torch/csrc/lstm_cell_scan.cu',
@@ -1210,6 +1602,14 @@ def main():
          'source': 'padertorch_tpu_torch/csrc/gru_cell_scan_bwd.cu',
          'replaces': 'padertorch_tpu/ops/pallas/gru.py:259',
          'launches': gru_launches['bwd'], **gru_rows['bwd']},
+        {'name': 'flash_attention', 'route': 'cuda',
+         'source': 'padertorch_tpu_torch/csrc/flash_attention.cu',
+         'replaces': 'padertorch_tpu/ops/pallas/attention.py:328',
+         'launches': attention_launches['fwd'], **attention_rows['fwd']},
+        {'name': 'flash_attention_bwd', 'route': 'cuda',
+         'source': 'padertorch_tpu_torch/csrc/flash_attention_bwd.cu',
+         'replaces': 'padertorch_tpu/ops/pallas/attention.py:351',
+         'launches': attention_launches['bwd'], **attention_rows['bwd']},
     ]
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

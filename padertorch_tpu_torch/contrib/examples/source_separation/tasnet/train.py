@@ -1,14 +1,15 @@
-"""Train TasNet / DPRNN-TasNet.
+"""Train TasNet / DPRNN-TasNet / SepFormer-TasNet.
 
 Counterpart of ``padertorch_tpu/contrib/examples/source_separation/tasnet/
 train.py`` (reference ``contrib/examples/source_separation/tasnet/
 train.py``; the sacred named configs ``dprnn``, ``win2``, ``stft``,
-``log_mse`` become the ``--variant``/``--loss`` flags).  It runs
+``log_mse`` become the ``--variant``/``--loss`` flags; ``sepformer`` is the
+dual-path transformer separator, ``--flash`` forces its attention onto the
+fused kernels).  It runs
 ``test_run``, registers the validation hook on ``si-sdr``, trains, and
 leaves a storage dir (``config.json``, ``checkpoints/``, an event file)
 that the ``evaluate.py`` of this package and of the JAX package both load.
-The ``convnet`` and ``sepformer`` variants are not ported yet (ROADMAP.md
-Queue 1) and raise.
+The ``convnet`` variant is not ported yet (ROADMAP.md Queue 1) and raises.
 
 The chunk RNN type is part of the config, as in the JAX recipe: pass
 ``updates={'model': {'separator': {'inter_chunk_type': 'bgru',
@@ -19,6 +20,8 @@ model.separator.intra_chunk_type=bgru``.
 Run on the card (the default device; without one it fails):
     python -m padertorch_tpu_torch.contrib.examples.source_separation.tasnet.train \
         --storage_root /tmp/tasnet --synthetic --epochs 2 --variant dprnn
+    python -m padertorch_tpu_torch.contrib.examples.source_separation.tasnet.train \
+        --storage_root /tmp/tasnet --synthetic --epochs 2 --variant sepformer --flash
 Run on the CPU: add ``--device cpu`` (and ``--small`` for a tiny model).
 """
 import argparse
@@ -30,7 +33,11 @@ from padertorch_tpu_torch.io import dump_config
 from padertorch_tpu_torch.models.tasnet import (
     TasNet, TasEncoder, StftEncoder, IstftDecoder,
 )
+from padertorch_tpu_torch.contrib.mk.modules.transformer import (
+    set_attention_backend)
 from padertorch_tpu_torch.modules.dual_path_rnn import DPRNN
+from padertorch_tpu_torch.modules.dual_path_transformer import (
+    DualPathTransformer)
 from padertorch_tpu_torch.train.optimizer import Adam
 from padertorch_tpu_torch.train.trainer import Trainer
 from padertorch_tpu_torch.utils.nested import nested_merge
@@ -45,6 +52,14 @@ VARIANTS = {
             'window_length': 100, 'hop_size': 50, 'num_blocks': 6,
         },
     },
+    'sepformer': {
+        'separator': {
+            'factory': DualPathTransformer,
+            'input_size': 128, 'window_length': 100, 'hop_size': 50,
+            'num_blocks': 4, 'num_layers_intra': 2,
+            'num_layers_inter': 2, 'num_heads': 8,
+        },
+    },
     'win2': {
         'encoder': {'factory': TasEncoder, 'window_length': 2},
     },
@@ -57,7 +72,6 @@ VARIANTS = {
 # variants of the JAX recipe whose separators are not ported yet
 NOT_PORTED = {
     'convnet': 'modules/convnet.py and modules/normalization.py',
-    'sepformer': 'modules/dual_path_transformer.py and flash attention',
 }
 
 
@@ -89,6 +103,14 @@ SMALL = {
         'window_length': 10, 'hop_size': 5, 'num_blocks': 2,
     },
 }
+SMALL_SEPFORMER = {
+    'encoder': {'feature_size': 32},
+    'separator': {
+        'input_size': 16, 'window_length': 10, 'hop_size': 5,
+        'num_blocks': 1, 'num_layers_intra': 1,
+        'num_layers_inter': 1, 'num_heads': 2,
+    },
+}
 
 
 def main():
@@ -102,6 +124,11 @@ def main():
                         choices=['si-sdr', 'log-mse', 'log1p-mse'])
     parser.add_argument('--epochs', type=int, default=200)
     parser.add_argument('--batch_size', type=int, default=4)
+    parser.add_argument(
+        '--flash', action='store_true',
+        help='force the fused attention kernels for the sepformer variant '
+             '(ops/kernels/attention.py); without it the attention '
+             "dispatches on the measured crossover ('auto')")
     parser.add_argument('--segment_length', type=int, default=32000)
     parser.add_argument('--num_examples', type=int, default=None,
                         help='synthetic training-set size '
@@ -127,7 +154,8 @@ def main():
 
     updates = {'stop_trigger': (args.epochs, 'epoch')}
     if args.small:
-        updates['model'] = SMALL
+        updates['model'] = (SMALL_SEPFORMER if args.variant == 'sepformer'
+                            else SMALL)
     if rest:
         # sacred-style overrides (... with model.separator.rnn_size=64)
         # are merged into the updates before get_config, so
@@ -142,6 +170,8 @@ def main():
         storage_dir, variant=args.variant, loss=args.loss, updates=updates)
     dump_config({'trainer': config}, storage_dir / 'config.json')
     trainer = Trainer.from_config(config)
+    if args.flash:
+        set_attention_backend(trainer.model, True)
     trainer.to(args.device)
     print(f'device: {args.device}')
 

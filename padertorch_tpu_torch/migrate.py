@@ -17,7 +17,13 @@ port):
 - ``ConvTranspose1d``: ``weight`` (out, in, k) -> (in, out, k), axes 0 and
   1 swapped (the JAX layer flips the taps in its forward, so the values
   are torch's); ``bias`` copied;
-- ``Conv1d`` (OIH in both), ``LayerNorm``, ``PReLU``: copied.
+- ``Conv1d`` (OIH in both), ``LayerNorm``, ``RMSNorm``, ``PReLU``,
+  ``DynamicTanh`` (``alpha``, ``weight``, ``bias``) and the bias token of a
+  ``MultiheadAttention`` (``bias_k``, ``bias_v``): copied;
+- ``RoPE``: the ``inv_freq`` buffer is part of the JAX ``state_dict()``
+  and is copied both ways;
+- lists of modules (``layers``, ``dpt_blocks``) are ``nn.ModuleList``s in
+  the port, whose keys (``layers.0. ...``) are the JAX pytree paths.
 
 :func:`to_jax_state_dict` is the inverse of :func:`from_jax_state_dict`:
 the port's trainer writes its checkpoints' ``model`` entry with it, so
@@ -28,7 +34,10 @@ JAX model.)
 import numpy as np
 import torch
 
+from padertorch_tpu_torch.contrib.mk.modules.transformer import (
+    DynamicTanh, MultiheadAttention, RoPE)
 from padertorch_tpu_torch.modules.recurrent import GRU, _RNNBase
+from padertorch_tpu_torch.nn import RMSNorm
 
 __all__ = ['from_jax_state_dict', 'to_jax_state_dict']
 
@@ -52,6 +61,12 @@ def _jax_to_port(model):
                     pairs[f'{dot}w_hh.{i}'] = [(p['weight_hh'], np.transpose)]
                     pairs[f'{dot}b.{i}'] = [(p['bias_ih'], np.asarray),
                                             (p['bias_hh'], np.zeros_like)]
+        elif isinstance(mod, (DynamicTanh, MultiheadAttention, RMSNorm)):
+            # the module's own parameters (not its children's), as they are
+            for pname, p in mod.named_parameters(recurse=False):
+                pairs[f'{dot}{pname}'] = [(p, np.asarray)]
+        elif isinstance(mod, RoPE):
+            pairs[f'{dot}inv_freq'] = [(mod.inv_freq, np.asarray)]
         elif isinstance(mod, (torch.nn.Linear, torch.nn.ConvTranspose1d,
                               torch.nn.Conv1d, torch.nn.LayerNorm,
                               torch.nn.PReLU)):
@@ -68,8 +83,9 @@ def _jax_to_port(model):
     if missed:
         raise NotImplementedError(
             f'no JAX layout known for the parameters {missed}: only LSTM, '
-            'GRU, Linear, Conv1d, ConvTranspose1d, LayerNorm and PReLU '
-            'layers move between the packages yet')
+            'GRU, Linear, Conv1d, ConvTranspose1d, LayerNorm, RMSNorm, '
+            'PReLU, DynamicTanh, RoPE and MultiheadAttention layers move '
+            'between the packages yet')
     return pairs
 
 

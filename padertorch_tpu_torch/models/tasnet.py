@@ -15,9 +15,9 @@ from a copy of the lengths, and no step waits for the device to read a
 length.
 
 The separator is a :class:`~padertorch_tpu_torch.modules.dual_path_rnn
-.DPRNN`; the JAX package's ``ConvNet`` (Conv-TasNet) and
-``DualPathTransformer`` (sepformer) separators are not ported yet
-(ROADMAP.md Queue 1).
+.DPRNN` or a :class:`~padertorch_tpu_torch.modules.dual_path_transformer
+.DualPathTransformer` (sepformer); the JAX package's ``ConvNet``
+(Conv-TasNet) separator is not ported yet (ROADMAP.md Queue 1).
 """
 import itertools
 from typing import Optional
@@ -29,6 +29,8 @@ from padertorch_tpu_torch.base import Model
 from padertorch_tpu_torch import nn
 from padertorch_tpu_torch.modules.dual_path_rnn import (
     DPRNN, _host_lengths, _length_mask)
+from padertorch_tpu_torch.modules.dual_path_transformer import (
+    DualPathTransformer)
 from padertorch_tpu_torch.ops._stft import STFT
 from padertorch_tpu_torch.ops.mappings import ACTIVATION_FN_MAP
 
@@ -172,7 +174,8 @@ def _masked_log1p_mse(estimate, target, mask, n_valid):
 
 
 class TasNet(Model):
-    """Time-domain separator: encoder -> separator (DPRNN) -> decoder.
+    """Time-domain separator: encoder -> separator (DPRNN or
+    DualPathTransformer) -> decoder.
 
     forward input: dict with ``y`` (B, T), ``num_samples`` (B,);
     review additionally uses ``s`` (B, K, T).
@@ -186,6 +189,11 @@ class TasNet(Model):
             config['separator'].update(
                 input_size=64, rnn_size=128, window_length=100,
                 hop_size=50, num_blocks=6)
+        elif config['separator']['factory'] == DualPathTransformer:
+            config['separator'].update(
+                input_size=128, window_length=100, hop_size=50,
+                num_blocks=4, num_layers_intra=2, num_layers_inter=2,
+                num_heads=8)
         config['decoder'] = {'factory': TasDecoder}
         if config['encoder']['factory'] == TasEncoder:
             config['decoder']['window_length'] = \
@@ -207,12 +215,11 @@ class TasNet(Model):
         super().__init__()
         assert not mask or encoder.feature_size == decoder.feature_size, (
             'Encoder and decoder feature sizes must match when masking!')
-        if not isinstance(separator, DPRNN):
+        if not isinstance(separator, (DPRNN, DualPathTransformer)):
             raise NotImplementedError(
-                f'separator {type(separator).__name__}: only the DPRNN '
-                'separator is ported; ConvNet (Conv-TasNet) and '
-                'DualPathTransformer (sepformer) wait in ROADMAP.md '
-                'Queue 1')
+                f'separator {type(separator).__name__}: only the DPRNN and '
+                'DualPathTransformer separators are ported; ConvNet '
+                '(Conv-TasNet) waits in ROADMAP.md Queue 1')
         self.encoder = encoder
         self.separator = separator
         self.decoder = decoder

@@ -28,6 +28,7 @@ _LIB_NAME = 'libptt_kernels.so'
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C entry points and their argument types (pointers and the stream as
 # c_void_p, so ctypes does not cut them to 32 bits)
 _SIGNATURES = {
@@ -38,6 +39,8 @@ _SIGNATURES = {
     'gru_cell_scan_fwd_train': (_P,) * 10 + (_I,) * 5 + (_P,),
     'gru_cell_scan_bwd': (_P,) * 10 + (_I,) * 5 + (_P,),
     'masked_istft_fwd': (_P,) * 5 + (_I,) * 7 + (_P,),
+    'flash_attention_fwd': (_P,) * 6 + (_I,) * 9 + (_F, _I, _P),
+    'flash_attention_bwd': (_P,) * 10 + (_I,) * 9 + (_F, _I, _P),
 }
 
 

@@ -5,7 +5,10 @@ with residuals, backward) are held against their step-by-step plain
 versions (1e-5: the same f32 arithmetic, sums in another order) and,
 through the ``autograd.Function``, against autograd through the plain
 forward (1e-4 relative to each gradient's largest entry); the GRU
-kernels likewise.  Marked
+kernels likewise.  The attention kernels are held against the masked
+softmax formula (``flash_attention_plain`` and autograd through it) in every
+mask mode, for every head size of the template set and one outside it.
+Marked
 ``cuda``: they skip without a card.  Run them on the card with
 
     python -m pytest tests/test_torch_cuda_kernels.py -q
@@ -18,8 +21,15 @@ from padertorch_tpu_torch.ops._stft import HostSTFT, STFT
 from padertorch_tpu_torch.models.bss import PermutationInvariantTrainingModel
 from padertorch_tpu_torch.models.tasnet import TasDecoder, TasEncoder, TasNet
 from padertorch_tpu_torch.modules.dual_path_rnn import DPRNN
+from padertorch_tpu_torch.contrib.mk.modules.transformer import (
+    MultiheadAttention, set_attention_backend)
+from padertorch_tpu_torch.modules.dual_path_transformer import (
+    DualPathTransformer)
 from padertorch_tpu_torch.ops.kernels import gru as gru_kernels
 from padertorch_tpu_torch.ops.kernels import lstm as lstm_kernels
+from padertorch_tpu_torch.ops.kernels.attention import (
+    flash_attention, flash_attention_fwd_plain, flash_attention_plain)
+from padertorch_tpu_torch.ops.kernels import attention as attention_kernels
 from padertorch_tpu_torch.ops.kernels.gru import (
     gru_cell_scan, gru_cell_scan_plain, gru_cell_scan_train_plain,
     gru_cell_scan_bwd_plain)
@@ -472,3 +482,181 @@ def test_time_groups_divide_the_steps_and_fill_the_card(cuda):
                         b.reshape(100, 2, 260, 384))
     got = sum_outer(a, b, 2)
     assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
+
+
+# name: (B, H, Hkv, Tq, Tk, D, kwargs)
+ATTENTION_CASES = {
+    'd16_full': (3, 2, 2, 100, 100, 16, {}),
+    'd16_padding_with_empty_rows': (
+        5, 2, 2, 66, 66, 16, {'key_padding_lens': [66, 30, 1, 0, 65]}),
+    'd32_causal_padding': (
+        2, 4, 4, 37, 37, 32, {'causal': True, 'key_padding_lens': [37, 20]}),
+    'd64_tq_ne_tk': (2, 4, 4, 300, 517, 64, {}),
+    'd64_causal_more_queries_than_keys': (
+        2, 2, 2, 150, 70, 64, {'causal': True}),
+    'd64_window': (1, 3, 3, 333, 333, 64, {'window': (40, 9)}),
+    'd64_window_left_only_causal': (
+        1, 2, 2, 200, 200, 64, {'window': (31, None), 'causal': True}),
+    'd64_window_right_only': (1, 2, 2, 130, 190, 64, {'window': (None, 5)}),
+    'd128_gqa_padding': (
+        2, 8, 2, 130, 77, 128, {'key_padding_lens': [77, 50]}),
+    'd64_mqa_causal': (2, 4, 1, 129, 129, 64, {'causal': True}),
+    'd24_padded_head': (2, 4, 4, 50, 50, 24, {'window': (7, 3)}),
+    'd8_one_query': (2, 2, 2, 1, 40, 8, {'key_padding_lens': [40, 3]}),
+    'd64_long': (1, 2, 2, 1100, 1100, 64,
+                 {'causal': True, 'key_padding_lens': [900]}),
+}
+
+
+def _attention_inputs(cuda, name):
+    b, h, h_kv, tq, tk, d, kwargs = ATTENTION_CASES[name]
+    rng = np.random.RandomState(sum(map(ord, name)))
+
+    def make(*shape):
+        return torch.tensor(rng.randn(*shape), dtype=torch.float32,
+                            device=cuda)
+
+    return (make(b, h, tq, d), make(b, h_kv, tk, d), make(b, h_kv, tk, d),
+            make(b, h, tq, d), kwargs)
+
+
+@pytest.mark.parametrize('name', sorted(ATTENTION_CASES))
+def test_attention_kernels_match_plain(cuda, name):
+    """Forward (lean and training, with the log-sum-exp) 1e-5 absolute;
+    dq, dk, dv through ``FlashAttention`` against autograd through the
+    plain version, 5e-5 of each gradient's largest entry; two backward
+    runs give the same bits (no atomics)."""
+    q, k, v, d_o, kwargs = _attention_inputs(cuda, name)
+    before = dict(flash_attention.launches)
+    with torch.no_grad():
+        got = flash_attention(q, k, v, **kwargs)
+        want, want_lse = flash_attention_fwd_plain(q, k, v, **kwargs)
+    assert got.shape == want.shape and got.grad_fn is None
+    assert float((got - want).abs().max()) <= 1e-5
+    assert flash_attention.launches['fwd'] == before['fwd'] + 1
+
+    def grads(fn):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        out = fn(*leaves, **kwargs)
+        assert out.grad_fn is not None
+        return out, torch.autograd.grad(out, leaves, d_o)
+
+    out, got_grads = grads(flash_attention)
+    _, want_grads = grads(flash_attention_plain)
+    assert float((out - want).abs().max()) <= 1e-5
+    for g, w, label in zip(got_grads, want_grads, 'qkv'):
+        assert g.shape == w.shape, label
+        scale = float(w.abs().max())
+        assert float((g - w).abs().max()) <= 5e-5 * max(scale, 1e-3), label
+    _, again = grads(flash_attention)
+    assert all(torch.equal(a, b) for a, b in zip(got_grads, again))
+    assert flash_attention.launches['fwd_train'] == before['fwd_train'] + 2
+    assert flash_attention.launches['bwd'] == before['bwd'] + 2
+    lens = kwargs.get('key_padding_lens')
+    if lens is not None and 0 in lens:
+        row = lens.index(0)
+        assert float(out[row].abs().max()) == 0.0
+        assert float(got_grads[0][row].abs().max()) == 0.0
+        assert float(got_grads[1][row].abs().max()) == 0.0
+        assert float(got_grads[2][row].abs().max()) == 0.0
+
+
+def test_attention_training_forward_writes_the_log_sum_exp(cuda):
+    q, k, v, _, kwargs = _attention_inputs(
+        cuda, 'd16_padding_with_empty_rows')
+    lens = torch.tensor(kwargs['key_padding_lens'], dtype=torch.int32,
+                        device=cuda)
+    out, lse = attention_kernels._launch_fwd(
+        q, k, v, lens, False, None, None, 0.25, train=True)
+    want, want_lse = flash_attention_fwd_plain(q, k, v, **kwargs)
+    assert float((out - want).abs().max()) <= 1e-5
+    assert float((lse - want_lse).abs().max()) <= 1e-5
+    assert bool((lse[3] == -1e30).all())
+
+
+def test_attention_kernel_rejects_what_it_does_not_take(cuda):
+    q = torch.zeros((2, 4, 5, 16), device=cuda)
+    with pytest.raises(TypeError, match='float32'):
+        flash_attention(q.bfloat16(), q.bfloat16(), q.bfloat16())
+    with pytest.raises(ValueError):
+        flash_attention(q, q.cpu(), q)
+    with pytest.raises(ValueError):
+        flash_attention(q, q[:, :3], q[:, :3])          # 4 % 3 heads
+    with pytest.raises(ValueError, match='128'):
+        big = torch.zeros((1, 1, 3, 160), device=cuda)
+        flash_attention(big, big, big)
+    # views and strided inputs are made contiguous, not refused
+    x = torch.randn((2, 5, 4, 16), device=cuda).transpose(1, 2)
+    want = flash_attention_plain(x, x, x)
+    assert float((flash_attention(x, x, x) - want).abs().max()) <= 1e-5
+
+
+def test_attention_takes_strided_cotangents_and_a_partial_graph(cuda):
+    q, k, v, _, kwargs = _attention_inputs(cuda, 'd32_causal_padding')
+
+    def grads(fn):
+        leaves = [q.clone().requires_grad_(), k,
+                  v.clone().requires_grad_()]
+        out = fn(*leaves, **kwargs)
+        loss = (out.transpose(1, 2).reshape(2, 37, -1).cumsum(1) ** 2).sum()
+        return torch.autograd.grad(loss, [leaves[0], leaves[2]])
+
+    # relative to each gradient's largest entry: the first query sees one
+    # key, so its dq is zero in exact arithmetic and rounding noise here
+    for g, e in zip(grads(flash_attention), grads(flash_attention_plain)):
+        assert float((g - e).abs().max()) <= 5e-5 * float(e.abs().max())
+
+
+def test_multihead_attention_forced_onto_the_kernels_matches_dense(cuda):
+    torch.manual_seed(0)
+    mha = MultiheadAttention(64, 4, use_rope=True, num_kv_heads=2,
+                             use_flash=False).to(cuda)
+    x = torch.randn((3, 50, 64), device=cuda)
+    lens = torch.tensor([50, 31, 7], device=cuda)
+    dense = mha(x, key_padding_lens=lens, causal=True)
+    before = dict(flash_attention.launches)
+    fused = set_attention_backend(mha, True)(x, key_padding_lens=lens,
+                                             causal=True)
+    assert flash_attention.launches['fwd_train'] == before['fwd_train'] + 1
+    assert fused.grad_fn is not None
+    assert float((fused - dense).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize('use_flash', [True, False])
+def test_sepformer_tasnet_on_the_card_matches_the_cpu(cuda, use_flash):
+    """A small SepFormer-TasNet: losses on the card against the CPU (1e-4),
+    every parameter with a finite gradient, evaluation twice gives the same
+    bits, and the forced backend launches one kernel per layer."""
+    torch.manual_seed(0)
+    model = set_attention_backend(TasNet(
+        encoder=TasEncoder(20, 32), decoder=TasDecoder(20, 32),
+        separator=DualPathTransformer(
+            16, window_length=10, hop_size=5, num_blocks=2,
+            num_layers_intra=1, num_layers_inter=2, num_heads=2)).train(),
+        use_flash)
+    rng = np.random.RandomState(0)
+    lens = np.array([1203, 1000, 777])
+    valid = np.arange(1203)[None, :] < lens[:, None]
+    s = (rng.randn(3, 2, 1203) * 0.3 * valid[:, None]).astype('float32')
+    batch = {'y': s.sum(1), 's': s, 'num_samples': lens}
+    want = model.loss(model.example_to_device(batch),
+                      model(model.example_to_device(batch)))
+    model = model.to(cuda)
+    example = model.example_to_device(batch)
+    before = dict(flash_attention.launches)
+    losses = model.loss(example, model(example))
+    for key in losses:
+        torch.testing.assert_close(losses[key].cpu(), want[key], atol=1e-4,
+                                   rtol=1e-4)
+    losses['si-sdr'].backward()
+    for name, p in model.named_parameters():
+        assert p.grad is not None, name
+        assert bool(torch.isfinite(p.grad).all()), name
+    layers = 6 if use_flash else 0
+    assert flash_attention.launches == {
+        'fwd': before['fwd'], 'fwd_train': before['fwd_train'] + layers,
+        'bwd': before['bwd'] + layers}
+    with torch.no_grad():
+        model.eval()
+        assert torch.equal(model(example)['out'], model(example)['out'])
+    assert flash_attention.launches['fwd'] == before['fwd'] + 2 * layers

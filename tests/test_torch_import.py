@@ -2,8 +2,9 @@
 ``tensorboardX``, ``optax`` or ``matplotlib``, and a run on the CPU
 launches no kernel (all kernels' launch counts stay 0): one served request
 and one training step through the trainer, its hooks, the optimizer and
-the event writer, for the uPIT model and for the DPRNN-TasNet (with GRU
-chunk RNNs, through its recipe's own entry points)."""
+the event writer, for the uPIT model, for the DPRNN-TasNet (with GRU
+chunk RNNs) and for the SepFormer-TasNet with its attention forced onto the
+fused backend (both through the tasnet recipe's own entry points)."""
 import json
 import os
 import subprocess
@@ -31,6 +32,10 @@ from padertorch_tpu_torch.ops._stft import HostSTFT
 from padertorch_tpu_torch.ops.kernels.lstm import lstm_cell_scan
 from padertorch_tpu_torch.ops.kernels.masked_istft import masked_istft
 from padertorch_tpu_torch.ops.kernels.gru import gru_cell_scan
+from padertorch_tpu_torch.ops.kernels.attention import flash_attention
+from padertorch_tpu_torch.contrib.mk.modules.transformer import (
+    MultiheadAttention, set_attention_backend)
+from padertorch_tpu_torch.modules import dual_path_transformer
 from padertorch_tpu_torch.contrib.examples.source_separation.tasnet import (
     data as tas_data, evaluate as tas_evaluate, train as tas_train,
     model as tas_model, tas_coders)
@@ -74,10 +79,28 @@ with tempfile.TemporaryDirectory() as tmp:
     tas_trained = (t.iteration, type(
         t.model.separator.dprnn_blocks[0].intra_chunk_rnn.rnn).__name__)
     _, tas_metrics = tas_evaluate.evaluate_example(t.model.eval(), example)
+# and for the SepFormer-TasNet, the fused attention backend forced
+with tempfile.TemporaryDirectory() as tmp:
+    config = tas_train.get_trainer_config(tmp, variant='sepformer', updates={
+        'model': tas_train.SMALL_SEPFORMER,
+        'stop_trigger': (1, 'iteration')})
+    t = trainer.Trainer.from_config(config)
+    set_attention_backend(t.model, True)
+    t.train(batches)
+    events = [f for f in t.storage_dir.iterdir() if 'tfevents' in f.name]
+    sep_scalars = tfevents.scalars_from_events(events[0])
+    sep_trained = (t.iteration, type(t.model.separator).__name__, sorted(
+        {m.use_flash for m in t.model.modules()
+         if isinstance(m, MultiheadAttention)}))
+    _, sep_metrics = tas_evaluate.evaluate_example(t.model.eval(), example)
 print(json.dumps({
     'modules': sorted(sys.modules),
     'launches': [*lstm_cell_scan.launches.values(), masked_istft.launches,
-                 *gru_cell_scan.launches.values()],
+                 *gru_cell_scan.launches.values(),
+                 *flash_attention.launches.values()],
+    'sep_finite': bool(np.isfinite(sep_metrics['output_si_sdr']).all()),
+    'sep_trained': sep_trained,
+    'sep_train_loss': sep_scalars['training/loss'],
     'tas_finite': bool(np.isfinite(tas_metrics['output_si_sdr']).all()),
     'tas_trained': tas_trained,
     'tas_train_loss': tas_scalars['training/loss'],
@@ -100,7 +123,9 @@ def test_port_imports_no_jax_and_launches_nothing_on_cpu():
     assert forbidden == []
     assert 'padertorch_tpu_torch.train.trainer' in out['modules']
     assert 'padertorch_tpu_torch.models.tasnet' in out['modules']
-    assert out['launches'] == [0] * 7
+    assert 'padertorch_tpu_torch.modules.dual_path_transformer' in \
+        out['modules']
+    assert out['launches'] == [0] * 10
     assert out['finite']
     assert out['trained'] == [
         1, ['ckpt_0.ptt', 'ckpt_1.ptt', 'ckpt_latest.ptt']]
@@ -109,4 +134,8 @@ def test_port_imports_no_jax_and_launches_nothing_on_cpu():
     assert out['tas_finite']
     assert out['tas_trained'] == [1, 'GRU']
     (step, loss), = out['tas_train_loss']
+    assert step == 1 and np.isfinite(loss)
+    assert out['sep_finite']
+    assert out['sep_trained'] == [1, 'DualPathTransformer', [True]]
+    (step, loss), = out['sep_train_loss']
     assert step == 1 and np.isfinite(loss)

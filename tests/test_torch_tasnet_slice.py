@@ -7,7 +7,11 @@ for the GRU run, the JAX package's load that storage dir and give the same
 SI-SDR per example (1e-3 dB) and the same means (1e-3 dB) (that an LSTM
 checkpoint of the port loads in the JAX package is held by
 ``test_torch_pit_slice.py``); the audio events the summary hook wrote
-decode as WAV.  Variants whose separators are not ported raise.
+decode as WAV.  The same for ``--variant sepformer --small --flash`` (the
+dual-path transformer separator with its attention forced onto the fused
+backend, on the CPU the kernels' plain version): both packages' ``evaluate.py``
+load the storage dir and agree.  Variants whose separators are not ported
+raise.
 """
 import io
 import json
@@ -111,6 +115,48 @@ def test_train_entry_point_and_both_evaluates(rnn_type, tmp_path):
                                    atol=1e-3, rtol=0, err_msg=key)
 
 
+def test_sepformer_recipe_trains_and_both_packages_evaluate(tmp_path):
+    proc = _run_module(
+        f'padertorch_tpu_torch.{RECIPE}.train', '--storage_root',
+        str(tmp_path), '--synthetic', '--small', '--epochs', '1',
+        '--variant', 'sepformer', '--flash', '--device', 'cpu')
+    assert proc.returncode == 0, proc.stderr
+    assert 'Successfully finished test run' in proc.stdout
+    storage_dir = tmp_path / 'tasnet' / '1'
+    config = json.loads((storage_dir / 'config.json').read_text())
+    separator = config['trainer']['model']['separator']
+    assert separator == {
+        'factory': 'padertorch_tpu.modules.dual_path_transformer'
+                   '.DualPathTransformer',
+        'input_size': 16, 'window_length': 10, 'hop_size': 5,
+        'num_blocks': 1, 'num_layers_intra': 1, 'num_layers_inter': 1,
+        'num_heads': 2, 'd_ff': None, 'dropout': 0.0, 'use_rope': True}
+    assert {p.name for p in (storage_dir / 'checkpoints').iterdir()} == {
+        'ckpt_0.ptt', 'ckpt_8.ptt', 'ckpt_latest.ptt',
+        'ckpt_best_si-sdr.ptt', 'ckpt_ranking.json'}
+    results, means = {}, {}
+    for package, extra in (('padertorch_tpu_torch', ['--device', 'cpu']),
+                           ('padertorch_tpu', [])):
+        proc = _run_module(f'{package}.{RECIPE}.evaluate', '--model_path',
+                           str(storage_dir), '--synthetic', *extra)
+        assert proc.returncode == 0, proc.stderr
+        results[package] = json.loads(
+            (storage_dir / 'eval' / 'result.json').read_text())
+        means[package] = json.loads(
+            (storage_dir / 'eval' / 'means.json').read_text())
+    port, jax_ = results['padertorch_tpu_torch'], results['padertorch_tpu']
+    assert len(port) == 8 and port.keys() == jax_.keys()
+    for example_id in port:
+        for key in ('input_si_sdr', 'output_si_sdr'):
+            np.testing.assert_allclose(
+                port[example_id][key], jax_[example_id][key], atol=1e-3,
+                rtol=0, err_msg=f'{example_id} {key}')
+    for key, value in means['padertorch_tpu_torch'].items():
+        assert np.isfinite(value), key
+        np.testing.assert_allclose(value, means['padertorch_tpu'][key],
+                                   atol=1e-3, rtol=0, err_msg=key)
+
+
 def test_add_audio_events_decode(tmp_path):
     writer = SummaryWriter(tmp_path)
     signal = np.sin(np.arange(800) / 10) * 1.5  # clipped to [-1, 1]
@@ -132,6 +178,16 @@ def test_add_audio_events_decode(tmp_path):
 
 @pytest.mark.parametrize('variant', ['convnet', 'sepformer'])
 def test_variants_that_are_not_ported_raise(variant, tmp_path):
+    """``convnet`` still waits and raises; ``sepformer`` is ported and gives
+    the JAX recipe's full-width separator."""
+    if variant == 'sepformer':
+        separator = train.get_trainer_config(
+            tmp_path, variant=variant)['model']['separator']
+        assert {k: v for k, v in separator.items() if k != 'factory'} == {
+            'input_size': 128, 'window_length': 100, 'hop_size': 50,
+            'num_blocks': 4, 'num_layers_intra': 2, 'num_layers_inter': 2,
+            'num_heads': 8, 'd_ff': None, 'dropout': 0.0, 'use_rope': True}
+        return
     with pytest.raises(NotImplementedError, match='Queue 1'):
         train.get_trainer_config(tmp_path, variant=variant)
 
