@@ -1,12 +1,14 @@
-"""Drive the PyTorch port's uPIT, DPRNN-TasNet and SepFormer-TasNet
-separation and training paths once on one CUDA card.
+"""Drive the PyTorch port's paths once on one CUDA card: uPIT, DPRNN-TasNet
+and SepFormer-TasNet separation, the WaveNet vocoder and the speaker
+classifier with its on-device log-mel front end, each served and trained.
 
     python3 chip_smoke.py [--profile]
 
 Phases, one line each:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
-   versions; TF32 off for matmuls and convolutions.
+   versions; TF32 is off for matmuls and convolutions (the package turns
+   it off where it is imported).
 2. build: the hand-written kernels built from ``padertorch_tpu_torch/csrc``
    (one nvcc per source, started together).
 3. lstm_cell_scan kernel vs its plain version at the flagship shape
@@ -39,9 +41,11 @@ Phases, one line each:
    the ``autograd.Function``) vs their plain versions at the DPRNN's two
    shapes (T=100, D*B=520, H=128 without mask; T=65, D*B=800, H=128 with
    the chunk-length mask of a ragged batch) and at (T=500, D*B=32, H=600,
-   ragged), each with the TF32 control that must fail the limit, and one
-   bidirectional ``torch.nn.GRU`` layer (cuDNN) of the same sizes as a
-   yardstick.
+   ragged), and at the speaker classifier's two (one direction under a
+   ragged frame mask: T=66, 8 rows, H=64 in the recipe's run; T=503, 16
+   rows, H=256 at the class defaults), each with the TF32 control that must
+   fail the limit, and one ``torch.nn.GRU`` layer (cuDNN) of the same sizes
+   and directions as a yardstick.
 9. the three LSTM kernels vs plain at the DPRNN's two shapes, timed.
 10. TasNet serving, for ``bgru`` and ``blstm`` chunk RNNs: the full-width
     model (256 filters of length 20, 64 -> 6 blocks of 128 units, K=100,
@@ -80,8 +84,49 @@ Phases, one line each:
     the CPU; timed steps at B=4 x 32000 and B=4 x 16000 samples on the
     fused and on the dense backend.
 
+15. wavenet_sample kernel vs its plain step loop at full width (16 layers,
+    dilations 1 ... 128 twice, R=64, S=256, O=256; weights of the recipe's
+    model from seed 0) at the shape of a parallel request of 1 s (5 chunks
+    of 4200 steps as 5 rows): teacher-forced logits within the limit, with
+    the TF32 control failing it; greedy and Gumbel-max indices under
+    teacher forcing equal to the choice from the kernel's own logits and
+    the plain version's draws, and equal to the plain version's but where
+    its two best scores are closer than twice the limit; the free-running
+    greedy loop equal to the plain one over 1000 steps of 2 rows; the
+    sampled indices' log-likelihood against the softmax's entropy; one
+    sampling row of 16000 steps (a sequential request) against the plain
+    loop's sampling on its first 500; timed per step at 1, 5, 132 and 264
+    rows.
+16. fused_logmel kernel vs its plain version at (16, 64000) 512/128/64,
+    at the classifier recipe's (8, 8000) 512/128/64, at the wavenet
+    recipe's (2, 16000) 1024/200 with window 800 and at
+    (3, 12345) 512/160 with window 400 (a hop that does not divide the
+    window), with the TF32 control; timed beside the plain version and the
+    composed module path (``STFT`` -> power -> filterbank -> log).
+17. WaveNet serving: the recipe's full-width vocoder trained 4 iterations
+    into a storage dir on the card, loaded back; teacher-forced logits of
+    the card against the CPU, and the kernel's teacher-forced logits
+    against the training graph's; greedy synthesis of 1000 samples on the
+    card against the CPU's step loop; then the recipe's
+    ``synthesize_example`` on utterances of 1 s as requests: 2 as one
+    chunk, 1 in 5 sequential chunks, 4 with ``parallel`` chunks, launch
+    counts read around them.
+18. WaveNet training: the recipe's ``get_trainer_config`` at full width,
+    ``test_run``, 8 iterations at 2 x 16000 samples with validation and
+    checkpoints, the first step against the CPU, a timed step by stage.
+19. speaker classifier with ``--on_device_features``: the recipe's own run
+    (8 synthetic speakers, (16, 32) CNN channels, 64 GRU units, batches of
+    8 x 8000 samples) with launch counts of fused_logmel and the GRU
+    kernels, the first step against the CPU, the accuracy above chance;
+    the storage dir loaded back and its dev batches served through
+    ``evaluate_batch``, card against CPU; then a timed forward and
+    training step at the class defaults (251 speakers, (32, 64) channels,
+    256 GRU units) on 16 x 4 s of audio.
+
 The line before the last is a JSON object with each kernel's launches on
-the main paths, its largest difference from the plain version, its time,
+the main paths, the shape its numbers were taken at (``shape``; the other
+shapes' are in the phases' own lines), its largest difference from the
+plain version, its time,
 the plain version's, the library call's where there is one, and the
 least time the card could take (``bound_ms``: the larger of bytes over
 3.35 TB/s and float32 operations over 67 TFLOP/s, NVIDIA's H100 SXM data
@@ -101,12 +146,23 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from padertorch_tpu_torch.contrib.examples.audio_synthesis.wavenet import (
+    data as wn_data, evaluate as wn_evaluate, train as wn_train)
+from padertorch_tpu_torch.contrib.examples.audio_synthesis.wavenet.model \
+    import WaveNetVocoder
 from padertorch_tpu_torch.contrib.examples.source_separation.pit import (
     data as pit_data, train as pit_train)
 from padertorch_tpu_torch.contrib.examples.source_separation.pit.evaluate \
     import evaluate_example
 from padertorch_tpu_torch.contrib.examples.source_separation.tasnet import (
     data as tas_data, evaluate as tas_evaluate, train as tas_train)
+from padertorch_tpu_torch.contrib.examples.speaker_classification \
+    .supervised import (
+        data as spk_data, evaluate as spk_evaluate, train as spk_train)
+from padertorch_tpu_torch.contrib.examples.speaker_classification \
+    .supervised.model import SpeakerClf
+from padertorch_tpu_torch.contrib.je.modules.features import (
+    FusedAudioLogMelExtractor)
 from padertorch_tpu_torch.contrib.mk.modules.transformer import (
     MultiheadAttention, set_attention_backend)
 from padertorch_tpu_torch.models.tasnet import TasNet
@@ -129,8 +185,12 @@ from padertorch_tpu_torch.ops.kernels.lstm import (
     lstm_cell_scan, lstm_cell_scan_plain, lstm_cell_scan_train_plain,
     lstm_cell_scan_bwd_plain, recurrent_weight_grad)
 from padertorch_tpu_torch.utils.nested import nested_merge
+from padertorch_tpu_torch.ops.kernels.logmel import (
+    LogMelFrontend, fused_logmel)
 from padertorch_tpu_torch.ops.kernels.masked_istft import (
     masked_istft, masked_istft_plain)
+from padertorch_tpu_torch.ops.kernels.wavenet import (
+    _gumbel, wavenet_sample, wavenet_sample_plain, wavenet_uniform)
 from padertorch_tpu_torch.train.hooks import Hook, ValidationHook
 from padertorch_tpu_torch.train.optimizer import Adam
 from padertorch_tpu_torch.train.trainer import Trainer
@@ -175,6 +235,25 @@ ATTENTION_GRAD_RTOL = 5e-5
 # first SepFormer step, card vs CPU, relative
 SEPFORMER_LOSS_RTOL = 1e-5
 SEPFORMER_NORM_RTOL = 1e-4
+
+# wavenet_sample vs its plain step loop, teacher-forced logits (of size
+# about 7): the same f32 arithmetic, each product's sum in another order,
+# through 16 gated layers; the JAX package's own limit for its kernel, about
+# 6x what the card shows; the plain loop with TF32 products fails it
+WAVENET_TOL = 2e-5
+# full-width vocoder logits, card vs CPU, and sampler vs training graph
+WAVENET_MODEL_TOL = 1e-4
+# fused_logmel vs its plain version, on log-mel values between about -10
+# and 10: f32 sums of 2 * 512 * 257 products in another order, about 10x
+# what the card shows; the plain version with TF32 products fails it
+LOGMEL_TOL = 1e-5
+# the composed module path frames and multiplies in other code
+LOGMEL_COMPOSED_TOL = 1e-4
+# first training steps, card vs CPU, relative (loss, gradient norm)
+WAVENET_STEP_RTOL = (1e-5, 1e-4)
+SPEAKER_STEP_RTOL = (1e-5, 1e-4)
+# speaker classifier logits, card vs CPU
+SPEAKER_TOL = 1e-4
 
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM, HBM3
 PEAK_F32_FLOPS = 67e12       # H100 SXM, float32 outside the tensor cores
@@ -247,8 +326,10 @@ def phase_device():
          '--format=csv,noheader'],
         capture_output=True, text=True, check=True).stdout.strip()
     print(smi)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    # float32 is the package's decision, made where it is imported
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.backends.cudnn.allow_tf32):
+        fail('importing padertorch_tpu_torch left TF32 on')
     print(f'phase 1 device: {torch.cuda.get_device_name(0)} x'
           f'{torch.cuda.device_count()}, torch {torch.__version__}, '
           f'CUDA {torch.version.cuda}, python {sys.version.split()[0]}')
@@ -271,8 +352,22 @@ RECURRENCE_SHAPES = [
 ]
 
 
-def recurrence_mask(t_len, batch, kind, rng):
-    """(T, 2 * batch) mask of both directions, or None.  'chunks': the
+# the speaker classifier's GRU: one direction, under the frame mask of a
+# ragged batch; the recipe's run (8 x 8000 samples: 66 frames, 32 channels x
+# 16 mel bands into 64 units) and the class defaults on 16 x 4 s (503
+# frames, 64 x 16 into 256 units):
+# (label, T, rows, H, mask kind, width of the layer's input)
+CLASSIFIER_GRU_SHAPES = [
+    ('classifier recipe T=66 D*B=8 H=64 one direction', 66, 8, 64, 'ragged',
+     512),
+    ('classifier defaults T=503 D*B=16 H=256 one direction', 503, 16, 256,
+     'ragged', 1024),
+]
+
+
+def recurrence_mask(t_len, batch, kind, rng, directions=2):
+    """(T, directions * batch) mask, the second direction's reversed in
+    time, or None.  'chunks': the
     inter-chunk RNN's, every one of the K=100 positions of an example
     sharing its chunk count (4 examples of 2 to 4 s); 'ragged': lengths in
     [T/2, T]."""
@@ -285,18 +380,20 @@ def recurrence_mask(t_len, batch, kind, rng):
         lens = rng.randint(t_len // 2, t_len + 1, size=batch)
         lens[0] = t_len
     fwd = np.arange(t_len)[:, None] < lens[None, :]
-    return np.concatenate([fwd, fwd[::-1]], axis=1).astype('float32')
+    return np.concatenate([fwd, fwd[::-1]][:directions], axis=1).astype(
+        'float32')
 
 
-def recurrence_inputs(t_len, batch, hdim, kind, gates, seed=0):
-    """Kernel inputs and cotangents of a bidirectional layer with
-    ``gates`` gate blocks (3: GRU, 4: LSTM)."""
+def recurrence_inputs(t_len, batch, hdim, kind, gates, seed=0, directions=2):
+    """Kernel inputs and cotangents of a layer of ``directions`` directions
+    with ``gates`` gate blocks (3: GRU, 4: LSTM)."""
     rng = np.random.RandomState(seed)
     bound = 1 / np.sqrt(hdim)
-    mask = recurrence_mask(t_len, batch, kind, rng)
-    rows = 2 * batch
+    mask = recurrence_mask(t_len, batch, kind, rng, directions)
+    rows = directions * batch
     arrays = [rng.uniform(-1, 1, (t_len, rows, gates * hdim)),
-              rng.uniform(-bound, bound, (2, hdim, gates * hdim)), mask]
+              rng.uniform(-bound, bound, (directions, hdim, gates * hdim)),
+              mask]
     arrays += [rng.uniform(-0.1, 0.1, (rows, hdim))
                for _ in range(gates - 2)]                  # h0 (, c0)
     cot = [rng.uniform(-1, 1, (t_len, rows, hdim))]
@@ -342,13 +439,13 @@ def phase_lstm():
             'library_ms': library['fwd']}, library
 
 
-def cudnn_layer_ms(layer_cls, t_len, batch, in_size, hdim):
+def cudnn_layer_ms(layer_cls, t_len, batch, in_size, hdim, directions=2):
     """Yardstick, timed here and used nowhere in the port: one
-    bidirectional ``torch.nn.LSTM`` or ``torch.nn.GRU`` layer (cuDNN; it
-    includes the input projection and takes no mask), forward without and
-    with grad mode, and backward."""
+    ``torch.nn.LSTM`` or ``torch.nn.GRU`` layer of ``directions`` directions
+    (cuDNN; it includes the input projection and takes no mask), forward
+    without and with grad mode, and backward."""
     torch.manual_seed(0)
-    layer = layer_cls(in_size, hdim, bidirectional=True).cuda()
+    layer = layer_cls(in_size, hdim, bidirectional=directions == 2).cuda()
     x = torch.randn(t_len, batch, in_size, device='cuda')
     with torch.no_grad():
         fwd = cuda_ms(lambda: layer(x), iters=10, warmup=2)
@@ -430,6 +527,8 @@ def reset_launches():
         for name in wrapper.launches:
             wrapper.launches[name] = 0
     masked_istft.launches = 0
+    wavenet_sample.launches = 0
+    fused_logmel.launches = 0
 
 
 def phase_slice():
@@ -615,6 +714,38 @@ class Recorder(Hook):
         self.norms.append(summary['scalars']['grad_norm'].detach())
 
 
+def check_storage_dir(storage_dir, iterations, best):
+    names = sorted(p.name for p in (storage_dir / 'checkpoints').iterdir())
+    for ckpt in (f'ckpt_{iterations}.ptt', 'ckpt_latest.ptt', best,
+                 'ckpt_ranking.json'):
+        if ckpt not in names:
+            fail(f'{ckpt} missing from {names}')
+    if not any('tfevents' in p.name for p in storage_dir.iterdir()):
+        fail('no event file in the storage dir')
+    return names
+
+
+def first_step_on_cpu(model_cpu, batch, tmp, clipping, loss_weights=None):
+    """Loss and pre-clip gradient norm of one training step on the CPU."""
+    cpu = Trainer(model_cpu.train(), Path(tmp) / 'cpu',
+                  Adam(gradient_clipping=clipping), loss_weights=loss_weights)
+    loss, _, _, _ = cpu.train_step(cpu.model, batch)
+    loss.backward()
+    return float(loss.detach()), float(cpu.optimizer.clip_grad())
+
+
+def compare_first_step(label, losses, norms, loss_cpu, norm_cpu, rtol):
+    rel_loss = abs(losses[0] - loss_cpu) / abs(loss_cpu)
+    rel_norm = abs(norms[0] - norm_cpu) / norm_cpu
+    print(f'phase {label} first step card vs CPU: loss {losses[0]:.9g} vs '
+          f'{loss_cpu:.9g} (relative {rel_loss:.3e}, tol {rtol[0]}), '
+          f'gradient norm {norms[0]:.9g} vs {norm_cpu:.9g} (relative '
+          f'{rel_norm:.3e}, tol {rtol[1]})')
+    if not (rel_loss <= rtol[0] and rel_norm <= rtol[1]):
+        fail(f'phase {label}: the first training step on the card '
+             f'disagrees with the CPU')
+
+
 def train_batch(batch, frames, seed=0):
     """A ragged training batch at a chosen size (magnitudes as the
     recipe's features have them, random)."""
@@ -636,7 +767,8 @@ def timed_step(trainer, batch, iters=5, loss_key='pit_mse_loss',
                wrapper=lstm_cell_scan, per_step=3):
     """One training step by stage (CUDA events; ms), and the whole step on
     the host clock ended by a synchronize.  ``wrapper`` is the recurrence
-    the model runs, ``per_step`` its launches per step and kind."""
+    the model runs, ``per_step`` its launches per step and kind (None: no
+    count is checked); ``loss_key`` None takes the review's ``loss``."""
     model, optimizer = trainer.model, trainer.optimizer
     example = model.example_to_device(batch, 'cuda')
     stages = {}
@@ -653,7 +785,8 @@ def timed_step(trainer, batch, iters=5, loss_key='pit_mse_loss',
     def step():
         out = stage('forward', lambda: model(example))
         review = stage('review', lambda: model.review(example, out))
-        loss = review['losses'][loss_key]
+        loss = review['loss'] if loss_key is None \
+            else review['losses'][loss_key]
         stage('backward', loss.backward)
         stage('clip', optimizer.clip_grad)
         stage('adam', optimizer.optimizer.step)
@@ -671,9 +804,10 @@ def timed_step(trainer, batch, iters=5, loss_key='pit_mse_loss',
         step()
         torch.cuda.synchronize()
         host.append((time.perf_counter() - start) * 1e3)
-    launches = dict(wrapper.launches)
-    if launches != {'fwd': 0, 'fwd_train': per_step * iters,
-                    'bwd': per_step * iters}:
+    launches = dict(wrapper.launches) if wrapper is not None else None
+    if wrapper is not None and launches != {
+            'fwd': 0, 'fwd_train': per_step * iters,
+            'bwd': per_step * iters}:
         fail(f'a training step launches {per_step} fwd_train and '
              f'{per_step} bwd kernels, got {launches} in {iters} steps')
     out = {name: float(np.mean([a.elapsed_time(b) for a, b in events]))
@@ -757,31 +891,12 @@ def phase_training(kernel_times, profile=False):
 
         # the first step once more on the CPU, from the same weights
         batch = next(iter(train))
-        cpu = Trainer(model_cpu.train(), Path(tmp) / 'cpu',
-                      Adam(gradient_clipping=10.0),
-                      loss_weights=config['loss_weights'])
-        loss_cpu, _, _, _ = cpu.train_step(cpu.model, batch)
-        loss_cpu.backward()
-        loss_cpu = float(loss_cpu.detach())
-        norm_cpu = float(cpu.optimizer.clip_grad())
-        rel_loss = abs(losses[0] - loss_cpu) / abs(loss_cpu)
-        rel_norm = abs(norms[0] - norm_cpu) / norm_cpu
-        print(f'phase 7c first step card vs CPU: loss {losses[0]:.9g} vs '
-              f'{loss_cpu:.9g} (relative {rel_loss:.3e}), gradient '
-              f'norm {norms[0]:.9g} vs {norm_cpu:.9g} (relative '
-              f'{rel_norm:.3e}); tol {STEP_RTOL}')
-        if not (rel_loss <= STEP_RTOL and rel_norm <= STEP_RTOL):
-            fail('the first training step on the card disagrees with the '
-                 'CPU')
-
-        ckpt_dir = storage_dir / 'checkpoints'
-        names = sorted(p.name for p in ckpt_dir.iterdir())
-        for name in ('ckpt_24.ptt', 'ckpt_latest.ptt', 'ckpt_best_loss.ptt',
-                     'ckpt_ranking.json'):
-            if name not in names:
-                fail(f'{name} missing from {names}')
-        if not any('tfevents' in p.name for p in storage_dir.iterdir()):
-            fail('no event file in the storage dir')
+        compare_first_step(
+            '7c', losses, norms,
+            *first_step_on_cpu(model_cpu, batch, tmp, 10.0,
+                               config['loss_weights']),
+            (STEP_RTOL, STEP_RTOL))
+        names = check_storage_dir(storage_dir, 24, 'ckpt_best_loss.ptt')
         loaded = PermutationInvariantTrainingModel.from_storage_dir(
             storage_dir).to('cuda').eval()
         stft = HostSTFT(pit_data.STFT_SIZE, pit_data.STFT_SHIFT,
@@ -820,15 +935,22 @@ def with_tf32(fn):
 
 def phase_gru_kernels():
     """Phase 8: the three GRU kernels and the Function around them, at
-    each of RECURRENCE_SHAPES.  Returns {label: {kernel: row}}."""
+    each of RECURRENCE_SHAPES (two directions) and of
+    CLASSIFIER_GRU_SHAPES (one).  Returns {label: {kernel: row}}."""
     results = {}
-    for label, t_len, batch, hdim, kind in RECURRENCE_SHAPES:
-        args, cot = recurrence_inputs(t_len, batch, hdim, kind, gates=3)
+    # (shape, directions, width of the layer's input: a DPRNN chunk RNN's
+    # is 64, a uPIT layer's 1200)
+    cases = [(shape, 2, 64 if shape[3] == 128 else 1200)
+             for shape in RECURRENCE_SHAPES]
+    cases += [(shape[:5], 1, shape[5]) for shape in CLASSIFIER_GRU_SHAPES]
+    for (label, t_len, batch, hdim, kind), n_dir, in_size in cases:
+        args, cot = recurrence_inputs(t_len, batch, hdim, kind, gates=3,
+                                      directions=n_dir)
         gx, w, mask, h0 = args
-        valid = t_len * 2 * batch if mask is None else float(mask.sum())
+        valid = t_len * n_dir * batch if mask is None else float(mask.sum())
 
         def fwd_train():
-            return gru_kernels._launch(gx, w, 2, mask, h0, train=True)
+            return gru_kernels._launch(gx, w, n_dir, mask, h0, train=True)
 
         got = gru_cell_scan(*args)
         want = gru_cell_scan_plain(*args)
@@ -841,8 +963,8 @@ def phase_gru_kernels():
         _, acts, gh_n, h_prev, _ = want_train
 
         def bwd():
-            return gru_kernels._launch_bwd(acts, gh_n, h_prev, w, 2, mask,
-                                           *cot)
+            return gru_kernels._launch_bwd(acts, gh_n, h_prev, w, n_dir,
+                                           mask, *cot)
 
         def bwd_plain():
             return gru_cell_scan_bwd_plain(acts, gh_n, h_prev, w, mask,
@@ -884,11 +1006,10 @@ def phase_gru_kernels():
                 iters=plain_iters),
             'bwd_plain': cuda_ms(bwd_plain, iters=plain_iters),
             'dw': cuda_ms(lambda: gru_kernels.recurrent_weight_grad(
-                got_bwd[1], h_prev, 2), iters=20),
+                got_bwd[1], h_prev, n_dir), iters=20),
         }
-        # the input of a DPRNN chunk RNN is 64 wide, of the uPIT layers 1200
-        library = cudnn_layer_ms(torch.nn.GRU, t_len, batch,
-                                 64 if hdim == 128 else 1200, hdim)
+        library = cudnn_layer_ms(torch.nn.GRU, t_len, batch, in_size, hdim,
+                                 n_dir)
         flops = gru_flops(valid, hdim)
         limits = {
             'fwd': bound(nbytes(*args, *got), flops),
@@ -922,9 +1043,9 @@ def phase_gru_kernels():
             fail(f'the limit {GRU_GRAD_RTOL} does not tell TF32 from f32 '
                  f'for GRUCellScan at {label}: {tf32["fn"]}')
         results[label] = {
-            name: {'max_abs_err': err[name], 'ms': times[name],
-                   'plain_ms': times[name + '_plain'], **limits[name],
-                   'library_ms': library[name]}
+            name: {'shape': label, 'max_abs_err': err[name],
+                   'ms': times[name], 'plain_ms': times[name + '_plain'],
+                   **limits[name], 'library_ms': library[name]}
             for name in ('fwd', 'fwd_train', 'bwd')}
         results[label]['dw_ms'] = times['dw']
     return results
@@ -1457,33 +1578,13 @@ def phase_tasnet_training(name, profile=False):
         # the first step once more on the CPU, from the same weights (the
         # SepFormer's forced backend is there the kernels' plain version)
         batch = next(iter(train))
-        cpu = Trainer(model_cpu.train(), Path(tmp) / 'cpu',
-                      Adam(gradient_clipping=5.0),
-                      loss_weights=config['loss_weights'])
-        loss_cpu, _, _, _ = cpu.train_step(cpu.model, batch)
-        loss_cpu.backward()
-        loss_cpu = float(loss_cpu.detach())
-        norm_cpu = float(cpu.optimizer.clip_grad())
-        rel_loss = abs(losses[0] - loss_cpu) / abs(loss_cpu)
-        rel_norm = abs(norms[0] - norm_cpu) / norm_cpu
-        loss_rtol, norm_rtol = path['rtol']
-        print(f'phase {phase}c {name} first step card vs CPU: loss '
-              f'{losses[0]:.9g} vs {loss_cpu:.9g} (relative '
-              f'{rel_loss:.3e}, tol {loss_rtol}), gradient norm '
-              f'{norms[0]:.9g} vs {norm_cpu:.9g} (relative {rel_norm:.3e}, '
-              f'tol {norm_rtol})')
-        if not (rel_loss <= loss_rtol and rel_norm <= norm_rtol):
-            fail(f'the first {name} TasNet training step on the card '
-                 f'disagrees with the CPU')
-
-        ckpt_dir = storage_dir / 'checkpoints'
-        names = sorted(p.name for p in ckpt_dir.iterdir())
-        for ckpt in (f'ckpt_{iterations}.ptt', 'ckpt_latest.ptt',
-                     'ckpt_best_si-sdr.ptt', 'ckpt_ranking.json'):
-            if ckpt not in names:
-                fail(f'{ckpt} missing from {names}')
-        if not any('tfevents' in p.name for p in storage_dir.iterdir()):
-            fail('no event file in the storage dir')
+        compare_first_step(
+            f'{phase}c {name}', losses, norms,
+            *first_step_on_cpu(model_cpu, batch, tmp, 5.0,
+                               config['loss_weights']),
+            path['rtol'])
+        names = check_storage_dir(storage_dir, iterations,
+                                  'ckpt_best_si-sdr.ptt')
         loaded = TasNet.from_storage_dir(
             storage_dir, checkpoint_name='ckpt_best_si-sdr.ptt').to(
                 'cuda').eval()
@@ -1516,6 +1617,609 @@ def phase_tasnet_training(name, profile=False):
     return launches
 
 
+def wavenet_flops(t_len, batch, n_layers, r, s_dim, o_dim):
+    """Operations of the sample loop: per row and step the two products of
+    each dilated layer (R x 2R each), its skip product (R x S), the
+    residual products (R x R, all layers but the last) and the two output
+    products, 2 per multiply-add."""
+    per_step = 2 * (n_layers * (2 * r * 2 * r + r * s_dim)
+                    + (n_layers - 1) * r * r + s_dim * o_dim + o_dim * o_dim)
+    return t_len * batch * per_step
+
+
+def full_width_wavenet():
+    """The wavenet recipe's model from seed 0 (its config's defaults)."""
+    torch.manual_seed(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        model = Trainer.from_config(wn_train.get_trainer_config(tmp)).model
+    check_wavenet_width(model)
+    return model
+
+
+def check_wavenet_width(model):
+    net = model.wavenet
+    width = (net.upsample.in_channels, net.upsamp_window, net.upsamp_stride,
+             net.n_layers, tuple(net.dilations), net.n_residual_channels,
+             net.skip_layers[0].conv.out_channels, net.n_out_channels,
+             net.embed.num_embeddings)
+    want = (80, 800, 200, 16, (1, 2, 4, 8, 16, 32, 64, 128) * 2, 64, 256,
+            256, 256)
+    if width != want:
+        fail(f'not the full-width WaveNet: {width}')
+
+
+def near_ties(scores, limit):
+    """Where the two best of ``scores`` (..., O) are closer than ``limit``:
+    there a difference within the kernels' limit may change the choice."""
+    top = scores.topk(2, dim=-1).values
+    return (top[..., 0] - top[..., 1]) < limit
+
+
+def phase_wavenet_kernel():
+    """Phase 15: wavenet_sample against its plain step loop at full width.
+    Returns the kernel's row."""
+    net = full_width_wavenet().wavenet.to('cuda')
+    w = net.sampler_weights()
+    dil = tuple(net.dilations)
+    n_layers, r = net.n_layers, net.n_residual_channels
+    s_dim, o_dim = w['w_skip'].shape[-1], net.n_out_channels
+    rng = np.random.RandomState(0)
+
+    def conditioning(t_len, batch):
+        # of the size the cond layer gives log-mel features (about 1)
+        return torch.from_numpy(rng.randn(
+            t_len, batch, n_layers, 2 * r).astype('float32')).cuda()
+
+    # a parallel request of 1 s: 5 chunks of 4200 steps as 5 rows
+    t_len, batch = 4200, 5
+    cond = conditioning(t_len, batch)
+    forced = torch.from_numpy(rng.randint(
+        0, o_dim, (t_len, batch)).astype('int32')).cuda()
+    got_i, got_l = wavenet_sample(cond, w, dil, forced_input=forced,
+                                  return_logits=True)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want_i, want_l = wavenet_sample_plain(cond, w, dil, forced_input=forced,
+                                          return_logits=True)
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    err = float((got_l - want_l).abs().max())
+    _, tf32_l = with_tf32(lambda: wavenet_sample_plain(
+        cond[:500], w, dil, forced_input=forced[:500], return_logits=True))
+    tf32_err = float((tf32_l - want_l[:500]).abs().max())
+    print(f'phase 15a wavenet_sample T={t_len} B={batch} L={n_layers} R={r} '
+          f'S={s_dim} O={o_dim}, teacher-forced: max |diff| of logits vs '
+          f'plain {err:.3e} (tol {WAVENET_TOL}, largest logit '
+          f'{float(want_l.abs().max()):.2f}); control, plain with TF32 '
+          f'products over 500 steps: {tf32_err:.3e}')
+    if not err <= WAVENET_TOL:
+        fail(f'wavenet_sample disagrees with its plain version: {err}')
+    if not tf32_err > WAVENET_TOL:
+        fail('the TF32 control passes the limit: the limit is too loose')
+    # the greedy choice: the lowest index of the kernel's own best logit,
+    # and the plain version's but at near ties
+    if not bool((got_i.long() == got_l.argmax(-1)).all()):
+        fail('greedy indices are not the argmax of the kernel\'s logits')
+    differ = (got_i != want_i) & ~near_ties(want_l, 2 * WAVENET_TOL)
+    # Gumbel-max on the same counters
+    seed = 7
+    sam_i, sam_l = wavenet_sample(cond, w, dil, forced_input=forced,
+                                  return_logits=True, sample=True, seed=seed)
+    noise = _gumbel(wavenet_uniform(seed, torch.arange(t_len), batch, o_dim,
+                                    device='cuda'))
+    own = (sam_l + noise).argmax(-1)
+    # what the plain loop draws under teacher forcing (phase 15d holds the
+    # plain loop's own sampling against the kernel's)
+    plain_sam = (want_l + noise).argmax(-1)
+    sam_differ = (sam_i != plain_sam) & ~near_ties(want_l + noise,
+                                                   2 * WAVENET_TOL)
+    print(f'phase 15b teacher-forced choices over {t_len * batch} steps: '
+          f'greedy differs from plain at {int((got_i != want_i).sum())} '
+          f'(none away from a near tie: {not bool(differ.any())}); '
+          f'Gumbel-max from the kernel\'s own logits and the plain '
+          f'generator\'s draws: equal {bool((sam_i.long() == own).all())}, '
+          f'differs from plain at {int((sam_i != plain_sam).sum())}')
+    if bool(differ.any()) or bool(sam_differ.any()):
+        fail('wavenet_sample chooses another index than its plain version')
+    if not bool((sam_i.long() == own).all()) \
+            or not torch.equal(sam_l, got_l):
+        fail('the kernel\'s draws are not the plain generator\'s')
+    # sampled indices follow the softmax: the log-likelihood of the choices
+    # against its expectation, minus the entropy, in standard deviations
+    logp = torch.log_softmax(sam_l.double(), -1)
+    p = logp.exp()
+    chosen = logp.gather(-1, sam_i.long()[..., None])[..., 0]
+    mean = (p * logp).sum(-1)
+    var = (p * logp ** 2).sum(-1) - mean ** 2
+    z = float((chosen - mean).sum() / var.sum().sqrt())
+    print(f'phase 15c {t_len * batch} sampled indices against their '
+          f'softmax: log-likelihood {float(chosen.sum()):.1f}, expected '
+          f'{float(mean.sum()):.1f}, z = {z:.2f} (limit 5), '
+          f'{len(torch.unique(sam_i))} distinct indices')
+    if not abs(z) < 5:
+        fail(f'sampled indices do not follow the softmax: z = {z}')
+
+    # the free-running greedy loop, 1000 steps of 2 rows
+    free_cond = conditioning(1000, 2)
+    free_i = wavenet_sample(free_cond, w, dil)
+    plain_i, plain_l = wavenet_sample_plain(free_cond, w, dil,
+                                            return_logits=True)
+    mismatch = (free_i != plain_i).any(1).nonzero()
+    first = int(mismatch[0]) if len(mismatch) else None
+    print(f'phase 15d free-running greedy, T=1000 B=2: equal to plain '
+          f'{first is None}'
+          + ('' if first is None else f' (first difference at step {first})'))
+    if first is not None and not bool(near_ties(
+            plain_l[first], 2 * WAVENET_TOL).any()):
+        fail(f'the greedy loop leaves its plain version at step {first}')
+    # a sequential request: one row of 16000 steps; its first 500 steps
+    # against the plain loop
+    one_cond = conditioning(16000, 1)
+    one_i = wavenet_sample(one_cond, w, dil, sample=True, seed=3)
+    head = wavenet_sample_plain(one_cond[:500], w, dil, sample=True, seed=3)
+    if not torch.equal(one_i[:500], head):
+        fail('one row of 16000 steps leaves the plain loop in its first 500')
+
+    ms = cuda_ms(lambda: wavenet_sample(cond, w, dil, sample=True),
+                 iters=2)
+    one_ms = cuda_ms(lambda: wavenet_sample(one_cond, w, dil, sample=True),
+                     iters=1)
+    print(f'phase 15e wavenet_sample T={t_len} B={batch}: {ms:.1f} ms '
+          f'({ms / t_len * 1e3:.1f} us per step, '
+          f'{t_len * batch / ms / 16:.2f} x real time at 16 kHz), plain '
+          f'{plain_ms:.0f} ms ({plain_ms / t_len * 1e3:.0f} us per step); '
+          f'T=16000 B=1: {one_ms:.1f} ms ({one_ms / 16:.1f} us per sample, '
+          f'{16000 / one_ms / 16:.2f} x real time)')
+    for rows in (132, 264):
+        many = conditioning(1000, rows)
+        t = cuda_ms(lambda: wavenet_sample(many, w, dil, sample=True),
+                    iters=1)
+        print(f'phase 15e wavenet_sample T=1000 B={rows}: {t:.1f} ms '
+              f'({t:.1f} us per step, {rows * 1e3 / t / 16:.1f} x real '
+              f'time over the rows)')
+        del many
+    # each input read once (weights once for the whole call), the indices
+    # written; the floor of a sequential chain is the latency of a step,
+    # which this bound does not see
+    return {'shape': f'T={t_len} B={batch} L={n_layers} R={r} S={s_dim} '
+                     f'O={o_dim}',
+            'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
+            'library_ms': None,
+            **bound(nbytes(cond, *w.values()) + 4 * t_len * batch,
+                    wavenet_flops(t_len, batch, n_layers, r, s_dim, o_dim))}
+
+
+# (label, batch, samples, size, shift, window_length, n_mels)
+LOGMEL_SHAPES = [
+    ('16 x 4 s 512/128/64', 16, 64000, 512, 128, None, 64),
+    ('classifier recipe 8 x 8000 512/128/64', 8, 8000, 512, 128, None, 64),
+    ('wavenet recipe 1024/200/800/80', 2, 16000, 1024, 200, 800, 80),
+    ('hop 160, window 400', 3, 12345, 512, 160, 400, 40),
+]
+
+
+def phase_logmel_kernel():
+    """Phase 16: fused_logmel against its plain version and the composed
+    module path.  Returns the kernel's row at the first of LOGMEL_SHAPES."""
+    rows = []
+    rng = np.random.RandomState(0)
+    for label, batch, samples, size, shift, window_length, n_mels in \
+            LOGMEL_SHAPES:
+        frontend = LogMelFrontend(size=size, shift=shift,
+                                  window_length=window_length, n_mels=n_mels)
+        x = torch.from_numpy(
+            rng.randn(batch, samples).astype('float32') * 0.1).cuda()
+        got = frontend(x)
+        want = frontend.plain(x)
+        err = float((got - want).abs().max())
+        tf32_err = float((with_tf32(lambda: frontend.plain(x))
+                          - want).abs().max())
+        stft = STFT(size, shift, window_length=window_length,
+                    window='blackman', fading='full',
+                    complex_representation='stacked', dtype='float32')
+        fbanks = frontend.bases_on('cuda')[2]
+
+        def composed():
+            spec = stft(x)
+            power = spec[..., 0] ** 2 + spec[..., 1] ** 2
+            return torch.log(power @ fbanks + 1e-12)
+
+        composed_err = float((got - composed()).abs().max())
+        ms = cuda_ms(lambda: frontend(x), iters=20, warmup=3)
+        plain_ms = cuda_ms(lambda: frontend.plain(x), iters=20, warmup=3)
+        composed_ms = cuda_ms(composed, iters=20, warmup=3)
+        frames = got.shape[1]
+        f_bins = size // 2 + 1
+        length = window_length or size
+        flops = batch * frames * 2 * (2 * length * f_bins + f_bins * n_mels)
+        row = {'shape': label, 'max_abs_err': err, 'ms': ms,
+               'plain_ms': plain_ms, 'library_ms': None,
+               **bound(nbytes(x, got, *frontend.bases_on('cuda')[:3]), flops)}
+        rows.append(row)
+        print(f'phase 16 fused_logmel {label}: ({batch}, {samples}) -> '
+              f'{tuple(got.shape)}, max |diff| vs plain {err:.3e} (tol '
+              f'{LOGMEL_TOL}; values {float(want.min()):.1f} ... '
+              f'{float(want.max()):.1f}), control plain with TF32 '
+              f'{tf32_err:.3e}, vs the composed module path '
+              f'{composed_err:.3e} (tol {LOGMEL_COMPOSED_TOL}); kernel '
+              f'{ms:.3f} ms, plain {plain_ms:.3f} ms, composed '
+              f'{composed_ms:.3f} ms, bound {row["bound_ms"]:.4f} ms by '
+              f'{row["bound_by"]}')
+        if got.shape != want.shape or not err <= LOGMEL_TOL:
+            fail(f'fused_logmel disagrees with its plain version: {err}')
+        if not tf32_err > LOGMEL_TOL:
+            fail('the TF32 control passes the limit: the limit is too loose')
+        if not composed_err <= LOGMEL_COMPOSED_TOL:
+            fail(f'fused_logmel disagrees with the composed path: '
+                 f'{composed_err}')
+    return rows[0]
+
+
+def wavenet_datasets(n_train, n_dev):
+    """The wavenet recipe's --synthetic data: 1 s segments, batches of 2."""
+    return (wn_data.prepare_dataset(
+        wn_data.synthetic_database(num_examples=n, seed=seed), batch_size=2,
+        segment_length=16000, shuffle=False, prefetch=False)
+        for n, seed in ((n_train, 0), (n_dev, 1)))
+
+
+def phase_wavenet_serving():
+    """Phase 17: the full-width vocoder served from a storage dir the
+    recipe's trainer wrote on the card.  Returns wavenet_sample's launches
+    over the requests."""
+    torch.manual_seed(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        storage_dir = Path(tmp) / 'wavenet' / '1'
+        config = wn_train.get_trainer_config(storage_dir, {
+            'stop_trigger': (2, 'epoch'),
+            'summary_trigger': (2, 'iteration')})
+        dump_config({'trainer': config}, storage_dir / 'config.json')
+        trainer = Trainer.from_config(config)
+        trainer.to('cuda')
+        train, dev = wavenet_datasets(4, 4)
+        trainer.register_validation_hook(dev)
+        trainer.train(train)
+        model_cpu = WaveNetVocoder.from_storage_dir(
+            storage_dir, checkpoint_name='ckpt_best_loss.ptt').eval()
+        print(f'phase 17a storage dir written by {trainer.iteration} '
+              f'iterations of the wavenet recipe on the card and loaded '
+              f'back')
+        batch = next(iter(dev))
+    check_wavenet_width(model_cpu)
+    model = copy.deepcopy(model_cpu).to('cuda')
+    net = model.wavenet
+
+    with torch.no_grad():
+        want = model_cpu(model_cpu.example_to_device(batch))
+        example = model.example_to_device(batch)
+        got = model(example)
+        err = float((got['logits'].cpu() - want['logits']).abs().max())
+        # the sampler under teacher forcing gives the training graph's
+        # logits: position t of the graph is step t of the loop
+        crop = 2000
+        cond = net.get_cond_input(example['features'])
+        cond = cond.reshape(cond.shape[0], net.n_layers, -1,
+                            cond.shape[-1])[..., :crop]
+        quantized = got['quantized'][:, :crop]
+        forced = torch.cat([torch.full_like(quantized[:, :1], 128),
+                            quantized[:, :-1]], dim=1)
+        reset_launches()
+        _, loop_logits = net.sample_kernel(
+            cond, sample=False, forced_input=forced, return_logits=True)
+        loop_err = float((loop_logits[..., 1:]
+                          - got['logits'][..., 1:crop]).abs().max())
+    print(f'phase 17b full-width vocoder on {tuple(batch["audio_data"].shape)}'
+          f' audio, card vs CPU: max |diff| of logits {err:.3e}, equal '
+          f'targets {torch.equal(got["quantized"].cpu(), want["quantized"])}; '
+          f'the kernel under teacher forcing vs the training graph over '
+          f'{crop} steps: {loop_err:.3e} (tol {WAVENET_MODEL_TOL}, largest '
+          f'logit {float(want["logits"].abs().max()):.2f})')
+    if got['logits'].shape != (2, 256, 16000) \
+            or not torch.equal(got['quantized'].cpu(), want['quantized']) \
+            or not err <= WAVENET_MODEL_TOL \
+            or not loop_err <= WAVENET_MODEL_TOL \
+            or wavenet_sample.launches != 1:
+        fail('the vocoder on the card disagrees with the CPU or with its '
+             'own training graph')
+
+    # greedy synthesis of 1000 samples: the kernel against the CPU's loop
+    features = torch.from_numpy(batch['features'][:1, :, :8])
+    start = time.perf_counter()
+    want_audio = model_cpu.wavenet.infer(features, sample=False)
+    cpu_s = time.perf_counter() - start
+    got_audio = net.infer(features.cuda(), sample=False).cpu()
+    # neighbouring mu-law levels are at least 1.7e-4 apart
+    same = float(((got_audio - want_audio).abs() <= 1e-5).float().mean())
+    print(f'phase 17c greedy synthesis of {want_audio.shape[-1]} samples: '
+          f'the card\'s kernel gives the CPU step loop\'s audio at '
+          f'{same * 100:.1f} % of the samples (the CPU loop took '
+          f'{cpu_s:.2f} s)')
+    if got_audio.shape != (1, 1000) or same != 1.0:
+        fail('greedy synthesis on the card leaves the CPU\'s')
+
+    # requests of 1 s through the recipe's synthesize_example
+    examples = [wn_data.extract_features(e) for e in wn_data.
+                synthetic_database(num_examples=4, num_samples=16000, seed=2)]
+    generator = torch.Generator().manual_seed(0)
+    modes = (('one chunk', dict(chunk_length=48000, chunk_overlap=16000),
+              examples[:2], 1),
+             ('5 sequential chunks of 4200',
+              dict(chunk_length=4000, chunk_overlap=1000), examples[:1], 5),
+             ('5 parallel chunks of 4200',
+              dict(chunk_length=4000, chunk_overlap=1000, parallel=True),
+              examples, 1))
+    total = 0
+    for label, kwargs, requests, per_request in modes:
+        reset_launches()
+        latencies = []
+        for example in requests:
+            start = time.perf_counter()
+            example_id, metrics, audio = wn_evaluate.synthesize_example(
+                model, example, generator=generator, **kwargs)
+            latencies.append(time.perf_counter() - start)
+            if audio.shape != (16000,) or not np.isfinite(audio).all() \
+                    or np.abs(audio).max() > 1 or len(np.unique(audio)) < 16 \
+                    or not 0 < metrics['rmse'] < 2 \
+                    or metrics['num_samples'] != 16000:
+                fail(f'{example_id}: bad synthesis {metrics}')
+        launches = wavenet_sample.launches
+        total += launches
+        median = float(np.median(latencies))
+        print(f'phase 17d {len(requests)} requests of 1 s, {label}: latency '
+              f's {[round(x, 4) for x in latencies]} (median {median:.4f}: '
+              f'{median / 16000 * 1e6:.1f} us per sample, '
+              f'{1 / median:.2f} x real time), launches {launches}, rmse '
+              f'{metrics["rmse"]:.3f}')
+        if launches != per_request * len(requests):
+            fail(f'{label}: {per_request} launches per request expected, '
+                 f'got {launches} for {len(requests)} requests')
+    return total
+
+
+def phase_wavenet_training():
+    """Phase 18: the wavenet recipe's trainer at full width on the card."""
+    torch.manual_seed(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        storage_dir = Path(tmp) / 'wavenet' / '1'
+        config = wn_train.get_trainer_config(storage_dir, {
+            'stop_trigger': (2, 'epoch'),
+            'summary_trigger': (4, 'iteration')})
+        dump_config({'trainer': config}, storage_dir / 'config.json')
+        trainer = Trainer.from_config(config)
+        check_wavenet_width(trainer.model)
+        model_cpu = copy.deepcopy(trainer.model)
+        trainer.to('cuda')
+        train, dev = wavenet_datasets(8, 4)
+
+        start = time.perf_counter()
+        trainer.test_run(train, dev)
+        print(f'phase 18a wavenet test_run passed on the card in '
+              f'{time.perf_counter() - start:.2f} s')
+        recorder = Recorder(nonzero=True)
+        trainer.register_hook(recorder)
+        trainer.register_validation_hook(dev)
+        start = time.perf_counter()
+        trainer.train(train)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        iterations = trainer.iteration
+        losses = [float(x) for x in recorder.losses]
+        norms = [float(x) for x in recorder.norms]
+        hook, = [h for h in trainer.hooks if isinstance(h, ValidationHook)]
+        half = iterations // 2
+        print(f'phase 18b wavenet trained {iterations} iterations of 2 x '
+              f'16000 samples in {seconds:.2f} s (validations and '
+              f'checkpoints included); training loss first half mean '
+              f'{np.mean(losses[:half]):.4f}, second half mean '
+              f'{np.mean(losses[half:]):.4f}; ranking {hook.ckpt_ranking}')
+        if iterations != 8 or len(losses) != 8 or len(norms) != 8:
+            fail(f'expected 8 iterations, got {iterations}')
+        if not (np.isfinite(losses).all() and np.isfinite(norms).all()):
+            fail(f'non-finite loss or gradient norm: {losses} {norms}')
+        if not np.mean(losses[half:]) < np.mean(losses[:half]):
+            fail('the wavenet training loss did not fall')
+        batch = next(iter(train))
+        compare_first_step(
+            '18c wavenet', losses, norms,
+            *first_step_on_cpu(model_cpu, batch, tmp, 10.0),
+            WAVENET_STEP_RTOL)
+        names = check_storage_dir(storage_dir, iterations,
+                                  'ckpt_best_loss.ptt')
+        loaded = WaveNetVocoder.from_storage_dir(storage_dir).to('cuda').eval()
+        example = wn_data.extract_features(next(iter(
+            wn_data.synthetic_database(num_examples=1, num_samples=4000,
+                                       seed=2))))
+        _, metrics, _ = wn_evaluate.synthesize_example(
+            loaded, example, chunk_length=48000, chunk_overlap=16000)
+        if not np.isfinite(metrics['rmse']):
+            fail(f'bad metrics from the trained vocoder: {metrics}')
+        print(f'phase 18d storage dir {names} loads; one request of 0.25 s '
+              f'served from it: rmse {metrics["rmse"]:.3f}')
+        t = timed_step(trainer, batch, loss_key=None, wrapper=None)
+        print('phase 18e wavenet training step B=2 x 16000 samples: '
+              + ', '.join(f'{k} {v:.3f} ms' for k, v in t.items()))
+
+
+def speaker_batch(batch, samples, num_speakers, seed=0):
+    """A ragged batch of raw audio with random labels."""
+    rng = np.random.RandomState(seed)
+    lens = rng.randint(samples // 2, samples + 1, size=batch)
+    lens[0] = samples
+    valid = np.arange(samples)[None, :] < lens[:, None]
+    return {'audio_data': (rng.randn(batch, samples) * 0.1 * valid).astype(
+                'float32'),
+            'seq_len': lens.astype('int32'),
+            'speaker_id': rng.randint(0, num_speakers, batch).astype('int32')}
+
+
+def phase_speaker_clf():
+    """Phase 19: the speaker-classification recipe with the on-device front
+    end, trained and served on the card.  Returns the launches of
+    fused_logmel and of the GRU kernels over the run, the requests and the
+    full-width forwards and steps."""
+    torch.manual_seed(0)
+    epochs = 10
+    with tempfile.TemporaryDirectory() as tmp:
+        storage_dir = Path(tmp) / 'speaker_clf' / '1'
+        storage_dir.mkdir(parents=True)
+        train_ds, dev_ds = spk_train.synthetic_split(8)
+        # the recipe shuffles its training set; here in a fixed order
+        train_ds = train_ds[[int(i) for i in np.random.RandomState(
+            0).permutation(len(train_ds))]]
+        encoder = spk_data.get_label_encoder(storage_dir, train_ds)
+        config = spk_train.get_trainer_config(
+            storage_dir, len(encoder.label_mapping), on_device_features=True,
+            updates={'stop_trigger': (epochs, 'epoch')})
+        dump_config({'trainer': config}, storage_dir / 'config.json')
+        trainer = Trainer.from_config(config)
+        model_cpu = copy.deepcopy(trainer.model)
+        trainer.to('cuda')
+        train, dev = (spk_data.prepare_dataset_audio(
+            ds, encoder, batch_size=8, shuffle=False, prefetch=False)
+            for ds in (train_ds, dev_ds))
+        n_train, n_dev = len(list(train)), len(list(dev))
+
+        start = time.perf_counter()
+        trainer.test_run(train, dev)
+        print(f'phase 19a speaker classifier test_run passed on the card in '
+              f'{time.perf_counter() - start:.2f} s')
+        recorder = Recorder(nonzero=True)
+        trainer.register_hook(recorder)
+        trainer.register_validation_hook(dev, metric='accuracy',
+                                         maximize=True)
+        reset_launches()
+        start = time.perf_counter()
+        trainer.train(train)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        launches = {'fused_logmel': fused_logmel.launches,
+                    **gru_cell_scan.launches}
+        iterations = trainer.iteration
+        losses = [float(x) for x in recorder.losses]
+        norms = [float(x) for x in recorder.norms]
+        hook, = [h for h in trainer.hooks if isinstance(h, ValidationHook)]
+        best = max(value for _, value in hook.ckpt_ranking)
+        half = iterations // 2
+        print(f'phase 19b speaker classifier trained {iterations} iterations '
+              f'of 8 x 8000 samples in {seconds:.2f} s (validations and '
+              f'checkpoints included), launches {launches}; training loss '
+              f'first half mean {np.mean(losses[:half]):.4f}, second half '
+              f'mean {np.mean(losses[half:]):.4f}; best validation accuracy '
+              f'{best:.3f} (chance 0.125)')
+        validations = epochs + 1
+        want = {'fused_logmel': iterations + n_dev * validations,
+                'fwd': n_dev * validations, 'fwd_train': iterations,
+                'bwd': iterations}
+        if iterations != epochs * n_train or launches != want:
+            fail(f'launches {launches}, expected {want}: per step one '
+                 f'fused_logmel, one GRU fwd_train and one bwd; per '
+                 f'validation batch one fused_logmel and one GRU fwd')
+        if not (np.isfinite(losses).all() and np.isfinite(norms).all()):
+            fail(f'non-finite loss or gradient norm: {losses} {norms}')
+        if not np.mean(losses[half:]) < np.mean(losses[:half]):
+            fail('the speaker classifier\'s training loss did not fall')
+        # between two readings of this run on an H100: 0.583 as it stands,
+        # and exactly 0.25 when the training set was left unshuffled (one
+        # speaker per batch), where the classifier learns nothing that
+        # carries over to the dev set although its loss falls
+        if not best >= 0.4:
+            fail(f'validation accuracy {best} is no better than a '
+                 f'classifier that learned nothing (0.25)')
+        batch = next(iter(train))
+        compare_first_step(
+            '19c speaker classifier', losses, norms,
+            *first_step_on_cpu(model_cpu, batch, tmp, 10.0),
+            SPEAKER_STEP_RTOL)
+        names = check_storage_dir(storage_dir, iterations,
+                                  'ckpt_best_accuracy.ptt')
+
+        # serving: the storage dir loaded back, its dev batches as requests
+        loaded_cpu = SpeakerClf.from_storage_dir(
+            storage_dir, checkpoint_name='ckpt_best_accuracy.ptt').eval()
+        loaded = copy.deepcopy(loaded_cpu).to('cuda')
+        reset_launches()
+        results, latencies = {}, []
+        for request in dev:
+            start = time.perf_counter()
+            results.update(spk_evaluate.evaluate_batch(loaded, request))
+            latencies.append((time.perf_counter() - start) * 1e3)
+        served = {'fused_logmel': fused_logmel.launches,
+                  **gru_cell_scan.launches}
+        reference = spk_evaluate.evaluate_batch(loaded_cpu, next(iter(dev)))
+        diff = max(abs(results[k]['confidence'] - v['confidence'])
+                   for k, v in reference.items())
+        same = all(results[k]['predicted_label'] == v['predicted_label']
+                   for k, v in reference.items())
+        accuracy = float(np.mean([v['hit'] for v in results.values()]))
+        print(f'phase 19d storage dir {names} loads; {n_dev} requests of up '
+              f'to 8 x 8000 samples: latency ms '
+              f'{[round(x, 3) for x in latencies]}, launches {served}, '
+              f'accuracy {accuracy:.3f} over {len(results)} utterances; card '
+              f'vs CPU on the first request: same labels {same}, max |diff| '
+              f'of confidence {diff:.3e} (tol {SPEAKER_TOL})')
+        if served != {'fused_logmel': n_dev, 'fwd': n_dev, 'fwd_train': 0,
+                      'bwd': 0} or len(results) != len(dev_ds):
+            fail(f'{n_dev} requests launch one fused_logmel and one GRU '
+                 f'forward each, got {served}')
+        if not same or not diff <= SPEAKER_TOL:
+            fail('the speaker classifier on the card disagrees with the CPU')
+
+        # the class defaults on 16 x 4 s of audio
+        torch.manual_seed(0)
+        full = Trainer(
+            SpeakerClf(FusedAudioLogMelExtractor(16000, 512, 128, 64)),
+            Path(tmp) / 'full', Adam(gradient_clipping=10.0, lr=3e-4))
+        model = full.model
+        width = (model.head.out_features, model.cnn[0].out_channels,
+                 model.cnn[2].out_channels, model.gru.hidden_size,
+                 model.gru.input_size)
+        if width != (251, 32, 64, 256, 1024):
+            fail(f'not the full-width speaker classifier: {width}')
+        full_cpu = copy.deepcopy(model).eval()
+        full.to('cuda')
+        batch = speaker_batch(16, 64000, 251)
+
+        def counts():
+            return {'fused_logmel': fused_logmel.launches,
+                    **gru_cell_scan.launches}
+
+        reset_launches()
+        with torch.no_grad():
+            model.eval()
+            example = model.example_to_device(batch)
+            got = model(example).cpu()
+            want = full_cpu(full_cpu.example_to_device(batch))
+            err = float((got - want).abs().max())
+            forward_ms = cuda_ms(lambda: model(example), iters=5, warmup=2)
+            front_ms = cuda_ms(lambda: model.feature_extractor(
+                example['audio_data'], seq_len=example['seq_len']),
+                iters=5, warmup=2)
+        full_forward = counts()
+        print(f'phase 19e full-width speaker classifier (251 speakers, '
+              f'(32, 64) channels, 256 GRU units) on 16 x 64000 samples: '
+              f'logits {tuple(got.shape)}, card vs CPU max |diff| {err:.3e} '
+              f'(tol {SPEAKER_TOL}); forward {forward_ms:.3f} ms, of it the '
+              f'front end with its normalization {front_ms:.3f} ms; '
+              f'launches {full_forward}')
+        if full_forward != {'fused_logmel': 15, 'fwd': 8, 'fwd_train': 0,
+                            'bwd': 0}:
+            fail(f'8 forwards and 7 front ends alone launch 15 fused_logmel '
+                 f'and 8 GRU forwards, got {full_forward}')
+        if got.shape != (16, 251) or not err <= SPEAKER_TOL:
+            fail(f'the full-width speaker classifier on the card disagrees '
+                 f'with the CPU: {err}')
+        t = timed_step(full, batch, loss_key=None, wrapper=gru_cell_scan,
+                       per_step=1)
+        full_step = counts()     # of the 5 timed steps
+        print('phase 19e full-width training step 16 x 64000 samples: '
+              + ', '.join(f'{k} {v:.3f} ms' for k, v in t.items())
+              + f'; launches {full_step}')
+    return {name: launches[name] + served[name] + full_forward[name]
+            + full_step[name] for name in launches}
+
+
 def main():
     profile = '--profile' in sys.argv[1:]
     phase_device()
@@ -1537,6 +2241,20 @@ def main():
     attention = phase_attention_kernels()
     sepformer_served = phase_sepformer_serving()
     sepformer_trained = phase_tasnet_training('sepformer', profile=profile)
+    wavenet = phase_wavenet_kernel()
+    torch.cuda.empty_cache()
+    logmel = phase_logmel_kernel()
+    wavenet_launches = phase_wavenet_serving()
+    phase_wavenet_training()
+    torch.cuda.empty_cache()
+    speaker = phase_speaker_clf()
+    if wavenet_launches == 0:
+        fail('the vocoder\'s requests never launched the wavenet_sample '
+             'kernel')
+    for name, n in speaker.items():
+        if n == 0:
+            fail(f'the speaker classifier\'s path never launched '
+                 f'{name}')
     attention_launches = {
         'fwd': sepformer_served + sepformer_trained['fwd']
         + sepformer_trained['fwd_train'],
@@ -1545,9 +2263,12 @@ def main():
         if n == 0:
             fail(f'the SepFormer paths never launched the attention {name} '
                  f'kernel')
-    gru_launches = {'fwd': served['bgru'] + trained['bgru']['fwd'],
-                    'fwd_train': trained['bgru']['fwd_train'],
-                    'bwd': trained['bgru']['bwd']}
+    # the GRU kernels' launches: the TasNet paths with GRU chunk RNNs plus
+    # the speaker classifier's
+    gru_launches = {
+        'fwd': served['bgru'] + trained['bgru']['fwd'] + speaker['fwd'],
+        'fwd_train': trained['bgru']['fwd_train'] + speaker['fwd_train'],
+        'bwd': trained['bgru']['bwd'] + speaker['bwd']}
     for name, n in gru_launches.items():
         if n == 0:
             fail(f'the TasNet paths never launched the gru {name} kernel')
@@ -1565,10 +2286,17 @@ def main():
           f'{trained["blstm"]}); gru {gru_launches}; LSTM kernels at '
           f'DPRNN shapes (ms): {lstm_dprnn}; attention '
           f'{attention_launches} (SepFormer serving {sepformer_served} '
-          f'lean forward, training {sepformer_trained})')
-    # the GRU rows are those of the intra-chunk shape, which six of a
-    # model's twelve chunk RNNs run
+          f'lean forward, training {sepformer_trained}); wavenet_sample '
+          f'{wavenet_launches} (the vocoder\'s requests); speaker '
+          f'classifier {speaker}')
+    # every row's numbers are those of its ``shape``: the GRU rows those of
+    # the intra-chunk shape, which six of a TasNet's twelve chunk RNNs run
+    # (phase 8 prints the rows of the other shapes, the classifier's two
+    # among them); the LSTM rows those of the uPIT flagship layer
     gru_rows = gru[RECURRENCE_SHAPES[0][0]]
+    flagship = 'T=500 D*B=32 H=600 ragged'
+    print('gru kernels at the speaker classifier\'s shapes: ' + json.dumps(
+        {shape[0]: gru[shape[0]] for shape in CLASSIFIER_GRU_SHAPES}))
     # the attention rows are those of the intra-chunk shape (8 of a
     # model's 16 layers); the forward row counts lean and training launches
     attention_rows = attention[ATTENTION_CASES[0][0]]
@@ -1576,20 +2304,22 @@ def main():
         {'name': 'lstm_cell_scan', 'route': 'cuda',
          'source': 'padertorch_tpu_torch/csrc/lstm_cell_scan.cu',
          'replaces': 'padertorch_tpu/ops/pallas/lstm.py:275',
-         'launches': lstm_launches['fwd'], **lstm},
+         'launches': lstm_launches['fwd'], 'shape': flagship, **lstm},
         {'name': 'lstm_cell_scan_train', 'route': 'cuda',
          'source': 'padertorch_tpu_torch/csrc/lstm_cell_scan.cu',
          'replaces': 'padertorch_tpu/ops/pallas/lstm.py:293',
-         'launches': lstm_launches['fwd_train'],
+         'launches': lstm_launches['fwd_train'], 'shape': flagship,
          **train_kernels['fwd_train']},
         {'name': 'lstm_cell_scan_bwd', 'route': 'cuda',
          'source': 'padertorch_tpu_torch/csrc/lstm_cell_scan_bwd.cu',
          'replaces': 'padertorch_tpu/ops/pallas/lstm.py:339',
-         'launches': lstm_launches['bwd'], **train_kernels['bwd']},
+         'launches': lstm_launches['bwd'], 'shape': flagship,
+         **train_kernels['bwd']},
         {'name': 'masked_istft', 'route': 'cuda',
          'source': 'padertorch_tpu_torch/csrc/masked_istft.cu',
          'replaces': 'padertorch_tpu/ops/pallas/masked_istft.py:135',
-         'launches': launches['masked_istft'], **istft[(2, 127)]},
+         'launches': launches['masked_istft'],
+         'shape': 'K=2 T=127 F=257', **istft[(2, 127)]},
         {'name': 'gru_cell_scan', 'route': 'cuda',
          'source': 'padertorch_tpu_torch/csrc/gru_cell_scan.cu',
          'replaces': 'padertorch_tpu/ops/pallas/gru.py:182',
@@ -1605,11 +2335,21 @@ def main():
         {'name': 'flash_attention', 'route': 'cuda',
          'source': 'padertorch_tpu_torch/csrc/flash_attention.cu',
          'replaces': 'padertorch_tpu/ops/pallas/attention.py:328',
-         'launches': attention_launches['fwd'], **attention_rows['fwd']},
+         'launches': attention_launches['fwd'],
+         'shape': ATTENTION_CASES[0][0], **attention_rows['fwd']},
         {'name': 'flash_attention_bwd', 'route': 'cuda',
          'source': 'padertorch_tpu_torch/csrc/flash_attention_bwd.cu',
          'replaces': 'padertorch_tpu/ops/pallas/attention.py:351',
-         'launches': attention_launches['bwd'], **attention_rows['bwd']},
+         'launches': attention_launches['bwd'],
+         'shape': ATTENTION_CASES[0][0], **attention_rows['bwd']},
+        {'name': 'wavenet_sample', 'route': 'cuda',
+         'source': 'padertorch_tpu_torch/csrc/wavenet_sample.cu',
+         'replaces': 'padertorch_tpu/ops/pallas/wavenet.py:192',
+         'launches': wavenet_launches, **wavenet},
+        {'name': 'fused_logmel', 'route': 'cuda',
+         'source': 'padertorch_tpu_torch/csrc/fused_logmel.cu',
+         'replaces': 'padertorch_tpu/ops/pallas/logmel.py:78',
+         'launches': speaker['fused_logmel'], **logmel},
     ]
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

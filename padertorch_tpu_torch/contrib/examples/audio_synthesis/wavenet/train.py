@@ -1,0 +1,107 @@
+"""Train the WaveNet vocoder.
+
+Counterpart of ``padertorch_tpu/contrib/examples/audio_synthesis/wavenet/
+train.py`` (reference ``contrib/examples/audio_synthesis/wavenet/
+train.py``).  It runs ``test_run``, registers the validation hook, trains,
+and leaves a storage dir (``config.json``, ``checkpoints/``, an event file)
+that the ``evaluate.py`` of this package and of the JAX package both load.
+
+Run on the card (the default device; without one it fails):
+    python -m padertorch_tpu_torch.contrib.examples.audio_synthesis.wavenet.train \
+        --storage_root /tmp/wavenet --synthetic --epochs 2
+Run on the CPU: add ``--device cpu`` (and ``--small`` for a tiny model).
+"""
+import argparse
+from pathlib import Path
+
+import torch
+
+from padertorch_tpu_torch.io import dump_config
+from padertorch_tpu_torch.train.optimizer import Adam
+from padertorch_tpu_torch.train.trainer import Trainer
+from padertorch_tpu_torch.utils.nested import nested_merge
+
+from . import data
+from .model import WaveNetVocoder
+
+SMALL = {'wavenet': {
+    'n_layers': 2, 'max_dilation': 2,
+    'n_residual_channels': 8, 'n_skip_channels': 16,
+}}
+
+
+def get_trainer_config(storage_dir, updates=None):
+    return Trainer.get_config(nested_merge({
+        'model': {'factory': WaveNetVocoder},
+        'optimizer': {'factory': Adam, 'gradient_clipping': 10.0,
+                      'lr': 1e-3},
+        'storage_dir': str(storage_dir),
+        'summary_trigger': (1, 'epoch'),
+        'checkpoint_trigger': (1, 'epoch'),
+    }, updates or {}))
+
+
+def main():
+    parser = argparse.ArgumentParser()
+    parser.add_argument('--storage_root', default=None)
+    parser.add_argument('--database', default=None)
+    parser.add_argument('--synthetic', action='store_true')
+    parser.add_argument('--epochs', type=int, default=20)
+    parser.add_argument('--batch_size', type=int, default=2)
+    parser.add_argument('--num_examples', type=int, default=None,
+                        help='size of the synthetic training set')
+    parser.add_argument('--small', action='store_true')
+    parser.add_argument('--device', default='cuda',
+                        help="'cuda' (the default) or 'cpu'")
+    args = parser.parse_args()
+
+    if args.database is not None:
+        raise NotImplementedError(
+            '--database waits for the JSON database reader and AudioReader '
+            '(no such files are in the repository yet); run with '
+            '--synthetic')
+
+    if args.storage_root:
+        from padertorch_tpu_torch.io import get_new_subdir
+        storage_dir = get_new_subdir(Path(args.storage_root) / 'wavenet')
+    else:
+        from padertorch_tpu_torch.io import get_new_storage_dir
+        storage_dir = get_new_storage_dir('wavenet')
+
+    updates = {'stop_trigger': (args.epochs, 'epoch')}
+    segment_length = 16000
+    if args.small:
+        updates['model'] = SMALL
+        segment_length = 4000
+
+    torch.manual_seed(0)
+    config = get_trainer_config(storage_dir, updates)
+    dump_config({'trainer': config}, storage_dir / 'config.json')
+    trainer = Trainer.from_config(config)
+    trainer.to(args.device)
+    print(f'device: {args.device}')
+
+    train_ds = data.synthetic_database(
+        num_examples=args.num_examples or max(12, 4 * args.batch_size))
+    # at least 2 validation batches (test_run exercises two)
+    dev_ds = data.synthetic_database(
+        num_examples=2 * args.batch_size, seed=1)
+
+    train = data.prepare_dataset(
+        train_ds, batch_size=args.batch_size,
+        segment_length=segment_length)
+    dev = data.prepare_dataset(
+        dev_ds, batch_size=args.batch_size,
+        segment_length=segment_length, shuffle=False, prefetch=False)
+    trainer.test_run(
+        data.prepare_dataset(train_ds, batch_size=args.batch_size,
+                             segment_length=segment_length,
+                             shuffle=False, prefetch=False),
+        dev)
+    trainer.register_validation_hook(dev)
+    trainer.train(train)
+    print(f'Finished. storage_dir={storage_dir}')
+
+
+if __name__ == '__main__':
+    main()

@@ -17,13 +17,20 @@ port):
 - ``ConvTranspose1d``: ``weight`` (out, in, k) -> (in, out, k), axes 0 and
   1 swapped (the JAX layer flips the taps in its forward, so the values
   are torch's); ``bias`` copied;
-- ``Conv1d`` (OIH in both), ``LayerNorm``, ``RMSNorm``, ``PReLU``,
-  ``DynamicTanh`` (``alpha``, ``weight``, ``bias``) and the bias token of a
-  ``MultiheadAttention`` (``bias_k``, ``bias_v``): copied;
-- ``RoPE``: the ``inv_freq`` buffer is part of the JAX ``state_dict()``
-  and is copied both ways;
-- lists of modules (``layers``, ``dpt_blocks``) are ``nn.ModuleList``s in
-  the port, whose keys (``layers.0. ...``) are the JAX pytree paths.
+- ``Conv1d``, ``Conv2d`` (OIH(W) in both), ``Embedding``, ``LayerNorm``,
+  ``RMSNorm``, ``PReLU``, ``DynamicTanh`` (``alpha``, ``weight``, ``bias``),
+  ``AutoPool`` (``alpha``) and the bias token of a ``MultiheadAttention``
+  (``bias_k``, ``bias_v``): copied;
+- buffers that are part of the JAX ``state_dict()`` are copied both ways:
+  ``RoPE``'s ``inv_freq``, a ``Normalization``'s running statistics
+  (``num_tracked_values``, ``running_mean``, ``running_power``, beside its
+  ``gamma``/``beta``), the ``fbanks`` of ``MelTransform`` and
+  ``FusedAudioLogMelExtractor``, a ``DeltaExtractor``'s ``coeffs``;
+- lists of modules (``layers``, ``dpt_blocks``, a ``WaveNet``'s
+  ``dilate_layers``/``res_layers``/``skip_layers``) are ``nn.ModuleList``s
+  in the port, whose keys (``layers.0. ...``) are the JAX pytree paths; the
+  children of a ``Sequential`` sit in its ``layers`` list in the JAX
+  package (``cnn.0.weight`` here is ``cnn.layers.0.weight`` there).
 
 :func:`to_jax_state_dict` is the inverse of :func:`from_jax_state_dict`:
 the port's trainer writes its checkpoints' ``model`` entry with it, so
@@ -34,8 +41,12 @@ JAX model.)
 import numpy as np
 import torch
 
+from padertorch_tpu_torch.contrib.je.modules.features import (
+    DeltaExtractor, FusedAudioLogMelExtractor, MelTransform)
+from padertorch_tpu_torch.contrib.je.modules.reduce import AutoPool
 from padertorch_tpu_torch.contrib.mk.modules.transformer import (
     DynamicTanh, MultiheadAttention, RoPE)
+from padertorch_tpu_torch.modules.normalization import Normalization
 from padertorch_tpu_torch.modules.recurrent import GRU, _RNNBase
 from padertorch_tpu_torch.nn import RMSNorm
 
@@ -46,11 +57,34 @@ def _swap01(a):
     return np.swapaxes(a, 0, 1)
 
 
-def _jax_to_port(model):
-    """{jax name: (port parameter, converter)} for every parameter."""
-    pairs = {}
+# modules whose own parameters and buffers (not their children's) carry
+# the JAX arrays' names and layouts
+_COPIED_AS_THEY_ARE = (DynamicTanh, MultiheadAttention, RMSNorm, RoPE,
+                       Normalization, MelTransform, DeltaExtractor,
+                       FusedAudioLogMelExtractor, AutoPool)
+
+
+def _jax_paths(model):
+    """{port module name: its dotted path in the JAX model}: the same,
+    but that a ``Sequential``'s children sit in its ``layers`` list."""
+    paths = {'': ''}
     for name, mod in model.named_modules():
-        dot = f'{name}.' if name else ''
+        for child_name, _ in mod.named_children():
+            parts = [paths[name]] if paths[name] else []
+            if isinstance(mod, torch.nn.Sequential):
+                parts.append('layers')
+            paths[f'{name}.{child_name}' if name else child_name] = \
+                '.'.join([*parts, child_name])
+    return paths
+
+
+def _jax_to_port(model):
+    """{jax name: (port parameter or buffer, converter)} for every
+    parameter, and every buffer the JAX ``state_dict()`` holds too."""
+    pairs = {}
+    paths = _jax_paths(model)
+    for name, mod in model.named_modules():
+        dot = f'{paths[name]}.' if name else ''
         if isinstance(mod, _RNNBase):
             for layer in range(mod.num_layers):
                 for d, suffix in enumerate(mod._suffixes()):
@@ -61,14 +95,13 @@ def _jax_to_port(model):
                     pairs[f'{dot}w_hh.{i}'] = [(p['weight_hh'], np.transpose)]
                     pairs[f'{dot}b.{i}'] = [(p['bias_ih'], np.asarray),
                                             (p['bias_hh'], np.zeros_like)]
-        elif isinstance(mod, (DynamicTanh, MultiheadAttention, RMSNorm)):
-            # the module's own parameters (not its children's), as they are
-            for pname, p in mod.named_parameters(recurse=False):
+        elif isinstance(mod, _COPIED_AS_THEY_ARE):
+            for pname, p in [*mod.named_parameters(recurse=False),
+                             *mod.named_buffers(recurse=False)]:
                 pairs[f'{dot}{pname}'] = [(p, np.asarray)]
-        elif isinstance(mod, RoPE):
-            pairs[f'{dot}inv_freq'] = [(mod.inv_freq, np.asarray)]
         elif isinstance(mod, (torch.nn.Linear, torch.nn.ConvTranspose1d,
-                              torch.nn.Conv1d, torch.nn.LayerNorm,
+                              torch.nn.Conv1d, torch.nn.Conv2d,
+                              torch.nn.Embedding, torch.nn.LayerNorm,
                               torch.nn.PReLU)):
             convert = (np.transpose if isinstance(mod, torch.nn.Linear)
                        else _swap01 if isinstance(mod,
@@ -83,9 +116,10 @@ def _jax_to_port(model):
     if missed:
         raise NotImplementedError(
             f'no JAX layout known for the parameters {missed}: only LSTM, '
-            'GRU, Linear, Conv1d, ConvTranspose1d, LayerNorm, RMSNorm, '
-            'PReLU, DynamicTanh, RoPE and MultiheadAttention layers move '
-            'between the packages yet')
+            'GRU, Linear, Embedding, Conv1d, Conv2d, ConvTranspose1d, '
+            'LayerNorm, RMSNorm, PReLU, DynamicTanh, RoPE, '
+            'MultiheadAttention, Normalization, AutoPool and the feature '
+            'extractors move between the packages yet')
     return pairs
 
 

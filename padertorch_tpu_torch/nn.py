@@ -8,13 +8,15 @@ JAX package stores (in, out), and ``ConvTranspose1d.weight`` is
 """
 import torch
 from torch.nn import (  # noqa: F401
-    Conv1d, ConvTranspose1d, Dropout, ELU, GELU, GLU, Identity, LayerNorm,
-    LeakyReLU, Linear, Module, PReLU, ReLU, Sigmoid, SiLU, Softmax, Tanh,
+    Conv1d, Conv2d, ConvTranspose1d, Dropout, ELU, Embedding, GELU, GLU,
+    Identity, LayerNorm, LeakyReLU, Linear, Module, PReLU, ReLU, Sequential,
+    Sigmoid, SiLU, Softmax, Tanh,
 )
 
-__all__ = ['Linear', 'Conv1d', 'ConvTranspose1d', 'LayerNorm', 'RMSNorm',
-           'Dropout', 'ReLU', 'LeakyReLU', 'ELU', 'GELU', 'Sigmoid', 'Tanh',
-           'Softmax', 'PReLU', 'GLU', 'SiLU', 'Identity']
+__all__ = ['Linear', 'Embedding', 'Sequential', 'Conv1d', 'Conv2d',
+           'ConvTranspose1d', 'LayerNorm', 'RMSNorm', 'Dropout', 'ReLU',
+           'LeakyReLU', 'ELU', 'GELU', 'Sigmoid', 'Tanh', 'Softmax', 'PReLU',
+           'GLU', 'SiLU', 'Identity']
 
 
 class RMSNorm(Module):

@@ -41,6 +41,9 @@ _SIGNATURES = {
     'masked_istft_fwd': (_P,) * 5 + (_I,) * 7 + (_P,),
     'flash_attention_fwd': (_P,) * 6 + (_I,) * 9 + (_F, _I, _P),
     'flash_attention_bwd': (_P,) * 10 + (_I,) * 9 + (_F, _I, _P),
+    'wavenet_sample_fwd': (_P,) * 13 + (_I,) * 10 + (_P,),
+    'wavenet_sample_smem_bytes': (_I,) * 5,
+    'fused_logmel_fwd': (_P,) * 4 + (_I,) * 8 + (_F, _I, _P),
 }
 
 

@@ -1,0 +1,262 @@
+"""Persistent WaveNet autoregressive sampler.
+
+Counterpart of ``padertorch_tpu/ops/pallas/wavenet.py`` ``wavenet_sample``.
+On CUDA tensors :func:`wavenet_sample` launches the hand-written kernel of
+``csrc/wavenet_sample.cu`` once for all T steps; on CPU tensors it runs
+:func:`wavenet_sample_plain`, a Python loop over the steps with the same
+ring buffers.
+
+Stochastic sampling is Gumbel-max over uniforms from a counter-based
+generator keyed by (seed, step, row, class): :func:`wavenet_uniform` is
+that generator in integer tensor operations, bit for bit what the kernel
+draws, so kernel and plain version choose the same index from the same
+logits.  (The TPU kernel draws from its hardware generator: the JAX
+package's sampled output agrees with the port's in distribution only.)
+"""
+import ctypes
+
+import torch
+
+from padertorch_tpu_torch.ops.kernels import _build
+
+__all__ = ['wavenet_sample', 'wavenet_sample_plain', 'wavenet_uniform',
+           'ring_bytes']
+
+START_INDEX = 128   # mu-law zero, the index "before" the first sample
+MAX_LAYERS = 64     # the kernel passes the dilations by value
+WEIGHT_SHAPES = {   # in terms of L, R, S, O, C
+    'w_prev': 'LRr', 'w_curr': 'LRr', 'b_dil': 'Lr', 'w_res': 'lRR',
+    'b_res': 'lR', 'w_skip': 'LRS', 'b_skip': 'LS', 'w_out': 'SO',
+    'w_end': 'OO', 'embed': 'CR'}
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x, m):
+    """``(x * m) mod 2**32`` for int64 tensors below 2**32, without an
+    int64 overflow: the multiplier in 16-bit halves."""
+    low = x * (m & 0xFFFF)
+    high = ((x * (m >> 16)) & 0xFFFF) << 16
+    return (low + high) & _M32
+
+
+def _mix32(x):
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7feb352d)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846ca68b)
+    return x ^ (x >> 16)
+
+
+def wavenet_uniform(seed, steps, n_rows, n_classes, device=None):
+    """The kernel's uniforms in [0, 1): float32 ``(len(steps), n_rows,
+    n_classes)`` for the int steps ``steps`` (a 1-D tensor or a sequence).
+
+    Three rounds of a 32-bit mixer over seed and step, then row, then
+    class; the upper 24 bits of the result over 2**24 (the mapping of
+    ``_uniform_from_bits`` in the JAX package).
+    """
+    steps = torch.as_tensor(steps, dtype=torch.int64, device=device)
+    device = steps.device
+    rows = torch.arange(n_rows, dtype=torch.int64, device=device)
+    classes = torch.arange(n_classes, dtype=torch.int64, device=device)
+    key = _mix32((int(seed) & _M32) ^ _mul32(steps, 0x9E3779B1))
+    key = _mix32(key[:, None] ^ _mul32(rows, 0x85EBCA77)[None, :])
+    bits = _mix32(key[:, :, None] ^ _mul32(classes, 0xC2B2AE3D))
+    return ((bits >> 8) & 0xFFFFFF).to(torch.float32) / float(1 << 24)
+
+
+def _gumbel(u):
+    return -torch.log(-torch.log(u + 1e-20) + 1e-20)
+
+
+def _sizes(cond_acts, weights, dilations, forced_input):
+    """Check shapes, types and devices; returns (T, B, L, R, S, O, C)."""
+    if cond_acts.ndim != 4 or cond_acts.shape[-1] % 2:
+        raise ValueError(f'cond_acts must be (T, B, L, 2R), got '
+                         f'{tuple(cond_acts.shape)}')
+    t, b, n_layers, two_r = cond_acts.shape
+    if len(dilations) != n_layers or n_layers < 1:
+        raise ValueError(f'{len(dilations)} dilations for {n_layers} layers')
+    if any(int(d) < 1 for d in dilations):
+        raise ValueError(f'dilations must be positive: {dilations}')
+    missing = sorted(set(WEIGHT_SHAPES) - set(weights))
+    if missing:
+        raise KeyError(f'weights lack {missing}')
+    dims = {'L': n_layers, 'l': n_layers - 1, 'R': two_r // 2, 'r': two_r,
+            'S': weights['w_skip'].shape[-1], 'O': weights['w_end'].shape[-1],
+            'C': weights['embed'].shape[0]}
+    for name, spec in WEIGHT_SHAPES.items():
+        w = weights[name]
+        want = tuple(dims[c] for c in spec)
+        if tuple(w.shape) != want:
+            raise ValueError(f'{name}: {tuple(w.shape)}, expected {want}')
+        if w.dtype != torch.float32 or w.device != cond_acts.device:
+            raise ValueError(f'{name}: {w.dtype} on {w.device}, expected '
+                             f'float32 on {cond_acts.device}')
+    if dims['C'] <= START_INDEX or dims['O'] > dims['C']:
+        raise ValueError(
+            f'the sampler starts from index {START_INDEX} and feeds its '
+            f'choice among {dims["O"]} outputs back into an embedding of '
+            f'{dims["C"]} rows')
+    if forced_input is not None and (
+            tuple(forced_input.shape) != (t, b)
+            or forced_input.device != cond_acts.device):
+        raise ValueError(f'forced_input must be (T, B) = {(t, b)} on '
+                         f'{cond_acts.device}')
+    return t, b, n_layers, dims['R'], dims['S'], dims['O'], dims['C']
+
+
+def ring_bytes(dilations, n_residual_channels):
+    """Bytes of one row's ring buffers (float32): sum(dilations) x R."""
+    return 4 * sum(int(d) for d in dilations) * n_residual_channels
+
+
+def wavenet_sample_plain(cond_acts, weights, dilations, *, seed=0,
+                         sample=False, forced_input=None,
+                         return_logits=False):
+    """Plain PyTorch version of :func:`wavenet_sample` (same contract): a
+    Python loop over the steps, one ring buffer of ``d`` slots per layer."""
+    t, b, n_layers, r, _, o_dim, _ = _sizes(
+        cond_acts, weights, dilations, forced_input)
+    w = weights
+    cond_acts = cond_acts.to(torch.float32)
+    device = cond_acts.device
+    rings = [cond_acts.new_zeros((int(d), b, r)) for d in dilations]
+    prev = torch.full((b,), START_INDEX, dtype=torch.int64, device=device)
+    indices, all_logits = [], []
+    for step in range(t):
+        cur = prev if forced_input is None else forced_input[step].long()
+        x = w['embed'][cur]                                     # (B, R)
+        skip_sum = None
+        for i, d in enumerate(dilations):
+            slot = step % int(d)
+            in_act = (rings[i][slot] @ w['w_prev'][i] + x @ w['w_curr'][i]
+                      + w['b_dil'][i] + cond_acts[step, :, i])
+            acts = torch.tanh(in_act[:, :r]) * torch.sigmoid(in_act[:, r:])
+            # the ring keeps the layer's input; step 0 is the phantom
+            # position before the shift (training pads it with zeros)
+            rings[i][slot] = x if step > 0 else 0.0
+            s = acts @ w['w_skip'][i] + w['b_skip'][i]
+            skip_sum = s if skip_sum is None else skip_sum + s
+            if i < n_layers - 1:
+                x = acts @ w['w_res'][i] + w['b_res'][i] + x
+        out = torch.relu(torch.relu(skip_sum) @ w['w_out'])
+        logits = out @ w['w_end']                               # (B, O)
+        score = logits
+        if sample:
+            score = logits + _gumbel(wavenet_uniform(
+                seed, [step], b, o_dim, device=device)[0])
+        prev = torch.argmax(score, dim=-1)
+        indices.append(prev.to(torch.int32))
+        if return_logits:
+            all_logits.append(logits)
+    idx = torch.stack(indices)
+    if return_logits:
+        return idx, torch.stack(all_logits)
+    return idx
+
+
+def _launch(cond_acts, weights, dilations, sizes, seed, sample, forced_input,
+            return_logits):
+    t, b, n_layers, r, s_dim, o_dim, n_classes = sizes
+    if n_layers > MAX_LAYERS:
+        raise ValueError(f'the kernel takes at most {MAX_LAYERS} layers, '
+                         f'got {n_layers}')
+    if r % 4 or s_dim % 4 or o_dim % 4:
+        raise ValueError(
+            f'the kernel loads four weights at a time: residual, skip and '
+            f'output channels must be multiples of 4, got {r}, {s_dim}, '
+            f'{o_dim}')
+    lib = _build.load_library()
+    stream, device = _build.stream_and_device(cond_acts)
+    slots = sum(int(d) for d in dilations)
+    need = lib.wavenet_sample_smem_bytes(n_layers, r, s_dim, o_dim, slots)
+    limit = torch.cuda.get_device_properties(
+        device).shared_memory_per_block_optin
+    if need > limit:
+        raise ValueError(
+            f'the kernel keeps a row\'s ring buffers in shared memory: '
+            f'{slots} slots x {r} channels ({ring_bytes(dilations, r)} '
+            f'bytes) and its activations need {need} bytes, the card '
+            f'offers {limit} per block')
+    cond = cond_acts.to(torch.float32).contiguous()
+    w = weights
+    # the kernel's lanes run along K: every product's weights as (outputs,
+    # K).  A layer's two dilated products are one over [x_past, x], its skip
+    # and residual products one with S + R outputs (no residual in the last
+    # layer: zeros that the kernel does not read)
+    wd_t = torch.cat([w['w_prev'], w['w_curr']], dim=1) \
+        .transpose(1, 2).contiguous()                       # (L, 2R, 2R)
+    w_res = torch.cat([w['w_res'], w['w_res'].new_zeros((1, r, r))])
+    wsr_t = torch.cat([w['w_skip'], w_res], dim=2) \
+        .transpose(1, 2).contiguous()                       # (L, S + R, R)
+    pointers = [wd_t, w['b_dil'].contiguous(), wsr_t,
+                w['b_res'].contiguous(), w['b_skip'].contiguous(),
+                w['w_out'].t().contiguous(), w['w_end'].t().contiguous(),
+                w['embed'].contiguous()]
+    forced = None if forced_input is None \
+        else forced_input.to(torch.int32).contiguous()
+    idx = torch.empty((t, b), dtype=torch.int32, device=cond.device)
+    logits = torch.empty((t, b, o_dim), dtype=torch.float32,
+                         device=cond.device) if return_logits else None
+    dil = (ctypes.c_int * n_layers)(*[int(d) for d in dilations])
+    err = lib.wavenet_sample_fwd(
+        cond.data_ptr(), None if forced is None else forced.data_ptr(),
+        *[tensor.data_ptr() for tensor in pointers],
+        idx.data_ptr(), None if logits is None else logits.data_ptr(),
+        ctypes.cast(dil, ctypes.c_void_p), t, b, n_layers, r, s_dim, o_dim,
+        n_classes, int(bool(sample)),
+        ctypes.c_int32(int(seed) & _M32).value, device, stream)
+    _build.check(lib, err, 'wavenet_sample kernel')
+    wavenet_sample.launches += 1
+    if return_logits:
+        return idx, logits
+    return idx
+
+
+def wavenet_sample(cond_acts, weights, dilations, *, seed=0, sample=False,
+                   forced_input=None, return_logits=False):
+    """Run the WaveNet sample loop, all T steps, as one kernel launch.
+
+    Args:
+        cond_acts: (T, B, L, 2R) float32 pre-shifted conditioning
+            activations (position t holds the conditioning of t - 1, step
+            0 zeros).
+        weights: dict of float32 tensors, stacked over layers:
+            ``w_prev``/``w_curr`` (L, R, 2R), ``b_dil`` (L, 2R), ``w_res``
+            (L-1, R, R), ``b_res`` (L-1, R), ``w_skip`` (L, R, S),
+            ``b_skip`` (L, S), ``w_out`` (S, O), ``w_end`` (O, O), ``embed``
+            (C, R).
+        dilations: per-layer dilations (L ints).
+        seed: seed of the counter-based generator (its low 32 bits).
+        sample: Gumbel-max sampling from the softmax; False is the greedy
+            argmax (ties go to the lowest index).
+        forced_input: optional (T, B) integer teacher-forcing indices.
+        return_logits: also return the (T, B, O) logits.
+
+    Returns:
+        (T, B) int32 indices, or (indices, logits).  CPU tensors run
+        :func:`wavenet_sample_plain`; CUDA tensors launch the kernel (or
+        raise: it has no backward, it needs a row's ring buffers,
+        ``ring_bytes(dilations, R)``, to fit in a block's shared memory, and
+        R, S and O to be multiples of 4).
+        ``wavenet_sample.launches`` counts the launches.
+    """
+    sizes = _sizes(cond_acts, weights, dilations, forced_input)
+    if torch.is_grad_enabled() and (
+            cond_acts.requires_grad
+            or any(weights[n].requires_grad for n in WEIGHT_SHAPES)):
+        raise ValueError(
+            'wavenet_sample is an inference kernel without a backward: '
+            'call it under torch.no_grad() or on detached tensors')
+    if cond_acts.device.type == 'cpu':
+        return wavenet_sample_plain(
+            cond_acts, weights, dilations, seed=seed, sample=sample,
+            forced_input=forced_input, return_logits=return_logits)
+    if cond_acts.device.type != 'cuda':
+        raise ValueError(f'no kernel for device {cond_acts.device}')
+    return _launch(cond_acts, weights, dilations, sizes, seed, sample,
+                   forced_input, return_logits)
+
+
+wavenet_sample.launches = 0

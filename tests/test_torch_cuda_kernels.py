@@ -8,6 +8,11 @@ forward (1e-4 relative to each gradient's largest entry); the GRU
 kernels likewise.  The attention kernels are held against the masked
 softmax formula (``flash_attention_plain`` and autograd through it) in every
 mask mode, for every head size of the template set and one outside it.
+The WaveNet sampler is held against its plain step loop (greedy and
+teacher-forced Gumbel indices equal, logits 2e-5) and the fused log-mel
+front end against its plain version (1e-4 on log-mel values), both at odd
+batch sizes, lengths and widths; a ``WaveNetVocoder`` and a ``SpeakerClf``
+on the card are held against the CPU and moved to the JAX layout and back.
 Marked
 ``cuda``: they skip without a card.  Run them on the card with
 
@@ -46,8 +51,9 @@ pytestmark = pytest.mark.cuda
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA card')
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    # float32 is the package's own decision, made where it is imported
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
     return torch.device('cuda')
 
 
@@ -660,3 +666,208 @@ def test_sepformer_tasnet_on_the_card_matches_the_cpu(cuda, use_flash):
         model.eval()
         assert torch.equal(model(example)['out'], model(example)['out'])
     assert flash_attention.launches['fwd'] == before['fwd'] + 2 * layers
+
+
+# ---------------------------------------------------------------- WaveNet
+def _wavenet_weights(n_layers, r, s, o, c, rng, device):
+    def u(*shape):
+        bound = np.sqrt(3.0 / shape[-2]) if len(shape) > 2 else 0.1
+        return torch.from_numpy(
+            rng.uniform(-bound, bound, shape).astype('float32')).to(device)
+    return {'w_prev': u(n_layers, r, 2 * r), 'w_curr': u(n_layers, r, 2 * r),
+            'b_dil': u(n_layers, 2 * r), 'w_res': u(n_layers - 1, r, r),
+            'b_res': u(n_layers - 1, r), 'w_skip': u(n_layers, r, s),
+            'b_skip': u(n_layers, s), 'w_out': u(1, s, o)[0],
+            'w_end': u(1, o, o)[0],
+            'embed': torch.from_numpy(
+                rng.randn(c, r).astype('float32')).to(device)}
+
+
+@pytest.mark.parametrize('t_len,batch,dilations,r,s,o', [
+    (37, 1, (1, 2, 4, 1), 16, 32, 256),
+    (50, 5, (1, 2, 4, 8, 1, 2), 16, 32, 256),
+    (23, 3, (3, 1, 5), 12, 20, 132),
+    (40, 7, (1,), 64, 256, 256),
+    (64, 133, (1, 2), 8, 16, 256),
+])
+def test_wavenet_sample_kernel_matches_plain(cuda, t_len, batch, dilations,
+                                             r, s, o):
+    from padertorch_tpu_torch.ops.kernels.wavenet import (
+        wavenet_sample, wavenet_sample_plain)
+    rng = np.random.RandomState(t_len)
+    n_layers = len(dilations)
+    w = _wavenet_weights(n_layers, r, s, o, 256, rng, cuda)
+    cond = torch.from_numpy(rng.randn(
+        t_len, batch, n_layers, 2 * r).astype('float32')).to(cuda) * 0.5
+    forced = torch.from_numpy(
+        rng.randint(0, o, (t_len, batch)).astype('int32')).to(cuda)
+    before = wavenet_sample.launches
+    for sample in (False, True):
+        got_i, got_l = wavenet_sample(
+            cond, w, dilations, forced_input=forced, return_logits=True,
+            sample=sample, seed=11)
+        want_i, want_l = wavenet_sample_plain(
+            cond, w, dilations, forced_input=forced, return_logits=True,
+            sample=sample, seed=11)
+        assert got_i.dtype == torch.int32 and got_i.shape == (t_len, batch)
+        assert float((got_l - want_l).abs().max()) <= 2e-5
+        # the choice from the kernel's own logits: ties and draws as plain
+        assert bool((got_i == want_i).all())
+    free = wavenet_sample(cond, w, dilations)
+    assert bool((free == wavenet_sample_plain(cond, w, dilations)).all())
+    assert wavenet_sample.launches == before + 3
+
+
+def test_wavenet_sample_kernel_rejects_what_it_does_not_take(cuda):
+    from padertorch_tpu_torch.ops.kernels.wavenet import wavenet_sample
+    rng = np.random.RandomState(0)
+    w = _wavenet_weights(2, 6, 16, 256, 256, rng, cuda)   # R % 4 != 0
+    cond = torch.zeros(4, 1, 2, 12, device=cuda)
+    with pytest.raises(ValueError, match='multiples of 4'):
+        wavenet_sample(cond, w, (1, 2))
+    w = _wavenet_weights(2, 64, 16, 256, 256, rng, cuda)
+    cond = torch.zeros(4, 1, 2, 128, device=cuda)
+    with pytest.raises(ValueError, match='shared memory'):
+        wavenet_sample(cond, w, (512, 512))               # 256 KB of rings
+    with pytest.raises(ValueError, match='inference kernel'):
+        wavenet_sample(cond.requires_grad_(), w, (1, 2))
+
+
+def test_wavenet_vocoder_on_the_card_matches_the_cpu_and_round_trips(cuda):
+    import copy
+    from padertorch_tpu_torch.contrib.examples.audio_synthesis.wavenet.model \
+        import WaveNetVocoder
+    from padertorch_tpu_torch.migrate import (
+        from_jax_state_dict, to_jax_state_dict)
+    from padertorch_tpu_torch.modules.wavenet import WaveNet
+    from padertorch_tpu_torch.ops.kernels.wavenet import wavenet_sample
+    torch.manual_seed(0)
+    kw = dict(n_cond_channels=8, upsamp_window=8, upsamp_stride=4, n_layers=4,
+              max_dilation=4, n_residual_channels=16, n_skip_channels=32)
+    cpu = WaveNetVocoder(WaveNet(**kw)).eval()
+    card = copy.deepcopy(cpu).to(cuda)
+    rng = np.random.RandomState(0)
+    features = torch.from_numpy(rng.randn(2, 8, 40).astype('float32'))
+    before = wavenet_sample.launches
+    with torch.no_grad():
+        want = cpu.wavenet.infer(features, sample=False)
+        got = card.wavenet.infer(features.to(cuda), sample=False)
+        chunked = card.wavenet.infer(features.to(cuda), chunk_length=60,
+                                     chunk_overlap=20, sample=False,
+                                     parallel=True)
+    assert wavenet_sample.launches == before + 2
+    assert got.shape == want.shape == chunked.shape == (2, 156)
+    # mu-law decoding differs by an ulp between card and CPU; neighbouring
+    # levels are at least 1.7e-4 apart
+    assert float((got.cpu() - want).abs().max()) <= 1e-5
+    # the JAX layout and back: every tensor as it was
+    state = to_jax_state_dict(card)
+    other = WaveNetVocoder(WaveNet(**kw)).to(cuda)
+    from_jax_state_dict(other, state)
+    for (name, a), (_, b) in zip(card.state_dict().items(),
+                                 other.state_dict().items()):
+        assert torch.equal(a, b), name
+
+
+def test_wavenet_trainer_built_outside_the_recipe_passes_test_run(
+        cuda, tmp_path):
+    """``Trainer.from_config`` without the recipe's ``main``: the
+    convolutions are float32 all the same, so ``test_run``'s comparison of
+    two validation passes (1e-5) holds on the card."""
+    from padertorch_tpu_torch.contrib.examples.audio_synthesis.wavenet \
+        import data, train
+    from padertorch_tpu_torch.train.trainer import Trainer
+    torch.manual_seed(0)
+    trainer = Trainer.from_config(train.get_trainer_config(
+        tmp_path, {'model': train.SMALL}))
+    trainer.to('cuda')
+    train_ds, dev_ds = (data.prepare_dataset(
+        data.synthetic_database(num_examples=4, seed=seed), batch_size=2,
+        segment_length=4000, shuffle=False, prefetch=False)
+        for seed in (0, 1))
+    trainer.test_run(train_ds, dev_ds)
+    assert not torch.backends.cudnn.allow_tf32
+
+
+# ---------------------------------------------------------------- log-mel
+@pytest.mark.parametrize('batch,samples,size,shift,window_length,n_mels', [
+    (1, 4000, 512, 128, None, 64),
+    (3, 12345, 512, 160, 400, 40),     # the hop does not divide the window
+    (5, 7001, 1024, 200, 800, 80),
+    (2, 300, 512, 128, None, 64),      # shorter than a window
+    (7, 16000, 256, 100, 250, 40),
+    (2, 5000, 512, 150, 450, 64),      # a hop that is no multiple of 4
+])
+@pytest.mark.parametrize('fading', ['full', 'half', None])
+def test_fused_logmel_kernel_matches_plain(cuda, batch, samples, size, shift,
+                                           window_length, n_mels, fading):
+    from padertorch_tpu_torch.ops.kernels.logmel import (
+        LogMelFrontend, fused_logmel)
+    rng = np.random.RandomState(samples)
+    x = torch.from_numpy(rng.randn(batch, samples).astype('float32')).to(cuda)
+    frontend = LogMelFrontend(size=size, shift=shift,
+                              window_length=window_length, n_mels=n_mels,
+                              fading=fading)
+    before = fused_logmel.launches
+    got = frontend(x)
+    want = frontend.plain(x)
+    assert fused_logmel.launches == before + 1
+    assert got.shape == want.shape and got.shape[-1] == n_mels
+    # log of a sum of 2 * window_length * F float32 products: 1e-4 on
+    # values between -28 and 10
+    assert float((got - want).abs().max()) <= 1e-4
+    assert torch.equal(frontend(x[0]), got[:1])
+    with pytest.raises(ValueError, match='gradient'):
+        frontend(x.clone().requires_grad_())
+
+
+def test_speaker_clf_on_the_card_matches_the_cpu_and_round_trips(cuda):
+    import copy
+    from padertorch_tpu_torch.contrib.examples.speaker_classification \
+        .supervised.model import SpeakerClf
+    from padertorch_tpu_torch.contrib.je.modules.features import (
+        FusedAudioLogMelExtractor)
+    from padertorch_tpu_torch.migrate import (
+        from_jax_state_dict, to_jax_state_dict)
+    from padertorch_tpu_torch.ops.kernels.logmel import fused_logmel
+
+    def build():
+        return SpeakerClf(
+            FusedAudioLogMelExtractor(16000, 512, 128, 64), num_speakers=5,
+            cnn_channels=(4, 8), hidden_size=16)
+
+    torch.manual_seed(0)
+    cpu = build()
+    card = copy.deepcopy(cpu).to(cuda)
+    rng = np.random.RandomState(0)
+    batch = {'audio_data': rng.randn(3, 6000).astype('float32'),
+             'seq_len': np.array([6000, 4000, 3000], 'int32'),
+             'speaker_id': np.array([0, 3, 4], 'int32')}
+    before = fused_logmel.launches
+    reviews = {}
+    for name, model in (('cpu', cpu), ('card', card)):
+        model.train()     # the running statistics move
+        example = model.example_to_device(batch)
+        review = model.review(example, model(example))
+        review['loss'].backward()
+        reviews[name] = review
+    assert fused_logmel.launches == before + 1
+    np.testing.assert_allclose(float(reviews['card']['loss']),
+                               float(reviews['cpu']['loss']), rtol=1e-5)
+    for (name, p), (_, q) in zip(card.named_parameters(),
+                                 cpu.named_parameters()):
+        if not q.requires_grad:     # the GRU's frozen bias_hh
+            assert p.grad is None
+            continue
+        scale = float(q.grad.abs().max()) or 1.0
+        assert float((p.grad.cpu() - q.grad).abs().max()) <= 1e-4 * scale, \
+            name
+    for (name, a), (_, b) in zip(card.named_buffers(), cpu.named_buffers()):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-5,
+                                   atol=1e-6, err_msg=name)
+    state = to_jax_state_dict(card)
+    other = build().to(cuda)
+    from_jax_state_dict(other, state)
+    for (name, a), (_, b) in zip(card.state_dict().items(),
+                                 other.state_dict().items()):
+        assert torch.equal(a, b), name

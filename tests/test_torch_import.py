@@ -139,3 +139,107 @@ def test_port_imports_no_jax_and_launches_nothing_on_cpu():
     assert out['sep_trained'] == [1, 'DualPathTransformer', [True]]
     (step, loss), = out['sep_train_loss']
     assert step == 1 and np.isfinite(loss)
+
+
+VOCODER_AND_CLASSIFIER = r'''
+import importlib, json, pkgutil, sys, tempfile
+import numpy as np
+import torch
+torch.set_num_threads(2)
+import padertorch_tpu_torch
+# every module of the package imports, and none of them pulls JAX in
+for info in pkgutil.walk_packages(padertorch_tpu_torch.__path__,
+                                  'padertorch_tpu_torch.'):
+    importlib.import_module(info.name)
+from padertorch_tpu_torch.contrib.examples.audio_synthesis.wavenet import (
+    data as wn_data, evaluate as wn_evaluate, train as wn_train)
+from padertorch_tpu_torch.contrib.examples.speaker_classification.supervised \
+    import data as spk_data, evaluate as spk_evaluate, train as spk_train
+from padertorch_tpu_torch.ops.kernels.gru import gru_cell_scan
+from padertorch_tpu_torch.ops.kernels.logmel import fused_logmel
+from padertorch_tpu_torch.ops.kernels.wavenet import wavenet_sample
+from padertorch_tpu_torch.train import trainer
+
+torch.manual_seed(0)
+with tempfile.TemporaryDirectory() as tmp:
+    config = wn_train.get_trainer_config(tmp, {
+        'model': wn_train.SMALL, 'stop_trigger': (1, 'iteration')})
+    t = trainer.Trainer.from_config(config)
+    t.train(wn_data.prepare_dataset(
+        wn_data.synthetic_database(num_examples=2, num_samples=2000),
+        batch_size=2, segment_length=2000, shuffle=False, prefetch=False))
+    example = wn_data.extract_features(next(iter(
+        wn_data.synthetic_database(num_examples=1, num_samples=1000))))
+    results = [wn_evaluate.synthesize_example(
+        t.model.eval(), example, chunk_length=600, chunk_overlap=100,
+        parallel=parallel, generator=torch.Generator().manual_seed(1))
+        for parallel in (False, True)]
+    wavenet = (t.iteration, [r[1]['num_samples'] for r in results],
+               [bool(np.isfinite(r[1]['rmse'])) for r in results])
+with tempfile.TemporaryDirectory() as tmp:
+    train_ds, dev_ds = spk_train.synthetic_split(4)
+    encoder = spk_data.get_label_encoder(tmp, train_ds)
+    config = spk_train.get_trainer_config(
+        tmp, 8, on_device_features=True,
+        updates={'stop_trigger': (1, 'iteration')})
+    t = trainer.Trainer.from_config(config)
+    t.train(spk_data.prepare_dataset_audio(
+        train_ds, encoder, batch_size=4, shuffle=False, prefetch=False))
+    batch = next(iter(spk_data.prepare_dataset_audio(
+        dev_ds, encoder, batch_size=4, shuffle=False, prefetch=False)))
+    served = spk_evaluate.evaluate_batch(t.model.eval(), batch)
+    speaker = (t.iteration, len(served),
+               sorted({type(v['hit']).__name__ for v in served.values()}))
+print(json.dumps({
+    'modules': sorted(sys.modules),
+    'launches': [wavenet_sample.launches, fused_logmel.launches,
+                 *gru_cell_scan.launches.values()],
+    'wavenet': wavenet, 'speaker': speaker}))
+'''
+
+
+def test_vocoder_and_classifier_paths_import_no_jax_and_launch_nothing():
+    """Every module of the port imports without JAX; one training step and
+    one served request of the WaveNet vocoder (sequential and parallel
+    chunks) and of the speaker classifier with the on-device front end run
+    on the CPU through the kernels' plain versions."""
+    env = {**os.environ, 'PYTHONPATH': str(REPO), 'OMP_NUM_THREADS': '2'}
+    proc = subprocess.run(
+        [sys.executable, '-c', VOCODER_AND_CLASSIFIER], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    banned = ('jax', 'jaxlib', 'padertorch_tpu', 'tensorboardX', 'optax',
+              'matplotlib', 'triton')
+    assert [m for m in out['modules'] if m.split('.')[0] in banned] == []
+    for name in ('modules.wavenet.wavenet', 'modules.normalization',
+                 'contrib.je.modules.features', 'contrib.je.modules.reduce',
+                 'contrib.je.data.transforms', 'ops.kernels.wavenet',
+                 'ops.kernels.logmel', 'ops.mu_law',
+                 'ops.losses.classification'):
+        assert f'padertorch_tpu_torch.{name}' in out['modules']
+    assert out['launches'] == [0] * 5
+    assert out['wavenet'] == [1, [1000, 1000], [True, True]]
+    assert out['speaker'] == [1, 4, ['bool']]
+
+
+FLOAT32 = r'''
+import json
+import torch
+torch.backends.cuda.matmul.allow_tf32 = True
+torch.backends.cudnn.allow_tf32 = True
+import padertorch_tpu_torch.train.trainer
+print(json.dumps([torch.backends.cuda.matmul.allow_tf32,
+                  torch.backends.cudnn.allow_tf32]))
+'''
+
+
+def test_importing_any_module_of_the_port_turns_tf32_off():
+    """Float32 is the package's decision, not a recipe's ``main``: whoever
+    builds a ``Trainer`` or loads a storage dir gets float32 products and
+    convolutions on the card."""
+    env = {**os.environ, 'PYTHONPATH': str(REPO), 'OMP_NUM_THREADS': '2'}
+    proc = subprocess.run([sys.executable, '-c', FLOAT32], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == [False, False]
