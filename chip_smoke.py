@@ -1,6 +1,8 @@
 """Drive the PyTorch port's paths once on one CUDA card: uPIT, DPRNN-TasNet
 and SepFormer-TasNet separation, the WaveNet vocoder and the speaker
-classifier with its on-device log-mel front end, each served and trained.
+classifier with its on-device log-mel front end, each served and trained;
+and the transformer decoder's int8 KV-cache decoding and continuous
+batching, served.
 
     python3 chip_smoke.py [--profile]
 
@@ -67,7 +69,8 @@ Phases, one line each:
     windowed and causal with key padding, grouped-query (4, 8 over 2,
     1024, 64), Tq != Tk and a head size outside the template set; each
     timed beside the plain version, ``F.scaled_dot_product_attention``
-    (float32, TF32 off) and its bound.  Then the dispatch table: one
+    (float32, TF32 off) and its bound (the backward as the median of five
+    windows after a warm-up, with the allocator's cache emptied).  Then the dispatch table: one
     ``MultiheadAttention`` forward and forward + backward on the fused and
     on the dense backend at (8, T, 12 x 64) for T = 512 ... 4096, full,
     causal and windowed, and at the SepFormer's two shapes; the table
@@ -123,6 +126,32 @@ Phases, one line each:
     training step at the class defaults (251 speakers, (32, 64) channels,
     256 GRU units) on 16 x 4 s of audio.
 
+20. int8_matmul kernel vs its plain version (float32 within 1e-5 of the
+    largest output, bf16 within one unit in the last place plus that)
+    with and without bias, at M = 1, 8, 32, 128 and the decoder's weights (1024,
+    1024), (1024, 4096), (4096, 1024), and at a ragged (1000, 1030); the
+    composed route (``x @ (w_q * scale)`` in bf16) must fail the bf16 limit
+    and plain with TF32 products the float32 one; timed beside plain, the
+    composed route, ``torch.addmm`` on the weight dequantized to the
+    activations' type and the bound; the contract's raises; then the
+    kernel and the composed route of ``QuantizedLinear`` by rows of x from
+    1 to 256 (``INT8_KERNEL_MAX_ROWS`` comes from this table).
+21. decoding at full width: bench.py's int8 decode model (TransformerDecoder
+    d_model 1024, 12 layers, 16 heads, RoPE, pre-norm; a Linear(1024, 1024)
+    head; weights from seed 0, the embedding table x 0.05 and 128 frames
+    of memory from numpy seed 0): teacher-forced decode_step logits
+    against one forward in float32 (which launches flash_attention); the
+    int8 kernel route against the composed route on bf16 forward logits;
+    ``autoregressive_generate`` of 128 greedy tokens at B=1 with the
+    kernel's launches counted (12,440: 97 per token and 24 for the cross
+    K/V), then us per token for float32, bf16, bf16 int8 composed and
+    bf16 int8 kernel (best of 3 after a warm-up, host clock).
+22. serving: a ``ContinuousBatcher`` of 8 slots on the bf16 int8 kernel
+    decoder takes 16 requests (memory of 32 to 128 frames, 16 to 64 new
+    tokens); requests per second, tokens per second, us per step, the
+    kernel's launches; each request's tokens equal that request decoded
+    alone, but at near ties of its logits.
+
 The line before the last is a JSON object with each kernel's launches on
 the main paths, the shape its numbers were taken at (``shape``; the other
 shapes' are in the phases' own lines), its largest difference from the
@@ -133,7 +162,8 @@ least time the card could take (``bound_ms``: the larger of bytes over
 sheet); the last line is ``{"ok": true, "device": {...}}``.  Any failed
 check raises, so the script exits non-zero and prints no result; without
 a CUDA card it fails at phase 1.  ``--profile`` adds a ``torch.profiler``
-table of one training step per shape.
+table of one training step per shape, and the card's busy time per token
+of the B=1 decode (phase 21).
 """
 import copy
 import json
@@ -194,6 +224,13 @@ from padertorch_tpu_torch.ops.kernels.wavenet import (
 from padertorch_tpu_torch.train.hooks import Hook, ValidationHook
 from padertorch_tpu_torch.train.optimizer import Adam
 from padertorch_tpu_torch.train.trainer import Trainer
+from padertorch_tpu_torch.contrib.mk.modules.transformer import (
+    TransformerDecoder, autoregressive_generate)
+from padertorch_tpu_torch.ops.kernels import int8_matmul as int8_kernels
+from padertorch_tpu_torch.ops.kernels.int8_matmul import (
+    int8_matmul, int8_matmul_plain)
+from padertorch_tpu_torch.quantize import QuantizedLinear, quantize_module
+from padertorch_tpu_torch.serve import ContinuousBatcher
 
 # f32 sums in another order over 500 recurrent steps; about 20x the
 # difference the card shows, and far below what a TF32 recurrent product
@@ -254,6 +291,23 @@ WAVENET_STEP_RTOL = (1e-5, 1e-4)
 SPEAKER_STEP_RTOL = (1e-5, 1e-4)
 # speaker classifier logits, card vs CPU
 SPEAKER_TOL = 1e-4
+# int8_matmul vs its plain version: float32 sums of K products in another
+# order, relative to the output's largest value; in bf16 both round one
+# float32 sum, so one bf16 unit in the last place plus that float32 limit
+# (the composed route, which rounds every scaled weight to bf16 first,
+# must fail it)
+INT8_TOL = 1e-5
+INT8_BF16_ULPS = 1.0
+# the B=1 decode of phase 21: teacher-forced decode_step logits against
+# TransformerDecoder.forward (float32, relative to the largest logit), and
+# the int8 kernel route against the composed route on bf16 forward logits
+# (|diff| / (1 + |composed|), bench.py's limit: the two round differently)
+DECODE_RTOL = 1e-4
+INT8_ROUTES_RTOL = 0.05
+# phase 22: batched against single decoding of a request, bf16 logits
+# relative to the largest logit (attention sums over caches of another
+# length); tokens may differ only where the two best logits are closer
+SERVE_LOGIT_RTOL = 0.02
 
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM, HBM3
 PEAK_F32_FLOPS = 67e12       # H100 SXM, float32 outside the tensor cores
@@ -276,6 +330,33 @@ def cuda_ms(fn, iters, warmup=1):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def cuda_ms_median(fn, iters, windows=5, warmup=3):
+    """Median of ``windows`` runs of :func:`cuda_ms` after a warm-up, and
+    the window means themselves."""
+    for _ in range(warmup):
+        fn()
+    means = sorted(cuda_ms(fn, iters, warmup=0) for _ in range(windows))
+    return means[len(means) // 2], means
+
+
+def graph_ms(fn, iters=50):
+    """Mean milliseconds of ``fn`` on the card with no host work between
+    calls: ``iters`` calls captured in one CUDA graph, replayed and timed
+    by CUDA events.  For calls whose eager time is the host's."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    ms = cuda_ms(graph.replay, iters=5, warmup=1) / iters
+    del graph
+    return ms
 
 
 def max_err(a, b):
@@ -529,6 +610,7 @@ def reset_launches():
     masked_istft.launches = 0
     wavenet_sample.launches = 0
     fused_logmel.launches = 0
+    int8_matmul.launches = 0
 
 
 def phase_slice():
@@ -1234,8 +1316,21 @@ def attention_case(label, b, h, h_kv, tq, tk, d, masks, timed):
                 lambda: flash_attention_plain(q, k, v, **masks), iters=5),
         }
     times['fwd_train'] = cuda_ms(lambda: graph(flash_attention), iters=10)
-    times['bwd'] = cuda_ms(lambda: torch.autograd.grad(
-        out, leaves, d_o, retain_graph=True), iters=10)
+    # the backward of small shapes read 0.31 to 0.94 ms in single windows
+    # of 10 after the large allocations of the earlier phases: the median
+    # of 5 windows after a warm-up, with the allocator's cache emptied
+    torch.cuda.empty_cache()
+    times['bwd'], bwd_windows = cuda_ms_median(
+        lambda: torch.autograd.grad(out, leaves, d_o, retain_graph=True),
+        iters=10)
+    # the two backward kernels alone, on the card's clock: whether the
+    # spread of the eager windows is the kernels' or the host's
+    bwd_args = (q, k, v, lens, d_o, got_train[1], (d_o * want).sum(-1),
+                masks.get('causal', False),
+                *attention_kernels._norm_window(masks.get('window')),
+                1.0 / np.sqrt(d))
+    bwd_kernels = graph_ms(lambda: attention_kernels._launch_bwd(*bwd_args),
+                           iters=10)
     times['bwd_plain'] = cuda_ms(lambda: torch.autograd.grad(
         out_plain, leaves_plain, d_o, retain_graph=True), iters=5)
     del out_plain, leaves_plain
@@ -1254,7 +1349,10 @@ def attention_case(label, b, h, h_kv, tq, tk, d, masks, timed):
         print(f'phase 12 attention {name} {label}: kernel '
               f'{times[name]:.3f} ms'
               + (f' (keeping lse: {times["fwd_train"]:.3f} ms)'
-                 if name == 'fwd' else ' (delta included)')
+                 if name == 'fwd' else ' (delta included; median of the '
+                 'windows ' + ', '.join(f'{w:.3f}' for w in bwd_windows)
+                 + f'; the two kernels alone {bwd_kernels:.3f} ms from a '
+                 'CUDA graph)')
               + f', plain {times[name + "_plain"]:.3f} ms, '
               f'scaled_dot_product_attention '
               f'{times[name + "_library"]:.3f} ms, bound '
@@ -2220,6 +2318,429 @@ def phase_speaker_clf():
             + full_step[name] for name in launches}
 
 
+# the decoder of bench.py's int8 decode benchmark (its bench_int8_decode)
+DECODER = dict(d_model=1024, num_layers=12, num_heads=16)
+VOCAB, MEMORY_FRAMES, NEW_TOKENS = 1024, 128, 128
+INT8_WEIGHTS = [(1024, 1024), (1024, 4096), (4096, 1024)]
+INT8_ROWS = (1, 8, 32, 128)
+INT8_ROW_SHAPE = (1, 1024, 4096, torch.bfloat16)   # the kernels line's row
+
+
+def int8_inputs(m, k, n, dtype, seed=0):
+    """Activations, int8 weights and scales of a Linear(k, n) (outputs of
+    about 1), and a bias."""
+    rng = np.random.RandomState(seed)
+    x = torch.tensor(rng.randn(m, k), dtype=dtype, device='cuda')
+    w_q = torch.tensor(rng.randint(-127, 128, (k, n)), dtype=torch.int8,
+                       device='cuda')
+    scale = torch.tensor((rng.rand(n) * 0.5 + 0.75) / (127 * np.sqrt(k)),
+                         dtype=torch.float32, device='cuda')
+    bias = torch.tensor(rng.randn(n), dtype=torch.float32, device='cuda')
+    return x, w_q, scale, bias
+
+
+def bf16_ulps(got, want):
+    """Largest |got - want| in units of one bf16 unit in the last place of
+    want plus the float32 limit of the sums' order (INT8_TOL of the largest
+    output: an output near zero is a float32 sum with cancellation)."""
+    mag = want.float().abs()
+    ulp = torch.exp2(torch.floor(torch.log2(mag.clamp(min=1e-30))) - 7)
+    limit = ulp + INT8_TOL * float(mag.max())
+    return float(((got.float() - want.float()).abs() / limit).max())
+
+
+def composed_route(x, w_q, scale, bias):
+    """QuantizedLinear's composed route: the weight scaled in x's type."""
+    y = x @ (w_q.to(x.dtype) * scale.to(x.dtype))
+    return y if bias is None else y + bias.to(x.dtype)
+
+
+def int8_case(m, k, n, dtype):
+    """Kernel against plain (with and without bias) at one shape; the
+    composed route as the control.  Returns the row of numbers."""
+    x, w_q, scale, bias = int8_inputs(m, k, n, dtype)
+    err = {}
+    for b in (bias, None):
+        got = int8_matmul(x, w_q, scale, b)
+        want = int8_matmul_plain(x, w_q, scale, b)
+        control = composed_route(x, w_q, scale, b)
+        torch.cuda.synchronize()
+        key = 'bias' if b is not None else 'no bias'
+        if dtype == torch.float32:
+            err[key] = (max_rel_err([got], [want]),
+                        float((got - want).abs().max()))
+        else:
+            err[key] = (bf16_ulps(got, want),
+                        float((got.float() - want.float()).abs().max()))
+            err[key + ', composed route'] = (bf16_ulps(control, want), None)
+    limit = INT8_TOL if dtype == torch.float32 else INT8_BF16_ULPS
+    for key, (e, _) in err.items():
+        if 'composed' in key:
+            if not e > limit:
+                fail(f'int8_matmul at ({m}, {k}, {n}) bf16: the composed '
+                     f'route passes the limit ({e} ulps): the limit does not '
+                     f'tell the two rounding routes apart')
+        elif not e <= limit:
+            fail(f'int8_matmul kernel disagrees with plain at ({m}, {k}, {n}) '
+                 f'{dtype}, {key}: {e}')
+    w_deq = w_q.to(dtype) * scale.to(dtype)
+    bias_x = bias.to(dtype)
+    routes = {
+        '': lambda: int8_matmul(x, w_q, scale, bias),
+        'plain_': lambda: int8_matmul_plain(x, w_q, scale, bias),
+        'composed_': lambda: composed_route(x, w_q, scale, bias),
+        'library_': lambda: torch.addmm(bias_x, x, w_deq),
+    }
+    # a call's device time from CUDA-graph replays (the kernels line), and
+    # its eager time, which at these sizes is the host's
+    times = {}
+    for key, fn in routes.items():
+        times[key + 'ms'] = graph_ms(fn)
+        times[key + 'eager_ms'] = cuda_ms(fn, iters=50, warmup=2)
+    out_bytes = m * n * x.element_size()
+    limits = bound(nbytes(x, w_q, scale, bias) + out_bytes, 2.0 * m * k * n)
+    return {'err': err, 'max_abs_err': err['bias'][1], **times, **limits}
+
+
+def int8_dispatch_rows():
+    """The kernel route against the composed route of QuantizedLinear
+    (bf16) by rows of x: where the kernel stops winning sets
+    INT8_KERNEL_MAX_ROWS."""
+    wins = {}
+    for k, n in INT8_WEIGHTS:
+        torch.manual_seed(0)
+        layer = QuantizedLinear.from_linear(
+            torch.nn.Linear(k, n).to('cuda', torch.bfloat16))
+        cells = []
+        for m in (1, 2, 4, 8, 16, 32, 64, 128, 256):
+            x = torch.randn((m, k), device='cuda', dtype=torch.bfloat16)
+            ms = {}
+            for route in (True, False):
+                layer.use_kernel = route
+                with torch.no_grad():
+                    ms[route] = graph_ms(lambda: layer(x))
+            wins.setdefault(m, []).append(ms[True] <= ms[False])
+            cells.append(f'{m}: {ms[True]:.4f} / {ms[False]:.4f}')
+        print(f'phase 20 dispatch ({k}, {n}) bf16, device ms (CUDA graph) '
+              f'kernel / composed by rows: ' + ', '.join(cells))
+    measured = 0
+    for m in sorted(wins):
+        if not all(wins[m]):
+            break
+        measured = m
+    print(f'phase 20 dispatch: the kernel wins at every shape up to '
+          f'{measured} rows; INT8_KERNEL_MAX_ROWS is '
+          f'{int8_kernels.INT8_KERNEL_MAX_ROWS}')
+
+
+def phase_int8_kernel():
+    """Phase 20: int8_matmul against its plain version at the decoder's
+    shapes, timed beside plain, the composed route, cuBLAS on the
+    dequantized weight and the bound; the TF32 control; the dispatch rows.
+    Returns the kernel's row at INT8_ROW_SHAPE."""
+    row = None
+    for dtype in (torch.float32, torch.bfloat16):
+        for k, n in INT8_WEIGHTS + [(1000, 1030)]:
+            for m in INT8_ROWS if (k, n) != (1000, 1030) else (1, 8):
+                r = int8_case(m, k, n, dtype)
+                name = 'f32' if dtype == torch.float32 else 'bf16'
+                print(f'phase 20 int8_matmul M={m} K={k} N={n} {name}: '
+                      + ', '.join(f'{key} {e:.3g}' for key, (e, _) in
+                                  r['err'].items())
+                      + (' (relative, tol 1e-5)' if name == 'f32' else
+                         ' (ulps, tol 1)')
+                      + f'; device ms (CUDA graph; eager in brackets) '
+                      f'kernel {r["ms"]:.4f} ({r["eager_ms"]:.4f}), plain '
+                      f'{r["plain_ms"]:.4f} ({r["plain_eager_ms"]:.4f}), '
+                      f'composed {r["composed_ms"]:.4f} '
+                      f'({r["composed_eager_ms"]:.4f}), addmm on the '
+                      f'dequantized {name} weight {r["library_ms"]:.4f} '
+                      f'({r["library_eager_ms"]:.4f}), bound '
+                      f'{r["bound_ms"]:.5f} ms by {r["bound_by"]}')
+                if (m, k, n, dtype) == INT8_ROW_SHAPE:
+                    row = {key: r[key] for key in (
+                        'max_abs_err', 'ms', 'plain_ms', 'bound_ms',
+                        'bound_by', 'library_ms')}
+                torch.cuda.empty_cache()
+    x, w_q, scale, bias = int8_inputs(32, 1024, 1024, torch.float32)
+    want = int8_matmul_plain(x, w_q, scale, bias)
+    tf32 = max_rel_err([with_tf32(lambda: int8_matmul_plain(
+        x, w_q, scale, bias))], [want])
+    print(f'phase 20 control, plain with TF32 products at M=32 K=N=1024: '
+          f'{tf32:.3e} relative')
+    if not tf32 > INT8_TOL:
+        fail('the TF32 control passes the int8_matmul limit')
+    for bad, what in (
+            (lambda: int8_matmul(x.half(), w_q, scale), 'a float16 x'),
+            (lambda: int8_matmul(x.clone().requires_grad_(), w_q, scale),
+             'an x that requires a gradient'),
+            (lambda: int8_matmul(x, w_q.cpu(), scale), 'a weight on the CPU'),
+            (lambda: int8_matmul(x[:, :1000], w_q, scale), 'a K mismatch')):
+        try:
+            bad()
+        except (TypeError, ValueError):
+            continue
+        fail(f'int8_matmul took {what}')
+    int8_dispatch_rows()
+    return row
+
+
+def full_width_decoder():
+    """bench.py's int8 decode model from seed 0: the decoder, its head,
+    and (numpy seed 0) the embedding table x 0.05 and 128 frames of
+    memory, all float32 on the card."""
+    torch.manual_seed(0)
+    dec = TransformerDecoder(**DECODER).eval()
+    head = torch.nn.Linear(DECODER['d_model'], VOCAB).eval()
+    n_params = sum(p.numel() for p in (*dec.parameters(), *head.parameters()))
+    rng = np.random.RandomState(0)
+    emb = torch.tensor(rng.randn(VOCAB, DECODER['d_model']) * 0.05,
+                       dtype=torch.float32)
+    memory = torch.tensor(
+        rng.randn(1, MEMORY_FRAMES, DECODER['d_model']), dtype=torch.float32)
+    return dec.cuda(), head.cuda(), emb.cuda(), memory.cuda(), n_params
+
+
+def set_int8_route(modules, use_kernel):
+    for module in modules:
+        for m in module.modules():
+            if isinstance(m, QuantizedLinear):
+                m.use_kernel = use_kernel
+
+
+def generate(dec, head, emb, memory, max_len=NEW_TOKENS, **kwargs):
+    return autoregressive_generate(
+        dec, memory, embed=lambda t: emb[t], logits_head=head, bos_id=0,
+        max_len=max_len, **kwargs)
+
+
+def us_per_token(dec, head, emb, memory):
+    """Best of 3 generations of NEW_TOKENS after a warm-up, host clock
+    ended by a synchronize; and the last generation's tokens."""
+    generate(dec, head, emb, memory)
+    torch.cuda.synchronize()
+    best = float('inf')
+    for _ in range(3):
+        start = time.perf_counter()
+        tokens, _ = generate(dec, head, emb, memory)
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - start)
+    return best / NEW_TOKENS * 1e6, tokens
+
+
+def profile_decode(settings, n_tokens=32):
+    """``--profile``: the card's busy time per token of the B=1 decode
+    (torch.profiler, the device's kernel events) against the host clock of
+    the same generation under the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for name, (d, h, e, mem) in settings.items():
+        generate(d, h, e, mem, max_len=n_tokens)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            start = time.perf_counter()
+            generate(d, h, e, mem, max_len=n_tokens)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - start) * 1e3
+        kernels = [ev for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA]
+        busy = sum(ev.self_device_time_total for ev in kernels) / 1e3
+        int8 = sum(ev.self_device_time_total for ev in kernels
+                   if 'int8_matmul' in ev.key) / 1e3
+        launches = sum(ev.count for ev in kernels)
+        print(f'phase 21 profile {name}, {n_tokens} tokens: '
+              f'{wall_ms / n_tokens:.1f} ms per token under the profiler, '
+              f'card busy {busy / n_tokens * 1e3:.1f} us per token '
+              f'({busy / wall_ms:.1%}), {launches / n_tokens:.0f} kernels '
+              f'per token, int8_matmul {int8 / n_tokens * 1e3:.1f} us')
+        print(prof.key_averages().table(sort_by='self_device_time_total',
+                                        row_limit=8))
+
+
+def phase_decode(profile=False):
+    """Phase 21: bench.py's int8 decode at full width, B=1, 128 greedy
+    tokens, in four settings; decode against forward in float32; the int8
+    kernel route against the composed route on bf16 forward logits; the
+    kernel's launches in one generation; with ``profile`` the card's busy
+    time per token.  Returns (launches, modules)."""
+    dec, head, emb, memory, n_params = full_width_decoder()
+    d_model = DECODER['d_model']
+    # float32: teacher-forced decode_step logits against one forward (its
+    # causal self-attention on the flash_attention kernel)
+    with torch.no_grad():
+        tokens, _ = generate(dec, head, emb, memory)
+        inputs = torch.cat([torch.zeros_like(tokens[:, :1]),
+                            tokens[:, :-1]], 1).long()
+        x = emb[inputs]
+        before = flash_attention.launches['fwd']
+        want = head(dec(x, memory))
+        fwd_launches = flash_attention.launches['fwd'] - before
+        cache = dec.init_cache(memory, NEW_TOKENS)
+        got = torch.cat([head(dec.decode_step(x[:, t:t + 1], cache, t)[0])
+                         for t in range(NEW_TOKENS)], 1)
+    err = max_rel_err([got], [want])
+    print(f'phase 21 full-width decoder ({n_params} parameters, d_model '
+          f'{d_model}, 12 layers, 16 heads, vocabulary {VOCAB}, memory '
+          f'{MEMORY_FRAMES} frames), float32: teacher-forced decode_step '
+          f'logits vs forward over {NEW_TOKENS} positions {err:.3e} relative '
+          f'(tol {DECODE_RTOL}); the forward launched flash_attention '
+          f'{fwd_launches} times')
+    if not err <= DECODE_RTOL:
+        fail(f'decode_step disagrees with the forward: {err}')
+    if fwd_launches < DECODER['num_layers']:
+        fail(f'the float32 forward launched flash_attention {fwd_launches} '
+             f'times, less than once per layer')
+    del got, want, cache
+    settings = {'f32 plain': (dec, head, emb, memory)}
+    dec16 = copy.deepcopy(dec).to(torch.bfloat16)
+    head16 = copy.deepcopy(head).to(torch.bfloat16)
+    emb16, memory16 = emb.to(torch.bfloat16), memory.to(torch.bfloat16)
+    settings['bf16 plain'] = (dec16, head16, emb16, memory16)
+    q_dec = copy.deepcopy(dec16)
+    quantize_module(q_dec)
+    q_head = QuantizedLinear.from_linear(head16)
+    settings['bf16 int8 composed'] = settings['bf16 int8 kernel'] = (
+        q_dec, q_head, emb16, memory16)
+    # the kernel route against the composed route on forward logits
+    xs = torch.tensor(np.random.RandomState(0).randn(1, 4, d_model) * 0.05,
+                      dtype=torch.bfloat16, device='cuda')
+    logits = {}
+    with torch.no_grad():
+        for route in (True, False):
+            set_int8_route((q_dec, q_head), route)
+            logits[route] = q_head(q_dec(xs, memory16)).float()
+    parity = float(((logits[True] - logits[False]).abs()
+                    / (1 + logits[False].abs())).max())
+    print(f'phase 21 int8 kernel vs composed route, bf16 forward logits: '
+          f'{parity:.3e} (tol {INT8_ROUTES_RTOL})')
+    if not parity < INT8_ROUTES_RTOL:
+        fail(f'the int8 kernel route disagrees with the composed route: '
+             f'{parity}')
+    # the main path: one generation on the kernel, its launches counted
+    set_int8_route((q_dec, q_head), True)
+    reset_launches()
+    with torch.no_grad():
+        kernel_tokens, _ = generate(q_dec, q_head, emb16, memory16)
+        torch.cuda.synchronize()
+    launches = int8_matmul.launches
+    want_launches = (2 * DECODER['num_layers']
+                     + NEW_TOKENS * (8 * DECODER['num_layers'] + 1))
+    print(f'phase 21 int8 kernel decode: {launches} int8_matmul launches '
+          f'(expected {want_launches}: 24 cross K/V projections of 128 rows, '
+          f'then 97 per token)')
+    if launches != want_launches:
+        fail(f'the kernel decode launched int8_matmul {launches} times')
+    results, tokens = {}, {}
+    for name, (d, h, e, mem) in settings.items():
+        if name.startswith('bf16 int8'):
+            set_int8_route((d, h), name.endswith('kernel'))
+        results[name], tokens[name] = us_per_token(d, h, e, mem)
+        if not bool(torch.isfinite(tokens[name].float()).all()):
+            fail(f'{name}: generation is not finite')
+        torch.cuda.empty_cache()
+    if not torch.equal(tokens['bf16 int8 kernel'], kernel_tokens):
+        fail('two kernel generations of the same request differ')
+    same = float((tokens['bf16 int8 kernel']
+                  == tokens['bf16 int8 composed']).float().mean())
+    print('phase 21 B=1 greedy decode of 128 tokens, us per token (best of '
+          '3, host clock): ' + ', '.join(
+              f'{name} {us:.1f}' for name, us in results.items())
+          + f'; kernel and composed routes pick the same token at '
+          f'{same:.0%} of the positions (not a parity target)')
+    set_int8_route((q_dec, q_head), True)
+    if profile:
+        profile_decode({name: settings[name]
+                        for name in ('bf16 plain', 'bf16 int8 kernel')})
+    del settings, dec, dec16, head16, tokens
+    torch.cuda.empty_cache()
+    return launches, (q_dec, q_head, emb16)
+
+
+def phase_serving(models):
+    """Phase 22: ContinuousBatcher at full width, bf16, int8 kernel, 8
+    slots; 16 requests (memory of 32 to 128 frames, 16 to 64 new tokens)
+    against each decoded alone.  Returns the kernel's launches."""
+    q_dec, q_head, emb16 = models
+    d_model = DECODER['d_model']
+    rng = np.random.RandomState(1)
+    requests = [(torch.tensor(rng.randn(int(s), d_model),
+                              dtype=torch.bfloat16, device='cuda'), int(c))
+                for s, c in zip(rng.randint(32, 129, 16),
+                                rng.randint(16, 65, 16))]
+    seen = {}
+    batcher = None
+
+    def recording_head(x):
+        out = q_head(x)
+        for slot, rid in enumerate(batcher._request):
+            if rid is not None:
+                seen.setdefault(rid, []).append(out[slot].float().cpu())
+        return out
+
+    def serve(head):
+        nonlocal batcher
+        batcher = ContinuousBatcher(
+            q_dec, embed=lambda t: emb16[t], logits_head=head, num_slots=8,
+            max_len=64, max_memory_len=MEMORY_FRAMES, d_memory=d_model,
+            bos_id=0, eos_id=1, dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        ids = [batcher.submit(mem, max_new_tokens=cap)
+               for mem, cap in requests]
+        steps = 0
+        while batcher.pending or batcher.active.any():
+            batcher.step()
+            steps += 1
+        torch.cuda.synchronize()
+        return ids, dict(batcher.finished), steps, time.perf_counter() - start
+
+    reset_launches()
+    ids, outputs, steps, _ = serve(recording_head)
+    launches = int8_matmul.launches
+    _, _, steps2, seconds = serve(q_head)
+    n_tokens = sum(len(outputs[rid]) for rid in ids)
+    print(f'phase 22 served 16 requests in {steps2} steps of 8 slots: '
+          f'{seconds:.3f} s, {16 / seconds:.2f} requests/s, '
+          f'{n_tokens / seconds:.1f} tokens/s, '
+          f'{seconds / steps2 * 1e6:.1f} us per step; int8_matmul launches '
+          f'{launches} in the recorded run ({steps} steps)')
+    if launches == 0:
+        fail('the batcher never launched int8_matmul')
+    worst, ties = 0.0, 0
+    for rid, (mem, cap) in zip(ids, requests):
+        alone = []
+
+        def head_alone(x, alone=alone):
+            out = q_head(x)
+            alone.append(out[0].float().cpu())
+            return out
+
+        with torch.no_grad():
+            tokens, lengths = generate(q_dec, head_alone, emb16, mem[None],
+                                       max_len=cap, eos_id=1)
+        want = tokens[0, :int(lengths[0])].tolist()
+        got = outputs[rid]
+        n = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                 min(len(got), len(want)))
+        scale = max(float(a.abs().max()) for a in alone)
+        for a, b in zip(seen[rid][:n + 1], alone[:n + 1]):
+            worst = max(worst, float((a - b).abs().max()) / scale)
+        if got == want:
+            continue
+        if n >= len(alone) or not bool(near_ties(
+                alone[n], 2 * SERVE_LOGIT_RTOL * scale)):
+            fail(f'request {rid}: the batcher gives {got}, alone {want}, '
+                 f'not at a near tie')
+        ties += 1
+    print(f'phase 22 each request against itself decoded alone: logits '
+          f'{worst:.3e} relative (tol {SERVE_LOGIT_RTOL}), tokens equal but '
+          f'at {ties} near ties')
+    if not worst <= SERVE_LOGIT_RTOL:
+        fail(f'batched logits disagree with single decoding: {worst}')
+    return launches
+
+
 def main():
     profile = '--profile' in sys.argv[1:]
     phase_device()
@@ -2248,6 +2769,13 @@ def main():
     phase_wavenet_training()
     torch.cuda.empty_cache()
     speaker = phase_speaker_clf()
+    torch.cuda.empty_cache()
+    int8_row = phase_int8_kernel()
+    torch.cuda.empty_cache()
+    int8_launches, decoder_models = phase_decode(profile=profile)
+    serve_launches = phase_serving(decoder_models)
+    del decoder_models
+    torch.cuda.empty_cache()
     if wavenet_launches == 0:
         fail('the vocoder\'s requests never launched the wavenet_sample '
              'kernel')
@@ -2288,7 +2816,8 @@ def main():
           f'{attention_launches} (SepFormer serving {sepformer_served} '
           f'lean forward, training {sepformer_trained}); wavenet_sample '
           f'{wavenet_launches} (the vocoder\'s requests); speaker '
-          f'classifier {speaker}')
+          f'classifier {speaker}; int8_matmul {int8_launches} (one B=1 '
+          f'decode of 128 tokens), {serve_launches} (16 batched requests)')
     # every row's numbers are those of its ``shape``: the GRU rows those of
     # the intra-chunk shape, which six of a TasNet's twelve chunk RNNs run
     # (phase 8 prints the rows of the other shapes, the classifier's two
@@ -2350,6 +2879,11 @@ def main():
          'source': 'padertorch_tpu_torch/csrc/fused_logmel.cu',
          'replaces': 'padertorch_tpu/ops/pallas/logmel.py:78',
          'launches': speaker['fused_logmel'], **logmel},
+        {'name': 'int8_matmul', 'route': 'cuda',
+         'source': 'padertorch_tpu_torch/csrc/int8_matmul.cu',
+         'replaces': 'padertorch_tpu/ops/pallas/int8_matmul.py:85',
+         'launches': int8_launches, 'shape': 'M=1 K=1024 N=4096 bf16',
+         **int8_row},
     ]
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

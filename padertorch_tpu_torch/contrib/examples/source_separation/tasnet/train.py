@@ -9,7 +9,8 @@ fused kernels).  It runs
 ``test_run``, registers the validation hook on ``si-sdr``, trains, and
 leaves a storage dir (``config.json``, ``checkpoints/``, an event file)
 that the ``evaluate.py`` of this package and of the JAX package both load.
-The ``convnet`` variant is not ported yet (ROADMAP.md Queue 1) and raises.
+The ``convnet`` variant is not ported yet (``padertorch_tpu/modules/
+convnet.py``, ROADMAP.md) and raises.
 
 The chunk RNN type is part of the config, as in the JAX recipe: pass
 ``updates={'model': {'separator': {'inter_chunk_type': 'bgru',
@@ -71,7 +72,7 @@ VARIANTS = {
 }
 # variants of the JAX recipe whose separators are not ported yet
 NOT_PORTED = {
-    'convnet': 'modules/convnet.py and modules/normalization.py',
+    'convnet': 'padertorch_tpu/modules/convnet.py (the TCN separator)',
 }
 
 
@@ -79,8 +80,8 @@ def get_trainer_config(storage_dir, variant='dprnn', loss='si-sdr',
                        updates=None):
     if variant in NOT_PORTED:
         raise NotImplementedError(
-            f'--variant {variant} needs {NOT_PORTED[variant]}, which are '
-            'not ported yet (ROADMAP.md Queue 1)')
+            f'--variant {variant} needs {NOT_PORTED[variant]}, which is '
+            'not ported yet (ROADMAP.md)')
     model_updates = nested_merge(
         {'factory': TasNet}, VARIANTS.get(variant, {}))
     loss_weights = {'si-sdr': 0.0, 'log-mse': 0.0, 'log1p-mse': 0.0}

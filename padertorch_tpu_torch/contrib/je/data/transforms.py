@@ -6,7 +6,7 @@ Counterpart of ``padertorch_tpu/contrib/je/data/transforms.py`` (reference
 as they are (numpy only).  They run in the prefetch threads, not on the
 device.  ``AudioReader``, ``TimeWarpedSTFT``, the host ``MelTransform``,
 the other encoders and the collating transforms are not ported yet
-(ROADMAP.md Queue 1).
+(ROADMAP.md).
 """
 import json
 from pathlib import Path

@@ -14,6 +14,12 @@ port):
   (a loaded ``torch.nn.GRU`` state) has no JAX counterpart and is refused;
 - ``Linear``: ``weight`` (in, out) -> (out, in), transposed; ``bias``
   copied;
+- ``QuantizedLinear``: ``weight_q`` (in, out) int8, ``scale`` and ``bias``
+  copied; a ``weight_q``/``scale`` that the JAX ``from_linear`` padded to
+  128-lane tiles is cut to ``in_features`` x ``out_features`` (taken from
+  the port's module), and written back padded by the same rule (a padded
+  layout where it costs at most 1.25 times the logical one), so that a
+  round trip is exact;
 - ``ConvTranspose1d``: ``weight`` (out, in, k) -> (in, out, k), axes 0 and
   1 swapped (the JAX layer flips the taps in its forward, so the values
   are torch's); ``bias`` copied;
@@ -27,7 +33,8 @@ port):
   ``gamma``/``beta``), the ``fbanks`` of ``MelTransform`` and
   ``FusedAudioLogMelExtractor``, a ``DeltaExtractor``'s ``coeffs``;
 - lists of modules (``layers``, ``dpt_blocks``, a ``WaveNet``'s
-  ``dilate_layers``/``res_layers``/``skip_layers``) are ``nn.ModuleList``s
+  ``dilate_layers``/``res_layers``/``skip_layers``, a
+  ``TransformerDecoder``'s ``layers``) are ``nn.ModuleList``s
   in the port, whose keys (``layers.0. ...``) are the JAX pytree paths; the
   children of a ``Sequential`` sit in its ``layers`` list in the JAX
   package (``cnn.0.weight`` here is ``cnn.layers.0.weight`` there).
@@ -49,12 +56,37 @@ from padertorch_tpu_torch.contrib.mk.modules.transformer import (
 from padertorch_tpu_torch.modules.normalization import Normalization
 from padertorch_tpu_torch.modules.recurrent import GRU, _RNNBase
 from padertorch_tpu_torch.nn import RMSNorm
+from padertorch_tpu_torch.quantize import QuantizedLinear
 
 __all__ = ['from_jax_state_dict', 'to_jax_state_dict']
 
 
 def _swap01(a):
     return np.swapaxes(a, 0, 1)
+
+
+def _jax_int8_padding(k, n):
+    """The JAX ``QuantizedLinear.from_linear`` layout of a (k, n) weight:
+    padded to 128-lane tiles where that costs at most 1.25 times the
+    logical size, else logical."""
+    k_pad, n_pad = -(-k // 128) * 128, -(-n // 128) * 128
+    if k_pad * n_pad <= 1.25 * k * n:
+        return k_pad, n_pad
+    return k, n
+
+
+def _quantized_pairs(mod, dot):
+    k, n = mod.in_features, mod.out_features
+    k_pad, n_pad = _jax_int8_padding(k, n)
+    pairs = {
+        f'{dot}weight_q': [(mod.weight_q, lambda a: a[:k, :n],
+                            lambda a: np.pad(a, ((0, k_pad - k),
+                                                 (0, n_pad - n))))],
+        f'{dot}scale': [(mod.scale, lambda a: a[:n],
+                         lambda a: np.pad(a, (0, n_pad - n)))]}
+    if mod.bias is not None:
+        pairs[f'{dot}bias'] = [(mod.bias, np.asarray, np.asarray)]
+    return pairs
 
 
 # modules whose own parameters and buffers (not their children's) carry
@@ -79,8 +111,9 @@ def _jax_paths(model):
 
 
 def _jax_to_port(model):
-    """{jax name: (port parameter or buffer, converter)} for every
-    parameter, and every buffer the JAX ``state_dict()`` holds too."""
+    """{jax name: [(port parameter or buffer, converter, inverse)]} for
+    every parameter, and every buffer the JAX ``state_dict()`` holds too.
+    Most converters are their own inverse."""
     pairs = {}
     paths = _jax_paths(model)
     for name, mod in model.named_modules():
@@ -95,6 +128,8 @@ def _jax_to_port(model):
                     pairs[f'{dot}w_hh.{i}'] = [(p['weight_hh'], np.transpose)]
                     pairs[f'{dot}b.{i}'] = [(p['bias_ih'], np.asarray),
                                             (p['bias_hh'], np.zeros_like)]
+        elif isinstance(mod, QuantizedLinear):
+            pairs.update(_quantized_pairs(mod, dot))
         elif isinstance(mod, _COPIED_AS_THEY_ARE):
             for pname, p in [*mod.named_parameters(recurse=False),
                              *mod.named_buffers(recurse=False)]:
@@ -111,13 +146,14 @@ def _jax_to_port(model):
                 pairs[f'{dot}weight'] = [(mod.weight, convert)]
             if getattr(mod, 'bias', None) is not None:
                 pairs[f'{dot}bias'] = [(mod.bias, np.asarray)]
-    covered = {id(p) for targets in pairs.values() for p, _ in targets}
+    covered = {id(target[0]) for targets in pairs.values()
+               for target in targets}
     missed = [n for n, p in model.named_parameters() if id(p) not in covered]
     if missed:
         raise NotImplementedError(
             f'no JAX layout known for the parameters {missed}: only LSTM, '
-            'GRU, Linear, Embedding, Conv1d, Conv2d, ConvTranspose1d, '
-            'LayerNorm, RMSNorm, PReLU, DynamicTanh, RoPE, '
+            'GRU, Linear, QuantizedLinear, Embedding, Conv1d, Conv2d, '
+            'ConvTranspose1d, LayerNorm, RMSNorm, PReLU, DynamicTanh, RoPE, '
             'MultiheadAttention, Normalization, AutoPool and the feature '
             'extractors move between the packages yet')
     return pairs
@@ -138,13 +174,13 @@ def from_jax_state_dict(model, sd):
                        f'{unexpected}, parameters without a value {missing}')
     with torch.no_grad():
         for name, targets in pairs.items():
-            for param, convert in targets:
-                value = np.asarray(convert(np.asarray(sd[name])))
+            for param, convert, *_ in targets:
+                value = np.ascontiguousarray(convert(np.asarray(sd[name])))
                 if tuple(value.shape) != tuple(param.shape):
                     raise ValueError(
                         f'{name}: {tuple(value.shape)} does not fit '
                         f'{tuple(param.shape)}')
-                param.copy_(torch.tensor(value, dtype=torch.float32))
+                param.copy_(torch.tensor(value))
     return model
 
 
@@ -167,7 +203,7 @@ def to_jax_state_dict(model):
                     'bias')
     sd = {}
     for name, targets in _jax_to_port(model).items():
-        params = [param.detach().cpu().numpy() for param, _ in targets]
-        convert = targets[0][1]  # every converter is its own inverse
-        sd[name] = np.ascontiguousarray(convert(sum(params[1:], params[0])))
+        params = [target[0].detach().cpu().numpy() for target in targets]
+        invert = targets[0][-1]
+        sd[name] = np.ascontiguousarray(invert(sum(params[1:], params[0])))
     return sd

@@ -17,7 +17,8 @@ length.
 The separator is a :class:`~padertorch_tpu_torch.modules.dual_path_rnn
 .DPRNN` or a :class:`~padertorch_tpu_torch.modules.dual_path_transformer
 .DualPathTransformer` (sepformer); the JAX package's ``ConvNet``
-(Conv-TasNet) separator is not ported yet (ROADMAP.md Queue 1).
+(Conv-TasNet) separator is not ported yet (``padertorch_tpu/modules/
+convnet.py``, ROADMAP.md).
 """
 import itertools
 from typing import Optional
@@ -219,7 +220,8 @@ class TasNet(Model):
             raise NotImplementedError(
                 f'separator {type(separator).__name__}: only the DPRNN and '
                 'DualPathTransformer separators are ported; ConvNet '
-                '(Conv-TasNet) waits in ROADMAP.md Queue 1')
+                '(Conv-TasNet, padertorch_tpu/modules/convnet.py) is not '
+                'ported yet (ROADMAP.md)')
         self.encoder = encoder
         self.separator = separator
         self.decoder = decoder

@@ -16,7 +16,34 @@ from torch.nn import (  # noqa: F401
 __all__ = ['Linear', 'Embedding', 'Sequential', 'Conv1d', 'Conv2d',
            'ConvTranspose1d', 'LayerNorm', 'RMSNorm', 'Dropout', 'ReLU',
            'LeakyReLU', 'ELU', 'GELU', 'Sigmoid', 'Tanh', 'Softmax', 'PReLU',
-           'GLU', 'SiLU', 'Identity']
+           'GLU', 'SiLU', 'Identity', 'Float32Buffers']
+
+
+class Float32Buffers(Module):
+    """A module whose buffers named in ``float32_buffers`` stay float32
+    when the module is cast: ``module.to(torch.bfloat16)`` casts every
+    floating parameter and buffer, these only move between devices.  The
+    JAX package casts a model's trainable arrays and leaves its buffers
+    (RoPE frequencies, int8 scales) as they are.
+
+    >>> class Scaled(Float32Buffers):
+    ...     float32_buffers = ('scale',)
+    ...     def __init__(self):
+    ...         super().__init__()
+    ...         self.register_buffer('scale', torch.ones(2))
+    >>> Scaled().to(torch.bfloat16).scale.dtype
+    torch.float32
+    """
+
+    float32_buffers = ()
+
+    def _apply(self, fn, recurse=True):
+        kept = {name: self._buffers[name] for name in self.float32_buffers
+                if self._buffers.get(name) is not None}
+        super()._apply(fn, recurse)
+        for name, buf in kept.items():
+            self._buffers[name] = buf.to(self._buffers[name].device)
+        return self
 
 
 class RMSNorm(Module):

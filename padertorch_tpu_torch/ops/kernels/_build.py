@@ -44,6 +44,7 @@ _SIGNATURES = {
     'wavenet_sample_fwd': (_P,) * 13 + (_I,) * 10 + (_P,),
     'wavenet_sample_smem_bytes': (_I,) * 5,
     'fused_logmel_fwd': (_P,) * 4 + (_I,) * 8 + (_F, _I, _P),
+    'int8_matmul_fwd': (_P, _I, _P, _P, _P, _I, _P, _P) + (_I,) * 5 + (_P,),
 }
 
 

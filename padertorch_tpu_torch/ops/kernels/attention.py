@@ -15,7 +15,7 @@ log-sum-exp kept; when a gradient is asked for, through
 ``backward``, the dk/dv and dq kernels of ``csrc/flash_attention_bwd.cu``.
 ``delta = sum(dO * O, -1)`` is one elementwise product and sum outside the
 kernels, as in the JAX package.  float32 only: the bf16 operand path waits
-for ``train/precision.py`` (ROADMAP.md Queue 1).
+for ``padertorch_tpu/train/precision.py`` (ROADMAP.md).
 
 The kernels take head sizes 16, 32, 64 and 128; another head size up to
 128 is zero-padded to the next of these inside the wrapper (zeros change
@@ -59,12 +59,12 @@ FLASH_WINS = {
 
 
 def should_use_flash(tq, tk=None, *, causal=False, window=None,
-                     training=False, device='cuda'):
+                     training=False, device='cuda', dtype=torch.float32):
     """Dispatch heuristic of ``use_flash='auto'``: do the fused kernels beat
     the dense path at this shape, for the forward alone or (``training``)
-    forward plus backward?  Off a CUDA device always False (there is no
-    kernel, only the plain version)."""
-    if torch.device(device).type != 'cuda':
+    forward plus backward?  Off a CUDA device, and for another type than
+    float32 (the kernels take float32 only), always False."""
+    if torch.device(device).type != 'cuda' or dtype != torch.float32:
         return False
     t = max(tq, tk if tk is not None else tq)
     if window is not None and tuple(window) != (None, None):
@@ -159,8 +159,8 @@ def _check(q, k, v):
         if x.dtype != torch.float32:
             raise TypeError(
                 f'{name} is {x.dtype}: the attention kernels take float32 '
-                'only; the bf16 operand path waits for train/precision.py '
-                '(ROADMAP.md Queue 1)')
+                'only; the bf16 operand path waits for '
+                'padertorch_tpu/train/precision.py (ROADMAP.md)')
         if x.device != q.device:
             raise ValueError(f'{name} is on {x.device}, q on {q.device}')
     b, h, tq, d = q.shape

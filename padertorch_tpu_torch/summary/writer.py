@@ -238,9 +238,10 @@ class SummaryWriter:
 
     def _not_ported(self, name):
         raise NotImplementedError(
-            f'SummaryWriter.{name} is not ported yet (ROADMAP Queue 7); '
-            'the event writer has add_scalar, add_histogram, add_image and '
-            'add_audio')
+            f'SummaryWriter.{name} is not ported yet: it waits with '
+            'padertorch_tpu/summary/writer.py and summary/tbx_utils.py '
+            '(figures and text; ROADMAP.md); the event writer has '
+            'add_scalar, add_histogram, add_image and add_audio')
 
     def add_figure(self, *args, **kwargs):
         self._not_ported('add_figure')

@@ -29,6 +29,23 @@ torch.set_num_threads(2)
 
 TOL = 1e-5
 
+
+@pytest.fixture(autouse=True)
+def _pinned_cpu_arithmetic():
+    """Every test starts from the same CPU arithmetic, whatever the tests
+    that ran before it in this worker's process left: two intra-op threads,
+    float32 matmuls at full precision, no flushing of denormals.  (The
+    causal forward case once failed by 5.1e-5 in a whole run, after other
+    files on its worker, and passed alone.)"""
+    threads = torch.get_num_threads()
+    precision = torch.get_float32_matmul_precision()
+    torch.set_num_threads(2)
+    torch.set_float32_matmul_precision('highest')
+    torch.set_flush_denormal(False)
+    yield
+    torch.set_num_threads(threads)
+    torch.set_float32_matmul_precision(precision)
+
 # name: (B, H, Hkv, Tq, Tk, D, kwargs)
 CASES = {
     'full': (2, 2, 2, 40, 40, 16, {}),

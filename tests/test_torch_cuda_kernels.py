@@ -18,6 +18,8 @@ Marked
 
     python -m pytest tests/test_torch_cuda_kernels.py -q
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -871,3 +873,139 @@ def test_speaker_clf_on_the_card_matches_the_cpu_and_round_trips(cuda):
     for (name, a), (_, b) in zip(card.state_dict().items(),
                                  other.state_dict().items()):
         assert torch.equal(a, b), name
+
+
+INT8_SHAPES = [(m, k, n) for m in (1, 8, 32, 128)
+               for k, n in ((1024, 1024), (1024, 4096), (4096, 1024))]
+INT8_SHAPES += [(1, 1000, 1030), (5, 1000, 1030), (3, 96, 200), (2, 40, 7)]
+
+
+def _int8_inputs(cuda, m, k, n, dtype, seed=0):
+    rng = np.random.RandomState(seed)
+    x = torch.tensor(rng.randn(m, k), dtype=dtype, device=cuda)
+    w_q = torch.tensor(rng.randint(-127, 128, (k, n)), dtype=torch.int8,
+                       device=cuda)
+    scale = torch.tensor((rng.rand(n) + 0.5) / 127.0 / np.sqrt(k),
+                         dtype=torch.float32, device=cuda)
+    bias = torch.tensor(rng.randn(n), dtype=torch.float32, device=cuda)
+    return x, w_q, scale, bias
+
+
+def _bf16_limit(want):
+    """One bf16 unit in the last place of each output, plus the float32
+    limit (1e-5 of the largest output) for the order of the sums that both
+    sides round: an output near zero is a float32 sum with cancellation."""
+    mag = want.float().abs()
+    ulp = torch.exp2(torch.floor(torch.log2(mag.clamp(min=1e-30))) - 7)
+    return ulp + 1e-5 * float(mag.max())
+
+
+@pytest.mark.parametrize('m,k,n', INT8_SHAPES)
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_int8_matmul_kernel_matches_plain(cuda, m, k, n, dtype):
+    """float32: 1e-5 of the largest output (the same sums in another
+    order); bf16: one unit in the last place of each output, plus that."""
+    from padertorch_tpu_torch.ops.kernels.int8_matmul import (
+        int8_matmul, int8_matmul_plain)
+    x, w_q, scale, bias = _int8_inputs(cuda, m, k, n, getattr(torch, dtype))
+    for b in (bias, None, bias.to(torch.bfloat16)):
+        before = int8_matmul.launches
+        got = int8_matmul(x, w_q, scale, b)
+        want = int8_matmul_plain(x, w_q, scale, b)
+        torch.cuda.synchronize()
+        assert int8_matmul.launches == before + 1
+        assert got.dtype == x.dtype and got.shape == (m, n)
+        if dtype == 'float32':
+            assert float((got - want).abs().max()) <= \
+                1e-5 * float(want.abs().max())
+        else:
+            assert bool(((got.float() - want.float()).abs()
+                         <= _bf16_limit(want)).all())
+
+
+def test_int8_matmul_rows_are_the_same_bits_in_any_batch(cuda):
+    """The order of every sum is fixed by (K, N): a row of a batch of 8 or
+    128 equals the same row alone, bit for bit, and two launches agree."""
+    from padertorch_tpu_torch.ops.kernels.int8_matmul import int8_matmul
+    for dtype in (torch.float32, torch.bfloat16):
+        x, w_q, scale, bias = _int8_inputs(cuda, 128, 1024, 4096, dtype)
+        full = int8_matmul(x, w_q, scale, bias)
+        assert torch.equal(full, int8_matmul(x, w_q, scale, bias))
+        for rows in (x[:8], x[5:6], x[127:]):
+            part = int8_matmul(rows, w_q, scale, bias)
+            start = int((rows.data_ptr() - x.data_ptr())
+                        // (x.element_size() * x.shape[1]))
+            assert torch.equal(part, full[start:start + rows.shape[0]])
+
+
+def test_int8_matmul_kernel_rejects_what_it_does_not_take(cuda):
+    from padertorch_tpu_torch.ops.kernels.int8_matmul import int8_matmul
+    x, w_q, scale, bias = _int8_inputs(cuda, 4, 64, 32, torch.float32)
+    with pytest.raises(ValueError, match='inference only'):
+        int8_matmul(x.clone().requires_grad_(), w_q, scale, bias)
+    with pytest.raises(TypeError, match='float32 or bfloat16'):
+        int8_matmul(x.half(), w_q, scale, bias)
+    with pytest.raises(ValueError, match='is on cpu'):
+        int8_matmul(x, w_q.cpu(), scale, bias)
+    with pytest.raises(ValueError, match='contraction mismatch'):
+        int8_matmul(x[:, :60], w_q, scale)
+    # a strided x and a weight that is not 16-byte aligned still agree
+    wide = torch.zeros((64, 33), dtype=torch.int8, device=cuda)
+    wide[:, 1:] = w_q
+    got = int8_matmul(x.t().contiguous().t(), wide[:, 1:], scale, bias)
+    want = int8_matmul(x, w_q, scale, bias)
+    assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+
+
+def test_quantized_decoder_on_the_card_matches_the_cpu(cuda):
+    """The decode loop with int8 weights on the kernel route, card against
+    CPU (plain version): logits within 1e-4, the same greedy tokens; the
+    batcher equals each request alone; a bf16 forward forced onto the
+    fused attention backend raises."""
+    from padertorch_tpu_torch.contrib.mk.modules.transformer import (
+        TransformerDecoder, autoregressive_generate)
+    from padertorch_tpu_torch.ops.kernels.int8_matmul import int8_matmul
+    from padertorch_tpu_torch.quantize import quantize_module
+    from padertorch_tpu_torch.serve import ContinuousBatcher
+    torch.manual_seed(0)
+    cpu = TransformerDecoder(d_model=64, num_layers=2, num_heads=4,
+                             num_kv_heads=2).eval()
+    quantize_module(cpu)
+    for mod in cpu.modules():
+        if hasattr(mod, 'use_kernel'):
+            mod.use_kernel = True
+    card = copy.deepcopy(cpu).to(cuda)
+    emb = torch.randn(50, 64)
+    head = torch.nn.Linear(64, 50)
+    memory = torch.randn(3, 7, 64)
+    tokens, logits = {}, {}
+    for name, dec, dev in (('cpu', cpu, 'cpu'), ('card', card, cuda)):
+        e, h = emb.to(dev), copy.deepcopy(head).to(dev)
+        seen = []
+
+        def record(x, h=h, seen=seen):
+            out = h(x)
+            seen.append(out.cpu())
+            return out
+
+        before = int8_matmul.launches
+        tokens[name], _ = autoregressive_generate(
+            dec, memory.to(dev), embed=lambda t, e=e: e[t],
+            logits_head=record, bos_id=0, max_len=6)
+        logits[name] = torch.stack(seen)
+        if name == 'card':
+            # cross K/V once per layer, then 8 products per layer and token
+            assert int8_matmul.launches - before == 2 * 2 + 6 * 2 * 8
+    assert float((logits['card'] - logits['cpu']).abs().max()) <= 1e-4
+    assert torch.equal(tokens['card'].cpu(), tokens['cpu'])
+    batcher = ContinuousBatcher(
+        card, embed=lambda t: emb.to(cuda)[t], logits_head=head.to(cuda),
+        num_slots=2, max_len=6, max_memory_len=7, d_memory=64, bos_id=0,
+        eos_id=-1)
+    ids = [batcher.submit(memory[i]) for i in range(3)]
+    outputs = batcher.run_until_done()
+    for i, rid in enumerate(ids):
+        assert outputs[rid] == tokens['card'][i].tolist()
+    mha = MultiheadAttention(64, 4, use_flash=True).to(cuda, torch.bfloat16)
+    with pytest.raises(TypeError, match='float32'):
+        mha(torch.zeros((1, 3, 64), device=cuda, dtype=torch.bfloat16))

@@ -158,9 +158,30 @@ from padertorch_tpu_torch.contrib.examples.speaker_classification.supervised \
 from padertorch_tpu_torch.ops.kernels.gru import gru_cell_scan
 from padertorch_tpu_torch.ops.kernels.logmel import fused_logmel
 from padertorch_tpu_torch.ops.kernels.wavenet import wavenet_sample
+from padertorch_tpu_torch.ops.kernels.int8_matmul import int8_matmul
+from padertorch_tpu_torch.contrib.mk.modules.transformer import (
+    TransformerDecoder, autoregressive_generate)
+from padertorch_tpu_torch.quantize import quantize_module
+from padertorch_tpu_torch.serve import ContinuousBatcher
 from padertorch_tpu_torch.train import trainer
 
 torch.manual_seed(0)
+# the int8 decode path: a quantized decoder on the kernel route generates
+# and serves one request
+decoder = TransformerDecoder(d_model=32, num_layers=1, num_heads=4).eval()
+quantize_module(decoder)
+for m in decoder.modules():
+    if hasattr(m, 'use_kernel'):
+        m.use_kernel = True
+emb, head = torch.nn.Embedding(11, 32), torch.nn.Linear(32, 11)
+memory = torch.randn(1, 5, 32)
+tokens, _ = autoregressive_generate(
+    decoder, memory, embed=emb, logits_head=head, bos_id=0, max_len=4)
+batcher = ContinuousBatcher(
+    decoder, embed=emb, logits_head=head, num_slots=2, max_len=4,
+    max_memory_len=5, d_memory=32, bos_id=0, eos_id=-1)
+request = batcher.submit(memory[0])
+decoded = [tokens[0].tolist(), batcher.run_until_done()[request]]
 with tempfile.TemporaryDirectory() as tmp:
     config = wn_train.get_trainer_config(tmp, {
         'model': wn_train.SMALL, 'stop_trigger': (1, 'iteration')})
@@ -193,16 +214,17 @@ with tempfile.TemporaryDirectory() as tmp:
 print(json.dumps({
     'modules': sorted(sys.modules),
     'launches': [wavenet_sample.launches, fused_logmel.launches,
-                 *gru_cell_scan.launches.values()],
-    'wavenet': wavenet, 'speaker': speaker}))
+                 *gru_cell_scan.launches.values(), int8_matmul.launches],
+    'decoded': decoded, 'wavenet': wavenet, 'speaker': speaker}))
 '''
 
 
 def test_vocoder_and_classifier_paths_import_no_jax_and_launch_nothing():
     """Every module of the port imports without JAX; one training step and
     one served request of the WaveNet vocoder (sequential and parallel
-    chunks) and of the speaker classifier with the on-device front end run
-    on the CPU through the kernels' plain versions."""
+    chunks) and of the speaker classifier with the on-device front end, and
+    a quantized decoder's generation and one batched request, run on the
+    CPU through the kernels' plain versions."""
     env = {**os.environ, 'PYTHONPATH': str(REPO), 'OMP_NUM_THREADS': '2'}
     proc = subprocess.run(
         [sys.executable, '-c', VOCODER_AND_CLASSIFIER], cwd=REPO, env=env,
@@ -216,9 +238,12 @@ def test_vocoder_and_classifier_paths_import_no_jax_and_launch_nothing():
                  'contrib.je.modules.features', 'contrib.je.modules.reduce',
                  'contrib.je.data.transforms', 'ops.kernels.wavenet',
                  'ops.kernels.logmel', 'ops.mu_law',
-                 'ops.losses.classification'):
+                 'ops.losses.classification', 'quantize', 'serve', 'module',
+                 'ops.kernels.int8_matmul', 'contrib.mk.modules.transformer'):
         assert f'padertorch_tpu_torch.{name}' in out['modules']
-    assert out['launches'] == [0] * 5
+    assert out['launches'] == [0] * 6
+    generated, served = out['decoded']
+    assert served == generated and len(served) == 4
     assert out['wavenet'] == [1, [1000, 1000], [True, True]]
     assert out['speaker'] == [1, 4, ['bool']]
 

@@ -9,8 +9,10 @@ SI-SDR 1e-3 dB.
 """
 import json
 import os
+import runpy
 import subprocess
 import sys
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -38,6 +40,54 @@ torch.set_num_threads(2)
 
 REPO = Path(__file__).resolve().parents[1]
 SIZE = dict(F=257, recurrent_layers=2, units=16, K=2)
+
+
+# The recipes' evaluates on the first EVAL_EXAMPLES of their 8 synthetic
+# requests (the JAX package's evaluate compiles once per request length):
+# the recipe tests check the plumbing, not learning.
+EVAL_EXAMPLES = 3
+
+CAPPED = """
+import runpy, sys
+import {data} as data
+make = data.synthetic_database
+
+
+def capped(*args, num_examples=8, **kwargs):
+    return make(*args, num_examples=min(num_examples, {n}), **kwargs)
+
+
+data.synthetic_database = capped
+sys.argv = [{module!r}, *{args!r}]
+runpy.run_module({module!r}, run_name='__main__', alter_sys=True)
+"""
+
+
+def _run_module(module, *args, num_examples=None):
+    """``python -m module args`` in a new process; with ``num_examples``
+    the recipe's ``data.synthetic_database`` makes at most that many
+    examples."""
+    env = {**os.environ, 'PYTHONPATH': str(REPO), 'OMP_NUM_THREADS': '2',
+           'JAX_PLATFORMS': 'cpu'}
+    command = [sys.executable, '-m', module, *args]
+    if num_examples is not None:
+        data_module = module.rsplit('.', 1)[0] + '.data'
+        command = [sys.executable, '-c', CAPPED.format(
+            data=data_module, n=num_examples, module=module,
+            args=list(args))]
+    return subprocess.run(command, cwd=REPO, env=env, capture_output=True,
+                          text=True, timeout=900)
+
+
+def _run_main(monkeypatch, module, *args):
+    """Run ``python -m module args`` in this process (its ``__main__``
+    code), for entry points that are expected to raise."""
+    monkeypatch.setattr(sys, 'argv', [module, *args])
+    with warnings.catch_warnings():
+        # the module is imported already, by this file or an earlier run
+        warnings.filterwarnings('ignore', '.*found in sys.modules',
+                                RuntimeWarning)
+        runpy.run_module(module, run_name='__main__', alter_sys=True)
 
 
 def _jax_model(seed=0):
@@ -142,26 +192,15 @@ def test_evaluate_example_matches_jax(monkeypatch):
 
 def test_evaluate_entry_point(tmp_path):
     storage_dir = _jax_storage_dir(tmp_path, _jax_model(3))
-    env = {**os.environ, 'PYTHONPATH': str(REPO), 'OMP_NUM_THREADS': '2'}
-    proc = subprocess.run(
-        [sys.executable, '-m',
-         'padertorch_tpu_torch.contrib.examples.source_separation.pit'
-         '.evaluate', '--model_path', str(storage_dir), '--synthetic',
-         '--device', 'cpu'],
-        cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+    proc = _run_module(
+        'padertorch_tpu_torch.contrib.examples.source_separation.pit'
+        '.evaluate', '--model_path', str(storage_dir), '--synthetic',
+        '--device', 'cpu', num_examples=EVAL_EXAMPLES)
     assert proc.returncode == 0, proc.stderr
     means = json.loads((storage_dir / 'eval' / 'means.json').read_text())
     results = json.loads((storage_dir / 'eval' / 'result.json').read_text())
-    assert len(results) == 8
+    assert len(results) == EVAL_EXAMPLES
     assert np.isfinite(means['improvement_si_sdr'])
-
-
-def _run_module(module, *args):
-    env = {**os.environ, 'PYTHONPATH': str(REPO), 'OMP_NUM_THREADS': '2',
-           'JAX_PLATFORMS': 'cpu'}
-    return subprocess.run(
-        [sys.executable, '-m', module, *args], cwd=REPO, env=env,
-        capture_output=True, text=True, timeout=600)
 
 
 def test_train_entry_point_and_both_evaluates(tmp_path):
@@ -185,12 +224,13 @@ def test_train_entry_point_and_both_evaluates(tmp_path):
     for package, extra in (('padertorch_tpu_torch', ['--device', 'cpu']),
                            ('padertorch_tpu', [])):
         proc = _run_module(f'{package}.{recipe}.evaluate', '--model_path',
-                           str(storage_dir), '--synthetic', *extra)
+                           str(storage_dir), '--synthetic', *extra,
+                           num_examples=EVAL_EXAMPLES)
         assert proc.returncode == 0, proc.stderr
         results[package] = json.loads(
             (storage_dir / 'eval' / 'result.json').read_text())
     port, jax_ = results['padertorch_tpu_torch'], results['padertorch_tpu']
-    assert port.keys() == jax_.keys() and len(port) == 8
+    assert port.keys() == jax_.keys() and len(port) == EVAL_EXAMPLES
     for example_id in port:
         for key in ('input_si_sdr', 'output_si_sdr'):
             np.testing.assert_allclose(
@@ -199,7 +239,7 @@ def test_train_entry_point_and_both_evaluates(tmp_path):
 
 
 @pytest.mark.parametrize('entry', ['train', 'evaluate'])
-def test_entry_points_default_to_the_card(entry, tmp_path):
+def test_entry_points_default_to_the_card(entry, tmp_path, monkeypatch):
     """Without ``--device cpu`` the entry points take the card; where
     there is none they fail with torch's own error."""
     if torch.cuda.is_available():
@@ -208,9 +248,8 @@ def test_entry_points_default_to_the_card(entry, tmp_path):
     args = {'train': ['--storage_root', str(tmp_path), '--synthetic',
                       '--epochs', '1', '--units', '8', '--layers', '1'],
             'evaluate': ['--model_path', str(storage_dir), '--synthetic']}
-    proc = _run_module(
-        'padertorch_tpu_torch.contrib.examples.source_separation.pit.'
-        + entry, *args[entry])
-    assert proc.returncode != 0
-    assert 'cuda' in proc.stderr.lower()
+    with pytest.raises((AssertionError, RuntimeError), match='(?i)cuda'):
+        _run_main(monkeypatch,
+                  'padertorch_tpu_torch.contrib.examples.source_separation'
+                  '.pit.' + entry, *args[entry])
     assert not (storage_dir / 'eval').exists()

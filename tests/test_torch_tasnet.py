@@ -242,7 +242,7 @@ def test_snapshots_become_audio_in_the_summary():
 
 
 def test_a_separator_that_is_not_ported_raises():
-    with pytest.raises(NotImplementedError, match='Queue 1'):
+    with pytest.raises(NotImplementedError, match='modules/convnet.py'):
         tasnet.TasNet(encoder=tasnet.TasEncoder(20, 32),
                       separator=torch.nn.Identity(),
                       decoder=tasnet.TasDecoder(20, 32))

@@ -195,7 +195,7 @@ def test_options_that_wait_raise_and_name_the_roadmap():
     with pytest.raises(NotImplementedError, match='ROADMAP.md'):
         mha.set_sequence_mesh(None)
     with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-        mha.init_cache(1, 8)
+        tf.PositionalEncoding(16)
     with pytest.warns(UserWarning, match='dense'):
         tf.MultiheadAttention(16, 4, linear_attention_bias=True,
                               use_flash=True)(torch.zeros((1, 3, 16)))
