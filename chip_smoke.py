@@ -48,7 +48,9 @@ Phases, one line each:
    rows, H=256 at the class defaults), each with the TF32 control that must
    fail the limit, and one ``torch.nn.GRU`` layer (cuDNN) of the same sizes
    and directions as a yardstick.
-9. the three LSTM kernels vs plain at the DPRNN's two shapes, timed.
+9. the three LSTM kernels vs plain at the DPRNN's two shapes, timed, with
+   the forwards' TF32 controls, beside one bidirectional ``torch.nn.LSTM``
+   layer (cuDNN) of the same sizes.
 10. TasNet serving, for ``bgru`` and ``blstm`` chunk RNNs: the full-width
     model (256 filters of length 20, 64 -> 6 blocks of 128 units, K=100,
     hop 50, 2 speakers) on the card against the same model on the CPU;
@@ -128,14 +130,18 @@ Phases, one line each:
 
 20. int8_matmul kernel vs its plain version (float32 within 1e-5 of the
     largest output, bf16 within one unit in the last place plus that)
-    with and without bias, at M = 1, 8, 32, 128 and the decoder's weights (1024,
-    1024), (1024, 4096), (4096, 1024), and at a ragged (1000, 1030); the
-    composed route (``x @ (w_q * scale)`` in bf16) must fail the bf16 limit
-    and plain with TF32 products the float32 one; timed beside plain, the
-    composed route, ``torch.addmm`` on the weight dequantized to the
-    activations' type and the bound; the contract's raises; then the
-    kernel and the composed route of ``QuantizedLinear`` by rows of x from
-    1 to 256 (``INT8_KERNEL_MAX_ROWS`` comes from this table).
+    with and without bias, at M = 1, 8, 16, 32, 64, 128, 256 and the
+    decoder's weights (1024, 1024), (1024, 4096), (4096, 1024), and at a
+    ragged (1000, 1030); the composed route (``x @ (w_q * scale)`` in bf16)
+    must fail the bf16 limit and plain with TF32 products the float32 one;
+    timed beside plain, the composed route, ``torch.addmm`` on the weight
+    dequantized to the activations' type and the bound (bf16 against the
+    tensor cores' bf16 peak, float32 against the float32 peak), with the
+    host's microseconds to enqueue one call; the contract's raises; in bf16
+    every row of a batch of up to 256 equal to the row alone, bit for bit,
+    and repeated calls and CUDA-graph replays equal; then the kernel and
+    the composed route of ``QuantizedLinear`` by rows of x from 1 to 256
+    (``INT8_KERNEL_MAX_ROWS`` comes from this table).
 21. decoding at full width: bench.py's int8 decode model (TransformerDecoder
     d_model 1024, 12 layers, 16 heads, RoPE, pre-norm; a Linear(1024, 1024)
     head; weights from seed 0, the embedding table x 0.05 and 128 frames
@@ -158,8 +164,9 @@ shapes' are in the phases' own lines), its largest difference from the
 plain version, its time,
 the plain version's, the library call's where there is one, and the
 least time the card could take (``bound_ms``: the larger of bytes over
-3.35 TB/s and float32 operations over 67 TFLOP/s, NVIDIA's H100 SXM data
-sheet); the last line is ``{"ok": true, "device": {...}}``.  Any failed
+3.35 TB/s and float32 operations over 67 TFLOP/s, or for int8_matmul's
+bf16 products 989 TFLOP/s, NVIDIA's H100 SXM data sheet); the last line
+is ``{"ok": true, "device": {...}}``.  Any failed
 check raises, so the script exits non-zero and prints no result; without
 a CUDA card it fails at phase 1.  ``--profile`` adds a ``torch.profiler``
 table of one training step per shape, and the card's busy time per token
@@ -311,6 +318,7 @@ SERVE_LOGIT_RTOL = 0.02
 
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM, HBM3
 PEAK_F32_FLOPS = 67e12       # H100 SXM, float32 outside the tensor cores
+PEAK_BF16_FLOPS = 989e12     # H100 SXM, bf16 on the tensor cores, dense
 
 
 def fail(msg):
@@ -374,12 +382,13 @@ def nbytes(*tensors):
                if t is not None)
 
 
-def bound(n_bytes, flops):
+def bound(n_bytes, flops, peak=PEAK_F32_FLOPS):
     """The least time the card could take for the work: each input read
     and each output written once at the memory's peak rate, or the
-    operations at the float32 peak, whichever is larger."""
+    operations at ``peak`` (the float32 peak unless the products run
+    exactly on the tensor cores), whichever is larger."""
     by_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    by_ops = flops / PEAK_F32_FLOPS * 1e3
+    by_ops = flops / peak * 1e3
     return {'bound_ms': max(by_bytes, by_ops),
             'bound_by': 'bytes' if by_bytes >= by_ops else 'operations'}
 
@@ -1134,7 +1143,10 @@ def phase_gru_kernels():
 
 
 def phase_lstm_at_dprnn_shapes():
-    """Phase 9: the three LSTM kernels at the DPRNN's two shapes."""
+    """Phase 9: the three LSTM kernels at the DPRNN's two shapes, timed
+    beside one bidirectional ``torch.nn.LSTM`` layer (cuDNN) of the same
+    sizes (the chunk RNN's input of 64 features), with the forwards' TF32
+    controls."""
     results = {}
     for label, t_len, batch, hdim, kind in RECURRENCE_SHAPES[:2]:
         args, cot = recurrence_inputs(t_len, batch, hdim, kind, gates=4)
@@ -1159,9 +1171,14 @@ def phase_lstm_at_dprnn_shapes():
         err = {'fwd': max_err(got, want),
                'fwd_train': max_err(got_train, want_train),
                'bwd': max_err(got_bwd, want_bwd)}
+        tf32 = {'fwd': with_tf32(lambda: max_err(
+                    lstm_cell_scan_plain(*args), want)),
+                'fwd_train': with_tf32(lambda: max_err(
+                    lstm_cell_scan_train_plain(*args), want_train))}
         times = {'fwd': cuda_ms(lambda: lstm_cell_scan(*args), iters=10),
                  'fwd_train': cuda_ms(fwd_train, iters=10),
                  'bwd': cuda_ms(bwd, iters=10)}
+        library = cudnn_layer_ms(torch.nn.LSTM, t_len, batch, 64, hdim)
         flops = valid * (2 * hdim * 4 * hdim + 30 * hdim)
         limits = {
             'fwd': bound(nbytes(*args, *got), flops),
@@ -1170,15 +1187,27 @@ def phase_lstm_at_dprnn_shapes():
                          flops)}
         for name, tol in (('fwd', LSTM_TOL), ('fwd_train', LSTM_TOL),
                           ('bwd', LSTM_BWD_TOL)):
+            control = (f', plain with TF32 {tf32[name]:.3e}'
+                       if name in tf32 else '')
             print(f'phase 9 lstm {name} {label}: max |kernel - plain| '
-                  f'{err[name]:.3e} (tol {tol}), kernel '
+                  f'{err[name]:.3e} (tol {tol}){control}, kernel '
                   f'{times[name]:.3f} ms, bound '
                   f'{limits[name]["bound_ms"]:.4f} ms by '
                   f'{limits[name]["bound_by"]}')
             if not err[name] <= tol:
                 fail(f'lstm {name} kernel disagrees with plain at {label}: '
                      f'{err[name]}')
-        results[label] = times
+            if name in tf32 and not tf32[name] > tol:
+                fail(f'the limit {tol} does not tell a TF32 recurrence from '
+                     f'f32 at {label}: {tf32[name]}')
+        print(f'phase 9 yardstick {label}: one bidirectional torch.nn.LSTM '
+              f'layer (cuDNN; input 64, includes the input projection, '
+              f'takes no mask) forward {library["fwd"]:.3f} ms (no grad), '
+              f'{library["fwd_train"]:.3f} ms (grad mode), backward '
+              f'{library["bwd"]:.3f} ms')
+        results[label] = {**times,
+                          'library': {k: round(v, 4)
+                                      for k, v in library.items()}}
     return results
 
 
@@ -2322,7 +2351,7 @@ def phase_speaker_clf():
 DECODER = dict(d_model=1024, num_layers=12, num_heads=16)
 VOCAB, MEMORY_FRAMES, NEW_TOKENS = 1024, 128, 128
 INT8_WEIGHTS = [(1024, 1024), (1024, 4096), (4096, 1024)]
-INT8_ROWS = (1, 8, 32, 128)
+INT8_ROWS = (1, 8, 16, 32, 64, 128, 256)
 INT8_ROW_SHAPE = (1, 1024, 4096, torch.bfloat16)   # the kernels line's row
 
 
@@ -2391,15 +2420,83 @@ def int8_case(m, k, n, dtype):
         'composed_': lambda: composed_route(x, w_q, scale, bias),
         'library_': lambda: torch.addmm(bias_x, x, w_deq),
     }
-    # a call's device time from CUDA-graph replays (the kernels line), and
-    # its eager time, which at these sizes is the host's
+    # a call's device time from CUDA-graph replays (the kernels line), its
+    # eager time, which at these sizes is the host's, and the host's own
+    # time to enqueue one call
     times = {}
     for key, fn in routes.items():
         times[key + 'ms'] = graph_ms(fn)
         times[key + 'eager_ms'] = cuda_ms(fn, iters=50, warmup=2)
+        times[key + 'host_us'] = host_us(fn)
     out_bytes = m * n * x.element_size()
-    limits = bound(nbytes(x, w_q, scale, bias) + out_bytes, 2.0 * m * k * n)
-    return {'err': err, 'max_abs_err': err['bias'][1], **times, **limits}
+    # bf16 products are exact on the tensor cores (int8 weights widen to
+    # bf16 exactly, sums in float32): their peak bounds the operations
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    limits = bound(nbytes(x, w_q, scale, bias) + out_bytes, 2.0 * m * k * n,
+                   peak)
+    return {'err': err, 'max_abs_err': err['bias'][1], **times, **limits,
+            'peak': 'bf16 tensor cores' if peak == PEAK_BF16_FLOPS
+            else 'float32'}
+
+
+def host_us(fn, calls=100):
+    """Microseconds of host time to enqueue one call (the card is left to
+    catch up afterwards)."""
+    fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    seconds = time.perf_counter() - start
+    torch.cuda.synchronize()
+    return seconds / calls * 1e6
+
+
+def int8_batch_bits():
+    """bf16: every row of a batch of 1 ... 256 equals the row alone, bit
+    for bit, at the decoder's shapes; two calls in a row and calls replayed
+    from a CUDA graph give the same bits (the per-tile counters are back at
+    0 after every launch)."""
+    checked = 0
+    for k, n in INT8_WEIGHTS:
+        x, w_q, scale, bias = int8_inputs(256, k, n, torch.bfloat16)
+        full = int8_matmul(x, w_q, scale, bias)
+        for m in (1, 2, 3, 8, 16, 31, 32, 64, 100, 128, 255):
+            if not torch.equal(int8_matmul(x[:m], w_q, scale, bias),
+                               full[:m]):
+                fail(f'int8_matmul ({k}, {n}) bf16: the first {m} rows of '
+                     f'a batch of 256 differ from the same rows alone')
+            checked += 1
+        for i in (0, 97, 255):
+            if not torch.equal(int8_matmul(x[i:i + 1], w_q, scale, bias)[0],
+                               full[i]):
+                fail(f'int8_matmul ({k}, {n}) bf16: row {i} of a batch of '
+                     f'256 differs from the row alone')
+            checked += 1
+        if not torch.equal(int8_matmul(x, w_q, scale, bias), full):
+            fail(f'int8_matmul ({k}, {n}) bf16: two calls differ')
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            int8_matmul(x[:8], w_q, scale, bias)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            replayed = [int8_matmul(x[:m], w_q, scale, bias)
+                        for m in (8, 128, 8)]
+        for _ in range(3):
+            graph.replay()
+        torch.cuda.synchronize()
+        if not all(torch.equal(out, full[:out.shape[0]]) for out in replayed):
+            fail(f'int8_matmul ({k}, {n}) bf16: calls replayed from a CUDA '
+                 f'graph differ from eager ones')
+        if not torch.equal(int8_matmul(x, w_q, scale, bias), full):
+            fail(f'int8_matmul ({k}, {n}) bf16: a call after the graph '
+                 f'differs')
+        del graph
+    print(f'phase 20 int8_matmul bf16: {checked} batches and rows equal to '
+          f'the same rows of a batch of 256 bit for bit at the three '
+          f'decoder shapes; repeated calls and CUDA-graph replays equal')
 
 
 def int8_dispatch_rows():
@@ -2441,7 +2538,7 @@ def phase_int8_kernel():
     row = None
     for dtype in (torch.float32, torch.bfloat16):
         for k, n in INT8_WEIGHTS + [(1000, 1030)]:
-            for m in INT8_ROWS if (k, n) != (1000, 1030) else (1, 8):
+            for m in INT8_ROWS if (k, n) != (1000, 1030) else (1, 8, 37, 70):
                 r = int8_case(m, k, n, dtype)
                 name = 'f32' if dtype == torch.float32 else 'bf16'
                 print(f'phase 20 int8_matmul M={m} K={k} N={n} {name}: '
@@ -2456,7 +2553,9 @@ def phase_int8_kernel():
                       f'({r["composed_eager_ms"]:.4f}), addmm on the '
                       f'dequantized {name} weight {r["library_ms"]:.4f} '
                       f'({r["library_eager_ms"]:.4f}), bound '
-                      f'{r["bound_ms"]:.5f} ms by {r["bound_by"]}')
+                      f'{r["bound_ms"]:.5f} ms by {r["bound_by"]} '
+                      f'({r["peak"]} peak); host us per eager call kernel '
+                      f'{r["host_us"]:.1f}, addmm {r["library_host_us"]:.1f}')
                 if (m, k, n, dtype) == INT8_ROW_SHAPE:
                     row = {key: r[key] for key in (
                         'max_abs_err', 'ms', 'plain_ms', 'bound_ms',
@@ -2481,6 +2580,7 @@ def phase_int8_kernel():
         except (TypeError, ValueError):
             continue
         fail(f'int8_matmul took {what}')
+    int8_batch_bits()
     int8_dispatch_rows()
     return row
 

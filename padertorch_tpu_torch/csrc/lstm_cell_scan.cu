@@ -14,26 +14,36 @@
 // D * H * 4H * 4 bytes per step (11.5 MB at H=600, D=2), so the weights
 // have to stay on chip, but one SM holds at most 227 KB of shared memory.
 // What is left per step is latency: reading h_{t-1}, which other blocks
-// wrote, a chain of H dependent FMAs per gate, and one grid-wide sync.
+// wrote, a chain of dependent FMAs per gate, and one grid-wide sync.
 //
-// Design: each block owns one direction d and a slice of U hidden units,
-// and keeps that slice's four gate columns of W_hh[d] in shared memory for
-// the whole launch (H * U * 4 floats; U is chosen by the host so the grid
-// fits on the card at once).  Per step, for each chunk of up to ROWS rows
-// of its direction, a block copies h_{t-1} of those rows into shared
-// memory with asynchronous L2-only copies (other blocks wrote it; L1 is
-// not coherent) and loads its gate inputs while the copies fly.  The
-// product's K loop (over H) is split into KS slices, one per group of
-// threads, so that each thread's chain of dependent FMAs is H / KS long;
-// a thread owns one (row, unit) pair of one slice, the slices' partial
-// gates meet in shared memory, and the first slice's thread applies the
-// cell and the mask freeze.  c stays in shared memory (it never leaves the
-// block); out[t] and h_t go to device memory, h_t through a ping-pong
-// buffer.  Then the whole grid syncs once.  The training variant adds two
-// stores per (row, unit) and step: the four activated gates as computed
-// (also on a masked step) and c_{t-1} (on a masked step the frozen c).
-// The inference variant is compiled without them, so it writes a third of
-// the bytes.
+// Design (the GRU kernels' grid, gru_cell_scan.cu): a block owns one
+// direction d, a slice of U hidden units with that slice's four gate
+// columns of W_hh[d] in shared memory for the whole launch (H * U * 4
+// floats), and a range of RB rows of its direction, whose c it keeps in
+// shared memory (RB * U floats; c never leaves the block).  The host
+// (`pick_scan_grid`, lstm_common.cuh) prefers wide unit slices, since
+// every block of a row range stages the same rows of h, and splits the
+// rows until the grid has about one block per SM.  With many rows and a
+// small H (a dual-path RNN's chunk batches: 260 or 400 rows of H = 128 per
+// direction) that spreads the rows over 128 blocks where unit slices alone
+// gave 64 blocks walking 17 chunks of 16 rows one after another per step;
+// with few rows and a large H (uPIT: 16 rows of H = 600) it is the grid
+// the unit slices alone give.  Per step and chunk of RS rows of its range,
+// a block copies h_{t-1} of those rows into shared memory with
+// asynchronous L2-only copies (other blocks wrote it; L1 is not coherent)
+// and loads its gate inputs while the copies fly.  The product's K loop
+// (over H) is split into KS slices, one per group of threads, so that each
+// thread's chain of dependent FMAs is H / KS long; a thread owns one (row,
+// unit) pair of one slice, the slices' partial gates meet in shared
+// memory, and the first slice's thread applies the cell and the mask
+// freeze.  out[t] and h_t go to device memory, h_t through a ping-pong
+// buffer.  Then the whole grid syncs once.  The product stays float32 on
+// the CUDA cores (the limits tell TF32 from float32).  The training
+// variant adds two stores per (row, unit) and step: the four activated
+// gates as computed (also on a masked step) and c_{t-1} (on a masked step
+// the frozen c); its residual layout is the backward kernel's
+// (lstm_cell_scan_bwd.cu).  The inference variant is compiled without
+// them, so it writes a third of the bytes.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -44,20 +54,20 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int ROWS = 16;  // at most this many rows of h staged at once
-
 // gx: (T, R, 4H), R = D * Bd rows, row block d belongs to direction d.
 // w: (D, H, 4H) (h @ w layout, gate column blocks i, f, g, o).
 // mask: (T, R) or nullptr.  h0, c0: (R, H).
 // out: (T, R, H); hT, cT: (R, H); hbuf: (2, R, H) scratch.
 // TRAIN only: c_seq (T, R, H) gets c_{t-1}, gates (T, R, 4H) the activated
 // gates in column blocks i, f, g, o.
-// Block b: direction d = b / n_ub, unit block ub = b % n_ub.  Thread tid:
-// K slice ks = tid / P, pair p = tid % P (row p / U of the chunk, unit
-// p % U), P = RS * U with RS = min(Bd, ROWS) rows staged at once.
+// Block b: unit block ub = b % n_ub, row block rb = b / n_ub % n_rb,
+// direction d = b / (n_ub * n_rb); rows [rb * RB, min(Bd, (rb + 1) * RB))
+// of its direction.  Thread tid: K slice ks = tid / P, pair p = tid % P
+// (row p / U of the chunk, unit p % U), P = RS * U.
 // Shared memory: w_s (H, U) of float4 gates | red (KS - 1, P) of float4
-// partial gates | h_s (RS, H) | c_s (Bd, U).
-// vec: H % 4 == 0 and h0 16-byte aligned, so rows of h copy as float4.
+// partial gates | h_s (RS, H) | c_s (RB, U).
+// vec: H % 4 == 0 and h0, hbuf 16-byte aligned, so rows of h copy as
+// float4.
 template <bool TRAIN>
 __global__ void __launch_bounds__(1024) lstm_fwd_kernel(
         const float* __restrict__ gx, const float* __restrict__ w,
@@ -65,21 +75,23 @@ __global__ void __launch_bounds__(1024) lstm_fwd_kernel(
         const float* __restrict__ c0, float* __restrict__ out,
         float* __restrict__ c_seq, float* __restrict__ gates,
         float* __restrict__ hT, float* __restrict__ cT,
-        float* hbuf, int T, int Bd, int H, int U, int n_ub, int KS,
-        int vec) {
+        float* hbuf, int T, int Bd, int H, int U, int n_ub, int n_rb,
+        int RB, int RS, int KS, int vec) {
     cg::grid_group grid = cg::this_grid();
     extern __shared__ float4 smem4[];
     float* smem = reinterpret_cast<float*>(smem4);
-    const int d = blockIdx.x / n_ub;
     const int ub = blockIdx.x % n_ub;
-    const int R = gridDim.x / n_ub * Bd;
+    const int rb = blockIdx.x / n_ub % n_rb;
+    const int d = blockIdx.x / (n_ub * n_rb);
+    const int R = gridDim.x / (n_ub * n_rb) * Bd;
     const int G = 4 * H;
-    const int RS = min(Bd, ROWS);
     const int P = RS * U;
+    const int r_lo = rb * RB;
+    const int r_hi = min(Bd, r_lo + RB);
     const float4* w_s = smem4;                        // (H, U) of 4 gates
     float4* red = smem4 + (size_t)H * U;              // (KS - 1, P)
     float* h_s = reinterpret_cast<float*>(red + (size_t)(KS - 1) * P);
-    float* c_s = h_s + (size_t)RS * H;                // (Bd, U)
+    float* c_s = h_s + (size_t)RS * H;                // (RB, U)
     const int tid = threadIdx.x;
     const int nthreads = blockDim.x;
     const int row0 = d * Bd;
@@ -102,18 +114,18 @@ __global__ void __launch_bounds__(1024) lstm_fwd_kernel(
         const float v = jj < H ? wd[(size_t)k * G + g * H + jj] : 0.0f;
         smem[((size_t)k * U + uu) * 4 + g] = v;
     }
-    for (int q = tid; q < Bd * U; q += nthreads) {
+    for (int q = tid; q < (r_hi - r_lo) * U; q += nthreads) {
         const int jj = ub * U + q % U;
-        c_s[q] = jj < H ? c0[(size_t)(row0 + q / U) * H + jj] : 0.0f;
+        c_s[q] = jj < H ? c0[(size_t)(row0 + r_lo + q / U) * H + jj] : 0.0f;
     }
 
     for (int t = 0; t < T; ++t) {
         const float* h_prev = t == 0 ? h0 : hbuf + (size_t)((t - 1) & 1) * R * H;
         float* h_next = hbuf + (size_t)(t & 1) * R * H;
-        for (int rc = 0; rc < Bd; rc += RS) {
-            const int nr = min(RS, Bd - rc);
+        for (int rc = r_lo; rc < r_hi; rc += RS) {
+            const int nr = min(RS, r_hi - rc);
             const float* src = h_prev + (size_t)(row0 + rc) * H;
-            if (rc > 0) __syncthreads();  // the previous chunk's readers
+            if (rc > r_lo) __syncthreads();  // the previous chunk's readers
             if (vec) {
                 for (int idx = tid; idx < nr * H / 4; idx += nthreads) {
                     cp_async16_cg(h_s + 4 * idx, src + 4 * idx);
@@ -163,7 +175,7 @@ __global__ void __launch_bounds__(1024) lstm_fwd_kernel(
             const float f_ = sigmoidf_(acc.y);
             const float g_ = tanhf(acc.z);
             const float o_ = sigmoidf_(acc.w);
-            float* cp = c_s + (size_t)r * U + u;
+            float* cp = c_s + (size_t)(r - r_lo) * U + u;
             const float c_old = *cp;
             float c_new = f_ * c_old + i_ * g_;
             float h_new = o_ * tanhf(c_new);
@@ -195,22 +207,17 @@ __global__ void __launch_bounds__(1024) lstm_fwd_kernel(
     }
 }
 
-size_t smem_bytes(int Bd, int H, int U, int KS) {
-    const size_t rs = Bd < ROWS ? Bd : ROWS;
-    return sizeof(float) * ((size_t)H * U * 4 + (size_t)(KS - 1) * rs * U * 4
-                            + rs * H + (size_t)Bd * U);
-}
-
-// Launch the whole recurrence.  Picks the smallest unit slice U for which
-// the grid (D * ceil(H / U) blocks) is co-resident on the card, and fails
-// with cudaErrorCooperativeLaunchTooLarge when none is.  Returns
-// cudaGetLastError() after the launch.
+// Launch the whole recurrence on the grid `pick_scan_grid` chooses, with
+// the LSTM's shared memory (the weights' four gate columns, the partial
+// gates of KS - 1 slices, h of RS rows and c of the block's RB rows).
+// Fails with cudaErrorCooperativeLaunchTooLarge when no grid is
+// co-resident.  Returns cudaGetLastError() after the launch.
 template <bool TRAIN>
 int launch_fwd(const void* gx, const void* w, const void* mask,
                const void* h0, const void* c0, void* out, void* c_seq,
                void* gates, void* hT, void* cT, void* hbuf, int T, int D,
                int Bd, int H, int device, void* stream) {
-    const auto kernel = lstm_fwd_kernel<TRAIN>;
+    const void* kernel = (const void*)lstm_fwd_kernel<TRAIN>;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return err;
     int n_sm = 0, max_smem = 0, coop = 0;
@@ -218,35 +225,18 @@ int launch_fwd(const void* gx, const void* w, const void* mask,
     cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
     cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
     if (!coop) return cudaErrorNotSupported;
-    const int units[] = {4, 8, 16, 32};
-    int U = 0, threads = 0, KS = 1;
-    size_t smem = 0;
-    for (int cand : units) {
-        const int P = (Bd < ROWS ? Bd : ROWS) * cand;
-        const int ks = k_slices(P, H);
-        const size_t s = smem_bytes(Bd, H, cand, ks);
-        if (s > (size_t)max_smem) break;
-        const int th = (ks * P + 31) / 32 * 32;
-        err = cudaFuncSetAttribute(kernel,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)s);
-        if (err != cudaSuccess) return err;
-        int per_sm = 0;
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, kernel, th, s);
-        if (err != cudaSuccess) return err;
-        const int blocks = D * ((H + cand - 1) / cand);
-        if (per_sm > 0 && blocks <= per_sm * n_sm) {
-            U = cand;
-            KS = ks;
-            threads = th;
-            smem = s;
-            break;
-        }
-    }
-    if (U == 0) return cudaErrorCooperativeLaunchTooLarge;
-    int n_ub = (H + U - 1) / U;
-    int vec = H % 4 == 0 && reinterpret_cast<uintptr_t>(h0) % 16 == 0;
+    const auto smem_bytes = [H](int U, int RB, int RS, int KS) {
+        return sizeof(float) * ((size_t)H * U * 4
+                                + (size_t)(KS - 1) * RS * U * 4
+                                + (size_t)RS * H + (size_t)RB * U);
+    };
+    ScanGrid best;
+    err = pick_scan_grid(kernel, D, Bd, H, H, n_sm, max_smem, smem_bytes,
+                         &best);
+    if (err != cudaSuccess) return err;
+    if (best.blocks == 0) return cudaErrorCooperativeLaunchTooLarge;
+    int vec = H % 4 == 0 && reinterpret_cast<uintptr_t>(h0) % 16 == 0
+              && reinterpret_cast<uintptr_t>(hbuf) % 16 == 0;
     const float* gx_ = static_cast<const float*>(gx);
     const float* w_ = static_cast<const float*>(w);
     const float* mask_ = static_cast<const float*>(mask);
@@ -259,10 +249,11 @@ int launch_fwd(const void* gx, const void* w, const void* mask,
     float* cT_ = static_cast<float*>(cT);
     float* hbuf_ = static_cast<float*>(hbuf);
     void* args[] = {&gx_, &w_, &mask_, &h0_, &c0_, &out_, &c_seq_, &gates_,
-                    &hT_, &cT_, &hbuf_, &T, &Bd, &H, &U, &n_ub, &KS, &vec};
+                    &hT_, &cT_, &hbuf_, &T, &Bd, &H, &best.U, &best.n_ub,
+                    &best.n_rb, &best.RB, &best.RS, &best.KS, &vec};
     err = cudaLaunchCooperativeKernel(
-        (const void*)kernel, dim3(D * n_ub), dim3(threads), args,
-        smem, static_cast<cudaStream_t>(stream));
+        kernel, dim3(best.blocks), dim3(best.threads), args, best.smem,
+        static_cast<cudaStream_t>(stream));
     if (err != cudaSuccess) return err;
     return cudaGetLastError();
 }

@@ -27,9 +27,10 @@ inline int k_slices(int P, int K) {
     return ks < 1 ? 1 : ks;
 }
 
-// How a GRU cell-scan grid divides a layer: a block owns one direction, a
-// slice of U hidden units (n_ub slices) and a range of RB rows of its
-// direction (n_rb ranges), of which it stages RS at once; KS K slices.
+// How a cell-scan grid (the GRU kernels, the LSTM forward) divides a
+// layer: a block owns one direction, a slice of U hidden units (n_ub
+// slices) and a range of RB rows of its direction (n_rb ranges), of which
+// it stages RS at once; KS K slices.
 struct ScanGrid {
     int U, n_ub, n_rb, RB, RS, KS, blocks, threads;
     size_t smem;
@@ -51,7 +52,7 @@ inline ScanGrid split_rows(int U, int D, int Bd, int H, int n_sm) {
     return g;
 }
 
-// Pick the grid of a GRU cell-scan kernel whose product sums over K terms.
+// Pick the grid of a cell-scan kernel whose product sums over K terms.
 // Unit slices U are tried widest first (every block of a row range stages
 // the same rows, so wide slices stage less); for each, the rows are split
 // (split_rows), and the rows staged at once (RS) are as many as the

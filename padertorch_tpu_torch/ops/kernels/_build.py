@@ -44,7 +44,9 @@ _SIGNATURES = {
     'wavenet_sample_fwd': (_P,) * 13 + (_I,) * 10 + (_P,),
     'wavenet_sample_smem_bytes': (_I,) * 5,
     'fused_logmel_fwd': (_P,) * 4 + (_I,) * 8 + (_F, _I, _P),
-    'int8_matmul_fwd': (_P, _I, _P, _P, _P, _I, _P, _P) + (_I,) * 5 + (_P,),
+    'int8_matmul_fwd': (_P,) * 4 + (_I,) + (_P,) * 2 + (_I,) * 5 + (_P,),
+    'int8_matmul_bf16_fwd': (_P,) * 4 + (_I,) + (_P,) * 3 + (_I,) * 5
+                            + (_P,),
 }
 
 
@@ -123,6 +125,5 @@ def check(lib, err, what):
 def stream_and_device(tensor):
     """(current stream handle, device index) for a CUDA tensor."""
     import torch
-    index = tensor.device.index
-    stream = torch.cuda.current_stream(tensor.device).cuda_stream
-    return stream, index
+    index = tensor.get_device()
+    return torch._C._cuda_getCurrentRawStream(index), index

@@ -6,11 +6,13 @@ Counterpart of ``padertorch_tpu/ops/pallas/int8_matmul.py``
 no zero point) and an optional ``bias``; the result (..., N) in ``x``'s
 type, summed in float32.  The scale multiplies the sum, not the weight.
 
-On a CUDA tensor :func:`int8_matmul` launches the hand-written kernel of
-``csrc/int8_matmul.cu``, which reads the weights only as int8 and widens
-them in registers, sums every output element in one fixed order (the same
-for every M, so a row of a batch equals the row alone, bit for bit) and
-adds the scale and the bias in its second pass.  On a CPU tensor it runs
+On a CUDA tensor :func:`int8_matmul` launches the hand-written kernels of
+``csrc/int8_matmul.cu``, which read the weights only as int8, widen them in
+registers and sum every output element in one fixed order (the same for
+every M, so a row of a batch equals the row alone, bit for bit): for bf16
+x one launch whose products run on the tensor cores (``wgmma``; the last
+block of each column tile adds the splits, scales and adds the bias), for
+float32 x the CUDA-core kernel and its epilogue.  On a CPU tensor it runs
 :func:`int8_matmul_plain`, the kernel's arithmetic in plain tensor code.
 Inference only, as in the JAX package: an input that requires a gradient
 under grad mode is refused.
@@ -18,32 +20,39 @@ under grad mode is refused.
 Not ported: the JAX wrapper pads K and N to 128-lane tiles for the TPU;
 here nothing is padded.
 """
+import functools
+
 import torch
 import torch.nn.functional as F
 
 from padertorch_tpu_torch.ops.kernels import _build
 
 __all__ = ['int8_matmul', 'int8_matmul_plain', 'split_rows',
-           'INT8_KERNEL_MAX_ROWS']
+           'bf16_split_rows', 'INT8_KERNEL_MAX_ROWS']
 
 # ``QuantizedLinear(use_kernel=None)`` on a CUDA tensor takes the kernel
 # for at most this many rows of x and the composed route (cuBLAS on the
 # weight dequantized per call) above: where the kernel's device time is at
 # most the composed route's at all three of the 12-layer decoder's weight
 # shapes on an H100 (bf16; chip_smoke.py phase 20's table by rows, PERF.md
-# "int8_matmul dispatch").  At 32 rows the kernel loses at (1024, 1024).
-INT8_KERNEL_MAX_ROWS = 16
+# "int8_matmul dispatch").  At 128 rows the kernel loses at (1024, 1024):
+# every tile of 64 columns reads x again and the partial sums grow with M.
+INT8_KERNEL_MAX_ROWS = 64
 
-_BN = 128              # columns per block of the kernel's first pass
+_BN = 128              # columns per block of the float32 kernel
 _K_LANES = 32          # threads of a block that share a column
 _TARGET_BLOCKS = 264   # about two blocks on each of an H100's 132 SMs
+_TC_BN = 64            # columns per block of the bf16 kernel: the MMA's M
+_TC_ROWS = 256         # its weight rows per split: four warpgroups x 64
+_SMS = 132             # an H100's SMs: at most one block on each
+_COUNTERS = 1 << 16    # column tiles the bf16 kernel's counters cover
 
 
 def split_rows(k, n):
-    """Weight rows per split of the kernel's first pass, from (K, N) alone:
-    about ``_TARGET_BLOCKS`` blocks, a multiple of 32 rows from 64 to 1024.
-    It never depends on M, so the order of every sum is the same whatever
-    the number of rows of x.
+    """Weight rows per split of the float32 kernel's first pass, from
+    (K, N) alone: about ``_TARGET_BLOCKS`` blocks, a multiple of 32 rows
+    from 64 to 1024.  It never depends on M, so the order of every sum is
+    the same whatever the number of rows of x.
 
     >>> [split_rows(1024, 1024), split_rows(1024, 4096), split_rows(4096, 1024)]
     [64, 128, 128]
@@ -55,6 +64,38 @@ def split_rows(k, n):
     return min(max(rows, 2 * _K_LANES), 1024)
 
 
+@functools.lru_cache(maxsize=None)
+def bf16_split_rows(k, n):
+    """Weight rows per split of the bf16 kernel, from (K, N) alone: as many
+    splits as leave at most one block of 64 columns on each SM, in rows
+    that are a multiple of 256 (its four warpgroups take 64 each in turn)
+    up to 1024 (its shared memory).  As :func:`split_rows`, it never
+    depends on M.
+
+    >>> [bf16_split_rows(1024, 1024), bf16_split_rows(1024, 4096),
+    ...  bf16_split_rows(4096, 1024), bf16_split_rows(1000, 1030)]
+    [256, 512, 512, 256]
+    """
+    tiles = -(-n // _TC_BN)
+    splits = max(1, _SMS // tiles)
+    rows = -(-k // splits)
+    rows = -(-rows // _TC_ROWS) * _TC_ROWS
+    return min(rows, 1024)
+
+
+_counters = {}
+
+
+def _tile_counters(index):
+    """The bf16 kernel's per-tile counters on CUDA device ``index``: zeros,
+    made once (each launch leaves them zero)."""
+    counters = _counters.get(index)
+    if counters is None:
+        counters = _counters[index] = torch.zeros(
+            _COUNTERS, dtype=torch.int32, device=f'cuda:{index}')
+    return counters
+
+
 def _prepare(x, w_q, scale, bias, out_features, k_logical):
     """Check the contract; -> (x2 (M, K_w), w_q, scale, bias or None,
     lead shape, output columns)."""
@@ -63,9 +104,10 @@ def _prepare(x, w_q, scale, bias, out_features, k_logical):
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f'x is {x.dtype}: int8_matmul takes float32 or '
                         'bfloat16 activations')
+    device = x.device
     for name, t in (('w_q', w_q), ('scale', scale), ('bias', bias)):
-        if t is not None and t.device != x.device:
-            raise ValueError(f'{name} is on {t.device}, x on {x.device}')
+        if t is not None and t.device != device:
+            raise ValueError(f'{name} is on {t.device}, x on {device}')
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, scale, bias)):
         raise ValueError(
@@ -99,6 +141,8 @@ def _prepare(x, w_q, scale, bias, out_features, k_logical):
 def _finish(out, lead, n, n_out):
     if n_out != n:
         out = out[:, :n_out]
+    if len(lead) == 1:
+        return out
     return out.reshape(*lead, n_out)
 
 
@@ -114,26 +158,47 @@ def _launch(x2, w_q, scale, bias):
     n = w_q.shape[1]
     if m == 0:
         return x2.new_empty((0, n))
-    x2 = x2.contiguous()
-    w_q = w_q.contiguous()
-    scale = scale.to(torch.float32).contiguous()
+    if not x2.is_contiguous():
+        x2 = x2.contiguous()
+    if not w_q.is_contiguous():
+        w_q = w_q.contiguous()
+    if scale.dtype != torch.float32 or not scale.is_contiguous():
+        scale = scale.to(torch.float32).contiguous()
     bias_kind = 0
     if bias is not None:
         if bias.dtype not in (torch.float32, torch.bfloat16):
             bias = bias.float()
         bias = bias.contiguous()
         bias_kind = 1 if bias.dtype == torch.float32 else 2
-    rows = split_rows(k, n)
-    ws = torch.empty((-(-k // rows), m, n), dtype=torch.float32,
-                     device=x2.device)
-    out = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
+    place = x2.device
+    out = torch.empty((m, n), dtype=x2.dtype, device=place)
     lib = _build.load_library()
     stream, device = _build.stream_and_device(x2)
-    err = lib.int8_matmul_fwd(
-        x2.data_ptr(), int(x2.dtype == torch.bfloat16), w_q.data_ptr(),
-        scale.data_ptr(), None if bias is None else bias.data_ptr(),
-        bias_kind, out.data_ptr(), ws.data_ptr(), m, k, n, rows, device,
-        stream)
+    bias_ptr = None if bias is None else bias.data_ptr()
+    if x2.dtype == torch.bfloat16:
+        rows = bf16_split_rows(k, n)
+        splits = -(-k // rows)
+        if -(-n // _TC_BN) > _COUNTERS:
+            raise ValueError(f'N={n}: more column tiles than the bf16 '
+                             f'kernel counts ({_COUNTERS})')
+        ws = counters = None
+        if splits > 1:
+            ws = torch.empty((splits, m, n), dtype=torch.float32,
+                             device=place)
+            counters = _tile_counters(device)
+        err = lib.int8_matmul_bf16_fwd(
+            x2.data_ptr(), w_q.data_ptr(), scale.data_ptr(), bias_ptr,
+            bias_kind, out.data_ptr(), None if ws is None else ws.data_ptr(),
+            None if counters is None else counters.data_ptr(), m, k, n, rows,
+            device, stream)
+    else:
+        rows = split_rows(k, n)
+        ws = torch.empty((-(-k // rows), m, n), dtype=torch.float32,
+                         device=place)
+        err = lib.int8_matmul_fwd(
+            x2.data_ptr(), w_q.data_ptr(), scale.data_ptr(), bias_ptr,
+            bias_kind, out.data_ptr(), ws.data_ptr(), m, k, n, rows, device,
+            stream)
     _build.check(lib, err, 'int8_matmul kernel')
     int8_matmul.launches += 1
     return out

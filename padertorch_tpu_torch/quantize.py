@@ -35,7 +35,22 @@ from padertorch_tpu_torch.module import swap_submodules
 from padertorch_tpu_torch.ops.kernels.int8_matmul import (
     INT8_KERNEL_MAX_ROWS, int8_matmul, int8_matmul_plain)
 
-__all__ = ['QuantizedLinear', 'quantize_module', 'quantization_error']
+__all__ = ['QuantizedLinear', 'quantize_module', 'quantization_error',
+           'kernel_route']
+
+
+def kernel_route(device, rows):
+    """Whether ``QuantizedLinear(use_kernel=None)`` takes the int8 kernel
+    for ``rows`` rows of x on ``device``: on a CUDA card up to
+    ``INT8_KERNEL_MAX_ROWS`` rows (where the kernel's device time is at
+    most the composed route's), the composed route above and on the CPU
+    (as the JAX package's ``None``).
+
+    >>> [kernel_route(torch.device('cpu'), 1),
+    ...  kernel_route(torch.device('cuda'), 1)]
+    [False, True]
+    """
+    return device.type == 'cuda' and rows <= INT8_KERNEL_MAX_ROWS
 
 
 class QuantizedLinear(nn.Float32Buffers):
@@ -48,10 +63,11 @@ class QuantizedLinear(nn.Float32Buffers):
     ``use_kernel`` (a class attribute, set per instance to override):
     ``True`` takes the kernel route (the hand-written kernel on a CUDA
     tensor, its plain version on a CPU tensor), ``False`` the composed
-    route, ``None`` (the default) the kernel on a CUDA tensor of at most
-    ``INT8_KERNEL_MAX_ROWS`` rows and the composed route otherwise (on a CPU
-    tensor always, as the JAX package's ``None``), and ``'interpret'`` the
-    kernel's plain version (the JAX package's interpret mode).
+    route, ``None`` (the default) what :func:`kernel_route` picks from the
+    device and the rows of x (the kernel on a CUDA tensor of at most
+    ``INT8_KERNEL_MAX_ROWS`` rows, the composed route otherwise), and
+    ``'interpret'`` the kernel's plain version (the JAX package's interpret
+    mode).
     """
 
     use_kernel = None
@@ -93,8 +109,7 @@ class QuantizedLinear(nn.Float32Buffers):
     def _route(self, x):
         mode = self.use_kernel
         if mode is None:
-            rows = x.numel() // max(x.shape[-1], 1)
-            return x.device.type == 'cuda' and rows <= INT8_KERNEL_MAX_ROWS
+            return kernel_route(x.device, x.numel() // max(x.shape[-1], 1))
         return mode
 
     def forward(self, x):

@@ -34,14 +34,18 @@ TOL = 1e-5
 def _pinned_cpu_arithmetic():
     """Every test starts from the same CPU arithmetic, whatever the tests
     that ran before it in this worker's process left: two intra-op threads,
-    float32 matmuls at full precision, no flushing of denormals.  (The
-    causal forward case once failed by 5.1e-5 in a whole run, after other
-    files on its worker, and passed alone.)"""
+    float32 matmuls at full precision, no flushing of denormals; and
+    torch's float32 ``exp`` and ``log`` already called once.  The first
+    ``exp`` of a process, on two threads of a loaded machine, can come back
+    with errors several times this file's limit (the next call is exact):
+    the causal forward case, the first test of this file and so often the
+    first ``exp`` of its worker, failed by 5.1e-5 that way in whole runs."""
     threads = torch.get_num_threads()
     precision = torch.get_float32_matmul_precision()
     torch.set_num_threads(2)
     torch.set_float32_matmul_precision('highest')
     torch.set_flush_denormal(False)
+    torch.log(torch.exp(torch.linspace(-30.0, 0.0, 1 << 16)))
     yield
     torch.set_num_threads(threads)
     torch.set_float32_matmul_precision(precision)
@@ -122,7 +126,18 @@ def test_forward_matches_the_pallas_kernel(name):
     got = flash_attention(torch.from_numpy(q), torch.from_numpy(k),
                           torch.from_numpy(v), **kwargs)
     assert got.shape == want.shape and got.dtype == torch.float32
-    np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=0)
+    # each side against the float64 reference too, so that a failure
+    # names the side that moved
+    ref = _dense_reference(q, k, v, **kwargs)
+    sides = (f'against float64: the Pallas kernel '
+             f'{np.abs(want - ref).max():.3e}, the port '
+             f'{np.abs(got.numpy() - ref).max():.3e}')
+    np.testing.assert_allclose(want, ref, atol=TOL, rtol=0,
+                               err_msg='the Pallas kernel; ' + sides)
+    np.testing.assert_allclose(got.numpy(), ref, atol=TOL, rtol=0,
+                               err_msg='the port; ' + sides)
+    np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=0,
+                               err_msg=sides)
 
 
 @pytest.mark.parametrize('name', sorted(CASES))

@@ -102,6 +102,44 @@ def test_lstm_kernel_rejects_what_it_does_not_take(cuda):
         lstm_cell_scan(gx, w.cpu(), None, h, h)
 
 
+@pytest.mark.parametrize('batch,hdim,t_len,mask_kind', [
+    (260, 128, 12, 'none'),      # the DPRNN intra shape's rows, 16 ranges
+    (400, 128, 9, 'chunks'),     # the inter shape's, its chunk-count mask
+    (260, 128, 11, 'ragged'),
+    (16, 600, 10, 'ragged'),     # uPIT: one range of all 16 rows
+])
+def test_lstm_forward_kernels_split_rows_and_match_plain(
+        cuda, batch, hdim, t_len, mask_kind):
+    """Both forward kernels split a direction's rows over blocks (and keep
+    c of their own rows): lean and training forward against plain at row
+    counts that take several row ranges, and at the uPIT width."""
+    rng = np.random.RandomState(batch + t_len)
+    mask = None
+    if mask_kind == 'chunks':
+        lens = np.repeat([t_len, t_len - 2, t_len - 4, t_len - 6], batch // 4)
+    elif mask_kind == 'ragged':
+        lens = rng.randint(1, t_len + 1, size=batch)
+    if mask_kind != 'none':
+        fwd = np.arange(t_len)[:, None] < lens[None, :]
+        mask = np.concatenate([fwd, fwd[::-1]], axis=1)
+    bound = 1 / np.sqrt(hdim)
+    arrays = [rng.uniform(-1, 1, (t_len, 2 * batch, 4 * hdim)),
+              rng.uniform(-bound, bound, (2, hdim, 4 * hdim)), mask,
+              rng.uniform(-0.5, 0.5, (2 * batch, hdim)),
+              rng.uniform(-0.5, 0.5, (2 * batch, hdim))]
+    args = [None if a is None else torch.tensor(a, dtype=torch.float32,
+                                                device=cuda)
+            for a in arrays]
+    gx, w, mask_t, h0, c0 = args
+    got = lstm_cell_scan(*args)
+    got_train = lstm_kernels._launch(gx, w, 2, mask_t, h0, c0, train=True)
+    torch.cuda.synchronize()
+    for g, e in zip(got, lstm_cell_scan_plain(*args)):
+        torch.testing.assert_close(g, e, atol=1e-5, rtol=0)
+    for g, e in zip(got_train, lstm_cell_scan_train_plain(*args)):
+        torch.testing.assert_close(g, e, atol=1e-5, rtol=0)
+
+
 TRAIN_SHAPES = [
     # n_dir, batch, hdim, t_len, mask
     (1, 1, 8, 1, 'none'),        # one row, T=1
@@ -875,9 +913,10 @@ def test_speaker_clf_on_the_card_matches_the_cpu_and_round_trips(cuda):
         assert torch.equal(a, b), name
 
 
-INT8_SHAPES = [(m, k, n) for m in (1, 8, 32, 128)
+INT8_SHAPES = [(m, k, n) for m in (1, 8, 16, 32, 64, 128, 256)
                for k, n in ((1024, 1024), (1024, 4096), (4096, 1024))]
-INT8_SHAPES += [(1, 1000, 1030), (5, 1000, 1030), (3, 96, 200), (2, 40, 7)]
+INT8_SHAPES += [(1, 1000, 1030), (5, 1000, 1030), (37, 1000, 1030),
+                (70, 1000, 1030), (3, 96, 200), (2, 40, 7), (9, 1001, 64)]
 
 
 def _int8_inputs(cuda, m, k, n, dtype, seed=0):
@@ -924,18 +963,49 @@ def test_int8_matmul_kernel_matches_plain(cuda, m, k, n, dtype):
 
 
 def test_int8_matmul_rows_are_the_same_bits_in_any_batch(cuda):
-    """The order of every sum is fixed by (K, N): a row of a batch of 8 or
-    128 equals the same row alone, bit for bit, and two launches agree."""
+    """The order of every sum is fixed by (K, N): the rows of a batch of 1,
+    8, 32, 128 or 256 equal the same rows of any other batch, bit for bit
+    (in bf16 the products of 8, 16, 32 or 64 rows at a time run as one
+    tensor-core instruction of that width), and two launches agree."""
     from padertorch_tpu_torch.ops.kernels.int8_matmul import int8_matmul
     for dtype in (torch.float32, torch.bfloat16):
-        x, w_q, scale, bias = _int8_inputs(cuda, 128, 1024, 4096, dtype)
+        x, w_q, scale, bias = _int8_inputs(cuda, 256, 1024, 4096, dtype)
         full = int8_matmul(x, w_q, scale, bias)
         assert torch.equal(full, int8_matmul(x, w_q, scale, bias))
-        for rows in (x[:8], x[5:6], x[127:]):
+        for m in (1, 8, 32, 128):
+            assert torch.equal(int8_matmul(x[:m], w_q, scale, bias),
+                               full[:m]), (dtype, m)
+        for rows in (x[5:6], x[127:135], x[255:]):
             part = int8_matmul(rows, w_q, scale, bias)
             start = int((rows.data_ptr() - x.data_ptr())
                         // (x.element_size() * x.shape[1]))
             assert torch.equal(part, full[start:start + rows.shape[0]])
+
+
+def test_int8_matmul_counters_reset_between_calls_and_in_a_graph(cuda):
+    """The bf16 kernel's last block of each column tile resets the tile's
+    counter: calls in a row, calls replayed from a CUDA graph and a call
+    after the replays give the same bits."""
+    from padertorch_tpu_torch.ops.kernels.int8_matmul import (
+        bf16_split_rows, int8_matmul)
+    x, w_q, scale, bias = _int8_inputs(cuda, 8, 4096, 1024, torch.bfloat16)
+    assert -(-4096 // bf16_split_rows(4096, 1024)) > 1   # several splits
+    want = int8_matmul(x, w_q, scale, bias)
+    for _ in range(3):
+        assert torch.equal(int8_matmul(x, w_q, scale, bias), want)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        int8_matmul(x, w_q, scale, bias)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [int8_matmul(x, w_q, scale, bias) for _ in range(4)]
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(out, want) for out in outs)
+    assert torch.equal(int8_matmul(x, w_q, scale, bias), want)
 
 
 def test_int8_matmul_kernel_rejects_what_it_does_not_take(cuda):

@@ -20,7 +20,7 @@ from padertorch_tpu.ops.pallas.int8_matmul import (
     int8_matmul as jax_int8_matmul)
 from padertorch_tpu_torch.ops.kernels import int8_matmul as kernels
 from padertorch_tpu_torch.ops.kernels.int8_matmul import (
-    int8_matmul, int8_matmul_plain, split_rows)
+    bf16_split_rows, int8_matmul, int8_matmul_plain, split_rows)
 
 torch.set_num_threads(2)
 
@@ -144,3 +144,20 @@ def test_rows_per_split_depend_on_the_weight_alone():
         assert blocks >= min(kernels._TARGET_BLOCKS // 2, -(-k // 64)
                              * -(-n // 128)), (k, n, rows, blocks)
     assert 1 <= kernels.INT8_KERNEL_MAX_ROWS <= 128
+
+
+@pytest.mark.parametrize('k,n,rows', [
+    (1024, 1024, 256), (1024, 4096, 512), (4096, 1024, 512),
+    (1000, 1030, 256), (96, 200, 256), (50000, 64, 512), (40, 7, 256)])
+def test_bf16_rows_per_split_depend_on_the_weight_alone(k, n, rows):
+    """The bf16 kernel's order of summation is fixed by (K, N) too: rows
+    per split are a multiple of 256 (its four warpgroups take 64 rows each
+    in turn), at most 1024 (its shared memory), and give at most one block
+    of 64 columns on each of the card's 132 SMs where the rows allow; the
+    plan takes (K, N) and nothing else."""
+    import inspect
+    assert list(inspect.signature(bf16_split_rows).parameters) == ['k', 'n']
+    assert bf16_split_rows(k, n) == rows
+    blocks = -(-n // 64) * -(-k // rows)
+    assert blocks <= 132 or rows == 1024
+

@@ -25,8 +25,10 @@ from padertorch_tpu_torch.contrib.mk.modules import transformer as tf
 from padertorch_tpu_torch.migrate import (
     from_jax_state_dict, to_jax_state_dict)
 from padertorch_tpu_torch.ops.kernels.int8_matmul import int8_matmul
+from padertorch_tpu_torch.ops.kernels.int8_matmul import (
+    INT8_KERNEL_MAX_ROWS)
 from padertorch_tpu_torch.quantize import (
-    QuantizedLinear, quantization_error, quantize_module)
+    QuantizedLinear, kernel_route, quantization_error, quantize_module)
 
 torch.set_num_threads(2)
 
@@ -96,6 +98,24 @@ def test_auto_dispatch_on_the_cpu_takes_the_composed_route():
     with torch.no_grad():
         assert torch.equal(q(x), composed)
     assert int8_matmul.launches == 0
+
+
+@pytest.mark.parametrize('rows', [1, 8, 16, 17, 64, 128, 129, 256, 1000])
+def test_auto_route_is_a_function_of_device_and_rows(rows, monkeypatch):
+    """``use_kernel=None`` takes the kernel on a CUDA card for up to
+    ``INT8_KERNEL_MAX_ROWS`` rows (phase 20's table) and the composed route
+    above it and on the CPU; the module asks ``kernel_route`` with the rows
+    of x, whatever its leading axes."""
+    assert not kernel_route(torch.device('cpu'), rows)
+    assert kernel_route(torch.device('cuda', 0), rows) == (
+        rows <= INT8_KERNEL_MAX_ROWS)
+    import padertorch_tpu_torch.quantize as quantize
+    q = QuantizedLinear.from_linear(_linear_pair(16, 8)[1])
+    asked = []
+    monkeypatch.setattr(quantize, 'kernel_route',
+                        lambda device, n: asked.append((device, n)))
+    q._route(torch.zeros((rows, 1, 16)))
+    assert asked == [(torch.device('cpu'), rows)]
 
 
 def test_quantize_module_walks_lists_and_skips_small():
