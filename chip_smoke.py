@@ -48,9 +48,11 @@ Phases, one line each:
    rows, H=256 at the class defaults), each with the TF32 control that must
    fail the limit, and one ``torch.nn.GRU`` layer (cuDNN) of the same sizes
    and directions as a yardstick.
-9. the three LSTM kernels vs plain at the DPRNN's two shapes, timed, with
-   the forwards' TF32 controls, beside one bidirectional ``torch.nn.LSTM``
-   layer (cuDNN) of the same sizes.
+9. the three LSTM kernels vs plain at the DPRNN's two shapes, timed, each
+   with its TF32 control, the backward with the grid it took (unit slice,
+   row ranges, rows per range, rows staged at once, K slices, blocks),
+   beside one bidirectional ``torch.nn.LSTM`` layer (cuDNN) of the same
+   sizes.
 10. TasNet serving, for ``bgru`` and ``blstm`` chunk RNNs: the full-width
     model (256 filters of length 20, 64 -> 6 blocks of 128 units, K=100,
     hop 50, 2 speakers) on the card against the same model on the CPU;
@@ -71,12 +73,16 @@ Phases, one line each:
     windowed and causal with key padding, grouped-query (4, 8 over 2,
     1024, 64), Tq != Tk and a head size outside the template set; each
     timed beside the plain version, ``F.scaled_dot_product_attention``
-    (float32, TF32 off) and its bound (the backward as the median of five
-    windows after a warm-up, with the allocator's cache emptied).  Then the dispatch table: one
-    ``MultiheadAttention`` forward and forward + backward on the fused and
-    on the dense backend at (8, T, 12 x 64) for T = 512 ... 4096, full,
-    causal and windowed, and at the SepFormer's two shapes; the table
-    is printed beside what ``should_use_flash`` picks.
+    (float32, TF32 off) and its bound, with the kernel's share of it (the
+    backward as the median of five windows after a warm-up, with the
+    allocator's cache emptied); at each timed shape autograd through the
+    plain version with TF32 products (on operands rounded to TF32) must
+    fail the gradients' limit, which the kernels' 3xTF32 tensor-core
+    products meet.  Then the dispatch table: one ``MultiheadAttention``
+    forward and forward + backward on the fused and on the dense backend
+    at (8, T, 12 x 64) for T = 512 ... 4096, full, causal and windowed,
+    and at the SepFormer's two shapes; the table is printed beside what
+    ``should_use_flash`` picks.
 13. SepFormer-TasNet serving: the tasnet recipe's ``sepformer`` variant at
     full width (256 filters of length 20, 128 features, 4 blocks of 2 + 2
     transformer layers, 8 heads, K=100, hop 50) trained for 4 iterations
@@ -214,7 +220,7 @@ from padertorch_tpu_torch.ops.kernels import gru as gru_kernels
 from padertorch_tpu_torch.ops.kernels import lstm as lstm_kernels
 from padertorch_tpu_torch.ops.kernels.attention import (
     flash_attention, flash_attention_fwd_plain, flash_attention_plain,
-    should_use_flash, visible_mask)
+    should_use_flash, tf32_round, visible_mask)
 from padertorch_tpu_torch.ops.kernels.gru import (
     gru_cell_scan, gru_cell_scan_plain, gru_cell_scan_train_plain,
     gru_cell_scan_bwd_plain)
@@ -319,6 +325,11 @@ SERVE_LOGIT_RTOL = 0.02
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM, HBM3
 PEAK_F32_FLOPS = 67e12       # H100 SXM, float32 outside the tensor cores
 PEAK_BF16_FLOPS = 989e12     # H100 SXM, bf16 on the tensor cores, dense
+PEAK_TF32_FLOPS = 495e12     # H100 SXM, TF32 on the tensor cores, dense
+# float32 products as three TF32 products each (hi*hi + hi*lo + lo*hi)
+PEAK_3XTF32_FLOPS = PEAK_TF32_FLOPS / 3
+PEAK_NAMES = {PEAK_F32_FLOPS: 'float32', PEAK_BF16_FLOPS: 'bf16 tensor cores',
+              PEAK_3XTF32_FLOPS: '3xTF32 tensor cores'}
 
 
 def fail(msg):
@@ -385,12 +396,13 @@ def nbytes(*tensors):
 def bound(n_bytes, flops, peak=PEAK_F32_FLOPS):
     """The least time the card could take for the work: each input read
     and each output written once at the memory's peak rate, or the
-    operations at ``peak`` (the float32 peak unless the products run
-    exactly on the tensor cores), whichever is larger."""
+    operations at ``peak`` (the float32 peak unless the products run on
+    the tensor cores), whichever is larger; ``peak`` names that rate."""
     by_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     by_ops = flops / peak * 1e3
     return {'bound_ms': max(by_bytes, by_ops),
-            'bound_by': 'bytes' if by_bytes >= by_ops else 'operations'}
+            'bound_by': 'bytes' if by_bytes >= by_ops else 'operations',
+            'peak': PEAK_NAMES[peak]}
 
 
 def lstm_flops(mask, hdim):
@@ -1145,8 +1157,8 @@ def phase_gru_kernels():
 def phase_lstm_at_dprnn_shapes():
     """Phase 9: the three LSTM kernels at the DPRNN's two shapes, timed
     beside one bidirectional ``torch.nn.LSTM`` layer (cuDNN) of the same
-    sizes (the chunk RNN's input of 64 features), with the forwards' TF32
-    controls."""
+    sizes (the chunk RNN's input of 64 features), each with its TF32
+    control, the backward with the grid it took."""
     results = {}
     for label, t_len, batch, hdim, kind in RECURRENCE_SHAPES[:2]:
         args, cot = recurrence_inputs(t_len, batch, hdim, kind, gates=4)
@@ -1174,7 +1186,11 @@ def phase_lstm_at_dprnn_shapes():
         tf32 = {'fwd': with_tf32(lambda: max_err(
                     lstm_cell_scan_plain(*args), want)),
                 'fwd_train': with_tf32(lambda: max_err(
-                    lstm_cell_scan_train_plain(*args), want_train))}
+                    lstm_cell_scan_train_plain(*args), want_train)),
+                'bwd': with_tf32(lambda: max_err(
+                    lstm_cell_scan_bwd_plain(gates, c_seq, w, mask, *cot),
+                    want_bwd))}
+        grid = lstm_kernels.bwd_grid(2, batch, hdim)
         times = {'fwd': cuda_ms(lambda: lstm_cell_scan(*args), iters=10),
                  'fwd_train': cuda_ms(fwd_train, iters=10),
                  'bwd': cuda_ms(bwd, iters=10)}
@@ -1187,17 +1203,17 @@ def phase_lstm_at_dprnn_shapes():
                          flops)}
         for name, tol in (('fwd', LSTM_TOL), ('fwd_train', LSTM_TOL),
                           ('bwd', LSTM_BWD_TOL)):
-            control = (f', plain with TF32 {tf32[name]:.3e}'
-                       if name in tf32 else '')
+            shown = (' on the grid ' + ', '.join(
+                f'{k} {v}' for k, v in grid.items()) if name == 'bwd' else '')
             print(f'phase 9 lstm {name} {label}: max |kernel - plain| '
-                  f'{err[name]:.3e} (tol {tol}){control}, kernel '
-                  f'{times[name]:.3f} ms, bound '
-                  f'{limits[name]["bound_ms"]:.4f} ms by '
+                  f'{err[name]:.3e} (tol {tol}), plain with TF32 '
+                  f'{tf32[name]:.3e}, kernel {times[name]:.3f} ms{shown}, '
+                  f'bound {limits[name]["bound_ms"]:.4f} ms by '
                   f'{limits[name]["bound_by"]}')
             if not err[name] <= tol:
                 fail(f'lstm {name} kernel disagrees with plain at {label}: '
                      f'{err[name]}')
-            if name in tf32 and not tf32[name] > tol:
+            if not tf32[name] > tol:
                 fail(f'the limit {tol} does not tell a TF32 recurrence from '
                      f'f32 at {label}: {tf32[name]}')
         print(f'phase 9 yardstick {label}: one bidirectional torch.nn.LSTM '
@@ -1207,7 +1223,8 @@ def phase_lstm_at_dprnn_shapes():
               f'{library["bwd"]:.3f} ms')
         results[label] = {**times,
                           'library': {k: round(v, 4)
-                                      for k, v in library.items()}}
+                                      for k, v in library.items()},
+                          'bwd_grid': grid}
     return results
 
 
@@ -1236,6 +1253,13 @@ ATTENTION_CASES = [
      {'window': (7, 3)}, False),
     ('D=128 gqa (2, 8 over 2, 130 x 77) ragged', 2, 8, 2, 130, 77, 128,
      {'key_padding_lens': [77, 50]}, False),
+    # long sums at the widest head: dk, dv over 4096 queries (16384 with
+    # the group's heads), on the tensor cores
+    ('D=128 (2, 8, 4096, 128) full', 2, 8, 8, 4096, 4096, 128, {}, False),
+    ('D=128 (2, 8, 4096, 128) causal', 2, 8, 8, 4096, 4096, 128,
+     {'causal': True}, False),
+    ('D=128 gqa (1, 8 over 2, 4096, 128)', 1, 8, 2, 4096, 4096, 128, {},
+     False),
 ]
 
 
@@ -1310,13 +1334,28 @@ def attention_case(label, b, h, h_kv, tq, tk, d, masks, timed):
     torch.cuda.synchronize()
     err['dq, dk, dv'] = max_err(got_grads, want_grads)
     rel = max_rel_err(got_grads, want_grads)
+    # the control: autograd through plain with TF32 products must fail the
+    # limit the kernels' 3xTF32 products meet.  cuBLAS keeps the small
+    # batched products of the SepFormer shapes on its float32 path even
+    # with TF32 allowed (the control read 0.0 at (400, 8, 66, 16)), so the
+    # operands are rounded to TF32 as a TF32 product reads them, too
+    def tf32_grads():
+        leaves = [tf32_round(x).requires_grad_() for x in (q, k, v)]
+        out = flash_attention_plain(*leaves, **masks)
+        return torch.autograd.grad(out, leaves, tf32_round(d_o))
+
+    tf32_rel = (with_tf32(lambda: max_rel_err(tf32_grads(), want_grads))
+                if timed else None)
     same = all(torch.equal(x, y)
                for x, y in zip(got_grads, grads(flash_attention)))
     print(f'phase 12 attention {label}: max |kernel - plain| '
           + ', '.join(f'{k} {v:.3e}' for k, v in err.items())
           + f' (tol {ATTENTION_TOL} on o and lse); gradients relative '
-          f'{rel:.3e} (tol {ATTENTION_GRAD_RTOL}); two backward runs the '
-          f'same bits: {same}')
+          f'{rel:.3e} (tol {ATTENTION_GRAD_RTOL})'
+          + ('' if tf32_rel is None else
+             f', autograd through plain with TF32 (operands rounded to '
+             f'TF32) {tf32_rel:.3e}')
+          + f'; two backward runs the same bits: {same}')
     if not max(err['o'], err.get('o, lse (training forward)', 0.0)) \
             <= ATTENTION_TOL:
         fail(f'attention forward kernel disagrees with plain at {label}: '
@@ -1324,6 +1363,9 @@ def attention_case(label, b, h, h_kv, tq, tk, d, masks, timed):
     if not rel <= ATTENTION_GRAD_RTOL:
         fail(f'attention backward kernels disagree with autograd through '
              f'plain at {label}: {rel}')
+    if tf32_rel is not None and not tf32_rel > ATTENTION_GRAD_RTOL:
+        fail(f'the limit {ATTENTION_GRAD_RTOL} does not tell TF32 attention '
+             f'gradients from f32 at {label}: {tf32_rel}')
     if not same:
         fail(f'two attention backward runs differ at {label}')
     if lens is not None:
@@ -1366,14 +1408,16 @@ def attention_case(label, b, h, h_kv, tq, tk, d, masks, timed):
     times['fwd_library'], times['bwd_library'] = attention_library(
         q, k, v, d_o, masks)
     # the work these inputs need: the visible (query, key) pairs, each two
-    # products of D in the forward (q k^T, p v) and five in the backward
+    # products of D in the forward (q k^T, p v) and five in the backward;
+    # the forward runs on the CUDA cores, the backward's products on the
+    # tensor cores as 3xTF32
     visible = visible_mask(tq, tk, lens, masks.get('causal', False),
                            masks.get('window'), q.device)
     pairs = float(visible.sum()) * h * (b // visible.shape[0])
     limits = {
         'fwd': bound(nbytes(q, k, v, lens, got), 4 * pairs * d),
         'bwd': bound(nbytes(q, k, v, lens, got, want_lse, d_o, *got_grads),
-                     10 * pairs * d)}
+                     10 * pairs * d, PEAK_3XTF32_FLOPS)}
     for name in ('fwd', 'bwd'):
         print(f'phase 12 attention {name} {label}: kernel '
               f'{times[name]:.3f} ms'
@@ -1386,7 +1430,9 @@ def attention_case(label, b, h, h_kv, tq, tk, d, masks, timed):
               f'scaled_dot_product_attention '
               f'{times[name + "_library"]:.3f} ms, bound '
               f'{limits[name]["bound_ms"]:.4f} ms by '
-              f'{limits[name]["bound_by"]}')
+              f'{limits[name]["bound_by"]} at the {limits[name]["peak"]} '
+              f'peak (the kernel at '
+              f'{limits[name]["bound_ms"] / times[name]:.1%} of it)')
     return {
         'fwd': {'max_abs_err': max(
             err['o'], err.get('o, lse (training forward)', 0.0)),
@@ -2434,9 +2480,7 @@ def int8_case(m, k, n, dtype):
     peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
     limits = bound(nbytes(x, w_q, scale, bias) + out_bytes, 2.0 * m * k * n,
                    peak)
-    return {'err': err, 'max_abs_err': err['bias'][1], **times, **limits,
-            'peak': 'bf16 tensor cores' if peak == PEAK_BF16_FLOPS
-            else 'float32'}
+    return {'err': err, 'max_abs_err': err['bias'][1], **times, **limits}
 
 
 def host_us(fn, calls=100):
@@ -2559,7 +2603,7 @@ def phase_int8_kernel():
                 if (m, k, n, dtype) == INT8_ROW_SHAPE:
                     row = {key: r[key] for key in (
                         'max_abs_err', 'ms', 'plain_ms', 'bound_ms',
-                        'bound_by', 'library_ms')}
+                        'bound_by', 'peak', 'library_ms')}
                 torch.cuda.empty_cache()
     x, w_q, scale, bias = int8_inputs(32, 1024, 1024, torch.float32)
     want = int8_matmul_plain(x, w_q, scale, bias)

@@ -1,14 +1,14 @@
 // Device and host helpers shared by the flash-attention forward and
 // backward kernels.
 //
-// Thread layout of all three kernels: a sequence row (a query row in the
-// forward and the dq kernel, a key row in the dk/dv kernel) belongs to a
-// group of G neighbouring lanes of one warp; lane g of the group holds the
-// float4 chunks g, g + G, g + 2G, ... of the row's D values (interleaved,
-// so the G lanes read neighbouring 16-byte words of a shared-memory row and
-// do not collide on banks).  A dot product over D is DPT = D / G FMAs per
-// lane and a butterfly of log2(G) shuffles, after which every lane of the
-// group holds the same sum, bit for bit.
+// Thread layout of the forward kernel (the backward's kernels hold their
+// rows as tensor-core fragments, flash_attention_bwd.cu): a query row
+// belongs to a group of G neighbouring lanes of one warp; lane g of the
+// group holds the float4 chunks g, g + G, g + 2G, ... of the row's D values
+// (interleaved, so the G lanes read neighbouring 16-byte words of a
+// shared-memory row and do not collide on banks).  A dot product over D is
+// DPT = D / G FMAs per lane and a butterfly of log2(G) shuffles, after
+// which every lane of the group holds the same sum, bit for bit.
 #pragma once
 #include <cuda_runtime.h>
 

@@ -27,7 +27,7 @@ inline int k_slices(int P, int K) {
     return ks < 1 ? 1 : ks;
 }
 
-// How a cell-scan grid (the GRU kernels, the LSTM forward) divides a
+// How a cell-scan grid (the GRU and LSTM kernels) divides a
 // layer: a block owns one direction, a slice of U hidden units (n_ub
 // slices) and a range of RB rows of its direction (n_rb ranges), of which
 // it stages RS at once; KS K slices.

@@ -47,12 +47,15 @@ HEAD_SIZES = (16, 32, 64, 128)
 # backward: inclusive ranges (lo, hi) of max(Tq, Tk), None for an open end.
 # From the table that chip_smoke.py phase 12 measures (PERF.md, "Attention
 # dispatch"): 12 heads of 64 at T = 512 ... 4096, 8 heads of 16 at T = 66
-# and 100.  With the full mask the forward loses at T = 512 and the
-# backward from 512 on (its products run on the CUDA cores, the dense
-# path's on cuBLAS); short sequences win because one launch replaces ten.
+# and 100.  With the full mask the forward ties at T = 512, and so does
+# forward plus backward (two calls read it each way); from T = 1024 on both
+# win, training since the backward's tile products run on the tensor cores
+# (3xTF32), so long-sequence training does not hold the dense path's
+# (B, H, T, T) weights; short sequences win because one launch replaces
+# ten.
 FLASH_WINS = {
     'full': {'forward': ((None, 128), (1024, None)),
-             'training': ((None, 128),)},
+             'training': ((None, 128), (1024, None))},
     'causal': {'forward': ((None, None),), 'training': ((None, None),)},
     'window': {'forward': ((None, None),), 'training': ((None, None),)},
 }
@@ -152,6 +155,14 @@ def flash_attention_plain(q, k, v, *, causal=False, key_padding_lens=None,
     return flash_attention_fwd_plain(
         q, k, v, causal=causal, key_padding_lens=key_padding_lens,
         window=window)[0]
+
+
+def tf32_round(x):
+    """float32 ``x`` as a TF32 tensor-core product reads it: the 13 low
+    mantissa bits cleared.  The backward kernels split an operand into
+    this part and the rest (3xTF32); emulations of that arithmetic, and of
+    plain TF32, round with it."""
+    return (x.view(torch.int32) & -8192).view(torch.float32)
 
 
 def _check(q, k, v):

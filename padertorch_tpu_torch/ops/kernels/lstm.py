@@ -21,6 +21,8 @@ The backward is exact for contiguous-valid masks (suffix padding, or
 prefix padding as the flipped direction of a bidirectional layer has it),
 which is what sequence lengths produce.
 """
+import ctypes
+
 import torch
 
 from padertorch_tpu_torch.ops.kernels import _build
@@ -261,6 +263,21 @@ def _launch_bwd(gates, c_seq, w, n_dir, mask, d_out, dh_t, dc_t):
     _build.check(lib, err, 'lstm_cell_scan backward kernel')
     lstm_cell_scan.launches['bwd'] += 1
     return dgx, dh0, dc0
+
+
+def bwd_grid(n_dir, rows_per_dir, hdim):
+    """The grid the backward kernel takes for a layer of ``n_dir``
+    directions of ``rows_per_dir`` rows and ``hdim`` units on the current
+    card: {'U', 'n_rb', 'RB', 'RS', 'KS', 'blocks'} (unit slice, row
+    ranges, rows per range, rows staged at once, K slices, blocks; blocks 0
+    when no grid is co-resident)."""
+    out = (ctypes.c_int * 6)()
+    lib = _build.load_library()
+    err = lib.lstm_cell_scan_bwd_grid(n_dir, rows_per_dir, hdim,
+                                      torch.cuda.current_device(),
+                                      ctypes.addressof(out))
+    _build.check(lib, err, 'lstm_cell_scan backward grid')
+    return dict(zip(('U', 'n_rb', 'RB', 'RS', 'KS', 'blocks'), out))
 
 
 class LSTMCellScan(torch.autograd.Function):

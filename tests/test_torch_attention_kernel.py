@@ -247,8 +247,9 @@ def test_the_measured_table_sends_the_sepformer_shapes_to_the_kernels():
         for training in (False, True):
             assert should_use_flash(t, training=training)
     assert not should_use_flash(512)
-    assert should_use_flash(2048) and not should_use_flash(
-        2048, training=True)
+    assert should_use_flash(2048) and should_use_flash(2048, training=True)
+    assert should_use_flash(1024, training=True)
+    assert not should_use_flash(512, training=True)
     assert should_use_flash(2048, causal=True, training=True)
     assert should_use_flash(4096, window=(256, 256), training=True)
 

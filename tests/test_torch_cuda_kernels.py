@@ -140,6 +140,65 @@ def test_lstm_forward_kernels_split_rows_and_match_plain(
         torch.testing.assert_close(g, e, atol=1e-5, rtol=0)
 
 
+
+@pytest.mark.parametrize('batch,hdim,t_len,mask_kind', [
+    (260, 128, 12, 'none'),      # the DPRNN intra shape's rows
+    (400, 128, 9, 'chunks'),     # the inter shape's, its chunk-count mask
+    (260, 128, 11, 'ragged'),
+    (16, 600, 10, 'ragged'),     # uPIT: one range of all 16 rows
+])
+def test_lstm_backward_kernel_splits_rows_and_matches_plain(
+        cuda, batch, hdim, t_len, mask_kind):
+    """The backward kernel splits a direction's rows over blocks at the
+    DPRNN's row counts (and keeps dh, dc of its own rows): dgates_x, dh0
+    and dc0 against the plain backward on the same residuals, and the
+    whole ``LSTMCellScan`` against autograd through the plain forward."""
+    rng = np.random.RandomState(batch + t_len)
+    mask = None
+    if mask_kind == 'chunks':
+        lens = np.repeat([t_len, t_len - 2, t_len - 4, t_len - 6], batch // 4)
+    elif mask_kind == 'ragged':
+        lens = rng.randint(1, t_len + 1, size=batch)
+    if mask_kind != 'none':
+        fwd = np.arange(t_len)[:, None] < lens[None, :]
+        mask = np.concatenate([fwd, fwd[::-1]], axis=1)
+    bound = 1 / np.sqrt(hdim)
+    arrays = [rng.uniform(-1, 1, (t_len, 2 * batch, 4 * hdim)),
+              rng.uniform(-bound, bound, (2, hdim, 4 * hdim)), mask,
+              rng.uniform(-0.5, 0.5, (2 * batch, hdim)),
+              rng.uniform(-0.5, 0.5, (2 * batch, hdim)),
+              rng.uniform(-1, 1, (t_len, 2 * batch, hdim)),
+              rng.uniform(-1, 1, (2 * batch, hdim)),
+              rng.uniform(-1, 1, (2 * batch, hdim))]
+    tensors = [None if a is None else torch.tensor(a, dtype=torch.float32,
+                                                   device=cuda)
+               for a in arrays]
+    args, cotangents = tensors[:5], tensors[5:]
+    gx, w, mask_t, h0, c0 = args
+    grid = lstm_kernels.bwd_grid(2, batch, hdim)
+    assert grid['blocks'] > 0
+    assert grid['RB'] * grid['n_rb'] >= batch
+    if batch >= 260:
+        assert grid['n_rb'] > 1, grid
+    _, c_seq, gates, _, _ = lstm_cell_scan_train_plain(*args)
+    before = dict(lstm_cell_scan.launches)
+    got = lstm_kernels._launch_bwd(gates, c_seq, w, 2, mask_t, *cotangents)
+    want = lstm_cell_scan_bwd_plain(gates, c_seq, w, mask_t, *cotangents)
+    torch.cuda.synchronize()
+    assert lstm_cell_scan.launches['bwd'] == before['bwd'] + 1
+    for g, e in zip(got, want):  # dgates_x, dh0, dc0
+        torch.testing.assert_close(g, e, atol=1e-5, rtol=0)
+
+    def grads(fn):
+        leaves = [a.clone().requires_grad_() for a in (gx, w, h0, c0)]
+        outs = fn(leaves[0], leaves[1], mask_t, leaves[2], leaves[3])
+        return torch.autograd.grad(outs, leaves, cotangents)
+
+    for g, e in zip(grads(lstm_cell_scan), grads(lstm_cell_scan_plain)):
+        scale = float(e.abs().max()) + 1e-12
+        assert float((g - e).abs().max()) / scale <= 1e-4
+
+
 TRAIN_SHAPES = [
     # n_dir, batch, hdim, t_len, mask
     (1, 1, 8, 1, 'none'),        # one row, T=1
@@ -605,6 +664,55 @@ def test_attention_kernels_match_plain(cuda, name):
         assert float(got_grads[0][row].abs().max()) == 0.0
         assert float(got_grads[1][row].abs().max()) == 0.0
         assert float(got_grads[2][row].abs().max()) == 0.0
+
+
+
+# head size: (B, H, Hkv, Tq, Tk, kwargs); every case has a row with one key
+# and a row with none
+ATTENTION_BWD_CASES = {
+    16: (3, 4, 2, 70, 130, {'window': (20, 5),
+                            'key_padding_lens': [130, 1, 0]}),
+    32: (3, 2, 1, 200, 150, {'causal': True,
+                             'key_padding_lens': [150, 1, 0]}),
+    64: (3, 4, 2, 129, 257, {'key_padding_lens': [257, 1, 0]}),
+    128: (3, 4, 4, 100, 90, {'causal': True, 'window': (30, None),
+                             'key_padding_lens': [90, 1, 0]}),
+    24: (3, 6, 3, 65, 33, {'window': (3, 7), 'key_padding_lens': [33, 1, 0]}),
+}
+
+
+@pytest.mark.parametrize('d', sorted(ATTENTION_BWD_CASES))
+def test_attention_backward_kernel_matches_plain_at_every_head_size(cuda, d):
+    """The backward kernels' 3xTF32 tensor-core products at every head size
+    of the template set and one that is padded (24), with Tq != Tk,
+    grouped-query heads, causal and windowed masks: dq, dk, dv within 5e-5
+    of each gradient's largest entry of autograd through the plain
+    version, the same bits on two runs, and zero gradients for the batch
+    row that sees no key."""
+    b, h, h_kv, tq, tk, kwargs = ATTENTION_BWD_CASES[d]
+    rng = np.random.RandomState(d)
+    q, k, v, d_o = (
+        torch.tensor(rng.randn(*shape), dtype=torch.float32, device=cuda)
+        for shape in ((b, h, tq, d), (b, h_kv, tk, d), (b, h_kv, tk, d),
+                      (b, h, tq, d)))
+
+    def grads(fn):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        return torch.autograd.grad(fn(*leaves, **kwargs), leaves, d_o)
+
+    before = flash_attention.launches['bwd']
+    got = grads(flash_attention)
+    again = grads(flash_attention)
+    want = grads(flash_attention_plain)
+    torch.cuda.synchronize()
+    assert flash_attention.launches['bwd'] == before + 2
+    for g, w, label in zip(got, want, 'qkv'):
+        assert g.shape == w.shape, label
+        scale = float(w.abs().max())
+        assert float((g - w).abs().max()) <= 5e-5 * scale, label
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    empty = kwargs['key_padding_lens'].index(0)
+    assert all(float(g[empty].abs().max()) == 0.0 for g in got)
 
 
 def test_attention_training_forward_writes_the_log_sum_exp(cuda):
