@@ -47,7 +47,13 @@ Phases, one line each:
    ragged frame mask: T=66, 8 rows, H=64 in the recipe's run; T=503, 16
    rows, H=256 at the class defaults), each with the TF32 control that must
    fail the limit, and one ``torch.nn.GRU`` layer (cuDNN) of the same sizes
-   and directions as a yardstick.
+   and directions as a yardstick; each shape's forward route (``resident``
+   where ``resident_plan`` gives a plan, printed with it: the DPRNN's and
+   the classifier recipe's shapes; ``cooperative`` otherwise), read from
+   ``gru_cell_scan.routes``, and a second lean run's bits.  Phases 10, 11
+   and 19 check that every GRU forward of the ``bgru`` paths and of the
+   classifier recipe took the resident route and the classifier defaults'
+   the cooperative one.
 9. the three LSTM kernels vs plain at the DPRNN's two shapes, timed, each
    with its TF32 control, the backward with the grid it took (unit slice,
    row ranges, rows per range, rows staged at once, K slices, blocks),
@@ -628,10 +634,24 @@ def reset_launches():
     for wrapper in (lstm_cell_scan, gru_cell_scan, flash_attention):
         for name in wrapper.launches:
             wrapper.launches[name] = 0
+    for name in gru_cell_scan.routes:
+        gru_cell_scan.routes[name] = 0
     masked_istft.launches = 0
     wavenet_sample.launches = 0
     fused_logmel.launches = 0
     int8_matmul.launches = 0
+
+
+def check_gru_routes(label, route):
+    """Every GRU forward launched since the counts were last reset took
+    ``route`` (the DPRNN's chunk RNNs and the classifier recipe's GRU the
+    resident one, the classifier defaults' the cooperative one)."""
+    n = gru_cell_scan.launches['fwd'] + gru_cell_scan.launches['fwd_train']
+    want = {'resident': 0, 'cooperative': 0, route: n}
+    if n == 0 or gru_cell_scan.routes != want:
+        fail(f'{label}: {n} GRU forwards, by route {gru_cell_scan.routes}; '
+             f'expected all on the {route} route')
+    return dict(gru_cell_scan.routes)
 
 
 def phase_slice():
@@ -1055,11 +1075,31 @@ def phase_gru_kernels():
         def fwd_train():
             return gru_kernels._launch(gx, w, n_dir, mask, h0, train=True)
 
+        # the forwards' route, chosen from the shape before the launch
+        plan = gru_kernels.resident_plan(
+            n_dir, batch, hdim,
+            *gru_kernels.device_limits(torch.cuda.current_device()))
+        route = 'cooperative' if plan is None else 'resident'
+        routes_before = dict(gru_cell_scan.routes)
         got = gru_cell_scan(*args)
         want = gru_cell_scan_plain(*args)
         got_train = fwd_train()
         want_train = gru_cell_scan_train_plain(*args)
+        again = gru_cell_scan(*args)
         torch.cuda.synchronize()
+        routed = {k: v - routes_before[k]
+                  for k, v in gru_cell_scan.routes.items()}
+        same_bits = all(torch.equal(a, b) for a, b in zip(got, again))
+        shown = ('' if plan is None else ' ' + ', '.join(
+            f'{k} {v}' for k, v in plan._asdict().items()))
+        print(f'phase 8 gru {label}: route {route}{shown}; launches by '
+              f'route {routed}; a second lean run gives the same bits: '
+              f'{same_bits}')
+        if routed != {'resident': 0, 'cooperative': 0, route: 3}:
+            fail(f'the gru forwards at {label} did not all take the '
+                 f'{route} route: {routed}')
+        if not same_bits:
+            fail(f'two lean gru runs at {label} differ')
         err = {'fwd': max_err(got, want),               # out, h_T
                # out, acts, gh_n, h_prev, h_T
                'fwd_train': max_err(got_train, want_train)}
@@ -1148,8 +1188,12 @@ def phase_gru_kernels():
         results[label] = {
             name: {'shape': label, 'max_abs_err': err[name],
                    'ms': times[name], 'plain_ms': times[name + '_plain'],
-                   **limits[name], 'library_ms': library[name]}
+                   **limits[name], 'library_ms': library[name],
+                   # the backward has the cooperative kernel alone
+                   'gru_route': route if name != 'bwd' else 'cooperative'}
             for name in ('fwd', 'fwd_train', 'bwd')}
+        results[label]['fwd']['plan'] = None if plan is None else plan._asdict()
+        results[label]['fwd_train']['plan'] = results[label]['fwd']['plan']
         results[label]['dw_ms'] = times['dw']
     return results
 
@@ -1540,15 +1584,17 @@ def serve_tasnet_requests(label, model, model_cpu, wrapper, per_request):
         latencies.append((time.perf_counter() - start) * 1e3)
         results[example_id] = metrics
     launches = dict(wrapper.launches)
+    routes = ('' if wrapper is not gru_cell_scan else
+              f' by route {check_gru_routes(f"phase {label}", "resident")}')
     with torch.no_grad():
         request = model.example_to_device(tas_data.post_batch_transform(
             [examples[0]]))
         forward_ms = cuda_ms(lambda: model(request), iters=5, warmup=2)
     print(f'phase {label} served {len(results)} requests, latency ms '
           f'{[round(x, 3) for x in latencies]} (median '
-          f'{np.median(latencies):.3f}), launches {launches}; model forward '
-          f'of one request ({examples[0]["observation"].shape[-1]} samples) '
-          f'{forward_ms:.3f} ms')
+          f'{np.median(latencies):.3f}), launches {launches}{routes}; model '
+          f'forward of one request ({examples[0]["observation"].shape[-1]} '
+          f'samples) {forward_ms:.3f} ms')
     if launches != {'fwd': per_request * 8, 'fwd_train': 0, 'bwd': 0}:
         fail(f'8 requests launch {per_request} lean forward kernels each, '
              f'got {launches}')
@@ -1722,6 +1768,8 @@ def phase_tasnet_training(name, profile=False):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - start
         launches = dict(wrapper.launches)
+        routes = ('' if wrapper is not gru_cell_scan else f' by route '
+                  f'{check_gru_routes(f"phase {phase}b {name}", "resident")}')
         iterations = trainer.iteration
         losses = [float(x) for x in recorder.losses]
         norms = [float(x) for x in recorder.norms]
@@ -1729,7 +1777,7 @@ def phase_tasnet_training(name, profile=False):
         half = iterations // 2
         print(f'phase {phase}b {name} trained {iterations} iterations in '
               f'{seconds:.2f} s (validations and checkpoints included), '
-              f'launches {launches}; training loss first half mean '
+              f'launches {launches}{routes}; training loss first half mean '
               f'{np.mean(losses[:half]):.4f}, second half mean '
               f'{np.mean(losses[half:]):.4f}; ranking {hook.ckpt_ranking}')
         if iterations < 8 or len(losses) != iterations:
@@ -1773,6 +1821,8 @@ def phase_tasnet_training(name, profile=False):
             batch = tasnet_batch(4, samples, seed=1)
             t = timed_step(trainer, batch, loss_key='si-sdr',
                            wrapper=wrapper, per_step=per_step)
+            if wrapper is gru_cell_scan:
+                check_gru_routes(f'phase {phase}e {name}', 'resident')
             print(f'phase {phase}e {name} training step B=4 x {samples} '
                   f'samples: '
                   + ', '.join(f'{k} {v:.3f} ms' for k, v in t.items()))
@@ -2269,6 +2319,7 @@ def phase_speaker_clf():
         seconds = time.perf_counter() - start
         launches = {'fused_logmel': fused_logmel.launches,
                     **gru_cell_scan.launches}
+        trained_routes = check_gru_routes('phase 19b', 'resident')
         iterations = trainer.iteration
         losses = [float(x) for x in recorder.losses]
         norms = [float(x) for x in recorder.norms]
@@ -2277,7 +2328,8 @@ def phase_speaker_clf():
         half = iterations // 2
         print(f'phase 19b speaker classifier trained {iterations} iterations '
               f'of 8 x 8000 samples in {seconds:.2f} s (validations and '
-              f'checkpoints included), launches {launches}; training loss '
+              f'checkpoints included), launches {launches}, GRU forwards by '
+              f'route {trained_routes}; training loss '
               f'first half mean {np.mean(losses[:half]):.4f}, second half '
               f'mean {np.mean(losses[half:]):.4f}; best validation accuracy '
               f'{best:.3f} (chance 0.125)')
@@ -2320,6 +2372,7 @@ def phase_speaker_clf():
             latencies.append((time.perf_counter() - start) * 1e3)
         served = {'fused_logmel': fused_logmel.launches,
                   **gru_cell_scan.launches}
+        served_routes = check_gru_routes('phase 19d', 'resident')
         reference = spk_evaluate.evaluate_batch(loaded_cpu, next(iter(dev)))
         diff = max(abs(results[k]['confidence'] - v['confidence'])
                    for k, v in reference.items())
@@ -2328,7 +2381,8 @@ def phase_speaker_clf():
         accuracy = float(np.mean([v['hit'] for v in results.values()]))
         print(f'phase 19d storage dir {names} loads; {n_dev} requests of up '
               f'to 8 x 8000 samples: latency ms '
-              f'{[round(x, 3) for x in latencies]}, launches {served}, '
+              f'{[round(x, 3) for x in latencies]}, launches {served} '
+              f'(GRU by route {served_routes}), '
               f'accuracy {accuracy:.3f} over {len(results)} utterances; card '
               f'vs CPU on the first request: same labels {same}, max |diff| '
               f'of confidence {diff:.3e} (tol {SPEAKER_TOL})')
@@ -2370,12 +2424,13 @@ def phase_speaker_clf():
                 example['audio_data'], seq_len=example['seq_len']),
                 iters=5, warmup=2)
         full_forward = counts()
+        forward_routes = check_gru_routes('phase 19e forward', 'cooperative')
         print(f'phase 19e full-width speaker classifier (251 speakers, '
               f'(32, 64) channels, 256 GRU units) on 16 x 64000 samples: '
               f'logits {tuple(got.shape)}, card vs CPU max |diff| {err:.3e} '
               f'(tol {SPEAKER_TOL}); forward {forward_ms:.3f} ms, of it the '
               f'front end with its normalization {front_ms:.3f} ms; '
-              f'launches {full_forward}')
+              f'launches {full_forward}, GRU by route {forward_routes}')
         if full_forward != {'fused_logmel': 15, 'fwd': 8, 'fwd_train': 0,
                             'bwd': 0}:
             fail(f'8 forwards and 7 front ends alone launch 15 fused_logmel '
@@ -2386,9 +2441,10 @@ def phase_speaker_clf():
         t = timed_step(full, batch, loss_key=None, wrapper=gru_cell_scan,
                        per_step=1)
         full_step = counts()     # of the 5 timed steps
+        step_routes = check_gru_routes('phase 19e step', 'cooperative')
         print('phase 19e full-width training step 16 x 64000 samples: '
               + ', '.join(f'{k} {v:.3f} ms' for k, v in t.items())
-              + f'; launches {full_step}')
+              + f'; launches {full_step}, GRU by route {step_routes}')
     return {name: launches[name] + served[name] + full_forward[name]
             + full_step[name] for name in launches}
 

@@ -1,39 +1,70 @@
-// GRU cell recurrence over time, forward, in one cooperative launch per
-// layer (both directions of a bidirectional layer together).  Two variants
-// of one kernel: the lean inference forward, and the training forward,
-// which also stores what the backward needs (the gates r, z, n, the n
-// block of h_{t-1} @ W_hh, and h_{t-1} itself).
+// GRU cell recurrence over time, forward, in one launch per layer (both
+// directions of a bidirectional layer together).  Two variants of each
+// kernel: the lean inference forward, and the training forward, which also
+// stores what the backward needs (the gates r, z, n, the n block of
+// h_{t-1} @ W_hh, and h_{t-1} itself).  Two routes, chosen by shape before
+// the launch (`resident_plan` in ops/kernels/gru.py): the resident kernel
+// where one direction's whole W_hh fits one block's shared memory beside
+// what the block stages (H <= 138 on an H100), the cooperative kernel
+// otherwise.
 //
 // Replaces: padertorch_tpu/ops/pallas/gru.py, `_fwd_kernel` through
 // `_fwd_call(..., with_residuals=False)` (inference, `gru_cell_scan`) and
 // through `_fwd_call(..., with_residuals=True)` (training, `_vjp_fwd`).
 //
-// What bounds it on the card: as for the LSTM (lstm_cell_scan.cu) the T
-// steps are sequential and each holds a (rows, H) @ (H, 3H) product too
-// small to fill the card, so W_hh has to stay on chip for the whole launch
-// and what is left per step is latency: reading h_{t-1}, which other
-// blocks wrote, a chain of dependent FMAs, and one grid-wide sync.
+// What bounds it on the card: the T steps are sequential and each holds a
+// (rows, H) @ (H, 3H) product too small to fill the card (at a DPRNN's
+// H = 128 and 520 rows, 25.6 M multiply-adds a step, under 1 us of the
+// card's float32 rate), so W_hh has to stay on chip for the whole launch
+// and what is left per step is latency and shared-memory traffic.
 //
-// Design: the LSTM kernel's, with two changes.  (1) The three products
-// gh_r, gh_z, gh_n start from zero and the input gates are added
-// afterwards, because the n gate is tanh(gx_n + r * gh_n): gh_n must stay
-// apart from gx_n (and is a residual).  (2) The GRU carries no second
-// state, so a block needs nothing from one step to the next but W_hh:
-// the rows of a direction are split over blocks too.  A block owns a
-// direction d, a slice of U hidden units with their three gate columns of
-// W_hh[d] in shared memory (float4 per (k, unit), one lane unused), and a
-// range of RB rows.  The host prefers wide unit slices (every block of a
-// row range stages the same rows of h, so wide slices stage less) and
-// splits the rows until the grid has about one block per SM; with many
-// rows and a small H (a dual-path RNN's chunk batches) that fills the
-// card where unit slices alone would not.  Per step and chunk of RS rows a
-// block copies h_{t-1} of those rows into shared memory with asynchronous
-// L2-only copies and loads its input gates while the copies fly; the K
-// loop is split into KS slices, one per group of threads, a thread owns
-// one (row, unit) pair of one slice, the partial sums meet in shared
-// memory and the first slice's thread applies the cell and the mask
+// Resident route.  In a GRU the rows are independent: a row's h_t needs
+// only its own h_{t-1} and W_hh[d].  So a block owns one direction d and a
+// range of RB rows of it, with all of W_hh[d] in shared memory, packed as
+// it lies in device memory ((k, gate, unit): a warp's load of one gate's
+// 32 units is 128 contiguous bytes; 196,608 bytes at H = 128).  Its rows
+// run all T steps without a word from other blocks: a plain launch, no
+// grid sync, and h never leaves the block but as out[t].  The host spreads
+// the rows so that the grid has at most one block per SM (520 rows: 130
+// blocks of 4; 800 rows: 116 blocks of 7).  A block takes its rows RS at
+// a time (chunks, one after another, each through all T steps).  A thread
+// owns one hidden unit (its three gate columns) of every row of the chunk
+// and keeps 3 * RS sums in registers, so each weight loaded from shared
+// memory serves RS rows; h_{t-1} of the chunk lies in shared memory
+// transposed, (H, RS padded to 4), so one broadcast float4 load gives four
+// rows' h[k].  The K loop is split into KS = 1, 2 or 4 slices (a template
+// parameter; at H = 128 one slice leaves one warp per scheduler, and the
+// step waits on shared-memory latency): with KS > 1 a block has four
+// groups of H threads, the first KS run the product, the slices' sums
+// meet in shared memory and are added in slice order, and all four groups
+// apply the cells (row r by group r % 4), so a step's transcendental chain
+// is spread over the whole block.  A thread's cells' input gates and mask
+// are loaded into registers at the start of the step and fly while the
+// product runs (shared memory is full with W at H = 128).  Per step a
+// block syncs twice: after the product and after the cell
+// (chip_smoke.py phase 8 prints each shape's route, plan and time).
+//
+// Cooperative route (H too large for one block's shared memory).  A block
+// owns a direction d, a slice of U hidden units with their three gate
+// columns of W_hh[d] in shared memory (float4 per (k, unit), one lane
+// unused), and a range of RB rows.  The host (`pick_scan_grid`,
+// lstm_common.cuh) prefers wide unit slices (every block of a row range
+// stages the same rows of h, so wide slices stage less) and splits the
+// rows until the grid has about one block per SM.  Per step and chunk of
+// RS rows a block copies h_{t-1} of those rows into shared memory with
+// asynchronous L2-only copies and loads its input gates while the copies
+// fly; the K loop is split into KS slices, one per group of threads, a
+// thread owns one (row, unit) pair of one slice, the partial sums meet in
+// shared memory and the first slice's thread applies the cell and the mask
 // freeze.  out[t] and h_t go to device memory, h_t through a ping-pong
 // buffer, then the grid syncs once.
+//
+// Both routes: float32 on the CUDA cores (the limits tell TF32 from
+// float32); the products gh_r, gh_z, gh_n start from zero and the input
+// gates are added afterwards, because the n gate is tanh(gx_n + r * gh_n):
+// gh_n stays apart from gx_n (and is a residual); on a masked step h keeps
+// its value and the output is 0.  No atomics: each sum is in a fixed
+// order, so two runs give the same bits.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -232,6 +263,283 @@ int launch_fwd(const void* gx, const void* w, const void* mask,
     return cudaGetLastError();
 }
 
+// Resident route.  gx, w, mask, h0, out, hT, acts, ghn, hprev as above.
+// Block b: direction d = b / n_rb, rows [rb * RB, min(Bd, (rb + 1) * RB))
+// of it, rb = b % n_rb, n_rb = ceil(Bd / RB); taken RS at a time.
+// Thread tid: group cg = tid / Hp of CG (1 when KS = 1, else 4; Hp: H
+// rounded up to 32, at most 128 when KS > 1), unit u = tid % Hp (units
+// past H only take part in the syncs).  Groups cg < KS run the product,
+// each over its K slice; every group applies the cell to the chunk's rows
+// cg, cg + CG, ...
+// Shared memory, floats: h_s (H, RSP) | red (KS, RS, 3, Hp) when KS > 1 |
+// w_s (H, 3H).  RSP: RS rounded up to 4, so h_s rows are float4-aligned.
+constexpr int RESIDENT_MAX_RS = 8;
+constexpr int RESIDENT_MAX_THREADS = 512;
+
+__host__ __device__ inline int round_up(int x, int to) {
+    return (x + to - 1) / to * to;
+}
+
+// The resident kernel's dynamic shared memory in bytes (the host planner
+// in ops/kernels/gru.py computes the same number and passes it in).
+inline size_t resident_smem_bytes(int H, int RS, int KS) {
+    const size_t red = KS > 1 ? (size_t)KS * RS * 3 * round_up(H, 32) : 0;
+    return sizeof(float) * ((size_t)H * round_up(RS, 4) + red
+                            + (size_t)3 * H * H);
+}
+
+template <bool TRAIN, int RS, int KS>
+__global__ void __launch_bounds__(RESIDENT_MAX_THREADS, 1)
+gru_fwd_resident_kernel(
+        const float* __restrict__ gx, const float* __restrict__ w,
+        const float* __restrict__ mask, const float* __restrict__ h0,
+        float* __restrict__ out, float* __restrict__ acts,
+        float* __restrict__ ghn, float* __restrict__ hprev,
+        float* __restrict__ hT, int T, int Bd, int H, int RB) {
+    constexpr int RSP = (RS + 3) / 4 * 4;
+    constexpr int CG = KS == 1 ? 1 : 4;
+    constexpr int NJ = (RS + CG - 1) / CG;  // cells a thread applies a step
+    extern __shared__ float4 smem4[];
+    const int Hp = round_up(H, 32);
+    const int G = 3 * H;
+    const int n_rb = (Bd + RB - 1) / RB;
+    const int d = blockIdx.x / n_rb;
+    const int r_lo = blockIdx.x % n_rb * RB;
+    const int r_hi = min(Bd, r_lo + RB);
+    const int R = gridDim.x / n_rb * Bd;
+    const int row0 = d * Bd;
+    float* h_s = reinterpret_cast<float*>(smem4);
+    float* red = h_s + H * RSP;
+    float* w_s = red + (KS > 1 ? KS * RS * 3 * Hp : 0);
+    const int tid = threadIdx.x;
+    const int nthreads = blockDim.x;
+    const int cg = tid / Hp;
+    const int u = tid % Hp;
+    const bool active = u < H;
+    const int k_len = (H + KS - 1) / KS;
+    const int k_lo = min(H, cg * k_len);
+    const int k_hi = cg < KS ? min(H, k_lo + k_len) : k_lo;
+
+    // all of W_hh[d], as it lies in device memory
+    const float* wd = w + (size_t)d * H * G;
+    if ((H * G) % 4 == 0 && reinterpret_cast<uintptr_t>(wd) % 16 == 0) {
+        const float4* src = reinterpret_cast<const float4*>(wd);
+        float4* dst = reinterpret_cast<float4*>(w_s);
+        for (int i = tid; i < H * G / 4; i += nthreads) dst[i] = __ldg(src + i);
+    } else {
+        for (int i = tid; i < H * G; i += nthreads) w_s[i] = __ldg(wd + i);
+    }
+
+    for (int rc = r_lo; rc < r_hi; rc += RS) {
+        const int nr = min(RS, r_hi - rc);
+        // h0 of the chunk, transposed; rows past nr stay zero (the last
+        // step's second sync, or the first chunk's, orders this after
+        // every read of h_s)
+        for (int i = tid; i < H * RSP; i += nthreads) {
+            const int k = i / RSP;
+            const int r = i % RSP;
+            h_s[i] = r < nr ? h0[(size_t)(row0 + rc + r) * H + k] : 0.f;
+        }
+        __syncthreads();
+
+        for (int t = 0; t < T; ++t) {
+            // this thread's cells: rows cg + j * CG; their input gates and
+            // mask fly while the product runs
+            float g_x[NJ][3], m[NJ];
+#pragma unroll
+            for (int j = 0; j < NJ; ++j) {
+                const int r = cg + j * CG;
+                if (!active || r >= nr) break;
+                const size_t at = (size_t)t * R + row0 + rc + r;
+                const float* gxr = gx + at * G;
+                g_x[j][0] = gxr[u];
+                g_x[j][1] = gxr[H + u];
+                g_x[j][2] = gxr[2 * H + u];
+                m[j] = mask != nullptr ? mask[at] : 1.f;
+            }
+            float acc[RS][3];
+#pragma unroll
+            for (int r = 0; r < RS; ++r) {
+                acc[r][0] = 0.f;
+                acc[r][1] = 0.f;
+                acc[r][2] = 0.f;
+            }
+            if (active && cg < KS) {
+                const float* wk = w_s + k_lo * G + u;
+                const float4* hk =
+                    reinterpret_cast<const float4*>(h_s) + k_lo * (RSP / 4);
+#pragma unroll 4
+                for (int k = k_lo; k < k_hi; ++k, wk += G, hk += RSP / 4) {
+                    const float w_r = wk[0];
+                    const float w_z = wk[H];
+                    const float w_n = wk[2 * H];
+#pragma unroll
+                    for (int q = 0; q < RSP / 4; ++q) {
+                        const float4 hv = hk[q];
+                        const float h4[4] = {hv.x, hv.y, hv.z, hv.w};
+#pragma unroll
+                        for (int i = 0; i < 4; ++i) {
+                            const int r = 4 * q + i;
+                            if (r >= RS) break;
+                            acc[r][0] = fmaf(h4[i], w_r, acc[r][0]);
+                            acc[r][1] = fmaf(h4[i], w_z, acc[r][1]);
+                            acc[r][2] = fmaf(h4[i], w_n, acc[r][2]);
+                        }
+                    }
+                }
+                if (KS > 1) {
+#pragma unroll
+                    for (int r = 0; r < RS; ++r) {
+                        float* dst = red + ((cg * RS + r) * 3) * Hp + u;
+                        dst[0] = acc[r][0];
+                        dst[Hp] = acc[r][1];
+                        dst[2 * Hp] = acc[r][2];
+                    }
+                }
+            }
+            __syncthreads();
+#pragma unroll
+            for (int j = 0; j < NJ; ++j) {
+                const int r = cg + j * CG;
+                if (!active || r >= nr) break;
+                // the K slices' sums in slice order
+                float gh_r, gh_z, gh_n;
+                if (KS == 1) {
+                    gh_r = acc[j][0];  // CG == 1: j == r
+                    gh_z = acc[j][1];
+                    gh_n = acc[j][2];
+                } else {
+                    gh_r = gh_z = gh_n = 0.f;
+#pragma unroll
+                    for (int s = 0; s < KS; ++s) {
+                        const float* src = red + ((s * RS + r) * 3) * Hp + u;
+                        gh_r += src[0];
+                        gh_z += src[Hp];
+                        gh_n += src[2 * Hp];
+                    }
+                }
+                const int row = row0 + rc + r;
+                const float h_old = h_s[u * RSP + r];
+                const float r_ = sigmoidf_(g_x[j][0] + gh_r);
+                const float z_ = sigmoidf_(g_x[j][1] + gh_z);
+                const float n_ = tanhf(g_x[j][2] + r_ * gh_n);
+                float h_new = (1.0f - z_) * n_ + z_ * h_old;
+                float h_out = h_new;
+                const size_t at = (size_t)t * R + row;
+                if (TRAIN) {
+                    float* ar = acts + at * G;
+                    ar[u] = r_;
+                    ar[H + u] = z_;
+                    ar[2 * H + u] = n_;
+                    ghn[at * H + u] = gh_n;
+                    hprev[at * H + u] = h_old;
+                }
+                if (mask != nullptr) {
+                    if (!(m[j] > 0.0f)) h_new = h_old;
+                    h_out = h_new * m[j];
+                }
+                out[at * H + u] = h_out;
+                h_s[u * RSP + r] = h_new;
+                if (t == T - 1) hT[(size_t)row * H + u] = h_new;
+            }
+            __syncthreads();
+        }
+    }
+}
+
+template <bool TRAIN, int RS, int KS>
+cudaError_t launch_resident_ks(const float* gx, const float* w,
+                               const float* mask, const float* h0,
+                               float* out, float* acts, float* ghn,
+                               float* hprev, float* hT, int T, int blocks,
+                               int Bd, int H, int RB, int threads,
+                               size_t smem, cudaStream_t stream) {
+    cudaError_t err = cudaFuncSetAttribute(
+        gru_fwd_resident_kernel<TRAIN, RS, KS>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    gru_fwd_resident_kernel<TRAIN, RS, KS><<<blocks, threads, smem, stream>>>(
+        gx, w, mask, h0, out, acts, ghn, hprev, hT, T, Bd, H, RB);
+    return cudaGetLastError();
+}
+
+template <bool TRAIN, int RS>
+cudaError_t launch_resident_rs(const float* gx, const float* w,
+                               const float* mask, const float* h0,
+                               float* out, float* acts, float* ghn,
+                               float* hprev, float* hT, int T, int blocks,
+                               int Bd, int H, int RB, int KS, int threads,
+                               size_t smem, cudaStream_t stream) {
+    switch (KS) {
+    case 1:
+        return launch_resident_ks<TRAIN, RS, 1>(
+            gx, w, mask, h0, out, acts, ghn, hprev, hT, T, blocks, Bd, H, RB,
+            threads, smem, stream);
+    case 2:
+        return launch_resident_ks<TRAIN, RS, 2>(
+            gx, w, mask, h0, out, acts, ghn, hprev, hT, T, blocks, Bd, H, RB,
+            threads, smem, stream);
+    case 4:
+        return launch_resident_ks<TRAIN, RS, 4>(
+            gx, w, mask, h0, out, acts, ghn, hprev, hT, T, blocks, Bd, H, RB,
+            threads, smem, stream);
+    }
+    return cudaErrorInvalidValue;
+}
+
+// Launch the resident kernel on the host's plan (RB rows a block, RS at a
+// time, KS K slices of 1, 2 or 4, `threads`: one group of H rounded up to
+// 32 with KS = 1, four groups otherwise; `smem` bytes).  A
+// plan that does not agree with the kernel's own layout is refused with
+// cudaErrorInvalidValue before anything runs.  Returns cudaGetLastError()
+// after the launch.
+template <bool TRAIN>
+int launch_resident(const void* gx, const void* w, const void* mask,
+                    const void* h0, void* out, void* acts, void* ghn,
+                    void* hprev, void* hT, int T, int D, int Bd, int H,
+                    int RB, int RS, int KS, int threads, int smem,
+                    int device, void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return err;
+    const int Hp = round_up(H, 32);
+    if (T < 1 || D < 1 || Bd < 1 || H < 1 || RS < 1
+        || RS > RESIDENT_MAX_RS || RB < RS || KS > H
+        || threads != (KS == 1 ? 1 : 4) * Hp
+        || threads > RESIDENT_MAX_THREADS
+        || (size_t)smem != resident_smem_bytes(H, RS, KS)) {
+        return cudaErrorInvalidValue;
+    }
+    const int blocks = D * ((Bd + RB - 1) / RB);
+    const auto* gx_ = static_cast<const float*>(gx);
+    const auto* w_ = static_cast<const float*>(w);
+    const auto* mask_ = static_cast<const float*>(mask);
+    const auto* h0_ = static_cast<const float*>(h0);
+    auto* out_ = static_cast<float*>(out);
+    auto* acts_ = static_cast<float*>(acts);
+    auto* ghn_ = static_cast<float*>(ghn);
+    auto* hprev_ = static_cast<float*>(hprev);
+    auto* hT_ = static_cast<float*>(hT);
+    auto* s = static_cast<cudaStream_t>(stream);
+#define PTT_GRU_RS(n)                                                       \
+    case n:                                                                 \
+        return launch_resident_rs<TRAIN, n>(gx_, w_, mask_, h0_, out_,      \
+                                            acts_, ghn_, hprev_, hT_, T,    \
+                                            blocks, Bd, H, RB, KS, threads, \
+                                            smem, s);
+    switch (RS) {
+        PTT_GRU_RS(1)
+        PTT_GRU_RS(2)
+        PTT_GRU_RS(3)
+        PTT_GRU_RS(4)
+        PTT_GRU_RS(5)
+        PTT_GRU_RS(6)
+        PTT_GRU_RS(7)
+        PTT_GRU_RS(8)
+    }
+#undef PTT_GRU_RS
+    return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -252,6 +560,40 @@ int gru_cell_scan_fwd_train(const void* gx, const void* w, const void* mask,
                             int Bd, int H, int device, void* stream) {
     return launch_fwd<true>(gx, w, mask, h0, out, acts, ghn, hprev, hT, hbuf,
                             T, D, Bd, H, device, stream);
+}
+
+// Resident route (see the header): the plan from ops/kernels/gru.py.
+int gru_cell_scan_fwd_resident(const void* gx, const void* w,
+                               const void* mask, const void* h0, void* out,
+                               void* hT, int T, int D, int Bd, int H, int RB,
+                               int RS, int KS, int threads, int smem,
+                               int device, void* stream) {
+    return launch_resident<false>(gx, w, mask, h0, out, nullptr, nullptr,
+                                  nullptr, hT, T, D, Bd, H, RB, RS, KS,
+                                  threads, smem, device, stream);
+}
+
+int gru_cell_scan_fwd_train_resident(const void* gx, const void* w,
+                                     const void* mask, const void* h0,
+                                     void* out, void* acts, void* ghn,
+                                     void* hprev, void* hT, int T, int D,
+                                     int Bd, int H, int RB, int RS, int KS,
+                                     int threads, int smem, int device,
+                                     void* stream) {
+    return launch_resident<true>(gx, w, mask, h0, out, acts, ghn, hprev, hT,
+                                 T, D, Bd, H, RB, RS, KS, threads, smem,
+                                 device, stream);
+}
+
+// The card's SM count and the shared memory one block may opt in to, for
+// the host planner: out[0], out[1].
+int gru_cell_scan_device_limits(int device, void* out) {
+    int* limits = static_cast<int*>(out);
+    cudaError_t err = cudaDeviceGetAttribute(
+        &limits[0], cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+    return cudaDeviceGetAttribute(
+        &limits[1], cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
 }
 
 }  // extern "C"

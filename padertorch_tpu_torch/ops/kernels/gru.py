@@ -11,12 +11,22 @@ its custom VJP (torch semantics, one fused input bias inside ``gates_x``)::
     h  = (1 - z) * n + z * h_prev
 
 On a CUDA tensor :func:`gru_cell_scan` launches hand-written kernels, one
-cooperative launch each for all T steps and both directions: without
-gradients the lean forward of ``csrc/gru_cell_scan.cu``; when a gradient is
-asked for, through :class:`GRUCellScan`, the training forward of the same
-file and, in ``backward``, the adjoint recurrence of
-``csrc/gru_cell_scan_bwd.cu``.  ``dW_hh`` is a matrix product outside the
+launch each for all T steps and both directions: without gradients the
+lean forward of ``csrc/gru_cell_scan.cu``; when a gradient is asked for,
+through :class:`GRUCellScan`, the training forward of the same file and,
+in ``backward``, the adjoint recurrence of ``csrc/gru_cell_scan_bwd.cu``
+(one cooperative launch).  ``dW_hh`` is a matrix product outside the
 kernels, as in the JAX package.
+
+Both forwards have two routes, chosen by shape before the launch:
+:func:`resident_plan` gives the resident route's plan where one
+direction's whole ``W_hh`` fits one block's shared memory beside what the
+block stages (H <= 138 on an H100: a DPRNN's chunk RNNs, the speaker
+classifier recipe's GRU); a block then owns a few rows and runs all T steps
+with no grid-wide sync.  Otherwise the cooperative kernel splits units and
+rows over the grid and syncs it once per step.  A launch that fails on its
+route raises; it is never retried on the other.
+``gru_cell_scan.routes`` counts the forward launches by route.
 
 The training forward stores, per step, the gates ``acts`` = r|z|n and
 ``gh_n`` as computed (also on a masked step), and ``h_prev``, the state the
@@ -31,6 +41,10 @@ Python time loop of per-direction matmuls that autograd differentiates.
 repeat the two training kernels' arithmetic step by step; tests hold the
 kernels against them.
 """
+import ctypes
+import functools
+from typing import NamedTuple
+
 import torch
 
 from padertorch_tpu_torch.ops.kernels import _build
@@ -39,7 +53,8 @@ from padertorch_tpu_torch.ops.kernels.lstm import (
 
 __all__ = ['gru_cell_scan', 'gru_cell_scan_plain', 'GRUCellScan',
            'gru_cell_scan_train_plain', 'gru_cell_scan_bwd_plain',
-           'recurrent_weight_grad']
+           'recurrent_weight_grad', 'ResidentPlan', 'resident_plan',
+           'resident_smem', 'device_limits']
 
 
 def _cell(gx, gh, h, hdim):
@@ -133,37 +148,122 @@ def recurrent_weight_grad(dgh, h_prev, n_dir):
     return sum_outer(h_prev, dgh, n_dir)
 
 
+# the resident kernel's limits (csrc/gru_cell_scan.cu): rows a thread
+# carries (its template range) and threads a block
+RESIDENT_MAX_RS = 8
+RESIDENT_MAX_THREADS = 512
+
+
+class ResidentPlan(NamedTuple):
+    """How the resident kernel divides a layer: ``RB`` rows a block,
+    ``RS`` of them at a time, ``KS`` K slices (1, 2 or 4) of the product,
+    ``blocks`` (``n_dir * ceil(rows_per_dir / RB)``), ``threads`` (groups
+    of H rounded up to 32, one with ``KS`` = 1, else four: the first
+    ``KS`` run the product, all of them the cells) and ``smem`` bytes."""
+    RB: int
+    RS: int
+    KS: int
+    blocks: int
+    threads: int
+    smem: int
+
+
+def resident_smem(hdim, rs, ks):
+    """Bytes of shared memory the resident kernel needs: h of a chunk
+    transposed (H, RS rounded up to 4), the K slices' sums (KS, RS, 3, H
+    rounded up to 32) when KS > 1, and all of W_hh[d] (H, 3H)."""
+    hp = -(-hdim // 32) * 32
+    red = ks * rs * 3 * hp if ks > 1 else 0
+    return 4 * (hdim * (-(-rs // 4) * 4) + red + 3 * hdim * hdim)
+
+
+def resident_plan(n_dir, rows_per_dir, hdim, n_sm, max_smem):
+    """The resident route's plan for a layer of ``n_dir`` directions of
+    ``rows_per_dir`` rows and ``hdim`` units on a card of ``n_sm`` SMs
+    whose blocks may opt in to ``max_smem`` bytes of shared memory, or
+    None where one direction's ``W_hh`` does not fit beside one row's
+    staging (the cooperative route).
+
+    The rows are spread so that the grid has at most one block per SM (all
+    blocks in one wave, none waiting for another); a block takes the
+    fewest chunks of at most ``RESIDENT_MAX_RS`` rows that fit beside
+    ``W_hh``, evened out, then the most K slices (4, 2, 1) that fit the
+    shared memory, each at least 16 units of K long; with more than one
+    slice, four groups of threads share the cells (so more than one slice
+    needs H <= 128).
+    """
+    per_dir = n_sm // n_dir
+    if per_dir < 1 or rows_per_dir < 1:
+        return None
+    rb = -(-rows_per_dir // per_dir)
+    blocks = n_dir * -(-rows_per_dir // rb)
+    hp = -(-hdim // 32) * 32
+    for chunks in range(-(-rb // RESIDENT_MAX_RS), rb + 1):
+        rs = -(-rb // chunks)
+        for ks in (4, 2, 1):
+            threads = (4 if ks > 1 else 1) * hp
+            if threads > RESIDENT_MAX_THREADS or (ks > 1 and hdim < 16 * ks):
+                continue
+            smem = resident_smem(hdim, rs, ks)
+            if smem <= max_smem:
+                return ResidentPlan(rb, rs, ks, blocks, threads, smem)
+    return None
+
+
+@functools.lru_cache(maxsize=None)
+def device_limits(device):
+    """(SMs, shared memory a block may opt in to, in bytes) of the card
+    ``device`` (an index), as the CUDA runtime reports them."""
+    out = (ctypes.c_int * 2)()
+    lib = _build.load_library()
+    err = lib.gru_cell_scan_device_limits(device, ctypes.addressof(out))
+    _build.check(lib, err, 'gru_cell_scan device limits')
+    return out[0], out[1]
+
+
 def _launch(gates_x, w, n_dir, mask, h0, train=False):
-    """Launch the forward kernel; with ``train`` the variant that also
-    returns the residuals ``acts``, ``gh_n`` and ``h_prev``."""
+    """Launch the forward kernel on the route :func:`resident_plan` picks
+    for the shape; with ``train`` the variant that also returns the
+    residuals ``acts``, ``gh_n`` and ``h_prev``."""
     t_len, rows, g3 = gates_x.shape
     hdim = g3 // 3
 
     def empty(*shape):
         return torch.empty(shape, dtype=torch.float32, device=gates_x.device)
 
-    out, h_t, hbuf = (empty(t_len, rows, hdim), empty(rows, hdim),
-                      empty(2, rows, hdim))
+    out, h_t = empty(t_len, rows, hdim), empty(rows, hdim)
     lib = _build.load_library()
     stream, device = _build.stream_and_device(gates_x)
+    plan = resident_plan(n_dir, rows // n_dir, hdim, *device_limits(device))
     inputs = (gates_x.data_ptr(), w.data_ptr(),
               None if mask is None else mask.data_ptr(),
               h0.data_ptr(), out.data_ptr())
-    sizes = (t_len, n_dir, rows // n_dir, hdim, device, stream)
+    sizes = (t_len, n_dir, rows // n_dir, hdim)
+    if plan is None:
+        hbuf = empty(2, rows, hdim)
+        tail = (hbuf.data_ptr(), *sizes, device, stream)
+        route = 'cooperative'
+        fwd, fwd_train = lib.gru_cell_scan_fwd, lib.gru_cell_scan_fwd_train
+    else:
+        tail = (*sizes, plan.RB, plan.RS, plan.KS, plan.threads, plan.smem,
+                device, stream)
+        route = 'resident'
+        fwd = lib.gru_cell_scan_fwd_resident
+        fwd_train = lib.gru_cell_scan_fwd_train_resident
     if train:
         acts, gh_n, h_prev = (empty(t_len, rows, g3),
                               empty(t_len, rows, hdim),
                               empty(t_len, rows, hdim))
-        err = lib.gru_cell_scan_fwd_train(
-            *inputs, acts.data_ptr(), gh_n.data_ptr(), h_prev.data_ptr(),
-            h_t.data_ptr(), hbuf.data_ptr(), *sizes)
+        err = fwd_train(*inputs, acts.data_ptr(), gh_n.data_ptr(),
+                        h_prev.data_ptr(), h_t.data_ptr(), *tail)
         _build.check(lib, err, 'gru_cell_scan training forward kernel')
         gru_cell_scan.launches['fwd_train'] += 1
+        gru_cell_scan.routes[route] += 1
         return out, acts, gh_n, h_prev, h_t
-    err = lib.gru_cell_scan_fwd(*inputs, h_t.data_ptr(), hbuf.data_ptr(),
-                                *sizes)
+    err = fwd(*inputs, h_t.data_ptr(), *tail)
     _build.check(lib, err, 'gru_cell_scan kernel')
     gru_cell_scan.launches['fwd'] += 1
+    gru_cell_scan.routes[route] += 1
     return out, h_t
 
 
@@ -228,7 +328,8 @@ def gru_cell_scan(gates_x, w_hh, mask, h0):
         grad mode is on and an input requires a gradient, the training
         forward, whose ``backward`` is a kernel too.
         ``gru_cell_scan.launches`` counts the launches per kernel
-        (``fwd``, ``fwd_train``, ``bwd``).
+        (``fwd``, ``fwd_train``, ``bwd``), ``gru_cell_scan.routes`` the
+        forwards' launches per route (``resident``, ``cooperative``).
     """
     w, n_dir = _norm_w(w_hh)
     if gates_x.device.type == 'cpu':
@@ -243,3 +344,4 @@ def gru_cell_scan(gates_x, w_hh, mask, h0):
 
 
 gru_cell_scan.launches = {'fwd': 0, 'fwd_train': 0, 'bwd': 0}
+gru_cell_scan.routes = {'resident': 0, 'cooperative': 0}

@@ -1,6 +1,8 @@
 """The hand-written CUDA kernels against their plain PyTorch versions on
 the card, at shapes off the main path (ragged hidden widths, one
-direction, other STFT geometries).  The LSTM training kernels (forward
+direction, other STFT geometries).  The GRU forwards' resident and
+cooperative routes are each held to plain at the shapes that pick them,
+with the route read from ``gru_cell_scan.routes``.  The LSTM training kernels (forward
 with residuals, backward) are held against their step-by-step plain
 versions (1e-5: the same f32 arithmetic, sums in another order) and,
 through the ``autograd.Function``, against autograd through the plain
@@ -32,6 +34,7 @@ from padertorch_tpu_torch.contrib.mk.modules.transformer import (
     MultiheadAttention, set_attention_backend)
 from padertorch_tpu_torch.modules.dual_path_transformer import (
     DualPathTransformer)
+from padertorch_tpu_torch.ops.kernels import _build
 from padertorch_tpu_torch.ops.kernels import gru as gru_kernels
 from padertorch_tpu_torch.ops.kernels import lstm as lstm_kernels
 from padertorch_tpu_torch.ops.kernels.attention import (
@@ -525,6 +528,107 @@ def test_gru_function_takes_missing_and_strided_cotangents(cuda):
 
     for g, e in zip(grads(gru_cell_scan), grads(gru_cell_scan_plain)):
         torch.testing.assert_close(g, e, atol=1e-4, rtol=1e-4)
+
+
+# the resident route's cases: (n_dir, rows per direction, H, T, mask, scale
+# of h0, route)
+GRU_ROUTE_CASES = {
+    'DPRNN intra rows, unmasked': (2, 260, 128, 12, 'none', 0.5, 'resident'),
+    'DPRNN inter rows, chunk mask': (2, 400, 128, 10, 'chunks', 0.5,
+                                     'resident'),
+    'rows not a multiple of RB': (2, 263, 128, 7, 'ragged', 0.5, 'resident'),
+    'rows beyond one register chunk': (2, 1000, 128, 5, 'ragged', 0.5,
+                                       'resident'),
+    'H=64 one direction, ragged': (1, 37, 64, 15, 'ragged', 0.5, 'resident'),
+    'prefix padding, large h0': (2, 30, 128, 9, 'prefix', 3.0, 'resident'),
+    'largest resident H': (2, 5, 138, 6, 'ragged', 0.5, 'resident'),
+    'smallest cooperative H': (2, 5, 139, 6, 'ragged', 0.5, 'cooperative'),
+}
+
+
+def _gru_route_inputs(cuda, n_dir, batch, hdim, t_len, mask_kind, scale):
+    """Kernel inputs and cotangents; 'chunks': lengths shared by blocks of
+    rows (an inter-chunk RNN's), 'prefix': padding before the valid steps,
+    the second direction's masks reversed in time."""
+    rng = np.random.RandomState(batch + hdim + t_len)
+    rows = n_dir * batch
+    mask = None
+    if mask_kind != 'none':
+        if mask_kind == 'chunks':
+            lens = np.repeat([t_len, t_len - 2, t_len - 4, t_len - 5],
+                             batch // 4)
+        else:
+            lens = rng.randint(1, t_len + 1, size=batch)
+        steps = np.arange(t_len)[:, None]
+        fwd = (steps >= t_len - lens[None, :] if mask_kind == 'prefix'
+               else steps < lens[None, :])
+        mask = np.concatenate([fwd, fwd[::-1]][:n_dir], axis=1)
+    bound = 1 / np.sqrt(hdim)
+    arrays = [rng.uniform(-1, 1, (t_len, rows, 3 * hdim)),
+              rng.uniform(-bound, bound, (n_dir, hdim, 3 * hdim)), mask,
+              rng.uniform(-scale, scale, (rows, hdim)),
+              rng.uniform(-1, 1, (t_len, rows, hdim)),
+              rng.uniform(-1, 1, (rows, hdim))]
+    tensors = [None if a is None else torch.tensor(
+        a, dtype=torch.float32, device=cuda) for a in arrays]
+    return tensors[:4], tensors[4:]
+
+
+@pytest.mark.parametrize('name', sorted(GRU_ROUTE_CASES))
+def test_gru_forwards_take_their_route_and_match_plain(cuda, name):
+    """Both forwards on the route their shape picks, against the plain
+    versions (1e-5: the same float32 arithmetic, sums in another order),
+    the same bits on a second run; the Function against autograd through
+    the plain forward."""
+    n_dir, batch, hdim, t_len, kind, scale, route = GRU_ROUTE_CASES[name]
+    args, cotangents = _gru_route_inputs(cuda, n_dir, batch, hdim, t_len,
+                                         kind, scale)
+    gx, w, mask, h0 = args
+    plan = gru_kernels.resident_plan(
+        n_dir, batch, hdim,
+        *gru_kernels.device_limits(torch.cuda.current_device()))
+    assert (plan is not None) == (route == 'resident')
+    before = dict(gru_cell_scan.routes)
+    got = [gru_cell_scan(*args), gru_cell_scan(*args)]
+    got_train = [gru_kernels._launch(gx, w, n_dir, mask, h0, train=True)
+                 for _ in range(2)]
+    torch.cuda.synchronize()
+    assert gru_cell_scan.routes[route] == before[route] + 4
+    assert sum(gru_cell_scan.routes.values()) == sum(before.values()) + 4
+    for want, runs in ((gru_cell_scan_plain(*args), got),
+                       (gru_cell_scan_train_plain(*args), got_train)):
+        for g, again, e in zip(*runs, want):
+            torch.testing.assert_close(g, e, atol=1e-5, rtol=0)
+            assert torch.equal(g, again)
+
+    def grads(fn):
+        leaves = [a.clone().requires_grad_() for a in (gx, w, h0)]
+        outs = fn(leaves[0], leaves[1], mask, leaves[2])
+        assert all(o.grad_fn is not None for o in outs)
+        return torch.autograd.grad(outs, leaves, cotangents)
+
+    for g, e in zip(grads(gru_cell_scan), grads(gru_cell_scan_plain)):
+        scale_e = float(e.abs().max()) + 1e-12
+        assert float((g - e).abs().max()) / scale_e <= 1e-4
+
+
+def test_gru_resident_launch_that_fails_raises(cuda):
+    """A plan the kernel does not take is refused before anything runs and
+    raises; nothing retries it on the other route."""
+    args, _ = _gru_route_inputs(cuda, 2, 260, 128, 3, 'none', 0.5)
+    gx, w, _, h0 = args
+    plan = gru_kernels.resident_plan(2, 260, 128, 132, 232_448)
+    lib = _build.load_library()
+    stream, device = _build.stream_and_device(gx)
+    out, h_t = torch.empty(3, 520, 128, device=cuda), torch.empty_like(h0)
+    before = dict(gru_cell_scan.routes)
+    err = lib.gru_cell_scan_fwd_resident(
+        gx.data_ptr(), w.data_ptr(), None, h0.data_ptr(), out.data_ptr(),
+        h_t.data_ptr(), 3, 2, 260, 128, plan.RB, plan.RS, plan.KS,
+        plan.threads, plan.smem + 4, device, stream)
+    with pytest.raises(RuntimeError, match='gru_cell_scan kernel failed'):
+        _build.check(lib, err, 'gru_cell_scan kernel')
+    assert gru_cell_scan.routes == before
 
 
 @pytest.mark.parametrize('rnn_type', ['bgru', 'blstm', 'gru'])
