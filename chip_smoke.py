@@ -81,10 +81,12 @@ Phases, one line each:
     timed beside the plain version, ``F.scaled_dot_product_attention``
     (float32, TF32 off) and its bound, with the kernel's share of it (the
     backward as the median of five windows after a warm-up, with the
-    allocator's cache emptied); at each timed shape autograd through the
-    plain version with TF32 products (on operands rounded to TF32) must
-    fail the gradients' limit, which the kernels' 3xTF32 tensor-core
-    products meet.  Then the dispatch table: one ``MultiheadAttention``
+    allocator's cache emptied); both kernels' products run on the tensor
+    cores as 3xTF32, and each gives the same bits on two runs; at each
+    timed shape the plain forward and autograd through the plain version
+    with TF32 products (on operands rounded to TF32) must fail the
+    forward's and the gradients' limits, which the kernels meet.  Then the
+    dispatch table: one ``MultiheadAttention``
     forward and forward + backward on the fused and on the dense backend
     at (8, T, 12 x 64) for T = 512 ... 4096, full, causal and windowed,
     and at the SepFormer's two shapes; the table is printed beside what
@@ -112,8 +114,18 @@ Phases, one line each:
     greedy loop equal to the plain one over 1000 steps of 2 rows; the
     sampled indices' log-likelihood against the softmax's entropy; one
     sampling row of 16000 steps (a sequential request) against the plain
-    loop's sampling on its first 500; timed per step at 1, 5, 132 and 264
-    rows.
+    loop's sampling on its first 500; each row of a batch of 132 (one
+    block per row) equal bit for bit to the same row run alone (a cluster
+    of CTAs), teacher-forced logits and indices and the free-running
+    greedy loop; timed per step at 1, 5, 8, 15, 16, 30, 33, 66, 132 and
+    264 rows, each with its route (``wavenet_kernels.device_plan``: on an
+    H100 a cluster of 16 CTAs with its weights in shared memory for 1 and
+    5 rows, of 8, 4 and 2 CTAs reading them through L2 for 8 and 15, 16
+    and 30, 33 and 66 rows, one block per row for 132 and 264), which the
+    launches' ``wavenet_sample.routes`` must confirm; the 8 to 66 rows
+    also on one block per row, timed beside the cluster and equal to it
+    bit for bit (teacher-forced logits and indices, sampled indices); and
+    the card's count of clusters of each size that run at once.
 16. fused_logmel kernel vs its plain version at (16, 64000) 512/128/64,
     at the classifier recipe's (8, 8000) 512/128/64, at the wavenet
     recipe's (2, 16000) 1024/200 with window 800 and at
@@ -127,7 +139,8 @@ Phases, one line each:
     card against the CPU's step loop; then the recipe's
     ``synthesize_example`` on utterances of 1 s as requests: 2 as one
     chunk, 1 in 5 sequential chunks, 4 with ``parallel`` chunks, launch
-    counts read around them.
+    counts and routes read around them (every request's sampler on the
+    cluster route).
 18. WaveNet training: the recipe's ``get_trainer_config`` at full width,
     ``test_run``, 8 iterations at 2 x 16000 samples with validation and
     checkpoints, the first step against the CPU, a timed step by stage.
@@ -177,13 +190,17 @@ plain version, its time,
 the plain version's, the library call's where there is one, and the
 least time the card could take (``bound_ms``: the larger of bytes over
 3.35 TB/s and float32 operations over 67 TFLOP/s, or for int8_matmul's
-bf16 products 989 TFLOP/s, NVIDIA's H100 SXM data sheet); the last line
+bf16 products 989 TFLOP/s, for the attention kernels' 3xTF32 products 495
+/ 3 TFLOP/s, NVIDIA's H100 SXM data sheet), and the route a kernel with
+several took there (``attention_route``, ``wavenet_route`` with the
+sampler's launches by route, ``gru_route``); the last line
 is ``{"ok": true, "device": {...}}``.  Any failed
 check raises, so the script exits non-zero and prints no result; without
 a CUDA card it fails at phase 1.  ``--profile`` adds a ``torch.profiler``
 table of one training step per shape, and the card's busy time per token
 of the B=1 decode (phase 21).
 """
+import contextlib
 import copy
 import json
 import subprocess
@@ -238,6 +255,7 @@ from padertorch_tpu_torch.ops.kernels.logmel import (
     LogMelFrontend, fused_logmel)
 from padertorch_tpu_torch.ops.kernels.masked_istft import (
     masked_istft, masked_istft_plain)
+from padertorch_tpu_torch.ops.kernels import wavenet as wavenet_kernels
 from padertorch_tpu_torch.ops.kernels.wavenet import (
     _gumbel, wavenet_sample, wavenet_sample_plain, wavenet_uniform)
 from padertorch_tpu_torch.train.hooks import Hook, ValidationHook
@@ -638,6 +656,8 @@ def reset_launches():
         gru_cell_scan.routes[name] = 0
     masked_istft.launches = 0
     wavenet_sample.launches = 0
+    for name in wavenet_sample.routes:
+        wavenet_sample.routes[name] = 0
     fused_logmel.launches = 0
     int8_matmul.launches = 0
 
@@ -1352,14 +1372,24 @@ def attention_case(label, b, h, h_kv, tq, tk, d, masks, timed):
     with torch.no_grad():
         got = flash_attention(q, k, v, **masks)
         want, want_lse = flash_attention_fwd_plain(q, k, v, **masks)
+        fwd_same = torch.equal(got, flash_attention(q, k, v, **masks))
     err = {'o': max_err([got], [want])}
     if d in attention_kernels.HEAD_SIZES:
-        got_train = attention_kernels._launch_fwd(
-            q, k, v, lens, masks.get('causal', False),
-            *attention_kernels._norm_window(masks.get('window')),
-            1.0 / np.sqrt(d), train=True)
+        train_args = (q, k, v, lens, masks.get('causal', False),
+                      *attention_kernels._norm_window(masks.get('window')),
+                      1.0 / np.sqrt(d))
+        got_train = attention_kernels._launch_fwd(*train_args, train=True)
         err['o, lse (training forward)'] = max_err(got_train,
                                                    (want, want_lse))
+        again = attention_kernels._launch_fwd(*train_args, train=True)
+        fwd_same = fwd_same and all(
+            torch.equal(x, y) for x, y in zip(got_train, again))
+    # the forward's control: plain with TF32 products (on operands rounded
+    # to TF32, as a TF32 product reads them) must fail the limit that the
+    # kernel's 3xTF32 products meet
+    fwd_tf32 = with_tf32(lambda: max_err(flash_attention_fwd_plain(
+        *(tf32_round(x) for x in (q, k, v)), **masks), (want, want_lse))) \
+        if timed else None
 
     def graph(fn):
         leaves = [x.clone().requires_grad_() for x in (q, k, v)]
@@ -1394,8 +1424,13 @@ def attention_case(label, b, h, h_kv, tq, tk, d, masks, timed):
                for x, y in zip(got_grads, grads(flash_attention)))
     print(f'phase 12 attention {label}: max |kernel - plain| '
           + ', '.join(f'{k} {v:.3e}' for k, v in err.items())
-          + f' (tol {ATTENTION_TOL} on o and lse); gradients relative '
-          f'{rel:.3e} (tol {ATTENTION_GRAD_RTOL})'
+          + f' (tol {ATTENTION_TOL} on o and lse; forward on the tensor '
+          f'cores, 3xTF32)'
+          + ('' if fwd_tf32 is None else
+             f', plain forward with TF32 (operands rounded to TF32) '
+             f'{fwd_tf32:.3e}')
+          + f'; two forward runs the same bits: {fwd_same}; gradients '
+          f'relative {rel:.3e} (tol {ATTENTION_GRAD_RTOL})'
           + ('' if tf32_rel is None else
              f', autograd through plain with TF32 (operands rounded to '
              f'TF32) {tf32_rel:.3e}')
@@ -1404,6 +1439,11 @@ def attention_case(label, b, h, h_kv, tq, tk, d, masks, timed):
             <= ATTENTION_TOL:
         fail(f'attention forward kernel disagrees with plain at {label}: '
              f'{err}')
+    if fwd_tf32 is not None and not fwd_tf32 > ATTENTION_TOL:
+        fail(f'the limit {ATTENTION_TOL} does not tell a TF32 attention '
+             f'forward from f32 at {label}: {fwd_tf32}')
+    if not fwd_same:
+        fail(f'two attention forward runs differ at {label}')
     if not rel <= ATTENTION_GRAD_RTOL:
         fail(f'attention backward kernels disagree with autograd through '
              f'plain at {label}: {rel}')
@@ -1452,14 +1492,14 @@ def attention_case(label, b, h, h_kv, tq, tk, d, masks, timed):
     times['fwd_library'], times['bwd_library'] = attention_library(
         q, k, v, d_o, masks)
     # the work these inputs need: the visible (query, key) pairs, each two
-    # products of D in the forward (q k^T, p v) and five in the backward;
-    # the forward runs on the CUDA cores, the backward's products on the
-    # tensor cores as 3xTF32
+    # products of D in the forward (q k^T, p v) and five in the backward,
+    # all on the tensor cores as 3xTF32
     visible = visible_mask(tq, tk, lens, masks.get('causal', False),
                            masks.get('window'), q.device)
     pairs = float(visible.sum()) * h * (b // visible.shape[0])
     limits = {
-        'fwd': bound(nbytes(q, k, v, lens, got), 4 * pairs * d),
+        'fwd': bound(nbytes(q, k, v, lens, got), 4 * pairs * d,
+                     PEAK_3XTF32_FLOPS),
         'bwd': bound(nbytes(q, k, v, lens, got, want_lse, d_o, *got_grads),
                      10 * pairs * d, PEAK_3XTF32_FLOPS)}
     for name in ('fwd', 'bwd'):
@@ -1481,7 +1521,8 @@ def attention_case(label, b, h, h_kv, tq, tk, d, masks, timed):
         'fwd': {'max_abs_err': max(
             err['o'], err.get('o, lse (training forward)', 0.0)),
             'ms': times['fwd'], 'plain_ms': times['fwd_plain'],
-            **limits['fwd'], 'library_ms': times['fwd_library']},
+            **limits['fwd'], 'library_ms': times['fwd_library'],
+            'tf32_control_err': fwd_tf32},
         'bwd': {'max_abs_err': err['dq, dk, dv'], 'ms': times['bwd'],
                 'plain_ms': times['bwd_plain'], **limits['bwd'],
                 'library_ms': times['bwd_library']}}
@@ -1517,19 +1558,14 @@ def attention_dispatch_table():
             ms[use_flash, 'training'] = cuda_ms(
                 lambda: torch.autograd.grad(mha(x, **kwargs), leaves, d_out),
                 iters=iters)
-        picks = {
-            mode: should_use_flash(
-                t_len, causal=masks.get('causal', False),
-                window=masks.get('attn_window'),
-                training=mode == 'training')
-            for mode in ('forward', 'training')}
+        pick = should_use_flash(x.device, x.dtype)
         print(f'phase 12 dispatch (B, T, H x D) = ({batch}, {t_len}, '
               f'{heads} x {d_model // heads}) {masks or "full"}'
               f'{"" if lens is None else " ragged"}: '
               + '; '.join(
                   f'{mode} fused {ms[True, mode]:.3f} ms, dense '
                   f'{ms[False, mode]:.3f} ms, auto picks '
-                  f'{"fused" if picks[mode] else "dense"}'
+                  f'{"fused" if pick else "dense"}'
                   for mode in ('forward', 'training')))
 
 
@@ -1878,6 +1914,23 @@ def near_ties(scores, limit):
     return (top[..., 0] - top[..., 1]) < limit
 
 
+@contextlib.contextmanager
+def planned_route(planned=True):
+    """``wavenet_sample``'s launches on the planner's route, or (False) on
+    one block per row whatever the planner says: to hold a cluster plan
+    against the route it replaces."""
+    device_plan = wavenet_kernels.device_plan
+    if not planned:
+        wavenet_kernels.device_plan = (
+            lambda batch, n_layers, r, s, o, slots, device:
+            wavenet_kernels.ClusterPlan(1, False, wavenet_kernels.sample_smem(
+                n_layers, r, s, o, slots, 1, False)))
+    try:
+        yield
+    finally:
+        wavenet_kernels.device_plan = device_plan
+
+
 def phase_wavenet_kernel():
     """Phase 15: wavenet_sample against its plain step loop at full width.
     Returns the kernel's row."""
@@ -1893,13 +1946,28 @@ def phase_wavenet_kernel():
         return torch.from_numpy(rng.randn(
             t_len, batch, n_layers, 2 * r).astype('float32')).cuda()
 
+    def plan(rows):
+        return wavenet_kernels.device_plan(rows, n_layers, r, s_dim, o_dim,
+                                           sum(dil), 0)
+
+    def route_of(fn, want):
+        """fn's result, after checking that its launches took the route
+        ``want`` (a cluster where the plan gives one, else one block)."""
+        before = dict(wavenet_sample.routes)
+        out = fn()
+        taken = {k: wavenet_sample.routes[k] - before[k] for k in before}
+        if taken[want] == 0 or sum(taken.values()) != taken[want]:
+            fail(f'wavenet_sample launches by route {taken}, expected '
+                 f'{want}')
+        return out
+
     # a parallel request of 1 s: 5 chunks of 4200 steps as 5 rows
     t_len, batch = 4200, 5
     cond = conditioning(t_len, batch)
     forced = torch.from_numpy(rng.randint(
         0, o_dim, (t_len, batch)).astype('int32')).cuda()
-    got_i, got_l = wavenet_sample(cond, w, dil, forced_input=forced,
-                                  return_logits=True)
+    got_i, got_l = route_of(lambda: wavenet_sample(
+        cond, w, dil, forced_input=forced, return_logits=True), 'cluster')
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -1985,29 +2053,107 @@ def phase_wavenet_kernel():
     if not torch.equal(one_i[:500], head):
         fail('one row of 16000 steps leaves the plain loop in its first 500')
 
+    # each row of a throughput batch (one block per row) equals the same
+    # row run alone (a cluster), bit for bit: teacher-forced logits and
+    # indices, and the free-running greedy loop
+    rows, steps = 132, 300
+    many = conditioning(steps, rows)
+    many_forced = torch.from_numpy(rng.randint(
+        0, o_dim, (steps, rows)).astype('int32')).cuda()
+    batch_i, batch_l = route_of(lambda: wavenet_sample(
+        many, w, dil, forced_input=many_forced, return_logits=True),
+        'one_block')
+    batch_free = route_of(lambda: wavenet_sample(many, w, dil), 'one_block')
+    unequal = []
+    for row in range(rows):
+        alone = many[:, row:row + 1].contiguous()
+        one_i, one_l = route_of(lambda: wavenet_sample(
+            alone, w, dil, forced_input=many_forced[:, row:row + 1]
+            .contiguous(), return_logits=True), 'cluster')
+        one_free = route_of(lambda: wavenet_sample(alone, w, dil),
+                            'cluster')
+        if not (torch.equal(one_i, batch_i[:, row:row + 1])
+                and torch.equal(one_l, batch_l[:, row:row + 1])
+                and torch.equal(one_free, batch_free[:, row:row + 1])):
+            unequal.append(row)
+    print(f'phase 15f a batch of {rows} rows x {steps} steps '
+          f'({plan(rows)}) against each row alone ({plan(1)}): '
+          f'teacher-forced logits and indices and free-running greedy '
+          f'indices equal bit for bit in {rows - len(unequal)} of {rows} '
+          f'rows')
+    if unequal:
+        fail(f'rows {unequal[:10]} of a {rows}-row batch differ from the '
+             f'row run alone')
+    del many, many_forced
+
     ms = cuda_ms(lambda: wavenet_sample(cond, w, dil, sample=True),
                  iters=2)
     one_ms = cuda_ms(lambda: wavenet_sample(one_cond, w, dil, sample=True),
                      iters=1)
-    print(f'phase 15e wavenet_sample T={t_len} B={batch}: {ms:.1f} ms '
-          f'({ms / t_len * 1e3:.1f} us per step, '
+    print(f'phase 15e wavenet_sample T={t_len} B={batch} ({plan(batch)}): '
+          f'{ms:.1f} ms ({ms / t_len * 1e3:.2f} us per step, '
           f'{t_len * batch / ms / 16:.2f} x real time at 16 kHz), plain '
           f'{plain_ms:.0f} ms ({plain_ms / t_len * 1e3:.0f} us per step); '
-          f'T=16000 B=1: {one_ms:.1f} ms ({one_ms / 16:.1f} us per sample, '
-          f'{16000 / one_ms / 16:.2f} x real time)')
+          f'T=16000 B=1 ({plan(1)}): {one_ms:.1f} ms ({one_ms / 16:.2f} us '
+          f'per sample, {16000 / one_ms / 16:.2f} x real time)')
+    # 8 to 66 rows: the planner's smaller clusters, which read their
+    # weights through L2 (on an H100 8 and 15 rows take clusters of 8, 16
+    # and 30 of 4, 33 and 66 of 2: each size at both ends of its range);
+    # each held bit for bit against the same rows on one block per row
+    # (the route the plan replaces), then both timed
+    for rows in (8, 15, 16, 30, 33, 66):
+        many = conditioning(1000, rows)
+        many_forced = torch.from_numpy(rng.randint(
+            0, o_dim, (300, rows)).astype('int32')).cuda()
+        runs = {}
+        for route in ('cluster', 'one_block'):
+            with planned_route(route == 'cluster'):
+                runs[route] = route_of(lambda: (
+                    *wavenet_sample(many[:300], w, dil,
+                                    forced_input=many_forced,
+                                    return_logits=True),
+                    wavenet_sample(many, w, dil, sample=True, seed=5)),
+                    route)
+                runs[route] += (cuda_ms(lambda: wavenet_sample(
+                    many, w, dil, sample=True), iters=1),)
+        same = all(torch.equal(a, b) for a, b in zip(
+            runs['cluster'][:3], runs['one_block'][:3]))
+        t, t_one = runs['cluster'][3], runs['one_block'][3]
+        print(f'phase 15e wavenet_sample T=1000 B={rows} ({plan(rows)}): '
+              f'{t:.1f} ms ({t:.2f} us per step, {rows * 1e3 / t / 16:.1f} '
+              f'x real time over the rows); on one block per row '
+              f'{t_one:.1f} ms ({t_one / t:.2f} x); teacher-forced logits '
+              f'and indices over 300 steps and sampled indices over 1000 '
+              f'equal to one block per row bit for bit: {same}')
+        if not same:
+            fail(f'{rows} rows on {plan(rows)} differ from one block per '
+                 f'row')
+        del many, many_forced, runs
     for rows in (132, 264):
         many = conditioning(1000, rows)
         t = cuda_ms(lambda: wavenet_sample(many, w, dil, sample=True),
                     iters=1)
-        print(f'phase 15e wavenet_sample T=1000 B={rows}: {t:.1f} ms '
-              f'({t:.1f} us per step, {rows * 1e3 / t / 16:.1f} x real '
-              f'time over the rows)')
+        print(f'phase 15e wavenet_sample T=1000 B={rows} ({plan(rows)}): '
+              f'{t:.1f} ms ({t:.2f} us per step, {rows * 1e3 / t / 16:.1f} '
+              f'x real time over the rows)')
         del many
+    # the card's limit on the cluster route: clusters of n CTAs that run
+    # at once (cudaOccupancyMaxActiveClusters) at the CTA's shared memory
+    max_smem = torch.cuda.get_device_properties(
+        0).shared_memory_per_block_optin
+    counts = {n: wavenet_kernels._max_clusters(0, n, smem)
+              for n in wavenet_kernels.CLUSTER_SIZES
+              for _, smem in [wavenet_kernels.cluster_smem(
+                  n_layers, r, s_dim, o_dim, sum(dil), n, max_smem)]}
+    print(f'phase 15e clusters of n CTAs this card runs at once, by n: '
+          f'{counts} ({torch.cuda.get_device_properties(0).multi_processor_count} '
+          f'SMs, {max_smem} bytes of shared memory a block)')
     # each input read once (weights once for the whole call), the indices
     # written; the floor of a sequential chain is the latency of a step,
     # which this bound does not see
     return {'shape': f'T={t_len} B={batch} L={n_layers} R={r} S={s_dim} '
                      f'O={o_dim}',
+            'wavenet_route': plan(batch)._asdict(),
             'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
             'library_ms': None,
             **bound(nbytes(cond, *w.values()) + 4 * t_len * batch,
@@ -2173,7 +2319,7 @@ def phase_wavenet_serving():
              ('5 parallel chunks of 4200',
               dict(chunk_length=4000, chunk_overlap=1000, parallel=True),
               examples, 1))
-    total = 0
+    total, routes = 0, dict.fromkeys(wavenet_sample.routes, 0)
     for label, kwargs, requests, per_request in modes:
         reset_launches()
         latencies = []
@@ -2189,16 +2335,21 @@ def phase_wavenet_serving():
                 fail(f'{example_id}: bad synthesis {metrics}')
         launches = wavenet_sample.launches
         total += launches
+        for route, n in wavenet_sample.routes.items():
+            routes[route] += n
         median = float(np.median(latencies))
         print(f'phase 17d {len(requests)} requests of 1 s, {label}: latency '
               f's {[round(x, 4) for x in latencies]} (median {median:.4f}: '
               f'{median / 16000 * 1e6:.1f} us per sample, '
-              f'{1 / median:.2f} x real time), launches {launches}, rmse '
-              f'{metrics["rmse"]:.3f}')
+              f'{1 / median:.2f} x real time), launches {launches} by route '
+              f'{wavenet_sample.routes}, rmse {metrics["rmse"]:.3f}')
         if launches != per_request * len(requests):
             fail(f'{label}: {per_request} launches per request expected, '
                  f'got {launches} for {len(requests)} requests')
-    return total
+        if wavenet_sample.routes['cluster'] != launches:
+            fail(f'{label}: the requests\' sampler took the routes '
+                 f'{wavenet_sample.routes}, expected a cluster per row')
+    return total, routes
 
 
 def phase_wavenet_training():
@@ -2965,7 +3116,7 @@ def main():
     wavenet = phase_wavenet_kernel()
     torch.cuda.empty_cache()
     logmel = phase_logmel_kernel()
-    wavenet_launches = phase_wavenet_serving()
+    wavenet_launches, wavenet_routes = phase_wavenet_serving()
     phase_wavenet_training()
     torch.cuda.empty_cache()
     speaker = phase_speaker_clf()
@@ -3065,6 +3216,7 @@ def main():
          'source': 'padertorch_tpu_torch/csrc/flash_attention.cu',
          'replaces': 'padertorch_tpu/ops/pallas/attention.py:328',
          'launches': attention_launches['fwd'],
+         'attention_route': 'tensor cores, 3xTF32 mma.sync',
          'shape': ATTENTION_CASES[0][0], **attention_rows['fwd']},
         {'name': 'flash_attention_bwd', 'route': 'cuda',
          'source': 'padertorch_tpu_torch/csrc/flash_attention_bwd.cu',
@@ -3074,7 +3226,8 @@ def main():
         {'name': 'wavenet_sample', 'route': 'cuda',
          'source': 'padertorch_tpu_torch/csrc/wavenet_sample.cu',
          'replaces': 'padertorch_tpu/ops/pallas/wavenet.py:192',
-         'launches': wavenet_launches, **wavenet},
+         'launches': wavenet_launches, 'launches_by_route': wavenet_routes,
+         **wavenet},
         {'name': 'fused_logmel', 'route': 'cuda',
          'source': 'padertorch_tpu_torch/csrc/fused_logmel.cu',
          'replaces': 'padertorch_tpu/ops/pallas/logmel.py:78',

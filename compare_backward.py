@@ -8,6 +8,7 @@ that git ignores); alternate them, as in parent, change, change, parent:
 
     python3 compare_backward.py <checkout> lstm
     python3 compare_backward.py <checkout> attention
+    python3 compare_backward.py <checkout> attention-bits
 
 ``lstm``: ``lstm_cell_scan``'s backward kernel alone at the DPRNN-TasNet's
 intra (T=100, 260 rows per direction, H=128) and inter (T=65, 400 rows,
@@ -19,9 +20,15 @@ largest difference from the plain backward, and the grid the kernel takes
 gradient's largest difference over its largest entry) at D = 128 and T =
 2048 and 4096, and whether two backward runs give the same bits; then the
 two backward kernels' time at (4, 8, 2048, 128) full and causal and at
-(8, 12, 2048, 64) full.  float32 throughout.  Prints the card's name and
-power limit first; exits non-zero without a card.
+(8, 12, 2048, 64) full.  ``attention-bits``: a digest (SHA-256) of the
+backward kernels' dq, dk, dv at the SepFormer's two shapes, (8, 12, 2048,
+64) full and causal, grouped-query heads and D = 128 with key lengths, on
+inputs made from a seed and the plain forward's output and log-sum-exp, so
+that two checkouts whose backward kernels should agree bit for bit print
+the same digests.  float32 throughout.  Prints the card's name and power
+limit first; exits non-zero without a card.
 """
+import hashlib
 import subprocess
 import sys
 
@@ -135,6 +142,36 @@ def attention_backward(ak):
               f'{[round(x, 4) for x in windows]})', flush=True)
 
 
+def attention_backward_bits(ak):
+    for label, b, h, h_kv, t_len, d, masks in [
+            ('intra (264, 8, 100, 16)', 264, 8, 8, 100, 16, {}),
+            ('inter (400, 8, 66, 16) ragged', 400, 8, 8, 66, 16,
+             {'key_padding_lens': np.repeat([66, 55, 46, 36], 100)}),
+            ('(8, 12, 2048, 64) full', 8, 12, 12, 2048, 64, {}),
+            ('(8, 12, 2048, 64) causal', 8, 12, 12, 2048, 64,
+             {'causal': True}),
+            ('gqa (4, 8 over 2, 1024, 64)', 4, 8, 2, 1024, 64, {}),
+            ('D=128 (2, 8 over 2, 130 x 77) ragged', 2, 8, 2, 130, 128,
+             {'key_padding_lens': [77, 50]})]:
+        rng = np.random.RandomState(0)
+        q, k, v, d_o = (
+            torch.tensor(rng.randn(*shape), dtype=torch.float32,
+                         device='cuda')
+            for shape in ((b, h, t_len, d), (b, h_kv, t_len, d),
+                          (b, h_kv, t_len, d), (b, h, t_len, d)))
+        with torch.no_grad():
+            out, lse = ak.flash_attention_fwd_plain(q, k, v, **masks)
+        lens = ak._lens_tensor(masks.get('key_padding_lens'), b, q.device)
+        grads = ak._launch_bwd(q, k, v, lens, d_o, lse.contiguous(),
+                               (d_o * out).sum(-1), masks.get('causal', False),
+                               None, None, 1.0 / np.sqrt(d))
+        digest = hashlib.sha256()
+        for g in grads:
+            digest.update(g.cpu().numpy().tobytes())
+        print(f'attention backward bits {label}: {digest.hexdigest()}',
+              flush=True)
+
+
 def main():
     root, part = sys.argv[1], sys.argv[2]
     if not torch.cuda.is_available():
@@ -150,7 +187,8 @@ def main():
     _build.load_library()
     print(f'checkout {root}, {part}', flush=True)
     {'lstm': lambda: lstm_backward(lk),
-     'attention': lambda: attention_backward(ak)}[part]()
+     'attention': lambda: attention_backward(ak),
+     'attention-bits': lambda: attention_backward_bits(ak)}[part]()
 
 
 if __name__ == '__main__':

@@ -294,13 +294,9 @@ class MultiheadAttention(nn.Module):
         use_flash = self.use_flash
         if (use_flash and attn_bias is None and not bias_kv
                 and (self.dropout is None or not self.training)):
-            # 'auto' dispatches on the measured crossover; True forces the
-            # fused backend (its plain version on a CPU tensor)
-            if use_flash is True or should_use_flash(
-                    tq, tk, causal=causal, window=attn_window,
-                    training=torch.is_grad_enabled() and any(
-                        x.requires_grad for x in (q, k, v)),
-                    device=q.device, dtype=q.dtype):
+            # 'auto' takes the kernels for float32 on the card; True forces
+            # the fused backend (its plain version on a CPU tensor)
+            if use_flash is True or should_use_flash(q.device, q.dtype):
                 return self._merge(flash_attention(
                     q, k, v, causal=causal,
                     key_padding_lens=key_padding_lens, window=attn_window))

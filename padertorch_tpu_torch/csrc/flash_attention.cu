@@ -11,19 +11,31 @@
 // (16, 32, 64, 128) and ragged Tq/Tk are bounds checks, so the separator's
 // D = 16 heads do no padded work.
 //
-// Design: one block per (batch * head, query tile).  A query row belongs to
-// a group of G lanes (flash_attention_common.cuh) that keep the scaled q
-// row, the output accumulator, the running maximum m and the running sum l
-// in registers.  K and V stream through shared memory in tiles of 64 keys;
-// every thread walks the tile's keys in chunks of 8: eight logits, one new
-// maximum, one rescale of (l, acc), eight probabilities.  Masked
-// probabilities are set to zero explicitly, so a fully masked row ends with
-// l = 0 and gives 0 output (lse = -1e30).  The tile loop covers only keys
-// that some row of the tile can see (kv_len, causal, window), so causal
-// attention does about half the work and a window O(T * W).  Grouped-query
-// attention reads KV row bh / group directly.  The order of every sum is
-// fixed: two runs give the same bits.
+// Design: one block per (batch * head, tile of 64 queries), four warps of
+// 16 query rows each, as the backward's dq kernel.  The two products of a
+// key tile run on the tensor cores as 3xTF32 (flash_attention_common.cuh).
+// Q of the tile is split once into hi/lo fragments in registers (up to
+// D = 64; at D = 128 the registers hold the output instead and Q's
+// fragments are loaded per tile from shared memory).  K and V stream
+// through shared memory in tiles of BS keys, double-buffered with
+// cp.async.  Per tile a warp forms S = Q K^T (16 queries by BS keys) in
+// its accumulator fragments, takes the online softmax there (row maxima
+// and sums over the quad of lanes that shares a row, masks per element,
+// skipped where every pair of the tile is visible), passes P through
+// shared memory into the A-operand layout and forms O_tile = P V.  The
+// running output is rescaled and O_tile added in float32 outside the
+// tensor cores (one tensor-core sum per tile, as in the backward).  P is
+// exp2 of log2(e)-scaled logits; a masked probability is exactly 0, so a
+// fully masked row ends with l = 0, O = 0 and lse = -1e30.  The tile loop
+// covers only keys that some row of the tile can see (kv_len, causal,
+// window), so causal attention does about half the work and a window
+// O(T * W).  Grouped-query attention reads KV row bh / group directly.
+// The order of every sum is fixed and there are no atomics: two runs give
+// the same bits.
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 #include "flash_attention_common.cuh"
 
@@ -31,111 +43,249 @@ namespace {
 
 using namespace flash;
 
-constexpr int CH = 8;  // keys per online-softmax update
+// BS keys per tile: 64 up to D = 64 (fewer softmax updates per key), 32 at
+// D = 128 (so that two blocks share an SM).
+template <int D>
+using FwdTiles = TileShape<D, (D <= 64 ? 64 : 32)>;
 
-// q, o: (BH, Tq, D); k, v: (BH / group, Tk, D); lens: (BH / H,) or nullptr;
-// lse: (BH, Tq) or nullptr.  Shared memory: K tile, V tile, (TILE, D) each.
-template <int D, int G>
-__global__ void __launch_bounds__(256) flash_fwd_kernel(
-        const float4* __restrict__ q, const float4* __restrict__ k,
-        const float4* __restrict__ v, const int* __restrict__ lens,
-        float4* __restrict__ o, float* __restrict__ lse, int H, int group,
-        int Tq, int Tk, int rows, Mask mk, float scale) {
-    constexpr int D4 = D / 4;
-    constexpr int NV = D4 / G;
-    extern __shared__ float4 smem[];
-    float4* k_s = smem;
-    float4* v_s = smem + TILE * D4;
+// q, o: (BH, Tq, D); k, v: (BH / group, Tk, D); lens: (BH / H,) or
+// nullptr; lse: (BH, Tq) or nullptr.  blockIdx.x: batch * head row,
+// blockIdx.y: query tile.  Shared memory: Q (OWN, SD) | K, V two stages
+// of (BS, SD) each | P (OWN, SP).
+template <int D>
+__global__ void __launch_bounds__(32 * WARPS) flash_fwd_kernel(
+        const float* __restrict__ q, const float* __restrict__ k,
+        const float* __restrict__ v, const int* __restrict__ lens,
+        float* __restrict__ o, float* __restrict__ lse, int H, int group,
+        int Tq, int Tk, Mask mk, float scale) {
+    using TL = FwdTiles<D>;
+    constexpr int BS = TL::BS, SD = TL::SD, SP = TL::SP;
+    constexpr int ND = TL::ND, NS = TL::NS, NP = TL::NP;
+    constexpr bool QREG = D <= 64;   // Q's fragments in registers
+    extern __shared__ float4 smem4[];
+    float* q_s = reinterpret_cast<float*>(smem4);
+    float* k_s = q_s + OWN * SD;
+    float* v_s = k_s + 2 * BS * SD;
+    float* p_s = v_s + 2 * BS * SD;
 
+    const int lane = threadIdx.x & 31;
+    const int row_w = (threadIdx.x >> 5) * 16;  // the warp's first query
     const int bh = blockIdx.x;
-    const int r0 = blockIdx.y * rows;
-    const int row = r0 + threadIdx.x / G;
-    const int g = threadIdx.x % G;
-    const bool live = row < Tq;
-    int kv_len = Tk;
-    if (lens != nullptr) {
-        kv_len = lens[bh / H];
-        kv_len = kv_len < 0 ? 0 : (kv_len > Tk ? Tk : kv_len);
-    }
-    const float4* k_bh = k + (size_t)(bh / group) * Tk * D4;
-    const float4* v_bh = v + (size_t)(bh / group) * Tk * D4;
-
-    float4 qr[NV], acc[NV];
-    load_row<NV, G>(qr, q + ((size_t)bh * Tq + (live ? row : 0)) * D4, g,
-                    live);
-    scale_row<NV>(qr, scale);
-#pragma unroll
-    for (int i = 0; i < NV; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-    float m = NEG, l = 0.0f;
+    const int r0 = blockIdx.y * OWN;
+    const int kv_len = clamp_len(lens, bh / H, Tk);
+    const float scale2 = scale * LOG2E;
+    const float* k_bh = k + (size_t)(bh / group) * Tk * D;
+    const float* v_bh = v + (size_t)(bh / group) * Tk * D;
+    stage_rows<D, OWN>(q_s, q + (size_t)bh * Tq * D, r0, Tq);
+    cp_async_commit();
 
     // keys that some row of this tile can see: [lo, hi)
     int hi = kv_len;
     if (mk.causal) {
-        hi = min(hi, r0 + rows);
+        hi = min(hi, r0 + OWN);
     } else if (mk.right >= 0) {
-        hi = min(hi, r0 + rows + mk.right);
+        hi = min(hi, r0 + OWN + mk.right);
     }
     int lo = 0;
-    if (mk.left >= 0) lo = max(0, r0 - mk.left) / TILE * TILE;
+    if (mk.left >= 0) lo = max(0, r0 - mk.left) / BS * BS;
+    const int total = hi > lo ? (hi - lo + BS - 1) / BS : 0;
 
-    for (int j0 = lo; j0 < hi; j0 += TILE) {
-        __syncthreads();
-        stage_tile<D>(k_s, k_bh, j0, Tk);
-        stage_tile<D>(v_s, v_bh, j0, Tk);
-        __syncthreads();
-        const int n = min(TILE, hi - j0);
-        for (int jj = 0; jj < n; jj += CH) {
-            float s[CH];
+    auto stage = [&](int i) {
+        const int st = i & 1;
+        stage_rows<D, BS>(k_s + st * BS * SD, k_bh, lo + i * BS, Tk);
+        stage_rows<D, BS>(v_s + st * BS * SD, v_bh, lo + i * BS, Tk);
+        cp_async_commit();
+    };
+    if (total > 0) {
+        stage(0);
+        cp_async_wait<1>();   // Q has landed
+    } else {
+        cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    const float* qw = q_s + row_w * SD;
+    uint32_t qh[QREG ? ND : 1][4], ql[QREG ? ND : 1][4];
+    if constexpr (QREG) {
 #pragma unroll
-            for (int c = 0; c < CH; ++c)
-                s[c] = dot_share<NV, G>(qr, k_s + (jj + c) * D4, g);
-            float mx = m;
-#pragma unroll
-            for (int c = 0; c < CH; ++c) {
-                s[c] = group_sum<G>(s[c]);
-                if (!visible(mk, row, j0 + jj + c, kv_len)) s[c] = NEG;
-                mx = fmaxf(mx, s[c]);
-            }
-            const float alpha = expf(m - mx);
-            l *= alpha;
-            scale_row<NV>(acc, alpha);
-            m = mx;
-#pragma unroll
-            for (int c = 0; c < CH; ++c) {
-                // a masked logit is exactly NEG, a visible one far above it
-                const float p = s[c] > 0.5f * NEG ? expf(s[c] - mx) : 0.0f;
-                l += p;
-                axpy_row<NV, G>(acc, p, v_s + (jj + c) * D4, g);
-            }
-        }
+        for (int kk = 0; kk < ND; ++kk)
+            load_a(qw + kk * 8, SD, lane, qh[kk], ql[kk]);
     }
 
-    if (!live) return;
-    const float l_safe = fmaxf(l, 1e-30f);
-    scale_row<NV>(acc, 1.0f / l_safe);
-    store_row<NV, G>(o + ((size_t)bh * Tq + row) * D4, acc, g);
-    if (lse != nullptr && g == 0) lse[(size_t)bh * Tq + row] = m + logf(l_safe);
+    // this thread's two rows of the fragments, and their softmax state:
+    // the running maximum (log2 units) and sum
+    const int qa = r0 + row_w + (lane >> 2);
+    const int qb = qa + 8;
+    float m_a = NEG, m_b = NEG, l_a = 0.0f, l_b = 0.0f;
+    float acc[ND][4] = {};
+    float* pw = p_s + row_w * SP;
+    // a warp whose 16 queries are all past Tq has nothing to compute
+    const bool idle = r0 + row_w >= Tq;
+    for (int i = 0; i < total; ++i) {
+        if (i + 1 < total) {
+            stage(i + 1);
+            cp_async_wait<1>();
+        } else {
+            cp_async_wait<0>();
+        }
+        __syncthreads();
+        const int st = i & 1;
+        const int j0 = lo + i * BS;
+        const float* k_t = k_s + st * BS * SD;
+        const float* v_t = v_s + st * BS * SD;
+        const int nv = min(BS, hi - j0);  // keys of the tile that count
+        const bool all = tile_visible(mk, r0, r0 + OWN, j0, j0 + BS, Tq,
+                                      kv_len);
+        // a tile past the end of the keys that count takes the loops with
+        // exits
+        auto tile = [&](auto lim) {
+            constexpr bool LIM = decltype(lim)::value;
+            float s[NS][4] = {};
+#pragma unroll
+            for (int kk = 0; kk < ND; ++kk) {
+                uint32_t ah[4], al[4];
+                if constexpr (QREG) {
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                        ah[e] = qh[kk][e];
+                        al[e] = ql[kk][e];
+                    }
+                } else {
+                    load_a(qw + kk * 8, SD, lane, ah, al);
+                }
+#pragma unroll
+                for (int n = 0; n < NS; ++n) {
+                    if (LIM && n * 8 >= nv) break;
+                    uint32_t bh[2], bl[2];
+                    load_b<false>(k_t + n * 8 * SD + kk * 8, SD, lane, bh,
+                                  bl);
+                    mma3(s[n], ah, al, bh, bl);
+                }
+            }
+            // masked logits become -inf: no part of the maximum, p = 0
+            float mx_a = m_a, mx_b = m_b;
+#pragma unroll
+            for (int n = 0; n < NS; ++n) {
+                if (LIM && n * 8 >= nv) break;
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const bool b = e >= 2;
+                    const int col = j0 + n * 8 + 2 * (lane & 3) + (e & 1);
+                    if (!all && !((b ? qb : qa) < Tq
+                                  && visible(mk, b ? qb : qa, col, kv_len)))
+                        s[n][e] = -INFINITY;
+                    const float x = s[n][e] * scale2;
+                    if (b) {
+                        mx_b = fmaxf(mx_b, x);
+                    } else {
+                        mx_a = fmaxf(mx_a, x);
+                    }
+                }
+            }
+            mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 1));
+            mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, 2));
+            mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 1));
+            mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, 2));
+            const float alpha_a = exp2f(m_a - mx_a);
+            const float alpha_b = exp2f(m_b - mx_b);
+            m_a = mx_a;
+            m_b = mx_b;
+            float sum_a = 0.0f, sum_b = 0.0f;
+#pragma unroll
+            for (int n = 0; n < NS; ++n) {
+                if (LIM && n * 8 >= nv) break;
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const bool b = e >= 2;
+                    const float p = exp2f(fmaf(s[n][e], scale2,
+                                               -(b ? mx_b : mx_a)));
+                    if (b) {
+                        sum_b += p;
+                    } else {
+                        sum_a += p;
+                    }
+                    pw[((lane >> 2) + (b ? 8 : 0)) * SP + n * 8
+                       + 2 * (lane & 3) + (e & 1)] = p;
+                }
+            }
+            sum_a += __shfl_xor_sync(0xffffffffu, sum_a, 1);
+            sum_a += __shfl_xor_sync(0xffffffffu, sum_a, 2);
+            sum_b += __shfl_xor_sync(0xffffffffu, sum_b, 1);
+            sum_b += __shfl_xor_sync(0xffffffffu, sum_b, 2);
+            l_a = fmaf(l_a, alpha_a, sum_a);
+            l_b = fmaf(l_b, alpha_b, sum_b);
+            __syncwarp();
+            float o_t[NP][ND][4] = {};
+            gemm_kn<LIM, NS, ND, NP>(o_t, pw, SP, v_t, SD, nv, lane);
+#pragma unroll
+            for (int n = 0; n < ND; ++n) {
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    float t = o_t[0][n][e];
+#pragma unroll
+                    for (int j = 1; j < NP; ++j) t += o_t[j][n][e];
+                    acc[n][e] = fmaf(acc[n][e], e >= 2 ? alpha_b : alpha_a,
+                                     t);
+                }
+            }
+        };
+        if (idle) {
+        } else if (D == 16 && nv < BS) {
+            tile(std::true_type());
+        } else {
+            tile(std::false_type());
+        }
+        __syncthreads();  // the stage is free for the copy after next
+    }
+    cp_async_wait<0>();
+    if (idle) return;
+
+    const float inv_a = 1.0f / fmaxf(l_a, 1e-30f);
+    const float inv_b = 1.0f / fmaxf(l_b, 1e-30f);
+    const int c = 2 * (lane & 3);
+    float* o_bh = o + (size_t)bh * Tq * D;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+        if (qa < Tq) {
+            *reinterpret_cast<float2*>(o_bh + (size_t)qa * D + n * 8 + c) =
+                make_float2(acc[n][0] * inv_a, acc[n][1] * inv_a);
+        }
+        if (qb < Tq) {
+            *reinterpret_cast<float2*>(o_bh + (size_t)qb * D + n * 8 + c) =
+                make_float2(acc[n][2] * inv_b, acc[n][3] * inv_b);
+        }
+    }
+    if (lse != nullptr && (lane & 3) == 0) {
+        // m + log(l) in natural units; a row that saw no key keeps -1e30
+        constexpr float LN2 = 0.6931471805599453f;
+        if (qa < Tq)
+            lse[(size_t)bh * Tq + qa] =
+                l_a > 0.0f ? fmaf(m_a, LN2, logf(l_a)) : NEG;
+        if (qb < Tq)
+            lse[(size_t)bh * Tq + qb] =
+                l_b > 0.0f ? fmaf(m_b, LN2, logf(l_b)) : NEG;
+    }
 }
 
-template <int D, int G>
+template <int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                        const void* lens, void* o, void* lse, int BH, int H,
                        int group, int Tq, int Tk, Mask mk, float scale,
                        cudaStream_t stream) {
-    const int rows = rows_per_block(Tq, max_rows(G));
-    const size_t smem = sizeof(float4) * 2 * TILE * (D / 4);
+    using TL = FwdTiles<D>;
+    const size_t smem = sizeof(float) * (OWN * TL::SD + 4 * TL::BS * TL::SD
+                                         + OWN * TL::SP);
     cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<D, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return err;
-    const int tiles = (Tq + rows - 1) / rows;
+    const int tiles = (Tq + OWN - 1) / OWN;
     if (tiles > 65535) return cudaErrorInvalidValue;
-    dim3 grid(BH, tiles);
-    flash_fwd_kernel<D, G><<<grid, rows * G, smem, stream>>>(
-        static_cast<const float4*>(q), static_cast<const float4*>(k),
-        static_cast<const float4*>(v), static_cast<const int*>(lens),
-        static_cast<float4*>(o), static_cast<float*>(lse), H, group, Tq, Tk,
-        rows, mk, scale);
+    flash_fwd_kernel<D><<<dim3(BH, tiles), 32 * WARPS, smem, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const int*>(lens),
+        static_cast<float*>(o), static_cast<float*>(lse), H, group, Tq, Tk,
+        mk, scale);
     return cudaGetLastError();
 }
 
@@ -158,22 +308,15 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
         return cudaErrorInvalidValue;
     const flash::Mask mk = {causal, left, right};
     cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define FWD_ARGS q, k, v, lens, o, lse, BH, H, group, Tq, Tk, mk, scale, st
     switch (D) {
-        case 16:
-            return launch_fwd<16, 1>(q, k, v, lens, o, lse, BH, H, group, Tq,
-                                     Tk, mk, scale, st);
-        case 32:
-            return launch_fwd<32, 1>(q, k, v, lens, o, lse, BH, H, group, Tq,
-                                     Tk, mk, scale, st);
-        case 64:
-            return launch_fwd<64, 2>(q, k, v, lens, o, lse, BH, H, group, Tq,
-                                     Tk, mk, scale, st);
-        case 128:
-            return launch_fwd<128, 4>(q, k, v, lens, o, lse, BH, H, group,
-                                      Tq, Tk, mk, scale, st);
-        default:
-            return cudaErrorInvalidValue;
+        case 16: return launch_fwd<16>(FWD_ARGS);
+        case 32: return launch_fwd<32>(FWD_ARGS);
+        case 64: return launch_fwd<64>(FWD_ARGS);
+        case 128: return launch_fwd<128>(FWD_ARGS);
+        default: return cudaErrorInvalidValue;
     }
+#undef FWD_ARGS
 }
 
 }  // extern "C"

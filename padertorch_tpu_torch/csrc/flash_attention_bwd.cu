@@ -7,15 +7,8 @@
 //
 // What bounds it on the card: the arithmetic, five tile products per
 // visible (query, key) pair: S = Q K^T, dP = dO V^T, dV += P^T dO,
-// dK += dS^T Q, dQ += dS K.  On the CUDA cores in float32 that is 67
-// TFLOP/s at best; the tensor cores take float32 operands only as TF32,
-// which keeps 10 bits of mantissa (about three digits), too few for the
-// gradients' limit.  So every product is split ("3xTF32"): an operand x
-// becomes hi, x with its 13 low mantissa bits cleared, and lo = x - hi,
-// and a product accumulates lo*hi + hi*lo + hi*hi in float32
-// (`mma.sync.m16n8k8` with TF32 operands), which carries about 20 bits
-// of each operand: float32 accuracy for three tensor-core products per
-// float32 one.
+// dK += dS^T Q, dQ += dS K, each on the tensor cores as 3xTF32
+// (flash_attention_common.cuh: float32 accuracy for three TF32 products).
 //
 // The TPU kernel visits every (query block, key block) tile once and adds
 // each tile's dq into a block that stays resident across its sequential
@@ -52,11 +45,6 @@
 // from plain's than float32 adds do, so a tile's products are summed on
 // the tensor cores and the tiles into the registers' running sums by
 // float32 adds.
-//
-// Shared-memory rows are padded to D + 4 floats (and BS + 4), so the
-// fragment loads of the first kind (8 rows by 4 columns) hit 32 banks;
-// the transposed loads (4 rows by 8 columns) of the second product of
-// each pair meet 2-way conflicts.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -68,104 +56,14 @@ namespace {
 
 using namespace flash;
 
-constexpr int WARPS = 4;
-constexpr int OWN = 16 * WARPS;  // owned rows per block, 16 per warp
-
 // Tile sizes of head size D: BS rows of the streamed operand per tile
-// (fewer for wide heads, so that two blocks share an SM), the padded
-// strides SD (of a (rows, D) tile) and SP (of a warp's (16, BS) P or dS),
-// and the MMA tiles of 8 along D (ND) and along the streamed rows (NS).
+// (fewer for wide heads, so that two blocks share an SM), and whether the
+// tile sums of dV and dK run in one loop (D = 128 has registers for one at
+// a time).
 template <int D>
-struct Tiles {
-    static constexpr int BS = D <= 32 ? 64 : 32;
-    static constexpr int SD = D + 4;
-    static constexpr int SP = BS + 4;
-    static constexpr int ND = D / 8;
-    static constexpr int NS = BS / 8;
-    static constexpr int NP = D == 16 ? 2 : 1;  // partial sums of dq, dk, dv
-    // the tile sums of dV and dK in one loop (D = 128 has registers for
-    // one at a time)
+struct Tiles : TileShape<D, (D <= 32 ? 64 : 32)> {
     static constexpr bool PAIR = D <= 64;
 };
-
-constexpr float LOG2E = 1.4426950408889634f;
-
-__device__ __forceinline__ int clamp_len(const int* lens, int b, int Tk) {
-    if (lens == nullptr) return Tk;
-    const int n = lens[b];
-    return n < 0 ? 0 : (n > Tk ? Tk : n);
-}
-
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
-    const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-                 :: "r"(dst), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-// x = hi + lo exactly: hi is x with the 13 low mantissa bits cleared (a
-// TF32 value), lo the rest, which the MMA reads as TF32 by its leading 19
-// bits (the tensor core ignores the low 13 bits of a TF32 operand).  What
-// 3xTF32 drops is lo's low bits and the lo * lo term, about 2^-20 of the
-// product.
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-    hi = __float_as_uint(x) & 0xffffe000u;
-    lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    const uint32_t (&b)[2]) {
-    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-        "{%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]),
-          "r"(b[1]));
-}
-
-// c += a b in 3xTF32, the small terms first
-__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
-                                     const uint32_t (&al)[4],
-                                     const uint32_t (&bh)[2],
-                                     const uint32_t (&bl)[2]) {
-    mma(c, al, bh);
-    mma(c, ah, bl);
-    mma(c, ah, bh);
-}
-
-// The A fragment of the (16, 8) block at s (row-major, stride ld).
-__device__ __forceinline__ void load_a(const float* s, int ld, int lane,
-                                       uint32_t (&hi)[4], uint32_t (&lo)[4]) {
-    const int r = lane >> 2, c = lane & 3;
-    split(s[r * ld + c], hi[0], lo[0]);
-    split(s[(r + 8) * ld + c], hi[1], lo[1]);
-    split(s[r * ld + c + 4], hi[2], lo[2]);
-    split(s[(r + 8) * ld + c + 4], hi[3], lo[3]);
-}
-
-// The B fragment (8 deep, 8 wide) at s of an operand kept n-major,
-// B[k][n] = s[n * ld + k] (K or Q rows as the columns of a product), or,
-// with KN, kept k-major, B[k][n] = s[k * ld + n].
-template <bool KN>
-__device__ __forceinline__ void load_b(const float* s, int ld, int lane,
-                                       uint32_t (&hi)[2], uint32_t (&lo)[2]) {
-    const int n = lane >> 2, k = lane & 3;
-    if (KN) {
-        split(s[k * ld + n], hi[0], lo[0]);
-        split(s[(k + 4) * ld + n], hi[1], lo[1]);
-    } else {
-        split(s[n * ld + k], hi[0], lo[0]);
-        split(s[n * ld + k + 4], hi[1], lo[1]);
-    }
-}
 
 // Two independent products in one loop over K (twice the independent
 // accumulator chains of one): c1 (16, 8 N) += A1 (16, 8 K) B1 and c2 +=
@@ -200,25 +98,6 @@ __device__ __forceinline__ void gemm2(float (&c1)[NP][N][4], const float* a1,
     }
 }
 
-// One product as gemm2's first: c (16, 8 N) += A (16, 8 K) B, B k-major.
-template <bool LIM, int K, int N, int NP>
-__device__ __forceinline__ void gemm_kn(float (&c)[NP][N][4], const float* a,
-                                        int lda, const float* b, int ldb,
-                                        int lim, int lane) {
-#pragma unroll
-    for (int kk = 0; kk < K; ++kk) {
-        if (LIM && kk * 8 >= lim) break;
-        uint32_t ah[4], al[4];
-        load_a(a + kk * 8, lda, lane, ah, al);
-#pragma unroll
-        for (int n = 0; n < N; ++n) {
-            uint32_t bh[2], bl[2];
-            load_b<true>(b + kk * 8 * ldb + n * 8, ldb, lane, bh, bl);
-            mma3(c[kk % NP][n], ah, al, bh, bl);
-        }
-    }
-}
-
 // acc += t, element by element
 template <int NP, int N>
 __device__ __forceinline__ void add_into(float (&acc)[NP][N][4],
@@ -229,35 +108,6 @@ __device__ __forceinline__ void add_into(float (&acc)[NP][N][4],
         for (int n = 0; n < N; ++n) {
 #pragma unroll
             for (int e = 0; e < 4; ++e) acc[i][n][e] += t[i][n][e];
-        }
-    }
-}
-
-// Is every (query, key) pair of rows [q_lo, q_hi) and keys [k_lo, k_hi)
-// visible?  Then a tile skips the test per pair.
-__device__ __forceinline__ bool tile_visible(const Mask& mk, int q_lo,
-                                             int q_hi, int k_lo, int k_hi,
-                                             int Tq, int kv_len) {
-    return q_hi <= Tq && k_hi <= kv_len && (!mk.causal || k_hi - 1 <= q_lo)
-           && (mk.left < 0 || q_hi - 1 - k_lo <= mk.left)
-           && (mk.right < 0 || k_hi - 1 - q_lo <= mk.right);
-}
-
-// Start the copy of rows [r0, r0 + ROWS) of a (T, D) matrix into shared
-// memory of stride D + 4 (zeros beyond T).  All threads take part.
-template <int D, int ROWS>
-__device__ __forceinline__ void stage_rows(float* dst, const float* src,
-                                           int r0, int T) {
-    constexpr int C4 = D / 4;
-    constexpr int SD = D + 4;
-    for (int idx = threadIdx.x; idx < ROWS * C4; idx += blockDim.x) {
-        const int r = idx / C4;
-        const int c = 4 * (idx % C4);
-        float* d = dst + r * SD + c;
-        if (r0 + r < T) {
-            cp_async16(d, src + (size_t)(r0 + r) * D + c);
-        } else {
-            *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
         }
     }
 }

@@ -1,21 +1,32 @@
-// Device and host helpers shared by the flash-attention forward and
-// backward kernels.
+// Device helpers shared by the flash-attention forward and backward
+// kernels: masks, cp.async copies into padded shared-memory tiles, and the
+// 3xTF32 tensor-core products.
 //
-// Thread layout of the forward kernel (the backward's kernels hold their
-// rows as tensor-core fragments, flash_attention_bwd.cu): a query row
-// belongs to a group of G neighbouring lanes of one warp; lane g of the
-// group holds the float4 chunks g, g + G, g + 2G, ... of the row's D values
-// (interleaved, so the G lanes read neighbouring 16-byte words of a
-// shared-memory row and do not collide on banks).  A dot product over D is
-// DPT = D / G FMAs per lane and a butterfly of log2(G) shuffles, after
-// which every lane of the group holds the same sum, bit for bit.
+// The tensor cores take float32 operands only as TF32, which keeps 10 bits
+// of mantissa (about three digits), too few for float32 results.  So every
+// product is split ("3xTF32"): an operand x becomes hi, x with its 13 low
+// mantissa bits cleared, and lo = x - hi, and a product accumulates
+// lo*hi + hi*lo + hi*hi in float32 (`mma.sync.m16n8k8` with TF32
+// operands), which carries about 20 bits of each operand: float32 accuracy
+// for three tensor-core products per float32 one.
+//
+// A block owns OWN = 64 rows (queries in the forward and the dq kernel,
+// keys in the dk/dv kernel), 16 per warp, held as MMA fragments: a thread
+// holds rows lane / 4 and lane / 4 + 8 of its warp's 16, and columns
+// 2 (lane % 4) and 2 (lane % 4) + 1 of every 8-wide tile.  Shared-memory
+// rows are padded to D + 4 floats (and BS + 4), so the fragment loads of
+// the first kind (8 rows by 4 columns) hit 32 banks; the transposed loads
+// (4 rows by 8 columns) meet 2-way conflicts.
 #pragma once
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace flash {
 
 constexpr float NEG = -1e30f;   // the finite fill of a masked logit
-constexpr int TILE = 64;        // rows of the streamed operand per tile
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr int WARPS = 4;
+constexpr int OWN = 16 * WARPS;  // owned rows per block, 16 per warp
 
 // Masks of one launch: keys beyond kv_len, causal (cols <= rows), and the
 // (left, right) window, -1 for an unbounded side.
@@ -32,97 +43,149 @@ __device__ __forceinline__ bool visible(const Mask& mk, int row, int col,
     return ok;
 }
 
-// Sum over the G lanes of a group; every lane gets the same bits.
-template <int G>
-__device__ __forceinline__ float group_sum(float x) {
-#pragma unroll
-    for (int off = 1; off < G; off <<= 1)
-        x += __shfl_xor_sync(0xffffffffu, x, off);
-    return x;
+// Is every (query, key) pair of rows [q_lo, q_hi) and keys [k_lo, k_hi)
+// visible?  Then a tile skips the test per pair.
+__device__ __forceinline__ bool tile_visible(const Mask& mk, int q_lo,
+                                             int q_hi, int k_lo, int k_hi,
+                                             int Tq, int kv_len) {
+    return q_hi <= Tq && k_hi <= kv_len && (!mk.causal || k_hi - 1 <= q_lo)
+           && (mk.left < 0 || q_hi - 1 - k_lo <= mk.left)
+           && (mk.right < 0 || k_hi - 1 - q_lo <= mk.right);
 }
 
-// This lane's share of the dot product of a register row and a
-// shared-memory row (both in the interleaved chunk layout).
-template <int NV, int G>
-__device__ __forceinline__ float dot_share(const float4 (&a)[NV],
-                                           const float4* row, int g) {
-    // four independent chains, so the FMAs do not wait on one another
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-    for (int i = 0; i < NV; ++i) {
-        const float4 b = row[g + G * i];
-        acc.x = fmaf(a[i].x, b.x, acc.x);
-        acc.y = fmaf(a[i].y, b.y, acc.y);
-        acc.z = fmaf(a[i].z, b.z, acc.z);
-        acc.w = fmaf(a[i].w, b.w, acc.w);
-    }
-    return (acc.x + acc.y) + (acc.z + acc.w);
+// The valid key count of batch row b: lens[b] clamped to [0, Tk], or Tk.
+__device__ __forceinline__ int clamp_len(const int* lens, int b, int Tk) {
+    if (lens == nullptr) return Tk;
+    const int n = lens[b];
+    return n < 0 ? 0 : (n > Tk ? Tk : n);
 }
 
-// acc += s * shared-memory row
-template <int NV, int G>
-__device__ __forceinline__ void axpy_row(float4 (&acc)[NV], float s,
-                                         const float4* row, int g) {
-#pragma unroll
-    for (int i = 0; i < NV; ++i) {
-        const float4 b = row[g + G * i];
-        acc[i].x = fmaf(s, b.x, acc[i].x);
-        acc[i].y = fmaf(s, b.y, acc[i].y);
-        acc[i].z = fmaf(s, b.z, acc[i].z);
-        acc[i].w = fmaf(s, b.w, acc[i].w);
-    }
+// Tile sizes of head size D with BS rows of the streamed operand per tile:
+// the padded strides SD (of a (rows, D) tile) and SP (of a warp's (16, BS)
+// P or dS), the MMA tiles of 8 along D (ND) and along the streamed rows
+// (NS), and the partial sums of a product whose output is D wide (NP: two
+// at D = 16, for more independent accumulator chains).
+template <int D, int BS_>
+struct TileShape {
+    static constexpr int BS = BS_;
+    static constexpr int SD = D + 4;
+    static constexpr int SP = BS + 4;
+    static constexpr int ND = D / 8;
+    static constexpr int NS = BS / 8;
+    static constexpr int NP = D == 16 ? 2 : 1;
+};
+
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+    const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                 :: "r"(dst), "l"(gmem));
 }
 
-template <int NV>
-__device__ __forceinline__ void scale_row(float4 (&acc)[NV], float s) {
-#pragma unroll
-    for (int i = 0; i < NV; ++i) {
-        acc[i].x *= s; acc[i].y *= s; acc[i].z *= s; acc[i].w *= s;
-    }
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// Load a register row from device memory (zeros when `live` is false).
-template <int NV, int G>
-__device__ __forceinline__ void load_row(float4 (&r)[NV], const float4* src,
-                                         int g, bool live) {
-#pragma unroll
-    for (int i = 0; i < NV; ++i)
-        r[i] = live ? src[g + G * i] : make_float4(0.f, 0.f, 0.f, 0.f);
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-template <int NV, int G>
-__device__ __forceinline__ void store_row(float4* dst, const float4 (&r)[NV],
-                                          int g) {
-#pragma unroll
-    for (int i = 0; i < NV; ++i) dst[g + G * i] = r[i];
-}
-
-// Stage rows [j0, j0 + TILE) of a (T, D) matrix into shared memory, zeros
-// beyond T.  All threads of the block take part.
-template <int D>
-__device__ __forceinline__ void stage_tile(float4* dst, const float4* src,
-                                           int j0, int T) {
-    constexpr int D4 = D / 4;
-    for (int idx = threadIdx.x; idx < TILE * D4; idx += blockDim.x) {
-        const int j = j0 + idx / D4;
-        dst[idx] = j < T ? src[(size_t)j0 * D4 + idx]
-                         : make_float4(0.f, 0.f, 0.f, 0.f);
+// Start the copy of rows [r0, r0 + ROWS) of a (T, D) matrix into shared
+// memory of stride D + 4 (zeros beyond T).  All threads take part.
+template <int D, int ROWS>
+__device__ __forceinline__ void stage_rows(float* dst, const float* src,
+                                           int r0, int T) {
+    constexpr int C4 = D / 4;
+    constexpr int SD = D + 4;
+    for (int idx = threadIdx.x; idx < ROWS * C4; idx += blockDim.x) {
+        const int r = idx / C4;
+        const int c = 4 * (idx % C4);
+        float* d = dst + r * SD + c;
+        if (r0 + r < T) {
+            cp_async16(d, src + (size_t)(r0 + r) * D + c);
+        } else {
+            *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+        }
     }
 }
 
-// Rows of the owned operand per block: the T rows are split evenly over
-// the fewest blocks of at most `max_rows` rows, rounded up to a multiple
-// of 32 (max_rows is one).
-inline int rows_per_block(int T, int max_rows) {
-    const int n = (T + max_rows - 1) / max_rows;
-    const int per = (T + n - 1) / n;
-    return (per + 31) / 32 * 32;
+// x = hi + lo exactly: hi is x with the 13 low mantissa bits cleared (a
+// TF32 value), lo the rest, which the MMA reads as TF32 by its leading 19
+// bits (the tensor core ignores the low 13 bits of a TF32 operand).  What
+// 3xTF32 drops is lo's low bits and the lo * lo term, about 2^-20 of the
+// product.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+    hi = __float_as_uint(x) & 0xffffe000u;
+    lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
-// A block has at most 256 threads, a row G of them.
-inline int max_rows(int G) {
-    const int r = 256 / G;
-    return r > 128 ? 128 : r;
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]),
+          "r"(b[1]));
+}
+
+// c += a b in 3xTF32, the small terms first
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4],
+                                     const uint32_t (&bh)[2],
+                                     const uint32_t (&bl)[2]) {
+    mma(c, al, bh);
+    mma(c, ah, bl);
+    mma(c, ah, bh);
+}
+
+// The A fragment of the (16, 8) block at s (row-major, stride ld).
+__device__ __forceinline__ void load_a(const float* s, int ld, int lane,
+                                       uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+    const int r = lane >> 2, c = lane & 3;
+    split(s[r * ld + c], hi[0], lo[0]);
+    split(s[(r + 8) * ld + c], hi[1], lo[1]);
+    split(s[r * ld + c + 4], hi[2], lo[2]);
+    split(s[(r + 8) * ld + c + 4], hi[3], lo[3]);
+}
+
+// The B fragment (8 deep, 8 wide) at s of an operand kept n-major,
+// B[k][n] = s[n * ld + k] (K or Q rows as the columns of a product), or,
+// with KN, kept k-major, B[k][n] = s[k * ld + n].
+template <bool KN>
+__device__ __forceinline__ void load_b(const float* s, int ld, int lane,
+                                       uint32_t (&hi)[2], uint32_t (&lo)[2]) {
+    const int n = lane >> 2, k = lane & 3;
+    if (KN) {
+        split(s[k * ld + n], hi[0], lo[0]);
+        split(s[(k + 4) * ld + n], hi[1], lo[1]);
+    } else {
+        split(s[n * ld + k], hi[0], lo[0]);
+        split(s[n * ld + k + 4], hi[1], lo[1]);
+    }
+}
+
+// c (16, 8 N) += A (16, 8 K) B with B k-major (stride ldb), A row-major
+// (stride lda).  The k step kk adds into the partial sums [kk % NP]; the
+// caller adds them in order.  With LIM only the first `lim` rows of B
+// count (a tile at the end of the sequence): the k steps past them are
+// skipped.  Full tiles take LIM false, which keeps the loops free of exits.
+template <bool LIM, int K, int N, int NP>
+__device__ __forceinline__ void gemm_kn(float (&c)[NP][N][4], const float* a,
+                                        int lda, const float* b, int ldb,
+                                        int lim, int lane) {
+#pragma unroll
+    for (int kk = 0; kk < K; ++kk) {
+        if (LIM && kk * 8 >= lim) break;
+        uint32_t ah[4], al[4];
+        load_a(a + kk * 8, lda, lane, ah, al);
+#pragma unroll
+        for (int n = 0; n < N; ++n) {
+            uint32_t bh[2], bl[2];
+            load_b<true>(b + kk * 8 * ldb + n * 8, ldb, lane, bh, bl);
+            mma3(c[kk % NP][n], ah, al, bh, bl);
+        }
+    }
 }
 
 }  // namespace flash

@@ -42,43 +42,16 @@ __all__ = ['flash_attention', 'flash_attention_plain',
 _NEG = -1e30
 HEAD_SIZES = (16, 32, 64, 128)
 
-# Where ``MultiheadAttention`` on the kernels beats its dense path on an
-# H100 (float32), per mask mode, for the forward alone and for forward plus
-# backward: inclusive ranges (lo, hi) of max(Tq, Tk), None for an open end.
-# From the table that chip_smoke.py phase 12 measures (PERF.md, "Attention
-# dispatch"): 12 heads of 64 at T = 512 ... 4096, 8 heads of 16 at T = 66
-# and 100.  With the full mask the forward ties at T = 512, and so does
-# forward plus backward (two calls read it each way); from T = 1024 on both
-# win, training since the backward's tile products run on the tensor cores
-# (3xTF32), so long-sequence training does not hold the dense path's
-# (B, H, T, T) weights; short sequences win because one launch replaces
-# ten.
-FLASH_WINS = {
-    'full': {'forward': ((None, 128), (1024, None)),
-             'training': ((None, 128), (1024, None))},
-    'causal': {'forward': ((None, None),), 'training': ((None, None),)},
-    'window': {'forward': ((None, None),), 'training': ((None, None),)},
-}
-
-
-def should_use_flash(tq, tk=None, *, causal=False, window=None,
-                     training=False, device='cuda', dtype=torch.float32):
-    """Dispatch heuristic of ``use_flash='auto'``: do the fused kernels beat
-    the dense path at this shape, for the forward alone or (``training``)
-    forward plus backward?  Off a CUDA device, and for another type than
-    float32 (the kernels take float32 only), always False."""
-    if torch.device(device).type != 'cuda' or dtype != torch.float32:
-        return False
-    t = max(tq, tk if tk is not None else tq)
-    if window is not None and tuple(window) != (None, None):
-        mode = 'window'
-    elif causal:
-        mode = 'causal'
-    else:
-        mode = 'full'
-    return any((lo is None or t >= lo) and (hi is None or t <= hi)
-               for lo, hi in FLASH_WINS[mode][
-                   'training' if training else 'forward'])
+def should_use_flash(device, dtype=torch.float32):
+    """Dispatch of ``use_flash='auto'``: the fused kernels for float32
+    tensors on a CUDA device, the dense path otherwise (the kernels take
+    float32 only).  The shape and the mask do not enter: since both
+    kernels' tile products run on the tensor cores (3xTF32) they beat the
+    dense path at every row of the dispatch table that chip_smoke.py phase
+    12 measures on an H100 (PERF.md, "Attention dispatch": 12 heads of 64
+    at T = 512 ... 4096, full, causal and windowed, and 8 heads of 16 at
+    T = 66 and 100, forward alone and forward plus backward)."""
+    return torch.device(device).type == 'cuda' and dtype == torch.float32
 
 
 def _norm_window(window):

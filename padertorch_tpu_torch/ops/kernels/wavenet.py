@@ -6,6 +6,15 @@ On CUDA tensors :func:`wavenet_sample` launches the hand-written kernel of
 :func:`wavenet_sample_plain`, a Python loop over the steps with the same
 ring buffers.
 
+The kernel has two routes, chosen from the shape and the card's limits
+before the launch by :func:`cluster_plan`: for few rows a row runs on a
+thread-block cluster of N CTAs (2 to 16), each owning 1/N of every
+product's columns (with its weight slices in shared memory where they
+fit); where B clusters would not run in one wave, one block per row.  A
+column's sum is the same on both routes, so a row gives the same bits on
+either.  A launch that fails on its route raises; it is never retried on
+the other.  ``wavenet_sample.routes`` counts the launches by route.
+
 Stochastic sampling is Gumbel-max over uniforms from a counter-based
 generator keyed by (seed, step, row, class): :func:`wavenet_uniform` is
 that generator in integer tensor operations, bit for bit what the kernel
@@ -14,13 +23,16 @@ logits.  (The TPU kernel draws from its hardware generator: the JAX
 package's sampled output agrees with the port's in distribution only.)
 """
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from padertorch_tpu_torch.ops.kernels import _build
 
 __all__ = ['wavenet_sample', 'wavenet_sample_plain', 'wavenet_uniform',
-           'ring_bytes']
+           'ring_bytes', 'ClusterPlan', 'cluster_plan', 'cluster_smem',
+           'sample_smem', 'owned_columns', 'device_plan', 'cluster_weights']
 
 START_INDEX = 128   # mu-law zero, the index "before" the first sample
 MAX_LAYERS = 64     # the kernel passes the dilations by value
@@ -156,6 +168,147 @@ def wavenet_sample_plain(cond_acts, weights, dilations, *, seed=0,
     return idx
 
 
+CLUSTER_SIZES = (16, 8, 4, 2)   # the kernel's cluster routes, largest first
+
+
+class ClusterPlan(NamedTuple):
+    """How the kernel runs a batch: ``n`` CTAs per row (a cluster; 1 is
+    one block per row), each with its weight slices in shared memory
+    (``resident``) or read through L2, and ``smem`` bytes of dynamic shared
+    memory per CTA."""
+    n: int
+    resident: bool
+    smem: int
+
+
+def _ceil(a, b):
+    return -(-a // b)
+
+
+def _round4(n):
+    return _ceil(n, 4) * 4
+
+
+def owned_columns(n_cols, n):
+    """(n, ceil(n_cols / n)) int64: the columns of each CTA of a cluster of
+    ``n``, CTA c owning c, c + n, c + 2n, ...; -1 past the last column."""
+    idx = (torch.arange(_ceil(n_cols, n))[None, :] * n
+           + torch.arange(n)[:, None])
+    return torch.where(idx < n_cols, idx, -1)
+
+
+def sample_smem(n_layers, r, s, o, slots, n, resident):
+    """Bytes of dynamic shared memory a CTA of a cluster of ``n`` needs
+    (``csrc/wavenet_sample.cu`` ``smem_floats``): its ring channels
+    (slots, ceil(R / n)), conditioning (L, 2, ceil(R / n)), [x_past, x],
+    acts, skip and hid (2R + R + S + O), its logits (ceil(O / n)), its
+    skip/residual biases (L, ceil((S + R) / n)), on a cluster two buffers
+    of its values of a product and, ``resident``, its weight slices."""
+    ru, cb, co = _ceil(r, n), _ceil(s + r, n), _ceil(o, n)
+    floats = (_round4(slots * ru) + _round4(n_layers * 2 * ru) + 3 * r + s
+              + o + _round4(co) + _round4(n_layers * cb))
+    if n > 1:
+        floats += 2 * _round4(max(ru, cb, co))
+    if resident:
+        floats += (n_layers * 2 * ru * 2 * r + n_layers * cb * r
+                   + co * (s + o))
+    return 4 * floats
+
+
+def cluster_smem(n_layers, r, s, o, slots, n, max_smem):
+    """(resident, bytes) of a CTA of a cluster of ``n`` on a card whose
+    blocks may opt in to ``max_smem`` bytes of shared memory: its weight
+    slices stay in shared memory where they fit, and it asks for more than
+    half of ``max_smem``, so that no two CTAs share an SM."""
+    resident = sample_smem(n_layers, r, s, o, slots, n, True) <= max_smem
+    return resident, max(sample_smem(n_layers, r, s, o, slots, n, resident),
+                         max_smem // 2 + 16)
+
+
+def cluster_plan(batch, n_layers, r, s, o, slots, n_sm, max_smem,
+                 max_clusters):
+    """The route for ``batch`` rows of a sampler of ``n_layers`` layers, R,
+    S and O channels and ``slots`` ring slots (the sum of the dilations),
+    on a card of ``n_sm`` SMs whose blocks may opt in to ``max_smem``
+    bytes of shared memory; ``max_clusters(n, smem)`` is how many clusters
+    of ``n`` CTAs with ``smem`` bytes each the card runs at once.
+
+    The largest cluster (16, 8, 4, 2) for which all ``batch`` clusters run
+    in one wave, one CTA per SM (:func:`cluster_smem`), and every CTA owns
+    a column of each product (n <= R, S, O).  Where no cluster size serves
+    the batch in one wave (a throughput batch: 132 or 264 rows), one block
+    per row.
+    """
+    for n in CLUSTER_SIZES:
+        if batch * n > n_sm or n > min(r, s, o):
+            continue
+        resident, smem = cluster_smem(n_layers, r, s, o, slots, n, max_smem)
+        if smem <= max_smem and max_clusters(n, smem) >= batch:
+            return ClusterPlan(n, resident, smem)
+    return ClusterPlan(1, False,
+                       sample_smem(n_layers, r, s, o, slots, 1, False))
+
+
+@functools.lru_cache(maxsize=None)
+def _max_clusters(device, n, smem):
+    out = (ctypes.c_int * 1)()
+    lib = _build.load_library()
+    err = lib.wavenet_sample_max_clusters(n, smem, device,
+                                          ctypes.addressof(out))
+    _build.check(lib, err, 'wavenet_sample cluster occupancy')
+    return out[0]
+
+
+def device_plan(batch, n_layers, r, s, o, slots, device):
+    """:func:`cluster_plan` at the limits of the card ``device`` (an
+    index), as the CUDA runtime reports them."""
+    props = torch.cuda.get_device_properties(device)
+    return cluster_plan(
+        batch, n_layers, r, s, o, slots, props.multi_processor_count,
+        props.shared_memory_per_block_optin,
+        functools.partial(_max_clusters, device))
+
+
+def _gather_owned(x, dim, n):
+    """``x`` with dimension ``dim`` (the columns) replaced by each CTA's
+    columns (:func:`owned_columns`, zeros past the last), the CTAs as a new
+    leading dimension."""
+    cols = owned_columns(x.shape[dim], n)
+    pad = torch.cat([x, x.new_zeros(x.shape[:dim] + (1,)
+                                    + x.shape[dim + 1:])], dim=dim)
+    idx = torch.where(cols < 0, x.shape[dim], cols).reshape(-1)
+    out = pad.index_select(dim, idx.to(x.device))
+    out = out.reshape(x.shape[:dim] + cols.shape + x.shape[dim + 1:])
+    return out.movedim(dim, 0).contiguous()
+
+
+def cluster_weights(weights, n):
+    """The sampler's weights in the kernel's per-CTA layout for clusters
+    of ``n`` (1: one block per row): ``wa`` (n, L, 2 RU, 2R), row 2u + h
+    the tanh (h = 0) or sigmoid (h = 1) column of the CTA's unit u, over
+    [x_past, x]; ``b_dil`` (n, L, 2, RU); ``wb`` (n, L, CB, R) the skip and
+    residual columns; ``b_sr`` (n, L, CB); ``wo`` (n, CO, S) and ``we`` (n,
+    CO, O), w_out's and w_end's columns (every product's weights as
+    (outputs, K))."""
+    w = weights
+    n_layers, r = w['b_dil'].shape[0], w['w_prev'].shape[1]
+    # a layer's two dilated products are one over [x_past, x], its skip
+    # and residual products one with S + R outputs (no residual in the last
+    # layer: zeros that the kernel does not use)
+    wd_t = torch.cat([w['w_prev'], w['w_curr']], dim=1).transpose(1, 2)
+    per_unit = wd_t.reshape(n_layers, 2, r, 2 * r).transpose(1, 2)
+    wa = _gather_owned(per_unit, 1, n).reshape(n, n_layers, -1, 2 * r)
+    b_dil = _gather_owned(w['b_dil'].reshape(n_layers, 2, r), 2, n)
+    w_res = torch.cat([w['w_res'], w['w_res'].new_zeros((1, r, r))])
+    wsr_t = torch.cat([w['w_skip'], w_res], dim=2).transpose(1, 2)
+    b_res = torch.cat([w['b_res'], w['b_res'].new_zeros((1, r))])
+    b_sr = torch.cat([w['b_skip'], b_res], dim=1)
+    return {'wa': wa, 'b_dil': b_dil, 'wb': _gather_owned(wsr_t, 1, n),
+            'b_sr': _gather_owned(b_sr, 1, n),
+            'wo': _gather_owned(w['w_out'].t(), 0, n),
+            'we': _gather_owned(w['w_end'].t(), 0, n)}
+
+
 def _launch(cond_acts, weights, dilations, sizes, seed, sample, forced_input,
             return_logits):
     t, b, n_layers, r, s_dim, o_dim, n_classes = sizes
@@ -167,10 +320,9 @@ def _launch(cond_acts, weights, dilations, sizes, seed, sample, forced_input,
             f'the kernel loads four weights at a time: residual, skip and '
             f'output channels must be multiples of 4, got {r}, {s_dim}, '
             f'{o_dim}')
-    lib = _build.load_library()
     stream, device = _build.stream_and_device(cond_acts)
     slots = sum(int(d) for d in dilations)
-    need = lib.wavenet_sample_smem_bytes(n_layers, r, s_dim, o_dim, slots)
+    need = sample_smem(n_layers, r, s_dim, o_dim, slots, 1, False)
     limit = torch.cuda.get_device_properties(
         device).shared_memory_per_block_optin
     if need > limit:
@@ -179,21 +331,10 @@ def _launch(cond_acts, weights, dilations, sizes, seed, sample, forced_input,
             f'{slots} slots x {r} channels ({ring_bytes(dilations, r)} '
             f'bytes) and its activations need {need} bytes, the card '
             f'offers {limit} per block')
+    plan = device_plan(b, n_layers, r, s_dim, o_dim, slots, device)
+    lib = _build.load_library()
     cond = cond_acts.to(torch.float32).contiguous()
-    w = weights
-    # the kernel's lanes run along K: every product's weights as (outputs,
-    # K).  A layer's two dilated products are one over [x_past, x], its skip
-    # and residual products one with S + R outputs (no residual in the last
-    # layer: zeros that the kernel does not read)
-    wd_t = torch.cat([w['w_prev'], w['w_curr']], dim=1) \
-        .transpose(1, 2).contiguous()                       # (L, 2R, 2R)
-    w_res = torch.cat([w['w_res'], w['w_res'].new_zeros((1, r, r))])
-    wsr_t = torch.cat([w['w_skip'], w_res], dim=2) \
-        .transpose(1, 2).contiguous()                       # (L, S + R, R)
-    pointers = [wd_t, w['b_dil'].contiguous(), wsr_t,
-                w['b_res'].contiguous(), w['b_skip'].contiguous(),
-                w['w_out'].t().contiguous(), w['w_end'].t().contiguous(),
-                w['embed'].contiguous()]
+    w = cluster_weights(weights, plan.n)
     forced = None if forced_input is None \
         else forced_input.to(torch.int32).contiguous()
     idx = torch.empty((t, b), dtype=torch.int32, device=cond.device)
@@ -202,13 +343,17 @@ def _launch(cond_acts, weights, dilations, sizes, seed, sample, forced_input,
     dil = (ctypes.c_int * n_layers)(*[int(d) for d in dilations])
     err = lib.wavenet_sample_fwd(
         cond.data_ptr(), None if forced is None else forced.data_ptr(),
-        *[tensor.data_ptr() for tensor in pointers],
+        *[w[name].data_ptr() for name in ('wa', 'b_dil', 'wb', 'b_sr', 'wo',
+                                          'we')],
+        weights['embed'].contiguous().data_ptr(),
         idx.data_ptr(), None if logits is None else logits.data_ptr(),
         ctypes.cast(dil, ctypes.c_void_p), t, b, n_layers, r, s_dim, o_dim,
-        n_classes, int(bool(sample)),
+        n_classes, plan.n, int(plan.resident), plan.smem, int(bool(sample)),
         ctypes.c_int32(int(seed) & _M32).value, device, stream)
-    _build.check(lib, err, 'wavenet_sample kernel')
+    route = 'one_block' if plan.n == 1 else 'cluster'
+    _build.check(lib, err, f'wavenet_sample kernel ({route}, {plan})')
     wavenet_sample.launches += 1
+    wavenet_sample.routes[route] += 1
     if return_logits:
         return idx, logits
     return idx
@@ -240,7 +385,12 @@ def wavenet_sample(cond_acts, weights, dilations, *, seed=0, sample=False,
         raise: it has no backward, it needs a row's ring buffers,
         ``ring_bytes(dilations, R)``, to fit in a block's shared memory, and
         R, S and O to be multiples of 4).
-        ``wavenet_sample.launches`` counts the launches.
+        ``wavenet_sample.launches`` counts the launches,
+        ``wavenet_sample.routes`` them by route (``cluster``,
+        ``one_block``).  On a cluster a CTA that waits for a peer's values
+        longer than about 35 s traps (a guard against a hang, not a limit
+        a correct launch comes near); the error ends the process's CUDA
+        context.
     """
     sizes = _sizes(cond_acts, weights, dilations, forced_input)
     if torch.is_grad_enabled() and (
@@ -260,3 +410,4 @@ def wavenet_sample(cond_acts, weights, dilations, *, seed=0, sample=False,
 
 
 wavenet_sample.launches = 0
+wavenet_sample.routes = {'cluster': 0, 'one_block': 0}

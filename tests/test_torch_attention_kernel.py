@@ -20,7 +20,6 @@ import jax.numpy as jnp
 
 from padertorch_tpu.ops.pallas.attention import (
     flash_attention as jax_flash_attention)
-from padertorch_tpu_torch.ops.kernels import attention
 from padertorch_tpu_torch.ops.kernels.attention import (
     flash_attention, flash_attention_fwd_plain, flash_attention_plain,
     should_use_flash, visible_mask)
@@ -219,39 +218,48 @@ def test_visible_mask_is_the_pallas_mask():
     (False, None), (True, None), (False, (256, 256))])
 def test_should_use_flash_is_false_off_the_card_and_follows_the_table(
         causal, window, training, monkeypatch):
-    kwargs = dict(causal=causal, window=window, training=training)
-    assert should_use_flash(8192, device='cpu', **kwargs) is False
-    mode = 'window' if window else 'causal' if causal else 'full'
-    phase = 'training' if training else 'forward'
-    other = 'forward' if training else 'training'
-    monkeypatch.setitem(attention.FLASH_WINS, mode,
-                        {phase: ((1024, None),), other: ()})
-    assert should_use_flash(1024, **kwargs) is True
-    assert should_use_flash(512, 2048, **kwargs) is True   # max(Tq, Tk)
-    assert should_use_flash(1023, **kwargs) is False
-    assert should_use_flash(8192, device='cpu', **kwargs) is False
-    assert should_use_flash(
-        4096, **dict(kwargs, training=not training)) is False
-    monkeypatch.setitem(attention.FLASH_WINS[mode], phase,
-                        ((None, 100), (512, 600)))
-    assert should_use_flash(100, **kwargs) is True
-    assert should_use_flash(101, **kwargs) is False
-    assert should_use_flash(600, **kwargs) is True
-    assert should_use_flash(601, **kwargs) is False
-    monkeypatch.setitem(attention.FLASH_WINS[mode], phase, ())
-    assert should_use_flash(10 ** 6, **kwargs) is False
+    """``MultiheadAttention`` with ``use_flash='auto'`` asks
+    ``should_use_flash`` with its tensors' device and type alone, at every
+    mask mode, forward alone and training (the dispatch table has the
+    kernels winning at every row), and takes the fused backend exactly
+    when it answers True; both backends give the same output."""
+    from padertorch_tpu_torch.contrib.mk.modules import transformer as tf
+    assert should_use_flash('cuda') is True
+    assert should_use_flash(torch.device('cuda', 0)) is True
+    assert should_use_flash('cpu') is False
+    assert should_use_flash('cuda', torch.bfloat16) is False
+    asked, fused = [], []
+
+    def spy_flash(*args, **kwargs):
+        fused.append(kwargs)
+        return flash_attention(*args, **kwargs)
+
+    monkeypatch.setattr(tf, 'flash_attention', spy_flash)
+    torch.manual_seed(0)
+    mha = tf.MultiheadAttention(16, 2, use_rope=True)
+    x = torch.randn(2, 9, 16, requires_grad=training)
+    outs = {}
+    for answer in (False, True):
+        monkeypatch.setattr(tf, 'should_use_flash', lambda device, dtype: (
+            asked.append((torch.device(device).type, dtype)) or answer))
+        with torch.set_grad_enabled(training):
+            outs[answer] = mha(x, causal=causal, attn_window=window)
+        assert asked.pop() == ('cpu', torch.float32) and not asked
+        assert len(fused) == int(answer)
+    assert fused[0]['causal'] == causal and fused[0]['window'] == window
+    np.testing.assert_allclose(outs[True].detach().numpy(),
+                               outs[False].detach().numpy(), atol=TOL)
 
 
 def test_the_measured_table_sends_the_sepformer_shapes_to_the_kernels():
+    """The SepFormer's attention (8 heads of 16 at T = 66 and 100) is
+    float32 on the card: 'auto' gives it to the kernels, as every other
+    row of the dispatch table; its bf16 and CPU tensors go dense."""
     for t in (66, 100):
-        for training in (False, True):
-            assert should_use_flash(t, training=training)
-    assert not should_use_flash(512)
-    assert should_use_flash(2048) and should_use_flash(2048, training=True)
-    assert should_use_flash(1024, training=True)
-    assert not should_use_flash(512, training=True)
-    assert should_use_flash(2048, causal=True, training=True)
-    assert should_use_flash(4096, window=(256, 256), training=True)
+        q = torch.zeros(2, 8, t, 16)
+        assert should_use_flash(torch.device('cuda'), q.dtype)
+        assert not should_use_flash(q.device, q.dtype)
+        assert not should_use_flash('cuda', q.to(torch.bfloat16).dtype)
 
 
 def test_the_wrapper_on_a_cpu_tensor_is_the_plain_version():

@@ -11,7 +11,9 @@ kernels likewise.  The attention kernels are held against the masked
 softmax formula (``flash_attention_plain`` and autograd through it) in every
 mask mode, for every head size of the template set and one outside it.
 The WaveNet sampler is held against its plain step loop (greedy and
-teacher-forced Gumbel indices equal, logits 2e-5) and the fused log-mel
+teacher-forced Gumbel indices equal, logits 2e-5), and its two routes (a
+cluster of CTAs per row, one block per row) against each other bit for
+bit, and the fused log-mel
 front end against its plain version (1e-4 on log-mel values), both at odd
 batch sizes, lengths and widths; a ``WaveNetVocoder`` and a ``SpeakerClf``
 on the card are held against the CPU and moved to the JAX layout and back.
@@ -968,6 +970,74 @@ def test_wavenet_sample_kernel_matches_plain(cuda, t_len, batch, dilations,
     free = wavenet_sample(cond, w, dilations)
     assert bool((free == wavenet_sample_plain(cond, w, dilations)).all())
     assert wavenet_sample.launches == before + 3
+
+
+@pytest.mark.parametrize('dilations,r,s,o', [
+    ((1, 2, 4, 8, 16, 32, 64, 128) * 2, 64, 256, 256),
+    ((3, 1, 5), 12, 20, 132),
+])
+def test_wavenet_rows_are_the_same_on_every_route(cuda, dilations, r, s, o,
+                                                  monkeypatch):
+    """The sampler's routes split columns, never a column's sum: each row
+    of a batch that runs one block per row equals the same row in a batch
+    of 1, 5, 8, 16 or 33 rows on clusters of CTAs, logits and indices bit
+    for bit.  On an H100 (132 SMs) those batches take clusters of 16 (8
+    where R < 16), 8, 4 and 2 CTAs: the cluster sizes launched are read
+    from the weights' layout the wrapper builds for each launch, the
+    routes from ``wavenet_sample.routes``."""
+    from padertorch_tpu_torch.ops.kernels import wavenet as wavenet_kernels
+    from padertorch_tpu_torch.ops.kernels.wavenet import wavenet_sample
+    rng = np.random.RandomState(r)
+    n_layers, t_len, batch = len(dilations), 60, 140
+    w = _wavenet_weights(n_layers, r, s, o, 256, rng, cuda)
+    cond = torch.from_numpy(rng.randn(
+        t_len, batch, n_layers, 2 * r).astype('float32')).to(cuda)
+    forced = torch.from_numpy(
+        rng.randint(0, o, (t_len, batch)).astype('int32')).to(cuda)
+    launched = []
+    layout = wavenet_kernels.cluster_weights
+    monkeypatch.setattr(wavenet_kernels, 'cluster_weights', lambda w, n: (
+        launched.append(n) or layout(w, n)))
+    before = dict(wavenet_sample.routes)
+    many_i, many_l = wavenet_sample(cond, w, dilations, forced_input=forced,
+                                    return_logits=True)
+    assert wavenet_sample.routes['one_block'] == before['one_block'] + 1
+    cases = [(slice(0, 1), 16), (slice(77, 78), 16), (slice(3, 8), 16),
+             (slice(0, 8), 8), (slice(40, 56), 4), (slice(100, 133), 2)]
+    for rows, n in cases:
+        plan = wavenet_kernels.device_plan(
+            rows.stop - rows.start, n_layers, r, s, o, sum(dilations),
+            cond.get_device())
+        got_i, got_l = wavenet_sample(
+            cond[:, rows].contiguous(), w, dilations,
+            forced_input=forced[:, rows].contiguous(), return_logits=True)
+        assert launched[-1] == plan.n
+        if torch.cuda.get_device_properties(
+                cond.get_device()).multi_processor_count == 132:
+            assert plan.n == min(n, 8 if r < 16 else 16)
+        assert torch.equal(got_i, many_i[:, rows])
+        assert torch.equal(got_l, many_l[:, rows])
+    assert launched[0] == 1 and all(n > 1 for n in launched[1:])
+    assert wavenet_sample.routes['cluster'] == before['cluster'] + len(cases)
+
+
+def test_wavenet_cluster_launch_that_fails_raises(cuda, monkeypatch):
+    """A cluster plan the card cannot launch (more shared memory than a
+    block may have) raises; it is not retried on the one-block route."""
+    from padertorch_tpu_torch.ops.kernels import wavenet as wavenet_kernels
+    from padertorch_tpu_torch.ops.kernels.wavenet import wavenet_sample
+    rng = np.random.RandomState(0)
+    w = _wavenet_weights(2, 16, 32, 256, 256, rng, cuda)
+    cond = torch.zeros(4, 1, 2, 32, device=cuda)
+    limit = torch.cuda.get_device_properties(
+        cond.get_device()).shared_memory_per_block_optin
+    monkeypatch.setattr(
+        wavenet_kernels, 'device_plan',
+        lambda *args: wavenet_kernels.ClusterPlan(16, False, limit + 1024))
+    before = dict(wavenet_sample.routes)
+    with pytest.raises(RuntimeError, match='cluster'):
+        wavenet_sample(cond, w, (1, 2))
+    assert wavenet_sample.routes == before
 
 
 def test_wavenet_sample_kernel_rejects_what_it_does_not_take(cuda):

@@ -304,6 +304,5 @@ def test_bf16_decoder_takes_the_dense_backend_and_decodes():
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(), want.float().numpy(),
                                atol=0.05, rtol=0)
-    assert tf.should_use_flash(128, causal=True, device='cuda')
-    assert not tf.should_use_flash(128, causal=True, device='cuda',
-                                   dtype=torch.bfloat16)
+    assert tf.should_use_flash('cuda')
+    assert not tf.should_use_flash('cuda', torch.bfloat16)
