@@ -50,10 +50,12 @@ Phases, one line each:
    and directions as a yardstick; each shape's forward route (``resident``
    where ``resident_plan`` gives a plan, printed with it: the DPRNN's and
    the classifier recipe's shapes; ``cooperative`` otherwise), read from
-   ``gru_cell_scan.routes``, and a second lean run's bits.  Phases 10, 11
-   and 19 check that every GRU forward of the ``bgru`` paths and of the
-   classifier recipe took the resident route and the classifier defaults'
-   the cooperative one.
+   ``gru_cell_scan.routes``, and a second lean run's bits; the backward's
+   route the same way (``resident_bwd_plan``, ``gru_cell_scan.bwd_routes``;
+   resident at H <= 137), and a second backward run's bits.  Phases 10, 11
+   and 19 check that every GRU forward and backward of the ``bgru`` paths
+   and of the classifier recipe took the resident route and the
+   classifier defaults' the cooperative one.
 9. the three LSTM kernels vs plain at the DPRNN's two shapes, timed, each
    with its TF32 control, the backward with the grid it took (unit slice,
    row ranges, rows per range, rows staged at once, K slices, blocks),
@@ -90,7 +92,9 @@ Phases, one line each:
     forward and forward + backward on the fused and on the dense backend
     at (8, T, 12 x 64) for T = 512 ... 4096, full, causal and windowed,
     and at the SepFormer's two shapes; the table is printed beside what
-    ``should_use_flash`` picks.
+    ``should_use_flash`` picks.  Last, ``use_flash='auto'`` at heads of 256,
+    which the kernels do not take: the dense path, equal to the dense
+    backend bit for bit, no kernel launched; ``use_flash=True`` raises.
 13. SepFormer-TasNet serving: the tasnet recipe's ``sepformer`` variant at
     full width (256 filters of length 20, 128 features, 4 blocks of 2 + 2
     transformer layers, 8 heads, K=100, hop 50) trained for 4 iterations
@@ -130,8 +134,11 @@ Phases, one line each:
     at the classifier recipe's (8, 8000) 512/128/64, at the wavenet
     recipe's (2, 16000) 1024/200 with window 800 and at
     (3, 12345) 512/160 with window 400 (a hop that does not divide the
-    window), with the TF32 control; timed beside the plain version and the
-    composed module path (``STFT`` -> power -> filterbank -> log).
+    window), with the TF32 control; one launch per call, the same bits on
+    a second call and for a signal alone; the plan (``logmel_plan``:
+    CTAs a cluster, CTAs in all); timed from CUDA-graph
+    replays (the kernel's own time) and eager, beside the plain version
+    and the composed module path (``STFT`` -> power -> filterbank -> log).
 17. WaveNet serving: the recipe's full-width vocoder trained 4 iterations
     into a storage dir on the card, loaded back; teacher-forced logits of
     the card against the CPU, and the kernel's teacher-forced logits
@@ -164,7 +171,9 @@ Phases, one line each:
     tensor cores' bf16 peak, float32 against the float32 peak), with the
     host's microseconds to enqueue one call; the contract's raises; in bf16
     every row of a batch of up to 256 equal to the row alone, bit for bit,
-    and repeated calls and CUDA-graph replays equal; then the kernel and
+    and repeated calls and CUDA-graph replays equal; split launches on two
+    streams at once, 200 each, equal to one stream's bit for bit, with
+    every per-tile counter back at zero; then the kernel and
     the composed route of ``QuantizedLinear`` by rows of x from 1 to 256
     (``INT8_KERNEL_MAX_ROWS`` comes from this table).
 21. decoding at full width: bench.py's int8 decode model (TransformerDecoder
@@ -191,9 +200,12 @@ the plain version's, the library call's where there is one, and the
 least time the card could take (``bound_ms``: the larger of bytes over
 3.35 TB/s and float32 operations over 67 TFLOP/s, or for int8_matmul's
 bf16 products 989 TFLOP/s, for the attention kernels' 3xTF32 products 495
-/ 3 TFLOP/s, NVIDIA's H100 SXM data sheet), and the route a kernel with
-several took there (``attention_route``, ``wavenet_route`` with the
-sampler's launches by route, ``gru_route``); the last line
+/ 3 TFLOP/s, for fused_logmel's DFT products 495 / 3 and its mel product
+67, NVIDIA's H100 SXM data sheet), and the route a kernel with several
+took there (``attention_route``, ``wavenet_route`` with the sampler's
+launches by route, ``gru_route``, the GRU backward's launches by route,
+``logmel_plan``; fused_logmel's ``ms`` from CUDA-graph replays, its eager
+call as ``eager_ms``); the last line
 is ``{"ok": true, "device": {...}}``.  Any failed
 check raises, so the script exits non-zero and prints no result; without
 a CUDA card it fails at phase 1.  ``--profile`` adds a ``torch.profiler``
@@ -252,7 +264,7 @@ from padertorch_tpu_torch.ops.kernels.lstm import (
     lstm_cell_scan_bwd_plain, recurrent_weight_grad)
 from padertorch_tpu_torch.utils.nested import nested_merge
 from padertorch_tpu_torch.ops.kernels.logmel import (
-    LogMelFrontend, fused_logmel)
+    LogMelFrontend, fused_logmel, logmel_plan)
 from padertorch_tpu_torch.ops.kernels.masked_istft import (
     masked_istft, masked_istft_plain)
 from padertorch_tpu_torch.ops.kernels import wavenet as wavenet_kernels
@@ -654,6 +666,7 @@ def reset_launches():
             wrapper.launches[name] = 0
     for name in gru_cell_scan.routes:
         gru_cell_scan.routes[name] = 0
+        gru_cell_scan.bwd_routes[name] = 0
     masked_istft.launches = 0
     wavenet_sample.launches = 0
     for name in wavenet_sample.routes:
@@ -663,15 +676,32 @@ def reset_launches():
 
 
 def check_gru_routes(label, route):
-    """Every GRU forward launched since the counts were last reset took
-    ``route`` (the DPRNN's chunk RNNs and the classifier recipe's GRU the
-    resident one, the classifier defaults' the cooperative one)."""
+    """Every GRU forward and backward launched since the counts were last
+    reset took ``route`` (the DPRNN's chunk RNNs and the classifier
+    recipe's GRU the resident one, the classifier defaults' the
+    cooperative one).  Returns the launches by route, of the forwards
+    (``fwd``) and of the backward (``bwd``)."""
     n = gru_cell_scan.launches['fwd'] + gru_cell_scan.launches['fwd_train']
+    n_bwd = gru_cell_scan.launches['bwd']
     want = {'resident': 0, 'cooperative': 0, route: n}
-    if n == 0 or gru_cell_scan.routes != want:
-        fail(f'{label}: {n} GRU forwards, by route {gru_cell_scan.routes}; '
+    want_bwd = {'resident': 0, 'cooperative': 0, route: n_bwd}
+    if (n == 0 or gru_cell_scan.routes != want
+            or gru_cell_scan.bwd_routes != want_bwd):
+        fail(f'{label}: {n} GRU forwards, by route {gru_cell_scan.routes}, '
+             f'{n_bwd} backwards, by route {gru_cell_scan.bwd_routes}; '
              f'expected all on the {route} route')
-    return dict(gru_cell_scan.routes)
+    return {'fwd': dict(gru_cell_scan.routes),
+            'bwd': dict(gru_cell_scan.bwd_routes)}
+
+
+# the GRU backward's launches on the main paths by route (the kernels
+# line's launches_by_route): added up where the main paths' counts are read
+GRU_BWD_MAIN_ROUTES = {'resident': 0, 'cooperative': 0}
+
+
+def add_main_bwd_routes():
+    for name, n in gru_cell_scan.bwd_routes.items():
+        GRU_BWD_MAIN_ROUTES[name] += n
 
 
 def phase_slice():
@@ -1095,11 +1125,12 @@ def phase_gru_kernels():
         def fwd_train():
             return gru_kernels._launch(gx, w, n_dir, mask, h0, train=True)
 
-        # the forwards' route, chosen from the shape before the launch
-        plan = gru_kernels.resident_plan(
-            n_dir, batch, hdim,
-            *gru_kernels.device_limits(torch.cuda.current_device()))
+        # the kernels' routes, chosen from the shape before the launch
+        limits = gru_kernels.device_limits(torch.cuda.current_device())
+        plan = gru_kernels.resident_plan(n_dir, batch, hdim, *limits)
         route = 'cooperative' if plan is None else 'resident'
+        plan_bwd = gru_kernels.resident_bwd_plan(n_dir, batch, hdim, *limits)
+        route_bwd = 'cooperative' if plan_bwd is None else 'resident'
         routes_before = dict(gru_cell_scan.routes)
         got = gru_cell_scan(*args)
         want = gru_cell_scan_plain(*args)
@@ -1133,10 +1164,25 @@ def phase_gru_kernels():
             return gru_cell_scan_bwd_plain(acts, gh_n, h_prev, w, mask,
                                            *cot)
 
+        bwd_before = dict(gru_cell_scan.bwd_routes)
         got_bwd = bwd()
+        again_bwd = bwd()
         want_bwd = bwd_plain()
         torch.cuda.synchronize()
         err['bwd'] = max_err(got_bwd, want_bwd)          # dgx, dgh, dh0
+        routed_bwd = {k: v - bwd_before[k]
+                      for k, v in gru_cell_scan.bwd_routes.items()}
+        same_bwd = all(torch.equal(a, b) for a, b in zip(got_bwd, again_bwd))
+        shown = ('' if plan_bwd is None else ' ' + ', '.join(
+            f'{k} {v}' for k, v in plan_bwd._asdict().items()))
+        print(f'phase 8 gru bwd {label}: route {route_bwd}{shown}; launches '
+              f'by route {routed_bwd}; a second run gives the same bits: '
+              f'{same_bwd}')
+        if routed_bwd != {'resident': 0, 'cooperative': 0, route_bwd: 2}:
+            fail(f'the gru backward at {label} did not take the '
+                 f'{route_bwd} route: {routed_bwd}')
+        if not same_bwd:
+            fail(f'two gru backward runs at {label} differ')
 
         def grads(fn):
             leaves = [a.clone().requires_grad_() for a in (gx, w, h0)]
@@ -1209,11 +1255,12 @@ def phase_gru_kernels():
             name: {'shape': label, 'max_abs_err': err[name],
                    'ms': times[name], 'plain_ms': times[name + '_plain'],
                    **limits[name], 'library_ms': library[name],
-                   # the backward has the cooperative kernel alone
-                   'gru_route': route if name != 'bwd' else 'cooperative'}
+                   'gru_route': route if name != 'bwd' else route_bwd}
             for name in ('fwd', 'fwd_train', 'bwd')}
         results[label]['fwd']['plan'] = None if plan is None else plan._asdict()
         results[label]['fwd_train']['plan'] = results[label]['fwd']['plan']
+        results[label]['bwd']['plan'] = (None if plan_bwd is None
+                                         else plan_bwd._asdict())
         results[label]['dw_ms'] = times['dw']
     return results
 
@@ -1579,8 +1626,44 @@ def phase_attention_kernels():
         if rows is not None:
             results[label] = rows
     attention_dispatch_table()
+    attention_auto_wide_heads()
     torch.cuda.empty_cache()
     return results
+
+
+def attention_auto_wide_heads():
+    """``use_flash='auto'`` at a head size of 256, which the kernels do not
+    take: the dense path, equal to the dense backend, no kernel launched;
+    forcing the kernels raises with their stated message."""
+    torch.manual_seed(0)
+    mha = MultiheadAttention(512, 2, use_rope=True).cuda()
+    x = torch.randn((4, 300, 512), device='cuda')
+    lens = torch.tensor([300, 211, 77, 1], device='cuda')
+    reset_launches()
+    with torch.no_grad():
+        auto = mha(x, key_padding_lens=lens, causal=True)
+        launched = dict(flash_attention.launches)
+        dense = set_attention_backend(mha, False)(
+            x, key_padding_lens=lens, causal=True)
+        set_attention_backend(mha, True)
+        try:
+            mha(x, key_padding_lens=lens, causal=True)
+            raised = None
+        except ValueError as e:
+            raised = str(e)
+    torch.cuda.synchronize()
+    same = torch.equal(auto, dense)
+    print(f'phase 12 use_flash=\'auto\' at (4, 300, 2 x 256) causal, '
+          f'ragged: should_use_flash '
+          f'{should_use_flash(x.device, x.dtype, head_size=256)}, kernel '
+          f'launches {launched}, equal to the dense backend bit for bit '
+          f'{same}; use_flash=True raises: {raised}')
+    if any(launched.values()) or not same:
+        fail('use_flash=\'auto\' at heads of 256 did not take the dense '
+             'path')
+    if raised is None or 'at most 128' not in raised:
+        fail('use_flash=True at heads of 256 did not raise its stated '
+             'message')
 
 
 def tasnet_updates(rnn_type, extra=None):
@@ -1806,6 +1889,8 @@ def phase_tasnet_training(name, profile=False):
         launches = dict(wrapper.launches)
         routes = ('' if wrapper is not gru_cell_scan else f' by route '
                   f'{check_gru_routes(f"phase {phase}b {name}", "resident")}')
+        if wrapper is gru_cell_scan:
+            add_main_bwd_routes()
         iterations = trainer.iteration
         losses = [float(x) for x in recorder.losses]
         norms = [float(x) for x in recorder.norms]
@@ -2180,8 +2265,13 @@ def phase_logmel_kernel():
                                   window_length=window_length, n_mels=n_mels)
         x = torch.from_numpy(
             rng.randn(batch, samples).astype('float32') * 0.1).cuda()
+        before = fused_logmel.launches
         got = frontend(x)
+        launched = fused_logmel.launches - before
+        again = frontend(x)
+        alone = frontend(x[-1])
         want = frontend.plain(x)
+        same = torch.equal(got, again) and torch.equal(alone, got[-1:])
         err = float((got - want).abs().max())
         tf32_err = float((with_tf32(lambda: frontend.plain(x))
                           - want).abs().max())
@@ -2196,28 +2286,57 @@ def phase_logmel_kernel():
             return torch.log(power @ fbanks + 1e-12)
 
         composed_err = float((got - composed()).abs().max())
-        ms = cuda_ms(lambda: frontend(x), iters=20, warmup=3)
+        # the kernel's own time from CUDA-graph replays (an eager call of
+        # the recipes' small inputs is the host's as much as the card's),
+        # and the eager call beside it
+        ms = graph_ms(lambda: frontend(x), iters=20)
+        eager_ms = cuda_ms(lambda: frontend(x), iters=20, warmup=3)
         plain_ms = cuda_ms(lambda: frontend.plain(x), iters=20, warmup=3)
         composed_ms = cuda_ms(composed, iters=20, warmup=3)
         frames = got.shape[1]
         f_bins = size // 2 + 1
         length = window_length or size
-        flops = batch * frames * 2 * (2 * length * f_bins + f_bins * n_mels)
+        plan = logmel_plan(batch, frames, length, shift, f_bins,
+                           frontend.n_partials, *gru_kernels.device_limits(
+                               torch.cuda.current_device()))
+        # the mel product needs the filterbank's nonzero band ranges only
+        # (frontend.bands_on: each band's bins [lo, hi) first)
+        bands = frontend.bands_on('cpu')[:3 * n_mels].reshape(n_mels, 3)
+        mel_terms = int((bands[:, 1] - bands[:, 0]).sum())
+        flops = batch * frames * 2 * (2 * length * f_bins + mel_terms)
+        n_bytes = nbytes(x, got, *frontend.bases_on('cuda')[:3])
+        # the DFT products run as 3xTF32 on the tensor cores, the mel
+        # product in float32: the bound at each one's peak, and at float32
+        by_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+        by_ops = (batch * frames * 2 * 2 * length * f_bins / PEAK_3XTF32_FLOPS
+                  + batch * frames * 2 * mel_terms / PEAK_F32_FLOPS) * 1e3
+        by_parts = max(by_bytes, by_ops)
+        f32 = bound(n_bytes, flops)
         row = {'shape': label, 'max_abs_err': err, 'ms': ms,
-               'plain_ms': plain_ms, 'library_ms': None,
-               **bound(nbytes(x, got, *frontend.bases_on('cuda')[:3]), flops)}
+               'eager_ms': eager_ms, 'plain_ms': plain_ms, 'library_ms': None,
+               'logmel_plan': plan._asdict(), 'bound_ms': by_parts,
+               'bound_by': 'bytes' if by_bytes >= by_ops else 'operations',
+               'peak': '3xTF32 tensor cores (DFT), float32 (mel)',
+               'bound_f32_ms': f32['bound_ms']}
         rows.append(row)
         print(f'phase 16 fused_logmel {label}: ({batch}, {samples}) -> '
-              f'{tuple(got.shape)}, max |diff| vs plain {err:.3e} (tol '
+              f'{tuple(got.shape)}, {launched} launch, plan '
+              f'{plan._asdict()}, max |diff| vs plain {err:.3e} (tol '
               f'{LOGMEL_TOL}; values {float(want.min()):.1f} ... '
               f'{float(want.max()):.1f}), control plain with TF32 '
               f'{tf32_err:.3e}, vs the composed module path '
-              f'{composed_err:.3e} (tol {LOGMEL_COMPOSED_TOL}); kernel '
-              f'{ms:.3f} ms, plain {plain_ms:.3f} ms, composed '
-              f'{composed_ms:.3f} ms, bound {row["bound_ms"]:.4f} ms by '
-              f'{row["bound_by"]}')
+              f'{composed_err:.3e} (tol {LOGMEL_COMPOSED_TOL}); the same '
+              f'bits again and for the last signal alone {same}; kernel '
+              f'{ms:.4f} ms from CUDA-graph replays, {eager_ms:.4f} ms '
+              f'eager; plain {plain_ms:.3f} ms, composed '
+              f'{composed_ms:.3f} ms, bound {by_parts:.4f} ms by '
+              f'{row["bound_by"]} (DFT at 3xTF32, mel at float32; all at '
+              f'float32 {f32["bound_ms"]:.4f} ms)')
         if got.shape != want.shape or not err <= LOGMEL_TOL:
             fail(f'fused_logmel disagrees with its plain version: {err}')
+        if launched != 1 or not same:
+            fail(f'fused_logmel: {launched} launches for one call, or a '
+                 f'second call or a signal alone gave other bits')
         if not tf32_err > LOGMEL_TOL:
             fail('the TF32 control passes the limit: the limit is too loose')
         if not composed_err <= LOGMEL_COMPOSED_TOL:
@@ -2471,6 +2590,7 @@ def phase_speaker_clf():
         launches = {'fused_logmel': fused_logmel.launches,
                     **gru_cell_scan.launches}
         trained_routes = check_gru_routes('phase 19b', 'resident')
+        add_main_bwd_routes()
         iterations = trainer.iteration
         losses = [float(x) for x in recorder.losses]
         norms = [float(x) for x in recorder.norms]
@@ -2479,7 +2599,7 @@ def phase_speaker_clf():
         half = iterations // 2
         print(f'phase 19b speaker classifier trained {iterations} iterations '
               f'of 8 x 8000 samples in {seconds:.2f} s (validations and '
-              f'checkpoints included), launches {launches}, GRU forwards by '
+              f'checkpoints included), launches {launches}, GRU kernels by '
               f'route {trained_routes}; training loss '
               f'first half mean {np.mean(losses[:half]):.4f}, second half '
               f'mean {np.mean(losses[half:]):.4f}; best validation accuracy '
@@ -2593,6 +2713,7 @@ def phase_speaker_clf():
                        per_step=1)
         full_step = counts()     # of the 5 timed steps
         step_routes = check_gru_routes('phase 19e step', 'cooperative')
+        add_main_bwd_routes()
         print('phase 19e full-width training step 16 x 64000 samples: '
               + ', '.join(f'{k} {v:.3f} ms' for k, v in t.items())
               + f'; launches {full_step}, GRU by route {step_routes}')
@@ -2832,8 +2953,40 @@ def phase_int8_kernel():
             continue
         fail(f'int8_matmul took {what}')
     int8_batch_bits()
+    int8_two_streams()
     int8_dispatch_rows()
     return row
+
+
+def int8_two_streams(iters=200):
+    """bf16 launches with several K splits, (8, 4096, 1024), on two
+    streams at once, ``iters`` times each: every output equal to its
+    one-stream result bit for bit, and every per-tile counter back at zero
+    (each stream counts into counters of its own)."""
+    if not -(-4096 // int8_kernels.bf16_split_rows(4096, 1024)) > 1:
+        fail('(8, 4096, 1024) bf16 has no K splits: not the test it was')
+    inputs = [int8_inputs(8, 4096, 1024, torch.bfloat16, seed=s)
+              for s in (1, 2)]
+    want = [int8_matmul(*args) for args in inputs]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for stream in streams:
+        stream.wait_stream(torch.cuda.current_stream())
+    outs = [[], []]
+    for _ in range(iters):
+        for i, stream in enumerate(streams):
+            with torch.cuda.stream(stream):
+                outs[i].append(int8_matmul(*inputs[i]))
+    torch.cuda.synchronize()
+    equal = [sum(torch.equal(o, want[i]) for o in outs[i]) for i in range(2)]
+    left = {key: int(c.count_nonzero())
+            for key, c in int8_kernels._counters.items()}
+    print(f'phase 20 int8_matmul bf16 (8, 4096, 1024) on two streams at '
+          f'once, {iters} launches each: {equal} equal to the one-stream '
+          f'result bit for bit; non-zero counters left, by (device, '
+          f'stream): {left}')
+    if equal != [iters, iters] or any(left.values()):
+        fail('int8_matmul launches on two streams at once disagree with '
+             'one stream, or left counters non-zero')
 
 
 def full_width_decoder():
@@ -3151,6 +3304,12 @@ def main():
     for name, n in gru_launches.items():
         if n == 0:
             fail(f'the TasNet paths never launched the gru {name} kernel')
+    if (sum(GRU_BWD_MAIN_ROUTES.values()) != gru_launches['bwd']
+            or GRU_BWD_MAIN_ROUTES['resident'] == 0):
+        fail(f'the GRU backward\'s launches by route '
+             f'{GRU_BWD_MAIN_ROUTES} do not add up to its '
+             f'{gru_launches["bwd"]} launches on the main paths, or none '
+             f'took the resident route')
     # the LSTM kernels' launches: the uPIT paths plus the TasNet paths
     # with LSTM chunk RNNs
     lstm_launches = {
@@ -3211,7 +3370,8 @@ def main():
         {'name': 'gru_cell_scan_bwd', 'route': 'cuda',
          'source': 'padertorch_tpu_torch/csrc/gru_cell_scan_bwd.cu',
          'replaces': 'padertorch_tpu/ops/pallas/gru.py:259',
-         'launches': gru_launches['bwd'], **gru_rows['bwd']},
+         'launches': gru_launches['bwd'],
+         'launches_by_route': dict(GRU_BWD_MAIN_ROUTES), **gru_rows['bwd']},
         {'name': 'flash_attention', 'route': 'cuda',
          'source': 'padertorch_tpu_torch/csrc/flash_attention.cu',
          'replaces': 'padertorch_tpu/ops/pallas/attention.py:328',

@@ -294,9 +294,12 @@ class MultiheadAttention(nn.Module):
         use_flash = self.use_flash
         if (use_flash and attn_bias is None and not bias_kv
                 and (self.dropout is None or not self.training)):
-            # 'auto' takes the kernels for float32 on the card; True forces
-            # the fused backend (its plain version on a CPU tensor)
-            if use_flash is True or should_use_flash(q.device, q.dtype):
+            # 'auto' takes the kernels for float32 on the card at the head
+            # sizes they take; True forces the fused backend (its plain
+            # version on a CPU tensor; a head wider than the kernels take
+            # raises on the card)
+            if use_flash is True or should_use_flash(
+                    q.device, q.dtype, head_size=q.shape[-1]):
                 return self._merge(flash_attention(
                     q, k, v, causal=causal,
                     key_padding_lens=key_padding_lens, window=attn_window))

@@ -4,249 +4,450 @@
 // `_logmel_kernel`).
 //
 // What bounds it on the card: the arithmetic.  Per frame 2 * L * F
-// multiply-adds for the real and imaginary DFT products and F * M for the
-// mel product (0.56 MFLOP at L=512, F=257, M=64) against `shift` new
-// samples read and M values written; the bases (2 x L x F and F x M
-// floats, 1.1 MB) are shared by all frames and stay in L2.
+// multiply-adds for the real and imaginary DFT products and, for the mel
+// product, one per nonzero of the filterbank (a band's filter covers a
+// few neighbouring bins), against `shift` new samples read and M values
+// written; the basis (2 x L x F floats, 1.1 MB at L = 512) is shared by
+// all frames and stays in L2.
 //
-// Design: the TPU kernel frames with aligned rolls of a (rows, shift)
-// reshape, which needs shift | window_length; here a frame is read at its
-// own offset, so any shift works.  One block takes one batch row and a
-// tile of FT frames.  It loads the tile's span of the padded signal,
-// (FT - 1) * shift + L samples, into shared memory once.  The DFT is one
-// product of the (FT, L) frames with the (L, 2 F) basis [re, im per bin],
-// tiled for registers: a thread owns eight frames x four bins (64
-// accumulators) and per window position reads eight samples (broadcast
-// within a warp) and its eight basis values (two 16-byte loads, contiguous
-// over a warp) from shared memory for 64 FMAs: the shared-memory pipe and
-// the FMA units are about equally busy.  The basis streams through shared
-// memory in tiles of KT rows, copied asynchronously one tile ahead.  The
-// power |X|^2 of the tile goes to shared memory and never to device memory;
-// the mel product reads it there (two mel bins x eight frames per thread),
-// and only log(mel + eps) is written.
-#include <cuda_pipeline.h>
+// Design.  The DFT product, (frames x L) @ (L x 2F), runs on the tensor
+// cores as 3xTF32 `wgmma.mma_async.m64n64k8.f32.tf32.tf32`: each operand
+// is split into hi, its value rounded to TF32, and lo, the rest rounded to
+// TF32 (`cvt.rna`), and lo*hi + hi*lo + hi*hi keep about 22 of float32's
+// 24 bits (the dropped lo*lo is at most 2^-22 of a product, of either
+// sign).  `mma.sync` runs TF32 on this card at about a quarter of the
+// tensor cores' rate, which made a first version of this design slower
+// than the CUDA-core kernel it replaced; `wgmma` runs at the full rate.
+// The basis interleaves the bins' real and imaginary columns ([re, im] of
+// bin b at columns 2b, 2b + 1), so a thread's accumulator pair is one
+// bin's (re, im) and the power never leaves registers but for shared
+// memory.  Each stage of 32 window positions sums into an accumulator of
+// its own from zero, which is added to the bin's sum in float32 on the
+// CUDA cores: the tensor core's own float32 sums round toward zero, and
+// over all 512 positions in one accumulator their error grows with the
+// sum, which the DFT cancels (a bin's value is far smaller than the sum
+// of its terms' sizes).
+// tests/test_torch_logmel_tf32.py emulates this arithmetic.
+//
+// A CTA is one warpgroup and takes FT = 64 frames of one batch row (the
+// TPU kernel frames with aligned rolls, which needs shift | window_length;
+// here a frame is read at its own offset, so any shift works) and chunks
+// of 32 bins (64 basis columns, the product's N).  The CTAs of a
+// thread-block cluster of CS (1 to 16, from the host planner,
+// `logmel_plan` in ops/kernels/logmel.py) share a frame tile and split its
+// chunks (rank c takes chunks c, c + CS, ...), so that the small inputs of
+// the recipes, a few dozen frame tiles, still put work on most of the 132
+// SMs.  A CTA loads its frames' span of the signal into shared memory once,
+// with the fading pad folded in (zeros outside the signal: one launch per
+// call), in segments of `shift` samples padded to SS = 4 mod 8 floats, so
+// that a warp's 32 loads of an A fragment (8 frames x 4 samples) fall on
+// 32 banks whatever the shift; A comes from registers, split there.  The
+// basis arrives from the host split into its hi and lo planes, in the
+// layout B takes from shared memory (K-major core matrices of 8 columns x
+// 4 positions, no swizzle), stages of 32 positions copied asynchronously
+// one stage ahead; the signal's span arrives the same way, with the first
+// stage.  After a chunk's K loop the power
+// goes to shared memory and the chunk's mel partial sums are formed on the
+// CUDA cores: a band's sum over the chunk runs over the bins of its range
+// there (`bands`, from the host), which gives the same bits as the dense
+// product (a zero weight adds an exact zero).  A frame keeps one partial
+// sum for each (band, chunk the band meets) in shared memory, and a band's
+// sum adds them in chunk order, each read from the CTA of the cluster that
+// owns the chunk (distributed shared memory, after a cluster barrier).  So
+// every output is the same sum in the same order whatever CS and the
+// batch: a row's features are the same bits in any batch, and two runs
+// give the same bits.  log(mel + eps) is all that is written.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "flash_attention_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int NT_MAX = 576;  // threads per block, at most (96 registers)
-constexpr int FR = 8;        // frames per thread
-constexpr int BR = 4;        // bins per thread: 2 * BR basis columns
-constexpr int KT = 16;       // basis rows per shared-memory stage
+constexpr int THREADS = 128;    // one warpgroup: four warps of 16 frames
+constexpr int FT = 64;          // frames of a CTA: the product's M
+constexpr int NC = 64;          // basis columns of a chunk: 32 bins, N
+constexpr int BINS = NC / 2;
+constexpr int KT = 32;          // window positions of a stage
+constexpr int STAGE = KT * NC;  // floats of a stage (one plane)
+constexpr int PSTR = BINS + 1;  // floats a power row
+constexpr int MAX_CS = 16;
 
-// sig: (B, Tp) padded signal; basis: (L, NB), NB = 2 * F rounded up to a
-// multiple of 2 * BR (zeros beyond F); a row holds, for each group of BR
-// bins, [re, im] of its first two bins, and in its second half [re, im] of
-// each group's last two (so that a warp's 16-byte loads are contiguous);
-// fb: (F, M) filterbank; out: (B, n_frames, M).  FT = FR * GF frames per
-// block, blockDim.x >= GF * NB / (2 * BR).
-// Shared memory: sig_s (span + KT rounded up to 4), b_s (2, KT, NB),
-// pow_s (FT, F).
-__global__ void __launch_bounds__(NT_MAX) fused_logmel_kernel(
+// The launch's geometry.  T: samples of a signal row; lo: the fading
+// pad's zeros before it; LK: L rounded up to KT; SS: floats of a signal
+// segment (shift, padded to 4 mod 8); NSEG: segments of a CTA's span;
+// NCH: chunks of 32 bins; CS: CTAs of a cluster; E: a frame's mel partial
+// sums, one for each (band, chunk the band's bins meet).
+struct Geometry {
+    int T, lo, n_frames, L, LK, F, M, shift, SS, NSEG, NCH, CS, E;
+};
+
+__host__ __device__ inline int round_up(int x, int to) {
+    return (x + to - 1) / to * to;
+}
+
+// Floats of dynamic shared memory of a CTA: two basis stages, each a hi
+// and a lo plane | the signal span (NSEG, SS) | the power (FT, PSTR) | the
+// mel partial sums (FT, E) | the span offsets of the window positions (LK
+// ints).
+inline size_t smem_floats(const Geometry& g) {
+    return 4 * (size_t)STAGE + round_up(g.NSEG * g.SS, 4)
+           + (size_t)FT * PSTR + (size_t)FT * g.E + g.LK;
+}
+
+// hi: x rounded to TF32; lo: the rest rounded to TF32 (the tensor core
+// would cut its low bits); the host splits the basis the same way
+__device__ __forceinline__ void split_rn(float x, uint32_t& hi,
+                                         uint32_t& lo) {
+    asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+    asm("cvt.rna.tf32.f32 %0, %1;\n"
+        : "=r"(lo) : "f"(x - __uint_as_float(hi)));
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 4 bytes, or zeros where `valid` is false (nothing is read then)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 4 : 0)
+                 : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Descriptor of one k-step of a K-major B plane without swizzle: core
+// matrices of 8 columns x 16 bytes (4 positions), the two along K 128
+// bytes apart (the leading byte offset), the eight along N 256 apart (the
+// stride byte offset).
+__device__ __forceinline__ uint64_t b_desc(const float* tile) {
+    const uint64_t addr = smem_addr(tile);
+    return ((addr & 0x3FFFFu) >> 4) | (uint64_t(128 >> 4) << 16)
+           | (uint64_t(256 >> 4) << 32);
+}
+
+// d (64 x 64 over the warpgroup) += A (64 x 8, registers) B (8 x 64,
+// `desc`)
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32],
+                                           const uint32_t (&a)[4],
+                                           uint64_t desc) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// sig: (B, T) unpadded signal; basis: per chunk c and stage (32 window
+// positions; LK / 32 of them), the hi plane and then the lo plane, each
+// four k-steps (8 positions) of 512 floats: B's core matrices for columns
+// 64 c ... 64 c + 63 ([re, im] of bin b at columns 2b, 2b + 1, zeros
+// beyond bin F - 1) and the k-step's positions (zeros beyond L), in the
+// order (column group of 8, position group of 4, column, position); fb:
+// (F, M) filterbank; bands: (M, 3) ints, band m's bins [lo, hi) (every
+// nonzero of its column of fb; lo = hi for none) and the index of its
+// first partial sum, which belongs to chunk lo / 32 (one for each chunk
+// through (hi - 1) / 32), then (NCH, 2) ints, the bands [first, last]
+// that meet each chunk; out: (B, n_frames, M).  Grid (CS * ceil(n_frames
+// / FT), B), clusters of CS along x: blockIdx.x / CS is the frame tile,
+// blockIdx.x % CS the rank.
+__global__ void __launch_bounds__(THREADS) fused_logmel_kernel(
         const float* __restrict__ sig, const float* __restrict__ basis,
-        const float* __restrict__ fb, float* __restrict__ out, int Tp,
-        int n_frames, int L, int F, int NB, int M, int shift, int GF,
-        float eps) {
-    extern __shared__ __align__(16) float smem[];
-    const int FT = GF * FR;
-    const int span = (FT - 1) * shift + L;
-    float* sig_s = smem;
-    const int span_s = (span + KT + 3) / 4 * 4;   // zeros beyond the span
-    float* b_s = sig_s + span_s;
-    float* pow_s = b_s + 2 * KT * NB;
+        const float* __restrict__ fb, const int* __restrict__ bands,
+        float* __restrict__ out, Geometry g, float eps) {
+    extern __shared__ __align__(128) float smem[];
+    const int cs = g.CS;
+    const int rank = blockIdx.x % cs;
+    const int frame0 = blockIdx.x / cs * FT;
     const int b = blockIdx.y;
-    const int frame0 = blockIdx.x * FT;
+    const int n_kt = g.LK / KT;
+    float* b_s = smem;                       // two stages of two planes
+    float* sig_s = b_s + 4 * STAGE;
+    float* pow_s = sig_s + round_up(g.NSEG * g.SS, 4);
+    float* part_s = pow_s + FT * PSTR;
+    int* koff_s = reinterpret_cast<int*>(part_s + (size_t)FT * g.E);
     const int tid = threadIdx.x;
-    const int nt = blockDim.x;
+    const int lane = tid & 31;
+    const int warp = tid >> 5;                // frames 16 warp ...
+    const int q = lane & 3;
+    const int rr = lane >> 2;
+    const int n_stages = (g.NCH - rank + cs - 1) / cs * n_kt;
 
-    // basis rows k0 ... k0 + KT - 1 into a stage; rows beyond L are zeros
-    auto copy_tile = [&](int k0, float* stage) {
-        const int n4 = KT * NB / 4;
-        for (int i = tid; i < n4; i += nt) {
-            const int row = k0 + 4 * i / NB;
-            float4* dst = reinterpret_cast<float4*>(stage) + i;
-            if (row < L)
-                __pipeline_memcpy_async(
-                    dst, reinterpret_cast<const float4*>(
-                             basis + (size_t)k0 * NB) + i, sizeof(float4));
-            else
-                *dst = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    // stage s: positions KT (s % n_kt) ... of the chunk rank + (s / n_kt)
+    // CS, both planes contiguous in `basis`
+    auto copy_stage = [&](int s, float* dst) {
+        const float* src = basis
+            + ((size_t)(rank + s / n_kt * cs) * n_kt + s % n_kt) * 2 * STAGE;
+        for (int i = 4 * tid; i < 2 * STAGE; i += 4 * THREADS) {
+            flash::cp_async16(dst + i, src + i);
         }
-        __pipeline_commit();
+        flash::cp_async_commit();
     };
-    copy_tile(0, b_s);
 
-    const size_t start = (size_t)frame0 * shift;
-    const float* row = sig + (size_t)b * Tp;
-    for (int i = tid; i < span_s; i += nt)
-        sig_s[i] = i < span && start + i < (size_t)Tp ? row[start + i] : 0.0f;
+    // the span of the tile's frames, segment by segment (a warp a
+    // segment), with the fading pad folded in: zeros outside the signal;
+    // it arrives with the first stage
+    const long base = (long)frame0 * g.shift - g.lo;
+    const float* row = sig + (size_t)b * g.T;
+    for (int seg = tid >> 5; seg < g.NSEG; seg += THREADS / 32) {
+        for (int off = lane; off < g.shift; off += 32) {
+            const long p = base + (long)seg * g.shift + off;
+            const bool inside = p >= 0 && p < g.T;
+            cp_async4(sig_s + seg * g.SS + off, inside ? row + p : row,
+                      inside);
+        }
+    }
+    copy_stage(0, b_s);
+    // sample k of frame f lies at f * SS + koff[k]
+    for (int k = tid; k < g.LK; k += THREADS) {
+        koff_s[k] = k / g.shift * g.SS + k % g.shift;
+    }
 
-    const int GB = NB / (2 * BR);
-    const int bg = tid % GB;          // bins bg * BR ... + BR - 1
-    const int fg = tid / GB;          // frames fg * FR ... + FR - 1
-    const bool active = fg < GF;
-    float acc[FR][2 * BR];
+    float acc[32];
 #pragma unroll
-    for (int j = 0; j < FR; ++j)
-#pragma unroll
-        for (int c = 0; c < 2 * BR; ++c) acc[j][c] = 0.0f;
+    for (int e = 0; e < 32; ++e) acc[e] = 0.f;
+    const float* a_row = sig_s + (16 * warp + rr) * g.SS;
 
-    const int n_tiles = (L + KT - 1) / KT;
-    for (int kt = 0; kt < n_tiles; ++kt) {
-        if (kt + 1 < n_tiles) {
-            copy_tile((kt + 1) * KT, b_s + ((kt + 1) & 1) * KT * NB);
-            __pipeline_wait_prior(1);
+    for (int s = 0; s < n_stages; ++s) {
+        // the next stage goes into the buffer whose products (the
+        // previous stage's, waited for by the whole warpgroup) are done
+        if (s + 1 < n_stages) {
+            copy_stage(s + 1, b_s + ((s + 1) & 1) * 2 * STAGE);
+            flash::cp_async_wait<1>();
         } else {
-            __pipeline_wait_prior(0);
+            flash::cp_async_wait<0>();
         }
+        // the stage's copies, visible to the tensor cores' reads
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
         __syncthreads();
-        if (active) {
-            const float* a = sig_s + (size_t)fg * FR * shift + kt * KT;
-            const float* bt = b_s + (kt & 1) * KT * NB + bg * BR;
-#pragma unroll
-            for (int kk = 0; kk < KT; ++kk) {
-                const float4 b0 =
-                    *reinterpret_cast<const float4*>(bt + kk * NB);
-                const float4 b1 = *reinterpret_cast<const float4*>(
-                    bt + kk * NB + NB / 2);
-#pragma unroll
-                for (int j = 0; j < FR; ++j) {
-                    // (positions beyond the window meet zero basis rows)
-                    const float s = a[j * shift + kk];
-                    acc[j][0] = fmaf(s, b0.x, acc[j][0]);
-                    acc[j][1] = fmaf(s, b0.y, acc[j][1]);
-                    acc[j][2] = fmaf(s, b0.z, acc[j][2]);
-                    acc[j][3] = fmaf(s, b0.w, acc[j][3]);
-                    acc[j][4] = fmaf(s, b1.x, acc[j][4]);
-                    acc[j][5] = fmaf(s, b1.y, acc[j][5]);
-                    acc[j][6] = fmaf(s, b1.z, acc[j][6]);
-                    acc[j][7] = fmaf(s, b1.w, acc[j][7]);
-                }
-            }
-        }
-        __syncthreads();
-    }
-    if (active) {
-#pragma unroll
-        for (int j = 0; j < FR; ++j) {
-            float* p = pow_s + (size_t)(fg * FR + j) * F;
-#pragma unroll
-            for (int c = 0; c < BR; ++c) {
-                const int bin = bg * BR + c;
-                if (bin < F)
-                    p[bin] = acc[j][2 * c] * acc[j][2 * c]
-                        + acc[j][2 * c + 1] * acc[j][2 * c + 1];
-            }
-        }
-    }
-    __syncthreads();
+        const float* hi_s = b_s + (s & 1) * 2 * STAGE;
+        const float* lo_s = hi_s + STAGE;
 
-    // mel bins mp and mp + MH, frames g * FR ... g * FR + FR - 1
-    const int MH = (M + 1) / 2;
-    for (int item = tid; item < MH * GF; item += nt) {
-        const int mp = item % MH;
-        const int g = item / MH;
-        const int m2 = mp + MH < M ? mp + MH : mp;   // odd M: a repeat
-        const float* p0 = pow_s + (size_t)g * FR * F;
-        float a1[FR], a2[FR];
+        // the stage's A fragments: frames 16 warp + rr (+ 8), positions
+        // q (+ 4) of each k-step
+        const int kb = s % n_kt * KT;
+        uint32_t ah[KT / 8][4], al[KT / 8][4];
 #pragma unroll
-        for (int j = 0; j < FR; ++j) a1[j] = a2[j] = 0.0f;
-        // eight filterbank rows' loads are issued before the first is used
-        constexpr int FB = 8;
-        for (int f0 = 0; f0 < F; f0 += FB) {
-            float w1[FB], w2[FB];
-#pragma unroll
-            for (int i = 0; i < FB; ++i) {
-                const int f = min(f0 + i, F - 1);
-                w1[i] = __ldg(fb + (size_t)f * M + mp);
-                w2[i] = __ldg(fb + (size_t)f * M + m2);
-            }
-#pragma unroll
-            for (int i = 0; i < FB; ++i) {
-                if (f0 + i < F) {
-#pragma unroll
-                    for (int j = 0; j < FR; ++j) {
-                        const float p = p0[(size_t)j * F + f0 + i];
-                        a1[j] = fmaf(p, w1[i], a1[j]);
-                        a2[j] = fmaf(p, w2[i], a2[j]);
-                    }
-                }
-            }
+        for (int j = 0; j < KT / 8; ++j) {
+            const int ko0 = koff_s[kb + 8 * j + q];
+            const int ko4 = koff_s[kb + 8 * j + q + 4];
+            split_rn(a_row[ko0], ah[j][0], al[j][0]);
+            split_rn(a_row[8 * g.SS + ko0], ah[j][1], al[j][1]);
+            split_rn(a_row[ko4], ah[j][2], al[j][2]);
+            split_rn(a_row[8 * g.SS + ko4], ah[j][3], al[j][3]);
         }
+        // the stage's sums from zero, the small terms first
+        float st[32];
 #pragma unroll
-        for (int j = 0; j < FR; ++j) {
-            const int frame = frame0 + g * FR + j;
-            if (frame < n_frames) {
-                float* o = out + ((size_t)b * n_frames + frame) * M;
-                o[mp] = logf(a1[j] + eps);
-                o[m2] = logf(a2[j] + eps);
+        for (int e = 0; e < 32; ++e) st[e] = 0.f;
+        wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < KT / 8; ++j) {
+            wgmma_tf32(st, al[j], b_desc(hi_s + 512 * j));
+            wgmma_tf32(st, ah[j], b_desc(lo_s + 512 * j));
+            wgmma_tf32(st, ah[j], b_desc(hi_s + 512 * j));
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+#pragma unroll
+        for (int e = 0; e < 32; ++e) acc[e] += st[e];
+
+        if (s % n_kt == n_kt - 1) {
+            // the chunk's power: a thread's accumulator pairs (4 j, 4 j +
+            // 1) and (4 j + 2, 4 j + 3) are bin 4 j + q of frames rr and
+            // rr + 8 of its warp's 16
+            const int f = 16 * warp + rr;
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+                const int bin = 4 * j + q;
+                pow_s[f * PSTR + bin] =
+                    acc[4 * j] * acc[4 * j] + acc[4 * j + 1] * acc[4 * j + 1];
+                pow_s[(f + 8) * PSTR + bin] = acc[4 * j + 2] * acc[4 * j + 2]
+                    + acc[4 * j + 3] * acc[4 * j + 3];
+            }
+#pragma unroll
+            for (int e = 0; e < 32; ++e) acc[e] = 0.f;
+            __syncthreads();
+            // the chunk's mel partial sums on the CUDA cores: for each
+            // frame and each mel band that overlaps the chunk, the sum
+            // over the band's bins in the chunk, in bin order (threads
+            // take consecutive frames of a band)
+            const int chunk = rank + s / n_kt * cs;
+            const int c0 = chunk * BINS;
+            const int m0 = bands[3 * g.M + 2 * chunk];
+            const int n_m = bands[3 * g.M + 2 * chunk + 1] + 1 - m0;
+            for (int i = tid; i < FT * n_m; i += THREADS) {
+                const int m = m0 + i / FT;
+                const int fr = i % FT;
+                const int lo = bands[3 * m];
+                const int hi = bands[3 * m + 1];
+                const int b0 = max(lo, c0);
+                const int b1 = min(hi, c0 + BINS);
+                if (b0 >= b1) continue;
+                float sum = 0.f;
+                for (int bin = b0; bin < b1; ++bin) {
+                    sum = fmaf(pow_s[fr * PSTR + bin - c0],
+                               __ldg(fb + (size_t)bin * g.M + m), sum);
+                }
+                part_s[fr * g.E + bands[3 * m + 2] + chunk - lo / BINS] =
+                    sum;
             }
         }
     }
+
+    // a band's sum: its chunks' partial sums in chunk order, read from
+    // the CTA of the cluster that owns each chunk (this one when CS = 1);
+    // rank c adds up frames [c * FPC, (c + 1) * FPC) of the tile
+    cg::cluster_group cluster = cg::this_cluster();
+    if (cs > 1) {
+        cluster.sync();
+    } else {
+        __syncthreads();
+    }
+    const int fpc = (FT + cs - 1) / cs;
+    const int f_lo = rank * fpc;
+    const int f_hi = min(FT, f_lo + fpc);
+    for (int i = tid; i < (f_hi - f_lo) * g.M; i += THREADS) {
+        const int f = f_lo + i / g.M;
+        const int m = i % g.M;
+        const int lo = bands[3 * m];
+        const int hi = bands[3 * m + 1];
+        const float* entry = part_s + f * g.E + bands[3 * m + 2];
+        float sum = 0.f;
+        if (lo < hi) {
+            for (int c = lo / BINS; c <= (hi - 1) / BINS; ++c) {
+                const float* src = cs == 1
+                    ? entry : cluster.map_shared_rank(entry, c % cs);
+                sum += src[c - lo / BINS];
+            }
+        }
+        const int frame = frame0 + f;
+        if (frame < g.n_frames) {
+            out[((size_t)b * g.n_frames + frame) * g.M + m] =
+                logf(sum + eps);
+        }
+    }
+    // no CTA leaves while a peer may still read its shared memory
+    if (cs > 1) cluster.sync();
+}
+
+// The largest dynamic shared memory set on the kernel, per device: the
+// attributes are set once per device and size, not on every call.
+int configured[64];
+
+cudaError_t launch(const float* sig, const float* basis, const float* fb,
+                   const int* bands, float* out, const Geometry& g, int B,
+                   int smem, float eps, int device, cudaStream_t stream) {
+    if (smem > configured[device]) {
+        cudaError_t err = cudaFuncSetAttribute(
+            fused_logmel_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            smem);
+        if (err == cudaSuccess) {
+            err = cudaFuncSetAttribute(
+                fused_logmel_kernel,
+                cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+        }
+        if (err != cudaSuccess) return err;
+        configured[device] = smem;
+    }
+    const dim3 grid(g.CS * ((g.n_frames + FT - 1) / FT), B);
+    if (g.CS == 1) {
+        fused_logmel_kernel<<<grid, THREADS, smem, stream>>>(
+            sig, basis, fb, bands, out, g, eps);
+        return cudaGetLastError();
+    }
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(THREADS);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = g.CS;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    cudaError_t err = cudaLaunchKernelEx(&cfg, fused_logmel_kernel, sig,
+                                         basis, fb, bands, out, g, eps);
+    if (err != cudaSuccess) return err;
+    return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launch over (ceil(n_frames / FT), B) blocks of GF * NB / 8 threads
-// (rounded up to a warp), FT = 8 GF frames each.  A thread's work does not
-// depend on GF, so a block's time grows with its threads: GF is the one of
-// 1 ... 8 that fits the block size and the card's shared memory and needs
-// the fewest thread-groups on the busiest SM (blocks over SMs, rounded up,
-// times GF); of equal ones the largest, which streams the basis least
-// often.  Returns cudaGetLastError() after the launch.
+// One launch on the host's plan (`logmel_plan`): tiles of 64 frames,
+// clusters of CS CTAs (1 to 16, at most one per chunk of 32 bins), `smem`
+// bytes of dynamic shared memory, which must equal what the kernel lays
+// out.  sig is the unpadded (B, T) signal; `lo` zeros of the fading pad
+// precede it, and n_frames frames of L samples every `shift` are taken.
+// NCH = ceil(F / 32) chunks; the basis has NCH * LK * 64 floats in the
+// kernel's layout (LK: L rounded up to 32).  bands: (M, 3) as the kernel
+// takes them, E partial sums a frame.  A plan the kernel does not take is
+// refused with cudaErrorInvalidValue before anything runs.  Returns
+// cudaGetLastError() after the launch.
 int fused_logmel_fwd(const void* sig, const void* basis, const void* fb,
-                     void* out, int B, int Tp, int n_frames, int L, int F,
-                     int NB, int M, int shift, float eps, int device,
-                     void* stream) {
+                     const void* bands, void* out, int B, int T, int lo,
+                     int n_frames, int L, int F, int M, int E, int shift,
+                     int CS, int smem, float eps, int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return err;
-    const int GB = NB / (2 * BR);
-    if (B < 1 || B > 65535 || n_frames < 1 || L < 1 || F < 1 || M < 1 ||
-        shift < 1 || NB % (2 * BR) || NB < 2 * F || GB > NT_MAX ||
-        (size_t)(n_frames - 1) * shift + L > (size_t)Tp)
+    Geometry g;
+    g.T = T;
+    g.lo = lo;
+    g.n_frames = n_frames;
+    g.L = L;
+    g.LK = round_up(L, KT);
+    g.F = F;
+    g.M = M;
+    g.shift = shift;
+    g.SS = shift + (12 - shift % 8) % 8;
+    g.NSEG = FT + (g.LK - 1) / (shift > 0 ? shift : 1);
+    g.NCH = (F + BINS - 1) / BINS;
+    g.CS = CS;
+    g.E = E;
+    if (B < 1 || B > 65535 || T < 1 || lo < 0 || n_frames < 1 || L < 1
+        || F < 1 || M < 1 || E < 0 || shift < 1 || device < 0
+        || device >= 64 || CS < 1 || CS > MAX_CS || CS > g.NCH || smem < 0
+        || (size_t)smem != sizeof(float) * smem_floats(g)) {
         return cudaErrorInvalidValue;
-    int max_smem = 0;
-    cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                           device);
-    int n_sm = 1;
-    cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
-    int best_gf = 0;
-    size_t best_smem = 0;
-    long best_cost = 0;
-    int gf_cap = NT_MAX / GB < 8 ? NT_MAX / GB : 8;
-    if ((n_frames + FR - 1) / FR < gf_cap) gf_cap = (n_frames + FR - 1) / FR;
-    for (int gf = gf_cap; gf >= 1; --gf) {
-        const int ft = gf * FR;
-        const size_t span = (size_t)(ft - 1) * shift + L;
-        const size_t smem = sizeof(float)
-            * ((span + KT + 3) / 4 * 4 + 2 * (size_t)KT * NB
-               + (size_t)ft * F);
-        if (smem > (size_t)max_smem) continue;
-        const long blocks = (long)((n_frames + ft - 1) / ft) * B;
-        const long cost = (blocks + n_sm - 1) / n_sm * gf;
-        if (best_gf == 0 || cost < best_cost) {
-            best_cost = cost;
-            best_gf = gf;
-            best_smem = smem;
-        }
     }
-    if (best_gf == 0) return cudaErrorInvalidValue;
-    err = cudaFuncSetAttribute(fused_logmel_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)best_smem);
-    if (err != cudaSuccess) return err;
-    const int ft = best_gf * FR;
-    const int threads = (best_gf * GB + 31) / 32 * 32;
-    dim3 grid((n_frames + ft - 1) / ft, B);
-    fused_logmel_kernel<<<grid, threads, best_smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(sig), static_cast<const float*>(basis),
-        static_cast<const float*>(fb), static_cast<float*>(out), Tp, n_frames,
-        L, F, NB, M, shift, best_gf, eps);
-    return cudaGetLastError();
+    return launch(static_cast<const float*>(sig),
+                  static_cast<const float*>(basis),
+                  static_cast<const float*>(fb),
+                  static_cast<const int*>(bands), static_cast<float*>(out),
+                  g, B, smem, eps, device, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

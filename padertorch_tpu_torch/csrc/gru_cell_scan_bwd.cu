@@ -1,5 +1,9 @@
 // GRU cell recurrence, backward: the adjoint recurrence in reverse time,
-// in one cooperative launch per layer (both directions together).
+// in one launch per layer (both directions together).  Two routes, chosen
+// by shape before the launch (`resident_bwd_plan` in ops/kernels/gru.py),
+// as for the forwards (gru_cell_scan.cu): the resident kernel where one
+// direction's whole W_hh fits one block's shared memory beside what the
+// block stages (H <= 137 on an H100), the cooperative kernel otherwise.
 //
 // Replaces: padertorch_tpu/ops/pallas/gru.py, `_bwd_kernel` through
 // `_bwd_call` (`_vjp_bwd`).  As there, dW_hh is a matrix product outside
@@ -11,27 +15,56 @@
 // What bounds it on the card: as in the forward the T steps are
 // sequential and each holds a small product, here dh_{t-1} = dgh_t @
 // W_hh[d]^T + dh_t * z_t, (rows, 3H) x (3H, H).  The weights must stay on
-// chip for the whole launch; what is left per step is latency: a round
-// through L2 for dgh_t (a block needs all 3H columns of its rows, other
-// blocks wrote them), a chain of dependent FMAs, and one grid-wide sync.
+// chip for the whole launch; what is left per step is latency.
 //
-// Design: the LSTM backward's (lstm_cell_scan_bwd.cu) on the GRU forward's
-// grid.  Everything but the product is elementwise in (row, unit), so a
-// block owns a direction d, U units and a range of RB rows, keeps the
-// carry dh of its (row, unit) pairs in shared memory, and the rows
-// W_hh[d][j, :] of its units there too (as float4 over four neighbouring
-// columns, the 3H columns padded with zeros to a multiple of four).  A
-// step has two parts.  "cell": from the stored gates, gh_n, h_{t-1},
-// d_out[t] and the carry, a thread per (row, unit) forms the adjoints,
-// writes dgx[t] and dgh[t] (outputs anyway) and keeps dh * z.  After one
-// grid sync, "product": for chunks of RS rows a block copies dgh[t] of
-// those rows, all 3H columns, from L2 into shared memory (asynchronous
-// copies that bypass L1) and forms dh_{t-1} for its own units; the sum is
-// split into KS slices, one per group of threads, which meet in shared
-// memory.  The cell part of step t-1 follows without another grid sync: it
-// writes dgh[t-1] while slower blocks may still read dgh[t].
+// Resident route.  A row's adjoint needs only its own carry and W_hh[d],
+// as its forward needs only its own h and W_hh[d].  So a block owns one
+// direction d and a range of RB rows of it, with all of W_hh[d] in shared
+// memory for the whole launch, stored transposed, (3H, H): a thread owns
+// one unit j and sums over the 3H columns of row j of W_hh[d], and a
+// warp's 32 loads of one column are then 128 contiguous bytes (in the
+// (H, 3H) layout they would all fall on one bank, the stride 3H = 384
+// being a multiple of 32).  Its rows run all T steps in reverse with a
+// plain launch: no grid sync, and dgh never makes a round trip through
+// L2.  The host spreads the rows so that the grid has at most one block
+// per SM (520 rows: 130 blocks of 4; 800 rows: 116 blocks of 7) and a
+// block takes its rows RS at a time (chunks, each through all T steps).
+// Per step: "cell", a thread per (row, unit) of the chunk forms the
+// adjoints from the stored gates, gh_n, h_{t-1}, d_out[t] and its carry
+// (kept in registers), writes dgx[t] and dgh[t] (outputs anyway; dgh feeds
+// dW_hh) and stages dgh[t] of the chunk in shared memory transposed,
+// (3H, RS padded to 4), so that one broadcast float4 load gives four
+// rows; one __syncthreads; "product", each thread sums its unit's dh_{t-1}
+// for every row of the chunk (RS sums in registers, each weight loaded
+// once for RS rows).  The K range 3H is split into KS = 1, 2 or 4 slices
+// (a template parameter): with KS > 1 the block has four groups of H
+// threads, the first KS run the product, the slices' sums meet in shared
+// memory and are added in slice order, and all four groups apply the
+// cells (row r by group r % 4).  A step's inputs (gates, gh_n, h_{t-1},
+// d_out and the mask of step t-1) do not depend on the carry: their loads
+// are issued before step t's product and fly while it runs.  Two
+// __syncthreads a step.  At H = 128 W takes 196,608 bytes, an 8-row stage
+// 12,288 and four slices' sums 16,384: 225,280 of the 232,448 a block may
+// opt in to.
 //
-// Masked steps (mask 0): dgx and dgh are 0 and dh passes through unchanged.
+// Cooperative route (H too large for one block's shared memory): the LSTM
+// backward's design (lstm_cell_scan_bwd.cu) on the GRU forward's grid.
+// Everything but the product is elementwise in (row, unit), so a block
+// owns a direction d, U units and a range of RB rows, keeps the carry dh
+// of its (row, unit) pairs in shared memory, and the rows W_hh[d][j, :] of
+// its units there too (as float4 over four neighbouring columns, the 3H
+// columns padded with zeros to a multiple of four).  A step has two parts.
+// "cell": as above, and it keeps dh * z.  After one grid sync, "product":
+// for chunks of RS rows a block copies dgh[t] of those rows, all 3H
+// columns, from L2 into shared memory (asynchronous copies that bypass L1)
+// and forms dh_{t-1} for its own units; the sum is split into KS slices,
+// one per group of threads, which meet in shared memory.  The cell part of
+// step t-1 follows without another grid sync: it writes dgh[t-1] while
+// slower blocks may still read dgh[t].
+//
+// Both routes: float32 on the CUDA cores; masked steps (mask 0): dgx and
+// dgh are 0 and dh passes through unchanged.  No atomics: each sum is in a
+// fixed order, so two runs give the same bits.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -202,12 +235,249 @@ __global__ void __launch_bounds__(1024) gru_bwd_kernel(
     }
 }
 
+// Resident route.  acts, ghn, hprev, w, mask, dout, dhT, dgx, dgh, dh0 as
+// above.  Block b: direction d = b / n_rb, rows [rb * RB, min(Bd, (rb + 1)
+// * RB)) of it, rb = b % n_rb, n_rb = ceil(Bd / RB); taken RS at a time.
+// Thread tid: group cg = tid / Hp of CG (1 when KS = 1, else 4; Hp: H
+// rounded up to 32, at most 128 when KS > 1), unit u = tid % Hp (units
+// past H only take part in the syncs).  Groups cg < KS run the product,
+// each over its slice of the 3H columns; every group applies the cell to
+// the chunk's rows cg, cg + CG, ...
+// Shared memory, floats: g_s (3H, RSP) | red (KS, RS, Hp) when KS > 1 |
+// wt_s (3H, H), wt_s[c * H + j] = W_hh[d][j][c].  RSP: RS rounded up to
+// 4, so g_s rows are float4-aligned.
+constexpr int RESIDENT_MAX_RS = 8;
+constexpr int RESIDENT_MAX_THREADS = 512;
+
+__host__ __device__ inline int round_up(int x, int to) {
+    return (x + to - 1) / to * to;
+}
+
+// The resident kernel's dynamic shared memory in bytes (the host planner
+// in ops/kernels/gru.py computes the same number and passes it in).
+inline size_t resident_bwd_smem_bytes(int H, int RS, int KS) {
+    const size_t red = KS > 1 ? (size_t)KS * RS * round_up(H, 32) : 0;
+    return sizeof(float) * ((size_t)3 * H * round_up(RS, 4) + red
+                            + (size_t)3 * H * H);
+}
+
+template <int RS, int KS>
+__global__ void __launch_bounds__(RESIDENT_MAX_THREADS, 1)
+gru_bwd_resident_kernel(
+        const float* __restrict__ acts, const float* __restrict__ ghn,
+        const float* __restrict__ hprev, const float* __restrict__ w,
+        const float* __restrict__ mask, const float* __restrict__ dout,
+        const float* __restrict__ dhT, float* __restrict__ dgx,
+        float* __restrict__ dgh, float* __restrict__ dh0, int T, int Bd,
+        int H, int RB) {
+    constexpr int RSP = (RS + 3) / 4 * 4;
+    constexpr int CG = KS == 1 ? 1 : 4;
+    constexpr int NJ = (RS + CG - 1) / CG;  // cells a thread applies a step
+    extern __shared__ float4 smem4[];
+    const int Hp = round_up(H, 32);
+    const int G = 3 * H;
+    const int n_rb = (Bd + RB - 1) / RB;
+    const int d = blockIdx.x / n_rb;
+    const int r_lo = blockIdx.x % n_rb * RB;
+    const int r_hi = min(Bd, r_lo + RB);
+    const int R = gridDim.x / n_rb * Bd;
+    const int row0 = d * Bd;
+    float* g_s = reinterpret_cast<float*>(smem4);
+    float* red = g_s + (size_t)G * RSP;
+    float* wt_s = red + (KS > 1 ? KS * RS * Hp : 0);
+    const int tid = threadIdx.x;
+    const int nthreads = blockDim.x;
+    const int cg = tid / Hp;
+    const int u = tid % Hp;
+    const bool active = u < H;
+    const int k_len = (G + KS - 1) / KS;
+    const int k_lo = min(G, cg * k_len);
+    const int k_hi = cg < KS ? min(G, k_lo + k_len) : k_lo;
+
+    // all of W_hh[d], transposed: read as it lies in device memory (each
+    // warp 128 contiguous bytes), once per launch
+    const float* wd = w + (size_t)d * H * G;
+    for (int i = tid; i < H * G; i += nthreads) {
+        wt_s[(size_t)(i % G) * H + i / G] = __ldg(wd + i);
+    }
+
+    // a step's inputs of this thread's cells, rows cg + j * CG of the
+    // chunk: r, z, n, gh_n, h_{t-1}, d_out, mask
+    float x[NJ][7];
+    auto load_step = [&](int t, int rc, int nr) {
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+            const int r = cg + j * CG;
+            if (!active || r >= nr) break;
+            const size_t at = (size_t)t * R + row0 + rc + r;
+            const float* ar = acts + at * G;
+            x[j][0] = ar[u];
+            x[j][1] = ar[H + u];
+            x[j][2] = ar[2 * H + u];
+            x[j][3] = ghn[at * H + u];
+            x[j][4] = hprev[at * H + u];
+            x[j][5] = dout[at * H + u];
+            x[j][6] = mask != nullptr ? mask[at] : 1.f;
+        }
+    };
+
+    for (int rc = r_lo; rc < r_hi; rc += RS) {
+        const int nr = min(RS, r_hi - rc);
+        // rows of the stage past nr stay zero (the previous chunk's last
+        // step ended with a sync after its product, the last read of g_s)
+        for (int i = tid; i < G * RSP; i += nthreads) g_s[i] = 0.f;
+        float carry[NJ];  // dh entering the step, of this thread's cells
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+            const int r = cg + j * CG;
+            if (!active || r >= nr) break;
+            carry[j] = dhT[(size_t)(row0 + rc + r) * H + u];
+        }
+        load_step(T - 1, rc, nr);
+        __syncthreads();
+
+        for (int t = T - 1; t >= 0; --t) {
+            // cell: dgx[t], dgh[t] of this thread's cells, dgh[t] staged
+            float dhz[NJ], m[NJ];
+#pragma unroll
+            for (int j = 0; j < NJ; ++j) {
+                const int r = cg + j * CG;
+                if (!active || r >= nr) break;
+                const float r_ = x[j][0];
+                const float z_ = x[j][1];
+                const float n_ = x[j][2];
+                const float mj = x[j][6];
+                const float dh = carry[j] + x[j][5];
+                const float dz_pre = dh * (x[j][4] - n_) * z_ * (1.0f - z_);
+                const float da_n = dh * (1.0f - z_) * (1.0f - n_ * n_);
+                const float da_r = da_n * x[j][3] * r_ * (1.0f - r_);
+                const size_t at = (size_t)t * R + row0 + rc + r;
+                float* xr = dgx + at * G;
+                xr[u] = da_r * mj;
+                xr[H + u] = dz_pre * mj;
+                xr[2 * H + u] = da_n * mj;
+                const float g_r = da_r * mj;
+                const float g_z = dz_pre * mj;
+                const float g_n = da_n * r_ * mj;
+                float* hr = dgh + at * G;
+                hr[u] = g_r;
+                hr[H + u] = g_z;
+                hr[2 * H + u] = g_n;
+                g_s[(size_t)u * RSP + r] = g_r;
+                g_s[(size_t)(H + u) * RSP + r] = g_z;
+                g_s[(size_t)(2 * H + u) * RSP + r] = g_n;
+                dhz[j] = dh * z_;
+                m[j] = mj;
+            }
+            __syncthreads();
+            // the next step's inputs fly while the product runs
+            if (t > 0) load_step(t - 1, rc, nr);
+            float acc[RS];
+#pragma unroll
+            for (int r = 0; r < RS; ++r) acc[r] = 0.f;
+            if (active && cg < KS) {
+                const float* wk = wt_s + (size_t)k_lo * H + u;
+                const float4* gk =
+                    reinterpret_cast<const float4*>(g_s) + k_lo * (RSP / 4);
+#pragma unroll 4
+                for (int k = k_lo; k < k_hi; ++k, wk += H, gk += RSP / 4) {
+                    const float wv = *wk;
+#pragma unroll
+                    for (int q = 0; q < RSP / 4; ++q) {
+                        const float4 gv = gk[q];
+                        const float g4[4] = {gv.x, gv.y, gv.z, gv.w};
+#pragma unroll
+                        for (int i = 0; i < 4; ++i) {
+                            const int r = 4 * q + i;
+                            if (r >= RS) break;
+                            acc[r] = fmaf(g4[i], wv, acc[r]);
+                        }
+                    }
+                }
+                if (KS > 1) {
+#pragma unroll
+                    for (int r = 0; r < RS; ++r) {
+                        red[(size_t)(cg * RS + r) * Hp + u] = acc[r];
+                    }
+                }
+            }
+            __syncthreads();
+            // dh_{t-1} of this thread's cells: the slices' sums in slice
+            // order, plus dh * z; a masked step passes dh through
+#pragma unroll
+            for (int j = 0; j < NJ; ++j) {
+                const int r = cg + j * CG;
+                if (!active || r >= nr) break;
+                float sum;
+                if (KS == 1) {
+                    sum = acc[j];  // CG == 1: j == r
+                } else {
+                    sum = 0.f;
+#pragma unroll
+                    for (int s = 0; s < KS; ++s) {
+                        sum += red[(size_t)(s * RS + r) * Hp + u];
+                    }
+                }
+                if (m[j] > 0.0f) carry[j] = sum + dhz[j];
+            }
+        }
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+            const int r = cg + j * CG;
+            if (!active || r >= nr) break;
+            dh0[(size_t)(row0 + rc + r) * H + u] = carry[j];
+        }
+    }
+}
+
+template <int RS, int KS>
+cudaError_t launch_resident_ks(const float* acts, const float* ghn,
+                               const float* hprev, const float* w,
+                               const float* mask, const float* dout,
+                               const float* dhT, float* dgx, float* dgh,
+                               float* dh0, int T, int blocks, int Bd, int H,
+                               int RB, int threads, size_t smem,
+                               cudaStream_t stream) {
+    cudaError_t err = cudaFuncSetAttribute(
+        gru_bwd_resident_kernel<RS, KS>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    gru_bwd_resident_kernel<RS, KS><<<blocks, threads, smem, stream>>>(
+        acts, ghn, hprev, w, mask, dout, dhT, dgx, dgh, dh0, T, Bd, H, RB);
+    return cudaGetLastError();
+}
+
+template <int RS>
+cudaError_t launch_resident_rs(const float* acts, const float* ghn,
+                               const float* hprev, const float* w,
+                               const float* mask, const float* dout,
+                               const float* dhT, float* dgx, float* dgh,
+                               float* dh0, int T, int blocks, int Bd, int H,
+                               int RB, int KS, int threads, size_t smem,
+                               cudaStream_t stream) {
+    switch (KS) {
+    case 1:
+        return launch_resident_ks<RS, 1>(acts, ghn, hprev, w, mask, dout,
+                                         dhT, dgx, dgh, dh0, T, blocks, Bd,
+                                         H, RB, threads, smem, stream);
+    case 2:
+        return launch_resident_ks<RS, 2>(acts, ghn, hprev, w, mask, dout,
+                                         dhT, dgx, dgh, dh0, T, blocks, Bd,
+                                         H, RB, threads, smem, stream);
+    case 4:
+        return launch_resident_ks<RS, 4>(acts, ghn, hprev, w, mask, dout,
+                                         dhT, dgx, dgh, dh0, T, blocks, Bd,
+                                         H, RB, threads, smem, stream);
+    }
+    return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Launch the whole adjoint recurrence on the grid `pick_scan_grid`
-// chooses.  Fails with cudaErrorCooperativeLaunchTooLarge when no grid is
+// Cooperative route: launch the whole adjoint recurrence on the grid
+// `pick_scan_grid` chooses.  Fails with cudaErrorCooperativeLaunchTooLarge when no grid is
 // co-resident.  Returns cudaGetLastError() after the launch.
 int gru_cell_scan_bwd(const void* acts, const void* ghn, const void* hprev,
                       const void* w, const void* mask, const void* dout,
@@ -252,6 +522,60 @@ int gru_cell_scan_bwd(const void* acts, const void* ghn, const void* hprev,
         static_cast<cudaStream_t>(stream));
     if (err != cudaSuccess) return err;
     return cudaGetLastError();
+}
+
+// Resident route (see the header): the plan from ops/kernels/gru.py, RB
+// rows a block, RS at a time, KS K slices of 1, 2 or 4, `threads` (one
+// group of H rounded up to 32 with KS = 1, four groups otherwise), `smem`
+// bytes.  A plan that does not agree with the kernel's own layout is
+// refused with cudaErrorInvalidValue before anything runs.  Returns
+// cudaGetLastError() after the launch.
+int gru_cell_scan_bwd_resident(const void* acts, const void* ghn,
+                               const void* hprev, const void* w,
+                               const void* mask, const void* dout,
+                               const void* dhT, void* dgx, void* dgh,
+                               void* dh0, int T, int D, int Bd, int H,
+                               int RB, int RS, int KS, int threads, int smem,
+                               int device, void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return err;
+    const int Hp = round_up(H, 32);
+    if (T < 1 || D < 1 || Bd < 1 || H < 1 || RS < 1
+        || RS > RESIDENT_MAX_RS || RB < RS || KS > 3 * H
+        || threads != (KS == 1 ? 1 : 4) * Hp
+        || threads > RESIDENT_MAX_THREADS
+        || (size_t)smem != resident_bwd_smem_bytes(H, RS, KS)) {
+        return cudaErrorInvalidValue;
+    }
+    const int blocks = D * ((Bd + RB - 1) / RB);
+    const auto* acts_ = static_cast<const float*>(acts);
+    const auto* ghn_ = static_cast<const float*>(ghn);
+    const auto* hprev_ = static_cast<const float*>(hprev);
+    const auto* w_ = static_cast<const float*>(w);
+    const auto* mask_ = static_cast<const float*>(mask);
+    const auto* dout_ = static_cast<const float*>(dout);
+    const auto* dhT_ = static_cast<const float*>(dhT);
+    auto* dgx_ = static_cast<float*>(dgx);
+    auto* dgh_ = static_cast<float*>(dgh);
+    auto* dh0_ = static_cast<float*>(dh0);
+    auto* s = static_cast<cudaStream_t>(stream);
+#define PTT_GRU_BWD_RS(n)                                                   \
+    case n:                                                                 \
+        return launch_resident_rs<n>(acts_, ghn_, hprev_, w_, mask_, dout_, \
+                                     dhT_, dgx_, dgh_, dh0_, T, blocks, Bd, \
+                                     H, RB, KS, threads, smem, s);
+    switch (RS) {
+        PTT_GRU_BWD_RS(1)
+        PTT_GRU_BWD_RS(2)
+        PTT_GRU_BWD_RS(3)
+        PTT_GRU_BWD_RS(4)
+        PTT_GRU_BWD_RS(5)
+        PTT_GRU_BWD_RS(6)
+        PTT_GRU_BWD_RS(7)
+        PTT_GRU_BWD_RS(8)
+    }
+#undef PTT_GRU_BWD_RS
+    return cudaErrorInvalidValue;
 }
 
 }  // extern "C"

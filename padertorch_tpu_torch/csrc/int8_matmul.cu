@@ -976,8 +976,9 @@ int int8_matmul_fwd(const void* x, const void* w, const void* scale,
 // bf16; ws (S, M, N) float32 scratch and counters (ceil(N / 64),) unsigned,
 // all 0 before the first launch (each launch leaves them 0), both unused
 // when S = ceil(K / rows) is 1.  `rows` is a multiple of 64 from 64 to
-// 1024.  Launches on one stream at a time share the counters.  Returns
-// cudaGetLastError().
+// 1024.  Two launches that may run at once must not share counters (the
+// wrapper keeps one buffer per device and stream, and gives a launch
+// captured into a CUDA graph its own).  Returns cudaGetLastError().
 int int8_matmul_bf16_fwd(const void* x, const void* w, const void* scale,
                          const void* bias, int bias_kind, void* out,
                          void* ws, void* counters, int M, int K, int N,

@@ -41,13 +41,14 @@ _SIGNATURES = {
     'gru_cell_scan_bwd': (_P,) * 10 + (_I,) * 5 + (_P,),
     'gru_cell_scan_fwd_resident': (_P,) * 6 + (_I,) * 10 + (_P,),
     'gru_cell_scan_fwd_train_resident': (_P,) * 9 + (_I,) * 10 + (_P,),
+    'gru_cell_scan_bwd_resident': (_P,) * 10 + (_I,) * 10 + (_P,),
     'gru_cell_scan_device_limits': (_I, _P),
     'masked_istft_fwd': (_P,) * 5 + (_I,) * 7 + (_P,),
     'flash_attention_fwd': (_P,) * 6 + (_I,) * 9 + (_F, _I, _P),
     'flash_attention_bwd': (_P,) * 10 + (_I,) * 9 + (_F, _I, _P),
     'wavenet_sample_fwd': (_P,) * 12 + (_I,) * 13 + (_P,),
     'wavenet_sample_max_clusters': (_I,) * 3 + (_P,),
-    'fused_logmel_fwd': (_P,) * 4 + (_I,) * 8 + (_F, _I, _P),
+    'fused_logmel_fwd': (_P,) * 5 + (_I,) * 11 + (_F, _I, _P),
     'int8_matmul_fwd': (_P,) * 4 + (_I,) + (_P,) * 2 + (_I,) * 5 + (_P,),
     'int8_matmul_bf16_fwd': (_P,) * 4 + (_I,) + (_P,) * 3 + (_I,) * 5
                             + (_P,),

@@ -42,16 +42,19 @@ __all__ = ['flash_attention', 'flash_attention_plain',
 _NEG = -1e30
 HEAD_SIZES = (16, 32, 64, 128)
 
-def should_use_flash(device, dtype=torch.float32):
+def should_use_flash(device, dtype=torch.float32, head_size=None):
     """Dispatch of ``use_flash='auto'``: the fused kernels for float32
-    tensors on a CUDA device, the dense path otherwise (the kernels take
-    float32 only).  The shape and the mask do not enter: since both
-    kernels' tile products run on the tensor cores (3xTF32) they beat the
-    dense path at every row of the dispatch table that chip_smoke.py phase
-    12 measures on an H100 (PERF.md, "Attention dispatch": 12 heads of 64
-    at T = 512 ... 4096, full, causal and windowed, and 8 heads of 16 at
-    T = 66 and 100, forward alone and forward plus backward)."""
-    return torch.device(device).type == 'cuda' and dtype == torch.float32
+    tensors on a CUDA device with a head size the kernels take (at most
+    ``HEAD_SIZES[-1]``; ``head_size`` None asks for any they take), the
+    dense path otherwise (the kernels take float32 only, and raise for a
+    wider head).  The sequence lengths and the mask do not enter: since
+    both kernels' tile products run on the tensor cores (3xTF32) they beat
+    the dense path at every row of the dispatch table that chip_smoke.py
+    phase 12 measures on an H100 (PERF.md, "Attention dispatch": 12 heads
+    of 64 at T = 512 ... 4096, full, causal and windowed, and 8 heads of 16
+    at T = 66 and 100, forward alone and forward plus backward)."""
+    return (torch.device(device).type == 'cuda' and dtype == torch.float32
+            and (head_size is None or head_size <= HEAD_SIZES[-1]))
 
 
 def _norm_window(window):

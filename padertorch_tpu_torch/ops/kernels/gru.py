@@ -14,19 +14,20 @@ On a CUDA tensor :func:`gru_cell_scan` launches hand-written kernels, one
 launch each for all T steps and both directions: without gradients the
 lean forward of ``csrc/gru_cell_scan.cu``; when a gradient is asked for,
 through :class:`GRUCellScan`, the training forward of the same file and,
-in ``backward``, the adjoint recurrence of ``csrc/gru_cell_scan_bwd.cu``
-(one cooperative launch).  ``dW_hh`` is a matrix product outside the
-kernels, as in the JAX package.
+in ``backward``, the adjoint recurrence of ``csrc/gru_cell_scan_bwd.cu``.
+``dW_hh`` is a matrix product outside the kernels, as in the JAX package.
 
-Both forwards have two routes, chosen by shape before the launch:
-:func:`resident_plan` gives the resident route's plan where one
-direction's whole ``W_hh`` fits one block's shared memory beside what the
-block stages (H <= 138 on an H100: a DPRNN's chunk RNNs, the speaker
-classifier recipe's GRU); a block then owns a few rows and runs all T steps
-with no grid-wide sync.  Otherwise the cooperative kernel splits units and
-rows over the grid and syncs it once per step.  A launch that fails on its
-route raises; it is never retried on the other.
-``gru_cell_scan.routes`` counts the forward launches by route.
+All three kernels have two routes, chosen by shape before the launch:
+:func:`resident_plan` (the forwards) and :func:`resident_bwd_plan` (the
+backward) give the resident route's plan where one direction's whole
+``W_hh`` fits one block's shared memory beside what the block stages
+(H <= 138 for the forwards and H <= 137 for the backward on an H100: a
+DPRNN's chunk RNNs, the speaker classifier recipe's GRU); a block then
+owns a few rows and runs all T steps with no grid-wide sync.  Otherwise
+the cooperative kernel splits units and rows over the grid and syncs it
+once per step.  A launch that fails on its route raises; it is never
+retried on the other.  ``gru_cell_scan.routes`` counts the forward
+launches by route, ``gru_cell_scan.bwd_routes`` the backward's.
 
 The training forward stores, per step, the gates ``acts`` = r|z|n and
 ``gh_n`` as computed (also on a masked step), and ``h_prev``, the state the
@@ -54,7 +55,8 @@ from padertorch_tpu_torch.ops.kernels.lstm import (
 __all__ = ['gru_cell_scan', 'gru_cell_scan_plain', 'GRUCellScan',
            'gru_cell_scan_train_plain', 'gru_cell_scan_bwd_plain',
            'recurrent_weight_grad', 'ResidentPlan', 'resident_plan',
-           'resident_smem', 'device_limits']
+           'resident_smem', 'resident_bwd_plan', 'resident_bwd_smem',
+           'device_limits']
 
 
 def _cell(gx, gh, h, hdim):
@@ -148,14 +150,15 @@ def recurrent_weight_grad(dgh, h_prev, n_dir):
     return sum_outer(h_prev, dgh, n_dir)
 
 
-# the resident kernel's limits (csrc/gru_cell_scan.cu): rows a thread
-# carries (its template range) and threads a block
+# the resident kernels' limits (csrc/gru_cell_scan.cu and
+# csrc/gru_cell_scan_bwd.cu): rows a thread carries (their template range)
+# and threads a block
 RESIDENT_MAX_RS = 8
 RESIDENT_MAX_THREADS = 512
 
 
 class ResidentPlan(NamedTuple):
-    """How the resident kernel divides a layer: ``RB`` rows a block,
+    """How a resident kernel divides a layer: ``RB`` rows a block,
     ``RS`` of them at a time, ``KS`` K slices (1, 2 or 4) of the product,
     ``blocks`` (``n_dir * ceil(rows_per_dir / RB)``), ``threads`` (groups
     of H rounded up to 32, one with ``KS`` = 1, else four: the first
@@ -168,17 +171,49 @@ class ResidentPlan(NamedTuple):
     smem: int
 
 
+def _round_up(x, to):
+    return -(-x // to) * to
+
+
 def resident_smem(hdim, rs, ks):
-    """Bytes of shared memory the resident kernel needs: h of a chunk
+    """Bytes of shared memory the resident forward needs: h of a chunk
     transposed (H, RS rounded up to 4), the K slices' sums (KS, RS, 3, H
     rounded up to 32) when KS > 1, and all of W_hh[d] (H, 3H)."""
-    hp = -(-hdim // 32) * 32
-    red = ks * rs * 3 * hp if ks > 1 else 0
-    return 4 * (hdim * (-(-rs // 4) * 4) + red + 3 * hdim * hdim)
+    red = ks * rs * 3 * _round_up(hdim, 32) if ks > 1 else 0
+    return 4 * (hdim * _round_up(rs, 4) + red + 3 * hdim * hdim)
+
+
+def resident_bwd_smem(hdim, rs, ks):
+    """Bytes of shared memory the resident backward needs: dgh of a chunk
+    transposed (3H, RS rounded up to 4), the K slices' sums (KS, RS, H
+    rounded up to 32) when KS > 1, and all of W_hh[d] transposed (3H, H)."""
+    red = ks * rs * _round_up(hdim, 32) if ks > 1 else 0
+    return 4 * (3 * hdim * _round_up(rs, 4) + red + 3 * hdim * hdim)
+
+
+def _plan(n_dir, rows_per_dir, hdim, n_sm, max_smem, smem, k_len):
+    """The plan of :func:`resident_plan` with the bytes ``smem(hdim, rs,
+    ks)`` and a product whose K range is ``k_len`` long."""
+    per_dir = n_sm // n_dir
+    if per_dir < 1 or rows_per_dir < 1:
+        return None
+    rb = -(-rows_per_dir // per_dir)
+    blocks = n_dir * -(-rows_per_dir // rb)
+    hp = _round_up(hdim, 32)
+    for chunks in range(-(-rb // RESIDENT_MAX_RS), rb + 1):
+        rs = -(-rb // chunks)
+        for ks in (4, 2, 1):
+            threads = (4 if ks > 1 else 1) * hp
+            if threads > RESIDENT_MAX_THREADS or (ks > 1 and k_len < 16 * ks):
+                continue
+            n_bytes = smem(hdim, rs, ks)
+            if n_bytes <= max_smem:
+                return ResidentPlan(rb, rs, ks, blocks, threads, n_bytes)
+    return None
 
 
 def resident_plan(n_dir, rows_per_dir, hdim, n_sm, max_smem):
-    """The resident route's plan for a layer of ``n_dir`` directions of
+    """The resident forwards' plan for a layer of ``n_dir`` directions of
     ``rows_per_dir`` rows and ``hdim`` units on a card of ``n_sm`` SMs
     whose blocks may opt in to ``max_smem`` bytes of shared memory, or
     None where one direction's ``W_hh`` does not fit beside one row's
@@ -192,22 +227,18 @@ def resident_plan(n_dir, rows_per_dir, hdim, n_sm, max_smem):
     slice, four groups of threads share the cells (so more than one slice
     needs H <= 128).
     """
-    per_dir = n_sm // n_dir
-    if per_dir < 1 or rows_per_dir < 1:
-        return None
-    rb = -(-rows_per_dir // per_dir)
-    blocks = n_dir * -(-rows_per_dir // rb)
-    hp = -(-hdim // 32) * 32
-    for chunks in range(-(-rb // RESIDENT_MAX_RS), rb + 1):
-        rs = -(-rb // chunks)
-        for ks in (4, 2, 1):
-            threads = (4 if ks > 1 else 1) * hp
-            if threads > RESIDENT_MAX_THREADS or (ks > 1 and hdim < 16 * ks):
-                continue
-            smem = resident_smem(hdim, rs, ks)
-            if smem <= max_smem:
-                return ResidentPlan(rb, rs, ks, blocks, threads, smem)
-    return None
+    return _plan(n_dir, rows_per_dir, hdim, n_sm, max_smem, resident_smem,
+                 hdim)
+
+
+def resident_bwd_plan(n_dir, rows_per_dir, hdim, n_sm, max_smem):
+    """The resident backward's plan, as :func:`resident_plan` with the
+    backward's bytes (:func:`resident_bwd_smem`) and its product's K range
+    of 3H (each slice at least 16 columns long), or None (the cooperative
+    route).  At H = 128 the DPRNN's 520 rows get 130 blocks of 4, its 800
+    rows 116 blocks of 7, four K slices each."""
+    return _plan(n_dir, rows_per_dir, hdim, n_sm, max_smem,
+                 resident_bwd_smem, 3 * hdim)
 
 
 @functools.lru_cache(maxsize=None)
@@ -268,19 +299,33 @@ def _launch(gates_x, w, n_dir, mask, h0, train=False):
 
 
 def _launch_bwd(acts, gh_n, h_prev, w, n_dir, mask, d_out, dh_t):
+    """Launch the backward kernel on the route :func:`resident_bwd_plan`
+    picks for the shape."""
     t_len, rows, g3 = acts.shape
+    hdim = g3 // 3
     dgx = torch.empty_like(acts)
     dgh = torch.empty_like(acts)
     dh0 = torch.empty_like(dh_t)
     lib = _build.load_library()
     stream, device = _build.stream_and_device(acts)
-    err = lib.gru_cell_scan_bwd(
-        acts.data_ptr(), gh_n.data_ptr(), h_prev.data_ptr(), w.data_ptr(),
-        None if mask is None else mask.data_ptr(), d_out.data_ptr(),
-        dh_t.data_ptr(), dgx.data_ptr(), dgh.data_ptr(), dh0.data_ptr(),
-        t_len, n_dir, rows // n_dir, g3 // 3, device, stream)
+    plan = resident_bwd_plan(n_dir, rows // n_dir, hdim,
+                             *device_limits(device))
+    args = (acts.data_ptr(), gh_n.data_ptr(), h_prev.data_ptr(),
+            w.data_ptr(), None if mask is None else mask.data_ptr(),
+            d_out.data_ptr(), dh_t.data_ptr(), dgx.data_ptr(),
+            dgh.data_ptr(), dh0.data_ptr(), t_len, n_dir, rows // n_dir,
+            hdim)
+    if plan is None:
+        route = 'cooperative'
+        err = lib.gru_cell_scan_bwd(*args, device, stream)
+    else:
+        route = 'resident'
+        err = lib.gru_cell_scan_bwd_resident(
+            *args, plan.RB, plan.RS, plan.KS, plan.threads, plan.smem,
+            device, stream)
     _build.check(lib, err, 'gru_cell_scan backward kernel')
     gru_cell_scan.launches['bwd'] += 1
+    gru_cell_scan.bwd_routes[route] += 1
     return dgx, dgh, dh0
 
 
@@ -329,7 +374,8 @@ def gru_cell_scan(gates_x, w_hh, mask, h0):
         forward, whose ``backward`` is a kernel too.
         ``gru_cell_scan.launches`` counts the launches per kernel
         (``fwd``, ``fwd_train``, ``bwd``), ``gru_cell_scan.routes`` the
-        forwards' launches per route (``resident``, ``cooperative``).
+        forwards' launches per route (``resident``, ``cooperative``) and
+        ``gru_cell_scan.bwd_routes`` the backward's.
     """
     w, n_dir = _norm_w(w_hh)
     if gates_x.device.type == 'cpu':
@@ -345,3 +391,4 @@ def gru_cell_scan(gates_x, w_hh, mask, h0):
 
 gru_cell_scan.launches = {'fwd': 0, 'fwd_train': 0, 'bwd': 0}
 gru_cell_scan.routes = {'resident': 0, 'cooperative': 0}
+gru_cell_scan.bwd_routes = {'resident': 0, 'cooperative': 0}

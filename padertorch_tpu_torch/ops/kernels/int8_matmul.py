@@ -86,12 +86,29 @@ def bf16_split_rows(k, n):
 _counters = {}
 
 
-def _tile_counters(index):
-    """The bf16 kernel's per-tile counters on CUDA device ``index``: zeros,
-    made once (each launch leaves them zero)."""
-    counters = _counters.get(index)
+def _tile_counters(index, stream, tiles):
+    """The bf16 kernel's per-tile counters (int32 zeros, at least ``tiles``
+    of them) for a split launch on CUDA device ``index`` and ``stream``
+    (its raw handle).
+
+    Eager launches share one buffer per (device, stream), made once: each
+    launch leaves its counters at zero, and launches on one stream run one
+    after another, so no two launches count into the same tiles at once.
+    (One buffer per device, as before, let split launches on two streams
+    take each other's counts: a block could take itself for the last one
+    of its tile, the output was wrong and the counters stayed non-zero.)
+    A launch captured into a CUDA graph gets counters of its own, zeroed
+    by a memset node before it: a graph may be replayed on any stream,
+    beside eager calls and other graphs, so no buffer shared with anything
+    else is safe there; the node costs about a microsecond per replayed
+    split launch.
+    """
+    if torch.cuda.is_current_stream_capturing():
+        return torch.zeros(tiles, dtype=torch.int32, device=f'cuda:{index}')
+    key = (index, stream)
+    counters = _counters.get(key)
     if counters is None:
-        counters = _counters[index] = torch.zeros(
+        counters = _counters[key] = torch.zeros(
             _COUNTERS, dtype=torch.int32, device=f'cuda:{index}')
     return counters
 
@@ -185,7 +202,7 @@ def _launch(x2, w_q, scale, bias):
         if splits > 1:
             ws = torch.empty((splits, m, n), dtype=torch.float32,
                              device=place)
-            counters = _tile_counters(device)
+            counters = _tile_counters(device, stream, -(-n // _TC_BN))
         err = lib.int8_matmul_bf16_fwd(
             x2.data_ptr(), w_q.data_ptr(), scale.data_ptr(), bias_ptr,
             bias_kind, out.data_ptr(), None if ws is None else ws.data_ptr(),

@@ -2,10 +2,15 @@
 
 Counterpart of ``padertorch_tpu/ops/pallas/logmel.py`` (``LogMelFrontend``,
 ``fused_logmel``).  On CUDA tensors :class:`LogMelFrontend` launches the
-hand-written kernel of ``csrc/fused_logmel.cu``: framing, both windowed-DFT
-products, the power and the mel product stay on chip and only the
-(B, frames, n_mels) log-mel features are written.  On CPU tensors it runs
-the plain version (frames -> two products -> power -> mel -> log).
+hand-written kernel of ``csrc/fused_logmel.cu``, one launch per call:
+framing (with the fading pad folded into the kernel's loads), both
+windowed-DFT products (3xTF32 ``wgmma`` on the tensor cores), the power and
+the mel product stay on chip and only the (B, frames, n_mels) log-mel
+features are written.  :func:`logmel_plan` divides the work before the
+launch: tiles of 64 frames of one signal, and clusters of CTAs that split a
+tile's bins, so that the recipes' small inputs still fill the card.  On CPU
+tensors it runs the plain version (pad -> frames -> two products -> power
+-> mel -> log).
 
 The TPU kernel frames with rolls and so needs ``shift | window_length``;
 the CUDA kernel reads each frame at its own offset and takes any shift.
@@ -13,15 +18,161 @@ It is inference-shaped as in the JAX package (audio needs no gradient and
 the filterbank is a buffer): there is no backward kernel, and an input
 that requires a gradient is refused.
 """
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
 from padertorch_tpu_torch.ops._stft import get_stft_kernel, _get_window
 from padertorch_tpu_torch.ops.kernels import _build
+from padertorch_tpu_torch.ops.kernels.gru import device_limits
 
-__all__ = ['fused_logmel', 'fused_logmel_plain', 'LogMelFrontend']
+__all__ = ['fused_logmel', 'fused_logmel_plain', 'LogMelFrontend',
+           'LogMelPlan', 'logmel_plan', 'logmel_smem', 'mel_bands',
+           'kernel_basis', 'tf32_split']
 
 EPS = 1e-12
+
+# the kernel's constants (csrc/fused_logmel.cu): frames of a CTA, bins of
+# a chunk (64 basis columns), window positions of a stage, CTAs of a
+# cluster at most
+FRAMES = 64
+BINS = 32
+STAGE_ROWS = 32
+MAX_CLUSTER = 16
+
+
+class LogMelPlan(NamedTuple):
+    """How the kernel divides a call: tiles of 64 frames of one signal,
+    ``CS`` CTAs a cluster (they split a tile's ``chunks`` of 32 bins, rank
+    c taking chunks c, c + CS, ...), ``blocks`` CTAs in all and ``smem``
+    bytes of shared memory a CTA."""
+    CS: int
+    chunks: int
+    blocks: int
+    smem: int
+
+
+def _round_up(x, to):
+    return -(-x // to) * to
+
+
+def logmel_smem(window_length, shift, n_partials):
+    """Bytes of shared memory a CTA needs: two basis stages (32 positions
+    of 64 columns) of a hi and a lo plane each, its 64 frames' span of the
+    signal in segments of ``shift`` samples padded to 4 mod 8 floats, the
+    power of a chunk (64, 33), the mel partial sums (64, ``n_partials``,
+    one for each band and chunk of 32 bins the band meets) and one int per
+    window position (rounded up to 32)."""
+    lk = _round_up(window_length, STAGE_ROWS)
+    ss = shift + (12 - shift % 8) % 8
+    n_seg = FRAMES + (lk - 1) // shift
+    floats = (4 * STAGE_ROWS * 2 * BINS + _round_up(n_seg * ss, 4)
+              + FRAMES * (BINS + 1) + FRAMES * n_partials + lk)
+    return 4 * floats
+
+
+def tf32_split(x):
+    """(hi, lo) of float32 ``x``: hi is x rounded to the nearest TF32 value
+    (ties away from zero), lo the rest rounded the same way: the kernel's
+    ``cvt.rna.tf32.f32`` split."""
+    def rna(v):
+        u = np.ascontiguousarray(v, np.float32).view(np.uint32).astype(
+            np.uint64) + 0x1000
+        return (u & 0xffffe000).astype(np.uint32).view(np.float32)
+
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
+def kernel_basis(interleaved, length):
+    """The kernel's basis from the (L, 2 F') one, F' a multiple of 32
+    ([re, im] of bin b at columns 2b, 2b + 1), L padded with zeros to a
+    multiple of 32: per chunk of 64 columns and stage of 32 window
+    positions, the hi plane and then the lo plane (:func:`tf32_split`),
+    each four k-steps of 8 positions of 512 floats in the order (column
+    group of 8, position group of 4, column, position), the K-major core
+    matrices ``wgmma`` reads B from.  Shape (chunks, stages, 2, 2048)."""
+    lk = _round_up(length, STAGE_ROWS)
+    chunks = interleaved.shape[1] // (2 * BINS)
+    padded = np.zeros((lk, interleaved.shape[1]), np.float32)
+    padded[:length] = interleaved
+    core = padded.reshape(lk // 8, 2, 4, chunks, 8, 8).transpose(
+        3, 0, 4, 1, 5, 2).reshape(chunks, lk // STAGE_ROWS, 2048)
+    return np.ascontiguousarray(np.stack(tf32_split(core), axis=2))
+
+
+def mel_bands(fbanks):
+    """The kernel's table of an (F, M) filterbank, int32: for each band
+    its bins [lo, hi), which hold every nonzero of its column (lo = hi = 0
+    for none), and the index of its first partial sum, one for each chunk
+    of 32 bins from lo // 32 through (hi - 1) // 32; then for each chunk
+    the first and the last band that meet it (0, -1 for none).  Returns
+    (the table, the count of partial sums).
+
+    >>> fb = np.zeros((70, 2), np.float32)
+    >>> fb[3:5, 0] = fb[30:40, 1] = 1
+    >>> table, count = mel_bands(fb)
+    >>> table[:6].reshape(2, 3).tolist(), table[6:].reshape(3, 2).tolist()
+    ([[3, 5, 0], [30, 40, 1]], [[0, 1], [1, 1], [0, -1]])
+    >>> count
+    3
+    """
+    n_bins, n_mels = fbanks.shape
+    chunks = -(-n_bins // BINS)
+    per_band = np.zeros((n_mels, 3), np.int32)
+    per_chunk = np.tile(np.array([[0, -1]], np.int32), (chunks, 1))
+    count = 0
+    for m in range(n_mels):
+        nonzero = np.flatnonzero(fbanks[:, m])
+        per_band[m, 2] = count
+        if not len(nonzero):
+            continue
+        lo, hi = int(nonzero[0]), int(nonzero[-1]) + 1
+        per_band[m, :2] = lo, hi
+        count += (hi - 1) // BINS - lo // BINS + 1
+        for c in range(lo // BINS, (hi - 1) // BINS + 1):
+            if per_chunk[c, 1] < 0:
+                per_chunk[c, 0] = m
+            per_chunk[c, 1] = m
+    return np.concatenate([per_band.ravel(), per_chunk.ravel()]), count
+
+
+def logmel_plan(batch, n_frames, window_length, shift, n_bins, n_partials,
+                n_sm, max_smem):
+    """The kernel's plan for ``batch`` signals of ``n_frames`` frames on a
+    card of ``n_sm`` SMs whose blocks may opt in to ``max_smem`` bytes, or
+    None where no plan fits (a hop so long that 64 frames' span does not
+    fit the shared memory).
+
+    Of the cluster sizes (1 ... 16, at most one CTA per chunk), the one
+    with the fewest chunks a CTA takes times the waves of CTAs the card
+    runs (as many as the shared memory lets each SM hold at once, of an
+    SM's 1 KB more than a block may opt in to, less 1 KB a block); of
+    equal ones the smaller cluster.  The plan depends on the batch, the
+    results do not: every output is the same sum in the same order on
+    every plan.
+
+    >>> logmel_plan(8, 66, 512, 128, 257, 78, 132, 232448)[:3]
+    (9, 9, 144)
+    >>> logmel_plan(16, 503, 512, 128, 257, 78, 132, 232448)[:3]
+    (2, 9, 256)
+    """
+    smem = logmel_smem(window_length, shift, n_partials)
+    if n_frames < 1 or batch < 1 or smem > max_smem:
+        return None
+    chunks = -(-n_bins // BINS)
+    tiles = batch * -(-n_frames // FRAMES)
+    slots = n_sm * ((max_smem + 1024) // (smem + 1024))
+    best, best_cost = None, None
+    for cs in range(1, min(chunks, MAX_CLUSTER) + 1):
+        blocks = tiles * cs
+        cost = -(-chunks // cs) * -(-blocks // slots)
+        if best_cost is None or cost < best_cost:
+            best = LogMelPlan(cs, chunks, blocks, smem)
+            best_cost = cost
+    return best
+
 
 
 class LogMelFrontend:
@@ -59,32 +210,44 @@ class LogMelFrontend:
         fb = fb / (fb.sum(-1, keepdims=True) + 1e-6)
         # (L, F) real and imaginary bases and the (F, M) filterbank; for
         # the kernel one (L, 2 * F') basis, F' = F rounded up to the
-        # kernel's four bins per thread (zeros beyond F): a row holds
-        # [re, im] of the first two bins of every group of four, then
-        # [re, im] of every group's last two
-        groups = -(-f // 4)
-        interleaved = np.zeros((window_length, 4 * groups, 2), np.float32)
+        # kernel's chunks of 32 bins: [re, im] of bin b at columns 2b and
+        # 2b + 1, zeros beyond F, in the kernel's layout (kernel_basis)
+        interleaved = np.zeros((window_length, _round_up(f, BINS), 2),
+                               np.float32)
         interleaved[:, :f, 0] = kernel[:f].T
         interleaved[:, :f, 1] = kernel[f:].T
-        interleaved = interleaved.reshape(
-            window_length, groups, 2, 2, 2).transpose(0, 2, 1, 3, 4)
         self._bases_np = tuple(
             np.ascontiguousarray(a, dtype=np.float32)
-            for a in (kernel[:f].T, kernel[f:].T, fb.T,
-                      interleaved.reshape(window_length, -1)))
+            for a in (kernel[:f].T, kernel[f:].T, fb.T, kernel_basis(
+                interleaved.reshape(window_length, -1), window_length)))
+        # the mel bands' bin ranges, for the kernel's sparse mel product
+        self._bands_np, self.n_partials = mel_bands(fb.T)
         self._bases_on_device = {}
+        self._bands_on_device = {}
 
     def bases_on(self, device):
-        """(wr (L, F), wi (L, F), fbanks (F, M), the kernel's interleaved
-        basis (L, 2 F')) float32 tensors on ``device``, cached per device."""
+        """(wr (L, F), wi (L, F), fbanks (F, M), the kernel's basis (see
+        :func:`kernel_basis`)) float32 tensors on ``device``, cached per
+        device."""
         device = torch.device(device)
         if device not in self._bases_on_device:
             self._bases_on_device[device] = tuple(
                 torch.from_numpy(a).to(device) for a in self._bases_np)
         return self._bases_on_device[device]
 
-    def _pad(self, signal):
-        t = signal.shape[-1]
+    def bands_on(self, device):
+        """The int32 table of :func:`mel_bands` on ``device``, cached per
+        device."""
+        device = torch.device(device)
+        if device not in self._bands_on_device:
+            self._bands_on_device[device] = torch.from_numpy(
+                self._bands_np).to(device)
+        return self._bands_on_device[device]
+
+    def _pad_widths(self, t):
+        """(zeros before, zeros after) the fading pad puts around a signal
+        of ``t`` samples: whole frames of ``shift`` and at least one
+        window."""
         lo = hi = 0
         if self.fading == 'full':
             lo = hi = self.window_length - self.shift
@@ -98,15 +261,20 @@ class LogMelFrontend:
             remainder = (total - self.window_length) % self.shift
             if remainder:
                 hi += self.shift - remainder
-        return torch.nn.functional.pad(signal, (lo, hi))
+        return lo, hi
 
-    def _prepare(self, signal):
+    def _as_batch(self, signal):
         if signal.ndim == 1:
             signal = signal[None]
         if signal.ndim != 2:
             raise ValueError(f'audio must be (B, T) or (T,), got '
                              f'{tuple(signal.shape)}')
-        return self._pad(signal.to(torch.float32))
+        return signal.to(torch.float32)
+
+    def _prepare(self, signal):
+        signal = self._as_batch(signal)
+        return torch.nn.functional.pad(
+            signal, self._pad_widths(signal.shape[-1]))
 
     def plain(self, signal):
         """The plain PyTorch version of :meth:`__call__`."""
@@ -126,19 +294,29 @@ class LogMelFrontend:
             return self.plain(signal)
         if signal.device.type != 'cuda':
             raise ValueError(f'no kernel for device {signal.device}')
-        signal = self._prepare(signal).contiguous()
+        signal = self._as_batch(signal).contiguous()
         _, _, fbanks, basis = self.bases_on(signal.device)
-        b, t_padded = signal.shape
-        n_frames = (t_padded - self.window_length) // self.shift + 1
+        b, t = signal.shape
+        lo, hi = self._pad_widths(t)
+        n_frames = (t + lo + hi - self.window_length) // self.shift + 1
+        n_bins = fbanks.shape[0]
         out = torch.empty((b, n_frames, self.n_mels), dtype=torch.float32,
                           device=signal.device)
-        lib = _build.load_library()
         stream, device = _build.stream_and_device(signal)
+        plan = logmel_plan(b, n_frames, self.window_length, self.shift,
+                           n_bins, self.n_partials, *device_limits(device))
+        if plan is None:
+            raise ValueError(
+                f'fused_logmel takes a hop whose 64 frames fit one block\'s '
+                f'shared memory: shift={self.shift}, '
+                f'window_length={self.window_length}')
+        lib = _build.load_library()
         err = lib.fused_logmel_fwd(
             signal.data_ptr(), basis.data_ptr(), fbanks.data_ptr(),
-            out.data_ptr(), b, t_padded, n_frames, self.window_length,
-            fbanks.shape[0], basis.shape[1], self.n_mels, self.shift, EPS,
-            device, stream)
+            self.bands_on(signal.device).data_ptr(), out.data_ptr(), b, t,
+            lo, n_frames, self.window_length, n_bins, self.n_mels,
+            self.n_partials, self.shift, plan.CS, plan.smem, EPS, device,
+            stream)
         _build.check(lib, err, 'fused_logmel kernel')
         fused_logmel.launches += 1
         return out

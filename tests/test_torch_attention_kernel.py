@@ -219,7 +219,7 @@ def test_visible_mask_is_the_pallas_mask():
 def test_should_use_flash_is_false_off_the_card_and_follows_the_table(
         causal, window, training, monkeypatch):
     """``MultiheadAttention`` with ``use_flash='auto'`` asks
-    ``should_use_flash`` with its tensors' device and type alone, at every
+    ``should_use_flash`` with its tensors' device, type and head size, at every
     mask mode, forward alone and training (the dispatch table has the
     kernels winning at every row), and takes the fused backend exactly
     when it answers True; both backends give the same output."""
@@ -240,11 +240,13 @@ def test_should_use_flash_is_false_off_the_card_and_follows_the_table(
     x = torch.randn(2, 9, 16, requires_grad=training)
     outs = {}
     for answer in (False, True):
-        monkeypatch.setattr(tf, 'should_use_flash', lambda device, dtype: (
-            asked.append((torch.device(device).type, dtype)) or answer))
+        monkeypatch.setattr(
+            tf, 'should_use_flash', lambda device, dtype, head_size: (
+                asked.append((torch.device(device).type, dtype, head_size))
+                or answer))
         with torch.set_grad_enabled(training):
             outs[answer] = mha(x, causal=causal, attn_window=window)
-        assert asked.pop() == ('cpu', torch.float32) and not asked
+        assert asked.pop() == ('cpu', torch.float32, 8) and not asked
         assert len(fused) == int(answer)
     assert fused[0]['causal'] == causal and fused[0]['window'] == window
     np.testing.assert_allclose(outs[True].detach().numpy(),

@@ -633,6 +633,89 @@ def test_gru_resident_launch_that_fails_raises(cuda):
     assert gru_cell_scan.routes == before
 
 
+# the backward's cases: (n_dir, rows per direction, H, T, mask, scale of
+# h0, route)
+GRU_BWD_ROUTE_CASES = {
+    'DPRNN intra rows, unmasked': (2, 260, 128, 12, 'none', 0.5, 'resident'),
+    'DPRNN inter rows, chunk mask': (2, 400, 128, 10, 'chunks', 0.5,
+                                     'resident'),
+    'classifier recipe, one direction': (1, 8, 64, 15, 'ragged', 0.5,
+                                         'resident'),
+    'rows not a multiple of RB': (2, 263, 128, 7, 'ragged', 0.5, 'resident'),
+    'rows beyond one register chunk': (2, 1000, 128, 5, 'ragged', 0.5,
+                                       'resident'),
+    'narrow ragged H': (2, 3, 37, 9, 'ragged', 0.5, 'resident'),
+    'largest resident backward H': (2, 5, 137, 6, 'ragged', 0.5,
+                                    'resident'),
+    'smallest cooperative backward H': (2, 5, 138, 6, 'ragged', 0.5,
+                                        'cooperative'),
+    'classifier defaults, one direction': (1, 16, 256, 9, 'ragged', 0.5,
+                                           'cooperative'),
+}
+
+
+@pytest.mark.parametrize('name', sorted(GRU_BWD_ROUTE_CASES))
+def test_gru_backward_takes_its_route_and_matches_plain(cuda, name):
+    """The backward on the route its shape picks, against the plain
+    version on the same residuals (1e-5: the same float32 arithmetic, sums
+    in another order), the same bits on a second run, the route read from
+    ``gru_cell_scan.bwd_routes``; the Function against autograd through the
+    plain forward (5e-5 relative)."""
+    n_dir, batch, hdim, t_len, kind, scale, route = GRU_BWD_ROUTE_CASES[name]
+    args, cotangents = _gru_route_inputs(cuda, n_dir, batch, hdim, t_len,
+                                         kind, scale)
+    gx, w, mask, h0 = args
+    plan = gru_kernels.resident_bwd_plan(
+        n_dir, batch, hdim,
+        *gru_kernels.device_limits(torch.cuda.current_device()))
+    assert (plan is not None) == (route == 'resident')
+    _, acts, gh_n, h_prev, _ = gru_cell_scan_train_plain(*args)
+    before = dict(gru_cell_scan.bwd_routes)
+    runs = [gru_kernels._launch_bwd(acts, gh_n, h_prev, w, n_dir, mask,
+                                    *cotangents) for _ in range(2)]
+    want = gru_cell_scan_bwd_plain(acts, gh_n, h_prev, w, mask, *cotangents)
+    torch.cuda.synchronize()
+    assert gru_cell_scan.bwd_routes[route] == before[route] + 2
+    assert (sum(gru_cell_scan.bwd_routes.values())
+            == sum(before.values()) + 2)
+    for g, again, e in zip(*runs, want):  # dgates_x, dgh, dh0
+        torch.testing.assert_close(g, e, atol=1e-5, rtol=0)
+        assert torch.equal(g, again)
+
+    def grads(fn):
+        leaves = [a.clone().requires_grad_() for a in (gx, w, h0)]
+        outs = fn(leaves[0], leaves[1], mask, leaves[2])
+        return torch.autograd.grad(outs, leaves, cotangents)
+
+    before = dict(gru_cell_scan.bwd_routes)
+    got = grads(gru_cell_scan)
+    assert gru_cell_scan.bwd_routes[route] == before[route] + 1
+    for g, e in zip(got, grads(gru_cell_scan_plain)):
+        scale_e = float(e.abs().max()) + 1e-12
+        assert float((g - e).abs().max()) / scale_e <= 5e-5
+
+
+def test_gru_resident_backward_launch_that_fails_raises(cuda):
+    """A backward plan the kernel does not take is refused before anything
+    runs and raises."""
+    args, cotangents = _gru_route_inputs(cuda, 2, 260, 128, 3, 'none', 0.5)
+    gx, w, mask, h0 = args
+    _, acts, gh_n, h_prev, _ = gru_cell_scan_train_plain(*args)
+    plan = gru_kernels.resident_bwd_plan(2, 260, 128, 132, 232_448)
+    lib = _build.load_library()
+    stream, device = _build.stream_and_device(gx)
+    dgx, dgh = torch.empty_like(acts), torch.empty_like(acts)
+    dh0 = torch.empty_like(h0)
+    err = lib.gru_cell_scan_bwd_resident(
+        acts.data_ptr(), gh_n.data_ptr(), h_prev.data_ptr(), w.data_ptr(),
+        None, cotangents[0].data_ptr(), cotangents[1].data_ptr(),
+        dgx.data_ptr(), dgh.data_ptr(), dh0.data_ptr(), 3, 2, 260, 128,
+        plan.RB, plan.RS, plan.KS, plan.threads, plan.smem + 4, device,
+        stream)
+    with pytest.raises(RuntimeError, match='backward kernel failed'):
+        _build.check(lib, err, 'gru_cell_scan backward kernel')
+
+
 @pytest.mark.parametrize('rnn_type', ['bgru', 'blstm', 'gru'])
 def test_tasnet_on_the_card_matches_the_cpu_and_gets_every_gradient(
         cuda, rnn_type):
@@ -880,6 +963,25 @@ def test_multihead_attention_forced_onto_the_kernels_matches_dense(cuda):
     assert flash_attention.launches['fwd_train'] == before['fwd_train'] + 1
     assert fused.grad_fn is not None
     assert float((fused - dense).abs().max()) <= 1e-5
+
+
+def test_multihead_attention_auto_takes_the_dense_path_above_128(cuda):
+    """Heads of 256: 'auto' leaves the kernels (they take at most 128) and
+    runs the dense path, as the reference's 'auto' off the TPU; forcing
+    the kernels raises with their stated message."""
+    torch.manual_seed(0)
+    mha = MultiheadAttention(512, 2, use_rope=True).to(cuda)
+    x = torch.randn((2, 40, 512), device=cuda)
+    lens = torch.tensor([40, 23], device=cuda)
+    before = dict(flash_attention.launches)
+    auto = mha(x, key_padding_lens=lens, causal=True)
+    assert flash_attention.launches == before
+    dense = set_attention_backend(mha, False)(x, key_padding_lens=lens,
+                                              causal=True)
+    assert torch.equal(auto, dense)
+    with pytest.raises(ValueError, match='at most 128'):
+        set_attention_backend(mha, True)(x, key_padding_lens=lens,
+                                         causal=True)
 
 
 @pytest.mark.parametrize('use_flash', [True, False])
@@ -1143,6 +1245,40 @@ def test_fused_logmel_kernel_matches_plain(cuda, batch, samples, size, shift,
         frontend(x.clone().requires_grad_())
 
 
+# chip_smoke.py's LOGMEL_SHAPES: (batch, samples, size, shift, window, mels)
+LOGMEL_MAIN_SHAPES = [
+    (16, 64000, 512, 128, None, 64),
+    (8, 8000, 512, 128, None, 64),
+    (2, 16000, 1024, 200, 800, 80),
+    (3, 12345, 512, 160, 400, 40),
+]
+
+
+@pytest.mark.parametrize('batch,samples,size,shift,window_length,n_mels',
+                         LOGMEL_MAIN_SHAPES)
+def test_fused_logmel_kernel_matches_plain_at_the_main_shapes(
+        cuda, batch, samples, size, shift, window_length, n_mels):
+    """The shapes the recipes and chip_smoke.py phase 16 run: one launch,
+    within 1e-5 of plain (the kernel's DFT products are 3xTF32), the same
+    bits on a second call and for each signal alone (every plan adds the
+    same sums in the same order)."""
+    from padertorch_tpu_torch.ops.kernels.logmel import (
+        LogMelFrontend, fused_logmel)
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(
+        rng.randn(batch, samples).astype('float32') * 0.1).to(cuda)
+    frontend = LogMelFrontend(size=size, shift=shift,
+                              window_length=window_length, n_mels=n_mels)
+    before = fused_logmel.launches
+    got = frontend(x)
+    assert fused_logmel.launches == before + 1
+    want = frontend.plain(x)
+    assert got.shape == want.shape
+    assert float((got - want).abs().max()) <= 1e-5
+    assert torch.equal(frontend(x), got)
+    assert torch.equal(frontend(x[-1]), got[-1:])
+
+
 def test_speaker_clf_on_the_card_matches_the_cpu_and_round_trips(cuda):
     import copy
     from padertorch_tpu_torch.contrib.examples.speaker_classification \
@@ -1288,6 +1424,34 @@ def test_int8_matmul_counters_reset_between_calls_and_in_a_graph(cuda):
         torch.cuda.synchronize()
         assert all(torch.equal(out, want) for out in outs)
     assert torch.equal(int8_matmul(x, w_q, scale, bias), want)
+
+
+def test_int8_matmul_split_launches_on_two_streams_at_once(cuda):
+    """bf16 launches with several K splits on two streams at once, many
+    times: each output equals its one-stream result bit for bit, and the
+    per-tile counters read zero afterwards (each stream counts into its
+    own)."""
+    from padertorch_tpu_torch.ops.kernels import int8_matmul as int8_kernels
+    from padertorch_tpu_torch.ops.kernels.int8_matmul import (
+        bf16_split_rows, int8_matmul)
+    assert -(-4096 // bf16_split_rows(4096, 1024)) > 1
+    inputs = [_int8_inputs(cuda, 8, 4096, 1024, torch.bfloat16, seed=s)
+              for s in (1, 2)]
+    want = [int8_matmul(*args) for args in inputs]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    assert streams[0].cuda_stream != streams[1].cuda_stream
+    outs = [[], []]
+    for stream in streams:
+        stream.wait_stream(torch.cuda.current_stream())
+    for _ in range(200):
+        for i, stream in enumerate(streams):
+            with torch.cuda.stream(stream):
+                outs[i].append(int8_matmul(*inputs[i]))
+    torch.cuda.synchronize()
+    for i in range(2):
+        assert all(torch.equal(out, want[i]) for out in outs[i])
+    for key, counters in int8_kernels._counters.items():
+        assert not bool(counters.any()), key
 
 
 def test_int8_matmul_kernel_rejects_what_it_does_not_take(cuda):

@@ -36,9 +36,9 @@ CASES = [(n_dir, kind) for n_dir in (1, 2)
          for kind in (None, 'suffix', 'prefix')]
 
 
-def _inputs(n_dir, mask_kind, seed, h0_scale=0.1):
+def _inputs(n_dir, mask_kind, seed, h0_scale=0.1, b=B, h=H):
     rng = np.random.RandomState(seed)
-    rows = n_dir * B
+    rows = n_dir * b
     mask = None
     if mask_kind is not None:
         lens = rng.randint(1, T, size=rows)
@@ -46,15 +46,15 @@ def _inputs(n_dir, mask_kind, seed, h0_scale=0.1):
         mask = (np.arange(T)[:, None] < lens[None, :]).astype('float32')
         if mask_kind == 'prefix':
             mask = mask[::-1].copy()
-    w_shape = (H, 3 * H) if n_dir == 1 else (n_dir, H, 3 * H)
+    w_shape = (h, 3 * h) if n_dir == 1 else (n_dir, h, 3 * h)
     arrays = [
-        (rng.randn(T, rows, 3 * H) * 0.5).astype('float32'),
-        (rng.randn(*w_shape) * 0.3).astype('float32'),
+        (rng.randn(T, rows, 3 * h) * 0.5).astype('float32'),
+        (rng.randn(*w_shape) * (0.3 * np.sqrt(H / h))).astype('float32'),
         mask,
-        (rng.randn(rows, H) * h0_scale).astype('float32'),
+        (rng.randn(rows, h) * h0_scale).astype('float32'),
     ]
-    cotangents = [rng.randn(T, rows, H).astype('float32'),
-                  rng.randn(rows, H).astype('float32')]
+    cotangents = [rng.randn(T, rows, h).astype('float32'),
+                  rng.randn(rows, h).astype('float32')]
     return arrays, cotangents
 
 
@@ -171,10 +171,23 @@ def _plain_kernel_grads(arrays, cotangents, n_dir):
     return dgx, (dw[0] if n_dir == 1 else dw), dh0, dgh
 
 
+# beside CASES, the narrow shapes at which tests/test_torch_gru_bwd_resident.py
+# replays the resident backward kernel's split against the plain version
+# (contiguous-valid masks): (n_dir, mask kind, rows per direction, H)
+RESIDENT_REPLAY_SHAPES = [(2, 'suffix', 5, 37), (1, 'suffix', 8, 64)]
+
+
 @pytest.mark.parametrize('reference', ['pallas', 'scan'])
-@pytest.mark.parametrize('n_dir,mask_kind', CASES)
-def test_plain_training_kernels_match_jax(n_dir, mask_kind, reference):
-    arrays, cotangents = _inputs(n_dir, mask_kind, seed=10 + n_dir)
+@pytest.mark.parametrize(
+    'n_dir,mask_kind,b,h',
+    [(*case, B, H) for case in CASES] + RESIDENT_REPLAY_SHAPES,
+    ids=[f'{n_dir}-{kind}' for n_dir, kind in CASES]
+    + [f'{n_dir}-{kind}-{b}x{h}'
+       for n_dir, kind, b, h in RESIDENT_REPLAY_SHAPES])
+def test_plain_training_kernels_match_jax(n_dir, mask_kind, b, h,
+                                          reference):
+    arrays, cotangents = _inputs(n_dir, mask_kind, seed=10 + n_dir, b=b,
+                                 h=h)
     want = _jax_grads(arrays, cotangents,
                       _pallas if reference == 'pallas' else _ref_scan)
     got = _plain_kernel_grads(arrays, cotangents, n_dir)[:3]

@@ -106,12 +106,17 @@ def test_one_signal_a_short_signal_and_what_is_refused():
     wr, wi, fb, basis = frontend.bases_on('cpu')
     assert tuple(wr.shape) == tuple(wi.shape) == (512, 257)
     assert tuple(fb.shape) == (257, 64)
-    # the kernel's basis: per group of four bins [re, im] of its first two
-    # bins, then, in the row's second half, of its last two; zeros beyond
-    # bin 256
-    assert tuple(basis.shape) == (512, 2 * 260)
-    halves = basis.reshape(512, 2, 65, 2, 2)        # half, group, bin, re/im
-    bins = halves.permute(0, 2, 1, 3, 4).reshape(512, 260, 2)
-    assert torch.equal(bins[:, :257, 0], wr)
-    assert torch.equal(bins[:, :257, 1], wi)
+    # the kernel's basis: [re, im] of bin b at columns 2b and 2b + 1, in
+    # chunks of 32 bins (nine at F = 257), zeros beyond bin 256; per (chunk,
+    # stage of 32 positions) its TF32 hi and lo planes, each laid out per
+    # k-step of 8 positions as wgmma's K-major core matrices (column group
+    # of 8, position group of 4, column, position)
+    assert tuple(basis.shape) == (9, 16, 2, 2048)
+    planes = basis.double().reshape(9, 16, 2, 4, 8, 2, 8, 4)
+    interleaved = planes.permute(2, 1, 3, 5, 7, 0, 4, 6).reshape(
+        2, 512, 288, 2)
+    bins = interleaved[0] + interleaved[1]            # hi + lo
+    assert float((bins[:, :257, 0] - wr).abs().max()) <= 2.0 ** -22
+    assert float((bins[:, :257, 1] - wi).abs().max()) <= 2.0 ** -22
     assert not bool(bins[:, 257:].any())
+    assert not bool((basis.view(torch.int32) & 0x1fff).any())   # TF32
