@@ -18,13 +18,23 @@ Phases, one line each:
    control: the plain version with TF32 matmuls must fail the limit.  Also
    the yardsticks: one bidirectional ``torch.nn.LSTM`` layer (cuDNN) and
    the input projection alone at that shape.
-4. masked_istft kernel vs its plain version at (K=2, T=127, F=257) and
-   (B*K=32, T=500, F=257).
+4. masked_istft vs its plain version at (K=2, T=127, F=257) and (B*K=32,
+   T=500, F=257) on both routes (``fft``, the planner's, and ``dft``,
+   forced by a plan): times from CUDA-graph replays and eager calls beside
+   plain and the cuFFT composition (mask multiply, ``torch.fft.irfft``,
+   window, ``F.fold``; a yardstick the port never calls), the FFT's bound
+   and the DFT's; each version's largest difference from float64, and the
+   fft route with twiddles from ``__sincosf`` as a control; one signal of
+   the batch alone, in the batch and under two more plans, bit for bit;
+   then sizes 4096 (shifts 1024 and 2048), windows shorter than the size,
+   size 400 (the dft route, timed) and 70,000 signal rows on both routes,
+   each against plain with the route it took.
 5. slice: the full-width uPIT model (F=257, 3x600 BLSTM, K=2) from seed 0
    on the card against the same model on the CPU; then the recipe's
    ``evaluate_example`` on the 8 mixtures of
    ``synthetic_database(num_examples=8, seed=2)`` as 8 requests, with the
-   kernels' launch counts read around them; then one batched forward at
+   kernels' launch counts read around them (every masked_istft launch on
+   the fft route, ``masked_istft.routes``); then one batched forward at
    B=16, T=500.
 6. training kernels vs plain at the flagship shape: outputs and residuals
    of the training forward, ``dgates_x``/``dh0``/``dc0`` of the backward
@@ -204,8 +214,10 @@ bf16 products 989 TFLOP/s, for the attention kernels' 3xTF32 products 495
 67, NVIDIA's H100 SXM data sheet), and the route a kernel with several
 took there (``attention_route``, ``wavenet_route`` with the sampler's
 launches by route, ``gru_route``, the GRU backward's launches by route,
-``logmel_plan``; fused_logmel's ``ms`` from CUDA-graph replays, its eager
-call as ``eager_ms``); the last line
+``logmel_plan``, masked_istft's launches by route and ``fft_plan``;
+fused_logmel's and masked_istft's ``ms`` from CUDA-graph replays, their
+eager calls as ``eager_ms``; masked_istft's ``bound_ms`` is the FFT's,
+``dft_bound_ms`` the direct synthesis product's); the last line
 is ``{"ok": true, "device": {...}}``.  Any failed
 check raises, so the script exits non-zero and prints no result; without
 a CUDA card it fails at phase 1.  ``--profile`` adds a ``torch.profiler``
@@ -265,6 +277,7 @@ from padertorch_tpu_torch.ops.kernels.lstm import (
 from padertorch_tpu_torch.utils.nested import nested_merge
 from padertorch_tpu_torch.ops.kernels.logmel import (
     LogMelFrontend, fused_logmel, logmel_plan)
+from padertorch_tpu_torch.ops.kernels import masked_istft as istft_kernels
 from padertorch_tpu_torch.ops.kernels.masked_istft import (
     masked_istft, masked_istft_plain)
 from padertorch_tpu_torch.ops.kernels import wavenet as wavenet_kernels
@@ -609,44 +622,223 @@ def cudnn_lstm_ms(t_len=500, batch=16, in_size=1200, hdim=600):
     return times
 
 
-def istft_inputs(n_rows, frames, seed=0):
+def istft_inputs(n_rows, frames, seed=0, n_bins=257):
     rng = np.random.RandomState(seed)
-    spec = rng.randn(frames, 257, 2).astype('float32') * 10
-    mask = rng.uniform(0, 1, (n_rows, frames, 257)).astype('float32')
+    spec = rng.randn(frames, n_bins, 2).astype('float32') * 10
+    mask = rng.uniform(0, 1, (n_rows, frames, n_bins)).astype('float32')
     return (torch.from_numpy(spec).cuda(), torch.from_numpy(mask).cuda())
 
 
+def overlap_add(seg, shift):
+    """(N, frames, L) segments -> (N, (frames - 1) * shift + L) signals."""
+    frames, length = seg.shape[-2:]
+    total = (frames - 1) * shift + length
+    out = torch.nn.functional.fold(
+        seg.transpose(-1, -2), output_size=(1, total),
+        kernel_size=(1, length), stride=(1, shift))
+    return out.reshape(seg.shape[0], total)
+
+
+def istft_float64(spec, mask, stft):
+    """``stft.inverse(spec * mask)`` in float64 on the card, from the
+    float64 synthesis kernels: the accuracy yardstick of phase 4."""
+    k_real, k_imag = (torch.from_numpy(k).cuda()
+                      for k in stft._istft_kernel_np)
+    re = spec[..., 0].double() * mask.double()
+    im = spec[..., 1].double() * mask.double()
+    re_full = torch.cat([re, re[..., 1:-1].flip(-1)], dim=-1)
+    im_full = torch.cat([im, -im[..., 1:-1].flip(-1)], dim=-1)
+    return stft.crop_fading(
+        overlap_add(re_full @ k_real + im_full @ k_imag, stft.shift))
+
+
+def istft_cufft(spec, mask, stft, window):
+    """The same function composed from library calls, a yardstick the port
+    never calls: the mask multiply, ``torch.fft.irfft`` (cuFFT), the
+    window (``window``: the synthesis window times size) and the
+    overlap-add by ``F.fold``."""
+    x = torch.complex(spec[..., 0], spec[..., 1]) * mask
+    seg = torch.fft.irfft(x, n=stft.size)[..., :stft.window_length] * window
+    return stft.crop_fading(overlap_add(seg, stft.shift))
+
+
+def fft_flops(n_rows, frames, size, length):
+    """Operations of the fft route per these inputs: per (row, frame) a
+    complex FFT of size / 2 points (5 M log2 M), the packing of the real
+    transform with the mask multiplied in (about 16 M) and the window and
+    overlap-add (2 L)."""
+    m = size // 2
+    per_frame = 5 * m * np.log2(m) + 16 * m + 2 * length
+    return float(n_rows * frames * per_frame)
+
+
+def masked_istft_rows(spec, mask, stft, **launch):
+    """The kernel through its launch with ``launch``'s options (a plan,
+    the twiddle control), cropped as ``masked_istft`` does."""
+    re, im, rows_mask, lead = istft_kernels._split(spec, mask, stft)
+    rows = istft_kernels._launch(re, im, rows_mask, stft, **launch)
+    return stft.crop_fading(rows.reshape(*lead, rows.shape[-1]))
+
+
+# geometries beyond the recipe's, each against plain on the card with the
+# route it takes: size 4096 at both shifts (2049 bins; the parent kernel
+# refused them), size 8192 (the fft route's largest, 16 values a thread),
+# windows shorter than the size, a size that is no power of two (timed),
+# and 70,000 signal rows on both routes:
+# (size, shift, window_length, signal rows, frames, route, timed)
+ISTFT_GEOMETRIES = [
+    (4096, 1024, None, 2, 40, 'fft', False),
+    (4096, 2048, None, 2, 40, 'fft', False),
+    (8192, 2048, None, 2, 40, 'fft', False),
+    (512, 100, 400, 2, 127, 'fft', False),
+    (512, 20, 40, 2, 127, 'fft', False),
+    (400, 100, None, 2, 127, 'dft', True),
+    (64, 16, None, 70000, 12, 'fft', False),
+    (48, 12, None, 70000, 12, 'dft', False),
+]
+
+
 def phase_istft():
+    """Phase 4: masked_istft on both routes at the recipe's geometry, its
+    accuracy against float64 beside the twiddle control, the cuFFT
+    composition, bits alone and in a batch, and the other geometries."""
     stft = STFT(pit_data.STFT_SIZE, pit_data.STFT_SHIFT, fading='full',
                 complex_representation='stacked')
+    size, n_bins = pit_data.STFT_SIZE, pit_data.STFT_SIZE // 2 + 1
+    window = torch.from_numpy(
+        stft._istft_kernel_np[0][0] * size).float().cuda()
+    n_sm, max_smem = gru_kernels.device_limits(0)
     results = {}
     for n_rows, frames in ((2, 127), (32, 500)):
         spec, mask = istft_inputs(n_rows, frames)
+        before = dict(masked_istft.routes)
         got = masked_istft(spec, mask, stft=stft)
+        dft = istft_kernels.dft_plan(n_rows, frames, n_bins, stft.shift,
+                                     4, max_smem)
+        got_dft = masked_istft_rows(spec, mask, stft, plan=dft)
+        if (masked_istft.routes['fft'] != before['fft'] + 1
+                or masked_istft.routes['dft'] != before['dft'] + 1):
+            fail(f'masked_istft routes {masked_istft.routes}, before '
+                 f'{before}: expected one fft and one dft launch')
+        fast = masked_istft_rows(spec, mask, stft, fast_twiddles=True)
         want = masked_istft_plain(spec, mask, stft=stft)
+        composed = istft_cufft(spec, mask, stft, window)
+        want64 = istft_float64(spec, mask, stft)
         torch.cuda.synchronize()
         if got.shape != want.shape:
             fail(f'masked_istft shape {tuple(got.shape)} != '
                  f'{tuple(want.shape)}')
         err = max_err([got], [want])
-        ms = cuda_ms(lambda: masked_istft(spec, mask, stft=stft), iters=20)
+        err_dft = max_err([got_dft], [want])
+        err_cufft = max_err([composed], [want])
+        to64 = {name: float((x.double() - want64).abs().max())
+                for name, x in (('fft', got), ('dft', got_dft),
+                                ('plain', want), ('fast_twiddles', fast),
+                                ('cufft', composed))}
+        plan = istft_kernels.fft_plan(n_rows, frames, size, stft.shift, 4,
+                                      n_sm, max_smem)
+        timed = {
+            'fft': lambda: masked_istft(spec, mask, stft=stft),
+            'dft': lambda: masked_istft_rows(spec, mask, stft, plan=dft),
+            'cufft': lambda: istft_cufft(spec, mask, stft, window)}
+        eager = {name: cuda_ms(fn, iters=20, warmup=3)
+                 for name, fn in timed.items()}
+        graph = {name: graph_ms(fn, iters=20) for name, fn in timed.items()}
         plain_ms = cuda_ms(
             lambda: masked_istft_plain(spec, mask, stft=stft), iters=20)
+        io_bytes = nbytes(spec, mask, got)
+        limit = bound(io_bytes + size * 8 + stft.window_length * 4,
+                      fft_flops(n_rows, frames, size, stft.window_length))
         # per row and frame 2 * F * size multiply-adds (two synthesis
         # matrices of (F, size), themselves an input of F * size * 2)
-        size, n_bins = pit_data.STFT_SIZE, 257
-        limit = bound(
-            nbytes(spec, mask, got) + n_bins * size * 2 * 4,
-            n_rows * frames * 2 * 2 * n_bins * size)
-        print(f'phase 4 masked_istft ({n_rows}, {frames}, 257): max '
-              f'|kernel - plain| {err:.3e} (tol {ISTFT_TOL}), kernel '
-              f'{ms:.3f} ms, plain {plain_ms:.3f} ms, bound '
-              f'{limit["bound_ms"]:.4f} ms by {limit["bound_by"]}')
-        if not err <= ISTFT_TOL:
-            fail(f'masked_istft kernel disagrees with plain: {err}')
+        dft_limit = bound(io_bytes + n_bins * size * 2 * 4,
+                          n_rows * frames * 2 * 2 * n_bins * size)
+        print(f'phase 4 masked_istft ({n_rows}, {frames}, {n_bins}): fft '
+              f'route, plan {plan._asdict()}: max |kernel - plain| '
+              f'{err:.3e} (tol {ISTFT_TOL}); from CUDA-graph replays fft '
+              f'{graph["fft"]:.4f} ms, dft {graph["dft"]:.4f}, cuFFT '
+              f'composition {graph["cufft"]:.4f}; eager fft '
+              f'{eager["fft"]:.4f}, dft {eager["dft"]:.4f}, cuFFT '
+              f'composition {eager["cufft"]:.4f}, plain {plain_ms:.4f}; '
+              f'bound {limit["bound_ms"]:.4f} ms by {limit["bound_by"]} '
+              f'(the FFT\'s), {dft_limit["bound_ms"]:.4f} by '
+              f'{dft_limit["bound_by"]} (the DFT\'s); max |dft - plain| '
+              f'{err_dft:.3e}, |cuFFT composition - plain| {err_cufft:.3e}; '
+              f'max |x - float64|: ' + ', '.join(
+                  f'{name} {value:.3e}' for name, value in to64.items()),
+              flush=True)
+        for name, value in (('kernel', err), ('dft route', err_dft)):
+            if not value <= ISTFT_TOL:
+                fail(f'masked_istft {name} disagrees with plain: {value}')
         results[(n_rows, frames)] = {
-            'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms, **limit,
-            'library_ms': None}
+            'max_abs_err': err, 'ms': graph['fft'],
+            'eager_ms': eager['fft'], 'plain_ms': plain_ms, **limit,
+            'dft_bound_ms': dft_limit['bound_ms'],
+            'dft_route_ms': graph['dft'], 'dft_route_eager_ms': eager['dft'],
+            'library_ms': None,
+            'library': 'none: torch.istft centres frames and divides by the '
+                       'window envelope; the cuFFT composition is timed '
+                       'beside it',
+            'cufft_composition_ms': graph['cufft'],
+            'cufft_composition_eager_ms': eager['cufft'],
+            'max_abs_err_to_float64': to64['fft'],
+            'twiddle_control_err_to_float64': to64['fast_twiddles'],
+            'fft_plan': plan._asdict()}
+
+    # one signal alone, in the batch of 32 and under two more plans
+    spec, mask = istft_inputs(32, 500)
+    batch = masked_istft(spec, mask, stft=stft)
+    alone = masked_istft(spec, mask[5:6], stft=stft)
+    plans = [istft_kernels.FftPlan(
+        rows, at_once, 4, at_once * size // 8, 32 * -(-503 // rows),
+        istft_kernels.fft_smem(size, stft.shift, rows, at_once))
+        for rows, at_once in ((1, 4), (4, 2))]
+    planned = [masked_istft_rows(spec, mask, stft, plan=plan)
+               for plan in plans]
+    same = (torch.equal(batch[5:6], alone)
+            and all(torch.equal(x, batch) for x in planned))
+    batch_plan = istft_kernels.fft_plan(32, 500, size, stft.shift, 4, n_sm,
+                                        max_smem)
+    print(f'phase 4 signal 5 of (32, 500) alone, in the batch (plan rows '
+          f'{batch_plan.rows}, frames {batch_plan.frames}) and under plans '
+          f'(1, 4) and (4, 2): the same bits {same}', flush=True)
+    if not same:
+        fail('masked_istft gives other bits alone, in a batch or under '
+             'another plan')
+
+    for (g_size, shift, length, n_rows, frames, route,
+         timed) in ISTFT_GEOMETRIES:
+        g_stft = STFT(g_size, shift, window_length=length, fading='full',
+                      complex_representation='stacked')
+        spec, mask = istft_inputs(n_rows, frames, seed=g_size + shift,
+                                  n_bins=g_size // 2 + 1)
+        before = dict(masked_istft.routes)
+        got = masked_istft(spec, mask, stft=g_stft)
+        want = masked_istft_plain(spec, mask, stft=g_stft)
+        torch.cuda.synchronize()
+        err = max_err([got], [want])
+        took = [name for name in before
+                if masked_istft.routes[name] != before[name]]
+        line = (f'phase 4 masked_istft size {g_size}, shift {shift}, '
+                f'window_length {g_stft.window_length}, ({n_rows}, {frames}): '
+                f'route {took}, max |kernel - plain| {err:.3e}')
+        if timed:
+            def kernel():
+                return masked_istft(spec, mask, stft=g_stft)
+
+            def plain():
+                return masked_istft_plain(spec, mask, stft=g_stft)
+
+            line += (f'; from CUDA-graph replays '
+                     f'{graph_ms(kernel, iters=20):.4f} ms, eager '
+                     f'{cuda_ms(kernel, iters=20, warmup=3):.4f}, plain '
+                     f'{cuda_ms(plain, iters=20):.4f}')
+        print(line, flush=True)
+        if took != [route] or not err <= ISTFT_TOL:
+            fail(f'masked_istft at size {g_size}, shift {shift}: route '
+                 f'{took} (expected {route}), error {err}')
+        del spec, mask, got, want
+    torch.cuda.empty_cache()
     return results
 
 
@@ -668,6 +860,8 @@ def reset_launches():
         gru_cell_scan.routes[name] = 0
         gru_cell_scan.bwd_routes[name] = 0
     masked_istft.launches = 0
+    for name in masked_istft.routes:
+        masked_istft.routes[name] = 0
     wavenet_sample.launches = 0
     for name in wavenet_sample.routes:
         wavenet_sample.routes[name] = 0
@@ -740,6 +934,12 @@ def phase_slice():
     for name, n in launches.items():
         if n == 0:
             fail(f'the main path never launched the {name} kernel')
+    launches['masked_istft_routes'] = dict(masked_istft.routes)
+    print(f'phase 5b masked_istft launches by route '
+          f'{launches["masked_istft_routes"]}')
+    if masked_istft.routes != {'fft': launches['masked_istft'], 'dft': 0}:
+        fail(f'the requests\' masked_istft launches did not all take the '
+             f'fft route: {masked_istft.routes}')
     for example_id, metrics in results.items():
         values = np.asarray(metrics['output_si_sdr']
                             + metrics['output_mir_eval_sxr_sdr'])
@@ -3358,6 +3558,7 @@ def main():
          'source': 'padertorch_tpu_torch/csrc/masked_istft.cu',
          'replaces': 'padertorch_tpu/ops/pallas/masked_istft.py:135',
          'launches': launches['masked_istft'],
+         'launches_by_route': launches['masked_istft_routes'],
          'shape': 'K=2 T=127 F=257', **istft[(2, 127)]},
         {'name': 'gru_cell_scan', 'route': 'cuda',
          'source': 'padertorch_tpu_torch/csrc/gru_cell_scan.cu',

@@ -43,7 +43,8 @@ _SIGNATURES = {
     'gru_cell_scan_fwd_train_resident': (_P,) * 9 + (_I,) * 10 + (_P,),
     'gru_cell_scan_bwd_resident': (_P,) * 10 + (_I,) * 10 + (_P,),
     'gru_cell_scan_device_limits': (_I, _P),
-    'masked_istft_fwd': (_P,) * 5 + (_I,) * 7 + (_P,),
+    'masked_istft_fft': (_P,) * 6 + (_I,) * 12 + (_P,),
+    'masked_istft_dft': (_P,) * 5 + (_I,) * 10 + (_P,),
     'flash_attention_fwd': (_P,) * 6 + (_I,) * 9 + (_F, _I, _P),
     'flash_attention_bwd': (_P,) * 10 + (_I,) * 9 + (_F, _I, _P),
     'wavenet_sample_fwd': (_P,) * 12 + (_I,) * 13 + (_P,),

@@ -48,6 +48,7 @@ from padertorch_tpu_torch.ops.kernels.gru import (
 from padertorch_tpu_torch.ops.kernels.lstm import (
     lstm_cell_scan, lstm_cell_scan_plain, lstm_cell_scan_train_plain,
     lstm_cell_scan_bwd_plain)
+from padertorch_tpu_torch.ops.kernels import masked_istft as istft_kernels
 from padertorch_tpu_torch.ops.kernels.masked_istft import (
     masked_istft, masked_istft_plain)
 
@@ -372,10 +373,12 @@ def test_masked_istft_kernel_matches_plain(cuda, size, shift, fading, rep,
     mask = torch.tensor(rng.rand(*lead, frames, size // 2 + 1),
                         dtype=torch.float32, device=cuda)
     before = masked_istft.launches
+    fft_before = masked_istft.routes['fft']
     got = masked_istft(spec, mask, stft=stft)
     want = masked_istft_plain(spec, mask, stft=stft)
     torch.cuda.synchronize()
     assert masked_istft.launches == before + 1
+    assert masked_istft.routes['fft'] == fft_before + 1
     torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
     if fading == 'full':  # perfect reconstruction through the kernel
         unmasked = stft.masked_inverse(spec)
@@ -404,6 +407,92 @@ def test_masked_istft_kernel_broadcasts_like_plain(cuda, spec_lead,
     assert masked_istft.launches == before + 1
     assert got.shape == want.shape
     torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
+def _istft_launch(spec, mask, stft, **launch):
+    """The kernel through its launch with ``launch``'s options (a plan),
+    cropped as ``masked_istft`` does."""
+    re, im, rows_mask, lead = istft_kernels._split(spec, mask, stft)
+    rows = istft_kernels._launch(re, im, rows_mask, stft, **launch)
+    return stft.crop_fading(rows.reshape(*lead, rows.shape[-1]))
+
+
+def _istft_case(cuda, stft, lead, samples, seed):
+    rng = np.random.RandomState(seed)
+    spec = stft(torch.tensor(rng.randn(*lead, samples), dtype=torch.float32,
+                             device=cuda))
+    mask = torch.tensor(rng.rand(*lead, spec.shape[-3], stft.size // 2 + 1),
+                        dtype=torch.float32, device=cuda)
+    return spec, mask
+
+
+# geometries the parent kernel refused or never met on the card, each with
+# the route it takes: size 4096 (2049 bins did not fit one block's shared
+# memory), size 8192 (the fft route's largest, 16 values a thread),
+# windows shorter than the size, a size that is no power of two, and
+# 70,000 signal rows (more than gridDim.y holds) on both routes
+ISTFT_ROUTE_CASES = [
+    ((4096, 1024, None), (2,), 12000, 'fft'),
+    ((4096, 2048, None), (2,), 12000, 'fft'),
+    ((8192, 2048, None), (2,), 24000, 'fft'),
+    ((512, 100, 400), (3,), 3000, 'fft'),
+    ((512, 20, 40), (2, 6), 203, 'fft'),
+    ((400, 100, None), (2,), 3000, 'dft'),
+    ((64, 16, None), (70000,), 100, 'fft'),
+    ((48, 12, None), (70000,), 100, 'dft'),
+]
+
+
+@pytest.mark.parametrize('geometry,lead,samples,want_route',
+                         ISTFT_ROUTE_CASES)
+def test_masked_istft_takes_every_geometry_of_the_reference(
+        cuda, geometry, lead, samples, want_route):
+    size, shift, window_length = geometry
+    stft = STFT(size, shift, window_length=window_length, fading='full',
+                complex_representation='stacked')
+    assert istft_kernels.route(size, stft.window_length) == want_route
+    spec, mask = _istft_case(cuda, stft, lead, samples, size + shift)
+    before = dict(masked_istft.routes)
+    got = masked_istft(spec, mask, stft=stft)
+    want = masked_istft_plain(spec, mask, stft=stft)
+    torch.cuda.synchronize()
+    assert masked_istft.routes[want_route] == before[want_route] + 1
+    assert got.shape == want.shape
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
+def test_masked_istft_dft_route_at_the_recipe_geometry(cuda):
+    """The dft route forced at a power-of-two size agrees with plain."""
+    stft = STFT(512, 128, fading='full', complex_representation='stacked')
+    spec, mask = _istft_case(cuda, stft, (2,), 16000, 7)
+    plan = istft_kernels.dft_plan(2, spec.shape[-3], 257, 128, 4, 232448)
+    before = masked_istft.routes['dft']
+    got = _istft_launch(spec, mask, stft, plan=plan)
+    torch.cuda.synchronize()
+    assert masked_istft.routes['dft'] == before + 1
+    torch.testing.assert_close(got, masked_istft_plain(spec, mask, stft=stft),
+                               atol=1e-4, rtol=0)
+
+
+def test_masked_istft_signal_is_the_same_bits_alone_in_a_batch_and_any_plan(
+        cuda):
+    """Signal 5 of a batch of 32 against itself alone, and under two
+    plans of the fft route: one output row a block, four frames at once;
+    sixteen rows a block, two frames at once."""
+    stft = STFT(512, 128, fading='full', complex_representation='stacked')
+    spec, mask = _istft_case(cuda, stft, (32,), 16000, 11)
+    batch = masked_istft(spec, mask, stft=stft)
+    alone = masked_istft(spec[5:6], mask[5:6], stft=stft)
+    frames = spec.shape[-3]
+    plans = [istft_kernels.FftPlan(
+        rows, at_once, 4, at_once * 64, 32 * -(-(frames + 3) // rows),
+        istft_kernels.fft_smem(512, 128, rows, at_once))
+        for rows, at_once in ((1, 4), (16, 2))]
+    planned = [_istft_launch(spec, mask, stft, plan=plan) for plan in plans]
+    torch.cuda.synchronize()
+    assert torch.equal(batch[5:6], alone)
+    for out in planned:
+        assert torch.equal(out, batch)
 
 
 @pytest.mark.parametrize('size,shift', [(512, 100), (128, 128)])
