@@ -202,16 +202,41 @@ Phases, one line each:
     kernel's launches; each request's tokens equal that request decoded
     alone, but at near ties of its logits.
 
+23. the three bf16 LSTM kernels (bf16 streams, bf16 products summed in
+    float32) vs their plain bf16 versions at the flagship layer (T=500,
+    D*B=32 ragged, H=600), the DPRNN's intra and inter shapes and an odd
+    H=75 (the kernels' row copies without 16-byte copies): the float32
+    states within 3e-4 (forward) and 1e-3 (backward), every stream element
+    within one bf16 unit in the last place plus 1e-3 (2e-3), and at most
+    5% of them other than plain's; the plain version with float32 products
+    must exceed the share; each timed beside the float32 kernel at the same
+    shape, plain, a bidirectional bf16 ``torch.nn.LSTM`` layer (cuDNN) and
+    the bound
+    (bytes at 2 B a stream element over 3.35 TB/s, or operations over the
+    bf16 tensor cores' 989 TFLOP/s).
+24. the JAX package's benchmarked flagship step: F=257, 3 x 600 BLSTM,
+    K=2, ``compute_dtype='bfloat16'`` under ``precision='bfloat16'``, Adam
+    with clip 10, both PIT losses, B=16, T=500: 20 steps beside the float32
+    step from the same start (losses within 5% relative, decreasing; the
+    bf16 kernels launched), then a timed step by stage and on the host
+    clock; masters and Adam moments float32; the trained bf16 model serves
+    4 requests (the lean bf16 kernel) and agrees with itself on the CPU.
+25. the DPRNN-TasNet step under ``precision='bfloat16'`` at B=4 x 16000
+    samples beside float32 from the same start: 3 steps' losses, 36
+    training launches of the float32 LSTM kernels each, a timed step,
+    masters float32.
+
 The line before the last is a JSON object with each kernel's launches on
 the main paths, the shape its numbers were taken at (``shape``; the other
 shapes' are in the phases' own lines), its largest difference from the
 plain version, its time,
 the plain version's, the library call's where there is one, and the
 least time the card could take (``bound_ms``: the larger of bytes over
-3.35 TB/s and float32 operations over 67 TFLOP/s, or for int8_matmul's
-bf16 products 989 TFLOP/s, for the attention kernels' 3xTF32 products 495
-/ 3 TFLOP/s, for fused_logmel's DFT products 495 / 3 and its mel product
-67, NVIDIA's H100 SXM data sheet), and the route a kernel with several
+3.35 TB/s and float32 operations over 67 TFLOP/s, or for the bf16
+products of int8_matmul and the bf16 LSTM kernels 989 TFLOP/s, for the
+attention kernels' 3xTF32 products 495 / 3 TFLOP/s, for fused_logmel's
+DFT products 495 / 3 and its mel product 67, NVIDIA's H100 SXM data
+sheet), and the route a kernel with several
 took there (``attention_route``, ``wavenet_route`` with the sampler's
 launches by route, ``gru_route``, the GRU backward's launches by route,
 ``logmel_plan``, masked_istft's launches by route and ``fft_plan``;
@@ -221,8 +246,9 @@ eager calls as ``eager_ms``; masked_istft's ``bound_ms`` is the FFT's,
 is ``{"ok": true, "device": {...}}``.  Any failed
 check raises, so the script exits non-zero and prints no result; without
 a CUDA card it fails at phase 1.  ``--profile`` adds a ``torch.profiler``
-table of one training step per shape, and the card's busy time per token
-of the B=1 decode (phase 21).
+table of three training steps per shape with their busy time and casts
+(phases 7, 11, 25), and the card's busy time per token of the B=1 decode
+(phase 21).
 """
 import contextlib
 import copy
@@ -437,6 +463,12 @@ def max_rel_err(a, b):
                for x, y in zip(a, b))
 
 
+def with_zeros(launches, want):
+    """``want`` with every other kernel that ``launches`` counts at zero
+    (the LSTM wrapper also counts its bf16 variants)."""
+    return {**dict.fromkeys(launches, 0), **want}
+
+
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors
                if t is not None)
@@ -590,14 +622,16 @@ def phase_lstm():
             'library_ms': library['fwd']}, library
 
 
-def cudnn_layer_ms(layer_cls, t_len, batch, in_size, hdim, directions=2):
+def cudnn_layer_ms(layer_cls, t_len, batch, in_size, hdim, directions=2,
+                   dtype=torch.float32):
     """Yardstick, timed here and used nowhere in the port: one
     ``torch.nn.LSTM`` or ``torch.nn.GRU`` layer of ``directions`` directions
     (cuDNN; it includes the input projection and takes no mask), forward
-    without and with grad mode, and backward."""
+    without and with grad mode, and backward, in ``dtype``."""
     torch.manual_seed(0)
-    layer = layer_cls(in_size, hdim, bidirectional=directions == 2).cuda()
-    x = torch.randn(t_len, batch, in_size, device='cuda')
+    layer = layer_cls(in_size, hdim, bidirectional=directions == 2).to(
+        'cuda', dtype)
+    x = torch.randn(t_len, batch, in_size, device='cuda', dtype=dtype)
     with torch.no_grad():
         fwd = cuda_ms(lambda: layer(x), iters=10, warmup=2)
     fwd_train = cuda_ms(lambda: layer(x), iters=10, warmup=2)
@@ -1137,11 +1171,14 @@ def train_batch(batch, frames, seed=0):
 
 
 def timed_step(trainer, batch, iters=5, loss_key='pit_mse_loss',
-               wrapper=lstm_cell_scan, per_step=3):
+               wrapper=lstm_cell_scan, per_step=3, variant=''):
     """One training step by stage (CUDA events; ms), and the whole step on
     the host clock ended by a synchronize.  ``wrapper`` is the recurrence
-    the model runs, ``per_step`` its launches per step and kind (None: no
-    count is checked); ``loss_key`` None takes the review's ``loss``."""
+    the model runs, ``per_step`` its launches per step and kind of the
+    kernels of ``variant`` ('' or '_bf16'; ``wrapper`` None: no count is
+    checked); ``loss_key`` None takes the review's ``loss``, 'trainer' runs
+    forward and review as one stage through ``trainer.train_step`` (its
+    precision policy and loss weights apply)."""
     model, optimizer = trainer.model, trainer.optimizer
     example = model.example_to_device(batch, 'cuda')
     stages = {}
@@ -1156,10 +1193,14 @@ def timed_step(trainer, batch, iters=5, loss_key='pit_mse_loss',
         return out
 
     def step():
-        out = stage('forward', lambda: model(example))
-        review = stage('review', lambda: model.review(example, out))
-        loss = review['loss'] if loss_key is None \
-            else review['losses'][loss_key]
+        if loss_key == 'trainer':
+            loss = stage('forward and review', lambda: trainer.train_step(
+                model, example)[0])
+        else:
+            out = stage('forward', lambda: model(example))
+            review = stage('review', lambda: model.review(example, out))
+            loss = review['loss'] if loss_key is None \
+                else review['losses'][loss_key]
         stage('backward', loss.backward)
         stage('clip', optimizer.clip_grad)
         stage('adam', optimizer.optimizer.step)
@@ -1178,11 +1219,12 @@ def timed_step(trainer, batch, iters=5, loss_key='pit_mse_loss',
         torch.cuda.synchronize()
         host.append((time.perf_counter() - start) * 1e3)
     launches = dict(wrapper.launches) if wrapper is not None else None
-    if wrapper is not None and launches != {
-            'fwd': 0, 'fwd_train': per_step * iters,
-            'bwd': per_step * iters}:
-        fail(f'a training step launches {per_step} fwd_train and '
-             f'{per_step} bwd kernels, got {launches} in {iters} steps')
+    if wrapper is not None and launches != with_zeros(launches, {
+            'fwd_train' + variant: per_step * iters,
+            'bwd' + variant: per_step * iters}):
+        fail(f'a training step launches {per_step} fwd_train{variant} and '
+             f'{per_step} bwd{variant} kernels, got {launches} in {iters} '
+             f'steps')
     out = {name: float(np.mean([a.elapsed_time(b) for a, b in events]))
            for name, events in stages.items()}
     out['device_sum'] = sum(out.values())
@@ -1190,20 +1232,38 @@ def timed_step(trainer, batch, iters=5, loss_key='pit_mse_loss',
     return out
 
 
-def profile_step(trainer, batch, label):
-    """``--profile``: torch.profiler's kernel table for one step."""
+def profile_step(trainer, batch, label, steps=3):
+    """``--profile``: torch.profiler's kernel table for ``steps`` steps
+    through ``trainer.train_step`` (its precision policy applies), and per
+    step the card's busy time (the kernels' device time) beside the host
+    clock, and the dtype casts (``aten::_to_copy``): calls, host time and
+    the device time of their kernels."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     example = trainer.model.example_to_device(batch, 'cuda')
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            loss, _, _ = trainer._loss_and_review(trainer.model, example)
+        start = time.perf_counter()
+        for _ in range(steps):
+            loss = trainer.train_step(trainer.model, example)[0]
             loss.backward()
             trainer.optimizer.step()
             trainer.optimizer.zero_grad()
         torch.cuda.synchronize()
-    print(f'profile {label} (3 steps):')
-    print(prof.key_averages().table(sort_by='cuda_time_total', row_limit=25))
+        host = (time.perf_counter() - start) * 1e3 / steps
+    events = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in events
+               if e.device_type == DeviceType.CUDA) / 1e3 / steps
+    casts = [e for e in events if e.key == 'aten::_to_copy']
+    cast_calls = sum(e.count for e in casts) / steps
+    cast_host = sum(e.cpu_time_total for e in casts) / 1e3 / steps
+    cast_busy = sum(e.device_time_total for e in casts) / 1e3 / steps
+    print(f'profile {label} ({steps} steps), per step: busy {busy:.3f} ms '
+          f'of {host:.3f} ms host clock under the profiler; casts '
+          f'(aten::_to_copy) {cast_calls:.0f} calls, {cast_host:.3f} ms '
+          f'host, {cast_busy:.3f} ms busy ({cast_busy / busy:.1%} of busy)')
+    print(events.table(sort_by='cuda_time_total', row_limit=25))
 
 
 def phase_training(kernel_times, profile=False):
@@ -1254,8 +1314,9 @@ def phase_training(kernel_times, profile=False):
             fail(f'expected 24 iterations, got {iterations}')
         if not (np.isfinite(losses).all() and np.isfinite(norms).all()):
             fail(f'non-finite loss or gradient norm: {losses} {norms}')
-        want = {'fwd': 3 * 2 * validations, 'fwd_train': 3 * iterations,
-                'bwd': 3 * iterations}
+        want = with_zeros(launches, {
+            'fwd': 3 * 2 * validations, 'fwd_train': 3 * iterations,
+            'bwd': 3 * iterations})
         if launches != want:
             fail(f'launches {launches}, expected {want}: 3 fwd_train and 3 '
                  f'bwd per step, 3 fwd per validation batch')
@@ -1914,7 +1975,7 @@ def serve_tasnet_requests(label, model, model_cpu, wrapper, per_request):
           f'{np.median(latencies):.3f}), launches {launches}{routes}; model '
           f'forward of one request ({examples[0]["observation"].shape[-1]} '
           f'samples) {forward_ms:.3f} ms')
-    if launches != {'fwd': per_request * 8, 'fwd_train': 0, 'bwd': 0}:
+    if launches != with_zeros(launches, {'fwd': per_request * 8}):
         fail(f'8 requests launch {per_request} lean forward kernels each, '
              f'got {launches}')
     for example_id, metrics in results.items():
@@ -2106,9 +2167,10 @@ def phase_tasnet_training(name, profile=False):
         if not (np.isfinite(losses).all() and np.isfinite(norms).all()):
             fail(f'non-finite loss or gradient norm: {losses} {norms}')
         validations = trainer.epoch + 1  # at iteration 0 and every epoch
-        want = {'fwd': per_step * n_dev * validations,
-                'fwd_train': per_step * iterations,
-                'bwd': per_step * iterations}
+        want = with_zeros(launches, {
+            'fwd': per_step * n_dev * validations,
+            'fwd_train': per_step * iterations,
+            'bwd': per_step * iterations})
         if launches != want or validations != 3:
             fail(f'launches {launches}, expected {want}: {per_step} '
                  f'fwd_train and {per_step} bwd per step, {per_step} fwd '
@@ -3445,6 +3507,318 @@ def phase_serving(models):
     return launches
 
 
+# phase 23: the bf16 LSTM kernels against their plain bf16 versions on the
+# same inputs.  The float32 states within 3e-4 (forward: h_T, c_T) and 1e-3
+# (backward: dh0, dc0), about twice what the card shows: the same bf16
+# products summed in float32 in another order, where a value near a
+# rounding boundary rounds the other way and the recurrence carries that
+# on.  The streams (out, c_seq, gates, dgates_x) are bf16: every element
+# within one bf16 unit in the last place (of the larger of the two values)
+# plus 1e-3 (forward) or 2e-3 (backward), since the float32 carries inside
+# the sequence move further apart than at its end, and at most 5% of the
+# elements other than plain's.  The control, the plain version with
+# float32 products on the same bf16 streams, differs from the bf16 plain
+# in about 6% of the stream elements or more and must fail the share
+# limit: the limit tells bf16 products from float32.
+LSTM_BF16_SHARE = 0.05
+LSTM_BF16_STATE_TOL = {'fwd': 3e-4, 'fwd_train': 3e-4, 'bwd': 1e-3}
+LSTM_BF16_STREAM_TOL = {'fwd': 1e-3, 'fwd_train': 1e-3, 'bwd': 2e-3}
+# (label, T, rows per direction, H, mask kind, the layer's input width for
+# the cuDNN yardstick); the first is the flagship layer (the kernels line's
+# shape), then the DPRNN's two, then an odd H, where both kernels copy rows
+# of h and of dz without 16-byte copies
+LSTM_BF16_SHAPES = [
+    ('T=500 D*B=32 H=600 ragged', 500, 16, 600, 'ragged', 1200),
+    ('intra T=100 D*B=520 H=128', 100, 260, 128, None, 64),
+    ('inter T=65 D*B=800 H=128', 65, 400, 128, 'chunks', 64),
+    ('T=64 D*B=10 H=75 ragged', 64, 5, 75, 'ragged', 150),
+]
+# the flagship bf16 step of phase 24 against the float32 step from the same
+# start: the JAX package saw its losses about 0.5% apart over 50 steps
+FLAGSHIP_BF16_LOSS_RTOL = 0.05
+# the bf16 flagship model's masks on the card against the same model on
+# the CPU (plain bf16 versions), one request: the JAX package's limit for
+# its bf16 module against its other backend
+BF16_MODEL_TOL = 5e-2
+
+
+def bf16_distance(got, want, atol):
+    """Over pairs of tensors: (largest difference beyond one bf16 unit in
+    the last place of the larger of the two values plus ``atol``, share of
+    elements that differ)."""
+    worst, differ, total = -float('inf'), 0, 0
+    for g, w in zip(got, want):
+        g, w = g.float(), w.float()
+        diff = (g - w).abs()
+        big = torch.maximum(g.abs(), w.abs())
+        ulp = torch.where(big > 0, torch.exp2(torch.floor(torch.log2(
+            torch.where(big > 0, big, torch.ones_like(big)))) - 7),
+            torch.zeros_like(big))
+        worst = max(worst, float((diff - ulp - atol).max()))
+        differ += int((diff > 0).sum())
+        total += diff.numel()
+    return worst, differ / total
+
+
+def lstm_bf16_case(label, t_len, batch, hdim, kind, in_size):
+    """The three bf16 kernels at one shape: agreement with plain, the
+    control, times beside the float32 kernels, plain, cuDNN in bf16 and
+    the bound."""
+    args, cot = recurrence_inputs(t_len, batch, hdim, kind, gates=4)
+    gx, w, mask, h0, c0 = args
+    gx16 = gx.to(torch.bfloat16)
+    d_out16 = cot[0].to(torch.bfloat16)
+    args16 = (gx16, w, mask, h0, c0)
+    valid = t_len * 2 * batch if mask is None else float(mask.sum())
+    flops = valid * (2 * hdim * 4 * hdim + 30 * hdim)
+
+    def fwd():
+        return lstm_cell_scan(*args16, compute_dtype='bfloat16')
+
+    def fwd_train():
+        return lstm_kernels._launch(gx16, w, 2, mask, h0, c0, train=True)
+
+    want_train = lstm_cell_scan_train_plain(*args16, 'bfloat16')
+    _, c_seq, gates, _, _ = want_train
+    bwd_in = (gates, c_seq, w, mask, d_out16, cot[1], cot[2])
+
+    def bwd():
+        return lstm_kernels._launch_bwd(gates, c_seq, w, 2, mask,
+                                        *bwd_in[4:])
+
+    got = {'fwd': fwd(), 'fwd_train': fwd_train(), 'bwd': bwd()}
+    want = {'fwd': lstm_cell_scan_plain(*args16, 'bfloat16'),
+            'fwd_train': want_train,
+            'bwd': lstm_cell_scan_bwd_plain(*bwd_in, 'bfloat16')}
+    control = {'fwd': lstm_cell_scan_plain(*args16),
+               'fwd_train': lstm_cell_scan_train_plain(*args16),
+               'bwd': lstm_cell_scan_bwd_plain(*bwd_in)}
+    torch.cuda.synchronize()
+    streams = {'fwd': 1, 'fwd_train': 3, 'bwd': 1}
+    # the float32 kernels at the same shape, on float32 inputs
+    f32_train = lstm_kernels._launch(gx, w, 2, mask, h0, c0, train=True)
+    f32 = {'fwd': lambda: lstm_cell_scan(*args),
+           'fwd_train': lambda: lstm_kernels._launch(
+               gx, w, 2, mask, h0, c0, train=True),
+           'bwd': lambda: lstm_kernels._launch_bwd(
+               f32_train[2], f32_train[1], w, 2, mask, *cot)}
+    plain = {'fwd': lambda: lstm_cell_scan_plain(*args16, 'bfloat16'),
+             'fwd_train': lambda: lstm_cell_scan_train_plain(
+                 *args16, 'bfloat16'),
+             'bwd': lambda: lstm_cell_scan_bwd_plain(*bwd_in, 'bfloat16')}
+    kernel = {'fwd': fwd, 'fwd_train': fwd_train, 'bwd': bwd}
+    library = cudnn_layer_ms(torch.nn.LSTM, t_len, batch, in_size, hdim,
+                             dtype=torch.bfloat16)
+    inputs = {'fwd': args16, 'fwd_train': args16, 'bwd': bwd_in}
+    grid = lstm_kernels.bwd_grid(2, batch, hdim, bf16=True)
+    rows = {}
+    for name in ('fwd', 'fwd_train', 'bwd'):
+        n = streams[name]
+        tol, stream_tol = (LSTM_BF16_STATE_TOL[name],
+                           LSTM_BF16_STREAM_TOL[name])
+        excess, share = bf16_distance(got[name][:n], want[name][:n],
+                                      stream_tol)
+        stream_err = max_err(got[name][:n], want[name][:n])
+        state_err = max_err(got[name][n:], want[name][n:])
+        _, control_share = bf16_distance(control[name][:n], want[name][:n],
+                                         stream_tol)
+        control_state = max_err(control[name][n:], want[name][n:])
+        ms = cuda_ms(kernel[name], iters=10)
+        f32_ms = cuda_ms(f32[name], iters=10)
+        plain_ms = cuda_ms(plain[name], iters=2)
+        limit = bound(nbytes(*inputs[name], *got[name]), flops,
+                      peak=PEAK_BF16_FLOPS)
+        shown = (' on the grid ' + ', '.join(
+            f'{k} {v}' for k, v in grid.items()) if name == 'bwd' else '')
+        print(f'phase 23 lstm bf16 {name} {label}: states max |kernel - '
+              f'plain| {state_err:.3e} (tol {tol}; plain with float32 '
+              f'products {control_state:.3e}); streams max |diff| '
+              f'{stream_err:.3e}, {excess + stream_tol:.3e} beyond one bf16 '
+              f'ulp (tol {stream_tol}), {share:.3%} of them differ (tol '
+              f'{LSTM_BF16_SHARE:.0%}; plain with float32 products '
+              f'{control_share:.3%}); kernel {ms:.3f} ms, the float32 '
+              f'kernel {f32_ms:.3f} ms, plain {plain_ms:.3f} ms, cuDNN bf16 '
+              f'{library[name]:.3f} ms, bound {limit["bound_ms"]:.4f} ms by '
+              f'{limit["bound_by"]}{shown}')
+        if not (excess <= 0 and share <= LSTM_BF16_SHARE
+                and state_err <= tol):
+            fail(f'lstm bf16 {name} kernel disagrees with plain at {label}: '
+                 f'streams {excess} beyond the limit, {share} of them '
+                 f'differ, states {state_err}')
+        if not control_share > LSTM_BF16_SHARE:
+            fail(f'the limit does not tell bf16 products from float32 at '
+                 f'{label} ({name}): {control_share}')
+        rows[name] = {
+            'max_abs_err': max_err(got[name], want[name]),
+            'share_differing': share, 'state_err': state_err,
+            'control_share': control_share, 'control_state': control_state,
+            'ms': ms, 'f32_kernel_ms': f32_ms,
+            'plain_ms': plain_ms, **limit, 'library_ms': library[name]}
+    return rows
+
+
+def phase_lstm_bf16_kernels():
+    """Phase 23: the three bf16 LSTM kernels at the flagship layer, the
+    DPRNN's two shapes and an odd H (see LSTM_BF16_SHAPES)."""
+    rows = {}
+    for shape in LSTM_BF16_SHAPES:
+        rows[shape[0]] = lstm_bf16_case(*shape)
+        torch.cuda.empty_cache()
+    return rows
+
+
+def losses_over(trainer, batch, steps):
+    """The loss of each of ``steps`` optimizer steps on one batch."""
+    losses = []
+    for _ in range(steps):
+        loss = trainer.train_step(trainer.model, batch)[0]
+        loss.backward()
+        trainer.optimizer.step()
+        trainer.optimizer.zero_grad()
+        losses.append(loss.detach())
+    return [float(x) for x in losses]
+
+
+def masters_are_float32(trainer, label):
+    dtypes = {p.dtype for p in trainer.model.parameters()}
+    dtypes |= {v.dtype for state in trainer.optimizer.optimizer.state.values()
+               for v in state.values()
+               if torch.is_tensor(v) and v.is_floating_point()}
+    if dtypes != {torch.float32}:
+        fail(f'{label}: master parameters or Adam moments are {dtypes}')
+
+
+def phase_flagship_bf16():
+    """Phase 24: the JAX package's benchmarked flagship step (bench.py
+    ``_time_pit_step``: F=257, 3 x 600 BLSTM, K=2, B=16, T=500,
+    ``compute_dtype='bfloat16'`` under the bf16 policy, Adam with clip 10,
+    both PIT losses) beside the float32 step from the same start; then the
+    bf16 model served (the lean bf16 forward)."""
+    rng = np.random.RandomState(0)
+    b, t_len, f = 16, 500, 257
+    batch = {
+        'Y_abs': np.abs(rng.randn(b, t_len, f)).astype('float32'),
+        'X_abs': np.abs(rng.randn(b, t_len, 2, f)).astype('float32'),
+        'cos_phase_difference': np.cos(rng.randn(b, t_len, 2, f)).astype(
+            'float32'),
+        'num_frames': np.full(b, t_len, 'int32'),
+    }
+    steps = 20
+    results, launches = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, compute_dtype, precision in (
+                ('bf16', 'bfloat16', 'bfloat16'), ('f32', None, None)):
+            torch.manual_seed(0)
+            model = PermutationInvariantTrainingModel(
+                F=f, recurrent_layers=3, units=600, K=2,
+                compute_dtype=compute_dtype)
+            trainer = Trainer(
+                model, Path(tmp) / label,
+                Adam(gradient_clipping=10.0, lr=1e-3),
+                loss_weights={'pit_mse_loss': 1.0, 'pit_ips_loss': 1.0},
+                precision=precision).to('cuda')
+            example = model.example_to_device(batch, 'cuda')
+            reset_launches()
+            losses = losses_over(trainer, example, steps)
+            launches[label] = dict(lstm_cell_scan.launches)
+            times = timed_step(trainer, example, loss_key='trainer',
+                               variant='_bf16' if compute_dtype else '')
+            masters_are_float32(trainer, f'phase 24 {label}')
+            results[label] = {'losses': losses, 'times': times,
+                              'trainer': trainer}
+            print(f'phase 24 flagship step {label} B=16 T=500: '
+                  + ', '.join(f'{k} {v:.3f} ms' for k, v in times.items())
+                  + f'; launches in {steps} steps {launches[label]}')
+        bf16, f32 = results['bf16']['losses'], results['f32']['losses']
+        rel = [abs(x - y) / abs(y) for x, y in zip(bf16, f32)]
+        print(f'phase 24 losses over {steps} steps, bf16: '
+              f'{[round(x, 5) for x in bf16]}; f32: '
+              f'{[round(x, 5) for x in f32]}; largest relative difference '
+              f'{max(rel):.3%} (tol {FLAGSHIP_BF16_LOSS_RTOL:.0%})')
+        if not (np.isfinite(bf16).all()
+                and max(rel) <= FLAGSHIP_BF16_LOSS_RTOL):
+            fail(f'the bf16 flagship step leaves the f32 trajectory: {rel}')
+        if bf16[-1] >= bf16[0]:
+            fail(f'the bf16 flagship step does not train: {bf16}')
+        for name in ('fwd_train_bf16', 'bwd_bf16'):
+            if launches['bf16'][name] == 0:
+                fail(f'the bf16 flagship step never launched {name}')
+        if launches['bf16']['fwd_train'] or launches['f32']['fwd_train_bf16']:
+            fail(f'a step ran the other precision\'s kernels: {launches}')
+
+        # the trained bf16 model serves requests: the lean bf16 forward
+        model = results['bf16']['trainer'].model.eval()
+        stft = HostSTFT(pit_data.STFT_SIZE, pit_data.STFT_SHIFT,
+                        fading='full', complex_representation='complex')
+        examples = list(pit_data.synthetic_database(num_examples=4, seed=2))
+        reset_launches()
+        latencies = []
+        for example in examples:
+            start = time.perf_counter()
+            _, metrics = evaluate_example(model, stft, example)
+            latencies.append((time.perf_counter() - start) * 1e3)
+            if not np.isfinite(metrics['output_si_sdr']).all():
+                fail(f'bad metrics from the bf16 model: {metrics}')
+        served = dict(lstm_cell_scan.launches)
+        print(f'phase 24 bf16 model served {len(examples)} requests, latency '
+              f'ms {[round(x, 3) for x in latencies]}, launches {served}')
+        if served['fwd_bf16'] == 0:
+            fail('the bf16 requests never launched the lean bf16 kernel')
+        small = ragged_batch(2, 120)
+        model_cpu = copy.deepcopy(model).cpu()
+        with torch.no_grad():
+            got = model({k: v.cuda() for k, v in small.items()}).cpu()
+            want = model_cpu(small)
+        err = float((got - want).abs().max())
+        print(f'phase 24 bf16 model B=2 T=120, card vs CPU (plain bf16): max '
+              f'|diff| {err:.3e} (tol {BF16_MODEL_TOL}), masks up to '
+              f'{float(want.abs().max()):.3f}')
+        if not err <= BF16_MODEL_TOL:
+            fail(f'the bf16 model on the card disagrees with the CPU: {err}')
+        del results, model, model_cpu
+    torch.cuda.empty_cache()
+    return {name: launches['bf16'][name] + served[name]
+            for name in ('fwd_bf16', 'fwd_train_bf16', 'bwd_bf16')}
+
+
+def phase_dprnn_bf16(profile=False):
+    """Phase 25: the DPRNN-TasNet step under ``precision='bfloat16'`` (the
+    recipe's full-width ``dprnn`` with BLSTM chunk RNNs, B=4 x 16000 samples
+    as bench.py's ``bench_dprnn``) beside the float32 step from the same
+    start.  Without ``compute_dtype`` the chunk LSTMs take bf16 inputs and
+    run the float32 kernels, as the JAX package's route does."""
+    batch = tasnet_batch(4, 16000, seed=1)
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, precision in (('bf16', 'bfloat16'), ('f32', None)):
+            torch.manual_seed(0)
+            trainer = Trainer.from_config(tas_train.get_trainer_config(
+                Path(tmp) / label, variant='dprnn',
+                updates={'precision': precision})).to('cuda')
+            example = trainer.model.example_to_device(batch, 'cuda')
+            reset_launches()
+            losses = losses_over(trainer, example, 3)
+            launches = dict(lstm_cell_scan.launches)
+            times = timed_step(trainer, example, loss_key='trainer',
+                               per_step=12)
+            masters_are_float32(trainer, f'phase 25 {label}')
+            if profile:
+                profile_step(trainer, example, f'phase 25 DPRNN {label}')
+            results[label] = losses
+            print(f'phase 25 DPRNN step {label} B=4 x 16000: '
+                  + ', '.join(f'{k} {v:.3f} ms' for k, v in times.items())
+                  + f'; losses {[round(x, 4) for x in losses]}; launches in '
+                  f'3 steps {launches}')
+            if launches['fwd_train'] != 36 or launches['bwd'] != 36 or any(
+                    launches[k] for k in ('fwd_bf16', 'fwd_train_bf16',
+                                          'bwd_bf16')):
+                fail(f'the DPRNN {label} step launched {launches}')
+            del trainer
+        if not np.isfinite(results['bf16']).all():
+            fail(f'the bf16 DPRNN step is not finite: {results}')
+    torch.cuda.empty_cache()
+
+
 def main():
     profile = '--profile' in sys.argv[1:]
     phase_device()
@@ -3480,6 +3854,9 @@ def main():
     serve_launches = phase_serving(decoder_models)
     del decoder_models
     torch.cuda.empty_cache()
+    lstm_bf16 = phase_lstm_bf16_kernels()
+    lstm_bf16_launches = phase_flagship_bf16()
+    phase_dprnn_bf16(profile=profile)
     if wavenet_launches == 0:
         fail('the vocoder\'s requests never launched the wavenet_sample '
              'kernel')
@@ -3527,13 +3904,16 @@ def main():
           f'lean forward, training {sepformer_trained}); wavenet_sample '
           f'{wavenet_launches} (the vocoder\'s requests); speaker '
           f'classifier {speaker}; int8_matmul {int8_launches} (one B=1 '
-          f'decode of 128 tokens), {serve_launches} (16 batched requests)')
+          f'decode of 128 tokens), {serve_launches} (16 batched requests); '
+          f'bf16 lstm {lstm_bf16_launches} (the bf16 flagship: 20 training '
+          f'steps, 4 requests)')
     # every row's numbers are those of its ``shape``: the GRU rows those of
     # the intra-chunk shape, which six of a TasNet's twelve chunk RNNs run
     # (phase 8 prints the rows of the other shapes, the classifier's two
     # among them); the LSTM rows those of the uPIT flagship layer
     gru_rows = gru[RECURRENCE_SHAPES[0][0]]
     flagship = 'T=500 D*B=32 H=600 ragged'
+    bf16_rows = lstm_bf16[LSTM_BF16_SHAPES[0][0]]
     print('gru kernels at the speaker classifier\'s shapes: ' + json.dumps(
         {shape[0]: gru[shape[0]] for shape in CLASSIFIER_GRU_SHAPES}))
     # the attention rows are those of the intra-chunk shape (8 of a
@@ -3554,6 +3934,21 @@ def main():
          'replaces': 'padertorch_tpu/ops/pallas/lstm.py:339',
          'launches': lstm_launches['bwd'], 'shape': flagship,
          **train_kernels['bwd']},
+        {'name': 'lstm_cell_scan_bf16', 'route': 'cuda',
+         'source': 'padertorch_tpu_torch/csrc/lstm_cell_scan.cu',
+         'replaces': 'padertorch_tpu/ops/pallas/lstm.py:275',
+         'launches': lstm_bf16_launches['fwd_bf16'],
+         'shape': flagship + ' bf16', **bf16_rows['fwd']},
+        {'name': 'lstm_cell_scan_train_bf16', 'route': 'cuda',
+         'source': 'padertorch_tpu_torch/csrc/lstm_cell_scan.cu',
+         'replaces': 'padertorch_tpu/ops/pallas/lstm.py:293',
+         'launches': lstm_bf16_launches['fwd_train_bf16'],
+         'shape': flagship + ' bf16', **bf16_rows['fwd_train']},
+        {'name': 'lstm_cell_scan_bwd_bf16', 'route': 'cuda',
+         'source': 'padertorch_tpu_torch/csrc/lstm_cell_scan_bwd.cu',
+         'replaces': 'padertorch_tpu/ops/pallas/lstm.py:339',
+         'launches': lstm_bf16_launches['bwd_bf16'],
+         'shape': flagship + ' bf16', **bf16_rows['bwd']},
         {'name': 'masked_istft', 'route': 'cuda',
          'source': 'padertorch_tpu_torch/csrc/masked_istft.cu',
          'replaces': 'padertorch_tpu/ops/pallas/masked_istft.py:135',

@@ -10,7 +10,11 @@ dir (``config.json``, ``checkpoints/``, an event file) that the
 Run on the card (the default device; without one it fails):
     python -m padertorch_tpu_torch.contrib.examples.source_separation.pit.train \
         --storage_root /tmp/pit --synthetic --epochs 2
-Run on the CPU: add ``--device cpu``.
+Run on the CPU: add ``--device cpu``.  ``--precision bfloat16`` trains
+under the bf16 policy (bf16 casts of float32 masters, ``Trainer(precision=
+...)``), ``--compute_dtype bfloat16`` gives the BLSTM bf16 products and
+streams (the JAX package's benchmarked flagship sets both: bf16 kernels
+and GEMMs, float32 masters and carries).
 """
 import argparse
 from pathlib import Path
@@ -63,6 +67,12 @@ def main():
                              "the card only 'pallas' (the kernel) exists")
     parser.add_argument('--device', default='cuda',
                         help="'cuda' (the default) or 'cpu'")
+    parser.add_argument('--precision', default=None,
+                        choices=['bfloat16'],
+                        help="the trainer's mixed-precision policy")
+    parser.add_argument('--compute_dtype', default=None,
+                        choices=['bfloat16'],
+                        help="the BLSTM's products and streams")
     parser.add_argument('--resume', default=None, metavar='STORAGE_DIR',
                         help='continue a crashed/stopped training from '
                              'its experiment dir (config + ckpt_latest)')
@@ -92,7 +102,9 @@ def main():
     torch.manual_seed(0)
     updates = {
         'stop_trigger': (args.epochs, 'epoch'),
-        'model': {'units': args.units, 'recurrent_layers': args.layers},
+        'model': {'units': args.units, 'recurrent_layers': args.layers,
+                  'compute_dtype': args.compute_dtype},
+        'precision': args.precision,
     }
     if rest:
         # sacred-style overrides (... with model.units=300 lr=1e-4) are
@@ -104,12 +116,15 @@ def main():
         updates = nested_merge(updates, cli_updates)
     if args.resume:
         assert rest == [] and args.epochs == 100 and args.units == 600 \
-            and args.layers == 3, (
+            and args.layers == 3 and args.precision is None \
+            and args.compute_dtype is None, (
                 '--resume restores the stored config verbatim; config '
-                'overrides (--epochs/--units/--layers/with k=v) are not '
-                'applicable: edit config.json instead. '
+                'overrides (--epochs/--units/--layers/--precision/'
+                '--compute_dtype/with k=v) are not applicable: edit '
+                'config.json instead. '
                 f'Got: epochs={args.epochs} units={args.units} '
-                f'layers={args.layers} rest={rest}')
+                f'layers={args.layers} precision={args.precision} '
+                f'compute_dtype={args.compute_dtype} rest={rest}')
         from padertorch_tpu_torch.io import load_config
         config = load_config(storage_dir / 'config.json')['trainer']
         # the dir may have been moved/copied: the CLI path wins over the

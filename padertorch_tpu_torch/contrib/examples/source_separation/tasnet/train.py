@@ -24,6 +24,14 @@ Run on the card (the default device; without one it fails):
     python -m padertorch_tpu_torch.contrib.examples.source_separation.tasnet.train \
         --storage_root /tmp/tasnet --synthetic --epochs 2 --variant sepformer --flash
 Run on the CPU: add ``--device cpu`` (and ``--small`` for a tiny model).
+``--precision bfloat16`` trains under the bf16 policy
+(``Trainer(precision=...)``; the JAX package benchmarks the DPRNN step so).
+On the card it is slower than float32 for the ``dprnn`` variant today
+(``chip_smoke.py`` phase 25 on an NVIDIA H100 80GB HBM3 at 700 W, B=4 x
+16000: 60.1 to 90.6 ms a step against 44.8 to 76.0, slower in each of ten
+pairs): the chunk LSTMs run their float32 kernels on widened inputs, so the
+card's busy time is about the same (29 to 34 ms a step under ``--profile``),
+and the step, bound by the host, adds about 400 dtype casts.
 """
 import argparse
 from pathlib import Path
@@ -138,6 +146,9 @@ def main():
                         help='tiny model for smoke tests')
     parser.add_argument('--device', default='cuda',
                         help="'cuda' (the default) or 'cpu'")
+    parser.add_argument('--precision', default=None,
+                        choices=['bfloat16'],
+                        help="the trainer's mixed-precision policy")
     args, rest = parser.parse_known_args()
 
     if args.database is not None:
@@ -153,7 +164,8 @@ def main():
         from padertorch_tpu_torch.io import get_new_storage_dir
         storage_dir = get_new_storage_dir('tasnet')
 
-    updates = {'stop_trigger': (args.epochs, 'epoch')}
+    updates = {'stop_trigger': (args.epochs, 'epoch'),
+               'precision': args.precision}
     if args.small:
         updates['model'] = (SMALL_SEPFORMER if args.variant == 'sepformer'
                             else SMALL)

@@ -44,6 +44,16 @@
 // the frozen c); its residual layout is the backward kernel's
 // (lstm_cell_scan_bwd.cu).  The inference variant is compiled without
 // them, so it writes a third of the bytes.
+//
+// bf16 (`BF16`, the JAX package's `compute_dtype='bfloat16'` with bf16
+// streams): gx is read, and out, the gates and c_seq are written, as bf16
+// (`ScanTypes<true>`, lstm_common.cuh: widened on load, rounded to nearest
+// even on store); the block's slice of W_hh[d] is rounded to bf16 as it
+// is staged, so it takes half the shared memory and a block can hold
+// twice the units; h_{t-1} stays float32 in shared memory and in the
+// ping-pong buffer and is rounded to bf16 as the product reads it; the
+// products of bf16 values are exact in float32, summed in float32 FMAs on
+// the CUDA cores.  c, h and the final states stay float32.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -64,22 +74,27 @@ namespace {
 // direction d = b / (n_ub * n_rb); rows [rb * RB, min(Bd, (rb + 1) * RB))
 // of its direction.  Thread tid: K slice ks = tid / P, pair p = tid % P
 // (row p / U of the chunk, unit p % U), P = RS * U.
-// Shared memory: w_s (H, U) of float4 gates | red (KS - 1, P) of float4
-// partial gates | h_s (RS, H) | c_s (RB, U).
+// Shared memory: w_s (H, U) of W4 (the four gates' weights) | red
+// (KS - 1, P) of float4 partial gates | h_s (RS, H) | c_s (RB, U).
 // vec: H % 4 == 0 and h0, hbuf 16-byte aligned, so rows of h copy as
-// float4.
-template <bool TRAIN>
+// float4.  BF16: gx, out, c_seq and gates are bf16 (see the top).
+template <bool TRAIN, bool BF16>
 __global__ void __launch_bounds__(1024) lstm_fwd_kernel(
-        const float* __restrict__ gx, const float* __restrict__ w,
+        const typename ScanTypes<BF16>::S* __restrict__ gx,
+        const float* __restrict__ w,
         const float* __restrict__ mask, const float* __restrict__ h0,
-        const float* __restrict__ c0, float* __restrict__ out,
-        float* __restrict__ c_seq, float* __restrict__ gates,
+        const float* __restrict__ c0,
+        typename ScanTypes<BF16>::S* __restrict__ out,
+        typename ScanTypes<BF16>::S* __restrict__ c_seq,
+        typename ScanTypes<BF16>::S* __restrict__ gates,
         float* __restrict__ hT, float* __restrict__ cT,
         float* hbuf, int T, int Bd, int H, int U, int n_ub, int n_rb,
         int RB, int RS, int KS, int vec) {
+    using Ty = ScanTypes<BF16>;
+    using S = typename Ty::S;
+    using W4 = typename Ty::W4;
     cg::grid_group grid = cg::this_grid();
     extern __shared__ float4 smem4[];
-    float* smem = reinterpret_cast<float*>(smem4);
     const int ub = blockIdx.x % n_ub;
     const int rb = blockIdx.x / n_ub % n_rb;
     const int d = blockIdx.x / (n_ub * n_rb);
@@ -88,8 +103,8 @@ __global__ void __launch_bounds__(1024) lstm_fwd_kernel(
     const int P = RS * U;
     const int r_lo = rb * RB;
     const int r_hi = min(Bd, r_lo + RB);
-    const float4* w_s = smem4;                        // (H, U) of 4 gates
-    float4* red = smem4 + (size_t)H * U;              // (KS - 1, P)
+    W4* w_s = reinterpret_cast<W4*>(smem4);           // (H, U) of 4 gates
+    float4* red = reinterpret_cast<float4*>(w_s + (size_t)H * U);
     float* h_s = reinterpret_cast<float*>(red + (size_t)(KS - 1) * P);
     float* c_s = h_s + (size_t)RS * H;                // (RB, U)
     const int tid = threadIdx.x;
@@ -112,7 +127,7 @@ __global__ void __launch_bounds__(1024) lstm_fwd_kernel(
         const int uu = q % U;
         const int jj = ub * U + uu;
         const float v = jj < H ? wd[(size_t)k * G + g * H + jj] : 0.0f;
-        smem[((size_t)k * U + uu) * 4 + g] = v;
+        Ty::set(w_s + (size_t)k * U + uu, g, v);
     }
     for (int q = tid; q < (r_hi - r_lo) * U; q += nthreads) {
         const int jj = ub * U + q % U;
@@ -142,9 +157,10 @@ __global__ void __launch_bounds__(1024) lstm_fwd_kernel(
             float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
             float m = 1.f;
             if (first) {
-                const float* gxr = gx + ((size_t)t * R + row) * G;
-                acc = make_float4(gxr[j], gxr[H + j], gxr[2 * H + j],
-                                  gxr[3 * H + j]);
+                const S* gxr = gx + ((size_t)t * R + row) * G;
+                acc = make_float4(Ty::ld(gxr + j), Ty::ld(gxr + H + j),
+                                  Ty::ld(gxr + 2 * H + j),
+                                  Ty::ld(gxr + 3 * H + j));
                 if (mask != nullptr) m = mask[(size_t)t * R + row];
             }
             if (vec) cp_async_wait_all();
@@ -153,8 +169,8 @@ __global__ void __launch_bounds__(1024) lstm_fwd_kernel(
             if (active) {
 #pragma unroll 4
                 for (int k = k_lo; k < k_hi; ++k) {
-                    const float hk = hr[k];
-                    const float4 wk = w_s[(size_t)k * U + u];
+                    const float hk = Ty::operand(hr[k]);
+                    const float4 wk = Ty::unpack(w_s[(size_t)k * U + u]);
                     acc.x = fmaf(hk, wk.x, acc.x);
                     acc.y = fmaf(hk, wk.y, acc.y);
                     acc.z = fmaf(hk, wk.z, acc.z);
@@ -181,12 +197,12 @@ __global__ void __launch_bounds__(1024) lstm_fwd_kernel(
             float h_new = o_ * tanhf(c_new);
             float h_out = h_new;
             if (TRAIN) {
-                float* gr = gates + ((size_t)t * R + row) * G;
-                gr[j] = i_;
-                gr[H + j] = f_;
-                gr[2 * H + j] = g_;
-                gr[3 * H + j] = o_;
-                c_seq[((size_t)t * R + row) * H + j] = c_old;
+                S* gr = gates + ((size_t)t * R + row) * G;
+                Ty::st(gr + j, i_);
+                Ty::st(gr + H + j, f_);
+                Ty::st(gr + 2 * H + j, g_);
+                Ty::st(gr + 3 * H + j, o_);
+                Ty::st(c_seq + ((size_t)t * R + row) * H + j, c_old);
             }
             if (mask != nullptr) {
                 if (!(m > 0.0f)) {
@@ -196,7 +212,7 @@ __global__ void __launch_bounds__(1024) lstm_fwd_kernel(
                 h_out = h_new * m;
             }
             *cp = c_new;
-            out[((size_t)t * R + row) * H + j] = h_out;
+            Ty::st(out + ((size_t)t * R + row) * H + j, h_out);
             __stcg(h_next + (size_t)row * H + j, h_new);
             if (t == T - 1) {
                 hT[(size_t)row * H + j] = h_new;
@@ -208,16 +224,19 @@ __global__ void __launch_bounds__(1024) lstm_fwd_kernel(
 }
 
 // Launch the whole recurrence on the grid `pick_scan_grid` chooses, with
-// the LSTM's shared memory (the weights' four gate columns, the partial
-// gates of KS - 1 slices, h of RS rows and c of the block's RB rows).
-// Fails with cudaErrorCooperativeLaunchTooLarge when no grid is
-// co-resident.  Returns cudaGetLastError() after the launch.
-template <bool TRAIN>
+// the LSTM's shared memory (the weights' four gate columns, in the
+// variant's element type, the partial gates of KS - 1 slices, h of RS rows
+// and c of the block's RB rows).  Fails with
+// cudaErrorCooperativeLaunchTooLarge when no grid is co-resident.  Returns
+// cudaGetLastError() after the launch.
+template <bool TRAIN, bool BF16>
 int launch_fwd(const void* gx, const void* w, const void* mask,
                const void* h0, const void* c0, void* out, void* c_seq,
                void* gates, void* hT, void* cT, void* hbuf, int T, int D,
                int Bd, int H, int device, void* stream) {
-    const void* kernel = (const void*)lstm_fwd_kernel<TRAIN>;
+    using S = typename ScanTypes<BF16>::S;
+    using W4 = typename ScanTypes<BF16>::W4;
+    const void* kernel = (const void*)lstm_fwd_kernel<TRAIN, BF16>;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return err;
     int n_sm = 0, max_smem = 0, coop = 0;
@@ -226,9 +245,9 @@ int launch_fwd(const void* gx, const void* w, const void* mask,
     cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
     if (!coop) return cudaErrorNotSupported;
     const auto smem_bytes = [H](int U, int RB, int RS, int KS) {
-        return sizeof(float) * ((size_t)H * U * 4
-                                + (size_t)(KS - 1) * RS * U * 4
-                                + (size_t)RS * H + (size_t)RB * U);
+        return sizeof(W4) * (size_t)H * U
+               + sizeof(float) * ((size_t)(KS - 1) * RS * U * 4
+                                  + (size_t)RS * H + (size_t)RB * U);
     };
     ScanGrid best;
     err = pick_scan_grid(kernel, D, Bd, H, H, n_sm, max_smem, smem_bytes,
@@ -237,14 +256,14 @@ int launch_fwd(const void* gx, const void* w, const void* mask,
     if (best.blocks == 0) return cudaErrorCooperativeLaunchTooLarge;
     int vec = H % 4 == 0 && reinterpret_cast<uintptr_t>(h0) % 16 == 0
               && reinterpret_cast<uintptr_t>(hbuf) % 16 == 0;
-    const float* gx_ = static_cast<const float*>(gx);
+    const S* gx_ = static_cast<const S*>(gx);
     const float* w_ = static_cast<const float*>(w);
     const float* mask_ = static_cast<const float*>(mask);
     const float* h0_ = static_cast<const float*>(h0);
     const float* c0_ = static_cast<const float*>(c0);
-    float* out_ = static_cast<float*>(out);
-    float* c_seq_ = static_cast<float*>(c_seq);
-    float* gates_ = static_cast<float*>(gates);
+    S* out_ = static_cast<S*>(out);
+    S* c_seq_ = static_cast<S*>(c_seq);
+    S* gates_ = static_cast<S*>(gates);
     float* hT_ = static_cast<float*>(hT);
     float* cT_ = static_cast<float*>(cT);
     float* hbuf_ = static_cast<float*>(hbuf);
@@ -271,8 +290,9 @@ int lstm_cell_scan_fwd(const void* gx, const void* w, const void* mask,
                        const void* h0, const void* c0, void* out, void* hT,
                        void* cT, void* hbuf, int T, int D, int Bd, int H,
                        int device, void* stream) {
-    return launch_fwd<false>(gx, w, mask, h0, c0, out, nullptr, nullptr, hT,
-                             cT, hbuf, T, D, Bd, H, device, stream);
+    return launch_fwd<false, false>(gx, w, mask, h0, c0, out, nullptr,
+                                    nullptr, hT, cT, hbuf, T, D, Bd, H,
+                                    device, stream);
 }
 
 // Training forward: also c_seq (T, R, H) and gates (T, R, 4H).
@@ -281,8 +301,30 @@ int lstm_cell_scan_fwd_train(const void* gx, const void* w, const void* mask,
                              void* c_seq, void* gates, void* hT, void* cT,
                              void* hbuf, int T, int D, int Bd, int H,
                              int device, void* stream) {
-    return launch_fwd<true>(gx, w, mask, h0, c0, out, c_seq, gates, hT, cT,
-                            hbuf, T, D, Bd, H, device, stream);
+    return launch_fwd<true, false>(gx, w, mask, h0, c0, out, c_seq, gates,
+                                   hT, cT, hbuf, T, D, Bd, H, device,
+                                   stream);
+}
+
+// The bf16 variants: gx, out (and c_seq, gates) bf16; w, mask, h0, c0,
+// hT, cT float32; products of bf16-rounded operands summed in float32.
+int lstm_cell_scan_fwd_bf16(const void* gx, const void* w, const void* mask,
+                            const void* h0, const void* c0, void* out,
+                            void* hT, void* cT, void* hbuf, int T, int D,
+                            int Bd, int H, int device, void* stream) {
+    return launch_fwd<false, true>(gx, w, mask, h0, c0, out, nullptr,
+                                   nullptr, hT, cT, hbuf, T, D, Bd, H,
+                                   device, stream);
+}
+
+int lstm_cell_scan_fwd_train_bf16(const void* gx, const void* w,
+                                  const void* mask, const void* h0,
+                                  const void* c0, void* out, void* c_seq,
+                                  void* gates, void* hT, void* cT,
+                                  void* hbuf, int T, int D, int Bd, int H,
+                                  int device, void* stream) {
+    return launch_fwd<true, true>(gx, w, mask, h0, c0, out, c_seq, gates,
+                                  hT, cT, hbuf, T, D, Bd, H, device, stream);
 }
 
 }  // extern "C"

@@ -33,6 +33,17 @@
 // sync: it writes dgx[t-1] while slower blocks may still read dgx[t].
 //
 // Masked steps (mask 0): dz is 0 and dh, dc pass through unchanged.
+//
+// bf16 (`BF16`, the JAX package's `compute_dtype='bfloat16'` with bf16
+// streams): the gates, c_seq and d_out are read as bf16 and widened
+// (`ScanTypes<true>`, lstm_common.cuh); dz is stored to dgx rounded to
+// bf16, and the product reads that bf16 dz back, so dh_{t-1} =
+// bf16(dz) @ bf16(W_hh)^T, each product exact in float32 and summed in
+// float32, as the Pallas kernel's `_dir_matmul(..., cast=bf16)`; W_hh's
+// rows are rounded to bf16 as they are staged (half the shared memory), as
+// are the staged dz rows (four columns in 8 bytes; 16-byte copies when H is
+// even, 8-byte loads through L2 otherwise).  dh, dc and dh0, dc0 stay
+// float32.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -50,16 +61,26 @@ namespace {
 // direction d = b / (n_ub * n_rb); rows [rb * RB, min(Bd, (rb + 1) * RB))
 // of its direction.  In the product, thread tid: K slice ks = tid / P, pair
 // p = tid % P (row p / U of the chunk, unit p % U), P = RS * U.
-// Shared memory: w_s (H, U) of float4 (columns 4k..4k+3 of unit u's row) |
-// dz_s (RS, H) of float4 | red (KS - 1, P) | dh_s (RB, U) | dc_s (RB, U).
+// Shared memory: w_s (H, U) of W4 (columns 4k..4k+3 of unit u's row) |
+// dz_s (RS, H) of W4 | red (KS - 1, P) | dh_s (RB, U) | dc_s (RB, U).
+// vec: dz rows copy 16 bytes at a time (always for float32; for bf16 when
+// H is even and dgx 16-byte aligned), else 8 bytes (one W4) at a time.
+template <bool BF16>
 __global__ void __launch_bounds__(1024) lstm_bwd_kernel(
-        const float* __restrict__ gates, const float* __restrict__ c_seq,
+        const typename ScanTypes<BF16>::S* __restrict__ gates,
+        const typename ScanTypes<BF16>::S* __restrict__ c_seq,
         const float* __restrict__ w, const float* __restrict__ mask,
-        const float* __restrict__ dout, const float* __restrict__ dhT,
-        const float* __restrict__ dcT, float* dgx,
+        const typename ScanTypes<BF16>::S* __restrict__ dout,
+        const float* __restrict__ dhT,
+        const float* __restrict__ dcT, typename ScanTypes<BF16>::S* dgx,
         float* __restrict__ dh0, float* __restrict__ dc0,
         int T, int Bd, int H, int U, int n_ub, int n_rb, int RB, int RS,
-        int KS) {
+        int KS, int vec) {
+    using Ty = ScanTypes<BF16>;
+    using S = typename Ty::S;
+    using W4 = typename Ty::W4;
+    // W4 slots per 16-byte copy
+    constexpr int kPerCopy = 16 / sizeof(W4);
     cg::grid_group grid = cg::this_grid();
     extern __shared__ float4 smem4[];
     const int ub = blockIdx.x % n_ub;
@@ -71,8 +92,8 @@ __global__ void __launch_bounds__(1024) lstm_bwd_kernel(
     const int r_lo = rb * RB;
     const int r_hi = min(Bd, r_lo + RB);
     const int n_own = (r_hi - r_lo) * U;                  // (row, unit) pairs
-    float4* w_s = smem4;                                  // (H, U)
-    float4* dz_s = smem4 + (size_t)H * U;                 // (RS, H)
+    W4* w_s = reinterpret_cast<W4*>(smem4);               // (H, U)
+    W4* dz_s = w_s + (size_t)H * U;                       // (RS, H)
     float* red = reinterpret_cast<float*>(dz_s + (size_t)RS * H);
     float* dh_s = red + (size_t)(KS - 1) * P;             // (RB, U)
     float* dc_s = dh_s + (size_t)RB * U;                  // (RB, U)
@@ -90,13 +111,12 @@ __global__ void __launch_bounds__(1024) lstm_bwd_kernel(
     // stage the rows of W_hh[d] that belong to this block's units; units
     // past H are zero
     const float* wd = w + (size_t)d * H * G;
-    float* w_sf = reinterpret_cast<float*>(w_s);
     for (int idx = tid; idx < U * G; idx += nthreads) {
         const int uu = idx / G;
         const int c = idx % G;
         const int jj = ub * U + uu;
         const float v = jj < H ? wd[(size_t)jj * G + c] : 0.0f;
-        w_sf[((size_t)(c / 4) * U + uu) * 4 + c % 4] = v;
+        Ty::set(w_s + (size_t)(c / 4) * U + uu, c % 4, v);
     }
     for (int q = tid; q < n_own; q += nthreads) {
         const int jj = ub * U + q % U;
@@ -113,16 +133,16 @@ __global__ void __launch_bounds__(1024) lstm_bwd_kernel(
             const int jj = ub * U + q % U;
             if (jj >= H) continue;
             const size_t at = (size_t)t * R + row0 + q / U;
-            const float* gr = gates + at * G;
-            const float i_ = gr[jj];
-            const float f_ = gr[H + jj];
-            const float g_ = gr[2 * H + jj];
-            const float o_ = gr[3 * H + jj];
-            const float c_prev = c_seq[at * H + jj];
+            const S* gr = gates + at * G;
+            const float i_ = Ty::ld(gr + jj);
+            const float f_ = Ty::ld(gr + H + jj);
+            const float g_ = Ty::ld(gr + 2 * H + jj);
+            const float o_ = Ty::ld(gr + 3 * H + jj);
+            const float c_prev = Ty::ld(c_seq + at * H + jj);
             const float m = mask != nullptr ? mask[at] : 1.0f;
             const float c_t = f_ * c_prev + i_ * g_;
             const float tanh_c = tanhf(c_t);
-            const float dh = dh_s[q] + dout[at * H + jj];
+            const float dh = dh_s[q] + Ty::ld(dout + at * H + jj);
             const float dc_in = dc_s[q];
             const float d_o = dh * tanh_c;
             const float dc = dc_in + dh * o_ * (1.0f - tanh_c * tanh_c);
@@ -130,11 +150,11 @@ __global__ void __launch_bounds__(1024) lstm_bwd_kernel(
             const float dzf = dc * c_prev * f_ * (1.0f - f_) * m;
             const float dzg = dc * i_ * (1.0f - g_ * g_) * m;
             const float dzo = d_o * o_ * (1.0f - o_) * m;
-            float* dr = dgx + at * G;
-            __stcg(dr + jj, dzi);
-            __stcg(dr + H + jj, dzf);
-            __stcg(dr + 2 * H + jj, dzg);
-            __stcg(dr + 3 * H + jj, dzo);
+            S* dr = dgx + at * G;
+            Ty::stcg(dr + jj, dzi);
+            Ty::stcg(dr + H + jj, dzf);
+            Ty::stcg(dr + 2 * H + jj, dzg);
+            Ty::stcg(dr + 3 * H + jj, dzo);
             dc_s[q] = m > 0.0f ? dc * f_ : dc_in;
         }
     };
@@ -144,11 +164,19 @@ __global__ void __launch_bounds__(1024) lstm_bwd_kernel(
         grid.sync();  // dz[t] of every block is in L2
         for (int rc = 0; rc < r_hi - r_lo; rc += RS) {
             const int nr = min(RS, r_hi - r_lo - rc);
-            const float4* src = reinterpret_cast<const float4*>(
+            const W4* src = reinterpret_cast<const W4*>(
                 dgx + ((size_t)t * R + row0 + rc) * G);
             if (rc > 0) __syncthreads();  // the previous chunk's readers
-            for (int idx = tid; idx < nr * H; idx += nthreads) {
-                cp_async16_cg(dz_s + idx, src + idx);
+            if (vec) {
+                for (int idx = tid; idx < nr * H / kPerCopy;
+                     idx += nthreads) {
+                    cp_async16_cg(dz_s + kPerCopy * idx,
+                                  src + kPerCopy * idx);
+                }
+            } else {
+                for (int idx = tid; idx < nr * H; idx += nthreads) {
+                    dz_s[idx] = __ldcg(src + idx);
+                }
             }
             const int r = rc + p / U;                     // own row index
             const bool active = ks < KS && p < nr * U && j < H;
@@ -157,18 +185,18 @@ __global__ void __launch_bounds__(1024) lstm_bwd_kernel(
             if (first && mask != nullptr) {
                 m = mask[(size_t)t * R + row0 + r];
             }
-            cp_async_wait_all();
+            if (vec) cp_async_wait_all();
             __syncthreads();
             float acc = 0.f;
             if (active) {
                 // four independent chains (the four columns of a float4),
                 // summed in a fixed order
-                const float4* dzr = dz_s + (size_t)(r - rc) * H;
+                const W4* dzr = dz_s + (size_t)(r - rc) * H;
                 float4 a4 = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll 4
                 for (int k = k_lo; k < k_hi; ++k) {
-                    const float4 z = dzr[k];
-                    const float4 wk = w_s[(size_t)k * U + u];
+                    const float4 z = Ty::unpack(dzr[k]);
+                    const float4 wk = Ty::unpack(w_s[(size_t)k * U + u]);
                     a4.x = fmaf(z.x, wk.x, a4.x);
                     a4.y = fmaf(z.y, wk.y, a4.y);
                     a4.z = fmaf(z.z, wk.z, a4.z);
@@ -196,9 +224,11 @@ __global__ void __launch_bounds__(1024) lstm_bwd_kernel(
 
 // The grid of a launch: `pick_scan_grid` (lstm_common.cuh), as the
 // forward's, with this kernel's shared memory: W_hh's rows for U units (4H
-// columns), dz of RS rows, the partial sums of KS - 1 slices, and dh, dc
-// of the block's RB rows.
+// columns) and dz of RS rows, both in the variant's element type, the
+// partial sums of KS - 1 slices, and dh, dc of the block's RB rows.
+template <bool BF16>
 cudaError_t pick_grid(int D, int Bd, int H, int device, ScanGrid* best) {
+    using W4 = typename ScanTypes<BF16>::W4;
     int n_sm = 0, max_smem = 0, coop = 0;
     cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
     cudaDeviceGetAttribute(&max_smem,
@@ -206,25 +236,70 @@ cudaError_t pick_grid(int D, int Bd, int H, int device, ScanGrid* best) {
     cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
     if (!coop) return cudaErrorNotSupported;
     const auto smem_bytes = [H](int U, int RB, int RS, int KS) {
-        return sizeof(float) * ((size_t)H * U * 4 + (size_t)RS * H * 4
-                                + (size_t)(KS - 1) * RS * U
-                                + 2 * (size_t)RB * U);
+        return sizeof(W4) * ((size_t)H * U + (size_t)RS * H)
+               + sizeof(float) * ((size_t)(KS - 1) * RS * U
+                                  + 2 * (size_t)RB * U);
     };
-    return pick_scan_grid((const void*)lstm_bwd_kernel, D, Bd, H, H, n_sm,
-                          max_smem, smem_bytes, best);
+    return pick_scan_grid((const void*)lstm_bwd_kernel<BF16>, D, Bd, H, H,
+                          n_sm, max_smem, smem_bytes, best);
+}
+
+// Launch the whole adjoint recurrence on the grid `pick_grid` chooses.
+// Fails with cudaErrorCooperativeLaunchTooLarge when no grid is
+// co-resident, and with cudaErrorInvalidValue when dgx is not aligned to a
+// W4 slot (float32: 16 bytes, as its copies need; bf16: 8 bytes).
+// Returns cudaGetLastError() after the launch.
+template <bool BF16>
+int launch_bwd(const void* gates, const void* c_seq, const void* w,
+               const void* mask, const void* dout, const void* dhT,
+               const void* dcT, void* dgx, void* dh0, void* dc0, int T,
+               int D, int Bd, int H, int device, void* stream) {
+    using S = typename ScanTypes<BF16>::S;
+    using W4 = typename ScanTypes<BF16>::W4;
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return err;
+    const uintptr_t at = reinterpret_cast<uintptr_t>(dgx);
+    if (at % sizeof(W4) != 0) return cudaErrorInvalidValue;
+    int vec = at % 16 == 0 && (4 * H * sizeof(S)) % 16 == 0;
+    ScanGrid best;
+    err = pick_grid<BF16>(D, Bd, H, device, &best);
+    if (err != cudaSuccess) return err;
+    if (best.blocks == 0) return cudaErrorCooperativeLaunchTooLarge;
+    const S* gates_ = static_cast<const S*>(gates);
+    const S* c_seq_ = static_cast<const S*>(c_seq);
+    const float* w_ = static_cast<const float*>(w);
+    const float* mask_ = static_cast<const float*>(mask);
+    const S* dout_ = static_cast<const S*>(dout);
+    const float* dhT_ = static_cast<const float*>(dhT);
+    const float* dcT_ = static_cast<const float*>(dcT);
+    S* dgx_ = static_cast<S*>(dgx);
+    float* dh0_ = static_cast<float*>(dh0);
+    float* dc0_ = static_cast<float*>(dc0);
+    void* args[] = {&gates_, &c_seq_, &w_, &mask_, &dout_, &dhT_, &dcT_,
+                    &dgx_, &dh0_, &dc0_, &T, &Bd, &H, &best.U, &best.n_ub,
+                    &best.n_rb, &best.RB, &best.RS, &best.KS, &vec};
+    err = cudaLaunchCooperativeKernel(
+        (const void*)lstm_bwd_kernel<BF16>, dim3(best.blocks),
+        dim3(best.threads), args, best.smem,
+        static_cast<cudaStream_t>(stream));
+    if (err != cudaSuccess) return err;
+    return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// The grid a launch at (D, Bd, H) takes: out[0..5] = U, n_rb, RB, RS, KS,
-// blocks (blocks 0 when none is co-resident).
-int lstm_cell_scan_bwd_grid(int D, int Bd, int H, int device, void* out) {
+// The grid a launch of the float32 (bf16 = 0) or bf16 variant at
+// (D, Bd, H) takes: out[0..5] = U, n_rb, RB, RS, KS, blocks (blocks 0
+// when none is co-resident).
+int lstm_cell_scan_bwd_grid(int D, int Bd, int H, int bf16, int device,
+                            void* out) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return err;
     ScanGrid best;
-    err = pick_grid(D, Bd, H, device, &best);
+    err = bf16 ? pick_grid<true>(D, Bd, H, device, &best)
+               : pick_grid<false>(D, Bd, H, device, &best);
     if (err != cudaSuccess) return err;
     int* o = static_cast<int*>(out);
     o[0] = best.U;
@@ -236,42 +311,26 @@ int lstm_cell_scan_bwd_grid(int D, int Bd, int H, int device, void* out) {
     return cudaSuccess;
 }
 
-// Launch the whole adjoint recurrence on the grid `pick_grid` chooses.
-// Fails with cudaErrorCooperativeLaunchTooLarge when no grid is
-// co-resident, and with cudaErrorInvalidValue when dgx is not 16-byte
-// aligned.  Returns cudaGetLastError() after the launch.
+// The adjoint recurrence, float32 streams.
 int lstm_cell_scan_bwd(const void* gates, const void* c_seq, const void* w,
                        const void* mask, const void* dout, const void* dhT,
                        const void* dcT, void* dgx, void* dh0, void* dc0,
                        int T, int D, int Bd, int H, int device,
                        void* stream) {
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return err;
-    if (reinterpret_cast<uintptr_t>(dgx) % 16 != 0) {
-        return cudaErrorInvalidValue;
-    }
-    ScanGrid best;
-    err = pick_grid(D, Bd, H, device, &best);
-    if (err != cudaSuccess) return err;
-    if (best.blocks == 0) return cudaErrorCooperativeLaunchTooLarge;
-    const float* gates_ = static_cast<const float*>(gates);
-    const float* c_seq_ = static_cast<const float*>(c_seq);
-    const float* w_ = static_cast<const float*>(w);
-    const float* mask_ = static_cast<const float*>(mask);
-    const float* dout_ = static_cast<const float*>(dout);
-    const float* dhT_ = static_cast<const float*>(dhT);
-    const float* dcT_ = static_cast<const float*>(dcT);
-    float* dgx_ = static_cast<float*>(dgx);
-    float* dh0_ = static_cast<float*>(dh0);
-    float* dc0_ = static_cast<float*>(dc0);
-    void* args[] = {&gates_, &c_seq_, &w_, &mask_, &dout_, &dhT_, &dcT_,
-                    &dgx_, &dh0_, &dc0_, &T, &Bd, &H, &best.U, &best.n_ub,
-                    &best.n_rb, &best.RB, &best.RS, &best.KS};
-    err = cudaLaunchCooperativeKernel(
-        (const void*)lstm_bwd_kernel, dim3(best.blocks), dim3(best.threads),
-        args, best.smem, static_cast<cudaStream_t>(stream));
-    if (err != cudaSuccess) return err;
-    return cudaGetLastError();
+    return launch_bwd<false>(gates, c_seq, w, mask, dout, dhT, dcT, dgx,
+                             dh0, dc0, T, D, Bd, H, device, stream);
+}
+
+// The bf16 variant: gates, c_seq, dout and dgx bf16; w, mask, dhT, dcT,
+// dh0, dc0 float32.
+int lstm_cell_scan_bwd_bf16(const void* gates, const void* c_seq,
+                            const void* w, const void* mask,
+                            const void* dout, const void* dhT,
+                            const void* dcT, void* dgx, void* dh0,
+                            void* dc0, int T, int D, int Bd, int H,
+                            int device, void* stream) {
+    return launch_bwd<true>(gates, c_seq, w, mask, dout, dhT, dcT, dgx, dh0,
+                            dc0, T, D, Bd, H, device, stream);
 }
 
 }  // extern "C"

@@ -1,5 +1,6 @@
 // Device and host helpers shared by the LSTM and GRU cell-scan kernels.
 #pragma once
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 __device__ __forceinline__ float sigmoidf_(float x) {
@@ -18,6 +19,62 @@ __device__ __forceinline__ void cp_async16_cg(void* smem, const void* gmem) {
 __device__ __forceinline__ void cp_async_wait_all() {
     asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
+
+// The element types of a cell-scan kernel's variant: its streams (gate
+// inputs, outputs, residuals, gate adjoints) in device memory, and four
+// neighbouring weights (or gate adjoints) as one shared-memory slot.  The
+// float32 variant keeps float32 everywhere.  The bf16 variant keeps the
+// streams and the staged weights in bf16, widens each value as it is read
+// and rounds each product operand to bf16 (round to nearest even, as
+// astype does); the products of bf16 values are exact in float32, so the
+// float32 FMAs compute what a bf16 tensor-core product with float32
+// accumulation computes.  Carries and states stay float32.
+template <bool BF16> struct ScanTypes;
+
+template <> struct ScanTypes<false> {
+    using S = float;
+    using W4 = float4;
+    static __device__ __forceinline__ float ld(const float* p) { return *p; }
+    static __device__ __forceinline__ void st(float* p, float v) { *p = v; }
+    static __device__ __forceinline__ void stcg(float* p, float v) {
+        __stcg(p, v);
+    }
+    static __device__ __forceinline__ float4 unpack(const float4& v) {
+        return v;
+    }
+    static __device__ __forceinline__ void set(float4* slot, int g,
+                                               float v) {
+        reinterpret_cast<float*>(slot)[g] = v;
+    }
+    static __device__ __forceinline__ float operand(float v) { return v; }
+};
+
+template <> struct ScanTypes<true> {
+    using S = __nv_bfloat16;
+    using W4 = uint2;  // four bf16
+    static __device__ __forceinline__ float ld(const __nv_bfloat16* p) {
+        return __bfloat162float(*p);
+    }
+    static __device__ __forceinline__ void st(__nv_bfloat16* p, float v) {
+        *p = __float2bfloat16_rn(v);
+    }
+    static __device__ __forceinline__ void stcg(__nv_bfloat16* p, float v) {
+        __stcg(p, __float2bfloat16_rn(v));
+    }
+    static __device__ __forceinline__ float4 unpack(const uint2& v) {
+        const float2 lo = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&v.x));
+        const float2 hi = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&v.y));
+        return make_float4(lo.x, lo.y, hi.x, hi.y);
+    }
+    static __device__ __forceinline__ void set(uint2* slot, int g, float v) {
+        reinterpret_cast<__nv_bfloat16*>(slot)[g] = __float2bfloat16_rn(v);
+    }
+    static __device__ __forceinline__ float operand(float v) {
+        return __bfloat162float(__float2bfloat16_rn(v));
+    }
+};
 
 // K slices per (row, unit) pair: as many as 1024 threads allow, at most 8
 inline int k_slices(int P, int K) {

@@ -69,15 +69,13 @@ class PermutationInvariantTrainingModel(Model):
             compute_dtype=None,
             round_hidden_to_mxu=False,
     ):
-        """``compute_dtype`` and ``round_hidden_to_mxu`` are the JAX
-        model's; the port computes in float32 with the logical hidden
-        width, so it takes only their defaults (None and False), which
-        is what configs of float32 runs hold."""
+        """``compute_dtype`` (None or 'bfloat16') goes to the BLSTM: bf16
+        input projections and recurrent products with float32 sums, bf16
+        streams between them; the rest of the model stays in the input's
+        dtype (see ``modules/recurrent.py``).  ``round_hidden_to_mxu`` is
+        TPU machinery (lane-padded hidden widths): the port takes only its
+        default, False."""
         super().__init__()
-        if compute_dtype is not None:
-            raise NotImplementedError(
-                f'compute_dtype={compute_dtype!r}: the port computes in '
-                'float32 only')
         if round_hidden_to_mxu:
             raise NotImplementedError(
                 'round_hidden_to_mxu=True: lane-padded checkpoints are '
@@ -88,7 +86,8 @@ class PermutationInvariantTrainingModel(Model):
         self.dropout_input = nn.Dropout(dropout_input)
         assert dropout_hidden <= 0.5, dropout_hidden
         self.blstm = LSTM(F, units, num_layers=recurrent_layers,
-                          bidirectional=True, dropout=dropout_hidden)
+                          bidirectional=True, dropout=dropout_hidden,
+                          compute_dtype=compute_dtype)
         assert dropout_linear <= 0.5, dropout_linear
         self.dropout_linear = nn.Dropout(dropout_linear)
         self.relu = nn.ReLU()

@@ -32,6 +32,20 @@ its ``bias_hh`` has to be zero, which ``migrate.to_jax_state_dict`` checks.
 On CUDA tensors the recurrence trains through the kernels too: under grad
 mode the cell scans are ``torch.autograd.Function``s whose forward and
 backward are kernels, and nothing here detaches.
+
+Precision, as in the JAX package.  The parameters are float32 masters (or,
+under the trainer's bf16 policy, bf16 casts of them); carries and final
+states are always float32, and each layer's output is cast back to the
+input's dtype, so a float32 model stays float32 outside the RNN and a bf16
+stream stays bf16.  With ``compute_dtype='bfloat16'`` the input projection
+multiplies bf16 operands with float32 sums (:func:`project`), adds the
+bias in float32 and rounds the gates once to bf16, the stream dtype of the
+cell scan, whose recurrent products are bf16 with float32 sums too.
+Without it the projection sums in float32 (bf16 inputs and weights are
+widened, which is exact) and the scan runs its float32 kernels.  The LSTM
+has both kernels on the card; the GRU's bf16 kernels are not ported yet
+(``compute_dtype='bfloat16'`` on a CUDA tensor raises), its plain version
+computes the contract on the CPU.
 """
 import math
 
@@ -40,9 +54,56 @@ import torch
 
 from padertorch_tpu_torch.ops.kernels.gru import gru_cell_scan
 from padertorch_tpu_torch.ops.kernels.lstm import (
-    lstm_cell_scan, time_groups)
+    lstm_cell_scan, matmul_f32, product_dtype, sum_outer)
 
-__all__ = ['LSTM', 'GRU']
+__all__ = ['LSTM', 'GRU', 'project']
+
+
+class _Project(torch.autograd.Function):
+    """See :func:`project`."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias):
+        n_dir, t_len, batch, _ = x.shape
+        rows = x.reshape(n_dir, t_len * batch, -1)
+        gates = matmul_f32(rows, w.transpose(1, 2)) + bias[:, None, :]
+        ctx.save_for_backward(x, w)
+        return gates.to(x.dtype).reshape(
+            n_dir, t_len, batch, -1).transpose(0, 1).reshape(
+            t_len, n_dir * batch, -1).contiguous()
+
+    @staticmethod
+    def backward(ctx, d_gates):
+        x, w = ctx.saved_tensors
+        n_dir, t_len, batch, _ = x.shape
+        dx = dw = d_bias = None
+        if ctx.needs_input_grad[1]:
+            # (D, G, F): sum over the steps and rows of d_gates_t^T x_t
+            dw = sum_outer(d_gates, x.transpose(0, 1), n_dir).to(w.dtype)
+        d_gates = d_gates.reshape(t_len, n_dir, batch, -1).transpose(
+            0, 1)                                           # (D, T, B, G)
+        if ctx.needs_input_grad[0]:
+            dx = matmul_f32(d_gates.reshape(n_dir, t_len * batch, -1),
+                            w).reshape(x.shape).to(x.dtype)
+        if ctx.needs_input_grad[2]:
+            d_bias = d_gates.float().sum(dim=(1, 2))
+        return dx, dw, d_bias
+
+
+def project(x_pair, w_ih, bias):
+    """The input projection: x_pair (D, T, B, F) and w_ih (D, G, F), both
+    of one dtype (float32, or bf16 under ``compute_dtype='bfloat16'``),
+    and a float32 bias -> gates (T, D * B, G) = x @ w_ih^T + bias in that
+    dtype.  The products are summed in float32
+    (:func:`~padertorch_tpu_torch.ops.kernels.lstm.matmul_f32`: on the card
+    one GEMM with a float32 output) and the bias added before the one
+    rounding, as the JAX package's ``preferred_element_type`` projection
+    and its cast to the stream dtype.  Its backward takes the gate
+    adjoints of that dtype: the input adjoint and the weight gradient are
+    products with float32 sums (the weight's over T * B rows by
+    :func:`~padertorch_tpu_torch.ops.kernels.lstm.sum_outer`), the bias
+    gradient a float32 sum."""
+    return _Project.apply(x_pair, w_ih, bias)
 
 
 class _RNNBase(torch.nn.Module):
@@ -54,11 +115,13 @@ class _RNNBase(torch.nn.Module):
     num_states = None
 
     def __init__(self, input_size, hidden_size, num_layers=1,
-                 bidirectional=False, dropout=0.0):
+                 bidirectional=False, dropout=0.0, compute_dtype=None):
         """``dropout`` acts between layers in training mode; set
         ``self.generator`` to a ``torch.Generator`` to draw its masks from
-        that instead of the global generator."""
+        that instead of the global generator.  ``compute_dtype``: None or
+        'bfloat16' (see the module docstring)."""
         super().__init__()
+        self.compute_dtype = product_dtype(compute_dtype)
         self.input_size = input_size
         self.hidden_size = hidden_size
         self.num_layers = num_layers
@@ -141,25 +204,17 @@ class _RNNBase(torch.nn.Module):
             mask_t = self._mask(seq_lens, t_len, x.device)
         if state is not None and self.num_states == 1:
             state = (state,)
-        out_t = x.transpose(0, 1).to(torch.float32)         # (T, B, F)
+        in_dtype = x.dtype
+        out_t = x.transpose(0, 1)                           # (T, B, F)
         finals = [[] for _ in range(self.num_states)]
         for layer in range(self.num_layers):
             w_ih, w_hh, bias = self._layer_weights(layer)
+            w_hh = w_hh.float()
             x_dir = [out_t, out_t.flip(0)][:n_dir]
             x_pair = torch.stack(x_dir)                     # (D, T, B, F)
-            # the steps in groups s of u, and one (expanded) copy of the
-            # weights per group: the same product forward, and in backward
-            # the weight gradient becomes a batch of partial sums (see
-            # time_groups) that the expand's adjoint adds up
-            groups = time_groups(t_len, *w_ih.shape[1:], n_dir, x.device) \
-                if w_ih.requires_grad and torch.is_grad_enabled() else 1
-            gates_x = torch.einsum(
-                'dsubf,sdgf->sudbg',
-                x_pair.reshape(n_dir, groups, t_len // groups, batch, -1),
-                w_ih.expand(groups, *w_ih.shape))
-            gates_x = (gates_x.reshape(t_len, n_dir, batch, -1)
-                       + bias[None, :, None, :]).reshape(
-                t_len, n_dir * batch, self.gates * hdim).contiguous()
+            operand = self.compute_dtype or torch.float32
+            gates_x = project(x_pair.to(operand), w_ih.to(operand),
+                              bias.float())
             if state is None:
                 h0 = x.new_zeros((n_dir * batch, hdim), dtype=torch.float32)
                 init = (h0,) + tuple(torch.zeros_like(h0) for _ in
@@ -172,7 +227,7 @@ class _RNNBase(torch.nn.Module):
             outs = [o_t[:, :batch]]
             if n_dir == 2:
                 outs.append(o_t[:, batch:].flip(0))
-            out_t = torch.cat(outs, dim=-1)
+            out_t = torch.cat(outs, dim=-1).to(in_dtype)
             for collected, s in zip(finals, last):
                 collected.append(s.reshape(n_dir, batch, hdim))
             if self.dropout and self.training \
@@ -198,7 +253,8 @@ class LSTM(_RNNBase):
     num_states = 2
 
     def _scan(self, gates_x, w_hh, mask_t, init):
-        o_t, h_t, c_t = lstm_cell_scan(gates_x, w_hh, mask_t, *init)
+        o_t, h_t, c_t = lstm_cell_scan(gates_x, w_hh, mask_t, *init,
+                                       compute_dtype=self.compute_dtype)
         return o_t, (h_t, c_t)
 
 
@@ -209,5 +265,6 @@ class GRU(_RNNBase):
     num_states = 1
 
     def _scan(self, gates_x, w_hh, mask_t, init):
-        o_t, h_t = gru_cell_scan(gates_x, w_hh, mask_t, *init)
+        o_t, h_t = gru_cell_scan(gates_x, w_hh, mask_t, *init,
+                                 compute_dtype=self.compute_dtype)
         return o_t, (h_t,)

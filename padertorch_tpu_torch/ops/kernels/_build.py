@@ -35,7 +35,10 @@ _SIGNATURES = {
     'lstm_cell_scan_fwd': (_P,) * 9 + (_I,) * 5 + (_P,),
     'lstm_cell_scan_fwd_train': (_P,) * 11 + (_I,) * 5 + (_P,),
     'lstm_cell_scan_bwd': (_P,) * 10 + (_I,) * 5 + (_P,),
-    'lstm_cell_scan_bwd_grid': (_I,) * 4 + (_P,),
+    'lstm_cell_scan_fwd_bf16': (_P,) * 9 + (_I,) * 5 + (_P,),
+    'lstm_cell_scan_fwd_train_bf16': (_P,) * 11 + (_I,) * 5 + (_P,),
+    'lstm_cell_scan_bwd_bf16': (_P,) * 10 + (_I,) * 5 + (_P,),
+    'lstm_cell_scan_bwd_grid': (_I,) * 5 + (_P,),
     'gru_cell_scan_fwd': (_P,) * 7 + (_I,) * 5 + (_P,),
     'gru_cell_scan_fwd_train': (_P,) * 10 + (_I,) * 5 + (_P,),
     'gru_cell_scan_bwd': (_P,) * 10 + (_I,) * 5 + (_P,),

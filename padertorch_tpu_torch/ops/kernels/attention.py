@@ -14,8 +14,10 @@ log-sum-exp kept; when a gradient is asked for, through
 :class:`FlashAttention`, the same forward writing the log-sum-exp and, in
 ``backward``, the dk/dv and dq kernels of ``csrc/flash_attention_bwd.cu``.
 ``delta = sum(dO * O, -1)`` is one elementwise product and sum outside the
-kernels, as in the JAX package.  float32 only: the bf16 operand path waits
-for ``padertorch_tpu/train/precision.py`` (ROADMAP.md).
+kernels, as in the JAX package.  float32 only: the kernels' bf16 operands
+(``padertorch_tpu/ops/pallas/attention.py`` under the bf16 policy) are not
+ported yet (ROADMAP.md); ``use_flash='auto'`` takes the dense path for
+bf16.
 
 The kernels take head sizes 16, 32, 64 and 128; another head size up to
 128 is zero-padded to the next of these inside the wrapper (zeros change
@@ -146,8 +148,9 @@ def _check(q, k, v):
         if x.dtype != torch.float32:
             raise TypeError(
                 f'{name} is {x.dtype}: the attention kernels take float32 '
-                'only; the bf16 operand path waits for '
-                'padertorch_tpu/train/precision.py (ROADMAP.md)')
+                'only; their bf16 operands '
+                '(padertorch_tpu/ops/pallas/attention.py) are not ported '
+                'yet (ROADMAP.md)')
         if x.device != q.device:
             raise ValueError(f'{name} is on {x.device}, q on {q.device}')
     b, h, tq, d = q.shape

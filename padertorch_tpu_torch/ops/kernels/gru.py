@@ -50,7 +50,7 @@ import torch
 
 from padertorch_tpu_torch.ops.kernels import _build
 from padertorch_tpu_torch.ops.kernels.lstm import (
-    _check, _norm_w, sum_outer)
+    _check, _norm_w, _recurrent_product, product_dtype, sum_outer)
 
 __all__ = ['gru_cell_scan', 'gru_cell_scan_plain', 'GRUCellScan',
            'gru_cell_scan_train_plain', 'gru_cell_scan_bwd_plain',
@@ -69,7 +69,7 @@ def _cell(gx, gh, h, hdim):
     return r, z, n, gh_n, (1 - z) * n + z * h
 
 
-def gru_cell_scan_train_plain(gates_x, w_hh, mask, h0):
+def gru_cell_scan_train_plain(gates_x, w_hh, mask, h0, compute_dtype=None):
     """Plain PyTorch version of the training forward kernel.
 
     Returns ``(out, acts, gh_n, h_prev, h_T)``: beside the outputs of
@@ -77,34 +77,39 @@ def gru_cell_scan_train_plain(gates_x, w_hh, mask, h0):
     r, z, n and ``gh_n`` (T, rows, H) the n block of ``h_prev @ W_hh``, both
     as computed (also on a masked step), and ``h_prev`` (T, rows, H) the
     state every step started from (through padding, the frozen state).
+    ``out``, ``acts`` and ``gh_n`` are in the stream dtype
+    (``gates_x.dtype``), the states float32; ``compute_dtype='bfloat16'``
+    rounds the recurrent product's operands to bf16 (float32 sums), as the
+    LSTM's plain versions do.
     """
     w, n_dir = _norm_w(w_hh)
-    t_len, rows, g3 = gates_x.shape
-    hdim = g3 // 3
-    h = h0
+    cd = product_dtype(compute_dtype)
+    stream = gates_x.dtype
+    hdim = gates_x.shape[-1] // 3
+    h = h0.float()
     outs, acts, ghns, h_prevs = [], [], [], []
-    for t in range(t_len):
-        gh = torch.bmm(h.reshape(n_dir, rows // n_dir, hdim), w)
-        r, z, n, gh_n, h_new = _cell(gates_x[t], gh.reshape(rows, g3), h,
-                                     hdim)
+    for t in range(gates_x.shape[0]):
+        gh = _recurrent_product(h, w, n_dir, cd)
+        r, z, n, gh_n, h_new = _cell(gates_x[t].float(), gh, h, hdim)
         if mask is None:
             h_out = h_new
         else:
             m = mask[t][:, None]
             h_new = torch.where(m > 0, h_new, h)
             h_out = h_new * m
-        acts.append(torch.cat([r, z, n], dim=-1))
-        ghns.append(gh_n)
+        acts.append(torch.cat([r, z, n], dim=-1).to(stream))
+        ghns.append(gh_n.to(stream))
         h_prevs.append(h)
-        outs.append(h_out)
+        outs.append(h_out.to(stream))
         h = h_new
     return (torch.stack(outs), torch.stack(acts), torch.stack(ghns),
             torch.stack(h_prevs), h)
 
 
-def gru_cell_scan_plain(gates_x, w_hh, mask, h0):
+def gru_cell_scan_plain(gates_x, w_hh, mask, h0, compute_dtype=None):
     """Plain PyTorch version of :func:`gru_cell_scan` (same contract)."""
-    out, _, _, _, h_t = gru_cell_scan_train_plain(gates_x, w_hh, mask, h0)
+    out, _, _, _, h_t = gru_cell_scan_train_plain(gates_x, w_hh, mask, h0,
+                                                  compute_dtype)
     return out, h_t
 
 
@@ -354,7 +359,7 @@ class GRUCellScan(torch.autograd.Function):
         return dgx, recurrent_weight_grad(dgh, h_prev, n_dir), None, dh0
 
 
-def gru_cell_scan(gates_x, w_hh, mask, h0):
+def gru_cell_scan(gates_x, w_hh, mask, h0, compute_dtype=None):
     """Run the GRU cell recurrence over time.
 
     Args:
@@ -366,6 +371,10 @@ def gru_cell_scan(gates_x, w_hh, mask, h0):
         mask: (T, rows) validity mask or None; where it is 0, h keeps its
             value and the output is 0.
         h0: (rows, H) initial state.
+        compute_dtype: None, or 'bfloat16' (bf16 recurrent products, bf16
+            ``gates_x``): on a CPU tensor the plain version computes it; the
+            kernels' bf16 variants are not ported yet, so a CUDA tensor
+            raises.
 
     Returns:
         (out (T, rows, H), h_T).  CPU tensors run the plain version; CUDA
@@ -379,9 +388,14 @@ def gru_cell_scan(gates_x, w_hh, mask, h0):
     """
     w, n_dir = _norm_w(w_hh)
     if gates_x.device.type == 'cpu':
-        return gru_cell_scan_plain(gates_x, w_hh, mask, h0)
+        return gru_cell_scan_plain(gates_x, w_hh, mask, h0, compute_dtype)
     if gates_x.device.type != 'cuda':
         raise ValueError(f'no kernel for device {gates_x.device}')
+    if product_dtype(compute_dtype) is not None:
+        raise NotImplementedError(
+            f'gru_cell_scan with compute_dtype={compute_dtype!r} on the '
+            'card: the bf16 variants of the GRU kernels '
+            '(padertorch_tpu/ops/pallas/gru.py) are not ported yet')
     _check(gates_x, w, n_dir, mask, h0, n_gates=3)
     if torch.is_grad_enabled() and any(
             x.requires_grad for x in (gates_x, w, h0)):

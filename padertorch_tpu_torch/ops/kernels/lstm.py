@@ -20,6 +20,18 @@ kernels against them.
 The backward is exact for contiguous-valid masks (suffix padding, or
 prefix padding as the flipped direction of a bidirectional layer has it),
 which is what sequence lengths produce.
+
+bf16, as in the JAX package, along two axes.  The *streams* (``out``, the
+training residuals ``gates`` and ``c_seq``, and ``dgates_x``) follow
+``gates_x.dtype``; ``h0``, ``c0``, the carries and the final states stay
+float32.  ``compute_dtype='bfloat16'`` makes the recurrent *products*
+bf16: ``bf16(h) @ bf16(W_hh)`` forward and ``bf16(dz) @ bf16(W_hh)^T``
+backward, each summed in float32; ``dW_hh`` sums ``bf16(h_{t-1})^T
+bf16(dz)`` in float32 and is float32.  The plain versions take all four
+combinations; the kernels take float32 streams with float32 products, and
+bfloat16 streams with bfloat16 products (``csrc/lstm_cell_scan.cu`` and
+``csrc/lstm_cell_scan_bwd.cu``, ``BF16`` variants, which stage ``W_hh``
+in shared memory as bf16), and raise for the other two.
 """
 import ctypes
 
@@ -29,7 +41,8 @@ from padertorch_tpu_torch.ops.kernels import _build
 
 __all__ = ['lstm_cell_scan', 'lstm_cell_scan_plain', 'LSTMCellScan',
            'lstm_cell_scan_train_plain', 'lstm_cell_scan_bwd_plain',
-           'recurrent_weight_grad', 'sum_outer', 'time_groups']
+           'recurrent_weight_grad', 'sum_outer', 'time_groups',
+           'product_dtype', 'matmul_f32']
 
 
 def _norm_w(w_hh):
@@ -39,47 +52,45 @@ def _norm_w(w_hh):
     return w_hh, w_hh.shape[0]
 
 
-def lstm_cell_scan_plain(gates_x, w_hh, mask, h0, c0):
-    """Plain PyTorch version of :func:`lstm_cell_scan` (same contract)."""
+def product_dtype(compute_dtype):
+    """``compute_dtype`` (None, 'bfloat16', a torch dtype) -> None or
+    ``torch.bfloat16``: the dtype the recurrent products round their
+    operands to."""
+    if compute_dtype is None:
+        return None
+    dtype = (compute_dtype if isinstance(compute_dtype, torch.dtype)
+             else getattr(torch, str(compute_dtype)))
+    if dtype == torch.float32:
+        return None
+    if dtype != torch.bfloat16:
+        raise ValueError(f'compute_dtype={compute_dtype!r}: float32 or '
+                         'bfloat16')
+    return dtype
+
+
+def _rounded(x, dtype):
+    """x rounded to ``dtype`` (round to nearest even) and widened to
+    float32 again; x widened alone where ``dtype`` is None."""
+    return (x if dtype is None else x.to(dtype)).float()
+
+
+def _recurrent_product(h, w, n_dir, cd):
+    """(rows, K) @ per-direction (D, K, N) -> (rows, N), float32 sums of
+    the operands rounded to ``cd``."""
+    rows, k = h.shape
+    return torch.bmm(_rounded(h, cd).reshape(n_dir, rows // n_dir, k),
+                     _rounded(w, cd)).reshape(rows, -1)
+
+
+def _scan_plain(gates_x, w_hh, mask, h0, c0, compute_dtype, residuals):
     w, n_dir = _norm_w(w_hh)
-    t_len, rows, g4 = gates_x.shape
-    hdim = g4 // 4
-    h, c = h0, c0
-    outs = []
-    for t in range(t_len):
-        gh = torch.bmm(h.reshape(n_dir, rows // n_dir, hdim), w)
-        gates = gates_x[t] + gh.reshape(rows, g4)
-        i, f, g, o = gates.chunk(4, dim=-1)
-        c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-        h_new = torch.sigmoid(o) * torch.tanh(c_new)
-        if mask is None:
-            h_out = h_new
-        else:
-            m = mask[t][:, None]
-            h_new = torch.where(m > 0, h_new, h)
-            c_new = torch.where(m > 0, c_new, c)
-            h_out = h_new * m
-        outs.append(h_out)
-        h, c = h_new, c_new
-    return torch.stack(outs), h, c
-
-
-def lstm_cell_scan_train_plain(gates_x, w_hh, mask, h0, c0):
-    """Plain PyTorch version of the training forward kernel.
-
-    Returns ``(out, c_seq, gates, h_T, c_T)``: beside the outputs of
-    :func:`lstm_cell_scan_plain`, ``c_seq`` (T, rows, H) holds c_{t-1} of
-    every step (on a masked step the frozen c) and ``gates`` (T, rows, 4H)
-    the activated gates i, f, g, o as computed (also on a masked step).
-    """
-    w, n_dir = _norm_w(w_hh)
-    t_len, rows, g4 = gates_x.shape
-    hdim = g4 // 4
-    h, c = h0, c0
+    cd = product_dtype(compute_dtype)
+    stream = gates_x.dtype
+    h, c = h0.float(), c0.float()
     outs, c_seq, acts = [], [], []
-    for t in range(t_len):
-        gh = torch.bmm(h.reshape(n_dir, rows // n_dir, hdim), w)
-        z_i, z_f, z_g, z_o = (gates_x[t] + gh.reshape(rows, g4)).chunk(4, -1)
+    for t in range(gates_x.shape[0]):
+        z_i, z_f, z_g, z_o = (gates_x[t].float() + _recurrent_product(
+            h, w, n_dir, cd)).chunk(4, -1)
         i, f, g, o = (torch.sigmoid(z_i), torch.sigmoid(z_f),
                       torch.tanh(z_g), torch.sigmoid(z_o))
         c_new = f * c + i * g
@@ -91,30 +102,55 @@ def lstm_cell_scan_train_plain(gates_x, w_hh, mask, h0, c0):
             h_new = torch.where(m > 0, h_new, h)
             c_new = torch.where(m > 0, c_new, c)
             h_out = h_new * m
-        acts.append(torch.cat([i, f, g, o], dim=-1))
-        c_seq.append(c)
-        outs.append(h_out)
+        if residuals:
+            acts.append(torch.cat([i, f, g, o], dim=-1).to(stream))
+            c_seq.append(c.to(stream))
+        outs.append(h_out.to(stream))
         h, c = h_new, c_new
+    if not residuals:
+        return torch.stack(outs), h, c
     return torch.stack(outs), torch.stack(c_seq), torch.stack(acts), h, c
 
 
-def lstm_cell_scan_bwd_plain(gates, c_seq, w_hh, mask, d_out, dh_t, dc_t):
+def lstm_cell_scan_plain(gates_x, w_hh, mask, h0, c0, compute_dtype=None):
+    """Plain PyTorch version of :func:`lstm_cell_scan` (same contract)."""
+    return _scan_plain(gates_x, w_hh, mask, h0, c0, compute_dtype, False)
+
+
+def lstm_cell_scan_train_plain(gates_x, w_hh, mask, h0, c0,
+                               compute_dtype=None):
+    """Plain PyTorch version of the training forward kernel.
+
+    Returns ``(out, c_seq, gates, h_T, c_T)``: beside the outputs of
+    :func:`lstm_cell_scan_plain`, ``c_seq`` (T, rows, H) holds c_{t-1} of
+    every step (on a masked step the frozen c) and ``gates`` (T, rows, 4H)
+    the activated gates i, f, g, o as computed (also on a masked step);
+    both in the stream dtype (``gates_x.dtype``), as ``out``.
+    """
+    return _scan_plain(gates_x, w_hh, mask, h0, c0, compute_dtype, True)
+
+
+def lstm_cell_scan_bwd_plain(gates, c_seq, w_hh, mask, d_out, dh_t, dc_t,
+                             compute_dtype=None):
     """Plain PyTorch version of the backward kernel: the adjoint recurrence
     in reverse time from the stored residuals.
 
-    Returns ``(dgates_x (T, rows, 4H), dh0, dc0)``.
+    Returns ``(dgates_x (T, rows, 4H), dh0, dc0)``; ``dgates_x`` in the
+    stream dtype (``gates.dtype``), ``dh0`` and ``dc0`` float32.  With
+    bf16 products ``dh_{t-1}`` is ``bf16(dz) @ bf16(W_hh)^T``, the dz
+    that is stored; without, the float32 dz.
     """
     w, n_dir = _norm_w(w_hh)
-    t_len, rows, g4 = gates.shape
-    hdim = g4 // 4
+    cd = product_dtype(compute_dtype)
+    stream = gates.dtype
     w_t = w.transpose(1, 2)
-    dh_carry, dc_carry = dh_t, dc_t
-    dgx = [None] * t_len
-    for t in reversed(range(t_len)):
-        i, f, g, o = gates[t].chunk(4, dim=-1)
-        c_prev = c_seq[t]
+    dh_carry, dc_carry = dh_t.float(), dc_t.float()
+    dgx = [None] * gates.shape[0]
+    for t in reversed(range(gates.shape[0])):
+        i, f, g, o = gates[t].float().chunk(4, dim=-1)
+        c_prev = c_seq[t].float()
         tanh_c = torch.tanh(f * c_prev + i * g)
-        dh = dh_carry + d_out[t]
+        dh = dh_carry + d_out[t].float()
         d_o = dh * tanh_c
         dc = dc_carry + dh * o * (1 - tanh_c * tanh_c)
         dz = torch.cat([dc * g * i * (1 - i), dc * c_prev * f * (1 - f),
@@ -122,15 +158,25 @@ def lstm_cell_scan_bwd_plain(gates, c_seq, w_hh, mask, d_out, dh_t, dc_t):
         if mask is not None:
             m = mask[t][:, None]
             dz = dz * m
-        dh_prev = torch.bmm(dz.reshape(n_dir, rows // n_dir, g4),
-                            w_t).reshape(rows, hdim)
+        dh_prev = _recurrent_product(dz, w_t, n_dir, cd)
         dc_prev = dc * f
         if mask is not None:
             dh_prev = torch.where(m > 0, dh_prev, dh_carry)
             dc_prev = torch.where(m > 0, dc_prev, dc_carry)
-        dgx[t] = dz
+        dgx[t] = dz.to(stream)
         dh_carry, dc_carry = dh_prev, dc_prev
     return torch.stack(dgx), dh_carry, dc_carry
+
+
+def matmul_f32(a, b):
+    """Batched ``a @ b`` with float32 sums and a float32 result.  bf16
+    operands on the card take one bf16 GEMM with a float32 output
+    (``torch.bmm(..., out_dtype=torch.float32)``: cuBLAS sums in float32
+    and writes the sums unrounded); anything else is widened to float32
+    first, which is exact for bf16 values."""
+    if (a.is_cuda and a.dtype == b.dtype == torch.bfloat16):
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
 
 
 def time_groups(t_len, out_rows, out_cols, n_dir, device):
@@ -152,41 +198,58 @@ def time_groups(t_len, out_rows, out_cols, n_dir, device):
 
 
 def sum_outer(a, b, n_dir):
-    """sum over t and rows of a_t^T b_t per direction: a (T, D*B, M),
-    b (T, D*B, N) -> (D, M, N), in :func:`time_groups` groups of steps."""
-    t_len, rows, m = a.shape
-    n = b.shape[-1]
-    batch = rows // n_dir
+    """sum over t and rows of a_t^T b_t per direction: a (T, D*B, M) or
+    (T, D, B, M), b likewise with N -> (D, M, N), float32 for either
+    dtype, in :func:`time_groups` groups of steps: one batched product
+    (:func:`matmul_f32`) with the directions and groups as its batch axis.
+    Both operands go in as (D * groups, rows, width), their last axis kept
+    contiguous (a copy that moves it is uncoalesced; a direction-major
+    operand needs no copy), ``a`` transposed."""
+    t_len, m, n = a.shape[0], a.shape[-1], b.shape[-1]
     groups = time_groups(t_len, m, n, n_dir, a.device)
-    per = t_len // groups
-    return torch.einsum(
-        'sudbm,sudbn->sdmn', a.reshape(groups, per, n_dir, batch, m),
-        b.reshape(groups, per, n_dir, batch, n)).sum(0)
+
+    def grouped(x):
+        return x.reshape(groups, t_len // groups, n_dir, -1,
+                         x.shape[-1]).permute(2, 0, 1, 3, 4).reshape(
+            n_dir * groups, -1, x.shape[-1])
+
+    out = matmul_f32(grouped(a).transpose(1, 2), grouped(b))
+    return out.reshape(n_dir, groups, m, n).sum(1)
 
 
-def recurrent_weight_grad(dgx, out, h0, mask, n_dir):
-    """``dW_hh`` (D, H, 4H) = sum_t h_{t-1}^T dz_t per direction.
+def recurrent_weight_grad(dgx, out, h0, mask, n_dir, compute_dtype=None):
+    """``dW_hh`` (D, H, 4H) = sum_t h_{t-1}^T dz_t per direction, float32.
 
     h_{t-1} is ``out`` shifted by one step.  ``out`` is zero in the padding,
     but a valid step whose predecessor is masked carries the frozen
     initial state; with contiguous-valid masks that is the segment start
-    alone, whose dz joins step 0's in the ``h0`` term.
+    alone, whose dz joins step 0's in the ``h0`` term.  With bf16 products
+    the operands are rounded to bf16 (``out`` and ``dgx`` are bf16 streams
+    already) and the sums stay float32.
     """
+    cd = product_dtype(compute_dtype)
     t_len = dgx.shape[0]
     dz0 = dgx[0]
     if mask is not None and t_len > 1:
         starts = mask[1:] * (1.0 - mask[:-1])
-        dz0 = dz0 + torch.einsum('tb,tbg->bg', starts, dgx[1:])
-    dw = sum_outer(h0[None], dz0[None], n_dir)
+        dz0 = (dz0.float() + torch.einsum(
+            'tb,tbg->bg', starts, dgx[1:].float())).to(dgx.dtype)
+
+    def operand(x):
+        return x if cd is None else x.to(cd)
+
+    dw = sum_outer(operand(h0[None]), operand(dz0[None]), n_dir)
     if t_len > 1:
-        dw = dw + sum_outer(out[:-1], dgx[1:], n_dir)
+        dw = dw + sum_outer(operand(out[:-1]), operand(dgx[1:]), n_dir)
     return dw
 
 
-def _check(gates_x, w, n_dir, mask, h0, c0=None, n_gates=4):
-    """Raise for what the cell-scan kernels do not take (shapes, float32,
+def _check(gates_x, w, n_dir, mask, h0, c0=None, n_gates=4,
+           stream=torch.float32):
+    """Raise for what the cell-scan kernels do not take (shapes, dtypes,
     one device, contiguity).  ``n_gates``: gate blocks per hidden unit
-    (4 for the LSTM; the GRU wrapper passes 3 and no ``c0``)."""
+    (4 for the LSTM; the GRU wrapper passes 3 and no ``c0``).  ``gates_x``
+    must be of the ``stream`` dtype, everything else float32."""
     if gates_x.dim() != 3 or gates_x.shape[0] < 1:
         raise ValueError(f'gates_x must be (T >= 1, rows, {n_gates}H), got '
                          f'{tuple(gates_x.shape)}')
@@ -205,8 +268,9 @@ def _check(gates_x, w, n_dir, mask, h0, c0=None, n_gates=4):
         if tuple(tensor.shape) != shape:
             raise ValueError(f'{name}: expected shape {shape}, got '
                              f'{tuple(tensor.shape)}')
-        if tensor.dtype != torch.float32:
-            raise TypeError(f'{name}: the kernel takes float32, got '
+        want = stream if name == 'gates_x' else torch.float32
+        if tensor.dtype != want:
+            raise TypeError(f'{name}: the kernel takes {want}, got '
                             f'{tensor.dtype}')
         if tensor.device != gates_x.device:
             raise ValueError(f'{name} is on {tensor.device}, gates_x on '
@@ -215,17 +279,26 @@ def _check(gates_x, w, n_dir, mask, h0, c0=None, n_gates=4):
             raise ValueError(f'{name} must be contiguous')
 
 
+def _variant(stream):
+    """The suffix of the C entries and launch counts of the kernels of a
+    stream dtype: the float32 kernels, or the bf16-stream, bf16-product
+    ones."""
+    return '_bf16' if stream == torch.bfloat16 else ''
+
+
 def _launch(gates_x, w, n_dir, mask, h0, c0, train=False):
-    """Launch the forward kernel; with ``train`` the variant that also
-    returns the residuals ``c_seq`` and ``gates``."""
+    """Launch the forward kernel of ``gates_x``'s stream dtype; with
+    ``train`` the variant that also returns the residuals ``c_seq`` and
+    ``gates`` (in the stream dtype)."""
     t_len, rows, g4 = gates_x.shape
     hdim = g4 // 4
+    entry = _variant(gates_x.dtype)
 
-    def empty(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=gates_x.device)
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=gates_x.device)
 
-    out, h_t, c_t = empty(t_len, rows, hdim), empty(rows, hdim), \
-        empty(rows, hdim)
+    out = empty(t_len, rows, hdim, dtype=gates_x.dtype)
+    h_t, c_t = empty(rows, hdim), empty(rows, hdim)
     hbuf = empty(2, rows, hdim)
     lib = _build.load_library()
     stream, device = _build.stream_and_device(gates_x)
@@ -234,46 +307,49 @@ def _launch(gates_x, w, n_dir, mask, h0, c0, train=False):
               h0.data_ptr(), c0.data_ptr(), out.data_ptr())
     sizes = (t_len, n_dir, rows // n_dir, hdim, device, stream)
     if train:
-        c_seq, gates = empty(t_len, rows, hdim), empty(t_len, rows, g4)
-        err = lib.lstm_cell_scan_fwd_train(
+        c_seq = empty(t_len, rows, hdim, dtype=gates_x.dtype)
+        gates = empty(t_len, rows, g4, dtype=gates_x.dtype)
+        err = getattr(lib, 'lstm_cell_scan_fwd_train' + entry)(
             *inputs, c_seq.data_ptr(), gates.data_ptr(), h_t.data_ptr(),
             c_t.data_ptr(), hbuf.data_ptr(), *sizes)
-        _build.check(lib, err, 'lstm_cell_scan training forward kernel')
-        lstm_cell_scan.launches['fwd_train'] += 1
+        _build.check(lib, err,
+                     f'lstm_cell_scan{entry} training forward kernel')
+        lstm_cell_scan.launches['fwd_train' + entry] += 1
         return out, c_seq, gates, h_t, c_t
-    err = lib.lstm_cell_scan_fwd(
+    err = getattr(lib, 'lstm_cell_scan_fwd' + entry)(
         *inputs, h_t.data_ptr(), c_t.data_ptr(), hbuf.data_ptr(), *sizes)
-    _build.check(lib, err, 'lstm_cell_scan kernel')
-    lstm_cell_scan.launches['fwd'] += 1
+    _build.check(lib, err, f'lstm_cell_scan{entry} kernel')
+    lstm_cell_scan.launches['fwd' + entry] += 1
     return out, h_t, c_t
 
 
 def _launch_bwd(gates, c_seq, w, n_dir, mask, d_out, dh_t, dc_t):
     t_len, rows, g4 = gates.shape
+    entry = _variant(gates.dtype)
     dgx = torch.empty_like(gates)
     dh0 = torch.empty_like(dh_t)
     dc0 = torch.empty_like(dc_t)
     lib = _build.load_library()
     stream, device = _build.stream_and_device(gates)
-    err = lib.lstm_cell_scan_bwd(
+    err = getattr(lib, 'lstm_cell_scan_bwd' + entry)(
         gates.data_ptr(), c_seq.data_ptr(), w.data_ptr(),
         None if mask is None else mask.data_ptr(), d_out.data_ptr(),
         dh_t.data_ptr(), dc_t.data_ptr(), dgx.data_ptr(), dh0.data_ptr(),
         dc0.data_ptr(), t_len, n_dir, rows // n_dir, g4 // 4, device, stream)
-    _build.check(lib, err, 'lstm_cell_scan backward kernel')
-    lstm_cell_scan.launches['bwd'] += 1
+    _build.check(lib, err, f'lstm_cell_scan{entry} backward kernel')
+    lstm_cell_scan.launches['bwd' + entry] += 1
     return dgx, dh0, dc0
 
 
-def bwd_grid(n_dir, rows_per_dir, hdim):
-    """The grid the backward kernel takes for a layer of ``n_dir``
-    directions of ``rows_per_dir`` rows and ``hdim`` units on the current
-    card: {'U', 'n_rb', 'RB', 'RS', 'KS', 'blocks'} (unit slice, row
-    ranges, rows per range, rows staged at once, K slices, blocks; blocks 0
-    when no grid is co-resident)."""
+def bwd_grid(n_dir, rows_per_dir, hdim, bf16=False):
+    """The grid the backward kernel (``bf16``: its bf16 variant) takes for
+    a layer of ``n_dir`` directions of ``rows_per_dir`` rows and ``hdim``
+    units on the current card: {'U', 'n_rb', 'RB', 'RS', 'KS', 'blocks'}
+    (unit slice, row ranges, rows per range, rows staged at once, K
+    slices, blocks; blocks 0 when no grid is co-resident)."""
     out = (ctypes.c_int * 6)()
     lib = _build.load_library()
-    err = lib.lstm_cell_scan_bwd_grid(n_dir, rows_per_dir, hdim,
+    err = lib.lstm_cell_scan_bwd_grid(n_dir, rows_per_dir, hdim, int(bf16),
                                       torch.cuda.current_device(),
                                       ctypes.addressof(out))
     _build.check(lib, err, 'lstm_cell_scan backward grid')
@@ -283,7 +359,9 @@ def bwd_grid(n_dir, rows_per_dir, hdim):
 class LSTMCellScan(torch.autograd.Function):
     """:func:`lstm_cell_scan` on CUDA tensors with a gradient: ``forward``
     is the training forward kernel, ``backward`` the backward kernel plus
-    the ``dW_hh`` matrix product.  ``w`` is (D, H, 4H)."""
+    the ``dW_hh`` matrix product.  ``w`` is (D, H, 4H) float32; the
+    kernels of ``gates_x``'s dtype run (bf16 streams: bf16 products), and
+    ``dgates_x`` comes back in that dtype, ``dW_hh`` in float32."""
 
     @staticmethod
     def forward(ctx, gates_x, w, mask, h0, c0):
@@ -299,45 +377,62 @@ class LSTMCellScan(torch.autograd.Function):
         w, mask, h0, out, c_seq, gates = ctx.saved_tensors
         n_dir = w.shape[0]
         d_out, dh_t, dc_t = (
-            torch.zeros_like(like) if grad is None else grad.contiguous()
+            torch.zeros_like(like) if grad is None
+            else grad.to(like.dtype).contiguous()
             for grad, like in ((d_out, out), (dh_t, h0), (dc_t, h0)))
         dgx, dh0, dc0 = _launch_bwd(
             gates, c_seq, w, n_dir, mask, d_out, dh_t, dc_t)
-        dw = recurrent_weight_grad(dgx, out, h0, mask, n_dir)
+        dw = recurrent_weight_grad(
+            dgx, out, h0, mask, n_dir,
+            torch.bfloat16 if dgx.dtype == torch.bfloat16 else None)
         return dgx, dw, None, dh0, dc0
 
 
-def lstm_cell_scan(gates_x, w_hh, mask, h0, c0):
+def lstm_cell_scan(gates_x, w_hh, mask, h0, c0, compute_dtype=None):
     """Run the LSTM cell recurrence over time.
 
     Args:
-        gates_x: (T, rows, 4H) float32, the precomputed ``x @ W_ih + b``
-            (gate order i, f, g, o).  For a direction-stacked call,
-            rows = D * B and row block d belongs to direction d.
+        gates_x: (T, rows, 4H), the precomputed ``x @ W_ih + b`` (gate
+            order i, f, g, o), float32 or bfloat16: its dtype is the
+            dtype of the streams (``out`` here; the residuals and
+            ``dgates_x`` of the training path).  For a direction-stacked
+            call, rows = D * B and row block d belongs to direction d.
         w_hh: (H, 4H) recurrent weights, or (D, H, 4H) per direction
-            (``h @ w_hh`` layout).
+            (``h @ w_hh`` layout), float32 masters.
         mask: (T, rows) validity mask or None; where it is 0, h and c
             keep their values and the output is 0.
-        h0, c0: (rows, H) initial state.
+        h0, c0: (rows, H) initial state, float32.
+        compute_dtype: None (float32 products) or 'bfloat16': the
+            recurrent products' operands rounded to bf16, summed in
+            float32 (see the module docstring).
 
     Returns:
-        (out (T, rows, H), h_T, c_T).  CPU tensors run the plain version;
-        CUDA tensors launch the kernels (or raise): the lean forward, or,
-        when grad mode is on and an input requires a gradient, the
-        training forward, whose ``backward`` is a kernel too.
+        (out (T, rows, H) in the stream dtype, h_T, c_T float32).  CPU
+        tensors run the plain version; CUDA tensors launch the kernels (or
+        raise): the lean forward, or, when grad mode is on and an input
+        requires a gradient, the training forward, whose ``backward`` is a
+        kernel too.  The kernels take float32 streams with
+        ``compute_dtype=None`` and bfloat16 streams with
+        ``compute_dtype='bfloat16'``; anything else raises.
         ``lstm_cell_scan.launches`` counts the launches per kernel
-        (``fwd``, ``fwd_train``, ``bwd``).
+        (``fwd``, ``fwd_train``, ``bwd``, and ``fwd_bf16``,
+        ``fwd_train_bf16``, ``bwd_bf16``).
     """
     w, n_dir = _norm_w(w_hh)
     if gates_x.device.type == 'cpu':
-        return lstm_cell_scan_plain(gates_x, w_hh, mask, h0, c0)
+        return lstm_cell_scan_plain(gates_x, w_hh, mask, h0, c0,
+                                    compute_dtype)
     if gates_x.device.type != 'cuda':
         raise ValueError(f'no kernel for device {gates_x.device}')
-    _check(gates_x, w, n_dir, mask, h0, c0)
+    cd = product_dtype(compute_dtype)
+    _check(gates_x, w, n_dir, mask, h0, c0,
+           stream=torch.float32 if cd is None else cd)
     if torch.is_grad_enabled() and any(
             x.requires_grad for x in (gates_x, w, h0, c0)):
         return LSTMCellScan.apply(gates_x, w, mask, h0, c0)
     return _launch(gates_x, w, n_dir, mask, h0, c0)
 
 
-lstm_cell_scan.launches = {'fwd': 0, 'fwd_train': 0, 'bwd': 0}
+lstm_cell_scan.launches = {'fwd': 0, 'fwd_train': 0, 'bwd': 0,
+                           'fwd_bf16': 0, 'fwd_train_bf16': 0,
+                           'bwd_bf16': 0}

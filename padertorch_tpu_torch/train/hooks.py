@@ -100,9 +100,13 @@ class TriggeredHook(Hook):
 
 
 def _fetch(value):
-    """Tensor -> numpy (a no-op for host values)."""
+    """Tensor -> numpy (a no-op for host values); a bf16 tensor (numpy has
+    no bf16) becomes float32."""
     if isinstance(value, torch.Tensor):
-        return value.detach().cpu().numpy()
+        value = value.detach()
+        if value.dtype == torch.bfloat16:
+            value = value.float()
+        return value.cpu().numpy()
     return value
 
 

@@ -65,7 +65,10 @@ def nested_test_assert_allclose(actual, desired, atol=1e-6, rtol=1e-6):
 
 def _to_numpy(x):
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        x = x.detach()
+        if x.dtype == torch.bfloat16:   # numpy has no bf16
+            x = x.float()
+        return x.cpu().numpy()
     return np.asarray(x)
 
 

@@ -23,9 +23,15 @@ step is eager PyTorch: ``forward``, ``review``, the weighted loss,
   ``epoch`` and ``hooks`` as the JAX trainer writes them, so one storage
   dir loads in both packages.  The ``optimizer`` entry is this package's
   own (``torch.optim`` state keyed by parameter name).
+- **Precision** (``precision='bfloat16'`` or a
+  :class:`~padertorch_tpu_torch.train.precision.Precision`): the train and
+  validation steps cast the example and run the model under
+  ``Precision.cast_module`` (bf16 casts of float32 masters); the loss is
+  cast to float32 before the backward, so gradients, clipping, the
+  optimizer's moments and the checkpoints stay float32.
 
 Not ported (each raises ``NotImplementedError`` when asked for):
-``adversarial``, ``sharding``, ``precision``, ``async_checkpointing``,
+``adversarial``, ``sharding``, ``async_checkpointing``,
 ``checkpoint_format='orbax'``, ``MultiDeviceTrainer``,
 ``InteractiveTrainer``.
 """
@@ -54,6 +60,7 @@ from padertorch_tpu_torch.train.hooks import (
     StopTraining,
 )
 from padertorch_tpu_torch.train.optimizer import Optimizer, Adam
+from padertorch_tpu_torch.train.precision import Precision
 
 __all__ = ['Trainer', 'ContextTimerDict', 'MultiDeviceTrainer',
            'InteractiveTrainer']
@@ -118,8 +125,8 @@ class _TimerHandle:
 def _not_ported(what):
     raise NotImplementedError(
         f'{what} is not ported yet: padertorch_tpu_torch trains one model '
-        'with one optimizer on one device in float32 and writes .ptt '
-        'checkpoints synchronously')
+        'with one optimizer on one device and writes .ptt checkpoints '
+        'synchronously')
 
 
 class Trainer(Configurable):
@@ -168,8 +175,6 @@ class Trainer(Configurable):
             _not_ported('adversarial training (a dict of optimizers)')
         if sharding is not None:
             _not_ported(f'sharding={sharding!r}')
-        if precision is not None:
-            _not_ported(f'precision={precision!r}')
         if async_checkpointing:
             _not_ported('async_checkpointing=True')
         if checkpoint_format != 'ptt':
@@ -188,6 +193,11 @@ class Trainer(Configurable):
 
         self.loss_weights = loss_weights
         self.virtual_minibatch_size = virtual_minibatch_size
+        if isinstance(precision, str):
+            precision = Precision(precision)
+        assert precision is None or isinstance(precision, Precision), \
+            precision
+        self.precision = precision
 
         self.hooks = [
             SummaryHook(summary_trigger),
@@ -428,11 +438,23 @@ class Trainer(Configurable):
         return self.step(model, example, self.validate_timer)[1:]
 
     def step(self, model, example, timer):
-        """Reference parity: ``trainer.py:541``."""
+        """Reference parity: ``trainer.py:541``.  Under ``precision`` the
+        example is cast, the forward and review run on the model's casts
+        (``Precision.cast_module``) and the loss is cast to float32."""
+        prec = self.precision
         with timer['time_per_to_device']:
             example = model.example_to_device(example, self.device)
+            if prec is not None and prec.cast_examples:
+                example = prec.cast_floating(example)
         with timer['time_per_forward']:
-            loss, model_out, review = self._loss_and_review(model, example)
+            if prec is None:
+                loss, model_out, review = self._loss_and_review(
+                    model, example)
+            else:
+                with prec.cast_module(model):
+                    loss, model_out, review = self._loss_and_review(
+                        model, example)
+                loss = loss.float()
         return loss, example, model_out, review
 
     def log_error_state(self, data_dict, folder='log', file=sys.stdout):

@@ -1,6 +1,10 @@
 """The hand-written CUDA kernels against their plain PyTorch versions on
 the card, at shapes off the main path (ragged hidden widths, one
-direction, other STFT geometries).  The GRU forwards' resident and
+direction, other STFT geometries).  The bf16 LSTM kernels are held to their
+plain bf16 versions (each stream element within one bf16 unit in the last
+place plus 1e-3 or 2e-3, at most 5% of them other, float32 states within
+3e-4 and 1e-3), the GRU and the attention kernels raise for bf16.  The GRU
+forwards' resident and
 cooperative routes are each held to plain at the shapes that pick them,
 with the route read from ``gru_cell_scan.routes``.  The LSTM training kernels (forward
 with residuals, backward) are held against their step-by-step plain
@@ -27,6 +31,8 @@ import copy
 import numpy as np
 import pytest
 import torch
+
+from chip_smoke import bf16_distance
 
 from padertorch_tpu_torch.ops._stft import HostSTFT, STFT
 from padertorch_tpu_torch.models.bss import PermutationInvariantTrainingModel
@@ -259,7 +265,7 @@ def test_lstm_training_kernels_match_plain(cuda, n_dir, batch, hdim, t_len,
     for g, e in zip(got, want):  # dgates_x, dh0, dc0
         torch.testing.assert_close(g, e, atol=1e-5, rtol=0)
     assert lstm_cell_scan.launches == {
-        'fwd': before['fwd'], 'fwd_train': before['fwd_train'] + 1,
+        **before, 'fwd_train': before['fwd_train'] + 1,
         'bwd': before['bwd'] + 1}
 
 
@@ -1614,3 +1620,199 @@ def test_quantized_decoder_on_the_card_matches_the_cpu(cuda):
     mha = MultiheadAttention(64, 4, use_flash=True).to(cuda, torch.bfloat16)
     with pytest.raises(TypeError, match='float32'):
         mha(torch.zeros((1, 3, 64), device=cuda, dtype=torch.bfloat16))
+
+
+# the bf16 LSTM kernels (bf16 streams, bf16 products summed in float32)
+# against their plain bf16 versions: the float32 states within 3e-4
+# forward and 1e-3 backward (the same products summed in another order: a
+# value at a rounding boundary rounds the other way, and the recurrence
+# carries that on), every stream element within one bf16 unit in the last
+# place of the two values plus 1e-3 (backward 2e-3), and at most 5% of them
+# other than plain's; chip_smoke.py phase 23 holds the same limits at the
+# main shapes.  Odd H (37) takes both kernels' row copies
+# without 16-byte copies; H = 130 the forward's scalar h copies alone.
+LSTM_BF16_CASES = [
+    (1, 1, 8, 5, False),
+    (2, 3, 37, 40, True),
+    (2, 5, 130, 64, True),
+    (1, 64, 256, 33, True),
+    (2, 260, 128, 20, False),
+]
+
+
+def _lstm_bf16_inputs(cuda, n_dir, batch, hdim, t_len, masked, seed=0):
+    rng = np.random.RandomState(seed + hdim)
+    rows = n_dir * batch
+    mask = None
+    if masked:
+        lens = rng.randint(1, t_len + 1, size=batch)
+        lens[0] = t_len
+        fwd = np.arange(t_len)[:, None] < lens[None, :]
+        mask = torch.from_numpy(np.concatenate(
+            [fwd, fwd[::-1]][:n_dir], 1).astype('float32')).to(cuda)
+    bound = 1 / np.sqrt(hdim)
+
+    def put(*shape, scale=1.0):
+        return torch.from_numpy(rng.uniform(-scale, scale, shape).astype(
+            'float32')).to(cuda)
+
+    gx = put(t_len, rows, 4 * hdim).to(torch.bfloat16)
+    w = put(n_dir, hdim, 4 * hdim, scale=bound)
+    h0, c0 = put(rows, hdim, scale=0.1), put(rows, hdim, scale=0.1)
+    cot = (put(t_len, rows, hdim).to(torch.bfloat16), put(rows, hdim),
+           put(rows, hdim))
+    return (gx, w, mask, h0, c0), cot
+
+
+@pytest.mark.parametrize('n_dir,batch,hdim,t_len,masked', LSTM_BF16_CASES)
+def test_lstm_bf16_kernels_match_plain(cuda, n_dir, batch, hdim, t_len,
+                                       masked):
+    args, cot = _lstm_bf16_inputs(cuda, n_dir, batch, hdim, t_len, masked)
+    gx, w, mask, h0, c0 = args
+    before = dict(lstm_cell_scan.launches)
+    lean = lstm_cell_scan(*args, compute_dtype='bfloat16')
+    train = lstm_kernels._launch(gx, w, n_dir, mask, h0, c0, train=True)
+    want_train = lstm_cell_scan_train_plain(*args, 'bfloat16')
+    _, c_seq, gates, _, _ = want_train
+    bwd = lstm_kernels._launch_bwd(gates, c_seq, w, n_dir, mask, *cot)
+    want_bwd = lstm_cell_scan_bwd_plain(gates, c_seq, w, mask, *cot,
+                                        'bfloat16')
+    assert lstm_cell_scan.launches == {
+        **before, 'fwd_bf16': before['fwd_bf16'] + 1,
+        'fwd_train_bf16': before['fwd_train_bf16'] + 1,
+        'bwd_bf16': before['bwd_bf16'] + 1}
+    cases = ((lean, lstm_cell_scan_plain(*args, 'bfloat16'), 1, 3e-4, 1e-3),
+             (train, want_train, 3, 3e-4, 1e-3),
+             (bwd, want_bwd, 1, 1e-3, 2e-3))
+    for got, want, streams, tol, stream_tol in cases:
+        assert [g.dtype for g in got] == [w_.dtype for w_ in want]
+        assert {g.dtype for g in got[:streams]} == {torch.bfloat16}
+        assert {g.dtype for g in got[streams:]} == {torch.float32}
+        excess, share = bf16_distance(got[:streams], want[:streams],
+                                      stream_tol)
+        assert excess <= 0 and share <= 0.05, (excess, share)
+        for g, w_ in zip(got[streams:], want[streams:]):
+            assert float((g - w_).abs().max()) <= tol
+
+
+def test_lstm_bf16_function_gives_bf16_dgates_and_float32_dw(cuda):
+    args, (d_out, dh, dc) = _lstm_bf16_inputs(cuda, 2, 3, 37, 40, True)
+    gx, w, mask, h0, c0 = (None if a is None else a.clone().requires_grad_(
+        a.is_floating_point() and a is not args[2]) for a in args)
+    out, h_t, c_t = lstm_cell_scan(gx, w, mask, h0, c0,
+                                   compute_dtype='bfloat16')
+    assert out.dtype == torch.bfloat16
+    assert h_t.dtype == c_t.dtype == torch.float32
+    torch.autograd.backward([out, h_t, c_t], [d_out, dh, dc])
+    assert gx.grad.dtype == torch.bfloat16
+    assert w.grad.dtype == h0.grad.dtype == c0.grad.dtype == torch.float32
+    # dW_hh: bf16 GEMMs with float32 sums on the card against the same
+    # operands widened on the CPU
+    out_k, c_seq_k, gates_k, _, _ = lstm_kernels._launch(
+        gx.detach(), w.detach(), 2, mask, h0.detach(), c0.detach(),
+        train=True)
+    dgx, _, _ = lstm_kernels._launch_bwd(gates_k, c_seq_k, w.detach(), 2,
+                                         mask, d_out, dh, dc)
+    assert torch.equal(dgx, gx.grad)
+    want = lstm_kernels.recurrent_weight_grad(
+        dgx.cpu(), out_k.cpu(), h0.detach().cpu(), mask.cpu(), 2,
+        'bfloat16')
+    got = w.grad.cpu()
+    assert float((got - want).abs().max()) <= 1e-5 * float(
+        want.abs().max())
+
+
+def test_lstm_kernels_refuse_mixed_streams_and_products(cuda):
+    args, _ = _lstm_bf16_inputs(cuda, 1, 2, 8, 4, False)
+    gx, w, mask, h0, c0 = args
+    with pytest.raises(TypeError, match='bfloat16'):
+        lstm_cell_scan(gx.float(), w, mask, h0, c0, compute_dtype='bfloat16')
+    with pytest.raises(TypeError, match='float32'):
+        lstm_cell_scan(gx, w, mask, h0, c0)
+    with pytest.raises(TypeError, match='float32'):
+        lstm_cell_scan(gx, w.bfloat16(), mask, h0, c0,
+                       compute_dtype='bfloat16')
+    with pytest.raises(TypeError, match='float32'):
+        lstm_cell_scan(gx, w, mask, h0.bfloat16(), c0,
+                       compute_dtype='bfloat16')
+
+
+def test_gru_and_attention_raise_for_bf16_on_the_card(cuda):
+    """Their bf16 kernels are not ported: the GRU with compute_dtype and
+    the forced attention kernels on bf16 raise, naming the JAX kernel that
+    waits; nothing is widened to float32 quietly."""
+    from padertorch_tpu_torch.modules.recurrent import GRU
+    gru = GRU(6, 8, bidirectional=True, compute_dtype='bfloat16').to(cuda)
+    with pytest.raises(NotImplementedError,
+                       match='padertorch_tpu/ops/pallas/gru.py'):
+        gru(torch.zeros((2, 5, 6), device=cuda))
+    q = torch.zeros((2, 4, 5, 16), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(TypeError,
+                       match='padertorch_tpu/ops/pallas/attention.py'):
+        flash_attention(q, q, q)
+    mha = MultiheadAttention(64, 4, use_flash=True).to(cuda, torch.bfloat16)
+    with pytest.raises(TypeError,
+                       match='padertorch_tpu/ops/pallas/attention.py'):
+        mha(torch.zeros((2, 5, 64), device=cuda, dtype=torch.bfloat16))
+    # 'auto' takes the dense path for bf16
+    auto = MultiheadAttention(64, 4).to(cuda, torch.bfloat16)
+    before = dict(flash_attention.launches)
+    assert auto(torch.randn((2, 5, 64), device=cuda,
+                            dtype=torch.bfloat16)).dtype == torch.bfloat16
+    assert flash_attention.launches == before
+
+
+def test_pit_model_with_compute_dtype_on_the_card_matches_the_cpu(cuda):
+    torch.manual_seed(0)
+    model_cpu = PermutationInvariantTrainingModel(
+        F=33, recurrent_layers=2, units=24, K=2, compute_dtype='bfloat16')
+    model = copy.deepcopy(model_cpu).to(cuda)
+    rng = np.random.RandomState(0)
+    batch = {'Y_abs': torch.from_numpy(
+        np.abs(rng.randn(3, 40, 33)).astype('float32')),
+        'num_frames': torch.tensor([40, 31, 12])}
+    before = dict(lstm_cell_scan.launches)
+    with torch.no_grad():
+        got = model({k: v.to(cuda) for k, v in batch.items()}).cpu()
+        want = model_cpu(batch)
+    assert lstm_cell_scan.launches['fwd_bf16'] == before['fwd_bf16'] + 2
+    assert got.dtype == torch.float32
+    assert float((got - want).abs().max()) <= 5e-2
+    # one request alone: one row a direction
+    with torch.no_grad():
+        one = model({'Y_abs': batch['Y_abs'][:1].to(cuda),
+                     'num_frames': batch['num_frames'][:1]}).cpu()
+    assert float((one - want[:1]).abs().max()) <= 5e-2
+
+
+def test_bf16_policy_trains_on_the_card_with_float32_masters(cuda, tmp_path):
+    from padertorch_tpu_torch.train.optimizer import Adam
+    from padertorch_tpu_torch.train.trainer import Trainer
+    torch.manual_seed(0)
+    model = PermutationInvariantTrainingModel(
+        F=33, recurrent_layers=2, units=24, K=2, compute_dtype='bfloat16')
+    trainer = Trainer(model, tmp_path, Adam(gradient_clipping=10.0),
+                      loss_weights={'pit_mse_loss': 1.0,
+                                    'pit_ips_loss': 1.0},
+                      precision='bfloat16').to(cuda)
+    rng = np.random.RandomState(1)
+    batch = {
+        'Y_abs': np.abs(rng.randn(3, 40, 33)).astype('float32'),
+        'X_abs': np.abs(rng.randn(3, 40, 2, 33)).astype('float32'),
+        'cos_phase_difference': np.cos(rng.randn(3, 40, 2, 33)).astype(
+            'float32'),
+        'num_frames': np.asarray([40, 31, 12]),
+    }
+    before = dict(lstm_cell_scan.launches)
+    losses = []
+    for _ in range(5):
+        loss = trainer.train_step(trainer.model, batch)[0]
+        loss.backward()
+        trainer.optimizer.step()
+        trainer.optimizer.zero_grad()
+        losses.append(float(loss.detach()))
+    assert losses[-1] < losses[0] and np.isfinite(losses).all()
+    assert lstm_cell_scan.launches['fwd_train_bf16'] == \
+        before['fwd_train_bf16'] + 10
+    assert lstm_cell_scan.launches['bwd_bf16'] == before['bwd_bf16'] + 10
+    assert {p.dtype for p in trainer.model.parameters()} == {torch.float32}

@@ -383,7 +383,7 @@ def test_storage_dir_loads_in_the_jax_package(tmp_path):
 
 
 @pytest.mark.parametrize('kwargs', [
-    {'adversarial': True}, {'sharding': 'data'}, {'precision': 'bfloat16'},
+    {'adversarial': True}, {'sharding': 'data'},
     {'async_checkpointing': True}, {'checkpoint_format': 'orbax'}])
 def test_options_that_are_not_ported_raise(tmp_path, kwargs):
     with pytest.raises(NotImplementedError, match='not ported'):
