@@ -101,8 +101,11 @@ Phases, one line each:
     dispatch table: one ``MultiheadAttention``
     forward and forward + backward on the fused and on the dense backend
     at (8, T, 12 x 64) for T = 512 ... 4096, full, causal and windowed,
-    and at the SepFormer's two shapes; the table is printed beside what
-    ``should_use_flash`` picks.  Last, ``use_flash='auto'`` at heads of 256,
+    and at the SepFormer's two shapes, in float32 and in bf16 (the module
+    cast with ``.to``); the table is printed beside what
+    ``should_use_flash`` picks; ``use_flash='auto'`` in bf16 launches the
+    bf16 forward and equals the forced fused backend bit for bit.  Last,
+    ``use_flash='auto'`` at heads of 256,
     which the kernels do not take: the dense path, equal to the dense
     backend bit for bit, no kernel launched; ``use_flash=True`` raises.
 13. SepFormer-TasNet serving: the tasnet recipe's ``sepformer`` variant at
@@ -225,6 +228,35 @@ Phases, one line each:
     samples beside float32 from the same start: 3 steps' losses, 36
     training launches of the float32 LSTM kernels each, a timed step,
     masters float32.
+26. the bf16 attention kernels (forward with and without the log-sum-exp,
+    the dk/dv and dq kernels, and the ``autograd.Function`` through them)
+    vs their plain bf16 versions at the SepFormer's two shapes, (8, 12,
+    2048, 64) full, bench.py's three (B=8, H=12, D=64: T=4096 causal,
+    T=1024 full, T=4096 window (255, 256)), grouped-query (4, 8 over 2,
+    1024, 64) causal and ragged, D=32 and 128, and a fully masked row: O
+    within one bf16 unit in the last place plus 2e-3 and at most 1% of its
+    elements other than plain's (plain taking the keys in the kernel's
+    tiles of 64, ``key_tile``: P rounded to bf16 against the running
+    maximum, as the JAX kernel against its blocks); dq, dk, dv within one
+    unit plus 1e-5 of each one's largest entry, at most 1% of them other
+    by more than that; LSE within 1e-5 of max(|lse|, 1);
+    two runs the same bits.  The
+    control, plain with logits rounded to bf16 in the forward and P and dS
+    rounded to bf16 in the backward, must exceed both shares.  Each timed
+    shape beside the float32 kernels at the same shape, plain,
+    ``F.scaled_dot_product_attention`` on the same bf16 tensors and the
+    bound (bytes over 3.35 TB/s, or the bf16 products at 989 TFLOP/s plus
+    the backward's 2xTF32 products at 495 / 2); then the counterpart of
+    bench.py's ``flash_attention_causal_train_ms``: forward + backward at
+    (8, 12, 4096, 64) causal bf16 beside the port's dense bf16 path and
+    the library.
+27. the SepFormer-TasNet step under ``precision='bfloat16'`` with the
+    fused backend (the recipe's ``--variant sepformer --flash --precision
+    bfloat16``) beside the dense bf16 backend and the float32 fused step,
+    each from the same start: 20 steps' losses at B=4 x 16000 samples, the
+    bf16 kernels' launches (16 forward and 16 backward a step, no float32
+    launch), and a timed step at 4 x 16000 and 4 x 32000 by stage and on
+    the host clock; masters float32.
 
 The line before the last is a JSON object with each kernel's launches on
 the main paths, the shape its numbers were taken at (``shape``; the other
@@ -234,7 +266,9 @@ the plain version's, the library call's where there is one, and the
 least time the card could take (``bound_ms``: the larger of bytes over
 3.35 TB/s and float32 operations over 67 TFLOP/s, or for the bf16
 products of int8_matmul and the bf16 LSTM kernels 989 TFLOP/s, for the
-attention kernels' 3xTF32 products 495 / 3 TFLOP/s, for fused_logmel's
+attention kernels' 3xTF32 products 495 / 3 TFLOP/s, for their bf16
+variants 989 for the bf16 products and 495 / 2 for the 2xTF32 ones, for
+fused_logmel's
 DFT products 495 / 3 and its mel product 67, NVIDIA's H100 SXM data
 sheet), and the route a kernel with several
 took there (``attention_route``, ``wavenet_route`` with the sampler's
@@ -280,7 +314,7 @@ from padertorch_tpu_torch.contrib.examples.speaker_classification \
 from padertorch_tpu_torch.contrib.je.modules.features import (
     FusedAudioLogMelExtractor)
 from padertorch_tpu_torch.contrib.mk.modules.transformer import (
-    MultiheadAttention, set_attention_backend)
+    MultiheadAttention, dense_attention, set_attention_backend)
 from padertorch_tpu_torch.models.tasnet import TasNet
 from padertorch_tpu_torch.modules.dual_path_transformer import (
     DualPathTransformer)
@@ -292,8 +326,8 @@ from padertorch_tpu_torch.ops.kernels import attention as attention_kernels
 from padertorch_tpu_torch.ops.kernels import gru as gru_kernels
 from padertorch_tpu_torch.ops.kernels import lstm as lstm_kernels
 from padertorch_tpu_torch.ops.kernels.attention import (
-    flash_attention, flash_attention_fwd_plain, flash_attention_plain,
-    should_use_flash, tf32_round, visible_mask)
+    flash_attention, flash_attention_bwd_plain, flash_attention_fwd_plain,
+    flash_attention_plain, should_use_flash, tf32_round, visible_mask)
 from padertorch_tpu_torch.ops.kernels.gru import (
     gru_cell_scan, gru_cell_scan_plain, gru_cell_scan_train_plain,
     gru_cell_scan_bwd_plain)
@@ -357,6 +391,32 @@ TASNET_STEP_RTOL = 1e-4
 # the recurrences' Functions
 ATTENTION_TOL = 1e-5
 ATTENTION_GRAD_RTOL = 5e-5
+# the bf16 attention kernels vs their plain bf16 versions (phase 26), the
+# forward's plain taking keys in the kernel's tiles of 64 (P rounded to
+# bf16 against the running maximum, as the JAX kernel against its
+# blocks).  O: one bf16 unit in the last place of the larger value plus
+# 2e-3 (a probability whose float32 value lies at a rounding boundary
+# rounds the other way after exp2 in place of exp and the tensor cores'
+# sums, moving an output near 0 by more than its own unit), at most 1% of
+# the elements other: a CPU emulation of the kernel's arithmetic read up
+# to 6.1e-4 beyond one unit and 0.11% differing; the control, logits
+# rounded to bf16, 19.5% to 64% differing and 3.5e-3 to 1.2e-2 beyond.
+# Gradients: float32 sums in another order, rounded once: one unit plus
+# 1e-5 of the gradient's largest entry, and at most 1% of the elements
+# differing by more than that (a query row that sees one key has dS =
+# p (dP - delta) = 0 in exact arithmetic, so its dq, and its key's dk
+# summed over every query of the group, are rounding noise that differs
+# wherever the sums' order does: on an H100 80GB HBM3 at 700 W, 1.2e-5
+# beyond one unit at (4, 8 over 2, 1024, 64), 3.8% of the elements at a
+# card test's shape by more than 0);
+# the control, P and dS rounded to bf16, 13.7% to 42% in the emulation.
+# LSE float32: 1e-5 of max(|lse|, 1) (a row of one key has lse = its one
+# logit, which may be near 0).
+ATTENTION_BF16_FWD_ATOL = 2e-3
+ATTENTION_BF16_FWD_SHARE = 0.01
+ATTENTION_BF16_GRAD_RTOL = 1e-5
+ATTENTION_BF16_GRAD_SHARE = 0.01
+ATTENTION_BF16_LSE_TOL = 1e-5
 # first SepFormer step, card vs CPU, relative
 SEPFORMER_LOSS_RTOL = 1e-5
 SEPFORMER_NORM_RTOL = 1e-4
@@ -403,8 +463,11 @@ PEAK_BF16_FLOPS = 989e12     # H100 SXM, bf16 on the tensor cores, dense
 PEAK_TF32_FLOPS = 495e12     # H100 SXM, TF32 on the tensor cores, dense
 # float32 products as three TF32 products each (hi*hi + hi*lo + lo*hi)
 PEAK_3XTF32_FLOPS = PEAK_TF32_FLOPS / 3
+# a float32 operand times a bf16 one: two TF32 products (hi*b + lo*b)
+PEAK_2XTF32_FLOPS = PEAK_TF32_FLOPS / 2
 PEAK_NAMES = {PEAK_F32_FLOPS: 'float32', PEAK_BF16_FLOPS: 'bf16 tensor cores',
-              PEAK_3XTF32_FLOPS: '3xTF32 tensor cores'}
+              PEAK_3XTF32_FLOPS: '3xTF32 tensor cores',
+              PEAK_2XTF32_FLOPS: '2xTF32 tensor cores'}
 
 
 def fail(msg):
@@ -479,11 +542,17 @@ def bound(n_bytes, flops, peak=PEAK_F32_FLOPS):
     and each output written once at the memory's peak rate, or the
     operations at ``peak`` (the float32 peak unless the products run on
     the tensor cores), whichever is larger; ``peak`` names that rate."""
+    return bound_mixed(n_bytes, [(flops, peak)])
+
+
+def bound_mixed(n_bytes, parts):
+    """:func:`bound` for work whose operations run at several rates:
+    ``parts`` is [(operations, peak), ...], their times added."""
     by_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    by_ops = flops / peak * 1e3
+    by_ops = sum(flops / peak for flops, peak in parts) * 1e3
     return {'bound_ms': max(by_bytes, by_ops),
             'bound_by': 'bytes' if by_bytes >= by_ops else 'operations',
-            'peak': PEAK_NAMES[peak]}
+            'peak': ' and '.join(PEAK_NAMES[peak] for _, peak in parts)}
 
 
 def lstm_flops(mask, hdim):
@@ -1836,45 +1905,74 @@ def attention_case(label, b, h, h_kv, tq, tk, d, masks, timed):
                 'library_ms': times['bwd_library']}}
 
 
-def attention_dispatch_table():
-    """One ``MultiheadAttention`` (RoPE, float32) on the fused and on the
-    dense backend, forward alone and forward + backward, beside what
-    ``should_use_flash`` picks there."""
+def attention_dispatch_table(dtypes=(torch.float32, torch.bfloat16)):
+    """One ``MultiheadAttention`` (RoPE) in float32 and in bf16 on the fused
+    and on the dense backend, forward alone and forward + backward, beside
+    what ``should_use_flash`` picks there."""
     shapes = [(8, t, 768, 12, masks, None)
               for t in (512, 1024, 2048, 4096)
               for masks in ({}, {'causal': True},
                             {'attn_window': (256, 256)})]
     shapes += [(264, 100, 128, 8, {}, None),
                (400, 66, 128, 8, {}, INTER_LENS)]
-    for batch, t_len, d_model, heads, masks, lens in shapes:
-        torch.manual_seed(0)
-        mha = MultiheadAttention(d_model, heads, use_rope=True).cuda()
-        x = torch.randn((batch, t_len, d_model), device='cuda',
-                        requires_grad=True)
-        d_out = torch.randn_like(x)
-        kwargs = dict(masks)
-        if lens is not None:
-            kwargs['key_padding_lens'] = torch.from_numpy(lens).cuda()
-        leaves = [x, *mha.parameters()]
-        iters = 3 if t_len >= 2048 else 10
-        ms = {}
-        for use_flash in (True, False):
-            set_attention_backend(mha, use_flash)
-            with torch.no_grad():
-                ms[use_flash, 'forward'] = cuda_ms(
-                    lambda: mha(x, **kwargs), iters=iters)
-            ms[use_flash, 'training'] = cuda_ms(
-                lambda: torch.autograd.grad(mha(x, **kwargs), leaves, d_out),
-                iters=iters)
-        pick = should_use_flash(x.device, x.dtype)
-        print(f'phase 12 dispatch (B, T, H x D) = ({batch}, {t_len}, '
-              f'{heads} x {d_model // heads}) {masks or "full"}'
-              f'{"" if lens is None else " ragged"}: '
-              + '; '.join(
-                  f'{mode} fused {ms[True, mode]:.3f} ms, dense '
-                  f'{ms[False, mode]:.3f} ms, auto picks '
-                  f'{"fused" if pick else "dense"}'
-                  for mode in ('forward', 'training')))
+    for dtype in dtypes:
+        for batch, t_len, d_model, heads, masks, lens in shapes:
+            torch.manual_seed(0)
+            mha = MultiheadAttention(d_model, heads, use_rope=True).to(
+                'cuda', dtype)
+            x = torch.randn((batch, t_len, d_model), device='cuda',
+                            dtype=dtype, requires_grad=True)
+            d_out = torch.randn_like(x)
+            kwargs = dict(masks)
+            if lens is not None:
+                kwargs['key_padding_lens'] = torch.from_numpy(lens).cuda()
+            leaves = [x, *mha.parameters()]
+            iters = 3 if t_len >= 2048 else 10
+            ms = {}
+            for use_flash in (True, False):
+                set_attention_backend(mha, use_flash)
+                with torch.no_grad():
+                    ms[use_flash, 'forward'] = cuda_ms(
+                        lambda: mha(x, **kwargs), iters=iters)
+                ms[use_flash, 'training'] = cuda_ms(
+                    lambda: torch.autograd.grad(mha(x, **kwargs), leaves,
+                                                d_out),
+                    iters=iters)
+            del mha, x, d_out, leaves
+            pick = should_use_flash('cuda', dtype, d_model // heads)
+            print(f'phase 12 dispatch {str(dtype)[6:]} (B, T, H x D) = '
+                  f'({batch}, {t_len}, {heads} x {d_model // heads}) '
+                  f'{masks or "full"}{"" if lens is None else " ragged"}: '
+                  + '; '.join(
+                      f'{mode} fused {ms[True, mode]:.3f} ms, dense '
+                      f'{ms[False, mode]:.3f} ms, auto picks '
+                      f'{"fused" if pick else "dense"}'
+                      for mode in ('forward', 'training')))
+        torch.cuda.empty_cache()
+    attention_auto_bf16()
+
+
+def attention_auto_bf16():
+    """``use_flash='auto'`` on a bf16 module on the card: the bf16 forward
+    kernel as the table decides, equal to the forced fused backend bit for
+    bit."""
+    torch.manual_seed(0)
+    mha = MultiheadAttention(768, 12, use_rope=True).to('cuda',
+                                                        torch.bfloat16)
+    x = torch.randn((8, 1024, 768), device='cuda', dtype=torch.bfloat16)
+    reset_launches()
+    with torch.no_grad():
+        auto = mha(x, causal=True)
+        launched = dict(flash_attention.launches)
+        fused = set_attention_backend(mha, True)(x, causal=True)
+    torch.cuda.synchronize()
+    same = torch.equal(auto, fused)
+    print(f'phase 12 use_flash=\'auto\' bf16 at (8, 1024, 12 x 64) causal: '
+          f'should_use_flash {should_use_flash(x.device, x.dtype, 64)}, '
+          f'kernel launches {launched}, equal to the fused backend bit for '
+          f'bit {same}')
+    if launched != with_zeros(launched, {'fwd_bf16': 1}) or not same:
+        fail('use_flash=\'auto\' in bf16 did not take the bf16 kernel')
 
 
 def phase_attention_kernels():
@@ -3542,10 +3640,10 @@ FLAGSHIP_BF16_LOSS_RTOL = 0.05
 BF16_MODEL_TOL = 5e-2
 
 
-def bf16_distance(got, want, atol):
+def bf16_distance(got, want, atol, floor=0.0):
     """Over pairs of tensors: (largest difference beyond one bf16 unit in
     the last place of the larger of the two values plus ``atol``, share of
-    elements that differ)."""
+    elements that differ by more than ``floor``)."""
     worst, differ, total = -float('inf'), 0, 0
     for g, w in zip(got, want):
         g, w = g.float(), w.float()
@@ -3555,9 +3653,29 @@ def bf16_distance(got, want, atol):
             torch.where(big > 0, big, torch.ones_like(big)))) - 7),
             torch.zeros_like(big))
         worst = max(worst, float((diff - ulp - atol).max()))
-        differ += int((diff > 0).sum())
+        differ += int((diff > floor).sum())
         total += diff.numel()
     return worst, differ / total
+
+
+def bf16_grad_distance(got, want, rtol=None):
+    """:func:`bf16_distance` over gradients, each with ``rtol`` times its
+    own largest entry as the limit beyond one unit and as the floor of the
+    share."""
+    rtol = ATTENTION_BF16_GRAD_RTOL if rtol is None else rtol
+    worst, differ, total = -float('inf'), 0.0, 0
+    for g, w in zip(got, want):
+        tol = rtol * float(w.float().abs().max())
+        excess, share = bf16_distance([g], [w], tol, tol)
+        worst = max(worst, excess)
+        differ += share * w.numel()
+        total += w.numel()
+    return worst, differ / total
+
+
+def lse_distance(got, want):
+    """Largest |got - want| / max(|want|, 1) of two log-sum-exps."""
+    return float(((got - want).abs() / want.abs().clamp(min=1.0)).max())
 
 
 def lstm_bf16_case(label, t_len, batch, hdim, kind, in_size):
@@ -3819,6 +3937,363 @@ def phase_dprnn_bf16(profile=False):
     torch.cuda.empty_cache()
 
 
+# (label, B, H, Hkv, Tq, Tk, D, masks, timed); the first is the shape of
+# the rows in the kernels' line, the fourth bench.py's headline
+ATTENTION_BF16_CASES = [
+    ('intra (264, 8, 100, 16)', 264, 8, 8, 100, 100, 16, {}, True),
+    ('inter (400, 8, 66, 16) ragged', 400, 8, 8, 66, 66, 16,
+     {'key_padding_lens': INTER_LENS}, True),
+    ('(8, 12, 2048, 64) full', 8, 12, 12, 2048, 2048, 64, {}, True),
+    ('bench (8, 12, 4096, 64) causal', 8, 12, 12, 4096, 4096, 64,
+     {'causal': True}, True),
+    ('bench (8, 12, 1024, 64) full', 8, 12, 12, 1024, 1024, 64, {}, True),
+    ('bench (8, 12, 4096, 64) window (255, 256)', 8, 12, 12, 4096, 4096, 64,
+     {'window': (255, 256)}, True),
+    ('gqa (4, 8 over 2, 1024, 64) causal, ragged', 4, 8, 2, 1024, 1024, 64,
+     {'causal': True, 'key_padding_lens': [1024, 777, 300, 1]}, True),
+    ('D=32 (4, 8, 1000, 32) causal', 4, 8, 8, 1000, 1000, 32,
+     {'causal': True}, False),
+    ('D=128 (2, 8, 2048, 128) full', 2, 8, 8, 2048, 2048, 128, {}, False),
+    ('D=128 gqa (2, 8 over 2, 130 x 77) ragged', 2, 8, 2, 130, 77, 128,
+     {'key_padding_lens': [77, 50]}, False),
+    ('a fully masked row (3, 4, 70, 64)', 3, 4, 4, 70, 70, 64,
+     {'key_padding_lens': [70, 1, 0]}, False),
+]
+
+
+def by_batch(fn, tensors, masks):
+    """``fn(*tensors, **masks)`` on slices of the batch, concatenated: the
+    plain versions hold (B, H, Tq, Tk) float32 tensors, a few GB each at
+    bench.py's shapes, so rows go a few at a time (about 2^28 logits)."""
+    b, h, tq = tensors[0].shape[:3]
+    tk = tensors[1].shape[2]
+    rows = max(1, (1 << 28) // (h * tq * tk))
+    lens = masks.get('key_padding_lens')
+    lens = None if lens is None else np.asarray(lens)
+    outs = []
+    for i in range(0, b, rows):
+        part = dict(masks)
+        if lens is not None:
+            part['key_padding_lens'] = lens[i:i + rows]
+        outs.append(fn(*(x[i:i + rows] for x in tensors), **part))
+    return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
+def attention_bf16_fwd_plain(q, k, v, **masks):
+    """The bf16 forward kernel's yardstick: plain in the kernel's tiles."""
+    return flash_attention_fwd_plain(
+        q, k, v, key_tile=attention_kernels.BF16_KEY_TILE, **masks)
+
+
+def attention_bf16_control_fwd(q, k, v, *, causal=False,
+                               key_padding_lens=None, window=None):
+    """The forward's control: plain in the kernel's tiles, but with the
+    logits rounded to bf16 (as a bf16 ``matmul`` returns them)."""
+    b, h, tq, d = q.shape
+    tk, group = k.shape[2], h // k.shape[1]
+    k, v = (x.repeat_interleave(group, dim=1) for x in (k, v))
+    lens = attention_kernels._lens_tensor(key_padding_lens, b, q.device)
+    valid = visible_mask(tq, tk, lens, causal, window, q.device)
+    s = torch.matmul(q, k.transpose(-1, -2)).float() / np.sqrt(d)
+    s = torch.where(valid, s, s.new_tensor(-1e30))
+    tile = attention_kernels.BF16_KEY_TILE
+    m = s.new_full((b, h, tq, 1), -1e30)
+    l = s.new_zeros((b, h, tq, 1))
+    acc = s.new_zeros((b, h, tq, d))
+    for j in range(0, tk, tile):
+        m_new = torch.maximum(m, s[..., j:j + tile].max(-1, keepdim=True)
+                              .values)
+        p = torch.where(valid[..., j:j + tile],
+                        torch.exp(s[..., j:j + tile] - m_new),
+                        s.new_zeros(()))
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + torch.matmul(p.bfloat16().float(),
+                                         v[..., j:j + tile, :].float())
+        m = m_new
+    return ((acc / l.clamp(min=1e-30)).bfloat16(),)
+
+
+def attention_bf16_control_bwd(q, k, v, o, lse, d_o, *, causal=False,
+                               key_padding_lens=None, window=None):
+    """The backward's control: plain with P and dS rounded to bf16 as the
+    operands of their products (another function than the JAX kernel's,
+    which keeps both float32)."""
+    b, h, tq, d = q.shape
+    h_kv, tk = k.shape[1], k.shape[2]
+    scale = 1.0 / np.sqrt(d)
+    kf, vf = (x.float().repeat_interleave(h // h_kv, dim=1) for x in (k, v))
+    lens = attention_kernels._lens_tensor(key_padding_lens, b, q.device)
+    valid = visible_mask(tq, tk, lens, causal, window, q.device)
+    dof = d_o.float()
+    delta = (dof * o.float()).sum(dim=-1, keepdim=True)
+    s = torch.matmul(q.float(), kf.transpose(-1, -2)) * scale
+    p = torch.where(valid, torch.exp(torch.where(valid, s, s.new_tensor(
+        -1e30)) - lse[..., None]), s.new_zeros(()))
+    ds = (p * (torch.matmul(dof, vf.transpose(-1, -2)) - delta)).bfloat16()
+    p = p.bfloat16().float()
+    dv = torch.matmul(p.transpose(-1, -2), dof)
+    dk = torch.matmul(ds.float().transpose(-1, -2), q.float()) * scale
+    dq = torch.matmul(ds.float(), kf) * scale
+    if h_kv != h:
+        dk = dk.reshape(b, h_kv, h // h_kv, tk, d).sum(dim=2)
+        dv = dv.reshape(b, h_kv, h // h_kv, tk, d).sum(dim=2)
+    return dq.bfloat16(), dk.bfloat16(), dv.bfloat16()
+
+
+def attention_bf16_case(label, b, h, h_kv, tq, tk, d, masks, timed):
+    """One shape of phase 26: the bf16 kernels against their plain bf16
+    versions and the control, and (``timed``) their times beside the
+    float32 kernels', plain's, the library's and the bounds.  Returns
+    {'fwd': row, 'bwd': row} or None."""
+    rng = np.random.RandomState(0)
+    f32 = [torch.tensor(rng.randn(*shape), dtype=torch.float32,
+                        device='cuda')
+           for shape in ((b, h, tq, d), (b, h_kv, tk, d), (b, h_kv, tk, d),
+                         (b, h, tq, d))]
+    q, k, v, d_o = (x.bfloat16() for x in f32)
+    lens = attention_kernels._lens_tensor(
+        masks.get('key_padding_lens'), b, q.device)
+    config = (masks.get('causal', False),
+              *attention_kernels._norm_window(masks.get('window')),
+              1.0 / np.sqrt(d))
+
+    def kernel_bwd(o, lse):
+        delta = (d_o.float() * o.float()).sum(-1)
+        return attention_kernels._launch_bwd(q, k, v, lens, d_o, lse, delta,
+                                             *config)
+
+    with torch.no_grad():
+        lean = flash_attention(q, k, v, **masks)
+        o, lse = attention_kernels._launch_fwd(q, k, v, lens, *config,
+                                               train=True)
+        grads = kernel_bwd(o, lse)
+        same = (torch.equal(lean, o) and all(
+            torch.equal(x, y) for x, y in zip(grads, kernel_bwd(o, lse))))
+        want, want_lse = by_batch(attention_bf16_fwd_plain, (q, k, v),
+                                  masks)
+        want_grads = by_batch(flash_attention_bwd_plain,
+                              (q, k, v, o, lse, d_o), masks)
+        control, = by_batch(attention_bf16_control_fwd, (q, k, v), masks)
+        control_grads = by_batch(attention_bf16_control_bwd,
+                                 (q, k, v, o, lse, d_o), masks)
+    # the autograd Function: the same kernels, the same bits
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = flash_attention(*leaves, **masks)
+    auto = torch.autograd.grad(out, leaves, d_o, retain_graph=timed)
+    torch.cuda.synchronize()
+    same = same and torch.equal(out, o) and all(
+        torch.equal(x, y) for x, y in zip(auto, grads))
+    excess, share = bf16_distance([o], [want], ATTENTION_BF16_FWD_ATOL)
+    lse_err = lse_distance(lse, want_lse)
+    grad_excess, grad_share = bf16_grad_distance(grads, want_grads)
+    _, control_share = bf16_distance([control], [want],
+                                     ATTENTION_BF16_FWD_ATOL)
+    _, control_grad_share = bf16_grad_distance(control_grads, want_grads)
+    print(f'phase 26 attention bf16 {label}: O '
+          f'{excess + ATTENTION_BF16_FWD_ATOL:.3e} beyond one bf16 ulp (tol {ATTENTION_BF16_FWD_ATOL}), {share:.3%} '
+          f'differ (tol {ATTENTION_BF16_FWD_SHARE:.0%}; control, logits '
+          f'rounded to bf16, {control_share:.3%}); LSE {lse_err:.3e} of '
+          f'max(|lse|, 1) (tol {ATTENTION_BF16_LSE_TOL}); dq, dk, dv '
+          f'beyond one ulp plus {ATTENTION_BF16_GRAD_RTOL} of each one\'s '
+          f'largest entry by {grad_excess:.3e} (passes at <= 0), '
+          f'{grad_share:.3%} differ by more (tol {ATTENTION_BF16_GRAD_SHARE:.0%}; control, P and dS rounded '
+          f'to bf16, {control_grad_share:.3%}); lean = training forward, '
+          f'autograd = kernels, two runs: the same bits {same}')
+    if not (excess <= 0 and share <= ATTENTION_BF16_FWD_SHARE
+            and lse_err <= ATTENTION_BF16_LSE_TOL):
+        fail(f'bf16 attention forward kernel disagrees with plain at '
+             f'{label}: {excess}, {share}, {lse_err}')
+    if not (grad_excess <= 0 and grad_share <= ATTENTION_BF16_GRAD_SHARE):
+        fail(f'bf16 attention backward kernels disagree with plain at '
+             f'{label}: {grad_excess}, {grad_share}')
+    if not (control_share > ATTENTION_BF16_FWD_SHARE
+            and control_grad_share > ATTENTION_BF16_GRAD_SHARE):
+        fail(f'the limits do not tell bf16-rounded logits, P or dS from the '
+             f'kernels\' arithmetic at {label}: {control_share}, '
+             f'{control_grad_share}')
+    if not same:
+        fail(f'two bf16 attention runs, or the lean and training forwards, '
+             f'or the Function and the kernels, differ at {label}')
+    if lens is not None:
+        for row in torch.nonzero(lens == 0)[:, 0].tolist():
+            if any(float(x[row].abs().max()) != 0.0 for x in (o, *grads)):
+                fail(f'{label}: row {row} has no key but a nonzero output '
+                     f'or gradient')
+    if not timed:
+        return None
+
+    q32, k32, v32, d_o32 = f32
+    leaves32 = [x.clone().requires_grad_() for x in (q32, k32, v32)]
+    out32 = flash_attention(*leaves32, **masks)
+    with torch.no_grad():
+        times = {
+            'fwd': cuda_ms(lambda: flash_attention(q, k, v, **masks),
+                           iters=10),
+            'fwd_f32': cuda_ms(lambda: flash_attention(q32, k32, v32,
+                                                       **masks), iters=10),
+            'fwd_plain': cuda_ms(lambda: by_batch(
+                attention_bf16_fwd_plain, (q, k, v), masks), iters=2)}
+        times['bwd_plain'] = cuda_ms(lambda: by_batch(
+            flash_attention_bwd_plain, (q, k, v, o, lse, d_o), masks),
+            iters=2)
+    torch.cuda.empty_cache()
+    times['bwd'], _ = cuda_ms_median(
+        lambda: torch.autograd.grad(out, leaves, d_o, retain_graph=True),
+        iters=10)
+    times['bwd_f32'], _ = cuda_ms_median(
+        lambda: torch.autograd.grad(out32, leaves32, d_o32,
+                                    retain_graph=True), iters=10)
+    del out32, leaves32
+    times['fwd_library'], times['bwd_library'] = attention_library(
+        q, k, v, d_o, masks)
+    # the work these inputs need: per visible (query, key) pair two bf16
+    # products of D in the forward; in the backward two bf16 (S, dP) and
+    # three 2xTF32 (dV, dK, dQ)
+    visible = visible_mask(tq, tk, lens, masks.get('causal', False),
+                           masks.get('window'), q.device)
+    pairs = float(visible.sum()) * h * (b // visible.shape[0])
+    limits = {
+        'fwd': bound_mixed(nbytes(q, k, v, lens, o),
+                           [(4 * pairs * d, PEAK_BF16_FLOPS)]),
+        'bwd': bound_mixed(nbytes(q, k, v, lens, o, lse, d_o, *grads),
+                           [(4 * pairs * d, PEAK_BF16_FLOPS),
+                            (6 * pairs * d, PEAK_2XTF32_FLOPS)])}
+    for name in ('fwd', 'bwd'):
+        print(f'phase 26 attention bf16 {name} {label}: kernel '
+              f'{times[name]:.3f} ms (the float32 kernel'
+              f'{"s" if name == "bwd" else ""} {times[name + "_f32"]:.3f} '
+              f'ms{", delta included" if name == "bwd" else ""}), plain '
+              f'{times[name + "_plain"]:.3f} ms, scaled_dot_product_attention'
+              f' bf16 {times[name + "_library"]:.3f} ms, bound '
+              f'{limits[name]["bound_ms"]:.4f} ms by '
+              f'{limits[name]["bound_by"]} at the {limits[name]["peak"]} '
+              f'peak (the kernel at '
+              f'{limits[name]["bound_ms"] / times[name]:.1%} of it)')
+    return {
+        'fwd': {'max_abs_err': max_err([o.float()], [want.float()]),
+                'share_differing': share,
+                'control_share': control_share, 'ms': times['fwd'],
+                'f32_kernel_ms': times['fwd_f32'],
+                'plain_ms': times['fwd_plain'], **limits['fwd'],
+                'library_ms': times['fwd_library']},
+        'bwd': {'max_abs_err': max_err([x.float() for x in grads],
+                                       [x.float() for x in want_grads]),
+                'share_differing': grad_share,
+                'control_share': control_grad_share, 'ms': times['bwd'],
+                'f32_kernel_ms': times['bwd_f32'],
+                'plain_ms': times['bwd_plain'], **limits['bwd'],
+                'library_ms': times['bwd_library']}}
+
+
+def attention_bf16_train_headline():
+    """bench.py's ``flash_attention_causal_train_ms`` on the port: forward
+    + backward at (8, 12, 4096, 64) causal bf16 (the gradient of the
+    output's sum, as bench.py takes it), beside the port's dense bf16 path
+    (``dense_attention``, float32 logits) and the library."""
+    rng = np.random.RandomState(0)
+    leaves = [torch.tensor(rng.randn(8, 12, 4096, 64), device='cuda').to(
+        torch.bfloat16).requires_grad_() for _ in range(3)]
+
+    def train(fn):
+        out = fn(*leaves)
+        return torch.autograd.grad(out.float().sum(), leaves)
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ms = {}
+    for name, fn in (
+            ('kernels', lambda q, k, v: flash_attention(q, k, v,
+                                                        causal=True)),
+            ('dense', lambda q, k, v: dense_attention(q, k, v, causal=True)),
+            ('scaled_dot_product_attention',
+             lambda q, k, v: sdpa(q, k, v, is_causal=True))):
+        ms[name] = cuda_ms(lambda: train(fn), iters=3)
+        torch.cuda.empty_cache()
+    print('phase 26 flash_attention_causal_train_ms (bench.py) at (8, 12, '
+          '4096, 64) causal bf16, forward + backward: '
+          + ', '.join(f'{k} {v:.3f} ms' for k, v in ms.items()))
+    return ms
+
+
+def phase_attention_bf16():
+    """Phase 26: the bf16 attention kernels at ATTENTION_BF16_CASES, then
+    bench.py's headline.  Returns ({label: rows}, headline ms)."""
+    start = time.perf_counter()
+    results = {}
+    for label, *shape, masks, timed in ATTENTION_BF16_CASES:
+        rows = attention_bf16_case(label, *shape, masks, timed)
+        torch.cuda.empty_cache()
+        if rows is not None:
+            results[label] = rows
+    headline = attention_bf16_train_headline()
+    print(f'phase 26 took {time.perf_counter() - start:.1f} s')
+    return results, headline
+
+
+def phase_sepformer_bf16(profile=False):
+    """Phase 27: the SepFormer-TasNet step under ``precision='bfloat16'``
+    with the fused backend (``--flash``), beside the dense bf16 backend and
+    the float32 fused step from the same start.  Returns the bf16 kernels'
+    launches of the 20 steps of the fused bf16 run."""
+    start = time.perf_counter()
+    steps = 20
+    batch = tasnet_batch(4, 16000, seed=1)
+    results, launches = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, precision, fused in (('bf16 fused', 'bfloat16', True),
+                                        ('bf16 dense', 'bfloat16', False),
+                                        ('f32 fused', None, True)):
+            torch.manual_seed(0)
+            trainer = Trainer.from_config(tas_train.get_trainer_config(
+                Path(tmp) / label.replace(' ', '_'), variant='sepformer',
+                updates={'precision': precision})).to('cuda')
+            if sepformer_width(trainer.model) != SEPFORMER_WIDTH:
+                fail(f'not the full-width SepFormer-TasNet: '
+                     f'{sepformer_width(trainer.model)}')
+            set_attention_backend(trainer.model, fused)
+            example = trainer.model.example_to_device(batch, 'cuda')
+            reset_launches()
+            losses = losses_over(trainer, example, steps)
+            launches[label] = dict(flash_attention.launches)
+            variant = '_bf16' if precision else ''
+            want = with_zeros(launches[label], {
+                'fwd_train' + variant: 16 * steps * fused,
+                'bwd' + variant: 16 * steps * fused})
+            if launches[label] != want:
+                fail(f'phase 27 {label}: launches {launches[label]}, '
+                     f'expected {want}')
+            times = {samples: timed_step(
+                trainer, tasnet_batch(4, samples, seed=1),
+                loss_key='trainer', wrapper=flash_attention,
+                per_step=16 * fused, variant=variant)
+                for samples in (16000, 32000)}
+            masters_are_float32(trainer, f'phase 27 {label}')
+            if profile:
+                profile_step(trainer, batch, f'phase 27 SepFormer {label}')
+            results[label] = losses
+            for samples, t in times.items():
+                print(f'phase 27 SepFormer step {label} B=4 x {samples}: '
+                      + ', '.join(f'{k} {v:.3f} ms' for k, v in t.items()))
+            del trainer
+        diff = {other: max(abs(x - y) for x, y in zip(
+            results['bf16 fused'], results[other]))
+            for other in ('bf16 dense', 'f32 fused')}
+        print(f'phase 27 losses over {steps} steps at B=4 x 16000: '
+              + '; '.join(f'{k} {[round(x, 4) for x in v]}'
+                          for k, v in results.items())
+              + '; bf16 fused against '
+              + ', '.join(f'{k} {v:.4f}' for k, v in diff.items())
+              + f' largest difference; launches of the bf16 fused '
+              f'run {launches["bf16 fused"]}; '
+              f'{time.perf_counter() - start:.1f} s')
+        bf16 = results['bf16 fused']
+        if not (np.isfinite(bf16).all() and bf16[-1] < bf16[0]):
+            fail(f'the bf16 SepFormer step on the kernels does not train: '
+                 f'{bf16}')
+    torch.cuda.empty_cache()
+    return launches['bf16 fused']
+
+
 def main():
     profile = '--profile' in sys.argv[1:]
     phase_device()
@@ -3857,6 +4332,12 @@ def main():
     lstm_bf16 = phase_lstm_bf16_kernels()
     lstm_bf16_launches = phase_flagship_bf16()
     phase_dprnn_bf16(profile=profile)
+    attention_bf16, headline = phase_attention_bf16()
+    attention_bf16_launches = phase_sepformer_bf16(profile=profile)
+    for name in ('fwd_train_bf16', 'bwd_bf16'):
+        if attention_bf16_launches[name] == 0:
+            fail(f'the bf16 SepFormer step never launched the attention '
+                 f'{name} kernel')
     if wavenet_launches == 0:
         fail('the vocoder\'s requests never launched the wavenet_sample '
              'kernel')
@@ -3906,7 +4387,8 @@ def main():
           f'classifier {speaker}; int8_matmul {int8_launches} (one B=1 '
           f'decode of 128 tokens), {serve_launches} (16 batched requests); '
           f'bf16 lstm {lstm_bf16_launches} (the bf16 flagship: 20 training '
-          f'steps, 4 requests)')
+          f'steps, 4 requests); bf16 attention {attention_bf16_launches} '
+          f'(the bf16 SepFormer step: 20 training steps)')
     # every row's numbers are those of its ``shape``: the GRU rows those of
     # the intra-chunk shape, which six of a TasNet's twelve chunk RNNs run
     # (phase 8 prints the rows of the other shapes, the classifier's two
@@ -3919,6 +4401,7 @@ def main():
     # the attention rows are those of the intra-chunk shape (8 of a
     # model's 16 layers); the forward row counts lean and training launches
     attention_rows = attention[ATTENTION_CASES[0][0]]
+    attention_bf16_rows = attention_bf16[ATTENTION_BF16_CASES[0][0]]
     kernels = [
         {'name': 'lstm_cell_scan', 'route': 'cuda',
          'source': 'padertorch_tpu_torch/csrc/lstm_cell_scan.cu',
@@ -3979,6 +4462,21 @@ def main():
          'replaces': 'padertorch_tpu/ops/pallas/attention.py:351',
          'launches': attention_launches['bwd'],
          'shape': ATTENTION_CASES[0][0], **attention_rows['bwd']},
+        {'name': 'flash_attention_bf16', 'route': 'cuda',
+         'source': 'padertorch_tpu_torch/csrc/flash_attention.cu',
+         'replaces': 'padertorch_tpu/ops/pallas/attention.py:328',
+         'launches': attention_bf16_launches['fwd_bf16']
+         + attention_bf16_launches['fwd_train_bf16'],
+         'attention_route': 'tensor cores, bf16 mma.sync',
+         'shape': ATTENTION_BF16_CASES[0][0] + ' bf16',
+         **attention_bf16_rows['fwd']},
+        {'name': 'flash_attention_bwd_bf16', 'route': 'cuda',
+         'source': 'padertorch_tpu_torch/csrc/flash_attention_bwd.cu',
+         'replaces': 'padertorch_tpu/ops/pallas/attention.py:351',
+         'launches': attention_bf16_launches['bwd_bf16'],
+         'attention_route': 'tensor cores, bf16 and 2xTF32 mma.sync',
+         'shape': ATTENTION_BF16_CASES[0][0] + ' bf16',
+         **attention_bf16_rows['bwd']},
         {'name': 'wavenet_sample', 'route': 'cuda',
          'source': 'padertorch_tpu_torch/csrc/wavenet_sample.cu',
          'replaces': 'padertorch_tpu/ops/pallas/wavenet.py:192',
@@ -3994,6 +4492,8 @@ def main():
          'launches': int8_launches, 'shape': 'M=1 K=1024 N=4096 bf16',
          **int8_row},
     ]
+    print('bench.py flash_attention_causal_train_ms counterpart (ms): '
+          + json.dumps(headline))
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -19,13 +19,14 @@ largest difference from the plain backward, and the grid the kernel takes
 ``flash_attention`` relative to autograd through the plain version (each
 gradient's largest difference over its largest entry) at D = 128 and T =
 2048 and 4096, and whether two backward runs give the same bits; then the
-two backward kernels' time at (4, 8, 2048, 128) full and causal and at
-(8, 12, 2048, 64) full.  ``attention-bits``: a digest (SHA-256) of the
-backward kernels' dq, dk, dv at the SepFormer's two shapes, (8, 12, 2048,
-64) full and causal, grouped-query heads and D = 128 with key lengths, on
-inputs made from a seed and the plain forward's output and log-sum-exp, so
-that two checkouts whose backward kernels should agree bit for bit print
-the same digests.  float32 throughout.  Prints the card's name and power
+two backward kernels' time, and the forward kernel's, at (4, 8, 2048,
+128) full and causal and at (8, 12, 2048, 64) full.  ``attention-bits``:
+a digest (SHA-256) of the backward kernels' dq, dk, dv at the SepFormer's
+two shapes, (8, 12, 2048, 64) full and causal, grouped-query heads and
+D = 128 with key lengths, on inputs made from a seed and the plain
+forward's output and log-sum-exp, and one of the forward kernel's output
+and log-sum-exp on the same inputs, so that two checkouts whose kernels
+should agree bit for bit print the same digests.  float32 throughout.  Prints the card's name and power
 limit first; exits non-zero without a card.
 """
 import hashlib
@@ -140,6 +141,10 @@ def attention_backward(ak):
         ms, windows = median_ms(lambda: ak._launch_bwd(*args))
         print(f'attention backward kernels {label}: {ms:.4f} ms (windows '
               f'{[round(x, 4) for x in windows]})', flush=True)
+        ms, windows = median_ms(lambda: ak._launch_fwd(
+            q, k, v, None, causal, None, None, scale, train=False))
+        print(f'attention forward kernel {label}: {ms:.4f} ms (windows '
+              f'{[round(x, 4) for x in windows]})', flush=True)
 
 
 def attention_backward_bits(ak):
@@ -165,11 +170,18 @@ def attention_backward_bits(ak):
         grads = ak._launch_bwd(q, k, v, lens, d_o, lse.contiguous(),
                                (d_o * out).sum(-1), masks.get('causal', False),
                                None, None, 1.0 / np.sqrt(d))
-        digest = hashlib.sha256()
-        for g in grads:
-            digest.update(g.cpu().numpy().tobytes())
-        print(f'attention backward bits {label}: {digest.hexdigest()}',
+        print(f'attention backward bits {label}: {sha256(grads)}', flush=True)
+        forward = ak._launch_fwd(q, k, v, lens, masks.get('causal', False),
+                                 None, None, 1.0 / np.sqrt(d), train=True)
+        print(f'attention forward bits {label}: {sha256(forward)}',
               flush=True)
+
+
+def sha256(tensors):
+    digest = hashlib.sha256()
+    for x in tensors:
+        digest.update(x.cpu().numpy().tobytes())
+    return digest.hexdigest()
 
 
 def main():

@@ -15,9 +15,10 @@ and ``speculative_generate``.
 Attention runs on one of two backends.  The fused one
 (``ops/kernels/attention.py``) is exact softmax attention that never
 writes the (B, H, Tq, Tk) logits to device memory, in hand-written kernels
-on a CUDA tensor (float32 only); the dense one is plain tensor code and
-takes what the kernels do not (an additive ``attn_bias``, active attention
-dropout, the bias token, bf16).  The two differ only on fully masked query
+on a CUDA tensor (float32, or bf16 with the reference kernel's float32
+statistics); the dense one (:func:`dense_attention`) is plain tensor code
+with float32 logits and softmax, and takes what the kernels do not (an
+additive ``attn_bias``, active attention dropout, the bias token).  The two differ only on fully masked query
 rows: the fused backend returns 0 there, the dense one the mean of the
 values.  The decode methods always run the dense formula, as in the JAX
 package: masked logits are filled with ``finfo.min``, never ``-inf``, so a
@@ -54,6 +55,7 @@ import torch.nn.functional as F
 from padertorch_tpu_torch import nn
 from padertorch_tpu_torch.ops.kernels.attention import (
     flash_attention, should_use_flash)
+from padertorch_tpu_torch.ops.kernels.lstm import matmul_f32
 from padertorch_tpu_torch.ops.sequence.mask import compute_mask
 
 __all__ = [
@@ -103,6 +105,53 @@ def __getattr__(name):
     if name in _WAITING:
         raise _not_ported(f'{__name__}.{name}')
     raise AttributeError(f'module {__name__!r} has no attribute {name!r}')
+
+
+def dense_attention(q, k, v, *, causal=False, key_padding_lens=None,
+                    window=None, attn_bias=None, keep_last_key=False,
+                    dropout=None):
+    """The dense attention of :class:`MultiheadAttention` (the reference's
+    non-fused path) over q (B, H, Tq, D) and k, v (B, Hkv, Tk, D): the
+    (B, H, Tq, Tk) logits as float32 sums (the reference's
+    ``preferred_element_type=float32``: bf16 q, k are not rounded after
+    the product), masked with ``finfo.min``, a float32 softmax cast to q's
+    type, then ``weights @ v``.  ``keep_last_key``: the appended bias
+    token of ``add_bias_kv`` stays attendable under padding; ``dropout``
+    is applied to the weights."""
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    group = h // k.shape[1]
+    if group > 1:
+        k = k.repeat_interleave(group, dim=1)
+        v = v.repeat_interleave(group, dim=1)
+    logits = matmul_f32(
+        q.reshape(b * h, tq, d), k.reshape(b * h, tk, d).transpose(1, 2)
+    ).reshape(b, h, tq, tk) * (1.0 / math.sqrt(d))
+    if attn_bias is not None:
+        logits = logits + attn_bias
+    lowest = torch.finfo(logits.dtype).min
+    cols = torch.arange(tk, device=q.device)
+    if key_padding_lens is not None:
+        lens = torch.as_tensor(key_padding_lens, device=q.device)
+        pad = cols[None, :] >= lens[:, None]
+        if keep_last_key:
+            pad = pad & (cols[None, :] != tk - 1)
+        logits = logits.masked_fill(pad[:, None, None, :], lowest)
+    diff = cols[None, :] - torch.arange(tq, device=q.device)[:, None]
+    if causal:
+        logits = logits.masked_fill((diff > 0)[None, None], lowest)
+    if window is not None:
+        left, right = window
+        outside = torch.zeros_like(diff, dtype=torch.bool)
+        if left is not None:
+            outside = outside | (diff < -left)
+        if right is not None:
+            outside = outside | (diff > right)
+        logits = logits.masked_fill(outside[None, None], lowest)
+    weights = torch.softmax(logits, dim=-1).to(q.dtype)
+    if dropout is not None:
+        weights = dropout(weights)
+    return torch.matmul(weights, v)
 
 
 class RoPE(nn.Float32Buffers):
@@ -294,8 +343,8 @@ class MultiheadAttention(nn.Module):
         use_flash = self.use_flash
         if (use_flash and attn_bias is None and not bias_kv
                 and (self.dropout is None or not self.training)):
-            # 'auto' takes the kernels for float32 on the card at the head
-            # sizes they take; True forces the fused backend (its plain
+            # 'auto' takes the kernels for float32 and bf16 on the card at
+            # the head sizes they take; True forces the fused backend (its plain
             # version on a CPU tensor; a head wider than the kernels take
             # raises on the card)
             if use_flash is True or should_use_flash(
@@ -303,37 +352,10 @@ class MultiheadAttention(nn.Module):
                 return self._merge(flash_attention(
                     q, k, v, causal=causal,
                     key_padding_lens=key_padding_lens, window=attn_window))
-        group = self.num_heads // self.num_kv_heads
-        if group > 1:
-            k = k.repeat_interleave(group, dim=1)
-            v = v.repeat_interleave(group, dim=1)
-        logits = torch.matmul(q, k.transpose(-1, -2)).to(torch.float32) \
-            * (1.0 / math.sqrt(self.d_head))
-        if attn_bias is not None:
-            logits = logits + attn_bias
-        lowest = torch.finfo(logits.dtype).min
-        cols = torch.arange(tk, device=q.device)
-        if key_padding_lens is not None:
-            lens = torch.as_tensor(key_padding_lens, device=q.device)
-            pad = cols[None, :] >= lens[:, None]
-            if bias_kv:  # the appended bias token is always attendable
-                pad = pad & (cols[None, :] != tk - 1)
-            logits = logits.masked_fill(pad[:, None, None, :], lowest)
-        diff = cols[None, :] - torch.arange(tq, device=q.device)[:, None]
-        if causal:
-            logits = logits.masked_fill((diff > 0)[None, None], lowest)
-        if attn_window is not None:
-            left, right = attn_window
-            outside = torch.zeros_like(diff, dtype=torch.bool)
-            if left is not None:
-                outside = outside | (diff < -left)
-            if right is not None:
-                outside = outside | (diff > right)
-            logits = logits.masked_fill(outside[None, None], lowest)
-        weights = torch.softmax(logits, dim=-1).to(q.dtype)
-        if self.dropout is not None:
-            weights = self.dropout(weights)
-        return self._merge(torch.matmul(weights, v))
+        return self._merge(dense_attention(
+            q, k, v, causal=causal, key_padding_lens=key_padding_lens,
+            window=attn_window, attn_bias=attn_bias, keep_last_key=bias_kv,
+            dropout=self.dropout))
 
     # ---- KV-cache incremental decoding (serving) ----------------------
 

@@ -45,6 +45,18 @@
 // from plain's than float32 adds do, so a tile's products are summed on
 // the tensor cores and the tiles into the registers' running sums by
 // float32 adds.
+//
+// The bf16 variants (T = bf16; `flash_attention_bwd_bf16`), the JAX
+// kernel's numerics for bf16 q, k, v, dO: q, k, v and dO are staged as
+// bf16 (half the bytes); S and dP = dO V^T are bf16 `mma.sync.m16n8k16`
+// products with float32 sums (both operands bf16 values: exact per term,
+// as the JAX kernel's float32 products of the widened values); P and dS
+// stay float32, as in the JAX kernel, so dV = P^T dO, dK = dS^T Q and
+// dQ = dS K are 2xTF32 (the float32 side split in hi and lo, the bf16 side
+// exact in TF32: two products where 3xTF32 takes three).  Every sum is
+// float32: a KV head's query group inside the dk/dv block, dq inside the
+// dq block (still no atomics), and each of dq, dk, dv is rounded to bf16
+// once, when it is stored.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -60,8 +72,8 @@ using namespace flash;
 // (fewer for wide heads, so that two blocks share an SM), and whether the
 // tile sums of dV and dK run in one loop (D = 128 has registers for one at
 // a time).
-template <int D>
-struct Tiles : TileShape<D, (D <= 32 ? 64 : 32)> {
+template <int D, typename T>
+struct Tiles : TileShape<D, (D <= 32 ? 64 : 32), T> {
     static constexpr bool PAIR = D <= 64;
 };
 
@@ -74,10 +86,11 @@ struct Tiles : TileShape<D, (D <= 32 ? 64 : 32)> {
 // With LIM only the first `lim` streamed rows count (a tile at the end of
 // the sequence): the n tiles (n-major) or k steps (k-major) past them are
 // skipped.  Full tiles take LIM false, which keeps the loops free of exits.
-template <bool LIM, bool KN, int K, int N, int NP>
+// B is float32 (3xTF32) or, k-major only, bf16 (2xTF32).
+template <bool LIM, bool KN, int K, int N, int NP, typename TB>
 __device__ __forceinline__ void gemm2(float (&c1)[NP][N][4], const float* a1,
-                                      const float* b1, float (&c2)[NP][N][4],
-                                      const float* a2, const float* b2,
+                                      const TB* b1, float (&c2)[NP][N][4],
+                                      const float* a2, const TB* b2,
                                       int lda, int ldb, int lim, int lane) {
 #pragma unroll
     for (int kk = 0; kk < K; ++kk) {
@@ -92,8 +105,45 @@ __device__ __forceinline__ void gemm2(float (&c1)[NP][N][4], const float* a1,
             uint32_t bh1[2], bl1[2], bh2[2], bl2[2];
             load_b<KN>(b1 + at, ldb, lane, bh1, bl1);
             load_b<KN>(b2 + at, ldb, lane, bh2, bl2);
-            mma3(c1[kk % NP][n], ah1, al1, bh1, bl1);
-            mma3(c2[kk % NP][n], ah2, al2, bh2, bl2);
+            mma_split<TB>(c1[kk % NP][n], ah1, al1, bh1, bl1);
+            mma_split<TB>(c2[kk % NP][n], ah2, al2, bh2, bl2);
+        }
+    }
+}
+
+// S and dP of a tile: c1 (16, 8 N) = A1 B1 and c2 = A2 B2 over the head
+// size D, A row-major and B n-major (rows of the streamed operand), both
+// with stride ld.  float32 operands in 3xTF32 (gemm2), bf16 ones as bf16
+// products; with LIM the n tiles at or past `lim` are skipped.
+template <bool LIM, int D, int N>
+__device__ __forceinline__ void gemm_sdp(float (&c1)[1][N][4],
+                                         const float* a1, const float* b1,
+                                         float (&c2)[1][N][4],
+                                         const float* a2, const float* b2,
+                                         int ld, int lim, int lane) {
+    gemm2<LIM, false, D / 8, N, 1>(c1, a1, b1, c2, a2, b2, ld, ld, lim,
+                                   lane);
+}
+
+template <bool LIM, int D, int N>
+__device__ __forceinline__ void gemm_sdp(float (&c1)[1][N][4],
+                                         const bf16* a1, const bf16* b1,
+                                         float (&c2)[1][N][4],
+                                         const bf16* a2, const bf16* b2,
+                                         int ld, int lim, int lane) {
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t x1[4], x2[4];
+        load_a16(a1 + kk * 16, ld, lane, x1);
+        load_a16(a2 + kk * 16, ld, lane, x2);
+#pragma unroll
+        for (int n = 0; n < N; ++n) {
+            if (LIM && n * 8 >= lim) break;
+            uint32_t y1[2], y2[2];
+            load_b16(b1 + n * 8 * ld + kk * 16, ld, lane, y1);
+            load_b16(b2 + n * 8 * ld + kk * 16, ld, lane, y2);
+            mma16(c1[0][n], x1, y1);
+            mma16(c2[0][n], x2, y2);
         }
     }
 }
@@ -113,10 +163,10 @@ __device__ __forceinline__ void add_into(float (&acc)[NP][N][4],
 }
 
 // Store a warp's (16, D) accumulator, its NP partial sums added in order
-// and times `scale`, as rows row0 ... row0 + 15 of a (T, D) matrix; rows at
-// or beyond T are not stored.
-template <int D, int NP>
-__device__ __forceinline__ void store_acc(float* dst,
+// and times `scale`, as rows row0 ... row0 + 15 of a (T, D) matrix of TO
+// (float32, or bf16 rounded once); rows at or beyond T are not stored.
+template <int D, int NP, typename TO>
+__device__ __forceinline__ void store_acc(TO* dst,
                                           float (&acc)[NP][D / 8][4],
                                           int row0, int T, float scale,
                                           int lane) {
@@ -132,39 +182,35 @@ __device__ __forceinline__ void store_acc(float* dst,
             for (int i = 1; i < NP; ++i) x[e] += acc[i][n][e];
             x[e] *= scale;
         }
-        if (ra < T) {
-            *reinterpret_cast<float2*>(dst + (size_t)ra * D + n * 8 + c) =
-                make_float2(x[0], x[1]);
-        }
+        if (ra < T) store2(dst + (size_t)ra * D + n * 8 + c, x[0], x[1]);
         if (ra + 8 < T) {
-            *reinterpret_cast<float2*>(dst + (size_t)(ra + 8) * D + n * 8
-                                       + c) = make_float2(x[2], x[3]);
+            store2(dst + (size_t)(ra + 8) * D + n * 8 + c, x[2], x[3]);
         }
     }
 }
 
-// q, dO: (BH, Tq, D); k, v, dk, dv: (BH / group, Tk, D); lse, delta:
-// (BH, Tq); lens: (BH / H,) or nullptr.  blockIdx.x: kv head row,
-// blockIdx.y: key tile.  Shared memory: K, V (OWN, SD) | Q, dO two stages
-// of (BS, SD) each | lse * log2(e), delta two stages of BS each | P^T,
-// dS^T (OWN, SP) each.
-template <int D>
+// q, dO: (BH, Tq, D); k, v, dk, dv: (BH / group, Tk, D), all of T (float
+// or bf16); lse, delta: (BH, Tq) float32; lens: (BH / H,) or nullptr.
+// blockIdx.x: kv head row, blockIdx.y: key tile.  Shared memory: K, V
+// (OWN, SD) | Q, dO two stages of (BS, SD) each | lse * log2(e), delta two
+// stages of BS each | P^T, dS^T (OWN, SP) each, float32.
+template <int D, typename T>
 __global__ void __launch_bounds__(32 * WARPS) flash_bwd_dkdv_kernel(
-        const float* __restrict__ q, const float* __restrict__ k,
-        const float* __restrict__ v, const int* __restrict__ lens,
-        const float* __restrict__ d_o, const float* __restrict__ lse,
-        const float* __restrict__ delta, float* __restrict__ dk,
-        float* __restrict__ dv, int H, int group, int Tq, int Tk, Mask mk,
+        const T* __restrict__ q, const T* __restrict__ k,
+        const T* __restrict__ v, const int* __restrict__ lens,
+        const T* __restrict__ d_o, const float* __restrict__ lse,
+        const float* __restrict__ delta, T* __restrict__ dk,
+        T* __restrict__ dv, int H, int group, int Tq, int Tk, Mask mk,
         float scale) {
-    using TL = Tiles<D>;
+    using TL = Tiles<D, T>;
     constexpr int BS = TL::BS, SD = TL::SD, SP = TL::SP;
     constexpr int ND = TL::ND, NS = TL::NS, NP = TL::NP;
     extern __shared__ float4 smem4[];
-    float* k_s = reinterpret_cast<float*>(smem4);
-    float* v_s = k_s + OWN * SD;
-    float* q_s = v_s + OWN * SD;
-    float* do_s = q_s + 2 * BS * SD;
-    float* lse_s = do_s + 2 * BS * SD;
+    T* k_s = reinterpret_cast<T*>(smem4);
+    T* v_s = k_s + OWN * SD;
+    T* q_s = v_s + OWN * SD;
+    T* do_s = q_s + 2 * BS * SD;
+    float* lse_s = reinterpret_cast<float*>(do_s + 2 * BS * SD);
     float* dl_s = lse_s + 2 * BS;
     float* p_s = dl_s + 2 * BS;
     float* ds_s = p_s + OWN * SP;
@@ -225,8 +271,8 @@ __global__ void __launch_bounds__(32 * WARPS) flash_bwd_dkdv_kernel(
         __syncthreads();
         const int st = i & 1;
         const int i0 = lo + (i % nqt) * BS;
-        const float* q_t = q_s + st * BS * SD;
-        const float* do_t = do_s + st * BS * SD;
+        const T* q_t = q_s + st * BS * SD;
+        const T* do_t = do_s + st * BS * SD;
         const float* lse_t = lse_s + st * BS;
         const float* dl_t = dl_s + st * BS;
         const int nv = min(BS, hi - i0);  // query rows that count
@@ -238,9 +284,8 @@ __global__ void __launch_bounds__(32 * WARPS) flash_bwd_dkdv_kernel(
             constexpr bool LIM = decltype(lim)::value;
             float s[1][NS][4] = {};
             float dp[1][NS][4] = {};
-            gemm2<LIM, false, ND, NS, 1>(s, k_s + row_w * SD, q_t, dp,
-                                         v_s + row_w * SD, do_t, SD, SD, nv,
-                                         lane);
+            gemm_sdp<LIM, D, NS>(s, k_s + row_w * SD, q_t, dp,
+                                 v_s + row_w * SD, do_t, SD, nv, lane);
 #pragma unroll
             for (int n = 0; n < NS; ++n) {
                 if (LIM && n * 8 >= nv) break;
@@ -300,22 +345,22 @@ __global__ void __launch_bounds__(32 * WARPS) flash_bwd_dkdv_kernel(
 
 // blockIdx.x: batch * head row, blockIdx.y: query tile.  Shared memory:
 // Q, dO (OWN, SD) | K, V two stages of (BS, SD) each | dS (OWN, SP).
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(32 * WARPS) flash_bwd_dq_kernel(
-        const float* __restrict__ q, const float* __restrict__ k,
-        const float* __restrict__ v, const int* __restrict__ lens,
-        const float* __restrict__ d_o, const float* __restrict__ lse,
-        const float* __restrict__ delta, float* __restrict__ dq, int H,
+        const T* __restrict__ q, const T* __restrict__ k,
+        const T* __restrict__ v, const int* __restrict__ lens,
+        const T* __restrict__ d_o, const float* __restrict__ lse,
+        const float* __restrict__ delta, T* __restrict__ dq, int H,
         int group, int Tq, int Tk, Mask mk, float scale) {
-    using TL = Tiles<D>;
+    using TL = Tiles<D, T>;
     constexpr int BS = TL::BS, SD = TL::SD, SP = TL::SP;
     constexpr int ND = TL::ND, NS = TL::NS, NP = TL::NP;
     extern __shared__ float4 smem4[];
-    float* q_s = reinterpret_cast<float*>(smem4);
-    float* do_s = q_s + OWN * SD;
-    float* k_s = do_s + OWN * SD;
-    float* v_s = k_s + 2 * BS * SD;
-    float* ds_s = v_s + 2 * BS * SD;
+    T* q_s = reinterpret_cast<T*>(smem4);
+    T* do_s = q_s + OWN * SD;
+    T* k_s = do_s + OWN * SD;
+    T* v_s = k_s + 2 * BS * SD;
+    float* ds_s = reinterpret_cast<float*>(v_s + 2 * BS * SD);
 
     const int lane = threadIdx.x & 31;
     const int row_w = (threadIdx.x >> 5) * 16;  // the warp's first query
@@ -323,8 +368,8 @@ __global__ void __launch_bounds__(32 * WARPS) flash_bwd_dq_kernel(
     const int r0 = blockIdx.y * OWN;
     const int kv_len = clamp_len(lens, bh / H, Tk);
     const float scale2 = scale * LOG2E;
-    const float* k_bh = k + (size_t)(bh / group) * Tk * D;
-    const float* v_bh = v + (size_t)(bh / group) * Tk * D;
+    const T* k_bh = k + (size_t)(bh / group) * Tk * D;
+    const T* v_bh = v + (size_t)(bh / group) * Tk * D;
     stage_rows<D, OWN>(q_s, q + (size_t)bh * Tq * D, r0, Tq);
     stage_rows<D, OWN>(do_s, d_o + (size_t)bh * Tq * D, r0, Tq);
     cp_async_commit();
@@ -370,8 +415,8 @@ __global__ void __launch_bounds__(32 * WARPS) flash_bwd_dq_kernel(
         __syncthreads();
         const int st = i & 1;
         const int j0 = lo + i * BS;
-        const float* k_t = k_s + st * BS * SD;
-        const float* v_t = v_s + st * BS * SD;
+        const T* k_t = k_s + st * BS * SD;
+        const T* v_t = v_s + st * BS * SD;
         const int nv = min(BS, hi - j0);  // keys of the tile that count
         const bool all = tile_visible(mk, r0, r0 + OWN, j0, j0 + BS, Tq,
                                       kv_len);
@@ -379,9 +424,8 @@ __global__ void __launch_bounds__(32 * WARPS) flash_bwd_dq_kernel(
             constexpr bool LIM = decltype(lim)::value;
             float s[1][NS][4] = {};
             float dp[1][NS][4] = {};
-            gemm2<LIM, false, ND, NS, 1>(s, q_s + row_w * SD, k_t, dp,
-                                         do_s + row_w * SD, v_t, SD, SD, nv,
-                                         lane);
+            gemm_sdp<LIM, D, NS>(s, q_s + row_w * SD, k_t, dp,
+                                 do_s + row_w * SD, v_t, SD, nv, lane);
 #pragma unroll
             for (int n = 0; n < NS; ++n) {
                 if (LIM && n * 8 >= nv) break;
@@ -419,52 +463,76 @@ __global__ void __launch_bounds__(32 * WARPS) flash_bwd_dq_kernel(
                      scale, lane);
 }
 
-template <int D>
+template <int D, typename T>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v,
                        const void* lens, const void* d_o, const void* lse,
                        const void* delta, void* dq, void* dk, void* dv, int BH,
                        int H, int group, int Tq, int Tk, Mask mk, float scale,
                        cudaStream_t stream) {
-    using TL = Tiles<D>;
-    const auto q_ = static_cast<const float*>(q);
-    const auto k_ = static_cast<const float*>(k);
-    const auto v_ = static_cast<const float*>(v);
-    const auto do_ = static_cast<const float*>(d_o);
+    using TL = Tiles<D, T>;
+    const auto q_ = static_cast<const T*>(q);
+    const auto k_ = static_cast<const T*>(k);
+    const auto v_ = static_cast<const T*>(v);
+    const auto do_ = static_cast<const T*>(d_o);
     const auto lens_ = static_cast<const int*>(lens);
     const auto lse_ = static_cast<const float*>(lse);
     const auto delta_ = static_cast<const float*>(delta);
-    const size_t tiles_smem = sizeof(float) * (2 * OWN * TL::SD
-                                               + 4 * TL::BS * TL::SD
-                                               + OWN * TL::SP);
+    const size_t tiles_smem = sizeof(T) * (2 * OWN * TL::SD
+                                           + 4 * TL::BS * TL::SD)
+                              + sizeof(float) * OWN * TL::SP;
 
     if (Tk > 0) {
         const size_t smem = tiles_smem
                             + sizeof(float) * (4 * TL::BS + OWN * TL::SP);
         cudaError_t err = cudaFuncSetAttribute(
-            flash_bwd_dkdv_kernel<D>,
+            flash_bwd_dkdv_kernel<D, T>,
             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (err != cudaSuccess) return err;
         const int tiles = (Tk + OWN - 1) / OWN;
         if (tiles > 65535) return cudaErrorInvalidValue;
-        flash_bwd_dkdv_kernel<D><<<dim3(BH / group, tiles), 32 * WARPS,
-                                   smem, stream>>>(
-            q_, k_, v_, lens_, do_, lse_, delta_, static_cast<float*>(dk),
-            static_cast<float*>(dv), H, group, Tq, Tk, mk, scale);
+        flash_bwd_dkdv_kernel<D, T><<<dim3(BH / group, tiles), 32 * WARPS,
+                                      smem, stream>>>(
+            q_, k_, v_, lens_, do_, lse_, delta_, static_cast<T*>(dk),
+            static_cast<T*>(dv), H, group, Tq, Tk, mk, scale);
         err = cudaGetLastError();
         if (err != cudaSuccess) return err;
     }
 
     cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_bwd_dq_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)tiles_smem);
     if (err != cudaSuccess) return err;
     const int tiles = (Tq + OWN - 1) / OWN;
     if (tiles > 65535) return cudaErrorInvalidValue;
-    flash_bwd_dq_kernel<D><<<dim3(BH, tiles), 32 * WARPS, tiles_smem,
-                             stream>>>(
-        q_, k_, v_, lens_, do_, lse_, delta_, static_cast<float*>(dq), H,
+    flash_bwd_dq_kernel<D, T><<<dim3(BH, tiles), 32 * WARPS, tiles_smem,
+                                stream>>>(
+        q_, k_, v_, lens_, do_, lse_, delta_, static_cast<T*>(dq), H,
         group, Tq, Tk, mk, scale);
     return cudaGetLastError();
+}
+
+template <typename T>
+int bwd_entry(const void* q, const void* k, const void* v, const void* lens,
+              const void* d_o, const void* lse, const void* delta, void* dq,
+              void* dk, void* dv, int BH, int H, int group, int Tq, int Tk,
+              int D, int causal, int left, int right, float scale,
+              int device, void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return err;
+    if (BH < 1 || Tq < 1 || Tk < 0 || group < 1 || H < 1 || BH % group != 0)
+        return cudaErrorInvalidValue;
+    const flash::Mask mk = {causal, left, right};
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define BWD_ARGS q, k, v, lens, d_o, lse, delta, dq, dk, dv, BH, H, group, \
+                 Tq, Tk, mk, scale, st
+    switch (D) {
+        case 16: return launch_bwd<16, T>(BWD_ARGS);
+        case 32: return launch_bwd<32, T>(BWD_ARGS);
+        case 64: return launch_bwd<64, T>(BWD_ARGS);
+        case 128: return launch_bwd<128, T>(BWD_ARGS);
+        default: return cudaErrorInvalidValue;
+    }
+#undef BWD_ARGS
 }
 
 }  // namespace
@@ -482,28 +550,22 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
                         int BH, int H, int group, int Tq, int Tk, int D,
                         int causal, int left, int right, float scale,
                         int device, void* stream) {
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return err;
-    if (BH < 1 || Tq < 1 || Tk < 0 || group < 1 || H < 1 || BH % group != 0)
-        return cudaErrorInvalidValue;
-    const flash::Mask mk = {causal, left, right};
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    switch (D) {
-        case 16:
-            return launch_bwd<16>(q, k, v, lens, d_o, lse, delta, dq, dk, dv,
-                                  BH, H, group, Tq, Tk, mk, scale, st);
-        case 32:
-            return launch_bwd<32>(q, k, v, lens, d_o, lse, delta, dq, dk, dv,
-                                  BH, H, group, Tq, Tk, mk, scale, st);
-        case 64:
-            return launch_bwd<64>(q, k, v, lens, d_o, lse, delta, dq, dk, dv,
-                                  BH, H, group, Tq, Tk, mk, scale, st);
-        case 128:
-            return launch_bwd<128>(q, k, v, lens, d_o, lse, delta, dq, dk,
-                                   dv, BH, H, group, Tq, Tk, mk, scale, st);
-        default:
-            return cudaErrorInvalidValue;
-    }
+    return bwd_entry<float>(q, k, v, lens, d_o, lse, delta, dq, dk, dv, BH,
+                            H, group, Tq, Tk, D, causal, left, right, scale,
+                            device, stream);
+}
+
+// The same with q, k, v, dO, dq, dk and dv bf16 (lse and delta float32).
+int flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
+                             const void* lens, const void* d_o,
+                             const void* lse, const void* delta, void* dq,
+                             void* dk, void* dv, int BH, int H, int group,
+                             int Tq, int Tk, int D, int causal, int left,
+                             int right, float scale, int device,
+                             void* stream) {
+    return bwd_entry<flash::bf16>(q, k, v, lens, d_o, lse, delta, dq, dk,
+                                  dv, BH, H, group, Tq, Tk, D, causal, left,
+                                  right, scale, device, stream);
 }
 
 }  // extern "C"

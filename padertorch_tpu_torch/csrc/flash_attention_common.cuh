@@ -1,6 +1,7 @@
 // Device helpers shared by the flash-attention forward and backward
-// kernels: masks, cp.async copies into padded shared-memory tiles, and the
-// 3xTF32 tensor-core products.
+// kernels: masks, cp.async copies into padded shared-memory tiles, the
+// 3xTF32 tensor-core products of the float32 kernels and the bf16 and
+// 2xTF32 products of their bf16 variants.
 //
 // The tensor cores take float32 operands only as TF32, which keeps 10 bits
 // of mantissa (about three digits), too few for float32 results.  So every
@@ -10,18 +11,31 @@
 // operands), which carries about 20 bits of each operand: float32 accuracy
 // for three tensor-core products per float32 one.
 //
+// bf16 operands (the bf16 variants): a product of two bf16 values is one
+// `mma.sync.m16n8k16` bf16 product with float32 sums, exact per term as
+// the JAX kernel's float32 products of the widened values.  A product of a
+// float32 operand (the probabilities P and dS, which the JAX kernel keeps
+// in float32) with a bf16 one is "2xTF32": the bf16 value is exact in
+// TF32, so only the float32 side is split, lo*b + hi*b.
+//
 // A block owns OWN = 64 rows (queries in the forward and the dq kernel,
 // keys in the dk/dv kernel), 16 per warp, held as MMA fragments: a thread
 // holds rows lane / 4 and lane / 4 + 8 of its warp's 16, and columns
 // 2 (lane % 4) and 2 (lane % 4) + 1 of every 8-wide tile.  Shared-memory
-// rows are padded to D + 4 floats (and BS + 4), so the fragment loads of
-// the first kind (8 rows by 4 columns) hit 32 banks; the transposed loads
-// (4 rows by 8 columns) meet 2-way conflicts.
+// rows are padded by 16 bytes (D + 4 floats, D + 8 bf16 values; BS + 4 for
+// the float32 P and dS), so the fragment loads of the first kind (8 rows by
+// 4 words) hit 32 banks; the float32 transposed loads (4 rows by 8 columns)
+// meet 2-way conflicts, the bf16 ones (4 rows by 8 halves) none.
 #pragma once
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace flash {
+
+using bf16 = __nv_bfloat16;
 
 constexpr float NEG = -1e30f;   // the finite fill of a masked logit
 constexpr float LOG2E = 1.4426950408889634f;
@@ -60,22 +74,23 @@ __device__ __forceinline__ int clamp_len(const int* lens, int b, int Tk) {
     return n < 0 ? 0 : (n > Tk ? Tk : n);
 }
 
-// Tile sizes of head size D with BS rows of the streamed operand per tile:
-// the padded strides SD (of a (rows, D) tile) and SP (of a warp's (16, BS)
-// P or dS), the MMA tiles of 8 along D (ND) and along the streamed rows
-// (NS), and the partial sums of a product whose output is D wide (NP: two
-// at D = 16, for more independent accumulator chains).
-template <int D, int BS_>
+// Tile sizes of head size D with BS rows of the streamed operand per tile,
+// for inputs of type T: the padded strides SD (of a (rows, D) tile of T,
+// 16 bytes of padding) and SP (of a warp's (16, BS) float32 P or dS), the
+// MMA tiles of 8 along D (ND) and along the streamed rows (NS), and the
+// partial sums of a product whose output is D wide (NP: two at D = 16, for
+// more independent accumulator chains).
+template <int D, int BS_, typename T = float>
 struct TileShape {
     static constexpr int BS = BS_;
-    static constexpr int SD = D + 4;
+    static constexpr int SD = D + 16 / (int)sizeof(T);
     static constexpr int SP = BS + 4;
     static constexpr int ND = D / 8;
     static constexpr int NS = BS / 8;
     static constexpr int NP = D == 16 ? 2 : 1;
 };
 
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
     const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
                  :: "r"(dst), "l"(gmem));
@@ -90,18 +105,21 @@ __device__ __forceinline__ void cp_async_wait() {
     asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-// Start the copy of rows [r0, r0 + ROWS) of a (T, D) matrix into shared
-// memory of stride D + 4 (zeros beyond T).  All threads take part.
-template <int D, int ROWS>
-__device__ __forceinline__ void stage_rows(float* dst, const float* src,
-                                           int r0, int T) {
-    constexpr int C4 = D / 4;
-    constexpr int SD = D + 4;
-    for (int idx = threadIdx.x; idx < ROWS * C4; idx += blockDim.x) {
-        const int r = idx / C4;
-        const int c = 4 * (idx % C4);
-        float* d = dst + r * SD + c;
-        if (r0 + r < T) {
+// Start the copy of rows [r0, r0 + ROWS) of a (n_rows, D) matrix of T into
+// shared memory of stride D + 16 / sizeof(T) (zeros beyond n_rows), 16
+// bytes a copy: 4 float32 or 8 bf16 values (a bf16 row of D = 16 is two).
+// All threads take part.
+template <int D, int ROWS, typename T>
+__device__ __forceinline__ void stage_rows(T* dst, const T* src, int r0,
+                                           int n_rows) {
+    constexpr int E = 16 / (int)sizeof(T);
+    constexpr int C = D / E;
+    constexpr int SD = D + E;
+    for (int idx = threadIdx.x; idx < ROWS * C; idx += blockDim.x) {
+        const int r = idx / C;
+        const int c = E * (idx % C);
+        T* d = dst + r * SD + c;
+        if (r0 + r < n_rows) {
             cp_async16(d, src + (size_t)(r0 + r) * D + c);
         } else {
             *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -139,6 +157,30 @@ __device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
     mma(c, ah, bh);
 }
 
+// c += a b in 2xTF32: a float32, split in hi and lo; b exact in TF32 (a
+// bf16 value), the small term first
+__device__ __forceinline__ void mma2(float (&c)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4],
+                                     const uint32_t (&b)[2]) {
+    mma(c, al, b);
+    mma(c, ah, b);
+}
+
+// c += a b with a float32 and b of type TB: 3xTF32 for float32, 2xTF32
+// for bf16 (whose `lo` is not read)
+template <typename TB>
+__device__ __forceinline__ void mma_split(float (&c)[4],
+                                          const uint32_t (&ah)[4],
+                                          const uint32_t (&al)[4],
+                                          const uint32_t (&bh)[2],
+                                          const uint32_t (&bl)[2]) {
+    if constexpr (std::is_same<TB, float>::value) {
+        mma3(c, ah, al, bh, bl);
+    } else {
+        mma2(c, ah, al, bh);
+    }
+}
+
 // The A fragment of the (16, 8) block at s (row-major, stride ld).
 __device__ __forceinline__ void load_a(const float* s, int ld, int lane,
                                        uint32_t (&hi)[4], uint32_t (&lo)[4]) {
@@ -165,14 +207,31 @@ __device__ __forceinline__ void load_b(const float* s, int ld, int lane,
     }
 }
 
+// The same B fragment of a bf16 operand, as TF32: a bf16 value is the high
+// half of its float32 bits, exact in TF32; there is no `lo`.
+template <bool KN>
+__device__ __forceinline__ void load_b(const bf16* s, int ld, int lane,
+                                       uint32_t (&hi)[2], uint32_t (&lo)[2]) {
+    const int n = lane >> 2, k = lane & 3;
+    const uint16_t* h = reinterpret_cast<const uint16_t*>(s);
+    if (KN) {
+        hi[0] = (uint32_t)h[k * ld + n] << 16;
+        hi[1] = (uint32_t)h[(k + 4) * ld + n] << 16;
+    } else {
+        hi[0] = (uint32_t)h[n * ld + k] << 16;
+        hi[1] = (uint32_t)h[n * ld + k + 4] << 16;
+    }
+    lo[0] = lo[1] = 0u;
+}
+
 // c (16, 8 N) += A (16, 8 K) B with B k-major (stride ldb), A row-major
 // (stride lda).  The k step kk adds into the partial sums [kk % NP]; the
 // caller adds them in order.  With LIM only the first `lim` rows of B
 // count (a tile at the end of the sequence): the k steps past them are
 // skipped.  Full tiles take LIM false, which keeps the loops free of exits.
-template <bool LIM, int K, int N, int NP>
+template <bool LIM, int K, int N, int NP, typename TB>
 __device__ __forceinline__ void gemm_kn(float (&c)[NP][N][4], const float* a,
-                                        int lda, const float* b, int ldb,
+                                        int lda, const TB* b, int ldb,
                                         int lim, int lane) {
 #pragma unroll
     for (int kk = 0; kk < K; ++kk) {
@@ -183,9 +242,82 @@ __device__ __forceinline__ void gemm_kn(float (&c)[NP][N][4], const float* a,
         for (int n = 0; n < N; ++n) {
             uint32_t bh[2], bl[2];
             load_b<true>(b + kk * 8 * ldb + n * 8, ldb, lane, bh, bl);
-            mma3(c[kk % NP][n], ah, al, bh, bl);
+            mma_split<TB>(c[kk % NP][n], ah, al, bh, bl);
         }
     }
+}
+
+// ---- bf16 operands: mma.sync.m16n8k16, float32 sums
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+    return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// Two float32 values rounded to bf16 (to nearest even) and packed, the
+// first in the low half: the operand order of a fragment register.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+    __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// The A fragment (16 rows by 16 deep) of a row-major bf16 matrix at s,
+// stride ld: rows lane / 4 (+ 8), columns 2 (lane % 4) (+ 1) (+ 8).
+__device__ __forceinline__ void load_a16(const bf16* s, int ld, int lane,
+                                         uint32_t (&a)[4]) {
+    const int r = lane >> 2, c = 2 * (lane & 3);
+    a[0] = ld32(s + r * ld + c);
+    a[1] = ld32(s + (r + 8) * ld + c);
+    a[2] = ld32(s + r * ld + c + 8);
+    a[3] = ld32(s + (r + 8) * ld + c + 8);
+}
+
+// The B fragment (16 deep by 8 wide) of an n-major bf16 operand,
+// B[k][n] = s[n * ld + k] (K, V, Q or dO rows as the columns of a product).
+__device__ __forceinline__ void load_b16(const bf16* s, int ld, int lane,
+                                         uint32_t (&b)[2]) {
+    const int n = lane >> 2, k = 2 * (lane & 3);
+    b[0] = ld32(s + n * ld + k);
+    b[1] = ld32(s + n * ld + k + 8);
+}
+
+// The B fragments of two 8-wide column tiles (16 deep each) of a k-major
+// bf16 operand, B[k][n] = s[k * ld + n] (V rows as the depth of P V), by
+// one ldmatrix with transpose: b[0], b[1] of columns [0, 8), b[2], b[3] of
+// [8, 16).  Rows of 16-byte-aligned 8-value runs; the padded stride puts
+// the eight rows of each 8 x 8 matrix on distinct banks.
+__device__ __forceinline__ void load_b16_trans2(const bf16* s, int ld,
+                                                int lane, uint32_t (&b)[4]) {
+    const int m = lane >> 3;
+    const bf16* row = s + ((m & 1) * 8 + (lane & 7)) * ld + (m >> 1) * 8;
+    const unsigned addr =
+        static_cast<unsigned>(__cvta_generic_to_shared(row));
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+        "{%0, %1, %2, %3}, [%4];\n"
+        : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
+        : "r"(addr)
+        : "memory");
+}
+
+// c += a b, bf16 operands, float32 sums (products exact)
+__device__ __forceinline__ void mma16(float (&c)[4], const uint32_t (&a)[4],
+                                      const uint32_t (&b)[2]) {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]),
+          "r"(b[1]));
+}
+
+// Store two float32 values as the pair of T at dst: a float2, or two bf16
+// values rounded once.
+__device__ __forceinline__ void store2(float* dst, float x, float y) {
+    *reinterpret_cast<float2*>(dst) = make_float2(x, y);
+}
+
+__device__ __forceinline__ void store2(bf16* dst, float x, float y) {
+    *reinterpret_cast<uint32_t*>(dst) = pack_bf16(x, y);
 }
 
 }  // namespace flash

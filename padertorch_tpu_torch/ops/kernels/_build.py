@@ -50,6 +50,8 @@ _SIGNATURES = {
     'masked_istft_dft': (_P,) * 5 + (_I,) * 10 + (_P,),
     'flash_attention_fwd': (_P,) * 6 + (_I,) * 9 + (_F, _I, _P),
     'flash_attention_bwd': (_P,) * 10 + (_I,) * 9 + (_F, _I, _P),
+    'flash_attention_fwd_bf16': (_P,) * 6 + (_I,) * 9 + (_F, _I, _P),
+    'flash_attention_bwd_bf16': (_P,) * 10 + (_I,) * 9 + (_F, _I, _P),
     'wavenet_sample_fwd': (_P,) * 12 + (_I,) * 13 + (_P,),
     'wavenet_sample_max_clusters': (_I,) * 3 + (_P,),
     'fused_logmel_fwd': (_P,) * 5 + (_I,) * 11 + (_F, _I, _P),

@@ -14,10 +14,15 @@ log-sum-exp kept; when a gradient is asked for, through
 :class:`FlashAttention`, the same forward writing the log-sum-exp and, in
 ``backward``, the dk/dv and dq kernels of ``csrc/flash_attention_bwd.cu``.
 ``delta = sum(dO * O, -1)`` is one elementwise product and sum outside the
-kernels, as in the JAX package.  float32 only: the kernels' bf16 operands
-(``padertorch_tpu/ops/pallas/attention.py`` under the bf16 policy) are not
-ported yet (ROADMAP.md); ``use_flash='auto'`` takes the dense path for
-bf16.
+kernels, in float32, as in the JAX package.
+
+q, k and v are float32, or all three bf16: then the kernels' bf16 variants
+run with the JAX kernel's numerics (``padertorch_tpu/ops/pallas/
+attention.py``): logits are float32 sums of the bf16 products, the softmax
+and its sums float32, the probabilities rounded to bf16 only as the operand
+of ``P V``, the output rounded once; in the backward P and dS stay float32,
+every sum is float32, and dq, dk, dv are rounded once.  A mix of types
+raises.
 
 The kernels take head sizes 16, 32, 64 and 128; another head size up to
 128 is zero-padded to the next of these inside the wrapper (zeros change
@@ -27,8 +32,11 @@ kernels, nothing is padded along time.
 
 On a CPU tensor :func:`flash_attention` runs :func:`flash_attention_plain`,
 the masked-softmax formula with an explicit zero for masked probabilities,
-which autograd differentiates.  Fully masked query rows give 0 output and 0
-gradient in both.
+which autograd differentiates in float32; in bf16 its gradient is
+:func:`flash_attention_bwd_plain`, the backward kernels' plain version
+(autograd of the bf16 forward would round dP to bf16 where the JAX kernel
+keeps it float32).  Fully masked query rows give 0 output and 0 gradient in
+both.
 """
 import math
 
@@ -39,23 +47,28 @@ import torch.nn.functional as F
 from padertorch_tpu_torch.ops.kernels import _build
 
 __all__ = ['flash_attention', 'flash_attention_plain',
-           'flash_attention_fwd_plain', 'FlashAttention', 'should_use_flash']
+           'flash_attention_fwd_plain', 'flash_attention_bwd_plain',
+           'FlashAttention', 'should_use_flash']
 
 _NEG = -1e30
 HEAD_SIZES = (16, 32, 64, 128)
+DTYPES = (torch.float32, torch.bfloat16)
+# keys per tile of the bf16 forward kernel: it rounds a tile's
+# probabilities to bf16 against the running maximum of the tiles so far
+BF16_KEY_TILE = 64
 
 def should_use_flash(device, dtype=torch.float32, head_size=None):
-    """Dispatch of ``use_flash='auto'``: the fused kernels for float32
-    tensors on a CUDA device with a head size the kernels take (at most
-    ``HEAD_SIZES[-1]``; ``head_size`` None asks for any they take), the
-    dense path otherwise (the kernels take float32 only, and raise for a
-    wider head).  The sequence lengths and the mask do not enter: since
-    both kernels' tile products run on the tensor cores (3xTF32) they beat
-    the dense path at every row of the dispatch table that chip_smoke.py
-    phase 12 measures on an H100 (PERF.md, "Attention dispatch": 12 heads
-    of 64 at T = 512 ... 4096, full, causal and windowed, and 8 heads of 16
-    at T = 66 and 100, forward alone and forward plus backward)."""
-    return (torch.device(device).type == 'cuda' and dtype == torch.float32
+    """Dispatch of ``use_flash='auto'``: the fused kernels for float32 or
+    bf16 tensors on a CUDA device with a head size the kernels take (at
+    most ``HEAD_SIZES[-1]``; ``head_size`` None asks for any they take),
+    the dense path otherwise (the kernels take no other type, and raise for
+    a wider head).  The sequence lengths and the mask do not enter: the
+    kernels beat the dense path at every row of the dispatch table that
+    chip_smoke.py phase 12 measures on an H100, in float32 (3xTF32 tensor
+    cores) and in bf16 (PERF.md, "Attention dispatch": 12 heads of 64 at
+    T = 512 ... 4096, full, causal and windowed, and 8 heads of 16 at
+    T = 66 and 100, forward alone and forward plus backward)."""
+    return (torch.device(device).type == 'cuda' and dtype in DTYPES
             and (head_size is None or head_size <= HEAD_SIZES[-1]))
 
 
@@ -102,29 +115,62 @@ def visible_mask(tq, tk, lens, causal, window, device):
     return valid
 
 
+def _wide(x):
+    """x in float32, or float64 where it is that: bf16 widens exactly."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+def _expand_kv(k, v, heads):
+    h_kv = k.shape[1]
+    assert heads % h_kv == 0, (heads, h_kv)
+    if h_kv != heads:
+        k = k.repeat_interleave(heads // h_kv, dim=1)
+        v = v.repeat_interleave(heads // h_kv, dim=1)
+    return k, v
+
+
 def flash_attention_fwd_plain(q, k, v, *, causal=False, key_padding_lens=None,
-                              window=None):
+                              window=None, key_tile=None):
     """Plain PyTorch version of the forward kernel: ``(o, lse)`` with
     ``lse`` (B, H, Tq) = m + log(max(l, 1e-30)), the row's log-sum-exp
-    (-1e30 for a fully masked row, whose output is 0)."""
+    (-1e30 for a fully masked row, whose output is 0).
+
+    For bf16 inputs the JAX kernel's dtypes, step by step: logits, maxima,
+    probabilities and their sum float32 (bf16 values widen exactly), the
+    probabilities rounded to bf16 only as the operand of ``P V`` (a float32
+    sum), ``o`` rounded to bf16 once, ``lse`` float32.  In float32 every
+    cast is the identity.
+
+    ``key_tile``: take the keys in tiles of this many with a running
+    maximum, as the Pallas kernel takes its blocks of ``block_k`` and the
+    bf16 kernel its ``BF16_KEY_TILE``: a tile's probabilities are rounded
+    to bf16 against the maximum of the tiles so far, and the sums rescaled
+    as it grows.  None: one tile, the row's maximum."""
     b, h, tq, d = q.shape
-    h_kv, tk = k.shape[1], k.shape[2]
-    assert h % h_kv == 0, (h, h_kv)
-    if h_kv != h:
-        k = k.repeat_interleave(h // h_kv, dim=1)
-        v = v.repeat_interleave(h // h_kv, dim=1)
+    tk = k.shape[2]
+    k, v = _expand_kv(k, v, h)
     lens = _lens_tensor(key_padding_lens, b, q.device)
     valid = visible_mask(tq, tk, lens, causal, window, q.device)
-    s = torch.matmul(q, k.transpose(-1, -2)) * (1.0 / math.sqrt(d))
+    s = torch.matmul(_wide(q), _wide(k).transpose(-1, -2)) \
+        * (1.0 / math.sqrt(d))
     s = torch.where(valid, s, s.new_tensor(_NEG))
-    if tk == 0:
-        m = s.new_full((b, h, tq, 1), _NEG)
-    else:
-        m = s.max(dim=-1, keepdim=True).values.detach()
-    p = torch.where(valid, torch.exp(s - m), s.new_zeros(()))
-    l_safe = p.sum(dim=-1, keepdim=True).clamp(min=1e-30)
-    o = torch.matmul(p, v) / l_safe
-    return o, (m + torch.log(l_safe))[..., 0]
+    m = s.new_full((b, h, tq, 1), _NEG)
+    l = s.new_zeros((b, h, tq, 1))
+    acc = s.new_zeros((b, h, tq, d))
+    tile = key_tile or max(tk, 1)
+    for j in range(0, tk, tile):
+        cols = slice(j, j + tile)
+        m_new = torch.maximum(
+            m, s[..., cols].max(dim=-1, keepdim=True).values.detach())
+        p = torch.where(valid[..., cols], torch.exp(s[..., cols] - m_new),
+                        s.new_zeros(()))
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.matmul(_wide(p.to(v.dtype)),
+                                         _wide(v[..., cols, :]))
+        m = m_new
+    l_safe = l.clamp(min=1e-30)
+    return (acc / l_safe).to(q.dtype), (m + torch.log(l_safe))[..., 0]
 
 
 def flash_attention_plain(q, k, v, *, causal=False, key_padding_lens=None,
@@ -133,6 +179,55 @@ def flash_attention_plain(q, k, v, *, causal=False, key_padding_lens=None,
     return flash_attention_fwd_plain(
         q, k, v, causal=causal, key_padding_lens=key_padding_lens,
         window=window)[0]
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, d_o, *, causal=False,
+                              key_padding_lens=None, window=None):
+    """Plain PyTorch version of the backward kernels: ``(dq, dk, dv)`` from
+    the forward's ``o`` and ``lse`` and the cotangent ``d_o``, with the JAX
+    kernel's dtypes (``padertorch_tpu/ops/pallas/attention.py``
+    ``_bwd_call``): ``delta = sum(f32(dO) f32(O))``, the probabilities
+    recomputed in float32 from the stored ``lse``, every product and sum
+    float32, the KV heads' query groups summed in float32, and each
+    gradient rounded once to its input's dtype."""
+    b, h, tq, d = q.shape
+    h_kv, tk = k.shape[1], k.shape[2]
+    scale = 1.0 / math.sqrt(d)
+    qf, dof = _wide(q), _wide(d_o)
+    kf, vf = _expand_kv(_wide(k), _wide(v), h)
+    lens = _lens_tensor(key_padding_lens, b, q.device)
+    valid = visible_mask(tq, tk, lens, causal, window, q.device)
+    delta = (dof * _wide(o)).sum(dim=-1, keepdim=True)
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    p = torch.where(valid, torch.exp(torch.where(valid, s, s.new_tensor(
+        _NEG)) - lse.to(s.dtype)[..., None]), s.new_zeros(()))
+    dv = torch.matmul(p.transpose(-1, -2), dof)
+    ds = p * (torch.matmul(dof, vf.transpose(-1, -2)) - delta)
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    dq = torch.matmul(ds, kf) * scale
+    if h_kv != h:
+        dk = dk.reshape(b, h_kv, h // h_kv, tk, d).sum(dim=2)
+        dv = dv.reshape(b, h_kv, h // h_kv, tk, d).sum(dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class PlainFlashAttention(torch.autograd.Function):
+    """:func:`flash_attention` on bf16 CPU tensors with a gradient: the
+    plain forward and, as its backward, :func:`flash_attention_bwd_plain`
+    (the JAX kernel's float32 backward)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, masks):
+        o, lse = flash_attention_fwd_plain(q, k, v, **masks)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.masks = masks
+        return o
+
+    @staticmethod
+    def backward(ctx, d_o):
+        q, k, v, o, lse = ctx.saved_tensors
+        return (*flash_attention_bwd_plain(q, k, v, o, lse, d_o,
+                                           **ctx.masks), None)
 
 
 def tf32_round(x):
@@ -144,13 +239,11 @@ def tf32_round(x):
 
 
 def _check(q, k, v):
-    for name, x in (('q', q), ('k', k), ('v', v)):
-        if x.dtype != torch.float32:
-            raise TypeError(
-                f'{name} is {x.dtype}: the attention kernels take float32 '
-                'only; their bf16 operands '
-                '(padertorch_tpu/ops/pallas/attention.py) are not ported '
-                'yet (ROADMAP.md)')
+    if q.dtype not in DTYPES or not q.dtype == k.dtype == v.dtype:
+        raise TypeError(
+            f'q, k, v are {q.dtype}, {k.dtype}, {v.dtype}: the attention '
+            'kernels take float32 or bfloat16, the three alike')
+    for name, x in (('k', k), ('v', v)):
         if x.device != q.device:
             raise ValueError(f'{name} is on {x.device}, q on {q.device}')
     b, h, tq, d = q.shape
@@ -176,9 +269,15 @@ def _mask_args(causal, left, right):
             -1 if right is None else right)
 
 
+def _variant(q):
+    """The kernels' C-entry suffix and launch-count suffix for q's type."""
+    return '_bf16' if q.dtype == torch.bfloat16 else ''
+
+
 def _launch_fwd(q, k, v, lens, causal, left, right, scale, train):
-    """Launch the forward kernel on (B, H, T, D) tensors with D one of
-    HEAD_SIZES; with ``train`` it also returns the log-sum-exp."""
+    """Launch the forward kernel (float32 or bf16 by q's type) on (B, H, T,
+    D) tensors with D one of HEAD_SIZES; with ``train`` it also returns the
+    float32 log-sum-exp."""
     b, h, tq, d = q.shape
     h_kv, tk = k.shape[1], k.shape[2]
     o = torch.empty_like(q)
@@ -186,13 +285,14 @@ def _launch_fwd(q, k, v, lens, causal, left, right, scale, train):
            if train else None)
     lib = _build.load_library()
     stream, device = _build.stream_and_device(q)
-    err = lib.flash_attention_fwd(
+    variant = _variant(q)
+    err = getattr(lib, 'flash_attention_fwd' + variant)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if lens is None else lens.data_ptr(), o.data_ptr(),
         None if lse is None else lse.data_ptr(), b * h, h, h // h_kv, tq, tk,
         d, *_mask_args(causal, left, right), scale, device, stream)
     _build.check(lib, err, 'flash_attention forward kernel')
-    flash_attention.launches['fwd_train' if train else 'fwd'] += 1
+    flash_attention.launches[('fwd_train' if train else 'fwd') + variant] += 1
     return o, lse
 
 
@@ -202,22 +302,23 @@ def _launch_bwd(q, k, v, lens, d_o, lse, delta, causal, left, right, scale):
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     lib = _build.load_library()
     stream, device = _build.stream_and_device(q)
-    err = lib.flash_attention_bwd(
+    variant = _variant(q)
+    err = getattr(lib, 'flash_attention_bwd' + variant)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if lens is None else lens.data_ptr(), d_o.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), b * h, h, h // h_kv, tq, tk, d,
         *_mask_args(causal, left, right), scale, device, stream)
     _build.check(lib, err, 'flash_attention backward kernels')
-    flash_attention.launches['bwd'] += 1
+    flash_attention.launches['bwd' + variant] += 1
     return dq, dk, dv
 
 
 class FlashAttention(torch.autograd.Function):
     """:func:`flash_attention` on CUDA tensors with a gradient: ``forward``
     is the forward kernel keeping the log-sum-exp, ``backward`` the dk/dv
-    and dq kernels.  Tensors are (B, H, T, D) float32, contiguous, D one of
-    ``HEAD_SIZES``; ``lens`` (B,) int32 on the device or None."""
+    and dq kernels.  Tensors are (B, H, T, D) float32 or bf16, contiguous,
+    D one of ``HEAD_SIZES``; ``lens`` (B,) int32 on the device or None."""
 
     @staticmethod
     def forward(ctx, q, k, v, lens, causal, left, right, scale):
@@ -230,8 +331,10 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, d_o):
         q, k, v, lens, o, lse = ctx.saved_tensors
-        d_o = _aligned(d_o)
-        delta = (d_o * o).sum(dim=-1)
+        d_o = _aligned(d_o.to(q.dtype))
+        # float32 products and sum, as the JAX package's (a bf16 sum
+        # would round every partial sum)
+        delta = (d_o.float() * o.float()).sum(dim=-1)
         dq, dk, dv = _launch_bwd(q, k, v, lens, d_o, lse, delta, *ctx.config)
         return dq, dk, dv, None, None, None, None, None
 
@@ -261,7 +364,8 @@ def flash_attention(q, k, v, *, causal=False, key_padding_lens=None,
         (or raise): the forward alone, or, when grad mode is on and an
         input requires a gradient, the forward that keeps the log-sum-exp,
         whose ``backward`` is kernels too.  ``flash_attention.launches``
-        counts the launches (``fwd``, ``fwd_train``, ``bwd``).
+        counts the launches (``fwd``, ``fwd_train``, ``bwd``, and for bf16
+        tensors ``fwd_bf16``, ``fwd_train_bf16``, ``bwd_bf16``).
 
     >>> q = torch.ones((2, 4, 5, 16))
     >>> out = flash_attention(q, q[:, :2], q[:, :2], causal=True,
@@ -270,9 +374,12 @@ def flash_attention(q, k, v, *, causal=False, key_padding_lens=None,
     (torch.Size([2, 4, 5, 16]), 1.0, 0.0)
     """
     if q.device.type == 'cpu':
-        return flash_attention_plain(
-            q, k, v, causal=causal, key_padding_lens=key_padding_lens,
-            window=window)
+        masks = dict(causal=causal, key_padding_lens=key_padding_lens,
+                     window=window)
+        if q.dtype == torch.bfloat16 and torch.is_grad_enabled() and any(
+                x.requires_grad for x in (q, k, v)):
+            return PlainFlashAttention.apply(q, k, v, masks)
+        return flash_attention_plain(q, k, v, **masks)
     if q.device.type != 'cuda':
         raise ValueError(f'no kernel for device {q.device}')
     _check(q, k, v)
@@ -295,4 +402,6 @@ def flash_attention(q, k, v, *, causal=False, key_padding_lens=None,
     return o[..., :d] if d_p != d else o
 
 
-flash_attention.launches = {'fwd': 0, 'fwd_train': 0, 'bwd': 0}
+flash_attention.launches = {'fwd': 0, 'fwd_train': 0, 'bwd': 0,
+                            'fwd_bf16': 0, 'fwd_train_bf16': 0,
+                            'bwd_bf16': 0}

@@ -173,8 +173,13 @@ def matmul_f32(a, b):
     operands on the card take one bf16 GEMM with a float32 output
     (``torch.bmm(..., out_dtype=torch.float32)``: cuBLAS sums in float32
     and writes the sums unrounded); anything else is widened to float32
-    first, which is exact for bf16 values."""
-    if (a.is_cuda and a.dtype == b.dtype == torch.bfloat16):
+    first, which is exact for bf16 values.  That GEMM has no derivative in
+    torch, so where autograd records (an operand requires a gradient) the
+    operands are widened too, and autograd differentiates the float32
+    product (its gradients cast back to bf16)."""
+    if (a.is_cuda and a.dtype == b.dtype == torch.bfloat16
+            and not (torch.is_grad_enabled()
+                     and (a.requires_grad or b.requires_grad))):
         return torch.bmm(a, b, out_dtype=torch.float32)
     return torch.bmm(a.float(), b.float())
 

@@ -227,7 +227,8 @@ def test_should_use_flash_is_false_off_the_card_and_follows_the_table(
     assert should_use_flash('cuda') is True
     assert should_use_flash(torch.device('cuda', 0)) is True
     assert should_use_flash('cpu') is False
-    assert should_use_flash('cuda', torch.bfloat16) is False
+    assert should_use_flash('cuda', torch.bfloat16) is True
+    assert should_use_flash('cuda', torch.float16) is False
     asked, fused = [], []
 
     def spy_flash(*args, **kwargs):
@@ -254,14 +255,15 @@ def test_should_use_flash_is_false_off_the_card_and_follows_the_table(
 
 
 def test_the_measured_table_sends_the_sepformer_shapes_to_the_kernels():
-    """The SepFormer's attention (8 heads of 16 at T = 66 and 100) is
-    float32 on the card: 'auto' gives it to the kernels, as every other
-    row of the dispatch table; its bf16 and CPU tensors go dense."""
+    """The SepFormer's attention (8 heads of 16 at T = 66 and 100) on the
+    card, float32 or bf16 (the bf16 policy): 'auto' gives it to the
+    kernels, as every other row of the dispatch table in both types; its
+    CPU tensors go dense."""
     for t in (66, 100):
         q = torch.zeros(2, 8, t, 16)
         assert should_use_flash(torch.device('cuda'), q.dtype)
         assert not should_use_flash(q.device, q.dtype)
-        assert not should_use_flash('cuda', q.to(torch.bfloat16).dtype)
+        assert should_use_flash('cuda', q.to(torch.bfloat16).dtype)
 
 
 def test_the_wrapper_on_a_cpu_tensor_is_the_plain_version():

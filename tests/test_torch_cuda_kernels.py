@@ -3,7 +3,12 @@ the card, at shapes off the main path (ragged hidden widths, one
 direction, other STFT geometries).  The bf16 LSTM kernels are held to their
 plain bf16 versions (each stream element within one bf16 unit in the last
 place plus 1e-3 or 2e-3, at most 5% of them other, float32 states within
-3e-4 and 1e-3), the GRU and the attention kernels raise for bf16.  The GRU
+3e-4 and 1e-3), the bf16 attention kernels to theirs at ``chip_smoke.py``
+phase 26's limits (O within one unit plus 2e-3 of plain in the kernel's
+key tiles, gradients within one unit plus 1e-5 of each one's largest
+entry, at most 1% of either other, the gradients' by more than that),
+with the control (logits, P and dS rounded to bf16) failing them;
+the GRU kernels raise for bf16.  The GRU
 forwards' resident and
 cooperative routes are each held to plain at the shapes that pick them,
 with the route read from ``gru_cell_scan.routes``.  The LSTM training kernels (forward
@@ -32,7 +37,12 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import bf16_distance
+from chip_smoke import (
+    ATTENTION_BF16_FWD_ATOL, ATTENTION_BF16_FWD_SHARE,
+    ATTENTION_BF16_GRAD_SHARE, ATTENTION_BF16_LSE_TOL,
+    attention_bf16_control_bwd, attention_bf16_control_fwd,
+    attention_bf16_fwd_plain, bf16_distance, bf16_grad_distance,
+    lse_distance)
 
 from padertorch_tpu_torch.ops._stft import HostSTFT, STFT
 from padertorch_tpu_torch.models.bss import PermutationInvariantTrainingModel
@@ -46,7 +56,8 @@ from padertorch_tpu_torch.ops.kernels import _build
 from padertorch_tpu_torch.ops.kernels import gru as gru_kernels
 from padertorch_tpu_torch.ops.kernels import lstm as lstm_kernels
 from padertorch_tpu_torch.ops.kernels.attention import (
-    flash_attention, flash_attention_fwd_plain, flash_attention_plain)
+    flash_attention, flash_attention_bwd_plain, flash_attention_fwd_plain,
+    flash_attention_plain)
 from padertorch_tpu_torch.ops.kernels import attention as attention_kernels
 from padertorch_tpu_torch.ops.kernels.gru import (
     gru_cell_scan, gru_cell_scan_plain, gru_cell_scan_train_plain,
@@ -1014,8 +1025,10 @@ def test_attention_training_forward_writes_the_log_sum_exp(cuda):
 
 def test_attention_kernel_rejects_what_it_does_not_take(cuda):
     q = torch.zeros((2, 4, 5, 16), device=cuda)
-    with pytest.raises(TypeError, match='float32'):
-        flash_attention(q.bfloat16(), q.bfloat16(), q.bfloat16())
+    with pytest.raises(TypeError, match='float32 or bfloat16'):
+        flash_attention(q.bfloat16(), q, q.bfloat16())
+    with pytest.raises(TypeError, match='float32 or bfloat16'):
+        flash_attention(q.half(), q.half(), q.half())
     with pytest.raises(ValueError):
         flash_attention(q, q.cpu(), q)
     with pytest.raises(ValueError):
@@ -1111,12 +1124,126 @@ def test_sepformer_tasnet_on_the_card_matches_the_cpu(cuda, use_flash):
         assert bool(torch.isfinite(p.grad).all()), name
     layers = 6 if use_flash else 0
     assert flash_attention.launches == {
-        'fwd': before['fwd'], 'fwd_train': before['fwd_train'] + layers,
+        **before, 'fwd_train': before['fwd_train'] + layers,
         'bwd': before['bwd'] + layers}
     with torch.no_grad():
         model.eval()
         assert torch.equal(model(example)['out'], model(example)['out'])
     assert flash_attention.launches['fwd'] == before['fwd'] + 2 * layers
+
+
+# bf16: (B, H, Hkv, Tq, Tk, D, kwargs), every head size and mask mode, a
+# row with one key and one with none where there is padding
+ATTENTION_BF16_CASES = {
+    'd16_padding_with_empty_rows': (
+        5, 2, 2, 66, 66, 16, {'key_padding_lens': [66, 30, 1, 0, 65]}),
+    'd32_causal_padding': (
+        2, 4, 4, 37, 37, 32, {'causal': True, 'key_padding_lens': [37, 20]}),
+    'd64_tq_ne_tk': (2, 4, 4, 300, 517, 64, {}),
+    'd64_window': (1, 3, 3, 333, 333, 64, {'window': (40, 9)}),
+    'd64_mqa_causal': (2, 4, 1, 129, 129, 64, {'causal': True}),
+    'd128_gqa_causal_window_padding': (
+        3, 4, 2, 100, 90, 128, {'causal': True, 'window': (30, None),
+                                'key_padding_lens': [90, 1, 0]}),
+    'd24_padded_head': (2, 4, 4, 50, 50, 24, {'window': (7, 3)}),
+    'd64_long': (1, 2, 2, 1100, 1100, 64,
+                 {'causal': True, 'key_padding_lens': [900]}),
+}
+
+
+@pytest.mark.parametrize('name', sorted(ATTENTION_BF16_CASES))
+def test_bf16_attention_kernels_match_plain(cuda, name):
+    """The bf16 forward (lean and training) against plain in the kernel's
+    key tiles, the bf16 backward through ``FlashAttention`` against
+    ``flash_attention_bwd_plain`` on the same residuals, at phase 26's
+    limits; the control (logits rounded to bf16 in the forward, P and dS
+    in the backward) fails them; the bf16 launches are counted; a row with
+    no key gives zeros; two runs give the same bits."""
+    b, h, h_kv, tq, tk, d, kwargs = ATTENTION_BF16_CASES[name]
+    rng = np.random.RandomState(sum(map(ord, name)))
+    q, k, v, d_o = (
+        torch.tensor(rng.randn(*shape), dtype=torch.float32,
+                     device=cuda).bfloat16()
+        for shape in ((b, h, tq, d), (b, h_kv, tk, d), (b, h_kv, tk, d),
+                      (b, h, tq, d)))
+    before = dict(flash_attention.launches)
+    with torch.no_grad():
+        lean = flash_attention(q, k, v, **kwargs)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = flash_attention(*leaves, **kwargs)
+    grads = torch.autograd.grad(out, leaves, d_o)
+    again = torch.autograd.grad(flash_attention(*leaves, **kwargs), leaves,
+                                d_o)
+    assert flash_attention.launches == {
+        **before, 'fwd_bf16': before['fwd_bf16'] + 1,
+        'fwd_train_bf16': before['fwd_train_bf16'] + 2,
+        'bwd_bf16': before['bwd_bf16'] + 2}
+    assert lean.dtype == out.dtype == torch.bfloat16
+    assert torch.equal(lean, out.detach())
+    assert all(torch.equal(x, y) for x, y in zip(grads, again))
+    want, lse = attention_bf16_fwd_plain(q, k, v, **kwargs)
+    excess, share = bf16_distance([out.detach()], [want],
+                                  ATTENTION_BF16_FWD_ATOL)
+    assert excess <= 0 and share <= ATTENTION_BF16_FWD_SHARE, (excess, share)
+    want_grads = flash_attention_bwd_plain(q, k, v, out.detach(), lse, d_o,
+                                           **kwargs)
+    excess, share = bf16_grad_distance(grads, want_grads)
+    assert excess <= 0 and share <= ATTENTION_BF16_GRAD_SHARE, (excess, share)
+    for g, x in zip(grads, (q, k, v)):
+        assert g.dtype == torch.bfloat16 and g.shape == x.shape
+    control, = attention_bf16_control_fwd(q, k, v, **kwargs)
+    _, control_share = bf16_distance([control], [want],
+                                     ATTENTION_BF16_FWD_ATOL)
+    assert control_share > ATTENTION_BF16_FWD_SHARE
+    _, control_share = bf16_grad_distance(
+        attention_bf16_control_bwd(q, k, v, out.detach(), lse, d_o,
+                                   **kwargs), want_grads)
+    assert control_share > ATTENTION_BF16_GRAD_SHARE
+    lens = kwargs.get('key_padding_lens')
+    if lens is not None and 0 in lens:
+        row = lens.index(0)
+        assert all(float(x[row].abs().max()) == 0.0 for x in (out, *grads))
+
+
+def test_bf16_attention_training_forward_writes_a_float32_log_sum_exp(cuda):
+    b, h, h_kv, tq, tk, d, kwargs = ATTENTION_BF16_CASES[
+        'd16_padding_with_empty_rows']
+    rng = np.random.RandomState(0)
+    q, k, v = (torch.tensor(rng.randn(*shape), dtype=torch.float32,
+                            device=cuda).bfloat16()
+               for shape in ((b, h, tq, d), (b, h_kv, tk, d),
+                             (b, h_kv, tk, d)))
+    lens = torch.tensor(kwargs['key_padding_lens'], dtype=torch.int32,
+                        device=cuda)
+    out, lse = attention_kernels._launch_fwd(q, k, v, lens, False, None,
+                                             None, 0.25, train=True)
+    _, want = attention_bf16_fwd_plain(q, k, v, **kwargs)
+    assert lse.dtype == torch.float32 and out.dtype == torch.bfloat16
+    assert lse_distance(lse, want) <= ATTENTION_BF16_LSE_TOL
+    assert bool((lse[3] == -1e30).all())
+
+
+def test_bf16_multihead_attention_auto_takes_the_bf16_kernel(cuda):
+    """A bf16 ``MultiheadAttention`` with ``use_flash='auto'`` on the card
+    takes the bf16 kernels (the measured table) and equals the forced
+    fused backend bit for bit; its dense backend agrees within bf16's
+    rounding."""
+    torch.manual_seed(0)
+    mha = MultiheadAttention(64, 4, use_rope=True, num_kv_heads=2).to(
+        cuda, torch.bfloat16)
+    x = torch.randn((3, 50, 64), device=cuda, dtype=torch.bfloat16)
+    lens = torch.tensor([50, 31, 7], device=cuda)
+    before = dict(flash_attention.launches)
+    with torch.no_grad():
+        auto = mha(x, key_padding_lens=lens, causal=True)
+        assert flash_attention.launches == {
+            **before, 'fwd_bf16': before['fwd_bf16'] + 1}
+        fused = set_attention_backend(mha, True)(
+            x, key_padding_lens=lens, causal=True)
+        dense = set_attention_backend(mha, False)(
+            x, key_padding_lens=lens, causal=True)
+    assert torch.equal(auto, fused)
+    assert float((fused.float() - dense.float()).abs().max()) <= 5e-2
 
 
 # ---------------------------------------------------------------- WaveNet
@@ -1738,28 +1865,28 @@ def test_lstm_kernels_refuse_mixed_streams_and_products(cuda):
 
 
 def test_gru_and_attention_raise_for_bf16_on_the_card(cuda):
-    """Their bf16 kernels are not ported: the GRU with compute_dtype and
-    the forced attention kernels on bf16 raise, naming the JAX kernel that
-    waits; nothing is widened to float32 quietly."""
+    """The GRU's bf16 kernels are not ported: the GRU with compute_dtype
+    raises, naming the JAX kernel that waits.  The attention kernels take
+    bf16 since their bf16 variants were ported, and raise for a mix of
+    types; nothing is widened to float32 quietly: the forced kernels and
+    'auto' (the measured table) launch the bf16 forward."""
     from padertorch_tpu_torch.modules.recurrent import GRU
     gru = GRU(6, 8, bidirectional=True, compute_dtype='bfloat16').to(cuda)
     with pytest.raises(NotImplementedError,
                        match='padertorch_tpu/ops/pallas/gru.py'):
         gru(torch.zeros((2, 5, 6), device=cuda))
     q = torch.zeros((2, 4, 5, 16), device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(TypeError,
-                       match='padertorch_tpu/ops/pallas/attention.py'):
-        flash_attention(q, q, q)
-    mha = MultiheadAttention(64, 4, use_flash=True).to(cuda, torch.bfloat16)
-    with pytest.raises(TypeError,
-                       match='padertorch_tpu/ops/pallas/attention.py'):
-        mha(torch.zeros((2, 5, 64), device=cuda, dtype=torch.bfloat16))
-    # 'auto' takes the dense path for bf16
-    auto = MultiheadAttention(64, 4).to(cuda, torch.bfloat16)
-    before = dict(flash_attention.launches)
-    assert auto(torch.randn((2, 5, 64), device=cuda,
-                            dtype=torch.bfloat16)).dtype == torch.bfloat16
-    assert flash_attention.launches == before
+    with pytest.raises(TypeError, match='float32 or bfloat16'):
+        flash_attention(q, q.float(), q)
+    x = torch.randn((2, 5, 64), device=cuda, dtype=torch.bfloat16)
+    for use_flash in (True, 'auto'):
+        mha = MultiheadAttention(64, 4, use_flash=use_flash).to(
+            cuda, torch.bfloat16)
+        before = dict(flash_attention.launches)
+        with torch.no_grad():
+            assert mha(x).dtype == torch.bfloat16
+        assert flash_attention.launches == {
+            **before, 'fwd_bf16': before['fwd_bf16'] + 1}
 
 
 def test_pit_model_with_compute_dtype_on_the_card_matches_the_cpu(cuda):

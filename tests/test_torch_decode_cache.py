@@ -286,10 +286,10 @@ def test_a_row_that_sees_no_key_gives_the_mean_of_the_values():
 
 
 def test_bf16_decoder_takes_the_dense_backend_and_decodes():
-    """The attention kernels take float32 only: under 'auto' a bf16 forward
-    takes the dense path on the card too (a forced fused backend raises
-    there, ``test_torch_cuda_kernels.py``), and the decode loop runs dense
-    in bf16 with bf16 caches."""
+    """Under 'auto' a bf16 forward on the CPU takes the dense path (on the
+    card the bf16 attention kernels, as the measured dispatch table
+    decides for float32 and bf16 alike), and the decode loop runs dense in
+    bf16 with bf16 caches."""
     _, dec = _pair('TransformerDecoder', d_model=16, num_layers=1,
                    num_heads=4, seed=43)
     dec = dec.to(torch.bfloat16)
@@ -305,4 +305,5 @@ def test_bf16_decoder_takes_the_dense_backend_and_decodes():
     np.testing.assert_allclose(got.float().numpy(), want.float().numpy(),
                                atol=0.05, rtol=0)
     assert tf.should_use_flash('cuda')
-    assert not tf.should_use_flash('cuda', torch.bfloat16)
+    assert tf.should_use_flash('cuda', torch.bfloat16)
+    assert not tf.should_use_flash('cpu', torch.bfloat16)

@@ -30,7 +30,8 @@ def test_auto_takes_the_kernels_up_to_their_widest_head(head_size, fused):
     assert should_use_flash(torch.device('cuda', 0), torch.float32,
                             head_size) is fused
     assert should_use_flash('cpu', torch.float32, head_size) is False
-    assert should_use_flash('cuda', torch.bfloat16, head_size) is False
+    assert should_use_flash('cuda', torch.bfloat16, head_size) is fused
+    assert should_use_flash('cpu', torch.bfloat16, head_size) is False
 
 
 def test_without_a_head_size_the_answer_is_the_device_and_type():

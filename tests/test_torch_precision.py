@@ -5,7 +5,9 @@ and ``Trainer(precision=...)``) against the JAX package's.
   the JAX class, its ``repr`` and the ways a trainer or a config names it;
 - one train step under ``precision='bfloat16'`` for the uPIT model (with
   and without ``compute_dtype``), the DPRNN-TasNet, the SepFormer-TasNet
-  (dense attention) and the WaveNet vocoder, at the sizes of the JAX
+  (dense attention, and the fused backend as the recipe's ``--flash``
+  forces it: the Pallas kernel in interpret mode against the port's plain
+  bf16 kernels) and the WaveNet vocoder, at the sizes of the JAX
   package's ``test_bf16_policy_model_zoo``: the same weights and example
   in both packages, the losses within 1e-2 relative (both are bf16 values,
   whose unit in the last place is 2^-8 relative, computed in bf16 in
@@ -137,6 +139,19 @@ def _tasnet_pair(tmp_path, variant, separator):
     return jax_trainer, port, _wave_batch(np.random.RandomState(0))
 
 
+def _sepformer_flash_pair(tmp_path):
+    """The SepFormer pair with both attention backends forced to the fused
+    kernels (the recipe's ``--flash``)."""
+    from padertorch_tpu.contrib.mk.modules.transformer import (
+        set_attention_backend as jax_set_attention_backend)
+    from padertorch_tpu_torch.contrib.mk.modules.transformer import (
+        set_attention_backend)
+    jax_trainer, port, batch = ZOO['sepformer'](tmp_path)
+    jax_set_attention_backend(jax_trainer.model, True)
+    set_attention_backend(port.model, True)
+    return jax_trainer, port, batch
+
+
 def _pit_pair(tmp_path, compute_dtype):
     from padertorch_tpu.models.bss import (
         PermutationInvariantTrainingModel as JaxPIT)
@@ -199,6 +214,7 @@ ZOO = {
         'input_size': 16, 'window_length': 10, 'hop_size': 5,
         'num_blocks': 1, 'num_layers_intra': 1, 'num_layers_inter': 1,
         'num_heads': 2}),
+    'sepformer-flash': _sepformer_flash_pair,
     'wavenet': _wavenet_pair,
 }
 
@@ -224,6 +240,28 @@ def test_one_policy_step_matches_the_jax_step(name, tmp_path):
     assert bf16_outputs, name
     assert {dtype for _, dtype in bf16_outputs} == {torch.bfloat16}, \
         bf16_outputs
+    _assert_masters_float32(port)
+
+
+def test_the_policy_hands_the_fused_attention_bf16_operands(tmp_path,
+                                                           monkeypatch):
+    """Under ``precision='bfloat16'`` with the fused backend, every attention
+    call of the SepFormer step gets bf16 q, k and v (the kernels' bf16
+    variants on the card), forward and backward run through it, and the
+    gradients reach the float32 masters."""
+    from padertorch_tpu_torch.contrib.mk.modules import transformer as tf
+    _, port, batch = ZOO['sepformer-flash'](tmp_path)
+    seen = []
+    real = tf.flash_attention
+
+    def spy(q, k, v, **kwargs):
+        seen.append((q.dtype, k.dtype, v.dtype, q.requires_grad))
+        return real(q, k, v, **kwargs)
+
+    monkeypatch.setattr(tf, 'flash_attention', spy)
+    _port_step_loss(port, batch)
+    # one intra and one inter layer in one block
+    assert seen == [(torch.bfloat16,) * 3 + (True,)] * 2, seen
     _assert_masters_float32(port)
 
 
