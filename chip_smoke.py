@@ -257,6 +257,33 @@ Phases, one line each:
     bf16 kernels' launches (16 forward and 16 backward a step, no float32
     launch), and a timed step at 4 x 16000 and 4 x 32000 by stage and on
     the host clock; masters float32.
+28. the three bf16 GRU kernels (bf16 streams, W_hh staged as bf16, bf16
+    products summed in float32) vs their plain bf16 versions at phase
+    23's limits at every shape a recipe launches (the DPRNN's
+    intra and inter, (500, 32, 600) ragged, the classifier's (66, 8, 64)
+    and (503, 16, 256) one direction), at H = 12 under prefix padding and
+    H = 100 in one direction, and at the bf16 resident routes' widest H
+    on this card and one above (forwards and backward: both routes, read
+    from ``gru_cell_scan.routes`` and ``bwd_routes``, as the planners
+    pick them); the plain version with float32 products must exceed the
+    share; the first five timed beside the float32 kernels, plain, a bf16
+    ``torch.nn.GRU`` layer (cuDNN) and the bound; then the float32 GRU
+    kernels' digests on fixed inputs at phase 8's shapes (``gru_f32_digests``
+    takes a checkout's root, so parent and change compare in one call).
+29. the recipe's ``dprnn`` with ``bgru`` chunk RNNs at full width under
+    ``precision='bfloat16'`` after ``set_rnn_backend(trainer.model,
+    'pallas', compute_dtype='bfloat16')``, beside the policy alone and
+    float32 from the same start: 20 steps' losses at B=4 x 16000, 36
+    ``fwd_train_bf16`` and 36 ``bwd_bf16`` launches in the first 3 steps
+    and no float32 GRU launch, timed steps at 4 x 16000 and 4 x 32000 by
+    stage and on the host clock, masters float32; then 4 requests through
+    the tasnet recipe's ``evaluate_example`` on the lean bf16 forward.
+30. the speaker classifier under ``precision='bfloat16'`` with a bf16 GRU
+    (``set_rnn_backend``) and the float32 ``fused_logmel`` in front: the
+    recipe's classifier (64 units, the resident route) on its 8 x 8000
+    batches and the class defaults (256 units, the cooperative route) on
+    16 x 64000, each 20 steps beside float32 from the same start, launch
+    counts, a timed step, and requests through ``evaluate_batch``.
 
 The line before the last is a JSON object with each kernel's launches on
 the main paths, the shape its numbers were taken at (``shape``; the other
@@ -265,7 +292,7 @@ plain version, its time,
 the plain version's, the library call's where there is one, and the
 least time the card could take (``bound_ms``: the larger of bytes over
 3.35 TB/s and float32 operations over 67 TFLOP/s, or for the bf16
-products of int8_matmul and the bf16 LSTM kernels 989 TFLOP/s, for the
+products of int8_matmul and the bf16 LSTM and GRU kernels 989 TFLOP/s, for the
 attention kernels' 3xTF32 products 495 / 3 TFLOP/s, for their bf16
 variants 989 for the bf16 products and 495 / 2 for the 2xTF32 ones, for
 fused_logmel's
@@ -318,6 +345,7 @@ from padertorch_tpu_torch.contrib.mk.modules.transformer import (
 from padertorch_tpu_torch.models.tasnet import TasNet
 from padertorch_tpu_torch.modules.dual_path_transformer import (
     DualPathTransformer)
+from padertorch_tpu_torch.modules.recurrent import set_rnn_backend
 from padertorch_tpu_torch.models.bss import PermutationInvariantTrainingModel
 from padertorch_tpu_torch.ops._stft import HostSTFT, STFT
 from padertorch_tpu_torch.io import dump_config
@@ -528,7 +556,7 @@ def max_rel_err(a, b):
 
 def with_zeros(launches, want):
     """``want`` with every other kernel that ``launches`` counts at zero
-    (the LSTM wrapper also counts its bf16 variants)."""
+    (the LSTM and GRU wrappers also count their bf16 variants)."""
     return {**dict.fromkeys(launches, 0), **want}
 
 
@@ -622,7 +650,8 @@ def recurrence_mask(t_len, batch, kind, rng, directions=2):
     time, or None.  'chunks': the
     inter-chunk RNN's, every one of the K=100 positions of an example
     sharing its chunk count (4 examples of 2 to 4 s); 'ragged': lengths in
-    [T/2, T]."""
+    [T/2, T]; 'prefix': the same lengths with the padding before the valid
+    steps."""
     if kind is None:
         return None
     if kind == 'chunks':
@@ -632,6 +661,8 @@ def recurrence_mask(t_len, batch, kind, rng, directions=2):
         lens = rng.randint(t_len // 2, t_len + 1, size=batch)
         lens[0] = t_len
     fwd = np.arange(t_len)[:, None] < lens[None, :]
+    if kind == 'prefix':
+        fwd = fwd[::-1]
     return np.concatenate([fwd, fwd[::-1]][:directions], axis=1).astype(
         'float32')
 
@@ -978,8 +1009,9 @@ def check_gru_routes(label, route):
     recipe's GRU the resident one, the classifier defaults' the
     cooperative one).  Returns the launches by route, of the forwards
     (``fwd``) and of the backward (``bwd``)."""
-    n = gru_cell_scan.launches['fwd'] + gru_cell_scan.launches['fwd_train']
-    n_bwd = gru_cell_scan.launches['bwd']
+    n = sum(gru_cell_scan.launches[k] for k in (
+        'fwd', 'fwd_train', 'fwd_bf16', 'fwd_train_bf16'))
+    n_bwd = gru_cell_scan.launches['bwd'] + gru_cell_scan.launches['bwd_bf16']
     want = {'resident': 0, 'cooperative': 0, route: n}
     want_bwd = {'resident': 0, 'cooperative': 0, route: n_bwd}
     if (n == 0 or gru_cell_scan.routes != want
@@ -2965,9 +2997,10 @@ def phase_speaker_clf():
               f'mean {np.mean(losses[half:]):.4f}; best validation accuracy '
               f'{best:.3f} (chance 0.125)')
         validations = epochs + 1
-        want = {'fused_logmel': iterations + n_dev * validations,
-                'fwd': n_dev * validations, 'fwd_train': iterations,
-                'bwd': iterations}
+        want = with_zeros(launches, {
+            'fused_logmel': iterations + n_dev * validations,
+            'fwd': n_dev * validations, 'fwd_train': iterations,
+            'bwd': iterations})
         if iterations != epochs * n_train or launches != want:
             fail(f'launches {launches}, expected {want}: per step one '
                  f'fused_logmel, one GRU fwd_train and one bwd; per '
@@ -3017,8 +3050,9 @@ def phase_speaker_clf():
               f'accuracy {accuracy:.3f} over {len(results)} utterances; card '
               f'vs CPU on the first request: same labels {same}, max |diff| '
               f'of confidence {diff:.3e} (tol {SPEAKER_TOL})')
-        if served != {'fused_logmel': n_dev, 'fwd': n_dev, 'fwd_train': 0,
-                      'bwd': 0} or len(results) != len(dev_ds):
+        if served != with_zeros(served, {'fused_logmel': n_dev,
+                                         'fwd': n_dev}) \
+                or len(results) != len(dev_ds):
             fail(f'{n_dev} requests launch one fused_logmel and one GRU '
                  f'forward each, got {served}')
         if not same or not diff <= SPEAKER_TOL:
@@ -3062,8 +3096,8 @@ def phase_speaker_clf():
               f'(tol {SPEAKER_TOL}); forward {forward_ms:.3f} ms, of it the '
               f'front end with its normalization {front_ms:.3f} ms; '
               f'launches {full_forward}, GRU by route {forward_routes}')
-        if full_forward != {'fused_logmel': 15, 'fwd': 8, 'fwd_train': 0,
-                            'bwd': 0}:
+        if full_forward != with_zeros(full_forward, {'fused_logmel': 15,
+                                                     'fwd': 8}):
             fail(f'8 forwards and 7 front ends alone launch 15 fused_logmel '
                  f'and 8 GRU forwards, got {full_forward}')
         if got.shape != (16, 251) or not err <= SPEAKER_TOL:
@@ -3077,8 +3111,10 @@ def phase_speaker_clf():
         print('phase 19e full-width training step 16 x 64000 samples: '
               + ', '.join(f'{k} {v:.3f} ms' for k, v in t.items())
               + f'; launches {full_step}, GRU by route {step_routes}')
+    # the float32 kernels this path runs (phase 30 runs the bf16 ones)
     return {name: launches[name] + served[name] + full_forward[name]
-            + full_step[name] for name in launches}
+            + full_step[name]
+            for name in ('fused_logmel', 'fwd', 'fwd_train', 'bwd')}
 
 
 # the decoder of bench.py's int8 decode benchmark (its bench_int8_decode)
@@ -4294,6 +4330,477 @@ def phase_sepformer_bf16(profile=False):
     return launches['bf16 fused']
 
 
+# phase 28: the bf16 GRU kernels against their plain bf16 versions at
+# phase 23's limits (LSTM_BF16_SHARE, LSTM_BF16_STATE_TOL,
+# LSTM_BF16_STREAM_TOL): the float32 states (h_T; dh0) within 3e-4 and
+# 1e-3, every stream element (out; acts, gh_n, h_prev; dgx, dgh) within one
+# bf16 unit in the last place plus 1e-3 (2e-3 in the backward), at most 5%
+# of them other than plain's; the plain version with float32 products on
+# the same bf16 streams must exceed the share.  (label, T, rows per
+# direction, H, mask kind, directions, the layer's input width for the
+# cuDNN yardstick); the first is the shape of the kernels line's rows, the
+# first five the shapes the recipes launch.  GRU_BF16_LIMIT_SHAPES adds the
+# resident routes' widest H on this card and one above, found from the
+# planners at run time.
+GRU_BF16_SHAPES = [
+    ('intra T=100 D*B=520 H=128', 100, 260, 128, None, 2, 64),
+    ('inter T=65 D*B=800 H=128', 65, 400, 128, 'chunks', 2, 64),
+    ('T=500 D*B=32 H=600', 500, 16, 600, 'ragged', 2, 1200),
+    ('classifier recipe T=66 D*B=8 H=64 one direction', 66, 8, 64,
+     'ragged', 1, 512),
+    ('classifier defaults T=503 D*B=16 H=256 one direction', 503, 16, 256,
+     'ragged', 1, 1024),
+    ('H=12 T=40 D*B=6 prefix', 40, 3, 12, 'prefix', 2, 24),
+    ('H=100 T=40 D*B=5 one direction', 40, 5, 100, 'ragged', 1, 200),
+]
+GRU_BF16_TIMED = 5          # the first five shapes are timed
+
+
+def gru_bf16_limit_shapes():
+    """The shapes at the bf16 resident routes' widest H on this card and
+    one above (forwards and backward; both directions; the forward's limit
+    under prefix padding), with the limits."""
+    limits = gru_kernels.device_limits(torch.cuda.current_device())
+
+    def widest(plan):
+        return max(h for h in range(1, 512)
+                   if plan(1, 1, h, *limits, elem=2) is not None)
+
+    fwd, bwd = (widest(gru_kernels.resident_plan),
+                widest(gru_kernels.resident_bwd_plan))
+    shapes = [(f'H={fwd} T=30 D*B=8 prefix (the widest resident forward)',
+               30, 4, fwd, 'prefix', 2, 2 * fwd),
+              (f'H={fwd + 1} T=30 D*B=3 one direction', 30, 3, fwd + 1,
+               'ragged', 1, 2 * fwd),
+              (f'H={bwd} T=30 D*B=10 (the widest resident backward)', 30, 5,
+               bwd, 'ragged', 2, 2 * bwd),
+              (f'H={bwd + 1} T=30 D*B=10', 30, 5, bwd + 1, 'ragged', 2,
+               2 * bwd)]
+    return shapes, {'fwd': fwd, 'bwd': bwd}
+
+
+def gru_bf16_case(label, t_len, batch, hdim, kind, n_dir, in_size, timed):
+    """The three bf16 GRU kernels at one shape: agreement with plain, the
+    control, the routes; timed beside the float32 kernels, plain, cuDNN in
+    bf16 and the bound."""
+    args, cot = recurrence_inputs(t_len, batch, hdim, kind, gates=3,
+                                  directions=n_dir)
+    gx, w, mask, h0 = args
+    gx16, d_out16, dh = gx.to(torch.bfloat16), cot[0].to(torch.bfloat16), \
+        cot[1]
+    args16 = (gx16, w, mask, h0)
+    valid = t_len * n_dir * batch if mask is None else float(mask.sum())
+    flops = gru_flops(valid, hdim)
+    limits = gru_kernels.device_limits(torch.cuda.current_device())
+    route = {
+        name: 'cooperative' if plan(n_dir, batch, hdim, *limits, elem=2)
+        is None else 'resident'
+        for name, plan in (('fwd', gru_kernels.resident_plan),
+                           ('bwd', gru_kernels.resident_bwd_plan))}
+    route['fwd_train'] = route['fwd']
+
+    def fwd():
+        return gru_cell_scan(*args16, compute_dtype='bfloat16')
+
+    def fwd_train():
+        return gru_kernels._launch(gx16, w, n_dir, mask, h0, train=True)
+
+    want_train = gru_cell_scan_train_plain(*args16, 'bfloat16')
+    _, acts, gh_n, h_prev, _ = want_train
+    bwd_in = (acts, gh_n, h_prev, w, mask, d_out16, dh)
+
+    def bwd():
+        return gru_kernels._launch_bwd(acts, gh_n, h_prev, w, n_dir, mask,
+                                       d_out16, dh)
+
+    reset_launches()
+    got = {'fwd': fwd(), 'fwd_train': fwd_train(), 'bwd': bwd()}
+    again = fwd()
+    torch.cuda.synchronize()
+    launched = dict(gru_cell_scan.launches)
+    routed = {'fwd': dict(gru_cell_scan.routes),
+              'bwd': dict(gru_cell_scan.bwd_routes)}
+    want_routed = {'fwd': {'resident': 0, 'cooperative': 0,
+                           route['fwd']: 3},
+                   'bwd': {'resident': 0, 'cooperative': 0,
+                           route['bwd']: 1}}
+    if launched != with_zeros(launched, {'fwd_bf16': 2, 'fwd_train_bf16': 1,
+                                         'bwd_bf16': 1}) \
+            or routed != want_routed:
+        fail(f'gru bf16 at {label}: launches {launched}, routes {routed}, '
+             f'expected {want_routed}')
+    if not all(torch.equal(a, b) for a, b in zip(got['fwd'], again)):
+        fail(f'two lean bf16 gru runs at {label} differ')
+    want = {'fwd': gru_cell_scan_plain(*args16, 'bfloat16'),
+            'fwd_train': want_train,
+            'bwd': gru_cell_scan_bwd_plain(*bwd_in, 'bfloat16')}
+    control = {'fwd': gru_cell_scan_plain(*args16),
+               'fwd_train': gru_cell_scan_train_plain(*args16),
+               'bwd': gru_cell_scan_bwd_plain(*bwd_in)}
+    torch.cuda.synchronize()
+    streams = {'fwd': 1, 'fwd_train': 4, 'bwd': 2}
+    if timed:
+        # the float32 kernels at the same shape, on float32 inputs
+        f32_train = gru_kernels._launch(gx, w, n_dir, mask, h0, train=True)
+        f32 = {'fwd': lambda: gru_cell_scan(*args),
+               'fwd_train': lambda: gru_kernels._launch(
+                   gx, w, n_dir, mask, h0, train=True),
+               'bwd': lambda: gru_kernels._launch_bwd(
+                   *f32_train[1:4], w, n_dir, mask, *cot)}
+        plain = {'fwd': lambda: gru_cell_scan_plain(*args16, 'bfloat16'),
+                 'fwd_train': lambda: gru_cell_scan_train_plain(
+                     *args16, 'bfloat16'),
+                 'bwd': lambda: gru_cell_scan_bwd_plain(*bwd_in,
+                                                        'bfloat16')}
+        kernel = {'fwd': fwd, 'fwd_train': fwd_train, 'bwd': bwd}
+        library = cudnn_layer_ms(torch.nn.GRU, t_len, batch, in_size, hdim,
+                                 n_dir, dtype=torch.bfloat16)
+        inputs = {'fwd': args16, 'fwd_train': args16, 'bwd': bwd_in}
+    rows = {}
+    for name in ('fwd', 'fwd_train', 'bwd'):
+        n = streams[name]
+        tol, stream_tol = (LSTM_BF16_STATE_TOL[name],
+                           LSTM_BF16_STREAM_TOL[name])
+        excess, share = bf16_distance(got[name][:n], want[name][:n],
+                                      stream_tol)
+        state_err = max_err(got[name][n:], want[name][n:])
+        _, control_share = bf16_distance(control[name][:n], want[name][:n],
+                                         stream_tol)
+        control_state = max_err(control[name][n:], want[name][n:])
+        shown = (f'phase 28 gru bf16 {name} {label} ({route[name]} '
+                 f'route): states max |kernel - plain| {state_err:.3e} (tol '
+                 f'{tol}; plain with float32 products {control_state:.3e}); '
+                 f'streams {excess + stream_tol:.3e} beyond one bf16 ulp '
+                 f'(tol {stream_tol}), {share:.3%} of them differ (tol '
+                 f'{LSTM_BF16_SHARE:.0%}; plain with float32 products '
+                 f'{control_share:.3%})')
+        row = {'shape': label, 'max_abs_err': max_err(got[name],
+                                                      want[name]),
+               'share_differing': share, 'state_err': state_err,
+               'control_share': control_share, 'gru_route': route[name]}
+        if timed:
+            ms = cuda_ms(kernel[name], iters=10)
+            f32_ms = cuda_ms(f32[name], iters=10)
+            plain_ms = cuda_ms(plain[name], iters=2)
+            limit = bound(nbytes(*inputs[name], *got[name]), flops,
+                          peak=PEAK_BF16_FLOPS)
+            shown += (f'; kernel {ms:.3f} ms, the float32 kernel '
+                      f'{f32_ms:.3f} ms, plain {plain_ms:.3f} ms, cuDNN bf16 '
+                      f'nn.GRU layer {library[name]:.3f} ms, bound '
+                      f'{limit["bound_ms"]:.4f} ms by {limit["bound_by"]}')
+            row.update(ms=ms, f32_kernel_ms=f32_ms, plain_ms=plain_ms,
+                       **limit, library_ms=library[name])
+        print(shown)
+        if not (excess <= 0 and share <= LSTM_BF16_SHARE
+                and state_err <= tol):
+            fail(f'gru bf16 {name} kernel disagrees with plain at {label}: '
+                 f'streams {excess} beyond the limit, {share} of them '
+                 f'differ, states {state_err}')
+        if not control_share > LSTM_BF16_SHARE:
+            fail(f'the limit does not tell bf16 products from float32 at '
+                 f'{label} ({name}): {control_share}')
+        rows[name] = row
+    return rows
+
+
+# the float32 GRU kernels' outputs on fixed inputs, at phase 8's five
+# shapes: lean forward, training forward and backward; run in a process of
+# its own from a checkout's root, so that two checkouts' kernels can be
+# compared (``python3 -c "import chip_smoke as c;
+# print(c.gru_f32_digests('<checkout>'))"``)
+GRU_DIGEST_CODE = r"""
+import hashlib, json, sys
+import numpy as np
+import torch
+from padertorch_tpu_torch.ops.kernels import gru
+out = {}
+for label, t_len, batch, hdim, n_dir in json.loads(sys.argv[1]):
+    rng = np.random.RandomState(hdim + t_len)
+    lens = rng.randint(t_len // 2, t_len + 1, size=batch)
+    fwd = np.arange(t_len)[:, None] < lens[None, :]
+    mask = np.concatenate([fwd, fwd[::-1]][:n_dir], axis=1)
+    rows = n_dir * batch
+    put = lambda a: torch.from_numpy(a.astype('float32')).cuda()
+    gx = put(rng.uniform(-1, 1, (t_len, rows, 3 * hdim)))
+    w = put(rng.uniform(-1, 1, (n_dir, hdim, 3 * hdim)) / np.sqrt(hdim))
+    h0 = put(rng.uniform(-0.1, 0.1, (rows, hdim)))
+    d_out = put(rng.uniform(-1, 1, (t_len, rows, hdim)))
+    dh = put(rng.uniform(-1, 1, (rows, hdim)))
+    digest = hashlib.sha256()
+    for m in (None, put(mask)):
+        lean = gru.gru_cell_scan(gx, w, m, h0)
+        train = gru._launch(gx, w, n_dir, m, h0, train=True)
+        bwd = gru._launch_bwd(*train[1:4], w, n_dir, m, d_out, dh)
+        for t in (*lean, *train, *bwd):
+            digest.update(t.cpu().numpy().tobytes())
+    out[label] = digest.hexdigest()[:16]
+print(json.dumps(out))
+"""
+
+
+def gru_f32_digests(root):
+    """{shape: digest} of the float32 GRU kernels of the checkout at
+    ``root`` (see GRU_DIGEST_CODE)."""
+    shapes = [(label, t_len, batch, hdim, 2)
+              for label, t_len, batch, hdim, _ in RECURRENCE_SHAPES]
+    shapes += [(label, t_len, batch, hdim, 1)
+               for label, t_len, batch, hdim, _, _ in CLASSIFIER_GRU_SHAPES]
+    proc = subprocess.run(
+        [sys.executable, '-c', GRU_DIGEST_CODE, json.dumps(shapes)],
+        cwd=root, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        fail(f'the float32 GRU digests of {root} failed:\n{proc.stderr}')
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def phase_gru_bf16_kernels():
+    """Phase 28: the three bf16 GRU kernels at GRU_BF16_SHAPES and at the
+    resident routes' limits; the float32 GRU kernels' digests.  Returns
+    {label: {kernel: row}}."""
+    start = time.perf_counter()
+    limit_shapes, widest = gru_bf16_limit_shapes()
+    print(f'phase 28 the bf16 resident routes on this card reach H = '
+          f'{widest["fwd"]} (forwards) and H = {widest["bwd"]} (backward)')
+    rows = {}
+    for i, shape in enumerate(GRU_BF16_SHAPES + limit_shapes):
+        rows[shape[0]] = gru_bf16_case(*shape, timed=i < GRU_BF16_TIMED)
+        torch.cuda.empty_cache()
+    digests = gru_f32_digests(Path(__file__).resolve().parent)
+    print(f'phase 28 float32 GRU kernels\' digests (lean, training forward, '
+          f'backward, unmasked and ragged): {json.dumps(digests)}; '
+          f'{time.perf_counter() - start:.1f} s')
+    return rows
+
+
+def bf16_gru_launches():
+    return {k: gru_cell_scan.launches[k]
+            for k in ('fwd_bf16', 'fwd_train_bf16', 'bwd_bf16')}
+
+
+# phase 29's three runs of the bgru DPRNN-TasNet from one start: (label,
+# the trainer's precision, the GRUs' compute_dtype); the first is the
+# contract this slice ports
+DPRNN_BGRU_RUNS = [('bf16 GRUs', 'bfloat16', 'bfloat16'),
+                   ('policy alone', 'bfloat16', None),
+                   ('f32', None, None)]
+
+
+def phase_dprnn_bgru_bf16():
+    """Phase 29: the recipe's full-width ``dprnn`` with ``bgru`` chunk RNNs
+    under ``precision='bfloat16'`` after ``set_rnn_backend(trainer.model,
+    'pallas', compute_dtype='bfloat16')``, beside the policy alone (the
+    float32 GRU kernels on bf16 inputs) and float32, from one start: 20
+    steps' losses at B=4 x 16000 (bench.py's ``bench_dprnn``), the first 3
+    steps' launches, timed steps at 4 x 16000 and 4 x 32000; then 4
+    requests through the tasnet recipe's ``evaluate_example`` on the lean
+    bf16 forward.  Returns the bf16 kernels' launches of the bf16 run."""
+    start = time.perf_counter()
+    steps = 20
+    batch = tasnet_batch(4, 16000, seed=1)
+    results, main = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, precision, compute_dtype in DPRNN_BGRU_RUNS:
+            torch.manual_seed(0)
+            trainer = Trainer.from_config(tas_train.get_trainer_config(
+                Path(tmp) / label.replace(' ', '_'), variant='dprnn',
+                updates=tasnet_updates('bgru', {'precision': precision}))
+            ).to('cuda')
+            if compute_dtype:
+                set_rnn_backend(trainer.model, 'pallas',
+                                compute_dtype=compute_dtype)
+            example = trainer.model.example_to_device(batch, 'cuda')
+            reset_launches()
+            losses = losses_over(trainer, example, 3)
+            launches = dict(gru_cell_scan.launches)
+            routes = check_gru_routes(f'phase 29 {label}', 'resident')
+            variant = '_bf16' if compute_dtype else ''
+            want = with_zeros(launches, {'fwd_train' + variant: 36,
+                                         'bwd' + variant: 36})
+            if launches != want:
+                fail(f'phase 29 {label}: 3 steps launched {launches}, '
+                     f'expected {want}')
+            losses += losses_over(trainer, example, steps - 3)
+            if compute_dtype:
+                main = bf16_gru_launches()
+            times = {}
+            for samples in (16000, 32000):
+                # timed_step counts its timed steps' launches from zero
+                times[samples] = timed_step(
+                    trainer, tasnet_batch(4, samples, seed=1),
+                    loss_key='trainer', wrapper=gru_cell_scan, per_step=12,
+                    variant=variant)
+                if compute_dtype:
+                    for name, n in bf16_gru_launches().items():
+                        main[name] += n
+            masters_are_float32(trainer, f'phase 29 {label}')
+            results[label] = losses
+            for samples, t in times.items():
+                print(f'phase 29 bgru DPRNN step {label} B=4 x {samples}: '
+                      + ', '.join(f'{k} {v:.3f} ms' for k, v in t.items()))
+            print(f'phase 29 {label}: launches in the first 3 steps '
+                  f'{launches}, by route {routes}')
+            if label == 'bf16 GRUs':
+                model = trainer.model.eval()
+                served = serve_bf16_tasnet(model)
+                for name, n in served.items():
+                    main[name] += n
+            del trainer
+        diff = {other: max(abs(x - y) for x, y in zip(
+            results['bf16 GRUs'], results[other]))
+            for other in ('policy alone', 'f32')}
+        print(f'phase 29 losses over {steps} steps at B=4 x 16000: '
+              + '; '.join(f'{k} {[round(x, 4) for x in v]}'
+                          for k, v in results.items())
+              + '; bf16 GRUs against '
+              + ', '.join(f'{k} {v:.4f}' for k, v in diff.items())
+              + f' largest difference; {time.perf_counter() - start:.1f} s')
+        bf16 = results['bf16 GRUs']
+        if not (np.isfinite(bf16).all() and bf16[-1] < bf16[0]):
+            fail(f'the bgru DPRNN step on the bf16 GRU kernels does not '
+                 f'train: {bf16}')
+    torch.cuda.empty_cache()
+    return main
+
+
+def serve_bf16_tasnet(model):
+    """4 requests through the tasnet recipe's ``evaluate_example`` with the
+    GRUs at ``compute_dtype='bfloat16'``: the lean bf16 forward, 12
+    launches a request, no float32 GRU launch; SI-SDR finite."""
+    examples = list(tas_data.synthetic_database(num_examples=4, seed=2))
+    reset_launches()
+    latencies = []
+    for example in examples:
+        begin = time.perf_counter()
+        _, metrics = tas_evaluate.evaluate_example(model, example)
+        latencies.append((time.perf_counter() - begin) * 1e3)
+        if not np.isfinite(metrics['output_si_sdr']).all():
+            fail(f'bad metrics from the bf16-GRU DPRNN: {metrics}')
+    launches = dict(gru_cell_scan.launches)
+    routes = check_gru_routes('phase 29 serving', 'resident')
+    print(f'phase 29 the bf16-GRU model served {len(examples)} requests, '
+          f'latency ms {[round(x, 3) for x in latencies]}, launches '
+          f'{launches}, by route {routes}')
+    if launches != with_zeros(launches, {'fwd_bf16': 12 * len(examples)}):
+        fail(f'{len(examples)} requests launch 12 lean bf16 forwards each, '
+             f'got {launches}')
+    return bf16_gru_launches()
+
+
+def speaker_runs(label, make_trainer, batch, steps, route, requests):
+    """Phase 30 for one classifier: ``make_trainer(precision)`` from seed
+    0, once under the bf16 policy with the GRU at
+    ``compute_dtype='bfloat16'`` and once in float32, ``steps`` losses on
+    ``batch`` each; the bf16 run's launches (fused_logmel and the bf16 GRU
+    kernels on ``route``, no float32 GRU launch), a timed step, then
+    ``requests`` through ``evaluate_batch``.  Returns the bf16 kernels'
+    launches."""
+    losses, main = {}, {}
+    for precision in ('bfloat16', None):
+        torch.manual_seed(0)
+        trainer = make_trainer(precision).to('cuda')
+        if precision:
+            set_rnn_backend(trainer.model, 'pallas',
+                            compute_dtype='bfloat16')
+        example = trainer.model.example_to_device(batch, 'cuda')
+        reset_launches()
+        losses[precision] = losses_over(trainer, example, steps)
+        launches = {'fused_logmel': fused_logmel.launches,
+                    **gru_cell_scan.launches}
+        routes = check_gru_routes(f'phase 30 {label}', route)
+        variant = '_bf16' if precision else ''
+        want = with_zeros(launches, {'fused_logmel': steps,
+                                     'fwd_train' + variant: steps,
+                                     'bwd' + variant: steps})
+        if launches != want:
+            fail(f'phase 30 {label} {precision}: launches {launches}, '
+                 f'expected {want}')
+        if precision:
+            main = bf16_gru_launches()
+        t = timed_step(trainer, batch, loss_key='trainer',
+                       wrapper=gru_cell_scan, per_step=1, variant=variant)
+        if precision:
+            for name, n in bf16_gru_launches().items():
+                main[name] += n
+        masters_are_float32(trainer, f'phase 30 {label}')
+        print(f'phase 30 {label} step, precision {precision}: '
+              + ', '.join(f'{k} {v:.3f} ms' for k, v in t.items())
+              + f'; launches over {steps} steps {launches}, GRU by route '
+              f'{routes}')
+        if precision:
+            model = trainer.model.eval()
+            reset_launches()
+            results, latencies = {}, []
+            for request in requests:
+                begin = time.perf_counter()
+                results.update(spk_evaluate.evaluate_batch(model, request))
+                latencies.append((time.perf_counter() - begin) * 1e3)
+            served = dict(gru_cell_scan.launches)
+            served_routes = check_gru_routes(f'phase 30 {label} served',
+                                             route)
+            confidences = [v['confidence'] for v in results.values()]
+            print(f'phase 30 {label}: {len(requests)} requests through '
+                  f'evaluate_batch, latency ms '
+                  f'{[round(x, 3) for x in latencies]}, launches {served} by '
+                  f'route {served_routes}, {len(results)} utterances')
+            if served != with_zeros(served, {'fwd_bf16': len(requests)}) \
+                    or not np.isfinite(confidences).all():
+                fail(f'phase 30 {label}: requests launched {served}, '
+                     f'confidences {confidences}')
+            for name, n in bf16_gru_launches().items():
+                main[name] += n
+        del trainer
+    bf16, f32 = losses['bfloat16'], losses[None]
+    print(f'phase 30 {label} losses over {steps} steps from one start, '
+          f'bf16 policy with a bf16 GRU: {[round(x, 4) for x in bf16]}; '
+          f'f32: {[round(x, 4) for x in f32]}; largest difference '
+          f'{max(abs(x - y) for x, y in zip(bf16, f32)):.4f}')
+    if not (np.isfinite(bf16).all() and bf16[-1] < bf16[0]):
+        fail(f'the speaker classifier {label} under the bf16 policy does '
+             f'not train: {bf16}')
+    return main
+
+
+def phase_speaker_bf16():
+    """Phase 30: the speaker classifier under ``precision='bfloat16'`` with
+    a bf16 GRU (``set_rnn_backend``) and the float32 ``fused_logmel`` in
+    front: the recipe's classifier (64 units: the resident route) on its
+    batches of 8 x 8000 samples, and the class defaults (251 speakers, (32,
+    64) channels, 256 units: the cooperative route) on 16 x 64000, each
+    beside float32 from the same start.  Returns the bf16 kernels'
+    launches."""
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        train_ds, dev_ds = spk_train.synthetic_split(8)
+        encoder = spk_data.get_label_encoder(tmp, train_ds)
+        train = list(spk_data.prepare_dataset_audio(
+            train_ds, encoder, batch_size=8, shuffle=False, prefetch=False))
+        dev = list(spk_data.prepare_dataset_audio(
+            dev_ds, encoder, batch_size=8, shuffle=False, prefetch=False))
+
+        def recipe(precision):
+            return Trainer.from_config(spk_train.get_trainer_config(
+                Path(tmp) / f'recipe_{precision}', len(encoder.label_mapping),
+                on_device_features=True, precision=precision))
+
+        def defaults(precision):
+            return Trainer(
+                SpeakerClf(FusedAudioLogMelExtractor(16000, 512, 128, 64)),
+                Path(tmp) / f'full_{precision}',
+                Adam(gradient_clipping=10.0, lr=3e-4), precision=precision)
+
+        main = speaker_runs('recipe (64 units)', recipe, train[0], 20,
+                            'resident', dev)
+        batch = speaker_batch(16, 64000, 251)
+        requests = [dict(batch, example_id=[f'request{i}_{j}'
+                                            for j in range(16)])
+                    for i in range(2)]
+        full = speaker_runs('class defaults (256 units)', defaults, batch,
+                            20, 'cooperative', requests)
+    print(f'phase 30 {time.perf_counter() - start:.1f} s')
+    torch.cuda.empty_cache()
+    return {name: main[name] + full[name] for name in main}
+
+
 def main():
     profile = '--profile' in sys.argv[1:]
     phase_device()
@@ -4334,6 +4841,17 @@ def main():
     phase_dprnn_bf16(profile=profile)
     attention_bf16, headline = phase_attention_bf16()
     attention_bf16_launches = phase_sepformer_bf16(profile=profile)
+    gru_bf16 = phase_gru_bf16_kernels()
+    dprnn_bgru_launches = phase_dprnn_bgru_bf16()
+    speaker_bf16_launches = phase_speaker_bf16()
+    # the bf16 GRU kernels' launches on the main paths: the bgru DPRNN
+    # under the policy (20 steps and 4 requests) and both classifiers
+    gru_bf16_launches = {
+        name: dprnn_bgru_launches[name] + speaker_bf16_launches[name]
+        for name in dprnn_bgru_launches}
+    for name, n in gru_bf16_launches.items():
+        if n == 0:
+            fail(f'phases 29 and 30 never launched the gru {name} kernel')
     for name in ('fwd_train_bf16', 'bwd_bf16'):
         if attention_bf16_launches[name] == 0:
             fail(f'the bf16 SepFormer step never launched the attention '
@@ -4388,7 +4906,10 @@ def main():
           f'decode of 128 tokens), {serve_launches} (16 batched requests); '
           f'bf16 lstm {lstm_bf16_launches} (the bf16 flagship: 20 training '
           f'steps, 4 requests); bf16 attention {attention_bf16_launches} '
-          f'(the bf16 SepFormer step: 20 training steps)')
+          f'(the bf16 SepFormer step: 20 training steps); bf16 gru '
+          f'{gru_bf16_launches} (the bgru DPRNN under the policy '
+          f'{dprnn_bgru_launches}, the speaker classifiers '
+          f'{speaker_bf16_launches})')
     # every row's numbers are those of its ``shape``: the GRU rows those of
     # the intra-chunk shape, which six of a TasNet's twelve chunk RNNs run
     # (phase 8 prints the rows of the other shapes, the classifier's two
@@ -4402,6 +4923,7 @@ def main():
     # model's 16 layers); the forward row counts lean and training launches
     attention_rows = attention[ATTENTION_CASES[0][0]]
     attention_bf16_rows = attention_bf16[ATTENTION_BF16_CASES[0][0]]
+    gru_bf16_rows = gru_bf16[GRU_BF16_SHAPES[0][0]]
     kernels = [
         {'name': 'lstm_cell_scan', 'route': 'cuda',
          'source': 'padertorch_tpu_torch/csrc/lstm_cell_scan.cu',
@@ -4451,6 +4973,21 @@ def main():
          'replaces': 'padertorch_tpu/ops/pallas/gru.py:259',
          'launches': gru_launches['bwd'],
          'launches_by_route': dict(GRU_BWD_MAIN_ROUTES), **gru_rows['bwd']},
+        {'name': 'gru_cell_scan_bf16', 'route': 'cuda',
+         'source': 'padertorch_tpu_torch/csrc/gru_cell_scan.cu',
+         'replaces': 'padertorch_tpu/ops/pallas/gru.py:182',
+         'launches': gru_bf16_launches['fwd_bf16'],
+         **gru_bf16_rows['fwd']},
+        {'name': 'gru_cell_scan_train_bf16', 'route': 'cuda',
+         'source': 'padertorch_tpu_torch/csrc/gru_cell_scan.cu',
+         'replaces': 'padertorch_tpu/ops/pallas/gru.py:198',
+         'launches': gru_bf16_launches['fwd_train_bf16'],
+         **gru_bf16_rows['fwd_train']},
+        {'name': 'gru_cell_scan_bwd_bf16', 'route': 'cuda',
+         'source': 'padertorch_tpu_torch/csrc/gru_cell_scan_bwd.cu',
+         'replaces': 'padertorch_tpu/ops/pallas/gru.py:259',
+         'launches': gru_bf16_launches['bwd_bf16'],
+         **gru_bf16_rows['bwd']},
         {'name': 'flash_attention', 'route': 'cuda',
          'source': 'padertorch_tpu_torch/csrc/flash_attention.cu',
          'replaces': 'padertorch_tpu/ops/pallas/attention.py:328',

@@ -32,6 +32,10 @@ On the card it is slower than float32 for the ``dprnn`` variant today
 pairs): the chunk LSTMs run their float32 kernels on widened inputs, so the
 card's busy time is about the same (29 to 34 ms a step under ``--profile``),
 and the step, bound by the host, adds about 400 dtype casts.
+``--rnn_backend`` is the JAX recipe's flag (``set_rnn_backend`` on the
+model; on the card only ``pallas``, the kernels, exists), and
+``--compute_dtype bfloat16`` gives every chunk RNN bf16 products and
+streams through it (the bf16 kernels of ``bgru`` and ``blstm``).
 """
 import argparse
 from pathlib import Path
@@ -45,6 +49,7 @@ from padertorch_tpu_torch.models.tasnet import (
 from padertorch_tpu_torch.contrib.mk.modules.transformer import (
     set_attention_backend)
 from padertorch_tpu_torch.modules.dual_path_rnn import DPRNN
+from padertorch_tpu_torch.modules.recurrent import set_rnn_backend
 from padertorch_tpu_torch.modules.dual_path_transformer import (
     DualPathTransformer)
 from padertorch_tpu_torch.train.optimizer import Adam
@@ -134,6 +139,10 @@ def main():
     parser.add_argument('--epochs', type=int, default=200)
     parser.add_argument('--batch_size', type=int, default=4)
     parser.add_argument(
+        '--rnn_backend', default='pallas', choices=['scan', 'pallas'],
+        help="the chunk RNNs' time loop, as the JAX recipe's flag; on the "
+             "card only 'pallas' (the kernels) exists")
+    parser.add_argument(
         '--flash', action='store_true',
         help='force the fused attention kernels for the sepformer variant '
              '(ops/kernels/attention.py); without it the attention '
@@ -149,6 +158,9 @@ def main():
     parser.add_argument('--precision', default=None,
                         choices=['bfloat16'],
                         help="the trainer's mixed-precision policy")
+    parser.add_argument('--compute_dtype', default=None,
+                        choices=['bfloat16'],
+                        help="the chunk RNNs' products and streams")
     args, rest = parser.parse_known_args()
 
     if args.database is not None:
@@ -186,6 +198,11 @@ def main():
     if args.flash:
         set_attention_backend(trainer.model, True)
     trainer.to(args.device)
+    try:
+        set_rnn_backend(trainer.model, args.rnn_backend,
+                        compute_dtype=args.compute_dtype or 'keep')
+    except AssertionError:
+        pass  # the sepformer variant has no RNNs
     print(f'device: {args.device}')
 
     n_train = args.num_examples or max(32, 4 * args.batch_size)

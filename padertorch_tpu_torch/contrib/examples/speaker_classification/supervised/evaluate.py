@@ -11,7 +11,9 @@ run of either package, with either front end.
 Run (on the card, the default; without one it fails):
     python -m padertorch_tpu_torch.contrib.examples.speaker_classification.supervised.evaluate \
         --model_path /path/to/storage_dir --synthetic
-Run on the CPU: add ``--device cpu``.
+Run on the CPU: add ``--device cpu``.  ``--compute_dtype bfloat16`` serves
+with the GRU's bf16 products and streams (``set_rnn_backend``; on the card
+the lean bf16 GRU kernel).
 """
 import argparse
 import json
@@ -25,6 +27,7 @@ from padertorch_tpu_torch.contrib.je.modules.features import (
 from padertorch_tpu_torch.evaluation import (
     split_managed, gather_merged, is_master,
 )
+from padertorch_tpu_torch.modules.recurrent import set_rnn_backend
 
 from . import data
 from .model import SpeakerClf
@@ -34,7 +37,7 @@ def evaluate_batch(model, batch):
     """One request: the batch through the model on its device; returns
     {example_id: {hit, true_label, predicted_label, confidence}}."""
     with torch.no_grad():
-        logits = model(model.example_to_device(batch)).cpu().numpy()
+        logits = model(model.example_to_device(batch)).float().cpu().numpy()
     predictions = logits.argmax(-1)
     exp = np.exp(logits - logits.max(-1, keepdims=True))
     confidences = (exp / exp.sum(-1, keepdims=True)).max(-1)
@@ -60,6 +63,9 @@ def main():
     parser.add_argument('--checkpoint', default='ckpt_best_accuracy.ptt')
     parser.add_argument('--device', default='cuda',
                         help="'cuda' (the default) or 'cpu'")
+    parser.add_argument('--compute_dtype', default=None,
+                        choices=['bfloat16'],
+                        help="the GRU's products and streams")
     args = parser.parse_args()
 
     if args.database is not None:
@@ -76,6 +82,8 @@ def main():
         model = SpeakerClf.from_storage_dir(
             model_path, checkpoint_name='ckpt_latest.ptt')
     model = model.to(args.device).eval()
+    if args.compute_dtype:
+        set_rnn_backend(model, 'pallas', compute_dtype=args.compute_dtype)
     print(f'device: {args.device}')
 
     full = data.synthetic_database()

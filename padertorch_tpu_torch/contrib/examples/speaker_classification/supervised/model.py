@@ -8,6 +8,12 @@ FusedAudioLogMelExtractor), 2-D CNN over (mel, time), GRU, take-last
 pooling, linear head; ``modify_summary`` computes the overall accuracy from
 buffered predictions.  On the card the GRU's recurrence and the fused front
 end run in the hand-written kernels.
+
+Under the trainer's bf16 policy (``precision='bfloat16'``) the front end
+computes in float32 on the bf16-rounded audio (the fused kernel widens its
+input, as the JAX package's does), and the layers after it take their
+parameters' type; ``set_rnn_backend(model, 'pallas',
+compute_dtype='bfloat16')`` gives the GRU bf16 products and streams.
 """
 import numpy as np
 import torch
@@ -69,7 +75,7 @@ class SpeakerClf(Model):
         else:
             x, seq_len = self.feature_extractor(
                 inputs['stft'], seq_len=seq_len)  # (B, C, M, T)
-        h = self.cnn(x)  # (B, C', M', T)
+        h = self.cnn(x.to(self.head.weight.dtype))  # (B, C', M', T)
         b, c, m, t = h.shape
         h = h.permute(0, 3, 1, 2).reshape(b, t, c * m)
         h, _ = self.gru(h, seq_lens=seq_len)

@@ -10,7 +10,10 @@ JAX package both load.
 Run on the card (the default device; without one it fails):
     python -m padertorch_tpu_torch.contrib.examples.speaker_classification.supervised.train \
         --storage_root /tmp/spk --synthetic --epochs 3 --on_device_features
-Run on the CPU: add ``--device cpu``.
+Run on the CPU: add ``--device cpu``.  ``--precision bfloat16`` trains
+under the trainer's bf16 policy (bf16 casts of float32 masters), and
+``--compute_dtype bfloat16`` gives the GRU bf16 products and streams
+(``set_rnn_backend``; on the card the bf16 GRU kernels).
 """
 import argparse
 from pathlib import Path
@@ -20,6 +23,7 @@ import torch
 from padertorch_tpu_torch.contrib.je.modules.features import (
     FusedAudioLogMelExtractor)
 from padertorch_tpu_torch.io import dump_config
+from padertorch_tpu_torch.modules.recurrent import set_rnn_backend
 from padertorch_tpu_torch.train.optimizer import Adam
 from padertorch_tpu_torch.train.trainer import Trainer
 from padertorch_tpu_torch.utils.nested import nested_merge
@@ -29,10 +33,12 @@ from .model import SpeakerClf
 
 
 def get_trainer_config(storage_dir, num_speakers, on_device_features=False,
-                       updates=None):
+                       updates=None, precision=None):
     """The recipe's trainer config: its small classifier ((16, 32) CNN
     channels, 64 GRU units; ``updates`` overrides), with the host STFT
-    front end or, with ``on_device_features``, the fused one."""
+    front end or, with ``on_device_features``, the fused one;
+    ``precision`` is the trainer's (None, or 'bfloat16' for the bf16
+    policy), as the JAX ``Trainer`` takes it from its config."""
     model = {
         'factory': SpeakerClf,
         'num_speakers': num_speakers,
@@ -54,6 +60,7 @@ def get_trainer_config(storage_dir, num_speakers, on_device_features=False,
         'storage_dir': str(storage_dir),
         'summary_trigger': (1, 'epoch'),
         'checkpoint_trigger': (1, 'epoch'),
+        'precision': precision,
     }, updates or {}))
 
 
@@ -83,6 +90,11 @@ def main():
              'in the data pipeline')
     parser.add_argument('--device', default='cuda',
                         help="'cuda' (the default) or 'cpu'")
+    parser.add_argument('--precision', default=None, choices=['bfloat16'],
+                        help="the trainer's mixed-precision policy")
+    parser.add_argument('--compute_dtype', default=None,
+                        choices=['bfloat16'],
+                        help="the GRU's products and streams")
     args = parser.parse_args()
 
     if args.database is not None:
@@ -106,10 +118,14 @@ def main():
     torch.manual_seed(0)
     config = get_trainer_config(
         storage_dir, num_speakers, args.on_device_features,
-        updates={'stop_trigger': (args.epochs, 'epoch')})
+        updates={'stop_trigger': (args.epochs, 'epoch')},
+        precision=args.precision)
     dump_config({'trainer': config}, storage_dir / 'config.json')
     trainer = Trainer.from_config(config)
     trainer.to(args.device)
+    if args.compute_dtype:
+        set_rnn_backend(trainer.model, 'pallas',
+                        compute_dtype=args.compute_dtype)
     print(f'device: {args.device}')
 
     prepare = (data.prepare_dataset_audio if args.on_device_features

@@ -403,15 +403,23 @@ class FusedAudioLogMelExtractor(torch.nn.Module):
         return torch.clamp(-(-(samples - size + shift) // shift), min=1)
 
     def forward(self, audio, seq_len=None):
-        """audio: (B, T_samples) or (B, 1, T_samples) float in [-1, 1]."""
+        """audio: (B, T_samples) or (B, 1, T_samples) float in [-1, 1].
+
+        The front end computes in float32 whatever the audio's type (the
+        fused kernel widens it, as the JAX package's does: bf16 audio under
+        the trainer's policy is read as its float32 value), with the
+        filterbank in float32 too; the normalization reads its running
+        statistics in their own type (bf16 casts under the policy, as in
+        the JAX package) and returns float32."""
         if audio.dim() == 3:
             audio = audio[:, 0]
+        audio = audio.to(torch.float32)
         if self._use_fused(audio):
             logmel = self._frontend(audio)
         else:
             spec = self._stft(audio)  # (B, frames, F, 2)
             power = spec[..., 0] ** 2 + spec[..., 1] ** 2
-            logmel = torch.log(power @ self.fbanks + 1e-12)
+            logmel = torch.log(power @ self.fbanks.to(torch.float32) + 1e-12)
         y = logmel.transpose(-2, -1)[:, None]  # (B, 1, M, frames)
         if seq_len is not None:
             seq_len = self._samples_to_frames(

@@ -5,8 +5,8 @@
 // h_{t-1} @ W_hh, and h_{t-1} itself).  Two routes, chosen by shape before
 // the launch (`resident_plan` in ops/kernels/gru.py): the resident kernel
 // where one direction's whole W_hh fits one block's shared memory beside
-// what the block stages (H <= 138 on an H100), the cooperative kernel
-// otherwise.
+// what the block stages (H <= 138 on an H100, 195 in bf16), the
+// cooperative kernel otherwise.
 //
 // Replaces: padertorch_tpu/ops/pallas/gru.py, `_fwd_kernel` through
 // `_fwd_call(..., with_residuals=False)` (inference, `gru_cell_scan`) and
@@ -32,9 +32,11 @@
 // and keeps 3 * RS sums in registers, so each weight loaded from shared
 // memory serves RS rows; h_{t-1} of the chunk lies in shared memory
 // transposed, (H, RS padded to 4), so one broadcast float4 load gives four
-// rows' h[k].  The K loop is split into KS = 1, 2 or 4 slices (a template
-// parameter; at H = 128 one slice leaves one warp per scheduler, and the
-// step waits on shared-memory latency): with KS > 1 a block has four
+// rows' h[k] (the float32 carry of a cell stays in the registers of the
+// thread that applies it).  The K loop is split into KS = 1, 2 or 4
+// slices (a template parameter; at H = 128 one slice leaves one warp per
+// scheduler, and the step waits on shared-memory latency): with KS > 1 a
+// block has four
 // groups of H threads, the first KS run the product, the slices' sums
 // meet in shared memory and are added in slice order, and all four groups
 // apply the cells (row r by group r % 4), so a step's transcendental chain
@@ -65,6 +67,20 @@
 // gh_n stays apart from gx_n (and is a residual); on a masked step h keeps
 // its value and the output is 0.  No atomics: each sum is in a fixed
 // order, so two runs give the same bits.
+//
+// bf16 (`BF16`, the JAX package's `compute_dtype='bfloat16'` with bf16
+// streams), both routes: gx is read, and out, acts, ghn and hprev are
+// written, as bf16 (`ScanTypes<true>`, lstm_common.cuh: widened on load,
+// rounded to nearest even on store; hprev is bf16(h_{t-1}), what the JAX
+// backward rebuilds from its bf16 out); W_hh is rounded to bf16 as it is
+// staged, so it takes half the shared memory: the resident route holds a
+// direction's W_hh up to H = 195 on an H100 (3 * 195^2 * 2 bytes beside
+// one row's staging), the cooperative one twice the units a block.  h is
+// rounded to bf16 as the product's operand: the resident kernel stages
+// the rounded h of its chunk and keeps each cell's float32 carry in the
+// registers of the thread that applies the cell; the cooperative kernel
+// rounds h as it reads it.  The products of bf16 values are exact in
+// float32 and summed in float32 FMAs; the carry and h_T stay float32.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -81,25 +97,31 @@ namespace {
 // out: (T, R, H); hT: (R, H); hbuf: (2, R, H) scratch.
 // TRAIN only: acts (T, R, 3H) gets r, z, n; ghn (T, R, H) the n block of
 // h_{t-1} @ w; hprev (T, R, H) gets h_{t-1}.
+// BF16: gx, out, acts, ghn and hprev are bf16 (see the top).
 // Block b: unit block ub = b % n_ub, row block rb = b / n_ub % n_rb,
 // direction d = b / (n_ub * n_rb); rows [rb * RB, min(Bd, (rb + 1) * RB))
 // of its direction.  Thread tid: K slice ks = tid / P, pair p = tid % P
 // (row p / U of the chunk, unit p % U), P = RS * U.
-// Shared memory: w_s (H, U) of float4 | red (KS - 1, P) of float4 |
-// h_s (RS, H).
+// Shared memory: w_s (H, U) of W4 (the three gates' weights, one lane
+// unused) | red (KS - 1, P) of float4 | h_s (RS, H).
 // vec: H % 4 == 0 and h0, hbuf 16-byte aligned, so rows of h copy as
 // float4.
-template <bool TRAIN>
+template <bool TRAIN, bool BF16>
 __global__ void __launch_bounds__(1024) gru_fwd_kernel(
-        const float* __restrict__ gx, const float* __restrict__ w,
+        const typename ScanTypes<BF16>::S* __restrict__ gx,
+        const float* __restrict__ w,
         const float* __restrict__ mask, const float* __restrict__ h0,
-        float* __restrict__ out, float* __restrict__ acts,
-        float* __restrict__ ghn, float* __restrict__ hprev,
+        typename ScanTypes<BF16>::S* __restrict__ out,
+        typename ScanTypes<BF16>::S* __restrict__ acts,
+        typename ScanTypes<BF16>::S* __restrict__ ghn,
+        typename ScanTypes<BF16>::S* __restrict__ hprev,
         float* __restrict__ hT, float* hbuf, int T, int Bd, int H, int U,
         int n_ub, int n_rb, int RB, int RS, int KS, int vec) {
+    using Ty = ScanTypes<BF16>;
+    using S = typename Ty::S;
+    using W4 = typename Ty::W4;
     cg::grid_group grid = cg::this_grid();
     extern __shared__ float4 smem4[];
-    float* smem = reinterpret_cast<float*>(smem4);
     const int ub = blockIdx.x % n_ub;
     const int rb = blockIdx.x / n_ub % n_rb;
     const int d = blockIdx.x / (n_ub * n_rb);
@@ -108,8 +130,8 @@ __global__ void __launch_bounds__(1024) gru_fwd_kernel(
     const int P = RS * U;
     const int r_lo = rb * RB;
     const int r_hi = min(Bd, r_lo + RB);
-    const float4* w_s = smem4;                        // (H, U) of 3 gates
-    float4* red = smem4 + (size_t)H * U;              // (KS - 1, P)
+    W4* w_s = reinterpret_cast<W4*>(smem4);           // (H, U) of 3 gates
+    float4* red = reinterpret_cast<float4*>(w_s + (size_t)H * U);
     float* h_s = reinterpret_cast<float*>(red + (size_t)(KS - 1) * P);
     const int tid = threadIdx.x;
     const int nthreads = blockDim.x;
@@ -131,7 +153,7 @@ __global__ void __launch_bounds__(1024) gru_fwd_kernel(
         const int uu = q % U;
         const int jj = ub * U + uu;
         const float v = jj < H ? wd[(size_t)k * G + g * H + jj] : 0.0f;
-        smem[((size_t)k * U + uu) * 4 + g] = v;
+        Ty::set(w_s + (size_t)k * U + uu, g, v);
     }
 
     for (int t = 0; t < T; ++t) {
@@ -156,10 +178,10 @@ __global__ void __launch_bounds__(1024) gru_fwd_kernel(
             const bool first = active && ks == 0;
             float gx_r = 0.f, gx_z = 0.f, gx_n = 0.f, m = 1.f;
             if (first) {
-                const float* gxr = gx + ((size_t)t * R + row) * G;
-                gx_r = gxr[j];
-                gx_z = gxr[H + j];
-                gx_n = gxr[2 * H + j];
+                const S* gxr = gx + ((size_t)t * R + row) * G;
+                gx_r = Ty::ld(gxr + j);
+                gx_z = Ty::ld(gxr + H + j);
+                gx_n = Ty::ld(gxr + 2 * H + j);
                 if (mask != nullptr) m = mask[(size_t)t * R + row];
             }
             if (vec) cp_async_wait_all();
@@ -169,8 +191,8 @@ __global__ void __launch_bounds__(1024) gru_fwd_kernel(
             if (active) {
 #pragma unroll 4
                 for (int k = k_lo; k < k_hi; ++k) {
-                    const float hk = hr[k];
-                    const float4 wk = w_s[(size_t)k * U + u];
+                    const float hk = Ty::operand(hr[k]);
+                    const float4 wk = Ty::unpack(w_s[(size_t)k * U + u]);
                     acc_r = fmaf(hk, wk.x, acc_r);
                     acc_z = fmaf(hk, wk.y, acc_z);
                     acc_n = fmaf(hk, wk.z, acc_n);
@@ -196,18 +218,18 @@ __global__ void __launch_bounds__(1024) gru_fwd_kernel(
             float h_out = h_new;
             const size_t at = (size_t)t * R + row;
             if (TRAIN) {
-                float* ar = acts + at * G;
-                ar[j] = r_;
-                ar[H + j] = z_;
-                ar[2 * H + j] = n_;
-                ghn[at * H + j] = acc_n;
-                hprev[at * H + j] = h_old;
+                S* ar = acts + at * G;
+                Ty::st(ar + j, r_);
+                Ty::st(ar + H + j, z_);
+                Ty::st(ar + 2 * H + j, n_);
+                Ty::st(ghn + at * H + j, acc_n);
+                Ty::st(hprev + at * H + j, h_old);
             }
             if (mask != nullptr) {
                 if (!(m > 0.0f)) h_new = h_old;
                 h_out = h_new * m;
             }
-            out[at * H + j] = h_out;
+            Ty::st(out + at * H + j, h_out);
             __stcg(h_next + (size_t)row * H + j, h_new);
             if (t == T - 1) hT[(size_t)row * H + j] = h_new;
         }
@@ -215,15 +237,18 @@ __global__ void __launch_bounds__(1024) gru_fwd_kernel(
     }
 }
 
-// Launch the whole recurrence on the grid `pick_scan_grid` chooses.  Fails
-// with cudaErrorCooperativeLaunchTooLarge when no grid is co-resident.
-// Returns cudaGetLastError() after the launch.
-template <bool TRAIN>
+// Launch the whole recurrence on the grid `pick_scan_grid` chooses, with
+// the shared memory of the variant (W_hh's slots in its element type).
+// Fails with cudaErrorCooperativeLaunchTooLarge when no grid is
+// co-resident.  Returns cudaGetLastError() after the launch.
+template <bool TRAIN, bool BF16>
 int launch_fwd(const void* gx, const void* w, const void* mask,
                const void* h0, void* out, void* acts, void* ghn,
                void* hprev, void* hT, void* hbuf, int T, int D, int Bd,
                int H, int device, void* stream) {
-    const void* kernel = (const void*)gru_fwd_kernel<TRAIN>;
+    using S = typename ScanTypes<BF16>::S;
+    using W4 = typename ScanTypes<BF16>::W4;
+    const void* kernel = (const void*)gru_fwd_kernel<TRAIN, BF16>;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return err;
     int n_sm = 0, max_smem = 0, coop = 0;
@@ -232,9 +257,9 @@ int launch_fwd(const void* gx, const void* w, const void* mask,
     cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
     if (!coop) return cudaErrorNotSupported;
     const auto smem_bytes = [H](int U, int RB, int RS, int KS) {
-        return sizeof(float) * ((size_t)H * U * 4
-                                + (size_t)(KS - 1) * RS * U * 4
-                                + (size_t)RS * H);
+        return sizeof(W4) * (size_t)H * U
+               + sizeof(float) * ((size_t)(KS - 1) * RS * U * 4
+                                  + (size_t)RS * H);
     };
     ScanGrid best;
     err = pick_scan_grid(kernel, D, Bd, H, H, n_sm, max_smem, smem_bytes,
@@ -243,14 +268,14 @@ int launch_fwd(const void* gx, const void* w, const void* mask,
     if (best.blocks == 0) return cudaErrorCooperativeLaunchTooLarge;
     int vec = H % 4 == 0 && reinterpret_cast<uintptr_t>(h0) % 16 == 0
               && reinterpret_cast<uintptr_t>(hbuf) % 16 == 0;
-    const float* gx_ = static_cast<const float*>(gx);
+    const S* gx_ = static_cast<const S*>(gx);
     const float* w_ = static_cast<const float*>(w);
     const float* mask_ = static_cast<const float*>(mask);
     const float* h0_ = static_cast<const float*>(h0);
-    float* out_ = static_cast<float*>(out);
-    float* acts_ = static_cast<float*>(acts);
-    float* ghn_ = static_cast<float*>(ghn);
-    float* hprev_ = static_cast<float*>(hprev);
+    S* out_ = static_cast<S*>(out);
+    S* acts_ = static_cast<S*>(acts);
+    S* ghn_ = static_cast<S*>(ghn);
+    S* hprev_ = static_cast<S*>(hprev);
     float* hT_ = static_cast<float*>(hT);
     float* hbuf_ = static_cast<float*>(hbuf);
     void* args[] = {&gx_, &w_, &mask_, &h0_, &out_, &acts_, &ghn_, &hprev_,
@@ -270,9 +295,10 @@ int launch_fwd(const void* gx, const void* w, const void* mask,
 // rounded up to 32, at most 128 when KS > 1), unit u = tid % Hp (units
 // past H only take part in the syncs).  Groups cg < KS run the product,
 // each over its K slice; every group applies the cell to the chunk's rows
-// cg, cg + CG, ...
-// Shared memory, floats: h_s (H, RSP) | red (KS, RS, 3, Hp) when KS > 1 |
-// w_s (H, 3H).  RSP: RS rounded up to 4, so h_s rows are float4-aligned.
+// cg, cg + CG, ..., and keeps their float32 carries h in registers.
+// Shared memory: h_s (H, RSP) floats, the product's operand h (bf16(h) in
+// the BF16 variant) | red (KS, RS, 3, Hp) floats when KS > 1 | w_s
+// (H, 3H) of S.  RSP: RS rounded up to 4, so h_s rows are float4-aligned.
 constexpr int RESIDENT_MAX_RS = 8;
 constexpr int RESIDENT_MAX_THREADS = 512;
 
@@ -280,22 +306,28 @@ __host__ __device__ inline int round_up(int x, int to) {
     return (x + to - 1) / to * to;
 }
 
-// The resident kernel's dynamic shared memory in bytes (the host planner
-// in ops/kernels/gru.py computes the same number and passes it in).
-inline size_t resident_smem_bytes(int H, int RS, int KS) {
+// The resident kernel's dynamic shared memory in bytes, W_hh at `elem`
+// bytes an element (the host planner in ops/kernels/gru.py computes the
+// same number and passes it in).
+inline size_t resident_smem_bytes(int H, int RS, int KS, size_t elem) {
     const size_t red = KS > 1 ? (size_t)KS * RS * 3 * round_up(H, 32) : 0;
-    return sizeof(float) * ((size_t)H * round_up(RS, 4) + red
-                            + (size_t)3 * H * H);
+    return sizeof(float) * ((size_t)H * round_up(RS, 4) + red)
+           + elem * 3 * (size_t)H * H;
 }
 
-template <bool TRAIN, int RS, int KS>
+template <bool TRAIN, bool BF16, int RS, int KS>
 __global__ void __launch_bounds__(RESIDENT_MAX_THREADS, 1)
 gru_fwd_resident_kernel(
-        const float* __restrict__ gx, const float* __restrict__ w,
+        const typename ScanTypes<BF16>::S* __restrict__ gx,
+        const float* __restrict__ w,
         const float* __restrict__ mask, const float* __restrict__ h0,
-        float* __restrict__ out, float* __restrict__ acts,
-        float* __restrict__ ghn, float* __restrict__ hprev,
+        typename ScanTypes<BF16>::S* __restrict__ out,
+        typename ScanTypes<BF16>::S* __restrict__ acts,
+        typename ScanTypes<BF16>::S* __restrict__ ghn,
+        typename ScanTypes<BF16>::S* __restrict__ hprev,
         float* __restrict__ hT, int T, int Bd, int H, int RB) {
+    using Ty = ScanTypes<BF16>;
+    using S = typename Ty::S;
     constexpr int RSP = (RS + 3) / 4 * 4;
     constexpr int CG = KS == 1 ? 1 : 4;
     constexpr int NJ = (RS + CG - 1) / CG;  // cells a thread applies a step
@@ -310,7 +342,7 @@ gru_fwd_resident_kernel(
     const int row0 = d * Bd;
     float* h_s = reinterpret_cast<float*>(smem4);
     float* red = h_s + H * RSP;
-    float* w_s = red + (KS > 1 ? KS * RS * 3 * Hp : 0);
+    S* w_s = reinterpret_cast<S*>(red + (KS > 1 ? KS * RS * 3 * Hp : 0));
     const int tid = threadIdx.x;
     const int nthreads = blockDim.x;
     const int cg = tid / Hp;
@@ -320,25 +352,48 @@ gru_fwd_resident_kernel(
     const int k_lo = min(H, cg * k_len);
     const int k_hi = cg < KS ? min(H, k_lo + k_len) : k_lo;
 
-    // all of W_hh[d], as it lies in device memory
+    // all of W_hh[d], as it lies in device memory (rounded to bf16 in the
+    // BF16 variant: w_s is 16-byte aligned, so four bf16 store as 8 bytes)
     const float* wd = w + (size_t)d * H * G;
     if ((H * G) % 4 == 0 && reinterpret_cast<uintptr_t>(wd) % 16 == 0) {
         const float4* src = reinterpret_cast<const float4*>(wd);
-        float4* dst = reinterpret_cast<float4*>(w_s);
-        for (int i = tid; i < H * G / 4; i += nthreads) dst[i] = __ldg(src + i);
+        for (int i = tid; i < H * G / 4; i += nthreads) {
+            const float4 v = __ldg(src + i);
+            if constexpr (BF16) {
+                uint2 packed;
+                Ty::set(&packed, 0, v.x);
+                Ty::set(&packed, 1, v.y);
+                Ty::set(&packed, 2, v.z);
+                Ty::set(&packed, 3, v.w);
+                reinterpret_cast<uint2*>(w_s)[i] = packed;
+            } else {
+                reinterpret_cast<float4*>(w_s)[i] = v;
+            }
+        }
     } else {
-        for (int i = tid; i < H * G; i += nthreads) w_s[i] = __ldg(wd + i);
+        for (int i = tid; i < H * G; i += nthreads) {
+            Ty::st(w_s + i, __ldg(wd + i));
+        }
     }
 
     for (int rc = r_lo; rc < r_hi; rc += RS) {
         const int nr = min(RS, r_hi - rc);
-        // h0 of the chunk, transposed; rows past nr stay zero (the last
-        // step's second sync, or the first chunk's, orders this after
-        // every read of h_s)
+        // the product's operand h0 of the chunk, transposed; rows past nr
+        // stay zero (the last step's second sync, or the first chunk's,
+        // orders this after every read of h_s)
         for (int i = tid; i < H * RSP; i += nthreads) {
             const int k = i / RSP;
             const int r = i % RSP;
-            h_s[i] = r < nr ? h0[(size_t)(row0 + rc + r) * H + k] : 0.f;
+            h_s[i] = r < nr
+                ? Ty::operand(h0[(size_t)(row0 + rc + r) * H + k]) : 0.f;
+        }
+        // the float32 carries of this thread's cells, rows cg + j * CG
+        float carry[NJ];
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+            const int r = cg + j * CG;
+            if (!active || r >= nr) break;
+            carry[j] = h0[(size_t)(row0 + rc + r) * H + u];
         }
         __syncthreads();
 
@@ -351,10 +406,10 @@ gru_fwd_resident_kernel(
                 const int r = cg + j * CG;
                 if (!active || r >= nr) break;
                 const size_t at = (size_t)t * R + row0 + rc + r;
-                const float* gxr = gx + at * G;
-                g_x[j][0] = gxr[u];
-                g_x[j][1] = gxr[H + u];
-                g_x[j][2] = gxr[2 * H + u];
+                const S* gxr = gx + at * G;
+                g_x[j][0] = Ty::ld(gxr + u);
+                g_x[j][1] = Ty::ld(gxr + H + u);
+                g_x[j][2] = Ty::ld(gxr + 2 * H + u);
                 m[j] = mask != nullptr ? mask[at] : 1.f;
             }
             float acc[RS][3];
@@ -365,14 +420,14 @@ gru_fwd_resident_kernel(
                 acc[r][2] = 0.f;
             }
             if (active && cg < KS) {
-                const float* wk = w_s + k_lo * G + u;
+                const S* wk = w_s + k_lo * G + u;
                 const float4* hk =
                     reinterpret_cast<const float4*>(h_s) + k_lo * (RSP / 4);
 #pragma unroll 4
                 for (int k = k_lo; k < k_hi; ++k, wk += G, hk += RSP / 4) {
-                    const float w_r = wk[0];
-                    const float w_z = wk[H];
-                    const float w_n = wk[2 * H];
+                    const float w_r = Ty::ld(wk);
+                    const float w_z = Ty::ld(wk + H);
+                    const float w_n = Ty::ld(wk + 2 * H);
 #pragma unroll
                     for (int q = 0; q < RSP / 4; ++q) {
                         const float4 hv = hk[q];
@@ -419,7 +474,7 @@ gru_fwd_resident_kernel(
                     }
                 }
                 const int row = row0 + rc + r;
-                const float h_old = h_s[u * RSP + r];
+                const float h_old = carry[j];
                 const float r_ = sigmoidf_(g_x[j][0] + gh_r);
                 const float z_ = sigmoidf_(g_x[j][1] + gh_z);
                 const float n_ = tanhf(g_x[j][2] + r_ * gh_n);
@@ -427,19 +482,20 @@ gru_fwd_resident_kernel(
                 float h_out = h_new;
                 const size_t at = (size_t)t * R + row;
                 if (TRAIN) {
-                    float* ar = acts + at * G;
-                    ar[u] = r_;
-                    ar[H + u] = z_;
-                    ar[2 * H + u] = n_;
-                    ghn[at * H + u] = gh_n;
-                    hprev[at * H + u] = h_old;
+                    S* ar = acts + at * G;
+                    Ty::st(ar + u, r_);
+                    Ty::st(ar + H + u, z_);
+                    Ty::st(ar + 2 * H + u, n_);
+                    Ty::st(ghn + at * H + u, gh_n);
+                    Ty::st(hprev + at * H + u, h_old);
                 }
                 if (mask != nullptr) {
                     if (!(m[j] > 0.0f)) h_new = h_old;
                     h_out = h_new * m[j];
                 }
-                out[at * H + u] = h_out;
-                h_s[u * RSP + r] = h_new;
+                Ty::st(out + at * H + u, h_out);
+                carry[j] = h_new;
+                h_s[u * RSP + r] = Ty::operand(h_new);
                 if (t == T - 1) hT[(size_t)row * H + u] = h_new;
             }
             __syncthreads();
@@ -447,40 +503,49 @@ gru_fwd_resident_kernel(
     }
 }
 
-template <bool TRAIN, int RS, int KS>
-cudaError_t launch_resident_ks(const float* gx, const float* w,
-                               const float* mask, const float* h0,
-                               float* out, float* acts, float* ghn,
-                               float* hprev, float* hT, int T, int blocks,
-                               int Bd, int H, int RB, int threads,
-                               size_t smem, cudaStream_t stream) {
+template <bool TRAIN, bool BF16, int RS, int KS>
+cudaError_t launch_resident_ks(const typename ScanTypes<BF16>::S* gx,
+                               const float* w, const float* mask,
+                               const float* h0,
+                               typename ScanTypes<BF16>::S* out,
+                               typename ScanTypes<BF16>::S* acts,
+                               typename ScanTypes<BF16>::S* ghn,
+                               typename ScanTypes<BF16>::S* hprev, float* hT,
+                               int T, int blocks, int Bd, int H, int RB,
+                               int threads, size_t smem,
+                               cudaStream_t stream) {
     cudaError_t err = cudaFuncSetAttribute(
-        gru_fwd_resident_kernel<TRAIN, RS, KS>,
+        gru_fwd_resident_kernel<TRAIN, BF16, RS, KS>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    gru_fwd_resident_kernel<TRAIN, RS, KS><<<blocks, threads, smem, stream>>>(
-        gx, w, mask, h0, out, acts, ghn, hprev, hT, T, Bd, H, RB);
+    gru_fwd_resident_kernel<TRAIN, BF16, RS, KS>
+        <<<blocks, threads, smem, stream>>>(
+            gx, w, mask, h0, out, acts, ghn, hprev, hT, T, Bd, H, RB);
     return cudaGetLastError();
 }
 
-template <bool TRAIN, int RS>
-cudaError_t launch_resident_rs(const float* gx, const float* w,
-                               const float* mask, const float* h0,
-                               float* out, float* acts, float* ghn,
-                               float* hprev, float* hT, int T, int blocks,
-                               int Bd, int H, int RB, int KS, int threads,
-                               size_t smem, cudaStream_t stream) {
+template <bool TRAIN, bool BF16, int RS>
+cudaError_t launch_resident_rs(const typename ScanTypes<BF16>::S* gx,
+                               const float* w, const float* mask,
+                               const float* h0,
+                               typename ScanTypes<BF16>::S* out,
+                               typename ScanTypes<BF16>::S* acts,
+                               typename ScanTypes<BF16>::S* ghn,
+                               typename ScanTypes<BF16>::S* hprev, float* hT,
+                               int T, int blocks, int Bd, int H, int RB,
+                               int KS, int threads, size_t smem,
+                               cudaStream_t stream) {
     switch (KS) {
     case 1:
-        return launch_resident_ks<TRAIN, RS, 1>(
+        return launch_resident_ks<TRAIN, BF16, RS, 1>(
             gx, w, mask, h0, out, acts, ghn, hprev, hT, T, blocks, Bd, H, RB,
             threads, smem, stream);
     case 2:
-        return launch_resident_ks<TRAIN, RS, 2>(
+        return launch_resident_ks<TRAIN, BF16, RS, 2>(
             gx, w, mask, h0, out, acts, ghn, hprev, hT, T, blocks, Bd, H, RB,
             threads, smem, stream);
     case 4:
-        return launch_resident_ks<TRAIN, RS, 4>(
+        return launch_resident_ks<TRAIN, BF16, RS, 4>(
             gx, w, mask, h0, out, acts, ghn, hprev, hT, T, blocks, Bd, H, RB,
             threads, smem, stream);
     }
@@ -489,16 +554,17 @@ cudaError_t launch_resident_rs(const float* gx, const float* w,
 
 // Launch the resident kernel on the host's plan (RB rows a block, RS at a
 // time, KS K slices of 1, 2 or 4, `threads`: one group of H rounded up to
-// 32 with KS = 1, four groups otherwise; `smem` bytes).  A
-// plan that does not agree with the kernel's own layout is refused with
-// cudaErrorInvalidValue before anything runs.  Returns cudaGetLastError()
-// after the launch.
-template <bool TRAIN>
+// 32 with KS = 1, four groups otherwise; `smem` bytes, W_hh at the
+// variant's element size).  A plan that does not agree with the kernel's
+// own layout is refused with cudaErrorInvalidValue before anything runs.
+// Returns cudaGetLastError() after the launch.
+template <bool TRAIN, bool BF16>
 int launch_resident(const void* gx, const void* w, const void* mask,
                     const void* h0, void* out, void* acts, void* ghn,
                     void* hprev, void* hT, int T, int D, int Bd, int H,
                     int RB, int RS, int KS, int threads, int smem,
                     int device, void* stream) {
+    using S = typename ScanTypes<BF16>::S;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return err;
     const int Hp = round_up(H, 32);
@@ -506,26 +572,25 @@ int launch_resident(const void* gx, const void* w, const void* mask,
         || RS > RESIDENT_MAX_RS || RB < RS || KS > H
         || threads != (KS == 1 ? 1 : 4) * Hp
         || threads > RESIDENT_MAX_THREADS
-        || (size_t)smem != resident_smem_bytes(H, RS, KS)) {
+        || (size_t)smem != resident_smem_bytes(H, RS, KS, sizeof(S))) {
         return cudaErrorInvalidValue;
     }
     const int blocks = D * ((Bd + RB - 1) / RB);
-    const auto* gx_ = static_cast<const float*>(gx);
+    const auto* gx_ = static_cast<const S*>(gx);
     const auto* w_ = static_cast<const float*>(w);
     const auto* mask_ = static_cast<const float*>(mask);
     const auto* h0_ = static_cast<const float*>(h0);
-    auto* out_ = static_cast<float*>(out);
-    auto* acts_ = static_cast<float*>(acts);
-    auto* ghn_ = static_cast<float*>(ghn);
-    auto* hprev_ = static_cast<float*>(hprev);
+    auto* out_ = static_cast<S*>(out);
+    auto* acts_ = static_cast<S*>(acts);
+    auto* ghn_ = static_cast<S*>(ghn);
+    auto* hprev_ = static_cast<S*>(hprev);
     auto* hT_ = static_cast<float*>(hT);
     auto* s = static_cast<cudaStream_t>(stream);
 #define PTT_GRU_RS(n)                                                       \
     case n:                                                                 \
-        return launch_resident_rs<TRAIN, n>(gx_, w_, mask_, h0_, out_,      \
-                                            acts_, ghn_, hprev_, hT_, T,    \
-                                            blocks, Bd, H, RB, KS, threads, \
-                                            smem, s);
+        return launch_resident_rs<TRAIN, BF16, n>(                          \
+            gx_, w_, mask_, h0_, out_, acts_, ghn_, hprev_, hT_, T, blocks, \
+            Bd, H, RB, KS, threads, smem, s);
     switch (RS) {
         PTT_GRU_RS(1)
         PTT_GRU_RS(2)
@@ -549,8 +614,9 @@ int gru_cell_scan_fwd(const void* gx, const void* w, const void* mask,
                       const void* h0, void* out, void* hT, void* hbuf,
                       int T, int D, int Bd, int H, int device,
                       void* stream) {
-    return launch_fwd<false>(gx, w, mask, h0, out, nullptr, nullptr, nullptr,
-                             hT, hbuf, T, D, Bd, H, device, stream);
+    return launch_fwd<false, false>(gx, w, mask, h0, out, nullptr, nullptr,
+                                    nullptr, hT, hbuf, T, D, Bd, H, device,
+                                    stream);
 }
 
 // Training forward: also acts (T, R, 3H), ghn and hprev (T, R, H).
@@ -558,8 +624,8 @@ int gru_cell_scan_fwd_train(const void* gx, const void* w, const void* mask,
                             const void* h0, void* out, void* acts, void* ghn,
                             void* hprev, void* hT, void* hbuf, int T, int D,
                             int Bd, int H, int device, void* stream) {
-    return launch_fwd<true>(gx, w, mask, h0, out, acts, ghn, hprev, hT, hbuf,
-                            T, D, Bd, H, device, stream);
+    return launch_fwd<true, false>(gx, w, mask, h0, out, acts, ghn, hprev,
+                                   hT, hbuf, T, D, Bd, H, device, stream);
 }
 
 // Resident route (see the header): the plan from ops/kernels/gru.py.
@@ -568,9 +634,10 @@ int gru_cell_scan_fwd_resident(const void* gx, const void* w,
                                void* hT, int T, int D, int Bd, int H, int RB,
                                int RS, int KS, int threads, int smem,
                                int device, void* stream) {
-    return launch_resident<false>(gx, w, mask, h0, out, nullptr, nullptr,
-                                  nullptr, hT, T, D, Bd, H, RB, RS, KS,
-                                  threads, smem, device, stream);
+    return launch_resident<false, false>(gx, w, mask, h0, out, nullptr,
+                                         nullptr, nullptr, hT, T, D, Bd, H,
+                                         RB, RS, KS, threads, smem, device,
+                                         stream);
 }
 
 int gru_cell_scan_fwd_train_resident(const void* gx, const void* w,
@@ -580,9 +647,55 @@ int gru_cell_scan_fwd_train_resident(const void* gx, const void* w,
                                      int Bd, int H, int RB, int RS, int KS,
                                      int threads, int smem, int device,
                                      void* stream) {
-    return launch_resident<true>(gx, w, mask, h0, out, acts, ghn, hprev, hT,
-                                 T, D, Bd, H, RB, RS, KS, threads, smem,
-                                 device, stream);
+    return launch_resident<true, false>(gx, w, mask, h0, out, acts, ghn,
+                                        hprev, hT, T, D, Bd, H, RB, RS, KS,
+                                        threads, smem, device, stream);
+}
+
+// The bf16 variants of the four: gx, out (and acts, ghn, hprev) bf16; w,
+// mask, h0, hT, hbuf float32; products of bf16-rounded operands summed in
+// float32.
+int gru_cell_scan_fwd_bf16(const void* gx, const void* w, const void* mask,
+                           const void* h0, void* out, void* hT, void* hbuf,
+                           int T, int D, int Bd, int H, int device,
+                           void* stream) {
+    return launch_fwd<false, true>(gx, w, mask, h0, out, nullptr, nullptr,
+                                   nullptr, hT, hbuf, T, D, Bd, H, device,
+                                   stream);
+}
+
+int gru_cell_scan_fwd_train_bf16(const void* gx, const void* w,
+                                 const void* mask, const void* h0, void* out,
+                                 void* acts, void* ghn, void* hprev,
+                                 void* hT, void* hbuf, int T, int D, int Bd,
+                                 int H, int device, void* stream) {
+    return launch_fwd<true, true>(gx, w, mask, h0, out, acts, ghn, hprev,
+                                  hT, hbuf, T, D, Bd, H, device, stream);
+}
+
+int gru_cell_scan_fwd_resident_bf16(const void* gx, const void* w,
+                                    const void* mask, const void* h0,
+                                    void* out, void* hT, int T, int D,
+                                    int Bd, int H, int RB, int RS, int KS,
+                                    int threads, int smem, int device,
+                                    void* stream) {
+    return launch_resident<false, true>(gx, w, mask, h0, out, nullptr,
+                                        nullptr, nullptr, hT, T, D, Bd, H,
+                                        RB, RS, KS, threads, smem, device,
+                                        stream);
+}
+
+int gru_cell_scan_fwd_train_resident_bf16(const void* gx, const void* w,
+                                          const void* mask, const void* h0,
+                                          void* out, void* acts, void* ghn,
+                                          void* hprev, void* hT, int T,
+                                          int D, int Bd, int H, int RB,
+                                          int RS, int KS, int threads,
+                                          int smem, int device,
+                                          void* stream) {
+    return launch_resident<true, true>(gx, w, mask, h0, out, acts, ghn,
+                                       hprev, hT, T, D, Bd, H, RB, RS, KS,
+                                       threads, smem, device, stream);
 }
 
 // The card's SM count and the shared memory one block may opt in to, for

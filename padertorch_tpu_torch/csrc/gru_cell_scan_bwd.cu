@@ -3,7 +3,8 @@
 // by shape before the launch (`resident_bwd_plan` in ops/kernels/gru.py),
 // as for the forwards (gru_cell_scan.cu): the resident kernel where one
 // direction's whole W_hh fits one block's shared memory beside what the
-// block stages (H <= 137 on an H100), the cooperative kernel otherwise.
+// block stages (H <= 137 on an H100, 192 in bf16), the cooperative kernel
+// otherwise.
 //
 // Replaces: padertorch_tpu/ops/pallas/gru.py, `_bwd_kernel` through
 // `_bwd_call` (`_vjp_bwd`).  As there, dW_hh is a matrix product outside
@@ -65,9 +66,24 @@
 // Both routes: float32 on the CUDA cores; masked steps (mask 0): dgx and
 // dgh are 0 and dh passes through unchanged.  No atomics: each sum is in a
 // fixed order, so two runs give the same bits.
+//
+// bf16 (`BF16`, the JAX package's `compute_dtype='bfloat16'` with bf16
+// streams), both routes: acts, ghn, hprev and dout are read as bf16 and
+// widened (`ScanTypes<true>`, lstm_common.cuh); dgx and dgh are written
+// rounded to bf16, and the product takes that bf16 dgh, so dh_{t-1} =
+// bf16(dgh) @ bf16(W_hh)^T + dh * z, each product exact in float32 and
+// summed in float32, as the Pallas kernel's `_dir_matmul(..., cast=bf16)`;
+// W_hh is rounded to bf16 as it is staged (half the shared memory: the
+// resident route holds a direction's up to H = 192 on an H100).  The
+// resident kernel stages bf16(dgh) as float32 values; the cooperative one
+// copies the bf16 rows (four columns in 8 bytes; 16-byte copies when
+// H % 8 == 0, two bytes at a time through L2 otherwise).  dh and dh0 stay
+// float32.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "lstm_common.cuh"
 
@@ -82,17 +98,29 @@ namespace {
 // direction d = b / (n_ub * n_rb); rows [rb * RB, min(Bd, (rb + 1) * RB))
 // of its direction.  In the product, thread tid: K slice ks = tid / P, pair
 // p = tid % P (row p / U of the chunk, unit p % U), P = RS * U.
-// G4 = ceil(3H / 4).  Shared memory: w_s (G4, U) of float4 (columns
-// 4k..4k+3 of unit u's row) | dgh_s (RS, G4) of float4 | red (KS - 1, P) |
+// G4 = ceil(3H / 4).  Shared memory: w_s (G4, U) of W4 (columns
+// 4k..4k+3 of unit u's row) | dgh_s (RS, G4) of W4 | red (KS - 1, P) |
 // dh_s (RB, U) | dhz_s (RB, U).
-// vec: H % 4 == 0 and dgh 16-byte aligned, so rows of dgh copy as float4.
+// vec: rows of dgh copy 16 bytes at a time (float32: H % 4 == 0; bf16:
+// H % 8 == 0; dgh 16-byte aligned), else one element at a time.
+// BF16: acts, ghn, hprev, dout, dgx and dgh are bf16 (see the top).
+template <bool BF16>
 __global__ void __launch_bounds__(1024) gru_bwd_kernel(
-        const float* __restrict__ acts, const float* __restrict__ ghn,
-        const float* __restrict__ hprev, const float* __restrict__ w,
-        const float* __restrict__ mask, const float* __restrict__ dout,
-        const float* __restrict__ dhT, float* __restrict__ dgx, float* dgh,
+        const typename ScanTypes<BF16>::S* __restrict__ acts,
+        const typename ScanTypes<BF16>::S* __restrict__ ghn,
+        const typename ScanTypes<BF16>::S* __restrict__ hprev,
+        const float* __restrict__ w, const float* __restrict__ mask,
+        const typename ScanTypes<BF16>::S* __restrict__ dout,
+        const float* __restrict__ dhT,
+        typename ScanTypes<BF16>::S* __restrict__ dgx,
+        typename ScanTypes<BF16>::S* dgh,
         float* __restrict__ dh0, int T, int Bd, int H, int U, int n_ub,
         int n_rb, int RB, int RS, int KS, int vec) {
+    using Ty = ScanTypes<BF16>;
+    using S = typename Ty::S;
+    using W4 = typename Ty::W4;
+    // W4 slots per 16-byte copy
+    constexpr int kPerCopy = 16 / sizeof(W4);
     cg::grid_group grid = cg::this_grid();
     extern __shared__ float4 smem4[];
     const int ub = blockIdx.x % n_ub;
@@ -105,8 +133,8 @@ __global__ void __launch_bounds__(1024) gru_bwd_kernel(
     const int r_lo = rb * RB;
     const int r_hi = min(Bd, r_lo + RB);
     const int n_own = (r_hi - r_lo) * U;                  // (row, unit) pairs
-    float4* w_s = smem4;                                  // (G4, U)
-    float4* dgh_s = smem4 + (size_t)G4 * U;               // (RS, G4)
+    W4* w_s = reinterpret_cast<W4*>(smem4);               // (G4, U)
+    W4* dgh_s = w_s + (size_t)G4 * U;                     // (RS, G4)
     float* red = reinterpret_cast<float*>(dgh_s + (size_t)RS * G4);
     float* dh_s = red + (size_t)(KS - 1) * P;             // (RB, U)
     float* dhz_s = dh_s + (size_t)RB * U;                 // (RB, U)
@@ -125,18 +153,17 @@ __global__ void __launch_bounds__(1024) gru_bwd_kernel(
     // stay zero), then stage the rows of W_hh[d] that belong to this
     // block's units; units past H are zero
     for (int idx = tid; idx < G4 * (U + RS); idx += nthreads) {
-        smem4[idx] = make_float4(0.f, 0.f, 0.f, 0.f);
+        w_s[idx] = W4{};
     }
     __syncthreads();
     const float* wd = w + (size_t)d * H * G;
-    float* w_sf = reinterpret_cast<float*>(w_s);
     for (int idx = tid; idx < U * G; idx += nthreads) {
         const int uu = idx / G;
         const int c = idx % G;
         const int jj = ub * U + uu;
         if (jj < H) {
-            w_sf[((size_t)(c / 4) * U + uu) * 4 + c % 4] =
-                wd[(size_t)jj * G + c];
+            Ty::set(w_s + (size_t)(c / 4) * U + uu, c % 4,
+                    wd[(size_t)jj * G + c]);
         }
     }
     for (int q = tid; q < n_own; q += nthreads) {
@@ -153,25 +180,25 @@ __global__ void __launch_bounds__(1024) gru_bwd_kernel(
             const int jj = ub * U + q % U;
             if (jj >= H) continue;
             const size_t at = (size_t)t * R + row0 + r_lo + q / U;
-            const float* ar = acts + at * G;
-            const float r_ = ar[jj];
-            const float z_ = ar[H + jj];
-            const float n_ = ar[2 * H + jj];
-            const float gh_n = ghn[at * H + jj];
-            const float h_prev = hprev[at * H + jj];
+            const S* ar = acts + at * G;
+            const float r_ = Ty::ld(ar + jj);
+            const float z_ = Ty::ld(ar + H + jj);
+            const float n_ = Ty::ld(ar + 2 * H + jj);
+            const float gh_n = Ty::ld(ghn + at * H + jj);
+            const float h_prev = Ty::ld(hprev + at * H + jj);
             const float m = mask != nullptr ? mask[at] : 1.0f;
-            const float dh = dh_s[q] + dout[at * H + jj];
+            const float dh = dh_s[q] + Ty::ld(dout + at * H + jj);
             const float dz_pre = dh * (h_prev - n_) * z_ * (1.0f - z_);
             const float da_n = dh * (1.0f - z_) * (1.0f - n_ * n_);
             const float da_r = da_n * gh_n * r_ * (1.0f - r_);
-            float* xr = dgx + at * G;
-            xr[jj] = da_r * m;
-            xr[H + jj] = dz_pre * m;
-            xr[2 * H + jj] = da_n * m;
-            float* hr = dgh + at * G;
-            __stcg(hr + jj, da_r * m);
-            __stcg(hr + H + jj, dz_pre * m);
-            __stcg(hr + 2 * H + jj, da_n * r_ * m);
+            S* xr = dgx + at * G;
+            Ty::st(xr + jj, da_r * m);
+            Ty::st(xr + H + jj, dz_pre * m);
+            Ty::st(xr + 2 * H + jj, da_n * m);
+            S* hr = dgh + at * G;
+            Ty::stcg(hr + jj, da_r * m);
+            Ty::stcg(hr + H + jj, dz_pre * m);
+            Ty::stcg(hr + 2 * H + jj, da_n * r_ * m);
             dhz_s[q] = dh * z_;
         }
     };
@@ -181,19 +208,27 @@ __global__ void __launch_bounds__(1024) gru_bwd_kernel(
         grid.sync();  // dgh[t] of every block is in L2
         for (int rc = r_lo; rc < r_hi; rc += RS) {
             const int nr = min(RS, r_hi - rc);
-            const float* src = dgh + ((size_t)t * R + row0 + rc) * G;
+            const S* src = dgh + ((size_t)t * R + row0 + rc) * G;
             if (rc > r_lo) __syncthreads();  // the previous chunk's readers
             if (vec) {
-                // G % 4 == 0: rows are G4 float4 long, back to back
-                const float4* src4 = reinterpret_cast<const float4*>(src);
-                for (int idx = tid; idx < nr * G4; idx += nthreads) {
-                    cp_async16_cg(dgh_s + idx, src4 + idx);
+                // G % 4 == 0: rows are G4 slots long, back to back, and
+                // a chunk's rows are a whole number of 16-byte copies
+                const W4* src4 = reinterpret_cast<const W4*>(src);
+                for (int idx = tid; idx < nr * G4 / kPerCopy;
+                     idx += nthreads) {
+                    cp_async16_cg(dgh_s + kPerCopy * idx,
+                                  src4 + kPerCopy * idx);
                 }
             } else {
-                float* dst = reinterpret_cast<float*>(dgh_s);
+                // element by element (the raw bits); the columns past 3H
+                // of each row's last slot stay zero
+                using Raw = typename std::conditional<
+                    BF16, unsigned short, float>::type;
+                const Raw* raw = reinterpret_cast<const Raw*>(src);
+                Raw* dst = reinterpret_cast<Raw*>(dgh_s);
                 for (int idx = tid; idx < nr * G; idx += nthreads) {
                     dst[(size_t)(idx / G) * 4 * G4 + idx % G] =
-                        __ldcg(src + idx);
+                        __ldcg(raw + idx);
                 }
             }
             const int r = rc + p / U;
@@ -207,11 +242,11 @@ __global__ void __launch_bounds__(1024) gru_bwd_kernel(
             __syncthreads();
             float acc = 0.f;
             if (active) {
-                const float4* dr = dgh_s + (size_t)(r - rc) * G4;
+                const W4* dr = dgh_s + (size_t)(r - rc) * G4;
 #pragma unroll 4
                 for (int k = k_lo; k < k_hi; ++k) {
-                    const float4 z = dr[k];
-                    const float4 wk = w_s[(size_t)k * U + u];
+                    const float4 z = Ty::unpack(dr[k]);
+                    const float4 wk = Ty::unpack(w_s[(size_t)k * U + u]);
                     acc = fmaf(z.x, wk.x, acc);
                     acc = fmaf(z.y, wk.y, acc);
                     acc = fmaf(z.z, wk.z, acc);
@@ -243,9 +278,10 @@ __global__ void __launch_bounds__(1024) gru_bwd_kernel(
 // past H only take part in the syncs).  Groups cg < KS run the product,
 // each over its slice of the 3H columns; every group applies the cell to
 // the chunk's rows cg, cg + CG, ...
-// Shared memory, floats: g_s (3H, RSP) | red (KS, RS, Hp) when KS > 1 |
-// wt_s (3H, H), wt_s[c * H + j] = W_hh[d][j][c].  RSP: RS rounded up to
-// 4, so g_s rows are float4-aligned.
+// Shared memory: g_s (3H, RSP) floats (the product's operand dgh: bf16(dgh)
+// in the BF16 variant) | red (KS, RS, Hp) floats when KS > 1 | wt_s (3H, H)
+// of S, wt_s[c * H + j] = W_hh[d][j][c].  RSP: RS rounded up to 4, so g_s
+// rows are float4-aligned.
 constexpr int RESIDENT_MAX_RS = 8;
 constexpr int RESIDENT_MAX_THREADS = 512;
 
@@ -253,23 +289,29 @@ __host__ __device__ inline int round_up(int x, int to) {
     return (x + to - 1) / to * to;
 }
 
-// The resident kernel's dynamic shared memory in bytes (the host planner
-// in ops/kernels/gru.py computes the same number and passes it in).
-inline size_t resident_bwd_smem_bytes(int H, int RS, int KS) {
+// The resident kernel's dynamic shared memory in bytes, W_hh at `elem`
+// bytes an element (the host planner in ops/kernels/gru.py computes the
+// same number and passes it in).
+inline size_t resident_bwd_smem_bytes(int H, int RS, int KS, size_t elem) {
     const size_t red = KS > 1 ? (size_t)KS * RS * round_up(H, 32) : 0;
-    return sizeof(float) * ((size_t)3 * H * round_up(RS, 4) + red
-                            + (size_t)3 * H * H);
+    return sizeof(float) * ((size_t)3 * H * round_up(RS, 4) + red)
+           + elem * 3 * (size_t)H * H;
 }
 
-template <int RS, int KS>
+template <bool BF16, int RS, int KS>
 __global__ void __launch_bounds__(RESIDENT_MAX_THREADS, 1)
 gru_bwd_resident_kernel(
-        const float* __restrict__ acts, const float* __restrict__ ghn,
-        const float* __restrict__ hprev, const float* __restrict__ w,
-        const float* __restrict__ mask, const float* __restrict__ dout,
-        const float* __restrict__ dhT, float* __restrict__ dgx,
-        float* __restrict__ dgh, float* __restrict__ dh0, int T, int Bd,
-        int H, int RB) {
+        const typename ScanTypes<BF16>::S* __restrict__ acts,
+        const typename ScanTypes<BF16>::S* __restrict__ ghn,
+        const typename ScanTypes<BF16>::S* __restrict__ hprev,
+        const float* __restrict__ w, const float* __restrict__ mask,
+        const typename ScanTypes<BF16>::S* __restrict__ dout,
+        const float* __restrict__ dhT,
+        typename ScanTypes<BF16>::S* __restrict__ dgx,
+        typename ScanTypes<BF16>::S* __restrict__ dgh,
+        float* __restrict__ dh0, int T, int Bd, int H, int RB) {
+    using Ty = ScanTypes<BF16>;
+    using S = typename Ty::S;
     constexpr int RSP = (RS + 3) / 4 * 4;
     constexpr int CG = KS == 1 ? 1 : 4;
     constexpr int NJ = (RS + CG - 1) / CG;  // cells a thread applies a step
@@ -284,7 +326,7 @@ gru_bwd_resident_kernel(
     const int row0 = d * Bd;
     float* g_s = reinterpret_cast<float*>(smem4);
     float* red = g_s + (size_t)G * RSP;
-    float* wt_s = red + (KS > 1 ? KS * RS * Hp : 0);
+    S* wt_s = reinterpret_cast<S*>(red + (KS > 1 ? KS * RS * Hp : 0));
     const int tid = threadIdx.x;
     const int nthreads = blockDim.x;
     const int cg = tid / Hp;
@@ -298,7 +340,7 @@ gru_bwd_resident_kernel(
     // warp 128 contiguous bytes), once per launch
     const float* wd = w + (size_t)d * H * G;
     for (int i = tid; i < H * G; i += nthreads) {
-        wt_s[(size_t)(i % G) * H + i / G] = __ldg(wd + i);
+        Ty::st(wt_s + (size_t)(i % G) * H + i / G, __ldg(wd + i));
     }
 
     // a step's inputs of this thread's cells, rows cg + j * CG of the
@@ -310,13 +352,13 @@ gru_bwd_resident_kernel(
             const int r = cg + j * CG;
             if (!active || r >= nr) break;
             const size_t at = (size_t)t * R + row0 + rc + r;
-            const float* ar = acts + at * G;
-            x[j][0] = ar[u];
-            x[j][1] = ar[H + u];
-            x[j][2] = ar[2 * H + u];
-            x[j][3] = ghn[at * H + u];
-            x[j][4] = hprev[at * H + u];
-            x[j][5] = dout[at * H + u];
+            const S* ar = acts + at * G;
+            x[j][0] = Ty::ld(ar + u);
+            x[j][1] = Ty::ld(ar + H + u);
+            x[j][2] = Ty::ld(ar + 2 * H + u);
+            x[j][3] = Ty::ld(ghn + at * H + u);
+            x[j][4] = Ty::ld(hprev + at * H + u);
+            x[j][5] = Ty::ld(dout + at * H + u);
             x[j][6] = mask != nullptr ? mask[at] : 1.f;
         }
     };
@@ -352,20 +394,20 @@ gru_bwd_resident_kernel(
                 const float da_n = dh * (1.0f - z_) * (1.0f - n_ * n_);
                 const float da_r = da_n * x[j][3] * r_ * (1.0f - r_);
                 const size_t at = (size_t)t * R + row0 + rc + r;
-                float* xr = dgx + at * G;
-                xr[u] = da_r * mj;
-                xr[H + u] = dz_pre * mj;
-                xr[2 * H + u] = da_n * mj;
+                S* xr = dgx + at * G;
+                Ty::st(xr + u, da_r * mj);
+                Ty::st(xr + H + u, dz_pre * mj);
+                Ty::st(xr + 2 * H + u, da_n * mj);
                 const float g_r = da_r * mj;
                 const float g_z = dz_pre * mj;
                 const float g_n = da_n * r_ * mj;
-                float* hr = dgh + at * G;
-                hr[u] = g_r;
-                hr[H + u] = g_z;
-                hr[2 * H + u] = g_n;
-                g_s[(size_t)u * RSP + r] = g_r;
-                g_s[(size_t)(H + u) * RSP + r] = g_z;
-                g_s[(size_t)(2 * H + u) * RSP + r] = g_n;
+                S* hr = dgh + at * G;
+                Ty::st(hr + u, g_r);
+                Ty::st(hr + H + u, g_z);
+                Ty::st(hr + 2 * H + u, g_n);
+                g_s[(size_t)u * RSP + r] = Ty::operand(g_r);
+                g_s[(size_t)(H + u) * RSP + r] = Ty::operand(g_z);
+                g_s[(size_t)(2 * H + u) * RSP + r] = Ty::operand(g_n);
                 dhz[j] = dh * z_;
                 m[j] = mj;
             }
@@ -376,12 +418,12 @@ gru_bwd_resident_kernel(
 #pragma unroll
             for (int r = 0; r < RS; ++r) acc[r] = 0.f;
             if (active && cg < KS) {
-                const float* wk = wt_s + (size_t)k_lo * H + u;
+                const S* wk = wt_s + (size_t)k_lo * H + u;
                 const float4* gk =
                     reinterpret_cast<const float4*>(g_s) + k_lo * (RSP / 4);
 #pragma unroll 4
                 for (int k = k_lo; k < k_hi; ++k, wk += H, gk += RSP / 4) {
-                    const float wv = *wk;
+                    const float wv = Ty::ld(wk);
 #pragma unroll
                     for (int q = 0; q < RSP / 4; ++q) {
                         const float4 gv = gk[q];
@@ -430,61 +472,69 @@ gru_bwd_resident_kernel(
     }
 }
 
-template <int RS, int KS>
-cudaError_t launch_resident_ks(const float* acts, const float* ghn,
-                               const float* hprev, const float* w,
-                               const float* mask, const float* dout,
-                               const float* dhT, float* dgx, float* dgh,
-                               float* dh0, int T, int blocks, int Bd, int H,
-                               int RB, int threads, size_t smem,
+template <bool BF16, int RS, int KS>
+cudaError_t launch_resident_ks(const typename ScanTypes<BF16>::S* acts,
+                               const typename ScanTypes<BF16>::S* ghn,
+                               const typename ScanTypes<BF16>::S* hprev,
+                               const float* w, const float* mask,
+                               const typename ScanTypes<BF16>::S* dout,
+                               const float* dhT,
+                               typename ScanTypes<BF16>::S* dgx,
+                               typename ScanTypes<BF16>::S* dgh, float* dh0,
+                               int T, int blocks, int Bd, int H, int RB,
+                               int threads, size_t smem,
                                cudaStream_t stream) {
     cudaError_t err = cudaFuncSetAttribute(
-        gru_bwd_resident_kernel<RS, KS>,
+        gru_bwd_resident_kernel<BF16, RS, KS>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    gru_bwd_resident_kernel<RS, KS><<<blocks, threads, smem, stream>>>(
+    gru_bwd_resident_kernel<BF16, RS, KS><<<blocks, threads, smem, stream>>>(
         acts, ghn, hprev, w, mask, dout, dhT, dgx, dgh, dh0, T, Bd, H, RB);
     return cudaGetLastError();
 }
 
-template <int RS>
-cudaError_t launch_resident_rs(const float* acts, const float* ghn,
-                               const float* hprev, const float* w,
-                               const float* mask, const float* dout,
-                               const float* dhT, float* dgx, float* dgh,
-                               float* dh0, int T, int blocks, int Bd, int H,
-                               int RB, int KS, int threads, size_t smem,
+template <bool BF16, int RS>
+cudaError_t launch_resident_rs(const typename ScanTypes<BF16>::S* acts,
+                               const typename ScanTypes<BF16>::S* ghn,
+                               const typename ScanTypes<BF16>::S* hprev,
+                               const float* w, const float* mask,
+                               const typename ScanTypes<BF16>::S* dout,
+                               const float* dhT,
+                               typename ScanTypes<BF16>::S* dgx,
+                               typename ScanTypes<BF16>::S* dgh, float* dh0,
+                               int T, int blocks, int Bd, int H, int RB,
+                               int KS, int threads, size_t smem,
                                cudaStream_t stream) {
     switch (KS) {
     case 1:
-        return launch_resident_ks<RS, 1>(acts, ghn, hprev, w, mask, dout,
-                                         dhT, dgx, dgh, dh0, T, blocks, Bd,
-                                         H, RB, threads, smem, stream);
+        return launch_resident_ks<BF16, RS, 1>(
+            acts, ghn, hprev, w, mask, dout, dhT, dgx, dgh, dh0, T, blocks,
+            Bd, H, RB, threads, smem, stream);
     case 2:
-        return launch_resident_ks<RS, 2>(acts, ghn, hprev, w, mask, dout,
-                                         dhT, dgx, dgh, dh0, T, blocks, Bd,
-                                         H, RB, threads, smem, stream);
+        return launch_resident_ks<BF16, RS, 2>(
+            acts, ghn, hprev, w, mask, dout, dhT, dgx, dgh, dh0, T, blocks,
+            Bd, H, RB, threads, smem, stream);
     case 4:
-        return launch_resident_ks<RS, 4>(acts, ghn, hprev, w, mask, dout,
-                                         dhT, dgx, dgh, dh0, T, blocks, Bd,
-                                         H, RB, threads, smem, stream);
+        return launch_resident_ks<BF16, RS, 4>(
+            acts, ghn, hprev, w, mask, dout, dhT, dgx, dgh, dh0, T, blocks,
+            Bd, H, RB, threads, smem, stream);
     }
     return cudaErrorInvalidValue;
 }
 
-}  // namespace
-
-extern "C" {
-
 // Cooperative route: launch the whole adjoint recurrence on the grid
-// `pick_scan_grid` chooses.  Fails with cudaErrorCooperativeLaunchTooLarge when no grid is
-// co-resident.  Returns cudaGetLastError() after the launch.
-int gru_cell_scan_bwd(const void* acts, const void* ghn, const void* hprev,
-                      const void* w, const void* mask, const void* dout,
-                      const void* dhT, void* dgx, void* dgh, void* dh0,
-                      int T, int D, int Bd, int H, int device,
-                      void* stream) {
-    const void* kernel = (const void*)gru_bwd_kernel;
+// `pick_scan_grid` chooses, with the variant's shared memory (W_hh's rows
+// and the staged dgh rows in its element type).  Fails with
+// cudaErrorCooperativeLaunchTooLarge when no grid is co-resident.
+// Returns cudaGetLastError() after the launch.
+template <bool BF16>
+int launch_bwd(const void* acts, const void* ghn, const void* hprev,
+               const void* w, const void* mask, const void* dout,
+               const void* dhT, void* dgx, void* dgh, void* dh0, int T,
+               int D, int Bd, int H, int device, void* stream) {
+    using S = typename ScanTypes<BF16>::S;
+    using W4 = typename ScanTypes<BF16>::W4;
+    const void* kernel = (const void*)gru_bwd_kernel<BF16>;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return err;
     int n_sm = 0, max_smem = 0, coop = 0;
@@ -494,25 +544,26 @@ int gru_cell_scan_bwd(const void* acts, const void* ghn, const void* hprev,
     if (!coop) return cudaErrorNotSupported;
     const int G4 = (3 * H + 3) / 4;
     const auto smem_bytes = [G4](int U, int RB, int RS, int KS) {
-        return sizeof(float) * ((size_t)G4 * U * 4 + (size_t)RS * G4 * 4
-                                + (size_t)(KS - 1) * RS * U
-                                + 2 * (size_t)RB * U);
+        return sizeof(W4) * ((size_t)G4 * U + (size_t)RS * G4)
+               + sizeof(float) * ((size_t)(KS - 1) * RS * U
+                                  + 2 * (size_t)RB * U);
     };
     ScanGrid best;
     err = pick_scan_grid(kernel, D, Bd, H, G4, n_sm, max_smem, smem_bytes,
                          &best);
     if (err != cudaSuccess) return err;
     if (best.blocks == 0) return cudaErrorCooperativeLaunchTooLarge;
-    int vec = H % 4 == 0 && reinterpret_cast<uintptr_t>(dgh) % 16 == 0;
-    const float* acts_ = static_cast<const float*>(acts);
-    const float* ghn_ = static_cast<const float*>(ghn);
-    const float* hprev_ = static_cast<const float*>(hprev);
+    int vec = H % (16 / sizeof(W4) * 4) == 0
+              && reinterpret_cast<uintptr_t>(dgh) % 16 == 0;
+    const S* acts_ = static_cast<const S*>(acts);
+    const S* ghn_ = static_cast<const S*>(ghn);
+    const S* hprev_ = static_cast<const S*>(hprev);
     const float* w_ = static_cast<const float*>(w);
     const float* mask_ = static_cast<const float*>(mask);
-    const float* dout_ = static_cast<const float*>(dout);
+    const S* dout_ = static_cast<const S*>(dout);
     const float* dhT_ = static_cast<const float*>(dhT);
-    float* dgx_ = static_cast<float*>(dgx);
-    float* dgh_ = static_cast<float*>(dgh);
+    S* dgx_ = static_cast<S*>(dgx);
+    S* dgh_ = static_cast<S*>(dgh);
     float* dh0_ = static_cast<float*>(dh0);
     void* args[] = {&acts_, &ghn_, &hprev_, &w_, &mask_, &dout_, &dhT_,
                     &dgx_, &dgh_, &dh0_, &T, &Bd, &H, &best.U, &best.n_ub,
@@ -527,16 +578,16 @@ int gru_cell_scan_bwd(const void* acts, const void* ghn, const void* hprev,
 // Resident route (see the header): the plan from ops/kernels/gru.py, RB
 // rows a block, RS at a time, KS K slices of 1, 2 or 4, `threads` (one
 // group of H rounded up to 32 with KS = 1, four groups otherwise), `smem`
-// bytes.  A plan that does not agree with the kernel's own layout is
-// refused with cudaErrorInvalidValue before anything runs.  Returns
-// cudaGetLastError() after the launch.
-int gru_cell_scan_bwd_resident(const void* acts, const void* ghn,
-                               const void* hprev, const void* w,
-                               const void* mask, const void* dout,
-                               const void* dhT, void* dgx, void* dgh,
-                               void* dh0, int T, int D, int Bd, int H,
-                               int RB, int RS, int KS, int threads, int smem,
-                               int device, void* stream) {
+// bytes (W_hh at the variant's element size).  A plan that does not agree
+// with the kernel's own layout is refused with cudaErrorInvalidValue
+// before anything runs.  Returns cudaGetLastError() after the launch.
+template <bool BF16>
+int launch_bwd_resident(const void* acts, const void* ghn, const void* hprev,
+                        const void* w, const void* mask, const void* dout,
+                        const void* dhT, void* dgx, void* dgh, void* dh0,
+                        int T, int D, int Bd, int H, int RB, int RS, int KS,
+                        int threads, int smem, int device, void* stream) {
+    using S = typename ScanTypes<BF16>::S;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return err;
     const int Hp = round_up(H, 32);
@@ -544,26 +595,26 @@ int gru_cell_scan_bwd_resident(const void* acts, const void* ghn,
         || RS > RESIDENT_MAX_RS || RB < RS || KS > 3 * H
         || threads != (KS == 1 ? 1 : 4) * Hp
         || threads > RESIDENT_MAX_THREADS
-        || (size_t)smem != resident_bwd_smem_bytes(H, RS, KS)) {
+        || (size_t)smem != resident_bwd_smem_bytes(H, RS, KS, sizeof(S))) {
         return cudaErrorInvalidValue;
     }
     const int blocks = D * ((Bd + RB - 1) / RB);
-    const auto* acts_ = static_cast<const float*>(acts);
-    const auto* ghn_ = static_cast<const float*>(ghn);
-    const auto* hprev_ = static_cast<const float*>(hprev);
+    const auto* acts_ = static_cast<const S*>(acts);
+    const auto* ghn_ = static_cast<const S*>(ghn);
+    const auto* hprev_ = static_cast<const S*>(hprev);
     const auto* w_ = static_cast<const float*>(w);
     const auto* mask_ = static_cast<const float*>(mask);
-    const auto* dout_ = static_cast<const float*>(dout);
+    const auto* dout_ = static_cast<const S*>(dout);
     const auto* dhT_ = static_cast<const float*>(dhT);
-    auto* dgx_ = static_cast<float*>(dgx);
-    auto* dgh_ = static_cast<float*>(dgh);
+    auto* dgx_ = static_cast<S*>(dgx);
+    auto* dgh_ = static_cast<S*>(dgh);
     auto* dh0_ = static_cast<float*>(dh0);
     auto* s = static_cast<cudaStream_t>(stream);
 #define PTT_GRU_BWD_RS(n)                                                   \
     case n:                                                                 \
-        return launch_resident_rs<n>(acts_, ghn_, hprev_, w_, mask_, dout_, \
-                                     dhT_, dgx_, dgh_, dh0_, T, blocks, Bd, \
-                                     H, RB, KS, threads, smem, s);
+        return launch_resident_rs<BF16, n>(                                 \
+            acts_, ghn_, hprev_, w_, mask_, dout_, dhT_, dgx_, dgh_, dh0_,  \
+            T, blocks, Bd, H, RB, KS, threads, smem, s);
     switch (RS) {
         PTT_GRU_BWD_RS(1)
         PTT_GRU_BWD_RS(2)
@@ -576,6 +627,58 @@ int gru_cell_scan_bwd_resident(const void* acts, const void* ghn,
     }
 #undef PTT_GRU_BWD_RS
     return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+extern "C" {
+
+// The adjoint recurrence, float32 streams, on the cooperative route.
+int gru_cell_scan_bwd(const void* acts, const void* ghn, const void* hprev,
+                      const void* w, const void* mask, const void* dout,
+                      const void* dhT, void* dgx, void* dgh, void* dh0,
+                      int T, int D, int Bd, int H, int device,
+                      void* stream) {
+    return launch_bwd<false>(acts, ghn, hprev, w, mask, dout, dhT, dgx, dgh,
+                             dh0, T, D, Bd, H, device, stream);
+}
+
+// ... and on the resident route.
+int gru_cell_scan_bwd_resident(const void* acts, const void* ghn,
+                               const void* hprev, const void* w,
+                               const void* mask, const void* dout,
+                               const void* dhT, void* dgx, void* dgh,
+                               void* dh0, int T, int D, int Bd, int H,
+                               int RB, int RS, int KS, int threads, int smem,
+                               int device, void* stream) {
+    return launch_bwd_resident<false>(acts, ghn, hprev, w, mask, dout, dhT,
+                                      dgx, dgh, dh0, T, D, Bd, H, RB, RS, KS,
+                                      threads, smem, device, stream);
+}
+
+// The bf16 variants of the two: acts, ghn, hprev, dout, dgx and dgh bf16;
+// w, mask, dhT and dh0 float32; dh_{t-1} from bf16(dgh) @ bf16(W_hh)^T
+// summed in float32.
+int gru_cell_scan_bwd_bf16(const void* acts, const void* ghn,
+                           const void* hprev, const void* w,
+                           const void* mask, const void* dout,
+                           const void* dhT, void* dgx, void* dgh, void* dh0,
+                           int T, int D, int Bd, int H, int device,
+                           void* stream) {
+    return launch_bwd<true>(acts, ghn, hprev, w, mask, dout, dhT, dgx, dgh,
+                            dh0, T, D, Bd, H, device, stream);
+}
+
+int gru_cell_scan_bwd_resident_bf16(const void* acts, const void* ghn,
+                                    const void* hprev, const void* w,
+                                    const void* mask, const void* dout,
+                                    const void* dhT, void* dgx, void* dgh,
+                                    void* dh0, int T, int D, int Bd, int H,
+                                    int RB, int RS, int KS, int threads,
+                                    int smem, int device, void* stream) {
+    return launch_bwd_resident<true>(acts, ghn, hprev, w, mask, dout, dhT,
+                                     dgx, dgh, dh0, T, D, Bd, H, RB, RS, KS,
+                                     threads, smem, device, stream);
 }
 
 }  // extern "C"

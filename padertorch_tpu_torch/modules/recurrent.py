@@ -43,9 +43,10 @@ bias in float32 and rounds the gates once to bf16, the stream dtype of the
 cell scan, whose recurrent products are bf16 with float32 sums too.
 Without it the projection sums in float32 (bf16 inputs and weights are
 widened, which is exact) and the scan runs its float32 kernels.  The LSTM
-has both kernels on the card; the GRU's bf16 kernels are not ported yet
-(``compute_dtype='bfloat16'`` on a CUDA tensor raises), its plain version
-computes the contract on the CPU.
+and the GRU have both kernels on the card, and the plain versions compute
+the same contract on the CPU.  :func:`set_rnn_backend` sets
+``compute_dtype`` on every RNN of a module tree, as the JAX package's
+does.
 """
 import math
 
@@ -56,7 +57,7 @@ from padertorch_tpu_torch.ops.kernels.gru import gru_cell_scan
 from padertorch_tpu_torch.ops.kernels.lstm import (
     lstm_cell_scan, matmul_f32, product_dtype, sum_outer)
 
-__all__ = ['LSTM', 'GRU', 'project']
+__all__ = ['LSTM', 'GRU', 'project', 'set_rnn_backend']
 
 
 class _Project(torch.autograd.Function):
@@ -268,3 +269,49 @@ class GRU(_RNNBase):
         o_t, h_t = gru_cell_scan(gates_x, w_hh, mask_t, *init,
                                  compute_dtype=self.compute_dtype)
         return o_t, (h_t,)
+
+
+def set_rnn_backend(module, backend, remat=None, compute_dtype='keep'):
+    """Set the time-loop backend, and optionally the compute dtype, of every
+    RNN inside a module tree, as ``padertorch_tpu/modules/recurrent.py``
+    ``set_rnn_backend`` does.
+
+    >>> from padertorch_tpu_torch.modules.dual_path_rnn import DPRNN
+    >>> dprnn = set_rnn_backend(
+    ...     DPRNN(16, 8, window_length=10, hop_size=5, num_blocks=1,
+    ...           inter_chunk_type='bgru', intra_chunk_type='bgru'),
+    ...     'pallas', compute_dtype='bfloat16')
+    >>> dprnn.dprnn_blocks[0].intra_chunk_rnn.rnn.compute_dtype
+    torch.bfloat16
+
+    Args:
+        module: any module tree (model, separator, ...).
+        backend: 'pallas', the cell-scan kernels (the plain versions on a
+            CPU tensor), or 'scan', the JAX package's ``lax.scan`` loop,
+            which the port has only as the plain versions: on a module
+            with parameters on the card it raises.
+        remat: the JAX package's per-layer rematerialization; the port
+            has none, so on the card anything but None raises (on the CPU
+            the result is the same either way).
+        compute_dtype: 'keep' leaves each RNN's compute dtype; any other
+            value (None, 'bfloat16') overrides it on every ``LSTM`` and
+            ``GRU`` in the tree.
+
+    Returns the module (changed in place) for chaining.  Raises
+    AssertionError where the tree holds no RNN, as the JAX function does.
+    """
+    if backend not in ('scan', 'pallas'):
+        raise ValueError(f"backend={backend!r}: 'scan' or 'pallas'")
+    on_card = any(p.is_cuda for p in module.parameters())
+    if on_card and (backend != 'pallas' or remat is not None):
+        raise NotImplementedError(
+            f'set_rnn_backend(backend={backend!r}, remat={remat!r}): on the '
+            "card the recurrence runs in the kernels ('pallas') only, "
+            'without rematerialization; the scan backend and remat are '
+            "the JAX package's (padertorch_tpu/modules/recurrent.py)")
+    rnns = [sub for sub in module.modules() if isinstance(sub, _RNNBase)]
+    assert rnns, 'no RNN modules found in the tree'
+    if compute_dtype != 'keep':
+        for rnn in rnns:
+            rnn.compute_dtype = product_dtype(compute_dtype)
+    return module

@@ -45,6 +45,12 @@ _SIGNATURES = {
     'gru_cell_scan_fwd_resident': (_P,) * 6 + (_I,) * 10 + (_P,),
     'gru_cell_scan_fwd_train_resident': (_P,) * 9 + (_I,) * 10 + (_P,),
     'gru_cell_scan_bwd_resident': (_P,) * 10 + (_I,) * 10 + (_P,),
+    'gru_cell_scan_fwd_bf16': (_P,) * 7 + (_I,) * 5 + (_P,),
+    'gru_cell_scan_fwd_train_bf16': (_P,) * 10 + (_I,) * 5 + (_P,),
+    'gru_cell_scan_bwd_bf16': (_P,) * 10 + (_I,) * 5 + (_P,),
+    'gru_cell_scan_fwd_resident_bf16': (_P,) * 6 + (_I,) * 10 + (_P,),
+    'gru_cell_scan_fwd_train_resident_bf16': (_P,) * 9 + (_I,) * 10 + (_P,),
+    'gru_cell_scan_bwd_resident_bf16': (_P,) * 10 + (_I,) * 10 + (_P,),
     'gru_cell_scan_device_limits': (_I, _P),
     'masked_istft_fft': (_P,) * 6 + (_I,) * 12 + (_P,),
     'masked_istft_dft': (_P,) * 5 + (_I,) * 10 + (_P,),

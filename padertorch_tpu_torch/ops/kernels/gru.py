@@ -21,8 +21,9 @@ All three kernels have two routes, chosen by shape before the launch:
 :func:`resident_plan` (the forwards) and :func:`resident_bwd_plan` (the
 backward) give the resident route's plan where one direction's whole
 ``W_hh`` fits one block's shared memory beside what the block stages
-(H <= 138 for the forwards and H <= 137 for the backward on an H100: a
-DPRNN's chunk RNNs, the speaker classifier recipe's GRU); a block then
+(on an H100, H <= 138 for the float32 forwards and H <= 137 for the
+float32 backward, 195 and 192 in bf16: a DPRNN's chunk RNNs, the speaker
+classifier recipe's GRU); a block then
 owns a few rows and runs all T steps with no grid-wide sync.  Otherwise
 the cooperative kernel splits units and rows over the grid and syncs it
 once per step.  A launch that fails on its route raises; it is never
@@ -41,6 +42,23 @@ Python time loop of per-direction matmuls that autograd differentiates.
 :func:`gru_cell_scan_train_plain` and :func:`gru_cell_scan_bwd_plain`
 repeat the two training kernels' arithmetic step by step; tests hold the
 kernels against them.
+
+bf16, as in the JAX package and as for the LSTM
+(:mod:`padertorch_tpu_torch.ops.kernels.lstm`), along two axes.  The
+*streams* (``out``, the training residuals ``acts``, ``gh_n`` and
+``h_prev``, and the backward's ``dgx`` and ``dgh``) follow
+``gates_x.dtype``; ``h0``, the carries, ``h_T`` and ``dh0`` stay float32.
+``compute_dtype='bfloat16'`` makes the recurrent *products* bf16:
+``bf16(h) @ bf16(W_hh)`` forward and ``bf16(dgh) @ bf16(W_hh)^T``
+backward, each summed in float32; ``dW_hh`` sums ``bf16(h_{t-1})^T
+bf16(dgh)`` in float32 and is float32.  The plain versions take all four
+combinations; the kernels take float32 streams with float32 products, and
+bf16 streams with bf16 products (the ``BF16`` variants of both files, on
+both routes, which stage ``W_hh`` in shared memory as bf16: the resident
+route reaches a wider H, up to 195 for the forwards and 192 for the
+backward on an H100), and raise for the other two.  ``h_prev`` of the bf16
+variant is ``bf16(h_{t-1})``, what the JAX backward rebuilds from its bf16
+``out``.
 """
 import ctypes
 import functools
@@ -50,13 +68,13 @@ import torch
 
 from padertorch_tpu_torch.ops.kernels import _build
 from padertorch_tpu_torch.ops.kernels.lstm import (
-    _check, _norm_w, _recurrent_product, product_dtype, sum_outer)
+    _check, _norm_w, _recurrent_product, _variant, product_dtype, sum_outer)
 
 __all__ = ['gru_cell_scan', 'gru_cell_scan_plain', 'GRUCellScan',
            'gru_cell_scan_train_plain', 'gru_cell_scan_bwd_plain',
            'recurrent_weight_grad', 'ResidentPlan', 'resident_plan',
            'resident_smem', 'resident_bwd_plan', 'resident_bwd_smem',
-           'device_limits']
+           'device_limits', 'element_size']
 
 
 def _cell(gx, gh, h, hdim):
@@ -77,10 +95,11 @@ def gru_cell_scan_train_plain(gates_x, w_hh, mask, h0, compute_dtype=None):
     r, z, n and ``gh_n`` (T, rows, H) the n block of ``h_prev @ W_hh``, both
     as computed (also on a masked step), and ``h_prev`` (T, rows, H) the
     state every step started from (through padding, the frozen state).
-    ``out``, ``acts`` and ``gh_n`` are in the stream dtype
-    (``gates_x.dtype``), the states float32; ``compute_dtype='bfloat16'``
-    rounds the recurrent product's operands to bf16 (float32 sums), as the
-    LSTM's plain versions do.
+    ``out``, ``acts``, ``gh_n`` and ``h_prev`` are in the stream dtype
+    (``gates_x.dtype``; a bf16 ``h_prev`` is ``bf16(h_{t-1})``, what the
+    JAX backward rebuilds from the bf16 ``out``), ``h_T`` float32;
+    ``compute_dtype='bfloat16'`` rounds the recurrent product's operands to
+    bf16 (float32 sums), as the LSTM's plain versions do.
     """
     w, n_dir = _norm_w(w_hh)
     cd = product_dtype(compute_dtype)
@@ -99,7 +118,7 @@ def gru_cell_scan_train_plain(gates_x, w_hh, mask, h0, compute_dtype=None):
             h_out = h_new * m
         acts.append(torch.cat([r, z, n], dim=-1).to(stream))
         ghns.append(gh_n.to(stream))
-        h_prevs.append(h)
+        h_prevs.append(h.to(stream))
         outs.append(h_out.to(stream))
         h = h_new
     return (torch.stack(outs), torch.stack(acts), torch.stack(ghns),
@@ -113,45 +132,64 @@ def gru_cell_scan_plain(gates_x, w_hh, mask, h0, compute_dtype=None):
     return out, h_t
 
 
-def gru_cell_scan_bwd_plain(acts, gh_n, h_prev, w_hh, mask, d_out, dh_t):
+def gru_cell_scan_bwd_plain(acts, gh_n, h_prev, w_hh, mask, d_out, dh_t,
+                            compute_dtype=None):
     """Plain PyTorch version of the backward kernel: the adjoint recurrence
     in reverse time from the stored residuals.
 
     Returns ``(dgates_x, dgh, dh0)``: the adjoints of the two
     pre-activation streams, both (T, rows, 3H), which differ in the n block
     (``da_n`` against ``da_n * r``); ``dgh`` feeds ``dh_prev`` and
-    ``dW_hh``, ``dgates_x`` the input projection.
+    ``dW_hh``, ``dgates_x`` the input projection.  Both are in the stream
+    dtype (``acts.dtype``), ``dh0`` float32.  With bf16 products
+    ``dh_{t-1}`` takes ``bf16(dgh) @ bf16(W_hh)^T`` (the dgh that is
+    stored, in a bf16 stream), summed in float32; without, the float32
+    dgh.
     """
     w, n_dir = _norm_w(w_hh)
+    cd = product_dtype(compute_dtype)
+    stream = acts.dtype
+    # the arithmetic's type: float32 for bf16 or float32 streams (a
+    # float64 stream, as tests give it, stays float64)
+    wide = torch.promote_types(stream, torch.float32)
     t_len, rows, g3 = acts.shape
     hdim = g3 // 3
     w_t = w.transpose(1, 2)
-    dh_carry = dh_t
+    dh_carry = dh_t.to(wide)
     dgx, dgh = [None] * t_len, [None] * t_len
     for t in reversed(range(t_len)):
-        r, z, n = acts[t].split(hdim, dim=-1)
-        dh = dh_carry + d_out[t]
-        dz_pre = dh * (h_prev[t] - n) * z * (1 - z)
+        r, z, n = acts[t].to(wide).split(hdim, dim=-1)
+        dh = dh_carry + d_out[t].to(wide)
+        dz_pre = dh * (h_prev[t].to(wide) - n) * z * (1 - z)
         da_n = dh * (1 - z) * (1 - n * n)
-        da_r = da_n * gh_n[t] * r * (1 - r)
+        da_r = da_n * gh_n[t].to(wide) * r * (1 - r)
         dgx_t = torch.cat([da_r, dz_pre, da_n], dim=-1)
         dgh_t = torch.cat([da_r, dz_pre, da_n * r], dim=-1)
         if mask is not None:
             m = mask[t][:, None]
             dgx_t = dgx_t * m
             dgh_t = dgh_t * m
-        dh_prev = torch.bmm(dgh_t.reshape(n_dir, rows // n_dir, g3),
-                            w_t).reshape(rows, hdim) + dh * z
+        if cd is None:
+            product = torch.bmm(dgh_t.reshape(n_dir, rows // n_dir, g3),
+                                w_t).reshape(rows, hdim)
+        else:
+            product = _recurrent_product(dgh_t, w_t, n_dir, cd)
+        dh_prev = product + dh * z
         if mask is not None:
             dh_prev = torch.where(m > 0, dh_prev, dh_carry)
-        dgx[t], dgh[t] = dgx_t, dgh_t
+        dgx[t], dgh[t] = dgx_t.to(stream), dgh_t.to(stream)
         dh_carry = dh_prev
     return torch.stack(dgx), torch.stack(dgh), dh_carry
 
 
-def recurrent_weight_grad(dgh, h_prev, n_dir):
-    """``dW_hh`` (D, H, 3H) = sum_t h_{t-1}^T dgh_t per direction, from the
-    stored ``h_prev`` (``dgh`` is zero on masked steps)."""
+def recurrent_weight_grad(dgh, h_prev, n_dir, compute_dtype=None):
+    """``dW_hh`` (D, H, 3H) = sum_t h_{t-1}^T dgh_t per direction, float32,
+    from the stored ``h_prev`` (``dgh`` is zero on masked steps).  With
+    bf16 products the operands are rounded to bf16 (in a bf16 stream they
+    are bf16 already) and the sums stay float32."""
+    cd = product_dtype(compute_dtype)
+    if cd is not None:
+        dgh, h_prev = dgh.to(cd), h_prev.to(cd)
     return sum_outer(h_prev, dgh, n_dir)
 
 
@@ -180,20 +218,28 @@ def _round_up(x, to):
     return -(-x // to) * to
 
 
-def resident_smem(hdim, rs, ks):
+def element_size(stream):
+    """Bytes of a staged ``W_hh`` element in the kernels of a stream dtype:
+    4 for float32, 2 for bf16 (its variants stage ``W_hh`` as bf16)."""
+    return 2 if stream == torch.bfloat16 else 4
+
+
+def resident_smem(hdim, rs, ks, elem=4):
     """Bytes of shared memory the resident forward needs: h of a chunk
-    transposed (H, RS rounded up to 4), the K slices' sums (KS, RS, 3, H
-    rounded up to 32) when KS > 1, and all of W_hh[d] (H, 3H)."""
+    transposed (H, RS rounded up to 4) and the K slices' sums (KS, RS, 3,
+    H rounded up to 32) when KS > 1, float32, and all of W_hh[d] (H, 3H)
+    at ``elem`` bytes an element (2 in the bf16 variant)."""
     red = ks * rs * 3 * _round_up(hdim, 32) if ks > 1 else 0
-    return 4 * (hdim * _round_up(rs, 4) + red + 3 * hdim * hdim)
+    return 4 * (hdim * _round_up(rs, 4) + red) + elem * 3 * hdim * hdim
 
 
-def resident_bwd_smem(hdim, rs, ks):
+def resident_bwd_smem(hdim, rs, ks, elem=4):
     """Bytes of shared memory the resident backward needs: dgh of a chunk
-    transposed (3H, RS rounded up to 4), the K slices' sums (KS, RS, H
-    rounded up to 32) when KS > 1, and all of W_hh[d] transposed (3H, H)."""
+    transposed (3H, RS rounded up to 4) and the K slices' sums (KS, RS, H
+    rounded up to 32) when KS > 1, float32, and all of W_hh[d] transposed
+    (3H, H) at ``elem`` bytes an element (2 in the bf16 variant)."""
     red = ks * rs * _round_up(hdim, 32) if ks > 1 else 0
-    return 4 * (3 * hdim * _round_up(rs, 4) + red + 3 * hdim * hdim)
+    return 4 * (3 * hdim * _round_up(rs, 4) + red) + elem * 3 * hdim * hdim
 
 
 def _plan(n_dir, rows_per_dir, hdim, n_sm, max_smem, smem, k_len):
@@ -217,10 +263,11 @@ def _plan(n_dir, rows_per_dir, hdim, n_sm, max_smem, smem, k_len):
     return None
 
 
-def resident_plan(n_dir, rows_per_dir, hdim, n_sm, max_smem):
+def resident_plan(n_dir, rows_per_dir, hdim, n_sm, max_smem, elem=4):
     """The resident forwards' plan for a layer of ``n_dir`` directions of
     ``rows_per_dir`` rows and ``hdim`` units on a card of ``n_sm`` SMs
-    whose blocks may opt in to ``max_smem`` bytes of shared memory, or
+    whose blocks may opt in to ``max_smem`` bytes of shared memory, with
+    ``W_hh`` staged at ``elem`` bytes an element (:func:`element_size`), or
     None where one direction's ``W_hh`` does not fit beside one row's
     staging (the cooperative route).
 
@@ -230,20 +277,22 @@ def resident_plan(n_dir, rows_per_dir, hdim, n_sm, max_smem):
     ``W_hh``, evened out, then the most K slices (4, 2, 1) that fit the
     shared memory, each at least 16 units of K long; with more than one
     slice, four groups of threads share the cells (so more than one slice
-    needs H <= 128).
+    needs H <= 128).  On an H100 (132 SMs, 232,448 bytes) the float32
+    plan reaches H = 138 and the bf16 one H = 195.
     """
-    return _plan(n_dir, rows_per_dir, hdim, n_sm, max_smem, resident_smem,
-                 hdim)
+    return _plan(n_dir, rows_per_dir, hdim, n_sm, max_smem,
+                 functools.partial(resident_smem, elem=elem), hdim)
 
 
-def resident_bwd_plan(n_dir, rows_per_dir, hdim, n_sm, max_smem):
+def resident_bwd_plan(n_dir, rows_per_dir, hdim, n_sm, max_smem, elem=4):
     """The resident backward's plan, as :func:`resident_plan` with the
     backward's bytes (:func:`resident_bwd_smem`) and its product's K range
     of 3H (each slice at least 16 columns long), or None (the cooperative
     route).  At H = 128 the DPRNN's 520 rows get 130 blocks of 4, its 800
-    rows 116 blocks of 7, four K slices each."""
+    rows 116 blocks of 7, four K slices each.  On an H100 the float32 plan
+    reaches H = 137 and the bf16 one H = 192."""
     return _plan(n_dir, rows_per_dir, hdim, n_sm, max_smem,
-                 resident_bwd_smem, 3 * hdim)
+                 functools.partial(resident_bwd_smem, elem=elem), 3 * hdim)
 
 
 @functools.lru_cache(maxsize=None)
@@ -258,63 +307,69 @@ def device_limits(device):
 
 
 def _launch(gates_x, w, n_dir, mask, h0, train=False):
-    """Launch the forward kernel on the route :func:`resident_plan` picks
-    for the shape; with ``train`` the variant that also returns the
-    residuals ``acts``, ``gh_n`` and ``h_prev``."""
+    """Launch the forward kernel of ``gates_x``'s stream dtype on the
+    route :func:`resident_plan` picks for the shape; with ``train`` the
+    variant that also returns the residuals ``acts``, ``gh_n`` and
+    ``h_prev`` (in the stream dtype)."""
     t_len, rows, g3 = gates_x.shape
     hdim = g3 // 3
+    entry = _variant(gates_x.dtype)
 
-    def empty(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=gates_x.device)
+    def empty(*shape, dtype=gates_x.dtype):
+        return torch.empty(shape, dtype=dtype, device=gates_x.device)
 
-    out, h_t = empty(t_len, rows, hdim), empty(rows, hdim)
+    out, h_t = empty(t_len, rows, hdim), empty(rows, hdim,
+                                               dtype=torch.float32)
     lib = _build.load_library()
     stream, device = _build.stream_and_device(gates_x)
-    plan = resident_plan(n_dir, rows // n_dir, hdim, *device_limits(device))
+    plan = resident_plan(n_dir, rows // n_dir, hdim, *device_limits(device),
+                         elem=element_size(gates_x.dtype))
     inputs = (gates_x.data_ptr(), w.data_ptr(),
               None if mask is None else mask.data_ptr(),
               h0.data_ptr(), out.data_ptr())
     sizes = (t_len, n_dir, rows // n_dir, hdim)
     if plan is None:
-        hbuf = empty(2, rows, hdim)
+        hbuf = empty(2, rows, hdim, dtype=torch.float32)
         tail = (hbuf.data_ptr(), *sizes, device, stream)
-        route = 'cooperative'
-        fwd, fwd_train = lib.gru_cell_scan_fwd, lib.gru_cell_scan_fwd_train
+        route, suffix = 'cooperative', entry
     else:
         tail = (*sizes, plan.RB, plan.RS, plan.KS, plan.threads, plan.smem,
                 device, stream)
-        route = 'resident'
-        fwd = lib.gru_cell_scan_fwd_resident
-        fwd_train = lib.gru_cell_scan_fwd_train_resident
+        route, suffix = 'resident', '_resident' + entry
     if train:
         acts, gh_n, h_prev = (empty(t_len, rows, g3),
                               empty(t_len, rows, hdim),
                               empty(t_len, rows, hdim))
-        err = fwd_train(*inputs, acts.data_ptr(), gh_n.data_ptr(),
-                        h_prev.data_ptr(), h_t.data_ptr(), *tail)
-        _build.check(lib, err, 'gru_cell_scan training forward kernel')
-        gru_cell_scan.launches['fwd_train'] += 1
+        err = getattr(lib, 'gru_cell_scan_fwd_train' + suffix)(
+            *inputs, acts.data_ptr(), gh_n.data_ptr(), h_prev.data_ptr(),
+            h_t.data_ptr(), *tail)
+        _build.check(lib, err,
+                     f'gru_cell_scan{entry} training forward kernel')
+        gru_cell_scan.launches['fwd_train' + entry] += 1
         gru_cell_scan.routes[route] += 1
         return out, acts, gh_n, h_prev, h_t
-    err = fwd(*inputs, h_t.data_ptr(), *tail)
-    _build.check(lib, err, 'gru_cell_scan kernel')
-    gru_cell_scan.launches['fwd'] += 1
+    err = getattr(lib, 'gru_cell_scan_fwd' + suffix)(
+        *inputs, h_t.data_ptr(), *tail)
+    _build.check(lib, err, f'gru_cell_scan{entry} kernel')
+    gru_cell_scan.launches['fwd' + entry] += 1
     gru_cell_scan.routes[route] += 1
     return out, h_t
 
 
 def _launch_bwd(acts, gh_n, h_prev, w, n_dir, mask, d_out, dh_t):
-    """Launch the backward kernel on the route :func:`resident_bwd_plan`
-    picks for the shape."""
+    """Launch the backward kernel of the residuals' stream dtype on the
+    route :func:`resident_bwd_plan` picks for the shape."""
     t_len, rows, g3 = acts.shape
     hdim = g3 // 3
+    entry = _variant(acts.dtype)
     dgx = torch.empty_like(acts)
     dgh = torch.empty_like(acts)
     dh0 = torch.empty_like(dh_t)
     lib = _build.load_library()
     stream, device = _build.stream_and_device(acts)
     plan = resident_bwd_plan(n_dir, rows // n_dir, hdim,
-                             *device_limits(device))
+                             *device_limits(device),
+                             elem=element_size(acts.dtype))
     args = (acts.data_ptr(), gh_n.data_ptr(), h_prev.data_ptr(),
             w.data_ptr(), None if mask is None else mask.data_ptr(),
             d_out.data_ptr(), dh_t.data_ptr(), dgx.data_ptr(),
@@ -322,14 +377,14 @@ def _launch_bwd(acts, gh_n, h_prev, w, n_dir, mask, d_out, dh_t):
             hdim)
     if plan is None:
         route = 'cooperative'
-        err = lib.gru_cell_scan_bwd(*args, device, stream)
+        err = getattr(lib, 'gru_cell_scan_bwd' + entry)(*args, device, stream)
     else:
         route = 'resident'
-        err = lib.gru_cell_scan_bwd_resident(
+        err = getattr(lib, 'gru_cell_scan_bwd_resident' + entry)(
             *args, plan.RB, plan.RS, plan.KS, plan.threads, plan.smem,
             device, stream)
-    _build.check(lib, err, 'gru_cell_scan backward kernel')
-    gru_cell_scan.launches['bwd'] += 1
+    _build.check(lib, err, f'gru_cell_scan{entry} backward kernel')
+    gru_cell_scan.launches['bwd' + entry] += 1
     gru_cell_scan.bwd_routes[route] += 1
     return dgx, dgh, dh0
 
@@ -337,7 +392,9 @@ def _launch_bwd(acts, gh_n, h_prev, w, n_dir, mask, d_out, dh_t):
 class GRUCellScan(torch.autograd.Function):
     """:func:`gru_cell_scan` on CUDA tensors with a gradient: ``forward``
     is the training forward kernel, ``backward`` the backward kernel plus
-    the ``dW_hh`` matrix product.  ``w`` is (D, H, 3H)."""
+    the ``dW_hh`` matrix product.  ``w`` is (D, H, 3H) float32; the
+    kernels of ``gates_x``'s dtype run (bf16 streams: bf16 products), and
+    ``dgates_x`` comes back in that dtype, ``dW_hh`` in float32."""
 
     @staticmethod
     def forward(ctx, gates_x, w, mask, h0):
@@ -351,9 +408,9 @@ class GRUCellScan(torch.autograd.Function):
         w, mask, acts, gh_n, h_prev = ctx.saved_tensors
         n_dir = w.shape[0]
         d_out = (torch.zeros_like(gh_n) if d_out is None
-                 else d_out.contiguous())
-        dh_t = (torch.zeros_like(gh_n[0]) if dh_t is None
-                else dh_t.contiguous())
+                 else d_out.to(gh_n.dtype).contiguous())
+        dh_t = (torch.zeros_like(gh_n[0], dtype=torch.float32)
+                if dh_t is None else dh_t.float().contiguous())
         dgx, dgh, dh0 = _launch_bwd(
             acts, gh_n, h_prev, w, n_dir, mask, d_out, dh_t)
         return dgx, recurrent_weight_grad(dgh, h_prev, n_dir), None, dh0
@@ -363,26 +420,31 @@ def gru_cell_scan(gates_x, w_hh, mask, h0, compute_dtype=None):
     """Run the GRU cell recurrence over time.
 
     Args:
-        gates_x: (T, rows, 3H) float32, the precomputed ``x @ W_ih + b``
-            (gate order r, z, n).  For a direction-stacked call,
+        gates_x: (T, rows, 3H), the precomputed ``x @ W_ih + b`` (gate
+            order r, z, n), float32 or bfloat16: its dtype is the dtype of
+            the streams (``out`` here; the residuals and ``dgates_x`` of
+            the training path).  For a direction-stacked call,
             rows = D * B and row block d belongs to direction d.
         w_hh: (H, 3H) recurrent weights, or (D, H, 3H) per direction
-            (``h @ w_hh`` layout); there is no hidden bias.
+            (``h @ w_hh`` layout), float32 masters; there is no hidden
+            bias.
         mask: (T, rows) validity mask or None; where it is 0, h keeps its
             value and the output is 0.
-        h0: (rows, H) initial state.
-        compute_dtype: None, or 'bfloat16' (bf16 recurrent products, bf16
-            ``gates_x``): on a CPU tensor the plain version computes it; the
-            kernels' bf16 variants are not ported yet, so a CUDA tensor
-            raises.
+        h0: (rows, H) initial state, float32.
+        compute_dtype: None (float32 products) or 'bfloat16': the
+            recurrent products' operands rounded to bf16, summed in
+            float32 (see the module docstring).
 
     Returns:
-        (out (T, rows, H), h_T).  CPU tensors run the plain version; CUDA
-        tensors launch the kernels (or raise): the lean forward, or, when
-        grad mode is on and an input requires a gradient, the training
-        forward, whose ``backward`` is a kernel too.
-        ``gru_cell_scan.launches`` counts the launches per kernel
-        (``fwd``, ``fwd_train``, ``bwd``), ``gru_cell_scan.routes`` the
+        (out (T, rows, H) in the stream dtype, h_T float32).  CPU tensors
+        run the plain version; CUDA tensors launch the kernels (or raise):
+        the lean forward, or, when grad mode is on and an input requires a
+        gradient, the training forward, whose ``backward`` is a kernel
+        too.  The kernels take float32 streams with ``compute_dtype=None``
+        and bfloat16 streams with ``compute_dtype='bfloat16'``; anything
+        else raises.  ``gru_cell_scan.launches`` counts the launches per
+        kernel (``fwd``, ``fwd_train``, ``bwd``, and ``fwd_bf16``,
+        ``fwd_train_bf16``, ``bwd_bf16``), ``gru_cell_scan.routes`` the
         forwards' launches per route (``resident``, ``cooperative``) and
         ``gru_cell_scan.bwd_routes`` the backward's.
     """
@@ -391,18 +453,16 @@ def gru_cell_scan(gates_x, w_hh, mask, h0, compute_dtype=None):
         return gru_cell_scan_plain(gates_x, w_hh, mask, h0, compute_dtype)
     if gates_x.device.type != 'cuda':
         raise ValueError(f'no kernel for device {gates_x.device}')
-    if product_dtype(compute_dtype) is not None:
-        raise NotImplementedError(
-            f'gru_cell_scan with compute_dtype={compute_dtype!r} on the '
-            'card: the bf16 variants of the GRU kernels '
-            '(padertorch_tpu/ops/pallas/gru.py) are not ported yet')
-    _check(gates_x, w, n_dir, mask, h0, n_gates=3)
+    cd = product_dtype(compute_dtype)
+    _check(gates_x, w, n_dir, mask, h0, n_gates=3,
+           stream=torch.float32 if cd is None else cd)
     if torch.is_grad_enabled() and any(
             x.requires_grad for x in (gates_x, w, h0)):
         return GRUCellScan.apply(gates_x, w, mask, h0)
     return _launch(gates_x, w, n_dir, mask, h0)
 
 
-gru_cell_scan.launches = {'fwd': 0, 'fwd_train': 0, 'bwd': 0}
+gru_cell_scan.launches = {'fwd': 0, 'fwd_train': 0, 'bwd': 0,
+                          'fwd_bf16': 0, 'fwd_train_bf16': 0, 'bwd_bf16': 0}
 gru_cell_scan.routes = {'resident': 0, 'cooperative': 0}
 gru_cell_scan.bwd_routes = {'resident': 0, 'cooperative': 0}

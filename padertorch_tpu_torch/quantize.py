@@ -135,7 +135,7 @@ def quantize_module(module, min_params=256):
     outweigh the saving, and small heads are sensitive to rounding)."""
     return swap_submodules(
         module,
-        lambda item, name: (type(item) is nn.Linear
+        lambda item, name: (type(item) in (nn.Linear, torch.nn.Linear)
                             and item.weight.numel() >= min_params),
         QuantizedLinear.from_linear)
 

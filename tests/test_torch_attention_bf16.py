@@ -228,19 +228,16 @@ MHA_CASES = {
 }
 
 
-def _bf16_pair(heads, kv_heads):
+def _bf16_pair(heads, kv_heads, bias=False):
     """``MultiheadAttention(32, heads)`` with RoPE in both packages, the
     JAX module's trainable arrays cast to bf16 as its policy casts them,
-    the port cast with ``.to`` (RoPE's frequencies stay float32 in both).
-    The projections have no bias: a bf16 ``Linear`` with a bias rounds
-    twice in the JAX package (the product, then the sum with the bias) and
-    once in torch's fused ``addmm``, which moves 28% to 31% of a
-    projection's outputs by a unit before attention begins."""
+    the port cast with ``.to`` (RoPE's frequencies stay float32 in both);
+    the projections with or without a bias."""
     ptrandom.seed(0)
     jax_module = jax_tf.MultiheadAttention(
-        32, heads, num_kv_heads=kv_heads, use_rope=True, bias=False).eval()
+        32, heads, num_kv_heads=kv_heads, use_rope=True, bias=bias).eval()
     port = tf.MultiheadAttention(32, heads, num_kv_heads=kv_heads,
-                                 use_rope=True, bias=False).eval()
+                                 use_rope=True, bias=bias).eval()
     from_jax_state_dict(port, jax_module.state_dict())
     params, static = partition(jax_module)
     return (combine(JaxPrecision('bfloat16').cast_floating(params), static),
@@ -266,6 +263,28 @@ def test_bf16_multihead_attention_matches_jax(name, use_flash):
     got = port(torch.from_numpy(x).bfloat16(), **pkw)
     assert got.dtype == torch.bfloat16
     assert_within_one_ulp(got, want, f'{name} use_flash={use_flash}')
+
+
+@pytest.mark.parametrize('use_flash', [False, True])
+@pytest.mark.parametrize('name', sorted(MHA_CASES))
+def test_bf16_multihead_attention_with_bias_matches_jax(name, use_flash):
+    """As above with a bias on every projection: the port's bf16 ``Linear``
+    rounds the product and then the sum with the bias, as the JAX layer
+    does.  torch's fused ``Linear``, which rounds once, moved 28% to 31% of
+    a projection's outputs by a unit."""
+    heads, kv_heads, kwargs = MHA_CASES[name]
+    jax_module, port = _bf16_pair(heads, kv_heads, bias=True)
+    jax_tf.set_attention_backend(jax_module, use_flash)
+    tf.set_attention_backend(port, use_flash)
+    x = np.random.RandomState(1).randn(2, 30, 32).astype('float32')
+    jkw = {k: jnp.asarray(v) if isinstance(v, np.ndarray) else v
+           for k, v in kwargs.items()}
+    want = _from_jax(jax_module(jnp.asarray(x).astype(jnp.bfloat16), **jkw))
+    pkw = {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
+           for k, v in kwargs.items()}
+    got = port(torch.from_numpy(x).bfloat16(), **pkw)
+    assert got.dtype == torch.bfloat16
+    assert_within_one_ulp(got, want, f'{name} use_flash={use_flash} bias')
 
 
 def test_dense_logits_are_float32_sums_of_the_bf16_operands(monkeypatch):

@@ -8,7 +8,9 @@ phase 26's limits (O within one unit plus 2e-3 of plain in the kernel's
 key tiles, gradients within one unit plus 1e-5 of each one's largest
 entry, at most 1% of either other, the gradients' by more than that),
 with the control (logits, P and dS rounded to bf16) failing them;
-the GRU kernels raise for bf16.  The GRU
+the bf16 GRU kernels to theirs at the LSTM's limits, at ``chip_smoke.py``
+phase 28's shapes and the bf16 resident routes' widest H and one above,
+with the control (float32 products) failing them.  The GRU
 forwards' resident and
 cooperative routes are each held to plain at the shapes that pick them,
 with the route read from ``gru_cell_scan.routes``.  The LSTM training kernels (forward
@@ -38,8 +40,10 @@ import pytest
 import torch
 
 from chip_smoke import (
+    GRU_BF16_SHAPES, gru_bf16_case, gru_bf16_limit_shapes,
     ATTENTION_BF16_FWD_ATOL, ATTENTION_BF16_FWD_SHARE,
-    ATTENTION_BF16_GRAD_SHARE, ATTENTION_BF16_LSE_TOL,
+    ATTENTION_BF16_GRAD_SHARE, ATTENTION_BF16_LSE_TOL, LSTM_BF16_SHARE,
+    LSTM_BF16_STATE_TOL, LSTM_BF16_STREAM_TOL,
     attention_bf16_control_bwd, attention_bf16_control_fwd,
     attention_bf16_fwd_plain, bf16_distance, bf16_grad_distance,
     lse_distance)
@@ -569,8 +573,8 @@ def test_gru_kernels_match_plain(cuda, n_dir, batch, hdim, t_len, mask_kind):
     for g, e in zip(got, want):  # dgates_x, dgh, dh0
         torch.testing.assert_close(g, e, atol=1e-5, rtol=0)
     assert gru_cell_scan.launches == {
-        'fwd': before['fwd'] + 1, 'fwd_train': before['fwd_train'] + 1,
-        'bwd': before['bwd'] + 1}
+        **before, 'fwd': before['fwd'] + 1,
+        'fwd_train': before['fwd_train'] + 1, 'bwd': before['bwd'] + 1}
 
 
 @pytest.mark.parametrize('n_dir,batch,hdim,t_len,mask_kind', GRU_SHAPES)
@@ -1699,7 +1703,8 @@ def test_quantized_decoder_on_the_card_matches_the_cpu(cuda):
     """The decode loop with int8 weights on the kernel route, card against
     CPU (plain version): logits within 1e-4, the same greedy tokens; the
     batcher equals each request alone; a bf16 forward forced onto the
-    fused attention backend raises."""
+    fused attention backend runs the bf16 attention kernel (it raised
+    before the kernel's bf16 variant was ported)."""
     from padertorch_tpu_torch.contrib.mk.modules.transformer import (
         TransformerDecoder, autoregressive_generate)
     from padertorch_tpu_torch.ops.kernels.int8_matmul import int8_matmul
@@ -1745,8 +1750,12 @@ def test_quantized_decoder_on_the_card_matches_the_cpu(cuda):
     for i, rid in enumerate(ids):
         assert outputs[rid] == tokens['card'][i].tolist()
     mha = MultiheadAttention(64, 4, use_flash=True).to(cuda, torch.bfloat16)
-    with pytest.raises(TypeError, match='float32'):
-        mha(torch.zeros((1, 3, 64), device=cuda, dtype=torch.bfloat16))
+    before = dict(flash_attention.launches)
+    with torch.no_grad():
+        out = mha(torch.zeros((1, 3, 64), device=cuda, dtype=torch.bfloat16))
+    assert out.dtype == torch.bfloat16
+    assert flash_attention.launches == {
+        **before, 'fwd_bf16': before['fwd_bf16'] + 1}
 
 
 # the bf16 LSTM kernels (bf16 streams, bf16 products summed in float32)
@@ -1864,17 +1873,144 @@ def test_lstm_kernels_refuse_mixed_streams_and_products(cuda):
                        compute_dtype='bfloat16')
 
 
+@pytest.mark.parametrize('shape', [s[0] for s in GRU_BF16_SHAPES]
+                         + ['widest resident forward', 'one above it',
+                            'widest resident backward', 'one above it too'])
+def test_gru_bf16_kernels_match_plain(cuda, shape):
+    """The three bf16 GRU kernels against their plain bf16 versions at
+    ``chip_smoke.py`` phase 28's shapes and the bf16 resident routes'
+    widest H and one above (read from the planners at the card's limits),
+    on the route the planners pick, read from ``gru_cell_scan.routes`` and
+    ``bwd_routes``; the control with float32 products must fail the
+    limits (``chip_smoke.gru_bf16_case`` raises otherwise)."""
+    limit_shapes, _ = gru_bf16_limit_shapes()
+    shapes = {s[0]: s for s in GRU_BF16_SHAPES}
+    shapes.update(zip(['widest resident forward', 'one above it',
+                       'widest resident backward', 'one above it too'],
+                      limit_shapes))
+    rows = gru_bf16_case(*shapes[shape], timed=False)
+    assert {row['gru_route'] for row in rows.values()} <= {
+        'resident', 'cooperative'}
+
+
+def test_gru_bf16_limit_shapes_take_both_routes(cuda):
+    limit_shapes, widest = gru_bf16_limit_shapes()
+    limits = gru_kernels.device_limits(torch.cuda.current_device())
+    fwd_routes = [gru_kernels.resident_plan(n_dir, batch, hdim, *limits,
+                                            elem=2) is not None
+                  for _, _, batch, hdim, _, n_dir, _ in limit_shapes]
+    bwd_routes = [gru_kernels.resident_bwd_plan(n_dir, batch, hdim, *limits,
+                                                elem=2) is not None
+                  for _, _, batch, hdim, _, n_dir, _ in limit_shapes]
+    assert fwd_routes[:2] == [True, False]
+    assert bwd_routes[2:] == [True, False]
+    assert widest['fwd'] > 138 and widest['bwd'] > 137
+
+
+def test_gru_bf16_function_gives_bf16_dgates_and_float32_dw(cuda):
+    args, (d_out, dh) = _gru_route_inputs(cuda, 2, 7, 40, 30, 'ragged', 0.5)
+    gx, w, mask, h0 = args
+    gx16 = gx.to(torch.bfloat16).requires_grad_()
+    w_, h0_ = w.clone().requires_grad_(), h0.clone().requires_grad_()
+    before = dict(gru_cell_scan.launches)
+    out, h_t = gru_cell_scan(gx16, w_, mask, h0_, compute_dtype='bfloat16')
+    assert out.dtype == torch.bfloat16 and h_t.dtype == torch.float32
+    torch.autograd.backward([out, h_t], [d_out.to(torch.bfloat16), dh])
+    assert gru_cell_scan.launches == {
+        **before, 'fwd_train_bf16': before['fwd_train_bf16'] + 1,
+        'bwd_bf16': before['bwd_bf16'] + 1}
+    assert gx16.grad.dtype == torch.bfloat16
+    assert w_.grad.dtype == h0_.grad.dtype == torch.float32
+    # dW_hh: bf16 GEMMs with float32 sums on the card against the same
+    # operands widened on the CPU; dgx the backward kernel's
+    _, acts, gh_n, h_prev, _ = gru_kernels._launch(
+        gx16.detach(), w, 2, mask, h0, train=True)
+    dgx, dgh, _ = gru_kernels._launch_bwd(
+        acts, gh_n, h_prev, w, 2, mask, d_out.to(torch.bfloat16), dh)
+    assert torch.equal(dgx, gx16.grad)
+    want = gru_kernels.recurrent_weight_grad(dgh.cpu(), h_prev.cpu(), 2)
+    got = w_.grad.cpu()
+    assert float((got - want).abs().max()) <= 1e-5 * float(
+        want.abs().max())
+    # the missing cotangents: d_out bf16 zeros, dh_T float32 zeros
+    gx16.grad = None
+    out, _ = gru_cell_scan(gx16, w_, mask, h0_, compute_dtype='bfloat16')
+    out.float().sum().backward()
+    assert gx16.grad.dtype == torch.bfloat16
+
+
+def test_gru_kernels_refuse_mixed_streams_and_products(cuda):
+    args, _ = _gru_route_inputs(cuda, 2, 3, 8, 4, 'none', 0.5)
+    gx, w, mask, h0 = args
+    before = dict(gru_cell_scan.launches)
+    with pytest.raises(TypeError, match='bfloat16'):
+        gru_cell_scan(gx, w, mask, h0, compute_dtype='bfloat16')
+    with pytest.raises(TypeError, match='float32'):
+        gru_cell_scan(gx.to(torch.bfloat16), w, mask, h0)
+    with pytest.raises(TypeError, match='float32'):
+        gru_cell_scan(gx.to(torch.bfloat16), w.to(torch.bfloat16), mask, h0,
+                      compute_dtype='bfloat16')
+    with pytest.raises(TypeError, match='float32'):
+        gru_cell_scan(gx.to(torch.bfloat16), w, mask, h0.to(torch.bfloat16),
+                      compute_dtype='bfloat16')
+    assert gru_cell_scan.launches == before
+
+
+def test_bgru_dprnn_with_bf16_grus_on_the_card_matches_the_cpu(cuda):
+    """A DPRNN of ``bgru`` chunk RNNs after ``set_rnn_backend(...,
+    compute_dtype='bfloat16')``: the card (the bf16 kernels, both
+    forwards and the backward; no float32 GRU launch) against the CPU
+    (the plain bf16 versions), outputs and input gradients; the scan
+    backend and remat raise on the card."""
+    from padertorch_tpu_torch.modules.recurrent import set_rnn_backend
+    torch.manual_seed(0)
+    model_cpu = set_rnn_backend(
+        DPRNN(16, 32, window_length=10, hop_size=5, num_blocks=2,
+              inter_chunk_type='bgru', intra_chunk_type='bgru'),
+        'pallas', compute_dtype='bfloat16')
+    model = copy.deepcopy(model_cpu).to(cuda)
+    with pytest.raises(NotImplementedError,
+                       match='padertorch_tpu/modules/recurrent.py'):
+        set_rnn_backend(model, 'scan')
+    with pytest.raises(NotImplementedError, match='remat'):
+        set_rnn_backend(model, 'pallas', remat=True)
+    x = torch.randn(3, 60, 16)
+    lens = [60, 41, 23]
+    x_cpu = x.clone().requires_grad_()
+    x_card = x.to(cuda).requires_grad_()
+    want = model_cpu(x_cpu, sequence_lengths=lens)
+    before = dict(gru_cell_scan.launches)
+    got = model(x_card, sequence_lengths=lens)
+    (want ** 2).sum().backward()
+    (got ** 2).sum().backward()
+    launched = {k: gru_cell_scan.launches[k] - before[k] for k in before}
+    assert launched == {**dict.fromkeys(launched, 0), 'fwd_train_bf16': 4,
+                        'bwd_bf16': 4}
+    np.testing.assert_allclose(got.detach().cpu().numpy(),
+                               want.detach().numpy(), atol=5e-2, rtol=0)
+    np.testing.assert_allclose(x_card.grad.cpu().numpy(), x_cpu.grad.numpy(),
+                               atol=0.35, rtol=0.05)
+
+
 def test_gru_and_attention_raise_for_bf16_on_the_card(cuda):
-    """The GRU's bf16 kernels are not ported: the GRU with compute_dtype
-    raises, naming the JAX kernel that waits.  The attention kernels take
-    bf16 since their bf16 variants were ported, and raise for a mix of
-    types; nothing is widened to float32 quietly: the forced kernels and
-    'auto' (the measured table) launch the bf16 forward."""
+    """Since the GRU's bf16 variants were ported, a GRU with compute_dtype
+    launches them on the card (and raises for a mix of stream and product
+    types); the attention kernels take bf16 since their bf16 variants were
+    ported, and raise for a mix of types; nothing is widened to float32
+    quietly: the forced kernels and 'auto' (the measured table) launch the
+    bf16 forward."""
     from padertorch_tpu_torch.modules.recurrent import GRU
     gru = GRU(6, 8, bidirectional=True, compute_dtype='bfloat16').to(cuda)
-    with pytest.raises(NotImplementedError,
-                       match='padertorch_tpu/ops/pallas/gru.py'):
-        gru(torch.zeros((2, 5, 6), device=cuda))
+    before = dict(gru_cell_scan.launches)
+    with torch.no_grad():
+        out, h = gru(torch.zeros((2, 5, 6), device=cuda))
+    assert out.dtype == torch.float32 and h.dtype == torch.float32
+    assert gru_cell_scan.launches == {
+        **before, 'fwd_bf16': before['fwd_bf16'] + 1}
+    gx = torch.zeros((3, 4, 24), device=cuda, dtype=torch.bfloat16)
+    w = torch.zeros((2, 8, 24), device=cuda)
+    with pytest.raises(TypeError, match='float32'):
+        gru_cell_scan(gx, w, None, torch.zeros((4, 8), device=cuda))
     q = torch.zeros((2, 4, 5, 16), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(TypeError, match='float32 or bfloat16'):
         flash_attention(q, q.float(), q)

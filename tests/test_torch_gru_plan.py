@@ -3,13 +3,16 @@ launch: ``resident_plan`` at an H100's limits (132 SMs, 232,448 bytes of
 shared memory a block may opt in to).  The resident kernel's index
 arithmetic (``csrc/gru_cell_scan.cu``, ``gru_fwd_resident_kernel``) is
 replayed here in Python, so that every planned grid is shown to give each
-row of each direction to exactly one block, chunk and cell.
+row of each direction to exactly one block, chunk and cell.  The bf16
+variants' plans (``elem=2``: ``W_hh`` staged as bf16) likewise, for the
+forwards and the backward, whose bf16 resident routes reach H = 195 and
+192; the float32 plans are unchanged.
 """
 import pytest
 
 from padertorch_tpu_torch.ops.kernels.gru import (
-    RESIDENT_MAX_RS, RESIDENT_MAX_THREADS, ResidentPlan, resident_plan,
-    resident_smem)
+    RESIDENT_MAX_RS, RESIDENT_MAX_THREADS, ResidentPlan, resident_bwd_plan,
+    resident_bwd_smem, resident_plan, resident_smem)
 
 N_SM = 132
 MAX_SMEM = 232_448
@@ -141,3 +144,89 @@ def test_a_block_takes_the_fewest_chunks_that_fit(n_dir, rows_per_dir, hdim):
     if chunks > -(-plan.RB // RESIDENT_MAX_RS):
         fewer = -(-plan.RB // (chunks - 1))
         assert resident_smem(hdim, fewer, 1) > MAX_SMEM
+
+
+# the bf16 variants stage W_hh as bf16 (2 bytes an element): the same
+# planners with ``elem=2``; the float32 plans above are the default
+BF16_SHAPES = SHAPES + [(2, 260, 192), (1, 8, 192), (2, 400, 160),
+                        (2, 5, 150), (1, 1, 192)]
+
+
+def largest_bf16_width(max_smem, bwd=False):
+    """The largest H whose W_hh in bf16 (3 H^2 halves) fits beside one
+    row's staging, float32: h (H) or dgh (3H) transposed and padded to 4
+    rows."""
+    stage = 12 if bwd else 4
+    hdim = 1
+    while 2 * 3 * (hdim + 1) ** 2 + 4 * stage * (hdim + 1) <= max_smem:
+        hdim += 1
+    return hdim
+
+
+def test_float32_plans_are_the_default():
+    for n_dir, rows, hdim in SHAPES + list(COOPERATIVE.values()):
+        assert resident_plan(n_dir, rows, hdim, N_SM, MAX_SMEM) == \
+            resident_plan(n_dir, rows, hdim, N_SM, MAX_SMEM, elem=4)
+        assert resident_bwd_plan(n_dir, rows, hdim, N_SM, MAX_SMEM) == \
+            resident_bwd_plan(n_dir, rows, hdim, N_SM, MAX_SMEM, elem=4)
+
+
+@pytest.mark.parametrize('hdim,rs,ks', [(128, 4, 4), (195, 1, 1),
+                                        (64, 8, 2), (37, 3, 1)])
+def test_bf16_bytes_are_the_layout_written_out(hdim, rs, ks):
+    """W_hh at 2 bytes an element, the staging and the K slices' sums at
+    4, as the kernels lay them out."""
+    hp, rsp = -(-hdim // 32) * 32, -(-rs // 4) * 4
+    red = ks * rs * 3 * hp if ks > 1 else 0
+    assert resident_smem(hdim, rs, ks, 2) == \
+        4 * (hdim * rsp + red) + 2 * 3 * hdim * hdim
+    red = ks * rs * hp if ks > 1 else 0
+    assert resident_bwd_smem(hdim, rs, ks, 2) == \
+        4 * (3 * hdim * rsp + red) + 2 * 3 * hdim * hdim
+    assert resident_smem(hdim, rs, ks, 4) == resident_smem(hdim, rs, ks)
+
+
+@pytest.mark.parametrize('plan_fn,smem_fn', [
+    (resident_plan, resident_smem), (resident_bwd_plan, resident_bwd_smem)])
+@pytest.mark.parametrize('n_dir,rows_per_dir,hdim', BF16_SHAPES)
+def test_bf16_planned_grid_fits_and_applies_every_cell_once(
+        plan_fn, smem_fn, n_dir, rows_per_dir, hdim):
+    plan = plan_fn(n_dir, rows_per_dir, hdim, N_SM, MAX_SMEM, elem=2)
+    hp = -(-hdim // 32) * 32
+    assert plan.blocks == n_dir * -(-rows_per_dir // plan.RB) <= N_SM
+    assert plan.smem == smem_fn(hdim, plan.RS, plan.KS, 2) <= MAX_SMEM
+    assert 1 <= plan.RS <= min(plan.RB, RESIDENT_MAX_RS)
+    assert plan.threads == (1 if plan.KS == 1 else 4) * hp
+    assert plan.threads <= RESIDENT_MAX_THREADS
+    assert replay(n_dir, rows_per_dir, hdim, plan) == {
+        (d, r): 1 for d in range(n_dir) for r in range(rows_per_dir)}
+
+
+@pytest.mark.parametrize('max_smem', [MAX_SMEM, 101_376, 166_912])
+def test_bf16_route_switch_sits_at_the_largest_width_that_fits(max_smem):
+    """The bf16 resident routes reach H = 195 (forwards) and 192
+    (backward) on an H100, where float32 stops at 138 and 137; the
+    classifier defaults' H = 256 stays cooperative."""
+    for plan_fn, bwd in ((resident_plan, False), (resident_bwd_plan, True)):
+        widest = largest_bf16_width(max_smem, bwd)
+        for n_dir, rows in ((1, 1), (2, 260), (2, 400)):
+            assert plan_fn(n_dir, rows, widest, N_SM, max_smem,
+                           elem=2) is not None
+            assert plan_fn(n_dir, rows, widest + 1, N_SM, max_smem,
+                           elem=2) is None
+        if max_smem == MAX_SMEM:
+            assert widest == (192 if bwd else 195)
+    for plan_fn in (resident_plan, resident_bwd_plan):
+        assert plan_fn(1, 16, 256, N_SM, MAX_SMEM, elem=2) is None
+        assert plan_fn(1, 8, 64, N_SM, MAX_SMEM, elem=2) is not None
+
+
+def test_bf16_dprnn_shapes_take_one_chunk_a_block():
+    """In bf16 the inter-chunk rows (800: 116 blocks of 7) fit in one
+    chunk of seven beside W_hh in both kernels, as the float32 forward's
+    do; four K slices."""
+    for plan_fn in (resident_plan, resident_bwd_plan):
+        intra = plan_fn(2, 260, 128, N_SM, MAX_SMEM, elem=2)
+        inter = plan_fn(2, 400, 128, N_SM, MAX_SMEM, elem=2)
+        assert (intra.RB, intra.RS, intra.KS, intra.blocks) == (4, 4, 4, 130)
+        assert (inter.RB, inter.RS, inter.KS, inter.blocks) == (7, 7, 4, 116)

@@ -79,6 +79,11 @@ with tempfile.TemporaryDirectory() as tmp:
     tas_trained = (t.iteration, type(
         t.model.separator.dprnn_blocks[0].intra_chunk_rnn.rnn).__name__)
     _, tas_metrics = tas_evaluate.evaluate_example(t.model.eval(), example)
+    # and served with bf16 GRUs, set as the JAX package's set_rnn_backend
+    # sets them
+    from padertorch_tpu_torch.modules.recurrent import set_rnn_backend
+    set_rnn_backend(t.model, 'pallas', compute_dtype='bfloat16')
+    _, tas_bf16_metrics = tas_evaluate.evaluate_example(t.model, example)
 # and for the SepFormer-TasNet, the fused attention backend forced
 with tempfile.TemporaryDirectory() as tmp:
     config = tas_train.get_trainer_config(tmp, variant='sepformer', updates={
@@ -102,6 +107,8 @@ print(json.dumps({
     'sep_trained': sep_trained,
     'sep_train_loss': sep_scalars['training/loss'],
     'tas_finite': bool(np.isfinite(tas_metrics['output_si_sdr']).all()),
+    'tas_bf16_finite': bool(
+        np.isfinite(tas_bf16_metrics['output_si_sdr']).all()),
     'tas_trained': tas_trained,
     'tas_train_loss': tas_scalars['training/loss'],
     'finite': bool(np.isfinite(metrics['output_si_sdr']).all()),
@@ -125,13 +132,14 @@ def test_port_imports_no_jax_and_launches_nothing_on_cpu():
     assert 'padertorch_tpu_torch.models.tasnet' in out['modules']
     assert 'padertorch_tpu_torch.modules.dual_path_transformer' in \
         out['modules']
-    assert out['launches'] == [0] * 16
+    assert 'padertorch_tpu_torch.modules.recurrent' in out['modules']
+    assert out['launches'] == [0] * 19
     assert out['finite']
     assert out['trained'] == [
         1, ['ckpt_0.ptt', 'ckpt_1.ptt', 'ckpt_latest.ptt']]
     (step, loss), = out['train_loss']
     assert step == 1 and np.isfinite(loss)
-    assert out['tas_finite']
+    assert out['tas_finite'] and out['tas_bf16_finite']
     assert out['tas_trained'] == [1, 'GRU']
     (step, loss), = out['tas_train_loss']
     assert step == 1 and np.isfinite(loss)
@@ -241,7 +249,7 @@ def test_vocoder_and_classifier_paths_import_no_jax_and_launch_nothing():
                  'ops.losses.classification', 'quantize', 'serve', 'module',
                  'ops.kernels.int8_matmul', 'contrib.mk.modules.transformer'):
         assert f'padertorch_tpu_torch.{name}' in out['modules']
-    assert out['launches'] == [0] * 6
+    assert out['launches'] == [0] * 9
     generated, served = out['decoded']
     assert served == generated and len(served) == 4
     assert out['wavenet'] == [1, [1000, 1000], [True, True]]

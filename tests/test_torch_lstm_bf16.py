@@ -18,8 +18,8 @@ splits as the JAX package's own tests split it:
   (``bf16(h) @ bf16(W_hh)``, float32 sums).  Limit 1e-5 (what differs is
   the order of float32 sums); the port with float32 products lies further
   than 2e-4 from it, so the limit tells bf16 products from float32.
-- **module**: ``LSTM``, ``GRU`` (its plain version; the card raises) and
-  ``PermutationInvariantTrainingModel`` with
+- **module**: ``LSTM``, ``GRU`` (``test_torch_gru_bf16.py`` holds its
+  kernels' contract) and ``PermutationInvariantTrainingModel`` with
   ``compute_dtype='bfloat16'``, bidirectional, ragged lengths, against the
   JAX modules' scan backend with the same weights: outputs within 5e-2,
   input gradients within atol 0.35, rtol 0.05 (the JAX package's limits
@@ -271,8 +271,8 @@ def _module_pair(bidirectional=True, gru=False):
 
 @pytest.mark.parametrize('gru', [False, True], ids=['LSTM', 'GRU'])
 def test_module_matches_the_jax_scan_backend(gru):
-    """The GRU's plain version computes the contract on the CPU (its bf16
-    kernels are not ported; on the card it raises)."""
+    """Both modules' plain versions compute the contract on the CPU (the
+    card runs their bf16 kernels)."""
     jax_rnn, port = _module_pair(gru=gru)
     x = np.random.RandomState(1).randn(3, T, 6).astype('float32')
     lens = jnp.asarray(LENS)

@@ -233,7 +233,7 @@ def test_ffn_gelu_is_the_tanh_approximation():
 
 
 @pytest.mark.parametrize('norm,kind', [
-    ('layer_norm', torch.nn.LayerNorm), ('rms', tf.nn.RMSNorm),
+    ('layer_norm', tf.nn.LayerNorm), ('rms', tf.nn.RMSNorm),
     ('dyt', tf.DynamicTanh)])
 def test_make_norm(norm, kind):
     made = tf._make_norm(norm, 8)
