@@ -101,13 +101,15 @@ Phases, one line each:
     dispatch table: one ``MultiheadAttention``
     forward and forward + backward on the fused and on the dense backend
     at (8, T, 12 x 64) for T = 512 ... 4096, full, causal and windowed,
-    and at the SepFormer's two shapes, in float32 and in bf16 (the module
-    cast with ``.to``); the table is printed beside what
-    ``should_use_flash`` picks; ``use_flash='auto'`` in bf16 launches the
-    bf16 forward and equals the forced fused backend bit for bit.  Last,
-    ``use_flash='auto'`` at heads of 256,
-    which the kernels do not take: the dense path, equal to the dense
-    backend bit for bit, no kernel launched; ``use_flash=True`` raises.
+    at the SepFormer's two shapes, and at heads of 256 (T = 1024 and 2048,
+    full and causal) and 192, in float32 and in bf16 (the module cast with
+    ``.to``); the table is printed beside what ``should_use_flash`` picks
+    (``AUTO_MAX_HEAD`` follows it); ``use_flash='auto'`` in bf16 launches
+    the bf16 forward and equals the forced fused backend bit for bit.
+    Last, ``use_flash='auto'`` at heads of 256: the backend
+    ``should_use_flash`` picks, bit for bit; the kernels forced agree with
+    the dense path on the valid rows; heads of 320 forced on the kernels
+    raise.
 13. SepFormer-TasNet serving: the tasnet recipe's ``sepformer`` variant at
     full width (256 filters of length 20, 128 features, 4 blocks of 2 + 2
     transformer layers, 8 heads, K=100, hop 50) trained for 4 iterations
@@ -233,7 +235,8 @@ Phases, one line each:
     vs their plain bf16 versions at the SepFormer's two shapes, (8, 12,
     2048, 64) full, bench.py's three (B=8, H=12, D=64: T=4096 causal,
     T=1024 full, T=4096 window (255, 256)), grouped-query (4, 8 over 2,
-    1024, 64) causal and ragged, D=32 and 128, and a fully masked row: O
+    1024, 64) causal and ragged, (4, 8, 2048, 128) and (4, 8, 2048, 256),
+    D=32 and 128, and a fully masked row: O
     within one bf16 unit in the last place plus 2e-3 and at most 1% of its
     elements other than plain's (plain taking the keys in the kernel's
     tiles of 64, ``key_tile``: P rounded to bf16 against the running
@@ -246,7 +249,10 @@ Phases, one line each:
     shape beside the float32 kernels at the same shape, plain,
     ``F.scaled_dot_product_attention`` on the same bf16 tensors and the
     bound (bytes over 3.35 TB/s, or the bf16 products at 989 TFLOP/s plus
-    the backward's 2xTF32 products at 495 / 2); then the counterpart of
+    the backward's products of P and dS at 2xTF32's 495 / 2, the
+    definition kept from the 2xTF32 design); the D = 128 and 256 shapes at
+    (4, 8, 2048, D) timed
+    too; then the counterpart of
     bench.py's ``flash_attention_causal_train_ms``: forward + backward at
     (8, 12, 4096, 64) causal bf16 beside the port's dense bf16 path and
     the library.
@@ -284,6 +290,30 @@ Phases, one line each:
     batches and the class defaults (256 units, the cooperative route) on
     16 x 64000, each 20 steps beside float32 from the same start, launch
     counts, a timed step, and requests through ``evaluate_batch``.
+31. the geometries of the reference's kernels that the card refused
+    before, each against its plain version: LSTM layers of 2 x 1024
+    (float32) and 2 x 1536 (bf16), GRU layers of 2 x 1024 and 2 x 2048
+    (float32) and 2 x 2048 (bf16), whose W_hh no co-resident grid holds
+    (the streamed route; the card's planner and its mirror
+    ``lstm.scan_grid`` agree), timed beside plain, a cuDNN layer and the
+    bound (W_hh read once a step in the product's type); the streamed
+    LSTM forward with and without an L2 access-policy window over its
+    packed weights; the float32 LSTM kernels' digests on
+    fixed inputs at phase 3's and 9's shapes (``lstm_f32_digests`` takes
+    a checkout's root); ``wavenet_sample`` at 30 layers to dilation 512
+    (a 785,664-byte ring) on 1, 8 and 132 rows, 24 layers to 128 at R =
+    128, R = 60 / S = 250 / O = 254, 80 layers and rings in device memory
+    (R = 512), and at weights of 0.2 whatever the width on rings in
+    device memory: 30 layers against a float64 step loop beside plain
+    float32, 4 layers to dilation 1024 against plain; ``fused_logmel`` at
+    1600/800 and 1024/1024 (the sliced
+    route), and the sliced route forced at 512/128 equal to the span
+    route bit for bit; attention at heads of 192 and 256, float32 and
+    bf16, forward and backward.
+32. the bf16 attention backward (``wgmma`` from TMA tiles, P and dS in
+    three bf16 pieces) at phase 26's timed shapes: its time, its share of
+    its bound (every product at the bf16 rate) and of the 2xTF32 design's,
+    SDPA's and the float32 kernels' times, the control's share.
 
 The line before the last is a JSON object with each kernel's launches on
 the main paths, the shape its numbers were taken at (``shape``; the other
@@ -294,7 +324,10 @@ least time the card could take (``bound_ms``: the larger of bytes over
 3.35 TB/s and float32 operations over 67 TFLOP/s, or for the bf16
 products of int8_matmul and the bf16 LSTM and GRU kernels 989 TFLOP/s, for the
 attention kernels' 3xTF32 products 495 / 3 TFLOP/s, for their bf16
-variants 989 for the bf16 products and 495 / 2 for the 2xTF32 ones, for
+variants 989 for the bf16 products, and for the bf16 backward's three
+products of P and dS 989 taken three times, as the kernel computes them
+in three bf16 pieces (its row also carries ``bound_2xtf32_ms``, those
+three at 495 / 2, the definition of PR 14's 2xTF32 design), for
 fused_logmel's
 DFT products 495 / 3 and its mel product 67, NVIDIA's H100 SXM data
 sheet), and the route a kernel with several
@@ -313,6 +346,7 @@ table of three training steps per shape with their busy time and casts
 """
 import contextlib
 import copy
+import ctypes
 import json
 import subprocess
 import sys
@@ -364,7 +398,7 @@ from padertorch_tpu_torch.ops.kernels.lstm import (
     lstm_cell_scan_bwd_plain, recurrent_weight_grad)
 from padertorch_tpu_torch.utils.nested import nested_merge
 from padertorch_tpu_torch.ops.kernels.logmel import (
-    LogMelFrontend, fused_logmel, logmel_plan)
+    LogMelFrontend, fused_logmel, logmel_plan, logmel_smem)
 from padertorch_tpu_torch.ops.kernels import masked_istft as istft_kernels
 from padertorch_tpu_torch.ops.kernels.masked_istft import (
     masked_istft, masked_istft_plain)
@@ -1012,8 +1046,8 @@ def check_gru_routes(label, route):
     n = sum(gru_cell_scan.launches[k] for k in (
         'fwd', 'fwd_train', 'fwd_bf16', 'fwd_train_bf16'))
     n_bwd = gru_cell_scan.launches['bwd'] + gru_cell_scan.launches['bwd_bf16']
-    want = {'resident': 0, 'cooperative': 0, route: n}
-    want_bwd = {'resident': 0, 'cooperative': 0, route: n_bwd}
+    want = {'resident': 0, 'cooperative': 0, 'streamed': 0, route: n}
+    want_bwd = {'resident': 0, 'cooperative': 0, 'streamed': 0, route: n_bwd}
     if (n == 0 or gru_cell_scan.routes != want
             or gru_cell_scan.bwd_routes != want_bwd):
         fail(f'{label}: {n} GRU forwards, by route {gru_cell_scan.routes}, '
@@ -1025,7 +1059,7 @@ def check_gru_routes(label, route):
 
 # the GRU backward's launches on the main paths by route (the kernels
 # line's launches_by_route): added up where the main paths' counts are read
-GRU_BWD_MAIN_ROUTES = {'resident': 0, 'cooperative': 0}
+GRU_BWD_MAIN_ROUTES = {'resident': 0, 'cooperative': 0, 'streamed': 0}
 
 
 def add_main_bwd_routes():
@@ -1508,7 +1542,7 @@ def phase_gru_kernels():
         print(f'phase 8 gru {label}: route {route}{shown}; launches by '
               f'route {routed}; a second lean run gives the same bits: '
               f'{same_bits}')
-        if routed != {'resident': 0, 'cooperative': 0, route: 3}:
+        if routed != {'resident': 0, 'cooperative': 0, 'streamed': 0, route: 3}:
             fail(f'the gru forwards at {label} did not all take the '
                  f'{route} route: {routed}')
         if not same_bits:
@@ -1540,7 +1574,7 @@ def phase_gru_kernels():
         print(f'phase 8 gru bwd {label}: route {route_bwd}{shown}; launches '
               f'by route {routed_bwd}; a second run gives the same bits: '
               f'{same_bwd}')
-        if routed_bwd != {'resident': 0, 'cooperative': 0, route_bwd: 2}:
+        if routed_bwd != {'resident': 0, 'cooperative': 0, 'streamed': 0, route_bwd: 2}:
             fail(f'the gru backward at {label} did not take the '
                  f'{route_bwd} route: {routed_bwd}')
         if not same_bwd:
@@ -1733,6 +1767,8 @@ ATTENTION_CASES = [
      {'causal': True}, False),
     ('D=128 gqa (1, 8 over 2, 4096, 128)', 1, 8, 2, 4096, 4096, 128, {},
      False),
+    # the widest head (the output's columns split over two blocks)
+    ('D=256 (4, 8, 2048, 256) full', 4, 8, 8, 2048, 2048, 256, {}, True),
 ]
 
 
@@ -1947,6 +1983,11 @@ def attention_dispatch_table(dtypes=(torch.float32, torch.bfloat16)):
                             {'attn_window': (256, 256)})]
     shapes += [(264, 100, 128, 8, {}, None),
                (400, 66, 128, 8, {}, INTER_LENS)]
+    # heads of 256 (and 192, padded to 256 by the wrapper): 'auto' takes
+    # the kernels there only where they win (AUTO_MAX_HEAD)
+    shapes += [(8, t, 1024, 4, masks, None) for t in (1024, 2048)
+               for masks in ({}, {'causal': True})]
+    shapes += [(8, 1024, 768, 4, {}, None)]
     for dtype in dtypes:
         for batch, t_len, d_model, heads, masks, lens in shapes:
             torch.manual_seed(0)
@@ -2023,37 +2064,46 @@ def phase_attention_kernels():
 
 
 def attention_auto_wide_heads():
-    """``use_flash='auto'`` at a head size of 256, which the kernels do not
-    take: the dense path, equal to the dense backend, no kernel launched;
-    forcing the kernels raises with their stated message."""
+    """``use_flash='auto'`` at a head size of 256: the backend
+    ``should_use_flash`` picks from the table (AUTO_MAX_HEAD), bit for bit
+    that backend; the fused backend forced equals the dense one on the
+    valid rows within 1e-4; a head of 320 forced on the kernels raises
+    their stated message."""
     torch.manual_seed(0)
     mha = MultiheadAttention(512, 2, use_rope=True).cuda()
     x = torch.randn((4, 300, 512), device='cuda')
     lens = torch.tensor([300, 211, 77, 1], device='cuda')
+    pick = should_use_flash(x.device, x.dtype, head_size=256)
     reset_launches()
     with torch.no_grad():
         auto = mha(x, key_padding_lens=lens, causal=True)
         launched = dict(flash_attention.launches)
+        fused = set_attention_backend(mha, True)(
+            x, key_padding_lens=lens, causal=True)
         dense = set_attention_backend(mha, False)(
             x, key_padding_lens=lens, causal=True)
-        set_attention_backend(mha, True)
+        wide = MultiheadAttention(640, 2, use_rope=True).cuda()
+        set_attention_backend(wide, True)
         try:
-            mha(x, key_padding_lens=lens, causal=True)
+            wide(torch.randn((1, 8, 640), device='cuda'))
             raised = None
         except ValueError as e:
             raised = str(e)
     torch.cuda.synchronize()
-    same = torch.equal(auto, dense)
+    same = torch.equal(auto, fused if pick else dense)
+    valid = torch.arange(300, device='cuda')[None, :] < lens[:, None]
+    diff = float((fused - dense)[valid].abs().max())
     print(f'phase 12 use_flash=\'auto\' at (4, 300, 2 x 256) causal, '
-          f'ragged: should_use_flash '
-          f'{should_use_flash(x.device, x.dtype, head_size=256)}, kernel '
-          f'launches {launched}, equal to the dense backend bit for bit '
-          f'{same}; use_flash=True raises: {raised}')
-    if any(launched.values()) or not same:
-        fail('use_flash=\'auto\' at heads of 256 did not take the dense '
-             'path')
-    if raised is None or 'at most 128' not in raised:
-        fail('use_flash=True at heads of 256 did not raise its stated '
+          f'ragged: should_use_flash {pick}, kernel launches '
+          f'{ {k: v for k, v in launched.items() if v} }, equal to that '
+          f'backend bit for bit {same}; fused against dense on the valid '
+          f'rows {diff:.3e}; heads of 320 forced on the kernels raise: '
+          f'{raised}')
+    if not same or any(launched.values()) != pick or not diff <= 1e-4:
+        fail('use_flash=\'auto\' at heads of 256 did not take the backend '
+             'should_use_flash picks, or the backends disagree')
+    if raised is None or 'at most 256' not in raised:
+        fail('use_flash=True at heads of 320 did not raise its stated '
              'message')
 
 
@@ -3987,6 +4037,8 @@ ATTENTION_BF16_CASES = [
      {'window': (255, 256)}, True),
     ('gqa (4, 8 over 2, 1024, 64) causal, ragged', 4, 8, 2, 1024, 1024, 64,
      {'causal': True, 'key_padding_lens': [1024, 777, 300, 1]}, True),
+    ('D=128 (4, 8, 2048, 128) full', 4, 8, 8, 2048, 2048, 128, {}, True),
+    ('D=256 (4, 8, 2048, 256) full', 4, 8, 8, 2048, 2048, 256, {}, True),
     ('D=32 (4, 8, 1000, 32) causal', 4, 8, 8, 1000, 1000, 32,
      {'causal': True}, False),
     ('D=128 (2, 8, 2048, 128) full', 2, 8, 8, 2048, 2048, 128, {}, False),
@@ -4185,16 +4237,21 @@ def attention_bf16_case(label, b, h, h_kv, tq, tk, d, masks, timed):
         q, k, v, d_o, masks)
     # the work these inputs need: per visible (query, key) pair two bf16
     # products of D in the forward; in the backward two bf16 (S, dP) and
-    # three 2xTF32 (dV, dK, dQ)
+    # dV, dK, dQ on float32 P and dS, which the kernel takes as three bf16
+    # products each (its bound, every product at the bf16 rate); beside it
+    # the bound of the 2xTF32 design of PR 14's kernel, kept so the two
+    # can be compared (``bound_2xtf32_ms``)
     visible = visible_mask(tq, tk, lens, masks.get('causal', False),
                            masks.get('window'), q.device)
     pairs = float(visible.sum()) * h * (b // visible.shape[0])
+    bwd_bytes = nbytes(q, k, v, lens, o, lse, d_o, *grads)
     limits = {
         'fwd': bound_mixed(nbytes(q, k, v, lens, o),
                            [(4 * pairs * d, PEAK_BF16_FLOPS)]),
-        'bwd': bound_mixed(nbytes(q, k, v, lens, o, lse, d_o, *grads),
-                           [(4 * pairs * d, PEAK_BF16_FLOPS),
-                            (6 * pairs * d, PEAK_2XTF32_FLOPS)])}
+        'bwd': bound_mixed(bwd_bytes, [(22 * pairs * d, PEAK_BF16_FLOPS)])}
+    limits['bwd']['bound_2xtf32_ms'] = bound_mixed(
+        bwd_bytes, [(4 * pairs * d, PEAK_BF16_FLOPS),
+                    (6 * pairs * d, PEAK_2XTF32_FLOPS)])['bound_ms']
     for name in ('fwd', 'bwd'):
         print(f'phase 26 attention bf16 {name} {label}: kernel '
               f'{times[name]:.3f} ms (the float32 kernel'
@@ -4264,6 +4321,30 @@ def phase_attention_bf16():
     headline = attention_bf16_train_headline()
     print(f'phase 26 took {time.perf_counter() - start:.1f} s')
     return results, headline
+
+
+def phase_attention_bf16_bwd(results):
+    """Phase 32: the bf16 backward (``csrc/flash_attention_bwd_bf16.cu``,
+    `wgmma` from TMA tiles, P and dS in three bf16 pieces) at phase 26's
+    timed shapes: its time (``delta`` included), its share of its bound
+    (every product at the bf16 rate, dV, dK and dQ as three bf16 products
+    each, as the kernel computes them) and of the 2xTF32 design's (S and
+    dP at the bf16 rate, dV, dK, dQ at 2xTF32's), SDPA's backward in
+    bf16, the control's share (P and dS
+    rounded to bf16) and two runs' bits, which phase 26 checked."""
+    for label, rows in results.items():
+        row = rows['bwd']
+        print(f'phase 32 bf16 attention backward {label}: '
+              f'{row["ms"]:.3f} ms, {row["bound_ms"] / row["ms"]:.1%} of '
+              f'the bound {row["bound_ms"]:.4f} ms (every product at the '
+              f'bf16 rate, dV, dK, dQ three pieces each), '
+              f'{row["bound_2xtf32_ms"] / row["ms"]:.1%} of the 2xTF32 '
+              f'design\'s bound {row["bound_2xtf32_ms"]:.4f} ms (S, dP '
+              f'bf16; dV, dK, dQ 2xTF32); '
+              f'scaled_dot_product_attention bf16 {row["library_ms"]:.3f} '
+              f'ms ({row["ms"] / row["library_ms"]:.2f} times); control '
+              f'(P, dS rounded to bf16) {row["control_share"]:.3%} differ; '
+              f'the float32 kernels {row["f32_kernel_ms"]:.3f} ms')
 
 
 def phase_sepformer_bf16(profile=False):
@@ -4420,9 +4501,9 @@ def gru_bf16_case(label, t_len, batch, hdim, kind, n_dir, in_size, timed):
     launched = dict(gru_cell_scan.launches)
     routed = {'fwd': dict(gru_cell_scan.routes),
               'bwd': dict(gru_cell_scan.bwd_routes)}
-    want_routed = {'fwd': {'resident': 0, 'cooperative': 0,
+    want_routed = {'fwd': {'resident': 0, 'cooperative': 0, 'streamed': 0,
                            route['fwd']: 3},
-                   'bwd': {'resident': 0, 'cooperative': 0,
+                   'bwd': {'resident': 0, 'cooperative': 0, 'streamed': 0,
                            route['bwd']: 1}}
     if launched != with_zeros(launched, {'fwd_bf16': 2, 'fwd_train_bf16': 1,
                                          'bwd_bf16': 1}) \
@@ -4801,6 +4882,583 @@ def phase_speaker_bf16():
     return {name: main[name] + full[name] for name in main}
 
 
+# ---------------------------------------------------------------------------
+# Phase 31: the geometries the reference's kernels take that the card
+# refused before (each against its plain version)
+
+# (label, kind, T, rows per direction, H, bf16, the layer's input width
+# for the cuDNN yardstick): layers whose W_hh no co-resident grid holds on
+# an H100, which take the streamed route
+WIDE_RECURRENCES = [
+    ('lstm 2 x 1024 f32', 'lstm', 50, 16, 1024, False, 1024),
+    ('lstm 2 x 1536 bf16', 'lstm', 50, 16, 1536, True, 1536),
+    ('gru 2 x 1024 f32', 'gru', 50, 16, 1024, False, 1024),
+    ('gru 2 x 2048 f32', 'gru', 50, 16, 2048, False, 2048),
+    ('gru 2 x 2048 bf16', 'gru', 50, 16, 2048, True, 2048),
+]
+
+
+def wide_recurrence_case(label, kind, t_len, batch, hdim, bf16, in_size,
+                         timed=True):
+    """The three kernels of a wide layer against their plain versions
+    (float32: 1e-5; bf16: phase 23's limits), on the route the card's
+    planner takes (the forwards' must be ``streamed``; ``lstm.scan_grid``,
+    the planner's mirror, must name the same routes); with ``timed`` their
+    times beside plain, cuDNN's layer and the bound (W_hh's bytes read once
+    a step).  Returns {kernel: row}."""
+    gates = 4 if kind == 'lstm' else 3
+    args, cot = recurrence_inputs(t_len, batch, hdim, 'ragged', gates=gates)
+    stream = torch.bfloat16 if bf16 else torch.float32
+    cd = 'bfloat16' if bf16 else None
+    args = [args[0].to(stream), *args[1:]]
+    cot = [cot[0].to(stream), *cot[1:]]
+    gx, w, mask = args[:3]
+    device = torch.cuda.current_device()
+    limits = gru_kernels.device_limits(device)
+    for part in ('fwd', 'bwd'):
+        card = lstm_kernels.device_grid(f'{kind}_{part}', 2, batch, hdim,
+                                        bf16, device)
+        mirror = lstm_kernels.scan_grid(f'{kind}_{part}', 2, batch, hdim,
+                                        *limits, elem=2 if bf16 else 4)
+        print(f'phase 31 {label} {part} grid: card {card}; mirror '
+              f'{None if mirror is None else mirror._asdict()}')
+        if card['blocks'] == 0 or mirror is None \
+                or bool(card['streamed']) != mirror.streamed \
+                or (part == 'fwd' and not mirror.streamed):
+            fail(f'{label}: the {part} kernels\' route is not the one the '
+                 f'mirror names, or the forwards do not stream: {card}, '
+                 f'{mirror}')
+    if kind == 'lstm':
+        mod, wrapper, layer = lstm_kernels, lstm_cell_scan, torch.nn.LSTM
+        plain_train = lstm_cell_scan_train_plain(*args, cd)
+        _, c_seq, acts = plain_train[:3]
+        bwd_in = (acts, c_seq, w, mask, *cot)
+        kernel = {'fwd': lambda: wrapper(*args, compute_dtype=cd),
+                  'fwd_train': lambda: mod._launch(*args[:2], 2, *args[2:],
+                                                   train=True),
+                  'bwd': lambda: mod._launch_bwd(acts, c_seq, w, 2, mask,
+                                                 *cot)}
+        plain = {'fwd': lambda: lstm_cell_scan_plain(*args, cd),
+                 'fwd_train': lambda: lstm_cell_scan_train_plain(*args, cd),
+                 'bwd': lambda: lstm_cell_scan_bwd_plain(*bwd_in, cd)}
+        streams = {'fwd': 1, 'fwd_train': 3, 'bwd': 1}
+    else:
+        mod, wrapper, layer = gru_kernels, gru_cell_scan, torch.nn.GRU
+        plain_train = gru_cell_scan_train_plain(*args, cd)
+        residuals = plain_train[1:4]
+        bwd_in = (*residuals, w, mask, *cot)
+        kernel = {'fwd': lambda: wrapper(*args, compute_dtype=cd),
+                  'fwd_train': lambda: mod._launch(*args[:2], 2, *args[2:],
+                                                   train=True),
+                  'bwd': lambda: mod._launch_bwd(*residuals, w, 2, mask,
+                                                 *cot)}
+        plain = {'fwd': lambda: gru_cell_scan_plain(*args, cd),
+                 'fwd_train': lambda: gru_cell_scan_train_plain(*args, cd),
+                 'bwd': lambda: gru_cell_scan_bwd_plain(*bwd_in, cd)}
+        streams = {'fwd': 1, 'fwd_train': 4, 'bwd': 2}
+    with torch.no_grad():
+        routes = dict(wrapper.routes)
+        got = {name: fn() for name, fn in kernel.items()}
+        want = {name: fn() for name, fn in plain.items()}
+    torch.cuda.synchronize()
+    launched = {k: v - routes[k] for k, v in wrapper.routes.items()}
+    library = (cudnn_layer_ms(layer, t_len, batch, in_size, hdim,
+                              dtype=stream) if timed else {})
+    valid = t_len * 2 * batch if mask is None else float(mask.sum())
+    rows = {}
+    for name in ('fwd', 'fwd_train', 'bwd'):
+        n = streams[name]
+        if bf16:
+            tol, stream_tol = (LSTM_BF16_STATE_TOL[name],
+                               LSTM_BF16_STREAM_TOL[name])
+            excess, share = bf16_distance(got[name][:n], want[name][:n],
+                                          stream_tol)
+            state_err = max_err(got[name][n:], want[name][n:])
+            ok = (excess <= 0 and share <= LSTM_BF16_SHARE
+                  and state_err <= tol)
+            shown = (f'streams {excess + stream_tol:.3e} beyond one bf16 '
+                     f'ulp (tol {stream_tol}), {share:.3%} differ (tol '
+                     f'{LSTM_BF16_SHARE:.0%}); states {state_err:.3e} (tol '
+                     f'{tol})')
+        else:
+            err = max_err(got[name], want[name])
+            ok = err <= LSTM_TOL
+            shown = f'max |kernel - plain| {err:.3e} (tol {LSTM_TOL})'
+        row = {'max_abs_err': max_err(got[name], want[name]), 'shape': label}
+        if timed:
+            ms = cuda_ms(kernel[name], iters=5)
+            plain_ms = cuda_ms(plain[name], iters=1)
+            # the streamed route reads W_hh once a step, in the product's
+            # type (bf16: rounded once a launch)
+            limit = bound(w.numel() * (2 if bf16 else 4) * t_len
+                          + nbytes(*args, *got[name]),
+                          valid * 2 * hdim * gates * hdim)
+            row.update(ms=ms, plain_ms=plain_ms, **limit,
+                       library_ms=library[name])
+            shown += (f'; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, cuDNN '
+                      f'layer {library[name]:.3f} ms, bound '
+                      f'{limit["bound_ms"]:.4f} ms by {limit["bound_by"]}')
+        print(f'phase 31 {label} {name}: {shown}')
+        if not ok:
+            fail(f'{label}: the {name} kernel disagrees with plain')
+        rows[name] = row
+    if launched.get('streamed', 0) == 0:
+        fail(f'{label}: no launch took the streamed route: {launched}')
+    return rows
+
+
+# the streamed forwards measured with and without an L2 access-policy
+# window over their packed weights: (label, kind, T, batch, H, bf16)
+L2_WINDOW_CASES = [('lstm 2 x 1024 f32', 'lstm', 50, 16, 1024, False),
+                   ('lstm 2 x 1536 bf16', 'lstm', 50, 16, 1536, True)]
+
+
+def l2_window_case(label, kind, t_len, batch, hdim, bf16):
+    """The streamed LSTM forward on a stream of its own, timed without an
+    L2 access-policy window, with one over its packed weights (the
+    persisting L2 at its largest, ``scan_l2_window``), and without again;
+    the window's runs give the bits of the others.  Returns the times."""
+    args, _ = recurrence_inputs(t_len, batch, hdim, 'ragged', gates=4)
+    stream_dtype = torch.bfloat16 if bf16 else torch.float32
+    gx, w, mask, h0, c0 = [args[0].to(stream_dtype), *args[1:]]
+    wpack = torch.empty(lstm_kernels.packed_bytes('lstm_fwd', 2, hdim, bf16),
+                        dtype=torch.uint8, device='cuda')
+    lib = _build.load_library()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    info = (ctypes.c_int * 2)()
+    with torch.cuda.stream(side):
+        stream, device = _build.stream_and_device(gx)
+
+        def run():
+            return lstm_kernels._launch(gx, w, 2, mask, h0, c0, wpack=wpack)
+
+        def window(n_bytes):
+            err = lib.scan_l2_window(wpack.data_ptr() if n_bytes else None,
+                                     n_bytes, device, stream,
+                                     ctypes.addressof(info))
+            _build.check(lib, err, 'scan_l2_window')
+
+        ms = {'without': cuda_ms(run, iters=5)}
+        base = run()
+        window(wpack.numel())
+        try:
+            ms['window'] = cuda_ms(run, iters=5)
+            windowed = run()
+        finally:
+            persisting, span = info[0], info[1]
+            window(0)
+        ms['without, after'] = cuda_ms(run, iters=5)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(base, windowed))
+    print(f'phase 31 {label} fwd, streamed, L2 access-policy window over its '
+          f'{wpack.numel()} bytes of packed weights (persisting L2 '
+          f'{persisting} bytes, window {span} bytes): '
+          + ', '.join(f'{k} {v:.3f} ms' for k, v in ms.items())
+          + f'; the same bits {same}')
+    if not same:
+        fail(f'{label}: the L2 window changed the streamed forward\'s bits')
+    return ms
+
+
+# the float32 LSTM kernels' outputs on fixed inputs at phase 3's, 4's and
+# 9's shapes: lean forward, training forward and backward; run in a
+# process of its own from a checkout's root, so that two checkouts'
+# kernels can be compared (``python3 -c "import chip_smoke as c;
+# print(c.lstm_f32_digests('<checkout>'))"``)
+LSTM_DIGEST_CODE = r"""
+import hashlib, json, sys
+import numpy as np
+import torch
+from padertorch_tpu_torch.ops.kernels import lstm
+out = {}
+for label, t_len, batch, hdim in json.loads(sys.argv[1]):
+    rng = np.random.RandomState(hdim + t_len)
+    lens = rng.randint(t_len // 2, t_len + 1, size=batch)
+    fwd = np.arange(t_len)[:, None] < lens[None, :]
+    mask = np.concatenate([fwd, fwd[::-1]], axis=1)
+    rows = 2 * batch
+    put = lambda a: torch.from_numpy(a.astype('float32')).cuda()
+    gx = put(rng.uniform(-1, 1, (t_len, rows, 4 * hdim)))
+    w = put(rng.uniform(-1, 1, (2, hdim, 4 * hdim)) / np.sqrt(hdim))
+    h0 = put(rng.uniform(-0.1, 0.1, (rows, hdim)))
+    c0 = put(rng.uniform(-0.1, 0.1, (rows, hdim)))
+    d_out = put(rng.uniform(-1, 1, (t_len, rows, hdim)))
+    dh = put(rng.uniform(-1, 1, (rows, hdim)))
+    dc = put(rng.uniform(-1, 1, (rows, hdim)))
+    digest = hashlib.sha256()
+    for m in (None, put(mask)):
+        lean = lstm.lstm_cell_scan(gx, w, m, h0, c0)
+        train = lstm._launch(gx, w, 2, m, h0, c0, train=True)
+        bwd = lstm._launch_bwd(train[2], train[1], w, 2, m, d_out, dh, dc)
+        for t in (*lean, *train, *bwd):
+            digest.update(t.cpu().numpy().tobytes())
+    out[label] = digest.hexdigest()[:16]
+print(json.dumps(out))
+"""
+
+
+def lstm_f32_digests(root):
+    """{shape: digest} of the float32 LSTM kernels of the checkout at
+    ``root`` (see LSTM_DIGEST_CODE), at RECURRENCE_SHAPES."""
+    shapes = [(label, t_len, batch, hdim)
+              for label, t_len, batch, hdim, _ in RECURRENCE_SHAPES]
+    proc = subprocess.run(
+        [sys.executable, '-c', LSTM_DIGEST_CODE, json.dumps(shapes)],
+        cwd=root, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        fail(f'the float32 LSTM digests of {root} failed:\n{proc.stderr}')
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+DEEP_DILATIONS = [2 ** (i % 10) for i in range(30)]   # to 512: 3,069 slots
+# (label, layers, R, S, O, dilations, rows, steps)
+WAVENET_GEOMETRIES = [
+    ('30 layers to 512, R=64, 1 row', 30, 64, 256, 256, DEEP_DILATIONS, 1,
+     40),
+    ('30 layers to 512, R=64, 8 rows', 30, 64, 256, 256, DEEP_DILATIONS, 8,
+     40),
+    ('30 layers to 512, R=64, 132 rows', 30, 64, 256, 256, DEEP_DILATIONS,
+     132, 40),
+    ('24 layers to 128, R=128, 4 rows', 24, 128, 256, 256,
+     [2 ** (i % 8) for i in range(24)], 4, 40),
+    ('R=60, S=250, O=254, 3 rows', 4, 60, 250, 254, [1, 2, 4, 8], 3, 60),
+    ('80 layers, 2 rows', 80, 16, 32, 256, [2 ** (i % 4) for i in range(80)],
+     2, 40),
+    ('rings in device memory, R=512, 2 rows', 30, 512, 256, 256,
+     DEEP_DILATIONS, 2, 20),
+]
+
+
+def wavenet_test_weights(n_layers, r, s, o, rng, c=256, scale=None):
+    """Sampler weights of the kernel's contract, each product's scaled by
+    its input width (as an initialised model's, so that 30 layers of
+    residual sums neither blow up nor vanish); with ``scale``, every weight
+    and bias uniform in (-scale, scale) whatever the width."""
+    def u(*shape):
+        bound = np.sqrt(3.0 / shape[-2]) if len(shape) > 1 else 0.1
+        bound = bound if scale is None else scale
+        return torch.from_numpy(
+            rng.uniform(-bound, bound, shape).astype('float32')).cuda()
+    return {'w_prev': u(n_layers, r, 2 * r), 'w_curr': u(n_layers, r, 2 * r),
+            'b_dil': u(n_layers, 2 * r), 'w_res': u(n_layers - 1, r, r),
+            'b_res': u(n_layers - 1, r), 'w_skip': u(n_layers, r, s),
+            'b_skip': u(n_layers, s), 'w_out': u(s, o), 'w_end': u(o, o),
+            'embed': torch.from_numpy(rng.randn(c, r).astype(
+                'float32')).cuda()}
+
+
+def wavenet_geometry_case(label, n_layers, r, s, o, dilations, rows, steps,
+                          scale=None):
+    """The sampler at a geometry the card refused before: teacher-forced
+    logits within WAVENET_TOL of plain's (of max(1, |logit|)), every
+    teacher-forced choice plain's where plain's two best logits are
+    further apart than twice that; the plan it took; the greedy run's
+    first row equal, bit for bit, to that row alone (weights of
+    :func:`wavenet_test_weights` at ``scale``).  Returns the plan."""
+    rng = np.random.RandomState(r + n_layers)
+    w = wavenet_test_weights(n_layers, r, s, o, rng, scale=scale)
+    cond = torch.from_numpy(rng.randn(steps, rows, n_layers, 2 * r).astype(
+        'float32')).cuda()
+    forced = torch.from_numpy(rng.randint(0, o, (steps, rows)).astype(
+        'int32')).cuda()
+    padded = [-(-x // 4) * 4 for x in (r, s, o)]
+    plan = wavenet_kernels.device_plan(rows, n_layers, *padded,
+                                       sum(dilations), 0)
+    with torch.no_grad():
+        idx, logits = wavenet_sample(cond, w, dilations, forced_input=forced,
+                                     return_logits=True)
+        want_idx, want = wavenet_sample_plain(
+            cond, w, dilations, forced_input=forced, return_logits=True)
+        greedy = wavenet_sample(cond, w, dilations)
+        alone = wavenet_sample(cond[:, :1].contiguous(), w, dilations)
+    torch.cuda.synchronize()
+    scale = max(1.0, float(want.abs().max()))
+    err = float((logits - want).abs().max()) / scale
+    top2 = want.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 2 * WAVENET_TOL * scale
+    choices = bool(torch.equal(idx[clear], want_idx[clear]))
+    same = torch.equal(greedy[:, :1], alone)
+    # a step's time, and its bound: the products' float32 operations of
+    # every row (the 2R-long dilated pair, S + R skip and residual, w_out
+    # and w_end)
+    with torch.no_grad():
+        step_ms = cuda_ms(lambda: wavenet_sample(cond, w, dilations),
+                          iters=2) / steps
+    flops = rows * 2 * (n_layers * (2 * r * 2 * r + r * (s + r)) + s * o
+                        + o * o)
+    print(f'phase 31 wavenet_sample {label}: plan {plan._asdict()}; '
+          f'teacher-forced logits max |kernel - plain| / max(1, |logit|) '
+          f'{err:.3e} (tol {WAVENET_TOL}), choices equal where clear '
+          f'{choices} ({int(clear.sum())} of {clear.numel()}); greedy row 0 '
+          f'alone the same bits {same}; {step_ms * 1e3:.2f} us a step '
+          f'(bound {flops / PEAK_F32_FLOPS * 1e6:.3f} us by operations)')
+    if not (err <= WAVENET_TOL and choices and same):
+        fail(f'wavenet_sample disagrees with plain at {label}')
+    return plan
+
+
+def wavenet_f64_logits(cond, w, dilations, forced):
+    """Teacher-forced logits of the sampler in float64: a step loop of its
+    own (the layer's input kept in a ring of ``d`` slots, zero at step 0),
+    the witness of what exact arithmetic gives on these inputs."""
+    w = {k: v.double() for k, v in w.items()}
+    cond = cond.double()
+    r = w['embed'].shape[1]
+    rings = [cond.new_zeros((int(d), cond.shape[1], r)) for d in dilations]
+    logits = []
+    for step in range(cond.shape[0]):
+        x = w['embed'][forced[step].long()]
+        skip = 0.0
+        for i, d in enumerate(dilations):
+            past = rings[i][step % int(d)].clone()
+            rings[i][step % int(d)] = x if step > 0 else 0.0
+            a = (past @ w['w_prev'][i] + x @ w['w_curr'][i] + w['b_dil'][i]
+                 + cond[step, :, i])
+            z = torch.tanh(a[:, :r]) * torch.sigmoid(a[:, r:])
+            skip = skip + z @ w['w_skip'][i] + w['b_skip'][i]
+            if i < len(dilations) - 1:
+                x = x + z @ w['w_res'][i] + w['b_res'][i]
+        logits.append(torch.relu(torch.relu(skip) @ w['w_out'])
+                      @ w['w_end'])
+    return torch.stack(logits)
+
+
+# the sampler with every weight uniform in (-0.2, 0.2), not scaled by its
+# input width: 30 layers at R = 512 (rings in device memory) amplify each
+# rounding through the depth, so float32 itself, plain or kernel, lands
+# far from float64 and from each other; 4 layers to dilation 1024 at the
+# same weights and route, 1100 steps (every ring read back), stay well
+# conditioned and are held to WAVENET_TOL
+WAVENET_UNSCALED_DEEP = ('rings in device memory, R=512, 2 rows, 30 layers',
+                         30, 512, 256, 256, DEEP_DILATIONS, 2, 20)
+WAVENET_UNSCALED_SHALLOW = ('rings in device memory, R=512, 2 rows, 4 layers '
+                            'to 1024, weights uniform 0.2', 4, 512, 256, 256,
+                            [1, 512, 1024, 512], 2, 1100)
+# the kernel's distance to float64 at most this many times plain float32's
+WAVENET_F64_FACTOR = 4.0
+
+
+def wavenet_unscaled_witness():
+    """Weights of 0.2 whatever the width (the kernel's ring_global route at
+    R = 512): at 30 layers the kernel's teacher-forced logits, plain's in
+    float32 and a float64 step loop's, each distance of max(1, |logit|);
+    the kernel passes if it is no further from float64 than
+    WAVENET_F64_FACTOR times plain float32 (and within WAVENET_TOL of
+    float64 where plain float32 is).  At 4 layers to dilation 1024 on the
+    same route and weights, :func:`wavenet_geometry_case` at WAVENET_TOL."""
+    label, n_layers, r, s_dim, o_dim, dilations, rows, steps = \
+        WAVENET_UNSCALED_DEEP
+    rng = np.random.RandomState(r + n_layers)
+    w = wavenet_test_weights(n_layers, r, s_dim, o_dim, rng, scale=0.2)
+    cond = torch.from_numpy(rng.randn(steps, rows, n_layers, 2 * r).astype(
+        'float32')).cuda()
+    forced = torch.from_numpy(rng.randint(0, o_dim, (steps, rows)).astype(
+        'int32')).cuda()
+    plan = wavenet_kernels.device_plan(rows, n_layers, r, s_dim, o_dim,
+                                       sum(dilations), 0)
+    with torch.no_grad():
+        _, kernel = wavenet_sample(cond, w, dilations, forced_input=forced,
+                                   return_logits=True)
+        _, plain = wavenet_sample_plain(cond, w, dilations,
+                                        forced_input=forced,
+                                        return_logits=True)
+        exact = wavenet_f64_logits(cond, w, dilations, forced)
+    scale = max(1.0, float(exact.abs().max()))
+    dist = {name: float((x.double() - y.double()).abs().max()) / scale
+            for name, (x, y) in {'kernel - plain': (kernel, plain),
+                                 'plain - float64': (plain, exact),
+                                 'kernel - float64': (kernel, exact)}.items()}
+    limit = max(WAVENET_TOL, WAVENET_F64_FACTOR * dist['plain - float64'])
+    print(f'phase 31 wavenet_sample {label}, weights uniform 0.2: plan '
+          f'{plan._asdict()}; teacher-forced logits over {steps} steps, '
+          f'largest |logit| (float64) {scale:.2f}, distances / max(1, '
+          f'|logit|): ' + ', '.join(f'{k} {v:.3e}' for k, v in dist.items())
+          + f' (the kernel to float64 within {limit:.3e}: '
+          f'{WAVENET_F64_FACTOR:g} times plain\'s, at least WAVENET_TOL)')
+    if not plan.ring_global or not dist['kernel - float64'] <= limit:
+        fail(f'wavenet_sample at {label}, weights uniform 0.2: the route '
+             f'is not ring_global or the kernel is further from float64 '
+             f'than plain float32 is: {dist}')
+    plan = wavenet_geometry_case(*WAVENET_UNSCALED_SHALLOW, scale=0.2)
+    if not plan.ring_global:
+        fail(f'{WAVENET_UNSCALED_SHALLOW[0]}: plan {plan} is not ring_global')
+
+
+# (label, size, shift, mels, batch, samples)
+LOGMEL_LONG_HOPS = [('1600/800, 80 mels', 1600, 800, 80, 16, 64000),
+                    ('1024/1024, 64 mels', 1024, 1024, 64, 16, 64000)]
+
+
+def logmel_long_hop_case(label, size, shift, mels, batch, samples):
+    """fused_logmel at a hop whose 64 frames' span does not fit one block:
+    the sliced route against plain (LOGMEL_TOL), its time beside plain's;
+    and at the recipe's hop the sliced route forced equals the span route
+    bit for bit."""
+    frontend = LogMelFrontend(size=size, shift=shift, n_mels=mels)
+    x = torch.from_numpy(np.random.RandomState(size).randn(
+        batch, samples).astype('float32') * 0.1).cuda()
+    before = dict(fused_logmel.routes)
+    got = frontend(x)
+    want = frontend.plain(x)
+    torch.cuda.synchronize()
+    routed = {k: v - before[k] for k, v in fused_logmel.routes.items()}
+    err = float((got - want).abs().max())
+    ms = cuda_ms(lambda: frontend(x), iters=10, warmup=2)
+    plain_ms = cuda_ms(lambda: frontend.plain(x), iters=5)
+    # phase 16's bound: the DFT at 3xTF32, the mel's nonzeros at float32
+    frames, f_bins = got.shape[1], size // 2 + 1
+    bands = frontend.bands_on('cpu')[:3 * mels].reshape(mels, 3)
+    mel_terms = int((bands[:, 1] - bands[:, 0]).sum())
+    by_ops = (batch * frames * 4 * size * f_bins / PEAK_3XTF32_FLOPS
+              + batch * frames * 2 * mel_terms / PEAK_F32_FLOPS) * 1e3
+    by_bytes = nbytes(x, got, *frontend.bases_on('cuda')[:3]) \
+        / PEAK_BYTES_PER_S * 1e3
+    print(f'phase 31 fused_logmel {label} ({batch} x {samples}): routes '
+          f'{routed}; max |kernel - plain| {err:.3e} (tol {LOGMEL_TOL}); '
+          f'kernel {ms:.3f} ms (eager), plain {plain_ms:.3f} ms, bound '
+          f'{max(by_ops, by_bytes):.4f} ms by '
+          f'{"operations" if by_ops >= by_bytes else "bytes"}')
+    if routed != {'span': 0, 'sliced': 1} or not err <= LOGMEL_TOL:
+        fail(f'fused_logmel at {label}: routes {routed}, error {err}')
+
+
+def logmel_routes_agree():
+    """The sliced route forced at the recipe's hop gives the span route's
+    bits."""
+    frontend = LogMelFrontend(size=512, shift=128, n_mels=64)
+    x = torch.from_numpy(np.random.RandomState(1).randn(8, 8000).astype(
+        'float32') * 0.1).cuda()
+    span = frontend(x)
+    lo, hi = frontend._pad_widths(x.shape[1])
+    n_frames = (x.shape[1] + lo + hi - 512) // 128 + 1
+    plan = logmel_plan(8, n_frames, 512, 128, 257, frontend.n_partials,
+                       *gru_kernels.device_limits(x.get_device()))
+    plan = plan._replace(sliced=True, smem=logmel_smem(
+        512, 128, frontend.n_partials, sliced=True))
+    sliced = torch.empty_like(span)
+    stream, device = _build.stream_and_device(x)
+    frontend._launch(x, sliced, lo, n_frames, plan, device, stream)
+    torch.cuda.synchronize()
+    same = torch.equal(sliced, span)
+    print(f'phase 31 fused_logmel 512/128 (8 x 8000): the sliced route '
+          f'forced gives the span route\'s bits {same}')
+    if not same:
+        fail('fused_logmel\'s sliced route differs from the span route')
+
+
+# (label, B, H, Hkv, T, D, masks)
+ATTENTION_WIDE_CASES = [
+    ('D=192 (2, 4, 300, 192) causal, ragged', 2, 4, 4, 300, 192,
+     {'causal': True, 'key_padding_lens': [300, 123]}),
+    ('D=256 gqa (2, 8 over 2, 1024, 256) full', 2, 8, 2, 1024, 256, {}),
+    ('D=256 (2, 4, 700, 256) window (100, 30)', 2, 4, 4, 700, 256,
+     {'window': (100, 30)}),
+]
+
+
+def attention_wide_case(label, b, h, h_kv, t_len, d, masks, dtype):
+    """The attention kernels at a head above 128 (the wrapper pads it to
+    256): float32 against the plain version (O within ATTENTION_TOL, the
+    gradients ATTENTION_GRAD_RTOL of their largest entry), bf16 against
+    the plain bf16 versions on the unpadded heads at phase 26's limits;
+    two runs give the same bits."""
+    rng = np.random.RandomState(d)
+    q, k, v, d_o = (torch.tensor(rng.randn(*shape), dtype=torch.float32,
+                                 device='cuda').to(dtype)
+                    for shape in ((b, h, t_len, d), (b, h_kv, t_len, d),
+                                  (b, h_kv, t_len, d), (b, h, t_len, d)))
+    lens = attention_kernels._lens_tensor(masks.get('key_padding_lens'), b,
+                                          q.device)
+    config = (masks.get('causal', False),
+              *attention_kernels._norm_window(masks.get('window')),
+              1.0 / np.sqrt(d))
+    before = dict(flash_attention.launches)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = flash_attention(*leaves, **masks)
+    grads = torch.autograd.grad(out, leaves, d_o)
+    again = torch.autograd.grad(flash_attention(*leaves, **masks), leaves,
+                                d_o)
+    same = all(torch.equal(x, y) for x, y in zip(grads, again))
+    launched = {k_: v_ - before[k_] for k_, v_ in
+                flash_attention.launches.items()}
+    if dtype == torch.float32:
+        plain_leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        want = flash_attention_plain(*plain_leaves, **masks)
+        want_grads = torch.autograd.grad(want, plain_leaves, d_o)
+        err = float((out - want).abs().max())
+        rel = max(float((g - w_).abs().max() / w_.abs().max())
+                  for g, w_ in zip(grads, want_grads))
+        ok = err <= ATTENTION_TOL and rel <= ATTENTION_GRAD_RTOL
+        shown = (f'O max |kernel - plain| {err:.3e} (tol {ATTENTION_TOL}), '
+                 f'gradients {rel:.3e} of their largest entry (tol '
+                 f'{ATTENTION_GRAD_RTOL})')
+    else:
+        pad = lambda x: torch.nn.functional.pad(x, (0, 256 - d)).contiguous()
+        o_p, lse = attention_kernels._launch_fwd(
+            pad(q), pad(k), pad(v), lens, *config, train=True)
+        o = o_p[..., :d]
+        want, want_lse = attention_bf16_fwd_plain(q, k, v, **masks)
+        want_grads = flash_attention_bwd_plain(q, k, v, o, lse, d_o,
+                                               **masks)
+        kernel_grads = attention_kernels._launch_bwd(
+            pad(q), pad(k), pad(v), lens, pad(d_o), lse,
+            (d_o.float() * o.float()).sum(-1), *config)
+        kernel_grads = [x[..., :d] for x in kernel_grads]
+        same = same and all(torch.equal(x, y)
+                            for x, y in zip(kernel_grads, grads))
+        excess, share = bf16_distance([out], [want], ATTENTION_BF16_FWD_ATOL)
+        lse_err = lse_distance(lse, want_lse)
+        grad_excess, grad_share = bf16_grad_distance(kernel_grads,
+                                                     want_grads)
+        ok = (excess <= 0 and share <= ATTENTION_BF16_FWD_SHARE
+              and lse_err <= ATTENTION_BF16_LSE_TOL and grad_excess <= 0
+              and grad_share <= ATTENTION_BF16_GRAD_SHARE)
+        shown = (f'O {excess + ATTENTION_BF16_FWD_ATOL:.3e} beyond one ulp, '
+                 f'{share:.3%} differ; LSE {lse_err:.3e}; dq, dk, dv '
+                 f'{grad_excess:.3e} beyond the limit, {grad_share:.3%} '
+                 f'differ (phase 26\'s limits)')
+    torch.cuda.synchronize()
+    print(f'phase 31 attention {str(dtype)[6:]} {label}: {shown}; launches '
+          f'{ {k_: v_ for k_, v_ in launched.items() if v_} }; two runs '
+          f'the same bits {same}')
+    if not ok or not same:
+        fail(f'the attention kernels disagree with plain at {label} '
+             f'({dtype})')
+
+
+def phase_geometries():
+    """Phase 31: the geometries of the reference's kernels that the card
+    refused before: wide LSTM and GRU layers (the streamed route), the
+    float32 LSTM kernels' digests at the earlier shapes, the sampler's
+    large rings, channels that are no multiple of 4 and 80 layers, the
+    log-mel's long hops, attention heads of 192 and 256."""
+    start = time.perf_counter()
+    rows = {}
+    for label, *shape in WIDE_RECURRENCES:
+        rows[label] = wide_recurrence_case(label, *shape)
+        torch.cuda.empty_cache()
+    for case in L2_WINDOW_CASES:
+        l2_window_case(*case)
+        torch.cuda.empty_cache()
+    digests = lstm_f32_digests(Path(__file__).resolve().parent)
+    print(f'phase 31 float32 LSTM kernels\' digests (lean, training '
+          f'forward, backward, unmasked and ragged): {json.dumps(digests)}')
+    for case in WAVENET_GEOMETRIES:
+        wavenet_geometry_case(*case)
+    wavenet_unscaled_witness()
+    for case in LOGMEL_LONG_HOPS:
+        logmel_long_hop_case(*case)
+    logmel_routes_agree()
+    for case in ATTENTION_WIDE_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            attention_wide_case(*case, dtype)
+            torch.cuda.empty_cache()
+    print(f'phase 31 took {time.perf_counter() - start:.1f} s')
+    return rows
+
+
 def main():
     profile = '--profile' in sys.argv[1:]
     phase_device()
@@ -4840,10 +5498,12 @@ def main():
     lstm_bf16_launches = phase_flagship_bf16()
     phase_dprnn_bf16(profile=profile)
     attention_bf16, headline = phase_attention_bf16()
+    phase_attention_bf16_bwd(attention_bf16)
     attention_bf16_launches = phase_sepformer_bf16(profile=profile)
     gru_bf16 = phase_gru_bf16_kernels()
     dprnn_bgru_launches = phase_dprnn_bgru_bf16()
     speaker_bf16_launches = phase_speaker_bf16()
+    phase_geometries()
     # the bf16 GRU kernels' launches on the main paths: the bgru DPRNN
     # under the policy (20 steps and 4 requests) and both classifiers
     gru_bf16_launches = {
@@ -5008,10 +5668,11 @@ def main():
          'shape': ATTENTION_BF16_CASES[0][0] + ' bf16',
          **attention_bf16_rows['fwd']},
         {'name': 'flash_attention_bwd_bf16', 'route': 'cuda',
-         'source': 'padertorch_tpu_torch/csrc/flash_attention_bwd.cu',
+         'source': 'padertorch_tpu_torch/csrc/flash_attention_bwd_bf16.cu',
          'replaces': 'padertorch_tpu/ops/pallas/attention.py:351',
          'launches': attention_bf16_launches['bwd_bf16'],
-         'attention_route': 'tensor cores, bf16 and 2xTF32 mma.sync',
+         'attention_route': 'tensor cores, bf16 wgmma from TMA tiles, P '
+                            'and dS in three bf16 pieces',
          'shape': ATTENTION_BF16_CASES[0][0] + ' bf16',
          **attention_bf16_rows['bwd']},
         {'name': 'wavenet_sample', 'route': 'cuda',

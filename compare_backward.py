@@ -9,6 +9,7 @@ that git ignores); alternate them, as in parent, change, change, parent:
     python3 compare_backward.py <checkout> lstm
     python3 compare_backward.py <checkout> attention
     python3 compare_backward.py <checkout> attention-bits
+    python3 compare_backward.py <checkout> attention-bf16
 
 ``lstm``: ``lstm_cell_scan``'s backward kernel alone at the DPRNN-TasNet's
 intra (T=100, 260 rows per direction, H=128) and inter (T=65, 400 rows,
@@ -26,8 +27,13 @@ two shapes, (8, 12, 2048, 64) full and causal, grouped-query heads and
 D = 128 with key lengths, on inputs made from a seed and the plain
 forward's output and log-sum-exp, and one of the forward kernel's output
 and log-sum-exp on the same inputs, so that two checkouts whose kernels
-should agree bit for bit print the same digests.  float32 throughout.  Prints the card's name and power
-limit first; exits non-zero without a card.
+should agree bit for bit print the same digests.  float32 throughout.
+``attention-bf16``: the bf16 backward kernels (``delta`` included, as the
+autograd Function runs them) at the SepFormer's two shapes, bench.py's
+three and (8, 12, 2048, 64) full, and at (4, 8, 2048, 128) and (4, 8, 2048,
+256) full where the checkout takes that head size, each beside SDPA's bf16
+backward, with the device time of each kernel from the profiler.  Prints
+the card's name and power limit first; exits non-zero without a card.
 """
 import hashlib
 import subprocess
@@ -177,6 +183,63 @@ def attention_backward_bits(ak):
               flush=True)
 
 
+BF16_SHAPES = [
+    ('intra (264, 8, 100, 16)', 264, 8, 100, 16, {}),
+    ('inter (400, 8, 66, 16) ragged', 400, 8, 66, 16,
+     {'key_padding_lens': np.concatenate([np.repeat([66, 55, 46, 36], 100)[
+         :-2], [1, 0]])}),
+    ('(8, 12, 2048, 64) full', 8, 12, 2048, 64, {}),
+    ('(8, 12, 4096, 64) causal', 8, 12, 4096, 64, {'causal': True}),
+    ('(8, 12, 1024, 64) full', 8, 12, 1024, 64, {}),
+    ('(8, 12, 4096, 64) window (255, 256)', 8, 12, 4096, 64,
+     {'window': (255, 256)}),
+    ('(4, 8, 2048, 128) full', 4, 8, 2048, 128, {}),
+    ('(4, 8, 2048, 256) full', 4, 8, 2048, 256, {})]
+
+
+def attention_backward_bf16(ak):
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for label, b, h, t_len, d, masks in BF16_SHAPES:
+        if d > ak.HEAD_SIZES[-1]:
+            print(f'attention bf16 backward {label}: head size not taken',
+                  flush=True)
+            continue
+        rng = np.random.RandomState(0)
+        q, k, v, d_o = (torch.tensor(rng.randn(b, h, t_len, d),
+                                     device='cuda').bfloat16()
+                        for _ in range(4))
+        lens = ak._lens_tensor(masks.get('key_padding_lens'), b, q.device)
+        window = masks.get('window')
+        config = (masks.get('causal', False),
+                  *(window if window else (None, None)), 1.0 / np.sqrt(d))
+        out, lse = ak._launch_fwd(q, k, v, lens, *config, train=True)
+
+        def backward():
+            delta = (d_o.float() * out.float()).sum(-1)
+            return ak._launch_bwd(q, k, v, lens, d_o, lse, delta, *config)
+
+        ms, windows = median_ms(backward)
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                backward()
+            torch.cuda.synchronize()
+        kernels = {e.key.split('(')[0][-40:]: round(
+            e.device_time_total / e.count / 1000, 4)
+            for e in prof.key_averages() if e.device_time_total > 0}
+        # SDPA's backward on the same shape (its masks: causal, or none)
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        ref = sdpa(*leaves, is_causal=masks.get('causal', False))
+        lib_ms, _ = median_ms(lambda: torch.autograd.grad(
+            ref, leaves, d_o, retain_graph=True))
+        print(f'attention bf16 backward {label}: {ms:.4f} ms (windows '
+              f'{[round(x, 4) for x in windows]}; device ms by kernel '
+              f'{kernels}); scaled_dot_product_attention bf16 backward '
+              f'{lib_ms:.4f} ms', flush=True)
+        del leaves, ref
+        torch.cuda.empty_cache()
+
+
 def sha256(tensors):
     digest = hashlib.sha256()
     for x in tensors:
@@ -200,7 +263,8 @@ def main():
     print(f'checkout {root}, {part}', flush=True)
     {'lstm': lambda: lstm_backward(lk),
      'attention': lambda: attention_backward(ak),
-     'attention-bits': lambda: attention_backward_bits(ak)}[part]()
+     'attention-bits': lambda: attention_backward_bits(ak),
+     'attention-bf16': lambda: attention_backward_bf16(ak)}[part]()
 
 
 if __name__ == '__main__':

@@ -8,8 +8,13 @@
 // float32 operations per (batch, head) against one read of q, k, v and one
 // write of o.  The TPU kernel pads D to 128 lanes and T to 512-wide blocks
 // for its matrix unit; neither is carried over: D is a template parameter
-// (16, 32, 64, 128) and ragged Tq/Tk are bounds checks, so the separator's
-// D = 16 heads do no padded work.
+// (16, 32, 64, 128, 256; the wrapper zero-pads other head sizes to the
+// next) and ragged Tq/Tk are bounds checks, so the separator's D = 16
+// heads do no padded work.  At D = 256 a warp's 16 x 256 float32 output
+// alone would take 128 registers a thread, so the output's columns are
+// split over a third grid dimension: each block computes S and the softmax
+// over the whole head and P V for DO = 128 columns (blockIdx.z; DO = D
+// below 256, one block as before), and the z = 0 block writes the LSE.
 //
 // Design: one block per (batch * head, tile of 64 queries), four warps of
 // 16 query rows each, as the backward's dq kernel.  The two products of a
@@ -140,6 +145,9 @@ __global__ void __launch_bounds__(32 * WARPS) flash_fwd_kernel(
     using TL = FwdTiles<D, T>;
     constexpr int BS = TL::BS, SD = TL::SD, SP = TL::SP;
     constexpr int ND = TL::ND, NS = TL::NS, NP = TL::NP;
+    // the block's output columns [col0, col0 + DO): NO tiles of 8
+    constexpr int DO = out_cols(D), NO = DO / 8;
+    const int col0 = blockIdx.z * DO;
     constexpr bool QREG = D <= 64;   // float32: Q's fragments in registers
     extern __shared__ float4 smem4[];
     T* q_s = reinterpret_cast<T*>(smem4);
@@ -202,7 +210,7 @@ __global__ void __launch_bounds__(32 * WARPS) flash_fwd_kernel(
     const int qa = r0 + row_w + (lane >> 2);
     const int qb = qa + 8;
     float m_a = NEG, m_b = NEG, l_a = 0.0f, l_b = 0.0f;
-    float acc[ND][4] = {};
+    float acc[NO][4] = {};
     float* pw = p_s + row_w * SP;
     // a warp whose 16 queries are all past Tq has nothing to compute
     const bool idle = r0 + row_w >= Tq;
@@ -240,7 +248,7 @@ __global__ void __launch_bounds__(32 * WARPS) flash_fwd_kernel(
                                         alpha_b, all, mk, qa, qb, j0, nv, Tq,
                                         kv_len, scale2, lane);
 #pragma unroll
-                for (int n = 0; n < ND; ++n) {
+                for (int n = 0; n < NO; ++n) {
                     acc[n][0] *= alpha_a;
                     acc[n][1] *= alpha_a;
                     acc[n][2] *= alpha_b;
@@ -256,10 +264,10 @@ __global__ void __launch_bounds__(32 * WARPS) flash_fwd_kernel(
                         pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
                         pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3])};
 #pragma unroll
-                    for (int n = 0; n < ND; n += 2) {
+                    for (int n = 0; n < NO; n += 2) {
                         uint32_t b[4];
-                        load_b16_trans2(v_t + kc * 16 * SD + n * 8, SD, lane,
-                                        b);
+                        load_b16_trans2(v_t + kc * 16 * SD + col0 + n * 8, SD,
+                                        lane, b);
                         const uint32_t b0[2] = {b[0], b[1]};
                         const uint32_t b1[2] = {b[2], b[3]};
                         mma16(acc[n], a, b0);
@@ -308,10 +316,11 @@ __global__ void __launch_bounds__(32 * WARPS) flash_fwd_kernel(
                     }
                 }
                 __syncwarp();
-                float o_t[NP][ND][4] = {};
-                gemm_kn<LIM, NS, ND, NP>(o_t, pw, SP, v_t, SD, nv, lane);
+                float o_t[NP][NO][4] = {};
+                gemm_kn<LIM, NS, NO, NP>(o_t, pw, SP, v_t + col0, SD, nv,
+                                         lane);
 #pragma unroll
-                for (int n = 0; n < ND; ++n) {
+                for (int n = 0; n < NO; ++n) {
 #pragma unroll
                     for (int e = 0; e < 4; ++e) {
                         float t = o_t[0][n][e];
@@ -337,9 +346,9 @@ __global__ void __launch_bounds__(32 * WARPS) flash_fwd_kernel(
     const float inv_a = 1.0f / fmaxf(l_a, 1e-30f);
     const float inv_b = 1.0f / fmaxf(l_b, 1e-30f);
     const int c = 2 * (lane & 3);
-    T* o_bh = o + (size_t)bh * Tq * D;
+    T* o_bh = o + (size_t)bh * Tq * D + col0;
 #pragma unroll
-    for (int n = 0; n < ND; ++n) {
+    for (int n = 0; n < NO; ++n) {
         if (qa < Tq) {
             store2(o_bh + (size_t)qa * D + n * 8 + c, acc[n][0] * inv_a,
                    acc[n][1] * inv_a);
@@ -349,7 +358,7 @@ __global__ void __launch_bounds__(32 * WARPS) flash_fwd_kernel(
                    acc[n][3] * inv_b);
         }
     }
-    if (lse != nullptr && (lane & 3) == 0) {
+    if (lse != nullptr && (lane & 3) == 0 && blockIdx.z == 0) {
         // m + log(l) in natural units; a row that saw no key keeps -1e30
         constexpr float LN2 = 0.6931471805599453f;
         if (qa < Tq)
@@ -376,7 +385,8 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v,
     if (err != cudaSuccess) return err;
     const int tiles = (Tq + OWN - 1) / OWN;
     if (tiles > 65535) return cudaErrorInvalidValue;
-    flash_fwd_kernel<D, T><<<dim3(BH, tiles), 32 * WARPS, smem, stream>>>(
+    flash_fwd_kernel<D, T><<<dim3(BH, tiles, D / out_cols(D)), 32 * WARPS,
+                             smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const int*>(lens),
         static_cast<T*>(o), static_cast<float*>(lse), H, group, Tq, Tk, mk,
@@ -401,6 +411,7 @@ int fwd_entry(const void* q, const void* k, const void* v, const void* lens,
         case 32: return launch_fwd<32, T>(FWD_ARGS);
         case 64: return launch_fwd<64, T>(FWD_ARGS);
         case 128: return launch_fwd<128, T>(FWD_ARGS);
+        case 256: return launch_fwd<256, T>(FWD_ARGS);
         default: return cudaErrorInvalidValue;
     }
 #undef FWD_ARGS
@@ -412,7 +423,7 @@ extern "C" {
 
 // q, o: (BH, Tq, D) float32; k, v: (BH / group, Tk, D); lens: (BH / H,)
 // int32 valid key counts or null; lse: (BH, Tq) or null (inference).
-// D is 16, 32, 64 or 128; left/right -1 for an unbounded window side.  All
+// D is 16, 32, 64, 128 or 256; left/right -1 for an unbounded window side.  All
 // pointers 16-byte aligned.  Returns cudaGetLastError() after the launch.
 int flash_attention_fwd(const void* q, const void* k, const void* v,
                         const void* lens, void* o, void* lse, int BH, int H,

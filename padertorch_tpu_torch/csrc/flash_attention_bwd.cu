@@ -46,17 +46,7 @@
 // the tensor cores and the tiles into the registers' running sums by
 // float32 adds.
 //
-// The bf16 variants (T = bf16; `flash_attention_bwd_bf16`), the JAX
-// kernel's numerics for bf16 q, k, v, dO: q, k, v and dO are staged as
-// bf16 (half the bytes); S and dP = dO V^T are bf16 `mma.sync.m16n8k16`
-// products with float32 sums (both operands bf16 values: exact per term,
-// as the JAX kernel's float32 products of the widened values); P and dS
-// stay float32, as in the JAX kernel, so dV = P^T dO, dK = dS^T Q and
-// dQ = dS K are 2xTF32 (the float32 side split in hi and lo, the bf16 side
-// exact in TF32: two products where 3xTF32 takes three).  Every sum is
-// float32: a KV head's query group inside the dk/dv block, dq inside the
-// dq block (still no atomics), and each of dq, dk, dv is rounded to bf16
-// once, when it is stored.
+// The bf16 backward is csrc/flash_attention_bwd_bf16.cu (`wgmma`, TMA).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -69,11 +59,14 @@ namespace {
 using namespace flash;
 
 // Tile sizes of head size D: BS rows of the streamed operand per tile
-// (fewer for wide heads, so that two blocks share an SM), and whether the
-// tile sums of dV and dK run in one loop (D = 128 has registers for one at
-// a time).
+// (fewer for wide heads, so that two blocks share an SM, and at D = 256 so
+// that one block's tiles fit), and whether the tile sums of dV and dK run
+// in one loop (D = 128 has registers for one at a time).  At D = 256 a
+// block computes DO = 128 of the output columns (`out_cols`), the halves
+// on a grid dimension of their own, each recomputing S and dP over the
+// whole head: the accumulators of D = 128.
 template <int D, typename T>
-struct Tiles : TileShape<D, (D <= 32 ? 64 : 32), T> {
+struct Tiles : TileShape<D, (D <= 32 ? 64 : (D <= 128 ? 32 : 16)), T> {
     static constexpr bool PAIR = D <= 64;
 };
 
@@ -86,11 +79,11 @@ struct Tiles : TileShape<D, (D <= 32 ? 64 : 32), T> {
 // With LIM only the first `lim` streamed rows count (a tile at the end of
 // the sequence): the n tiles (n-major) or k steps (k-major) past them are
 // skipped.  Full tiles take LIM false, which keeps the loops free of exits.
-// B is float32 (3xTF32) or, k-major only, bf16 (2xTF32).
-template <bool LIM, bool KN, int K, int N, int NP, typename TB>
+// Both operands float32, in 3xTF32.
+template <bool LIM, bool KN, int K, int N, int NP>
 __device__ __forceinline__ void gemm2(float (&c1)[NP][N][4], const float* a1,
-                                      const TB* b1, float (&c2)[NP][N][4],
-                                      const float* a2, const TB* b2,
+                                      const float* b1, float (&c2)[NP][N][4],
+                                      const float* a2, const float* b2,
                                       int lda, int ldb, int lim, int lane) {
 #pragma unroll
     for (int kk = 0; kk < K; ++kk) {
@@ -105,16 +98,16 @@ __device__ __forceinline__ void gemm2(float (&c1)[NP][N][4], const float* a1,
             uint32_t bh1[2], bl1[2], bh2[2], bl2[2];
             load_b<KN>(b1 + at, ldb, lane, bh1, bl1);
             load_b<KN>(b2 + at, ldb, lane, bh2, bl2);
-            mma_split<TB>(c1[kk % NP][n], ah1, al1, bh1, bl1);
-            mma_split<TB>(c2[kk % NP][n], ah2, al2, bh2, bl2);
+            mma3(c1[kk % NP][n], ah1, al1, bh1, bl1);
+            mma3(c2[kk % NP][n], ah2, al2, bh2, bl2);
         }
     }
 }
 
 // S and dP of a tile: c1 (16, 8 N) = A1 B1 and c2 = A2 B2 over the head
 // size D, A row-major and B n-major (rows of the streamed operand), both
-// with stride ld.  float32 operands in 3xTF32 (gemm2), bf16 ones as bf16
-// products; with LIM the n tiles at or past `lim` are skipped.
+// with stride ld, in 3xTF32 (gemm2); with LIM the n tiles at or past
+// `lim` are skipped.
 template <bool LIM, int D, int N>
 __device__ __forceinline__ void gemm_sdp(float (&c1)[1][N][4],
                                          const float* a1, const float* b1,
@@ -123,29 +116,6 @@ __device__ __forceinline__ void gemm_sdp(float (&c1)[1][N][4],
                                          int ld, int lim, int lane) {
     gemm2<LIM, false, D / 8, N, 1>(c1, a1, b1, c2, a2, b2, ld, ld, lim,
                                    lane);
-}
-
-template <bool LIM, int D, int N>
-__device__ __forceinline__ void gemm_sdp(float (&c1)[1][N][4],
-                                         const bf16* a1, const bf16* b1,
-                                         float (&c2)[1][N][4],
-                                         const bf16* a2, const bf16* b2,
-                                         int ld, int lim, int lane) {
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t x1[4], x2[4];
-        load_a16(a1 + kk * 16, ld, lane, x1);
-        load_a16(a2 + kk * 16, ld, lane, x2);
-#pragma unroll
-        for (int n = 0; n < N; ++n) {
-            if (LIM && n * 8 >= lim) break;
-            uint32_t y1[2], y2[2];
-            load_b16(b1 + n * 8 * ld + kk * 16, ld, lane, y1);
-            load_b16(b2 + n * 8 * ld + kk * 16, ld, lane, y2);
-            mma16(c1[0][n], x1, y1);
-            mma16(c2[0][n], x2, y2);
-        }
-    }
 }
 
 // acc += t, element by element
@@ -162,18 +132,19 @@ __device__ __forceinline__ void add_into(float (&acc)[NP][N][4],
     }
 }
 
-// Store a warp's (16, D) accumulator, its NP partial sums added in order
-// and times `scale`, as rows row0 ... row0 + 15 of a (T, D) matrix of TO
-// (float32, or bf16 rounded once); rows at or beyond T are not stored.
-template <int D, int NP, typename TO>
+// Store a warp's (16, 8 NO) accumulator, its NP partial sums added in
+// order and times `scale`, as rows row0 ... row0 + 15 of a matrix of TO
+// with rows D apart; rows at or beyond T
+// are not stored.
+template <int D, int NO, int NP, typename TO>
 __device__ __forceinline__ void store_acc(TO* dst,
-                                          float (&acc)[NP][D / 8][4],
+                                          float (&acc)[NP][NO][4],
                                           int row0, int T, float scale,
                                           int lane) {
     const int ra = row0 + (lane >> 2);
     const int c = 2 * (lane & 3);
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
+    for (int n = 0; n < NO; ++n) {
         float x[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
@@ -204,7 +175,10 @@ __global__ void __launch_bounds__(32 * WARPS) flash_bwd_dkdv_kernel(
         float scale) {
     using TL = Tiles<D, T>;
     constexpr int BS = TL::BS, SD = TL::SD, SP = TL::SP;
-    constexpr int ND = TL::ND, NS = TL::NS, NP = TL::NP;
+    constexpr int NS = TL::NS, NP = TL::NP;
+    // the block's output columns [col0, col0 + DO): NO tiles of 8
+    constexpr int DO = out_cols(D), NO = DO / 8;
+    const int col0 = blockIdx.z * DO;
     extern __shared__ float4 smem4[];
     T* k_s = reinterpret_cast<T*>(smem4);
     T* v_s = k_s + OWN * SD;
@@ -253,8 +227,8 @@ __global__ void __launch_bounds__(32 * WARPS) flash_bwd_dkdv_kernel(
         cp_async_commit();
     };
 
-    float dk_acc[NP][ND][4] = {};
-    float dv_acc[NP][ND][4] = {};
+    float dk_acc[NP][NO][4] = {};
+    float dv_acc[NP][NO][4] = {};
     float* pw = p_s + row_w * SP;
     float* dsw = ds_s + row_w * SP;
     const int key_a = c0 + row_w + (lane >> 2);
@@ -305,24 +279,24 @@ __global__ void __launch_bounds__(32 * WARPS) flash_bwd_dkdv_kernel(
             }
             __syncwarp();
             if constexpr (TL::PAIR) {
-                float dv_t[NP][ND][4] = {};
-                float dk_t[NP][ND][4] = {};
-                gemm2<LIM, true, NS, ND, NP>(dv_t, pw, do_t, dk_t, dsw, q_t,
+                float dv_t[NP][NO][4] = {};
+                float dk_t[NP][NO][4] = {};
+                gemm2<LIM, true, NS, NO, NP>(dv_t, pw, do_t, dk_t, dsw, q_t,
                                              SP, SD, nv, lane);
                 add_into(dv_acc, dv_t);
                 add_into(dk_acc, dk_t);
             } else {
                 // registers for one tile sum at a time
                 {
-                    float dv_t[NP][ND][4] = {};
-                    gemm_kn<LIM, NS, ND, NP>(dv_t, pw, SP, do_t, SD, nv,
-                                             lane);
+                    float dv_t[NP][NO][4] = {};
+                    gemm_kn<LIM, NS, NO, NP>(dv_t, pw, SP, do_t + col0, SD,
+                                             nv, lane);
                     add_into(dv_acc, dv_t);
                 }
                 {
-                    float dk_t[NP][ND][4] = {};
-                    gemm_kn<LIM, NS, ND, NP>(dk_t, dsw, SP, q_t, SD, nv,
-                                             lane);
+                    float dk_t[NP][NO][4] = {};
+                    gemm_kn<LIM, NS, NO, NP>(dk_t, dsw, SP, q_t + col0, SD,
+                                             nv, lane);
                     add_into(dk_acc, dk_t);
                 }
             }
@@ -337,10 +311,10 @@ __global__ void __launch_bounds__(32 * WARPS) flash_bwd_dkdv_kernel(
     }
     cp_async_wait<0>();
 
-    store_acc<D, NP>(dk + (size_t)bkv * Tk * D, dk_acc, c0 + row_w, Tk,
-                     scale, lane);
-    store_acc<D, NP>(dv + (size_t)bkv * Tk * D, dv_acc, c0 + row_w, Tk,
-                     1.0f, lane);
+    store_acc<D, NO, NP>(dk + (size_t)bkv * Tk * D + col0, dk_acc,
+                         c0 + row_w, Tk, scale, lane);
+    store_acc<D, NO, NP>(dv + (size_t)bkv * Tk * D + col0, dv_acc,
+                         c0 + row_w, Tk, 1.0f, lane);
 }
 
 // blockIdx.x: batch * head row, blockIdx.y: query tile.  Shared memory:
@@ -354,7 +328,10 @@ __global__ void __launch_bounds__(32 * WARPS) flash_bwd_dq_kernel(
         int group, int Tq, int Tk, Mask mk, float scale) {
     using TL = Tiles<D, T>;
     constexpr int BS = TL::BS, SD = TL::SD, SP = TL::SP;
-    constexpr int ND = TL::ND, NS = TL::NS, NP = TL::NP;
+    constexpr int NS = TL::NS, NP = TL::NP;
+    // the block's output columns [col0, col0 + DO): NO tiles of 8
+    constexpr int DO = out_cols(D), NO = DO / 8;
+    const int col0 = blockIdx.z * DO;
     extern __shared__ float4 smem4[];
     T* q_s = reinterpret_cast<T*>(smem4);
     T* do_s = q_s + OWN * SD;
@@ -400,7 +377,7 @@ __global__ void __launch_bounds__(32 * WARPS) flash_bwd_dq_kernel(
         cp_async_commit();
     };
 
-    float dq_acc[NP][ND][4] = {};
+    float dq_acc[NP][NO][4] = {};
     float* dw = ds_s + row_w * SP;
     // a warp whose 16 queries are all past Tq has nothing to add
     const bool idle = r0 + row_w >= Tq;
@@ -445,8 +422,9 @@ __global__ void __launch_bounds__(32 * WARPS) flash_bwd_dq_kernel(
                 }
             }
             __syncwarp();
-            float dq_t[NP][ND][4] = {};
-            gemm_kn<LIM, NS, ND, NP>(dq_t, dw, SP, k_t, SD, nv, lane);
+            float dq_t[NP][NO][4] = {};
+            gemm_kn<LIM, NS, NO, NP>(dq_t, dw, SP, k_t + col0, SD, nv,
+                                     lane);
             add_into(dq_acc, dq_t);
         };
         if (idle) {
@@ -459,8 +437,8 @@ __global__ void __launch_bounds__(32 * WARPS) flash_bwd_dq_kernel(
     }
     cp_async_wait<0>();
 
-    store_acc<D, NP>(dq + (size_t)bh * Tq * D, dq_acc, r0 + row_w, Tq,
-                     scale, lane);
+    store_acc<D, NO, NP>(dq + (size_t)bh * Tq * D + col0, dq_acc,
+                         r0 + row_w, Tq, scale, lane);
 }
 
 template <int D, typename T>
@@ -490,8 +468,9 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
         if (err != cudaSuccess) return err;
         const int tiles = (Tk + OWN - 1) / OWN;
         if (tiles > 65535) return cudaErrorInvalidValue;
-        flash_bwd_dkdv_kernel<D, T><<<dim3(BH / group, tiles), 32 * WARPS,
-                                      smem, stream>>>(
+        flash_bwd_dkdv_kernel<D, T><<<dim3(BH / group, tiles,
+                                           D / out_cols(D)),
+                                      32 * WARPS, smem, stream>>>(
             q_, k_, v_, lens_, do_, lse_, delta_, static_cast<T*>(dk),
             static_cast<T*>(dv), H, group, Tq, Tk, mk, scale);
         err = cudaGetLastError();
@@ -504,8 +483,8 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
     if (err != cudaSuccess) return err;
     const int tiles = (Tq + OWN - 1) / OWN;
     if (tiles > 65535) return cudaErrorInvalidValue;
-    flash_bwd_dq_kernel<D, T><<<dim3(BH, tiles), 32 * WARPS, tiles_smem,
-                                stream>>>(
+    flash_bwd_dq_kernel<D, T><<<dim3(BH, tiles, D / out_cols(D)),
+                                32 * WARPS, tiles_smem, stream>>>(
         q_, k_, v_, lens_, do_, lse_, delta_, static_cast<T*>(dq), H,
         group, Tq, Tk, mk, scale);
     return cudaGetLastError();
@@ -530,6 +509,7 @@ int bwd_entry(const void* q, const void* k, const void* v, const void* lens,
         case 32: return launch_bwd<32, T>(BWD_ARGS);
         case 64: return launch_bwd<64, T>(BWD_ARGS);
         case 128: return launch_bwd<128, T>(BWD_ARGS);
+        case 256: return launch_bwd<256, T>(BWD_ARGS);
         default: return cudaErrorInvalidValue;
     }
 #undef BWD_ARGS
@@ -540,7 +520,7 @@ int bwd_entry(const void* q, const void* k, const void* v, const void* lens,
 extern "C" {
 
 // q, dO, dq: (BH, Tq, D) float32; k, v, dk, dv: (BH / group, Tk, D); lse,
-// delta: (BH, Tq); lens: (BH / H,) int32 or null.  D is 16, 32, 64 or 128;
+// delta: (BH, Tq); lens: (BH / H,) int32 or null.  D is 16, 32, 64, 128 or 256;
 // left/right -1 for an unbounded window side.  All pointers 16-byte
 // aligned.  Launches the dk/dv kernel, then the dq kernel, on `stream`.
 // Returns cudaGetLastError() after the launches.
@@ -553,19 +533,6 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
     return bwd_entry<float>(q, k, v, lens, d_o, lse, delta, dq, dk, dv, BH,
                             H, group, Tq, Tk, D, causal, left, right, scale,
                             device, stream);
-}
-
-// The same with q, k, v, dO, dq, dk and dv bf16 (lse and delta float32).
-int flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
-                             const void* lens, const void* d_o,
-                             const void* lse, const void* delta, void* dq,
-                             void* dk, void* dv, int BH, int H, int group,
-                             int Tq, int Tk, int D, int causal, int left,
-                             int right, float scale, int device,
-                             void* stream) {
-    return bwd_entry<flash::bf16>(q, k, v, lens, d_o, lse, delta, dq, dk,
-                                  dv, BH, H, group, Tq, Tk, D, causal, left,
-                                  right, scale, device, stream);
 }
 
 }  // extern "C"

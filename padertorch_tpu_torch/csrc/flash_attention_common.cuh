@@ -1,7 +1,8 @@
 // Device helpers shared by the flash-attention forward and backward
 // kernels: masks, cp.async copies into padded shared-memory tiles, the
-// 3xTF32 tensor-core products of the float32 kernels and the bf16 and
-// 2xTF32 products of their bf16 variants.
+// 3xTF32 tensor-core products of the float32 kernels and the bf16
+// products of the bf16 forward (the bf16 backward, on `wgmma`, is
+// flash_attention_bwd_bf16.cu).
 //
 // The tensor cores take float32 operands only as TF32, which keeps 10 bits
 // of mantissa (about three digits), too few for float32 results.  So every
@@ -11,12 +12,9 @@
 // operands), which carries about 20 bits of each operand: float32 accuracy
 // for three tensor-core products per float32 one.
 //
-// bf16 operands (the bf16 variants): a product of two bf16 values is one
+// bf16 operands (the bf16 forward): a product of two bf16 values is one
 // `mma.sync.m16n8k16` bf16 product with float32 sums, exact per term as
-// the JAX kernel's float32 products of the widened values.  A product of a
-// float32 operand (the probabilities P and dS, which the JAX kernel keeps
-// in float32) with a bf16 one is "2xTF32": the bf16 value is exact in
-// TF32, so only the float32 side is split, lo*b + hi*b.
+// the JAX kernel's float32 products of the widened values.
 //
 // A block owns OWN = 64 rows (queries in the forward and the dq kernel,
 // keys in the dk/dv kernel), 16 per warp, held as MMA fragments: a thread
@@ -73,6 +71,12 @@ __device__ __forceinline__ int clamp_len(const int* lens, int b, int Tk) {
     const int n = lens[b];
     return n < 0 ? 0 : (n > Tk ? Tk : n);
 }
+
+// The output columns a block of head size D computes: all of them up to
+// D = 128; at D = 256 half, the halves on a grid dimension of their own
+// (a warp's 16 x 256 float32 accumulator would take 128 registers a
+// thread).
+__host__ __device__ constexpr int out_cols(int D) { return D > 128 ? 128 : D; }
 
 // Tile sizes of head size D with BS rows of the streamed operand per tile,
 // for inputs of type T: the padded strides SD (of a (rows, D) tile of T,
@@ -157,30 +161,6 @@ __device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
     mma(c, ah, bh);
 }
 
-// c += a b in 2xTF32: a float32, split in hi and lo; b exact in TF32 (a
-// bf16 value), the small term first
-__device__ __forceinline__ void mma2(float (&c)[4], const uint32_t (&ah)[4],
-                                     const uint32_t (&al)[4],
-                                     const uint32_t (&b)[2]) {
-    mma(c, al, b);
-    mma(c, ah, b);
-}
-
-// c += a b with a float32 and b of type TB: 3xTF32 for float32, 2xTF32
-// for bf16 (whose `lo` is not read)
-template <typename TB>
-__device__ __forceinline__ void mma_split(float (&c)[4],
-                                          const uint32_t (&ah)[4],
-                                          const uint32_t (&al)[4],
-                                          const uint32_t (&bh)[2],
-                                          const uint32_t (&bl)[2]) {
-    if constexpr (std::is_same<TB, float>::value) {
-        mma3(c, ah, al, bh, bl);
-    } else {
-        mma2(c, ah, al, bh);
-    }
-}
-
 // The A fragment of the (16, 8) block at s (row-major, stride ld).
 __device__ __forceinline__ void load_a(const float* s, int ld, int lane,
                                        uint32_t (&hi)[4], uint32_t (&lo)[4]) {
@@ -207,31 +187,14 @@ __device__ __forceinline__ void load_b(const float* s, int ld, int lane,
     }
 }
 
-// The same B fragment of a bf16 operand, as TF32: a bf16 value is the high
-// half of its float32 bits, exact in TF32; there is no `lo`.
-template <bool KN>
-__device__ __forceinline__ void load_b(const bf16* s, int ld, int lane,
-                                       uint32_t (&hi)[2], uint32_t (&lo)[2]) {
-    const int n = lane >> 2, k = lane & 3;
-    const uint16_t* h = reinterpret_cast<const uint16_t*>(s);
-    if (KN) {
-        hi[0] = (uint32_t)h[k * ld + n] << 16;
-        hi[1] = (uint32_t)h[(k + 4) * ld + n] << 16;
-    } else {
-        hi[0] = (uint32_t)h[n * ld + k] << 16;
-        hi[1] = (uint32_t)h[n * ld + k + 4] << 16;
-    }
-    lo[0] = lo[1] = 0u;
-}
-
 // c (16, 8 N) += A (16, 8 K) B with B k-major (stride ldb), A row-major
 // (stride lda).  The k step kk adds into the partial sums [kk % NP]; the
 // caller adds them in order.  With LIM only the first `lim` rows of B
 // count (a tile at the end of the sequence): the k steps past them are
 // skipped.  Full tiles take LIM false, which keeps the loops free of exits.
-template <bool LIM, int K, int N, int NP, typename TB>
+template <bool LIM, int K, int N, int NP>
 __device__ __forceinline__ void gemm_kn(float (&c)[NP][N][4], const float* a,
-                                        int lda, const TB* b, int ldb,
+                                        int lda, const float* b, int ldb,
                                         int lim, int lane) {
 #pragma unroll
     for (int kk = 0; kk < K; ++kk) {
@@ -242,7 +205,7 @@ __device__ __forceinline__ void gemm_kn(float (&c)[NP][N][4], const float* a,
         for (int n = 0; n < N; ++n) {
             uint32_t bh[2], bl[2];
             load_b<true>(b + kk * 8 * ldb + n * 8, ldb, lane, bh, bl);
-            mma_split<TB>(c[kk % NP][n], ah, al, bh, bl);
+            mma3(c[kk % NP][n], ah, al, bh, bl);
         }
     }
 }

@@ -57,6 +57,16 @@
 // every output is the same sum in the same order whatever CS and the
 // batch: a row's features are the same bits in any batch, and two runs
 // give the same bits.  log(mel + eps) is all that is written.
+//
+// Long hops (the `sliced` route, `SLICED`): where a tile's span does not
+// fit one block (1600/800 with 80 mels needs 288,656 bytes, 1024/1024
+// 332,544), the samples come with each stage instead: stage s brings the
+// (64 frames x 32 positions) slice of the window it multiplies, sample k
+// of frame f at f * shift + k of the span, into one of two (64, 36)
+// tiles (rows padded to 36 floats, so an A fragment's loads fall on 32
+// banks), in the stage's copy group.  The operands are the span route's,
+// so the two routes give the same bits; the host takes the span route
+// wherever it fits (`logmel_plan`).
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -81,22 +91,27 @@ constexpr int MAX_CS = 16;
 // pad's zeros before it; LK: L rounded up to KT; SS: floats of a signal
 // segment (shift, padded to 4 mod 8); NSEG: segments of a CTA's span;
 // NCH: chunks of 32 bins; CS: CTAs of a cluster; E: a frame's mel partial
-// sums, one for each (band, chunk the band's bins meet).
+// sums, one for each (band, chunk the band's bins meet); sliced: the
+// signal staged a stage's slice at a time.
 struct Geometry {
-    int T, lo, n_frames, L, LK, F, M, shift, SS, NSEG, NCH, CS, E;
+    int T, lo, n_frames, L, LK, F, M, shift, SS, NSEG, NCH, CS, E, sliced;
 };
+
+constexpr int TSTR = KT + 4;    // floats a frame's row of a sliced tile
 
 __host__ __device__ inline int round_up(int x, int to) {
     return (x + to - 1) / to * to;
 }
 
 // Floats of dynamic shared memory of a CTA: two basis stages, each a hi
-// and a lo plane | the signal span (NSEG, SS) | the power (FT, PSTR) | the
-// mel partial sums (FT, E) | the span offsets of the window positions (LK
-// ints).
+// and a lo plane | the signal span (NSEG, SS), or on the sliced route two
+// tiles (FT, TSTR) | the power (FT, PSTR) | the mel partial sums (FT, E) |
+// on the span route the span offsets of the window positions (LK ints).
 inline size_t smem_floats(const Geometry& g) {
-    return 4 * (size_t)STAGE + round_up(g.NSEG * g.SS, 4)
-           + (size_t)FT * PSTR + (size_t)FT * g.E + g.LK;
+    const size_t signal = g.sliced ? 2 * (size_t)FT * TSTR
+                                   : round_up(g.NSEG * g.SS, 4);
+    return 4 * (size_t)STAGE + signal + (size_t)FT * PSTR
+           + (size_t)FT * g.E + (g.sliced ? 0 : g.LK);
 }
 
 // hi: x rounded to TF32; lo: the rest rounded to TF32 (the tensor core
@@ -179,7 +194,8 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[32],
 // through (hi - 1) / 32), then (NCH, 2) ints, the bands [first, last]
 // that meet each chunk; out: (B, n_frames, M).  Grid (CS * ceil(n_frames
 // / FT), B), clusters of CS along x: blockIdx.x / CS is the frame tile,
-// blockIdx.x % CS the rank.
+// blockIdx.x % CS the rank.  SLICED: the sliced route (see the top).
+template <bool SLICED>
 __global__ void __launch_bounds__(THREADS) fused_logmel_kernel(
         const float* __restrict__ sig, const float* __restrict__ basis,
         const float* __restrict__ fb, const int* __restrict__ bands,
@@ -192,7 +208,8 @@ __global__ void __launch_bounds__(THREADS) fused_logmel_kernel(
     const int n_kt = g.LK / KT;
     float* b_s = smem;                       // two stages of two planes
     float* sig_s = b_s + 4 * STAGE;
-    float* pow_s = sig_s + round_up(g.NSEG * g.SS, 4);
+    float* pow_s = sig_s + (SLICED ? 2 * FT * TSTR
+                                   : round_up(g.NSEG * g.SS, 4));
     float* part_s = pow_s + FT * PSTR;
     int* koff_s = reinterpret_cast<int*>(part_s + (size_t)FT * g.E);
     const int tid = threadIdx.x;
@@ -202,23 +219,36 @@ __global__ void __launch_bounds__(THREADS) fused_logmel_kernel(
     const int rr = lane >> 2;
     const int n_stages = (g.NCH - rank + cs - 1) / cs * n_kt;
 
+    const long base = (long)frame0 * g.shift - g.lo;
+    const float* row = sig + (size_t)b * g.T;
     // stage s: positions KT (s % n_kt) ... of the chunk rank + (s / n_kt)
-    // CS, both planes contiguous in `basis`
+    // CS, both planes contiguous in `basis`; on the sliced route also the
+    // samples those positions of the tile's frames multiply (zeros outside
+    // the signal), into tile s % 2
     auto copy_stage = [&](int s, float* dst) {
         const float* src = basis
             + ((size_t)(rank + s / n_kt * cs) * n_kt + s % n_kt) * 2 * STAGE;
         for (int i = 4 * tid; i < 2 * STAGE; i += 4 * THREADS) {
             flash::cp_async16(dst + i, src + i);
         }
+        if constexpr (SLICED) {
+            float* tile = sig_s + (s & 1) * FT * TSTR;
+            const long k0 = base + s % n_kt * KT;
+            for (int i = tid; i < FT * KT; i += THREADS) {
+                const int f = i / KT, k = i % KT;
+                const long p = k0 + (long)f * g.shift + k;
+                const bool inside = p >= 0 && p < g.T;
+                cp_async4(tile + f * TSTR + k, inside ? row + p : row,
+                          inside);
+            }
+        }
         flash::cp_async_commit();
     };
 
-    // the span of the tile's frames, segment by segment (a warp a
-    // segment), with the fading pad folded in: zeros outside the signal;
-    // it arrives with the first stage
-    const long base = (long)frame0 * g.shift - g.lo;
-    const float* row = sig + (size_t)b * g.T;
-    for (int seg = tid >> 5; seg < g.NSEG; seg += THREADS / 32) {
+    // the span route: the span of the tile's frames, segment by segment
+    // (a warp a segment), with the fading pad folded in: zeros outside
+    // the signal; it arrives with the first stage
+    for (int seg = tid >> 5; !SLICED && seg < g.NSEG; seg += THREADS / 32) {
         for (int off = lane; off < g.shift; off += 32) {
             const long p = base + (long)seg * g.shift + off;
             const bool inside = p >= 0 && p < g.T;
@@ -228,14 +258,14 @@ __global__ void __launch_bounds__(THREADS) fused_logmel_kernel(
     }
     copy_stage(0, b_s);
     // sample k of frame f lies at f * SS + koff[k]
-    for (int k = tid; k < g.LK; k += THREADS) {
+    for (int k = tid; !SLICED && k < g.LK; k += THREADS) {
         koff_s[k] = k / g.shift * g.SS + k % g.shift;
     }
 
     float acc[32];
 #pragma unroll
     for (int e = 0; e < 32; ++e) acc[e] = 0.f;
-    const float* a_row = sig_s + (16 * warp + rr) * g.SS;
+    const float* a_row = sig_s + (16 * warp + rr) * (SLICED ? TSTR : g.SS);
 
     for (int s = 0; s < n_stages; ++s) {
         // the next stage goes into the buffer whose products (the
@@ -256,14 +286,18 @@ __global__ void __launch_bounds__(THREADS) fused_logmel_kernel(
         // q (+ 4) of each k-step
         const int kb = s % n_kt * KT;
         uint32_t ah[KT / 8][4], al[KT / 8][4];
+        // the stage's tile (sliced) or the span (rows SS apart)
+        const float* a_s = SLICED ? a_row + (s & 1) * FT * TSTR : a_row;
+        const int a_str = SLICED ? TSTR : g.SS;
 #pragma unroll
         for (int j = 0; j < KT / 8; ++j) {
-            const int ko0 = koff_s[kb + 8 * j + q];
-            const int ko4 = koff_s[kb + 8 * j + q + 4];
-            split_rn(a_row[ko0], ah[j][0], al[j][0]);
-            split_rn(a_row[8 * g.SS + ko0], ah[j][1], al[j][1]);
-            split_rn(a_row[ko4], ah[j][2], al[j][2]);
-            split_rn(a_row[8 * g.SS + ko4], ah[j][3], al[j][3]);
+            const int ko0 = SLICED ? 8 * j + q : koff_s[kb + 8 * j + q];
+            const int ko4 = SLICED ? 8 * j + q + 4
+                                   : koff_s[kb + 8 * j + q + 4];
+            split_rn(a_s[ko0], ah[j][0], al[j][0]);
+            split_rn(a_s[8 * a_str + ko0], ah[j][1], al[j][1]);
+            split_rn(a_s[ko4], ah[j][2], al[j][2]);
+            split_rn(a_s[8 * a_str + ko4], ah[j][3], al[j][3]);
         }
         // the stage's sums from zero, the small terms first
         float st[32];
@@ -360,28 +394,30 @@ __global__ void __launch_bounds__(THREADS) fused_logmel_kernel(
     if (cs > 1) cluster.sync();
 }
 
-// The largest dynamic shared memory set on the kernel, per device: the
-// attributes are set once per device and size, not on every call.
-int configured[64];
+// The largest dynamic shared memory set on each route's kernel, per
+// device: the attributes are set once per device and size, not on every
+// call.
+int configured[2][64];
 
+template <bool SLICED>
 cudaError_t launch(const float* sig, const float* basis, const float* fb,
                    const int* bands, float* out, const Geometry& g, int B,
                    int smem, float eps, int device, cudaStream_t stream) {
-    if (smem > configured[device]) {
+    if (smem > configured[SLICED][device]) {
         cudaError_t err = cudaFuncSetAttribute(
-            fused_logmel_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            smem);
+            fused_logmel_kernel<SLICED>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
         if (err == cudaSuccess) {
             err = cudaFuncSetAttribute(
-                fused_logmel_kernel,
+                fused_logmel_kernel<SLICED>,
                 cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
         }
         if (err != cudaSuccess) return err;
-        configured[device] = smem;
+        configured[SLICED][device] = smem;
     }
     const dim3 grid(g.CS * ((g.n_frames + FT - 1) / FT), B);
     if (g.CS == 1) {
-        fused_logmel_kernel<<<grid, THREADS, smem, stream>>>(
+        fused_logmel_kernel<SLICED><<<grid, THREADS, smem, stream>>>(
             sig, basis, fb, bands, out, g, eps);
         return cudaGetLastError();
     }
@@ -397,8 +433,8 @@ cudaError_t launch(const float* sig, const float* basis, const float* fb,
     attr.val.clusterDim.z = 1;
     cfg.attrs = &attr;
     cfg.numAttrs = 1;
-    cudaError_t err = cudaLaunchKernelEx(&cfg, fused_logmel_kernel, sig,
-                                         basis, fb, bands, out, g, eps);
+    cudaError_t err = cudaLaunchKernelEx(&cfg, fused_logmel_kernel<SLICED>,
+                                         sig, basis, fb, bands, out, g, eps);
     if (err != cudaSuccess) return err;
     return cudaGetLastError();
 }
@@ -408,10 +444,11 @@ cudaError_t launch(const float* sig, const float* basis, const float* fb,
 extern "C" {
 
 // One launch on the host's plan (`logmel_plan`): tiles of 64 frames,
-// clusters of CS CTAs (1 to 16, at most one per chunk of 32 bins), `smem`
-// bytes of dynamic shared memory, which must equal what the kernel lays
-// out.  sig is the unpadded (B, T) signal; `lo` zeros of the fading pad
-// precede it, and n_frames frames of L samples every `shift` are taken.
+// clusters of CS CTAs (1 to 16, at most one per chunk of 32 bins), the
+// span route (sliced = 0) or the sliced one, `smem` bytes of dynamic
+// shared memory, which must equal what the kernel lays out.  sig is the
+// unpadded (B, T) signal; `lo` zeros of the fading pad precede it, and
+// n_frames frames of L samples every `shift` are taken.
 // NCH = ceil(F / 32) chunks; the basis has NCH * LK * 64 floats in the
 // kernel's layout (LK: L rounded up to 32).  bands: (M, 3) as the kernel
 // takes them, E partial sums a frame.  A plan the kernel does not take is
@@ -420,7 +457,8 @@ extern "C" {
 int fused_logmel_fwd(const void* sig, const void* basis, const void* fb,
                      const void* bands, void* out, int B, int T, int lo,
                      int n_frames, int L, int F, int M, int E, int shift,
-                     int CS, int smem, float eps, int device, void* stream) {
+                     int CS, int sliced, int smem, float eps, int device,
+                     void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return err;
     Geometry g;
@@ -437,17 +475,18 @@ int fused_logmel_fwd(const void* sig, const void* basis, const void* fb,
     g.NCH = (F + BINS - 1) / BINS;
     g.CS = CS;
     g.E = E;
+    g.sliced = sliced != 0;
     if (B < 1 || B > 65535 || T < 1 || lo < 0 || n_frames < 1 || L < 1
         || F < 1 || M < 1 || E < 0 || shift < 1 || device < 0
         || device >= 64 || CS < 1 || CS > MAX_CS || CS > g.NCH || smem < 0
         || (size_t)smem != sizeof(float) * smem_floats(g)) {
         return cudaErrorInvalidValue;
     }
-    return launch(static_cast<const float*>(sig),
-                  static_cast<const float*>(basis),
-                  static_cast<const float*>(fb),
-                  static_cast<const int*>(bands), static_cast<float*>(out),
-                  g, B, smem, eps, device, static_cast<cudaStream_t>(stream));
+    return (g.sliced ? launch<true> : launch<false>)(
+        static_cast<const float*>(sig), static_cast<const float*>(basis),
+        static_cast<const float*>(fb), static_cast<const int*>(bands),
+        static_cast<float*>(out), g, B, smem, eps, device,
+        static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

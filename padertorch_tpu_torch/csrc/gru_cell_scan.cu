@@ -59,7 +59,13 @@
 // thread owns one (row, unit) pair of one slice, the partial sums meet in
 // shared memory and the first slice's thread applies the cell and the mask
 // freeze.  out[t] and h_t go to device memory, h_t through a ping-pong
-// buffer, then the grid syncs once.
+// buffer, then the grid syncs once.  Where no such grid is co-resident
+// (two directions of float32 W_hh at H = 2048 are 100 MB), the streamed
+// variant (`STREAM`) runs the same grid and arithmetic with the weights
+// read from device memory every step, as the slots it would stage packed
+// once a launch (`pack_slots`, lstm_common.cuh: one load a slot; bf16
+// slots half the bytes), and shared memory for the rest (`pick_route`,
+// lstm_common.cuh, tries the staged grid first).
 //
 // Both routes: float32 on the CUDA cores (the limits tell TF32 from
 // float32); the products gh_r, gh_z, gh_n start from zero and the input
@@ -105,8 +111,10 @@ namespace {
 // Shared memory: w_s (H, U) of W4 (the three gates' weights, one lane
 // unused) | red (KS - 1, P) of float4 | h_s (RS, H).
 // vec: H % 4 == 0 and h0, hbuf 16-byte aligned, so rows of h copy as
-// float4.
-template <bool TRAIN, bool BF16>
+// float4.  STREAM: the streamed route (see the top): w_s is empty, w holds
+// the packed slots (D, H, H) of W4, and the product reads the block's
+// slots from device memory every step.
+template <bool TRAIN, bool BF16, bool STREAM>
 __global__ void __launch_bounds__(1024) gru_fwd_kernel(
         const typename ScanTypes<BF16>::S* __restrict__ gx,
         const float* __restrict__ w,
@@ -131,7 +139,7 @@ __global__ void __launch_bounds__(1024) gru_fwd_kernel(
     const int r_lo = rb * RB;
     const int r_hi = min(Bd, r_lo + RB);
     W4* w_s = reinterpret_cast<W4*>(smem4);           // (H, U) of 3 gates
-    float4* red = reinterpret_cast<float4*>(w_s + (size_t)H * U);
+    float4* red = reinterpret_cast<float4*>(w_s + (STREAM ? 0 : (size_t)H * U));
     float* h_s = reinterpret_cast<float*>(red + (size_t)(KS - 1) * P);
     const int tid = threadIdx.x;
     const int nthreads = blockDim.x;
@@ -146,7 +154,7 @@ __global__ void __launch_bounds__(1024) gru_fwd_kernel(
 
     // stage this block's slice of W_hh[d]; units past H are zero
     const float* wd = w + (size_t)d * H * G;
-    for (int idx = tid; idx < H * U * 3; idx += nthreads) {
+    for (int idx = tid; !STREAM && idx < H * U * 3; idx += nthreads) {
         const int k = idx / (3 * U);
         const int q = idx % (3 * U);
         const int g = q / U;
@@ -192,7 +200,15 @@ __global__ void __launch_bounds__(1024) gru_fwd_kernel(
 #pragma unroll 4
                 for (int k = k_lo; k < k_hi; ++k) {
                     const float hk = Ty::operand(hr[k]);
-                    const float4 wk = Ty::unpack(w_s[(size_t)k * U + u]);
+                    float4 wk;
+                    if constexpr (STREAM) {
+                        // the staged slot, packed in device memory
+                        wk = Ty::unpack(__ldg(
+                            reinterpret_cast<const W4*>(w)
+                            + ((size_t)d * H + k) * H + j));
+                    } else {
+                        wk = Ty::unpack(w_s[(size_t)k * U + u]);
+                    }
                     acc_r = fmaf(hk, wk.x, acc_r);
                     acc_z = fmaf(hk, wk.y, acc_z);
                     acc_n = fmaf(hk, wk.z, acc_n);
@@ -237,39 +253,56 @@ __global__ void __launch_bounds__(1024) gru_fwd_kernel(
     }
 }
 
-// Launch the whole recurrence on the grid `pick_scan_grid` chooses, with
-// the shared memory of the variant (W_hh's slots in its element type).
-// Fails with cudaErrorCooperativeLaunchTooLarge when no grid is
-// co-resident.  Returns cudaGetLastError() after the launch.
+// The cooperative kernel's grid (`pick_route`, lstm_common.cuh): W_hh's
+// slots in the variant's element type staged (resident) or, where no such
+// grid is co-resident, read from device memory every step (streamed).
 template <bool TRAIN, bool BF16>
-int launch_fwd(const void* gx, const void* w, const void* mask,
-               const void* h0, void* out, void* acts, void* ghn,
-               void* hprev, void* hT, void* hbuf, int T, int D, int Bd,
-               int H, int device, void* stream) {
-    using S = typename ScanTypes<BF16>::S;
+cudaError_t pick_grid(int D, int Bd, int H, int device, ScanGrid* best,
+                      int* streamed) {
     using W4 = typename ScanTypes<BF16>::W4;
-    const void* kernel = (const void*)gru_fwd_kernel<TRAIN, BF16>;
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return err;
     int n_sm = 0, max_smem = 0, coop = 0;
     cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
     cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
     cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
     if (!coop) return cudaErrorNotSupported;
-    const auto smem_bytes = [H](int U, int RB, int RS, int KS) {
-        return sizeof(W4) * (size_t)H * U
-               + sizeof(float) * ((size_t)(KS - 1) * RS * U * 4
-                                  + (size_t)RS * H);
+    const auto rest = [H](int U, int RB, int RS, int KS) {
+        return sizeof(float) * ((size_t)(KS - 1) * RS * U * 4
+                                + (size_t)RS * H);
     };
+    return pick_route((const void*)gru_fwd_kernel<TRAIN, BF16, false>,
+                      (const void*)gru_fwd_kernel<TRAIN, BF16, true>, D, Bd,
+                      H, H, n_sm, max_smem, sizeof(W4) * (size_t)H, rest,
+                      best, streamed);
+}
+
+// Launch the whole recurrence on the grid `pick_grid` chooses (on the
+// streamed route W_hh packed into `wpack`, packed_slots_bytes of the
+// forward).  Fails with cudaErrorCooperativeLaunchTooLarge when no grid is
+// co-resident on either route.  Returns cudaGetLastError() after the
+// launch.
+template <bool TRAIN, bool BF16>
+int launch_fwd(const void* gx, const void* w, void* wpack, const void* mask,
+               const void* h0, void* out, void* acts, void* ghn,
+               void* hprev, void* hT, void* hbuf, int T, int D, int Bd,
+               int H, int device, void* stream) {
+    using S = typename ScanTypes<BF16>::S;
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return err;
     ScanGrid best;
-    err = pick_scan_grid(kernel, D, Bd, H, H, n_sm, max_smem, smem_bytes,
-                         &best);
+    int streamed = 0;
+    err = pick_grid<TRAIN, BF16>(D, Bd, H, device, &best, &streamed);
     if (err != cudaSuccess) return err;
     if (best.blocks == 0) return cudaErrorCooperativeLaunchTooLarge;
     int vec = H % 4 == 0 && reinterpret_cast<uintptr_t>(h0) % 16 == 0
               && reinterpret_cast<uintptr_t>(hbuf) % 16 == 0;
     const S* gx_ = static_cast<const S*>(gx);
     const float* w_ = static_cast<const float*>(w);
+    if (streamed) {
+        err = pack_slots<BF16>(w_, wpack, D, H, 3, true,
+                               static_cast<cudaStream_t>(stream));
+        if (err != cudaSuccess) return err;
+        w_ = static_cast<const float*>(wpack);
+    }
     const float* mask_ = static_cast<const float*>(mask);
     const float* h0_ = static_cast<const float*>(h0);
     S* out_ = static_cast<S*>(out);
@@ -282,8 +315,10 @@ int launch_fwd(const void* gx, const void* w, const void* mask,
                     &hT_, &hbuf_, &T, &Bd, &H, &best.U, &best.n_ub,
                     &best.n_rb, &best.RB, &best.RS, &best.KS, &vec};
     err = cudaLaunchCooperativeKernel(
-        kernel, dim3(best.blocks), dim3(best.threads), args,
-        best.smem, static_cast<cudaStream_t>(stream));
+        streamed ? (const void*)gru_fwd_kernel<TRAIN, BF16, true>
+                 : (const void*)gru_fwd_kernel<TRAIN, BF16, false>,
+        dim3(best.blocks), dim3(best.threads), args, best.smem,
+        static_cast<cudaStream_t>(stream));
     if (err != cudaSuccess) return err;
     return cudaGetLastError();
 }
@@ -609,23 +644,28 @@ int launch_resident(const void* gx, const void* w, const void* mask,
 
 extern "C" {
 
-// Inference forward: out, h_T.
-int gru_cell_scan_fwd(const void* gx, const void* w, const void* mask,
-                      const void* h0, void* out, void* hT, void* hbuf,
-                      int T, int D, int Bd, int H, int device,
+// Inference forward: out, h_T.  `wpack`: scratch of
+// packed_slots_bytes(bf16, D, H, 3, fwd) for the streamed route's packed
+// weights, null where the card takes the cooperative grid that stages
+// them.
+int gru_cell_scan_fwd(const void* gx, const void* w, void* wpack,
+                      const void* mask, const void* h0, void* out, void* hT,
+                      void* hbuf, int T, int D, int Bd, int H, int device,
                       void* stream) {
-    return launch_fwd<false, false>(gx, w, mask, h0, out, nullptr, nullptr,
-                                    nullptr, hT, hbuf, T, D, Bd, H, device,
-                                    stream);
+    return launch_fwd<false, false>(gx, w, wpack, mask, h0, out, nullptr,
+                                    nullptr, nullptr, hT, hbuf, T, D, Bd, H,
+                                    device, stream);
 }
 
 // Training forward: also acts (T, R, 3H), ghn and hprev (T, R, H).
-int gru_cell_scan_fwd_train(const void* gx, const void* w, const void* mask,
-                            const void* h0, void* out, void* acts, void* ghn,
-                            void* hprev, void* hT, void* hbuf, int T, int D,
-                            int Bd, int H, int device, void* stream) {
-    return launch_fwd<true, false>(gx, w, mask, h0, out, acts, ghn, hprev,
-                                   hT, hbuf, T, D, Bd, H, device, stream);
+int gru_cell_scan_fwd_train(const void* gx, const void* w, void* wpack,
+                            const void* mask, const void* h0, void* out,
+                            void* acts, void* ghn, void* hprev, void* hT,
+                            void* hbuf, int T, int D, int Bd, int H,
+                            int device, void* stream) {
+    return launch_fwd<true, false>(gx, w, wpack, mask, h0, out, acts, ghn,
+                                   hprev, hT, hbuf, T, D, Bd, H, device,
+                                   stream);
 }
 
 // Resident route (see the header): the plan from ops/kernels/gru.py.
@@ -655,22 +695,24 @@ int gru_cell_scan_fwd_train_resident(const void* gx, const void* w,
 // The bf16 variants of the four: gx, out (and acts, ghn, hprev) bf16; w,
 // mask, h0, hT, hbuf float32; products of bf16-rounded operands summed in
 // float32.
-int gru_cell_scan_fwd_bf16(const void* gx, const void* w, const void* mask,
-                           const void* h0, void* out, void* hT, void* hbuf,
-                           int T, int D, int Bd, int H, int device,
-                           void* stream) {
-    return launch_fwd<false, true>(gx, w, mask, h0, out, nullptr, nullptr,
-                                   nullptr, hT, hbuf, T, D, Bd, H, device,
-                                   stream);
+int gru_cell_scan_fwd_bf16(const void* gx, const void* w, void* wpack,
+                           const void* mask, const void* h0, void* out,
+                           void* hT, void* hbuf, int T, int D, int Bd,
+                           int H, int device, void* stream) {
+    return launch_fwd<false, true>(gx, w, wpack, mask, h0, out, nullptr,
+                                   nullptr, nullptr, hT, hbuf, T, D, Bd, H,
+                                   device, stream);
 }
 
 int gru_cell_scan_fwd_train_bf16(const void* gx, const void* w,
-                                 const void* mask, const void* h0, void* out,
-                                 void* acts, void* ghn, void* hprev,
-                                 void* hT, void* hbuf, int T, int D, int Bd,
-                                 int H, int device, void* stream) {
-    return launch_fwd<true, true>(gx, w, mask, h0, out, acts, ghn, hprev,
-                                  hT, hbuf, T, D, Bd, H, device, stream);
+                                 void* wpack, const void* mask,
+                                 const void* h0, void* out, void* acts,
+                                 void* ghn, void* hprev, void* hT,
+                                 void* hbuf, int T, int D, int Bd, int H,
+                                 int device, void* stream) {
+    return launch_fwd<true, true>(gx, w, wpack, mask, h0, out, acts, ghn,
+                                  hprev, hT, hbuf, T, D, Bd, H, device,
+                                  stream);
 }
 
 int gru_cell_scan_fwd_resident_bf16(const void* gx, const void* w,
@@ -700,6 +742,36 @@ int gru_cell_scan_fwd_train_resident_bf16(const void* gx, const void* w,
 
 // The card's SM count and the shared memory one block may opt in to, for
 // the host planner: out[0], out[1].
+// The cooperative forwards' grid at (D, Bd, H), float32 (bf16 = 0) or
+// bf16, lean (train = 0) or training: out[0..6] = U, n_rb, RB, RS, KS,
+// blocks (0 when no grid is co-resident), streamed (1: the streamed
+// route).
+int gru_cell_scan_fwd_grid(int D, int Bd, int H, int bf16, int train,
+                           int device, void* out) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return err;
+    ScanGrid g;
+    int streamed = 0;
+    err = bf16 ? (train ? pick_grid<true, true>(D, Bd, H, device, &g,
+                                                &streamed)
+                        : pick_grid<false, true>(D, Bd, H, device, &g,
+                                                 &streamed))
+               : (train ? pick_grid<true, false>(D, Bd, H, device, &g,
+                                                 &streamed)
+                        : pick_grid<false, false>(D, Bd, H, device, &g,
+                                                  &streamed));
+    if (err != cudaSuccess) return err;
+    int* o = static_cast<int*>(out);
+    o[0] = g.U;
+    o[1] = g.n_rb;
+    o[2] = g.RB;
+    o[3] = g.RS;
+    o[4] = g.KS;
+    o[5] = g.blocks;
+    o[6] = streamed;
+    return cudaSuccess;
+}
+
 int gru_cell_scan_device_limits(int device, void* out) {
     int* limits = static_cast<int*>(out);
     cudaError_t err = cudaDeviceGetAttribute(

@@ -61,7 +61,13 @@
 // and forms dh_{t-1} for its own units; the sum is split into KS slices,
 // one per group of threads, which meet in shared memory.  The cell part of
 // step t-1 follows without another grid sync: it writes dgh[t-1] while
-// slower blocks may still read dgh[t].
+// slower blocks may still read dgh[t].  Where no such grid is co-resident
+// (two directions of float32 W_hh at H = 2048 are 100 MB), the streamed
+// variant (`STREAM`) runs the same grid and arithmetic, each thread
+// reading its unit's row of W_hh[d] from device memory every step, as the
+// slots it would stage packed once a launch (`pack_slots`,
+// lstm_common.cuh: one load a slot; bf16 slots half the bytes)
+// (`pick_route`, lstm_common.cuh, tries the staged grid first).
 //
 // Both routes: float32 on the CUDA cores; masked steps (mask 0): dgx and
 // dgh are 0 and dh passes through unchanged.  No atomics: each sum is in a
@@ -104,7 +110,11 @@ namespace {
 // vec: rows of dgh copy 16 bytes at a time (float32: H % 4 == 0; bf16:
 // H % 8 == 0; dgh 16-byte aligned), else one element at a time.
 // BF16: acts, ghn, hprev, dout, dgx and dgh are bf16 (see the top).
-template <bool BF16>
+// STREAM: the streamed route (see the top): w_s is empty, w holds the
+// packed slots (D, G4, H) of W4 (slot (d, c, j): columns 4c ... 4c + 3 of
+// row j, zeros past 3H), and the product reads row j's slots from device
+// memory every step.
+template <bool BF16, bool STREAM>
 __global__ void __launch_bounds__(1024) gru_bwd_kernel(
         const typename ScanTypes<BF16>::S* __restrict__ acts,
         const typename ScanTypes<BF16>::S* __restrict__ ghn,
@@ -134,7 +144,7 @@ __global__ void __launch_bounds__(1024) gru_bwd_kernel(
     const int r_hi = min(Bd, r_lo + RB);
     const int n_own = (r_hi - r_lo) * U;                  // (row, unit) pairs
     W4* w_s = reinterpret_cast<W4*>(smem4);               // (G4, U)
-    W4* dgh_s = w_s + (size_t)G4 * U;                     // (RS, G4)
+    W4* dgh_s = w_s + (STREAM ? 0 : (size_t)G4 * U);      // (RS, G4)
     float* red = reinterpret_cast<float*>(dgh_s + (size_t)RS * G4);
     float* dh_s = red + (size_t)(KS - 1) * P;             // (RB, U)
     float* dhz_s = dh_s + (size_t)RB * U;                 // (RB, U)
@@ -152,12 +162,13 @@ __global__ void __launch_bounds__(1024) gru_bwd_kernel(
     // zero the weights and the staging buffer once (the columns past 3H
     // stay zero), then stage the rows of W_hh[d] that belong to this
     // block's units; units past H are zero
-    for (int idx = tid; idx < G4 * (U + RS); idx += nthreads) {
+    for (int idx = tid; idx < G4 * ((STREAM ? 0 : U) + RS);
+         idx += nthreads) {
         w_s[idx] = W4{};
     }
     __syncthreads();
     const float* wd = w + (size_t)d * H * G;
-    for (int idx = tid; idx < U * G; idx += nthreads) {
+    for (int idx = tid; !STREAM && idx < U * G; idx += nthreads) {
         const int uu = idx / G;
         const int c = idx % G;
         const int jj = ub * U + uu;
@@ -243,10 +254,19 @@ __global__ void __launch_bounds__(1024) gru_bwd_kernel(
             float acc = 0.f;
             if (active) {
                 const W4* dr = dgh_s + (size_t)(r - rc) * G4;
+                // row j's packed slots (STREAM), H apart
+                const W4* wr = reinterpret_cast<const W4*>(w)
+                               + (size_t)d * G4 * H + j;
 #pragma unroll 4
                 for (int k = k_lo; k < k_hi; ++k) {
                     const float4 z = Ty::unpack(dr[k]);
-                    const float4 wk = Ty::unpack(w_s[(size_t)k * U + u]);
+                    float4 wk;
+                    if constexpr (STREAM) {
+                        // the staged slot, packed in device memory
+                        wk = Ty::unpack(__ldg(wr + (size_t)k * H));
+                    } else {
+                        wk = Ty::unpack(w_s[(size_t)k * U + u]);
+                    }
                     acc = fmaf(z.x, wk.x, acc);
                     acc = fmaf(z.y, wk.y, acc);
                     acc = fmaf(z.z, wk.z, acc);
@@ -522,35 +542,49 @@ cudaError_t launch_resident_rs(const typename ScanTypes<BF16>::S* acts,
     return cudaErrorInvalidValue;
 }
 
-// Cooperative route: launch the whole adjoint recurrence on the grid
-// `pick_scan_grid` chooses, with the variant's shared memory (W_hh's rows
-// and the staged dgh rows in its element type).  Fails with
-// cudaErrorCooperativeLaunchTooLarge when no grid is co-resident.
-// Returns cudaGetLastError() after the launch.
+// The cooperative kernel's grid (`pick_route`, lstm_common.cuh): W_hh's
+// rows staged in the variant's element type (resident) or, where no such
+// grid is co-resident, read from device memory every step (streamed), and
+// the staged dgh rows.
 template <bool BF16>
-int launch_bwd(const void* acts, const void* ghn, const void* hprev,
-               const void* w, const void* mask, const void* dout,
-               const void* dhT, void* dgx, void* dgh, void* dh0, int T,
-               int D, int Bd, int H, int device, void* stream) {
-    using S = typename ScanTypes<BF16>::S;
+cudaError_t pick_grid(int D, int Bd, int H, int device, ScanGrid* best,
+                      int* streamed) {
     using W4 = typename ScanTypes<BF16>::W4;
-    const void* kernel = (const void*)gru_bwd_kernel<BF16>;
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return err;
     int n_sm = 0, max_smem = 0, coop = 0;
     cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
     cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
     cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
     if (!coop) return cudaErrorNotSupported;
     const int G4 = (3 * H + 3) / 4;
-    const auto smem_bytes = [G4](int U, int RB, int RS, int KS) {
-        return sizeof(W4) * ((size_t)G4 * U + (size_t)RS * G4)
+    const auto rest = [G4](int U, int RB, int RS, int KS) {
+        return sizeof(W4) * (size_t)RS * G4
                + sizeof(float) * ((size_t)(KS - 1) * RS * U
                                   + 2 * (size_t)RB * U);
     };
+    return pick_route((const void*)gru_bwd_kernel<BF16, false>,
+                      (const void*)gru_bwd_kernel<BF16, true>, D, Bd, H, G4,
+                      n_sm, max_smem, sizeof(W4) * (size_t)G4, rest, best,
+                      streamed);
+}
+
+// Cooperative route: launch the whole adjoint recurrence on the grid
+// `pick_grid` chooses (on the streamed route W_hh packed into `wpack`,
+// packed_slots_bytes of the backward).  Fails with
+// cudaErrorCooperativeLaunchTooLarge when no grid is co-resident on either
+// route.  Returns cudaGetLastError() after the launch.
+template <bool BF16>
+int launch_bwd(const void* acts, const void* ghn, const void* hprev,
+               const void* w, void* wpack, const void* mask,
+               const void* dout,
+               const void* dhT, void* dgx, void* dgh, void* dh0, int T,
+               int D, int Bd, int H, int device, void* stream) {
+    using S = typename ScanTypes<BF16>::S;
+    using W4 = typename ScanTypes<BF16>::W4;
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return err;
     ScanGrid best;
-    err = pick_scan_grid(kernel, D, Bd, H, G4, n_sm, max_smem, smem_bytes,
-                         &best);
+    int streamed = 0;
+    err = pick_grid<BF16>(D, Bd, H, device, &best, &streamed);
     if (err != cudaSuccess) return err;
     if (best.blocks == 0) return cudaErrorCooperativeLaunchTooLarge;
     int vec = H % (16 / sizeof(W4) * 4) == 0
@@ -559,6 +593,12 @@ int launch_bwd(const void* acts, const void* ghn, const void* hprev,
     const S* ghn_ = static_cast<const S*>(ghn);
     const S* hprev_ = static_cast<const S*>(hprev);
     const float* w_ = static_cast<const float*>(w);
+    if (streamed) {
+        err = pack_slots<BF16>(w_, wpack, D, H, 3, false,
+                               static_cast<cudaStream_t>(stream));
+        if (err != cudaSuccess) return err;
+        w_ = static_cast<const float*>(wpack);
+    }
     const float* mask_ = static_cast<const float*>(mask);
     const S* dout_ = static_cast<const S*>(dout);
     const float* dhT_ = static_cast<const float*>(dhT);
@@ -569,7 +609,9 @@ int launch_bwd(const void* acts, const void* ghn, const void* hprev,
                     &dgx_, &dgh_, &dh0_, &T, &Bd, &H, &best.U, &best.n_ub,
                     &best.n_rb, &best.RB, &best.RS, &best.KS, &vec};
     err = cudaLaunchCooperativeKernel(
-        kernel, dim3(best.blocks), dim3(best.threads), args, best.smem,
+        streamed ? (const void*)gru_bwd_kernel<BF16, true>
+                 : (const void*)gru_bwd_kernel<BF16, false>,
+        dim3(best.blocks), dim3(best.threads), args, best.smem,
         static_cast<cudaStream_t>(stream));
     if (err != cudaSuccess) return err;
     return cudaGetLastError();
@@ -633,14 +675,40 @@ int launch_bwd_resident(const void* acts, const void* ghn, const void* hprev,
 
 extern "C" {
 
+// The cooperative backward's grid at (D, Bd, H), float32 (bf16 = 0) or
+// bf16: out[0..6] = U, n_rb, RB, RS, KS, blocks (0 when no grid is
+// co-resident), streamed (1: the streamed route).
+int gru_cell_scan_bwd_grid(int D, int Bd, int H, int bf16, int device,
+                           void* out) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return err;
+    ScanGrid g;
+    int streamed = 0;
+    err = bf16 ? pick_grid<true>(D, Bd, H, device, &g, &streamed)
+               : pick_grid<false>(D, Bd, H, device, &g, &streamed);
+    if (err != cudaSuccess) return err;
+    int* o = static_cast<int*>(out);
+    o[0] = g.U;
+    o[1] = g.n_rb;
+    o[2] = g.RB;
+    o[3] = g.RS;
+    o[4] = g.KS;
+    o[5] = g.blocks;
+    o[6] = streamed;
+    return cudaSuccess;
+}
+
 // The adjoint recurrence, float32 streams, on the cooperative route.
+// `wpack`: scratch of packed_slots_bytes(bf16, D, H, 3, bwd) for the
+// streamed route's packed weights, null where the card takes the grid
+// that stages them.
 int gru_cell_scan_bwd(const void* acts, const void* ghn, const void* hprev,
-                      const void* w, const void* mask, const void* dout,
-                      const void* dhT, void* dgx, void* dgh, void* dh0,
-                      int T, int D, int Bd, int H, int device,
-                      void* stream) {
-    return launch_bwd<false>(acts, ghn, hprev, w, mask, dout, dhT, dgx, dgh,
-                             dh0, T, D, Bd, H, device, stream);
+                      const void* w, void* wpack, const void* mask,
+                      const void* dout, const void* dhT, void* dgx,
+                      void* dgh, void* dh0, int T, int D, int Bd, int H,
+                      int device, void* stream) {
+    return launch_bwd<false>(acts, ghn, hprev, w, wpack, mask, dout, dhT,
+                             dgx, dgh, dh0, T, D, Bd, H, device, stream);
 }
 
 // ... and on the resident route.
@@ -660,13 +728,13 @@ int gru_cell_scan_bwd_resident(const void* acts, const void* ghn,
 // w, mask, dhT and dh0 float32; dh_{t-1} from bf16(dgh) @ bf16(W_hh)^T
 // summed in float32.
 int gru_cell_scan_bwd_bf16(const void* acts, const void* ghn,
-                           const void* hprev, const void* w,
+                           const void* hprev, const void* w, void* wpack,
                            const void* mask, const void* dout,
                            const void* dhT, void* dgx, void* dgh, void* dh0,
                            int T, int D, int Bd, int H, int device,
                            void* stream) {
-    return launch_bwd<true>(acts, ghn, hprev, w, mask, dout, dhT, dgx, dgh,
-                            dh0, T, D, Bd, H, device, stream);
+    return launch_bwd<true>(acts, ghn, hprev, w, wpack, mask, dout, dhT,
+                            dgx, dgh, dh0, T, D, Bd, H, device, stream);
 }
 
 int gru_cell_scan_bwd_resident_bf16(const void* acts, const void* ghn,

@@ -45,6 +45,18 @@
 // (lstm_cell_scan_bwd.cu).  The inference variant is compiled without
 // them, so it writes a third of the bytes.
 //
+// Streamed route (`STREAM`): where no grid that stages W_hh is
+// co-resident (two directions of float32 W_hh at H = 1024 are 33.5 MB,
+// the 132 SMs' shared memory about 30 MB), the same grid, chosen by the
+// same rule with shared memory for everything but the weights, reads each
+// block's weights from device memory every step (33.5 MB a step stays in
+// the 50 MB L2), as the slots it would stage, packed once a launch
+// (`pack_slots`, lstm_common.cuh: one load a slot; bf16 slots rounded
+// once, half the bytes).  The arithmetic and its order are the resident route's,
+// so a row's bits do not depend on the route.  The host tries the
+// resident route first (`pick_route`, lstm_common.cuh), so every layer
+// that fits keeps its grid.
+//
 // bf16 (`BF16`, the JAX package's `compute_dtype='bfloat16'` with bf16
 // streams): gx is read, and out, the gates and c_seq are written, as bf16
 // (`ScanTypes<true>`, lstm_common.cuh: widened on load, rounded to nearest
@@ -78,7 +90,10 @@ namespace {
 // (KS - 1, P) of float4 partial gates | h_s (RS, H) | c_s (RB, U).
 // vec: H % 4 == 0 and h0, hbuf 16-byte aligned, so rows of h copy as
 // float4.  BF16: gx, out, c_seq and gates are bf16 (see the top).
-template <bool TRAIN, bool BF16>
+// STREAM: the streamed route (see the top): w_s is empty, w holds the
+// packed slots (D, H, H) of W4, and the product reads the block's slots
+// from device memory every step.
+template <bool TRAIN, bool BF16, bool STREAM>
 __global__ void __launch_bounds__(1024) lstm_fwd_kernel(
         const typename ScanTypes<BF16>::S* __restrict__ gx,
         const float* __restrict__ w,
@@ -104,7 +119,7 @@ __global__ void __launch_bounds__(1024) lstm_fwd_kernel(
     const int r_lo = rb * RB;
     const int r_hi = min(Bd, r_lo + RB);
     W4* w_s = reinterpret_cast<W4*>(smem4);           // (H, U) of 4 gates
-    float4* red = reinterpret_cast<float4*>(w_s + (size_t)H * U);
+    float4* red = reinterpret_cast<float4*>(w_s + (STREAM ? 0 : (size_t)H * U));
     float* h_s = reinterpret_cast<float*>(red + (size_t)(KS - 1) * P);
     float* c_s = h_s + (size_t)RS * H;                // (RB, U)
     const int tid = threadIdx.x;
@@ -120,7 +135,7 @@ __global__ void __launch_bounds__(1024) lstm_fwd_kernel(
 
     // stage this block's slice of W_hh[d]; units past H are zero
     const float* wd = w + (size_t)d * H * G;
-    for (int idx = tid; idx < H * U * 4; idx += nthreads) {
+    for (int idx = tid; !STREAM && idx < H * U * 4; idx += nthreads) {
         const int k = idx / (4 * U);
         const int q = idx % (4 * U);
         const int g = q / U;
@@ -170,7 +185,15 @@ __global__ void __launch_bounds__(1024) lstm_fwd_kernel(
 #pragma unroll 4
                 for (int k = k_lo; k < k_hi; ++k) {
                     const float hk = Ty::operand(hr[k]);
-                    const float4 wk = Ty::unpack(w_s[(size_t)k * U + u]);
+                    float4 wk;
+                    if constexpr (STREAM) {
+                        // the staged slot, packed in device memory
+                        wk = Ty::unpack(__ldg(
+                            reinterpret_cast<const W4*>(w)
+                            + ((size_t)d * H + k) * H + j));
+                    } else {
+                        wk = Ty::unpack(w_s[(size_t)k * U + u]);
+                    }
                     acc.x = fmaf(hk, wk.x, acc.x);
                     acc.y = fmaf(hk, wk.y, acc.y);
                     acc.z = fmaf(hk, wk.z, acc.z);
@@ -223,41 +246,60 @@ __global__ void __launch_bounds__(1024) lstm_fwd_kernel(
     }
 }
 
-// Launch the whole recurrence on the grid `pick_scan_grid` chooses, with
-// the LSTM's shared memory (the weights' four gate columns, in the
-// variant's element type, the partial gates of KS - 1 slices, h of RS rows
-// and c of the block's RB rows).  Fails with
-// cudaErrorCooperativeLaunchTooLarge when no grid is co-resident.  Returns
-// cudaGetLastError() after the launch.
+// The grid of a launch (`pick_route`, lstm_common.cuh): resident or
+// streamed, with the LSTM's shared memory (the weights' four gate columns,
+// in the variant's element type, on the resident route only; the partial
+// gates of KS - 1 slices, h of RS rows and c of the block's RB rows).
 template <bool TRAIN, bool BF16>
-int launch_fwd(const void* gx, const void* w, const void* mask,
-               const void* h0, const void* c0, void* out, void* c_seq,
-               void* gates, void* hT, void* cT, void* hbuf, int T, int D,
-               int Bd, int H, int device, void* stream) {
-    using S = typename ScanTypes<BF16>::S;
+cudaError_t pick_grid(int D, int Bd, int H, int device, ScanGrid* best,
+                      int* streamed) {
     using W4 = typename ScanTypes<BF16>::W4;
-    const void* kernel = (const void*)lstm_fwd_kernel<TRAIN, BF16>;
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return err;
     int n_sm = 0, max_smem = 0, coop = 0;
     cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
     cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
     cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
     if (!coop) return cudaErrorNotSupported;
-    const auto smem_bytes = [H](int U, int RB, int RS, int KS) {
-        return sizeof(W4) * (size_t)H * U
-               + sizeof(float) * ((size_t)(KS - 1) * RS * U * 4
-                                  + (size_t)RS * H + (size_t)RB * U);
+    const auto rest = [H](int U, int RB, int RS, int KS) {
+        return sizeof(float) * ((size_t)(KS - 1) * RS * U * 4
+                                + (size_t)RS * H + (size_t)RB * U);
     };
+    return pick_route((const void*)lstm_fwd_kernel<TRAIN, BF16, false>,
+                      (const void*)lstm_fwd_kernel<TRAIN, BF16, true>, D, Bd,
+                      H, H, n_sm, max_smem, sizeof(W4) * (size_t)H, rest,
+                      best, streamed);
+}
+
+// Launch the whole recurrence on the grid `pick_grid` chooses (on the
+// streamed route W_hh packed into `wpack`, packed_slots_bytes of the
+// forward; it may be null on the resident route).  Fails
+// with cudaErrorCooperativeLaunchTooLarge when no grid is co-resident on
+// either route.  Returns cudaGetLastError() after the launch.
+template <bool TRAIN, bool BF16>
+int launch_fwd(const void* gx, const void* w, void* wpack, const void* mask,
+               const void* h0, const void* c0, void* out, void* c_seq,
+               void* gates, void* hT, void* cT, void* hbuf, int T, int D,
+               int Bd, int H, int device, void* stream) {
+    using S = typename ScanTypes<BF16>::S;
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return err;
     ScanGrid best;
-    err = pick_scan_grid(kernel, D, Bd, H, H, n_sm, max_smem, smem_bytes,
-                         &best);
+    int streamed = 0;
+    err = pick_grid<TRAIN, BF16>(D, Bd, H, device, &best, &streamed);
     if (err != cudaSuccess) return err;
     if (best.blocks == 0) return cudaErrorCooperativeLaunchTooLarge;
+    const void* kernel =
+        streamed ? (const void*)lstm_fwd_kernel<TRAIN, BF16, true>
+                 : (const void*)lstm_fwd_kernel<TRAIN, BF16, false>;
     int vec = H % 4 == 0 && reinterpret_cast<uintptr_t>(h0) % 16 == 0
               && reinterpret_cast<uintptr_t>(hbuf) % 16 == 0;
     const S* gx_ = static_cast<const S*>(gx);
     const float* w_ = static_cast<const float*>(w);
+    if (streamed) {
+        err = pack_slots<BF16>(w_, wpack, D, H, 4, true,
+                               static_cast<cudaStream_t>(stream));
+        if (err != cudaSuccess) return err;
+        w_ = static_cast<const float*>(wpack);
+    }
     const float* mask_ = static_cast<const float*>(mask);
     const float* h0_ = static_cast<const float*>(h0);
     const float* c0_ = static_cast<const float*>(c0);
@@ -285,46 +327,128 @@ const char* ptt_error_string(int err) {
     return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Inference forward: out, h_T, c_T.
-int lstm_cell_scan_fwd(const void* gx, const void* w, const void* mask,
-                       const void* h0, const void* c0, void* out, void* hT,
-                       void* cT, void* hbuf, int T, int D, int Bd, int H,
-                       int device, void* stream) {
-    return launch_fwd<false, false>(gx, w, mask, h0, c0, out, nullptr,
-                                    nullptr, hT, cT, hbuf, T, D, Bd, H,
-                                    device, stream);
+// Inference forward: out, h_T, c_T.  `wpack`: scratch of
+// packed_slots_bytes(bf16, D, H, 4, fwd) for the streamed route's packed
+// weights, null where the card takes the resident route.
+int lstm_cell_scan_fwd(const void* gx, const void* w, void* wpack,
+                       const void* mask, const void* h0, const void* c0,
+                       void* out, void* hT, void* cT, void* hbuf, int T,
+                       int D, int Bd, int H, int device, void* stream) {
+    return launch_fwd<false, false>(gx, w, wpack, mask, h0, c0, out,
+                                    nullptr, nullptr, hT, cT, hbuf, T, D, Bd,
+                                    H, device, stream);
 }
 
 // Training forward: also c_seq (T, R, H) and gates (T, R, 4H).
-int lstm_cell_scan_fwd_train(const void* gx, const void* w, const void* mask,
-                             const void* h0, const void* c0, void* out,
-                             void* c_seq, void* gates, void* hT, void* cT,
-                             void* hbuf, int T, int D, int Bd, int H,
-                             int device, void* stream) {
-    return launch_fwd<true, false>(gx, w, mask, h0, c0, out, c_seq, gates,
-                                   hT, cT, hbuf, T, D, Bd, H, device,
+int lstm_cell_scan_fwd_train(const void* gx, const void* w, void* wpack,
+                             const void* mask, const void* h0,
+                             const void* c0, void* out, void* c_seq,
+                             void* gates, void* hT, void* cT, void* hbuf,
+                             int T, int D, int Bd, int H, int device,
+                             void* stream) {
+    return launch_fwd<true, false>(gx, w, wpack, mask, h0, c0, out, c_seq,
+                                   gates, hT, cT, hbuf, T, D, Bd, H, device,
                                    stream);
 }
 
 // The bf16 variants: gx, out (and c_seq, gates) bf16; w, mask, h0, c0,
 // hT, cT float32; products of bf16-rounded operands summed in float32.
-int lstm_cell_scan_fwd_bf16(const void* gx, const void* w, const void* mask,
-                            const void* h0, const void* c0, void* out,
-                            void* hT, void* cT, void* hbuf, int T, int D,
-                            int Bd, int H, int device, void* stream) {
-    return launch_fwd<false, true>(gx, w, mask, h0, c0, out, nullptr,
+int lstm_cell_scan_fwd_bf16(const void* gx, const void* w, void* wpack,
+                            const void* mask, const void* h0,
+                            const void* c0, void* out, void* hT, void* cT,
+                            void* hbuf, int T, int D, int Bd, int H,
+                            int device, void* stream) {
+    return launch_fwd<false, true>(gx, w, wpack, mask, h0, c0, out, nullptr,
                                    nullptr, hT, cT, hbuf, T, D, Bd, H,
                                    device, stream);
 }
 
 int lstm_cell_scan_fwd_train_bf16(const void* gx, const void* w,
-                                  const void* mask, const void* h0,
-                                  const void* c0, void* out, void* c_seq,
-                                  void* gates, void* hT, void* cT,
-                                  void* hbuf, int T, int D, int Bd, int H,
-                                  int device, void* stream) {
-    return launch_fwd<true, true>(gx, w, mask, h0, c0, out, c_seq, gates,
-                                  hT, cT, hbuf, T, D, Bd, H, device, stream);
+                                  void* wpack, const void* mask,
+                                  const void* h0, const void* c0, void* out,
+                                  void* c_seq, void* gates, void* hT,
+                                  void* cT, void* hbuf, int T, int D, int Bd,
+                                  int H, int device, void* stream) {
+    return launch_fwd<true, true>(gx, w, wpack, mask, h0, c0, out, c_seq,
+                                  gates, hT, cT, hbuf, T, D, Bd, H, device,
+                                  stream);
+}
+
+// A measurement aid for the streamed route: an L2 access-policy window
+// that marks `bytes` from `ptr` as persisting for the kernels launched on
+// `stream` (hit ratio: the share of the window the card's persisting L2
+// holds, which is set to its largest), or with `bytes` 0 clears the
+// window and the persisting lines.  out[0..1] = the persisting L2's bytes
+// and the window's.
+int scan_l2_window(const void* ptr, size_t bytes, int device, void* stream,
+                   void* out) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return err;
+    int max_persist = 0, max_window = 0;
+    cudaDeviceGetAttribute(&max_persist, cudaDevAttrMaxPersistingL2CacheSize,
+                           device);
+    cudaDeviceGetAttribute(&max_window, cudaDevAttrMaxAccessPolicyWindowSize,
+                           device);
+    const size_t window = bytes < (size_t)max_window ? bytes
+                                                     : (size_t)max_window;
+    cudaStreamAttrValue attr = {};
+    attr.accessPolicyWindow.base_ptr = const_cast<void*>(ptr);
+    attr.accessPolicyWindow.num_bytes = window;
+    attr.accessPolicyWindow.hitRatio =
+        window == 0 ? 0.0f
+                    : (max_persist >= (int)window ? 1.0f
+                                                  : (float)max_persist / window);
+    attr.accessPolicyWindow.hitProp = window == 0 ? cudaAccessPropertyNormal
+                                                  : cudaAccessPropertyPersisting;
+    attr.accessPolicyWindow.missProp = window == 0 ? cudaAccessPropertyNormal
+                                                   : cudaAccessPropertyStreaming;
+    if (window > 0) {
+        err = cudaDeviceSetLimit(cudaLimitPersistingL2CacheSize, max_persist);
+        if (err != cudaSuccess) return err;
+    }
+    err = cudaStreamSetAttribute(static_cast<cudaStream_t>(stream),
+                                 cudaStreamAttributeAccessPolicyWindow, &attr);
+    if (err != cudaSuccess) return err;
+    if (window == 0) {
+        err = cudaCtxResetPersistingL2Cache();
+        if (err != cudaSuccess) return err;
+        err = cudaDeviceSetLimit(cudaLimitPersistingL2CacheSize, 0);
+        if (err != cudaSuccess) return err;
+    }
+    int* o = static_cast<int*>(out);
+    o[0] = max_persist;
+    o[1] = (int)window;
+    return cudaSuccess;
+}
+
+// The grid a launch of the lean (train = 0) or training forward, float32
+// (bf16 = 0) or bf16, at (D, Bd, H) takes: out[0..6] = U, n_rb, RB, RS,
+// KS, blocks (0 when no grid is co-resident), streamed (1: the streamed
+// route).
+int lstm_cell_scan_fwd_grid(int D, int Bd, int H, int bf16, int train,
+                            int device, void* out) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return err;
+    ScanGrid g;
+    int streamed = 0;
+    err = bf16 ? (train ? pick_grid<true, true>(D, Bd, H, device, &g,
+                                                &streamed)
+                        : pick_grid<false, true>(D, Bd, H, device, &g,
+                                                 &streamed))
+               : (train ? pick_grid<true, false>(D, Bd, H, device, &g,
+                                                 &streamed)
+                        : pick_grid<false, false>(D, Bd, H, device, &g,
+                                                  &streamed));
+    if (err != cudaSuccess) return err;
+    int* o = static_cast<int*>(out);
+    o[0] = g.U;
+    o[1] = g.n_rb;
+    o[2] = g.RB;
+    o[3] = g.RS;
+    o[4] = g.KS;
+    o[5] = g.blocks;
+    o[6] = streamed;
+    return cudaSuccess;
 }
 
 }  // extern "C"

@@ -32,6 +32,13 @@
 // in slice order.  The cell part of step t-1 follows without another grid
 // sync: it writes dgx[t-1] while slower blocks may still read dgx[t].
 //
+// Streamed route (`STREAM`, where no grid that stages W_hh is
+// co-resident: the forward's rule, lstm_cell_scan.cu): the same grid and
+// arithmetic, each thread reading its unit's row of W_hh[d] from device
+// memory every step, as the slots it would stage (four columns rounded to
+// the variant's element type), packed once a launch (`pack_slots`,
+// lstm_common.cuh: one load a slot; bf16 slots half the bytes).
+//
 // Masked steps (mask 0): dz is 0 and dh, dc pass through unchanged.
 //
 // bf16 (`BF16`, the JAX package's `compute_dtype='bfloat16'` with bf16
@@ -65,7 +72,10 @@ namespace {
 // dz_s (RS, H) of W4 | red (KS - 1, P) | dh_s (RB, U) | dc_s (RB, U).
 // vec: dz rows copy 16 bytes at a time (always for float32; for bf16 when
 // H is even and dgx 16-byte aligned), else 8 bytes (one W4) at a time.
-template <bool BF16>
+// STREAM: the streamed route (see the top): w_s is empty, w holds the
+// packed slots (D, H, H) of W4 (slot (d, c, j): columns 4c ... 4c + 3 of
+// row j), and the product reads row j's slots from device memory.
+template <bool BF16, bool STREAM>
 __global__ void __launch_bounds__(1024) lstm_bwd_kernel(
         const typename ScanTypes<BF16>::S* __restrict__ gates,
         const typename ScanTypes<BF16>::S* __restrict__ c_seq,
@@ -93,7 +103,7 @@ __global__ void __launch_bounds__(1024) lstm_bwd_kernel(
     const int r_hi = min(Bd, r_lo + RB);
     const int n_own = (r_hi - r_lo) * U;                  // (row, unit) pairs
     W4* w_s = reinterpret_cast<W4*>(smem4);               // (H, U)
-    W4* dz_s = w_s + (size_t)H * U;                       // (RS, H)
+    W4* dz_s = w_s + (STREAM ? 0 : (size_t)H * U);        // (RS, H)
     float* red = reinterpret_cast<float*>(dz_s + (size_t)RS * H);
     float* dh_s = red + (size_t)(KS - 1) * P;             // (RB, U)
     float* dc_s = dh_s + (size_t)RB * U;                  // (RB, U)
@@ -111,7 +121,7 @@ __global__ void __launch_bounds__(1024) lstm_bwd_kernel(
     // stage the rows of W_hh[d] that belong to this block's units; units
     // past H are zero
     const float* wd = w + (size_t)d * H * G;
-    for (int idx = tid; idx < U * G; idx += nthreads) {
+    for (int idx = tid; !STREAM && idx < U * G; idx += nthreads) {
         const int uu = idx / G;
         const int c = idx % G;
         const int jj = ub * U + uu;
@@ -192,11 +202,20 @@ __global__ void __launch_bounds__(1024) lstm_bwd_kernel(
                 // four independent chains (the four columns of a float4),
                 // summed in a fixed order
                 const W4* dzr = dz_s + (size_t)(r - rc) * H;
+                // row j's packed slots (STREAM), H apart
+                const W4* wr = reinterpret_cast<const W4*>(w)
+                               + (size_t)d * H * H + j;
                 float4 a4 = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll 4
                 for (int k = k_lo; k < k_hi; ++k) {
                     const float4 z = Ty::unpack(dzr[k]);
-                    const float4 wk = Ty::unpack(w_s[(size_t)k * U + u]);
+                    float4 wk;
+                    if constexpr (STREAM) {
+                        // the staged slot, packed in device memory
+                        wk = Ty::unpack(__ldg(wr + (size_t)k * H));
+                    } else {
+                        wk = Ty::unpack(w_s[(size_t)k * U + u]);
+                    }
                     a4.x = fmaf(z.x, wk.x, a4.x);
                     a4.y = fmaf(z.y, wk.y, a4.y);
                     a4.z = fmaf(z.z, wk.z, a4.z);
@@ -222,12 +241,14 @@ __global__ void __launch_bounds__(1024) lstm_bwd_kernel(
     }
 }
 
-// The grid of a launch: `pick_scan_grid` (lstm_common.cuh), as the
-// forward's, with this kernel's shared memory: W_hh's rows for U units (4H
-// columns) and dz of RS rows, both in the variant's element type, the
-// partial sums of KS - 1 slices, and dh, dc of the block's RB rows.
+// The grid of a launch: `pick_route` (lstm_common.cuh), resident or
+// streamed, as the forward's, with this kernel's shared memory: W_hh's
+// rows for U units (4H columns; resident route only) and dz of RS rows,
+// both in the variant's element type, the partial sums of KS - 1 slices,
+// and dh, dc of the block's RB rows.
 template <bool BF16>
-cudaError_t pick_grid(int D, int Bd, int H, int device, ScanGrid* best) {
+cudaError_t pick_grid(int D, int Bd, int H, int device, ScanGrid* best,
+                      int* streamed) {
     using W4 = typename ScanTypes<BF16>::W4;
     int n_sm = 0, max_smem = 0, coop = 0;
     cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
@@ -235,23 +256,26 @@ cudaError_t pick_grid(int D, int Bd, int H, int device, ScanGrid* best) {
                            cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
     cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
     if (!coop) return cudaErrorNotSupported;
-    const auto smem_bytes = [H](int U, int RB, int RS, int KS) {
-        return sizeof(W4) * ((size_t)H * U + (size_t)RS * H)
+    const auto rest = [H](int U, int RB, int RS, int KS) {
+        return sizeof(W4) * (size_t)RS * H
                + sizeof(float) * ((size_t)(KS - 1) * RS * U
                                   + 2 * (size_t)RB * U);
     };
-    return pick_scan_grid((const void*)lstm_bwd_kernel<BF16>, D, Bd, H, H,
-                          n_sm, max_smem, smem_bytes, best);
+    return pick_route((const void*)lstm_bwd_kernel<BF16, false>,
+                      (const void*)lstm_bwd_kernel<BF16, true>, D, Bd, H, H,
+                      n_sm, max_smem, sizeof(W4) * (size_t)H, rest, best,
+                      streamed);
 }
 
 // Launch the whole adjoint recurrence on the grid `pick_grid` chooses.
 // Fails with cudaErrorCooperativeLaunchTooLarge when no grid is
-// co-resident, and with cudaErrorInvalidValue when dgx is not aligned to a
-// W4 slot (float32: 16 bytes, as its copies need; bf16: 8 bytes).
-// Returns cudaGetLastError() after the launch.
+// co-resident on either route, and with cudaErrorInvalidValue when dgx is
+// not aligned to a W4 slot (float32: 16 bytes, as its copies need; bf16:
+// 8 bytes).  Returns cudaGetLastError() after the launch.
 template <bool BF16>
 int launch_bwd(const void* gates, const void* c_seq, const void* w,
-               const void* mask, const void* dout, const void* dhT,
+               void* wpack, const void* mask, const void* dout,
+               const void* dhT,
                const void* dcT, void* dgx, void* dh0, void* dc0, int T,
                int D, int Bd, int H, int device, void* stream) {
     using S = typename ScanTypes<BF16>::S;
@@ -262,12 +286,19 @@ int launch_bwd(const void* gates, const void* c_seq, const void* w,
     if (at % sizeof(W4) != 0) return cudaErrorInvalidValue;
     int vec = at % 16 == 0 && (4 * H * sizeof(S)) % 16 == 0;
     ScanGrid best;
-    err = pick_grid<BF16>(D, Bd, H, device, &best);
+    int streamed = 0;
+    err = pick_grid<BF16>(D, Bd, H, device, &best, &streamed);
     if (err != cudaSuccess) return err;
     if (best.blocks == 0) return cudaErrorCooperativeLaunchTooLarge;
     const S* gates_ = static_cast<const S*>(gates);
     const S* c_seq_ = static_cast<const S*>(c_seq);
     const float* w_ = static_cast<const float*>(w);
+    if (streamed) {
+        err = pack_slots<BF16>(w_, wpack, D, H, 4, false,
+                               static_cast<cudaStream_t>(stream));
+        if (err != cudaSuccess) return err;
+        w_ = static_cast<const float*>(wpack);
+    }
     const float* mask_ = static_cast<const float*>(mask);
     const S* dout_ = static_cast<const S*>(dout);
     const float* dhT_ = static_cast<const float*>(dhT);
@@ -279,8 +310,9 @@ int launch_bwd(const void* gates, const void* c_seq, const void* w,
                     &dgx_, &dh0_, &dc0_, &T, &Bd, &H, &best.U, &best.n_ub,
                     &best.n_rb, &best.RB, &best.RS, &best.KS, &vec};
     err = cudaLaunchCooperativeKernel(
-        (const void*)lstm_bwd_kernel<BF16>, dim3(best.blocks),
-        dim3(best.threads), args, best.smem,
+        streamed ? (const void*)lstm_bwd_kernel<BF16, true>
+                 : (const void*)lstm_bwd_kernel<BF16, false>,
+        dim3(best.blocks), dim3(best.threads), args, best.smem,
         static_cast<cudaStream_t>(stream));
     if (err != cudaSuccess) return err;
     return cudaGetLastError();
@@ -291,15 +323,16 @@ int launch_bwd(const void* gates, const void* c_seq, const void* w,
 extern "C" {
 
 // The grid a launch of the float32 (bf16 = 0) or bf16 variant at
-// (D, Bd, H) takes: out[0..5] = U, n_rb, RB, RS, KS, blocks (blocks 0
-// when none is co-resident).
+// (D, Bd, H) takes: out[0..6] = U, n_rb, RB, RS, KS, blocks (blocks 0
+// when no grid is co-resident), streamed (1: the streamed route).
 int lstm_cell_scan_bwd_grid(int D, int Bd, int H, int bf16, int device,
                             void* out) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return err;
     ScanGrid best;
-    err = bf16 ? pick_grid<true>(D, Bd, H, device, &best)
-               : pick_grid<false>(D, Bd, H, device, &best);
+    int streamed = 0;
+    err = bf16 ? pick_grid<true>(D, Bd, H, device, &best, &streamed)
+               : pick_grid<false>(D, Bd, H, device, &best, &streamed);
     if (err != cudaSuccess) return err;
     int* o = static_cast<int*>(out);
     o[0] = best.U;
@@ -308,29 +341,32 @@ int lstm_cell_scan_bwd_grid(int D, int Bd, int H, int bf16, int device,
     o[3] = best.RS;
     o[4] = best.KS;
     o[5] = best.blocks;
+    o[6] = streamed;
     return cudaSuccess;
 }
 
-// The adjoint recurrence, float32 streams.
+// The adjoint recurrence, float32 streams.  `wpack`: scratch of
+// packed_slots_bytes(bf16, D, H, 4, bwd) for the streamed route's packed
+// weights, null where the card takes the resident route.
 int lstm_cell_scan_bwd(const void* gates, const void* c_seq, const void* w,
-                       const void* mask, const void* dout, const void* dhT,
-                       const void* dcT, void* dgx, void* dh0, void* dc0,
-                       int T, int D, int Bd, int H, int device,
-                       void* stream) {
-    return launch_bwd<false>(gates, c_seq, w, mask, dout, dhT, dcT, dgx,
-                             dh0, dc0, T, D, Bd, H, device, stream);
+                       void* wpack, const void* mask, const void* dout,
+                       const void* dhT, const void* dcT, void* dgx,
+                       void* dh0, void* dc0, int T, int D, int Bd, int H,
+                       int device, void* stream) {
+    return launch_bwd<false>(gates, c_seq, w, wpack, mask, dout, dhT, dcT,
+                             dgx, dh0, dc0, T, D, Bd, H, device, stream);
 }
 
 // The bf16 variant: gates, c_seq, dout and dgx bf16; w, mask, dhT, dcT,
 // dh0, dc0 float32.
 int lstm_cell_scan_bwd_bf16(const void* gates, const void* c_seq,
-                            const void* w, const void* mask,
+                            const void* w, void* wpack, const void* mask,
                             const void* dout, const void* dhT,
                             const void* dcT, void* dgx, void* dh0,
                             void* dc0, int T, int D, int Bd, int H,
                             int device, void* stream) {
-    return launch_bwd<true>(gates, c_seq, w, mask, dout, dhT, dcT, dgx, dh0,
-                            dc0, T, D, Bd, H, device, stream);
+    return launch_bwd<true>(gates, c_seq, w, wpack, mask, dout, dhT, dcT,
+                            dgx, dh0, dc0, T, D, Bd, H, device, stream);
 }
 
 }  // extern "C"

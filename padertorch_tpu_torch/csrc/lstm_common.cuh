@@ -76,9 +76,9 @@ template <> struct ScanTypes<true> {
     }
 };
 
-// K slices per (row, unit) pair: as many as 1024 threads allow, at most 8
-inline int k_slices(int P, int K) {
-    int ks = 1024 / P;
+// K slices per (row, unit) pair: as many as `threads` allow, at most 8
+inline int k_slices(int P, int K, int threads = 1024) {
+    int ks = threads / P;
     ks = ks > 8 ? 8 : ks;
     ks = ks > K ? K : ks;
     return ks < 1 ? 1 : ks;
@@ -113,8 +113,9 @@ inline ScanGrid split_rows(int U, int D, int Bd, int H, int n_sm) {
 // Unit slices U are tried widest first (every block of a row range stages
 // the same rows, so wide slices stage less); for each, the rows are split
 // (split_rows), and the rows staged at once (RS) are as many as the
-// threads of a block and shared memory beside the weights allow, evened
-// out over the chunks.  `smem_bytes(U, RB, RS, KS)` is the kernel's need.
+// threads of a block (at most `max_threads`) and shared memory beside the
+// weights allow, evened out over the chunks.  `smem_bytes(U, RB, RS, KS)`
+// is the kernel's need.
 // The first U whose grid is co-resident and fills at least half the SMs is
 // taken, else the co-resident one with the most blocks.  `best->blocks`
 // stays 0 when none is co-resident.  Leaves the kernel's dynamic shared
@@ -122,13 +123,13 @@ inline ScanGrid split_rows(int U, int D, int Bd, int H, int n_sm) {
 template <class Smem>
 cudaError_t pick_scan_grid(const void* kernel, int D, int Bd, int H, int K,
                            int n_sm, int max_smem, Smem smem_bytes,
-                           ScanGrid* best) {
+                           ScanGrid* best, int max_threads = 1024) {
     *best = ScanGrid{};
     const int units[] = {32, 16, 8, 4};
     for (int cand : units) {
         if (cand > 4 && cand >= 2 * H) continue;
         ScanGrid c = split_rows(cand, D, Bd, H, n_sm);
-        c.RS = c.RB < 1024 / cand ? c.RB : 1024 / cand;
+        c.RS = c.RB < max_threads / cand ? c.RB : max_threads / cand;
         while (c.RS > 0 &&
                smem_bytes(cand, c.RB, c.RS, 8) > (size_t)max_smem) {
             --c.RS;
@@ -136,7 +137,7 @@ cudaError_t pick_scan_grid(const void* kernel, int D, int Bd, int H, int K,
         if (c.RS == 0) continue;
         const int chunks = (c.RB + c.RS - 1) / c.RS;
         c.RS = (c.RB + chunks - 1) / chunks;
-        c.KS = k_slices(c.RS * cand, K);
+        c.KS = k_slices(c.RS * cand, K, max_threads);
         c.smem = smem_bytes(cand, c.RB, c.RS, c.KS);
         c.threads = (c.KS * c.RS * cand + 31) / 32 * 32;
         cudaError_t err = cudaFuncSetAttribute(
@@ -154,4 +155,101 @@ cudaError_t pick_scan_grid(const void* kernel, int D, int Bd, int H, int K,
     return cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)best->smem);
+}
+
+namespace {
+
+// The streamed route's weights: W_hh[d] (H, NG * H) as the slots a block
+// stages (ScanTypes<BF16>::W4, four float32 or bf16 values, each rounded
+// as the staging rounds it), packed once a launch in device memory so
+// that a step reads one slot with one load and, in bf16, half the bytes.
+// Either way a warp's units read neighbouring slots, as they read the
+// staged ones.  Forward (`fwd`): slot (d, k, j) holds the NG gates'
+// weights of unit j at row k (zeros past NG), D * H * H slots.  Backward:
+// slot (d, c, j) holds columns 4c ... 4c + 3 of row j (zeros past
+// NG * H), D * G4 * H slots, G4 = ceil(NG * H / 4).
+template <bool BF16>
+__global__ void pack_slots_kernel(const float* __restrict__ w,
+                                  typename ScanTypes<BF16>::W4* __restrict__ out,
+                                  int D, int H, int NG, int fwd) {
+    using Ty = ScanTypes<BF16>;
+    const int G = NG * H;
+    const int G4 = (G + 3) / 4;
+    const size_t n = (size_t)D * H * (fwd ? H : G4);
+    for (size_t idx = blockIdx.x * (size_t)blockDim.x + threadIdx.x; idx < n;
+         idx += (size_t)gridDim.x * blockDim.x) {
+        typename Ty::W4 slot;
+        for (int i = 0; i < 4; ++i) {
+            float v = 0.0f;
+            if (fwd) {
+                const size_t dk = idx / H;  // d * H + k
+                const int j = idx % H;
+                if (i < NG) v = w[dk * G + (size_t)i * H + j];
+            } else {
+                const size_t dc = idx / H;    // d * G4 + c
+                const int j = idx % H;
+                const int col = 4 * (int)(dc % G4) + i;
+                if (col < G) v = w[(dc / G4 * H + j) * G + col];
+            }
+            Ty::set(&slot, i, v);
+        }
+        out[idx] = slot;
+    }
+}
+
+}  // namespace
+
+// Bytes of the streamed route's packed weights (pack_slots_kernel).
+inline size_t packed_slots_bytes(bool bf16, int D, int H, int NG, bool fwd) {
+    const size_t slots = (size_t)D * H * (fwd ? H : (NG * H + 3) / 4);
+    return slots * (bf16 ? 8 : 16);
+}
+
+// Pack W_hh (D, H, NG * H) into `out` (packed_slots_bytes) on `stream`.
+template <bool BF16>
+cudaError_t pack_slots(const float* w, void* out, int D, int H, int NG,
+                       bool fwd, cudaStream_t stream) {
+    if (out == nullptr) return cudaErrorInvalidValue;
+    const size_t n = packed_slots_bytes(BF16, D, H, NG, fwd) / (BF16 ? 8 : 16);
+    const int blocks = (int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096);
+    pack_slots_kernel<BF16><<<blocks, 256, 0, stream>>>(
+        w, static_cast<typename ScanTypes<BF16>::W4*>(out), D, H, NG,
+        fwd ? 1 : 0);
+    return cudaGetLastError();
+}
+
+// The two routes of a cooperative cell-scan kernel.  Resident: each block
+// stages its slice of W_hh in shared memory once (`w_unit` bytes a hidden
+// unit of the slice) beside what `rest(U, RB, RS, KS)` counts.  Streamed,
+// where no resident grid is co-resident (a wide layer: two directions of
+// float32 W_hh at H = 1024 are 33.5 MB, the card's shared memory about
+// 30 MB): the same grid and arithmetic with the weights read from device
+// memory (through L2) every step, as slots packed once a launch
+// (pack_slots), so a block needs only `rest`; where even
+// that grid has more blocks than the card holds at once (H = 3072 and
+// more), blocks of at most 512, 256, ... 32 threads (fewer rows staged at
+// once and K slices), so that more of them share an SM.  The
+// resident grid is tried first, so every shape that fits keeps its grid.
+// *streamed is 1 when the streamed grid was taken; best->blocks stays 0
+// when neither is co-resident.  Leaves the taken kernel's dynamic shared
+// memory limit set.
+template <class Rest>
+cudaError_t pick_route(const void* resident, const void* streamed, int D,
+                       int Bd, int H, int K, int n_sm, int max_smem,
+                       size_t w_unit, Rest rest, ScanGrid* best,
+                       int* stream_route) {
+    *stream_route = 0;
+    const auto with_w = [=](int U, int RB, int RS, int KS) {
+        return w_unit * U + rest(U, RB, RS, KS);
+    };
+    cudaError_t err = pick_scan_grid(resident, D, Bd, H, K, n_sm, max_smem,
+                                     with_w, best);
+    if (err != cudaSuccess || best->blocks > 0) return err;
+    *stream_route = 1;
+    for (int threads = 1024; threads >= 32; threads /= 2) {
+        err = pick_scan_grid(streamed, D, Bd, H, K, n_sm, max_smem, rest,
+                             best, threads);
+        if (err != cudaSuccess || best->blocks > 0) return err;
+    }
+    return cudaSuccess;
 }

@@ -58,6 +58,17 @@
 // 24 bits as the TPU kernel maps its hardware bits; `wavenet_uniform` in
 // ops/kernels/wavenet.py reproduces it bit for bit with integer tensor
 // operations.
+//
+// Every geometry the TPU kernel takes (its rings are VMEM scratch of any
+// size): the dilations come through device memory (any number of layers)
+// into a table in shared memory; R, S and O that are not multiples of 4
+// are zero-padded by the wrapper (a zero residual channel gates to
+// tanh(0) sigmoid(0) = 0, a zero skip or hidden channel meets zero rows of
+// the next weights, and the argmax and the logits take the first OV of
+// the O padded outputs); a ring that one block cannot hold is split over
+// a cluster (rows then run in waves of clusters: they are independent),
+// and one that no cluster holds lives in device memory, each CTA's own
+// slice (`ring_global`), read and written by that CTA alone.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -67,20 +78,15 @@ namespace {
 
 namespace cg = cooperative_groups;
 
-constexpr int MAX_LAYERS = 64;
 constexpr int MAX_CLUSTER = 16;
 constexpr int START_INDEX = 128;   // mu-law zero
 
-struct Layers {
-    int dilation[MAX_LAYERS];
-    int offset[MAX_LAYERS];
-};
-
 // RU, CB and CO: a CTA's units, skip/residual columns and output columns
 // (ceil(R / N), ceil((S + R) / N), ceil(O / N)); resident: its weight
-// slices in shared memory.
+// slices in shared memory; OV: the outputs that count (O less the
+// wrapper's padding); ring_global: the rings in device memory.
 struct Sizes {
-    int T, B, L, R, S, O, C, slots, RU, CB, CO, resident;
+    int T, B, L, R, S, O, C, slots, RU, CB, CO, resident, OV, ring_global;
 };
 
 // Threads per CTA and columns a lane group takes at a time in each
@@ -102,13 +108,16 @@ __host__ __device__ __forceinline__ size_t round4(size_t n) {
     return (n + 3) / 4 * 4;
 }
 
-// Floats of dynamic shared memory a CTA of a cluster of n needs: ring
-// (slots, RU), the step's conditioning (L, 2, RU), [x_past, x] (2R), acts
-// (R), skip (S), hid (O), its logits (CO), its skip/residual biases (L,
-// CB), on a cluster two buffers of its values of a product (the most of
-// RU, CB and CO) and, when resident, its weight slices.
+// Floats of dynamic shared memory a CTA of a cluster of n needs: the
+// layers' dilations and ring offsets (2 L ints), ring (slots, RU; none
+// when the rings are in device memory), the step's conditioning (L, 2,
+// RU), [x_past, x] (2R), acts (R), skip (S), hid (O), its logits (CO), its
+// skip/residual biases (L, CB), on a cluster two buffers of its values of
+// a product (the most of RU, CB and CO) and, when resident, its weight
+// slices.
 __host__ __device__ inline size_t smem_floats(const Sizes& sz, int n) {
-    size_t f = round4((size_t)sz.slots * sz.RU)
+    size_t f = round4(2 * (size_t)sz.L)
+        + (sz.ring_global ? 0 : round4((size_t)sz.slots * sz.RU))
         + round4((size_t)sz.L * 2 * sz.RU) + 3 * (size_t)sz.R + sz.S + sz.O
         + round4(sz.CO) + round4((size_t)sz.L * sz.CB);
     if (n > 1) {
@@ -322,9 +331,10 @@ __device__ __forceinline__ void send(const void* local, int p, uint32_t v,
 // wb (N, L, CB, R), the skip (columns < S) and residual columns' weights
 // (none in the last layer); b_sr (N, L, CB); wo (N, CO, S), we (N, CO, O):
 // w_out's and w_end's columns.  embed: (C, R); idx_out: (T, B);
-// logits_out: (T, B, O) or nullptr.  R, S and O are multiples of 4; on a
-// cluster every CTA owns at least one unit and one column of each product
-// (N <= R, S, O).
+// logits_out: (T, B, OV) or nullptr; dil: the L dilations (device
+// memory); ring_g: with ring_global, (B N, slots, RU) floats.  R, S and O
+// are multiples of 4; on a cluster every CTA owns at least one unit and
+// one column of each product (N <= R, S, O).
 template <int N>
 __global__ void __launch_bounds__(Units<N>::THREADS) wavenet_sample_kernel(
         const float* __restrict__ cond, const int* __restrict__ forced,
@@ -332,8 +342,9 @@ __global__ void __launch_bounds__(Units<N>::THREADS) wavenet_sample_kernel(
         const float* __restrict__ wb, const float* __restrict__ b_sr,
         const float* __restrict__ wo, const float* __restrict__ we,
         const float* __restrict__ embed, int* __restrict__ idx_out,
-        float* __restrict__ logits_out, Layers layers, Sizes sz,
-        int do_sample, uint32_t seed) {
+        float* __restrict__ logits_out, const int* __restrict__ dil,
+        float* __restrict__ ring_g, Sizes sz, int do_sample,
+        uint32_t seed) {
     using UN = Units<N>;
     constexpr int NT = UN::THREADS;
     extern __shared__ __align__(16) float smem[];
@@ -343,8 +354,14 @@ __global__ void __launch_bounds__(Units<N>::THREADS) wavenet_sample_kernel(
     const int CB = N == 1 ? S + R : sz.CB;
     const int CO = N == 1 ? O : sz.CO;
     const int R2 = 2 * R;
-    float* ring = smem;
-    float* cond_s = ring + round4((size_t)sz.slots * RU);
+    // the layers' dilations, then their first ring slots
+    int* dilation = reinterpret_cast<int*>(smem);
+    int* offset = dilation + L;
+    float* base = smem + round4(2 * (size_t)L);
+    float* ring = sz.ring_global
+        ? ring_g + (size_t)blockIdx.x * sz.slots * RU : base;
+    float* cond_s = base
+        + (sz.ring_global ? 0 : round4((size_t)sz.slots * RU));
     float* xin = cond_s + round4((size_t)L * 2 * RU);
     float* x = xin + R;
     float* acts = x + R;
@@ -388,7 +405,15 @@ __global__ void __launch_bounds__(Units<N>::THREADS) wavenet_sample_kernel(
         Wo = Wb + wb_n;
         We = Wo + wo_n;
     }
-    for (int i = tid; i < sz.slots * RU; i += NT) ring[i] = 0.0f;
+    for (int i = tid; i < L; i += NT) dilation[i] = dil[i];
+    if (tid == 0) {
+        int first = 0;
+        for (int i = 0; i < L; ++i) {
+            offset[i] = first;
+            first += dil[i];
+        }
+    }
+    for (size_t i = tid; i < (size_t)sz.slots * RU; i += NT) ring[i] = 0.0f;
     for (int i = tid; i < R; i += NT) xin[i] = 0.0f;
     for (int i = tid; i < L * CB; i += NT) bsr_s[i] = b_sr[c * L * CB + i];
     if (N > 1 && tid == 0) {
@@ -438,8 +463,8 @@ __global__ void __launch_bounds__(Units<N>::THREADS) wavenet_sample_kernel(
         const int cols = max(0, min(n_local, (hi - c + N - 1) / N) - first);
         const int units = past_layer < 0 ? 0 : (R - c + N - 1) / N;
         const float* past = past_layer < 0 ? nullptr : ring
-            + (size_t)(layers.offset[past_layer]
-                       + t % layers.dilation[past_layer]) * RU;
+            + (size_t)(offset[past_layer]
+                       + t % dilation[past_layer]) * RU;
         for (int e = tid; e < (cols + units) * N; e += NT) {
             const int item = e / N, p = e % N;
             if (item < cols) {
@@ -489,7 +514,7 @@ __global__ void __launch_bounds__(Units<N>::THREADS) wavenet_sample_kernel(
 
         for (int i = 0; i < L; ++i) {
             float* slot = ring
-                + (size_t)(layers.offset[i] + t % layers.dilation[i]) * RU;
+                + (size_t)(offset[i] + t % dilation[i]) * RU;
             const float* cb = cond_s + (size_t)i * 2 * RU;
             const bool last = i == L - 1;
             // skip (S columns) and, but for the last layer, residual (R
@@ -564,8 +589,8 @@ __global__ void __launch_bounds__(Units<N>::THREADS) wavenet_sample_kernel(
                 });
             if (N == 1 && !last) {   // the next layer's x_past
                 const float* past = ring
-                    + (size_t)(layers.offset[i + 1]
-                               + t % layers.dilation[i + 1]) * R;
+                    + (size_t)(offset[i + 1]
+                               + t % dilation[i + 1]) * R;
                 for (int r = tid; r < R; r += NT) xin[r] = past[r];
             }
             __syncthreads();
@@ -619,11 +644,11 @@ __global__ void __launch_bounds__(Units<N>::THREADS) wavenet_sample_kernel(
             key = mix32(seed ^ ((uint32_t)t * 0x9E3779B1U));
             key = mix32(key ^ ((uint32_t)b * 0x85EBCA77U));
         }
-        for (int lj = tid; lj < CO && c + N * lj < O; lj += NT) {
+        for (int lj = tid; lj < CO && c + N * lj < sz.OV; lj += NT) {
             const int n = c + N * lj;
             const float logit = logit_s[lj];
             if (logits_out != nullptr)
-                logits_out[((size_t)t * B + b) * O + n] = logit;
+                logits_out[((size_t)t * B + b) * sz.OV + n] = logit;
             float score = logit;
             if (do_sample) {
                 const uint32_t bits = mix32(key ^ ((uint32_t)n * 0xC2B2AE3DU));
@@ -682,7 +707,7 @@ __global__ void __launch_bounds__(Units<N>::THREADS) wavenet_sample_kernel(
         // the next step's x_past of layer 0
         if constexpr (N == 1) {
             const float* past = ring
-                + (size_t)(layers.offset[0] + (t + 1) % layers.dilation[0])
+                + (size_t)(offset[0] + (t + 1) % dilation[0])
                 * R;
             for (int r = tid; r < R; r += NT) xin[r] = past[r];
             __syncthreads();
@@ -700,7 +725,7 @@ __global__ void __launch_bounds__(Units<N>::THREADS) wavenet_sample_kernel(
             }
         }
         // no score compared greater than -inf (all NaN): index 0
-        if (best_n >= O) best_n = 0;
+        if (best_n >= sz.OV) best_n = 0;
         if (c == 0 && tid == 0) idx_out[(size_t)t * B + b] = best_n;
         prev = best_n;
     }
@@ -745,22 +770,22 @@ template <int N>
 cudaError_t launch(const float* cond, const int* forced, const float* wa,
                    const float* b_dil, const float* wb, const float* b_sr,
                    const float* wo, const float* we, const float* embed,
-                   int* idx_out, float* logits_out, const Layers& layers,
-                   const Sizes& sz, int smem, int do_sample, uint32_t seed,
-                   cudaStream_t stream) {
+                   int* idx_out, float* logits_out, const int* dil,
+                   float* ring_g, const Sizes& sz, int smem, int do_sample,
+                   uint32_t seed, cudaStream_t stream) {
     cudaError_t err = set_attributes<N>(smem);
     if (err != cudaSuccess) return err;
     if constexpr (N == 1) {
         wavenet_sample_kernel<1><<<sz.B, Units<1>::THREADS, smem, stream>>>(
             cond, forced, wa, b_dil, wb, b_sr, wo, we, embed, idx_out,
-            logits_out, layers, sz, do_sample, seed);
+            logits_out, dil, ring_g, sz, do_sample, seed);
     } else {
         cudaLaunchAttribute attr;
         const cudaLaunchConfig_t cfg =
             cluster_config<N>(dim3(sz.B * N), smem, stream, &attr);
         err = cudaLaunchKernelEx(&cfg, wavenet_sample_kernel<N>, cond, forced,
                                  wa, b_dil, wb, b_sr, wo, we, embed, idx_out,
-                                 logits_out, layers, sz, do_sample, seed);
+                                 logits_out, dil, ring_g, sz, do_sample, seed);
         if (err != cudaSuccess) return err;
     }
     return cudaGetLastError();
@@ -797,31 +822,32 @@ int wavenet_sample_max_clusters(int n, int smem, int device, void* out) {
 
 // One row per cluster of n CTAs (n = 1: one block per row), the weights in
 // the CTAs' layout (see wavenet_sample_kernel), resident in shared memory
-// or not, `smem` bytes of dynamic shared memory per CTA (at least what the
-// layout needs).  `dilations` is a host array of L ints.  Returns
-// cudaGetLastError() after the launch.
+// or not, the rings in shared memory or, with ring_global, in `ring_g`
+// ((B n, slots, ceil(R / n)) floats), `smem` bytes of dynamic shared
+// memory per CTA (at least what the layout needs).  `dilations` is a host
+// array of L ints and `dil` the same ints in device memory.  OV of the O
+// outputs count.  Returns cudaGetLastError() after the launch.
 int wavenet_sample_fwd(
         const void* cond, const void* forced, const void* wa,
         const void* b_dil, const void* wb, const void* b_sr, const void* wo,
         const void* we, const void* embed, void* idx_out, void* logits_out,
-        const void* dilations, int T, int B, int L, int R, int S, int O,
-        int C, int n, int resident, int smem, int do_sample, int seed,
-        int device, void* stream) {
+        const void* dilations, const void* dil, void* ring_g, int T, int B,
+        int L, int R, int S, int O, int OV, int C, int n, int resident,
+        int ring_global, int smem, int do_sample, int seed, int device,
+        void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return err;
-    if (L < 1 || L > MAX_LAYERS || B < 1 || T < 1 || C <= START_INDEX ||
-        O > C || R < 4 || R % 4 || S < 4 || S % 4 || O < 4 || O % 4 ||
+    if (L < 1 || B < 1 || T < 1 || C <= START_INDEX || OV < 1 || OV > O ||
+        OV > C || R < 4 || R % 4 || S < 4 || S % 4 || O < 4 || O % 4 ||
         !valid_cluster(n) || (n == 1 && resident) ||
-        (n > 1 && (n > R || n > S || n > O)))
+        (n > 1 && (n > R || n > S || n > O)) ||
+        (ring_global && ring_g == nullptr))
         return cudaErrorInvalidValue;
-    Layers layers;
     Sizes sz{T, B, L, R, S, O, C, 0, (R + n - 1) / n, (S + R + n - 1) / n,
-             (O + n - 1) / n, resident != 0};
+             (O + n - 1) / n, resident != 0, OV, ring_global != 0};
     const int* d = static_cast<const int*>(dilations);
     for (int i = 0; i < L; ++i) {
         if (d[i] < 1) return cudaErrorInvalidValue;
-        layers.dilation[i] = d[i];
-        layers.offset[i] = sz.slots;
         sz.slots += d[i];
     }
     int max_smem = 0;
@@ -833,8 +859,9 @@ int wavenet_sample_fwd(
     cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define SAMPLE_ARGS f(cond), static_cast<const int*>(forced), f(wa), \
         f(b_dil), f(wb), f(b_sr), f(wo), f(we), f(embed), \
-        static_cast<int*>(idx_out), static_cast<float*>(logits_out), layers, \
-        sz, smem, do_sample, static_cast<uint32_t>(seed), st
+        static_cast<int*>(idx_out), static_cast<float*>(logits_out), \
+        static_cast<const int*>(dil), static_cast<float*>(ring_g), sz, smem, \
+        do_sample, static_cast<uint32_t>(seed), st
     switch (n) {
         case 1: return launch<1>(SAMPLE_ARGS);
         case 2: return launch<2>(SAMPLE_ARGS);

@@ -32,35 +32,39 @@ _F = ctypes.c_float
 # C entry points and their argument types (pointers and the stream as
 # c_void_p, so ctypes does not cut them to 32 bits)
 _SIGNATURES = {
-    'lstm_cell_scan_fwd': (_P,) * 9 + (_I,) * 5 + (_P,),
-    'lstm_cell_scan_fwd_train': (_P,) * 11 + (_I,) * 5 + (_P,),
-    'lstm_cell_scan_bwd': (_P,) * 10 + (_I,) * 5 + (_P,),
-    'lstm_cell_scan_fwd_bf16': (_P,) * 9 + (_I,) * 5 + (_P,),
-    'lstm_cell_scan_fwd_train_bf16': (_P,) * 11 + (_I,) * 5 + (_P,),
-    'lstm_cell_scan_bwd_bf16': (_P,) * 10 + (_I,) * 5 + (_P,),
+    'lstm_cell_scan_fwd': (_P,) * 10 + (_I,) * 5 + (_P,),
+    'lstm_cell_scan_fwd_train': (_P,) * 12 + (_I,) * 5 + (_P,),
+    'lstm_cell_scan_bwd': (_P,) * 11 + (_I,) * 5 + (_P,),
+    'lstm_cell_scan_fwd_bf16': (_P,) * 10 + (_I,) * 5 + (_P,),
+    'lstm_cell_scan_fwd_train_bf16': (_P,) * 12 + (_I,) * 5 + (_P,),
+    'lstm_cell_scan_bwd_bf16': (_P,) * 11 + (_I,) * 5 + (_P,),
     'lstm_cell_scan_bwd_grid': (_I,) * 5 + (_P,),
-    'gru_cell_scan_fwd': (_P,) * 7 + (_I,) * 5 + (_P,),
-    'gru_cell_scan_fwd_train': (_P,) * 10 + (_I,) * 5 + (_P,),
-    'gru_cell_scan_bwd': (_P,) * 10 + (_I,) * 5 + (_P,),
+    'lstm_cell_scan_fwd_grid': (_I,) * 6 + (_P,),
+    'gru_cell_scan_fwd_grid': (_I,) * 6 + (_P,),
+    'gru_cell_scan_bwd_grid': (_I,) * 5 + (_P,),
+    'gru_cell_scan_fwd': (_P,) * 8 + (_I,) * 5 + (_P,),
+    'gru_cell_scan_fwd_train': (_P,) * 11 + (_I,) * 5 + (_P,),
+    'gru_cell_scan_bwd': (_P,) * 11 + (_I,) * 5 + (_P,),
     'gru_cell_scan_fwd_resident': (_P,) * 6 + (_I,) * 10 + (_P,),
     'gru_cell_scan_fwd_train_resident': (_P,) * 9 + (_I,) * 10 + (_P,),
     'gru_cell_scan_bwd_resident': (_P,) * 10 + (_I,) * 10 + (_P,),
-    'gru_cell_scan_fwd_bf16': (_P,) * 7 + (_I,) * 5 + (_P,),
-    'gru_cell_scan_fwd_train_bf16': (_P,) * 10 + (_I,) * 5 + (_P,),
-    'gru_cell_scan_bwd_bf16': (_P,) * 10 + (_I,) * 5 + (_P,),
+    'gru_cell_scan_fwd_bf16': (_P,) * 8 + (_I,) * 5 + (_P,),
+    'gru_cell_scan_fwd_train_bf16': (_P,) * 11 + (_I,) * 5 + (_P,),
+    'gru_cell_scan_bwd_bf16': (_P,) * 11 + (_I,) * 5 + (_P,),
     'gru_cell_scan_fwd_resident_bf16': (_P,) * 6 + (_I,) * 10 + (_P,),
     'gru_cell_scan_fwd_train_resident_bf16': (_P,) * 9 + (_I,) * 10 + (_P,),
     'gru_cell_scan_bwd_resident_bf16': (_P,) * 10 + (_I,) * 10 + (_P,),
     'gru_cell_scan_device_limits': (_I, _P),
+    'scan_l2_window': (_P, ctypes.c_size_t, _I, _P, _P),
     'masked_istft_fft': (_P,) * 6 + (_I,) * 12 + (_P,),
     'masked_istft_dft': (_P,) * 5 + (_I,) * 10 + (_P,),
     'flash_attention_fwd': (_P,) * 6 + (_I,) * 9 + (_F, _I, _P),
     'flash_attention_bwd': (_P,) * 10 + (_I,) * 9 + (_F, _I, _P),
     'flash_attention_fwd_bf16': (_P,) * 6 + (_I,) * 9 + (_F, _I, _P),
     'flash_attention_bwd_bf16': (_P,) * 10 + (_I,) * 9 + (_F, _I, _P),
-    'wavenet_sample_fwd': (_P,) * 12 + (_I,) * 13 + (_P,),
+    'wavenet_sample_fwd': (_P,) * 14 + (_I,) * 15 + (_P,),
     'wavenet_sample_max_clusters': (_I,) * 3 + (_P,),
-    'fused_logmel_fwd': (_P,) * 5 + (_I,) * 11 + (_F, _I, _P),
+    'fused_logmel_fwd': (_P,) * 5 + (_I,) * 12 + (_F, _I, _P),
     'int8_matmul_fwd': (_P,) * 4 + (_I,) + (_P,) * 2 + (_I,) * 5 + (_P,),
     'int8_matmul_bf16_fwd': (_P,) * 4 + (_I,) + (_P,) * 3 + (_I,) * 5
                             + (_P,),

@@ -12,7 +12,9 @@ On a CUDA tensor :func:`flash_attention` launches hand-written kernels:
 without gradients the forward of ``csrc/flash_attention.cu`` with no
 log-sum-exp kept; when a gradient is asked for, through
 :class:`FlashAttention`, the same forward writing the log-sum-exp and, in
-``backward``, the dk/dv and dq kernels of ``csrc/flash_attention_bwd.cu``.
+``backward``, the dk/dv and dq kernels of ``csrc/flash_attention_bwd.cu``
+(float32) or ``csrc/flash_attention_bwd_bf16.cu`` (bf16: ``wgmma`` from
+tiles brought by TMA, P and dS split into three bf16 pieces).
 ``delta = sum(dO * O, -1)`` is one elementwise product and sum outside the
 kernels, in float32, as in the JAX package.
 
@@ -24,9 +26,11 @@ of ``P V``, the output rounded once; in the backward P and dS stay float32,
 every sum is float32, and dq, dk, dv are rounded once.  A mix of types
 raises.
 
-The kernels take head sizes 16, 32, 64 and 128; another head size up to
-128 is zero-padded to the next of these inside the wrapper (zeros change
-neither the logits nor the kept part of the output), a larger one raises.
+The kernels take head sizes 16, 32, 64, 128 and 256; another head size up
+to 256 is zero-padded to the next of these inside the wrapper (zeros change
+neither the logits nor the kept part of the output; the JAX kernel pads to
+a multiple of 128 the same way), a larger one raises.  At 256 each block
+computes half of the output's columns (``csrc/flash_attention.cu``).
 Sequence lengths are free: ragged ``Tq``/``Tk`` are bounds checks in the
 kernels, nothing is padded along time.
 
@@ -51,25 +55,33 @@ __all__ = ['flash_attention', 'flash_attention_plain',
            'FlashAttention', 'should_use_flash']
 
 _NEG = -1e30
-HEAD_SIZES = (16, 32, 64, 128)
+HEAD_SIZES = (16, 32, 64, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
+# the widest head 'auto' sends to the kernels, by type: the dispatch table
+# of chip_smoke.py phase 12 (PERF.md, "Dispatch tables") measures the fused
+# MultiheadAttention against the dense one at heads of 64, 16, 192 and 256;
+# above 128 the dense path wins every float32 training row, while in bf16
+# the kernels win every training row (up to 1.8 times) and the causal
+# forwards, and lose the full forwards by 7% to 13%
+AUTO_MAX_HEAD = {torch.float32: 128, torch.bfloat16: 256}
 # keys per tile of the bf16 forward kernel: it rounds a tile's
 # probabilities to bf16 against the running maximum of the tiles so far
 BF16_KEY_TILE = 64
 
 def should_use_flash(device, dtype=torch.float32, head_size=None):
     """Dispatch of ``use_flash='auto'``: the fused kernels for float32 or
-    bf16 tensors on a CUDA device with a head size the kernels take (at
-    most ``HEAD_SIZES[-1]``; ``head_size`` None asks for any they take),
+    bf16 tensors on a CUDA device with a head size of at most
+    ``AUTO_MAX_HEAD[dtype]`` (``head_size`` None asks for any they take),
     the dense path otherwise (the kernels take no other type, and raise for
-    a wider head).  The sequence lengths and the mask do not enter: the
+    a head above ``HEAD_SIZES[-1]``).  The sequence lengths and the mask
+    do not enter: the
     kernels beat the dense path at every row of the dispatch table that
     chip_smoke.py phase 12 measures on an H100, in float32 (3xTF32 tensor
     cores) and in bf16 (PERF.md, "Attention dispatch": 12 heads of 64 at
     T = 512 ... 4096, full, causal and windowed, and 8 heads of 16 at
     T = 66 and 100, forward alone and forward plus backward)."""
     return (torch.device(device).type == 'cuda' and dtype in DTYPES
-            and (head_size is None or head_size <= HEAD_SIZES[-1]))
+            and (head_size is None or head_size <= AUTO_MAX_HEAD[dtype]))
 
 
 def _norm_window(window):

@@ -26,9 +26,17 @@ float32 backward, 195 and 192 in bf16: a DPRNN's chunk RNNs, the speaker
 classifier recipe's GRU); a block then
 owns a few rows and runs all T steps with no grid-wide sync.  Otherwise
 the cooperative kernel splits units and rows over the grid and syncs it
-once per step.  A launch that fails on its route raises; it is never
-retried on the other.  ``gru_cell_scan.routes`` counts the forward
-launches by route, ``gru_cell_scan.bwd_routes`` the backward's.
+once per step, with each block's slice of ``W_hh`` in shared memory, or,
+where no such grid is co-resident (on an H100 two float32 directions from
+H = 896; the planner is :func:`padertorch_tpu_torch.ops.kernels.lstm.
+scan_grid`), the ``streamed`` route: the same grid and arithmetic with the
+weights read from device memory every step, as the slots a block would
+stage, packed once a launch into scratch the wrapper allocates
+(:func:`padertorch_tpu_torch.ops.kernels.lstm.packed_bytes`).  A launch
+that fails on its
+route raises; it is never retried on another.  ``gru_cell_scan.routes``
+counts the forward launches by route, ``gru_cell_scan.bwd_routes`` the
+backward's.
 
 The training forward stores, per step, the gates ``acts`` = r|z|n and
 ``gh_n`` as computed (also on a masked step), and ``h_prev``, the state the
@@ -68,7 +76,8 @@ import torch
 
 from padertorch_tpu_torch.ops.kernels import _build
 from padertorch_tpu_torch.ops.kernels.lstm import (
-    _check, _norm_w, _recurrent_product, _variant, product_dtype, sum_outer)
+    _check, _norm_w, _packed, _recurrent_product, _route, _variant,
+    product_dtype, sum_outer)
 
 __all__ = ['gru_cell_scan', 'gru_cell_scan_plain', 'GRUCellScan',
            'gru_cell_scan_train_plain', 'gru_cell_scan_bwd_plain',
@@ -331,7 +340,13 @@ def _launch(gates_x, w, n_dir, mask, h0, train=False):
     if plan is None:
         hbuf = empty(2, rows, hdim, dtype=torch.float32)
         tail = (hbuf.data_ptr(), *sizes, device, stream)
-        route, suffix = 'cooperative', entry
+        route = _route('gru_fwd', n_dir, rows // n_dir, hdim, bool(entry),
+                       device, train)
+        wpack = _packed(route, 'gru_fwd', n_dir, hdim, bool(entry),
+                        gates_x.device)
+        inputs = (*inputs[:2], None if wpack is None else wpack.data_ptr(),
+                  *inputs[2:])
+        suffix = entry
     else:
         tail = (*sizes, plan.RB, plan.RS, plan.KS, plan.threads, plan.smem,
                 device, stream)
@@ -376,8 +391,13 @@ def _launch_bwd(acts, gh_n, h_prev, w, n_dir, mask, d_out, dh_t):
             dgh.data_ptr(), dh0.data_ptr(), t_len, n_dir, rows // n_dir,
             hdim)
     if plan is None:
-        route = 'cooperative'
-        err = getattr(lib, 'gru_cell_scan_bwd' + entry)(*args, device, stream)
+        route = _route('gru_bwd', n_dir, rows // n_dir, hdim, bool(entry),
+                       device)
+        wpack = _packed(route, 'gru_bwd', n_dir, hdim, bool(entry),
+                        acts.device)
+        err = getattr(lib, 'gru_cell_scan_bwd' + entry)(
+            *args[:4], None if wpack is None else wpack.data_ptr(),
+            *args[4:], device, stream)
     else:
         route = 'resident'
         err = getattr(lib, 'gru_cell_scan_bwd_resident' + entry)(
@@ -445,7 +465,8 @@ def gru_cell_scan(gates_x, w_hh, mask, h0, compute_dtype=None):
         else raises.  ``gru_cell_scan.launches`` counts the launches per
         kernel (``fwd``, ``fwd_train``, ``bwd``, and ``fwd_bf16``,
         ``fwd_train_bf16``, ``bwd_bf16``), ``gru_cell_scan.routes`` the
-        forwards' launches per route (``resident``, ``cooperative``) and
+        forwards' launches per route (``resident``, ``cooperative``,
+        ``streamed``) and
         ``gru_cell_scan.bwd_routes`` the backward's.
     """
     w, n_dir = _norm_w(w_hh)
@@ -464,5 +485,5 @@ def gru_cell_scan(gates_x, w_hh, mask, h0, compute_dtype=None):
 
 gru_cell_scan.launches = {'fwd': 0, 'fwd_train': 0, 'bwd': 0,
                           'fwd_bf16': 0, 'fwd_train_bf16': 0, 'bwd_bf16': 0}
-gru_cell_scan.routes = {'resident': 0, 'cooperative': 0}
-gru_cell_scan.bwd_routes = {'resident': 0, 'cooperative': 0}
+gru_cell_scan.routes = {'resident': 0, 'cooperative': 0, 'streamed': 0}
+gru_cell_scan.bwd_routes = {'resident': 0, 'cooperative': 0, 'streamed': 0}

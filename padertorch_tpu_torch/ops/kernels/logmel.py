@@ -8,7 +8,10 @@ windowed-DFT products (3xTF32 ``wgmma`` on the tensor cores), the power and
 the mel product stay on chip and only the (B, frames, n_mels) log-mel
 features are written.  :func:`logmel_plan` divides the work before the
 launch: tiles of 64 frames of one signal, and clusters of CTAs that split a
-tile's bins, so that the recipes' small inputs still fill the card.  On CPU
+tile's bins, so that the recipes' small inputs still fill the card; a tile
+keeps its 64 frames' span of the signal in shared memory, or, for a hop so
+long that the span does not fit (``sliced``: 1600/800, 1024/1024 on an
+H100), each stage's slice of it.  On CPU
 tensors it runs the plain version (pad -> frames -> two products -> power
 -> mel -> log).
 
@@ -45,30 +48,35 @@ MAX_CLUSTER = 16
 class LogMelPlan(NamedTuple):
     """How the kernel divides a call: tiles of 64 frames of one signal,
     ``CS`` CTAs a cluster (they split a tile's ``chunks`` of 32 bins, rank
-    c taking chunks c, c + CS, ...), ``blocks`` CTAs in all and ``smem``
-    bytes of shared memory a CTA."""
+    c taking chunks c, c + CS, ...), ``blocks`` CTAs in all, ``smem``
+    bytes of shared memory a CTA, and whether the signal comes a stage's
+    slice at a time (``sliced``) or as the tile's whole span."""
     CS: int
     chunks: int
     blocks: int
     smem: int
+    sliced: bool = False
 
 
 def _round_up(x, to):
     return -(-x // to) * to
 
 
-def logmel_smem(window_length, shift, n_partials):
+def logmel_smem(window_length, shift, n_partials, sliced=False):
     """Bytes of shared memory a CTA needs: two basis stages (32 positions
     of 64 columns) of a hi and a lo plane each, its 64 frames' span of the
-    signal in segments of ``shift`` samples padded to 4 mod 8 floats, the
-    power of a chunk (64, 33), the mel partial sums (64, ``n_partials``,
-    one for each band and chunk of 32 bins the band meets) and one int per
-    window position (rounded up to 32)."""
+    signal in segments of ``shift`` samples padded to 4 mod 8 floats (or,
+    ``sliced``, two tiles of a stage's 32 positions of the 64 frames, rows
+    of 36 floats), the power of a chunk (64, 33), the mel partial sums (64,
+    ``n_partials``, one for each band and chunk of 32 bins the band meets)
+    and, but ``sliced``, one int per window position (rounded up to 32)."""
     lk = _round_up(window_length, STAGE_ROWS)
     ss = shift + (12 - shift % 8) % 8
     n_seg = FRAMES + (lk - 1) // shift
-    floats = (4 * STAGE_ROWS * 2 * BINS + _round_up(n_seg * ss, 4)
-              + FRAMES * (BINS + 1) + FRAMES * n_partials + lk)
+    signal = (2 * FRAMES * (STAGE_ROWS + 4) if sliced
+              else _round_up(n_seg * ss, 4) + lk)
+    floats = (4 * STAGE_ROWS * 2 * BINS + signal
+              + FRAMES * (BINS + 1) + FRAMES * n_partials)
     return 4 * floats
 
 
@@ -142,8 +150,10 @@ def logmel_plan(batch, n_frames, window_length, shift, n_bins, n_partials,
                 n_sm, max_smem):
     """The kernel's plan for ``batch`` signals of ``n_frames`` frames on a
     card of ``n_sm`` SMs whose blocks may opt in to ``max_smem`` bytes, or
-    None where no plan fits (a hop so long that 64 frames' span does not
-    fit the shared memory).
+    None where nothing is to compute.  The whole span of a tile's 64
+    frames is staged where it fits; otherwise (a long hop) the signal comes
+    a stage's slice at a time (``sliced``; the same operands, the same
+    bits).
 
     Of the cluster sizes (1 ... 16, at most one CTA per chunk), the one
     with the fewest chunks a CTA takes times the waves of CTAs the card
@@ -159,6 +169,9 @@ def logmel_plan(batch, n_frames, window_length, shift, n_bins, n_partials,
     (2, 9, 256)
     """
     smem = logmel_smem(window_length, shift, n_partials)
+    sliced = smem > max_smem
+    if sliced:
+        smem = logmel_smem(window_length, shift, n_partials, sliced=True)
     if n_frames < 1 or batch < 1 or smem > max_smem:
         return None
     chunks = -(-n_bins // BINS)
@@ -169,7 +182,7 @@ def logmel_plan(batch, n_frames, window_length, shift, n_bins, n_partials,
         blocks = tiles * cs
         cost = -(-chunks // cs) * -(-blocks // slots)
         if best_cost is None or cost < best_cost:
-            best = LogMelPlan(cs, chunks, blocks, smem)
+            best = LogMelPlan(cs, chunks, blocks, smem, sliced)
             best_cost = cost
     return best
 
@@ -295,30 +308,37 @@ class LogMelFrontend:
         if signal.device.type != 'cuda':
             raise ValueError(f'no kernel for device {signal.device}')
         signal = self._as_batch(signal).contiguous()
-        _, _, fbanks, basis = self.bases_on(signal.device)
+        n_bins = self.bases_on(signal.device)[2].shape[0]
         b, t = signal.shape
         lo, hi = self._pad_widths(t)
         n_frames = (t + lo + hi - self.window_length) // self.shift + 1
-        n_bins = fbanks.shape[0]
         out = torch.empty((b, n_frames, self.n_mels), dtype=torch.float32,
                           device=signal.device)
         stream, device = _build.stream_and_device(signal)
         plan = logmel_plan(b, n_frames, self.window_length, self.shift,
                            n_bins, self.n_partials, *device_limits(device))
+        return self._launch(signal, out, lo, n_frames, plan, device, stream)
+
+    def _launch(self, signal, out, lo, n_frames, plan, device, stream):
+        """One launch on ``plan`` (:func:`logmel_plan`; a test may force
+        the other route with ``plan._replace``)."""
+        _, _, fbanks, basis = self.bases_on(signal.device)
+        b, t = signal.shape
         if plan is None:
             raise ValueError(
-                f'fused_logmel takes a hop whose 64 frames fit one block\'s '
-                f'shared memory: shift={self.shift}, '
+                f'fused_logmel has no plan for {n_frames} frames of '
+                f'{b} signals: shift={self.shift}, '
                 f'window_length={self.window_length}')
         lib = _build.load_library()
         err = lib.fused_logmel_fwd(
             signal.data_ptr(), basis.data_ptr(), fbanks.data_ptr(),
             self.bands_on(signal.device).data_ptr(), out.data_ptr(), b, t,
-            lo, n_frames, self.window_length, n_bins, self.n_mels,
-            self.n_partials, self.shift, plan.CS, plan.smem, EPS, device,
-            stream)
+            lo, n_frames, self.window_length, fbanks.shape[0], self.n_mels,
+            self.n_partials, self.shift, plan.CS, int(plan.sliced),
+            plan.smem, EPS, device, stream)
         _build.check(lib, err, 'fused_logmel kernel')
         fused_logmel.launches += 1
+        fused_logmel.routes['sliced' if plan.sliced else 'span'] += 1
         return out
 
 
@@ -326,7 +346,8 @@ def fused_logmel(signal, **kwargs):
     """One-shot helper: ``LogMelFrontend(**kwargs)(signal)``.  CPU tensors
     run the plain version; CUDA tensors launch the kernel (or raise).
     ``fused_logmel.launches`` counts the launches (of this helper and of
-    every :class:`LogMelFrontend`)."""
+    every :class:`LogMelFrontend`), ``fused_logmel.routes`` them by route
+    (``span``, ``sliced``)."""
     return LogMelFrontend(**kwargs)(signal)
 
 
@@ -336,3 +357,4 @@ def fused_logmel_plain(signal, **kwargs):
 
 
 fused_logmel.launches = 0
+fused_logmel.routes = {'span': 0, 'sliced': 0}

@@ -32,8 +32,20 @@ combinations; the kernels take float32 streams with float32 products, and
 bfloat16 streams with bfloat16 products (``csrc/lstm_cell_scan.cu`` and
 ``csrc/lstm_cell_scan_bwd.cu``, ``BF16`` variants, which stage ``W_hh``
 in shared memory as bf16), and raise for the other two.
+
+Every kernel runs one cooperative grid, on one of two routes that
+:func:`scan_grid` mirrors: ``cooperative`` (each block stages its slice of
+``W_hh`` in shared memory) or, for a layer whose ``W_hh`` no co-resident
+grid can hold (on an H100 two directions of 16 rows from H = 896 in
+float32, 1072 in bf16), ``streamed`` (the same grid and arithmetic, the
+weights read from device memory every step, as the slots a block would
+stage, packed by the kernel's launcher into scratch of
+:func:`packed_bytes` that the wrapper allocates).
+``lstm_cell_scan.routes`` counts the launches by route.
 """
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -42,7 +54,8 @@ from padertorch_tpu_torch.ops.kernels import _build
 __all__ = ['lstm_cell_scan', 'lstm_cell_scan_plain', 'LSTMCellScan',
            'lstm_cell_scan_train_plain', 'lstm_cell_scan_bwd_plain',
            'recurrent_weight_grad', 'sum_outer', 'time_groups',
-           'product_dtype', 'matmul_f32']
+           'product_dtype', 'matmul_f32', 'ScanGrid', 'scan_grid',
+           'scan_smem', 'device_grid', 'packed_bytes']
 
 
 def _norm_w(w_hh):
@@ -249,6 +262,178 @@ def recurrent_weight_grad(dgx, out, h0, mask, n_dir, compute_dtype=None):
     return dw
 
 
+class ScanGrid(NamedTuple):
+    """How a cooperative cell-scan kernel divides a layer (``ScanGrid`` of
+    ``csrc/lstm_common.cuh``): ``U`` units a block, ``n_ub`` unit slices,
+    ``n_rb`` row ranges of ``RB`` rows, ``RS`` of them staged at once,
+    ``KS`` K slices, ``blocks``, ``threads`` and ``smem`` bytes a block,
+    and whether ``W_hh`` is read from device memory (``streamed``) or
+    staged in shared memory."""
+    U: int
+    n_ub: int
+    n_rb: int
+    RB: int
+    RS: int
+    KS: int
+    blocks: int
+    threads: int
+    smem: int
+    streamed: bool
+
+
+# the kernels' candidate unit slices, widest first, and their block limit
+SCAN_UNITS = (32, 16, 8, 4)
+SCAN_MAX_THREADS = 1024
+# registers a thread of a kernel launched with 1024 threads at most
+SCAN_REGS = 64
+
+
+def scan_smem(kernel, hdim, unit, rb, rs, ks, elem=4, streamed=False):
+    """Bytes of shared memory a block of the cooperative ``kernel``
+    ('lstm_fwd', 'lstm_bwd', 'gru_fwd', 'gru_bwd') needs with ``unit``
+    units, ``rb`` rows, ``rs`` staged at once and ``ks`` K slices, its
+    weights at ``elem`` bytes an element (four of them a slot), none of
+    them ``streamed``: the host's sums of ``csrc/``."""
+    slot = 4 * elem
+    g4 = -(-3 * hdim // 4)
+    width = g4 if kernel == 'gru_bwd' else hdim
+    weights = 0 if streamed else slot * width * unit
+    if kernel in ('lstm_fwd', 'gru_fwd'):
+        rest = 4 * ((ks - 1) * rs * unit * 4 + rs * hdim
+                    + (rb * unit if kernel == 'lstm_fwd' else 0))
+    else:
+        rest = slot * rs * width + 4 * ((ks - 1) * rs * unit + 2 * rb * unit)
+    return weights + rest
+
+
+def _pick_scan_grid(n_dir, rows_per_dir, hdim, k_len, n_sm, max_smem,
+                    smem, regs, max_threads=SCAN_MAX_THREADS):
+    """``pick_scan_grid`` of ``csrc/lstm_common.cuh`` with the occupancy
+    of a block taken from its threads, shared memory (of an SM's 1 KB more
+    than a block may opt in to, less 1 KB a block) and ``regs`` registers
+    a thread; ``smem(U, RB, RS, KS)`` the kernel's bytes; at most
+    ``max_threads`` a block."""
+    best = None
+    for unit in SCAN_UNITS:
+        if unit > 4 and unit >= 2 * hdim:
+            continue
+        n_ub = -(-hdim // unit)
+        n_rb = min(max(n_sm // (n_dir * n_ub), 1), rows_per_dir)
+        rb = -(-rows_per_dir // n_rb)
+        n_rb = -(-rows_per_dir // rb)
+        blocks = n_dir * n_ub * n_rb
+        rs = min(rb, max_threads // unit)
+        while rs > 0 and smem(unit, rb, rs, 8) > max_smem:
+            rs -= 1
+        if rs == 0:
+            continue
+        rs = -(-rb // -(-rb // rs))
+        ks = max(1, min(8, max_threads // (rs * unit), k_len))
+        n_bytes = smem(unit, rb, rs, ks)
+        threads = -(-ks * rs * unit // 32) * 32
+        per_sm = min(2048 // threads, 32, 65536 // (regs * threads),
+                     (max_smem + 1024) // (n_bytes + 1024))
+        if per_sm == 0 or blocks > per_sm * n_sm:
+            continue
+        if best is None or blocks > best[6]:
+            best = (unit, n_ub, n_rb, rb, rs, ks, blocks, threads, n_bytes)
+        if 2 * blocks >= n_sm:
+            break
+    return best
+
+
+def scan_grid(kernel, n_dir, rows_per_dir, hdim, n_sm, max_smem, elem=4,
+              regs=SCAN_REGS):
+    """The grid and route of the cooperative ``kernel`` ('lstm_fwd',
+    'lstm_bwd', 'gru_fwd', 'gru_bwd') for a layer of ``n_dir`` directions
+    of ``rows_per_dir`` rows and ``hdim`` units, ``W_hh`` at ``elem`` bytes
+    an element (2 in the bf16 variants), on a card of ``n_sm`` SMs whose
+    blocks may opt in to ``max_smem`` bytes: a :class:`ScanGrid`, or None
+    where no grid is co-resident even with the weights streamed.
+
+    The staged grid is taken where one is co-resident, else the streamed
+    one, with blocks of at most 1024, then 512, 256, ... 32 threads
+    (``pick_route`` of ``csrc/lstm_common.cuh``).  Unit slices are
+    tried widest first; for each the rows are split until the grid has
+    about one block per SM, the rows staged at once are as many as the
+    threads and shared memory allow, evened out, and the K slices as many
+    as 1024 threads allow (at most 8); the first co-resident grid that
+    fills half the SMs is taken, else the co-resident one with the most
+    blocks.  The card decides co-residency with the kernel's own register
+    count; this mirror assumes ``regs`` a thread (the kernels' launch
+    bound), which the card's tests hold it to.
+    """
+    k_len = -(-3 * hdim // 4) if kernel == 'gru_bwd' else hdim
+    tries = [(False, SCAN_MAX_THREADS)] + [
+        (True, SCAN_MAX_THREADS >> i) for i in range(6)]
+    for streamed, max_threads in tries:
+        found = _pick_scan_grid(
+            n_dir, rows_per_dir, hdim, k_len, n_sm, max_smem,
+            functools.partial(_scan_smem_of, kernel, hdim, elem, streamed),
+            regs, max_threads)
+        if found is not None:
+            return ScanGrid(*found, streamed)
+    return None
+
+
+def _scan_smem_of(kernel, hdim, elem, streamed, unit, rb, rs, ks):
+    return scan_smem(kernel, hdim, unit, rb, rs, ks, elem, streamed)
+
+
+_GRID_ENTRIES = {'lstm_fwd': 'lstm_cell_scan_fwd_grid',
+                 'lstm_bwd': 'lstm_cell_scan_bwd_grid',
+                 'gru_fwd': 'gru_cell_scan_fwd_grid',
+                 'gru_bwd': 'gru_cell_scan_bwd_grid'}
+
+
+@functools.lru_cache(maxsize=None)
+def device_grid(kernel, n_dir, rows_per_dir, hdim, bf16, device,
+                train=False):
+    """The grid the card takes for the cooperative ``kernel`` (see
+    :func:`scan_grid`; ``bf16``: its bf16 variant, ``train``: the training
+    forward) on ``device`` (an index), from the C side's own planner:
+    {'U', 'n_rb', 'RB', 'RS', 'KS', 'blocks', 'streamed'} (blocks 0 when
+    no grid is co-resident)."""
+    out = (ctypes.c_int * 7)()
+    lib = _build.load_library()
+    entry = _GRID_ENTRIES[kernel]
+    args = (n_dir, rows_per_dir, hdim, int(bf16))
+    if kernel.endswith('fwd'):
+        args += (int(train),)
+    err = getattr(lib, entry)(*args, device, ctypes.addressof(out))
+    _build.check(lib, err, f'{entry}')
+    return dict(zip(('U', 'n_rb', 'RB', 'RS', 'KS', 'blocks', 'streamed'),
+                    out))
+
+
+def _route(kernel, n_dir, rows_per_dir, hdim, bf16, device, train=False):
+    """'streamed' or 'cooperative': the route the card's planner takes."""
+    grid = device_grid(kernel, n_dir, rows_per_dir, hdim, bf16, device,
+                       train)
+    return 'streamed' if grid['streamed'] else 'cooperative'
+
+
+def packed_bytes(kernel, n_dir, hdim, bf16):
+    """Bytes of the streamed route's packed weights for the cooperative
+    ``kernel`` ('lstm_fwd', 'lstm_bwd', 'gru_fwd', 'gru_bwd'; ``bf16``:
+    its bf16 variant), ``packed_slots_bytes`` of ``csrc/lstm_common.cuh``:
+    a slot of four float32 or bf16 values per (direction, row k, unit)
+    in the forwards, per (direction, four columns, unit) in the
+    backwards."""
+    gates = 4 if kernel.startswith('lstm') else 3
+    width = hdim if kernel.endswith('fwd') else -(-gates * hdim // 4)
+    return n_dir * hdim * width * (8 if bf16 else 16)
+
+
+def _packed(route, kernel, n_dir, hdim, bf16, device):
+    """Scratch for the streamed route's packed weights (None on the
+    cooperative route, whose blocks stage them)."""
+    if route != 'streamed':
+        return None
+    return torch.empty(packed_bytes(kernel, n_dir, hdim, bf16),
+                       dtype=torch.uint8, device=device)
+
+
 def _check(gates_x, w, n_dir, mask, h0, c0=None, n_gates=4,
            stream=torch.float32):
     """Raise for what the cell-scan kernels do not take (shapes, dtypes,
@@ -291,10 +476,11 @@ def _variant(stream):
     return '_bf16' if stream == torch.bfloat16 else ''
 
 
-def _launch(gates_x, w, n_dir, mask, h0, c0, train=False):
+def _launch(gates_x, w, n_dir, mask, h0, c0, train=False, wpack=None):
     """Launch the forward kernel of ``gates_x``'s stream dtype; with
     ``train`` the variant that also returns the residuals ``c_seq`` and
-    ``gates`` (in the stream dtype)."""
+    ``gates`` (in the stream dtype).  ``wpack``: the streamed route's
+    scratch (:func:`packed_bytes`; allocated here when None)."""
     t_len, rows, g4 = gates_x.shape
     hdim = g4 // 4
     entry = _variant(gates_x.dtype)
@@ -307,10 +493,15 @@ def _launch(gates_x, w, n_dir, mask, h0, c0, train=False):
     hbuf = empty(2, rows, hdim)
     lib = _build.load_library()
     stream, device = _build.stream_and_device(gates_x)
+    sizes = (t_len, n_dir, rows // n_dir, hdim, device, stream)
+    route = _route('lstm_fwd', *sizes[1:4], bool(entry), device, train)
+    if wpack is None:
+        wpack = _packed(route, 'lstm_fwd', n_dir, hdim, bool(entry),
+                        gates_x.device)
     inputs = (gates_x.data_ptr(), w.data_ptr(),
+              None if wpack is None else wpack.data_ptr(),
               None if mask is None else mask.data_ptr(),
               h0.data_ptr(), c0.data_ptr(), out.data_ptr())
-    sizes = (t_len, n_dir, rows // n_dir, hdim, device, stream)
     if train:
         c_seq = empty(t_len, rows, hdim, dtype=gates_x.dtype)
         gates = empty(t_len, rows, g4, dtype=gates_x.dtype)
@@ -320,11 +511,13 @@ def _launch(gates_x, w, n_dir, mask, h0, c0, train=False):
         _build.check(lib, err,
                      f'lstm_cell_scan{entry} training forward kernel')
         lstm_cell_scan.launches['fwd_train' + entry] += 1
+        lstm_cell_scan.routes[route] += 1
         return out, c_seq, gates, h_t, c_t
     err = getattr(lib, 'lstm_cell_scan_fwd' + entry)(
         *inputs, h_t.data_ptr(), c_t.data_ptr(), hbuf.data_ptr(), *sizes)
     _build.check(lib, err, f'lstm_cell_scan{entry} kernel')
     lstm_cell_scan.launches['fwd' + entry] += 1
+    lstm_cell_scan.routes[route] += 1
     return out, h_t, c_t
 
 
@@ -336,29 +529,31 @@ def _launch_bwd(gates, c_seq, w, n_dir, mask, d_out, dh_t, dc_t):
     dc0 = torch.empty_like(dc_t)
     lib = _build.load_library()
     stream, device = _build.stream_and_device(gates)
+    route = _route('lstm_bwd', n_dir, rows // n_dir, g4 // 4, bool(entry),
+                   device)
+    wpack = _packed(route, 'lstm_bwd', n_dir, g4 // 4, bool(entry),
+                    gates.device)
     err = getattr(lib, 'lstm_cell_scan_bwd' + entry)(
         gates.data_ptr(), c_seq.data_ptr(), w.data_ptr(),
+        None if wpack is None else wpack.data_ptr(),
         None if mask is None else mask.data_ptr(), d_out.data_ptr(),
         dh_t.data_ptr(), dc_t.data_ptr(), dgx.data_ptr(), dh0.data_ptr(),
         dc0.data_ptr(), t_len, n_dir, rows // n_dir, g4 // 4, device, stream)
     _build.check(lib, err, f'lstm_cell_scan{entry} backward kernel')
     lstm_cell_scan.launches['bwd' + entry] += 1
+    lstm_cell_scan.routes[route] += 1
     return dgx, dh0, dc0
 
 
 def bwd_grid(n_dir, rows_per_dir, hdim, bf16=False):
     """The grid the backward kernel (``bf16``: its bf16 variant) takes for
     a layer of ``n_dir`` directions of ``rows_per_dir`` rows and ``hdim``
-    units on the current card: {'U', 'n_rb', 'RB', 'RS', 'KS', 'blocks'}
-    (unit slice, row ranges, rows per range, rows staged at once, K
-    slices, blocks; blocks 0 when no grid is co-resident)."""
-    out = (ctypes.c_int * 6)()
-    lib = _build.load_library()
-    err = lib.lstm_cell_scan_bwd_grid(n_dir, rows_per_dir, hdim, int(bf16),
-                                      torch.cuda.current_device(),
-                                      ctypes.addressof(out))
-    _build.check(lib, err, 'lstm_cell_scan backward grid')
-    return dict(zip(('U', 'n_rb', 'RB', 'RS', 'KS', 'blocks'), out))
+    units on the current card: {'U', 'n_rb', 'RB', 'RS', 'KS', 'blocks',
+    'streamed'} (unit slice, row ranges, rows per range, rows staged at
+    once, K slices, blocks, 1 on the streamed route; blocks 0 when no grid
+    is co-resident)."""
+    return device_grid('lstm_bwd', n_dir, rows_per_dir, hdim, bool(bf16),
+                       torch.cuda.current_device())
 
 
 class LSTMCellScan(torch.autograd.Function):
@@ -421,7 +616,8 @@ def lstm_cell_scan(gates_x, w_hh, mask, h0, c0, compute_dtype=None):
         ``compute_dtype='bfloat16'``; anything else raises.
         ``lstm_cell_scan.launches`` counts the launches per kernel
         (``fwd``, ``fwd_train``, ``bwd``, and ``fwd_bf16``,
-        ``fwd_train_bf16``, ``bwd_bf16``).
+        ``fwd_train_bf16``, ``bwd_bf16``), ``lstm_cell_scan.routes`` them
+        by route (``cooperative``, ``streamed``; :func:`scan_grid`).
     """
     w, n_dir = _norm_w(w_hh)
     if gates_x.device.type == 'cpu':
@@ -441,3 +637,4 @@ def lstm_cell_scan(gates_x, w_hh, mask, h0, c0, compute_dtype=None):
 lstm_cell_scan.launches = {'fwd': 0, 'fwd_train': 0, 'bwd': 0,
                            'fwd_bf16': 0, 'fwd_train_bf16': 0,
                            'bwd_bf16': 0}
+lstm_cell_scan.routes = {'cooperative': 0, 'streamed': 0}

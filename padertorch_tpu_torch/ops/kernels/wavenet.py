@@ -15,6 +15,16 @@ column's sum is the same on both routes, so a row gives the same bits on
 either.  A launch that fails on its route raises; it is never retried on
 the other.  ``wavenet_sample.routes`` counts the launches by route.
 
+The kernel takes every geometry the JAX sampler takes: any number of
+layers (the dilations go through device memory); R, S and O that are not
+multiples of 4 (the wrapper zero-pads the weights, which is exact: a zero
+residual channel gates to tanh(0) sigmoid(0) = 0, and a zero skip or
+hidden channel meets zero rows of the next weights; the padded outputs
+take no part in the choice); and rings of any size (a ring that one block
+cannot hold goes to the cluster that holds it, rows in waves of clusters;
+one that no cluster holds to device memory, :class:`ClusterPlan`
+``ring_global``).
+
 Stochastic sampling is Gumbel-max over uniforms from a counter-based
 generator keyed by (seed, step, row, class): :func:`wavenet_uniform` is
 that generator in integer tensor operations, bit for bit what the kernel
@@ -35,7 +45,6 @@ __all__ = ['wavenet_sample', 'wavenet_sample_plain', 'wavenet_uniform',
            'sample_smem', 'owned_columns', 'device_plan', 'cluster_weights']
 
 START_INDEX = 128   # mu-law zero, the index "before" the first sample
-MAX_LAYERS = 64     # the kernel passes the dilations by value
 WEIGHT_SHAPES = {   # in terms of L, R, S, O, C
     'w_prev': 'LRr', 'w_curr': 'LRr', 'b_dil': 'Lr', 'w_res': 'lRR',
     'b_res': 'lR', 'w_skip': 'LRS', 'b_skip': 'LS', 'w_out': 'SO',
@@ -174,11 +183,13 @@ CLUSTER_SIZES = (16, 8, 4, 2)   # the kernel's cluster routes, largest first
 class ClusterPlan(NamedTuple):
     """How the kernel runs a batch: ``n`` CTAs per row (a cluster; 1 is
     one block per row), each with its weight slices in shared memory
-    (``resident``) or read through L2, and ``smem`` bytes of dynamic shared
-    memory per CTA."""
+    (``resident``) or read through L2, ``smem`` bytes of dynamic shared
+    memory per CTA, and the rings in shared memory or, ``ring_global``, in
+    device memory."""
     n: int
     resident: bool
     smem: int
+    ring_global: bool = False
 
 
 def _ceil(a, b):
@@ -197,15 +208,17 @@ def owned_columns(n_cols, n):
     return torch.where(idx < n_cols, idx, -1)
 
 
-def sample_smem(n_layers, r, s, o, slots, n, resident):
+def sample_smem(n_layers, r, s, o, slots, n, resident, ring=True):
     """Bytes of dynamic shared memory a CTA of a cluster of ``n`` needs
-    (``csrc/wavenet_sample.cu`` ``smem_floats``): its ring channels
-    (slots, ceil(R / n)), conditioning (L, 2, ceil(R / n)), [x_past, x],
+    (``csrc/wavenet_sample.cu`` ``smem_floats``): the layers' dilations
+    and ring offsets (2 L ints), its ring channels (slots, ceil(R / n);
+    none unless ``ring``), conditioning (L, 2, ceil(R / n)), [x_past, x],
     acts, skip and hid (2R + R + S + O), its logits (ceil(O / n)), its
     skip/residual biases (L, ceil((S + R) / n)), on a cluster two buffers
     of its values of a product and, ``resident``, its weight slices."""
     ru, cb, co = _ceil(r, n), _ceil(s + r, n), _ceil(o, n)
-    floats = (_round4(slots * ru) + _round4(n_layers * 2 * ru) + 3 * r + s
+    floats = (_round4(2 * n_layers) + (_round4(slots * ru) if ring else 0)
+              + _round4(n_layers * 2 * ru) + 3 * r + s
               + o + _round4(co) + _round4(n_layers * cb))
     if n > 1:
         floats += 2 * _round4(max(ru, cb, co))
@@ -215,13 +228,16 @@ def sample_smem(n_layers, r, s, o, slots, n, resident):
     return 4 * floats
 
 
-def cluster_smem(n_layers, r, s, o, slots, n, max_smem):
+def cluster_smem(n_layers, r, s, o, slots, n, max_smem, ring=True):
     """(resident, bytes) of a CTA of a cluster of ``n`` on a card whose
-    blocks may opt in to ``max_smem`` bytes of shared memory: its weight
-    slices stay in shared memory where they fit, and it asks for more than
-    half of ``max_smem``, so that no two CTAs share an SM."""
-    resident = sample_smem(n_layers, r, s, o, slots, n, True) <= max_smem
-    return resident, max(sample_smem(n_layers, r, s, o, slots, n, resident),
+    blocks may opt in to ``max_smem`` bytes of shared memory (its rings in
+    shared memory unless ``ring`` is False): its weight slices stay in
+    shared memory where they fit, and it asks for more than half of
+    ``max_smem``, so that no two CTAs share an SM."""
+    resident = sample_smem(n_layers, r, s, o, slots, n, True,
+                           ring) <= max_smem
+    return resident, max(sample_smem(n_layers, r, s, o, slots, n, resident,
+                                     ring),
                          max_smem // 2 + 16)
 
 
@@ -237,16 +253,27 @@ def cluster_plan(batch, n_layers, r, s, o, slots, n_sm, max_smem,
     in one wave, one CTA per SM (:func:`cluster_smem`), and every CTA owns
     a column of each product (n <= R, S, O).  Where no cluster size serves
     the batch in one wave (a throughput batch: 132 or 264 rows), one block
-    per row.
+    per row.  Where one block cannot hold a row's rings, the smallest
+    cluster whose CTAs hold their share, its rows in waves (clusters do
+    not wait for each other); where no cluster can, the rings go to device
+    memory (``ring_global``), one block per row.
     """
-    for n in CLUSTER_SIZES:
-        if batch * n > n_sm or n > min(r, s, o):
+    sizes = [n for n in CLUSTER_SIZES if n <= min(r, s, o)]
+    for n in sizes:
+        if batch * n > n_sm:
             continue
         resident, smem = cluster_smem(n_layers, r, s, o, slots, n, max_smem)
         if smem <= max_smem and max_clusters(n, smem) >= batch:
             return ClusterPlan(n, resident, smem)
-    return ClusterPlan(1, False,
-                       sample_smem(n_layers, r, s, o, slots, 1, False))
+    smem = sample_smem(n_layers, r, s, o, slots, 1, False)
+    if smem <= max_smem:
+        return ClusterPlan(1, False, smem)
+    for n in reversed(sizes):
+        resident, smem = cluster_smem(n_layers, r, s, o, slots, n, max_smem)
+        if smem <= max_smem:
+            return ClusterPlan(n, resident, smem)
+    return ClusterPlan(1, False, sample_smem(n_layers, r, s, o, slots, 1,
+                                             False, ring=False), True)
 
 
 @functools.lru_cache(maxsize=None)
@@ -309,46 +336,74 @@ def cluster_weights(weights, n):
             'we': _gather_owned(w['w_end'].t(), 0, n)}
 
 
+def _pad_channels(cond_acts, weights, r, s_dim, o_dim):
+    """cond_acts and the weights with R, S and O zero-padded to multiples
+    of 4 (the tanh and the sigmoid halves of the dilated layers' 2R columns
+    each padded): what the kernel loads four at a time.  Exact: a zero
+    residual channel gates to tanh(0) sigmoid(0) = 0 and carries no
+    residual; a zero skip or hidden channel meets zero rows of the next
+    weights.  Returns (cond_acts, weights, R, S, O) padded."""
+    rp, sp, op = _round4(r), _round4(s_dim), _round4(o_dim)
+    if (rp, sp, op) == (r, s_dim, o_dim):
+        return cond_acts, weights, r, s_dim, o_dim
+
+    def pad(x, *widths):
+        """x zero-padded at the end of its last len(widths) axes."""
+        grow = []
+        for axis, width in zip(range(-1, -len(widths) - 1, -1),
+                               reversed(widths)):
+            grow += [0, width - x.shape[axis]]
+        return torch.nn.functional.pad(x, grow)
+
+    def gates(x):
+        """(..., 2R) -> (..., 2Rp): each half padded."""
+        return torch.cat([pad(x[..., :r], rp), pad(x[..., r:], rp)], dim=-1)
+
+    w = weights
+    padded = {
+        'w_prev': gates(pad(w['w_prev'], rp, 2 * r)),
+        'w_curr': gates(pad(w['w_curr'], rp, 2 * r)),
+        'b_dil': gates(w['b_dil']),
+        'w_res': pad(w['w_res'], rp, rp), 'b_res': pad(w['b_res'], rp),
+        'w_skip': pad(w['w_skip'], rp, sp), 'b_skip': pad(w['b_skip'], sp),
+        'w_out': pad(w['w_out'], sp, op), 'w_end': pad(w['w_end'], op, op),
+        'embed': pad(w['embed'], rp)}
+    return gates(cond_acts), padded, rp, sp, op
+
+
 def _launch(cond_acts, weights, dilations, sizes, seed, sample, forced_input,
             return_logits):
     t, b, n_layers, r, s_dim, o_dim, n_classes = sizes
-    if n_layers > MAX_LAYERS:
-        raise ValueError(f'the kernel takes at most {MAX_LAYERS} layers, '
-                         f'got {n_layers}')
-    if r % 4 or s_dim % 4 or o_dim % 4:
-        raise ValueError(
-            f'the kernel loads four weights at a time: residual, skip and '
-            f'output channels must be multiples of 4, got {r}, {s_dim}, '
-            f'{o_dim}')
+    cond_acts, weights, r, s_dim, o_dim = _pad_channels(
+        cond_acts.to(torch.float32), weights, r, s_dim, o_dim)
+    o_valid = sizes[5]
     stream, device = _build.stream_and_device(cond_acts)
     slots = sum(int(d) for d in dilations)
-    need = sample_smem(n_layers, r, s_dim, o_dim, slots, 1, False)
-    limit = torch.cuda.get_device_properties(
-        device).shared_memory_per_block_optin
-    if need > limit:
-        raise ValueError(
-            f'the kernel keeps a row\'s ring buffers in shared memory: '
-            f'{slots} slots x {r} channels ({ring_bytes(dilations, r)} '
-            f'bytes) and its activations need {need} bytes, the card '
-            f'offers {limit} per block')
     plan = device_plan(b, n_layers, r, s_dim, o_dim, slots, device)
     lib = _build.load_library()
-    cond = cond_acts.to(torch.float32).contiguous()
+    cond = cond_acts.contiguous()
     w = cluster_weights(weights, plan.n)
     forced = None if forced_input is None \
         else forced_input.to(torch.int32).contiguous()
     idx = torch.empty((t, b), dtype=torch.int32, device=cond.device)
-    logits = torch.empty((t, b, o_dim), dtype=torch.float32,
+    logits = torch.empty((t, b, o_valid), dtype=torch.float32,
                          device=cond.device) if return_logits else None
-    dil = (ctypes.c_int * n_layers)(*[int(d) for d in dilations])
+    dil_host = (ctypes.c_int * n_layers)(*[int(d) for d in dilations])
+    dil = torch.tensor([int(d) for d in dilations], dtype=torch.int32,
+                       device=cond.device)
+    ring = torch.empty((b * plan.n * slots * _ceil(r, plan.n),),
+                       dtype=torch.float32, device=cond.device) \
+        if plan.ring_global else None
     err = lib.wavenet_sample_fwd(
         cond.data_ptr(), None if forced is None else forced.data_ptr(),
         *[w[name].data_ptr() for name in ('wa', 'b_dil', 'wb', 'b_sr', 'wo',
                                           'we')],
         weights['embed'].contiguous().data_ptr(),
         idx.data_ptr(), None if logits is None else logits.data_ptr(),
-        ctypes.cast(dil, ctypes.c_void_p), t, b, n_layers, r, s_dim, o_dim,
-        n_classes, plan.n, int(plan.resident), plan.smem, int(bool(sample)),
+        ctypes.cast(dil_host, ctypes.c_void_p), dil.data_ptr(),
+        None if ring is None else ring.data_ptr(), t, b, n_layers, r, s_dim,
+        o_dim, o_valid, n_classes, plan.n, int(plan.resident),
+        int(plan.ring_global), plan.smem, int(bool(sample)),
         ctypes.c_int32(int(seed) & _M32).value, device, stream)
     route = 'one_block' if plan.n == 1 else 'cluster'
     _build.check(lib, err, f'wavenet_sample kernel ({route}, {plan})')
@@ -382,9 +437,7 @@ def wavenet_sample(cond_acts, weights, dilations, *, seed=0, sample=False,
     Returns:
         (T, B) int32 indices, or (indices, logits).  CPU tensors run
         :func:`wavenet_sample_plain`; CUDA tensors launch the kernel (or
-        raise: it has no backward, it needs a row's ring buffers,
-        ``ring_bytes(dilations, R)``, to fit in a block's shared memory, and
-        R, S and O to be multiples of 4).
+        raise: it has no backward).
         ``wavenet_sample.launches`` counts the launches,
         ``wavenet_sample.routes`` them by route (``cluster``,
         ``one_block``).  On a cluster a CTA that waits for a peer's values

@@ -39,7 +39,13 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
+
 from chip_smoke import (
+    ATTENTION_WIDE_CASES, LOGMEL_LONG_HOPS, WAVENET_GEOMETRIES,
+    WIDE_RECURRENCES, attention_bf16_case, attention_wide_case,
+    logmel_long_hop_case, logmel_routes_agree, wavenet_geometry_case,
+    wide_recurrence_case,
     GRU_BF16_SHAPES, gru_bf16_case, gru_bf16_limit_shapes,
     ATTENTION_BF16_FWD_ATOL, ATTENTION_BF16_FWD_SHARE,
     ATTENTION_BF16_GRAD_SHARE, ATTENTION_BF16_LSE_TOL, LSTM_BF16_SHARE,
@@ -305,20 +311,17 @@ def test_lstm_function_matches_autograd_through_plain(
         assert float((g - e).abs().max()) / scale <= 1e-4
 
 
-def test_lstm_kernels_raise_when_the_grid_does_not_fit(cuda):
-    """Two directions of 1024 units: no unit slice leaves the whole grid
-    co-resident on the card, and the wrappers say so instead of launching
-    (the cooperative grid sync would hang otherwise)."""
-    args, cotangents = _train_inputs(cuda, 2, 2, 1024, 3, 'none')
-    gx, w, mask, h0, c0 = args
-    with pytest.raises(RuntimeError, match='lstm_cell_scan kernel failed'):
-        lstm_cell_scan(*args)
-    with pytest.raises(RuntimeError, match='training forward kernel failed'):
-        lstm_cell_scan(gx.clone().requires_grad_(), w, mask, h0, c0)
-    out, c_seq, gates, _, _ = lstm_cell_scan_train_plain(*args)
-    with pytest.raises(RuntimeError, match='backward kernel failed'):
-        lstm_kernels._launch_bwd(gates, c_seq, w, 2, mask, *cotangents)
-    torch.cuda.synchronize()
+@pytest.mark.parametrize('label', [case[0] for case in WIDE_RECURRENCES
+                                   if case[1] == 'lstm'])
+def test_lstm_kernels_take_wide_layers_on_the_streamed_route(cuda, label):
+    """Two directions of 1024 units (float32) and of 1536 (bf16): no grid
+    that stages W_hh is co-resident, so the three kernels take the
+    streamed route (the card's planner and its mirror ``scan_grid`` agree)
+    and match their plain versions (``chip_smoke.wide_recurrence_case``
+    raises otherwise)."""
+    case = next(c for c in WIDE_RECURRENCES if c[0] == label)
+    rows = wide_recurrence_case(*case, timed=False)
+    assert set(rows) == {'fwd', 'fwd_train', 'bwd'}
 
 
 def test_lstm_function_takes_missing_and_strided_cotangents(cuda):
@@ -598,20 +601,15 @@ def test_gru_function_matches_autograd_through_plain(
         assert float((g - e).abs().max()) / scale <= 1e-4
 
 
-def test_gru_kernels_raise_when_the_grid_does_not_fit(cuda):
-    """Two directions of 2048 units: no unit slice leaves the whole grid
-    co-resident on the card, and the wrappers say so instead of launching
-    (the cooperative grid sync would hang otherwise)."""
-    args, cotangents = _gru_inputs(cuda, 2, 2, 2048, 3, 'none')
-    gx, w, mask, h0 = args
-    with pytest.raises(RuntimeError, match='gru_cell_scan kernel failed'):
-        gru_cell_scan(*args)
-    with pytest.raises(RuntimeError, match='training forward kernel failed'):
-        gru_cell_scan(gx.clone().requires_grad_(), w, mask, h0)
-    _, acts, gh_n, h_prev, _ = gru_cell_scan_train_plain(*args)
-    with pytest.raises(RuntimeError, match='backward kernel failed'):
-        gru_kernels._launch_bwd(acts, gh_n, h_prev, w, 2, mask, *cotangents)
-    torch.cuda.synchronize()
+@pytest.mark.parametrize('label', [case[0] for case in WIDE_RECURRENCES
+                                   if case[1] == 'gru'])
+def test_gru_kernels_take_wide_layers_on_the_streamed_route(cuda, label):
+    """Two directions of 1024 and 2048 units (float32) and of 2048 (bf16):
+    the forwards on the streamed route, the backward on the route its
+    planner names (staged at 1024 float32), against plain as the LSTM's."""
+    case = next(c for c in WIDE_RECURRENCES if c[0] == label)
+    rows = wide_recurrence_case(*case, timed=False)
+    assert set(rows) == {'fwd', 'fwd_train', 'bwd'}
 
 
 def test_gru_kernel_rejects_what_it_does_not_take(cuda):
@@ -909,7 +907,25 @@ ATTENTION_CASES = {
     'd8_one_query': (2, 2, 2, 1, 40, 8, {'key_padding_lens': [40, 3]}),
     'd64_long': (1, 2, 2, 1100, 1100, 64,
                  {'causal': True, 'key_padding_lens': [900]}),
+    'd192_causal_padding': (
+        3, 2, 2, 70, 80, 192, {'causal': True, 'key_padding_lens': [80, 1, 0]}),
+    'd256_gqa_window_padding': (
+        2, 4, 2, 130, 130, 256, {'window': (40, 9),
+                                 'key_padding_lens': [130, 0]}),
 }
+
+
+@pytest.mark.parametrize('label', [
+    case[0] for case in chip_smoke.ATTENTION_BF16_CASES if case[-1]])
+def test_bf16_attention_backward_at_phase_26s_shapes(cuda, label):
+    """The bf16 backward (``wgmma``, P and dS in three bf16 pieces) at
+    phase 26's timed shapes, the SepFormer's two and bench.py's among them,
+    and at heads of 128 and 256: within phase 26's limits of plain, the
+    control (P and dS rounded to bf16) outside them, two runs the same
+    bits (``chip_smoke.attention_bf16_case`` raises otherwise)."""
+    label, *shape, masks, _ = next(
+        case for case in chip_smoke.ATTENTION_BF16_CASES if case[0] == label)
+    attention_bf16_case(label, *shape, masks, timed=False)
 
 
 def _attention_inputs(cuda, name):
@@ -977,6 +993,9 @@ ATTENTION_BWD_CASES = {
     128: (3, 4, 4, 100, 90, {'causal': True, 'window': (30, None),
                              'key_padding_lens': [90, 1, 0]}),
     24: (3, 6, 3, 65, 33, {'window': (3, 7), 'key_padding_lens': [33, 1, 0]}),
+    192: (3, 2, 2, 60, 70, {'causal': True, 'key_padding_lens': [70, 1, 0]}),
+    256: (3, 4, 2, 100, 90, {'window': (30, 10),
+                             'key_padding_lens': [90, 1, 0]}),
 }
 
 
@@ -1037,8 +1056,8 @@ def test_attention_kernel_rejects_what_it_does_not_take(cuda):
         flash_attention(q, q.cpu(), q)
     with pytest.raises(ValueError):
         flash_attention(q, q[:, :3], q[:, :3])          # 4 % 3 heads
-    with pytest.raises(ValueError, match='128'):
-        big = torch.zeros((1, 1, 3, 160), device=cuda)
+    with pytest.raises(ValueError, match='256'):
+        big = torch.zeros((1, 1, 3, 320), device=cuda)
         flash_attention(big, big, big)
     # views and strided inputs are made contiguous, not refused
     x = torch.randn((2, 5, 4, 16), device=cuda).transpose(1, 2)
@@ -1077,23 +1096,41 @@ def test_multihead_attention_forced_onto_the_kernels_matches_dense(cuda):
     assert float((fused - dense).abs().max()) <= 1e-5
 
 
-def test_multihead_attention_auto_takes_the_dense_path_above_128(cuda):
-    """Heads of 256: 'auto' leaves the kernels (they take at most 128) and
-    runs the dense path, as the reference's 'auto' off the TPU; forcing
-    the kernels raises with their stated message."""
+def test_multihead_attention_at_heads_of_256_takes_the_measured_backend(
+        cuda):
+    """Heads of 256: 'auto' takes the backend ``should_use_flash`` picks
+    from phase 12's table, bit for bit; the kernels forced agree with the
+    dense path on the valid rows; a head of 320 forced on the kernels
+    raises with their stated message."""
     torch.manual_seed(0)
     mha = MultiheadAttention(512, 2, use_rope=True).to(cuda)
     x = torch.randn((2, 40, 512), device=cuda)
     lens = torch.tensor([40, 23], device=cuda)
+    pick = attention_kernels.should_use_flash(x.device, x.dtype, 256)
     before = dict(flash_attention.launches)
     auto = mha(x, key_padding_lens=lens, causal=True)
-    assert flash_attention.launches == before
+    assert (flash_attention.launches != before) is pick
+    fused = set_attention_backend(mha, True)(x, key_padding_lens=lens,
+                                             causal=True)
     dense = set_attention_backend(mha, False)(x, key_padding_lens=lens,
                                               causal=True)
-    assert torch.equal(auto, dense)
-    with pytest.raises(ValueError, match='at most 128'):
-        set_attention_backend(mha, True)(x, key_padding_lens=lens,
-                                         causal=True)
+    assert torch.equal(auto, fused if pick else dense)
+    assert float((fused - dense)[0].abs().max()) <= 1e-4
+    assert float((fused - dense)[1, :23].abs().max()) <= 1e-4
+    wide = set_attention_backend(
+        MultiheadAttention(640, 2, use_rope=True).to(cuda), True)
+    with pytest.raises(ValueError, match='at most 256'):
+        wide(torch.randn((1, 8, 640), device=cuda))
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('label', [case[0] for case in ATTENTION_WIDE_CASES])
+def test_attention_kernels_take_heads_above_128(cuda, label, dtype):
+    """Heads of 192 (padded to 256 by the wrapper) and 256, float32 and
+    bf16, forward and backward, against the plain versions
+    (``chip_smoke.attention_wide_case`` raises otherwise)."""
+    case = next(c for c in ATTENTION_WIDE_CASES if c[0] == label)
+    attention_wide_case(*case, dtype)
 
 
 @pytest.mark.parametrize('use_flash', [True, False])
@@ -1152,6 +1189,11 @@ ATTENTION_BF16_CASES = {
     'd24_padded_head': (2, 4, 4, 50, 50, 24, {'window': (7, 3)}),
     'd64_long': (1, 2, 2, 1100, 1100, 64,
                  {'causal': True, 'key_padding_lens': [900]}),
+    'd192_causal_padding': (
+        3, 2, 2, 70, 80, 192, {'causal': True, 'key_padding_lens': [80, 1, 0]}),
+    'd256_gqa_window_padding': (
+        2, 4, 2, 130, 130, 256, {'window': (40, 9),
+                                 'key_padding_lens': [130, 0]}),
 }
 
 
@@ -1368,17 +1410,25 @@ def test_wavenet_cluster_launch_that_fails_raises(cuda, monkeypatch):
     assert wavenet_sample.routes == before
 
 
-def test_wavenet_sample_kernel_rejects_what_it_does_not_take(cuda):
+@pytest.mark.parametrize('label', [case[0] for case in WAVENET_GEOMETRIES])
+def test_wavenet_sample_kernel_takes_every_geometry(cuda, label):
+    """Rings beyond one block (30 layers to dilation 512 at R = 64, 1, 8
+    and 132 rows; 24 layers to 128 at R = 128), channels that are no
+    multiple of 4 (R = 60, S = 250, O = 254), 80 layers, and rings no
+    cluster holds (in device memory): teacher-forced logits and choices
+    against plain, a row alone equal to the row in its batch
+    (``chip_smoke.wavenet_geometry_case`` raises otherwise)."""
+    case = next(c for c in WAVENET_GEOMETRIES if c[0] == label)
+    plan = wavenet_geometry_case(*case)
+    if 'device memory' in label:
+        assert plan.ring_global
+
+
+def test_wavenet_sample_kernel_refuses_a_gradient(cuda):
     from padertorch_tpu_torch.ops.kernels.wavenet import wavenet_sample
     rng = np.random.RandomState(0)
-    w = _wavenet_weights(2, 6, 16, 256, 256, rng, cuda)   # R % 4 != 0
-    cond = torch.zeros(4, 1, 2, 12, device=cuda)
-    with pytest.raises(ValueError, match='multiples of 4'):
-        wavenet_sample(cond, w, (1, 2))
     w = _wavenet_weights(2, 64, 16, 256, 256, rng, cuda)
     cond = torch.zeros(4, 1, 2, 128, device=cuda)
-    with pytest.raises(ValueError, match='shared memory'):
-        wavenet_sample(cond, w, (512, 512))               # 256 KB of rings
     with pytest.raises(ValueError, match='inference kernel'):
         wavenet_sample(cond.requires_grad_(), w, (1, 2))
 
@@ -1503,6 +1553,18 @@ def test_fused_logmel_kernel_matches_plain_at_the_main_shapes(
     assert float((got - want).abs().max()) <= 1e-5
     assert torch.equal(frontend(x), got)
     assert torch.equal(frontend(x[-1]), got[-1:])
+
+
+@pytest.mark.parametrize('label', [case[0] for case in LOGMEL_LONG_HOPS])
+def test_fused_logmel_takes_long_hops_on_the_sliced_route(cuda, label):
+    """Hops whose 64 frames' span does not fit one block (1600/800 with 80
+    mels, 1024/1024 with 64): the sliced route, within 1e-5 of plain
+    (``chip_smoke.logmel_long_hop_case`` raises otherwise)."""
+    logmel_long_hop_case(*next(c for c in LOGMEL_LONG_HOPS if c[0] == label))
+
+
+def test_fused_logmel_sliced_route_gives_the_span_routes_bits(cuda):
+    logmel_routes_agree()
 
 
 def test_speaker_clf_on_the_card_matches_the_cpu_and_round_trips(cuda):

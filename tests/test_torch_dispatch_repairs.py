@@ -1,11 +1,13 @@
 """Two repairs of the port's dispatch, on the CPU.
 
 - ``use_flash='auto'`` asks ``should_use_flash`` with the head size: the
-  attention kernels take heads of at most 128 (``HEAD_SIZES``), so 'auto'
-  sends a wider head to the dense path on the card, as the JAX package's
-  'auto' runs the dense path off the TPU, where before it sent it to the
-  kernels, which raised.  Forcing the kernels keeps their stated raise (a
-  card test, ``tests/test_torch_cuda_kernels.py``).
+  attention kernels take heads of up to 256 (``HEAD_SIZES``), and 'auto'
+  takes them up to ``AUTO_MAX_HEAD`` of the type (float32 128: at heads
+  of 192 and 256 the dense path wins every float32 training row of
+  ``chip_smoke.py`` phase 12's table; bf16 256: there the kernels win
+  every bf16 training row), and sends a wider head to the dense path on
+  the card, as the JAX package's 'auto' runs the dense path off the TPU.  Forcing the kernels runs them up to 256 and
+  raises above (card tests, ``tests/test_torch_cuda_kernels.py``).
 - The bf16 ``int8_matmul``'s per-tile counters are kept per (device,
   stream), so split launches on two streams never count into each other's
   tiles, and a launch captured into a CUDA graph gets zeroed counters of
@@ -18,20 +20,25 @@ import torch
 from padertorch_tpu_torch.contrib.mk.modules import transformer as tf
 from padertorch_tpu_torch.ops.kernels import int8_matmul as int8_kernels
 from padertorch_tpu_torch.ops.kernels.attention import (
-    HEAD_SIZES, flash_attention_plain, should_use_flash)
+    AUTO_MAX_HEAD, HEAD_SIZES, flash_attention_plain, should_use_flash)
 
 
-@pytest.mark.parametrize('head_size,fused', [
-    (16, True), (64, True), (128, True), (192, False), (256, False)])
-def test_auto_takes_the_kernels_up_to_their_widest_head(head_size, fused):
-    assert HEAD_SIZES[-1] == 128
+@pytest.mark.parametrize('head_size,fused,fused_bf16', [
+    (16, True, True), (64, True, True), (128, True, True),
+    (192, False, True), (256, False, True)])
+def test_auto_takes_the_kernels_up_to_their_widest_head(head_size, fused,
+                                                        fused_bf16):
+    assert HEAD_SIZES[-1] == 256
+    assert AUTO_MAX_HEAD == {torch.float32: 128, torch.bfloat16: 256}
     assert should_use_flash('cuda', torch.float32, head_size=head_size) \
         is fused
     assert should_use_flash(torch.device('cuda', 0), torch.float32,
                             head_size) is fused
     assert should_use_flash('cpu', torch.float32, head_size) is False
-    assert should_use_flash('cuda', torch.bfloat16, head_size) is fused
+    assert should_use_flash('cuda', torch.bfloat16, head_size) \
+        is fused_bf16
     assert should_use_flash('cpu', torch.bfloat16, head_size) is False
+    assert should_use_flash('cuda', torch.bfloat16, 320) is False
 
 
 def test_without_a_head_size_the_answer_is_the_device_and_type():
@@ -64,7 +71,7 @@ def test_multihead_attention_asks_with_its_head_size(d_model, heads,
     auto = mha(x, causal=True)
     head = d_model // heads
     assert asked == [head]
-    assert fused == ([head] if head <= 128 else [])
+    assert fused == ([head] if head <= AUTO_MAX_HEAD[x.dtype] else [])
     dense = tf.set_attention_backend(mha, False)(x, causal=True)
     torch.testing.assert_close(auto, dense, atol=1e-5, rtol=0)
 

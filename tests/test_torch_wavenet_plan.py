@@ -193,6 +193,13 @@ def test_every_plan_fits_and_runs_in_one_wave(n_sm, max_smem, clusters,
         assert all(batch * n > n_sm or clusters[n] < batch
                    or max(sample_smem(*FULL, n, False), max_smem // 2 + 16)
                    > max_smem for n in clusters)
+    elif batch * plan.n > n_sm:
+        # one block cannot hold a row (a card with less shared memory): the
+        # smallest cluster whose CTAs hold their share, its rows in waves
+        assert sample_smem(*FULL, 1, False) > max_smem
+        assert need <= plan.smem <= max_smem
+        assert all(max(sample_smem(*FULL, n, False), max_smem // 2 + 16)
+                   > max_smem for n in clusters if n < plan.n)
     else:
         assert need <= plan.smem <= max_smem and plan.smem > max_smem // 2
         assert batch * plan.n <= n_sm and clusters[plan.n] >= batch
