@@ -222,7 +222,8 @@ Phases, one line each:
 24. the JAX package's benchmarked flagship step: F=257, 3 x 600 BLSTM,
     K=2, ``compute_dtype='bfloat16'`` under ``precision='bfloat16'``, Adam
     with clip 10, both PIT losses, B=16, T=500: 20 steps beside the float32
-    step from the same start (losses within 5% relative, decreasing; the
+    step from the same start (every bf16 backward launch on the ``mma``
+    route) (losses within 5% relative, decreasing; the
     bf16 kernels launched), then a timed step by stage and on the host
     clock; masters and Adam moments float32; the trained bf16 model serves
     4 requests (the lean bf16 kernel) and agrees with itself on the CPU.
@@ -231,7 +232,8 @@ Phases, one line each:
     training launches of the float32 LSTM kernels each, a timed step,
     masters float32.
 26. the bf16 attention kernels (forward with and without the log-sum-exp,
-    the dk/dv and dq kernels, and the ``autograd.Function`` through them)
+    ``wgmma`` with TMA; the dk/dv and dq kernels, and the
+    ``autograd.Function`` through them)
     vs their plain bf16 versions at the SepFormer's two shapes, (8, 12,
     2048, 64) full, bench.py's three (B=8, H=12, D=64: T=4096 causal,
     T=1024 full, T=4096 window (255, 256)), grouped-query (4, 8 over 2,
@@ -255,7 +257,8 @@ Phases, one line each:
     too; then the counterpart of
     bench.py's ``flash_attention_causal_train_ms``: forward + backward at
     (8, 12, 4096, 64) causal bf16 beside the port's dense bf16 path and
-    the library.
+    the library; the bf16 backward kernels' digests on fixed inputs
+    (``attention_bf16_bwd_digests`` takes a checkout's root).
 27. the SepFormer-TasNet step under ``precision='bfloat16'`` with the
     fused backend (the recipe's ``--variant sepformer --flash --precision
     bfloat16``) beside the dense bf16 backend and the float32 fused step,
@@ -1027,6 +1030,8 @@ def reset_launches():
     for name in gru_cell_scan.routes:
         gru_cell_scan.routes[name] = 0
         gru_cell_scan.bwd_routes[name] = 0
+    for name in lstm_cell_scan.routes:
+        lstm_cell_scan.routes[name] = 0
     masked_istft.launches = 0
     for name in masked_istft.routes:
         masked_istft.routes[name] = 0
@@ -3790,7 +3795,15 @@ def lstm_bf16_case(label, t_len, batch, hdim, kind, in_size):
         return lstm_kernels._launch_bwd(gates, c_seq, w, 2, mask,
                                         *bwd_in[4:])
 
-    got = {'fwd': fwd(), 'fwd_train': fwd_train(), 'bwd': bwd()}
+    got = {'fwd': fwd(), 'fwd_train': fwd_train()}
+    # the backward's route by the launch counter: the `mma` route here
+    routes = dict(lstm_cell_scan.routes)
+    got['bwd'] = bwd()
+    bwd_routes = {k: v - routes[k] for k, v in lstm_cell_scan.routes.items()}
+    if bwd_routes != with_zeros(bwd_routes, {'mma': 1}):
+        fail(f'the bf16 backward at {label} did not take the mma route: '
+             f'{bwd_routes}')
+    same = all(torch.equal(x, y) for x, y in zip(got['bwd'], bwd()))
     want = {'fwd': lstm_cell_scan_plain(*args16, 'bfloat16'),
             'fwd_train': want_train,
             'bwd': lstm_cell_scan_bwd_plain(*bwd_in, 'bfloat16')}
@@ -3815,6 +3828,16 @@ def lstm_bf16_case(label, t_len, batch, hdim, kind, in_size):
                              dtype=torch.bfloat16)
     inputs = {'fwd': args16, 'fwd_train': args16, 'bwd': bwd_in}
     grid = lstm_kernels.bwd_grid(2, batch, hdim, bf16=True)
+    # the card's mma plan and its mirror (ops/kernels/lstm.py mma_plan)
+    plan = lstm_kernels.mma_plan(2, batch, hdim,
+                                 *gru_kernels.device_limits(
+                                     torch.cuda.current_device()))
+    if not grid['mma'] or plan is None or (
+            grid['U'], grid['n_rb'], grid['RB'], grid['RS'], grid['KS'],
+            grid['blocks']) != (lstm_kernels.MMA_UNITS, plan.n_rb, plan.RB,
+                                plan.RS, plan.KCH, plan.blocks):
+        fail(f'the bf16 backward\'s grid at {label} is not the mirror\'s '
+             f'mma plan: {grid}, {plan}')
     rows = {}
     for name in ('fwd', 'fwd_train', 'bwd'):
         n = streams[name]
@@ -3832,8 +3855,9 @@ def lstm_bf16_case(label, t_len, batch, hdim, kind, in_size):
         plain_ms = cuda_ms(plain[name], iters=2)
         limit = bound(nbytes(*inputs[name], *got[name]), flops,
                       peak=PEAK_BF16_FLOPS)
-        shown = (' on the grid ' + ', '.join(
-            f'{k} {v}' for k, v in grid.items()) if name == 'bwd' else '')
+        shown = (' on the mma route, grid ' + ', '.join(
+            f'{k} {v}' for k, v in grid.items()) + f', two runs the same '
+            f'bits {same}' if name == 'bwd' else '')
         print(f'phase 23 lstm bf16 {name} {label}: states max |kernel - '
               f'plain| {state_err:.3e} (tol {tol}; plain with float32 '
               f'products {control_state:.3e}); streams max |diff| '
@@ -3852,6 +3876,8 @@ def lstm_bf16_case(label, t_len, batch, hdim, kind, in_size):
         if not control_share > LSTM_BF16_SHARE:
             fail(f'the limit does not tell bf16 products from float32 at '
                  f'{label} ({name}): {control_share}')
+        if name == 'bwd' and not same:
+            fail(f'two bf16 backward runs at {label} differ')
         rows[name] = {
             'max_abs_err': max_err(got[name], want[name]),
             'share_differing': share, 'state_err': state_err,
@@ -3925,6 +3951,10 @@ def phase_flagship_bf16():
             reset_launches()
             losses = losses_over(trainer, example, steps)
             launches[label] = dict(lstm_cell_scan.launches)
+            routes = dict(lstm_cell_scan.routes)
+            if compute_dtype and routes['mma'] != launches[label]['bwd_bf16']:
+                fail(f'the bf16 flagship step\'s backward launches did not '
+                     f'all take the mma route: {routes}, {launches[label]}')
             times = timed_step(trainer, example, loss_key='trainer',
                                variant='_bf16' if compute_dtype else '')
             masters_are_float32(trainer, f'phase 24 {label}')
@@ -4040,7 +4070,7 @@ ATTENTION_BF16_CASES = [
     ('D=128 (4, 8, 2048, 128) full', 4, 8, 8, 2048, 2048, 128, {}, True),
     ('D=256 (4, 8, 2048, 256) full', 4, 8, 8, 2048, 2048, 256, {}, True),
     ('D=32 (4, 8, 1000, 32) causal', 4, 8, 8, 1000, 1000, 32,
-     {'causal': True}, False),
+     {'causal': True}, True),
     ('D=128 (2, 8, 2048, 128) full', 2, 8, 8, 2048, 2048, 128, {}, False),
     ('D=128 gqa (2, 8 over 2, 130 x 77) ragged', 2, 8, 2, 130, 77, 128,
      {'key_padding_lens': [77, 50]}, False),
@@ -4127,6 +4157,76 @@ def attention_bf16_control_bwd(q, k, v, o, lse, d_o, *, causal=False,
         dk = dk.reshape(b, h_kv, h // h_kv, tk, d).sum(dim=2)
         dv = dv.reshape(b, h_kv, h // h_kv, tk, d).sum(dim=2)
     return dq.bfloat16(), dk.bfloat16(), dv.bfloat16()
+
+
+# the bf16 backward kernels' digest on fixed inputs (dq, dk, dv from the
+# plain forward's output and log-sum-exp, so the forward kernel does not
+# enter), at phase 26's shapes; run in a checkout's root, so parent and
+# change compare in one call (``python3 -c "import chip_smoke as c;
+# print(c.attention_bf16_bwd_digests('<checkout>'))"``)
+ATTENTION_BF16_DIGEST_CODE = r"""
+import hashlib, json, sys
+import numpy as np
+import torch
+from padertorch_tpu_torch.ops.kernels import attention as ak
+out = {}
+for label, b, h, h_kv, tq, tk, d, masks in json.loads(sys.argv[1]):
+    rng = np.random.RandomState(d + tq)
+    q, k, v, d_o = (torch.tensor(rng.randn(*shape), dtype=torch.float32,
+                                 device='cuda').bfloat16()
+                    for shape in ((b, h, tq, d), (b, h_kv, tk, d),
+                                  (b, h_kv, tk, d), (b, h, tq, d)))
+    window = masks.pop('window', None)
+    lens = ak._lens_tensor(masks.get('key_padding_lens'), b, q.device)
+    digest = hashlib.sha256()
+    for i in range(b):
+        part = dict(masks, window=window)
+        if lens is not None:
+            part['key_padding_lens'] = masks['key_padding_lens'][i:i + 1]
+        with torch.no_grad():
+            o, lse = ak.flash_attention_fwd_plain(
+                q[i:i + 1], k[i:i + 1], v[i:i + 1], **part)
+            grads = ak._launch_bwd(
+                q[i:i + 1].contiguous(), k[i:i + 1].contiguous(),
+                v[i:i + 1].contiguous(),
+                None if lens is None else lens[i:i + 1], d_o[i:i + 1].contiguous(),
+                lse.contiguous(), (d_o[i:i + 1].float() * o.float()).sum(-1),
+                masks.get('causal', False),
+                *ak._norm_window(window), 1.0 / np.sqrt(d))
+        for t in grads:
+            digest.update(t.float().cpu().numpy().tobytes())
+    out[label] = digest.hexdigest()[:16]
+print(json.dumps(out))
+"""
+# (label, B, H, Hkv, Tq, Tk, D, masks) of the digests
+ATTENTION_BF16_DIGEST_SHAPES = [
+    ('intra (24, 8, 100, 16)', 24, 8, 8, 100, 100, 16, {}),
+    ('inter (40, 8, 66, 16) ragged', 40, 8, 8, 66, 66, 16,
+     {'key_padding_lens': [66, 55, 46, 36, 1, 0] * 6 + [66] * 4}),
+    ('(2, 12, 2048, 64) causal', 2, 12, 12, 2048, 2048, 64,
+     {'causal': True}),
+    ('(1, 12, 2048, 64) window (255, 256)', 1, 12, 12, 2048, 2048, 64,
+     {'window': [255, 256]}),
+    ('gqa (4, 8 over 2, 1024, 64) causal, ragged', 4, 8, 2, 1024, 1024, 64,
+     {'causal': True, 'key_padding_lens': [1024, 777, 300, 1]}),
+    ('D=32 (2, 8, 1000, 32) causal', 2, 8, 8, 1000, 1000, 32,
+     {'causal': True}),
+    ('D=128 (2, 8, 2048, 128)', 2, 8, 8, 2048, 2048, 128, {}),
+    ('D=256 (1, 8, 2048, 256)', 1, 8, 8, 2048, 2048, 256, {}),
+]
+
+
+def attention_bf16_bwd_digests(root):
+    """{shape: digest} of the bf16 attention backward kernels of the
+    checkout at ``root`` (see ATTENTION_BF16_DIGEST_CODE)."""
+    proc = subprocess.run(
+        [sys.executable, '-c', ATTENTION_BF16_DIGEST_CODE,
+         json.dumps(ATTENTION_BF16_DIGEST_SHAPES)],
+        cwd=root, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        fail(f'the bf16 attention backward digests of {root} failed:\n'
+             f'{proc.stderr}')
+    return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
 def attention_bf16_case(label, b, h, h_kv, tq, tk, d, masks, timed):
@@ -4319,6 +4419,9 @@ def phase_attention_bf16():
         if rows is not None:
             results[label] = rows
     headline = attention_bf16_train_headline()
+    digests = attention_bf16_bwd_digests(Path(__file__).resolve().parent)
+    print(f'phase 26 bf16 attention backward kernels\' digests (dq, dk, dv '
+          f'on fixed inputs): {json.dumps(digests)}')
     print(f'phase 26 took {time.perf_counter() - start:.1f} s')
     return results, headline
 
@@ -5613,6 +5716,7 @@ def main():
          'source': 'padertorch_tpu_torch/csrc/lstm_cell_scan_bwd.cu',
          'replaces': 'padertorch_tpu/ops/pallas/lstm.py:339',
          'launches': lstm_bf16_launches['bwd_bf16'],
+         'lstm_route': 'mma: bf16 mma.sync, W_hh in registers',
          'shape': flagship + ' bf16', **bf16_rows['bwd']},
         {'name': 'masked_istft', 'route': 'cuda',
          'source': 'padertorch_tpu_torch/csrc/masked_istft.cu',
@@ -5660,11 +5764,11 @@ def main():
          'launches': attention_launches['bwd'],
          'shape': ATTENTION_CASES[0][0], **attention_rows['bwd']},
         {'name': 'flash_attention_bf16', 'route': 'cuda',
-         'source': 'padertorch_tpu_torch/csrc/flash_attention.cu',
+         'source': 'padertorch_tpu_torch/csrc/flash_attention_fwd_bf16.cu',
          'replaces': 'padertorch_tpu/ops/pallas/attention.py:328',
          'launches': attention_bf16_launches['fwd_bf16']
          + attention_bf16_launches['fwd_train_bf16'],
-         'attention_route': 'tensor cores, bf16 mma.sync',
+         'attention_route': 'tensor cores, bf16 wgmma from TMA tiles',
          'shape': ATTENTION_BF16_CASES[0][0] + ' bf16',
          **attention_bf16_rows['fwd']},
         {'name': 'flash_attention_bwd_bf16', 'route': 'cuda',

@@ -10,6 +10,8 @@ that git ignores); alternate them, as in parent, change, change, parent:
     python3 compare_backward.py <checkout> attention
     python3 compare_backward.py <checkout> attention-bits
     python3 compare_backward.py <checkout> attention-bf16
+    python3 compare_backward.py <checkout> attention-bf16-fwd
+    python3 compare_backward.py <checkout> lstm-bf16
 
 ``lstm``: ``lstm_cell_scan``'s backward kernel alone at the DPRNN-TasNet's
 intra (T=100, 260 rows per direction, H=128) and inter (T=65, 400 rows,
@@ -32,8 +34,20 @@ should agree bit for bit print the same digests.  float32 throughout.
 autograd Function runs them) at the SepFormer's two shapes, bench.py's
 three and (8, 12, 2048, 64) full, and at (4, 8, 2048, 128) and (4, 8, 2048,
 256) full where the checkout takes that head size, each beside SDPA's bf16
-backward, with the device time of each kernel from the profiler.  Prints
-the card's name and power limit first; exits non-zero without a card.
+backward, with the device time of each kernel from the profiler.
+``attention-bf16-fwd``: the bf16 forward kernel alone (no log-sum-exp
+kept, as a served request runs it) at the SepFormer's two shapes,
+bench.py's three, (8, 12, 2048, 64) full, grouped-query (4, 8 over 2,
+1024, 64) causal and ragged, (4, 8, 1000, 32) causal and (4, 8, 2048, 128)
+and (4, 8, 2048, 256) full: the median of 5 windows of 10 launches, a
+digest of its output and log-sum-exp (the training forward), and SDPA's
+bf16 forward where it takes the masks (none, or causal).
+``lstm-bf16``: the bf16 backward kernel alone at ``chip_smoke.py`` phase
+23's four shapes (the uPIT layer, the DPRNN's two, T=64 H=75 ragged) on
+the residuals of the plain bf16 training forward: the median of 5 windows
+of 10 launches, the largest difference from the plain bf16 backward, and
+the grid (and route) the kernel takes.  Prints the card's name and power
+limit first; exits non-zero without a card.
 """
 import hashlib
 import subprocess
@@ -240,10 +254,79 @@ def attention_backward_bf16(ak):
         torch.cuda.empty_cache()
 
 
+BF16_FWD_SHAPES = [
+    ('intra (264, 8, 100, 16)', 264, 8, 8, 100, 16, {}),
+    ('inter (400, 8, 66, 16) ragged', 400, 8, 8, 66, 16,
+     {'key_padding_lens': np.repeat([66, 55, 46, 36], 100)}),
+    ('(8, 12, 2048, 64) full', 8, 12, 12, 2048, 64, {}),
+    ('(8, 12, 4096, 64) causal', 8, 12, 12, 4096, 64, {'causal': True}),
+    ('(8, 12, 1024, 64) full', 8, 12, 12, 1024, 64, {}),
+    ('(8, 12, 4096, 64) window (255, 256)', 8, 12, 12, 4096, 64,
+     {'window': (255, 256)}),
+    ('gqa (4, 8 over 2, 1024, 64) causal, ragged', 4, 8, 2, 1024, 64,
+     {'causal': True, 'key_padding_lens': [1024, 777, 300, 1]}),
+    ('(4, 8, 1000, 32) causal', 4, 8, 8, 1000, 32, {'causal': True}),
+    ('(4, 8, 2048, 128) full', 4, 8, 8, 2048, 128, {}),
+    ('(4, 8, 2048, 256) full', 4, 8, 8, 2048, 256, {})]
+
+
+def attention_forward_bf16(ak):
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for label, b, h, h_kv, t_len, d, masks in BF16_FWD_SHAPES:
+        if d > ak.HEAD_SIZES[-1]:
+            print(f'attention bf16 forward {label}: head size not taken',
+                  flush=True)
+            continue
+        rng = np.random.RandomState(0)
+        q, k, v = (torch.tensor(rng.randn(*shape), device='cuda').bfloat16()
+                   for shape in ((b, h, t_len, d), (b, h_kv, t_len, d),
+                                 (b, h_kv, t_len, d)))
+        lens = ak._lens_tensor(masks.get('key_padding_lens'), b, q.device)
+        window = masks.get('window')
+        config = (masks.get('causal', False),
+                  *(window if window else (None, None)), 1.0 / np.sqrt(d))
+        ms, windows = median_ms(lambda: ak._launch_fwd(q, k, v, lens, *config,
+                                                       train=False))
+        bits = sha256(ak._launch_fwd(q, k, v, lens, *config, train=True))
+        shown = ''
+        if set(masks) <= {'causal'} and h_kv == h:
+            lib_ms, _ = median_ms(lambda: sdpa(
+                q, k, v, is_causal=masks.get('causal', False)))
+            shown = (f'; scaled_dot_product_attention bf16 {lib_ms:.4f} ms '
+                     f'({ms / lib_ms:.2f} times)')
+        print(f'attention bf16 forward {label}: {ms:.4f} ms (windows '
+              f'{[round(x, 4) for x in windows]}){shown}; bits '
+              f'{bits[:16]}', flush=True)
+        torch.cuda.empty_cache()
+
+
+def lstm_backward_bf16(lk):
+    import chip_smoke
+    for label, t_len, batch, hdim, kind, _ in chip_smoke.LSTM_BF16_SHAPES:
+        args, cot = chip_smoke.recurrence_inputs(t_len, batch, hdim, kind,
+                                                 gates=4)
+        gx, w, mask, h0, c0 = args
+        _, c_seq, gates, _, _ = lk.lstm_cell_scan_train_plain(
+            gx.bfloat16(), w, mask, h0, c0, 'bfloat16')
+        bwd_in = (gates, c_seq, w, mask, cot[0].bfloat16(), cot[1], cot[2])
+        got = lk._launch_bwd(gates, c_seq, w, 2, mask, *bwd_in[4:])
+        want = lk.lstm_cell_scan_bwd_plain(*bwd_in, 'bfloat16')
+        err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(got, want))
+        ms, windows = median_ms(
+            lambda: lk._launch_bwd(gates, c_seq, w, 2, mask, *bwd_in[4:]))
+        grid = lk.bwd_grid(2, batch, hdim, bf16=True)
+        print(f'lstm bf16 backward {label}: {ms:.4f} ms (windows '
+              f'{[round(x, 4) for x in windows]}), max |kernel - plain| '
+              f'{err:.3e}, grid {grid}', flush=True)
+
+
 def sha256(tensors):
+    """Digest of the tensors' bytes (bf16 as its 16-bit patterns)."""
     digest = hashlib.sha256()
     for x in tensors:
-        digest.update(x.cpu().numpy().tobytes())
+        digest.update(x.detach().cpu().contiguous().view(torch.uint8)
+                      .numpy().tobytes())
     return digest.hexdigest()
 
 
@@ -264,7 +347,9 @@ def main():
     {'lstm': lambda: lstm_backward(lk),
      'attention': lambda: attention_backward(ak),
      'attention-bits': lambda: attention_backward_bits(ak),
-     'attention-bf16': lambda: attention_backward_bf16(ak)}[part]()
+     'attention-bf16': lambda: attention_backward_bf16(ak),
+     'attention-bf16-fwd': lambda: attention_forward_bf16(ak),
+     'lstm-bf16': lambda: lstm_backward_bf16(lk)}[part]()
 
 
 if __name__ == '__main__':

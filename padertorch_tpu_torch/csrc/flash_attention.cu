@@ -38,18 +38,8 @@
 // The order of every sum is fixed and there are no atomics: two runs give
 // the same bits.
 //
-// The bf16 variant (T = bf16; `flash_attention_fwd_bf16`), the JAX kernel's
-// numerics for bf16 q, k, v: S = Q K^T is one bf16 `mma.sync.m16n8k16` per
-// 16-deep step with float32 sums (the products of bf16 values are exact in
-// float32, as the JAX kernel's float32 dot of the widened values); the
-// online softmax, its maxima and sums stay float32; P is rounded to bf16
-// only as the A operand of P V, straight from the S accumulators (their
-// layout is the A fragment's, so P never passes through shared memory),
-// and V's B fragments come by `ldmatrix.trans`; the output accumulates in
-// float32 registers (rescaled, then the tile's product added on the
-// tensor cores) and is rounded to bf16 once; the log-sum-exp stays
-// float32.  Q's fragments stay in registers at every head size (half the
-// float32 bytes), and the tiles are 64 keys at every head size.
+// The bf16 forward is csrc/flash_attention_fwd_bf16.cu (`wgmma` from TMA
+// tiles).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -62,10 +52,9 @@ namespace {
 using namespace flash;
 
 // BS keys per tile: 64 up to D = 64 (fewer softmax updates per key), 32 at
-// D = 128 (so that two blocks share an SM); bf16 64 at every D.
-template <int D, typename T>
-using FwdTiles = TileShape<D, (D <= 64 || !std::is_same<T, float>::value
-                               ? 64 : 32), T>;
+// D = 128 (so that two blocks share an SM).
+template <int D>
+using FwdTiles = TileShape<D, (D <= 64 ? 64 : 32)>;
 
 // The online softmax of one key tile on a warp's S fragments (16 queries
 // by 8 NS keys, keys j0 ...): masked logits become -inf (no part of the
@@ -130,29 +119,27 @@ __device__ __forceinline__ void softmax_tile(
     l_b = fmaf(l_b, alpha_b, sum_b);
 }
 
-// q, o: (BH, Tq, D); k, v: (BH / group, Tk, D) of T (float or bf16); lens:
-// (BH / H,) or nullptr; lse: (BH, Tq) float32 or nullptr.  blockIdx.x:
-// batch * head row, blockIdx.y: query tile.  Shared memory: Q (OWN, SD) |
-// K, V two stages of (BS, SD) each | P (OWN, SP) float32 (for T = float;
-// the bf16 variant passes P in registers).
-template <int D, typename T>
+// q, o: (BH, Tq, D); k, v: (BH / group, Tk, D); lens: (BH / H,) or
+// nullptr; lse: (BH, Tq) or nullptr.  blockIdx.x: batch * head row,
+// blockIdx.y: query tile.  Shared memory: Q (OWN, SD) | K, V two stages of
+// (BS, SD) each | P (OWN, SP).
+template <int D>
 __global__ void __launch_bounds__(32 * WARPS) flash_fwd_kernel(
-        const T* __restrict__ q, const T* __restrict__ k,
-        const T* __restrict__ v, const int* __restrict__ lens,
-        T* __restrict__ o, float* __restrict__ lse, int H, int group,
+        const float* __restrict__ q, const float* __restrict__ k,
+        const float* __restrict__ v, const int* __restrict__ lens,
+        float* __restrict__ o, float* __restrict__ lse, int H, int group,
         int Tq, int Tk, Mask mk, float scale) {
-    constexpr bool BF16 = !std::is_same<T, float>::value;
-    using TL = FwdTiles<D, T>;
+    using TL = FwdTiles<D>;
     constexpr int BS = TL::BS, SD = TL::SD, SP = TL::SP;
     constexpr int ND = TL::ND, NS = TL::NS, NP = TL::NP;
     // the block's output columns [col0, col0 + DO): NO tiles of 8
     constexpr int DO = out_cols(D), NO = DO / 8;
     const int col0 = blockIdx.z * DO;
-    constexpr bool QREG = D <= 64;   // float32: Q's fragments in registers
+    constexpr bool QREG = D <= 64;   // Q's fragments in registers
     extern __shared__ float4 smem4[];
-    T* q_s = reinterpret_cast<T*>(smem4);
-    T* k_s = q_s + OWN * SD;
-    T* v_s = k_s + 2 * BS * SD;
+    float* q_s = reinterpret_cast<float*>(smem4);
+    float* k_s = q_s + OWN * SD;
+    float* v_s = k_s + 2 * BS * SD;
     float* p_s = reinterpret_cast<float*>(v_s + 2 * BS * SD);
 
     const int lane = threadIdx.x & 31;
@@ -161,8 +148,8 @@ __global__ void __launch_bounds__(32 * WARPS) flash_fwd_kernel(
     const int r0 = blockIdx.y * OWN;
     const int kv_len = clamp_len(lens, bh / H, Tk);
     const float scale2 = scale * LOG2E;
-    const T* k_bh = k + (size_t)(bh / group) * Tk * D;
-    const T* v_bh = v + (size_t)(bh / group) * Tk * D;
+    const float* k_bh = k + (size_t)(bh / group) * Tk * D;
+    const float* v_bh = v + (size_t)(bh / group) * Tk * D;
     stage_rows<D, OWN>(q_s, q + (size_t)bh * Tq * D, r0, Tq);
     cp_async_commit();
 
@@ -191,15 +178,9 @@ __global__ void __launch_bounds__(32 * WARPS) flash_fwd_kernel(
     }
     __syncthreads();
 
-    const T* qw = q_s + row_w * SD;
-    constexpr bool HL = QREG && !BF16;   // float32 hi/lo fragments kept
-    uint32_t qh[HL ? ND : 1][4], ql[HL ? ND : 1][4];
-    uint32_t q16[BF16 ? D / 16 : 1][4];  // bf16 fragments
-    if constexpr (BF16) {
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk)
-            load_a16(qw + kk * 16, SD, lane, q16[kk]);
-    } else if constexpr (QREG) {
+    const float* qw = q_s + row_w * SD;
+    uint32_t qh[QREG ? ND : 1][4], ql[QREG ? ND : 1][4];
+    if constexpr (QREG) {
 #pragma unroll
         for (int kk = 0; kk < ND; ++kk)
             load_a(qw + kk * 8, SD, lane, qh[kk], ql[kk]);
@@ -224,119 +205,71 @@ __global__ void __launch_bounds__(32 * WARPS) flash_fwd_kernel(
         __syncthreads();
         const int st = i & 1;
         const int j0 = lo + i * BS;
-        const T* k_t = k_s + st * BS * SD;
-        const T* v_t = v_s + st * BS * SD;
+        const float* k_t = k_s + st * BS * SD;
+        const float* v_t = v_s + st * BS * SD;
         const int nv = min(BS, hi - j0);  // keys of the tile that count
         const bool all = tile_visible(mk, r0, r0 + OWN, j0, j0 + BS, Tq,
                                       kv_len);
-        if constexpr (BF16) {
-            // every key of the tile is computed: keys past the ones that
-            // count are masked, and zeros in shared memory
-            if (!idle) {
-                float s[NS][4] = {};
+        // a tile past the end of the keys that count takes the loops
+        // with exits
+        auto tile = [&](auto lim) {
+            constexpr bool LIM = decltype(lim)::value;
+            float s[NS][4] = {};
 #pragma unroll
-                for (int kk = 0; kk < D / 16; ++kk) {
+            for (int kk = 0; kk < ND; ++kk) {
+                uint32_t ah[4], al[4];
+                if constexpr (QREG) {
 #pragma unroll
-                    for (int n = 0; n < NS; ++n) {
-                        uint32_t b[2];
-                        load_b16(k_t + n * 8 * SD + kk * 16, SD, lane, b);
-                        mma16(s[n], q16[kk], b);
+                    for (int e = 0; e < 4; ++e) {
+                        ah[e] = qh[kk][e];
+                        al[e] = ql[kk][e];
                     }
+                } else {
+                    load_a(qw + kk * 8, SD, lane, ah, al);
                 }
-                float alpha_a, alpha_b;
-                softmax_tile<false, NS>(s, m_a, m_b, l_a, l_b, alpha_a,
-                                        alpha_b, all, mk, qa, qb, j0, nv, Tq,
-                                        kv_len, scale2, lane);
-#pragma unroll
-                for (int n = 0; n < NO; ++n) {
-                    acc[n][0] *= alpha_a;
-                    acc[n][1] *= alpha_a;
-                    acc[n][2] *= alpha_b;
-                    acc[n][3] *= alpha_b;
-                }
-                // P's A fragment of keys [16 kc, 16 kc + 16): the S
-                // accumulators of key tiles 2 kc and 2 kc + 1, rounded
-#pragma unroll
-                for (int kc = 0; kc < BS / 16; ++kc) {
-                    const uint32_t a[4] = {
-                        pack_bf16(s[2 * kc][0], s[2 * kc][1]),
-                        pack_bf16(s[2 * kc][2], s[2 * kc][3]),
-                        pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
-                        pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3])};
-#pragma unroll
-                    for (int n = 0; n < NO; n += 2) {
-                        uint32_t b[4];
-                        load_b16_trans2(v_t + kc * 16 * SD + col0 + n * 8, SD,
-                                        lane, b);
-                        const uint32_t b0[2] = {b[0], b[1]};
-                        const uint32_t b1[2] = {b[2], b[3]};
-                        mma16(acc[n], a, b0);
-                        mma16(acc[n + 1], a, b1);
-                    }
-                }
-            }
-        } else {
-            // a tile past the end of the keys that count takes the loops
-            // with exits
-            auto tile = [&](auto lim) {
-                constexpr bool LIM = decltype(lim)::value;
-                float s[NS][4] = {};
-#pragma unroll
-                for (int kk = 0; kk < ND; ++kk) {
-                    uint32_t ah[4], al[4];
-                    if constexpr (QREG) {
-#pragma unroll
-                        for (int e = 0; e < 4; ++e) {
-                            ah[e] = qh[kk][e];
-                            al[e] = ql[kk][e];
-                        }
-                    } else {
-                        load_a(qw + kk * 8, SD, lane, ah, al);
-                    }
-#pragma unroll
-                    for (int n = 0; n < NS; ++n) {
-                        if (LIM && n * 8 >= nv) break;
-                        uint32_t bh[2], bl[2];
-                        load_b<false>(k_t + n * 8 * SD + kk * 8, SD, lane,
-                                      bh, bl);
-                        mma3(s[n], ah, al, bh, bl);
-                    }
-                }
-                float alpha_a, alpha_b;
-                softmax_tile<LIM, NS>(s, m_a, m_b, l_a, l_b, alpha_a,
-                                      alpha_b, all, mk, qa, qb, j0, nv, Tq,
-                                      kv_len, scale2, lane);
 #pragma unroll
                 for (int n = 0; n < NS; ++n) {
                     if (LIM && n * 8 >= nv) break;
-#pragma unroll
-                    for (int e = 0; e < 4; ++e) {
-                        pw[((lane >> 2) + (e >= 2 ? 8 : 0)) * SP + n * 8
-                           + 2 * (lane & 3) + (e & 1)] = s[n][e];
-                    }
+                    uint32_t bh[2], bl[2];
+                    load_b<false>(k_t + n * 8 * SD + kk * 8, SD, lane,
+                                  bh, bl);
+                    mma3(s[n], ah, al, bh, bl);
                 }
-                __syncwarp();
-                float o_t[NP][NO][4] = {};
-                gemm_kn<LIM, NS, NO, NP>(o_t, pw, SP, v_t + col0, SD, nv,
-                                         lane);
-#pragma unroll
-                for (int n = 0; n < NO; ++n) {
-#pragma unroll
-                    for (int e = 0; e < 4; ++e) {
-                        float t = o_t[0][n][e];
-#pragma unroll
-                        for (int j = 1; j < NP; ++j) t += o_t[j][n][e];
-                        acc[n][e] = fmaf(acc[n][e],
-                                         e >= 2 ? alpha_b : alpha_a, t);
-                    }
-                }
-            };
-            if (idle) {
-            } else if (D == 16 && nv < BS) {
-                tile(std::true_type());
-            } else {
-                tile(std::false_type());
             }
+            float alpha_a, alpha_b;
+            softmax_tile<LIM, NS>(s, m_a, m_b, l_a, l_b, alpha_a,
+                                  alpha_b, all, mk, qa, qb, j0, nv, Tq,
+                                  kv_len, scale2, lane);
+#pragma unroll
+            for (int n = 0; n < NS; ++n) {
+                if (LIM && n * 8 >= nv) break;
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    pw[((lane >> 2) + (e >= 2 ? 8 : 0)) * SP + n * 8
+                       + 2 * (lane & 3) + (e & 1)] = s[n][e];
+                }
+            }
+            __syncwarp();
+            float o_t[NP][NO][4] = {};
+            gemm_kn<LIM, NS, NO, NP>(o_t, pw, SP, v_t + col0, SD, nv,
+                                     lane);
+#pragma unroll
+            for (int n = 0; n < NO; ++n) {
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    float t = o_t[0][n][e];
+#pragma unroll
+                    for (int j = 1; j < NP; ++j) t += o_t[j][n][e];
+                    acc[n][e] = fmaf(acc[n][e],
+                                     e >= 2 ? alpha_b : alpha_a, t);
+                }
+            }
+        };
+        if (idle) {
+        } else if (D == 16 && nv < BS) {
+            tile(std::true_type());
+        } else {
+            tile(std::false_type());
         }
         __syncthreads();  // the stage is free for the copy after next
     }
@@ -346,7 +279,7 @@ __global__ void __launch_bounds__(32 * WARPS) flash_fwd_kernel(
     const float inv_a = 1.0f / fmaxf(l_a, 1e-30f);
     const float inv_b = 1.0f / fmaxf(l_b, 1e-30f);
     const int c = 2 * (lane & 3);
-    T* o_bh = o + (size_t)bh * Tq * D + col0;
+    float* o_bh = o + (size_t)bh * Tq * D + col0;
 #pragma unroll
     for (int n = 0; n < NO; ++n) {
         if (qa < Tq) {
@@ -370,51 +303,27 @@ __global__ void __launch_bounds__(32 * WARPS) flash_fwd_kernel(
     }
 }
 
-template <int D, typename T>
+template <int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v,
                        const void* lens, void* o, void* lse, int BH, int H,
                        int group, int Tq, int Tk, Mask mk, float scale,
                        cudaStream_t stream) {
-    using TL = FwdTiles<D, T>;
-    constexpr bool BF16 = !std::is_same<T, float>::value;
-    const size_t smem = sizeof(T) * (OWN * TL::SD + 4 * TL::BS * TL::SD)
-                        + (BF16 ? 0 : sizeof(float) * OWN * TL::SP);
+    using TL = FwdTiles<D>;
+    const size_t smem = sizeof(float) * (OWN * TL::SD + 4 * TL::BS * TL::SD
+                                         + OWN * TL::SP);
     cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return err;
     const int tiles = (Tq + OWN - 1) / OWN;
     if (tiles > 65535) return cudaErrorInvalidValue;
-    flash_fwd_kernel<D, T><<<dim3(BH, tiles, D / out_cols(D)), 32 * WARPS,
-                             smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const int*>(lens),
-        static_cast<T*>(o), static_cast<float*>(lse), H, group, Tq, Tk, mk,
-        scale);
+    flash_fwd_kernel<D><<<dim3(BH, tiles, D / out_cols(D)), 32 * WARPS, smem,
+                          stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const int*>(lens),
+        static_cast<float*>(o), static_cast<float*>(lse), H, group, Tq, Tk,
+        mk, scale);
     return cudaGetLastError();
-}
-
-template <typename T>
-int fwd_entry(const void* q, const void* k, const void* v, const void* lens,
-              void* o, void* lse, int BH, int H, int group, int Tq, int Tk,
-              int D, int causal, int left, int right, float scale,
-              int device, void* stream) {
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return err;
-    if (BH < 1 || Tq < 1 || Tk < 0 || group < 1 || H < 1 || BH % group != 0)
-        return cudaErrorInvalidValue;
-    const flash::Mask mk = {causal, left, right};
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define FWD_ARGS q, k, v, lens, o, lse, BH, H, group, Tq, Tk, mk, scale, st
-    switch (D) {
-        case 16: return launch_fwd<16, T>(FWD_ARGS);
-        case 32: return launch_fwd<32, T>(FWD_ARGS);
-        case 64: return launch_fwd<64, T>(FWD_ARGS);
-        case 128: return launch_fwd<128, T>(FWD_ARGS);
-        case 256: return launch_fwd<256, T>(FWD_ARGS);
-        default: return cudaErrorInvalidValue;
-    }
-#undef FWD_ARGS
 }
 
 }  // namespace
@@ -430,19 +339,22 @@ int flash_attention_fwd(const void* q, const void* k, const void* v,
                         int group, int Tq, int Tk, int D, int causal,
                         int left, int right, float scale, int device,
                         void* stream) {
-    return fwd_entry<float>(q, k, v, lens, o, lse, BH, H, group, Tq, Tk, D,
-                            causal, left, right, scale, device, stream);
-}
-
-// The same with q, k, v and o bf16 (lse float32).
-int flash_attention_fwd_bf16(const void* q, const void* k, const void* v,
-                             const void* lens, void* o, void* lse, int BH,
-                             int H, int group, int Tq, int Tk, int D,
-                             int causal, int left, int right, float scale,
-                             int device, void* stream) {
-    return fwd_entry<flash::bf16>(q, k, v, lens, o, lse, BH, H, group, Tq,
-                                  Tk, D, causal, left, right, scale, device,
-                                  stream);
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return err;
+    if (BH < 1 || Tq < 1 || Tk < 0 || group < 1 || H < 1 || BH % group != 0)
+        return cudaErrorInvalidValue;
+    const flash::Mask mk = {causal, left, right};
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define FWD_ARGS q, k, v, lens, o, lse, BH, H, group, Tq, Tk, mk, scale, st
+    switch (D) {
+        case 16: return launch_fwd<16>(FWD_ARGS);
+        case 32: return launch_fwd<32>(FWD_ARGS);
+        case 64: return launch_fwd<64>(FWD_ARGS);
+        case 128: return launch_fwd<128>(FWD_ARGS);
+        case 256: return launch_fwd<256>(FWD_ARGS);
+        default: return cudaErrorInvalidValue;
+    }
+#undef FWD_ARGS
 }
 
 }  // extern "C"

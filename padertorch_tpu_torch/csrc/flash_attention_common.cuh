@@ -1,8 +1,9 @@
 // Device helpers shared by the flash-attention forward and backward
 // kernels: masks, cp.async copies into padded shared-memory tiles, the
-// 3xTF32 tensor-core products of the float32 kernels and the bf16
-// products of the bf16 forward (the bf16 backward, on `wgmma`, is
-// flash_attention_bwd_bf16.cu).
+// 3xTF32 tensor-core products of the float32 kernels, and the bf16 packing
+// and stores of the bf16 kernels (which run on `wgmma`:
+// flash_attention_fwd_bf16.cu and flash_attention_bwd_bf16.cu, their Hopper
+// parts in flash_attention_hopper.cuh).
 //
 // The tensor cores take float32 operands only as TF32, which keeps 10 bits
 // of mantissa (about three digits), too few for float32 results.  So every
@@ -12,18 +13,13 @@
 // operands), which carries about 20 bits of each operand: float32 accuracy
 // for three tensor-core products per float32 one.
 //
-// bf16 operands (the bf16 forward): a product of two bf16 values is one
-// `mma.sync.m16n8k16` bf16 product with float32 sums, exact per term as
-// the JAX kernel's float32 products of the widened values.
-//
 // A block owns OWN = 64 rows (queries in the forward and the dq kernel,
 // keys in the dk/dv kernel), 16 per warp, held as MMA fragments: a thread
 // holds rows lane / 4 and lane / 4 + 8 of its warp's 16, and columns
 // 2 (lane % 4) and 2 (lane % 4) + 1 of every 8-wide tile.  Shared-memory
-// rows are padded by 16 bytes (D + 4 floats, D + 8 bf16 values; BS + 4 for
-// the float32 P and dS), so the fragment loads of the first kind (8 rows by
-// 4 words) hit 32 banks; the float32 transposed loads (4 rows by 8 columns)
-// meet 2-way conflicts, the bf16 ones (4 rows by 8 halves) none.
+// rows are padded by 16 bytes (D + 4 floats; BS + 4 for the float32 P and
+// dS), so the fragment loads of the first kind (8 rows by 4 words) hit 32
+// banks; the transposed loads (4 rows by 8 columns) meet 2-way conflicts.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -210,67 +206,13 @@ __device__ __forceinline__ void gemm_kn(float (&c)[NP][N][4], const float* a,
     }
 }
 
-// ---- bf16 operands: mma.sync.m16n8k16, float32 sums
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-    return *reinterpret_cast<const uint32_t*>(p);
-}
+// ---- bf16 values
 
 // Two float32 values rounded to bf16 (to nearest even) and packed, the
 // first in the low half: the operand order of a fragment register.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
     __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
     return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// The A fragment (16 rows by 16 deep) of a row-major bf16 matrix at s,
-// stride ld: rows lane / 4 (+ 8), columns 2 (lane % 4) (+ 1) (+ 8).
-__device__ __forceinline__ void load_a16(const bf16* s, int ld, int lane,
-                                         uint32_t (&a)[4]) {
-    const int r = lane >> 2, c = 2 * (lane & 3);
-    a[0] = ld32(s + r * ld + c);
-    a[1] = ld32(s + (r + 8) * ld + c);
-    a[2] = ld32(s + r * ld + c + 8);
-    a[3] = ld32(s + (r + 8) * ld + c + 8);
-}
-
-// The B fragment (16 deep by 8 wide) of an n-major bf16 operand,
-// B[k][n] = s[n * ld + k] (K, V, Q or dO rows as the columns of a product).
-__device__ __forceinline__ void load_b16(const bf16* s, int ld, int lane,
-                                         uint32_t (&b)[2]) {
-    const int n = lane >> 2, k = 2 * (lane & 3);
-    b[0] = ld32(s + n * ld + k);
-    b[1] = ld32(s + n * ld + k + 8);
-}
-
-// The B fragments of two 8-wide column tiles (16 deep each) of a k-major
-// bf16 operand, B[k][n] = s[k * ld + n] (V rows as the depth of P V), by
-// one ldmatrix with transpose: b[0], b[1] of columns [0, 8), b[2], b[3] of
-// [8, 16).  Rows of 16-byte-aligned 8-value runs; the padded stride puts
-// the eight rows of each 8 x 8 matrix on distinct banks.
-__device__ __forceinline__ void load_b16_trans2(const bf16* s, int ld,
-                                                int lane, uint32_t (&b)[4]) {
-    const int m = lane >> 3;
-    const bf16* row = s + ((m & 1) * 8 + (lane & 7)) * ld + (m >> 1) * 8;
-    const unsigned addr =
-        static_cast<unsigned>(__cvta_generic_to_shared(row));
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
-        "{%0, %1, %2, %3}, [%4];\n"
-        : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
-        : "r"(addr)
-        : "memory");
-}
-
-// c += a b, bf16 operands, float32 sums (products exact)
-__device__ __forceinline__ void mma16(float (&c)[4], const uint32_t (&a)[4],
-                                      const uint32_t (&b)[2]) {
-    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-        "{%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]),
-          "r"(b[1]));
 }
 
 // Store two float32 values as the pair of T at dst: a float2, or two bf16

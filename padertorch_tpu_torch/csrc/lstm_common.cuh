@@ -230,9 +230,21 @@ cudaError_t pack_slots(const float* w, void* out, int D, int H, int NG,
 // more), blocks of at most 512, 256, ... 32 threads (fewer rows staged at
 // once and K slices), so that more of them share an SM.  The
 // resident grid is tried first, so every shape that fits keeps its grid.
-// *streamed is 1 when the streamed grid was taken; best->blocks stays 0
-// when neither is co-resident.  Leaves the taken kernel's dynamic shared
-// memory limit set.
+// *streamed is 1 when the streamed grid was taken (`pick_streamed`, the
+// streamed search alone); best->blocks stays 0 when neither is
+// co-resident.  Leaves the taken kernel's dynamic shared memory limit set.
+template <class Rest>
+cudaError_t pick_streamed(const void* streamed, int D, int Bd, int H, int K,
+                          int n_sm, int max_smem, Rest rest,
+                          ScanGrid* best) {
+    for (int threads = 1024; threads >= 32; threads /= 2) {
+        cudaError_t err = pick_scan_grid(streamed, D, Bd, H, K, n_sm,
+                                         max_smem, rest, best, threads);
+        if (err != cudaSuccess || best->blocks > 0) return err;
+    }
+    return cudaSuccess;
+}
+
 template <class Rest>
 cudaError_t pick_route(const void* resident, const void* streamed, int D,
                        int Bd, int H, int K, int n_sm, int max_smem,
@@ -246,10 +258,5 @@ cudaError_t pick_route(const void* resident, const void* streamed, int D,
                                      with_w, best);
     if (err != cudaSuccess || best->blocks > 0) return err;
     *stream_route = 1;
-    for (int threads = 1024; threads >= 32; threads /= 2) {
-        err = pick_scan_grid(streamed, D, Bd, H, K, n_sm, max_smem, rest,
-                             best, threads);
-        if (err != cudaSuccess || best->blocks > 0) return err;
-    }
-    return cudaSuccess;
+    return pick_streamed(streamed, D, Bd, H, K, n_sm, max_smem, rest, best);
 }

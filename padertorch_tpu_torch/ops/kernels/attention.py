@@ -9,12 +9,14 @@ backward recomputes the probabilities tile by tile from the stored
 log-sum-exp).
 
 On a CUDA tensor :func:`flash_attention` launches hand-written kernels:
-without gradients the forward of ``csrc/flash_attention.cu`` with no
-log-sum-exp kept; when a gradient is asked for, through
-:class:`FlashAttention`, the same forward writing the log-sum-exp and, in
-``backward``, the dk/dv and dq kernels of ``csrc/flash_attention_bwd.cu``
-(float32) or ``csrc/flash_attention_bwd_bf16.cu`` (bf16: ``wgmma`` from
-tiles brought by TMA, P and dS split into three bf16 pieces).
+without gradients the forward of ``csrc/flash_attention.cu`` (float32) or
+``csrc/flash_attention_fwd_bf16.cu`` (bf16: ``wgmma`` from tiles brought
+by TMA, P rounded to bf16 in registers) with no log-sum-exp kept; when a
+gradient is asked for, through :class:`FlashAttention`, the same forward
+writing the log-sum-exp and, in ``backward``, the dk/dv and dq kernels of
+``csrc/flash_attention_bwd.cu`` (float32) or
+``csrc/flash_attention_bwd_bf16.cu`` (bf16: ``wgmma`` from tiles brought
+by TMA, P and dS split into three bf16 pieces).
 ``delta = sum(dO * O, -1)`` is one elementwise product and sum outside the
 kernels, in float32, as in the JAX package.
 
@@ -30,7 +32,8 @@ The kernels take head sizes 16, 32, 64, 128 and 256; another head size up
 to 256 is zero-padded to the next of these inside the wrapper (zeros change
 neither the logits nor the kept part of the output; the JAX kernel pads to
 a multiple of 128 the same way), a larger one raises.  At 256 each block
-computes half of the output's columns (``csrc/flash_attention.cu``).
+of the float32 forward computes half of the output's columns
+(``csrc/flash_attention.cu``).
 Sequence lengths are free: ragged ``Tq``/``Tk`` are bounds checks in the
 kernels, nothing is padded along time.
 

@@ -37,11 +37,15 @@ Every kernel runs one cooperative grid, on one of two routes that
 :func:`scan_grid` mirrors: ``cooperative`` (each block stages its slice of
 ``W_hh`` in shared memory) or, for a layer whose ``W_hh`` no co-resident
 grid can hold (on an H100 two directions of 16 rows from H = 896 in
-float32, 1072 in bf16), ``streamed`` (the same grid and arithmetic, the
-weights read from device memory every step, as the slots a block would
-stage, packed by the kernel's launcher into scratch of
-:func:`packed_bytes` that the wrapper allocates).
-``lstm_cell_scan.routes`` counts the launches by route.
+float32, 1057 in the bf16 backward, 1072 in the bf16 forwards),
+``streamed`` (the same grid and arithmetic, the weights read from device
+memory every step, as the slots a block would stage, packed by the
+kernel's launcher into scratch of :func:`packed_bytes` that the wrapper
+allocates).  The bf16 backward takes a third route where
+:func:`scan_grid` would stage: ``mma`` (``csrc/lstm_cell_scan_bwd.cu``,
+bf16 ``mma.sync`` tensor-core products with ``W_hh``'s slice in
+registers, on the grid of :func:`mma_plan`; ``streamed`` where that plan
+does not fit).  ``lstm_cell_scan.routes`` counts the launches by route.
 """
 import ctypes
 import functools
@@ -55,7 +59,8 @@ __all__ = ['lstm_cell_scan', 'lstm_cell_scan_plain', 'LSTMCellScan',
            'lstm_cell_scan_train_plain', 'lstm_cell_scan_bwd_plain',
            'recurrent_weight_grad', 'sum_outer', 'time_groups',
            'product_dtype', 'matmul_f32', 'ScanGrid', 'scan_grid',
-           'scan_smem', 'device_grid', 'packed_bytes']
+           'scan_smem', 'device_grid', 'packed_bytes', 'MmaPlan',
+           'mma_plan', 'mma_smem', 'bwd_route']
 
 
 def _norm_w(w_hh):
@@ -361,7 +366,10 @@ def scan_grid(kernel, n_dir, rows_per_dir, hdim, n_sm, max_smem, elem=4,
     fills half the SMs is taken, else the co-resident one with the most
     blocks.  The card decides co-residency with the kernel's own register
     count; this mirror assumes ``regs`` a thread (the kernels' launch
-    bound), which the card's tests hold it to.
+    bound), which the card's tests hold it to.  For the bf16 backward
+    ('lstm_bwd' at ``elem=2``) a staged grid here only says that the
+    weights need not stream: that kernel then runs on :func:`mma_plan`
+    (:func:`bwd_route`).
     """
     k_len = -(-3 * hdim // 4) if kernel == 'gru_bwd' else hdim
     tries = [(False, SCAN_MAX_THREADS)] + [
@@ -380,6 +388,88 @@ def _scan_smem_of(kernel, hdim, elem, streamed, unit, rb, rs, ks):
     return scan_smem(kernel, hdim, unit, rb, rs, ks, elem, streamed)
 
 
+class MmaPlan(NamedTuple):
+    """How the bf16 backward's ``mma`` route divides a layer (``MmaPlan``
+    of ``csrc/lstm_cell_scan_bwd.cu``): a block owns a direction, one of
+    ``n_ub`` slices of ``MMA_UNITS`` units and one of ``n_rb`` ranges of
+    ``RB`` rows, ``RS`` of them staged at once; K = 4H is ``KT`` k-steps
+    of 16 in ``KCH`` chunks of ``KC`` (one warp's, its ``W_hh`` fragments
+    in registers), each chunk's warps splitting the 8-row tiles ``NG``
+    ways; ``blocks`` of ``MMA_THREADS`` threads and ``smem`` bytes."""
+    n_ub: int
+    n_rb: int
+    RB: int
+    RS: int
+    KT: int
+    KC: int
+    KCH: int
+    NG: int
+    blocks: int
+    smem: int
+
+
+# the mma route's block: 16 units (one M tile), 16 warps, at most 18
+# k-steps of W_hh in a warp's registers, partial-sum rows of 16 + 4 floats
+MMA_UNITS, MMA_WARPS, MMA_KC_MAX, MMA_RED = 16, 16, 18, 20
+MMA_THREADS = 32 * MMA_WARPS
+
+
+def mma_smem(k_steps, chunks, rb, rs):
+    """Bytes of shared memory of an ``mma`` block: ``rs`` staged dz rows
+    (padded to 8) of 16 ``k_steps`` bf16 values and 16 bytes, the
+    ``chunks``' partial sums, and dh, dc of ``rb`` rows of 16 units."""
+    rsp = -(-rs // 8) * 8
+    return (2 * rsp * (16 * k_steps + 8)
+            + 4 * (chunks * rsp * MMA_RED + 2 * rb * MMA_UNITS))
+
+
+def mma_plan(n_dir, rows_per_dir, hdim, n_sm, max_smem):
+    """``mma_plan`` of ``csrc/lstm_cell_scan_bwd.cu``: the bf16 backward's
+    ``mma`` grid on a card of ``n_sm`` SMs whose blocks may opt in to
+    ``max_smem`` bytes, or None where none fits (the unit slices of both
+    directions outnumber the SMs, or a warp's K chunk would exceed
+    ``MMA_KC_MAX`` k-steps).  One block an SM: the rows are split until
+    the grid has about one block per SM, and staged in as few chunks as
+    shared memory allows, evened out."""
+    n_ub = -(-hdim // MMA_UNITS)
+    cols = n_dir * n_ub
+    k_steps = -(-4 * hdim // 16)
+    kc = -(-k_steps // MMA_WARPS)
+    if cols > n_sm or kc > MMA_KC_MAX:
+        return None
+    chunks = -(-k_steps // kc)
+    n_rb = min(max(n_sm // cols, 1), rows_per_dir)
+    rb = -(-rows_per_dir // n_rb)
+    n_rb = -(-rows_per_dir // rb)
+    rs = rb
+    while rs > 0 and mma_smem(k_steps, chunks, rb, rs) > max_smem:
+        rs -= 1
+    if rs == 0:
+        return None
+    rs = -(-rb // -(-rb // rs))
+    return MmaPlan(n_ub, n_rb, rb, rs, k_steps, kc, chunks,
+                   MMA_WARPS // chunks, cols * n_rb,
+                   mma_smem(k_steps, chunks, rb, rs))
+
+
+def bwd_route(n_dir, rows_per_dir, hdim, bf16, n_sm, max_smem):
+    """The backward kernel's route on a card of ``n_sm`` SMs and
+    ``max_smem`` bytes a block: 'cooperative' or 'streamed' as
+    :func:`scan_grid` names them, but for the bf16 variant 'mma' where
+    :func:`scan_grid` would stage and :func:`mma_plan` fits ('streamed'
+    where it does not)."""
+    grid = scan_grid('lstm_bwd', n_dir, rows_per_dir, hdim, n_sm, max_smem,
+                     elem=2 if bf16 else 4)
+    if grid is None:
+        return None
+    if grid.streamed:
+        return 'streamed'
+    if not bf16:
+        return 'cooperative'
+    found = mma_plan(n_dir, rows_per_dir, hdim, n_sm, max_smem)
+    return 'streamed' if found is None else 'mma'
+
+
 _GRID_ENTRIES = {'lstm_fwd': 'lstm_cell_scan_fwd_grid',
                  'lstm_bwd': 'lstm_cell_scan_bwd_grid',
                  'gru_fwd': 'gru_cell_scan_fwd_grid',
@@ -393,8 +483,9 @@ def device_grid(kernel, n_dir, rows_per_dir, hdim, bf16, device,
     :func:`scan_grid`; ``bf16``: its bf16 variant, ``train``: the training
     forward) on ``device`` (an index), from the C side's own planner:
     {'U', 'n_rb', 'RB', 'RS', 'KS', 'blocks', 'streamed'} (blocks 0 when
-    no grid is co-resident)."""
-    out = (ctypes.c_int * 7)()
+    no grid is co-resident), and for 'lstm_bwd' 'mma' (1 on the bf16
+    ``mma`` route, whose U is 16 and KS its K chunks, :func:`mma_plan`)."""
+    out = (ctypes.c_int * 8)()
     lib = _build.load_library()
     entry = _GRID_ENTRIES[kernel]
     args = (n_dir, rows_per_dir, hdim, int(bf16))
@@ -402,14 +493,19 @@ def device_grid(kernel, n_dir, rows_per_dir, hdim, bf16, device,
         args += (int(train),)
     err = getattr(lib, entry)(*args, device, ctypes.addressof(out))
     _build.check(lib, err, f'{entry}')
-    return dict(zip(('U', 'n_rb', 'RB', 'RS', 'KS', 'blocks', 'streamed'),
-                    out))
+    keys = ('U', 'n_rb', 'RB', 'RS', 'KS', 'blocks', 'streamed')
+    if kernel == 'lstm_bwd':
+        keys += ('mma',)
+    return dict(zip(keys, out))
 
 
 def _route(kernel, n_dir, rows_per_dir, hdim, bf16, device, train=False):
-    """'streamed' or 'cooperative': the route the card's planner takes."""
+    """'streamed', 'cooperative' or (the bf16 backward) 'mma': the route
+    the card's planner takes."""
     grid = device_grid(kernel, n_dir, rows_per_dir, hdim, bf16, device,
                        train)
+    if grid.get('mma'):
+        return 'mma'
     return 'streamed' if grid['streamed'] else 'cooperative'
 
 
@@ -549,8 +645,9 @@ def bwd_grid(n_dir, rows_per_dir, hdim, bf16=False):
     """The grid the backward kernel (``bf16``: its bf16 variant) takes for
     a layer of ``n_dir`` directions of ``rows_per_dir`` rows and ``hdim``
     units on the current card: {'U', 'n_rb', 'RB', 'RS', 'KS', 'blocks',
-    'streamed'} (unit slice, row ranges, rows per range, rows staged at
-    once, K slices, blocks, 1 on the streamed route; blocks 0 when no grid
+    'streamed', 'mma'} (unit slice, row ranges, rows per range, rows
+    staged at once, K slices or, on the ``mma`` route, K chunks, blocks, 1
+    on the streamed route, 1 on the ``mma`` route; blocks 0 when no grid
     is co-resident)."""
     return device_grid('lstm_bwd', n_dir, rows_per_dir, hdim, bool(bf16),
                        torch.cuda.current_device())
@@ -617,7 +714,8 @@ def lstm_cell_scan(gates_x, w_hh, mask, h0, c0, compute_dtype=None):
         ``lstm_cell_scan.launches`` counts the launches per kernel
         (``fwd``, ``fwd_train``, ``bwd``, and ``fwd_bf16``,
         ``fwd_train_bf16``, ``bwd_bf16``), ``lstm_cell_scan.routes`` them
-        by route (``cooperative``, ``streamed``; :func:`scan_grid`).
+        by route (``cooperative``, ``streamed``, and ``mma`` for the bf16
+        backward; :func:`scan_grid`, :func:`bwd_route`).
     """
     w, n_dir = _norm_w(w_hh)
     if gates_x.device.type == 'cpu':
@@ -637,4 +735,4 @@ def lstm_cell_scan(gates_x, w_hh, mask, h0, c0, compute_dtype=None):
 lstm_cell_scan.launches = {'fwd': 0, 'fwd_train': 0, 'bwd': 0,
                            'fwd_bf16': 0, 'fwd_train_bf16': 0,
                            'bwd_bf16': 0}
-lstm_cell_scan.routes = {'cooperative': 0, 'streamed': 0}
+lstm_cell_scan.routes = {'cooperative': 0, 'streamed': 0, 'mma': 0}

@@ -2141,3 +2141,72 @@ def test_bf16_policy_trains_on_the_card_with_float32_masters(cuda, tmp_path):
         before['fwd_train_bf16'] + 10
     assert lstm_cell_scan.launches['bwd_bf16'] == before['bwd_bf16'] + 10
     assert {p.dtype for p in trainer.model.parameters()} == {torch.float32}
+
+
+# the bf16 LSTM backward's `mma` route (bf16 mma.sync, W_hh's slice in
+# registers): (T, rows per direction, H, mask) of chip_smoke.py phase 23
+# and a few more; every one on the mma route
+LSTM_BF16_MMA_SHAPES = [(label, t_len, batch, hdim, kind)
+                        for label, t_len, batch, hdim, kind, _
+                        in chip_smoke.LSTM_BF16_SHAPES] + [
+    ('one row, H = 8', 7, 1, 8, None),
+    ('H = 130 ragged', 33, 5, 130, 'ragged'),
+    ('400 rows, H = 40', 40, 400, 40, 'chunks'),
+    # 1600 pairs a block (more than two a thread) in staged chunks of rows
+    ('100 rows, H = 600', 12, 100, 600, 'ragged'),
+]
+
+
+@pytest.mark.parametrize('label', [s[0] for s in LSTM_BF16_MMA_SHAPES])
+def test_lstm_bf16_backward_takes_the_mma_route(cuda, label):
+    """The bf16 backward on the ``mma`` route (counted by
+    ``lstm_cell_scan.routes``) against its plain bf16 version at phase
+    23's limits, the float32-product control outside them, two runs the
+    same bits, and the card's plan equal to its mirror ``mma_plan``."""
+    _, t_len, batch, hdim, kind = next(
+        s for s in LSTM_BF16_MMA_SHAPES if s[0] == label)
+    args, cot = chip_smoke.recurrence_inputs(t_len, batch, hdim, kind,
+                                             gates=4)
+    gx, w, mask, h0, c0 = args
+    _, c_seq, gates, _, _ = lstm_cell_scan_train_plain(
+        gx.bfloat16(), w, mask, h0, c0, 'bfloat16')
+    bwd_in = (gates, c_seq, w, mask, cot[0].bfloat16(), cot[1], cot[2])
+    routes = dict(lstm_cell_scan.routes)
+    got = lstm_kernels._launch_bwd(gates, c_seq, w, 2, mask, *bwd_in[4:])
+    again = lstm_kernels._launch_bwd(gates, c_seq, w, 2, mask, *bwd_in[4:])
+    torch.cuda.synchronize()
+    assert lstm_cell_scan.routes == {**routes, 'mma': routes['mma'] + 2}
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    want = lstm_cell_scan_bwd_plain(*bwd_in, 'bfloat16')
+    excess, share = bf16_distance(got[:1], want[:1],
+                                  LSTM_BF16_STREAM_TOL['bwd'])
+    assert excess <= 0 and share <= LSTM_BF16_SHARE, (excess, share)
+    for g, w_ in zip(got[1:], want[1:]):
+        assert float((g - w_).abs().max()) <= LSTM_BF16_STATE_TOL['bwd']
+    control = lstm_cell_scan_bwd_plain(*bwd_in)
+    _, control_share = bf16_distance(control[:1], want[:1],
+                                     LSTM_BF16_STREAM_TOL['bwd'])
+    if t_len * batch >= 1000:   # enough steps and rows to tell them apart
+        assert control_share > LSTM_BF16_SHARE, control_share
+    grid = lstm_kernels.bwd_grid(2, batch, hdim, bf16=True)
+    plan = lstm_kernels.mma_plan(2, batch, hdim, *gru_kernels.device_limits(
+        torch.cuda.current_device()))
+    assert grid['mma'] == 1 and grid['streamed'] == 0
+    assert (grid['U'], grid['n_rb'], grid['RB'], grid['RS'], grid['KS'],
+            grid['blocks']) == (lstm_kernels.MMA_UNITS, plan.n_rb, plan.RB,
+                                plan.RS, plan.KCH, plan.blocks)
+
+
+def test_lstm_bf16_backward_routes_follow_the_mirror(cuda):
+    """The card's route of the bf16 backward (``bwd_grid``) is the one
+    ``lstm.bwd_route`` names from the card's limits: ``mma`` to the widest
+    H whose slices of 16 units fit the SMs, ``streamed`` one above."""
+    limits = gru_kernels.device_limits(torch.cuda.current_device())
+    widest = limits[0] // 2 * 16
+    for rows, hdim in [(16, 600), (2, widest), (2, widest + 1), (16, 1536)]:
+        grid = lstm_kernels.bwd_grid(2, rows, hdim, bf16=True)
+        route = lstm_kernels.bwd_route(2, rows, hdim, True, *limits)
+        got = 'mma' if grid['mma'] else (
+            'streamed' if grid['streamed'] else 'cooperative')
+        assert got == route, (rows, hdim, grid, route)
+    assert lstm_kernels.bwd_route(2, 2, widest, True, *limits) == 'mma'
