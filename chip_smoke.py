@@ -218,15 +218,20 @@ Phases, one line each:
     shape, plain, a bidirectional bf16 ``torch.nn.LSTM`` layer (cuDNN) and
     the bound
     (bytes at 2 B a stream element over 3.35 TB/s, or operations over the
-    bf16 tensor cores' 989 TFLOP/s).
+    bf16 tensor cores' 989 TFLOP/s); all three on their ``mma`` routes
+    (counted by ``lstm_cell_scan.routes`` per kernel, the card's grids
+    those of the mirror ``lstm.mma_plan``), each the same bits twice; the
+    bf16 backward's digests on fixed inputs (``lstm_bf16_bwd_digests``
+    takes a checkout's root).
 24. the JAX package's benchmarked flagship step: F=257, 3 x 600 BLSTM,
     K=2, ``compute_dtype='bfloat16'`` under ``precision='bfloat16'``, Adam
     with clip 10, both PIT losses, B=16, T=500: 20 steps beside the float32
-    step from the same start (every bf16 backward launch on the ``mma``
-    route) (losses within 5% relative, decreasing; the
+    step from the same start (every bf16 forward and backward launch on
+    the ``mma`` route) (losses within 5% relative, decreasing; the
     bf16 kernels launched), then a timed step by stage and on the host
     clock; masters and Adam moments float32; the trained bf16 model serves
-    4 requests (the lean bf16 kernel) and agrees with itself on the CPU.
+    4 requests (the lean bf16 kernel, on the ``mma`` route) and agrees
+    with itself on the CPU.
 25. the DPRNN-TasNet step under ``precision='bfloat16'`` at B=4 x 16000
     samples beside float32 from the same start: 3 steps' losses, 36
     training launches of the float32 LSTM kernels each, a timed step,
@@ -1030,8 +1035,9 @@ def reset_launches():
     for name in gru_cell_scan.routes:
         gru_cell_scan.routes[name] = 0
         gru_cell_scan.bwd_routes[name] = 0
-    for name in lstm_cell_scan.routes:
-        lstm_cell_scan.routes[name] = 0
+    for counts in lstm_cell_scan.routes.values():
+        for name in counts:
+            counts[name] = 0
     masked_istft.launches = 0
     for name in masked_istft.routes:
         masked_istft.routes[name] = 0
@@ -3795,15 +3801,19 @@ def lstm_bf16_case(label, t_len, batch, hdim, kind, in_size):
         return lstm_kernels._launch_bwd(gates, c_seq, w, 2, mask,
                                         *bwd_in[4:])
 
-    got = {'fwd': fwd(), 'fwd_train': fwd_train()}
-    # the backward's route by the launch counter: the `mma` route here
-    routes = dict(lstm_cell_scan.routes)
-    got['bwd'] = bwd()
-    bwd_routes = {k: v - routes[k] for k, v in lstm_cell_scan.routes.items()}
-    if bwd_routes != with_zeros(bwd_routes, {'mma': 1}):
-        fail(f'the bf16 backward at {label} did not take the mma route: '
-             f'{bwd_routes}')
-    same = all(torch.equal(x, y) for x, y in zip(got['bwd'], bwd()))
+    # the kernels' routes by the launch counters: the `mma` route here
+    before = lstm_routes()
+    got = {'fwd': fwd(), 'fwd_train': fwd_train(), 'bwd': bwd()}
+    taken = routes_since(before)
+    if taken != {'fwd_bf16': {'mma': 1}, 'fwd_train_bf16': {'mma': 1},
+                 'bwd_bf16': {'mma': 1}}:
+        fail(f'the bf16 LSTM kernels at {label} did not all take the mma '
+             f'route: {taken}')
+    again = {'fwd': fwd(), 'fwd_train': fwd_train(), 'bwd': bwd()}
+    same = {name: all(torch.equal(x, y) for x, y in zip(got[name],
+                                                        again[name]))
+            for name in got}
+    del again
     want = {'fwd': lstm_cell_scan_plain(*args16, 'bfloat16'),
             'fwd_train': want_train,
             'bwd': lstm_cell_scan_bwd_plain(*bwd_in, 'bfloat16')}
@@ -3827,17 +3837,23 @@ def lstm_bf16_case(label, t_len, batch, hdim, kind, in_size):
     library = cudnn_layer_ms(torch.nn.LSTM, t_len, batch, in_size, hdim,
                              dtype=torch.bfloat16)
     inputs = {'fwd': args16, 'fwd_train': args16, 'bwd': bwd_in}
-    grid = lstm_kernels.bwd_grid(2, batch, hdim, bf16=True)
-    # the card's mma plan and its mirror (ops/kernels/lstm.py mma_plan)
-    plan = lstm_kernels.mma_plan(2, batch, hdim,
-                                 *gru_kernels.device_limits(
-                                     torch.cuda.current_device()))
-    if not grid['mma'] or plan is None or (
-            grid['U'], grid['n_rb'], grid['RB'], grid['RS'], grid['KS'],
-            grid['blocks']) != (lstm_kernels.MMA_UNITS, plan.n_rb, plan.RB,
-                                plan.RS, plan.KCH, plan.blocks):
-        fail(f'the bf16 backward\'s grid at {label} is not the mirror\'s '
-             f'mma plan: {grid}, {plan}')
+    # the card's mma plans and their mirror (ops/kernels/lstm.py mma_plan)
+    device = torch.cuda.current_device()
+    grids = {'fwd': lstm_kernels.device_grid('lstm_fwd', 2, batch, hdim,
+                                             True, device),
+             'fwd_train': lstm_kernels.device_grid('lstm_fwd', 2, batch,
+                                                   hdim, True, device, True),
+             'bwd': lstm_kernels.bwd_grid(2, batch, hdim, bf16=True)}
+    for name, grid in grids.items():
+        plan = lstm_kernels.mma_plan(
+            2, batch, hdim, *gru_kernels.device_limits(device),
+            'lstm_bwd' if name == 'bwd' else 'lstm_fwd')
+        if not grid['mma'] or plan is None or (
+                grid['U'], grid['n_rb'], grid['RB'], grid['RS'], grid['KS'],
+                grid['blocks']) != (lstm_kernels.MMA_UNITS, plan.n_rb,
+                                    plan.RB, plan.RS, plan.KCH, plan.blocks):
+            fail(f'the bf16 {name} kernel\'s grid at {label} is not the '
+                 f'mirror\'s mma plan: {grid}, {plan}')
     rows = {}
     for name in ('fwd', 'fwd_train', 'bwd'):
         n = streams[name]
@@ -3856,8 +3872,8 @@ def lstm_bf16_case(label, t_len, batch, hdim, kind, in_size):
         limit = bound(nbytes(*inputs[name], *got[name]), flops,
                       peak=PEAK_BF16_FLOPS)
         shown = (' on the mma route, grid ' + ', '.join(
-            f'{k} {v}' for k, v in grid.items()) + f', two runs the same '
-            f'bits {same}' if name == 'bwd' else '')
+            f'{k} {v}' for k, v in grids[name].items())
+            + f', two runs the same bits {same[name]}')
         print(f'phase 23 lstm bf16 {name} {label}: states max |kernel - '
               f'plain| {state_err:.3e} (tol {tol}; plain with float32 '
               f'products {control_state:.3e}); streams max |diff| '
@@ -3876,8 +3892,8 @@ def lstm_bf16_case(label, t_len, batch, hdim, kind, in_size):
         if not control_share > LSTM_BF16_SHARE:
             fail(f'the limit does not tell bf16 products from float32 at '
                  f'{label} ({name}): {control_share}')
-        if name == 'bwd' and not same:
-            fail(f'two bf16 backward runs at {label} differ')
+        if not same[name]:
+            fail(f'two bf16 {name} runs at {label} differ')
         rows[name] = {
             'max_abs_err': max_err(got[name], want[name]),
             'share_differing': share, 'state_err': state_err,
@@ -3889,12 +3905,34 @@ def lstm_bf16_case(label, t_len, batch, hdim, kind, in_size):
 
 def phase_lstm_bf16_kernels():
     """Phase 23: the three bf16 LSTM kernels at the flagship layer, the
-    DPRNN's two shapes and an odd H (see LSTM_BF16_SHAPES)."""
+    DPRNN's two shapes and an odd H (see LSTM_BF16_SHAPES); the bf16
+    backward's digests."""
     rows = {}
     for shape in LSTM_BF16_SHAPES:
         rows[shape[0]] = lstm_bf16_case(*shape)
         torch.cuda.empty_cache()
+    digests = lstm_bf16_bwd_digests(Path(__file__).resolve().parent)
+    print(f'phase 23 bf16 LSTM backward\'s digests on fixed inputs '
+          f'(unmasked and ragged): {json.dumps(digests)}')
     return rows
+
+
+def lstm_routes():
+    """A copy of ``lstm_cell_scan.routes``: {kernel: {route: launches}}."""
+    return {name: dict(counts)
+            for name, counts in lstm_cell_scan.routes.items()}
+
+
+def routes_since(before):
+    """The LSTM launches by kernel and route since ``before``
+    (:func:`lstm_routes`), the kernels and routes that took some."""
+    taken = {}
+    for name, counts in lstm_cell_scan.routes.items():
+        moved = {route: n - before[name][route]
+                 for route, n in counts.items() if n != before[name][route]}
+        if moved:
+            taken[name] = moved
+    return taken
 
 
 def losses_over(trainer, batch, steps):
@@ -3951,10 +3989,12 @@ def phase_flagship_bf16():
             reset_launches()
             losses = losses_over(trainer, example, steps)
             launches[label] = dict(lstm_cell_scan.launches)
-            routes = dict(lstm_cell_scan.routes)
-            if compute_dtype and routes['mma'] != launches[label]['bwd_bf16']:
-                fail(f'the bf16 flagship step\'s backward launches did not '
-                     f'all take the mma route: {routes}, {launches[label]}')
+            routes = lstm_routes()
+            if compute_dtype and any(
+                    routes[name]['mma'] != launches[label][name]
+                    for name in ('fwd_bf16', 'fwd_train_bf16', 'bwd_bf16')):
+                fail(f'the bf16 flagship step\'s launches did not all take '
+                     f'the mma route: {routes}, {launches[label]}')
             times = timed_step(trainer, example, loss_key='trainer',
                                variant='_bf16' if compute_dtype else '')
             masters_are_float32(trainer, f'phase 24 {label}')
@@ -3994,10 +4034,15 @@ def phase_flagship_bf16():
             if not np.isfinite(metrics['output_si_sdr']).all():
                 fail(f'bad metrics from the bf16 model: {metrics}')
         served = dict(lstm_cell_scan.launches)
+        served_routes = lstm_routes()
         print(f'phase 24 bf16 model served {len(examples)} requests, latency '
-              f'ms {[round(x, 3) for x in latencies]}, launches {served}')
+              f'ms {[round(x, 3) for x in latencies]}, launches {served}, '
+              f'lean bf16 forwards by route {served_routes["fwd_bf16"]}')
         if served['fwd_bf16'] == 0:
             fail('the bf16 requests never launched the lean bf16 kernel')
+        if served_routes['fwd_bf16']['mma'] != served['fwd_bf16']:
+            fail(f'the bf16 requests\' lean forwards did not all take the '
+                 f'mma route: {served_routes}')
         small = ragged_batch(2, 120)
         model_cpu = copy.deepcopy(model).cpu()
         with torch.no_grad():
@@ -5001,6 +5046,18 @@ WIDE_RECURRENCES = [
 ]
 
 
+def route_totals(wrapper):
+    """A copy of a cell-scan wrapper's launches by route, the LSTM's
+    summed over its kernels."""
+    if wrapper is lstm_cell_scan:
+        total = {}
+        for counts in lstm_cell_scan.routes.values():
+            for route, n in counts.items():
+                total[route] = total.get(route, 0) + n
+        return total
+    return dict(wrapper.routes)
+
+
 def wide_recurrence_case(label, kind, t_len, batch, hdim, bf16, in_size,
                          timed=True):
     """The three kernels of a wide layer against their plain versions
@@ -5060,11 +5117,11 @@ def wide_recurrence_case(label, kind, t_len, batch, hdim, bf16, in_size,
                  'bwd': lambda: gru_cell_scan_bwd_plain(*bwd_in, cd)}
         streams = {'fwd': 1, 'fwd_train': 4, 'bwd': 2}
     with torch.no_grad():
-        routes = dict(wrapper.routes)
+        routes = route_totals(wrapper)
         got = {name: fn() for name, fn in kernel.items()}
         want = {name: fn() for name, fn in plain.items()}
     torch.cuda.synchronize()
-    launched = {k: v - routes[k] for k, v in wrapper.routes.items()}
+    launched = {k: v - routes[k] for k, v in route_totals(wrapper).items()}
     library = (cudnn_layer_ms(layer, t_len, batch, in_size, hdim,
                               dtype=stream) if timed else {})
     valid = t_len * 2 * batch if mask is None else float(mask.sum())
@@ -5212,6 +5269,58 @@ def lstm_f32_digests(root):
         cwd=root, capture_output=True, text=True, timeout=600)
     if proc.returncode != 0:
         fail(f'the float32 LSTM digests of {root} failed:\n{proc.stderr}')
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+# the bf16 LSTM backward's outputs (dgates_x, dh0, dc0) on fixed inputs at
+# phase 23's shapes, unmasked and ragged: residuals drawn from a seed (not
+# a forward's, so that they do not depend on the forward kernels); run in
+# a process of its own from a checkout's root, so that two checkouts'
+# kernels can be compared (``python3 -c "import chip_smoke as c;
+# print(c.lstm_bf16_bwd_digests('<checkout>'))"``)
+LSTM_BF16_BWD_DIGEST_CODE = r"""
+import hashlib, json, sys
+import numpy as np
+import torch
+from padertorch_tpu_torch.ops.kernels import lstm
+out = {}
+for label, t_len, batch, hdim in json.loads(sys.argv[1]):
+    rng = np.random.RandomState(hdim + t_len)
+    lens = rng.randint(t_len // 2, t_len + 1, size=batch)
+    fwd = np.arange(t_len)[:, None] < lens[None, :]
+    mask = np.concatenate([fwd, fwd[::-1]], axis=1)
+    rows = 2 * batch
+    put = lambda a: torch.from_numpy(a.astype('float32')).cuda()
+    acts = rng.uniform(0, 1, (t_len, rows, 4, hdim))
+    acts[:, :, 2] = 2 * acts[:, :, 2] - 1          # g = tanh(.) in (-1, 1)
+    gates = put(acts.reshape(t_len, rows, 4 * hdim)).bfloat16()
+    c_seq = put(rng.uniform(-1, 1, (t_len, rows, hdim))).bfloat16()
+    w = put(rng.uniform(-1, 1, (2, hdim, 4 * hdim)) / np.sqrt(hdim))
+    d_out = put(rng.uniform(-1, 1, (t_len, rows, hdim))).bfloat16()
+    dh = put(rng.uniform(-1, 1, (rows, hdim)))
+    dc = put(rng.uniform(-1, 1, (rows, hdim)))
+    digest = hashlib.sha256()
+    for m in (None, put(mask)):
+        bwd = lstm._launch_bwd(gates, c_seq, w, 2, m, d_out, dh, dc)
+        for t in bwd:
+            digest.update(t.cpu().contiguous().view(torch.uint8).numpy()
+                          .tobytes())
+    out[label] = digest.hexdigest()[:16]
+print(json.dumps(out))
+"""
+
+
+def lstm_bf16_bwd_digests(root):
+    """{shape: digest} of the bf16 LSTM backward of the checkout at
+    ``root`` (see LSTM_BF16_BWD_DIGEST_CODE), at LSTM_BF16_SHAPES."""
+    shapes = [(label, t_len, batch, hdim)
+              for label, t_len, batch, hdim, _, _ in LSTM_BF16_SHAPES]
+    proc = subprocess.run(
+        [sys.executable, '-c', LSTM_BF16_BWD_DIGEST_CODE, json.dumps(shapes)],
+        cwd=root, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        fail(f'the bf16 LSTM backward digests of {root} failed:\n'
+             f'{proc.stderr}')
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
@@ -5706,11 +5815,15 @@ def main():
          'source': 'padertorch_tpu_torch/csrc/lstm_cell_scan.cu',
          'replaces': 'padertorch_tpu/ops/pallas/lstm.py:275',
          'launches': lstm_bf16_launches['fwd_bf16'],
+         'lstm_route': 'mma: bf16 mma.sync, W_hh in registers, h exchanged '
+                       'as bf16',
          'shape': flagship + ' bf16', **bf16_rows['fwd']},
         {'name': 'lstm_cell_scan_train_bf16', 'route': 'cuda',
          'source': 'padertorch_tpu_torch/csrc/lstm_cell_scan.cu',
          'replaces': 'padertorch_tpu/ops/pallas/lstm.py:293',
          'launches': lstm_bf16_launches['fwd_train_bf16'],
+         'lstm_route': 'mma: bf16 mma.sync, W_hh in registers, h exchanged '
+                       'as bf16',
          'shape': flagship + ' bf16', **bf16_rows['fwd_train']},
         {'name': 'lstm_cell_scan_bwd_bf16', 'route': 'cuda',
          'source': 'padertorch_tpu_torch/csrc/lstm_cell_scan_bwd.cu',

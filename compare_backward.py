@@ -12,6 +12,7 @@ that git ignores); alternate them, as in parent, change, change, parent:
     python3 compare_backward.py <checkout> attention-bf16
     python3 compare_backward.py <checkout> attention-bf16-fwd
     python3 compare_backward.py <checkout> lstm-bf16
+    python3 compare_backward.py <checkout> lstm-bf16-fwd
 
 ``lstm``: ``lstm_cell_scan``'s backward kernel alone at the DPRNN-TasNet's
 intra (T=100, 260 rows per direction, H=128) and inter (T=65, 400 rows,
@@ -46,8 +47,13 @@ bf16 forward where it takes the masks (none, or causal).
 23's four shapes (the uPIT layer, the DPRNN's two, T=64 H=75 ragged) on
 the residuals of the plain bf16 training forward: the median of 5 windows
 of 10 launches, the largest difference from the plain bf16 backward, and
-the grid (and route) the kernel takes.  Prints the card's name and power
-limit first; exits non-zero without a card.
+the grid (and route) the kernel takes.  ``lstm-bf16-fwd``: the two bf16
+forward kernels alone (the lean one, as a served request runs it, and the
+training one) at the same shapes: the median of 5 windows of 10 launches,
+the largest difference from the plain bf16 forward, a digest of the
+outputs, and the grid (and route) each takes; then the same at two wide
+layers (``LSTM_BF16_FWD_WIDE``: 2 x 1100 at 2 and 16 rows a direction).  Prints the card's name and
+power limit first; exits non-zero without a card.
 """
 import hashlib
 import subprocess
@@ -321,6 +327,48 @@ def lstm_backward_bf16(lk):
               f'{err:.3e}, grid {grid}', flush=True)
 
 
+# wide bf16 layers, T=50, ragged: (label, T, rows per direction, H, mask);
+# at two rows a direction the staged search stages W_hh but the forwards'
+# mma plan does not fit (66 slices of 16 units a direction fill the 132
+# SMs of an H100), at 16 rows both stream
+LSTM_BF16_FWD_WIDE = [('wide T=50 D*B=4 H=1100 ragged', 50, 2, 1100, 'ragged'),
+                      ('wide T=50 D*B=32 H=1100 ragged', 50, 16, 1100,
+                       'ragged')]
+
+
+def lstm_forward_bf16(lk):
+    import chip_smoke
+    shapes = [shape[:5] for shape in chip_smoke.LSTM_BF16_SHAPES]
+    for label, t_len, batch, hdim, kind in shapes + LSTM_BF16_FWD_WIDE:
+        args, _ = chip_smoke.recurrence_inputs(t_len, batch, hdim, kind,
+                                               gates=4)
+        gx, w, mask, h0, c0 = args
+        gx = gx.bfloat16()
+        kernels = {
+            'lean': lambda: lk.lstm_cell_scan(gx, w, mask, h0, c0,
+                                              compute_dtype='bfloat16'),
+            'training': lambda: lk._launch(gx, w, 2, mask, h0, c0,
+                                           train=True)}
+        plain = {'lean': lk.lstm_cell_scan_plain,
+                 'training': lk.lstm_cell_scan_train_plain}
+        for name, kernel in kernels.items():
+            with torch.no_grad():
+                got = kernel()
+                want = plain[name](gx, w, mask, h0, c0, 'bfloat16')
+                err = max(float((a.float() - b.float()).abs().max())
+                          for a, b in zip(got, want))
+                ms, windows = median_ms(kernel)
+            grid = lk.device_grid('lstm_fwd', 2, batch, hdim, True,
+                                  torch.cuda.current_device(),
+                                  name == 'training')
+            print(f'lstm bf16 {name} forward {label}: {ms:.4f} ms (windows '
+                  f'{[round(x, 4) for x in windows]}), max |kernel - plain| '
+                  f'{err:.3e}, digest {sha256(got)[:16]}, grid {grid}',
+                  flush=True)
+            del got, want
+        torch.cuda.empty_cache()
+
+
 def sha256(tensors):
     """Digest of the tensors' bytes (bf16 as its 16-bit patterns)."""
     digest = hashlib.sha256()
@@ -349,7 +397,8 @@ def main():
      'attention-bits': lambda: attention_backward_bits(ak),
      'attention-bf16': lambda: attention_backward_bf16(ak),
      'attention-bf16-fwd': lambda: attention_forward_bf16(ak),
-     'lstm-bf16': lambda: lstm_backward_bf16(lk)}[part]()
+     'lstm-bf16': lambda: lstm_backward_bf16(lk),
+     'lstm-bf16-fwd': lambda: lstm_forward_bf16(lk)}[part]()
 
 
 if __name__ == '__main__':

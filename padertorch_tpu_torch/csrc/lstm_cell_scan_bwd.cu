@@ -83,29 +83,11 @@
 
 namespace cg = cooperative_groups;
 
-// clock64 probes of a step's parts (cell, grid sync, dz exchange, product)
-// in thread 0 of block 0, built only with -DLSTM_BWD_PROBE (the script
-// lstm_bwd_probe.py): cycles summed over the steps of a launch.
-#ifdef LSTM_BWD_PROBE
+// the probes' cycles (lstm_common.cuh), in -DLSTM_PROBE builds only
+#ifdef LSTM_PROBE
 __device__ long long lstm_bwd_probe_cycles[4];
-#define PROBE_INIT() long long probe_t = clock64()
-#define PROBE(part)                                                   \
-    do {                                                              \
-        if (blockIdx.x == 0 && threadIdx.x == 0) {                    \
-            const long long probe_now = clock64();                    \
-            lstm_bwd_probe_cycles[part] += probe_now - probe_t;       \
-            probe_t = probe_now;                                      \
-        }                                                             \
-    } while (0)
-#else
-#define PROBE_INIT() \
-    do {             \
-    } while (0)
-#define PROBE(part) \
-    do {            \
-    } while (0)
+#define PROBE_CYCLES lstm_bwd_probe_cycles
 #endif
-enum { PROBE_CELL, PROBE_SYNC, PROBE_EXCHANGE, PROBE_PRODUCT };
 
 namespace {
 
@@ -296,91 +278,9 @@ __global__ void __launch_bounds__(1024) lstm_bwd_kernel(
 
 // ---- the bf16 `mma` route
 
-constexpr int MMA_UNITS = 16;           // a block's units: one M tile
-constexpr int MMA_WARPS = 16;           // 512 threads
-constexpr int MMA_THREADS = 32 * MMA_WARPS;
-constexpr int MMA_RED = MMA_UNITS + 4;  // a partial-sum row, padded
 // a warp's k-steps of W_hh in registers, at most: the instantiations
 constexpr int MMA_KC[] = {2, 10, 18};
 constexpr int MMA_KC_MAX = 18;
-
-// How the `mma` route divides a layer: a block owns a direction, one of
-// n_ub slices of 16 units and one of n_rb ranges of RB rows, of which it
-// stages RS at once; K = 4H is KT k-steps of 16 in KCH chunks of KC (a
-// warp's), and each chunk's warps split the row tiles NG ways.
-struct MmaPlan {
-    int n_ub, n_rb, RB, RS, KT, KC, KCH, NG, blocks;
-    size_t smem;
-};
-
-// Shared memory of a block: the staged dz rows (RS padded to 8, each of
-// 16 KT bf16 plus 16 bytes), the chunks' partial sums, and dh, dc of the
-// block's (row, unit) pairs.
-inline size_t mma_smem(int KT, int KCH, int RB, int RS) {
-    const size_t rsp = (RS + 7) / 8 * 8;
-    return sizeof(__nv_bfloat16) * rsp * (16 * (size_t)KT + 8)
-           + sizeof(float) * ((size_t)KCH * rsp * MMA_RED
-                              + 2 * (size_t)RB * MMA_UNITS);
-}
-
-// The plan (blocks 0 where none fits): one block an SM, so the unit slices
-// of both directions must not outnumber the SMs; the rows are split until
-// the grid has about one block per SM, and staged in as few chunks as
-// shared memory allows, evened out.  ops/kernels/lstm.py `mma_plan` is its
-// mirror.
-inline MmaPlan mma_plan(int D, int Bd, int H, int n_sm, int max_smem) {
-    MmaPlan p = {};
-    p.n_ub = (H + MMA_UNITS - 1) / MMA_UNITS;
-    const int cols = D * p.n_ub;
-    p.KT = (4 * H + 15) / 16;
-    p.KC = (p.KT + MMA_WARPS - 1) / MMA_WARPS;
-    if (cols > n_sm || p.KC > MMA_KC_MAX) return p;
-    p.KCH = (p.KT + p.KC - 1) / p.KC;
-    p.NG = MMA_WARPS / p.KCH;
-    int n_rb = n_sm / cols;
-    n_rb = n_rb < 1 ? 1 : (n_rb > Bd ? Bd : n_rb);
-    p.RB = (Bd + n_rb - 1) / n_rb;
-    p.n_rb = (Bd + p.RB - 1) / p.RB;
-    int rs = p.RB;
-    while (rs > 0 && mma_smem(p.KT, p.KCH, p.RB, rs) > (size_t)max_smem) {
-        --rs;
-    }
-    if (rs == 0) return p;
-    const int chunks = (p.RB + rs - 1) / rs;
-    p.RS = (p.RB + chunks - 1) / chunks;
-    p.smem = mma_smem(p.KT, p.KCH, p.RB, p.RS);
-    p.blocks = cols * p.n_rb;
-    return p;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-    __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// c += a b: A (16 x 16, row-major fragments), B (16 x 8, b0 and b1), bf16
-// operands, float32 sums
-__device__ __forceinline__ void mma_bf16(float (&c)[4],
-                                         const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-        "{%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// B fragments (16 deep, 8 wide) of eight k-contiguous bf16 rows: lanes 0-7
-// point at the rows' first 8 values, lanes 8-15 at the next 8
-__device__ __forceinline__ void ldsm_x2(const void* p, uint32_t& b0,
-                                        uint32_t& b1) {
-    const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
-    asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-                 : "=r"(b0), "=r"(b1)
-                 : "r"(addr)
-                 : "memory");
-}
 
 // One (row, unit) pair's inputs to the cell part of a step.
 struct CellIn {
@@ -632,19 +532,9 @@ cudaError_t pick_mma(int D, int Bd, int H, int device, MmaPlan* plan) {
     cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
     cudaDeviceGetAttribute(&max_smem,
                            cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-    *plan = mma_plan(D, Bd, H, n_sm, max_smem);
+    *plan = mma_plan(D, Bd, H, 4 * H, MMA_RED, MMA_KC_MAX, n_sm, max_smem);
     if (plan->blocks == 0) return cudaSuccess;
-    const void* kernel = mma_kernel(*plan);
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)plan->smem);
-    if (err != cudaSuccess) return err;
-    int per_sm = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, kernel, MMA_THREADS, plan->smem);
-    if (err != cudaSuccess) return err;
-    if (per_sm == 0 || plan->blocks > per_sm * n_sm) plan->blocks = 0;
-    return cudaSuccess;
+    return fit_mma(mma_kernel(*plan), n_sm, plan);
 }
 
 // The grid of a launch: `pick_route` (lstm_common.cuh), resident or
@@ -832,7 +722,7 @@ int lstm_cell_scan_bwd_bf16(const void* gates, const void* c_seq,
                             dgx, dh0, dc0, T, D, Bd, H, device, stream);
 }
 
-#ifdef LSTM_BWD_PROBE
+#ifdef LSTM_PROBE
 // Probe builds: the bf16 variant on the float32 FMA grid (the route the
 // `mma` route replaced), and the probes' cycles (PROBE_CELL ...
 // PROBE_PRODUCT), read and zeroed.
@@ -848,13 +738,7 @@ int lstm_cell_scan_bwd_bf16_fma(const void* gates, const void* c_seq,
 }
 
 int lstm_bwd_probe_take(long long* out) {
-    cudaError_t err = cudaDeviceSynchronize();
-    if (err != cudaSuccess) return err;
-    err = cudaMemcpyFromSymbol(out, lstm_bwd_probe_cycles,
-                               sizeof(lstm_bwd_probe_cycles));
-    if (err != cudaSuccess) return err;
-    const long long zeros[4] = {0, 0, 0, 0};
-    return cudaMemcpyToSymbol(lstm_bwd_probe_cycles, zeros, sizeof(zeros));
+    return probe_take(lstm_bwd_probe_cycles, out);
 }
 #endif
 

@@ -2,6 +2,42 @@
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+// clock64 probes of a step's parts (cell, grid sync, exchange, product) in
+// thread 0 of block 0, built only with -DLSTM_PROBE (the script
+// lstm_bwd_probe.py): cycles summed over the steps of a launch into the
+// array that the source names PROBE_CYCLES.
+#ifdef LSTM_PROBE
+#define PROBE_INIT() long long probe_t = clock64()
+#define PROBE(part)                                                   \
+    do {                                                              \
+        if (blockIdx.x == 0 && threadIdx.x == 0) {                    \
+            const long long probe_now = clock64();                    \
+            PROBE_CYCLES[part] += probe_now - probe_t;                \
+            probe_t = probe_now;                                      \
+        }                                                             \
+    } while (0)
+
+// Read a source's probe cycles into out[0..3] and zero them.
+template <class Cycles>
+int probe_take(const Cycles& cycles, long long* out) {
+    cudaError_t err = cudaDeviceSynchronize();
+    if (err != cudaSuccess) return err;
+    err = cudaMemcpyFromSymbol(out, cycles, sizeof(cycles));
+    if (err != cudaSuccess) return err;
+    const long long zeros[4] = {0, 0, 0, 0};
+    return cudaMemcpyToSymbol(cycles, zeros, sizeof(zeros));
+}
+#else
+#define PROBE_INIT() \
+    do {             \
+    } while (0)
+#define PROBE(part) \
+    do {            \
+    } while (0)
+#endif
+enum { PROBE_CELL, PROBE_SYNC, PROBE_EXCHANGE, PROBE_PRODUCT };
 
 __device__ __forceinline__ float sigmoidf_(float x) {
     return 1.0f / (1.0f + expf(-x));
@@ -259,4 +295,113 @@ cudaError_t pick_route(const void* resident, const void* streamed, int D,
     if (err != cudaSuccess || best->blocks > 0) return err;
     *stream_route = 1;
     return pick_streamed(streamed, D, Bd, H, K, n_sm, max_smem, rest, best);
+}
+
+// ---- the bf16 `mma` routes of the LSTM kernels (lstm_cell_scan.cu,
+// lstm_cell_scan_bwd.cu): a block of 16 warps owns a direction, 16 units
+// and a range of rows; its slice of W_hh[d], rounded to bf16, is the A
+// operand of `mma.sync.m16n8k16` (one M tile of 16 units, or four: the
+// forwards' gates), held in the warps' registers for the whole launch; the
+// step's rows are the B operand, N.
+
+constexpr int MMA_UNITS = 16;           // a block's units: one M tile a gate
+constexpr int MMA_WARPS = 16;           // 512 threads
+constexpr int MMA_THREADS = 32 * MMA_WARPS;
+constexpr int MMA_RED = MMA_UNITS + 4;  // a partial-sum row, padded
+
+// How an `mma` route divides a layer: a block owns a direction, one of
+// n_ub slices of 16 units and one of n_rb ranges of RB rows, of which it
+// stages RS at once; the product's K is KT k-steps of 16 in KCH chunks of
+// KC (a warp's), and each chunk's warps split the row tiles NG ways.
+struct MmaPlan {
+    int n_ub, n_rb, RB, RS, KT, KC, KCH, NG, blocks;
+    size_t smem;
+};
+
+// Shared memory of a block: the staged rows (RS padded to 8, each of 16 KT
+// bf16 plus 16 bytes), the chunks' partial sums (`red_row` floats a staged
+// row), and two float32 carries of the block's (row, unit) pairs.
+inline size_t mma_smem(int KT, int KCH, int RB, int RS, int red_row) {
+    const size_t rsp = (RS + 7) / 8 * 8;
+    return sizeof(__nv_bfloat16) * rsp * (16 * (size_t)KT + 8)
+           + sizeof(float) * ((size_t)KCH * rsp * red_row
+                              + 2 * (size_t)RB * MMA_UNITS);
+}
+
+// The plan of a product over K, with partial sums of `red_row` floats a
+// row, a warp's chunk at most kc_max k-steps (blocks 0 where none fits):
+// one block an SM, so the unit slices of all directions must not
+// outnumber the SMs; the
+// rows are split until the grid has about one block per SM, and staged in
+// as few chunks as shared memory allows, evened out.  ops/kernels/lstm.py
+// `mma_plan` is its mirror.
+inline MmaPlan mma_plan(int D, int Bd, int H, int K, int red_row,
+                        int kc_max, int n_sm, int max_smem) {
+    MmaPlan p = {};
+    p.n_ub = (H + MMA_UNITS - 1) / MMA_UNITS;
+    const int cols = D * p.n_ub;
+    p.KT = (K + 15) / 16;
+    p.KC = (p.KT + MMA_WARPS - 1) / MMA_WARPS;
+    if (cols > n_sm || p.KC > kc_max) return p;
+    p.KCH = (p.KT + p.KC - 1) / p.KC;
+    p.NG = MMA_WARPS / p.KCH;
+    int n_rb = n_sm / cols;
+    n_rb = n_rb < 1 ? 1 : (n_rb > Bd ? Bd : n_rb);
+    p.RB = (Bd + n_rb - 1) / n_rb;
+    p.n_rb = (Bd + p.RB - 1) / p.RB;
+    int rs = p.RB;
+    while (rs > 0
+           && mma_smem(p.KT, p.KCH, p.RB, rs, red_row) > (size_t)max_smem) {
+        --rs;
+    }
+    if (rs == 0) return p;
+    const int chunks = (p.RB + rs - 1) / rs;
+    p.RS = (p.RB + chunks - 1) / chunks;
+    p.smem = mma_smem(p.KT, p.KCH, p.RB, p.RS, red_row);
+    p.blocks = cols * p.n_rb;
+    return p;
+}
+
+// Set `kernel`'s dynamic shared memory limit to the plan's and zero
+// plan->blocks where the grid is not co-resident.
+inline cudaError_t fit_mma(const void* kernel, int n_sm, MmaPlan* plan) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)plan->smem);
+    if (err != cudaSuccess) return err;
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, MMA_THREADS, plan->smem);
+    if (err != cudaSuccess) return err;
+    if (per_sm == 0 || plan->blocks > per_sm * n_sm) plan->blocks = 0;
+    return cudaSuccess;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+    __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// c += a b: A (16 x 16, row-major fragments), B (16 x 8, b0 and b1), bf16
+// operands, float32 sums
+__device__ __forceinline__ void mma_bf16(float (&c)[4],
+                                         const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// B fragments (16 deep, 8 wide) of eight k-contiguous bf16 rows: lanes 0-7
+// point at the rows' first 8 values, lanes 8-15 at the next 8
+__device__ __forceinline__ void ldsm_x2(const void* p, uint32_t& b0,
+                                        uint32_t& b1) {
+    const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
+    asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+                 : "=r"(b0), "=r"(b1)
+                 : "r"(addr)
+                 : "memory");
 }

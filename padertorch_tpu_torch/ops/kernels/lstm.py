@@ -37,15 +37,18 @@ Every kernel runs one cooperative grid, on one of two routes that
 :func:`scan_grid` mirrors: ``cooperative`` (each block stages its slice of
 ``W_hh`` in shared memory) or, for a layer whose ``W_hh`` no co-resident
 grid can hold (on an H100 two directions of 16 rows from H = 896 in
-float32, 1057 in the bf16 backward, 1072 in the bf16 forwards),
-``streamed`` (the same grid and arithmetic, the weights read from device
-memory every step, as the slots a block would stage, packed by the
-kernel's launcher into scratch of :func:`packed_bytes` that the wrapper
-allocates).  The bf16 backward takes a third route where
-:func:`scan_grid` would stage: ``mma`` (``csrc/lstm_cell_scan_bwd.cu``,
-bf16 ``mma.sync`` tensor-core products with ``W_hh``'s slice in
-registers, on the grid of :func:`mma_plan`; ``streamed`` where that plan
-does not fit).  ``lstm_cell_scan.routes`` counts the launches by route.
+float32, 1057 in bf16), ``streamed`` (the same grid and arithmetic, the
+weights read from device memory every step, as the slots a block would
+stage, packed by the kernel's launcher into scratch of
+:func:`packed_bytes` that the wrapper allocates).  The bf16 kernels take a
+third route where :func:`scan_grid` would stage: ``mma`` (bf16
+``mma.sync`` tensor-core products with ``W_hh``'s slice in registers, on
+the grid of :func:`mma_plan`: the forwards' in ``csrc/lstm_cell_scan.cu``,
+``bf16(h) @ bf16(W_hh)`` with the four gates' columns of 16 units along M
+and h exchanged as bf16 rows, the backward's in
+``csrc/lstm_cell_scan_bwd.cu``; ``streamed`` where that plan does not
+fit: :func:`fwd_route`, :func:`bwd_route`).  ``lstm_cell_scan.routes``
+counts the launches by kernel and route.
 """
 import ctypes
 import functools
@@ -60,7 +63,7 @@ __all__ = ['lstm_cell_scan', 'lstm_cell_scan_plain', 'LSTMCellScan',
            'recurrent_weight_grad', 'sum_outer', 'time_groups',
            'product_dtype', 'matmul_f32', 'ScanGrid', 'scan_grid',
            'scan_smem', 'device_grid', 'packed_bytes', 'MmaPlan',
-           'mma_plan', 'mma_smem', 'bwd_route']
+           'mma_plan', 'mma_smem', 'fwd_route', 'bwd_route']
 
 
 def _norm_w(w_hh):
@@ -366,10 +369,10 @@ def scan_grid(kernel, n_dir, rows_per_dir, hdim, n_sm, max_smem, elem=4,
     fills half the SMs is taken, else the co-resident one with the most
     blocks.  The card decides co-residency with the kernel's own register
     count; this mirror assumes ``regs`` a thread (the kernels' launch
-    bound), which the card's tests hold it to.  For the bf16 backward
-    ('lstm_bwd' at ``elem=2``) a staged grid here only says that the
-    weights need not stream: that kernel then runs on :func:`mma_plan`
-    (:func:`bwd_route`).
+    bound), which the card's tests hold it to.  For the bf16 kernels
+    (``elem=2``) a staged grid here only says that the weights need not
+    stream: they then run on :func:`mma_plan` (:func:`fwd_route`,
+    :func:`bwd_route`).
     """
     k_len = -(-3 * hdim // 4) if kernel == 'gru_bwd' else hdim
     tries = [(False, SCAN_MAX_THREADS)] + [
@@ -389,13 +392,14 @@ def _scan_smem_of(kernel, hdim, elem, streamed, unit, rb, rs, ks):
 
 
 class MmaPlan(NamedTuple):
-    """How the bf16 backward's ``mma`` route divides a layer (``MmaPlan``
-    of ``csrc/lstm_cell_scan_bwd.cu``): a block owns a direction, one of
-    ``n_ub`` slices of ``MMA_UNITS`` units and one of ``n_rb`` ranges of
-    ``RB`` rows, ``RS`` of them staged at once; K = 4H is ``KT`` k-steps
-    of 16 in ``KCH`` chunks of ``KC`` (one warp's, its ``W_hh`` fragments
-    in registers), each chunk's warps splitting the 8-row tiles ``NG``
-    ways; ``blocks`` of ``MMA_THREADS`` threads and ``smem`` bytes."""
+    """How a bf16 kernel's ``mma`` route divides a layer (``MmaPlan`` of
+    ``csrc/lstm_common.cuh``): a block owns a direction, one of ``n_ub``
+    slices of ``MMA_UNITS`` units and one of ``n_rb`` ranges of ``RB``
+    rows, ``RS`` of them staged at once; the product's K (4H backward, H
+    forward) is ``KT`` k-steps of 16 in ``KCH`` chunks of ``KC`` (one
+    warp's, its ``W_hh`` fragments in registers), each chunk's warps
+    splitting the 8-row tiles ``NG`` ways; ``blocks`` of ``MMA_THREADS``
+    threads and ``smem`` bytes."""
     n_ub: int
     n_rb: int
     RB: int
@@ -408,57 +412,65 @@ class MmaPlan(NamedTuple):
     smem: int
 
 
-# the mma route's block: 16 units (one M tile), 16 warps, at most 18
-# k-steps of W_hh in a warp's registers, partial-sum rows of 16 + 4 floats
-MMA_UNITS, MMA_WARPS, MMA_KC_MAX, MMA_RED = 16, 16, 18, 20
+# the mma routes' block: 16 units (an M tile), 16 warps; a partial-sum row
+# of the backward (16 + 4 floats) and of the forwards (16 + 1 units of four
+# gates)
+MMA_UNITS, MMA_WARPS, MMA_RED = 16, 16, 20
+FWD_MMA_RED = 4 * (MMA_UNITS + 1)
 MMA_THREADS = 32 * MMA_WARPS
+# the most k-steps a warp holds of each M tile: the backward's, the
+# forwards'
+MMA_KC_MAX, FWD_MMA_KC_MAX = 18, 5
+# per kernel: a partial-sum row's floats, the product's K per unit of H,
+# and MMA_KC_MAX
+_MMA_SHAPE = {'lstm_fwd': (FWD_MMA_RED, 1, FWD_MMA_KC_MAX),
+              'lstm_bwd': (MMA_RED, 4, MMA_KC_MAX)}
 
 
-def mma_smem(k_steps, chunks, rb, rs):
-    """Bytes of shared memory of an ``mma`` block: ``rs`` staged dz rows
+def mma_smem(k_steps, chunks, rb, rs, red_row=MMA_RED):
+    """Bytes of shared memory of an ``mma`` block: ``rs`` staged rows
     (padded to 8) of 16 ``k_steps`` bf16 values and 16 bytes, the
-    ``chunks``' partial sums, and dh, dc of ``rb`` rows of 16 units."""
+    ``chunks``' partial sums (``red_row`` floats a staged row: the
+    backward's ``MMA_RED``, the forwards' ``FWD_MMA_RED``), and two float32
+    carries of ``rb`` rows of 16 units."""
     rsp = -(-rs // 8) * 8
     return (2 * rsp * (16 * k_steps + 8)
-            + 4 * (chunks * rsp * MMA_RED + 2 * rb * MMA_UNITS))
+            + 4 * (chunks * rsp * red_row + 2 * rb * MMA_UNITS))
 
 
-def mma_plan(n_dir, rows_per_dir, hdim, n_sm, max_smem):
-    """``mma_plan`` of ``csrc/lstm_cell_scan_bwd.cu``: the bf16 backward's
-    ``mma`` grid on a card of ``n_sm`` SMs whose blocks may opt in to
-    ``max_smem`` bytes, or None where none fits (the unit slices of both
-    directions outnumber the SMs, or a warp's K chunk would exceed
-    ``MMA_KC_MAX`` k-steps).  One block an SM: the rows are split until
-    the grid has about one block per SM, and staged in as few chunks as
-    shared memory allows, evened out."""
+def mma_plan(n_dir, rows_per_dir, hdim, n_sm, max_smem, kernel='lstm_bwd'):
+    """``mma_plan`` of ``csrc/lstm_common.cuh``: the ``mma`` grid of the
+    bf16 ``kernel`` ('lstm_fwd': both forwards; 'lstm_bwd') on a card of
+    ``n_sm`` SMs whose blocks may opt in to ``max_smem`` bytes, or None
+    where none fits (the unit slices of all directions outnumber the SMs,
+    or a warp's K chunk would exceed ``MMA_KC_MAX`` k-steps, the forwards'
+    ``FWD_MMA_KC_MAX``).  One block an SM: the rows are split until the
+    grid has about one block per SM, and staged in as few chunks as shared
+    memory allows, evened out."""
+    red_row, k_per_unit, kc_max = _MMA_SHAPE[kernel]
     n_ub = -(-hdim // MMA_UNITS)
     cols = n_dir * n_ub
-    k_steps = -(-4 * hdim // 16)
+    k_steps = -(-k_per_unit * hdim // 16)
     kc = -(-k_steps // MMA_WARPS)
-    if cols > n_sm or kc > MMA_KC_MAX:
+    if cols > n_sm or kc > kc_max:
         return None
     chunks = -(-k_steps // kc)
     n_rb = min(max(n_sm // cols, 1), rows_per_dir)
     rb = -(-rows_per_dir // n_rb)
     n_rb = -(-rows_per_dir // rb)
     rs = rb
-    while rs > 0 and mma_smem(k_steps, chunks, rb, rs) > max_smem:
+    while rs > 0 and mma_smem(k_steps, chunks, rb, rs, red_row) > max_smem:
         rs -= 1
     if rs == 0:
         return None
     rs = -(-rb // -(-rb // rs))
     return MmaPlan(n_ub, n_rb, rb, rs, k_steps, kc, chunks,
                    MMA_WARPS // chunks, cols * n_rb,
-                   mma_smem(k_steps, chunks, rb, rs))
+                   mma_smem(k_steps, chunks, rb, rs, red_row))
 
 
-def bwd_route(n_dir, rows_per_dir, hdim, bf16, n_sm, max_smem):
-    """The backward kernel's route on a card of ``n_sm`` SMs and
-    ``max_smem`` bytes a block: 'cooperative' or 'streamed' as
-    :func:`scan_grid` names them, but for the bf16 variant 'mma' where
-    :func:`scan_grid` would stage and :func:`mma_plan` fits ('streamed'
-    where it does not)."""
-    grid = scan_grid('lstm_bwd', n_dir, rows_per_dir, hdim, n_sm, max_smem,
+def _mma_route(kernel, n_dir, rows_per_dir, hdim, bf16, n_sm, max_smem):
+    grid = scan_grid(kernel, n_dir, rows_per_dir, hdim, n_sm, max_smem,
                      elem=2 if bf16 else 4)
     if grid is None:
         return None
@@ -466,8 +478,26 @@ def bwd_route(n_dir, rows_per_dir, hdim, bf16, n_sm, max_smem):
         return 'streamed'
     if not bf16:
         return 'cooperative'
-    found = mma_plan(n_dir, rows_per_dir, hdim, n_sm, max_smem)
+    found = mma_plan(n_dir, rows_per_dir, hdim, n_sm, max_smem, kernel)
     return 'streamed' if found is None else 'mma'
+
+
+def fwd_route(n_dir, rows_per_dir, hdim, bf16, n_sm, max_smem):
+    """The forward kernels' route (lean and training alike) on a card of
+    ``n_sm`` SMs and ``max_smem`` bytes a block: 'cooperative' or
+    'streamed' as :func:`scan_grid` names them, but for the bf16 variants
+    'mma' where :func:`scan_grid` would stage and :func:`mma_plan` of
+    'lstm_fwd' fits ('streamed' where it does not); None where no grid is
+    co-resident."""
+    return _mma_route('lstm_fwd', n_dir, rows_per_dir, hdim, bf16, n_sm,
+                      max_smem)
+
+
+def bwd_route(n_dir, rows_per_dir, hdim, bf16, n_sm, max_smem):
+    """The backward kernel's route, as :func:`fwd_route` names the
+    forwards' (its ``mma`` plan that of 'lstm_bwd')."""
+    return _mma_route('lstm_bwd', n_dir, rows_per_dir, hdim, bf16, n_sm,
+                      max_smem)
 
 
 _GRID_ENTRIES = {'lstm_fwd': 'lstm_cell_scan_fwd_grid',
@@ -483,7 +513,7 @@ def device_grid(kernel, n_dir, rows_per_dir, hdim, bf16, device,
     :func:`scan_grid`; ``bf16``: its bf16 variant, ``train``: the training
     forward) on ``device`` (an index), from the C side's own planner:
     {'U', 'n_rb', 'RB', 'RS', 'KS', 'blocks', 'streamed'} (blocks 0 when
-    no grid is co-resident), and for 'lstm_bwd' 'mma' (1 on the bf16
+    no grid is co-resident), and for the LSTM kernels 'mma' (1 on the bf16
     ``mma`` route, whose U is 16 and KS its K chunks, :func:`mma_plan`)."""
     out = (ctypes.c_int * 8)()
     lib = _build.load_library()
@@ -494,14 +524,14 @@ def device_grid(kernel, n_dir, rows_per_dir, hdim, bf16, device,
     err = getattr(lib, entry)(*args, device, ctypes.addressof(out))
     _build.check(lib, err, f'{entry}')
     keys = ('U', 'n_rb', 'RB', 'RS', 'KS', 'blocks', 'streamed')
-    if kernel == 'lstm_bwd':
+    if kernel.startswith('lstm'):
         keys += ('mma',)
     return dict(zip(keys, out))
 
 
 def _route(kernel, n_dir, rows_per_dir, hdim, bf16, device, train=False):
-    """'streamed', 'cooperative' or (the bf16 backward) 'mma': the route
-    the card's planner takes."""
+    """'streamed', 'cooperative' or (the bf16 LSTM kernels) 'mma': the
+    route the card's planner takes."""
     grid = device_grid(kernel, n_dir, rows_per_dir, hdim, bf16, device,
                        train)
     if grid.get('mma'):
@@ -607,13 +637,13 @@ def _launch(gates_x, w, n_dir, mask, h0, c0, train=False, wpack=None):
         _build.check(lib, err,
                      f'lstm_cell_scan{entry} training forward kernel')
         lstm_cell_scan.launches['fwd_train' + entry] += 1
-        lstm_cell_scan.routes[route] += 1
+        lstm_cell_scan.routes['fwd_train' + entry][route] += 1
         return out, c_seq, gates, h_t, c_t
     err = getattr(lib, 'lstm_cell_scan_fwd' + entry)(
         *inputs, h_t.data_ptr(), c_t.data_ptr(), hbuf.data_ptr(), *sizes)
     _build.check(lib, err, f'lstm_cell_scan{entry} kernel')
     lstm_cell_scan.launches['fwd' + entry] += 1
-    lstm_cell_scan.routes[route] += 1
+    lstm_cell_scan.routes['fwd' + entry][route] += 1
     return out, h_t, c_t
 
 
@@ -637,7 +667,7 @@ def _launch_bwd(gates, c_seq, w, n_dir, mask, d_out, dh_t, dc_t):
         dc0.data_ptr(), t_len, n_dir, rows // n_dir, g4 // 4, device, stream)
     _build.check(lib, err, f'lstm_cell_scan{entry} backward kernel')
     lstm_cell_scan.launches['bwd' + entry] += 1
-    lstm_cell_scan.routes[route] += 1
+    lstm_cell_scan.routes['bwd' + entry][route] += 1
     return dgx, dh0, dc0
 
 
@@ -714,8 +744,9 @@ def lstm_cell_scan(gates_x, w_hh, mask, h0, c0, compute_dtype=None):
         ``lstm_cell_scan.launches`` counts the launches per kernel
         (``fwd``, ``fwd_train``, ``bwd``, and ``fwd_bf16``,
         ``fwd_train_bf16``, ``bwd_bf16``), ``lstm_cell_scan.routes`` them
-        by route (``cooperative``, ``streamed``, and ``mma`` for the bf16
-        backward; :func:`scan_grid`, :func:`bwd_route`).
+        by kernel and route (``routes['fwd_bf16']['mma']``; the routes
+        ``cooperative``, ``streamed``, and ``mma`` for the bf16 kernels;
+        :func:`scan_grid`, :func:`fwd_route`, :func:`bwd_route`).
     """
     w, n_dir = _norm_w(w_hh)
     if gates_x.device.type == 'cpu':
@@ -735,4 +766,6 @@ def lstm_cell_scan(gates_x, w_hh, mask, h0, c0, compute_dtype=None):
 lstm_cell_scan.launches = {'fwd': 0, 'fwd_train': 0, 'bwd': 0,
                            'fwd_bf16': 0, 'fwd_train_bf16': 0,
                            'bwd_bf16': 0}
-lstm_cell_scan.routes = {'cooperative': 0, 'streamed': 0, 'mma': 0}
+lstm_cell_scan.routes = {
+    name: {'cooperative': 0, 'streamed': 0, 'mma': 0}
+    for name in lstm_cell_scan.launches}

@@ -2171,11 +2171,11 @@ def test_lstm_bf16_backward_takes_the_mma_route(cuda, label):
     _, c_seq, gates, _, _ = lstm_cell_scan_train_plain(
         gx.bfloat16(), w, mask, h0, c0, 'bfloat16')
     bwd_in = (gates, c_seq, w, mask, cot[0].bfloat16(), cot[1], cot[2])
-    routes = dict(lstm_cell_scan.routes)
+    routes = chip_smoke.lstm_routes()
     got = lstm_kernels._launch_bwd(gates, c_seq, w, 2, mask, *bwd_in[4:])
     again = lstm_kernels._launch_bwd(gates, c_seq, w, 2, mask, *bwd_in[4:])
     torch.cuda.synchronize()
-    assert lstm_cell_scan.routes == {**routes, 'mma': routes['mma'] + 2}
+    assert chip_smoke.routes_since(routes) == {'bwd_bf16': {'mma': 2}}
     assert all(torch.equal(x, y) for x, y in zip(got, again))
     want = lstm_cell_scan_bwd_plain(*bwd_in, 'bfloat16')
     excess, share = bf16_distance(got[:1], want[:1],
@@ -2195,6 +2195,80 @@ def test_lstm_bf16_backward_takes_the_mma_route(cuda, label):
     assert (grid['U'], grid['n_rb'], grid['RB'], grid['RS'], grid['KS'],
             grid['blocks']) == (lstm_kernels.MMA_UNITS, plan.n_rb, plan.RB,
                                 plan.RS, plan.KCH, plan.blocks)
+
+
+@pytest.mark.parametrize('label', [s[0] for s in LSTM_BF16_MMA_SHAPES])
+def test_lstm_bf16_forwards_take_the_mma_route(cuda, label):
+    """The two bf16 forwards (lean and training) on the ``mma`` route
+    (counted by ``lstm_cell_scan.routes``) against their plain bf16
+    versions at phase 23's limits, the float32-product control outside
+    them, two runs the same bits, and the card's plan equal to its mirror
+    ``mma_plan(..., 'lstm_fwd')``."""
+    _, t_len, batch, hdim, kind = next(
+        s for s in LSTM_BF16_MMA_SHAPES if s[0] == label)
+    args, _ = chip_smoke.recurrence_inputs(t_len, batch, hdim, kind,
+                                           gates=4)
+    gx, w, mask, h0, c0 = args
+    args16 = (gx.bfloat16(), w, mask, h0, c0)
+    routes = chip_smoke.lstm_routes()
+    with torch.no_grad():
+        lean = [lstm_cell_scan(*args16, compute_dtype='bfloat16')
+                for _ in range(2)]
+    train = [lstm_kernels._launch(args16[0], w, 2, mask, h0, c0, train=True)
+             for _ in range(2)]
+    torch.cuda.synchronize()
+    assert chip_smoke.routes_since(routes) == {
+        'fwd_bf16': {'mma': 2}, 'fwd_train_bf16': {'mma': 2}}
+    limits = gru_kernels.device_limits(torch.cuda.current_device())
+    plan = lstm_kernels.mma_plan(2, batch, hdim, *limits, 'lstm_fwd')
+    assert lstm_kernels.fwd_route(2, batch, hdim, True, *limits) == 'mma'
+    for name, got, want, control, n in (
+            ('fwd', lean, lstm_cell_scan_plain(*args16, 'bfloat16'),
+             lstm_cell_scan_plain(*args16), 1),
+            ('fwd_train', train, lstm_cell_scan_train_plain(*args16,
+                                                           'bfloat16'),
+             lstm_cell_scan_train_plain(*args16), 3)):
+        assert all(torch.equal(x, y) for x, y in zip(*got)), name
+        excess, share = bf16_distance(got[0][:n], want[:n],
+                                      LSTM_BF16_STREAM_TOL[name])
+        assert excess <= 0 and share <= LSTM_BF16_SHARE, (name, excess,
+                                                          share)
+        for g, w_ in zip(got[0][n:], want[n:]):
+            assert float((g - w_).abs().max()) <= LSTM_BF16_STATE_TOL[name]
+        _, control_share = bf16_distance(control[:n], want[:n],
+                                         LSTM_BF16_STREAM_TOL[name])
+        if t_len * batch >= 1000:   # enough steps and rows to tell apart
+            assert control_share > LSTM_BF16_SHARE, (name, control_share)
+        grid = lstm_kernels.device_grid(
+            'lstm_fwd', 2, batch, hdim, True, torch.cuda.current_device(),
+            name == 'fwd_train')
+        assert grid['mma'] == 1 and grid['streamed'] == 0
+        assert (grid['U'], grid['n_rb'], grid['RB'], grid['RS'], grid['KS'],
+                grid['blocks']) == (lstm_kernels.MMA_UNITS, plan.n_rb,
+                                    plan.RB, plan.RS, plan.KCH, plan.blocks)
+
+
+def test_lstm_bf16_forward_routes_follow_the_mirror(cuda):
+    """The card's route of the bf16 forwards (``device_grid``) is the one
+    ``lstm.fwd_route`` names from the card's limits: ``mma`` to the widest
+    H whose slices of 16 units fit the SMs, ``streamed`` above, where the
+    FMA grid that staged ``W_hh`` used to run (two rows a direction at H
+    = 1100) too; one direction to the widest K chunk."""
+    limits = gru_kernels.device_limits(torch.cuda.current_device())
+    widest = limits[0] // 2 * 16
+    for n_dir, rows, hdim in [(2, 16, 600), (2, 2, widest),
+                              (2, 2, widest + 1), (2, 2, 1100),
+                              (2, 16, 1536), (1, 16, 1280), (1, 16, 1290)]:
+        for train in (False, True):
+            grid = lstm_kernels.device_grid('lstm_fwd', n_dir, rows, hdim,
+                                            True, torch.cuda.current_device(),
+                                            train)
+            route = lstm_kernels.fwd_route(n_dir, rows, hdim, True, *limits)
+            got = 'mma' if grid['mma'] else (
+                'streamed' if grid['streamed'] else 'cooperative')
+            assert got == route, (n_dir, rows, hdim, grid, route)
+    assert lstm_kernels.fwd_route(2, 2, widest, True, *limits) == 'mma'
+    assert lstm_kernels.fwd_route(2, 2, 1100, True, *limits) == 'streamed'
 
 
 def test_lstm_bf16_backward_routes_follow_the_mirror(cuda):
