@@ -60,8 +60,8 @@ Phases, one line each:
    and directions as a yardstick; each shape's forward route (``resident``
    where ``resident_plan`` gives a plan, printed with it: the DPRNN's and
    the classifier recipe's shapes; ``cooperative`` otherwise), read from
-   ``gru_cell_scan.routes``, and a second lean run's bits; the backward's
-   route the same way (``resident_bwd_plan``, ``gru_cell_scan.bwd_routes``;
+   ``gru_cell_scan.routes`` (by kernel and route), and a second lean run's
+   bits; the backward's route the same way (``resident_bwd_plan``;
    resident at H <= 137), and a second backward run's bits.  Phases 10, 11
    and 19 check that every GRU forward and backward of the ``bgru`` paths
    and of the classifier recipe took the resident route and the
@@ -271,30 +271,40 @@ Phases, one line each:
     bf16 kernels' launches (16 forward and 16 backward a step, no float32
     launch), and a timed step at 4 x 16000 and 4 x 32000 by stage and on
     the host clock; masters float32.
-28. the three bf16 GRU kernels (bf16 streams, W_hh staged as bf16, bf16
-    products summed in float32) vs their plain bf16 versions at phase
-    23's limits at every shape a recipe launches (the DPRNN's
-    intra and inter, (500, 32, 600) ragged, the classifier's (66, 8, 64)
-    and (503, 16, 256) one direction), at H = 12 under prefix padding and
-    H = 100 in one direction, and at the bf16 resident routes' widest H
-    on this card and one above (forwards and backward: both routes, read
-    from ``gru_cell_scan.routes`` and ``bwd_routes``, as the planners
-    pick them); the plain version with float32 products must exceed the
-    share; the first five timed beside the float32 kernels, plain, a bf16
-    ``torch.nn.GRU`` layer (cuDNN) and the bound; then the float32 GRU
-    kernels' digests on fixed inputs at phase 8's shapes (``gru_f32_digests``
-    takes a checkout's root, so parent and change compare in one call).
+28. the three bf16 GRU kernels (bf16 streams, bf16 products summed in
+    float32; the training forward and the backward on their ``mma`` route,
+    ``W_hh`` in registers as ``mma.sync`` operands, where the bf16
+    resident plan exists and H <= 128, the lean forward resident) vs
+    their plain bf16 versions at phase 23's limits at every shape a recipe
+    launches (the DPRNN's intra and inter, (500, 32, 600) ragged, the
+    classifier's (66, 8, 64) and (503, 16, 256) one direction), at H = 12
+    under prefix padding and H = 100 in one direction, at a served
+    request's (2 x 33 and 2 x 100 rows, H = 128), and at the bf16
+    resident routes' widest H on this card and one above and the ``mma``
+    route's (forwards and backward: every route, read from
+    ``gru_cell_scan.routes``, as ``gru.kernel_route`` picks them; on
+    ``mma`` the card's plan the mirror ``gru.mma_plan``'s), each kernel
+    the same bits twice; the plain version with float32 products must
+    exceed the share; the first five timed beside the float32 kernels,
+    plain, a bf16 ``torch.nn.GRU`` layer (cuDNN) and the bound; the widest
+    ``mma`` H printed; then the float32 GRU kernels' and the lean bf16
+    forward's digests on fixed inputs at phase 8's shapes (and all three
+    bf16 kernels' at H = 600 and 256; ``gru_f32_digests`` takes a
+    checkout's root, so parent and change compare in one call).
 29. the recipe's ``dprnn`` with ``bgru`` chunk RNNs at full width under
     ``precision='bfloat16'`` after ``set_rnn_backend(trainer.model,
     'pallas', compute_dtype='bfloat16')``, beside the policy alone and
     float32 from the same start: 20 steps' losses at B=4 x 16000, 36
-    ``fwd_train_bf16`` and 36 ``bwd_bf16`` launches in the first 3 steps
-    and no float32 GRU launch, timed steps at 4 x 16000 and 4 x 32000 by
-    stage and on the host clock, masters float32; then 4 requests through
-    the tasnet recipe's ``evaluate_example`` on the lean bf16 forward.
+    ``fwd_train_bf16`` and 36 ``bwd_bf16`` launches in the first 3 steps,
+    all on the ``mma`` route, and no float32 GRU launch, timed steps at 4
+    x 16000 and 4 x 32000 by stage and on the host clock, the card's busy
+    time a step (``torch.profiler``), masters float32; then 4 requests
+    through the tasnet recipe's ``evaluate_example`` on the lean bf16
+    forward.
 30. the speaker classifier under ``precision='bfloat16'`` with a bf16 GRU
     (``set_rnn_backend``) and the float32 ``fused_logmel`` in front: the
-    recipe's classifier (64 units, the resident route) on its 8 x 8000
+    recipe's classifier (64 units: the training forward and backward on
+    the ``mma`` route, the lean forward resident) on its 8 x 8000
     batches and the class defaults (256 units, the cooperative route) on
     16 x 64000, each 20 steps beside float32 from the same start, launch
     counts, a timed step, and requests through ``evaluate_batch``.
@@ -340,8 +350,8 @@ fused_logmel's
 DFT products 495 / 3 and its mel product 67, NVIDIA's H100 SXM data
 sheet), and the route a kernel with several
 took there (``attention_route``, ``wavenet_route`` with the sampler's
-launches by route, ``gru_route``, the GRU backward's launches by route,
-``logmel_plan``, masked_istft's launches by route and ``fft_plan``;
+launches by route, ``gru_route``, the GRU backward's and the bf16 GRU
+kernels' launches by route, ``logmel_plan``, masked_istft's launches by route and ``fft_plan``;
 fused_logmel's and masked_istft's ``ms`` from CUDA-graph replays, their
 eager calls as ``eager_ms``; masked_istft's ``bound_ms`` is the FFT's,
 ``dft_bound_ms`` the direct synthesis product's); the last line
@@ -355,6 +365,7 @@ table of three training steps per shape with their busy time and casts
 import contextlib
 import copy
 import ctypes
+import functools
 import json
 import subprocess
 import sys
@@ -1032,10 +1043,8 @@ def reset_launches():
     for wrapper in (lstm_cell_scan, gru_cell_scan, flash_attention):
         for name in wrapper.launches:
             wrapper.launches[name] = 0
-    for name in gru_cell_scan.routes:
-        gru_cell_scan.routes[name] = 0
-        gru_cell_scan.bwd_routes[name] = 0
-    for counts in lstm_cell_scan.routes.values():
+    for counts in (*lstm_cell_scan.routes.values(),
+                   *gru_cell_scan.routes.values()):
         for name in counts:
             counts[name] = 0
     masked_istft.launches = 0
@@ -1048,33 +1057,38 @@ def reset_launches():
     int8_matmul.launches = 0
 
 
-def check_gru_routes(label, route):
-    """Every GRU forward and backward launched since the counts were last
-    reset took ``route`` (the DPRNN's chunk RNNs and the classifier
-    recipe's GRU the resident one, the classifier defaults' the
-    cooperative one).  Returns the launches by route, of the forwards
-    (``fwd``) and of the backward (``bwd``)."""
-    n = sum(gru_cell_scan.launches[k] for k in (
-        'fwd', 'fwd_train', 'fwd_bf16', 'fwd_train_bf16'))
-    n_bwd = gru_cell_scan.launches['bwd'] + gru_cell_scan.launches['bwd_bf16']
-    want = {'resident': 0, 'cooperative': 0, 'streamed': 0, route: n}
-    want_bwd = {'resident': 0, 'cooperative': 0, 'streamed': 0, route: n_bwd}
-    if (n == 0 or gru_cell_scan.routes != want
-            or gru_cell_scan.bwd_routes != want_bwd):
-        fail(f'{label}: {n} GRU forwards, by route {gru_cell_scan.routes}, '
-             f'{n_bwd} backwards, by route {gru_cell_scan.bwd_routes}; '
-             f'expected all on the {route} route')
-    return {'fwd': dict(gru_cell_scan.routes),
-            'bwd': dict(gru_cell_scan.bwd_routes)}
+def check_gru_routes(label, route, **by_kernel):
+    """Every GRU launch since the counts were last reset took its kernel's
+    route: ``by_kernel`` names it for a kernel (``fwd_train_bf16='mma'``:
+    the bf16 training forward and backward of the DPRNN's chunk RNNs and of
+    the classifier recipe's GRU), ``route`` for the others (the DPRNN's
+    and the classifier recipe's the resident one, the classifier
+    defaults' the cooperative one).  Returns the launches by kernel and
+    route of the kernels launched."""
+    taken = {kernel: {r: n for r, n in routes.items() if n}
+             for kernel, routes in gru_cell_scan.routes.items()
+             if gru_cell_scan.launches[kernel]}
+    want = {kernel: {by_kernel.get(kernel, route):
+                     gru_cell_scan.launches[kernel]} for kernel in taken}
+    if not taken or taken != want:
+        fail(f'{label}: GRU launches {gru_cell_scan.launches}, by kernel '
+             f'and route {taken}; expected {want}')
+    return taken
+
+
+def gru_routes_of(*kernels):
+    """The launches of the GRU ``kernels`` by route, added up."""
+    return {route: sum(gru_cell_scan.routes[k][route] for k in kernels)
+            for route in gru_cell_scan.routes['fwd']}
 
 
 # the GRU backward's launches on the main paths by route (the kernels
 # line's launches_by_route): added up where the main paths' counts are read
-GRU_BWD_MAIN_ROUTES = {'resident': 0, 'cooperative': 0, 'streamed': 0}
+GRU_BWD_MAIN_ROUTES = dict.fromkeys(gru_cell_scan.routes['bwd'], 0)
 
 
 def add_main_bwd_routes():
-    for name, n in gru_cell_scan.bwd_routes.items():
+    for name, n in gru_cell_scan.routes['bwd'].items():
         GRU_BWD_MAIN_ROUTES[name] += n
 
 
@@ -1378,12 +1392,13 @@ def timed_step(trainer, batch, iters=5, loss_key='pit_mse_loss',
     return out
 
 
-def profile_step(trainer, batch, label, steps=3):
+def profile_step(trainer, batch, label, steps=3, table=True):
     """``--profile``: torch.profiler's kernel table for ``steps`` steps
-    through ``trainer.train_step`` (its precision policy applies), and per
-    step the card's busy time (the kernels' device time) beside the host
-    clock, and the dtype casts (``aten::_to_copy``): calls, host time and
-    the device time of their kernels."""
+    through ``trainer.train_step`` (its precision policy applies; without
+    ``table`` none), and per step the card's busy time (the kernels' device
+    time) beside the host clock, and the dtype casts (``aten::_to_copy``):
+    calls, host time and the device time of their kernels.  Returns the
+    busy ms a step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     example = trainer.model.example_to_device(batch, 'cuda')
@@ -1409,7 +1424,9 @@ def profile_step(trainer, batch, label, steps=3):
           f'of {host:.3f} ms host clock under the profiler; casts '
           f'(aten::_to_copy) {cast_calls:.0f} calls, {cast_host:.3f} ms '
           f'host, {cast_busy:.3f} ms busy ({cast_busy / busy:.1%} of busy)')
-    print(events.table(sort_by='cuda_time_total', row_limit=25))
+    if table:
+        print(events.table(sort_by='cuda_time_total', row_limit=25))
+    return busy
 
 
 def phase_training(kernel_times, profile=False):
@@ -1538,7 +1555,7 @@ def phase_gru_kernels():
         route = 'cooperative' if plan is None else 'resident'
         plan_bwd = gru_kernels.resident_bwd_plan(n_dir, batch, hdim, *limits)
         route_bwd = 'cooperative' if plan_bwd is None else 'resident'
-        routes_before = dict(gru_cell_scan.routes)
+        routes_before = gru_routes_of('fwd', 'fwd_train')
         got = gru_cell_scan(*args)
         want = gru_cell_scan_plain(*args)
         got_train = fwd_train()
@@ -1546,14 +1563,14 @@ def phase_gru_kernels():
         again = gru_cell_scan(*args)
         torch.cuda.synchronize()
         routed = {k: v - routes_before[k]
-                  for k, v in gru_cell_scan.routes.items()}
+                  for k, v in gru_routes_of('fwd', 'fwd_train').items()}
         same_bits = all(torch.equal(a, b) for a, b in zip(got, again))
         shown = ('' if plan is None else ' ' + ', '.join(
             f'{k} {v}' for k, v in plan._asdict().items()))
         print(f'phase 8 gru {label}: route {route}{shown}; launches by '
               f'route {routed}; a second lean run gives the same bits: '
               f'{same_bits}')
-        if routed != {'resident': 0, 'cooperative': 0, 'streamed': 0, route: 3}:
+        if routed != {**dict.fromkeys(routed, 0), route: 3}:
             fail(f'the gru forwards at {label} did not all take the '
                  f'{route} route: {routed}')
         if not same_bits:
@@ -1571,21 +1588,21 @@ def phase_gru_kernels():
             return gru_cell_scan_bwd_plain(acts, gh_n, h_prev, w, mask,
                                            *cot)
 
-        bwd_before = dict(gru_cell_scan.bwd_routes)
+        bwd_before = dict(gru_cell_scan.routes['bwd'])
         got_bwd = bwd()
         again_bwd = bwd()
         want_bwd = bwd_plain()
         torch.cuda.synchronize()
         err['bwd'] = max_err(got_bwd, want_bwd)          # dgx, dgh, dh0
         routed_bwd = {k: v - bwd_before[k]
-                      for k, v in gru_cell_scan.bwd_routes.items()}
+                      for k, v in gru_cell_scan.routes['bwd'].items()}
         same_bwd = all(torch.equal(a, b) for a, b in zip(got_bwd, again_bwd))
         shown = ('' if plan_bwd is None else ' ' + ', '.join(
             f'{k} {v}' for k, v in plan_bwd._asdict().items()))
         print(f'phase 8 gru bwd {label}: route {route_bwd}{shown}; launches '
               f'by route {routed_bwd}; a second run gives the same bits: '
               f'{same_bwd}')
-        if routed_bwd != {'resident': 0, 'cooperative': 0, 'streamed': 0, route_bwd: 2}:
+        if routed_bwd != {**dict.fromkeys(routed_bwd, 0), route_bwd: 2}:
             fail(f'the gru backward at {label} did not take the '
                  f'{route_bwd} route: {routed_bwd}')
         if not same_bwd:
@@ -4581,6 +4598,8 @@ GRU_BF16_SHAPES = [
      'ragged', 1, 1024),
     ('H=12 T=40 D*B=6 prefix', 40, 3, 12, 'prefix', 2, 24),
     ('H=100 T=40 D*B=5 one direction', 40, 5, 100, 'ragged', 1, 200),
+    ('served intra T=100 D*B=66 H=128', 100, 33, 128, None, 2, 64),
+    ('served inter T=33 D*B=200 H=128', 33, 100, 128, 'chunks', 2, 64),
 ]
 GRU_BF16_TIMED = 5          # the first five shapes are timed
 
@@ -4588,15 +4607,18 @@ GRU_BF16_TIMED = 5          # the first five shapes are timed
 def gru_bf16_limit_shapes():
     """The shapes at the bf16 resident routes' widest H on this card and
     one above (forwards and backward; both directions; the forward's limit
-    under prefix padding), with the limits."""
+    under prefix padding), then at the training forward's and backward's
+    ``mma`` route's widest H and one above, with the limits."""
     limits = gru_kernels.device_limits(torch.cuda.current_device())
 
-    def widest(plan):
+    def widest(plan, **kwargs):
         return max(h for h in range(1, 512)
-                   if plan(1, 1, h, *limits, elem=2) is not None)
+                   if plan(1, 1, h, *limits, **kwargs) is not None)
 
-    fwd, bwd = (widest(gru_kernels.resident_plan),
-                widest(gru_kernels.resident_bwd_plan))
+    fwd, bwd = (widest(gru_kernels.resident_plan, elem=2),
+                widest(gru_kernels.resident_bwd_plan, elem=2))
+    mma = min(widest(functools.partial(gru_kernels.mma_plan, kernel))
+              for kernel in ('fwd_train', 'bwd'))
     shapes = [(f'H={fwd} T=30 D*B=8 prefix (the widest resident forward)',
                30, 4, fwd, 'prefix', 2, 2 * fwd),
               (f'H={fwd + 1} T=30 D*B=3 one direction', 30, 3, fwd + 1,
@@ -4604,14 +4626,19 @@ def gru_bf16_limit_shapes():
               (f'H={bwd} T=30 D*B=10 (the widest resident backward)', 30, 5,
                bwd, 'ragged', 2, 2 * bwd),
               (f'H={bwd + 1} T=30 D*B=10', 30, 5, bwd + 1, 'ragged', 2,
-               2 * bwd)]
-    return shapes, {'fwd': fwd, 'bwd': bwd}
+               2 * bwd),
+              (f'H={mma} T=30 D*B=18 (the widest mma training forward and '
+               f'backward)', 30, 9, mma, 'ragged', 2, 2 * mma),
+              (f'H={mma + 1} T=30 D*B=18', 30, 9, mma + 1, 'ragged', 2,
+               2 * mma)]
+    return shapes, {'fwd': fwd, 'bwd': bwd, 'mma': mma}
 
 
 def gru_bf16_case(label, t_len, batch, hdim, kind, n_dir, in_size, timed):
     """The three bf16 GRU kernels at one shape: agreement with plain, the
-    control, the routes; timed beside the float32 kernels, plain, cuDNN in
-    bf16 and the bound."""
+    control, the routes (``kernel_route``; on the ``mma`` route the card's
+    plan equal to the mirror ``gru.mma_plan``), the same bits twice; timed
+    beside the float32 kernels, plain, cuDNN in bf16 and the bound."""
     args, cot = recurrence_inputs(t_len, batch, hdim, kind, gates=3,
                                   directions=n_dir)
     gx, w, mask, h0 = args
@@ -4620,13 +4647,20 @@ def gru_bf16_case(label, t_len, batch, hdim, kind, n_dir, in_size, timed):
     args16 = (gx16, w, mask, h0)
     valid = t_len * n_dir * batch if mask is None else float(mask.sum())
     flops = gru_flops(valid, hdim)
-    limits = gru_kernels.device_limits(torch.cuda.current_device())
-    route = {
-        name: 'cooperative' if plan(n_dir, batch, hdim, *limits, elem=2)
-        is None else 'resident'
-        for name, plan in (('fwd', gru_kernels.resident_plan),
-                           ('bwd', gru_kernels.resident_bwd_plan))}
-    route['fwd_train'] = route['fwd']
+    device = torch.cuda.current_device()
+    limits = gru_kernels.device_limits(device)
+    route = {name: gru_kernels.kernel_route(name, n_dir, batch, hdim, True,
+                                            *limits) or 'cooperative'
+             for name in ('fwd', 'fwd_train', 'bwd')}
+    plans = {}
+    for name in ('fwd_train', 'bwd'):
+        if route[name] != 'mma':
+            continue
+        plans[name] = gru_kernels.mma_plan(name, n_dir, batch, hdim, *limits)
+        card = gru_kernels.device_mma_plan(name, n_dir, batch, hdim, device)
+        if card != plans[name]:
+            fail(f'gru bf16 {name} at {label}: the card\'s mma plan {card} '
+                 f'is not the mirror\'s {plans[name]}')
 
     def fwd():
         return gru_cell_scan(*args16, compute_dtype='bfloat16')
@@ -4644,22 +4678,22 @@ def gru_bf16_case(label, t_len, batch, hdim, kind, n_dir, in_size, timed):
 
     reset_launches()
     got = {'fwd': fwd(), 'fwd_train': fwd_train(), 'bwd': bwd()}
-    again = fwd()
+    again = {'fwd': fwd(), 'fwd_train': fwd_train(), 'bwd': bwd()}
     torch.cuda.synchronize()
     launched = dict(gru_cell_scan.launches)
-    routed = {'fwd': dict(gru_cell_scan.routes),
-              'bwd': dict(gru_cell_scan.bwd_routes)}
-    want_routed = {'fwd': {'resident': 0, 'cooperative': 0, 'streamed': 0,
-                           route['fwd']: 3},
-                   'bwd': {'resident': 0, 'cooperative': 0, 'streamed': 0,
-                           route['bwd']: 1}}
-    if launched != with_zeros(launched, {'fwd_bf16': 2, 'fwd_train_bf16': 1,
-                                         'bwd_bf16': 1}) \
+    routed = {name: dict(gru_cell_scan.routes[name + '_bf16'])
+              for name in route}
+    want_routed = {name: {**dict.fromkeys(routed[name], 0), route[name]: 2}
+                   for name in route}
+    if launched != with_zeros(launched, {'fwd_bf16': 2, 'fwd_train_bf16': 2,
+                                         'bwd_bf16': 2}) \
             or routed != want_routed:
         fail(f'gru bf16 at {label}: launches {launched}, routes {routed}, '
              f'expected {want_routed}')
-    if not all(torch.equal(a, b) for a, b in zip(got['fwd'], again)):
-        fail(f'two lean bf16 gru runs at {label} differ')
+    for name in route:
+        if not all(torch.equal(a, b) for a, b in zip(got[name], again[name])):
+            fail(f'two bf16 gru {name} runs at {label} differ')
+    del again
     want = {'fwd': gru_cell_scan_plain(*args16, 'bfloat16'),
             'fwd_train': want_train,
             'bwd': gru_cell_scan_bwd_plain(*bwd_in, 'bfloat16')}
@@ -4707,6 +4741,9 @@ def gru_bf16_case(label, t_len, batch, hdim, kind, n_dir, in_size, timed):
                                                       want[name]),
                'share_differing': share, 'state_err': state_err,
                'control_share': control_share, 'gru_route': route[name]}
+        if name in plans:
+            row['mma_plan'] = plans[name]._asdict()
+            shown += f'; plan {row["mma_plan"]} (the card\'s, the mirror\'s)'
         if timed:
             ms = cuda_ms(kernel[name], iters=10)
             f32_ms = cuda_ms(f32[name], iters=10)
@@ -4733,9 +4770,11 @@ def gru_bf16_case(label, t_len, batch, hdim, kind, n_dir, in_size, timed):
 
 
 # the float32 GRU kernels' outputs on fixed inputs, at phase 8's five
-# shapes: lean forward, training forward and backward; run in a process of
-# its own from a checkout's root, so that two checkouts' kernels can be
-# compared (``python3 -c "import chip_smoke as c;
+# shapes: lean forward, training forward and backward; beside them the lean
+# bf16 forward's (' bf16 lean') and, where H is above the mma route's 128,
+# all three bf16 kernels' (' bf16'); run in a process of its own from a
+# checkout's root, so that two checkouts' kernels can be compared
+# (``python3 -c "import chip_smoke as c;
 # print(c.gru_f32_digests('<checkout>'))"``)
 GRU_DIGEST_CODE = r"""
 import hashlib, json, sys
@@ -4743,6 +4782,9 @@ import numpy as np
 import torch
 from padertorch_tpu_torch.ops.kernels import gru
 out = {}
+def raw(t):
+    return (t.view(torch.int16) if t.dtype == torch.bfloat16
+            else t).cpu().numpy().tobytes()
 for label, t_len, batch, hdim, n_dir in json.loads(sys.argv[1]):
     rng = np.random.RandomState(hdim + t_len)
     lens = rng.randint(t_len // 2, t_len + 1, size=batch)
@@ -4755,21 +4797,35 @@ for label, t_len, batch, hdim, n_dir in json.loads(sys.argv[1]):
     h0 = put(rng.uniform(-0.1, 0.1, (rows, hdim)))
     d_out = put(rng.uniform(-1, 1, (t_len, rows, hdim)))
     dh = put(rng.uniform(-1, 1, (rows, hdim)))
-    digest = hashlib.sha256()
+    digest, lean16, all16 = (hashlib.sha256() for _ in range(3))
     for m in (None, put(mask)):
         lean = gru.gru_cell_scan(gx, w, m, h0)
         train = gru._launch(gx, w, n_dir, m, h0, train=True)
         bwd = gru._launch_bwd(*train[1:4], w, n_dir, m, d_out, dh)
         for t in (*lean, *train, *bwd):
-            digest.update(t.cpu().numpy().tobytes())
+            digest.update(raw(t))
+        gx16 = gx.bfloat16()
+        lean = gru.gru_cell_scan(gx16, w, m, h0, compute_dtype='bfloat16')
+        for t in lean:
+            lean16.update(raw(t))
+        if hdim > 128:
+            train = gru._launch(gx16, w, n_dir, m, h0, train=True)
+            bwd = gru._launch_bwd(*train[1:4], w, n_dir, m,
+                                  d_out.bfloat16(), dh)
+            for t in (*lean, *train, *bwd):
+                all16.update(raw(t))
     out[label] = digest.hexdigest()[:16]
+    out[label + ' bf16 lean'] = lean16.hexdigest()[:16]
+    if hdim > 128:
+        out[label + ' bf16'] = all16.hexdigest()[:16]
 print(json.dumps(out))
 """
 
 
 def gru_f32_digests(root):
     """{shape: digest} of the float32 GRU kernels of the checkout at
-    ``root`` (see GRU_DIGEST_CODE)."""
+    ``root``, and of its lean bf16 forward and (H above 128) all three
+    bf16 kernels (see GRU_DIGEST_CODE)."""
     shapes = [(label, t_len, batch, hdim, 2)
               for label, t_len, batch, hdim, _ in RECURRENCE_SHAPES]
     shapes += [(label, t_len, batch, hdim, 1)
@@ -4778,7 +4834,7 @@ def gru_f32_digests(root):
         [sys.executable, '-c', GRU_DIGEST_CODE, json.dumps(shapes)],
         cwd=root, capture_output=True, text=True, timeout=600)
     if proc.returncode != 0:
-        fail(f'the float32 GRU digests of {root} failed:\n{proc.stderr}')
+        fail(f'the GRU digests of {root} failed:\n{proc.stderr}')
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
@@ -4789,21 +4845,35 @@ def phase_gru_bf16_kernels():
     start = time.perf_counter()
     limit_shapes, widest = gru_bf16_limit_shapes()
     print(f'phase 28 the bf16 resident routes on this card reach H = '
-          f'{widest["fwd"]} (forwards) and H = {widest["bwd"]} (backward)')
+          f'{widest["fwd"]} (forwards) and H = {widest["bwd"]} (backward); '
+          f'the mma route of the training forward and the backward H = '
+          f'{widest["mma"]} (GRU_MMA_MAX_H)')
     rows = {}
     for i, shape in enumerate(GRU_BF16_SHAPES + limit_shapes):
         rows[shape[0]] = gru_bf16_case(*shape, timed=i < GRU_BF16_TIMED)
         torch.cuda.empty_cache()
     digests = gru_f32_digests(Path(__file__).resolve().parent)
-    print(f'phase 28 float32 GRU kernels\' digests (lean, training forward, '
-          f'backward, unmasked and ragged): {json.dumps(digests)}; '
+    print(f'phase 28 GRU kernels\' digests (float32: lean, training '
+          f'forward, backward; bf16 lean; bf16 all three above H = 128; '
+          f'unmasked and ragged): {json.dumps(digests)}; '
           f'{time.perf_counter() - start:.1f} s')
     return rows
 
 
+# the bf16 GRU kernels' launches on the main paths (phases 29 and 30) by
+# route, added up where bf16_gru_launches reads their counts
+GRU_BF16_MAIN_ROUTES = {name: dict.fromkeys(gru_cell_scan.routes[name], 0)
+                        for name in ('fwd_bf16', 'fwd_train_bf16',
+                                     'bwd_bf16')}
+
+
 def bf16_gru_launches():
-    return {k: gru_cell_scan.launches[k]
-            for k in ('fwd_bf16', 'fwd_train_bf16', 'bwd_bf16')}
+    """The bf16 GRU kernels' launches since the counts were last reset (a
+    main path's); their routes are added to GRU_BF16_MAIN_ROUTES."""
+    for name, routes in GRU_BF16_MAIN_ROUTES.items():
+        for route, n in gru_cell_scan.routes[name].items():
+            routes[route] += n
+    return {k: gru_cell_scan.launches[k] for k in GRU_BF16_MAIN_ROUTES}
 
 
 # phase 29's three runs of the bgru DPRNN-TasNet from one start: (label,
@@ -4820,9 +4890,11 @@ def phase_dprnn_bgru_bf16():
     'pallas', compute_dtype='bfloat16')``, beside the policy alone (the
     float32 GRU kernels on bf16 inputs) and float32, from one start: 20
     steps' losses at B=4 x 16000 (bench.py's ``bench_dprnn``), the first 3
-    steps' launches, timed steps at 4 x 16000 and 4 x 32000; then 4
-    requests through the tasnet recipe's ``evaluate_example`` on the lean
-    bf16 forward.  Returns the bf16 kernels' launches of the bf16 run."""
+    steps' launches (the bf16 training forwards and backwards on the mma
+    route), timed steps at 4 x 16000 and 4 x 32000 and the card's busy time
+    a step at 4 x 16000 (``torch.profiler``); then 4 requests through the
+    tasnet recipe's ``evaluate_example`` on the lean bf16 forward.  Returns
+    the bf16 kernels' launches of the bf16 run."""
     start = time.perf_counter()
     steps = 20
     batch = tasnet_batch(4, 16000, seed=1)
@@ -4841,7 +4913,9 @@ def phase_dprnn_bgru_bf16():
             reset_launches()
             losses = losses_over(trainer, example, 3)
             launches = dict(gru_cell_scan.launches)
-            routes = check_gru_routes(f'phase 29 {label}', 'resident')
+            # the bf16 training forward and backward on the mma route
+            routes = check_gru_routes(f'phase 29 {label}', 'resident',
+                                      fwd_train_bf16='mma', bwd_bf16='mma')
             variant = '_bf16' if compute_dtype else ''
             want = with_zeros(launches, {'fwd_train' + variant: 36,
                                          'bwd' + variant: 36})
@@ -4862,6 +4936,9 @@ def phase_dprnn_bgru_bf16():
                     for name, n in bf16_gru_launches().items():
                         main[name] += n
             masters_are_float32(trainer, f'phase 29 {label}')
+            # the card's busy time a step beside the host clock
+            profile_step(trainer, example, f'phase 29 {label} B=4 x 16000',
+                         table=False)
             results[label] = losses
             for samples, t in times.items():
                 print(f'phase 29 bgru DPRNN step {label} B=4 x {samples}: '
@@ -4915,14 +4992,17 @@ def serve_bf16_tasnet(model):
     return bf16_gru_launches()
 
 
-def speaker_runs(label, make_trainer, batch, steps, route, requests):
+def speaker_runs(label, make_trainer, batch, steps, route, requests,
+                 train_route=None):
     """Phase 30 for one classifier: ``make_trainer(precision)`` from seed
     0, once under the bf16 policy with the GRU at
     ``compute_dtype='bfloat16'`` and once in float32, ``steps`` losses on
     ``batch`` each; the bf16 run's launches (fused_logmel and the bf16 GRU
-    kernels on ``route``, no float32 GRU launch), a timed step, then
+    kernels: the training forward and backward on ``train_route``, the
+    others on ``route``; no float32 GRU launch), a timed step, then
     ``requests`` through ``evaluate_batch``.  Returns the bf16 kernels'
     launches."""
+    train_route = train_route or route
     losses, main = {}, {}
     for precision in ('bfloat16', None):
         torch.manual_seed(0)
@@ -4935,7 +5015,9 @@ def speaker_runs(label, make_trainer, batch, steps, route, requests):
         losses[precision] = losses_over(trainer, example, steps)
         launches = {'fused_logmel': fused_logmel.launches,
                     **gru_cell_scan.launches}
-        routes = check_gru_routes(f'phase 30 {label}', route)
+        routes = check_gru_routes(f'phase 30 {label}', route,
+                                  fwd_train_bf16=train_route,
+                                  bwd_bf16=train_route)
         variant = '_bf16' if precision else ''
         want = with_zeros(launches, {'fused_logmel': steps,
                                      'fwd_train' + variant: steps,
@@ -4992,7 +5074,8 @@ def speaker_runs(label, make_trainer, batch, steps, route, requests):
 def phase_speaker_bf16():
     """Phase 30: the speaker classifier under ``precision='bfloat16'`` with
     a bf16 GRU (``set_rnn_backend``) and the float32 ``fused_logmel`` in
-    front: the recipe's classifier (64 units: the resident route) on its
+    front: the recipe's classifier (64 units: the training forward and
+    backward on the mma route, the lean forward resident) on its
     batches of 8 x 8000 samples, and the class defaults (251 speakers, (32,
     64) channels, 256 units: the cooperative route) on 16 x 64000, each
     beside float32 from the same start.  Returns the bf16 kernels'
@@ -5018,7 +5101,7 @@ def phase_speaker_bf16():
                 Adam(gradient_clipping=10.0, lr=3e-4), precision=precision)
 
         main = speaker_runs('recipe (64 units)', recipe, train[0], 20,
-                            'resident', dev)
+                            'resident', dev, train_route='mma')
         batch = speaker_batch(16, 64000, 251)
         requests = [dict(batch, example_id=[f'request{i}_{j}'
                                             for j in range(16)])
@@ -5047,15 +5130,13 @@ WIDE_RECURRENCES = [
 
 
 def route_totals(wrapper):
-    """A copy of a cell-scan wrapper's launches by route, the LSTM's
-    summed over its kernels."""
-    if wrapper is lstm_cell_scan:
-        total = {}
-        for counts in lstm_cell_scan.routes.values():
-            for route, n in counts.items():
-                total[route] = total.get(route, 0) + n
-        return total
-    return dict(wrapper.routes)
+    """A copy of a cell-scan wrapper's launches by route, summed over its
+    kernels."""
+    total = {}
+    for counts in wrapper.routes.values():
+        for route, n in counts.items():
+            total[route] = total.get(route, 0) + n
+    return total
 
 
 def wide_recurrence_case(label, kind, t_len, batch, hdim, bf16, in_size,
@@ -5724,6 +5805,13 @@ def main():
     for name, n in gru_bf16_launches.items():
         if n == 0:
             fail(f'phases 29 and 30 never launched the gru {name} kernel')
+        if sum(GRU_BF16_MAIN_ROUTES[name].values()) != n:
+            fail(f'the gru {name} kernel\'s launches by route '
+                 f'{GRU_BF16_MAIN_ROUTES[name]} do not add up to its {n}')
+    for name in ('fwd_train_bf16', 'bwd_bf16'):
+        if GRU_BF16_MAIN_ROUTES[name]['mma'] == 0:
+            fail(f'no gru {name} launch of phases 29 and 30 took the mma '
+                 f'route: {GRU_BF16_MAIN_ROUTES[name]}')
     for name in ('fwd_train_bf16', 'bwd_bf16'):
         if attention_bf16_launches[name] == 0:
             fail(f'the bf16 SepFormer step never launched the attention '
@@ -5854,16 +5942,19 @@ def main():
          'source': 'padertorch_tpu_torch/csrc/gru_cell_scan.cu',
          'replaces': 'padertorch_tpu/ops/pallas/gru.py:182',
          'launches': gru_bf16_launches['fwd_bf16'],
+         'launches_by_route': GRU_BF16_MAIN_ROUTES['fwd_bf16'],
          **gru_bf16_rows['fwd']},
         {'name': 'gru_cell_scan_train_bf16', 'route': 'cuda',
          'source': 'padertorch_tpu_torch/csrc/gru_cell_scan.cu',
          'replaces': 'padertorch_tpu/ops/pallas/gru.py:198',
          'launches': gru_bf16_launches['fwd_train_bf16'],
+         'launches_by_route': GRU_BF16_MAIN_ROUTES['fwd_train_bf16'],
          **gru_bf16_rows['fwd_train']},
         {'name': 'gru_cell_scan_bwd_bf16', 'route': 'cuda',
          'source': 'padertorch_tpu_torch/csrc/gru_cell_scan_bwd.cu',
          'replaces': 'padertorch_tpu/ops/pallas/gru.py:259',
          'launches': gru_bf16_launches['bwd_bf16'],
+         'launches_by_route': GRU_BF16_MAIN_ROUTES['bwd_bf16'],
          **gru_bf16_rows['bwd']},
         {'name': 'flash_attention', 'route': 'cuda',
          'source': 'padertorch_tpu_torch/csrc/flash_attention.cu',

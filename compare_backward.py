@@ -13,6 +13,9 @@ that git ignores); alternate them, as in parent, change, change, parent:
     python3 compare_backward.py <checkout> attention-bf16-fwd
     python3 compare_backward.py <checkout> lstm-bf16
     python3 compare_backward.py <checkout> lstm-bf16-fwd
+    python3 compare_backward.py <checkout> gru-bf16
+    python3 compare_backward.py <checkout> gru-bf16-fwd
+    python3 compare_backward.py <checkout> bgru-step
 
 ``lstm``: ``lstm_cell_scan``'s backward kernel alone at the DPRNN-TasNet's
 intra (T=100, 260 rows per direction, H=128) and inter (T=65, 400 rows,
@@ -52,8 +55,28 @@ forward kernels alone (the lean one, as a served request runs it, and the
 training one) at the same shapes: the median of 5 windows of 10 launches,
 the largest difference from the plain bf16 forward, a digest of the
 outputs, and the grid (and route) each takes; then the same at two wide
-layers (``LSTM_BF16_FWD_WIDE``: 2 x 1100 at 2 and 16 rows a direction).  Prints the card's name and
-power limit first; exits non-zero without a card.
+layers (``LSTM_BF16_FWD_WIDE``: 2 x 1100 at 2 and 16 rows a direction).
+``gru-bf16``: the bf16 GRU backward alone at ``GRU_BF16_SHAPES`` (the
+DPRNN's intra and inter chunk RNNs, the speaker classifier recipe's GRU at
+H = 64 and its class defaults at H = 256) on the residuals of the plain
+bf16 training forward, beside the float32 backward of the same checkout at
+the same shape: the median of 5 windows of 10 launches and the mean of a
+launch from replays of a CUDA graph of 20 (the eager calls at the
+classifier's shape are as short as the host's work between them), the
+host's µs a launch (100 calls in a row on the host clock: the wrapper's
+work), the largest difference from the plain bf16 backward, a digest of
+dgx, dgh and dh0, and the route (``gru.kernel_route`` where the checkout
+has it).
+``gru-bf16-fwd``: the same for the two bf16 forwards (the lean one, as a
+served request runs it, and the training one) beside the float32 training
+forward.  ``bgru-step``: the tasnet recipe's ``dprnn`` with ``bgru``
+chunk RNNs at full width under ``precision='bfloat16'`` after
+``set_rnn_backend(..., compute_dtype='bfloat16')`` (``chip_smoke.py``
+phase 29's bf16 run) at B=4 x 16000 from seed 0: the median host clock of
+20 training steps, each ended by a synchronize, and from ``torch.profiler``
+over 5 more the card's busy time a step and the device time a step of the
+GRU kernels (the kernels whose name holds ``gru_``).  Prints the card's
+name and power limit first; exits non-zero without a card.
 """
 import hashlib
 import subprocess
@@ -369,6 +392,155 @@ def lstm_forward_bf16(lk):
         torch.cuda.empty_cache()
 
 
+# (label, T, rows per direction, H, mask, directions)
+GRU_BF16_SHAPES = [
+    ('intra T=100 D*B=520 H=128', 100, 260, 128, None, 2),
+    ('inter T=65 D*B=800 H=128', 65, 400, 128, 'chunks', 2),
+    ('classifier recipe T=66 D*B=8 H=64 one direction', 66, 8, 64, 'ragged',
+     1),
+    ('classifier defaults T=503 D*B=16 H=256 one direction', 503, 16, 256,
+     'ragged', 1)]
+
+
+def gru_bf16(gk, part):
+    """``gru-bf16`` (``part`` 'bwd') or ``gru-bf16-fwd`` ('fwd')."""
+    import chip_smoke
+    device = torch.cuda.current_device()
+    limits = gk.device_limits(device)
+    for label, t_len, batch, hdim, kind, n_dir in GRU_BF16_SHAPES:
+        args, cot = chip_smoke.recurrence_inputs(t_len, batch, hdim, kind,
+                                                 gates=3, directions=n_dir)
+        gx, w, mask, h0 = args
+        gx16 = gx.bfloat16()
+        train16 = gk.gru_cell_scan_train_plain(gx16, w, mask, h0, 'bfloat16')
+        f32_train = gk._launch(gx, w, n_dir, mask, h0, train=True)
+        bwd_in = (*train16[1:4], w, mask, cot[0].bfloat16(), cot[1])
+        if part == 'fwd':
+            kernels = {
+                'lean': lambda: gk.gru_cell_scan(gx16, w, mask, h0,
+                                                 compute_dtype='bfloat16'),
+                'training': lambda: gk._launch(gx16, w, n_dir, mask, h0,
+                                               train=True)}
+            plain = {'lean': gk.gru_cell_scan_plain(gx16, w, mask, h0,
+                                                    'bfloat16'),
+                     'training': train16}
+            f32 = ('the float32 training forward',
+                   lambda: gk._launch(gx, w, n_dir, mask, h0, train=True))
+        else:
+            kernels = {'backward': lambda: gk._launch_bwd(
+                *bwd_in[:3], w, n_dir, mask, *bwd_in[5:])}
+            plain = {'backward': gk.gru_cell_scan_bwd_plain(*bwd_in,
+                                                            'bfloat16')}
+            f32 = ('the float32 backward', lambda: gk._launch_bwd(
+                *f32_train[1:4], w, n_dir, mask, *cot))
+        for name, kernel in kernels.items():
+            with torch.no_grad():
+                got = kernel()
+                err = max(float((a.float() - b.float()).abs().max())
+                          for a, b in zip(got, plain[name]))
+                ms, windows = median_ms(kernel)
+            route = 'resident or cooperative'
+            if hasattr(gk, 'kernel_route'):
+                kind_of = {'lean': 'fwd', 'training': 'fwd_train',
+                           'backward': 'bwd'}[name]
+                route = gk.kernel_route(kind_of, n_dir, batch, hdim, True,
+                                        *limits) or 'cooperative'
+            print(f'gru bf16 {name} {label}: {ms:.4f} ms (windows '
+                  f'{[round(x, 4) for x in windows]}), from graph replays '
+                  f'{graph_ms(kernel)}, host {host_us(kernel):.1f} us a '
+                  f'launch, route {route}, max |kernel - plain| {err:.3e}, '
+                  f'digest {sha256(got)[:16]}', flush=True)
+            del got
+        f32_ms, _ = median_ms(f32[1])
+        print(f'gru {f32[0]} {label}: {f32_ms:.4f} ms, from graph replays '
+              f'{graph_ms(f32[1])}', flush=True)
+        torch.cuda.empty_cache()
+
+
+def host_us(fn, calls=100):
+    """The host's µs a call of ``fn`` (the wrapper's own work up to the
+    launch, outputs allocated): ``calls`` calls in a row on the host clock,
+    with no wait for the card between them (the launch queue takes them
+    all)."""
+    import time
+    with torch.no_grad():
+        fn()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        took = time.perf_counter() - start
+        torch.cuda.synchronize()
+    return took / calls * 1e6
+
+
+def graph_ms(fn):
+    """The ms of one call of ``fn`` from replays of a CUDA graph of 20
+    (``chip_smoke.graph_ms``: no host work between the launches), as text,
+    or why none was captured."""
+    import chip_smoke
+    try:
+        return f'{chip_smoke.graph_ms(fn, iters=20):.4f} ms'
+    except RuntimeError as err:
+        return f'not captured ({str(err).splitlines()[0]})'
+    finally:
+        torch.cuda.empty_cache()
+
+
+def bgru_step():
+    import tempfile
+    import time
+    from pathlib import Path
+
+    import chip_smoke
+    from padertorch_tpu_torch.contrib.examples.source_separation.tasnet \
+        import train as tas_train
+    from padertorch_tpu_torch.modules.recurrent import set_rnn_backend
+    from padertorch_tpu_torch.train.trainer import Trainer
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.manual_seed(0)
+        trainer = Trainer.from_config(tas_train.get_trainer_config(
+            Path(tmp) / 'bgru', variant='dprnn',
+            updates=chip_smoke.tasnet_updates(
+                'bgru', {'precision': 'bfloat16'}))).to('cuda')
+        set_rnn_backend(trainer.model, 'pallas', compute_dtype='bfloat16')
+        example = trainer.model.example_to_device(
+            chip_smoke.tasnet_batch(4, 16000, seed=1), 'cuda')
+
+        def step():
+            loss = trainer.train_step(trainer.model, example)[0]
+            loss.backward()
+            trainer.optimizer.step()
+            trainer.optimizer.zero_grad()
+
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        host = []
+        for _ in range(20):
+            start = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - start) * 1e3)
+        steps = 5
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                step()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in events) / 1e3 / steps
+        gru = sum(e.self_device_time_total for e in events
+                  if 'gru_' in e.key) / 1e3 / steps
+        print(f'bgru DPRNN step, bf16 GRUs under the policy, B=4 x 16000: '
+              f'host clock {np.median(host):.3f} ms (steps '
+              f'{[round(x, 3) for x in host]}); busy {busy:.3f} ms a step, '
+              f'the GRU kernels {gru:.3f} ms of it', flush=True)
+
+
 def sha256(tensors):
     """Digest of the tensors' bytes (bf16 as its 16-bit patterns)."""
     digest = hashlib.sha256()
@@ -389,6 +561,7 @@ def main():
     sys.path.insert(0, root)
     from padertorch_tpu_torch.ops.kernels import _build
     from padertorch_tpu_torch.ops.kernels import attention as ak
+    from padertorch_tpu_torch.ops.kernels import gru as gk
     from padertorch_tpu_torch.ops.kernels import lstm as lk
     _build.load_library()
     print(f'checkout {root}, {part}', flush=True)
@@ -398,7 +571,10 @@ def main():
      'attention-bf16': lambda: attention_backward_bf16(ak),
      'attention-bf16-fwd': lambda: attention_forward_bf16(ak),
      'lstm-bf16': lambda: lstm_backward_bf16(lk),
-     'lstm-bf16-fwd': lambda: lstm_forward_bf16(lk)}[part]()
+     'lstm-bf16-fwd': lambda: lstm_forward_bf16(lk),
+     'gru-bf16': lambda: gru_bf16(gk, 'bwd'),
+     'gru-bf16-fwd': lambda: gru_bf16(gk, 'fwd'),
+     'bgru-step': bgru_step}[part]()
 
 
 if __name__ == '__main__':

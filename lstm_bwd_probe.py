@@ -10,6 +10,9 @@ other warps), for the ``mma`` route and the FMA grid it replaced.
 
     python3 lstm_bwd_probe.py            # the backward
     python3 lstm_bwd_probe.py forward    # the training forward
+    python3 lstm_bwd_probe.py gru-backward
+    python3 lstm_bwd_probe.py gru-forward
+    python3 lstm_bwd_probe.py gru-registers
 
 Builds ``padertorch_tpu_torch/csrc/lstm_cell_scan_bwd.cu`` (or
 ``lstm_cell_scan.cu``) with ``-DLSTM_PROBE`` (nvcc, into a temporary
@@ -24,6 +27,28 @@ median of 5 windows of 10 launches), its µs a step, and each part's cycles
 a step with its share, which also splits the µs a step.  Block 0 is one
 block of the grid: the sync part is its wait for the others.  No main
 path runs this build.  Exits non-zero without a card or without nvcc.
+
+The GRU modes split a step of the bf16 GRU backward's (or training
+forward's) ``mma`` route the same way, built with ``-DLSTM_PROBE`` from a
+file that includes ``gru_cell_scan_bwd.cu`` (or ``gru_cell_scan.cu``) and
+adds an entry that launches the route with the steps its inputs are
+prefetched into L2 ahead of their use as an argument (``GRU_AHEAD`` here:
+none, 1 and 2; the card's rule, ``gru_mma_ahead``, takes 2 where a
+launch's streams outgrow L2): at the DPRNN's intra and inter shapes
+(phase 28's, B=4 x 32000), the ``bgru`` step's (``compare_backward.py
+bgru-step``, B=4 x 16000: T=100 and 132 rows a direction, T=33 and 400
+rows) and the speaker classifier recipe's (T=66, 8 rows, H=64, one
+direction).  A block runs all its steps alone, so the parts are the
+product (block 0's warp 0: its ``mma`` chunk and partial-sum stores), the
+two syncs (the wait for the block's other warps) and the cell (the
+chunks' sums, the cell, its stores and the next step's loads); no
+exchange.
+
+``gru-registers`` compiles both GRU sources with ``-Xptxas -v``, each
+from a file that includes it and adds the instantiation a tile of one
+warp would need at H = 144 (9 k-steps of each gate forward, 27 backward),
+and prints each ``mma`` kernel's registers and spills: the budget behind
+``GRU_MMA_MAX_H``.
 """
 import ctypes
 import subprocess
@@ -157,15 +182,185 @@ def run(lib, mode, entry, args, t_len, per_dir, hdim):
     return float(np.median(windows)), [c / t_len for c in cycles]
 
 
+# the GRU modes: the source, its launcher of the `mma` route and the
+# launcher's pointer arguments, the entry that reads the probes
+GRU_MODES = {
+    'gru-backward': ('gru_cell_scan_bwd.cu', 'launch_bwd_mma', 10,
+                     'gru_bwd_probe_take'),
+    'gru-forward': ('gru_cell_scan.cu', 'launch_fwd_mma', 9,
+                    'gru_fwd_probe_take'),
+}
+GRU_AHEAD = (0, 1, 2)
+# (label, T, rows per direction, H, mask, directions)
+GRU_SHAPES = [('DPRNN intra T=100 D*B=520 H=128', 100, 260, 128, None, 2),
+              ('DPRNN inter T=65 D*B=800 H=128', 65, 400, 128, 'chunks', 2),
+              ('bgru step intra T=100 D*B=264 H=128', 100, 132, 128, None,
+               2),
+              ('bgru step inter T=33 D*B=800 H=128', 33, 400, 128, 'chunks',
+               2),
+              ('classifier recipe T=66 D*B=8 H=64 one direction', 66, 8, 64,
+               'ragged', 1)]
+# the instantiations a tile of one warp would need at H = 144
+GRU_WIDE = {
+    'gru_cell_scan.cu': """template __global__ void gru_fwd_mma_kernel<9>(
+    const __nv_bfloat16*, const float*, const float*, const float*,
+    __nv_bfloat16*, __nv_bfloat16*, __nv_bfloat16*, __nv_bfloat16*, float*,
+    int, int, int, int, int, int, int, int, int);""",
+    'gru_cell_scan_bwd.cu': """template __global__ void gru_bwd_mma_kernel<27>(
+    const __nv_bfloat16*, const __nv_bfloat16*, const __nv_bfloat16*,
+    const float*, const float*, const __nv_bfloat16*, const float*,
+    __nv_bfloat16*, __nv_bfloat16*, float*, int, int, int, int, int, int,
+    int, int, int);""",
+}
+
+
+def gru_build(tmp, mode):
+    """The probe build of ``mode``'s source: its ``mma`` launcher behind
+    the entry ``gru_probe_mma(pointers, T, D, Bd, H, device, stream,
+    ahead)``."""
+    source, launcher, pointers, take = GRU_MODES[mode]
+    unit = Path(tmp) / 'probe.cu'
+    unit.write_text(
+        f'#include "{CSRC / source}"\n'
+        f'extern "C" int gru_probe_mma(void* const* p, int T, int D, '
+        f'int Bd, int H, int device, void* stream, int ahead) {{\n'
+        f'    return {launcher}('
+        + ', '.join(f'p[{i}]' for i in range(pointers))
+        + ', T, D, Bd, H, device, stream, ahead);\n}\n')
+    path = Path(tmp) / 'libprobe.so'
+    subprocess.run(
+        ['/usr/local/cuda/bin/nvcc', '-gencode',
+         'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3', '-Xcompiler',
+         '-fPIC', '-shared', '-DLSTM_PROBE', '-o', str(path), str(unit)],
+        check=True)
+    lib = ctypes.CDLL(str(path))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.gru_probe_mma.argtypes = [p] + [i] * 5 + [p, i]
+    getattr(lib, take).argtypes = [p]
+    return lib
+
+
+def gru_pointers(mode, t_len, per_dir, hdim, kind, n_dir):
+    """The entry's pointer arguments on a bf16 layer from seed 0 (as
+    chip_smoke.py phase 28 makes it; the backward's residuals from the
+    plain training forward), and the tensors they point into."""
+    import chip_smoke
+    from padertorch_tpu_torch.ops.kernels.gru import (
+        gru_cell_scan_train_plain)
+    args, cot = chip_smoke.recurrence_inputs(t_len, per_dir, hdim, kind,
+                                             gates=3, directions=n_dir)
+    gx, w, mask, h0 = args
+    gx = gx.bfloat16()
+    out, acts, gh_n, h_prev, h_t = gru_cell_scan_train_plain(
+        gx, w, mask, h0, 'bfloat16')
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
+    if mode == 'gru-forward':
+        keep = [torch.empty_like(x) for x in (out, acts, gh_n, h_prev, h_t)]
+        return keep, [ptr(x) for x in (gx, w, mask, h0, *keep)]
+    keep = [torch.empty_like(acts), torch.empty_like(acts),
+            torch.empty_like(cot[1])]
+    d_out = cot[0].bfloat16()
+    return [keep, d_out], [ptr(x) for x in (acts, gh_n, h_prev, w, mask,
+                                            d_out, cot[1], *keep)]
+
+
+def gru_main(mode):
+    take = GRU_MODES[mode][3]
+    stream = torch.cuda.current_stream().cuda_stream
+    with tempfile.TemporaryDirectory() as tmp:
+        lib = gru_build(tmp, mode)
+        for label, t_len, per_dir, hdim, kind, n_dir in GRU_SHAPES:
+            keep, ptrs = gru_pointers(mode, t_len, per_dir, hdim, kind,
+                                      n_dir)
+            ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
+            for ahead in GRU_AHEAD:
+                def launch():
+                    err = lib.gru_probe_mma(
+                        ptrs, t_len, n_dir, per_dir, hdim,
+                        torch.cuda.current_device(), stream, ahead)
+                    if err != 0:
+                        raise RuntimeError(f'the {mode} launch failed: CUDA '
+                                           f'error {err}')
+
+                cycles = (ctypes.c_longlong * 4)()
+                launch()
+                getattr(lib, take)(ctypes.addressof(cycles))   # zeroes
+                launch()
+                if getattr(lib, take)(ctypes.addressof(cycles)) != 0:
+                    raise RuntimeError('reading the probes failed')
+                per_step = [c / t_len for c in cycles]
+                windows = []
+                for _ in range(5):
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    for _ in range(10):
+                        launch()
+                    end.record()
+                    end.synchronize()
+                    windows.append(start.elapsed_time(end) / 10)
+                getattr(lib, take)(ctypes.addressof(cycles))
+                ms = float(np.median(windows))
+                total = sum(per_step)
+                us = ms * 1e3 / t_len
+                print(f'{mode} {label}, L2 prefetch {ahead} ahead: {ms:.4f} ms, '
+                      f'{us:.3f} us a step; '
+                      + ', '.join(
+                          f'{name} {c:.0f} cycles ({c / total:.1%}, '
+                          f'{us * c / total:.3f} us)'
+                          for name, c in zip(PARTS, per_step)
+                          if name != 'exchange'), flush=True)
+            del keep
+            torch.cuda.empty_cache()
+
+
+def gru_registers():
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = []
+        for source, wide in GRU_WIDE.items():
+            unit = Path(tmp) / f'wide_{source}'
+            unit.write_text(f'#include "{CSRC / source}"\nnamespace {{\n'
+                            f'{wide}\n}}\n')
+            procs.append(subprocess.Popen(
+                ['/usr/local/cuda/bin/nvcc', '-gencode',
+                 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
+                 '-Xcompiler', '-fPIC', '-Xptxas', '-v', '-c', '-o',
+                 str(Path(tmp) / f'{source}.o'), str(unit)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        for proc in procs:
+            lines = proc.communicate()[0].splitlines()
+            if proc.returncode != 0:
+                sys.exit('\n'.join(lines[-40:]))
+            for i, line in enumerate(lines):
+                if 'Compiling entry' not in line or 'mma_kernel' not in line:
+                    continue
+                name = line.split("'")[1]
+                name = name[name.index('gru_'):name.index('EEEv')]
+                info = [x.split(':', 1)[-1].strip() for x in lines[i + 1:i + 4]
+                        if 'Used' in x or 'spill' in x]
+                print(f'{name}: {"; ".join(info)}', flush=True)
+
+
 def main():
     mode = sys.argv[1] if len(sys.argv) > 1 else 'backward'
-    if mode not in MODES:
-        sys.exit(f'usage: lstm_bwd_probe.py [{" | ".join(MODES)}]')
+    if mode == 'gru-registers':
+        gru_registers()
+        return
+    if mode not in MODES and mode not in GRU_MODES:
+        sys.exit(f'usage: lstm_bwd_probe.py '
+                 f'[{" | ".join([*MODES, *GRU_MODES, "gru-registers"])}]')
     if not torch.cuda.is_available():
         sys.exit('lstm_bwd_probe.py needs a card')
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True).stdout.strip())
+    if mode in GRU_MODES:
+        gru_main(mode)
+        return
     with tempfile.TemporaryDirectory() as tmp:
         lib = build(tmp, mode)
         take = getattr(lib, MODES[mode][3])

@@ -87,6 +87,31 @@
 // registers of the thread that applies the cell; the cooperative kernel
 // rounds h as it reads it.  The products of bf16 values are exact in
 // float32 and summed in float32 FMAs; the carry and h_T stay float32.
+//
+// The bf16 training forward's `mma` route (`gru_fwd_mma_kernel`), taken
+// where the bf16 resident plan exists and H <= GRU_MMA_MAX_H (128): on the
+// resident route each bf16 weight is read from shared memory and widened
+// every step, and the product runs as float32 FMAs on the CUDA cores (3.2
+// us a step at the DPRNN's intra shape on an H100).  Here the product is
+// bf16 `mma.sync.m16n8k16` with float32 sums (the Pallas kernel's
+// `_dir_matmul(..., cast=bf16)`) on the resident grid: a block owns a
+// direction and a range of rows with all H units (`gru_mma_plan`,
+// lstm_common.cuh), so a step needs no grid sync and no exchange through
+// L2.  W_hh[d] rounded to bf16 (A = W_hh^T: M = the 3H gate columns, K = H)
+// is held in the 16 warps' registers for the whole launch: a warp owns the
+// three gates' M tiles of 16 units and a chunk of the k-steps (at H = 128
+// two warps a tile, 48 registers a thread), so one B fragment feeds three
+// products.  The chunk's rows (one N tile of 8) are the B operand,
+// bf16(h_{t-1}) staged in shared memory and read with `ldmatrix`.  Each
+// warp sums its chunk from zero and writes the three gates' partial sums
+// as one float4 a (row, unit) pair; after one sync the pair's thread adds
+// the chunks in chunk order in float32, applies the cell, keeps the float32
+// carry in its registers, stores out, the gates, gh_n and bf16(h_{t-1}),
+// and stages bf16(h_t) for the next product; a second sync ends the step.
+// A step's gx and mask are loaded as bf16 bits a step ahead (two where a
+// warp holds one k-step: H <= 32), and into L2 GRU_MMA_AHEAD steps ahead
+// where the streams do not stay in L2 anyway (`gru_mma_ahead`).  The lean
+// bf16 forward stays on the resident route.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -94,6 +119,12 @@
 #include "lstm_common.cuh"
 
 namespace cg = cooperative_groups;
+
+// the probes' cycles (lstm_common.cuh), in -DLSTM_PROBE builds only
+#ifdef LSTM_PROBE
+__device__ long long gru_fwd_probe_cycles[4];
+#define PROBE_CYCLES gru_fwd_probe_cycles
+#endif
 
 namespace {
 
@@ -640,6 +671,303 @@ int launch_resident(const void* gx, const void* w, const void* mask,
     return cudaErrorInvalidValue;
 }
 
+// ---- the bf16 `mma` route of the training forward (see the top)
+
+// a warp's k-steps of each gate's M tile in registers, at most: the
+// instantiations
+constexpr int FWD_MMA_KC[] = {1, 2, 4};
+
+// One (row, unit) pair's inputs to the cell part of a step: its three gate
+// inputs as loaded (bf16 bits) and its mask.
+struct GruFwdIn {
+    unsigned short x[3];
+    float m;
+};
+
+// The training forward's arguments as gru_fwd_resident_kernel's; the
+// plan's fields (GruMmaPlan, lstm_common.cuh).  Block b: direction d = b /
+// n_rb, rows [rb * RB, min(Bd, (rb + 1) * RB)) of it, rb = b % n_rb, taken
+// RS at a time.  Warp w: unit tile w / KCH (the warps past n_ut tiles idle
+// in the product), K chunk w % KCH (k-steps [KC chunk, ...)).  Thread tid
+// applies the cells of the chunk's pairs q = tid and tid + 512 (row q / H,
+// unit q % H: at most 8 rows of at most 128 units) and keeps their float32
+// carries in registers.  Shared memory: h_s (8, 16 KT + 8) bf16, the
+// product's B operand bf16(h_{t-1}) of the chunk's rows | red (KCH, 8,
+// 16 n_ut + 1) float4, the chunks' partial sums of r, z, n.
+template <int KCR>
+__global__ void __launch_bounds__(MMA_THREADS, 1) gru_fwd_mma_kernel(
+        const __nv_bfloat16* __restrict__ gx, const float* __restrict__ w,
+        const float* __restrict__ mask, const float* __restrict__ h0,
+        __nv_bfloat16* __restrict__ out, __nv_bfloat16* __restrict__ acts,
+        __nv_bfloat16* __restrict__ ghn, __nv_bfloat16* __restrict__ hprev,
+        float* __restrict__ hT, int T, int Bd, int H, int RB, int RS, int KT,
+        int KC, int KCH, int ahead) {
+    using Ty = ScanTypes<true>;
+    using bf16 = __nv_bfloat16;
+    constexpr int NT = MMA_THREADS;
+    constexpr bool DEEP = KCR == 1;
+    extern __shared__ float4 smem4[];
+    const int n_rb = (Bd + RB - 1) / RB;
+    const int d = blockIdx.x / n_rb;
+    const int r_lo = blockIdx.x % n_rb * RB;
+    const int r_hi = min(Bd, r_lo + RB);
+    const int R = gridDim.x / n_rb * Bd;
+    const int G = 3 * H;
+    const int row0 = d * Bd;
+    const int n_ut = (H + 15) / 16;
+    const int SK = 16 * KT + 8;           // a staged row's elements
+    const int SR = 16 * n_ut + 1;         // a partial-sum row's float4s
+    bf16* h_s = reinterpret_cast<bf16*>(smem4);
+    float4* red = reinterpret_cast<float4*>(h_s + GRU_MMA_ROWS * SK);
+    const int tid = threadIdx.x;
+    const int lane = tid & 31;
+    const int warp = tid >> 5;
+    const int ut = warp / KCH;
+    const int chunk = warp % KCH;
+    const bool in_product = ut < n_ut;
+    const int ks_lo = chunk * KC;
+    const int kc = min(KC, KT - ks_lo);   // this chunk's k-steps
+
+    // this warp's A fragments: W_hh[d][k][g H + j] for the tile's units j
+    // of each gate g and the chunk's k, rounded to bf16; units and k past H
+    // are zero
+    uint32_t a[3][KCR][4];
+    {
+        const float* wd = w + (size_t)d * H * G;
+        const int ja = ut * 16 + (lane >> 2), jb = ja + 8;
+        const auto wv = [&](int g, int j, int k) {
+            return j < H && k < H ? __ldg(wd + (size_t)k * G + g * H + j)
+                                  : 0.0f;
+        };
+#pragma unroll
+        for (int g = 0; g < 3; ++g) {
+#pragma unroll
+            for (int kk = 0; kk < KCR; ++kk) {
+                const int k0 = 16 * (ks_lo + kk) + 2 * (lane & 3);
+                const bool on = in_product && kk < kc;
+                a[g][kk][0] = on ? pack_bf16x2(wv(g, ja, k0),
+                                               wv(g, ja, k0 + 1)) : 0u;
+                a[g][kk][1] = on ? pack_bf16x2(wv(g, jb, k0),
+                                               wv(g, jb, k0 + 1)) : 0u;
+                a[g][kk][2] = on ? pack_bf16x2(wv(g, ja, k0 + 8),
+                                               wv(g, ja, k0 + 9)) : 0u;
+                a[g][kk][3] = on ? pack_bf16x2(wv(g, jb, k0 + 8),
+                                               wv(g, jb, k0 + 9)) : 0u;
+            }
+        }
+    }
+
+    for (int rc = r_lo; rc < r_hi; rc += RS) {
+        const int nr = min(RS, r_hi - rc);
+        const int first = row0 + rc;   // the chunk's first row
+        // this thread's pairs q = tid + 512 p: row pn of the chunk (< 0:
+        // no pair) and unit q % H, at og = row * 3H + unit in a (T, R, 3H)
+        // stream's step (the launch keeps R * 3H below 2^31)
+        int pn[2], og[2];
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+            const int q = tid + p * NT;
+            pn[p] = q < nr * H ? q / H : -1;
+            og[p] = (first + pn[p]) * G + q % H;
+        }
+        // the unit of pair p, and its place in a (T, R, H) stream's step
+        const auto unit = [&](int p) { return og[p] - (first + pn[p]) * G; };
+        const auto at_h = [&](int p) { return og[p] - 2 * H * (first + pn[p]); };
+        // pair p's gate inputs of step t and its mask: loaded into
+        // registers as bf16 bits (`fetch`) one step ahead, into L2
+        // (`prefetch`) `ahead` steps ahead; the step's place in the streams
+        // is common to the block's threads
+        const auto fetch = [&](int t, int p) {
+            GruFwdIn in = {{0, 0, 0}, 1.f};
+            const size_t at = (size_t)t * R;
+            const unsigned short* gr =
+                reinterpret_cast<const unsigned short*>(gx + at * G) + og[p];
+            in.x[0] = __ldg(gr);
+            in.x[1] = __ldg(gr + H);
+            in.x[2] = __ldg(gr + 2 * H);
+            if (mask != nullptr) in.m = __ldg(mask + at + first + pn[p]);
+            return in;
+        };
+        const auto prefetch = [&](int t, int p) {
+            const size_t at = (size_t)t * R;
+            const bf16* gr = gx + at * G + og[p];
+            prefetch_l2(gr);
+            prefetch_l2(gr + H);
+            prefetch_l2(gr + 2 * H);
+            if (mask != nullptr) prefetch_l2(mask + at + first);
+        };
+        // the staged tile: bf16(h0) of the chunk's rows, zero past them
+        // and past H (the K padding, never written again); the previous
+        // chunk's last step ended with a sync after its last read
+        for (int i = tid; i < GRU_MMA_ROWS * SK; i += NT) {
+            const int n = i / SK, k = i % SK;
+            h_s[i] = __float2bfloat16_rn(
+                n < nr && k < H ? h0[(size_t)(first + n) * H + k] : 0.f);
+        }
+        float carry[2] = {0.f, 0.f};
+        // the inputs of this step and, with DEEP, of the next (loaded two
+        // steps ahead where the registers allow: a warp's W_hh of one
+        // k-step a gate)
+        GruFwdIn in[2] = {}, nx[2] = {};
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+            if (pn[p] < 0) continue;
+            carry[p] = h0[at_h(p)];
+            in[p] = fetch(0, p);
+            if (DEEP && T > 1) nx[p] = fetch(1, p);
+            for (int t = 1; t <= ahead && t < T; ++t) prefetch(t, p);
+        }
+        __syncthreads();
+
+        PROBE_INIT();
+        for (int t = 0; t < T; ++t) {
+            if (in_product) {
+                // the chunk's partial sums of the tile's three gates, each
+                // an independent chain from zero
+                float c[3][4] = {};
+                const bf16* b_row = h_s + (size_t)(lane & 7) * SK
+                                    + 16 * ks_lo + ((lane >> 3) & 1) * 8;
+#pragma unroll
+                for (int kk = 0; kk < KCR; ++kk) {
+                    if (kk < kc) {
+                        uint32_t b0, b1;
+                        ldsm_x2(b_row + 16 * kk, b0, b1);
+#pragma unroll
+                        for (int g = 0; g < 3; ++g)
+                            mma_bf16(c[g], a[g][kk], b0, b1);
+                    }
+                }
+                // c[g]: units lane / 4 (+ 8) of the tile, rows
+                // 2 (lane % 4) (+ 1)
+                const int n = 2 * (lane & 3), m = ut * 16 + (lane >> 2);
+                float4* rn = red + ((size_t)chunk * GRU_MMA_ROWS + n) * SR + m;
+                rn[0] = make_float4(c[0][0], c[1][0], c[2][0], 0.f);
+                rn[SR] = make_float4(c[0][1], c[1][1], c[2][1], 0.f);
+                rn[8] = make_float4(c[0][2], c[1][2], c[2][2], 0.f);
+                rn[SR + 8] = make_float4(c[0][3], c[1][3], c[2][3], 0.f);
+            }
+            PROBE(PROBE_PRODUCT);
+            __syncthreads();
+            PROBE(PROBE_SYNC);
+            // each own pair: for each gate the chunks in chunk order (both
+            // pairs' sums read before anything is stored), then the cell;
+            // then the pair's inputs of the next step are loaded.  The
+            // step's streams as bases common to the block's threads
+            float4 acc[2];
+#pragma unroll
+            for (int p = 0; p < 2; ++p) {
+                if (pn[p] < 0) continue;
+                const float4* rp = red + pn[p] * SR + unit(p);
+                acc[p] = rp[0];
+                // (bounded by MMA_WARPS, not by GRU_MMA_FWD_CHUNKS: ptxas
+                // then keeps the H = 128 instantiation in 124 registers
+                // without a spill)
+#pragma unroll
+                for (int c = 1; c < MMA_WARPS; ++c) {
+                    if (c >= KCH) break;
+                    const float4 v = rp[c * GRU_MMA_ROWS * SR];
+                    acc[p].x += v.x;
+                    acc[p].y += v.y;
+                    acc[p].z += v.z;
+                }
+            }
+            bf16* const acts_t = acts + (size_t)t * R * G;
+            bf16* const ghn_t = ghn + (size_t)t * R * H;
+            bf16* const hprev_t = hprev + (size_t)t * R * H;
+            bf16* const out_t = out + (size_t)t * R * H;
+#pragma unroll
+            for (int p = 0; p < 2; ++p) {
+                if (pn[p] < 0) continue;
+                const float r_ = sigmoidf_(
+                    __uint_as_float((unsigned)in[p].x[0] << 16) + acc[p].x);
+                const float z_ = sigmoidf_(
+                    __uint_as_float((unsigned)in[p].x[1] << 16) + acc[p].y);
+                const float n_ = tanhf(
+                    __uint_as_float((unsigned)in[p].x[2] << 16)
+                    + r_ * acc[p].z);
+                const float h_old = carry[p];
+                float h_new = (1.0f - z_) * n_ + z_ * h_old;
+                float h_out = h_new;
+                bf16* ar = acts_t + og[p];
+                Ty::st(ar, r_);
+                Ty::st(ar + H, z_);
+                Ty::st(ar + 2 * H, n_);
+                const int oh = at_h(p);
+                Ty::st(ghn_t + oh, acc[p].z);
+                Ty::st(hprev_t + oh, h_old);
+                if (mask != nullptr) {
+                    if (!(in[p].m > 0.0f)) h_new = h_old;
+                    h_out = h_new * in[p].m;
+                }
+                Ty::st(out_t + oh, h_out);
+                carry[p] = h_new;
+                h_s[pn[p] * SK + unit(p)] = __float2bfloat16_rn(h_new);
+                if (t == T - 1) hT[oh] = h_new;
+                if (DEEP) {
+                    in[p] = nx[p];
+                    if (t + 2 < T) nx[p] = fetch(t + 2, p);
+                } else if (t + 1 < T) {
+                    in[p] = fetch(t + 1, p);
+                }
+                if (ahead > 0 && t + 1 + ahead < T) prefetch(t + 1 + ahead, p);
+            }
+            PROBE(PROBE_CELL);
+            __syncthreads();
+            PROBE(PROBE_SYNC);
+        }
+    }
+}
+
+// The kernel of a plan: the instantiation that holds its KC k-steps.
+const void* fwd_mma_kernel(const GruMmaPlan& p) {
+    if (p.KC <= FWD_MMA_KC[0]) return (const void*)gru_fwd_mma_kernel<1>;
+    if (p.KC <= FWD_MMA_KC[1]) return (const void*)gru_fwd_mma_kernel<2>;
+    return (const void*)gru_fwd_mma_kernel<4>;
+}
+
+// Launch the training forward on its `mma` plan (`gru_mma_plan` at the
+// card's limits), the step's inputs prefetched into L2 `ahead` steps ahead
+// (< 0: as `gru_mma_ahead` says).  A shape the plan does not take is
+// refused with cudaErrorInvalidConfiguration before anything runs.
+// Returns cudaGetLastError() after the launch.
+int launch_fwd_mma(const void* gx, const void* w, const void* mask,
+                   const void* h0, void* out, void* acts, void* ghn,
+                   void* hprev, void* hT, int T, int D, int Bd, int H,
+                   int device, void* stream, int ahead) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return err;
+    GruMmaLimits limits;
+    err = gru_mma_limits(device, &limits);
+    if (err != cudaSuccess) return err;
+    GruMmaPlan plan =
+        gru_mma_plan(0, D, Bd, H, limits.n_sm, limits.max_smem);
+    if (T < 1 || plan.blocks == 0 || plan.KC > FWD_MMA_KC[2])
+        return cudaErrorInvalidConfiguration;
+    if ((size_t)D * Bd * 3 * H >= (size_t)1 << 31)  // a step's offsets: int
+        return cudaErrorInvalidValue;
+    const void* kernel = fwd_mma_kernel(plan);
+    err = gru_mma_allow_smem(kernel, device, plan.smem);
+    if (err != cudaSuccess) return err;
+    const auto* gx_ = static_cast<const __nv_bfloat16*>(gx);
+    const auto* w_ = static_cast<const float*>(w);
+    const auto* mask_ = static_cast<const float*>(mask);
+    const auto* h0_ = static_cast<const float*>(h0);
+    auto* out_ = static_cast<__nv_bfloat16*>(out);
+    auto* acts_ = static_cast<__nv_bfloat16*>(acts);
+    auto* ghn_ = static_cast<__nv_bfloat16*>(ghn);
+    auto* hprev_ = static_cast<__nv_bfloat16*>(hprev);
+    auto* hT_ = static_cast<float*>(hT);
+    if (ahead < 0) ahead = gru_mma_ahead(0, T, D, Bd, H, limits.l2_bytes);
+    void* args[] = {&gx_, &w_, &mask_, &h0_, &out_, &acts_, &ghn_, &hprev_,
+                    &hT_, &T, &Bd, &H, &plan.RB, &plan.RS, &plan.KT,
+                    &plan.KC, &plan.KCH, &ahead};
+    err = cudaLaunchKernel(kernel, dim3(plan.blocks), dim3(MMA_THREADS),
+                           args, plan.smem,
+                           static_cast<cudaStream_t>(stream));
+    if (err != cudaSuccess) return err;
+    return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -740,6 +1068,38 @@ int gru_cell_scan_fwd_train_resident_bf16(const void* gx, const void* w,
                                        threads, smem, device, stream);
 }
 
+// The bf16 training forward on its `mma` route (see the top), the plan
+// `gru_mma_plan` at the card's limits.
+int gru_cell_scan_fwd_train_mma_bf16(const void* gx, const void* w,
+                                     const void* mask, const void* h0,
+                                     void* out, void* acts, void* ghn,
+                                     void* hprev, void* hT, int T, int D,
+                                     int Bd, int H, int device,
+                                     void* stream) {
+    return launch_fwd_mma(gx, w, mask, h0, out, acts, ghn, hprev, hT, T, D,
+                          Bd, H, device, stream, -1);
+}
+
+// The `mma` plan of the bf16 training forward (bwd 0) or backward (bwd 1)
+// at (D, Bd, H) on the card: out[0..7] = n_rb, RB, RS, KT, KC, KCH,
+// blocks (0 where none fits), smem.
+int gru_cell_scan_mma_plan(int bwd, int D, int Bd, int H, int device,
+                           void* out) {
+    GruMmaPlan p;
+    cudaError_t err = gru_mma_device_plan(bwd, D, Bd, H, device, &p);
+    if (err != cudaSuccess) return err;
+    int* o = static_cast<int*>(out);
+    o[0] = p.n_rb;
+    o[1] = p.RB;
+    o[2] = p.RS;
+    o[3] = p.KT;
+    o[4] = p.KC;
+    o[5] = p.KCH;
+    o[6] = p.blocks;
+    o[7] = (int)p.smem;
+    return cudaSuccess;
+}
+
 // The card's SM count and the shared memory one block may opt in to, for
 // the host planner: out[0], out[1].
 // The cooperative forwards' grid at (D, Bd, H), float32 (bf16 = 0) or
@@ -771,6 +1131,14 @@ int gru_cell_scan_fwd_grid(int D, int Bd, int H, int bf16, int train,
     o[6] = streamed;
     return cudaSuccess;
 }
+
+#ifdef LSTM_PROBE
+// The probes' cycles of the `mma` route's steps (PROBE_CELL ...
+// PROBE_PRODUCT; lstm_bwd_probe.py), read and zeroed.
+int gru_fwd_probe_take(long long* out) {
+    return probe_take(gru_fwd_probe_cycles, out);
+}
+#endif
 
 int gru_cell_scan_device_limits(int device, void* out) {
     int* limits = static_cast<int*>(out);

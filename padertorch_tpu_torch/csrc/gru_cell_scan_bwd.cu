@@ -85,6 +85,28 @@
 // copies the bf16 rows (four columns in 8 bytes; 16-byte copies when
 // H % 8 == 0, two bytes at a time through L2 otherwise).  dh and dh0 stay
 // float32.
+//
+// The bf16 backward's `mma` route (`gru_bwd_mma_kernel`), taken where the
+// bf16 resident plan exists and H <= GRU_MMA_MAX_H (128), the training
+// forward's design (gru_cell_scan.cu) turned around: the product dh_{t-1}
+// = bf16(dgh_t) @ bf16(W_hh[d])^T is bf16 `mma.sync.m16n8k16` with float32
+// sums on the resident grid (a block owns a direction and a range of rows
+// with all H units, `gru_mma_plan`, lstm_common.cuh: no grid sync).  A =
+// W_hh[d] rounded to bf16 (M = the H units, K = the 3H gate columns) in
+// the 16 warps' registers for the whole launch: a warp owns a tile of 16
+// units and a chunk of the k-steps (at H = 128 two warps a tile, 12
+// k-steps, 48 registers a thread).  The B operand is bf16(dgh_t) of the
+// chunk's rows (one N tile of 8), staged in shared memory by the cells and
+// read with `ldmatrix`.  Each warp sums its chunk from zero and writes its
+// partial sums; after a sync the thread of each (row, unit) pair adds the
+// chunks in chunk order in float32 (plus dh * z, unless the step is
+// masked) into the float32 carry it keeps in registers, then forms the
+// pair's adjoints of the step before: it writes dgx and dgh and stages
+// bf16(dgh) as the next product's B tile; a sync, and the next product
+// runs.  Two syncs a step.  The pair's stored inputs (acts, gh_n, h_{t-1},
+// d_out, mask) are loaded as bf16 bits a step ahead (two where a warp
+// holds three k-steps at most), and into L2 GRU_MMA_AHEAD steps ahead
+// where the streams do not stay in L2 anyway (`gru_mma_ahead`).
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -94,6 +116,12 @@
 #include "lstm_common.cuh"
 
 namespace cg = cooperative_groups;
+
+// the probes' cycles (lstm_common.cuh), in -DLSTM_PROBE builds only
+#ifdef LSTM_PROBE
+__device__ long long gru_bwd_probe_cycles[4];
+#define PROBE_CYCLES gru_bwd_probe_cycles
+#endif
 
 namespace {
 
@@ -671,6 +699,308 @@ int launch_bwd_resident(const void* acts, const void* ghn, const void* hprev,
     return cudaErrorInvalidValue;
 }
 
+// ---- the bf16 `mma` route (see the top)
+
+// a warp's k-steps of W_hh in registers, at most: the instantiations
+constexpr int BWD_MMA_KC[] = {1, 3, 6, 12};
+
+// One (row, unit) pair's stored inputs to the cell part of a step, as
+// loaded (bf16 bits): r, z, n, gh_n, h_{t-1}, d_out; and its mask.
+struct GruBwdIn {
+    unsigned short x[6];
+    float m;
+};
+
+__device__ __forceinline__ float widen(unsigned short bits) {
+    return __uint_as_float((unsigned)bits << 16);
+}
+
+// The backward's arguments as gru_bwd_resident_kernel's; the plan's fields
+// (GruMmaPlan, lstm_common.cuh).  Block b: direction d = b / n_rb, rows
+// [rb * RB, min(Bd, (rb + 1) * RB)) of it, rb = b % n_rb, taken RS at a
+// time.  Warp w: unit tile w / KCH (the warps past n_ut tiles idle in the
+// product), K chunk w % KCH (k-steps [KC chunk, ...) of the 3H columns).
+// Thread tid owns the chunk's pairs q = tid and tid + 512 (row q / H, unit
+// q % H) and keeps their float32 carries dh in registers.  Shared memory:
+// g_s (8, 16 KT + 8) bf16, the product's B operand bf16(dgh_t) of the
+// chunk's rows | red (KCH, 8, 16 n_ut + 4) floats, the chunks' partial
+// sums.
+template <int KCR>
+__global__ void __launch_bounds__(MMA_THREADS, 1) gru_bwd_mma_kernel(
+        const __nv_bfloat16* __restrict__ acts,
+        const __nv_bfloat16* __restrict__ ghn,
+        const __nv_bfloat16* __restrict__ hprev,
+        const float* __restrict__ w, const float* __restrict__ mask,
+        const __nv_bfloat16* __restrict__ dout,
+        const float* __restrict__ dhT, __nv_bfloat16* __restrict__ dgx,
+        __nv_bfloat16* __restrict__ dgh, float* __restrict__ dh0, int T,
+        int Bd, int H, int RB, int RS, int KT, int KC, int KCH, int ahead) {
+    using Ty = ScanTypes<true>;
+    using bf16 = __nv_bfloat16;
+    constexpr int NT = MMA_THREADS;
+    extern __shared__ float4 smem4[];
+    const int n_rb = (Bd + RB - 1) / RB;
+    const int d = blockIdx.x / n_rb;
+    const int r_lo = blockIdx.x % n_rb * RB;
+    const int r_hi = min(Bd, r_lo + RB);
+    const int R = gridDim.x / n_rb * Bd;
+    const int G = 3 * H;
+    const int row0 = d * Bd;
+    const int n_ut = (H + 15) / 16;
+    const int SK = 16 * KT + 8;           // a staged row's elements
+    const int SR = 16 * n_ut + 4;         // a partial-sum row's floats
+    constexpr bool DEEP = KCR <= 3;
+    bf16* g_s = reinterpret_cast<bf16*>(smem4);
+    float* red = reinterpret_cast<float*>(g_s + GRU_MMA_ROWS * SK);
+    const int tid = threadIdx.x;
+    const int lane = tid & 31;
+    const int warp = tid >> 5;
+    const int ut = warp / KCH;
+    const int chunk = warp % KCH;
+    const bool in_product = ut < n_ut;
+    const int ks_lo = chunk * KC;
+    const int kc = min(KC, KT - ks_lo);   // this chunk's k-steps
+
+    // this warp's A fragments: W_hh[d][j][k] for the tile's units j and
+    // the chunk's columns k, rounded to bf16; units past H and columns
+    // past 3H are zero
+    uint32_t a[KCR][4];
+    {
+        const float* wd = w + (size_t)d * H * G;
+        const int ja = ut * 16 + (lane >> 2), jb = ja + 8;
+        const auto wv = [&](int j, int k) {
+            return j < H && k < G ? __ldg(wd + (size_t)j * G + k) : 0.0f;
+        };
+#pragma unroll
+        for (int kk = 0; kk < KCR; ++kk) {
+            const int k0 = 16 * (ks_lo + kk) + 2 * (lane & 3);
+            const bool on = in_product && kk < kc;
+            a[kk][0] = on ? pack_bf16x2(wv(ja, k0), wv(ja, k0 + 1)) : 0u;
+            a[kk][1] = on ? pack_bf16x2(wv(jb, k0), wv(jb, k0 + 1)) : 0u;
+            a[kk][2] = on ? pack_bf16x2(wv(ja, k0 + 8), wv(ja, k0 + 9)) : 0u;
+            a[kk][3] = on ? pack_bf16x2(wv(jb, k0 + 8), wv(jb, k0 + 9)) : 0u;
+        }
+    }
+
+    for (int rc = r_lo; rc < r_hi; rc += RS) {
+        const int nr = min(RS, r_hi - rc);
+        const int first = row0 + rc;   // the chunk's first row
+        // this thread's pairs q = tid + 512 p: row pn of the chunk (< 0:
+        // no pair) and unit q % H, at og = row * 3H + unit in a (T, R, 3H)
+        // stream's step and oh = row * H + unit in a (T, R, H) one's (the
+        // launch keeps R * 3H below 2^31)
+        int pn[2], og[2], oh[2];
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+            const int q = tid + p * NT;
+            pn[p] = q < nr * H ? q / H : -1;
+            og[p] = (first + pn[p]) * G + q % H;
+            oh[p] = (first + pn[p]) * H + q % H;
+        }
+        const auto unit = [&](int p) { return oh[p] - (first + pn[p]) * H; };
+        // pair p's stored inputs of step t: loaded into registers as bf16
+        // bits (`fetch`) one step ahead, into L2 (`prefetch`) `ahead` steps
+        // ahead
+        const auto fetch = [&](int t, int p) {
+            GruBwdIn in = {{0, 0, 0, 0, 0, 0}, 1.f};
+            const size_t at = (size_t)t * R;
+            using u16 = unsigned short;
+            const u16* ar = reinterpret_cast<const u16*>(acts + at * G) + og[p];
+            in.x[0] = __ldg(ar);
+            in.x[1] = __ldg(ar + H);
+            in.x[2] = __ldg(ar + 2 * H);
+            in.x[3] = __ldg(reinterpret_cast<const u16*>(ghn + at * H) + oh[p]);
+            in.x[4] =
+                __ldg(reinterpret_cast<const u16*>(hprev + at * H) + oh[p]);
+            in.x[5] = __ldg(reinterpret_cast<const u16*>(dout + at * H) + oh[p]);
+            if (mask != nullptr) in.m = __ldg(mask + at + first + pn[p]);
+            return in;
+        };
+        const auto prefetch = [&](int t, int p) {
+            const size_t at = (size_t)t * R;
+            const bf16* ar = acts + at * G + og[p];
+            prefetch_l2(ar);
+            prefetch_l2(ar + H);
+            prefetch_l2(ar + 2 * H);
+            prefetch_l2(ghn + at * H + oh[p]);
+            prefetch_l2(hprev + at * H + oh[p]);
+            prefetch_l2(dout + at * H + oh[p]);
+            if (mask != nullptr) prefetch_l2(mask + at + first);
+        };
+        float carry[2] = {0.f, 0.f}, dhz[2] = {0.f, 0.f}, m[2] = {1.f, 1.f};
+        // the inputs of this step and, with DEEP, of the one before (loaded
+        // two steps ahead where the registers allow: a warp's W_hh of
+        // three k-steps at most)
+        GruBwdIn in[2] = {}, nx[2] = {};
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+            if (pn[p] < 0) continue;
+            carry[p] = dhT[oh[p]];
+            in[p] = fetch(T - 1, p);
+            if (DEEP && T > 1) nx[p] = fetch(T - 2, p);
+            for (int t = T - 2; t >= T - 1 - ahead && t >= 0; --t)
+                prefetch(t, p);
+        }
+        // the staged tile starts zero: rows past nr and columns past 3H
+        // (the K padding) are never written; the previous chunk's last
+        // step ended with a sync after its last read
+        for (int i = tid; i < GRU_MMA_ROWS * SK / 8; i += NT)
+            reinterpret_cast<uint4*>(g_s)[i] = make_uint4(0u, 0u, 0u, 0u);
+        __syncthreads();
+
+        // the cell part of step t for the own pairs: dgx[t], dgh[t], and
+        // bf16(dgh[t]) staged; dh * z and the mask kept for the product's
+        // epilogue; then the pairs' inputs of step t - 1 are loaded
+        const auto cell = [&](int t) {
+            bf16* const dgx_t = dgx + (size_t)t * R * G;
+            bf16* const dgh_t = dgh + (size_t)t * R * G;
+#pragma unroll
+            for (int p = 0; p < 2; ++p) {
+                if (pn[p] < 0) continue;
+                const float r_ = widen(in[p].x[0]);
+                const float z_ = widen(in[p].x[1]);
+                const float n_ = widen(in[p].x[2]);
+                const float mj = in[p].m;
+                const float dh = carry[p] + widen(in[p].x[5]);
+                const float dz_pre = dh * (widen(in[p].x[4]) - n_) * z_
+                                     * (1.0f - z_);
+                const float da_n = dh * (1.0f - z_) * (1.0f - n_ * n_);
+                const float da_r = da_n * widen(in[p].x[3]) * r_
+                                   * (1.0f - r_);
+                bf16* xr = dgx_t + og[p];
+                Ty::st(xr, da_r * mj);
+                Ty::st(xr + H, dz_pre * mj);
+                Ty::st(xr + 2 * H, da_n * mj);
+                const bf16 g_r = __float2bfloat16_rn(da_r * mj);
+                const bf16 g_z = __float2bfloat16_rn(dz_pre * mj);
+                const bf16 g_n = __float2bfloat16_rn(da_n * r_ * mj);
+                bf16* hr = dgh_t + og[p];
+                hr[0] = g_r;
+                hr[H] = g_z;
+                hr[2 * H] = g_n;
+                bf16* gs = g_s + pn[p] * SK + unit(p);
+                gs[0] = g_r;
+                gs[H] = g_z;
+                gs[2 * H] = g_n;
+                dhz[p] = dh * z_;
+                m[p] = mj;
+                if (DEEP) {
+                    in[p] = nx[p];
+                    if (t > 1) nx[p] = fetch(t - 2, p);
+                } else if (t > 0) {
+                    in[p] = fetch(t - 1, p);
+                }
+                if (ahead > 0 && t - 1 - ahead >= 0)
+                    prefetch(t - 1 - ahead, p);
+            }
+        };
+
+        PROBE_INIT();
+        cell(T - 1);
+        for (int t = T - 1; t >= 0; --t) {
+            PROBE(PROBE_CELL);
+            __syncthreads();   // dgh[t] staged
+            PROBE(PROBE_SYNC);
+            if (in_product) {
+                float c[4] = {0.f, 0.f, 0.f, 0.f};
+                const bf16* b_row = g_s + (size_t)(lane & 7) * SK
+                                    + 16 * ks_lo + ((lane >> 3) & 1) * 8;
+#pragma unroll
+                for (int kk = 0; kk < KCR; ++kk) {
+                    if (kk < kc) {
+                        uint32_t b0, b1;
+                        ldsm_x2(b_row + 16 * kk, b0, b1);
+                        mma_bf16(c, a[kk], b0, b1);
+                    }
+                }
+                // c: units lane / 4 (+ 8) of the tile, rows 2 (lane % 4)
+                // (+ 1)
+                const int n = 2 * (lane & 3), mu = ut * 16 + (lane >> 2);
+                float* rn = red + ((size_t)chunk * GRU_MMA_ROWS + n) * SR + mu;
+                rn[0] = c[0];
+                rn[SR] = c[1];
+                rn[8] = c[2];
+                rn[SR + 8] = c[3];
+            }
+            PROBE(PROBE_PRODUCT);
+            __syncthreads();   // the chunks' partial sums
+            PROBE(PROBE_SYNC);
+            // dh_{t-1} of the own pairs: the chunks in chunk order, plus
+            // dh * z; a masked step passes dh through
+#pragma unroll
+            for (int p = 0; p < 2; ++p) {
+                if (pn[p] < 0) continue;
+                const float* rp = red + pn[p] * SR + unit(p);
+                float sum = rp[0];
+#pragma unroll 1
+                for (int c = 1; c < KCH; ++c)
+                    sum += rp[c * GRU_MMA_ROWS * SR];
+                if (m[p] > 0.0f) carry[p] = sum + dhz[p];
+            }
+            if (t > 0) cell(t - 1);
+        }
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+            if (pn[p] >= 0) dh0[oh[p]] = carry[p];
+        }
+        __syncthreads();   // the last reads of red before the next chunk
+    }
+}
+
+// The kernel of a plan: the instantiation that holds its KC k-steps.
+const void* bwd_mma_kernel(const GruMmaPlan& p) {
+    if (p.KC <= BWD_MMA_KC[0]) return (const void*)gru_bwd_mma_kernel<1>;
+    if (p.KC <= BWD_MMA_KC[1]) return (const void*)gru_bwd_mma_kernel<3>;
+    if (p.KC <= BWD_MMA_KC[2]) return (const void*)gru_bwd_mma_kernel<6>;
+    return (const void*)gru_bwd_mma_kernel<12>;
+}
+
+// Launch the backward on its `mma` plan (`gru_mma_plan` at the card's
+// limits), the step's inputs prefetched into L2 `ahead` steps ahead (< 0:
+// as `gru_mma_ahead` says).  A shape the plan does not take is refused
+// with cudaErrorInvalidConfiguration before anything runs.  Returns
+// cudaGetLastError() after the launch.
+int launch_bwd_mma(const void* acts, const void* ghn, const void* hprev,
+                   const void* w, const void* mask, const void* dout,
+                   const void* dhT, void* dgx, void* dgh, void* dh0, int T,
+                   int D, int Bd, int H, int device, void* stream,
+                   int ahead) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return err;
+    GruMmaLimits limits;
+    err = gru_mma_limits(device, &limits);
+    if (err != cudaSuccess) return err;
+    GruMmaPlan plan =
+        gru_mma_plan(1, D, Bd, H, limits.n_sm, limits.max_smem);
+    if (T < 1 || plan.blocks == 0 || plan.KC > BWD_MMA_KC[3])
+        return cudaErrorInvalidConfiguration;
+    if ((size_t)D * Bd * 3 * H >= (size_t)1 << 31)  // a step's offsets: int
+        return cudaErrorInvalidValue;
+    const void* kernel = bwd_mma_kernel(plan);
+    err = gru_mma_allow_smem(kernel, device, plan.smem);
+    if (err != cudaSuccess) return err;
+    using bf16 = __nv_bfloat16;
+    const auto* acts_ = static_cast<const bf16*>(acts);
+    const auto* ghn_ = static_cast<const bf16*>(ghn);
+    const auto* hprev_ = static_cast<const bf16*>(hprev);
+    const auto* w_ = static_cast<const float*>(w);
+    const auto* mask_ = static_cast<const float*>(mask);
+    const auto* dout_ = static_cast<const bf16*>(dout);
+    const auto* dhT_ = static_cast<const float*>(dhT);
+    auto* dgx_ = static_cast<bf16*>(dgx);
+    auto* dgh_ = static_cast<bf16*>(dgh);
+    auto* dh0_ = static_cast<float*>(dh0);
+    if (ahead < 0) ahead = gru_mma_ahead(1, T, D, Bd, H, limits.l2_bytes);
+    void* args[] = {&acts_, &ghn_, &hprev_, &w_, &mask_, &dout_, &dhT_,
+                    &dgx_, &dgh_, &dh0_, &T, &Bd, &H, &plan.RB, &plan.RS,
+                    &plan.KT, &plan.KC, &plan.KCH, &ahead};
+    err = cudaLaunchKernel(kernel, dim3(plan.blocks), dim3(MMA_THREADS),
+                           args, plan.smem,
+                           static_cast<cudaStream_t>(stream));
+    if (err != cudaSuccess) return err;
+    return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -748,5 +1078,25 @@ int gru_cell_scan_bwd_resident_bf16(const void* acts, const void* ghn,
                                      dgx, dgh, dh0, T, D, Bd, H, RB, RS, KS,
                                      threads, smem, device, stream);
 }
+
+// ... and on the `mma` route (see the top), the plan `gru_mma_plan` at the
+// card's limits.
+int gru_cell_scan_bwd_mma_bf16(const void* acts, const void* ghn,
+                               const void* hprev, const void* w,
+                               const void* mask, const void* dout,
+                               const void* dhT, void* dgx, void* dgh,
+                               void* dh0, int T, int D, int Bd, int H,
+                               int device, void* stream) {
+    return launch_bwd_mma(acts, ghn, hprev, w, mask, dout, dhT, dgx, dgh,
+                          dh0, T, D, Bd, H, device, stream, -1);
+}
+
+#ifdef LSTM_PROBE
+// The probes' cycles of the `mma` route's steps (PROBE_CELL ...
+// PROBE_PRODUCT; lstm_bwd_probe.py), read and zeroed.
+int gru_bwd_probe_take(long long* out) {
+    return probe_take(gru_bwd_probe_cycles, out);
+}
+#endif
 
 }  // extern "C"

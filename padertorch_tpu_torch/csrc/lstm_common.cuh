@@ -4,10 +4,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <map>
+#include <mutex>
+#include <utility>
+
 // clock64 probes of a step's parts (cell, grid sync, exchange, product) in
 // thread 0 of block 0, built only with -DLSTM_PROBE (the script
 // lstm_bwd_probe.py): cycles summed over the steps of a launch into the
-// array that the source names PROBE_CYCLES.
+// array that the source names PROBE_CYCLES.  The clock is read again after
+// the sum is stored, so that the next part does not count the probe's own
+// load of it.
 #ifdef LSTM_PROBE
 #define PROBE_INIT() long long probe_t = clock64()
 #define PROBE(part)                                                   \
@@ -15,7 +21,8 @@
         if (blockIdx.x == 0 && threadIdx.x == 0) {                    \
             const long long probe_now = clock64();                    \
             PROBE_CYCLES[part] += probe_now - probe_t;                \
-            probe_t = probe_now;                                      \
+            asm volatile("mov.u64 %0, %%clock64;"                     \
+                         : "=l"(probe_t) :: "memory");                \
         }                                                             \
     } while (0)
 
@@ -404,4 +411,149 @@ __device__ __forceinline__ void ldsm_x2(const void* p, uint32_t& b0,
                  : "=r"(b0), "=r"(b1)
                  : "r"(addr)
                  : "memory");
+}
+
+// ---- the bf16 `mma` routes of the GRU training forward and backward
+// (gru_cell_scan.cu, gru_cell_scan_bwd.cu): a block of 16 warps owns a
+// direction and a range of rows with all H units, so it runs all T steps
+// with no grid sync; the direction's W_hh, rounded to bf16, is the A
+// operand of `mma.sync.m16n8k16` in the warps' registers for the whole
+// launch; the rows of a step are the B operand, one N tile of 8.  A warp
+// owns one tile of 16 units (the forward: its three gates' M tiles) and a
+// chunk of KC k-steps of 16; the KCH chunks of a tile are summed on the
+// tensor cores from zero, meet in shared memory and are added in float32
+// in chunk order by the thread of each (row, unit) pair, which applies
+// the cell.
+
+// The widest H: 8 tiles of 16 units, so that two warps share each tile's K
+// and a warp holds at most 48 registers of W_hh (the forward: 3 gates x 4
+// k-steps x 4; the backward: 12 k-steps x 4).  From H = 129 a tile has one
+// warp, which would hold all of K: 108 registers of W_hh in either kernel,
+// more than the 128 a thread of 512 may keep beside the step's state.
+constexpr int GRU_MMA_MAX_H = 128;
+constexpr int GRU_MMA_ROWS = 8;   // rows staged at once: one N tile
+// The training forward's K chunks a tile, at most: each chunk's partial
+// sums are three gates' float4s to add, and at the classifier's H = 64 two
+// chunks of two k-steps beat four chunks of one on an H100
+constexpr int GRU_MMA_FWD_CHUNKS = 2;
+// The steps ahead of its use that a step's inputs are prefetched into L2
+// (each is loaded into registers one step ahead), where the launch's
+// streams, read and written (the training forward's 9H bf16 values a
+// (step, row), the backward's 12H), outgrow the card's L2: a smaller
+// layer's streams stay there, and the prefetches only cost instructions.
+constexpr int GRU_MMA_AHEAD = 2;
+
+// The steps ahead of a launch's prefetches (0: none) on a card of
+// `l2_bytes` of L2.
+inline int gru_mma_ahead(int bwd, int T, int D, int Bd, int H,
+                         int l2_bytes) {
+    const size_t streams =
+        (size_t)T * D * Bd * (bwd ? 12 : 9) * H * sizeof(__nv_bfloat16);
+    return streams > (size_t)l2_bytes ? GRU_MMA_AHEAD : 0;
+}
+
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+    asm volatile("prefetch.global.L2 [%0];\n" :: "l"(p));
+}
+
+// How an `mma` route divides a layer: a block owns a direction and one of
+// n_rb ranges of RB rows, taken RS (<= 8) at a time, each chunk of rows
+// through all T steps; K (H forward, 3H backward) is KT k-steps of 16 in
+// KCH chunks of KC.
+struct GruMmaPlan {
+    int n_rb, RB, RS, KT, KC, KCH, blocks;
+    size_t smem;
+};
+
+// Shared memory: the staged bf16 rows (8, 16 KT + 8) and the chunks'
+// partial sums, (KCH, 8) rows of 16 n_ut + 1 float4s (the forward's three
+// gates) or of 16 n_ut + 4 floats (the backward), n_ut = ceil(H / 16).
+inline size_t gru_mma_smem(int bwd, int H, int KT, int KCH) {
+    const size_t n_ut = (H + 15) / 16;
+    const size_t red = bwd ? sizeof(float) * (16 * n_ut + 4)
+                           : sizeof(float4) * (16 * n_ut + 1);
+    return sizeof(__nv_bfloat16) * GRU_MMA_ROWS * (16 * (size_t)KT + 8)
+           + red * KCH * GRU_MMA_ROWS;
+}
+
+// The plan of the training forward (bwd 0) or the backward (bwd 1) at (D,
+// Bd, H) on a card of n_sm SMs (blocks 0 where none fits: H above
+// GRU_MMA_MAX_H, more directions than SMs, or too little shared memory).
+// One block an SM in one wave: the rows of a direction are spread over
+// n_sm / D blocks (on an H100 faster than blocks of a whole N tile of 8
+// rows at the DPRNN's shapes), staged 8 at most at a time, evened out;
+// each tile of 16 units gets 16 / n_ut warps, at most one a k-step (the
+// forward at most GRU_MMA_FWD_CHUNKS), and K is cut into that many chunks.
+// ops/kernels/gru.py `mma_plan` is its mirror.
+inline GruMmaPlan gru_mma_plan(int bwd, int D, int Bd, int H, int n_sm,
+                               int max_smem) {
+    GruMmaPlan p = {};
+    const int per_dir = D > 0 ? n_sm / D : 0;
+    if (H < 1 || H > GRU_MMA_MAX_H || Bd < 1 || per_dir < 1) return p;
+    const int n_ut = (H + 15) / 16;
+    p.KT = ((bwd ? 3 * H : H) + 15) / 16;
+    int warps = MMA_WARPS / n_ut < p.KT ? MMA_WARPS / n_ut : p.KT;
+    if (!bwd && warps > GRU_MMA_FWD_CHUNKS) warps = GRU_MMA_FWD_CHUNKS;
+    p.KC = (p.KT + warps - 1) / warps;
+    p.KCH = (p.KT + p.KC - 1) / p.KC;
+    p.RB = (Bd + per_dir - 1) / per_dir;
+    p.n_rb = (Bd + p.RB - 1) / p.RB;
+    const int chunks = (p.RB + GRU_MMA_ROWS - 1) / GRU_MMA_ROWS;
+    p.RS = (p.RB + chunks - 1) / chunks;
+    p.smem = gru_mma_smem(bwd, H, p.KT, p.KCH);
+    if (p.smem > (size_t)max_smem) return p;
+    p.blocks = D * p.n_rb;
+    return p;
+}
+
+// The card's limits that the `mma` routes read, queried once a device.
+struct GruMmaLimits {
+    int n_sm, max_smem, l2_bytes;
+};
+
+inline cudaError_t gru_mma_limits(int device, GruMmaLimits* limits) {
+    static std::mutex lock;
+    static std::map<int, GruMmaLimits> known;
+    std::lock_guard<std::mutex> hold(lock);
+    auto it = known.find(device);
+    if (it == known.end()) {
+        GruMmaLimits l;
+        cudaError_t err = cudaDeviceGetAttribute(
+            &l.n_sm, cudaDevAttrMultiProcessorCount, device);
+        if (err != cudaSuccess) return err;
+        err = cudaDeviceGetAttribute(
+            &l.max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+        if (err != cudaSuccess) return err;
+        err = cudaDeviceGetAttribute(&l.l2_bytes, cudaDevAttrL2CacheSize,
+                                     device);
+        if (err != cudaSuccess) return err;
+        it = known.emplace(device, l).first;
+    }
+    *limits = it->second;
+    return cudaSuccess;
+}
+
+// The plan at the card's own limits.
+inline cudaError_t gru_mma_device_plan(int bwd, int D, int Bd, int H,
+                                       int device, GruMmaPlan* plan) {
+    GruMmaLimits l;
+    cudaError_t err = gru_mma_limits(device, &l);
+    if (err != cudaSuccess) return err;
+    *plan = gru_mma_plan(bwd, D, Bd, H, l.n_sm, l.max_smem);
+    return cudaSuccess;
+}
+
+// Let `kernel` take `smem` bytes of dynamic shared memory on `device`
+// (the current one), setting the attribute only where it grows.
+inline cudaError_t gru_mma_allow_smem(const void* kernel, int device,
+                                      size_t smem) {
+    static std::mutex lock;
+    static std::map<std::pair<int, const void*>, size_t> allowed;
+    std::lock_guard<std::mutex> hold(lock);
+    size_t& have = allowed[{device, kernel}];
+    if (smem <= have) return cudaSuccess;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess) have = smem;
+    return err;
 }

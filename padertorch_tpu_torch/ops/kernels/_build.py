@@ -54,6 +54,9 @@ _SIGNATURES = {
     'gru_cell_scan_fwd_resident_bf16': (_P,) * 6 + (_I,) * 10 + (_P,),
     'gru_cell_scan_fwd_train_resident_bf16': (_P,) * 9 + (_I,) * 10 + (_P,),
     'gru_cell_scan_bwd_resident_bf16': (_P,) * 10 + (_I,) * 10 + (_P,),
+    'gru_cell_scan_fwd_train_mma_bf16': (_P,) * 9 + (_I,) * 5 + (_P,),
+    'gru_cell_scan_bwd_mma_bf16': (_P,) * 10 + (_I,) * 5 + (_P,),
+    'gru_cell_scan_mma_plan': (_I,) * 5 + (_P,),
     'gru_cell_scan_device_limits': (_I, _P),
     'scan_l2_window': (_P, ctypes.c_size_t, _I, _P, _P),
     'masked_istft_fft': (_P,) * 6 + (_I,) * 12 + (_P,),

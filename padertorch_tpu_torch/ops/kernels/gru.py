@@ -32,11 +32,15 @@ H = 896; the planner is :func:`padertorch_tpu_torch.ops.kernels.lstm.
 scan_grid`), the ``streamed`` route: the same grid and arithmetic with the
 weights read from device memory every step, as the slots a block would
 stage, packed once a launch into scratch the wrapper allocates
-(:func:`padertorch_tpu_torch.ops.kernels.lstm.packed_bytes`).  A launch
-that fails on its
-route raises; it is never retried on another.  ``gru_cell_scan.routes``
-counts the forward launches by route, ``gru_cell_scan.bwd_routes`` the
-backward's.
+(:func:`padertorch_tpu_torch.ops.kernels.lstm.packed_bytes`).  The bf16
+training forward and the bf16 backward take a third route, ``mma``,
+where the bf16 resident plan exists and H <= ``GRU_MMA_MAX_H`` (128):
+the resident grid with ``W_hh`` as bf16 tensor-core operands held in
+registers (:func:`mma_plan`, the mirror of ``gru_mma_plan`` in
+``csrc/lstm_common.cuh``; :func:`kernel_route` names each launch's
+route).  A launch that fails on its route raises; it is never retried on
+another.  ``gru_cell_scan.routes`` counts the launches by kernel and
+route (``routes['fwd_train_bf16']['mma']``).
 
 The training forward stores, per step, the gates ``acts`` = r|z|n and
 ``gh_n`` as computed (also on a masked step), and ``h_prev``, the state the
@@ -64,7 +68,9 @@ combinations; the kernels take float32 streams with float32 products, and
 bf16 streams with bf16 products (the ``BF16`` variants of both files, on
 both routes, which stage ``W_hh`` in shared memory as bf16: the resident
 route reaches a wider H, up to 195 for the forwards and 192 for the
-backward on an H100), and raise for the other two.  ``h_prev`` of the bf16
+backward on an H100; the bf16 training forward and backward on the
+``mma`` route up to H = 128, the products on the tensor cores), and
+raise for the other two.  ``h_prev`` of the bf16
 variant is ``bf16(h_{t-1})``, what the JAX backward rebuilds from its bf16
 ``out``.
 """
@@ -76,14 +82,15 @@ import torch
 
 from padertorch_tpu_torch.ops.kernels import _build
 from padertorch_tpu_torch.ops.kernels.lstm import (
-    _check, _norm_w, _packed, _recurrent_product, _route, _variant,
-    product_dtype, sum_outer)
+    MMA_THREADS, MMA_WARPS, _check, _norm_w, _packed, _recurrent_product,
+    _route, _variant, product_dtype, sum_outer)
 
 __all__ = ['gru_cell_scan', 'gru_cell_scan_plain', 'GRUCellScan',
            'gru_cell_scan_train_plain', 'gru_cell_scan_bwd_plain',
            'recurrent_weight_grad', 'ResidentPlan', 'resident_plan',
            'resident_smem', 'resident_bwd_plan', 'resident_bwd_smem',
-           'device_limits', 'element_size']
+           'MmaPlan', 'mma_plan', 'mma_smem', 'kernel_route',
+           'device_mma_plan', 'device_limits', 'element_size']
 
 
 def _cell(gx, gh, h, hdim):
@@ -272,6 +279,7 @@ def _plan(n_dir, rows_per_dir, hdim, n_sm, max_smem, smem, k_len):
     return None
 
 
+@functools.lru_cache(maxsize=None)
 def resident_plan(n_dir, rows_per_dir, hdim, n_sm, max_smem, elem=4):
     """The resident forwards' plan for a layer of ``n_dir`` directions of
     ``rows_per_dir`` rows and ``hdim`` units on a card of ``n_sm`` SMs
@@ -293,6 +301,7 @@ def resident_plan(n_dir, rows_per_dir, hdim, n_sm, max_smem, elem=4):
                  functools.partial(resident_smem, elem=elem), hdim)
 
 
+@functools.lru_cache(maxsize=None)
 def resident_bwd_plan(n_dir, rows_per_dir, hdim, n_sm, max_smem, elem=4):
     """The resident backward's plan, as :func:`resident_plan` with the
     backward's bytes (:func:`resident_bwd_smem`) and its product's K range
@@ -302,6 +311,106 @@ def resident_bwd_plan(n_dir, rows_per_dir, hdim, n_sm, max_smem, elem=4):
     reaches H = 137 and the bf16 one H = 192."""
     return _plan(n_dir, rows_per_dir, hdim, n_sm, max_smem,
                  functools.partial(resident_bwd_smem, elem=elem), 3 * hdim)
+
+
+# the bf16 `mma` routes of the training forward and the backward
+# (csrc/lstm_common.cuh; blocks of MMA_WARPS warps as the LSTM's): rows
+# staged 8 at a time (one N tile), the widest H (two warps share each tile
+# of 16 units: at most 48 registers of W_hh a thread)
+MMA_ROWS = 8
+GRU_MMA_MAX_H = 128
+# the training forward's K chunks a tile, at most
+GRU_MMA_FWD_CHUNKS = 2
+# the k-steps a warp holds, at most, in the kernels' instantiations (the
+# training forward: of each gate's M tile; the backward)
+MMA_KC = {'fwd_train': (1, 2, 4), 'bwd': (1, 3, 6, 12)}
+
+
+class MmaPlan(NamedTuple):
+    """How an ``mma`` route divides a layer: ``n_rb`` ranges of ``RB``
+    rows a direction, one block each, taken ``RS`` (<= 8) at a time; K (H
+    in the training forward, 3H in the backward) in ``KT`` k-steps of 16,
+    ``KCH`` chunks of ``KC``; ``blocks`` and ``smem`` bytes."""
+    n_rb: int
+    RB: int
+    RS: int
+    KT: int
+    KC: int
+    KCH: int
+    blocks: int
+    smem: int
+
+
+def mma_smem(kernel, hdim, k_steps, chunks):
+    """Bytes of shared memory of an ``mma`` block (``gru_mma_smem``): the
+    staged bf16 rows (8, 16 ``k_steps`` + 8) and the ``chunks``' partial
+    sums, 8 rows each of 16 ceil(H / 16) + 1 float4s (the training
+    forward's three gates) or + 4 floats (``kernel`` 'bwd')."""
+    units = 16 * -(-hdim // 16)
+    red = 4 * (units + 4) if kernel == 'bwd' else 16 * (units + 1)
+    return 2 * MMA_ROWS * (16 * k_steps + 8) + red * chunks * MMA_ROWS
+
+
+@functools.lru_cache(maxsize=None)
+def mma_plan(kernel, n_dir, rows_per_dir, hdim, n_sm, max_smem):
+    """``gru_mma_plan`` of ``csrc/lstm_common.cuh``: the ``mma`` plan of
+    the bf16 ``kernel`` ('fwd_train' or 'bwd') on a card of ``n_sm`` SMs
+    whose blocks may opt in to ``max_smem`` bytes, or None where none fits
+    (H above ``GRU_MMA_MAX_H``, more directions than SMs).  One block an
+    SM in one wave: a direction's rows are spread over ``n_sm // n_dir``
+    blocks, staged 8 at most at a time, evened out; each tile of 16 units gets ``16 // tiles``
+    warps, at most one a k-step (the training forward at most
+    ``GRU_MMA_FWD_CHUNKS``), and K is cut into that many chunks."""
+    per_dir = n_sm // n_dir if n_dir > 0 else 0
+    if not 1 <= hdim <= GRU_MMA_MAX_H or rows_per_dir < 1 or per_dir < 1:
+        return None
+    tiles = -(-hdim // 16)
+    k_steps = -(-(3 * hdim if kernel == 'bwd' else hdim) // 16)
+    warps = min(MMA_WARPS // tiles, k_steps)
+    if kernel != 'bwd':
+        warps = min(warps, GRU_MMA_FWD_CHUNKS)
+    kc = -(-k_steps // warps)
+    chunks = -(-k_steps // kc)
+    rb = -(-rows_per_dir // per_dir)
+    n_rb = -(-rows_per_dir // rb)
+    rs = -(-rb // -(-rb // MMA_ROWS))
+    smem = mma_smem(kernel, hdim, k_steps, chunks)
+    if smem > max_smem:
+        return None
+    return MmaPlan(n_rb, rb, rs, k_steps, kc, chunks, n_dir * n_rb, smem)
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_route(kernel, n_dir, rows_per_dir, hdim, bf16, n_sm, max_smem):
+    """The route of ``kernel`` ('fwd', 'fwd_train' or 'bwd'; ``bf16``: its
+    bf16 variant) on a card of ``n_sm`` SMs and ``max_smem`` bytes a
+    block: 'resident' where :func:`resident_plan` (the forwards) or
+    :func:`resident_bwd_plan` gives a plan, but 'mma' for the bf16
+    training forward and backward where :func:`mma_plan` fits too; None
+    where the cooperative grid runs (cooperative or streamed, as the
+    card's planner says)."""
+    planner = resident_bwd_plan if kernel == 'bwd' else resident_plan
+    if planner(n_dir, rows_per_dir, hdim, n_sm, max_smem,
+               elem=2 if bf16 else 4) is None:
+        return None
+    if bf16 and kernel != 'fwd' and mma_plan(
+            kernel, n_dir, rows_per_dir, hdim, n_sm, max_smem) is not None:
+        return 'mma'
+    return 'resident'
+
+
+@functools.lru_cache(maxsize=None)
+def device_mma_plan(kernel, n_dir, rows_per_dir, hdim, device):
+    """The ``mma`` plan the card's own planner gives ``kernel``
+    ('fwd_train' or 'bwd') on ``device`` (an index), as an
+    :class:`MmaPlan` (blocks 0 where none fits)."""
+    out = (ctypes.c_int * 8)()
+    lib = _build.load_library()
+    err = lib.gru_cell_scan_mma_plan(int(kernel == 'bwd'), n_dir,
+                                     rows_per_dir, hdim, device,
+                                     ctypes.addressof(out))
+    _build.check(lib, err, 'gru_cell_scan_mma_plan')
+    return MmaPlan(*out)
 
 
 @functools.lru_cache(maxsize=None)
@@ -317,12 +426,13 @@ def device_limits(device):
 
 def _launch(gates_x, w, n_dir, mask, h0, train=False):
     """Launch the forward kernel of ``gates_x``'s stream dtype on the
-    route :func:`resident_plan` picks for the shape; with ``train`` the
+    route :func:`kernel_route` picks for the shape; with ``train`` the
     variant that also returns the residuals ``acts``, ``gh_n`` and
     ``h_prev`` (in the stream dtype)."""
     t_len, rows, g3 = gates_x.shape
     hdim = g3 // 3
     entry = _variant(gates_x.dtype)
+    kernel = 'fwd_train' if train else 'fwd'
 
     def empty(*shape, dtype=gates_x.dtype):
         return torch.empty(shape, dtype=dtype, device=gates_x.device)
@@ -331,13 +441,18 @@ def _launch(gates_x, w, n_dir, mask, h0, train=False):
                                                dtype=torch.float32)
     lib = _build.load_library()
     stream, device = _build.stream_and_device(gates_x)
-    plan = resident_plan(n_dir, rows // n_dir, hdim, *device_limits(device),
+    limits = device_limits(device)
+    plan = resident_plan(n_dir, rows // n_dir, hdim, *limits,
                          elem=element_size(gates_x.dtype))
     inputs = (gates_x.data_ptr(), w.data_ptr(),
               None if mask is None else mask.data_ptr(),
               h0.data_ptr(), out.data_ptr())
     sizes = (t_len, n_dir, rows // n_dir, hdim)
-    if plan is None:
+    route = kernel_route(kernel, n_dir, rows // n_dir, hdim, bool(entry),
+                         *limits)
+    if route == 'mma':
+        suffix, tail = '_mma' + entry, (*sizes, device, stream)
+    elif plan is None:
         hbuf = empty(2, rows, hdim, dtype=torch.float32)
         tail = (hbuf.data_ptr(), *sizes, device, stream)
         route = _route('gru_fwd', n_dir, rows // n_dir, hdim, bool(entry),
@@ -350,7 +465,7 @@ def _launch(gates_x, w, n_dir, mask, h0, train=False):
     else:
         tail = (*sizes, plan.RB, plan.RS, plan.KS, plan.threads, plan.smem,
                 device, stream)
-        route, suffix = 'resident', '_resident' + entry
+        suffix = '_resident' + entry
     if train:
         acts, gh_n, h_prev = (empty(t_len, rows, g3),
                               empty(t_len, rows, hdim),
@@ -361,19 +476,19 @@ def _launch(gates_x, w, n_dir, mask, h0, train=False):
         _build.check(lib, err,
                      f'gru_cell_scan{entry} training forward kernel')
         gru_cell_scan.launches['fwd_train' + entry] += 1
-        gru_cell_scan.routes[route] += 1
+        gru_cell_scan.routes['fwd_train' + entry][route] += 1
         return out, acts, gh_n, h_prev, h_t
     err = getattr(lib, 'gru_cell_scan_fwd' + suffix)(
         *inputs, h_t.data_ptr(), *tail)
     _build.check(lib, err, f'gru_cell_scan{entry} kernel')
     gru_cell_scan.launches['fwd' + entry] += 1
-    gru_cell_scan.routes[route] += 1
+    gru_cell_scan.routes['fwd' + entry][route] += 1
     return out, h_t
 
 
 def _launch_bwd(acts, gh_n, h_prev, w, n_dir, mask, d_out, dh_t):
     """Launch the backward kernel of the residuals' stream dtype on the
-    route :func:`resident_bwd_plan` picks for the shape."""
+    route :func:`kernel_route` picks for the shape."""
     t_len, rows, g3 = acts.shape
     hdim = g3 // 3
     entry = _variant(acts.dtype)
@@ -382,15 +497,20 @@ def _launch_bwd(acts, gh_n, h_prev, w, n_dir, mask, d_out, dh_t):
     dh0 = torch.empty_like(dh_t)
     lib = _build.load_library()
     stream, device = _build.stream_and_device(acts)
-    plan = resident_bwd_plan(n_dir, rows // n_dir, hdim,
-                             *device_limits(device),
+    limits = device_limits(device)
+    plan = resident_bwd_plan(n_dir, rows // n_dir, hdim, *limits,
                              elem=element_size(acts.dtype))
+    route = kernel_route('bwd', n_dir, rows // n_dir, hdim, bool(entry),
+                         *limits)
     args = (acts.data_ptr(), gh_n.data_ptr(), h_prev.data_ptr(),
             w.data_ptr(), None if mask is None else mask.data_ptr(),
             d_out.data_ptr(), dh_t.data_ptr(), dgx.data_ptr(),
             dgh.data_ptr(), dh0.data_ptr(), t_len, n_dir, rows // n_dir,
             hdim)
-    if plan is None:
+    if route == 'mma':
+        err = getattr(lib, 'gru_cell_scan_bwd_mma' + entry)(
+            *args, device, stream)
+    elif plan is None:
         route = _route('gru_bwd', n_dir, rows // n_dir, hdim, bool(entry),
                        device)
         wpack = _packed(route, 'gru_bwd', n_dir, hdim, bool(entry),
@@ -399,13 +519,12 @@ def _launch_bwd(acts, gh_n, h_prev, w, n_dir, mask, d_out, dh_t):
             *args[:4], None if wpack is None else wpack.data_ptr(),
             *args[4:], device, stream)
     else:
-        route = 'resident'
         err = getattr(lib, 'gru_cell_scan_bwd_resident' + entry)(
             *args, plan.RB, plan.RS, plan.KS, plan.threads, plan.smem,
             device, stream)
     _build.check(lib, err, f'gru_cell_scan{entry} backward kernel')
     gru_cell_scan.launches['bwd' + entry] += 1
-    gru_cell_scan.bwd_routes[route] += 1
+    gru_cell_scan.routes['bwd' + entry][route] += 1
     return dgx, dgh, dh0
 
 
@@ -464,10 +583,10 @@ def gru_cell_scan(gates_x, w_hh, mask, h0, compute_dtype=None):
         and bfloat16 streams with ``compute_dtype='bfloat16'``; anything
         else raises.  ``gru_cell_scan.launches`` counts the launches per
         kernel (``fwd``, ``fwd_train``, ``bwd``, and ``fwd_bf16``,
-        ``fwd_train_bf16``, ``bwd_bf16``), ``gru_cell_scan.routes`` the
-        forwards' launches per route (``resident``, ``cooperative``,
-        ``streamed``) and
-        ``gru_cell_scan.bwd_routes`` the backward's.
+        ``fwd_train_bf16``, ``bwd_bf16``), ``gru_cell_scan.routes`` them
+        by kernel and route (``routes['bwd_bf16']['mma']``; the routes
+        ``resident``, ``cooperative``, ``streamed`` and, for the bf16
+        training forward and backward, ``mma``: :func:`kernel_route`).
     """
     w, n_dir = _norm_w(w_hh)
     if gates_x.device.type == 'cpu':
@@ -485,5 +604,6 @@ def gru_cell_scan(gates_x, w_hh, mask, h0, compute_dtype=None):
 
 gru_cell_scan.launches = {'fwd': 0, 'fwd_train': 0, 'bwd': 0,
                           'fwd_bf16': 0, 'fwd_train_bf16': 0, 'bwd_bf16': 0}
-gru_cell_scan.routes = {'resident': 0, 'cooperative': 0, 'streamed': 0}
-gru_cell_scan.bwd_routes = {'resident': 0, 'cooperative': 0, 'streamed': 0}
+gru_cell_scan.routes = {
+    name: {'resident': 0, 'cooperative': 0, 'streamed': 0, 'mma': 0}
+    for name in gru_cell_scan.launches}

@@ -9,8 +9,8 @@ key tiles, gradients within one unit plus 1e-5 of each one's largest
 entry, at most 1% of either other, the gradients' by more than that),
 with the control (logits, P and dS rounded to bf16) failing them;
 the bf16 GRU kernels to theirs at the LSTM's limits, at ``chip_smoke.py``
-phase 28's shapes and the bf16 resident routes' widest H and one above,
-with the control (float32 products) failing them.  The GRU
+phase 28's shapes, the bf16 resident routes' widest H and one above and
+the ``mma`` route's, with the control (float32 products) failing them.  The GRU
 forwards' resident and
 cooperative routes are each held to plain at the shapes that pick them,
 with the route read from ``gru_cell_scan.routes``.  The LSTM training kernels (forward
@@ -698,13 +698,14 @@ def test_gru_forwards_take_their_route_and_match_plain(cuda, name):
         n_dir, batch, hdim,
         *gru_kernels.device_limits(torch.cuda.current_device()))
     assert (plan is not None) == (route == 'resident')
-    before = dict(gru_cell_scan.routes)
+    before = {k: dict(gru_cell_scan.routes[k]) for k in ('fwd', 'fwd_train')}
     got = [gru_cell_scan(*args), gru_cell_scan(*args)]
     got_train = [gru_kernels._launch(gx, w, n_dir, mask, h0, train=True)
                  for _ in range(2)]
     torch.cuda.synchronize()
-    assert gru_cell_scan.routes[route] == before[route] + 4
-    assert sum(gru_cell_scan.routes.values()) == sum(before.values()) + 4
+    for kernel, counts in before.items():
+        assert gru_cell_scan.routes[kernel] == {**counts,
+                                                route: counts[route] + 2}
     for want, runs in ((gru_cell_scan_plain(*args), got),
                        (gru_cell_scan_train_plain(*args), got_train)):
         for g, again, e in zip(*runs, want):
@@ -731,7 +732,7 @@ def test_gru_resident_launch_that_fails_raises(cuda):
     lib = _build.load_library()
     stream, device = _build.stream_and_device(gx)
     out, h_t = torch.empty(3, 520, 128, device=cuda), torch.empty_like(h0)
-    before = dict(gru_cell_scan.routes)
+    before = {k: dict(v) for k, v in gru_cell_scan.routes.items()}
     err = lib.gru_cell_scan_fwd_resident(
         gx.data_ptr(), w.data_ptr(), None, h0.data_ptr(), out.data_ptr(),
         h_t.data_ptr(), 3, 2, 260, 128, plan.RB, plan.RS, plan.KS,
@@ -767,8 +768,8 @@ def test_gru_backward_takes_its_route_and_matches_plain(cuda, name):
     """The backward on the route its shape picks, against the plain
     version on the same residuals (1e-5: the same float32 arithmetic, sums
     in another order), the same bits on a second run, the route read from
-    ``gru_cell_scan.bwd_routes``; the Function against autograd through the
-    plain forward (5e-5 relative)."""
+    ``gru_cell_scan.routes['bwd']``; the Function against autograd through
+    the plain forward (5e-5 relative)."""
     n_dir, batch, hdim, t_len, kind, scale, route = GRU_BWD_ROUTE_CASES[name]
     args, cotangents = _gru_route_inputs(cuda, n_dir, batch, hdim, t_len,
                                          kind, scale)
@@ -778,14 +779,13 @@ def test_gru_backward_takes_its_route_and_matches_plain(cuda, name):
         *gru_kernels.device_limits(torch.cuda.current_device()))
     assert (plan is not None) == (route == 'resident')
     _, acts, gh_n, h_prev, _ = gru_cell_scan_train_plain(*args)
-    before = dict(gru_cell_scan.bwd_routes)
+    before = dict(gru_cell_scan.routes['bwd'])
     runs = [gru_kernels._launch_bwd(acts, gh_n, h_prev, w, n_dir, mask,
                                     *cotangents) for _ in range(2)]
     want = gru_cell_scan_bwd_plain(acts, gh_n, h_prev, w, mask, *cotangents)
     torch.cuda.synchronize()
-    assert gru_cell_scan.bwd_routes[route] == before[route] + 2
-    assert (sum(gru_cell_scan.bwd_routes.values())
-            == sum(before.values()) + 2)
+    assert gru_cell_scan.routes['bwd'] == {**before,
+                                           route: before[route] + 2}
     for g, again, e in zip(*runs, want):  # dgates_x, dgh, dh0
         torch.testing.assert_close(g, e, atol=1e-5, rtol=0)
         assert torch.equal(g, again)
@@ -795,9 +795,9 @@ def test_gru_backward_takes_its_route_and_matches_plain(cuda, name):
         outs = fn(leaves[0], leaves[1], mask, leaves[2])
         return torch.autograd.grad(outs, leaves, cotangents)
 
-    before = dict(gru_cell_scan.bwd_routes)
+    before = dict(gru_cell_scan.routes['bwd'])
     got = grads(gru_cell_scan)
-    assert gru_cell_scan.bwd_routes[route] == before[route] + 1
+    assert gru_cell_scan.routes['bwd'][route] == before[route] + 1
     for g, e in zip(got, grads(gru_cell_scan_plain)):
         scale_e = float(e.abs().max()) + 1e-12
         assert float((g - e).abs().max()) / scale_e <= 5e-5
@@ -1935,24 +1935,29 @@ def test_lstm_kernels_refuse_mixed_streams_and_products(cuda):
                        compute_dtype='bfloat16')
 
 
+GRU_BF16_LIMIT_NAMES = ['widest resident forward', 'one above it',
+                        'widest resident backward', 'one above it too',
+                        'widest mma training forward and backward',
+                        'one above the widest mma']
+
+
 @pytest.mark.parametrize('shape', [s[0] for s in GRU_BF16_SHAPES]
-                         + ['widest resident forward', 'one above it',
-                            'widest resident backward', 'one above it too'])
+                         + GRU_BF16_LIMIT_NAMES)
 def test_gru_bf16_kernels_match_plain(cuda, shape):
     """The three bf16 GRU kernels against their plain bf16 versions at
-    ``chip_smoke.py`` phase 28's shapes and the bf16 resident routes'
-    widest H and one above (read from the planners at the card's limits),
-    on the route the planners pick, read from ``gru_cell_scan.routes`` and
-    ``bwd_routes``; the control with float32 products must fail the
+    ``chip_smoke.py`` phase 28's shapes, the bf16 resident routes' widest
+    H and one above, and the ``mma`` route's widest H and one above (read
+    from the planners at the card's limits), on the route the planners
+    pick, read from ``gru_cell_scan.routes`` (on ``mma`` the card's plan
+    the mirror's); the control with float32 products must fail the
     limits (``chip_smoke.gru_bf16_case`` raises otherwise)."""
     limit_shapes, _ = gru_bf16_limit_shapes()
     shapes = {s[0]: s for s in GRU_BF16_SHAPES}
-    shapes.update(zip(['widest resident forward', 'one above it',
-                       'widest resident backward', 'one above it too'],
-                      limit_shapes))
+    shapes.update(zip(GRU_BF16_LIMIT_NAMES, limit_shapes))
     rows = gru_bf16_case(*shapes[shape], timed=False)
+    assert rows['fwd']['gru_route'] in {'resident', 'cooperative'}
     assert {row['gru_route'] for row in rows.values()} <= {
-        'resident', 'cooperative'}
+        'resident', 'cooperative', 'mma'}
 
 
 def test_gru_bf16_limit_shapes_take_both_routes(cuda):
@@ -1965,8 +1970,11 @@ def test_gru_bf16_limit_shapes_take_both_routes(cuda):
                                                 elem=2) is not None
                   for _, _, batch, hdim, _, n_dir, _ in limit_shapes]
     assert fwd_routes[:2] == [True, False]
-    assert bwd_routes[2:] == [True, False]
+    assert bwd_routes[2:4] == [True, False]
     assert widest['fwd'] > 138 and widest['bwd'] > 137
+    mma = [gru_kernels.kernel_route('bwd', n_dir, batch, hdim, True, *limits)
+           for _, _, batch, hdim, _, n_dir, _ in limit_shapes[4:]]
+    assert mma == ['mma', 'resident'] and widest['mma'] == 128
 
 
 def test_gru_bf16_function_gives_bf16_dgates_and_float32_dw(cuda):
