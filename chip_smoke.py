@@ -272,9 +272,13 @@ Phases, one line each:
     launch), and a timed step at 4 x 16000 and 4 x 32000 by stage and on
     the host clock; masters float32.
 28. the three bf16 GRU kernels (bf16 streams, bf16 products summed in
-    float32; the training forward and the backward on their ``mma`` route,
-    ``W_hh`` in registers as ``mma.sync`` operands, where the bf16
-    resident plan exists and H <= 128, the lean forward resident) vs
+    float32; all three on their ``mma`` route, ``W_hh`` in registers as
+    ``mma.sync`` operands, where the bf16 resident plan exists and H <=
+    128, the lean forward's ``out`` and ``h_T`` there bit for bit the
+    training forward's; above, the lean forward on its ``cluster`` route
+    to the planner's reach, a cluster's CTAs sharing bf16(h) through
+    distributed shared memory, the card's plan the mirror
+    ``gru.cluster_plan``'s, also at H = 160, the reach and one above) vs
     their plain bf16 versions at phase 23's limits at every shape a recipe
     launches (the DPRNN's intra and inter, (500, 32, 600) ragged, the
     classifier's (66, 8, 64) and (503, 16, 256) one direction), at H = 12
@@ -287,10 +291,11 @@ Phases, one line each:
     the same bits twice; the plain version with float32 products must
     exceed the share; the first five timed beside the float32 kernels,
     plain, a bf16 ``torch.nn.GRU`` layer (cuDNN) and the bound; the widest
-    ``mma`` H printed; then the float32 GRU kernels' and the lean bf16
-    forward's digests on fixed inputs at phase 8's shapes (and all three
-    bf16 kernels' at H = 600 and 256; ``gru_f32_digests`` takes a
-    checkout's root, so parent and change compare in one call).
+    ``mma`` and ``cluster`` H printed; then the float32 GRU kernels', the
+    lean bf16 forward's and the bf16 training forward's and backward's
+    digests on fixed inputs at phase 8's shapes and phase 31's 2 x 2048
+    layer (``gru_f32_digests`` takes a checkout's root, so parent and
+    change compare in one call).
 29. the recipe's ``dprnn`` with ``bgru`` chunk RNNs at full width under
     ``precision='bfloat16'`` after ``set_rnn_backend(trainer.model,
     'pallas', compute_dtype='bfloat16')``, beside the policy alone and
@@ -300,14 +305,15 @@ Phases, one line each:
     x 16000 and 4 x 32000 by stage and on the host clock, the card's busy
     time a step (``torch.profiler``), masters float32; then 4 requests
     through the tasnet recipe's ``evaluate_example`` on the lean bf16
-    forward.
+    forward (the ``mma`` route).
 30. the speaker classifier under ``precision='bfloat16'`` with a bf16 GRU
     (``set_rnn_backend``) and the float32 ``fused_logmel`` in front: the
-    recipe's classifier (64 units: the training forward and backward on
-    the ``mma`` route, the lean forward resident) on its 8 x 8000
-    batches and the class defaults (256 units, the cooperative route) on
-    16 x 64000, each 20 steps beside float32 from the same start, launch
-    counts, a timed step, and requests through ``evaluate_batch``.
+    recipe's classifier (64 units: all three bf16 kernels on the ``mma``
+    route) on its 8 x 8000 batches and the class defaults (256 units: the
+    training forward and backward on the cooperative route, the served
+    lean forward on ``cluster``) on 16 x 64000, each 20 steps beside
+    float32 from the same start, launch counts, a timed step, and requests
+    through ``evaluate_batch``.
 31. the geometries of the reference's kernels that the card refused
     before, each against its plain version: LSTM layers of 2 x 1024
     (float32) and 2 x 1536 (bf16), GRU layers of 2 x 1024 and 2 x 2048
@@ -4607,8 +4613,9 @@ GRU_BF16_TIMED = 5          # the first five shapes are timed
 def gru_bf16_limit_shapes():
     """The shapes at the bf16 resident routes' widest H on this card and
     one above (forwards and backward; both directions; the forward's limit
-    under prefix padding), then at the training forward's and backward's
-    ``mma`` route's widest H and one above, with the limits."""
+    under prefix padding), then at the ``mma`` route's widest H and one
+    above (the lean forward's cluster route's narrowest), at H = 160 and
+    at the cluster route's widest H and one above, with the limits."""
     limits = gru_kernels.device_limits(torch.cuda.current_device())
 
     def widest(plan, **kwargs):
@@ -4619,6 +4626,8 @@ def gru_bf16_limit_shapes():
                 widest(gru_kernels.resident_bwd_plan, elem=2))
     mma = min(widest(functools.partial(gru_kernels.mma_plan, kernel))
               for kernel in ('fwd_train', 'bwd'))
+    reach = max(h for h in range(1, 512)
+                if gru_kernels.cluster_shape(h, limits[1]) is not None)
     shapes = [(f'H={fwd} T=30 D*B=8 prefix (the widest resident forward)',
                30, 4, fwd, 'prefix', 2, 2 * fwd),
               (f'H={fwd + 1} T=30 D*B=3 one direction', 30, 3, fwd + 1,
@@ -4629,16 +4638,27 @@ def gru_bf16_limit_shapes():
                2 * bwd),
               (f'H={mma} T=30 D*B=18 (the widest mma training forward and '
                f'backward)', 30, 9, mma, 'ragged', 2, 2 * mma),
-              (f'H={mma + 1} T=30 D*B=18', 30, 9, mma + 1, 'ragged', 2,
-               2 * mma)]
-    return shapes, {'fwd': fwd, 'bwd': bwd, 'mma': mma}
+              (f'H={mma + 1} T=30 D*B=18 (the narrowest lean cluster)', 30,
+               9, mma + 1, 'ragged', 2, 2 * mma),
+              ('H=160 T=60 D*B=16 one direction', 60, 16, 160, 'ragged', 1,
+               320),
+              (f'H={reach} T=30 D*B=18 (the widest lean cluster)', 30, 9,
+               reach, 'ragged', 2, 2 * reach),
+              (f'H={reach + 1} T=30 D*B=3 one direction', 30, 3, reach + 1,
+               'ragged', 1, 2 * reach)]
+    return shapes, {'fwd': fwd, 'bwd': bwd, 'mma': mma, 'cluster': reach}
 
 
 def gru_bf16_case(label, t_len, batch, hdim, kind, n_dir, in_size, timed):
     """The three bf16 GRU kernels at one shape: agreement with plain, the
     control, the routes (``kernel_route``; on the ``mma`` route the card's
-    plan equal to the mirror ``gru.mma_plan``), the same bits twice; timed
-    beside the float32 kernels, plain, cuDNN in bf16 and the bound."""
+    plan equal to the mirror ``gru.mma_plan``, the lean forward's there
+    the training forward's; on the lean forward's ``cluster`` route the
+    card's plan the mirror ``gru.cluster_plan``'s at the card's count of
+    co-resident clusters), the lean forward's ``out`` and ``h_T`` bit for
+    bit the training forward's where both take ``mma``, the same bits
+    twice; timed beside the float32 kernels, plain, cuDNN in bf16 and the
+    bound."""
     args, cot = recurrence_inputs(t_len, batch, hdim, kind, gates=3,
                                   directions=n_dir)
     gx, w, mask, h0 = args
@@ -4653,14 +4673,24 @@ def gru_bf16_case(label, t_len, batch, hdim, kind, n_dir, in_size, timed):
                                             *limits) or 'cooperative'
              for name in ('fwd', 'fwd_train', 'bwd')}
     plans = {}
-    for name in ('fwd_train', 'bwd'):
-        if route[name] != 'mma':
+    for name in ('fwd', 'fwd_train', 'bwd'):
+        if route[name] == 'mma':
+            # one forward plan
+            plan_kernel = 'fwd_train' if name == 'fwd' else name
+            plans[name] = gru_kernels.mma_plan(plan_kernel, n_dir, batch,
+                                               hdim, *limits)
+            card = gru_kernels.device_mma_plan(plan_kernel, n_dir, batch,
+                                               hdim, device)
+        elif route[name] == 'cluster':
+            card, clusters = gru_kernels.device_cluster_plan(
+                n_dir, batch, hdim, device)
+            plans[name] = gru_kernels.cluster_plan(n_dir, batch, hdim,
+                                                   limits[1], clusters)
+        else:
             continue
-        plans[name] = gru_kernels.mma_plan(name, n_dir, batch, hdim, *limits)
-        card = gru_kernels.device_mma_plan(name, n_dir, batch, hdim, device)
         if card != plans[name]:
-            fail(f'gru bf16 {name} at {label}: the card\'s mma plan {card} '
-                 f'is not the mirror\'s {plans[name]}')
+            fail(f'gru bf16 {name} at {label}: the card\'s {route[name]} '
+                 f'plan {card} is not the mirror\'s {plans[name]}')
 
     def fwd():
         return gru_cell_scan(*args16, compute_dtype='bfloat16')
@@ -4694,6 +4724,16 @@ def gru_bf16_case(label, t_len, batch, hdim, kind, n_dir, in_size, timed):
         if not all(torch.equal(a, b) for a, b in zip(got[name], again[name])):
             fail(f'two bf16 gru {name} runs at {label} differ')
     del again
+    if route['fwd'] == route['fwd_train'] == 'mma':
+        # one route, one arithmetic: the lean forward's out and h_T are the
+        # training forward's
+        lean, train = got['fwd'], got['fwd_train']
+        if not (torch.equal(lean[0], train[0])
+                and torch.equal(lean[1], train[4])):
+            fail(f'gru bf16 at {label}: the lean forward\'s out or h_T on '
+                 f'mma differ from the training forward\'s')
+        print(f'phase 28 gru bf16 {label}: the lean forward\'s out and h_T '
+              f'on mma equal the training forward\'s bit for bit')
     want = {'fwd': gru_cell_scan_plain(*args16, 'bfloat16'),
             'fwd_train': want_train,
             'bwd': gru_cell_scan_bwd_plain(*bwd_in, 'bfloat16')}
@@ -4742,8 +4782,9 @@ def gru_bf16_case(label, t_len, batch, hdim, kind, n_dir, in_size, timed):
                'share_differing': share, 'state_err': state_err,
                'control_share': control_share, 'gru_route': route[name]}
         if name in plans:
-            row['mma_plan'] = plans[name]._asdict()
-            shown += f'; plan {row["mma_plan"]} (the card\'s, the mirror\'s)'
+            row[f'{route[name]}_plan'] = plans[name]._asdict()
+            shown += (f'; plan {plans[name]._asdict()} (the card\'s, the '
+                      f'mirror\'s)')
         if timed:
             ms = cuda_ms(kernel[name], iters=10)
             f32_ms = cuda_ms(f32[name], iters=10)
@@ -4770,11 +4811,11 @@ def gru_bf16_case(label, t_len, batch, hdim, kind, n_dir, in_size, timed):
 
 
 # the float32 GRU kernels' outputs on fixed inputs, at phase 8's five
-# shapes: lean forward, training forward and backward; beside them the lean
-# bf16 forward's (' bf16 lean') and, where H is above the mma route's 128,
-# all three bf16 kernels' (' bf16'); run in a process of its own from a
-# checkout's root, so that two checkouts' kernels can be compared
-# (``python3 -c "import chip_smoke as c;
+# shapes and phase 31's 2 x 2048 layer: lean forward, training forward and
+# backward; beside them the lean bf16 forward's (' bf16 lean') and the bf16
+# training forward's and backward's (' bf16 training'); run in a process of
+# its own from a checkout's root, so that two checkouts' kernels can be
+# compared (``python3 -c "import chip_smoke as c;
 # print(c.gru_f32_digests('<checkout>'))"``)
 GRU_DIGEST_CODE = r"""
 import hashlib, json, sys
@@ -4797,7 +4838,7 @@ for label, t_len, batch, hdim, n_dir in json.loads(sys.argv[1]):
     h0 = put(rng.uniform(-0.1, 0.1, (rows, hdim)))
     d_out = put(rng.uniform(-1, 1, (t_len, rows, hdim)))
     dh = put(rng.uniform(-1, 1, (rows, hdim)))
-    digest, lean16, all16 = (hashlib.sha256() for _ in range(3))
+    digest, lean16, train16 = (hashlib.sha256() for _ in range(3))
     for m in (None, put(mask)):
         lean = gru.gru_cell_scan(gx, w, m, h0)
         train = gru._launch(gx, w, n_dir, m, h0, train=True)
@@ -4808,28 +4849,29 @@ for label, t_len, batch, hdim, n_dir in json.loads(sys.argv[1]):
         lean = gru.gru_cell_scan(gx16, w, m, h0, compute_dtype='bfloat16')
         for t in lean:
             lean16.update(raw(t))
-        if hdim > 128:
-            train = gru._launch(gx16, w, n_dir, m, h0, train=True)
-            bwd = gru._launch_bwd(*train[1:4], w, n_dir, m,
-                                  d_out.bfloat16(), dh)
-            for t in (*lean, *train, *bwd):
-                all16.update(raw(t))
+        train = gru._launch(gx16, w, n_dir, m, h0, train=True)
+        bwd = gru._launch_bwd(*train[1:4], w, n_dir, m, d_out.bfloat16(),
+                              dh)
+        for t in (*train, *bwd):
+            train16.update(raw(t))
     out[label] = digest.hexdigest()[:16]
     out[label + ' bf16 lean'] = lean16.hexdigest()[:16]
-    if hdim > 128:
-        out[label + ' bf16'] = all16.hexdigest()[:16]
+    out[label + ' bf16 training'] = train16.hexdigest()[:16]
 print(json.dumps(out))
 """
 
 
 def gru_f32_digests(root):
     """{shape: digest} of the float32 GRU kernels of the checkout at
-    ``root``, and of its lean bf16 forward and (H above 128) all three
-    bf16 kernels (see GRU_DIGEST_CODE)."""
+    ``root``, and of its lean bf16 forward and its bf16 training forward
+    and backward (see GRU_DIGEST_CODE)."""
     shapes = [(label, t_len, batch, hdim, 2)
               for label, t_len, batch, hdim, _ in RECURRENCE_SHAPES]
     shapes += [(label, t_len, batch, hdim, 1)
                for label, t_len, batch, hdim, _, _ in CLASSIFIER_GRU_SHAPES]
+    shapes += [(label, t_len, batch, hdim, 2)
+               for label, kind, t_len, batch, hdim, bf16, _
+               in WIDE_RECURRENCES if kind == 'gru' and bf16]
     proc = subprocess.run(
         [sys.executable, '-c', GRU_DIGEST_CODE, json.dumps(shapes)],
         cwd=root, capture_output=True, text=True, timeout=600)
@@ -4846,16 +4888,17 @@ def phase_gru_bf16_kernels():
     limit_shapes, widest = gru_bf16_limit_shapes()
     print(f'phase 28 the bf16 resident routes on this card reach H = '
           f'{widest["fwd"]} (forwards) and H = {widest["bwd"]} (backward); '
-          f'the mma route of the training forward and the backward H = '
-          f'{widest["mma"]} (GRU_MMA_MAX_H)')
+          f'the mma route of the three kernels H = {widest["mma"]} '
+          f'(GRU_MMA_MAX_H); the lean forward\'s cluster route H = '
+          f'{gru_kernels.GRU_CLUSTER_MIN_H} to {widest["cluster"]}')
     rows = {}
     for i, shape in enumerate(GRU_BF16_SHAPES + limit_shapes):
         rows[shape[0]] = gru_bf16_case(*shape, timed=i < GRU_BF16_TIMED)
         torch.cuda.empty_cache()
     digests = gru_f32_digests(Path(__file__).resolve().parent)
     print(f'phase 28 GRU kernels\' digests (float32: lean, training '
-          f'forward, backward; bf16 lean; bf16 all three above H = 128; '
-          f'unmasked and ragged): {json.dumps(digests)}; '
+          f'forward, backward; bf16 lean; bf16 training forward and '
+          f'backward; unmasked and ragged): {json.dumps(digests)}; '
           f'{time.perf_counter() - start:.1f} s')
     return rows
 
@@ -4970,8 +5013,9 @@ def phase_dprnn_bgru_bf16():
 
 def serve_bf16_tasnet(model):
     """4 requests through the tasnet recipe's ``evaluate_example`` with the
-    GRUs at ``compute_dtype='bfloat16'``: the lean bf16 forward, 12
-    launches a request, no float32 GRU launch; SI-SDR finite."""
+    GRUs at ``compute_dtype='bfloat16'``: the lean bf16 forward on its
+    ``mma`` route, 12 launches a request, no float32 GRU launch; SI-SDR
+    finite."""
     examples = list(tas_data.synthetic_database(num_examples=4, seed=2))
     reset_launches()
     latencies = []
@@ -4982,7 +5026,7 @@ def serve_bf16_tasnet(model):
         if not np.isfinite(metrics['output_si_sdr']).all():
             fail(f'bad metrics from the bf16-GRU DPRNN: {metrics}')
     launches = dict(gru_cell_scan.launches)
-    routes = check_gru_routes('phase 29 serving', 'resident')
+    routes = check_gru_routes('phase 29 serving', 'resident', fwd_bf16='mma')
     print(f'phase 29 the bf16-GRU model served {len(examples)} requests, '
           f'latency ms {[round(x, 3) for x in latencies]}, launches '
           f'{launches}, by route {routes}')
@@ -4993,16 +5037,16 @@ def serve_bf16_tasnet(model):
 
 
 def speaker_runs(label, make_trainer, batch, steps, route, requests,
-                 train_route=None):
+                 train_route, serve_route):
     """Phase 30 for one classifier: ``make_trainer(precision)`` from seed
     0, once under the bf16 policy with the GRU at
     ``compute_dtype='bfloat16'`` and once in float32, ``steps`` losses on
     ``batch`` each; the bf16 run's launches (fused_logmel and the bf16 GRU
     kernels: the training forward and backward on ``train_route``, the
-    others on ``route``; no float32 GRU launch), a timed step, then
-    ``requests`` through ``evaluate_batch``.  Returns the bf16 kernels'
+    float32 ones on ``route``; no float32 GRU launch in the bf16 run), a
+    timed step, then ``requests`` through ``evaluate_batch`` (the lean
+    bf16 forward on ``serve_route``).  Returns the bf16 kernels'
     launches."""
-    train_route = train_route or route
     losses, main = {}, {}
     for precision in ('bfloat16', None):
         torch.manual_seed(0)
@@ -5047,7 +5091,7 @@ def speaker_runs(label, make_trainer, batch, steps, route, requests,
                 latencies.append((time.perf_counter() - begin) * 1e3)
             served = dict(gru_cell_scan.launches)
             served_routes = check_gru_routes(f'phase 30 {label} served',
-                                             route)
+                                             route, fwd_bf16=serve_route)
             confidences = [v['confidence'] for v in results.values()]
             print(f'phase 30 {label}: {len(requests)} requests through '
                   f'evaluate_batch, latency ms '
@@ -5074,12 +5118,12 @@ def speaker_runs(label, make_trainer, batch, steps, route, requests,
 def phase_speaker_bf16():
     """Phase 30: the speaker classifier under ``precision='bfloat16'`` with
     a bf16 GRU (``set_rnn_backend``) and the float32 ``fused_logmel`` in
-    front: the recipe's classifier (64 units: the training forward and
-    backward on the mma route, the lean forward resident) on its
-    batches of 8 x 8000 samples, and the class defaults (251 speakers, (32,
-    64) channels, 256 units: the cooperative route) on 16 x 64000, each
-    beside float32 from the same start.  Returns the bf16 kernels'
-    launches."""
+    front: the recipe's classifier (64 units: the three bf16 kernels on
+    the mma route) on its batches of 8 x 8000 samples, and the class
+    defaults (251 speakers, (32, 64) channels, 256 units: the training
+    forward and backward on the cooperative route, the served lean forward
+    on the cluster route) on 16 x 64000, each beside float32 from the same
+    start.  Returns the bf16 kernels' launches."""
     start = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         train_ds, dev_ds = spk_train.synthetic_split(8)
@@ -5101,13 +5145,15 @@ def phase_speaker_bf16():
                 Adam(gradient_clipping=10.0, lr=3e-4), precision=precision)
 
         main = speaker_runs('recipe (64 units)', recipe, train[0], 20,
-                            'resident', dev, train_route='mma')
+                            'resident', dev, train_route='mma',
+                            serve_route='mma')
         batch = speaker_batch(16, 64000, 251)
         requests = [dict(batch, example_id=[f'request{i}_{j}'
                                             for j in range(16)])
                     for i in range(2)]
         full = speaker_runs('class defaults (256 units)', defaults, batch,
-                            20, 'cooperative', requests)
+                            20, 'cooperative', requests,
+                            train_route='cooperative', serve_route='cluster')
     print(f'phase 30 {time.perf_counter() - start:.1f} s')
     torch.cuda.empty_cache()
     return {name: main[name] + full[name] for name in main}
@@ -5808,10 +5854,13 @@ def main():
         if sum(GRU_BF16_MAIN_ROUTES[name].values()) != n:
             fail(f'the gru {name} kernel\'s launches by route '
                  f'{GRU_BF16_MAIN_ROUTES[name]} do not add up to its {n}')
-    for name in ('fwd_train_bf16', 'bwd_bf16'):
+    for name in ('fwd_bf16', 'fwd_train_bf16', 'bwd_bf16'):
         if GRU_BF16_MAIN_ROUTES[name]['mma'] == 0:
             fail(f'no gru {name} launch of phases 29 and 30 took the mma '
                  f'route: {GRU_BF16_MAIN_ROUTES[name]}')
+    if GRU_BF16_MAIN_ROUTES['fwd_bf16']['cluster'] == 0:
+        fail(f'no lean bf16 gru launch of phase 30 took the cluster route: '
+             f'{GRU_BF16_MAIN_ROUTES["fwd_bf16"]}')
     for name in ('fwd_train_bf16', 'bwd_bf16'):
         if attention_bf16_launches[name] == 0:
             fail(f'the bf16 SepFormer step never launched the attention '
@@ -5940,9 +5989,14 @@ def main():
          'launches_by_route': dict(GRU_BWD_MAIN_ROUTES), **gru_rows['bwd']},
         {'name': 'gru_cell_scan_bf16', 'route': 'cuda',
          'source': 'padertorch_tpu_torch/csrc/gru_cell_scan.cu',
+         'sources': ['padertorch_tpu_torch/csrc/gru_cell_scan.cu',
+                     'padertorch_tpu_torch/csrc/gru_cell_scan_cluster.cu'],
          'replaces': 'padertorch_tpu/ops/pallas/gru.py:182',
          'launches': gru_bf16_launches['fwd_bf16'],
          'launches_by_route': GRU_BF16_MAIN_ROUTES['fwd_bf16'],
+         'gru_routes': 'mma: bf16 mma.sync, W_hh in registers (H <= 128); '
+                       'cluster: a thread-block cluster, h shared through '
+                       'distributed shared memory (H above 128)',
          **gru_bf16_rows['fwd']},
         {'name': 'gru_cell_scan_train_bf16', 'route': 'cuda',
          'source': 'padertorch_tpu_torch/csrc/gru_cell_scan.cu',

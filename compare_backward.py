@@ -16,6 +16,7 @@ that git ignores); alternate them, as in parent, change, change, parent:
     python3 compare_backward.py <checkout> gru-bf16
     python3 compare_backward.py <checkout> gru-bf16-fwd
     python3 compare_backward.py <checkout> bgru-step
+    python3 compare_backward.py <checkout> wavenet-digests
 
 ``lstm``: ``lstm_cell_scan``'s backward kernel alone at the DPRNN-TasNet's
 intra (T=100, 260 rows per direction, H=128) and inter (T=65, 400 rows,
@@ -69,13 +70,22 @@ dgx, dgh and dh0, and the route (``gru.kernel_route`` where the checkout
 has it).
 ``gru-bf16-fwd``: the same for the two bf16 forwards (the lean one, as a
 served request runs it, and the training one) beside the float32 training
-forward.  ``bgru-step``: the tasnet recipe's ``dprnn`` with ``bgru``
+forward; then the lean one alone at T=503, 16 rows, one direction, H =
+160 and 192 (``GRU_BF16_LEAN_SHAPES``: on the checkout's own route,
+which was the resident one before the cluster route took these widths).
+``bgru-step``: the tasnet recipe's ``dprnn`` with ``bgru``
 chunk RNNs at full width under ``precision='bfloat16'`` after
 ``set_rnn_backend(..., compute_dtype='bfloat16')`` (``chip_smoke.py``
 phase 29's bf16 run) at B=4 x 16000 from seed 0: the median host clock of
 20 training steps, each ended by a synchronize, and from ``torch.profiler``
 over 5 more the card's busy time a step and the device time a step of the
-GRU kernels (the kernels whose name holds ``gru_``).  Prints the card's
+GRU kernels (the kernels whose name holds ``gru_``).  ``wavenet-digests``:
+a digest of ``wavenet_sample``'s greedy indices and teacher-forced
+indices and logits on fixed inputs at full width (16 layers, dilations
+1 ... 128 twice, R=64, S=O=256, 200 steps) at 1, 8, 20, 40 and 132 rows
+(clusters of 16, 8, 4 and 2 CTAs a row, and one block a row, on an
+H100), so that two checkouts whose sampler should agree bit for bit
+print the same digests.  Prints the card's
 name and power limit first; exits non-zero without a card.
 """
 import hashlib
@@ -400,6 +410,11 @@ GRU_BF16_SHAPES = [
      1),
     ('classifier defaults T=503 D*B=16 H=256 one direction', 503, 16, 256,
      'ragged', 1)]
+# widths of the lean forward alone: the narrow end of its cluster route,
+# where an older checkout's lean forward ran the resident route
+GRU_BF16_LEAN_SHAPES = [
+    ('T=503 D*B=16 H=160 one direction', 503, 16, 160, 'ragged', 1),
+    ('T=503 D*B=16 H=192 one direction', 503, 16, 192, 'ragged', 1)]
 
 
 def gru_bf16(gk, part):
@@ -455,6 +470,61 @@ def gru_bf16(gk, part):
         print(f'gru {f32[0]} {label}: {f32_ms:.4f} ms, from graph replays '
               f'{graph_ms(f32[1])}', flush=True)
         torch.cuda.empty_cache()
+    if part != 'fwd':
+        return
+    for label, t_len, batch, hdim, kind, n_dir in GRU_BF16_LEAN_SHAPES:
+        args, _ = chip_smoke.recurrence_inputs(t_len, batch, hdim, kind,
+                                               gates=3, directions=n_dir)
+        gx, w, mask, h0 = args
+        gx16 = gx.bfloat16()
+        plain = gk.gru_cell_scan_plain(gx16, w, mask, h0, 'bfloat16')
+        route = gk.kernel_route('fwd', n_dir, batch, hdim, True,
+                                *limits) or 'cooperative'
+
+        def kernel():
+            return gk.gru_cell_scan(gx16, w, mask, h0,
+                                    compute_dtype='bfloat16')
+
+        with torch.no_grad():
+            got = kernel()
+            err = max(float((a.float() - b.float()).abs().max())
+                      for a, b in zip(got, plain))
+            ms, windows = median_ms(kernel)
+        print(f'gru bf16 lean {label}: {ms:.4f} ms (windows '
+              f'{[round(x, 4) for x in windows]}), route {route}, max '
+              f'|kernel - plain| {err:.3e}, digest {sha256(got)[:16]}',
+              flush=True)
+        torch.cuda.empty_cache()
+
+
+def wavenet_digests(wk):
+    """``wavenet-digests``: ``wavenet_sample``'s digests by rows."""
+    n_layers, r, s, o, steps = 16, 64, 256, 256, 200
+    dilations = [2 ** (i % 8) for i in range(n_layers)]
+    rng = np.random.RandomState(7)
+
+    def u(*shape):
+        bound = np.sqrt(3.0 / shape[-2]) if len(shape) > 1 else 0.1
+        return torch.from_numpy(
+            rng.uniform(-bound, bound, shape).astype('float32')).cuda()
+
+    w = {'w_prev': u(n_layers, r, 2 * r), 'w_curr': u(n_layers, r, 2 * r),
+         'b_dil': u(n_layers, 2 * r), 'w_res': u(n_layers - 1, r, r),
+         'b_res': u(n_layers - 1, r), 'w_skip': u(n_layers, r, s),
+         'b_skip': u(n_layers, s), 'w_out': u(s, o), 'w_end': u(o, o),
+         'embed': torch.from_numpy(rng.randn(256, r).astype(
+             'float32')).cuda()}
+    for rows in (1, 8, 20, 40, 132):
+        cond = torch.from_numpy(rng.randn(
+            steps, rows, n_layers, 2 * r).astype('float32')).cuda()
+        forced = torch.from_numpy(rng.randint(0, o, (steps, rows)).astype(
+            'int32')).cuda()
+        with torch.no_grad():
+            greedy = wk.wavenet_sample(cond, w, dilations)
+            idx, logits = wk.wavenet_sample(
+                cond, w, dilations, forced_input=forced, return_logits=True)
+        print(f'wavenet_sample {rows} rows: digest '
+              f'{sha256((greedy, idx, logits))[:16]}', flush=True)
 
 
 def host_us(fn, calls=100):
@@ -563,6 +633,7 @@ def main():
     from padertorch_tpu_torch.ops.kernels import attention as ak
     from padertorch_tpu_torch.ops.kernels import gru as gk
     from padertorch_tpu_torch.ops.kernels import lstm as lk
+    from padertorch_tpu_torch.ops.kernels import wavenet as wk
     _build.load_library()
     print(f'checkout {root}, {part}', flush=True)
     {'lstm': lambda: lstm_backward(lk),
@@ -574,7 +645,8 @@ def main():
      'lstm-bf16-fwd': lambda: lstm_forward_bf16(lk),
      'gru-bf16': lambda: gru_bf16(gk, 'bwd'),
      'gru-bf16-fwd': lambda: gru_bf16(gk, 'fwd'),
-     'bgru-step': bgru_step}[part]()
+     'bgru-step': bgru_step,
+     'wavenet-digests': lambda: wavenet_digests(wk)}[part]()
 
 
 if __name__ == '__main__':

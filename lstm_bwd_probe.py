@@ -12,6 +12,8 @@ other warps), for the ``mma`` route and the FMA grid it replaced.
     python3 lstm_bwd_probe.py forward    # the training forward
     python3 lstm_bwd_probe.py gru-backward
     python3 lstm_bwd_probe.py gru-forward
+    python3 lstm_bwd_probe.py gru-lean
+    python3 lstm_bwd_probe.py gru-cluster
     python3 lstm_bwd_probe.py gru-registers
 
 Builds ``padertorch_tpu_torch/csrc/lstm_cell_scan_bwd.cu`` (or
@@ -42,13 +44,26 @@ direction).  A block runs all its steps alone, so the parts are the
 product (block 0's warp 0: its ``mma`` chunk and partial-sum stores), the
 two syncs (the wait for the block's other warps) and the cell (the
 chunks' sums, the cell, its stores and the next step's loads); no
-exchange.
+exchange.  ``gru-lean`` does the same for the lean bf16 forward on the
+same route (no residual stores; its streams, gx and out, are 8H bytes a
+row and step against the training forward's 18H, which the L2 rule
+counts).
 
-``gru-registers`` compiles both GRU sources with ``-Xptxas -v``, each
-from a file that includes it and adds the instantiation a tile of one
-warp would need at H = 144 (9 k-steps of each gate forward, 27 backward),
-and prints each ``mma`` kernel's registers and spills: the budget behind
-``GRU_MMA_MAX_H``.
+``gru-cluster`` splits a step of the lean bf16 forward's cluster route
+(``gru_cell_scan_cluster.cu``, built the same way, launched on the card's
+plan) at the speaker classifier's class defaults (T=503, 16 rows, H=256,
+one direction), at H = 160 and 192 on the same rows, and at H = 256 on
+2 x 40 rows: the product (block 0's warp 0), the block's one sync, the
+cell (the chunks' sums, the cell, out, the next step's loads and the
+sends of bf16(h_t) to the cluster's CTAs) and the exchange (the wait on
+the block's mbarrier for every CTA's h_t).
+
+``gru-registers`` compiles the three GRU sources of the bf16 forwards'
+and backward's tensor-core routes with ``-Xptxas -v``, each from a file
+that includes it (the ``mma`` sources adding the instantiation a tile of
+one warp would need at H = 144: 9 k-steps of each gate forward, 27
+backward), and prints each ``mma`` and cluster kernel's registers and
+spills: the budget behind ``GRU_MMA_MAX_H`` and ``GRU_CLUSTER_KC``.
 """
 import ctypes
 import subprocess
@@ -182,13 +197,19 @@ def run(lib, mode, entry, args, t_len, per_dir, hdim):
     return float(np.median(windows)), [c / t_len for c in cycles]
 
 
-# the GRU modes: the source, its launcher of the `mma` route and the
-# launcher's pointer arguments, the entry that reads the probes
+# the GRU modes: the source, its launcher (of the `mma` route, or of the
+# cluster route) and the launcher's pointer arguments, the entry that reads
+# the probes, and whether the launcher takes the steps ahead of the L2
+# prefetches
 GRU_MODES = {
     'gru-backward': ('gru_cell_scan_bwd.cu', 'launch_bwd_mma', 10,
-                     'gru_bwd_probe_take'),
+                     'gru_bwd_probe_take', True),
     'gru-forward': ('gru_cell_scan.cu', 'launch_fwd_mma', 9,
-                    'gru_fwd_probe_take'),
+                    'gru_fwd_probe_take', True),
+    'gru-lean': ('gru_cell_scan.cu', 'launch_fwd_mma', 9,
+                 'gru_fwd_probe_take', True),
+    'gru-cluster': ('gru_cell_scan_cluster.cu', 'launch_fwd_cluster', 6,
+                    'gru_cluster_probe_take', False),
 }
 GRU_AHEAD = (0, 1, 2)
 # (label, T, rows per direction, H, mask, directions)
@@ -200,9 +221,15 @@ GRU_SHAPES = [('DPRNN intra T=100 D*B=520 H=128', 100, 260, 128, None, 2),
                2),
               ('classifier recipe T=66 D*B=8 H=64 one direction', 66, 8, 64,
                'ragged', 1)]
+GRU_CLUSTER_SHAPES = [
+    ('classifier defaults T=503 D*B=16 H=256 one direction', 503, 16, 256,
+     'ragged', 1),
+    ('T=503 D*B=16 H=160 one direction', 503, 16, 160, 'ragged', 1),
+    ('T=503 D*B=16 H=192 one direction', 503, 16, 192, 'ragged', 1),
+    ('T=100 D*B=80 H=256', 100, 40, 256, 'ragged', 2)]
 # the instantiations a tile of one warp would need at H = 144
 GRU_WIDE = {
-    'gru_cell_scan.cu': """template __global__ void gru_fwd_mma_kernel<9>(
+    'gru_cell_scan.cu': """template __global__ void gru_fwd_mma_kernel<true, 9>(
     const __nv_bfloat16*, const float*, const float*, const float*,
     __nv_bfloat16*, __nv_bfloat16*, __nv_bfloat16*, __nv_bfloat16*, float*,
     int, int, int, int, int, int, int, int, int);""",
@@ -211,14 +238,15 @@ GRU_WIDE = {
     const float*, const float*, const __nv_bfloat16*, const float*,
     __nv_bfloat16*, __nv_bfloat16*, float*, int, int, int, int, int, int,
     int, int, int);""",
+    'gru_cell_scan_cluster.cu': '',
 }
 
 
 def gru_build(tmp, mode):
-    """The probe build of ``mode``'s source: its ``mma`` launcher behind
-    the entry ``gru_probe_mma(pointers, T, D, Bd, H, device, stream,
-    ahead)``."""
-    source, launcher, pointers, take = GRU_MODES[mode]
+    """The probe build of ``mode``'s source: its launcher behind the entry
+    ``gru_probe_mma(pointers, T, D, Bd, H, device, stream, ahead)``
+    (``ahead`` unused by the cluster route's)."""
+    source, launcher, pointers, take, with_ahead = GRU_MODES[mode]
     unit = Path(tmp) / 'probe.cu'
     unit.write_text(
         f'#include "{CSRC / source}"\n'
@@ -226,7 +254,8 @@ def gru_build(tmp, mode):
         f'int Bd, int H, int device, void* stream, int ahead) {{\n'
         f'    return {launcher}('
         + ', '.join(f'p[{i}]' for i in range(pointers))
-        + ', T, D, Bd, H, device, stream, ahead);\n}\n')
+        + ', T, D, Bd, H, device, stream'
+        + (', ahead' if with_ahead else '') + ');\n}\n')
     path = Path(tmp) / 'libprobe.so'
     subprocess.run(
         ['/usr/local/cuda/bin/nvcc', '-gencode',
@@ -260,6 +289,11 @@ def gru_pointers(mode, t_len, per_dir, hdim, kind, n_dir):
     if mode == 'gru-forward':
         keep = [torch.empty_like(x) for x in (out, acts, gh_n, h_prev, h_t)]
         return keep, [ptr(x) for x in (gx, w, mask, h0, *keep)]
+    if mode in ('gru-lean', 'gru-cluster'):
+        keep = [torch.empty_like(out), torch.empty_like(h_t)]
+        none = [None] * 3 if mode == 'gru-lean' else []
+        return keep, [ptr(x) for x in (gx, w, mask, h0, keep[0], *none,
+                                       keep[1])]
     keep = [torch.empty_like(acts), torch.empty_like(acts),
             torch.empty_like(cot[1])]
     d_out = cot[0].bfloat16()
@@ -268,15 +302,16 @@ def gru_pointers(mode, t_len, per_dir, hdim, kind, n_dir):
 
 
 def gru_main(mode):
-    take = GRU_MODES[mode][3]
+    take, with_ahead = GRU_MODES[mode][3:]
     stream = torch.cuda.current_stream().cuda_stream
     with tempfile.TemporaryDirectory() as tmp:
         lib = gru_build(tmp, mode)
-        for label, t_len, per_dir, hdim, kind, n_dir in GRU_SHAPES:
+        shapes = GRU_CLUSTER_SHAPES if mode == 'gru-cluster' else GRU_SHAPES
+        for label, t_len, per_dir, hdim, kind, n_dir in shapes:
             keep, ptrs = gru_pointers(mode, t_len, per_dir, hdim, kind,
                                       n_dir)
             ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
-            for ahead in GRU_AHEAD:
+            for ahead in GRU_AHEAD if with_ahead else (-1,):
                 def launch():
                     err = lib.gru_probe_mma(
                         ptrs, t_len, n_dir, per_dir, hdim,
@@ -306,13 +341,16 @@ def gru_main(mode):
                 ms = float(np.median(windows))
                 total = sum(per_step)
                 us = ms * 1e3 / t_len
-                print(f'{mode} {label}, L2 prefetch {ahead} ahead: {ms:.4f} ms, '
+                prefetch = (f', L2 prefetch {ahead} ahead' if with_ahead
+                            else '')
+                print(f'{mode} {label}{prefetch}: {ms:.4f} ms, '
                       f'{us:.3f} us a step; '
                       + ', '.join(
                           f'{name} {c:.0f} cycles ({c / total:.1%}, '
                           f'{us * c / total:.3f} us)'
                           for name, c in zip(PARTS, per_step)
-                          if name != 'exchange'), flush=True)
+                          if not with_ahead or name != 'exchange'),
+                      flush=True)
             del keep
             torch.cuda.empty_cache()
 
@@ -336,10 +374,12 @@ def gru_registers():
             if proc.returncode != 0:
                 sys.exit('\n'.join(lines[-40:]))
             for i, line in enumerate(lines):
-                if 'Compiling entry' not in line or 'mma_kernel' not in line:
+                if 'Compiling entry' not in line or not (
+                        'mma_kernel' in line or 'cluster_kernel' in line):
                     continue
                 name = line.split("'")[1]
-                name = name[name.index('gru_'):name.index('EEEv')]
+                name = name[name.index('gru_'):]
+                name = name[:name.index('EEEv' if 'EEEv' in name else 'EPK')]
                 info = [x.split(':', 1)[-1].strip() for x in lines[i + 1:i + 4]
                         if 'Used' in x or 'spill' in x]
                 print(f'{name}: {"; ".join(info)}', flush=True)

@@ -111,7 +111,12 @@
 // A step's gx and mask are loaded as bf16 bits a step ahead (two where a
 // warp holds one k-step: H <= 32), and into L2 GRU_MMA_AHEAD steps ahead
 // where the streams do not stay in L2 anyway (`gru_mma_ahead`).  The lean
-// bf16 forward stays on the resident route.
+// bf16 forward takes the same route (`TRAIN` false): the same cell, carry,
+// sigmoids, chunk order and stores of out and h_T, without the residual
+// stores, so that its out and h_T are the training forward's bits; its
+// streams are gx and out alone (8H bytes a row and step against 18H),
+// which the L2 rule counts.  Above H = 128 the lean bf16 forward takes the
+// cluster route of gru_cell_scan_cluster.cu.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -684,7 +689,8 @@ struct GruFwdIn {
     float m;
 };
 
-// The training forward's arguments as gru_fwd_resident_kernel's; the
+// The training forward's arguments as gru_fwd_resident_kernel's (the lean
+// one, TRAIN false, takes null acts, ghn and hprev and stores none); the
 // plan's fields (GruMmaPlan, lstm_common.cuh).  Block b: direction d = b /
 // n_rb, rows [rb * RB, min(Bd, (rb + 1) * RB)) of it, rb = b % n_rb, taken
 // RS at a time.  Warp w: unit tile w / KCH (the warps past n_ut tiles idle
@@ -694,7 +700,7 @@ struct GruFwdIn {
 // carries in registers.  Shared memory: h_s (8, 16 KT + 8) bf16, the
 // product's B operand bf16(h_{t-1}) of the chunk's rows | red (KCH, 8,
 // 16 n_ut + 1) float4, the chunks' partial sums of r, z, n.
-template <int KCR>
+template <bool TRAIN, int KCR>
 __global__ void __launch_bounds__(MMA_THREADS, 1) gru_fwd_mma_kernel(
         const __nv_bfloat16* __restrict__ gx, const float* __restrict__ w,
         const float* __restrict__ mask, const float* __restrict__ h0,
@@ -871,9 +877,6 @@ __global__ void __launch_bounds__(MMA_THREADS, 1) gru_fwd_mma_kernel(
                     acc[p].z += v.z;
                 }
             }
-            bf16* const acts_t = acts + (size_t)t * R * G;
-            bf16* const ghn_t = ghn + (size_t)t * R * H;
-            bf16* const hprev_t = hprev + (size_t)t * R * H;
             bf16* const out_t = out + (size_t)t * R * H;
 #pragma unroll
             for (int p = 0; p < 2; ++p) {
@@ -888,13 +891,15 @@ __global__ void __launch_bounds__(MMA_THREADS, 1) gru_fwd_mma_kernel(
                 const float h_old = carry[p];
                 float h_new = (1.0f - z_) * n_ + z_ * h_old;
                 float h_out = h_new;
-                bf16* ar = acts_t + og[p];
-                Ty::st(ar, r_);
-                Ty::st(ar + H, z_);
-                Ty::st(ar + 2 * H, n_);
                 const int oh = at_h(p);
-                Ty::st(ghn_t + oh, acc[p].z);
-                Ty::st(hprev_t + oh, h_old);
+                if constexpr (TRAIN) {
+                    bf16* ar = acts + (size_t)t * R * G + og[p];
+                    Ty::st(ar, r_);
+                    Ty::st(ar + H, z_);
+                    Ty::st(ar + 2 * H, n_);
+                    Ty::st(ghn + (size_t)t * R * H + oh, acc[p].z);
+                    Ty::st(hprev + (size_t)t * R * H + oh, h_old);
+                }
                 if (mask != nullptr) {
                     if (!(in[p].m > 0.0f)) h_new = h_old;
                     h_out = h_new * in[p].m;
@@ -919,21 +924,26 @@ __global__ void __launch_bounds__(MMA_THREADS, 1) gru_fwd_mma_kernel(
 }
 
 // The kernel of a plan: the instantiation that holds its KC k-steps.
+template <bool TRAIN>
 const void* fwd_mma_kernel(const GruMmaPlan& p) {
-    if (p.KC <= FWD_MMA_KC[0]) return (const void*)gru_fwd_mma_kernel<1>;
-    if (p.KC <= FWD_MMA_KC[1]) return (const void*)gru_fwd_mma_kernel<2>;
-    return (const void*)gru_fwd_mma_kernel<4>;
+    if (p.KC <= FWD_MMA_KC[0])
+        return (const void*)gru_fwd_mma_kernel<TRAIN, 1>;
+    if (p.KC <= FWD_MMA_KC[1])
+        return (const void*)gru_fwd_mma_kernel<TRAIN, 2>;
+    return (const void*)gru_fwd_mma_kernel<TRAIN, 4>;
 }
 
-// Launch the training forward on its `mma` plan (`gru_mma_plan` at the
-// card's limits), the step's inputs prefetched into L2 `ahead` steps ahead
-// (< 0: as `gru_mma_ahead` says).  A shape the plan does not take is
+// Launch the training forward (acts non-null) or the lean one (acts, ghn
+// and hprev null) on its `mma` plan (`gru_mma_plan` at the card's limits),
+// the step's inputs prefetched into L2 `ahead` steps ahead (< 0: as
+// `gru_mma_ahead` says for the kernel).  A shape the plan does not take is
 // refused with cudaErrorInvalidConfiguration before anything runs.
 // Returns cudaGetLastError() after the launch.
 int launch_fwd_mma(const void* gx, const void* w, const void* mask,
                    const void* h0, void* out, void* acts, void* ghn,
                    void* hprev, void* hT, int T, int D, int Bd, int H,
                    int device, void* stream, int ahead) {
+    const bool train = acts != nullptr;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return err;
     GruMmaLimits limits;
@@ -945,7 +955,8 @@ int launch_fwd_mma(const void* gx, const void* w, const void* mask,
         return cudaErrorInvalidConfiguration;
     if ((size_t)D * Bd * 3 * H >= (size_t)1 << 31)  // a step's offsets: int
         return cudaErrorInvalidValue;
-    const void* kernel = fwd_mma_kernel(plan);
+    const void* kernel = train ? fwd_mma_kernel<true>(plan)
+                               : fwd_mma_kernel<false>(plan);
     err = gru_mma_allow_smem(kernel, device, plan.smem);
     if (err != cudaSuccess) return err;
     const auto* gx_ = static_cast<const __nv_bfloat16*>(gx);
@@ -957,7 +968,9 @@ int launch_fwd_mma(const void* gx, const void* w, const void* mask,
     auto* ghn_ = static_cast<__nv_bfloat16*>(ghn);
     auto* hprev_ = static_cast<__nv_bfloat16*>(hprev);
     auto* hT_ = static_cast<float*>(hT);
-    if (ahead < 0) ahead = gru_mma_ahead(0, T, D, Bd, H, limits.l2_bytes);
+    if (ahead < 0)
+        ahead = gru_mma_ahead(train ? GRU_MMA_TRAIN : GRU_MMA_LEAN, T, D, Bd,
+                              H, limits.l2_bytes);
     void* args[] = {&gx_, &w_, &mask_, &h0_, &out_, &acts_, &ghn_, &hprev_,
                     &hT_, &T, &Bd, &H, &plan.RB, &plan.RS, &plan.KT,
                     &plan.KC, &plan.KCH, &ahead};
@@ -1020,9 +1033,11 @@ int gru_cell_scan_fwd_train_resident(const void* gx, const void* w,
                                         threads, smem, device, stream);
 }
 
-// The bf16 variants of the four: gx, out (and acts, ghn, hprev) bf16; w,
-// mask, h0, hT, hbuf float32; products of bf16-rounded operands summed in
-// float32.
+// The bf16 variants of the cooperative forwards and the resident training
+// forward: gx, out (and acts, ghn, hprev) bf16; w, mask, h0, hT, hbuf
+// float32; products of bf16-rounded operands summed in float32.  The lean
+// bf16 forward has no resident entry: it takes `mma` up to H = 128 and the
+// cluster route above (gru_cell_scan_cluster.cu).
 int gru_cell_scan_fwd_bf16(const void* gx, const void* w, void* wpack,
                            const void* mask, const void* h0, void* out,
                            void* hT, void* hbuf, int T, int D, int Bd,
@@ -1041,18 +1056,6 @@ int gru_cell_scan_fwd_train_bf16(const void* gx, const void* w,
     return launch_fwd<true, true>(gx, w, wpack, mask, h0, out, acts, ghn,
                                   hprev, hT, hbuf, T, D, Bd, H, device,
                                   stream);
-}
-
-int gru_cell_scan_fwd_resident_bf16(const void* gx, const void* w,
-                                    const void* mask, const void* h0,
-                                    void* out, void* hT, int T, int D,
-                                    int Bd, int H, int RB, int RS, int KS,
-                                    int threads, int smem, int device,
-                                    void* stream) {
-    return launch_resident<false, true>(gx, w, mask, h0, out, nullptr,
-                                        nullptr, nullptr, hT, T, D, Bd, H,
-                                        RB, RS, KS, threads, smem, device,
-                                        stream);
 }
 
 int gru_cell_scan_fwd_train_resident_bf16(const void* gx, const void* w,
@@ -1078,6 +1081,15 @@ int gru_cell_scan_fwd_train_mma_bf16(const void* gx, const void* w,
                                      void* stream) {
     return launch_fwd_mma(gx, w, mask, h0, out, acts, ghn, hprev, hT, T, D,
                           Bd, H, device, stream, -1);
+}
+
+// The lean bf16 forward on the same route: out and h_T alone.
+int gru_cell_scan_fwd_mma_bf16(const void* gx, const void* w,
+                               const void* mask, const void* h0, void* out,
+                               void* hT, int T, int D, int Bd, int H,
+                               int device, void* stream) {
+    return launch_fwd_mma(gx, w, mask, h0, out, nullptr, nullptr, nullptr,
+                          hT, T, D, Bd, H, device, stream, -1);
 }
 
 // The `mma` plan of the bf16 training forward (bwd 0) or backward (bwd 1)

@@ -990,7 +990,8 @@ int launch_bwd_mma(const void* acts, const void* ghn, const void* hprev,
     auto* dgx_ = static_cast<bf16*>(dgx);
     auto* dgh_ = static_cast<bf16*>(dgh);
     auto* dh0_ = static_cast<float*>(dh0);
-    if (ahead < 0) ahead = gru_mma_ahead(1, T, D, Bd, H, limits.l2_bytes);
+    if (ahead < 0)
+        ahead = gru_mma_ahead(GRU_MMA_BWD, T, D, Bd, H, limits.l2_bytes);
     void* args[] = {&acts_, &ghn_, &hprev_, &w_, &mask_, &dout_, &dhT_,
                     &dgx_, &dgh_, &dh0_, &T, &Bd, &H, &plan.RB, &plan.RS,
                     &plan.KT, &plan.KC, &plan.KCH, &ahead};

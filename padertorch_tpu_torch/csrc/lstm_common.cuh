@@ -438,17 +438,22 @@ constexpr int GRU_MMA_ROWS = 8;   // rows staged at once: one N tile
 constexpr int GRU_MMA_FWD_CHUNKS = 2;
 // The steps ahead of its use that a step's inputs are prefetched into L2
 // (each is loaded into registers one step ahead), where the launch's
-// streams, read and written (the training forward's 9H bf16 values a
-// (step, row), the backward's 12H), outgrow the card's L2: a smaller
-// layer's streams stay there, and the prefetches only cost instructions.
+// streams, read and written, outgrow the card's L2: a smaller layer's
+// streams stay there, and the prefetches only cost instructions.  The
+// streams' bf16 values a (step, row), in units of H, by kernel: the
+// training forward's 9 (gx, out, the gates, gh_n, h_{t-1}), the
+// backward's 12, the lean forward's 4 (gx and out).
 constexpr int GRU_MMA_AHEAD = 2;
+enum { GRU_MMA_TRAIN = 0, GRU_MMA_BWD = 1, GRU_MMA_LEAN = 2 };
 
-// The steps ahead of a launch's prefetches (0: none) on a card of
-// `l2_bytes` of L2.
-inline int gru_mma_ahead(int bwd, int T, int D, int Bd, int H,
+// The steps ahead of a launch's prefetches (0: none) for `kernel` (one of
+// the three above) on a card of `l2_bytes` of L2.
+inline int gru_mma_ahead(int kernel, int T, int D, int Bd, int H,
                          int l2_bytes) {
+    const int per_h = kernel == GRU_MMA_BWD ? 12
+                      : kernel == GRU_MMA_LEAN ? 4 : 9;
     const size_t streams =
-        (size_t)T * D * Bd * (bwd ? 12 : 9) * H * sizeof(__nv_bfloat16);
+        (size_t)T * D * Bd * per_h * H * sizeof(__nv_bfloat16);
     return streams > (size_t)l2_bytes ? GRU_MMA_AHEAD : 0;
 }
 
@@ -556,4 +561,88 @@ inline cudaError_t gru_mma_allow_smem(const void* kernel, int device,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err == cudaSuccess) have = smem;
     return err;
+}
+
+// ---- the cluster route of the lean bf16 GRU forward
+// (gru_cell_scan_cluster.cu): above GRU_MMA_MAX_H one block's registers
+// cannot hold a direction's W_hh, so a thread-block cluster of C CTAs owns
+// a direction and a range of rows, CTA c the unit tiles [c n_ut / C,
+// (c + 1) n_ut / C) of its three gates (n_ut = ceil(H / 16)), as the `mma`
+// route's block owns all of them; the CTAs share bf16(h_t) through
+// distributed shared memory.
+
+// A warp's k-steps of each gate's M tile, at most: 3 x 4 x 4 = 48
+// registers of W_hh a thread, what the `mma` route's kernels hold at
+// H = 128 without a spill
+constexpr int GRU_CLUSTER_KC = 4;
+
+// How the cluster route divides a layer: C CTAs a cluster, each of at
+// most TPC unit tiles; K = H in KT k-steps, KCH chunks of KC a tile (a
+// warp each: warp w takes local tile w / (16 / TPC), chunk w % (16 /
+// TPC)); n_rb ranges of RB rows a direction, one cluster each, taken RS
+// (<= 8) at a time; clusters = D n_rb, blocks = C clusters (0 where none
+// fits); smem bytes a CTA.
+struct GruClusterPlan {
+    int C, TPC, KT, KC, KCH, n_rb, RB, RS, clusters, blocks;
+    size_t smem;
+};
+
+// Shared memory of a CTA: two mbarriers (16 bytes), two staged tiles of
+// bf16(h) (8 rows of 16 KT + 8), and the chunks' partial sums, two sets
+// (by step parity) of (KCH, 8) rows of 16 TPC + 1 float4s.
+inline size_t gru_cluster_smem(int KT, int KCH, int TPC) {
+    return 16
+           + sizeof(__nv_bfloat16) * 2 * GRU_MMA_ROWS * (16 * (size_t)KT + 8)
+           + sizeof(float4) * 2 * (size_t)KCH * GRU_MMA_ROWS
+                 * (16 * (size_t)TPC + 1);
+}
+
+// The cluster's shape at H: the smallest portable C (2, 4, 8) whose CTAs
+// each own a tile and whose warps hold at most GRU_CLUSTER_KC k-steps of
+// W_hh (C 0 where none does, or the shared memory does not fit).  The
+// rows are left to gru_cluster_plan.
+inline GruClusterPlan gru_cluster_shape(int H, int max_smem) {
+    GruClusterPlan p = {};
+    const int n_ut = (H + 15) / 16;
+    for (int C = 2; C <= 8 && H >= 1; C *= 2) {
+        if (n_ut < C) break;
+        const int tpc = (n_ut + C - 1) / C;
+        const int wpt = MMA_WARPS / tpc;
+        const int warps = wpt < n_ut ? wpt : n_ut;
+        if (warps < 1) continue;
+        const int kc = (n_ut + warps - 1) / warps;
+        if (kc > GRU_CLUSTER_KC) continue;
+        p.C = C;
+        p.TPC = tpc;
+        p.KT = n_ut;
+        p.KC = kc;
+        p.KCH = (n_ut + kc - 1) / kc;
+        p.smem = gru_cluster_smem(p.KT, p.KCH, p.TPC);
+        if (p.smem > (size_t)max_smem) p.C = 0;
+        return p;
+    }
+    return p;
+}
+
+// The plan at (D, Bd, H) where the card runs `max_clusters` clusters of
+// the shape's C at once: the rows of a direction spread over
+// max_clusters / D clusters (one CTA an SM: on an H100 rows spread beat
+// whole N tiles on the `mma` route), staged 8 at most at a time, evened
+// out (blocks 0 where no shape fits or fewer clusters than directions
+// run at once).  ops/kernels/gru.py `cluster_plan` is its mirror.
+inline GruClusterPlan gru_cluster_plan(int D, int Bd, int H, int max_smem,
+                                       int max_clusters) {
+    GruClusterPlan p = gru_cluster_shape(H, max_smem);
+    const int per_dir = D > 0 ? max_clusters / D : 0;
+    if (p.C == 0 || Bd < 1 || per_dir < 1) {
+        p.blocks = 0;
+        return p;
+    }
+    p.RB = (Bd + per_dir - 1) / per_dir;
+    p.n_rb = (Bd + p.RB - 1) / p.RB;
+    const int chunks = (p.RB + GRU_MMA_ROWS - 1) / GRU_MMA_ROWS;
+    p.RS = (p.RB + chunks - 1) / chunks;
+    p.clusters = D * p.n_rb;
+    p.blocks = p.C * p.clusters;
+    return p;
 }

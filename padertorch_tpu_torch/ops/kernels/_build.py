@@ -51,10 +51,12 @@ _SIGNATURES = {
     'gru_cell_scan_fwd_bf16': (_P,) * 8 + (_I,) * 5 + (_P,),
     'gru_cell_scan_fwd_train_bf16': (_P,) * 11 + (_I,) * 5 + (_P,),
     'gru_cell_scan_bwd_bf16': (_P,) * 11 + (_I,) * 5 + (_P,),
-    'gru_cell_scan_fwd_resident_bf16': (_P,) * 6 + (_I,) * 10 + (_P,),
     'gru_cell_scan_fwd_train_resident_bf16': (_P,) * 9 + (_I,) * 10 + (_P,),
     'gru_cell_scan_bwd_resident_bf16': (_P,) * 10 + (_I,) * 10 + (_P,),
     'gru_cell_scan_fwd_train_mma_bf16': (_P,) * 9 + (_I,) * 5 + (_P,),
+    'gru_cell_scan_fwd_mma_bf16': (_P,) * 6 + (_I,) * 5 + (_P,),
+    'gru_cell_scan_fwd_cluster_bf16': (_P,) * 6 + (_I,) * 5 + (_P,),
+    'gru_cell_scan_cluster_plan': (_I,) * 4 + (_P,),
     'gru_cell_scan_bwd_mma_bf16': (_P,) * 10 + (_I,) * 5 + (_P,),
     'gru_cell_scan_mma_plan': (_I,) * 5 + (_P,),
     'gru_cell_scan_device_limits': (_I, _P),

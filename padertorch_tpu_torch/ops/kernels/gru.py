@@ -22,9 +22,9 @@ All three kernels have two routes, chosen by shape before the launch:
 backward) give the resident route's plan where one direction's whole
 ``W_hh`` fits one block's shared memory beside what the block stages
 (on an H100, H <= 138 for the float32 forwards and H <= 137 for the
-float32 backward, 195 and 192 in bf16: a DPRNN's chunk RNNs, the speaker
-classifier recipe's GRU); a block then
-owns a few rows and runs all T steps with no grid-wide sync.  Otherwise
+float32 backward, 195 and 192 for the bf16 training kernels: a DPRNN's
+chunk RNNs, the speaker classifier recipe's GRU); a block then owns a few
+rows and runs all T steps with no grid-wide sync.  Otherwise
 the cooperative kernel splits units and rows over the grid and syncs it
 once per step, with each block's slice of ``W_hh`` in shared memory, or,
 where no such grid is co-resident (on an H100 two float32 directions from
@@ -32,15 +32,21 @@ H = 896; the planner is :func:`padertorch_tpu_torch.ops.kernels.lstm.
 scan_grid`), the ``streamed`` route: the same grid and arithmetic with the
 weights read from device memory every step, as the slots a block would
 stage, packed once a launch into scratch the wrapper allocates
-(:func:`padertorch_tpu_torch.ops.kernels.lstm.packed_bytes`).  The bf16
-training forward and the bf16 backward take a third route, ``mma``,
-where the bf16 resident plan exists and H <= ``GRU_MMA_MAX_H`` (128):
-the resident grid with ``W_hh`` as bf16 tensor-core operands held in
-registers (:func:`mma_plan`, the mirror of ``gru_mma_plan`` in
-``csrc/lstm_common.cuh``; :func:`kernel_route` names each launch's
-route).  A launch that fails on its route raises; it is never retried on
-another.  ``gru_cell_scan.routes`` counts the launches by kernel and
-route (``routes['fwd_train_bf16']['mma']``).
+(:func:`padertorch_tpu_torch.ops.kernels.lstm.packed_bytes`).  All three
+bf16 kernels take a third route, ``mma``, where the bf16 resident plan
+exists and H <= ``GRU_MMA_MAX_H`` (128): the resident grid with ``W_hh``
+as bf16 tensor-core operands held in registers (:func:`mma_plan`, the
+mirror of ``gru_mma_plan`` in ``csrc/lstm_common.cuh``).  The lean bf16
+forward takes a fourth, ``cluster``, from ``GRU_CLUSTER_MIN_H`` (129) to
+the planner's reach (320 on an H100): a thread-block cluster of 2, 4 or 8
+CTAs a direction and a range of rows, each CTA holding its unit tiles'
+``W_hh`` in registers, the CTAs sharing bf16(h) through distributed
+shared memory (``csrc/gru_cell_scan_cluster.cu``; :func:`cluster_plan`,
+the mirror of ``gru_cluster_plan``).  :func:`kernel_route` names each
+launch's route.  A launch that fails on its route raises; it is never
+retried on another.  ``gru_cell_scan.routes`` counts the launches by
+kernel and route (``routes['fwd_train_bf16']['mma']``,
+``routes['fwd_bf16']['cluster']``).
 
 The training forward stores, per step, the gates ``acts`` = r|z|n and
 ``gh_n`` as computed (also on a masked step), and ``h_prev``, the state the
@@ -67,10 +73,11 @@ bf16(dgh)`` in float32 and is float32.  The plain versions take all four
 combinations; the kernels take float32 streams with float32 products, and
 bf16 streams with bf16 products (the ``BF16`` variants of both files, on
 both routes, which stage ``W_hh`` in shared memory as bf16: the resident
-route reaches a wider H, up to 195 for the forwards and 192 for the
-backward on an H100; the bf16 training forward and backward on the
-``mma`` route up to H = 128, the products on the tensor cores), and
-raise for the other two.  ``h_prev`` of the bf16
+route reaches a wider H, up to 195 for the training forward and 192 for
+the backward on an H100; all three on the ``mma`` route up to H = 128 and
+the lean forward on the ``cluster`` route above, the products on the
+tensor cores; the lean bf16 forward has no resident route), and raise for
+the other two.  ``h_prev`` of the bf16
 variant is ``bf16(h_{t-1})``, what the JAX backward rebuilds from its bf16
 ``out``.
 """
@@ -90,7 +97,9 @@ __all__ = ['gru_cell_scan', 'gru_cell_scan_plain', 'GRUCellScan',
            'recurrent_weight_grad', 'ResidentPlan', 'resident_plan',
            'resident_smem', 'resident_bwd_plan', 'resident_bwd_smem',
            'MmaPlan', 'mma_plan', 'mma_smem', 'kernel_route',
-           'device_mma_plan', 'device_limits', 'element_size']
+           'device_mma_plan', 'device_limits', 'element_size',
+           'ClusterPlan', 'cluster_shape', 'cluster_plan', 'cluster_smem',
+           'device_cluster_plan']
 
 
 def _cell(gx, gh, h, hdim):
@@ -380,23 +389,121 @@ def mma_plan(kernel, n_dir, rows_per_dir, hdim, n_sm, max_smem):
     return MmaPlan(n_rb, rb, rs, k_steps, kc, chunks, n_dir * n_rb, smem)
 
 
+# the lean bf16 forward's cluster route (csrc/gru_cell_scan_cluster.cu,
+# `gru_cluster_plan` in csrc/lstm_common.cuh): the portable cluster sizes,
+# a warp's k-steps of each gate at most (48 registers of W_hh, as the mma
+# route's at H = 128), and the narrowest H that takes it
+CLUSTER_SIZES = (2, 4, 8)
+GRU_CLUSTER_KC = 4
+GRU_CLUSTER_MIN_H = GRU_MMA_MAX_H + 1
+
+
+class ClusterPlan(NamedTuple):
+    """How the cluster route divides a layer: ``C`` CTAs a cluster, each
+    of at most ``TPC`` tiles of 16 units (CTA c the tiles [c n_ut / C,
+    (c + 1) n_ut / C), n_ut = ceil(H / 16)); K = H in ``KT`` k-steps,
+    ``KCH`` chunks of ``KC`` a tile, a warp each (warp w: local tile w //
+    (16 // TPC), chunk w % (16 // TPC)); ``n_rb`` ranges of ``RB`` rows a
+    direction, a cluster each, taken ``RS`` (<= 8) at a time;
+    ``clusters`` (``n_dir * n_rb``), ``blocks`` (``C * clusters``) and
+    ``smem`` bytes a CTA."""
+    C: int
+    TPC: int
+    KT: int
+    KC: int
+    KCH: int
+    n_rb: int
+    RB: int
+    RS: int
+    clusters: int
+    blocks: int
+    smem: int
+
+
+def cluster_smem(k_steps, chunks, tiles):
+    """Bytes of shared memory of a cluster route's CTA
+    (``gru_cluster_smem``): two mbarriers (16 bytes), two staged tiles of
+    bf16(h) (8 rows of 16 ``k_steps`` + 8) and two sets of the
+    ``chunks``' partial sums, 8 rows each of 16 ``tiles`` + 1 float4s."""
+    return (16 + 2 * 2 * MMA_ROWS * (16 * k_steps + 8)
+            + 16 * 2 * chunks * MMA_ROWS * (16 * tiles + 1))
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_shape(hdim, max_smem):
+    """``gru_cluster_shape``: (C, TPC, KT, KC, KCH, smem) of the cluster
+    route at ``hdim``, the smallest portable cluster size whose CTAs each
+    own a tile of 16 units and whose warps hold at most
+    ``GRU_CLUSTER_KC`` k-steps of ``W_hh``, or None (H = 256: C = 4, four
+    tiles a CTA, four chunks of four k-steps; on an H100 it reaches
+    H = 320 with C = 8)."""
+    n_ut = -(-hdim // 16)
+    for c in CLUSTER_SIZES:
+        if hdim < 1 or n_ut < c:
+            return None
+        tpc = -(-n_ut // c)
+        warps = min(MMA_WARPS // tpc, n_ut)
+        if warps < 1 or -(-n_ut // warps) > GRU_CLUSTER_KC:
+            continue
+        kc = -(-n_ut // warps)
+        chunks = -(-n_ut // kc)
+        smem = cluster_smem(n_ut, chunks, tpc)
+        if smem > max_smem:
+            return None
+        return c, tpc, n_ut, kc, chunks, smem
+    return None
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_plan(n_dir, rows_per_dir, hdim, max_smem, max_clusters):
+    """``gru_cluster_plan`` of ``csrc/lstm_common.cuh``: the lean bf16
+    forward's cluster plan on a card whose blocks may opt in to
+    ``max_smem`` bytes and which runs ``max_clusters`` clusters of the
+    shape's size at once (the card's own count comes from
+    :func:`device_cluster_plan`), or None where no shape fits
+    (:func:`cluster_shape`) or fewer clusters than directions run at
+    once.  A direction's rows are spread over
+    ``max_clusters // n_dir`` clusters, staged 8 at most at a time,
+    evened out."""
+    shape = cluster_shape(hdim, max_smem)
+    if shape is None or rows_per_dir < 1 or n_dir < 1:
+        return None
+    c, tpc, k_steps, kc, chunks, smem = shape
+    per_dir = max_clusters // n_dir
+    if per_dir < 1:
+        return None
+    rb = -(-rows_per_dir // per_dir)
+    n_rb = -(-rows_per_dir // rb)
+    rs = -(-rb // -(-rb // MMA_ROWS))
+    return ClusterPlan(c, tpc, k_steps, kc, chunks, n_rb, rb, rs,
+                       n_dir * n_rb, c * n_dir * n_rb, smem)
+
+
 @functools.lru_cache(maxsize=None)
 def kernel_route(kernel, n_dir, rows_per_dir, hdim, bf16, n_sm, max_smem):
     """The route of ``kernel`` ('fwd', 'fwd_train' or 'bwd'; ``bf16``: its
     bf16 variant) on a card of ``n_sm`` SMs and ``max_smem`` bytes a
     block: 'resident' where :func:`resident_plan` (the forwards) or
-    :func:`resident_bwd_plan` gives a plan, but 'mma' for the bf16
-    training forward and backward where :func:`mma_plan` fits too; None
-    where the cooperative grid runs (cooperative or streamed, as the
-    card's planner says)."""
+    :func:`resident_bwd_plan` gives a plan, but 'mma' for the three bf16
+    kernels where :func:`mma_plan` fits too (the lean forward where the
+    training forward's does); the lean bf16 forward otherwise 'cluster'
+    from ``GRU_CLUSTER_MIN_H`` to the reach of :func:`cluster_shape` (the
+    card's planner spreads the rows over the clusters it runs at once),
+    never 'resident'; None where the cooperative grid runs (cooperative or
+    streamed, as the card's planner says)."""
     planner = resident_bwd_plan if kernel == 'bwd' else resident_plan
     if planner(n_dir, rows_per_dir, hdim, n_sm, max_smem,
-               elem=2 if bf16 else 4) is None:
-        return None
-    if bf16 and kernel != 'fwd' and mma_plan(
-            kernel, n_dir, rows_per_dir, hdim, n_sm, max_smem) is not None:
-        return 'mma'
-    return 'resident'
+               elem=2 if bf16 else 4) is not None:
+        if bf16 and mma_plan('bwd' if kernel == 'bwd' else 'fwd_train',
+                             n_dir, rows_per_dir, hdim, n_sm,
+                             max_smem) is not None:
+            return 'mma'
+        if not (bf16 and kernel == 'fwd'):
+            return 'resident'
+    if (bf16 and kernel == 'fwd' and hdim >= GRU_CLUSTER_MIN_H
+            and cluster_shape(hdim, max_smem) is not None):
+        return 'cluster'
+    return None
 
 
 @functools.lru_cache(maxsize=None)
@@ -411,6 +518,19 @@ def device_mma_plan(kernel, n_dir, rows_per_dir, hdim, device):
                                      ctypes.addressof(out))
     _build.check(lib, err, 'gru_cell_scan_mma_plan')
     return MmaPlan(*out)
+
+
+@functools.lru_cache(maxsize=None)
+def device_cluster_plan(n_dir, rows_per_dir, hdim, device):
+    """The cluster plan the card's own planner gives the lean bf16 forward
+    on ``device`` (an index), as a :class:`ClusterPlan` (blocks 0 where
+    none fits), and the clusters of its size the card runs at once."""
+    out = (ctypes.c_int * 12)()
+    lib = _build.load_library()
+    err = lib.gru_cell_scan_cluster_plan(n_dir, rows_per_dir, hdim, device,
+                                         ctypes.addressof(out))
+    _build.check(lib, err, 'gru_cell_scan_cluster_plan')
+    return ClusterPlan(*out[:11]), out[11]
 
 
 @functools.lru_cache(maxsize=None)
@@ -442,17 +562,15 @@ def _launch(gates_x, w, n_dir, mask, h0, train=False):
     lib = _build.load_library()
     stream, device = _build.stream_and_device(gates_x)
     limits = device_limits(device)
-    plan = resident_plan(n_dir, rows // n_dir, hdim, *limits,
-                         elem=element_size(gates_x.dtype))
     inputs = (gates_x.data_ptr(), w.data_ptr(),
               None if mask is None else mask.data_ptr(),
               h0.data_ptr(), out.data_ptr())
     sizes = (t_len, n_dir, rows // n_dir, hdim)
     route = kernel_route(kernel, n_dir, rows // n_dir, hdim, bool(entry),
                          *limits)
-    if route == 'mma':
-        suffix, tail = '_mma' + entry, (*sizes, device, stream)
-    elif plan is None:
+    if route in ('mma', 'cluster'):
+        suffix, tail = f'_{route}' + entry, (*sizes, device, stream)
+    elif route is None:
         hbuf = empty(2, rows, hdim, dtype=torch.float32)
         tail = (hbuf.data_ptr(), *sizes, device, stream)
         route = _route('gru_fwd', n_dir, rows // n_dir, hdim, bool(entry),
@@ -463,6 +581,8 @@ def _launch(gates_x, w, n_dir, mask, h0, train=False):
                   *inputs[2:])
         suffix = entry
     else:
+        plan = resident_plan(n_dir, rows // n_dir, hdim, *limits,
+                             elem=element_size(gates_x.dtype))
         tail = (*sizes, plan.RB, plan.RS, plan.KS, plan.threads, plan.smem,
                 device, stream)
         suffix = '_resident' + entry
@@ -586,7 +706,8 @@ def gru_cell_scan(gates_x, w_hh, mask, h0, compute_dtype=None):
         ``fwd_train_bf16``, ``bwd_bf16``), ``gru_cell_scan.routes`` them
         by kernel and route (``routes['bwd_bf16']['mma']``; the routes
         ``resident``, ``cooperative``, ``streamed`` and, for the bf16
-        training forward and backward, ``mma``: :func:`kernel_route`).
+        kernels, ``mma`` and, for the lean bf16 forward, ``cluster``:
+        :func:`kernel_route`).
     """
     w, n_dir = _norm_w(w_hh)
     if gates_x.device.type == 'cpu':
@@ -605,5 +726,6 @@ def gru_cell_scan(gates_x, w_hh, mask, h0, compute_dtype=None):
 gru_cell_scan.launches = {'fwd': 0, 'fwd_train': 0, 'bwd': 0,
                           'fwd_bf16': 0, 'fwd_train_bf16': 0, 'bwd_bf16': 0}
 gru_cell_scan.routes = {
-    name: {'resident': 0, 'cooperative': 0, 'streamed': 0, 'mma': 0}
+    name: {'resident': 0, 'cooperative': 0, 'streamed': 0, 'mma': 0,
+           'cluster': 0}
     for name in gru_cell_scan.launches}

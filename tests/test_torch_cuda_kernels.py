@@ -9,8 +9,9 @@ key tiles, gradients within one unit plus 1e-5 of each one's largest
 entry, at most 1% of either other, the gradients' by more than that),
 with the control (logits, P and dS rounded to bf16) failing them;
 the bf16 GRU kernels to theirs at the LSTM's limits, at ``chip_smoke.py``
-phase 28's shapes, the bf16 resident routes' widest H and one above and
-the ``mma`` route's, with the control (float32 products) failing them.  The GRU
+phase 28's shapes, the bf16 resident routes' widest H and one above, the
+``mma`` route's and the lean forward's ``cluster`` route's, with the
+control (float32 products) failing them.  The GRU
 forwards' resident and
 cooperative routes are each held to plain at the shapes that pick them,
 with the route read from ``gru_cell_scan.routes``.  The LSTM training kernels (forward
@@ -1938,7 +1939,9 @@ def test_lstm_kernels_refuse_mixed_streams_and_products(cuda):
 GRU_BF16_LIMIT_NAMES = ['widest resident forward', 'one above it',
                         'widest resident backward', 'one above it too',
                         'widest mma training forward and backward',
-                        'one above the widest mma']
+                        'one above the widest mma',
+                        'lean cluster at H = 160', 'widest lean cluster',
+                        'one above the widest lean cluster']
 
 
 @pytest.mark.parametrize('shape', [s[0] for s in GRU_BF16_SHAPES]
@@ -1946,18 +1949,20 @@ GRU_BF16_LIMIT_NAMES = ['widest resident forward', 'one above it',
 def test_gru_bf16_kernels_match_plain(cuda, shape):
     """The three bf16 GRU kernels against their plain bf16 versions at
     ``chip_smoke.py`` phase 28's shapes, the bf16 resident routes' widest
-    H and one above, and the ``mma`` route's widest H and one above (read
-    from the planners at the card's limits), on the route the planners
-    pick, read from ``gru_cell_scan.routes`` (on ``mma`` the card's plan
-    the mirror's); the control with float32 products must fail the
-    limits (``chip_smoke.gru_bf16_case`` raises otherwise)."""
+    H and one above, the ``mma`` route's widest H and one above, and the
+    lean forward's ``cluster`` route at H = 160, its widest H and one
+    above (read from the planners at the card's limits), on the route the
+    planners pick, read from ``gru_cell_scan.routes`` (on ``mma`` and
+    ``cluster`` the card's plan the mirror's); the control with float32
+    products must fail the limits (``chip_smoke.gru_bf16_case`` raises
+    otherwise)."""
     limit_shapes, _ = gru_bf16_limit_shapes()
     shapes = {s[0]: s for s in GRU_BF16_SHAPES}
     shapes.update(zip(GRU_BF16_LIMIT_NAMES, limit_shapes))
     rows = gru_bf16_case(*shapes[shape], timed=False)
-    assert rows['fwd']['gru_route'] in {'resident', 'cooperative'}
+    assert rows['fwd']['gru_route'] in {'mma', 'cluster', 'cooperative'}
     assert {row['gru_route'] for row in rows.values()} <= {
-        'resident', 'cooperative', 'mma'}
+        'resident', 'cooperative', 'mma', 'cluster'}
 
 
 def test_gru_bf16_limit_shapes_take_both_routes(cuda):
@@ -1973,8 +1978,13 @@ def test_gru_bf16_limit_shapes_take_both_routes(cuda):
     assert bwd_routes[2:4] == [True, False]
     assert widest['fwd'] > 138 and widest['bwd'] > 137
     mma = [gru_kernels.kernel_route('bwd', n_dir, batch, hdim, True, *limits)
-           for _, _, batch, hdim, _, n_dir, _ in limit_shapes[4:]]
+           for _, _, batch, hdim, _, n_dir, _ in limit_shapes[4:6]]
     assert mma == ['mma', 'resident'] and widest['mma'] == 128
+    lean = [gru_kernels.kernel_route('fwd', n_dir, batch, hdim, True,
+                                     *limits)
+            for _, _, batch, hdim, _, n_dir, _ in limit_shapes[4:]]
+    assert lean == ['mma', 'cluster', 'cluster', 'cluster', None]
+    assert widest['cluster'] == 320
 
 
 def test_gru_bf16_function_gives_bf16_dgates_and_float32_dw(cuda):

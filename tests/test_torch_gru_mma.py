@@ -12,8 +12,10 @@ the JAX package.
   thread, each k-step of each tile of 16 units summed by one warp, the
   chunks in order, at most 48 registers of ``W_hh`` a thread.  The route
   (``kernel_route``) is ``mma`` for the bf16 training forward and backward
-  exactly where the bf16 resident plan exists and H <= 128; the lean
-  forward and the float32 kernels never take it.
+  exactly where the bf16 resident plan exists and H <= 128, for the lean
+  bf16 forward where the training forward's is (above, its ``cluster``
+  route: ``test_torch_gru_cluster.py``); the float32 kernels never take
+  it.
 - **Arithmetic**: a numpy emulation of both kernels (the training forward:
   bf16(h_{t-1}) times bf16(W_hh) chunk by chunk, each chunk's sum from
   zero, the chunks added in float32 in chunk order, then the cell in
@@ -160,9 +162,12 @@ def test_the_route_is_mma_where_the_resident_plan_exists_to_the_widest_h(
             assert kernel_route(kernel, n_dir, rows, hdim, False, N_SM,
                                 MAX_SMEM) == (None if f32 is None
                                               else 'resident')
-        # the lean bf16 forward stays on the resident route
+        # the lean bf16 forward takes mma where the training forward does
+        # and the cluster route above (tests/test_torch_gru_cluster.py)
         assert kernel_route('fwd', n_dir, rows, hdim, True, N_SM,
-                            MAX_SMEM) in (None, 'resident')
+                            MAX_SMEM) == (
+            kernel_route('fwd_train', n_dir, rows, hdim, True, N_SM,
+                         MAX_SMEM) if hdim <= GRU_MMA_MAX_H else 'cluster')
 
 
 def test_the_widest_h_and_one_above():
