@@ -1,8 +1,9 @@
-"""Drive the PyTorch port's paths once on one CUDA card: uPIT, DPRNN-TasNet
-and SepFormer-TasNet separation, the WaveNet vocoder and the speaker
-classifier with its on-device log-mel front end, each served and trained;
-and the transformer decoder's int8 KV-cache decoding and continuous
-batching, served.
+"""Drive the PyTorch port's paths once on one CUDA card: uPIT, DPRNN-TasNet,
+SepFormer-TasNet, Conv-TasNet and OR-PIT separation, the mask estimator
+with beamforming and STOI, the deep-clustering model, the WaveNet vocoder
+and the speaker classifier with its on-device log-mel front end, each
+served and trained; and the transformer decoder's int8 KV-cache decoding
+and continuous batching, served.
 
     python3 chip_smoke.py [--profile]
 
@@ -339,9 +340,42 @@ Phases, one line each:
     its bound (every product at the bf16 rate) and of the 2xTF32 design's,
     SDPA's and the float32 kernels' times, the control's share.
 
+33. Conv-TasNet: the tasnet recipe's ``--variant convnet`` at full width
+    (256 filters of length 20; ``ConvNet`` 256/512, 8 blocks x 4 repeats,
+    gLN; the parameter count printed): ``test_run``, 4 iterations with
+    validation and checkpoints into a storage dir that loads back, the
+    first step against the CPU (``CONVNET_STEP_RTOL``), three requests
+    through ``evaluate_example`` (the first against the CPU), timed steps
+    by stage at ragged 4 x 32000 and 4 x 16000.  No kernel runs on it:
+    the convolutions are cuDNN's.
+34. OR-PIT: the or_pit recipe at its defaults (a ``blstm`` DPRNN TasNet
+    with 2 outputs, ``max_iterations=2``): ``test_run``, 4 iterations with
+    the LSTM kernels' launches (12 of each a step), the first step against
+    the CPU, ``separate`` on three requests with the launches by kernel and
+    route, a timed step at 4 x 32000.
+35. the mask estimator (``num_units=1024``: a BLSTM of 2 x 256 units on
+    257 bins): the three float32 LSTM kernels and the Function against
+    plain at its shape (T=128, 4 rows a direction: a training batch of 4 x
+    16000 samples or a request's 4 channels; and a ragged batch), each
+    with its TF32 control (plain with ``W_hh`` rounded to TF32: cuBLAS
+    keeps these small products on its float32 path even with TF32
+    allowed) and the route beside the mirror
+    ``lstm.scan_grid``'s, timed beside plain, a cuDNN layer and the bound;
+    ``masked_istft`` at a request's (one signal of 128 frames, size 512,
+    shift 128), graph replays and eager; the recipe's ``test_run``, 4
+    iterations, the first step against the CPU with dropout off on both,
+    ``evaluate_example`` on the synthetic 4-channel database with MVDR
+    (Souden) and with GEV + BAN (finite metric triples; the first
+    request's masks against the CPU, and its metrics but GEV's beamformed
+    ones, ``MASK_ESTIMATOR_METRIC_TOL``), a timed step.
+36. the deep-clustering model (F=257, 2 x 600 BLSTM, E=20) on 4 of the pit
+    recipe's synthetic mixtures with their ideal binary masks: the served
+    embeddings and the first Adam step against the CPU, timed steps.
+
 The line before the last is a JSON object with each kernel's launches on
 the main paths, the shape its numbers were taken at (``shape``; the other
-shapes' are in the phases' own lines), its largest difference from the
+shapes' are in the phases' own lines, the float32 LSTM kernels' and
+``masked_istft``'s at phase 35's shapes also in ``other_shapes``), its largest difference from the
 plain version, its time,
 the plain version's, the library call's where there is one, and the
 least time the card could take (``bound_ms``: the larger of bytes over
@@ -392,6 +426,10 @@ from padertorch_tpu_torch.contrib.examples.source_separation.pit.evaluate \
     import evaluate_example
 from padertorch_tpu_torch.contrib.examples.source_separation.tasnet import (
     data as tas_data, evaluate as tas_evaluate, train as tas_train)
+from padertorch_tpu_torch.contrib.examples.source_separation.or_pit import (
+    evaluate as orpit_evaluate, train as orpit_train)
+from padertorch_tpu_torch.contrib.examples.speech_enhancement \
+    .mask_estimator import evaluate as me_evaluate, train as me_train
 from padertorch_tpu_torch.contrib.examples.speaker_classification \
     .supervised import (
         data as spk_data, evaluate as spk_evaluate, train as spk_train)
@@ -405,7 +443,10 @@ from padertorch_tpu_torch.models.tasnet import TasNet
 from padertorch_tpu_torch.modules.dual_path_transformer import (
     DualPathTransformer)
 from padertorch_tpu_torch.modules.recurrent import set_rnn_backend
-from padertorch_tpu_torch.models.bss import PermutationInvariantTrainingModel
+from padertorch_tpu_torch.models.bss import (
+    DeepClusteringModel, PermutationInvariantTrainingModel)
+from padertorch_tpu_torch.models.mask_estimator import SimpleMaskEstimator
+from padertorch_tpu_torch.models.or_pit import OneAndRestPIT
 from padertorch_tpu_torch.ops._stft import HostSTFT, STFT
 from padertorch_tpu_torch.io import dump_config
 from padertorch_tpu_torch.ops.kernels import _build
@@ -708,14 +749,17 @@ def recurrence_mask(t_len, batch, kind, rng, directions=2):
     """(T, directions * batch) mask, the second direction's reversed in
     time, or None.  'chunks': the
     inter-chunk RNN's, every one of the K=100 positions of an example
-    sharing its chunk count (4 examples of 2 to 4 s); 'ragged': lengths in
-    [T/2, T]; 'prefix': the same lengths with the padding before the valid
-    steps."""
+    sharing its chunk count (4 examples of 2 to 4 s); 'full': every row
+    valid at every step (the mask a batch of equal lengths gives); 'ragged':
+    lengths in [T/2, T]; 'prefix': the same lengths with the padding before
+    the valid steps."""
     if kind is None:
         return None
     if kind == 'chunks':
         lens = np.repeat([t_len, t_len - 11, t_len - 20, t_len - 30],
                          batch // 4)
+    elif kind == 'full':
+        lens = np.full(batch, t_len)
     else:
         lens = rng.randint(t_len // 2, t_len + 1, size=batch)
         lens[0] = t_len
@@ -1298,13 +1342,15 @@ def check_storage_dir(storage_dir, iterations, best):
     return names
 
 
-def first_step_on_cpu(model_cpu, batch, tmp, clipping, loss_weights=None):
-    """Loss and pre-clip gradient norm of one training step on the CPU."""
-    cpu = Trainer(model_cpu.train(), Path(tmp) / 'cpu',
-                  Adam(gradient_clipping=clipping), loss_weights=loss_weights)
-    loss, _, _, _ = cpu.train_step(cpu.model, batch)
+def first_step(model, batch, tmp, clipping, device, loss_weights=None):
+    """Loss and pre-clip gradient norm of one training step of ``model``
+    on ``device``."""
+    trainer = Trainer(model.train(), Path(tmp) / f'first_{device}',
+                      Adam(gradient_clipping=clipping),
+                      loss_weights=loss_weights).to(device)
+    loss, _, _, _ = trainer.train_step(trainer.model, batch)
     loss.backward()
-    return float(loss.detach()), float(cpu.optimizer.clip_grad())
+    return float(loss.detach()), float(trainer.optimizer.clip_grad())
 
 
 def compare_first_step(label, losses, norms, loss_cpu, norm_cpu, rtol):
@@ -1496,8 +1542,8 @@ def phase_training(kernel_times, profile=False):
         batch = next(iter(train))
         compare_first_step(
             '7c', losses, norms,
-            *first_step_on_cpu(model_cpu, batch, tmp, 10.0,
-                               config['loss_weights']),
+            *first_step(model_cpu, batch, tmp, 10.0, 'cpu',
+                        config['loss_weights']),
             (STEP_RTOL, STEP_RTOL))
         names = check_storage_dir(storage_dir, 24, 'ckpt_best_loss.ptt')
         loaded = PermutationInvariantTrainingModel.from_storage_dir(
@@ -2398,8 +2444,8 @@ def phase_tasnet_training(name, profile=False):
         batch = next(iter(train))
         compare_first_step(
             f'{phase}c {name}', losses, norms,
-            *first_step_on_cpu(model_cpu, batch, tmp, 5.0,
-                               config['loss_weights']),
+            *first_step(model_cpu, batch, tmp, 5.0, 'cpu',
+                        config['loss_weights']),
             path['rtol'])
         names = check_storage_dir(storage_dir, iterations,
                                   'ckpt_best_si-sdr.ptt')
@@ -2992,7 +3038,7 @@ def phase_wavenet_training():
         batch = next(iter(train))
         compare_first_step(
             '18c wavenet', losses, norms,
-            *first_step_on_cpu(model_cpu, batch, tmp, 10.0),
+            *first_step(model_cpu, batch, tmp, 10.0, 'cpu'),
             WAVENET_STEP_RTOL)
         names = check_storage_dir(storage_dir, iterations,
                                   'ckpt_best_loss.ptt')
@@ -3103,7 +3149,7 @@ def phase_speaker_clf():
         batch = next(iter(train))
         compare_first_step(
             '19c speaker classifier', losses, norms,
-            *first_step_on_cpu(model_cpu, batch, tmp, 10.0),
+            *first_step(model_cpu, batch, tmp, 10.0, 'cpu'),
             SPEAKER_STEP_RTOL)
         names = check_storage_dir(storage_dir, iterations,
                                   'ckpt_best_accuracy.ptt')
@@ -5798,6 +5844,590 @@ def phase_geometries():
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phases 33 to 36: the rest of the separation and enhancement family.
+
+# the first Conv-TasNet step, card vs CPU: the loss is a mean of log10
+# ratios, the norm sums 8.7 M gradients through 32 blocks of cuDNN
+# convolutions (TF32 off) and gLN reductions summed in another order
+CONVNET_STEP_RTOL = 1e-4
+# (filters, filter length, N, hidden channels, blocks, repeats, norm) of
+# the tasnet recipe's convnet variant
+CONVNET_WIDTH = (256, 20, 256, 512, 8, 4, 'GlobalLayerNorm')
+# the first mask-estimator step, card vs CPU (one BLSTM layer of 256
+# units, three linear layers, binary cross entropy), as phase 7's
+MASK_ESTIMATOR_STEP_RTOL = 1e-5
+# the first deep-clustering step and the served embeddings, card vs CPU
+# (two BLSTM layers of 600 units, a linear layer to F * E, a unit norm)
+DC_STEP_RTOL = 1e-5
+DC_TOL = 1e-5
+# a request's masks, card vs CPU: float32 sums of one BLSTM layer and of
+# 1024-wide products in another order, through a sigmoid
+MASK_ESTIMATOR_MASK_TOL = 1e-5
+# its metric triples, card vs CPU (stoi, and SI-SDR and SDR in dB): the
+# observed and masked signals' and MVDR's beamformed one's.  GEV's are not
+# compared: where a model trained a few iterations gives speech and noise
+# masks near 0.5, the two PSD matrices nearly coincide and the principal
+# generalized eigenvector moves with the masks' last bits (0.95 dB of
+# beamformed SI-SDR from masks within 3.6e-7 in a development run on an
+# H100); the beamformers run on the host, the same numpy code on both
+# sides
+MASK_ESTIMATOR_METRIC_TOL = 1e-3
+
+
+def lstm_kernels_case(phase, label, t_len, batch, hdim, kind, in_size):
+    """The three float32 LSTM kernels and the ``autograd.Function`` at one
+    shape of two directions against their plain versions at phases 3, 6
+    and 9's limits, each with its TF32 control failing them (plain with
+    ``W_hh`` rounded to TF32: cuBLAS keeps a product of 4 rows a direction
+    on its float32 path even with TF32 allowed); the route each
+    kernel took (``lstm_cell_scan.routes``) against the mirror
+    ``lstm.scan_grid``'s; timed beside plain, one bidirectional
+    ``torch.nn.LSTM`` layer (cuDNN) with ``in_size`` inputs, and the bound.
+    Returns a row of numbers per kernel."""
+    args, cot = recurrence_inputs(t_len, batch, hdim, kind, gates=4)
+    gx, w, mask, h0, c0 = args
+    valid = t_len * 2 * batch if mask is None else float(mask.sum())
+
+    def fwd_train():
+        return lstm_kernels._launch(gx, w, 2, mask, h0, c0, train=True)
+
+    reset_launches()
+    got = lstm_cell_scan(*args)
+    got_train = fwd_train()
+    want = lstm_cell_scan_plain(*args)
+    want_train = lstm_cell_scan_train_plain(*args)
+    _, c_seq, gates, _, _ = want_train
+
+    def bwd():
+        return lstm_kernels._launch_bwd(gates, c_seq, w, 2, mask, *cot)
+
+    got_bwd = bwd()
+    want_bwd = lstm_cell_scan_bwd_plain(gates, c_seq, w, mask, *cot)
+    torch.cuda.synchronize()
+    took = {name: [r for r, n in lstm_cell_scan.routes[name].items() if n]
+            for name in ('fwd', 'fwd_train', 'bwd')}
+    n_sm, max_smem = gru_kernels.device_limits(0)
+    card = {name: lstm_kernels.device_grid(
+                'lstm_bwd' if name == 'bwd' else 'lstm_fwd', 2, batch, hdim,
+                False, 0, name == 'fwd_train')
+            for name in took}
+    mirror = {name: lstm_kernels.scan_grid(
+                  'lstm_bwd' if name == 'bwd' else 'lstm_fwd', 2, batch,
+                  hdim, n_sm, max_smem)
+              for name in took}
+
+    def grads(fn):
+        leaves = [a.clone().requires_grad_() for a in (gx, w, h0, c0)]
+        outs = fn(leaves[0], leaves[1], mask, leaves[2], leaves[3])
+        return torch.autograd.grad(outs, leaves, cot)
+
+    want_grads = grads(lstm_cell_scan_plain)
+    err = {'fwd': max_err(got, want),
+           'fwd_train': max_err(got_train, want_train),
+           'bwd': max_err(got_bwd, want_bwd),
+           'function': max_rel_err(grads(lstm_cell_scan), want_grads)}
+    # the TF32 control: plain with W_hh rounded to TF32, as phase 12's
+    # controls round their operands (at 4 rows a direction cuBLAS keeps
+    # the recurrent product on its float32 path even with TF32 allowed)
+    w_tf32 = tf32_round(w)
+    args_tf32 = [gx, w_tf32, mask, h0, c0]
+    tf32 = {'fwd': max_err(lstm_cell_scan_plain(*args_tf32), want),
+            'fwd_train': max_err(lstm_cell_scan_train_plain(*args_tf32),
+                                 want_train),
+            'bwd': max_err(lstm_cell_scan_bwd_plain(
+                gates, c_seq, w_tf32, mask, *cot), want_bwd),
+            'function': max_rel_err(
+                grads(lambda x, w_leaf, *rest: lstm_cell_scan_plain(
+                    x, w_leaf + (w_tf32 - w), *rest)), want_grads)}
+    times = {'fwd': cuda_ms(lambda: lstm_cell_scan(*args), iters=20),
+             'fwd_train': cuda_ms(fwd_train, iters=20),
+             'bwd': cuda_ms(bwd, iters=20)}
+    plain = {'fwd': cuda_ms(lambda: lstm_cell_scan_plain(*args), iters=3),
+             'fwd_train': cuda_ms(
+                 lambda: lstm_cell_scan_train_plain(*args), iters=3),
+             'bwd': cuda_ms(lambda: lstm_cell_scan_bwd_plain(
+                 gates, c_seq, w, mask, *cot), iters=3)}
+    library = cudnn_layer_ms(torch.nn.LSTM, t_len, batch, in_size, hdim)
+    flops = valid * (2 * hdim * 4 * hdim + 30 * hdim)
+    limits = {
+        'fwd': bound(nbytes(*args, *got), flops),
+        'fwd_train': bound(nbytes(*args, *got_train), flops),
+        'bwd': bound(nbytes(gates, c_seq, w, mask, *cot, *got_bwd), flops)}
+    rows = {}
+    for name, tol in (('fwd', LSTM_TOL), ('fwd_train', LSTM_TOL),
+                      ('bwd', LSTM_BWD_TOL), ('function', LSTM_GRAD_RTOL)):
+        if name == 'function':
+            print(f'phase {phase} lstm Function vs autograd through plain '
+                  f'{label}: max relative difference {err[name]:.3e} (tol '
+                  f'{tol}), with W_hh rounded to TF32 {tf32[name]:.3e}')
+        else:
+            route = 'streamed' if mirror[name].streamed else 'cooperative'
+            print(f'phase {phase} lstm {name} {label}: max |kernel - plain| '
+                  f'{err[name]:.3e} (tol {tol}), plain with W_hh rounded to '
+                  f'TF32 {tf32[name]:.3e}; route {took[name]}, the card\'s grid '
+                  f'{card[name]}, the mirror\'s {mirror[name]._asdict()}; '
+                  f'kernel {times[name]:.4f} ms, plain {plain[name]:.3f} '
+                  f'ms, cuDNN layer {library[name]:.4f} ms, bound '
+                  f'{limits[name]["bound_ms"]:.4f} ms by '
+                  f'{limits[name]["bound_by"]}')
+            if took[name] != [route]:
+                fail(f'lstm {name} at {label} took {took[name]} on '
+                     f'{card[name]}, the mirror plans {mirror[name]}')
+            rows[name] = {'shape': label, 'max_abs_err': err[name],
+                          'ms': times[name], 'plain_ms': plain[name],
+                          **limits[name], 'library_ms': library[name],
+                          'lstm_route': took[name][0]}
+        if not err[name] <= tol:
+            fail(f'lstm {name} disagrees with plain at {label}: '
+                 f'{err[name]}')
+        if not tf32[name] > tol:
+            fail(f'the limit {tol} does not tell W_hh rounded to TF32 from '
+                 f'f32 at {label}: {tf32[name]}')
+    return rows
+
+
+def istft_case(phase, label, n_rows, frames):
+    """``masked_istft`` against plain at the recipe's STFT (512, 128,
+    257 bins) on ``n_rows`` signals of ``frames`` frames: the route, the
+    time from CUDA-graph replays and eager, plain's, the bound (the
+    FFT's)."""
+    stft = STFT(512, 128, fading='full', complex_representation='stacked')
+    spec, mask = istft_inputs(n_rows, frames, seed=frames)
+    before = dict(masked_istft.routes)
+    got = masked_istft(spec, mask, stft=stft)
+    want = masked_istft_plain(spec, mask, stft=stft)
+    torch.cuda.synchronize()
+    took = [name for name in before
+            if masked_istft.routes[name] != before[name]]
+    err = max_err([got], [want])
+
+    def kernel():
+        return masked_istft(spec, mask, stft=stft)
+
+    graph = graph_ms(kernel, iters=20)
+    eager = cuda_ms(kernel, iters=20, warmup=3)
+    plain_ms = cuda_ms(lambda: masked_istft_plain(spec, mask, stft=stft),
+                       iters=20)
+    limit = bound(nbytes(spec, mask, got) + 512 * 8 + 512 * 4,
+                  fft_flops(n_rows, frames, 512, 512))
+    print(f'phase {phase} masked_istft {label}: route {took}, max |kernel - '
+          f'plain| {err:.3e} (tol {ISTFT_TOL}); from CUDA-graph replays '
+          f'{graph:.4f} ms, eager {eager:.4f} ms, plain {plain_ms:.4f} ms, '
+          f'bound {limit["bound_ms"]:.4f} ms by {limit["bound_by"]}')
+    if took != ['fft'] or not err <= ISTFT_TOL:
+        fail(f'masked_istft at {label}: route {took}, error {err}')
+    return {'shape': label, 'max_abs_err': err, 'ms': graph,
+            'eager_ms': eager, 'plain_ms': plain_ms, **limit,
+            'library_ms': None}
+
+
+def train_recipe(phase, name, trainer, train, dev, metric):
+    """``test_run``, then ``Trainer.train`` with a validation hook on
+    ``metric`` and a :class:`Recorder`, on the card; returns the
+    recorder's losses and norms, the iterations and the launches of the
+    LSTM kernels over the training."""
+    start = time.perf_counter()
+    trainer.test_run(train, dev)
+    print(f'phase {phase}a {name} test_run passed on the card in '
+          f'{time.perf_counter() - start:.2f} s')
+    recorder = Recorder()
+    trainer.register_hook(recorder)
+    trainer.register_validation_hook(dev, metric=metric)
+    reset_launches()
+    start = time.perf_counter()
+    trainer.train(train)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = dict(lstm_cell_scan.launches)
+    losses = [float(x) for x in recorder.losses]
+    norms = [float(x) for x in recorder.norms]
+    iterations = trainer.iteration
+    print(f'phase {phase}b {name} trained {iterations} iterations in '
+          f'{seconds:.2f} s (validations and checkpoints included), lstm '
+          f'launches {launches}; losses {[round(x, 4) for x in losses]}')
+    if iterations < 3 or len(losses) != iterations or not (
+            np.isfinite(losses).all() and np.isfinite(norms).all()):
+        fail(f'phase {phase} {name}: {iterations} iterations, losses '
+             f'{losses}, norms {norms}')
+    return losses, norms, iterations, launches
+
+
+def check_launches(label, launches, want):
+    if launches != with_zeros(launches, want):
+        fail(f'{label}: launches {launches}, expected {want}')
+
+
+def serve(label, requests, wrapper_counts):
+    """``requests`` [(name, fn)], each called once as one request; returns
+    the results, the latencies and ``wrapper_counts()`` read after."""
+    reset_launches()
+    results, latencies = [], []
+    for _, fn in requests:
+        start = time.perf_counter()
+        results.append(fn())
+        latencies.append((time.perf_counter() - start) * 1e3)
+    torch.cuda.synchronize()
+    counts = wrapper_counts()
+    print(f'phase {label}: {len(requests)} requests, latency ms '
+          f'{[round(x, 3) for x in latencies]} (median '
+          f'{np.median(latencies):.3f}), launches {counts}')
+    return results, latencies, counts
+
+
+def convnet_width(model):
+    separator = model.separator
+    block = separator.conv_blocks[0][0]
+    return (model.encoder.feature_size, model.encoder.window_length,
+            separator.input_size, block.conv.in_channels,
+            len(separator.conv_blocks[0]), len(separator.conv_blocks),
+            type(block.input_conv.norm).__name__)
+
+
+def phase_convtasnet():
+    """Phase 33: the tasnet recipe's ``--variant convnet`` (Conv-TasNet)
+    at full width: ``test_run`` and 4 iterations into a storage dir that
+    loads back, the first step against the CPU, timed steps by stage at
+    ragged 4 x 32000 and 4 x 16000, three requests.  No Pallas kernel is on
+    this path: its convolutions are cuDNN's."""
+    start_phase = time.perf_counter()
+    torch.manual_seed(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        storage_dir = Path(tmp) / 'tasnet' / '1'
+        config = tas_train.get_trainer_config(
+            storage_dir, variant='convnet', updates={
+                'stop_trigger': (1, 'epoch'),
+                'summary_trigger': (4, 'iteration')})
+        dump_config({'trainer': config}, storage_dir / 'config.json')
+        trainer = Trainer.from_config(config)
+        width = convnet_width(trainer.model)
+        n_params = sum(p.numel() for p in trainer.model.parameters())
+        print(f'phase 33 Conv-TasNet width (filters, filter length, N, H, '
+              f'blocks, repeats, norm) {width}: {n_params} parameters')
+        if width != CONVNET_WIDTH:
+            fail(f'not the full-width Conv-TasNet: {width}')
+        model_cpu = copy.deepcopy(trainer.model)
+        trainer.to('cuda')
+        train, dev = (tas_data.prepare_dataset(
+            tas_data.synthetic_database(num_examples=n, seed=seed),
+            batch_size=4, segment_length=8000, shuffle=False, prefetch=False)
+            for n, seed in ((16, 0), (8, 1)))
+        losses, norms, iterations, launches = train_recipe(
+            33, 'convnet', trainer, train, dev, 'si-sdr')
+        check_launches('phase 33 convnet training', launches, {})
+        compare_first_step(
+            '33c convnet', losses, norms,
+            *first_step(model_cpu, next(iter(train)), tmp, 5.0, 'cpu',
+                        config['loss_weights']),
+            (CONVNET_STEP_RTOL, CONVNET_STEP_RTOL))
+        names = check_storage_dir(storage_dir, iterations,
+                                  'ckpt_best_si-sdr.ptt')
+        loaded_cpu = TasNet.from_storage_dir(
+            storage_dir, checkpoint_name='ckpt_best_si-sdr.ptt').eval()
+        loaded = copy.deepcopy(loaded_cpu).to('cuda')
+        print(f'phase 33d convnet storage dir {names} loads')
+        examples = list(tas_data.synthetic_database(num_examples=3, seed=2))
+        results, _, _ = serve('33e convnet served', [
+            (e['example_id'],
+             functools.partial(tas_evaluate.evaluate_example, loaded, e))
+            for e in examples], lambda: {})
+        for example_id, metrics in results:
+            if not np.isfinite(metrics['output_si_sdr']).all():
+                fail(f'{example_id}: bad output metrics {metrics}')
+        _, ref = tas_evaluate.evaluate_example(loaded_cpu, examples[0])
+        diff = float(np.abs(np.subtract(
+            ref['output_si_sdr'], results[0][1]['output_si_sdr'])).max())
+        print(f'phase 33e convnet {examples[0]["example_id"]} SI-SDR card vs '
+              f'CPU: max |diff| {diff:.3e} dB (tol {SI_SDR_TOL})')
+        if not diff <= SI_SDR_TOL:
+            fail(f'Conv-TasNet SI-SDR on the card disagrees with the CPU: '
+                 f'{diff}')
+        with torch.no_grad():
+            request = loaded.example_to_device(tas_data.post_batch_transform(
+                [examples[0]]))
+            forward_ms = cuda_ms(lambda: loaded(request), iters=5, warmup=2)
+        print(f'phase 33e convnet model forward of one request '
+              f'({examples[0]["observation"].shape[-1]} samples) '
+              f'{forward_ms:.3f} ms')
+        for samples in (32000, 16000):
+            t = timed_step(trainer, tasnet_batch(4, samples, seed=1),
+                           loss_key='si-sdr', wrapper=None)
+            print(f'phase 33f convnet training step B=4 x {samples} samples: '
+                  + ', '.join(f'{k} {v:.3f} ms' for k, v in t.items()))
+    print(f'phase 33 took {time.perf_counter() - start_phase:.1f} s')
+
+
+def phase_or_pit():
+    """Phase 34: the or_pit recipe at its defaults (a ``blstm`` DPRNN
+    TasNet with 2 outputs, ``max_iterations=2``): ``test_run`` and 4
+    iterations with launch counts, the first step against the CPU, a timed
+    step at 4 x 32000, ``separate`` on three requests.  Returns the LSTM
+    kernels' launches of the training and of the requests."""
+    start_phase = time.perf_counter()
+    torch.manual_seed(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        storage_dir = Path(tmp) / 'or_pit' / '1'
+        config = orpit_train.get_trainer_config(storage_dir, {
+            'stop_trigger': (1, 'epoch'),
+            'summary_trigger': (4, 'iteration')})
+        dump_config({'trainer': config}, storage_dir / 'config.json')
+        trainer = Trainer.from_config(config)
+        separator = trainer.model.separator
+        width = (separator.encoder.feature_size,
+                 separator.separator.input_size,
+                 len(separator.separator.dprnn_blocks),
+                 separator.separator.dprnn_blocks[0].intra_chunk_rnn.rnn
+                 .hidden_size, separator.num_speakers,
+                 trainer.model.max_iterations)
+        if width != (256, 64, 6, 128, 2, 2):
+            fail(f'not the recipe\'s OR-PIT: {width}')
+        model_cpu = copy.deepcopy(trainer.model)
+        trainer.to('cuda')
+        train, dev = (tas_data.prepare_dataset(
+            tas_data.synthetic_database(num_examples=n, seed=seed),
+            batch_size=4, segment_length=8000, shuffle=False, prefetch=False)
+            for n, seed in ((16, 0), (8, 1)))
+        n_dev = len(list(dev))
+        losses, norms, iterations, trained = train_recipe(
+            34, 'or_pit', trainer, train, dev, 'loss')
+        validations = trainer.epoch + 1
+        check_launches('phase 34 or_pit training', trained, {
+            'fwd': 12 * n_dev * validations, 'fwd_train': 12 * iterations,
+            'bwd': 12 * iterations})
+        compare_first_step(
+            '34c or_pit', losses, norms,
+            *first_step(model_cpu, next(iter(train)), tmp, 5.0, 'cpu'),
+            (TASNET_STEP_RTOL, TASNET_STEP_RTOL))
+        names = check_storage_dir(storage_dir, iterations,
+                                  'ckpt_best_loss.ptt')
+        loaded_cpu = OneAndRestPIT.from_storage_dir(storage_dir).eval()
+        loaded = copy.deepcopy(loaded_cpu).to('cuda')
+        print(f'phase 34d or_pit storage dir {names} loads')
+        examples = list(tas_data.synthetic_database(num_examples=3, seed=2))
+        results, _, served = serve('34e or_pit separate', [
+            (e['example_id'],
+             functools.partial(orpit_evaluate.evaluate_example, loaded, e))
+            for e in examples], lambda: {
+                'launches': dict(lstm_cell_scan.launches),
+                'routes': {k: {r: n for r, n in v.items() if n}
+                           for k, v in lstm_cell_scan.routes.items()
+                           if any(v.values())}})
+        check_launches('phase 34 or_pit separate', served['launches'],
+                       {'fwd': 12 * len(examples)})
+        for example_id, metrics in results:
+            if not np.isfinite(metrics['output_si_sdr']).all():
+                fail(f'{example_id}: bad output metrics {metrics}')
+        _, ref = orpit_evaluate.evaluate_example(loaded_cpu, examples[0])
+        diff = float(np.abs(np.subtract(
+            ref['output_si_sdr'], results[0][1]['output_si_sdr'])).max())
+        print(f'phase 34e or_pit {examples[0]["example_id"]} SI-SDR card vs '
+              f'CPU: max |diff| {diff:.3e} dB (tol {SI_SDR_TOL})')
+        if not diff <= SI_SDR_TOL:
+            fail(f'OR-PIT SI-SDR on the card disagrees with the CPU: {diff}')
+        t = timed_step(trainer, tasnet_batch(4, 32000, seed=1),
+                       loss_key=None, wrapper=lstm_cell_scan, per_step=12)
+        print(f'phase 34f or_pit training step B=4 x 32000 samples: '
+              + ', '.join(f'{k} {v:.3f} ms' for k, v in t.items()))
+    print(f'phase 34 took {time.perf_counter() - start_phase:.1f} s')
+    return trained, served['launches']
+
+
+def without_dropout(model):
+    for module in model.modules():
+        if isinstance(module, torch.nn.Dropout):
+            module.p = 0.0
+    return model
+
+
+def phase_mask_estimator():
+    """Phase 35: the mask estimator (``num_units=1024``: a BLSTM of 2 x 256
+    units on 257 bins): the three LSTM kernels and the Function against
+    plain at its shape (4 rows a direction, the 4 examples of 16000 samples
+    of a training batch or the 4 channels of a request, and a ragged
+    batch), ``masked_istft`` at a request's (one signal); the recipe's
+    ``test_run``, 4 iterations, the first step against the CPU (dropout
+    off on both), a timed step; ``evaluate_example`` on the synthetic
+    4-channel database with both beamformers.  Returns the kernel rows
+    and the launches of the training and of the requests."""
+    start_phase = time.perf_counter()
+    stft = me_train._stft
+    frames = stft.samples_to_frames(16000)
+    kernel_rows = {}
+    for kind, what in (('full', '4 x 16000 samples or 4 channels'),
+                       ('ragged', 'ragged')):
+        label = f'T={frames} D*B=8 H=256 {what}'
+        kernel_rows[label] = lstm_kernels_case('35a', label, frames, 4, 256,
+                                               kind, in_size=257)
+        torch.cuda.empty_cache()
+    istft_row = istft_case('35a', f'one signal, T={frames} F=257', 1, frames)
+    torch.manual_seed(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        storage_dir = Path(tmp) / 'mask_estimator' / '1'
+        config = me_train.get_trainer_config(storage_dir, epochs=1)
+        config['summary_trigger'] = (4, 'iteration')
+        dump_config({'trainer': config}, storage_dir / 'config.json')
+        trainer = Trainer.from_config(config)
+        model = trainer.model
+        width = (model.num_features, model.blstm.hidden_size,
+                 model.blstm.num_layers, model.lin1.out_features,
+                 model.drop1.p)
+        if width != (257, 256, 1, 1024, 0.5):
+            fail(f'not the recipe\'s mask estimator: {width}')
+        model_cpu = copy.deepcopy(model)
+        trainer.to('cuda')
+        train_ds = me_train.synthetic_database(num_examples=16)
+        train = me_train.prepare_dataset(train_ds, 4, shuffle=False)
+        dev = me_train.prepare_dataset(
+            me_train.synthetic_database(num_examples=8, seed=1), 4,
+            shuffle=False)
+        n_dev = len(list(dev))
+        losses, norms, iterations, trained = train_recipe(
+            35, 'mask estimator', trainer, train, dev, 'loss')
+        validations = trainer.epoch + 1
+        check_launches('phase 35 mask estimator training', trained, {
+            'fwd': n_dev * validations, 'fwd_train': iterations,
+            'bwd': iterations})
+        batch = next(iter(train))
+        card = first_step(without_dropout(copy.deepcopy(model_cpu)), batch,
+                          tmp, 10.0, 'cuda')
+        compare_first_step(
+            '35c mask estimator (dropout off)', [card[0]], [card[1]],
+            *first_step(without_dropout(model_cpu), batch, tmp, 10.0, 'cpu'),
+            (MASK_ESTIMATOR_STEP_RTOL, MASK_ESTIMATOR_STEP_RTOL))
+        names = check_storage_dir(storage_dir, iterations,
+                                  'ckpt_best_loss.ptt')
+        loaded_cpu = SimpleMaskEstimator.from_storage_dir(storage_dir).eval()
+        loaded = copy.deepcopy(loaded_cpu).to('cuda')
+        print(f'phase 35d mask estimator storage dir {names} loads')
+        examples = list(me_evaluate.synthetic_multichannel_database())
+        spec = np.asarray(stft(examples[0]['observation']))   # (C, T, F)
+        features = {'observation_abs': np.abs(spec).astype('float32'),
+                    'num_frames': np.full(spec.shape[0], spec.shape[1],
+                                          'int32')}
+        with torch.no_grad():
+            masks = [model(model.example_to_device(features))[
+                'speech_mask_prediction'].cpu()
+                for model in (loaded, loaded_cpu)]
+        mask_err = float((masks[0] - masks[1]).abs().max())
+        print(f'phase 35e mask estimator {examples[0]["example_id"]} '
+              f'({spec.shape[0]} channels, {spec.shape[1]} frames) speech '
+              f'masks card vs CPU: max |diff| {mask_err:.3e} (tol '
+              f'{MASK_ESTIMATOR_MASK_TOL})')
+        if not mask_err <= MASK_ESTIMATOR_MASK_TOL:
+            fail(f'phase 35: the masks on the card disagree with the CPU: '
+                 f'{mask_err}')
+        served = {}
+        for beamformer in ('mvdr_souden', 'gev'):
+            results, _, counts = serve(
+                f'35e mask estimator evaluate_example, {beamformer}', [
+                    (e['example_id'], functools.partial(
+                        me_evaluate.evaluate_example, loaded, stft, e,
+                        beamformer=beamformer))
+                    for e in examples], lambda: {
+                        'lstm': dict(lstm_cell_scan.launches),
+                        'masked_istft': masked_istft.launches,
+                        'masked_istft_routes': dict(masked_istft.routes)})
+            check_launches(f'phase 35 {beamformer} requests', counts['lstm'],
+                           {'fwd': len(examples)})
+            if counts['masked_istft'] != len(examples) \
+                    or counts['masked_istft_routes']['fft'] != len(examples):
+                fail(f'phase 35 {beamformer}: masked_istft launches '
+                     f'{counts}, expected {len(examples)} on the fft route')
+            for key, value in counts.items():
+                if key == 'lstm':
+                    value = value['fwd']
+                elif key == 'masked_istft_routes':
+                    continue
+                served[key] = served.get(key, 0) + value
+            for example_id, metrics in results:
+                values = [v for kind in metrics.values()
+                          for v in kind.values()]
+                if len(values) != 9 or not np.isfinite(values).all():
+                    fail(f'{example_id}: bad metric triples {metrics}')
+            print(f'phase 35e {beamformer} metric triples: '
+                  + json.dumps(dict(results)))
+            _, ref = me_evaluate.evaluate_example(
+                loaded_cpu, stft, examples[0], beamformer=beamformer)
+            got = results[0][1]
+            diff = {f'{kind} {metric}': abs(got[kind][metric] - value)
+                    for kind, triple in ref.items()
+                    for metric, value in triple.items()}
+            held = {key: value for key, value in diff.items()
+                    if beamformer == 'mvdr_souden'
+                    or not key.startswith('beamformed')}
+            print(f'phase 35e {beamformer} {examples[0]["example_id"]} '
+                  f'metrics card vs CPU: |diff| '
+                  + ', '.join(f'{k} {v:.3e}' for k, v in diff.items())
+                  + f' (tol {MASK_ESTIMATOR_METRIC_TOL} on '
+                  f'{sorted(held)})')
+            for key, value in held.items():
+                if not value <= MASK_ESTIMATOR_METRIC_TOL:
+                    fail(f'phase 35 {beamformer} {key}: card vs CPU {value}')
+        t = timed_step(trainer, batch, loss_key=None, wrapper=lstm_cell_scan,
+                       per_step=1)
+        print(f'phase 35f mask estimator training step B=4 x {frames} '
+              f'frames: ' + ', '.join(f'{k} {v:.3f} ms' for k, v in t.items()))
+    print(f'phase 35 took {time.perf_counter() - start_phase:.1f} s')
+    return kernel_rows, istft_row, trained, served
+
+
+def phase_deep_clustering():
+    """Phase 36: ``DeepClusteringModel`` (F=257, 2 x 600 BLSTM, E=20) on 4
+    of the pit recipe's synthetic mixtures, ``target_mask`` the ideal
+    binary masks of their speakers' STFTs: the served embeddings and the
+    first Adam step (clip 10) against the CPU, timed steps.  Returns the
+    LSTM kernels' launches of one served batch and one step."""
+    start_phase = time.perf_counter()
+    torch.manual_seed(0)
+    model_cpu = DeepClusteringModel()
+    width = (model_cpu.F, model_cpu.blstm.hidden_size,
+             model_cpu.blstm.num_layers, model_cpu.E)
+    if width != (257, 600, 2, 20):
+        fail(f'not the deep-clustering model\'s defaults: {width}')
+    examples = list(pit_data.synthetic_database(num_examples=4, seed=3))
+    batch = pit_data.post_batch_transform(
+        [pit_data.pre_batch_transform(e) for e in examples])
+    x_abs = batch['X_abs']                                  # (B, T, K, F)
+    batch = {'Y_abs': batch['Y_abs'], 'num_frames': batch['num_frames'],
+             'target_mask': (x_abs == x_abs.max(axis=2, keepdims=True))
+             .astype('float32')}
+    shape = f'B=4 T={batch["Y_abs"].shape[1]} (frames {batch["num_frames"]})'
+    model = copy.deepcopy(model_cpu).to('cuda').eval()
+    reset_launches()
+    with torch.no_grad():
+        got = model(model.example_to_device(batch))
+        torch.cuda.synchronize()
+        served = dict(lstm_cell_scan.launches)
+        want = model_cpu.eval()(model_cpu.example_to_device(batch))
+    err = float((got.cpu() - want).abs().max())
+    print(f'phase 36a deep clustering {shape}: embeddings card vs CPU max '
+          f'|diff| {err:.3e} (tol {DC_TOL}), launches {served}')
+    check_launches('phase 36 served', served, {'fwd': 2})
+    if tuple(got.shape) != (4, batch['Y_abs'].shape[1], 20, 257) \
+            or not err <= DC_TOL:
+        fail(f'deep-clustering embeddings on the card disagree with the '
+             f'CPU: {err}')
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_launches()
+        card = first_step(copy.deepcopy(model_cpu), batch, tmp, 10.0, 'cuda')
+        torch.cuda.synchronize()
+        trained = dict(lstm_cell_scan.launches)
+        check_launches('phase 36 training step', trained,
+                       {'fwd_train': 2, 'bwd': 2})
+        compare_first_step('36b deep clustering', [card[0]], [card[1]],
+                           *first_step(model_cpu, batch, tmp, 10.0, 'cpu'),
+                           (DC_STEP_RTOL, DC_STEP_RTOL))
+        trainer = Trainer(model.train(), Path(tmp) / 'timed',
+                          Adam(gradient_clipping=10.0))
+        t = timed_step(trainer, batch, loss_key='dc_loss',
+                       wrapper=lstm_cell_scan, per_step=2)
+        print(f'phase 36c deep clustering training step {shape}: '
+              + ', '.join(f'{k} {v:.3f} ms' for k, v in t.items()))
+    print(f'phase 36 took {time.perf_counter() - start_phase:.1f} s')
+    return served, trained
+
+
+
 def main():
     profile = '--profile' in sys.argv[1:]
     phase_device()
@@ -5843,6 +6473,14 @@ def main():
     dprnn_bgru_launches = phase_dprnn_bgru_bf16()
     speaker_bf16_launches = phase_speaker_bf16()
     phase_geometries()
+    torch.cuda.empty_cache()
+    phase_convtasnet()
+    torch.cuda.empty_cache()
+    orpit_trained, orpit_served = phase_or_pit()
+    torch.cuda.empty_cache()
+    me_rows, me_istft, me_trained, me_served = phase_mask_estimator()
+    torch.cuda.empty_cache()
+    dc_served, dc_trained = phase_deep_clustering()
     # the bf16 GRU kernels' launches on the main paths: the bgru DPRNN
     # under the policy (20 steps and 4 requests) and both classifiers
     gru_bf16_launches = {
@@ -5895,14 +6533,24 @@ def main():
              f'{GRU_BWD_MAIN_ROUTES} do not add up to its '
              f'{gru_launches["bwd"]} launches on the main paths, or none '
              f'took the resident route')
-    # the LSTM kernels' launches: the uPIT paths plus the TasNet paths
-    # with LSTM chunk RNNs
+    # the LSTM kernels' launches: the uPIT paths, the TasNet paths with
+    # LSTM chunk RNNs, OR-PIT, the mask estimator and deep clustering
+    # (phases 34 to 36: training, validation and requests)
+    new_paths = {
+        name: orpit_trained[name] + me_trained[name] + dc_trained[name]
+        + (orpit_served[name] + me_served['lstm'] + dc_served[name]
+           if name == 'fwd' else 0)
+        for name in ('fwd', 'fwd_train', 'bwd')}
     lstm_launches = {
         'fwd': launches['lstm_cell_scan'] + served['blstm']
-        + trained['blstm']['fwd'],
+        + trained['blstm']['fwd'] + new_paths['fwd'],
         'fwd_train': train_launches['fwd_train']
-        + trained['blstm']['fwd_train'],
-        'bwd': train_launches['bwd'] + trained['blstm']['bwd']}
+        + trained['blstm']['fwd_train'] + new_paths['fwd_train'],
+        'bwd': train_launches['bwd'] + trained['blstm']['bwd']
+        + new_paths['bwd']}
+    for name, n in new_paths.items():
+        if n == 0:
+            fail(f'phases 34 to 36 never launched the lstm {name} kernel')
     print(f'launches on the main paths: lstm {lstm_launches} (uPIT serving '
           f'{launches["lstm_cell_scan"]}, uPIT training {train_launches}, '
           f'TasNet blstm serving {served["blstm"]}, training '
@@ -5918,7 +6566,11 @@ def main():
           f'(the bf16 SepFormer step: 20 training steps); bf16 gru '
           f'{gru_bf16_launches} (the bgru DPRNN under the policy '
           f'{dprnn_bgru_launches}, the speaker classifiers '
-          f'{speaker_bf16_launches})')
+          f'{speaker_bf16_launches}); of the lstm launches OR-PIT, the '
+          f'mask estimator and deep clustering {new_paths} (OR-PIT '
+          f'training {orpit_trained}, separate {orpit_served}; the mask '
+          f'estimator training {me_trained}, requests {me_served}; deep '
+          f'clustering served {dc_served}, a step {dc_trained})')
     # every row's numbers are those of its ``shape``: the GRU rows those of
     # the intra-chunk shape, which six of a TasNet's twelve chunk RNNs run
     # (phase 8 prints the rows of the other shapes, the classifier's two
@@ -5937,17 +6589,20 @@ def main():
         {'name': 'lstm_cell_scan', 'route': 'cuda',
          'source': 'padertorch_tpu_torch/csrc/lstm_cell_scan.cu',
          'replaces': 'padertorch_tpu/ops/pallas/lstm.py:275',
-         'launches': lstm_launches['fwd'], 'shape': flagship, **lstm},
+         'launches': lstm_launches['fwd'], 'shape': flagship, **lstm,
+         'other_shapes': [rows['fwd'] for rows in me_rows.values()]},
         {'name': 'lstm_cell_scan_train', 'route': 'cuda',
          'source': 'padertorch_tpu_torch/csrc/lstm_cell_scan.cu',
          'replaces': 'padertorch_tpu/ops/pallas/lstm.py:293',
          'launches': lstm_launches['fwd_train'], 'shape': flagship,
-         **train_kernels['fwd_train']},
+         **train_kernels['fwd_train'],
+         'other_shapes': [rows['fwd_train'] for rows in me_rows.values()]},
         {'name': 'lstm_cell_scan_bwd', 'route': 'cuda',
          'source': 'padertorch_tpu_torch/csrc/lstm_cell_scan_bwd.cu',
          'replaces': 'padertorch_tpu/ops/pallas/lstm.py:339',
          'launches': lstm_launches['bwd'], 'shape': flagship,
-         **train_kernels['bwd']},
+         **train_kernels['bwd'],
+         'other_shapes': [rows['bwd'] for rows in me_rows.values()]},
         {'name': 'lstm_cell_scan_bf16', 'route': 'cuda',
          'source': 'padertorch_tpu_torch/csrc/lstm_cell_scan.cu',
          'replaces': 'padertorch_tpu/ops/pallas/lstm.py:275',
@@ -5971,9 +6626,14 @@ def main():
         {'name': 'masked_istft', 'route': 'cuda',
          'source': 'padertorch_tpu_torch/csrc/masked_istft.cu',
          'replaces': 'padertorch_tpu/ops/pallas/masked_istft.py:135',
-         'launches': launches['masked_istft'],
-         'launches_by_route': launches['masked_istft_routes'],
-         'shape': 'K=2 T=127 F=257', **istft[(2, 127)]},
+         'launches': launches['masked_istft'] + me_served['masked_istft'],
+         'launches_by_route': {
+             **launches['masked_istft_routes'],
+             'fft': launches['masked_istft_routes']['fft']
+             + me_served['masked_istft']},   # phase 35 checks its route
+         'launches_mask_estimator': me_served['masked_istft'],
+         'shape': 'K=2 T=127 F=257', **istft[(2, 127)],
+         'other_shapes': [me_istft]},
         {'name': 'gru_cell_scan', 'route': 'cuda',
          'source': 'padertorch_tpu_torch/csrc/gru_cell_scan.cu',
          'replaces': 'padertorch_tpu/ops/pallas/gru.py:182',

@@ -1,16 +1,17 @@
-"""Train TasNet / DPRNN-TasNet / SepFormer-TasNet.
+"""Train TasNet / DPRNN-TasNet / Conv-TasNet / SepFormer-TasNet.
 
 Counterpart of ``padertorch_tpu/contrib/examples/source_separation/tasnet/
 train.py`` (reference ``contrib/examples/source_separation/tasnet/
-train.py``; the sacred named configs ``dprnn``, ``win2``, ``stft``,
-``log_mse`` become the ``--variant``/``--loss`` flags; ``sepformer`` is the
-dual-path transformer separator, ``--flash`` forces its attention onto the
-fused kernels).  It runs
+train.py``; the sacred named configs ``dprnn``, ``convnet``, ``win2``,
+``stft``, ``log_mse`` become the ``--variant``/``--loss`` flags;
+``sepformer`` is the dual-path transformer separator, ``--flash`` forces
+its attention onto the fused kernels).  It runs
 ``test_run``, registers the validation hook on ``si-sdr``, trains, and
 leaves a storage dir (``config.json``, ``checkpoints/``, an event file)
 that the ``evaluate.py`` of this package and of the JAX package both load.
-The ``convnet`` variant is not ported yet (``padertorch_tpu/modules/
-convnet.py``, ROADMAP.md) and raises.
+The ``convnet`` variant's separator (``modules/convnet.py``) has no
+recurrence and no Pallas kernel in the JAX package: its convolutions are
+``torch.nn.functional.conv1d`` (cuDNN) on the card.
 
 The chunk RNN type is part of the config, as in the JAX recipe: pass
 ``updates={'model': {'separator': {'inter_chunk_type': 'bgru',
@@ -23,6 +24,8 @@ Run on the card (the default device; without one it fails):
         --storage_root /tmp/tasnet --synthetic --epochs 2 --variant dprnn
     python -m padertorch_tpu_torch.contrib.examples.source_separation.tasnet.train \
         --storage_root /tmp/tasnet --synthetic --epochs 2 --variant sepformer --flash
+    python -m padertorch_tpu_torch.contrib.examples.source_separation.tasnet.train \
+        --storage_root /tmp/tasnet --synthetic --epochs 2 --variant convnet
 Run on the CPU: add ``--device cpu`` (and ``--small`` for a tiny model).
 ``--precision bfloat16`` trains under the bf16 policy
 (``Trainer(precision=...)``; the JAX package benchmarks the DPRNN step so).
@@ -48,6 +51,7 @@ from padertorch_tpu_torch.models.tasnet import (
 )
 from padertorch_tpu_torch.contrib.mk.modules.transformer import (
     set_attention_backend)
+from padertorch_tpu_torch.modules.convnet import ConvNet
 from padertorch_tpu_torch.modules.dual_path_rnn import DPRNN
 from padertorch_tpu_torch.modules.recurrent import set_rnn_backend
 from padertorch_tpu_torch.modules.dual_path_transformer import (
@@ -64,6 +68,13 @@ VARIANTS = {
             'factory': DPRNN,
             'input_size': 64, 'rnn_size': 128,
             'window_length': 100, 'hop_size': 50, 'num_blocks': 6,
+        },
+    },
+    'convnet': {
+        'separator': {
+            'factory': ConvNet,
+            'input_size': 256, 'num_blocks': 8, 'num_repeats': 4,
+            'hidden_channels': 512,
         },
     },
     'sepformer': {
@@ -83,18 +94,10 @@ VARIANTS = {
         'mask': True,
     },
 }
-# variants of the JAX recipe whose separators are not ported yet
-NOT_PORTED = {
-    'convnet': 'padertorch_tpu/modules/convnet.py (the TCN separator)',
-}
 
 
 def get_trainer_config(storage_dir, variant='dprnn', loss='si-sdr',
                        updates=None):
-    if variant in NOT_PORTED:
-        raise NotImplementedError(
-            f'--variant {variant} needs {NOT_PORTED[variant]}, which is '
-            'not ported yet (ROADMAP.md)')
     model_updates = nested_merge(
         {'factory': TasNet}, VARIANTS.get(variant, {}))
     loss_weights = {'si-sdr': 0.0, 'log-mse': 0.0, 'log1p-mse': 0.0}
@@ -133,7 +136,7 @@ def main():
     parser.add_argument('--database', default=None)
     parser.add_argument('--synthetic', action='store_true')
     parser.add_argument('--variant', default='dprnn',
-                        choices=sorted([*VARIANTS, *NOT_PORTED]))
+                        choices=sorted(VARIANTS))
     parser.add_argument('--loss', default='si-sdr',
                         choices=['si-sdr', 'log-mse', 'log1p-mse'])
     parser.add_argument('--epochs', type=int, default=200)
@@ -202,7 +205,7 @@ def main():
         set_rnn_backend(trainer.model, args.rnn_backend,
                         compute_dtype=args.compute_dtype or 'keep')
     except AssertionError:
-        pass  # the sepformer variant has no RNNs
+        pass  # the convnet and sepformer variants have no RNNs
     print(f'device: {args.device}')
 
     n_train = args.num_examples or max(32, 4 * args.batch_size)

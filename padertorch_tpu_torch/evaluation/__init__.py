@@ -5,3 +5,4 @@ from padertorch_tpu_torch.evaluation.metrics import (
 from padertorch_tpu_torch.evaluation.parallel import (
     split_managed, gather, gather_merged, bcast, is_master, RANK, SIZE,
 )
+from padertorch_tpu_torch.evaluation.stoi import stoi

@@ -23,8 +23,11 @@ port):
 - ``ConvTranspose1d``: ``weight`` (out, in, k) -> (in, out, k), axes 0 and
   1 swapped (the JAX layer flips the taps in its forward, so the values
   are torch's); ``bias`` copied;
-- ``Conv1d``, ``Conv2d`` (OIH(W) in both), ``Embedding``, ``LayerNorm``,
-  ``RMSNorm``, ``PReLU``, ``DynamicTanh`` (``alpha``, ``weight``, ``bias``),
+- ``Conv1d``, ``Conv2d`` (OIH(W) in both; a grouped or depthwise
+  ``Conv1d`` is (out, in / groups, k) in both), ``Embedding``,
+  ``LayerNorm``, ``RMSNorm``, ``PReLU``, the TCN's ``GlobalLayerNorm`` and
+  ``ChannelwiseLayerNorm`` (``gamma``, ``beta`` of shape (1, C, 1)),
+  ``DynamicTanh`` (``alpha``, ``weight``, ``bias``),
   ``AutoPool`` (``alpha``) and the bias token of a ``MultiheadAttention``
   (``bias_k``, ``bias_v``): copied;
 - buffers that are part of the JAX ``state_dict()`` are copied both ways:
@@ -37,7 +40,9 @@ port):
   ``TransformerDecoder``'s ``layers``) are ``nn.ModuleList``s
   in the port, whose keys (``layers.0. ...``) are the JAX pytree paths; the
   children of a ``Sequential`` sit in its ``layers`` list in the JAX
-  package (``cnn.0.weight`` here is ``cnn.layers.0.weight`` there).
+  package (``cnn.0.weight`` here is ``cnn.layers.0.weight`` there; a
+  ``ConvNet``'s nested ones, ``conv_blocks.0.1.conv.conv.weight`` here, are
+  ``conv_blocks.layers.0.layers.1.conv.conv.weight`` there).
 
 :func:`to_jax_state_dict` is the inverse of :func:`from_jax_state_dict`:
 the port's trainer writes its checkpoints' ``model`` entry with it, so
@@ -53,6 +58,8 @@ from padertorch_tpu_torch.contrib.je.modules.features import (
 from padertorch_tpu_torch.contrib.je.modules.reduce import AutoPool
 from padertorch_tpu_torch.contrib.mk.modules.transformer import (
     DynamicTanh, MultiheadAttention, RoPE)
+from padertorch_tpu_torch.modules.convnet import (
+    ChannelwiseLayerNorm, GlobalLayerNorm)
 from padertorch_tpu_torch.modules.normalization import Normalization
 from padertorch_tpu_torch.modules.recurrent import GRU, _RNNBase
 from padertorch_tpu_torch.nn import RMSNorm
@@ -93,7 +100,8 @@ def _quantized_pairs(mod, dot):
 # the JAX arrays' names and layouts
 _COPIED_AS_THEY_ARE = (DynamicTanh, MultiheadAttention, RMSNorm, RoPE,
                        Normalization, MelTransform, DeltaExtractor,
-                       FusedAudioLogMelExtractor, AutoPool)
+                       FusedAudioLogMelExtractor, AutoPool, GlobalLayerNorm,
+                       ChannelwiseLayerNorm)
 
 
 def _jax_paths(model):
@@ -153,9 +161,10 @@ def _jax_to_port(model):
         raise NotImplementedError(
             f'no JAX layout known for the parameters {missed}: only LSTM, '
             'GRU, Linear, QuantizedLinear, Embedding, Conv1d, Conv2d, '
-            'ConvTranspose1d, LayerNorm, RMSNorm, PReLU, DynamicTanh, RoPE, '
-            'MultiheadAttention, Normalization, AutoPool and the feature '
-            'extractors move between the packages yet')
+            'ConvTranspose1d, LayerNorm, RMSNorm, PReLU, GlobalLayerNorm, '
+            'ChannelwiseLayerNorm, DynamicTanh, RoPE, MultiheadAttention, '
+            'Normalization, AutoPool and the feature extractors move '
+            'between the packages yet')
     return pairs
 
 

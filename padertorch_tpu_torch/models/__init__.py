@@ -1,3 +1,5 @@
 from padertorch_tpu_torch.models import bss, tasnet
-from padertorch_tpu_torch.models.bss import PermutationInvariantTrainingModel
+from padertorch_tpu_torch.models.bss import (
+    PermutationInvariantTrainingModel, DeepClusteringModel,
+)
 from padertorch_tpu_torch.models.tasnet import TasNet

@@ -1,13 +1,17 @@
-"""uPIT BLSTM mask estimator (Kolbaek 2017).
+"""uPIT BLSTM mask estimator (Kolbaek 2017) and the BLSTM deep-clustering
+model (Hershey 2016).
 
-Counterpart of ``padertorch_tpu/models/bss.py``
+Counterpart of ``padertorch_tpu/models/bss.py``:
 ``PermutationInvariantTrainingModel`` (reference
 ``padertorch/contrib/examples/source_separation/pit/model.py:11``):
 log1p -> BLSTM -> Linear/ReLU -> Linear/activation -> (B, T, K, F) masks,
-and the review with the permutation-invariant losses.  Batches are padded
-arrays plus a ``num_frames`` length vector, as in the JAX package; the
-losses mask padded frames (mean over the valid frames per example, then
-mean over the batch).
+and the review with the permutation-invariant losses; and
+``DeepClusteringModel`` (reference ``padertorch/contrib/tcl/dc.py``): BLSTM
+-> Linear -> (B, T, E, F) embeddings of unit norm over E, and the deep
+clustering loss over the valid frames.  Batches are padded arrays plus a
+``num_frames`` length vector, as in the JAX package; the losses mask
+padded frames (mean over the valid frames per example, then mean over the
+batch).  On the card the BLSTMs run the ``lstm_cell_scan`` kernels.
 """
 import itertools
 
@@ -16,9 +20,11 @@ import torch
 from padertorch_tpu_torch.base import Model
 from padertorch_tpu_torch import nn
 from padertorch_tpu_torch.modules.recurrent import LSTM
+from padertorch_tpu_torch.ops.losses.source_separation import (
+    deep_clustering_loss)
 from padertorch_tpu_torch.ops.mappings import ACTIVATION_FN_MAP
 
-__all__ = ['PermutationInvariantTrainingModel']
+__all__ = ['PermutationInvariantTrainingModel', 'DeepClusteringModel']
 
 
 def _masked_pit_mse(estimate, target, num_frames):
@@ -146,3 +152,71 @@ class PermutationInvariantTrainingModel(Model):
             else:
                 summary['images'][key] = stft_to_image(value)
         return super().modify_summary(summary)
+
+
+class DeepClusteringModel(Model):
+    """BLSTM deep-clustering embedding model.
+
+    forward input: dict with ``Y_abs`` (B, T, F) and ``num_frames`` (B,);
+    review uses ``target_mask`` (B, T, K, F).
+    Returns embeddings (B, T, E, F), unit-norm over E.
+    """
+
+    def __init__(
+            self,
+            F=257,
+            recurrent_layers=2,
+            units=600,
+            E=20,
+            input_feature_transform='identity',
+    ):
+        super().__init__()
+        self.E = E
+        self.F = F
+        self.input_feature_transform = input_feature_transform
+        self.blstm = LSTM(
+            F, units, num_layers=recurrent_layers, bidirectional=True)
+        self.linear = nn.Linear(2 * units, F * E)
+
+    def forward(self, batch):
+        y = batch['Y_abs']
+        b, t, f = y.shape
+        assert f == self.F, f'self.F = {self.F} != F = {f}'
+        if self.input_feature_transform == 'identity':
+            h = y
+        elif self.input_feature_transform == 'log1p':
+            h = torch.log1p(y)
+        elif self.input_feature_transform == 'log':
+            h = torch.log(y + 1e-10)
+        else:
+            raise NotImplementedError(self.input_feature_transform)
+        h, _ = self.blstm(h, seq_lens=batch.get('num_frames'))
+        h = self.linear(h).reshape(b, t, self.E, self.F)
+        # Hershey 2016: unit norm over the embedding axis
+        return h / torch.clamp(
+            torch.linalg.vector_norm(h, dim=2, keepdim=True), min=1e-12)
+
+    def review(self, batch, model_out):
+        target_mask = batch['target_mask']
+        b, t, e, f = model_out.shape
+        num_frames = batch.get('num_frames')
+        if num_frames is None:
+            num_frames = torch.full((b,), target_mask.shape[1])
+        num_frames = torch.as_tensor(num_frames, device=model_out.device)
+        valid = (torch.arange(t, device=model_out.device)[None, :]
+                 < num_frames[:, None]).to(model_out.dtype)
+        losses = []
+        for i in range(b):
+            # (T, E, F) -> (T*F, E); zero padded frames contribute zero
+            # rows to every term, but the N^2 normalization must count
+            # only valid frames
+            v = valid[i][:, None, None]
+            x = (model_out[i] * v).transpose(1, 2).reshape(-1, e)
+            m = (target_mask[i] * v).transpose(1, 2).reshape(
+                -1, target_mask.shape[2])
+            # in float: the JAX package's int32 square wraps above
+            # T * F = 46340
+            n_valid = num_frames[i].to(torch.float32) * f
+            losses.append(deep_clustering_loss(x, m) * (x.shape[0] ** 2)
+                          / (n_valid ** 2))
+        return {'losses': {'dc_loss': torch.mean(torch.stack(losses))}}

@@ -15,10 +15,11 @@ from a copy of the lengths, and no step waits for the device to read a
 length.
 
 The separator is a :class:`~padertorch_tpu_torch.modules.dual_path_rnn
-.DPRNN` or a :class:`~padertorch_tpu_torch.modules.dual_path_transformer
-.DualPathTransformer` (sepformer); the JAX package's ``ConvNet``
-(Conv-TasNet) separator is not ported yet (``padertorch_tpu/modules/
-convnet.py``, ROADMAP.md).
+.DPRNN`, a :class:`~padertorch_tpu_torch.modules.dual_path_transformer
+.DualPathTransformer` (sepformer) or a :class:`~padertorch_tpu_torch
+.modules.convnet.ConvNet` (Conv-TasNet): any module with ``input_size``,
+``hidden_size`` and ``forward(sequence, sequence_lengths)``, as in the JAX
+package.
 """
 import itertools
 from typing import Optional
@@ -28,6 +29,7 @@ import torch
 
 from padertorch_tpu_torch.base import Model
 from padertorch_tpu_torch import nn
+from padertorch_tpu_torch.modules.convnet import ConvNet
 from padertorch_tpu_torch.modules.dual_path_rnn import (
     DPRNN, _host_lengths, _length_mask)
 from padertorch_tpu_torch.modules.dual_path_transformer import (
@@ -175,7 +177,7 @@ def _masked_log1p_mse(estimate, target, mask, n_valid):
 
 
 class TasNet(Model):
-    """Time-domain separator: encoder -> separator (DPRNN or
+    """Time-domain separator: encoder -> separator (DPRNN, ConvNet or
     DualPathTransformer) -> decoder.
 
     forward input: dict with ``y`` (B, T), ``num_samples`` (B,);
@@ -190,6 +192,8 @@ class TasNet(Model):
             config['separator'].update(
                 input_size=64, rnn_size=128, window_length=100,
                 hop_size=50, num_blocks=6)
+        elif config['separator']['factory'] == ConvNet:
+            config['separator']['input_size'] = 256
         elif config['separator']['factory'] == DualPathTransformer:
             config['separator'].update(
                 input_size=128, window_length=100, hop_size=50,
@@ -216,12 +220,6 @@ class TasNet(Model):
         super().__init__()
         assert not mask or encoder.feature_size == decoder.feature_size, (
             'Encoder and decoder feature sizes must match when masking!')
-        if not isinstance(separator, (DPRNN, DualPathTransformer)):
-            raise NotImplementedError(
-                f'separator {type(separator).__name__}: only the DPRNN and '
-                'DualPathTransformer separators are ported; ConvNet '
-                '(Conv-TasNet, padertorch_tpu/modules/convnet.py) is not '
-                'ported yet (ROADMAP.md)')
         self.encoder = encoder
         self.separator = separator
         self.decoder = decoder

@@ -19,8 +19,8 @@ float32 input, bit for bit, and otherwise take the JAX package's steps.
 import torch
 import torch.nn.functional as F
 from torch.nn import (  # noqa: F401
-    Dropout, ELU, Embedding, GELU, GLU, Identity, LeakyReLU, Module, PReLU,
-    ReLU, Sequential, Sigmoid, SiLU, Softmax, Tanh,
+    Dropout, ELU, Embedding, GELU, GLU, Identity, LeakyReLU, Module, ReLU,
+    Sequential, Sigmoid, SiLU, Softmax, Tanh,
 )
 
 __all__ = ['Linear', 'Embedding', 'Sequential', 'Conv1d', 'Conv2d',
@@ -91,6 +91,25 @@ class ConvTranspose1d(torch.nn.ConvTranspose1d):
                                self.padding, output_padding, self.groups,
                                self.dilation)
         return _add_bias(y, self.bias)
+
+
+class PReLU(torch.nn.PReLU):
+    """``torch.nn.PReLU``'s parameter with the function of
+    ``padertorch_tpu/nn.py`` ``PReLU``: ``where(x >= 0, x, a * x)``, whose
+    derivative at x = 0 is 1 where torch's is ``a``; a weight of more than
+    one value scales axis 1.
+
+    >>> x = torch.zeros(3, requires_grad=True)
+    >>> PReLU()(x).sum().backward()
+    >>> x.grad.tolist()
+    [1.0, 1.0, 1.0]
+    """
+
+    def forward(self, x):
+        a = self.weight
+        if a.shape[0] != 1 and x.dim() >= 2:
+            a = a.reshape((1, -1) + (1,) * (x.dim() - 2))
+        return torch.where(x >= 0, x, a * x)
 
 
 class LayerNorm(torch.nn.LayerNorm):

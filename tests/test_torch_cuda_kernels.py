@@ -29,6 +29,9 @@ bit, and the fused log-mel
 front end against its plain version (1e-4 on log-mel values), both at odd
 batch sizes, lengths and widths; a ``WaveNetVocoder`` and a ``SpeakerClf``
 on the card are held against the CPU and moved to the JAX layout and back.
+The three LSTM kernels and ``masked_istft`` are held at the mask
+estimator's shapes, and a first training step of the Conv-TasNet, OR-PIT,
+the mask estimator and the deep-clustering model against the CPU.
 Marked
 ``cuda``: they skip without a card.  Run them on the card with
 
@@ -2302,3 +2305,85 @@ def test_lstm_bf16_backward_routes_follow_the_mirror(cuda):
             'streamed' if grid['streamed'] else 'cooperative')
         assert got == route, (rows, hdim, grid, route)
     assert lstm_kernels.bwd_route(2, 2, widest, True, *limits) == 'mma'
+
+
+# The separation and enhancement models ported last: the mask estimator's
+# BLSTM (257 inputs, 2 x 256 units) at a request's and a training batch's
+# shape (4 rows a direction, T = 128 frames of 16000 samples) and a ragged
+# batch, its request's masked_istft (one signal), and a first training step
+# of each model on the card against the CPU.
+
+@pytest.mark.parametrize('kind', ['full', 'ragged'])
+def test_lstm_kernels_at_the_mask_estimators_shapes(cuda, kind):
+    """The three kernels and the Function against plain at ``chip_smoke``
+    phases 3, 6 and 9's limits, each TF32 control failing them, on the
+    route the mirror plans (``chip_smoke.lstm_kernels_case`` raises
+    otherwise)."""
+    rows = chip_smoke.lstm_kernels_case(
+        'test', f'T=128 D*B=8 H=256 {kind}', 128, 4, 256, kind, in_size=257)
+    assert set(rows) == {'fwd', 'fwd_train', 'bwd'}
+
+
+def test_masked_istft_at_the_mask_estimators_request(cuda):
+    row = chip_smoke.istft_case('test', 'one signal T=128 F=257', 1, 128)
+    assert row['max_abs_err'] <= chip_smoke.ISTFT_TOL
+
+
+def _mixtures(batch, samples, seed=0):
+    return chip_smoke.tasnet_batch(batch, samples, seed=seed)
+
+
+def _small_models():
+    from padertorch_tpu_torch.models.bss import DeepClusteringModel
+    from padertorch_tpu_torch.models.mask_estimator import (
+        SimpleMaskEstimator)
+    from padertorch_tpu_torch.models.or_pit import OneAndRestPIT
+    from padertorch_tpu_torch.modules.convnet import ConvNet
+    from padertorch_tpu_torch.contrib.examples.source_separation.pit \
+        import data as pit_data
+    from padertorch_tpu_torch.contrib.examples.speech_enhancement \
+        .mask_estimator import train as me_train
+    torch.manual_seed(0)
+    me_batch = next(iter(me_train.prepare_dataset(
+        me_train.synthetic_database(num_examples=3, num_samples=6000), 3,
+        shuffle=False)))
+    pit = pit_data.post_batch_transform([
+        pit_data.pre_batch_transform(e)
+        for e in pit_data.synthetic_database(num_examples=3, seed=3)])
+    x_abs = pit['X_abs']
+    dc_batch = {'Y_abs': pit['Y_abs'], 'num_frames': pit['num_frames'],
+                'target_mask': (x_abs == x_abs.max(axis=2, keepdims=True))
+                .astype('float32')}
+    return {
+        'convnet': (TasNet(
+            encoder=TasEncoder(20, 64), decoder=TasDecoder(20, 64),
+            separator=ConvNet(64, num_blocks=4, num_repeats=2,
+                              hidden_channels=128)),
+            _mixtures(3, 8000), {'si-sdr': 1.0, 'log-mse': 0.0,
+                                 'log1p-mse': 0.0}),
+        'or_pit': (OneAndRestPIT(TasNet(
+            encoder=TasEncoder(20, 32), decoder=TasDecoder(20, 32),
+            separator=DPRNN(16, 24, window_length=10, hop_size=5,
+                            num_blocks=2))),
+            _mixtures(3, 4000), None),
+        'mask_estimator': (SimpleMaskEstimator(257, num_units=64,
+                                               dropout=0.0), me_batch, None),
+        'deep_clustering': (DeepClusteringModel(F=257, units=32, E=8),
+                            dc_batch, None),
+    }
+
+
+@pytest.mark.parametrize('name', ['convnet', 'or_pit', 'mask_estimator',
+                                  'deep_clustering'])
+def test_first_training_step_on_the_card_matches_the_cpu(cuda, name,
+                                                         tmp_path):
+    """Loss and pre-clip gradient norm of one Adam step (clip 5) on the
+    card against the CPU, 1e-4 relative (cuDNN's convolutions and the
+    kernels sum in another order, TF32 off)."""
+    model, batch, loss_weights = _small_models()[name]
+    card = chip_smoke.first_step(copy.deepcopy(model), batch, tmp_path, 5.0,
+                                 'cuda', loss_weights)
+    cpu = chip_smoke.first_step(model, batch, tmp_path, 5.0, 'cpu',
+                                loss_weights)
+    np.testing.assert_allclose(card, cpu, rtol=1e-4)
+    assert np.isfinite(card).all()

@@ -3,8 +3,10 @@
 launches no kernel (all kernels' launch counts stay 0): one served request
 and one training step through the trainer, its hooks, the optimizer and
 the event writer, for the uPIT model, for the DPRNN-TasNet (with GRU
-chunk RNNs) and for the SepFormer-TasNet with its attention forced onto the
-fused backend (both through the tasnet recipe's own entry points)."""
+chunk RNNs), for the SepFormer-TasNet with its attention forced onto the
+fused backend and for the Conv-TasNet (all three through the tasnet
+recipe's own entry points), for OR-PIT and the mask estimator (through
+their recipes' entry points) and for the deep-clustering model."""
 import json
 import os
 import subprocess
@@ -98,8 +100,54 @@ with tempfile.TemporaryDirectory() as tmp:
         {m.use_flash for m in t.model.modules()
          if isinstance(m, MultiheadAttention)}))
     _, sep_metrics = tas_evaluate.evaluate_example(t.model.eval(), example)
+# the Conv-TasNet, OR-PIT, mask-estimator and deep-clustering paths: one
+# training step and one served request each
+from padertorch_tpu_torch.contrib.examples.source_separation.or_pit import (
+    evaluate as orpit_evaluate, train as orpit_train)
+from padertorch_tpu_torch.contrib.examples.speech_enhancement \
+    .mask_estimator import evaluate as me_evaluate, train as me_train
+from padertorch_tpu_torch.models.bss import DeepClusteringModel
+slice_finite = {}
+with tempfile.TemporaryDirectory() as tmp:
+    config = tas_train.get_trainer_config(tmp, variant='convnet', updates={
+        'model': {'encoder': {'feature_size': 16}, 'separator': {
+            'input_size': 8, 'num_blocks': 2, 'num_repeats': 1,
+            'hidden_channels': 8}},
+        'stop_trigger': (1, 'iteration')})
+    t = trainer.Trainer.from_config(config)
+    t.train(batches)
+    _, m = tas_evaluate.evaluate_example(t.model.eval(), example)
+    slice_finite['convnet'] = bool(np.isfinite(m['output_si_sdr']).all())
+with tempfile.TemporaryDirectory() as tmp:
+    t = trainer.Trainer.from_config(orpit_train.get_trainer_config(tmp, {
+        'model': orpit_train.SMALL, 'stop_trigger': (1, 'iteration')}))
+    t.train(batches)
+    _, m = orpit_evaluate.evaluate_example(t.model.eval(), example)
+    slice_finite['or_pit'] = bool(np.isfinite(m['output_si_sdr']).all())
+with tempfile.TemporaryDirectory() as tmp:
+    config = me_train.get_trainer_config(tmp, num_units=8)
+    config['stop_trigger'] = (1, 'iteration')
+    t = trainer.Trainer.from_config(config)
+    t.train(me_train.prepare_dataset(me_train.synthetic_database(
+        num_examples=2, num_samples=4000), 2, shuffle=False))
+    me_example = next(iter(me_evaluate.synthetic_multichannel_database(
+        num_examples=1, num_samples=8000)))
+    _, m = me_evaluate.evaluate_example(t.model.eval(), me_train._stft,
+                                        me_example, beamformer='gev')
+    slice_finite['mask_estimator'] = all(
+        np.isfinite(v) for kind in m.values() for v in kind.values())
+features = data.pre_batch_transform(example)
+dc = DeepClusteringModel(F=257, units=8, E=4)
+x_abs = torch.from_numpy(features['X_abs'])[None]
+dc_batch = {'Y_abs': torch.from_numpy(features['Y_abs'])[None],
+            'target_mask': (x_abs == x_abs.max(2, keepdim=True).values)
+            .float()}
+dc_loss = dc.review(dc_batch, dc(dc_batch))['losses']['dc_loss']
+dc_loss.backward()
+slice_finite['deep_clustering'] = bool(torch.isfinite(dc_loss))
 print(json.dumps({
     'modules': sorted(sys.modules),
+    'slice_finite': slice_finite,
     'launches': [*lstm_cell_scan.launches.values(), masked_istft.launches,
                  *gru_cell_scan.launches.values(),
                  *flash_attention.launches.values()],
@@ -133,6 +181,16 @@ def test_port_imports_no_jax_and_launches_nothing_on_cpu():
     assert 'padertorch_tpu_torch.modules.dual_path_transformer' in \
         out['modules']
     assert 'padertorch_tpu_torch.modules.recurrent' in out['modules']
+    for name in ('modules.convnet', 'models.or_pit', 'models.mask_estimator',
+                 'modules.normalization', 'evaluation.stoi',
+                 'evaluation.beamforming', 'ops.losses.regression',
+                 'contrib.examples.source_separation.or_pit.train',
+                 'contrib.examples.speech_enhancement.mask_estimator'
+                 '.evaluate'):
+        assert f'padertorch_tpu_torch.{name}' in out['modules'], name
+    assert out['slice_finite'] == {'convnet': True, 'or_pit': True,
+                                   'mask_estimator': True,
+                                   'deep_clustering': True}
     assert out['launches'] == [0] * 19
     assert out['finite']
     assert out['trained'] == [

@@ -242,7 +242,16 @@ def test_snapshots_become_audio_in_the_summary():
 
 
 def test_a_separator_that_is_not_ported_raises():
-    with pytest.raises(NotImplementedError, match='modules/convnet.py'):
+    """A separator is any module with ``input_size`` and ``hidden_size``,
+    as in the JAX package: the ``ConvNet`` (Conv-TasNet), ported now,
+    builds, and a module without them, a separator of neither package,
+    raises."""
+    from padertorch_tpu_torch.modules.convnet import ConvNet
+    model = tasnet.TasNet(encoder=tasnet.TasEncoder(20, 32),
+                          separator=ConvNet(16, 1, 1, 8),
+                          decoder=tasnet.TasDecoder(20, 32))
+    assert model.input_proj.out_channels == 16
+    with pytest.raises(AttributeError, match='input_size'):
         tasnet.TasNet(encoder=tasnet.TasEncoder(20, 32),
                       separator=torch.nn.Identity(),
                       decoder=tasnet.TasDecoder(20, 32))

@@ -8,8 +8,10 @@ dir and give the same SI-SDR per example (1e-3 dB) and the same means
 (1e-3 dB) on the first requests of the recipe's synthetic set (that an
 LSTM checkpoint of the port loads in the JAX package is held by
 ``test_torch_pit_slice.py``); the audio events the summary hook wrote
-decode as WAV.  Variants whose separators are not ported raise.  The
-``--variant sepformer`` run is ``test_torch_sepformer_slice.py``.
+decode as WAV.  The ``convnet`` and ``sepformer`` variants give the JAX
+recipe's full-width separators.  The ``--variant sepformer`` run is
+``test_torch_sepformer_slice.py``; the ``convnet`` variant's own tests are
+``test_torch_convnet.py``.
 """
 import io
 import json
@@ -130,18 +132,19 @@ def test_add_audio_events_decode(tmp_path):
 
 @pytest.mark.parametrize('variant', ['convnet', 'sepformer'])
 def test_variants_that_are_not_ported_raise(variant, tmp_path):
-    """``convnet`` still waits and raises; ``sepformer`` is ported and gives
-    the JAX recipe's full-width separator."""
+    """Both variants, ``convnet`` since it was ported, no longer raise and
+    give the JAX recipe's full-width separators."""
+    separator = train.get_trainer_config(
+        tmp_path, variant=variant)['model']['separator']
     if variant == 'sepformer':
-        separator = train.get_trainer_config(
-            tmp_path, variant=variant)['model']['separator']
         assert {k: v for k, v in separator.items() if k != 'factory'} == {
             'input_size': 128, 'window_length': 100, 'hop_size': 50,
             'num_blocks': 4, 'num_layers_intra': 2, 'num_layers_inter': 2,
             'num_heads': 8, 'd_ff': None, 'dropout': 0.0, 'use_rope': True}
         return
-    with pytest.raises(NotImplementedError, match='modules/convnet.py'):
-        train.get_trainer_config(tmp_path, variant=variant)
+    assert {k: v for k, v in separator.items() if k != 'factory'} == {
+        'input_size': 256, 'num_blocks': 8, 'num_repeats': 4,
+        'hidden_channels': 512, 'kernel_size': 3, 'norm': 'gLN'}
 
 
 @pytest.mark.parametrize('variant', ['dprnn', 'win2', 'stft'])
