@@ -1,9 +1,10 @@
 """Drive the PyTorch port's paths once on one CUDA card: uPIT, DPRNN-TasNet,
 SepFormer-TasNet, Conv-TasNet and OR-PIT separation, the mask estimator
-with beamforming and STOI, the deep-clustering model, the WaveNet vocoder
-and the speaker classifier with its on-device log-mel front end, each
-served and trained; and the transformer decoder's int8 KV-cache decoding
-and continuous batching, served.
+with beamforming and STOI, the deep-clustering model, the WaveNet vocoder,
+the speaker classifier with its on-device log-mel front end and the
+speech-recognition recipe's three heads (CTC, transducer, attention
+encoder-decoder), each served and trained; and the transformer decoder's
+int8 KV-cache decoding and continuous batching, served.
 
     python3 chip_smoke.py [--profile]
 
@@ -371,12 +372,41 @@ Phases, one line each:
 36. the deep-clustering model (F=257, 2 x 600 BLSTM, E=20) on 4 of the pit
     recipe's synthetic mixtures with their ideal binary masks: the served
     embeddings and the first Adam step against the CPU, timed steps.
+37. speech recognition (the ``speech_recognition/ctc`` recipe). 37a: the
+    float32 attention kernels (forward, forward keeping the LSE, backward)
+    against plain at heads of 24 (padded to 32 in the wrapper): the
+    conformer's self-attention at the recipe's widest batch (8, 4, 32, 24)
+    with ragged key padding, causal and ``attn_window=(16, 16)``, at a 10 s
+    request's (1, 4, 165, 24) full and causal, the attention decoder's
+    causal self-attention (8, 4, 9, 24) and cross-attention (9 queries
+    over 32 ragged keys), each with its TF32 controls, timed beside plain,
+    SDPA and the bound; the three LSTM kernels of one direction (the
+    transducer's prediction network, H=96) at 8 rows and T=9 and at the
+    greedy decode's one row, with their controls and the card's grid equal
+    to the mirror ``lstm.scan_grid``'s, timed beside a cuDNN layer.  37b:
+    the recipe's ``train.py`` at its defaults (d_model 96, 2 layers, 4
+    heads, kernel 15, batches of 8, 10 tokens; 48 utterances, one epoch:
+    ``test_run``, 5 iterations, validation, checkpoints) for ``ctc``,
+    ``transducer``, ``aed`` and the ``--causal`` CTC variant, each run's
+    attention and LSTM launches checked against its head; the first step
+    of each against the CPU on the same batch and weights (1e-4); a timed
+    step by stage.  37c: ``evaluate.py`` on 8 requests (CTC greedy and
+    beam 4 with ``--lm_order 2``, transducer and attention head greedy and
+    beam 4), then each head's requests one at a time, the latency on the
+    host clock beside the encoder forward (CUDA events); the attention
+    head's ``serve_decode`` equal to its greedy ``decode``; a causal
+    transducer's ``stream_decode`` (its trained weights and its initial
+    ones) equal to its offline greedy transcript; a request of 50 to 60
+    tokens (about 10 s) through each head against the CPU.  Transcripts
+    compared between two runs may part only where the two best scores of
+    the first differing choice are closer than ``ASR_TIE``.
 
 The line before the last is a JSON object with each kernel's launches on
 the main paths, the shape its numbers were taken at (``shape``; the other
 shapes' are in the phases' own lines, the float32 LSTM kernels' and
-``masked_istft``'s at phase 35's shapes also in ``other_shapes``), its largest difference from the
-plain version, its time,
+``masked_istft``'s at phase 35's shapes also in ``other_shapes``, the
+float32 LSTM and attention kernels' at phase 37a's in ``asr_shapes``), its
+largest difference from the plain version, its time,
 the plain version's, the library call's where there is one, and the
 least time the card could take (``bound_ms``: the larger of bytes over
 3.35 TB/s and float32 operations over 67 TFLOP/s, or for the bf16
@@ -435,6 +465,10 @@ from padertorch_tpu_torch.contrib.examples.speaker_classification \
         data as spk_data, evaluate as spk_evaluate, train as spk_train)
 from padertorch_tpu_torch.contrib.examples.speaker_classification \
     .supervised.model import SpeakerClf
+from padertorch_tpu_torch.contrib.examples.speech_recognition.ctc import (
+    data as asr_data, evaluate as asr_evaluate, model as asr_model,
+    train as asr_train)
+from padertorch_tpu_torch.evaluation import NGramLM
 from padertorch_tpu_torch.contrib.je.modules.features import (
     FusedAudioLogMelExtractor)
 from padertorch_tpu_torch.contrib.mk.modules.transformer import (
@@ -1883,10 +1917,12 @@ def attention_library(q, k, v, d_o, masks):
     return fwd, bwd
 
 
-def attention_case(label, b, h, h_kv, tq, tk, d, masks, timed):
-    """One shape of phase 12: both kernels against the plain version, and
-    (``timed``) their times, the plain version's, the library's and the
-    bounds.  Returns {'fwd': row, 'bwd': row}."""
+def attention_case(label, b, h, h_kv, tq, tk, d, masks, timed, phase=12):
+    """One shape of phase 12 (or of ``phase``): both kernels against the
+    plain version, and (``timed``) their times, the plain version's, the
+    library's and the bounds.  A head size outside ``HEAD_SIZES`` is
+    zero-padded for the direct launches of the training forward and the
+    backward, as the wrapper pads it.  Returns {'fwd': row, 'bwd': row}."""
     rng = np.random.RandomState(0)
     q, k, v, d_o = (
         torch.tensor(rng.randn(*shape), dtype=torch.float32, device='cuda')
@@ -1899,16 +1935,24 @@ def attention_case(label, b, h, h_kv, tq, tk, d, masks, timed):
         want, want_lse = flash_attention_fwd_plain(q, k, v, **masks)
         fwd_same = torch.equal(got, flash_attention(q, k, v, **masks))
     err = {'o': max_err([got], [want])}
-    if d in attention_kernels.HEAD_SIZES:
-        train_args = (q, k, v, lens, masks.get('causal', False),
-                      *attention_kernels._norm_window(masks.get('window')),
-                      1.0 / np.sqrt(d))
-        got_train = attention_kernels._launch_fwd(*train_args, train=True)
-        err['o, lse (training forward)'] = max_err(got_train,
-                                                   (want, want_lse))
-        again = attention_kernels._launch_fwd(*train_args, train=True)
-        fwd_same = fwd_same and all(
-            torch.equal(x, y) for x, y in zip(got_train, again))
+    d_p = next(size for size in attention_kernels.HEAD_SIZES if size >= d)
+
+    def padded(x):
+        return torch.nn.functional.pad(x, (0, d_p - d)) if d_p != d else x
+
+    train_args = (padded(q), padded(k), padded(v), lens,
+                  masks.get('causal', False),
+                  *attention_kernels._norm_window(masks.get('window')),
+                  1.0 / np.sqrt(d))
+
+    def train_fwd():
+        o, lse = attention_kernels._launch_fwd(*train_args, train=True)
+        return o[..., :d], lse
+
+    got_train = train_fwd()
+    err['o, lse (training forward)'] = max_err(got_train, (want, want_lse))
+    fwd_same = fwd_same and all(
+        torch.equal(x, y) for x, y in zip(got_train, train_fwd()))
     # the forward's control: plain with TF32 products (on operands rounded
     # to TF32, as a TF32 product reads them) must fail the limit that the
     # kernel's 3xTF32 products meet
@@ -1947,7 +1991,7 @@ def attention_case(label, b, h, h_kv, tq, tk, d, masks, timed):
                 if timed else None)
     same = all(torch.equal(x, y)
                for x, y in zip(got_grads, grads(flash_attention)))
-    print(f'phase 12 attention {label}: max |kernel - plain| '
+    print(f'phase {phase} attention {label}: max |kernel - plain| '
           + ', '.join(f'{k} {v:.3e}' for k, v in err.items())
           + f' (tol {ATTENTION_TOL} on o and lse; forward on the tensor '
           f'cores, 3xTF32)'
@@ -2005,8 +2049,8 @@ def attention_case(label, b, h, h_kv, tq, tk, d, masks, timed):
         iters=10)
     # the two backward kernels alone, on the card's clock: whether the
     # spread of the eager windows is the kernels' or the host's
-    bwd_args = (q, k, v, lens, d_o, got_train[1], (d_o * want).sum(-1),
-                masks.get('causal', False),
+    bwd_args = (*train_args[:4], padded(d_o), got_train[1],
+                (d_o * want).sum(-1), masks.get('causal', False),
                 *attention_kernels._norm_window(masks.get('window')),
                 1.0 / np.sqrt(d))
     bwd_kernels = graph_ms(lambda: attention_kernels._launch_bwd(*bwd_args),
@@ -2028,7 +2072,7 @@ def attention_case(label, b, h, h_kv, tq, tk, d, masks, timed):
         'bwd': bound(nbytes(q, k, v, lens, got, want_lse, d_o, *got_grads),
                      10 * pairs * d, PEAK_3XTF32_FLOPS)}
     for name in ('fwd', 'bwd'):
-        print(f'phase 12 attention {name} {label}: kernel '
+        print(f'phase {phase} attention {name} {label}: kernel '
               f'{times[name]:.3f} ms'
               + (f' (keeping lse: {times["fwd_train"]:.3f} ms)'
                  if name == 'fwd' else ' (delta included; median of the '
@@ -5875,22 +5919,26 @@ MASK_ESTIMATOR_MASK_TOL = 1e-5
 MASK_ESTIMATOR_METRIC_TOL = 1e-3
 
 
-def lstm_kernels_case(phase, label, t_len, batch, hdim, kind, in_size):
+def lstm_kernels_case(phase, label, t_len, batch, hdim, kind, in_size,
+                      directions=2):
     """The three float32 LSTM kernels and the ``autograd.Function`` at one
-    shape of two directions against their plain versions at phases 3, 6
-    and 9's limits, each with its TF32 control failing them (plain with
+    shape of ``directions`` directions against their plain versions at
+    phases 3, 6 and 9's limits, each with its TF32 control failing them (plain with
     ``W_hh`` rounded to TF32: cuBLAS keeps a product of 4 rows a direction
     on its float32 path even with TF32 allowed); the route each
-    kernel took (``lstm_cell_scan.routes``) against the mirror
-    ``lstm.scan_grid``'s; timed beside plain, one bidirectional
-    ``torch.nn.LSTM`` layer (cuDNN) with ``in_size`` inputs, and the bound.
+    kernel took (``lstm_cell_scan.routes``) and the card's grid against the
+    mirror ``lstm.scan_grid``'s; timed beside plain, one ``torch.nn.LSTM`` layer
+    of as many directions (cuDNN) with ``in_size`` inputs, and the bound.
     Returns a row of numbers per kernel."""
-    args, cot = recurrence_inputs(t_len, batch, hdim, kind, gates=4)
+    args, cot = recurrence_inputs(t_len, batch, hdim, kind, gates=4,
+                                  directions=directions)
     gx, w, mask, h0, c0 = args
-    valid = t_len * 2 * batch if mask is None else float(mask.sum())
+    valid = (t_len * directions * batch if mask is None
+             else float(mask.sum()))
 
     def fwd_train():
-        return lstm_kernels._launch(gx, w, 2, mask, h0, c0, train=True)
+        return lstm_kernels._launch(gx, w, directions, mask, h0, c0,
+                                    train=True)
 
     reset_launches()
     got = lstm_cell_scan(*args)
@@ -5900,7 +5948,8 @@ def lstm_kernels_case(phase, label, t_len, batch, hdim, kind, in_size):
     _, c_seq, gates, _, _ = want_train
 
     def bwd():
-        return lstm_kernels._launch_bwd(gates, c_seq, w, 2, mask, *cot)
+        return lstm_kernels._launch_bwd(gates, c_seq, w, directions, mask,
+                                        *cot)
 
     got_bwd = bwd()
     want_bwd = lstm_cell_scan_bwd_plain(gates, c_seq, w, mask, *cot)
@@ -5909,12 +5958,12 @@ def lstm_kernels_case(phase, label, t_len, batch, hdim, kind, in_size):
             for name in ('fwd', 'fwd_train', 'bwd')}
     n_sm, max_smem = gru_kernels.device_limits(0)
     card = {name: lstm_kernels.device_grid(
-                'lstm_bwd' if name == 'bwd' else 'lstm_fwd', 2, batch, hdim,
-                False, 0, name == 'fwd_train')
+                'lstm_bwd' if name == 'bwd' else 'lstm_fwd', directions,
+                batch, hdim, False, 0, name == 'fwd_train')
             for name in took}
     mirror = {name: lstm_kernels.scan_grid(
-                  'lstm_bwd' if name == 'bwd' else 'lstm_fwd', 2, batch,
-                  hdim, n_sm, max_smem)
+                  'lstm_bwd' if name == 'bwd' else 'lstm_fwd', directions,
+                  batch, hdim, n_sm, max_smem)
               for name in took}
 
     def grads(fn):
@@ -5948,7 +5997,8 @@ def lstm_kernels_case(phase, label, t_len, batch, hdim, kind, in_size):
                  lambda: lstm_cell_scan_train_plain(*args), iters=3),
              'bwd': cuda_ms(lambda: lstm_cell_scan_bwd_plain(
                  gates, c_seq, w, mask, *cot), iters=3)}
-    library = cudnn_layer_ms(torch.nn.LSTM, t_len, batch, in_size, hdim)
+    library = cudnn_layer_ms(torch.nn.LSTM, t_len, batch, in_size, hdim,
+                             directions)
     flops = valid * (2 * hdim * 4 * hdim + 30 * hdim)
     limits = {
         'fwd': bound(nbytes(*args, *got), flops),
@@ -5971,7 +6021,10 @@ def lstm_kernels_case(phase, label, t_len, batch, hdim, kind, in_size):
                   f'ms, cuDNN layer {library[name]:.4f} ms, bound '
                   f'{limits[name]["bound_ms"]:.4f} ms by '
                   f'{limits[name]["bound_by"]}')
-            if took[name] != [route]:
+            if took[name] != [route] or any(
+                    card[name][key] != getattr(mirror[name], key)
+                    for key in ('U', 'n_rb', 'RB', 'RS', 'KS', 'blocks',
+                                'streamed')):
                 fail(f'lstm {name} at {label} took {took[name]} on '
                      f'{card[name]}, the mirror plans {mirror[name]}')
             rows[name] = {'shape': label, 'max_abs_err': err[name],
@@ -6427,6 +6480,446 @@ def phase_deep_clustering():
     return served, trained
 
 
+# ---- phase 37: the speech-recognition family ----------------------------
+# the first ASR step, card vs CPU: a mean of per-token lattice (CTC,
+# transducer) or cross-entropy losses, and the norm of 0.4 to 0.6 M
+# gradients through two conformer layers (the attention on the kernels'
+# 3xTF32 products, the batch norm's and the lattice's sums in another
+# order)
+ASR_STEP_RTOL = 1e-4
+# a request's encoder frames, card vs CPU: two conformer layers in eval
+# mode, the attention kernels against the CPU's dense float32 path
+ASR_ENCODER_TOL = 1e-4
+# the two best scores of a greedy choice closer than this: a difference
+# within the limits above may change the choice there
+ASR_TIE = 1e-3
+# the recipe's width: d_model, layers, heads, kernel, vocabulary, batch
+ASR_WIDTH = (96, 2, 4, 15, 10)
+ASR_LENS = [32, 30, 27, 25, 22, 19, 16, 12]
+# (label, B, H, Hkv, Tq, Tk, D, masks, timed): the conformer's
+# self-attention at the recipe's widest batch (8 utterances padded to 128
+# STFT frames, T' = 32 after the 4x subsampling; the batches hold 96 or
+# 128) and at a 10 s request (T' about 165: more than one 64-key tile),
+# and the attention decoder's causal self-attention and cross-attention
+# (U + 1 = 9 positions over T' = 32 frames); heads of 24, which the
+# wrapper pads to 32
+ASR_ATTENTION_CASES = [
+    ('conformer (8, 4, 32, 24) ragged', 8, 4, 4, 32, 32, 24,
+     {'key_padding_lens': ASR_LENS}, True),
+    ('conformer (8, 4, 32, 24) causal, ragged', 8, 4, 4, 32, 32, 24,
+     {'causal': True, 'key_padding_lens': ASR_LENS}, True),
+    ('conformer (8, 4, 32, 24) window (16, 16), ragged', 8, 4, 4, 32, 32,
+     24, {'window': (16, 16), 'key_padding_lens': ASR_LENS}, True),
+    ('conformer request (1, 4, 165, 24)', 1, 4, 4, 165, 165, 24, {}, True),
+    ('conformer request (1, 4, 165, 24) causal', 1, 4, 4, 165, 165, 24,
+     {'causal': True}, True),
+    ('decoder self (8, 4, 9, 24) causal', 8, 4, 4, 9, 9, 24,
+     {'causal': True}, True),
+    ('decoder cross (8, 4, 9 x 32, 24) ragged', 8, 4, 4, 9, 32, 24,
+     {'key_padding_lens': ASR_LENS}, True),
+]
+# (label, T, rows): the transducer's prediction network, one direction of
+# 96 units: a training batch's 8 label histories of U + 1 = 9, and the
+# greedy decode's one history
+ASR_LSTM_CASES = [
+    ('prediction network T=9 rows=8 H=96 one direction', 9, 8),
+    ('greedy decode T=5 rows=1 H=96 one direction', 5, 1),
+]
+# (head, causal): the trained runs of 37b
+ASR_RUNS = [('ctc', False), ('ctc', True), ('transducer', False),
+            ('aed', False)]
+# attention launches a training step (or a forward) makes: one a conformer
+# layer, and the attention decoder's self- and cross-attention per layer
+ASR_ATTENTION_PER_STEP = {'ctc': 2, 'transducer': 2, 'aed': 6}
+
+
+def asr_width(model):
+    encoder = model.acoustic.encoder
+    return (encoder.d_model, len(encoder.layers),
+            encoder.layers[0].self_attn.num_heads,
+            encoder.layers[0].conv.kernel_size, model.vocab_size)
+
+
+def asr_launches():
+    return {'attention': dict(flash_attention.launches),
+            'lstm': dict(lstm_cell_scan.launches)}
+
+
+def run_main(module, args):
+    """``python -m module args`` in this process: the entry point a user
+    calls, on the card (the recipes' default device)."""
+    argv = sys.argv
+    sys.argv = [module.__name__, *args]
+    try:
+        module.main()
+    finally:
+        sys.argv = argv
+
+
+def check_asr_launches(label, head, launches, training, serving):
+    """The kernels a head must launch, and nothing else: the attention
+    forward keeping the LSE and the backward in ``training`` steps (in
+    equal numbers, a multiple of the head's launches a step), the lean
+    forward in ``serving`` (validation, requests); the LSTM kernels the
+    same way for the transducer's prediction network only."""
+    att, lstm = launches['attention'], launches['lstm']
+    per_step = ASR_ATTENTION_PER_STEP[head]
+    ok = (att['fwd_train'] == att['bwd'] and att['fwd_train'] % per_step == 0
+          and all(v == 0 for k, v in att.items()
+                  if k not in ('fwd', 'fwd_train', 'bwd')))
+    ok = ok and (att['fwd_train'] > 0) == training \
+        and (att['fwd'] > 0) == serving
+    if head == 'transducer':
+        ok = ok and lstm == with_zeros(lstm, {
+            'fwd': lstm['fwd'], 'fwd_train': att['fwd_train'] // 2,
+            'bwd': att['bwd'] // 2}) and (lstm['fwd'] > 0) == serving
+    else:
+        ok = ok and not any(lstm.values())
+    if not ok:
+        fail(f'{label}: kernel launches {launches} are not those of a '
+             f'{head} head ({"training" if training else ""} '
+             f'{"serving" if serving else ""})')
+
+
+def phase_asr_kernels():
+    """Phase 37a: the attention kernels (forward, forward keeping the LSE,
+    backward) and the three float32 LSTM kernels of one direction at the
+    speech-recognition path's shapes, against plain at phases 12's and 9's
+    limits with their TF32 controls, timed beside plain, the library call
+    and the bound; the LSTM grids the card takes beside the CPU mirror's."""
+    attention = {case[0]: attention_case(*case, phase='37a')
+                 for case in ASR_ATTENTION_CASES}
+    lstm = {label: lstm_kernels_case('37a', label, t_len, rows, 96, None,
+                                     in_size=96, directions=1)
+            for label, t_len, rows in ASR_LSTM_CASES}
+    return attention, lstm
+
+
+def phase_asr_training(root):
+    """Phase 37b: the recipe's ``train.py`` on the card at its defaults
+    (d_model 96, 2 layers, 4 heads, kernel 15, batches of 8, 10 tokens;
+    48 synthetic utterances, one epoch: ``test_run``, 5 iterations,
+    validation, checkpoints) for the CTC, transducer and attention heads
+    and the causal CTC variant, with the kernels' launches; the first
+    step of each against the CPU on the same batch and weights; a timed
+    step by stage.  Returns the storage dirs and the launches."""
+    dirs, launches = {}, {}
+    train_ds, _ = asr_train.synthetic_split(48, 8)
+    batch = next(iter(asr_data.prepare_dataset(
+        train_ds, batch_size=8, shuffle=False, prefetch=False)))
+    for head, causal in ASR_RUNS:
+        name = head + (' causal' if causal else '')
+        storage_root = Path(root) / name.replace(' ', '_')
+        args = ['--storage_root', str(storage_root), '--synthetic',
+                '--epochs', '1', '--num_examples', '48', '--model', head]
+        reset_launches()
+        start = time.perf_counter()
+        run_main(asr_train, args + (['--causal'] if causal else []))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        launches[name] = asr_launches()
+        storage_dir = storage_root / 'ctc_asr' / '1'
+        check_storage_dir(storage_dir, 5, 'ckpt_best_loss.ptt')
+        check_asr_launches(f'phase 37b {name} training', head,
+                           launches[name], training=True, serving=True)
+        model = asr_evaluate.load_model(storage_dir)
+        if asr_width(model) != ASR_WIDTH or model.causal != causal:
+            fail(f'phase 37b {name}: not the recipe\'s width '
+                 f'{asr_width(model)}')
+        dirs[name] = storage_dir
+        print(f'phase 37b {name}: train.py (test_run, 5 iterations, '
+              f'validation, checkpoints) on the card in {seconds:.2f} s, '
+              f'{sum(p.numel() for p in model.parameters())} parameters, '
+              f'launches {launches[name]}')
+        # the first step, card vs CPU, on the same batch and weights (the
+        # SpecAugment masks drawn from the same seed)
+        torch.manual_seed(0)
+        model_cpu = Trainer.from_config(asr_train.get_trainer_config(
+            Path(root) / 'first', head, causal=causal)).model
+        torch.manual_seed(1)
+        card = first_step(copy.deepcopy(model_cpu), batch, root, 10.0,
+                          'cuda')
+        torch.manual_seed(1)
+        compare_first_step(f'37b {name}', [card[0]], [card[1]],
+                           *first_step(model_cpu, batch, root, 10.0, 'cpu'),
+                           (ASR_STEP_RTOL, ASR_STEP_RTOL))
+        if causal:
+            continue
+        trainer = Trainer(model.train(), Path(root) / f'timed_{head}',
+                          Adam(gradient_clipping=10.0))
+        t = timed_step(trainer, batch, loss_key=None,
+                       wrapper=flash_attention,
+                       per_step=ASR_ATTENTION_PER_STEP[head])
+        print(f'phase 37b {head} training step B=8 T\'='
+              f'{(batch["stft"].shape[2] + 3) // 4}: '
+              + ', '.join(f'{k} {v:.3f} ms' for k, v in t.items()))
+    return dirs, launches
+
+
+def recorded_joint(model):
+    """Keep the scores of every call of a transducer's joint (greedy
+    decoding: one frame, one history a call)."""
+    scores = []
+    joint = type(model)._joint
+
+    def wrapped(enc, pred):
+        out = joint(model, enc, pred)
+        scores.append(out.reshape(-1).detach().cpu())
+        return out
+
+    model._joint = wrapped
+    return scores
+
+
+def greedy_near_tie(scores_a, scores_b):
+    """Two runs of one greedy decoding part where their choices part: the
+    two best scores of the first differing choice closer than
+    ``ASR_TIE`` in either run."""
+    for a, b in zip(scores_a, scores_b):
+        if int(a.argmax()) != int(b.argmax()):
+            return any(bool(near_ties(s, ASR_TIE)) for s in (a, b))
+    return False
+
+
+def aed_near_tie(model, enc, mem_len, a, b):
+    """Where two token sequences of the attention head part, the two best
+    teacher-forced logits of the first differing position closer than
+    ``ASR_TIE``."""
+    n = min(len(a), len(b))
+    j = next((i for i in range(n) if a[i] != b[i]), n)
+    prefix = torch.tensor([[model.bos] + list(a[:j])], device=enc.device)
+    with torch.no_grad():
+        h = model.decoder(model.embed(prefix), enc[None],
+                          memory_seq_len=torch.tensor([mem_len],
+                                                      device=enc.device))
+        return bool(near_ties(model.head(h[0, -1]), ASR_TIE))
+
+
+def hypotheses(results):
+    return {k: v['hypothesis'] for k, v in results.items()}
+
+
+def stream_against_offline(model, request, weights):
+    """A causal transducer's ``stream_decode`` of one request in chunks of
+    8 frames against its offline greedy ``decode`` of the same frames:
+    equal, or parted at a near tie.  Returns the stream's launches."""
+    t_in = int(request['seq_len'][0]) // 8 * 8
+    offline_batch = {**request, 'stft': request['stft'][:, :, :t_in],
+                     'seq_len': np.asarray([t_in], 'int32')}
+    scores = recorded_joint(model)
+    offline = list(hypotheses(model.decode(offline_batch)).values())[0]
+    offline_scores, scores[:] = list(scores), []
+    reset_launches()
+    start = time.perf_counter()
+    streamed = model.stream_decode(
+        [request['stft'][0, 0, s:s + 8] for s in range(0, t_in, 8)],
+        max_frames=t_in)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    counts = asr_launches()
+    del model._joint
+    tie = streamed != offline and greedy_near_tie(offline_scores, scores)
+    print(f'phase 37c causal transducer ({weights} weights) stream_decode '
+          f'({t_in // 8} chunks of 8 frames) in {seconds * 1e3:.1f} ms: '
+          f'{len(streamed)} tokens {streamed} vs offline greedy {offline} '
+          f'(equal: {streamed == offline}, at a near tie: {tie}), launches '
+          f'{counts}')
+    if streamed != offline and not tie:
+        fail('phase 37c: stream_decode differs from the offline greedy '
+             'decode without a near tie')
+    if not len(streamed) <= counts['lstm']['fwd'] <= len(streamed) + 1 \
+            or any(counts['attention'].values()):
+        fail(f'phase 37c: stream_decode runs the prediction network once '
+             f'per emitted symbol and the encoder on the dense decode path, '
+             f'launched {counts}')
+    return counts
+
+
+def phase_asr_serving(dirs):
+    """Phase 37c: the recipe's ``evaluate.py`` on the card for each head
+    (8 held-out requests, ``eval/means.json``): CTC greedy and beam 4 with
+    an n-gram LM (``--lm_order 2``), transducer and attention head greedy
+    and beam 4; then each head's requests one at a time, the latency on
+    the host clock beside the encoder forward (CUDA events); the attention
+    head's ``serve_decode`` equal to its greedy ``decode``; a causal
+    transducer's ``stream_decode`` equal to its offline greedy transcript;
+    a request of 50 to 60 tokens (about 10 s) on the card against the CPU.
+    Returns the launches of the requests."""
+    launches = {}
+    for name, extra in (('ctc', []),
+                        ('ctc', ['--beam_width', '4', '--lm_order', '2']),
+                        ('transducer', []),
+                        ('transducer', ['--beam_width', '4']),
+                        ('aed', []), ('aed', ['--beam_width', '4'])):
+        label = f'{name} {" ".join(extra) or "greedy"}'
+        reset_launches()
+        start = time.perf_counter()
+        run_main(asr_evaluate, ['--model_path', str(dirs[name]),
+                                '--synthetic', '--num_examples', '8',
+                                *extra])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        launches[f'evaluate {label}'] = asr_launches()
+        check_asr_launches(f'phase 37c evaluate {label}', name,
+                           launches[f'evaluate {label}'], training=False,
+                           serving=True)
+        means = json.loads((dirs[name] / 'eval' / 'means.json').read_text())
+        if means['num_examples'] != 8 or not all(
+                np.isfinite(means[k]) for k in ('wer', 'ser')):
+            fail(f'phase 37c evaluate {label}: {means}')
+        print(f'phase 37c evaluate.py {label}: 8 requests in {seconds:.2f} '
+              f's, wer {means["wer"]:.4f}, ser {means["ser"]:.4f}, '
+              f'launches {launches[f"evaluate {label}"]}')
+    requests = list(asr_data.prepare_dataset(
+        asr_data.synthetic_database(num_examples=8, seed=1), batch_size=1,
+        shuffle=False, prefetch=False))
+    lm = NGramLM(order=2).fit([ex['labels'] for ex in
+                               asr_data.synthetic_database(96)])
+    for name, beam in (('ctc', None), ('ctc', 4), ('transducer', None),
+                       ('transducer', 4), ('aed', None), ('aed', 4)):
+        model = asr_evaluate.load_model(dirs[name])
+        kwargs = {'lm_fn': lm} if name == 'ctc' and beam else {}
+        label = f'37c {name} {"greedy" if beam is None else f"beam {beam}"}'
+        _, latencies, counts = serve(label, [
+            (r['example_id'][0], functools.partial(
+                model.decode, r, beam_width=beam, **kwargs))
+            for r in requests], asr_launches)
+        launches[label] = counts
+        check_asr_launches(f'phase {label}', name, counts, training=False,
+                           serving=True)
+        with torch.no_grad():
+            encoder = [cuda_ms(functools.partial(model._encode, r), iters=3)
+                       for r in requests]
+        print(f'phase {label}: latency per request median '
+              f'{np.median(latencies):.3f} ms (host clock), the encoder '
+              f'forward median {np.median(encoder):.3f} ms (CUDA events)')
+    # the attention head's continuous batching equals its greedy decode
+    model = asr_evaluate.load_model(dirs['aed'])
+    batch = next(iter(asr_data.prepare_dataset(
+        asr_data.synthetic_database(num_examples=8, seed=1), batch_size=8,
+        shuffle=False, prefetch=False)))
+    reset_launches()
+    served = hypotheses(model.serve_decode(batch, num_slots=4))
+    launches['37c aed serve_decode'] = asr_launches()
+    greedy = hypotheses(model.decode(batch))
+    with torch.no_grad():
+        enc, enc_len = model._encode(batch)
+    parted = [i for i, k in enumerate(batch['example_id'])
+              if served[k] != greedy[k]]
+    ties = [aed_near_tie(model, enc[i], int(enc_len[i]),
+                         served[batch['example_id'][i]],
+                         greedy[batch['example_id'][i]]) for i in parted]
+    print(f'phase 37c aed serve_decode (4 slots, 8 requests) equals the '
+          f'greedy decode on {8 - len(parted)} of 8 requests (the others at '
+          f'near ties: {ties}), launches {launches["37c aed serve_decode"]}')
+    if not all(ties):
+        fail(f'phase 37c: serve_decode differs from the greedy decode '
+             f'without a near tie: {served} vs {greedy}')
+    # a causal transducer streamed: the trained weights with causal masks,
+    # and the same model from its initial weights (whose random joint
+    # emits symbols at most frames, where the trained one's few steps
+    # emit mostly blanks)
+    trained = asr_evaluate.load_model(dirs['transducer'])
+    device = next(trained.parameters()).device
+    config = json.loads((dirs['transducer'] / 'config.json').read_text())
+    config = {**config['trainer']['model'], 'causal': True}
+    torch.manual_seed(0)
+    initial = asr_model.TransducerASR.from_config(config)
+    causal = asr_model.TransducerASR.from_config(config)
+    causal.load_state_dict(trained.state_dict())
+    for weights, model in (('trained', causal), ('initial', initial)):
+        model = model.to(device).eval()
+        for request in requests[:2]:
+            launches[f'37c stream_decode {weights} '
+                     f'{request["example_id"][0]}'] = \
+                stream_against_offline(model, request, weights)
+    launches.update(asr_long_request(dirs))
+    return launches
+
+
+def asr_long_request(dirs):
+    """A request of 50 to 60 tokens (about 10 s, T' about 165) through
+    each head's greedy decode on the card and on the CPU: the encoder
+    frames within ``ASR_ENCODER_TOL``, the transcripts equal but at near
+    ties; latency and launches."""
+    request = next(iter(asr_data.prepare_dataset(
+        asr_data.synthetic_database(num_examples=1, min_tokens=50,
+                                    max_tokens=60, seed=3),
+        batch_size=1, shuffle=False, prefetch=False)))
+    tokens = int(request['label_lengths'][0])
+    launches = {}
+    for name in ('ctc', 'transducer', 'aed'):
+        model = asr_evaluate.load_model(dirs[name])
+        model_cpu = asr_evaluate.load_model(dirs[name], device='cpu')
+        with torch.no_grad():
+            enc, enc_len = model._encode(request)
+            enc_cpu, _ = model_cpu._encode(request)
+        err = float((enc.cpu() - enc_cpu).abs().max())
+        if name == 'transducer':
+            scores, scores_cpu = recorded_joint(model), recorded_joint(
+                model_cpu)
+        reset_launches()
+        start = time.perf_counter()
+        got = list(hypotheses(model.decode(request)).values())[0]
+        torch.cuda.synchronize()
+        latency = (time.perf_counter() - start) * 1e3
+        launches[f'37c {name} long request'] = counts = asr_launches()
+        want = list(hypotheses(model_cpu.decode(request)).values())[0]
+        tie = False
+        if got != want:
+            if name == 'transducer':
+                tie = greedy_near_tie(scores, scores_cpu)
+            elif name == 'aed':
+                tie = aed_near_tie(model, enc[0], int(enc_len[0]), got, want)
+            else:
+                with torch.no_grad():
+                    tie = bool(near_ties(model.head(enc[0, :int(enc_len[0])]),
+                                         ASR_TIE).any())
+        if name == 'transducer':
+            del model._joint, model_cpu._joint
+        print(f'phase 37c {name} request of {tokens} tokens, '
+              f'{request["stft"].shape[2]} frames (T\'={int(enc_len[0])}): '
+              f'latency {latency:.2f} ms (host clock), encoder card vs CPU '
+              f'max |diff| {err:.3e} (tol {ASR_ENCODER_TOL}), transcript '
+              f'equal to the CPU\'s: {got == want} (at a near tie: {tie}), '
+              f'{len(got)} tokens, launches {counts}')
+        if not 50 <= tokens <= 60 or not err <= ASR_ENCODER_TOL:
+            fail(f'phase 37c {name} long request: {tokens} tokens, encoder '
+                 f'error {err}')
+        if got != want and not tie:
+            fail(f'phase 37c {name} long request: the card\'s transcript '
+                 f'differs from the CPU\'s without a near tie')
+        check_asr_launches(f'phase 37c {name} long request', name, counts,
+                           training=False, serving=True)
+    return launches
+
+
+def phase_asr():
+    """Phase 37: the speech-recognition family (37a kernels, 37b training,
+    37c serving).  Returns the kernel rows and the launches of the main
+    paths: {'attention': {...}, 'lstm': {...}} summed over 37b's training
+    runs and 37c's requests."""
+    start_phase = time.perf_counter()
+    attention_rows, lstm_rows = phase_asr_kernels()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as root:
+        dirs, trained = phase_asr_training(root)
+        served = phase_asr_serving(dirs)
+    totals = {'attention': {}, 'lstm': {}}
+    for counts in (*trained.values(), *served.values()):
+        for kernel, by_name in counts.items():
+            for key, n in by_name.items():
+                totals[kernel][key] = totals[kernel].get(key, 0) + n
+    print(f'phase 37 launches on its main paths: {totals} (training '
+          f'{trained}; serving {served})')
+    for kernel, names in (('attention', ('fwd', 'fwd_train', 'bwd')),
+                          ('lstm', ('fwd', 'fwd_train', 'bwd'))):
+        for key in names:
+            if totals[kernel][key] == 0:
+                fail(f'phase 37 never launched the {kernel} {key} kernel')
+    print(f'phase 37 took {time.perf_counter() - start_phase:.1f} s')
+    return attention_rows, lstm_rows, totals
+
 
 def main():
     profile = '--profile' in sys.argv[1:]
@@ -6481,6 +6974,8 @@ def main():
     me_rows, me_istft, me_trained, me_served = phase_mask_estimator()
     torch.cuda.empty_cache()
     dc_served, dc_trained = phase_deep_clustering()
+    torch.cuda.empty_cache()
+    asr_attention_rows, asr_lstm_rows, asr_launches_ = phase_asr()
     # the bf16 GRU kernels' launches on the main paths: the bgru DPRNN
     # under the policy (20 steps and 4 requests) and both classifiers
     gru_bf16_launches = {
@@ -6518,6 +7013,12 @@ def main():
         if n == 0:
             fail(f'the SepFormer paths never launched the attention {name} '
                  f'kernel')
+    # and the speech-recognition paths' (phase 37: the conformer, the
+    # attention decoder; training and requests)
+    asr_attention = asr_launches_['attention']
+    attention_launches['fwd'] += asr_attention['fwd'] \
+        + asr_attention['fwd_train']
+    attention_launches['bwd'] += asr_attention['bwd']
     # the GRU kernels' launches: the TasNet paths with GRU chunk RNNs plus
     # the speaker classifier's
     gru_launches = {
@@ -6548,6 +7049,9 @@ def main():
         + trained['blstm']['fwd_train'] + new_paths['fwd_train'],
         'bwd': train_launches['bwd'] + trained['blstm']['bwd']
         + new_paths['bwd']}
+    # and the transducer's prediction network (phase 37: one direction)
+    for name in lstm_launches:
+        lstm_launches[name] += asr_launches_['lstm'][name]
     for name, n in new_paths.items():
         if n == 0:
             fail(f'phases 34 to 36 never launched the lstm {name} kernel')
@@ -6570,7 +7074,8 @@ def main():
           f'mask estimator and deep clustering {new_paths} (OR-PIT '
           f'training {orpit_trained}, separate {orpit_served}; the mask '
           f'estimator training {me_trained}, requests {me_served}; deep '
-          f'clustering served {dc_served}, a step {dc_trained})')
+          f'clustering served {dc_served}, a step {dc_trained}); the '
+          f'speech-recognition paths (phase 37) {asr_launches_}')
     # every row's numbers are those of its ``shape``: the GRU rows those of
     # the intra-chunk shape, which six of a TasNet's twelve chunk RNNs run
     # (phase 8 prints the rows of the other shapes, the classifier's two
@@ -6590,19 +7095,23 @@ def main():
          'source': 'padertorch_tpu_torch/csrc/lstm_cell_scan.cu',
          'replaces': 'padertorch_tpu/ops/pallas/lstm.py:275',
          'launches': lstm_launches['fwd'], 'shape': flagship, **lstm,
-         'other_shapes': [rows['fwd'] for rows in me_rows.values()]},
+         'other_shapes': [rows['fwd'] for rows in me_rows.values()],
+         'asr_shapes': [rows['fwd'] for rows in asr_lstm_rows.values()]},
         {'name': 'lstm_cell_scan_train', 'route': 'cuda',
          'source': 'padertorch_tpu_torch/csrc/lstm_cell_scan.cu',
          'replaces': 'padertorch_tpu/ops/pallas/lstm.py:293',
          'launches': lstm_launches['fwd_train'], 'shape': flagship,
          **train_kernels['fwd_train'],
-         'other_shapes': [rows['fwd_train'] for rows in me_rows.values()]},
+         'other_shapes': [rows['fwd_train'] for rows in me_rows.values()],
+         'asr_shapes': [rows['fwd_train']
+                        for rows in asr_lstm_rows.values()]},
         {'name': 'lstm_cell_scan_bwd', 'route': 'cuda',
          'source': 'padertorch_tpu_torch/csrc/lstm_cell_scan_bwd.cu',
          'replaces': 'padertorch_tpu/ops/pallas/lstm.py:339',
          'launches': lstm_launches['bwd'], 'shape': flagship,
          **train_kernels['bwd'],
-         'other_shapes': [rows['bwd'] for rows in me_rows.values()]},
+         'other_shapes': [rows['bwd'] for rows in me_rows.values()],
+         'asr_shapes': [rows['bwd'] for rows in asr_lstm_rows.values()]},
         {'name': 'lstm_cell_scan_bf16', 'route': 'cuda',
          'source': 'padertorch_tpu_torch/csrc/lstm_cell_scan.cu',
          'replaces': 'padertorch_tpu/ops/pallas/lstm.py:275',
@@ -6675,12 +7184,16 @@ def main():
          'replaces': 'padertorch_tpu/ops/pallas/attention.py:328',
          'launches': attention_launches['fwd'],
          'attention_route': 'tensor cores, 3xTF32 mma.sync',
-         'shape': ATTENTION_CASES[0][0], **attention_rows['fwd']},
+         'shape': ATTENTION_CASES[0][0], **attention_rows['fwd'],
+         'asr_shapes': [{'shape': label, **rows['fwd']}
+                        for label, rows in asr_attention_rows.items()]},
         {'name': 'flash_attention_bwd', 'route': 'cuda',
          'source': 'padertorch_tpu_torch/csrc/flash_attention_bwd.cu',
          'replaces': 'padertorch_tpu/ops/pallas/attention.py:351',
          'launches': attention_launches['bwd'],
-         'shape': ATTENTION_CASES[0][0], **attention_rows['bwd']},
+         'shape': ATTENTION_CASES[0][0], **attention_rows['bwd'],
+         'asr_shapes': [{'shape': label, **rows['bwd']}
+                        for label, rows in asr_attention_rows.items()]},
         {'name': 'flash_attention_bf16', 'route': 'cuda',
          'source': 'padertorch_tpu_torch/csrc/flash_attention_fwd_bf16.cu',
          'replaces': 'padertorch_tpu/ops/pallas/attention.py:328',

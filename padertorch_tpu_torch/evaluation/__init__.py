@@ -6,3 +6,4 @@ from padertorch_tpu_torch.evaluation.parallel import (
     split_managed, gather, gather_merged, bcast, is_master, RANK, SIZE,
 )
 from padertorch_tpu_torch.evaluation.stoi import stoi
+from padertorch_tpu_torch.evaluation.ngram_lm import NGramLM

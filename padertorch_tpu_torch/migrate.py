@@ -33,11 +33,12 @@ port):
 - buffers that are part of the JAX ``state_dict()`` are copied both ways:
   ``RoPE``'s ``inv_freq``, a ``Normalization``'s running statistics
   (``num_tracked_values``, ``running_mean``, ``running_power``, beside its
-  ``gamma``/``beta``), the ``fbanks`` of ``MelTransform`` and
+  ``gamma``/``beta``; the conformer's masked batch norm is one), the ``fbanks`` of ``MelTransform`` and
   ``FusedAudioLogMelExtractor``, a ``DeltaExtractor``'s ``coeffs``;
 - lists of modules (``layers``, ``dpt_blocks``, a ``WaveNet``'s
   ``dilate_layers``/``res_layers``/``skip_layers``, a
-  ``TransformerDecoder``'s ``layers``) are ``nn.ModuleList``s
+  ``TransformerDecoder``'s and a ``ConformerEncoder``'s ``layers``, an
+  ``AcousticEncoder``'s ``subsample_convs``) are ``nn.ModuleList``s
   in the port, whose keys (``layers.0. ...``) are the JAX pytree paths; the
   children of a ``Sequential`` sit in its ``layers`` list in the JAX
   package (``cnn.0.weight`` here is ``cnn.layers.0.weight`` there; a

@@ -6,3 +6,10 @@ from padertorch_tpu_torch.ops.losses.source_separation import (
     deep_clustering_loss, pit_loss, compute_pairwise_losses,
     pit_loss_from_loss_matrix,
 )
+from padertorch_tpu_torch.ops.losses.ctc import (
+    ctc_loss, ctc_greedy_decode, ctc_beam_search_decode,
+    edit_distance,
+)
+from padertorch_tpu_torch.ops.losses.rnnt import (
+    rnnt_loss, rnnt_greedy_decode, rnnt_beam_search,
+)

@@ -31,7 +31,11 @@ batch sizes, lengths and widths; a ``WaveNetVocoder`` and a ``SpeakerClf``
 on the card are held against the CPU and moved to the JAX layout and back.
 The three LSTM kernels and ``masked_istft`` are held at the mask
 estimator's shapes, and a first training step of the Conv-TasNet, OR-PIT,
-the mask estimator and the deep-clustering model against the CPU.
+the mask estimator and the deep-clustering model against the CPU; the LSTM
+kernels of one direction at the transducer's prediction network's shapes,
+the attention kernels at the conformer's and the attention decoder's
+(heads of 24), and a first training step of each speech-recognition head
+against the CPU.
 Marked
 ``cuda``: they skip without a card.  Run them on the card with
 
@@ -246,6 +250,8 @@ TRAIN_SHAPES = [
     (2, 17, 64, 9, 'ragged'),    # rows that do not split evenly in chunks
     (2, 1, 600, 20, 'ragged'),   # the flagship width, one row a direction
     (1, 40, 32, 7, 'none'),
+    (1, 8, 96, 9, 'none'),       # the transducer's prediction network
+    (1, 1, 96, 5, 'none'),       # and its greedy decode's one history
 ]
 
 
@@ -908,6 +914,13 @@ ATTENTION_CASES = {
         2, 8, 2, 130, 77, 128, {'key_padding_lens': [77, 50]}),
     'd64_mqa_causal': (2, 4, 1, 129, 129, 64, {'causal': True}),
     'd24_padded_head': (2, 4, 4, 50, 50, 24, {'window': (7, 3)}),
+    # the conformer's self-attention and the attention decoder's
+    # cross-attention of the speech-recognition recipe
+    'd24_conformer_window_padding': (
+        8, 4, 4, 32, 32, 24, {'window': (16, 16),
+                              'key_padding_lens': chip_smoke.ASR_LENS}),
+    'd24_decoder_cross_padding': (
+        8, 4, 4, 9, 32, 24, {'key_padding_lens': chip_smoke.ASR_LENS}),
     'd8_one_query': (2, 2, 2, 1, 40, 8, {'key_padding_lens': [40, 3]}),
     'd64_long': (1, 2, 2, 1100, 1100, 64,
                  {'causal': True, 'key_padding_lens': [900]}),
@@ -2387,3 +2400,41 @@ def test_first_training_step_on_the_card_matches_the_cpu(cuda, name,
                                 loss_weights)
     np.testing.assert_allclose(card, cpu, rtol=1e-4)
     assert np.isfinite(card).all()
+
+
+@pytest.mark.parametrize('head', ['ctc', 'transducer', 'aed'])
+def test_asr_first_training_step_on_the_card_matches_the_cpu(cuda, head,
+                                                             tmp_path):
+    """A small head of the speech-recognition recipe (d_model 48, 4 heads
+    of 12, which the attention wrapper pads to 16): loss and pre-clip
+    gradient norm of one Adam step (clip 10) on the card against the CPU,
+    1e-4 relative, the SpecAugment masks drawn from one seed on both; the
+    step launches the attention kernels (and the transducer's prediction
+    network the LSTM kernels)."""
+    from padertorch_tpu_torch.contrib.examples.speech_recognition.ctc \
+        import data, train
+    cls = train.HEADS[head]
+    torch.manual_seed(0)
+    model = cls.from_config(cls.get_config({
+        'vocab_size': 10, 'd_model': 48, 'num_layers': 1, 'num_heads': 4,
+        'kernel_size': 7}))
+    batch = next(iter(data.prepare_dataset(
+        data.synthetic_database(num_examples=4), batch_size=4,
+        shuffle=False, prefetch=False)))
+    chip_smoke.reset_launches()
+    torch.manual_seed(1)
+    card = chip_smoke.first_step(copy.deepcopy(model), batch, tmp_path,
+                                 10.0, 'cuda')
+    launches = chip_smoke.asr_launches()
+    torch.manual_seed(1)
+    cpu = chip_smoke.first_step(model, batch, tmp_path, 10.0, 'cpu')
+    np.testing.assert_allclose(card, cpu, rtol=1e-4)
+    assert np.isfinite(card).all()
+    # one conformer layer, and the decoder's 2 layers of self- and
+    # cross-attention
+    per_step = {'ctc': 1, 'transducer': 1, 'aed': 5}[head]
+    assert launches['attention']['fwd_train'] == per_step
+    assert launches['attention']['bwd'] == per_step
+    want_lstm = 1 if head == 'transducer' else 0
+    assert launches['lstm']['fwd_train'] == launches['lstm']['bwd'] \
+        == want_lstm

@@ -334,3 +334,84 @@ def test_importing_any_module_of_the_port_turns_tf32_off():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == [False, False]
+
+
+SPEECH_RECOGNITION = r'''
+import json, sys, tempfile
+import numpy as np
+import torch
+torch.set_num_threads(2)
+from padertorch_tpu_torch.contrib.examples.speech_recognition.ctc import (
+    data, evaluate, train)
+from padertorch_tpu_torch.data.database import JsonDatabase
+from padertorch_tpu_torch.evaluation import NGramLM
+from padertorch_tpu_torch.ops.kernels.attention import flash_attention
+from padertorch_tpu_torch.ops.kernels.lstm import lstm_cell_scan
+from padertorch_tpu_torch.train import trainer
+
+torch.manual_seed(0)
+train_ds, _ = train.synthetic_split(6, 2)
+batches = data.prepare_dataset(train_ds, batch_size=2, shuffle=False,
+                               prefetch=False)
+batch = next(iter(batches))
+lm = NGramLM(order=2).fit([[1, 2, 3]])
+heads = {}
+for head in ('ctc', 'transducer', 'aed'):
+    with tempfile.TemporaryDirectory() as tmp:
+        config = train.get_trainer_config(
+            tmp, head, d_model=16, num_layers=1, num_heads=2,
+            kernel_size=5, causal=head == 'transducer',
+            updates={'stop_trigger': (1, 'iteration')})
+        t = trainer.Trainer.from_config(config)
+        t.train(batches)
+        model = t.model.eval()
+        greedy = model.decode(batch)
+        beam = model.decode(batch, beam_width=2,
+                            **({'lm_fn': lm} if head == 'ctc' else {}))
+        extra = True
+        if head == 'transducer':
+            t_in = int(batch['seq_len'][0]) // 8 * 8
+            extra = isinstance(model.stream_decode(
+                [batch['stft'][0, 0, s:s + 8] for s in range(0, t_in, 8)],
+                max_frames=t_in), list)
+        if head == 'aed':
+            extra = {k: v['hypothesis']
+                     for k, v in model.serve_decode(batch).items()} == {
+                k: v['hypothesis'] for k, v in greedy.items()}
+        heads[head] = [t.iteration, len(greedy), len(beam),
+                       evaluate.summarize(greedy)['num_examples'], extra]
+print(json.dumps({
+    'modules': sorted(sys.modules),
+    'launches': [*lstm_cell_scan.launches.values(),
+                 *flash_attention.launches.values()],
+    'heads': heads}))
+'''
+
+
+def test_speech_recognition_paths_import_no_jax_and_launch_nothing():
+    """The speech-recognition slice: one training step of each head through
+    the recipe's config, greedy and beam decoding (the CTC head with an
+    n-gram LM), the transducer's ``stream_decode`` and the attention
+    head's ``serve_decode``, on the CPU through the kernels' plain
+    versions, with no JAX module imported."""
+    env = {**os.environ, 'PYTHONPATH': str(REPO), 'OMP_NUM_THREADS': '2'}
+    proc = subprocess.run(
+        [sys.executable, '-c', SPEECH_RECOGNITION], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    banned = ('jax', 'jaxlib', 'padertorch_tpu', 'tensorboardX', 'optax',
+              'matplotlib', 'triton')
+    assert [m for m in out['modules'] if m.split('.')[0] in banned] == []
+    for name in ('ops.losses.ctc', 'ops.losses.rnnt', 'modules.conformer',
+                 'evaluation.ngram_lm', 'data.database',
+                 'contrib.examples.speech_recognition',
+                 'contrib.examples.speech_recognition.ctc',
+                 'contrib.examples.speech_recognition.ctc.data',
+                 'contrib.examples.speech_recognition.ctc.model',
+                 'contrib.examples.speech_recognition.ctc.train',
+                 'contrib.examples.speech_recognition.ctc.evaluate'):
+        assert f'padertorch_tpu_torch.{name}' in out['modules'], name
+    assert out['launches'] == [0] * 12
+    assert out['heads'] == {head: [1, 2, 2, 2, True]
+                            for head in ('ctc', 'transducer', 'aed')}
