@@ -3,8 +3,11 @@ SepFormer-TasNet, Conv-TasNet and OR-PIT separation, the mask estimator
 with beamforming and STOI, the deep-clustering model, the WaveNet vocoder,
 the speaker classifier with its on-device log-mel front end and the
 speech-recognition recipe's three heads (CTC, transducer, attention
-encoder-decoder), each served and trained; and the transformer decoder's
-int8 KV-cache decoding and continuous batching, served.
+encoder-decoder), each served and trained; the transformer decoder's
+int8 KV-cache decoding and continuous batching, served; and real audio:
+the recipes trained and served from WAV files and JSON databases (uPIT,
+the speaker classifier, the audio tagger, the distance estimator, the
+vocoder).
 
     python3 chip_smoke.py [--profile]
 
@@ -400,12 +403,38 @@ Phases, one line each:
     tokens (about 10 s) through each head against the CPU.  Transcripts
     compared between two runs may part only where the two best scores of
     the first differing choice are closer than ``ASR_TIE``.
+38. real audio.  38a: WAV trees written from a seed with
+    ``contrib/examples/_wav_databases.py`` (int16 mono files of lengths up
+    to two times apart, a stereo file, an int32 file and an 8 kHz file in
+    each) and their JSON databases in the reference's schemas (wsj0-2mix's
+    ``mix_2_spk_min_tr/cv/tt``, LibriSpeech's ``train_clean_100``,
+    ``dev_clean``, ``test_clean``, AudioSet's ``balanced_train``,
+    ``validate``, ``eval``, and ``create_jsons.py``'s output on its own
+    tree); ``NATIVE_AVAILABLE`` must be true; ``AudioReader``'s time per
+    file by kind on the host, one thread and four.  38b: the three GRU
+    kernels against plain at the distance estimator's shape (one direction,
+    8 rows, H=64, the 128 frames of 8000 samples at shift 64 pooled to 32
+    steps, ragged; and 128 steps), with phase 8's TF32 controls.  38c:
+    ``pit/train.py --database`` at the recipe's width (3 x 600 BLSTM) for
+    an epoch of 2 steps, then ``evaluate.py --database --dataset
+    mix_2_spk_min_tt`` on 3 requests.  38d: the speaker classifier's
+    ``train.py`` and ``evaluate.py`` with ``--database
+    --on_device_features``.  38e: the audio tagger's ``train.py`` and
+    ``evaluate.py`` on the AudioSet tree (its CNN is cuDNN's: no kernel of
+    the port).  38f: the distance estimator's ``train.py`` and
+    ``evaluate.py`` (its GRU on the ``gru_cell_scan`` kernels).  38g: the
+    vocoder's ``train.py --database`` for an epoch and ``evaluate.py
+    --database`` on one file (the ``wavenet_sample`` kernel).  The
+    kernels' launch counts are read around each run, each storage dir
+    must hold its ``config.json``, checkpoints and ``Makefile``, and the
+    evaluations' numbers must be finite.
 
 The line before the last is a JSON object with each kernel's launches on
 the main paths, the shape its numbers were taken at (``shape``; the other
 shapes' are in the phases' own lines, the float32 LSTM kernels' and
 ``masked_istft``'s at phase 35's shapes also in ``other_shapes``, the
-float32 LSTM and attention kernels' at phase 37a's in ``asr_shapes``), its
+float32 LSTM and attention kernels' at phase 37a's in ``asr_shapes``, the
+float32 GRU kernels' at phase 38b's in ``distance_shapes``), its
 largest difference from the plain version, its time,
 the plain version's, the library call's where there is one, and the
 least time the card could take (``bound_ms``: the larger of bytes over
@@ -468,6 +497,18 @@ from padertorch_tpu_torch.contrib.examples.speaker_classification \
 from padertorch_tpu_torch.contrib.examples.speech_recognition.ctc import (
     data as asr_data, evaluate as asr_evaluate, model as asr_model,
     train as asr_train)
+from padertorch_tpu_torch.contrib.examples import _wav_databases as wav_dbs
+from padertorch_tpu_torch.contrib.examples.sound_recognition.audio_tagging \
+    import evaluate as tag_evaluate, train as tag_train
+from padertorch_tpu_torch.contrib.examples.source_localization \
+    .distance_estimator import (
+        create_jsons as de_create_jsons, evaluate as de_evaluate,
+        train as de_train)
+from padertorch_tpu_torch.contrib.examples.source_separation.pit import (
+    evaluate as pit_evaluate)
+from padertorch_tpu_torch.contrib.je.data.transforms import AudioReader
+from padertorch_tpu_torch.data.database import JsonDatabase
+from padertorch_tpu_torch import native
 from padertorch_tpu_torch.evaluation import NGramLM
 from padertorch_tpu_torch.contrib.je.modules.features import (
     FusedAudioLogMelExtractor)
@@ -1616,6 +1657,162 @@ def with_tf32(fn):
         torch.backends.cuda.matmul.allow_tf32 = False
 
 
+def gru_kernels_case(phase, label, t_len, batch, hdim, kind, n_dir,
+                     in_size):
+    """The three GRU kernels and the Function around them at one shape
+    (``n_dir`` directions of ``batch`` rows, ``hdim`` units, T = ``t_len``
+    under the mask ``kind``; ``in_size`` the layer's input width, for the
+    cuDNN yardstick) against plain, with the TF32 controls, the routes and
+    a second run's bits, timed beside plain, cuDNN and the bound.  Returns
+    {kernel: row}."""
+    args, cot = recurrence_inputs(t_len, batch, hdim, kind, gates=3,
+                                  directions=n_dir)
+    gx, w, mask, h0 = args
+    valid = t_len * n_dir * batch if mask is None else float(mask.sum())
+
+    def fwd_train():
+        return gru_kernels._launch(gx, w, n_dir, mask, h0, train=True)
+
+    # the kernels' routes, chosen from the shape before the launch
+    limits = gru_kernels.device_limits(torch.cuda.current_device())
+    plan = gru_kernels.resident_plan(n_dir, batch, hdim, *limits)
+    route = 'cooperative' if plan is None else 'resident'
+    plan_bwd = gru_kernels.resident_bwd_plan(n_dir, batch, hdim, *limits)
+    route_bwd = 'cooperative' if plan_bwd is None else 'resident'
+    routes_before = gru_routes_of('fwd', 'fwd_train')
+    got = gru_cell_scan(*args)
+    want = gru_cell_scan_plain(*args)
+    got_train = fwd_train()
+    want_train = gru_cell_scan_train_plain(*args)
+    again = gru_cell_scan(*args)
+    torch.cuda.synchronize()
+    routed = {k: v - routes_before[k]
+              for k, v in gru_routes_of('fwd', 'fwd_train').items()}
+    same_bits = all(torch.equal(a, b) for a, b in zip(got, again))
+    shown = ('' if plan is None else ' ' + ', '.join(
+        f'{k} {v}' for k, v in plan._asdict().items()))
+    print(f'phase {phase} gru {label}: route {route}{shown}; launches by '
+          f'route {routed}; a second lean run gives the same bits: '
+          f'{same_bits}')
+    if routed != {**dict.fromkeys(routed, 0), route: 3}:
+        fail(f'the gru forwards at {label} did not all take the '
+             f'{route} route: {routed}')
+    if not same_bits:
+        fail(f'two lean gru runs at {label} differ')
+    err = {'fwd': max_err(got, want),               # out, h_T
+           # out, acts, gh_n, h_prev, h_T
+           'fwd_train': max_err(got_train, want_train)}
+    _, acts, gh_n, h_prev, _ = want_train
+
+    def bwd():
+        return gru_kernels._launch_bwd(acts, gh_n, h_prev, w, n_dir,
+                                       mask, *cot)
+
+    def bwd_plain():
+        return gru_cell_scan_bwd_plain(acts, gh_n, h_prev, w, mask,
+                                       *cot)
+
+    bwd_before = dict(gru_cell_scan.routes['bwd'])
+    got_bwd = bwd()
+    again_bwd = bwd()
+    want_bwd = bwd_plain()
+    torch.cuda.synchronize()
+    err['bwd'] = max_err(got_bwd, want_bwd)          # dgx, dgh, dh0
+    routed_bwd = {k: v - bwd_before[k]
+                  for k, v in gru_cell_scan.routes['bwd'].items()}
+    same_bwd = all(torch.equal(a, b) for a, b in zip(got_bwd, again_bwd))
+    shown = ('' if plan_bwd is None else ' ' + ', '.join(
+        f'{k} {v}' for k, v in plan_bwd._asdict().items()))
+    print(f'phase {phase} gru bwd {label}: route {route_bwd}{shown}; launches '
+          f'by route {routed_bwd}; a second run gives the same bits: '
+          f'{same_bwd}')
+    if routed_bwd != {**dict.fromkeys(routed_bwd, 0), route_bwd: 2}:
+        fail(f'the gru backward at {label} did not take the '
+             f'{route_bwd} route: {routed_bwd}')
+    if not same_bwd:
+        fail(f'two gru backward runs at {label} differ')
+
+    def grads(fn):
+        leaves = [a.clone().requires_grad_() for a in (gx, w, h0)]
+        outs = fn(leaves[0], leaves[1], mask, leaves[2])
+        if any(o.grad_fn is None for o in outs):
+            fail('gru_cell_scan under grad mode returned a tensor '
+                 'without grad_fn')
+        return torch.autograd.grad(outs, leaves, cot)
+
+    want_grads = grads(gru_cell_scan_plain)
+    err_fn = max_rel_err(grads(gru_cell_scan), want_grads)
+    tf32 = {
+        'fwd': with_tf32(lambda: max_err(
+            gru_cell_scan_plain(*args), want)),
+        'fwd_train': with_tf32(lambda: max_err(
+            gru_cell_scan_train_plain(*args), want_train)),
+        'bwd': with_tf32(lambda: max_err(bwd_plain(), want_bwd)),
+        'fn': with_tf32(lambda: max_rel_err(
+            grads(gru_cell_scan_plain), want_grads)),
+    }
+    plain_iters = 2 if t_len > 100 else 3
+    times = {
+        'fwd': cuda_ms(lambda: gru_cell_scan(*args), iters=20),
+        'fwd_train': cuda_ms(fwd_train, iters=20),
+        'bwd': cuda_ms(bwd, iters=20),
+        'fwd_plain': cuda_ms(lambda: gru_cell_scan_plain(*args),
+                             iters=plain_iters),
+        'fwd_train_plain': cuda_ms(
+            lambda: gru_cell_scan_train_plain(*args),
+            iters=plain_iters),
+        'bwd_plain': cuda_ms(bwd_plain, iters=plain_iters),
+        'dw': cuda_ms(lambda: gru_kernels.recurrent_weight_grad(
+            got_bwd[1], h_prev, n_dir), iters=20),
+    }
+    library = cudnn_layer_ms(torch.nn.GRU, t_len, batch, in_size, hdim,
+                             n_dir)
+    flops = gru_flops(valid, hdim)
+    limits = {
+        'fwd': bound(nbytes(*args, *got), flops),
+        'fwd_train': bound(nbytes(*args, *got_train), flops),
+        'bwd': bound(nbytes(acts, gh_n, h_prev, w, mask, *cot,
+                            *got_bwd), flops),
+    }
+    tols = {'fwd': GRU_TOL, 'fwd_train': GRU_TOL, 'bwd': GRU_BWD_TOL}
+    for name in ('fwd', 'fwd_train', 'bwd'):
+        print(f'phase {phase} gru {name} {label}: max |kernel - plain| '
+              f'{err[name]:.3e} (tol {tols[name]}), plain with TF32 vs '
+              f'f32 {tf32[name]:.3e}, kernel {times[name]:.3f} ms, '
+              f'plain {times[name + "_plain"]:.3f} ms, bound '
+              f'{limits[name]["bound_ms"]:.4f} ms by '
+              f'{limits[name]["bound_by"]}, cuDNN nn.GRU layer '
+              f'{library[name]:.3f} ms')
+        if not err[name] <= tols[name]:
+            fail(f'gru {name} kernel disagrees with plain at {label}: '
+                 f'{err[name]}')
+        if not tf32[name] > tols[name]:
+            fail(f'the limit {tols[name]} does not tell a TF32 product '
+                 f'from f32 for gru {name} at {label}: {tf32[name]}')
+    print(f'phase {phase} GRUCellScan vs autograd through plain {label}: max '
+          f'relative difference {err_fn:.3e} over dgates_x, dW_hh, dh0 '
+          f'(tol {GRU_GRAD_RTOL}), with TF32 {tf32["fn"]:.3e}; dW_hh '
+          f'product {times["dw"]:.3f} ms')
+    if not err_fn <= GRU_GRAD_RTOL:
+        fail(f'GRUCellScan disagrees with autograd through the plain '
+             f'forward at {label}: {err_fn}')
+    if not tf32['fn'] > GRU_GRAD_RTOL:
+        fail(f'the limit {GRU_GRAD_RTOL} does not tell TF32 from f32 '
+             f'for GRUCellScan at {label}: {tf32["fn"]}')
+    rows = {
+        name: {'shape': label, 'max_abs_err': err[name],
+               'ms': times[name], 'plain_ms': times[name + '_plain'],
+               **limits[name], 'library_ms': library[name],
+               'gru_route': route if name != 'bwd' else route_bwd}
+        for name in ('fwd', 'fwd_train', 'bwd')}
+    rows['fwd']['plan'] = None if plan is None else plan._asdict()
+    rows['fwd_train']['plan'] = rows['fwd']['plan']
+    rows['bwd']['plan'] = (None if plan_bwd is None
+                                     else plan_bwd._asdict())
+    rows['dw_ms'] = times['dw']
+    return rows
+
+
 def phase_gru_kernels():
     """Phase 8: the three GRU kernels and the Function around them, at
     each of RECURRENCE_SHAPES (two directions) and of
@@ -1627,151 +1824,8 @@ def phase_gru_kernels():
              for shape in RECURRENCE_SHAPES]
     cases += [(shape[:5], 1, shape[5]) for shape in CLASSIFIER_GRU_SHAPES]
     for (label, t_len, batch, hdim, kind), n_dir, in_size in cases:
-        args, cot = recurrence_inputs(t_len, batch, hdim, kind, gates=3,
-                                      directions=n_dir)
-        gx, w, mask, h0 = args
-        valid = t_len * n_dir * batch if mask is None else float(mask.sum())
-
-        def fwd_train():
-            return gru_kernels._launch(gx, w, n_dir, mask, h0, train=True)
-
-        # the kernels' routes, chosen from the shape before the launch
-        limits = gru_kernels.device_limits(torch.cuda.current_device())
-        plan = gru_kernels.resident_plan(n_dir, batch, hdim, *limits)
-        route = 'cooperative' if plan is None else 'resident'
-        plan_bwd = gru_kernels.resident_bwd_plan(n_dir, batch, hdim, *limits)
-        route_bwd = 'cooperative' if plan_bwd is None else 'resident'
-        routes_before = gru_routes_of('fwd', 'fwd_train')
-        got = gru_cell_scan(*args)
-        want = gru_cell_scan_plain(*args)
-        got_train = fwd_train()
-        want_train = gru_cell_scan_train_plain(*args)
-        again = gru_cell_scan(*args)
-        torch.cuda.synchronize()
-        routed = {k: v - routes_before[k]
-                  for k, v in gru_routes_of('fwd', 'fwd_train').items()}
-        same_bits = all(torch.equal(a, b) for a, b in zip(got, again))
-        shown = ('' if plan is None else ' ' + ', '.join(
-            f'{k} {v}' for k, v in plan._asdict().items()))
-        print(f'phase 8 gru {label}: route {route}{shown}; launches by '
-              f'route {routed}; a second lean run gives the same bits: '
-              f'{same_bits}')
-        if routed != {**dict.fromkeys(routed, 0), route: 3}:
-            fail(f'the gru forwards at {label} did not all take the '
-                 f'{route} route: {routed}')
-        if not same_bits:
-            fail(f'two lean gru runs at {label} differ')
-        err = {'fwd': max_err(got, want),               # out, h_T
-               # out, acts, gh_n, h_prev, h_T
-               'fwd_train': max_err(got_train, want_train)}
-        _, acts, gh_n, h_prev, _ = want_train
-
-        def bwd():
-            return gru_kernels._launch_bwd(acts, gh_n, h_prev, w, n_dir,
-                                           mask, *cot)
-
-        def bwd_plain():
-            return gru_cell_scan_bwd_plain(acts, gh_n, h_prev, w, mask,
-                                           *cot)
-
-        bwd_before = dict(gru_cell_scan.routes['bwd'])
-        got_bwd = bwd()
-        again_bwd = bwd()
-        want_bwd = bwd_plain()
-        torch.cuda.synchronize()
-        err['bwd'] = max_err(got_bwd, want_bwd)          # dgx, dgh, dh0
-        routed_bwd = {k: v - bwd_before[k]
-                      for k, v in gru_cell_scan.routes['bwd'].items()}
-        same_bwd = all(torch.equal(a, b) for a, b in zip(got_bwd, again_bwd))
-        shown = ('' if plan_bwd is None else ' ' + ', '.join(
-            f'{k} {v}' for k, v in plan_bwd._asdict().items()))
-        print(f'phase 8 gru bwd {label}: route {route_bwd}{shown}; launches '
-              f'by route {routed_bwd}; a second run gives the same bits: '
-              f'{same_bwd}')
-        if routed_bwd != {**dict.fromkeys(routed_bwd, 0), route_bwd: 2}:
-            fail(f'the gru backward at {label} did not take the '
-                 f'{route_bwd} route: {routed_bwd}')
-        if not same_bwd:
-            fail(f'two gru backward runs at {label} differ')
-
-        def grads(fn):
-            leaves = [a.clone().requires_grad_() for a in (gx, w, h0)]
-            outs = fn(leaves[0], leaves[1], mask, leaves[2])
-            if any(o.grad_fn is None for o in outs):
-                fail('gru_cell_scan under grad mode returned a tensor '
-                     'without grad_fn')
-            return torch.autograd.grad(outs, leaves, cot)
-
-        want_grads = grads(gru_cell_scan_plain)
-        err_fn = max_rel_err(grads(gru_cell_scan), want_grads)
-        tf32 = {
-            'fwd': with_tf32(lambda: max_err(
-                gru_cell_scan_plain(*args), want)),
-            'fwd_train': with_tf32(lambda: max_err(
-                gru_cell_scan_train_plain(*args), want_train)),
-            'bwd': with_tf32(lambda: max_err(bwd_plain(), want_bwd)),
-            'fn': with_tf32(lambda: max_rel_err(
-                grads(gru_cell_scan_plain), want_grads)),
-        }
-        plain_iters = 2 if t_len > 100 else 3
-        times = {
-            'fwd': cuda_ms(lambda: gru_cell_scan(*args), iters=20),
-            'fwd_train': cuda_ms(fwd_train, iters=20),
-            'bwd': cuda_ms(bwd, iters=20),
-            'fwd_plain': cuda_ms(lambda: gru_cell_scan_plain(*args),
-                                 iters=plain_iters),
-            'fwd_train_plain': cuda_ms(
-                lambda: gru_cell_scan_train_plain(*args),
-                iters=plain_iters),
-            'bwd_plain': cuda_ms(bwd_plain, iters=plain_iters),
-            'dw': cuda_ms(lambda: gru_kernels.recurrent_weight_grad(
-                got_bwd[1], h_prev, n_dir), iters=20),
-        }
-        library = cudnn_layer_ms(torch.nn.GRU, t_len, batch, in_size, hdim,
-                                 n_dir)
-        flops = gru_flops(valid, hdim)
-        limits = {
-            'fwd': bound(nbytes(*args, *got), flops),
-            'fwd_train': bound(nbytes(*args, *got_train), flops),
-            'bwd': bound(nbytes(acts, gh_n, h_prev, w, mask, *cot,
-                                *got_bwd), flops),
-        }
-        tols = {'fwd': GRU_TOL, 'fwd_train': GRU_TOL, 'bwd': GRU_BWD_TOL}
-        for name in ('fwd', 'fwd_train', 'bwd'):
-            print(f'phase 8 gru {name} {label}: max |kernel - plain| '
-                  f'{err[name]:.3e} (tol {tols[name]}), plain with TF32 vs '
-                  f'f32 {tf32[name]:.3e}, kernel {times[name]:.3f} ms, '
-                  f'plain {times[name + "_plain"]:.3f} ms, bound '
-                  f'{limits[name]["bound_ms"]:.4f} ms by '
-                  f'{limits[name]["bound_by"]}, cuDNN nn.GRU layer '
-                  f'{library[name]:.3f} ms')
-            if not err[name] <= tols[name]:
-                fail(f'gru {name} kernel disagrees with plain at {label}: '
-                     f'{err[name]}')
-            if not tf32[name] > tols[name]:
-                fail(f'the limit {tols[name]} does not tell a TF32 product '
-                     f'from f32 for gru {name} at {label}: {tf32[name]}')
-        print(f'phase 8 GRUCellScan vs autograd through plain {label}: max '
-              f'relative difference {err_fn:.3e} over dgates_x, dW_hh, dh0 '
-              f'(tol {GRU_GRAD_RTOL}), with TF32 {tf32["fn"]:.3e}; dW_hh '
-              f'product {times["dw"]:.3f} ms')
-        if not err_fn <= GRU_GRAD_RTOL:
-            fail(f'GRUCellScan disagrees with autograd through the plain '
-                 f'forward at {label}: {err_fn}')
-        if not tf32['fn'] > GRU_GRAD_RTOL:
-            fail(f'the limit {GRU_GRAD_RTOL} does not tell TF32 from f32 '
-                 f'for GRUCellScan at {label}: {tf32["fn"]}')
-        results[label] = {
-            name: {'shape': label, 'max_abs_err': err[name],
-                   'ms': times[name], 'plain_ms': times[name + '_plain'],
-                   **limits[name], 'library_ms': library[name],
-                   'gru_route': route if name != 'bwd' else route_bwd}
-            for name in ('fwd', 'fwd_train', 'bwd')}
-        results[label]['fwd']['plan'] = None if plan is None else plan._asdict()
-        results[label]['fwd_train']['plan'] = results[label]['fwd']['plan']
-        results[label]['bwd']['plan'] = (None if plan_bwd is None
-                                         else plan_bwd._asdict())
-        results[label]['dw_ms'] = times['dw']
+        results[label] = gru_kernels_case('8', label, t_len, batch, hdim,
+                                          kind, n_dir, in_size)
     return results
 
 
@@ -6921,6 +6975,310 @@ def phase_asr():
     return attention_rows, lstm_rows, totals
 
 
+# the distance estimator's GRU: one direction over a batch of 8 scenes, 64
+# units; 8000 samples give 128 frames at shift 64, which the recipe's
+# CNN2d pools to 32 steps (32 channels x 32 bins into the GRU), and 128
+# steps as a longer scene would give:
+# (label, T, rows, H, mask kind, width of the layer's input)
+DISTANCE_GRU_SHAPES = [
+    ('distance estimator T=32 D*B=8 H=64 one direction', 32, 8, 64,
+     'ragged', 1024),
+    ('distance estimator T=128 D*B=8 H=64 one direction', 128, 8, 64,
+     'ragged', 1024),
+]
+
+
+def kernel_launches():
+    """The launch count of every kernel of the port, by wrapper (and by
+    kernel for the wrappers of several); zero counts left out."""
+    counts = {'lstm': dict(lstm_cell_scan.launches),
+              'gru': dict(gru_cell_scan.launches),
+              'attention': dict(flash_attention.launches),
+              'masked_istft': masked_istft.launches,
+              'fused_logmel': fused_logmel.launches,
+              'wavenet_sample': wavenet_sample.launches,
+              'int8_matmul': int8_matmul.launches}
+    out = {}
+    for wrapper, n in counts.items():
+        if isinstance(n, dict):
+            n = {k: v for k, v in n.items() if v}
+        if n:
+            out[wrapper] = n
+    return out
+
+
+def audio_reader_times(root):
+    """``AudioReader``'s time per file on the host: 4 s of audio written
+    as int16 mono, stereo int16, int32 and 8 kHz int16 (resampled to 16
+    kHz); the median of 20 reads each on one thread, and the mean over
+    four threads reading 80 files together."""
+    from concurrent.futures import ThreadPoolExecutor
+    rng = np.random.RandomState(0)
+    audio = 0.3 * np.sin(2 * np.pi * 440 * np.arange(64000) / 16000) \
+        + 0.05 * rng.randn(64000)
+    files = {
+        'int16': wav_dbs.write_wav(root / 'int16.wav', audio, 16000),
+        'stereo': wav_dbs.write_wav(root / 'stereo.wav',
+                                    np.stack([audio, audio], 1), 16000),
+        'int32': wav_dbs.write_wav(root / 'int32.wav', audio, 16000,
+                                   'int32'),
+        '8khz': wav_dbs.write_wav(root / '8khz.wav', audio[::2], 8000),
+    }
+    reader = AudioReader()
+    times = {}
+    for kind, path in files.items():
+        reader({'audio_path': path})
+        reads = []
+        for _ in range(20):
+            start = time.perf_counter()
+            reader({'audio_path': path})
+            reads.append((time.perf_counter() - start) * 1e3)
+        times[kind] = float(np.median(reads))
+    paths = [files['int16']] * 80
+    with ThreadPoolExecutor(4) as pool:
+        list(pool.map(lambda p: reader({'audio_path': p}), paths[:8]))
+        start = time.perf_counter()
+        list(pool.map(lambda p: reader({'audio_path': p}), paths))
+        times['int16, 4 threads'] = (time.perf_counter() - start) * 1e3 / 80
+    return times
+
+
+def write_real_audio(root):
+    """Phase 38a: the WAV trees and JSON databases; returns their paths."""
+    root = Path(root)
+    dbs = {
+        'wsj0_2mix': wav_dbs.write_wsj0_2mix(root, (6, 4, 3),
+                                             min_samples=16000),
+        'librispeech': wav_dbs.write_librispeech(root, min_samples=16000),
+        'audioset': wav_dbs.write_audioset(root, min_samples=16000),
+    }
+    run_main(de_create_jsons, ['--synthetic', str(root / 'rir_tree'),
+                               '--out', str(root / 'rirs.json')])
+    dbs['rirs'] = root / 'rirs.json'
+    sizes = {}
+    for name, path in dbs.items():
+        db = JsonDatabase(path)
+        sizes[name] = {split: len(db.get_dataset(split))
+                       for split in db.dataset_names}
+    kinds = {}
+    for path in sorted(root.rglob('*.wav')):
+        from scipy.io import wavfile
+        sr, data = wavfile.read(path)
+        kind = f'{data.dtype} {"stereo" if data.ndim == 2 else "mono"} {sr}'
+        kinds[kind] = kinds.get(kind, 0) + 1
+    return dbs, sizes, kinds
+
+
+def check_recipe_dir(label, storage_dir, database=None):
+    """``config.json``, the latest checkpoint and the ``Makefile``, whose
+    ``evaluate`` target names the database the training read."""
+    for name in ('config.json', 'Makefile', 'checkpoints/ckpt_latest.ptt'):
+        if not (storage_dir / name).exists():
+            fail(f'{label}: {name} missing from {storage_dir}')
+    makefile = (storage_dir / 'Makefile').read_text()
+    if database is not None and f'--database {database}' not in makefile:
+        fail(f'{label}: the Makefile does not name {database}:\n{makefile}')
+
+
+def run_recipe(label, module, args):
+    """``python -m module args`` on the card with the launch counts set to
+    0 before and read after (the GRU backward's by route added to the
+    main paths'); returns (launches, seconds)."""
+    reset_launches()
+    start = time.perf_counter()
+    run_main(module, [str(a) for a in args])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = kernel_launches()
+    add_main_bwd_routes()
+    print(f'phase {label}: {module.__name__.split("examples.")[-1]} '
+          f'{" ".join(str(a) for a in args[:1])}... on the card in '
+          f'{seconds:.2f} s, launches {launches}')
+    return launches, seconds
+
+
+def means_of(path):
+    return json.loads(Path(path).read_text())
+
+
+def finite_numbers(tree):
+    values = []
+
+    def walk(x):
+        if isinstance(x, dict):
+            for v in x.values():
+                walk(v)
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                walk(v)
+        elif isinstance(x, (int, float)) and not isinstance(x, bool):
+            values.append(float(x))
+    walk(tree)
+    return bool(values) and bool(np.isfinite(values).all())
+
+
+def expect_launches(label, launches, required, allowed=()):
+    """Each kernel of ``required`` ((wrapper, kernel or None)) launched,
+    and nothing outside ``required`` and ``allowed``."""
+    names = set(required) | set(allowed)
+    for wrapper, kernel in required:
+        n = launches.get(wrapper, {})
+        n = n.get(kernel, 0) if kernel else n
+        if not n:
+            fail(f'{label}: no {wrapper} {kernel or ""} launch: {launches}')
+    for wrapper, counts in launches.items():
+        kernels = counts if isinstance(counts, dict) else {None: counts}
+        for kernel in kernels:
+            if (wrapper, kernel) not in names:
+                fail(f'{label}: an unexpected {wrapper} {kernel} launch: '
+                     f'{launches}')
+
+
+def add_launches(total, launches):
+    for wrapper, counts in launches.items():
+        if isinstance(counts, dict):
+            into = total.setdefault(wrapper, {})
+            for kernel, n in counts.items():
+                into[kernel] = into.get(kernel, 0) + n
+        else:
+            total[wrapper] = total.get(wrapper, 0) + counts
+
+
+LSTM_ALL = [('lstm', 'fwd'), ('lstm', 'fwd_train'), ('lstm', 'bwd')]
+GRU_ALL = [('gru', 'fwd'), ('gru', 'fwd_train'), ('gru', 'bwd')]
+
+
+def phase_real_audio():
+    """Phase 38: the recipes on WAV files (see the module docstring).
+    Returns the GRU rows at the distance estimator's shapes, the launches
+    of the recipe runs, added up by wrapper and kernel, and the vocoder
+    request's sampler launches by route."""
+    start_phase = time.perf_counter()
+    if not native.NATIVE_AVAILABLE:
+        fail('phase 38a: the native data prep (native/_dataprep.cpp) did '
+             'not build: AudioReader would decode int16 in numpy')
+    total = {}
+    with tempfile.TemporaryDirectory() as root:
+        root = Path(root)
+        dbs, sizes, kinds = write_real_audio(root / 'data')
+        times = audio_reader_times(root)
+        print(f'phase 38a databases {sizes}; WAV files by type, layout and '
+              f'rate {kinds}; NATIVE_AVAILABLE {native.NATIVE_AVAILABLE}; '
+              f'AudioReader ms per 4 s file on the host: '
+              + ', '.join(f'{k} {v:.3f}' for k, v in times.items()))
+        gru_rows = {label: gru_kernels_case('38b', label, t_len, batch, hdim,
+                                            kind, 1, in_size)
+                    for label, t_len, batch, hdim, kind, in_size
+                    in DISTANCE_GRU_SHAPES}
+
+        # 38c: uPIT on wsj0-2mix
+        db = dbs['wsj0_2mix']
+        launches, _ = run_recipe('38c', pit_train, [
+            '--storage_root', root / 'exp', '--database', db, '--epochs', 1,
+            '--batch_size', 2])
+        expect_launches('38c pit train.py', launches, LSTM_ALL)
+        add_launches(total, launches)
+        storage_dir = root / 'exp' / 'pit' / '1'
+        check_recipe_dir('38c pit', storage_dir, db)
+        launches, _ = run_recipe('38c', pit_evaluate, [
+            '--model_path', storage_dir, '--database', db, '--dataset',
+            'mix_2_spk_min_tt'])
+        expect_launches('38c pit evaluate.py', launches,
+                        [('lstm', 'fwd'), ('masked_istft', None)])
+        if masked_istft.routes != {'fft': launches['masked_istft'],
+                                   'dft': 0}:
+            fail(f'38c: the requests\' masked_istft launches did not all '
+                 f'take the fft route: {masked_istft.routes}')
+        add_launches(total, launches)
+        result = means_of(storage_dir / 'eval' / 'result.json')
+        if sorted(result) != [f'mix_2_spk_min_tt_{i}' for i in range(3)] \
+                or not finite_numbers(result):
+            fail(f'38c: pit evaluate.py results {result}')
+        print(f'phase 38c pit means '
+              f'{means_of(storage_dir / "eval" / "means.json")}')
+
+        # 38d: the speaker classifier on LibriSpeech-style files
+        db = dbs['librispeech']
+        launches, _ = run_recipe('38d', spk_train, [
+            '--storage_root', root / 'exp', '--database', db, '--epochs', 2,
+            '--on_device_features'])
+        expect_launches('38d speaker train.py', launches,
+                        [*GRU_ALL, ('fused_logmel', None)])
+        add_launches(total, launches)
+        storage_dir = root / 'exp' / 'speaker_clf' / '1'
+        check_recipe_dir('38d speaker', storage_dir, db)
+        launches, _ = run_recipe('38d', spk_evaluate, [
+            '--model_path', storage_dir, '--database', db, '--dataset',
+            'test_clean'])
+        expect_launches('38d speaker evaluate.py', launches,
+                        [('gru', 'fwd'), ('fused_logmel', None)])
+        add_launches(total, launches)
+        means = means_of(storage_dir / 'eval' / 'means.json')
+        print(f'phase 38d speaker means {means}')
+        if means['num_examples'] != sizes['librispeech']['test_clean'] \
+                or not finite_numbers(means):
+            fail(f'38d: speaker evaluate.py means {means}')
+
+        # 38e: the audio tagger on AudioSet-style files
+        db = dbs['audioset']
+        launches, _ = run_recipe('38e', tag_train, [
+            '--storage_root', root / 'exp', '--database', db, '--epochs', 2,
+            '--batch_size', 2])
+        expect_launches('38e tagging train.py', launches, [])
+        storage_dir = root / 'exp' / 'tagging' / '1'
+        check_recipe_dir('38e tagging', storage_dir, db)
+        launches, _ = run_recipe('38e', tag_evaluate, [
+            '--model_path', storage_dir, '--database', db, '--dataset',
+            'eval'])
+        expect_launches('38e tagging evaluate.py', launches, [])
+        means = means_of(storage_dir / 'eval' / 'means.json')
+        print(f'phase 38e tagging means {means}')
+        if means['num_examples'] != sizes['audioset']['eval'] \
+                or not finite_numbers(means):
+            fail(f'38e: tagging evaluate.py means {means}')
+
+        # 38f: the distance estimator
+        launches, _ = run_recipe('38f', de_train, [
+            '--storage_root', root / 'exp', '--synthetic', '--epochs', 1])
+        expect_launches('38f distance train.py', launches, GRU_ALL)
+        add_launches(total, launches)
+        storage_dir = root / 'exp' / 'distance' / '1'
+        check_recipe_dir('38f distance', storage_dir)
+        launches, _ = run_recipe('38f', de_evaluate, [
+            '--model_path', storage_dir, '--synthetic'])
+        expect_launches('38f distance evaluate.py', launches,
+                        [('gru', 'fwd')])
+        add_launches(total, launches)
+        summary = means_of(storage_dir / 'eval' /
+                           'evaluation_result.json')['summary']
+        print(f'phase 38f distance summary {summary}')
+        if summary['num_examples'] != 32 or not finite_numbers(summary):
+            fail(f'38f: distance evaluate.py summary {summary}')
+
+        # 38g: the vocoder on LibriSpeech-style files
+        db = dbs['librispeech']
+        launches, _ = run_recipe('38g', wn_train, [
+            '--storage_root', root / 'exp', '--database', db, '--epochs', 1])
+        expect_launches('38g wavenet train.py', launches, [])
+        storage_dir = root / 'exp' / 'wavenet' / '1'
+        check_recipe_dir('38g wavenet', storage_dir, db)
+        launches, _ = run_recipe('38g', wn_evaluate, [
+            '--model_path', storage_dir, '--database', db, '--dataset',
+            'test_clean', '--max_examples', 1, '--parallel',
+            '--chunk_length', 4000, '--chunk_overlap', 1000])
+        expect_launches('38g wavenet evaluate.py', launches,
+                        [('wavenet_sample', None)])
+        add_launches(total, launches)
+        wavenet_routes = dict(wavenet_sample.routes)
+        means = means_of(storage_dir / 'eval' / 'means.json')
+        print(f'phase 38g wavenet means {means}')
+        if means['num_examples'] != 1 or not finite_numbers(means):
+            fail(f'38g: wavenet evaluate.py means {means}')
+    print(f'phase 38 launches of the recipe runs: {total}')
+    print(f'phase 38 took {time.perf_counter() - start_phase:.1f} s')
+    return gru_rows, total, wavenet_routes
+
+
 def main():
     profile = '--profile' in sys.argv[1:]
     phase_device()
@@ -6976,6 +7334,10 @@ def main():
     dc_served, dc_trained = phase_deep_clustering()
     torch.cuda.empty_cache()
     asr_attention_rows, asr_lstm_rows, asr_launches_ = phase_asr()
+    torch.cuda.empty_cache()
+    distance_gru_rows, real_audio, real_wavenet_routes = phase_real_audio()
+    real_lstm = real_audio.get('lstm', {})
+    real_gru = real_audio.get('gru', {})
     # the bf16 GRU kernels' launches on the main paths: the bgru DPRNN
     # under the policy (20 steps and 4 requests) and both classifiers
     gru_bf16_launches = {
@@ -6998,6 +7360,10 @@ def main():
         if attention_bf16_launches[name] == 0:
             fail(f'the bf16 SepFormer step never launched the attention '
                  f'{name} kernel')
+    # and the real-audio runs' (phase 38: the vocoder's request on a file)
+    wavenet_launches += real_audio['wavenet_sample']
+    wavenet_routes = {route: n + real_wavenet_routes.get(route, 0)
+                      for route, n in wavenet_routes.items()}
     if wavenet_launches == 0:
         fail('the vocoder\'s requests never launched the wavenet_sample '
              'kernel')
@@ -7025,6 +7391,10 @@ def main():
         'fwd': served['bgru'] + trained['bgru']['fwd'] + speaker['fwd'],
         'fwd_train': trained['bgru']['fwd_train'] + speaker['fwd_train'],
         'bwd': trained['bgru']['bwd'] + speaker['bwd']}
+    # and phase 38's: the speaker classifier and the distance estimator on
+    # the real-audio path
+    for name in gru_launches:
+        gru_launches[name] += real_gru.get(name, 0)
     for name, n in gru_launches.items():
         if n == 0:
             fail(f'the TasNet paths never launched the gru {name} kernel')
@@ -7052,6 +7422,9 @@ def main():
     # and the transducer's prediction network (phase 37: one direction)
     for name in lstm_launches:
         lstm_launches[name] += asr_launches_['lstm'][name]
+    # and uPIT trained and served from WAV files (phase 38)
+    for name in lstm_launches:
+        lstm_launches[name] += real_lstm.get(name, 0)
     for name, n in new_paths.items():
         if n == 0:
             fail(f'phases 34 to 36 never launched the lstm {name} kernel')
@@ -7075,7 +7448,8 @@ def main():
           f'training {orpit_trained}, separate {orpit_served}; the mask '
           f'estimator training {me_trained}, requests {me_served}; deep '
           f'clustering served {dc_served}, a step {dc_trained}); the '
-          f'speech-recognition paths (phase 37) {asr_launches_}')
+          f'speech-recognition paths (phase 37) {asr_launches_}; the '
+          f'real-audio runs (phase 38) {real_audio}')
     # every row's numbers are those of its ``shape``: the GRU rows those of
     # the intra-chunk shape, which six of a TasNet's twelve chunk RNNs run
     # (phase 8 prints the rows of the other shapes, the classifier's two
@@ -7135,27 +7509,36 @@ def main():
         {'name': 'masked_istft', 'route': 'cuda',
          'source': 'padertorch_tpu_torch/csrc/masked_istft.cu',
          'replaces': 'padertorch_tpu/ops/pallas/masked_istft.py:135',
-         'launches': launches['masked_istft'] + me_served['masked_istft'],
+         'launches': launches['masked_istft'] + me_served['masked_istft']
+         + real_audio['masked_istft'],
          'launches_by_route': {
              **launches['masked_istft_routes'],
+             # phases 35 and 38 check their route
              'fft': launches['masked_istft_routes']['fft']
-             + me_served['masked_istft']},   # phase 35 checks its route
+             + me_served['masked_istft'] + real_audio['masked_istft']},
          'launches_mask_estimator': me_served['masked_istft'],
+         'launches_real_audio': real_audio['masked_istft'],
          'shape': 'K=2 T=127 F=257', **istft[(2, 127)],
          'other_shapes': [me_istft]},
         {'name': 'gru_cell_scan', 'route': 'cuda',
          'source': 'padertorch_tpu_torch/csrc/gru_cell_scan.cu',
          'replaces': 'padertorch_tpu/ops/pallas/gru.py:182',
-         'launches': gru_launches['fwd'], **gru_rows['fwd']},
+         'launches': gru_launches['fwd'], **gru_rows['fwd'],
+         'distance_shapes': [rows['fwd']
+                             for rows in distance_gru_rows.values()]},
         {'name': 'gru_cell_scan_train', 'route': 'cuda',
          'source': 'padertorch_tpu_torch/csrc/gru_cell_scan.cu',
          'replaces': 'padertorch_tpu/ops/pallas/gru.py:198',
-         'launches': gru_launches['fwd_train'], **gru_rows['fwd_train']},
+         'launches': gru_launches['fwd_train'], **gru_rows['fwd_train'],
+         'distance_shapes': [rows['fwd_train']
+                             for rows in distance_gru_rows.values()]},
         {'name': 'gru_cell_scan_bwd', 'route': 'cuda',
          'source': 'padertorch_tpu_torch/csrc/gru_cell_scan_bwd.cu',
          'replaces': 'padertorch_tpu/ops/pallas/gru.py:259',
          'launches': gru_launches['bwd'],
-         'launches_by_route': dict(GRU_BWD_MAIN_ROUTES), **gru_rows['bwd']},
+         'launches_by_route': dict(GRU_BWD_MAIN_ROUTES), **gru_rows['bwd'],
+         'distance_shapes': [rows['bwd']
+                             for rows in distance_gru_rows.values()]},
         {'name': 'gru_cell_scan_bf16', 'route': 'cuda',
          'source': 'padertorch_tpu_torch/csrc/gru_cell_scan.cu',
          'sources': ['padertorch_tpu_torch/csrc/gru_cell_scan.cu',
@@ -7218,7 +7601,8 @@ def main():
         {'name': 'fused_logmel', 'route': 'cuda',
          'source': 'padertorch_tpu_torch/csrc/fused_logmel.cu',
          'replaces': 'padertorch_tpu/ops/pallas/logmel.py:78',
-         'launches': speaker['fused_logmel'], **logmel},
+         'launches': speaker['fused_logmel'] + real_audio['fused_logmel'],
+         **logmel},
         {'name': 'int8_matmul', 'route': 'cuda',
          'source': 'padertorch_tpu_torch/csrc/int8_matmul.cu',
          'replaces': 'padertorch_tpu/ops/pallas/int8_matmul.py:85',

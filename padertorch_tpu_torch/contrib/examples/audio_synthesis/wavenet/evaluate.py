@@ -13,6 +13,8 @@ training run of either package.
 Run (on the card, the default; without one it fails):
     python -m padertorch_tpu_torch.contrib.examples.audio_synthesis.wavenet.evaluate \
         --model_path /path/to/storage_dir --synthetic
+On a LibriSpeech-style ``JsonDatabase``: ``--database db.json --dataset
+test_clean`` (each example's WAV file under ``audio_path``).
 Run on the CPU: add ``--device cpu``.
 """
 import argparse
@@ -25,6 +27,8 @@ import numpy as np
 import torch
 
 from padertorch_tpu_torch.contrib.examples._audio import write_wav
+from padertorch_tpu_torch.contrib.je.data.transforms import AudioReader
+from padertorch_tpu_torch.data.database import JsonDatabase
 from padertorch_tpu_torch.evaluation import (
     split_managed, gather_merged, is_master,
 )
@@ -66,6 +70,7 @@ def main():
     parser.add_argument('--model_path', required=True)
     parser.add_argument('--database', default=None)
     parser.add_argument('--synthetic', action='store_true')
+    parser.add_argument('--dataset', default='test_clean')
     parser.add_argument('--max_examples', type=int, default=None)
     parser.add_argument('--chunk_length', type=int, default=48_000)
     parser.add_argument('--chunk_overlap', type=int, default=16_000)
@@ -82,12 +87,6 @@ def main():
                         help="'cuda' (the default) or 'cpu'")
     args = parser.parse_args()
 
-    if args.database is not None:
-        raise NotImplementedError(
-            '--database waits for the JSON database reader and AudioReader '
-            '(no such files are in the repository yet); run with '
-            '--synthetic')
-
     model_path = Path(args.model_path)
     model = WaveNetVocoder.from_storage_dir(
         model_path, checkpoint_name='ckpt_best_loss.ptt')
@@ -95,9 +94,14 @@ def main():
     print(f'device: {args.device}')
     generator = torch.Generator().manual_seed(args.seed)
 
-    dataset = data.synthetic_database(
-        num_examples=args.num_synthetic_examples,
-        num_samples=args.synthetic_samples, seed=2)
+    if args.synthetic or args.database is None:
+        dataset = data.synthetic_database(
+            num_examples=args.num_synthetic_examples,
+            num_samples=args.synthetic_samples, seed=2)
+    else:
+        reader = AudioReader(target_sample_rate=data.SAMPLE_RATE)
+        dataset = JsonDatabase(args.database).get_dataset(
+            args.dataset).map(reader)
     if args.max_examples is not None:
         dataset = list(dataset)[:args.max_examples]
 

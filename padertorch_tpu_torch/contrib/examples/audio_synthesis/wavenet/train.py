@@ -3,12 +3,16 @@
 Counterpart of ``padertorch_tpu/contrib/examples/audio_synthesis/wavenet/
 train.py`` (reference ``contrib/examples/audio_synthesis/wavenet/
 train.py``).  It runs ``test_run``, registers the validation hook, trains,
-and leaves a storage dir (``config.json``, ``checkpoints/``, an event file)
+and leaves a storage dir (``config.json``, ``checkpoints/``, an event file,
+a ``Makefile``)
 that the ``evaluate.py`` of this package and of the JAX package both load.
 
 Run on the card (the default device; without one it fails):
     python -m padertorch_tpu_torch.contrib.examples.audio_synthesis.wavenet.train \
         --storage_root /tmp/wavenet --synthetic --epochs 2
+On a LibriSpeech-style ``JsonDatabase`` (splits ``train_clean_100`` and
+``dev_clean``, each example's WAV file under ``audio_path``): replace
+``--synthetic`` by ``--database /path/to/librispeech.json``.
 Run on the CPU: add ``--device cpu`` (and ``--small`` for a tiny model).
 """
 import argparse
@@ -16,6 +20,10 @@ from pathlib import Path
 
 import torch
 
+from padertorch_tpu_torch.contrib.examples._makefile import (
+    evaluate_args_of, write_recipe_makefile)
+from padertorch_tpu_torch.contrib.je.data.transforms import AudioReader
+from padertorch_tpu_torch.data.database import JsonDatabase
 from padertorch_tpu_torch.io import dump_config
 from padertorch_tpu_torch.train.optimizer import Adam
 from padertorch_tpu_torch.train.trainer import Trainer
@@ -55,12 +63,6 @@ def main():
                         help="'cuda' (the default) or 'cpu'")
     args = parser.parse_args()
 
-    if args.database is not None:
-        raise NotImplementedError(
-            '--database waits for the JSON database reader and AudioReader '
-            '(no such files are in the repository yet); run with '
-            '--synthetic')
-
     if args.storage_root:
         from padertorch_tpu_torch.io import get_new_subdir
         storage_dir = get_new_subdir(Path(args.storage_root) / 'wavenet')
@@ -77,15 +79,28 @@ def main():
     torch.manual_seed(0)
     config = get_trainer_config(storage_dir, updates)
     dump_config({'trainer': config}, storage_dir / 'config.json')
+    write_recipe_makefile(
+        storage_dir,
+        'padertorch_tpu_torch.contrib.examples.audio_synthesis.wavenet'
+        '.train',
+        evaluate_module='padertorch_tpu_torch.contrib.examples'
+                        '.audio_synthesis.wavenet.evaluate',
+        evaluate_args=evaluate_args_of(args))
     trainer = Trainer.from_config(config)
     trainer.to(args.device)
     print(f'device: {args.device}')
 
-    train_ds = data.synthetic_database(
-        num_examples=args.num_examples or max(12, 4 * args.batch_size))
-    # at least 2 validation batches (test_run exercises two)
-    dev_ds = data.synthetic_database(
-        num_examples=2 * args.batch_size, seed=1)
+    if args.synthetic or args.database is None:
+        train_ds = data.synthetic_database(
+            num_examples=args.num_examples or max(12, 4 * args.batch_size))
+        # at least 2 validation batches (test_run exercises two)
+        dev_ds = data.synthetic_database(
+            num_examples=2 * args.batch_size, seed=1)
+    else:
+        db = JsonDatabase(args.database)
+        reader = AudioReader(target_sample_rate=data.SAMPLE_RATE)
+        train_ds = db.get_dataset('train_clean_100').map(reader)
+        dev_ds = db.get_dataset('dev_clean').map(reader)
 
     train = data.prepare_dataset(
         train_ds, batch_size=args.batch_size,

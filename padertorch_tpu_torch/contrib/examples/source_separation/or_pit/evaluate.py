@@ -18,6 +18,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from padertorch_tpu_torch.data.database import JsonDatabase
 from padertorch_tpu_torch.models.or_pit import OneAndRestPIT
 from padertorch_tpu_torch.evaluation import (
     InputMetrics, OutputMetrics, split_managed, gather_merged, is_master,
@@ -59,9 +60,11 @@ def evaluate_example(model, example, num_speakers=2):
 def main():
     parser = argparse.ArgumentParser()
     parser.add_argument('--model_path', required=True)
-    parser.add_argument('--synthetic', action='store_true',
-                        help='the synthetic mixtures (the only data the '
-                             'port reads yet)')
+    parser.add_argument('--database', default=None,
+                        help='a WSJ0-2mix-style JsonDatabase (WAV files '
+                             'under audio_path)')
+    parser.add_argument('--synthetic', action='store_true')
+    parser.add_argument('--dataset', default='mix_2_spk_min_tt')
     parser.add_argument('--num_speakers', type=int, default=2)
     parser.add_argument('--device', default='cuda',
                         help="'cuda' (the default) or 'cpu'")
@@ -73,7 +76,11 @@ def main():
     model = model.to(args.device).eval()
     print(f'device: {args.device}')
 
-    dataset = data.synthetic_database(num_examples=8, seed=2)
+    if args.synthetic or args.database is None:
+        dataset = data.synthetic_database(num_examples=8, seed=2)
+    else:
+        dataset = JsonDatabase(args.database).get_dataset(
+            args.dataset).map(data.read_audio)
 
     results = {}
     for example in split_managed(dataset, progress_bar=True):

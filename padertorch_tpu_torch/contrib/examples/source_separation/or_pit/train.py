@@ -5,7 +5,7 @@ train.py`` (reference ``contrib/examples/source_separation/or_pit/
 train.py``; the sacred CLI becomes argparse + the Configurable update
 dict).  The data pipeline is the tasnet recipe's (4 s segments, padded
 batches).  It runs ``test_run``, registers the validation hook, trains,
-and leaves a storage dir that the ``evaluate.py`` of this package and of
+and leaves a storage dir (with a ``Makefile``) that the ``evaluate.py`` of this package and of
 the JAX package both load.  The separator's default DPRNN runs the
 ``lstm_cell_scan`` kernels on the card.
 
@@ -20,6 +20,9 @@ from pathlib import Path
 
 import torch
 
+from padertorch_tpu_torch.contrib.examples._makefile import (
+    evaluate_args_of, write_recipe_makefile)
+from padertorch_tpu_torch.data.database import JsonDatabase
 from padertorch_tpu_torch.io import dump_config
 from padertorch_tpu_torch.models.or_pit import OneAndRestPIT
 from padertorch_tpu_torch.models.tasnet import TasNet
@@ -72,12 +75,6 @@ def main():
                         help="'cuda' (the default) or 'cpu'")
     args = parser.parse_args()
 
-    if args.database is not None:
-        raise NotImplementedError(
-            '--database waits for read_audio and the JSON database reader '
-            '(no such files are in the repository yet); run with '
-            '--synthetic')
-
     if args.storage_root:
         from padertorch_tpu_torch.io import get_new_subdir
         storage_dir = get_new_subdir(Path(args.storage_root) / 'or_pit')
@@ -91,6 +88,13 @@ def main():
         updates['model'] = SMALL
     config = get_trainer_config(storage_dir, updates)
     dump_config({'trainer': config}, storage_dir / 'config.json')
+    write_recipe_makefile(
+        storage_dir,
+        'padertorch_tpu_torch.contrib.examples.source_separation.or_pit'
+        '.train',
+        evaluate_module='padertorch_tpu_torch.contrib.examples'
+                        '.source_separation.or_pit.evaluate',
+        evaluate_args=evaluate_args_of(args))
     trainer = Trainer.from_config(config)
     trainer.to(args.device)
     try:
@@ -99,11 +103,17 @@ def main():
         pass  # a separator without RNNs
     print(f'device: {args.device}')
 
-    train_ds = data.synthetic_database(
-        num_examples=max(16, 4 * args.batch_size))
-    dev_ds = data.synthetic_database(
-        num_examples=max(8, 2 * args.batch_size), seed=1)
-    segment_length = 8000
+    if args.synthetic or args.database is None:
+        train_ds = data.synthetic_database(
+            num_examples=max(16, 4 * args.batch_size))
+        dev_ds = data.synthetic_database(
+            num_examples=max(8, 2 * args.batch_size), seed=1)
+        segment_length = 8000
+    else:
+        db = JsonDatabase(args.database)
+        train_ds = db.get_dataset('mix_2_spk_min_tr').map(data.read_audio)
+        dev_ds = db.get_dataset('mix_2_spk_min_cv').map(data.read_audio)
+        segment_length = args.segment_length
 
     train = data.prepare_dataset(
         train_ds, batch_size=args.batch_size,

@@ -3,9 +3,10 @@
 Counterpart of ``padertorch_tpu/contrib/examples/source_separation/pit/
 data.py`` (reference ``contrib/examples/source_separation/pit/data.py``):
 on-the-fly host STFT (512/128), magnitude/phase features and padded
-batches, plus the synthetic two-speaker sinusoid database for runs
-without data.  Reading real databases (``read_audio``) waits until such
-files are in the repository.
+batches; ``read_audio`` loads the WAV files a ``JsonDatabase`` example
+names (``audio_path.observation``, ``audio_path.speech_source``) through
+``AudioReader``; the synthetic two-speaker sinusoid database serves runs
+without data.
 """
 import numpy as np
 
@@ -39,6 +40,23 @@ def synthetic_database(num_examples=16, num_samples=16000, seed=0):
             'num_samples': n,
         }
     return lazy.from_dict(examples)
+
+
+def read_audio(example):
+    """Load audio for real databases (audio_path entries)."""
+    from padertorch_tpu_torch.contrib.je.data.transforms import AudioReader
+    reader = AudioReader()
+    observation = reader.read_file(example['audio_path']['observation'])
+    sources = np.stack([
+        reader.read_file(p)
+        for p in example['audio_path']['speech_source']
+    ])
+    return {
+        'example_id': example['example_id'],
+        'observation': observation,
+        'speech_source': sources,
+        'num_samples': observation.shape[-1],
+    }
 
 
 _stft = STFT(

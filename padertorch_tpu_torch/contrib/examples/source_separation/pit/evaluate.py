@@ -18,6 +18,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from padertorch_tpu_torch.data.database import JsonDatabase
 from padertorch_tpu_torch.models.bss import PermutationInvariantTrainingModel
 from padertorch_tpu_torch.data.batch import example_to_device
 from padertorch_tpu_torch.evaluation import (
@@ -67,9 +68,11 @@ def evaluate_example(model, stft, example):
 def main():
     parser = argparse.ArgumentParser()
     parser.add_argument('--model_path', required=True)
-    parser.add_argument('--synthetic', action='store_true',
-                        help='the synthetic mixtures (the only data the '
-                             'port reads yet)')
+    parser.add_argument('--database', default=None,
+                        help='a WSJ0-2mix-style JsonDatabase (WAV files '
+                             'under audio_path)')
+    parser.add_argument('--synthetic', action='store_true')
+    parser.add_argument('--dataset', default='mix_2_spk_min_tt')
     parser.add_argument('--device', default='cuda',
                         help="'cuda' (the default) or 'cpu'")
     args = parser.parse_args()
@@ -82,7 +85,11 @@ def main():
 
     stft = STFT(data.STFT_SIZE, data.STFT_SHIFT, fading='full',
                 complex_representation='complex', dtype='float32')
-    dataset = data.synthetic_database(num_examples=8, seed=2)
+    if args.synthetic or args.database is None:
+        dataset = data.synthetic_database(num_examples=8, seed=2)
+    else:
+        dataset = JsonDatabase(args.database).get_dataset(
+            args.dataset).map(data.read_audio)
 
     results = {}
     for example in split_managed(dataset, progress_bar=True):

@@ -4,12 +4,15 @@ Counterpart of ``padertorch_tpu/contrib/examples/source_separation/pit/
 train.py`` (reference ``contrib/examples/source_separation/pit/train.py``;
 the sacred CLI becomes argparse + the Configurable update dict).  It runs
 ``test_run``, registers the validation hook, trains, and leaves a storage
-dir (``config.json``, ``checkpoints/``, an event file) that the
-``evaluate.py`` of this package and of the JAX package both load.
+dir (``config.json``, ``checkpoints/``, an event file, a ``Makefile``) that
+the ``evaluate.py`` of this package and of the JAX package both load.
 
 Run on the card (the default device; without one it fails):
     python -m padertorch_tpu_torch.contrib.examples.source_separation.pit.train \
         --storage_root /tmp/pit --synthetic --epochs 2
+Run on a WSJ0-2mix-style ``JsonDatabase`` (splits ``mix_2_spk_min_tr`` and
+``mix_2_spk_min_cv``, WAV files under ``audio_path``):
+    ... --database /path/to/wsj0_2mix.json
 Run on the CPU: add ``--device cpu``.  ``--precision bfloat16`` trains
 under the bf16 policy (bf16 casts of float32 masters, ``Trainer(precision=
 ...)``), ``--compute_dtype bfloat16`` gives the BLSTM bf16 products and
@@ -21,6 +24,9 @@ from pathlib import Path
 
 import torch
 
+from padertorch_tpu_torch.contrib.examples._makefile import (
+    evaluate_args_of, write_recipe_makefile)
+from padertorch_tpu_torch.data.database import JsonDatabase
 from padertorch_tpu_torch.io import dump_config
 from padertorch_tpu_torch.models.bss import PermutationInvariantTrainingModel
 from padertorch_tpu_torch.train.optimizer import Adam
@@ -78,11 +84,6 @@ def main():
                              'its experiment dir (config + ckpt_latest)')
     args, rest = parser.parse_known_args()
 
-    if args.database is not None:
-        raise NotImplementedError(
-            '--database waits for read_audio and the JSON database reader '
-            '(no such files are in the repository yet); run with '
-            '--synthetic')
     if args.rnn_backend != 'pallas' and args.device != 'cpu':
         raise NotImplementedError(
             f'--rnn_backend {args.rnn_backend}: on the card the recurrence '
@@ -133,15 +134,26 @@ def main():
     else:
         config = get_trainer_config(storage_dir, updates)
         dump_config({'trainer': config}, storage_dir / 'config.json')
+    write_recipe_makefile(
+        storage_dir,
+        'padertorch_tpu_torch.contrib.examples.source_separation.pit.train',
+        evaluate_module='padertorch_tpu_torch.contrib.examples'
+                        '.source_separation.pit.evaluate',
+        evaluate_args=evaluate_args_of(args))
     trainer = Trainer.from_config(config)
     trainer.to(args.device)
     print(f'device: {args.device}')
 
-    train_ds = data.synthetic_database(
-        num_examples=max(32, 4 * args.batch_size))
-    # at least 2 validation batches (test_run exercises two)
-    dev_ds = data.synthetic_database(
-        num_examples=2 * args.batch_size, seed=1)
+    if args.synthetic or args.database is None:
+        train_ds = data.synthetic_database(
+            num_examples=max(32, 4 * args.batch_size))
+        # at least 2 validation batches (test_run exercises two)
+        dev_ds = data.synthetic_database(
+            num_examples=2 * args.batch_size, seed=1)
+    else:
+        db = JsonDatabase(args.database)
+        train_ds = db.get_dataset('mix_2_spk_min_tr').map(data.read_audio)
+        dev_ds = db.get_dataset('mix_2_spk_min_cv').map(data.read_audio)
 
     train = data.prepare_dataset(train_ds, batch_size=args.batch_size)
     dev = data.prepare_dataset(

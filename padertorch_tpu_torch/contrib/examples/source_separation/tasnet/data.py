@@ -2,19 +2,20 @@
 
 Counterpart of ``padertorch_tpu/contrib/examples/source_separation/tasnet/
 data.py`` (reference ``contrib/examples/source_separation/tasnet/train.py``
-data handling): Segmenter into 4-second chunks, padded batches.  Reading
-real databases (``read_audio``) waits until such files are in the
-repository.
+data handling): Segmenter into 4-second chunks, padded batches.  Real
+databases are read by the pit recipe's ``read_audio``, re-exported here as
+the JAX module does.
 """
 import numpy as np
 
 from padertorch_tpu_torch.data.segment import Segmenter
 from padertorch_tpu_torch.data.utils import collate_fn, pad_batch
 from padertorch_tpu_torch.contrib.examples.source_separation.pit.data import (
-    synthetic_database,
+    synthetic_database, read_audio,
 )
 
-__all__ = ['prepare_dataset', 'synthetic_database', 'post_batch_transform']
+__all__ = ['prepare_dataset', 'synthetic_database', 'read_audio',
+           'post_batch_transform']
 
 
 def post_batch_transform(batch):

@@ -45,6 +45,9 @@ from pathlib import Path
 
 import torch
 
+from padertorch_tpu_torch.contrib.examples._makefile import (
+    evaluate_args_of, write_recipe_makefile)
+from padertorch_tpu_torch.data.database import JsonDatabase
 from padertorch_tpu_torch.io import dump_config
 from padertorch_tpu_torch.models.tasnet import (
     TasNet, TasEncoder, StftEncoder, IstftDecoder,
@@ -166,12 +169,6 @@ def main():
                         help="the chunk RNNs' products and streams")
     args, rest = parser.parse_known_args()
 
-    if args.database is not None:
-        raise NotImplementedError(
-            '--database waits for read_audio and the JSON database reader '
-            '(no such files are in the repository yet); run with '
-            '--synthetic')
-
     if args.storage_root:
         from padertorch_tpu_torch.io import get_new_subdir
         storage_dir = get_new_subdir(Path(args.storage_root) / 'tasnet')
@@ -197,6 +194,13 @@ def main():
     config = get_trainer_config(
         storage_dir, variant=args.variant, loss=args.loss, updates=updates)
     dump_config({'trainer': config}, storage_dir / 'config.json')
+    write_recipe_makefile(
+        storage_dir,
+        'padertorch_tpu_torch.contrib.examples.source_separation.tasnet'
+        '.train',
+        evaluate_module='padertorch_tpu_torch.contrib.examples'
+                        '.source_separation.tasnet.evaluate',
+        evaluate_args=evaluate_args_of(args))
     trainer = Trainer.from_config(config)
     if args.flash:
         set_attention_backend(trainer.model, True)
@@ -208,10 +212,15 @@ def main():
         pass  # the convnet and sepformer variants have no RNNs
     print(f'device: {args.device}')
 
-    n_train = args.num_examples or max(32, 4 * args.batch_size)
-    train_ds = data.synthetic_database(num_examples=n_train)
-    dev_ds = data.synthetic_database(
-        num_examples=max(8, 2 * args.batch_size), seed=1)
+    if args.synthetic or args.database is None:
+        n_train = args.num_examples or max(32, 4 * args.batch_size)
+        train_ds = data.synthetic_database(num_examples=n_train)
+        dev_ds = data.synthetic_database(
+            num_examples=max(8, 2 * args.batch_size), seed=1)
+    else:
+        db = JsonDatabase(args.database)
+        train_ds = db.get_dataset('mix_2_spk_min_tr').map(data.read_audio)
+        dev_ds = db.get_dataset('mix_2_spk_min_cv').map(data.read_audio)
 
     seg = min(args.segment_length, 8000 if args.synthetic else 10 ** 9)
     train = data.prepare_dataset(

@@ -4,20 +4,32 @@ Counterpart of ``padertorch_tpu/contrib/examples/speaker_classification/
 supervised/data.py`` (reference
 ``contrib/examples/speaker_classification/supervised/data.py``): STFT
 512/160/400 + 64 mel bins, LabelEncoder over speaker ids, train/dev/test
-split per speaker; numpy only, copied.
+split per speaker; numpy only, copied.  ``read_audio`` reads a
+``JsonDatabase`` example's WAV file (``audio_path``) through ``AudioReader``;
+the JAX recipe's ``--database`` branch takes examples that hold their audio
+already, which pass it as they are.
 """
 import numpy as np
 
 from padertorch_tpu_torch.data import dataset as lazy
 from padertorch_tpu_torch.data.utils import collate_fn, pad_batch
 from padertorch_tpu_torch.contrib.je.data.transforms import (
-    STFT, LabelEncoder,
+    AudioReader, STFT, LabelEncoder,
 )
 
 STFT_PARAMS = dict(shift=160, size=512, window_length=400, pad=True,
                    fading=None)
 NUM_MELS = 64
 SAMPLE_RATE = 16000
+
+
+def read_audio(example):
+    """The example's WAV file (``audio_path``) read into ``audio_data``
+    and ``seq_len`` at the recipe's sample rate; an example that holds
+    its audio already is returned as it is."""
+    if 'audio_path' not in example:
+        return example
+    return AudioReader(target_sample_rate=SAMPLE_RATE)(example)
 
 
 def train_test_split(dataset, dev_split=0.1, test_split=0.1, seed=0):

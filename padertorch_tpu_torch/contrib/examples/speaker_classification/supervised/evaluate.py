@@ -11,6 +11,8 @@ run of either package, with either front end.
 Run (on the card, the default; without one it fails):
     python -m padertorch_tpu_torch.contrib.examples.speaker_classification.supervised.evaluate \
         --model_path /path/to/storage_dir --synthetic
+On a LibriSpeech-style ``JsonDatabase``: ``--database db.json --dataset
+test_clean`` (WAV files under ``audio_path``, labels under ``speaker_id``).
 Run on the CPU: add ``--device cpu``.  ``--compute_dtype bfloat16`` serves
 with the GRU's bf16 products and streams (``set_rnn_backend``; on the card
 the lean bf16 GRU kernel).
@@ -24,6 +26,7 @@ import torch
 
 from padertorch_tpu_torch.contrib.je.modules.features import (
     FusedAudioLogMelExtractor)
+from padertorch_tpu_torch.data.database import JsonDatabase
 from padertorch_tpu_torch.evaluation import (
     split_managed, gather_merged, is_master,
 )
@@ -59,6 +62,7 @@ def main():
     parser.add_argument('--model_path', required=True)
     parser.add_argument('--database', default=None)
     parser.add_argument('--synthetic', action='store_true')
+    parser.add_argument('--dataset', default='test_clean')
     parser.add_argument('--batch_size', type=int, default=8)
     parser.add_argument('--checkpoint', default='ckpt_best_accuracy.ptt')
     parser.add_argument('--device', default='cuda',
@@ -67,12 +71,6 @@ def main():
                         choices=['bfloat16'],
                         help="the GRU's products and streams")
     args = parser.parse_args()
-
-    if args.database is not None:
-        raise NotImplementedError(
-            '--database waits for the JSON database reader and AudioReader '
-            '(no such files are in the repository yet); run with '
-            '--synthetic')
 
     model_path = Path(args.model_path)
     try:
@@ -86,10 +84,14 @@ def main():
         set_rnn_backend(model, 'pallas', compute_dtype=args.compute_dtype)
     print(f'device: {args.device}')
 
-    full = data.synthetic_database()
-    dataset = full[[i for i in range(len(full)) if i % 5 == 0]]
+    if args.synthetic or args.database is None:
+        full = data.synthetic_database()
+        dataset = full[[i for i in range(len(full)) if i % 5 == 0]]
+    else:
+        dataset = JsonDatabase(args.database).get_dataset(args.dataset)
 
     label_encoder = data.get_label_encoder(model_path, dataset)
+    dataset = dataset.map(data.read_audio)
     if isinstance(model.feature_extractor, FusedAudioLogMelExtractor):
         # trained with --on_device_features: ship raw audio
         prepare = data.prepare_dataset_audio

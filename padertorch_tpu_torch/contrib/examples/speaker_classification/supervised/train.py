@@ -4,12 +4,15 @@ Counterpart of ``padertorch_tpu/contrib/examples/speaker_classification/
 supervised/train.py`` (reference
 ``contrib/examples/speaker_classification/supervised/train.py``).  It runs
 ``test_run``, registers the validation hook on the accuracy, trains, and
-leaves a storage dir that the ``evaluate.py`` of this package and of the
-JAX package both load.
+leaves a storage dir (with a ``Makefile``) that the ``evaluate.py`` of this
+package and of the JAX package both load.
 
 Run on the card (the default device; without one it fails):
     python -m padertorch_tpu_torch.contrib.examples.speaker_classification.supervised.train \
         --storage_root /tmp/spk --synthetic --epochs 3 --on_device_features
+On a LibriSpeech-style ``JsonDatabase`` (splits ``train_clean_100`` and
+``dev_clean``; each example names its WAV file under ``audio_path`` and its
+``speaker_id``): replace ``--synthetic`` by ``--database db.json``.
 Run on the CPU: add ``--device cpu``.  ``--precision bfloat16`` trains
 under the trainer's bf16 policy (bf16 casts of float32 masters), and
 ``--compute_dtype bfloat16`` gives the GRU bf16 products and streams
@@ -20,8 +23,11 @@ from pathlib import Path
 
 import torch
 
+from padertorch_tpu_torch.contrib.examples._makefile import (
+    evaluate_args_of, write_recipe_makefile)
 from padertorch_tpu_torch.contrib.je.modules.features import (
     FusedAudioLogMelExtractor)
+from padertorch_tpu_torch.data.database import JsonDatabase
 from padertorch_tpu_torch.io import dump_config
 from padertorch_tpu_torch.modules.recurrent import set_rnn_backend
 from padertorch_tpu_torch.train.optimizer import Adam
@@ -97,12 +103,6 @@ def main():
                         help="the GRU's products and streams")
     args = parser.parse_args()
 
-    if args.database is not None:
-        raise NotImplementedError(
-            '--database waits for the JSON database reader and AudioReader '
-            '(no such files are in the repository yet); run with '
-            '--synthetic')
-
     if args.storage_root:
         from padertorch_tpu_torch.io import get_new_subdir
         storage_dir = get_new_subdir(
@@ -111,8 +111,16 @@ def main():
         from padertorch_tpu_torch.io import get_new_storage_dir
         storage_dir = get_new_storage_dir('speaker_clf')
 
-    train_ds, dev_ds = synthetic_split(args.batch_size)
+    if args.synthetic or args.database is None:
+        train_ds, dev_ds = synthetic_split(args.batch_size)
+    else:
+        db = JsonDatabase(args.database)
+        train_ds = db.get_dataset('train_clean_100')
+        dev_ds = db.get_dataset('dev_clean')
+    # the labels come from the JSON alone; the audio is read afterwards
     label_encoder = data.get_label_encoder(storage_dir, train_ds)
+    train_ds = train_ds.map(data.read_audio)
+    dev_ds = dev_ds.map(data.read_audio)
     num_speakers = args.num_speakers or len(label_encoder.label_mapping)
 
     torch.manual_seed(0)
@@ -121,6 +129,13 @@ def main():
         updates={'stop_trigger': (args.epochs, 'epoch')},
         precision=args.precision)
     dump_config({'trainer': config}, storage_dir / 'config.json')
+    write_recipe_makefile(
+        storage_dir,
+        'padertorch_tpu_torch.contrib.examples.speaker_classification'
+        '.supervised.train',
+        evaluate_module='padertorch_tpu_torch.contrib.examples'
+                        '.speaker_classification.supervised.evaluate',
+        evaluate_args=evaluate_args_of(args))
     trainer = Trainer.from_config(config)
     trainer.to(args.device)
     if args.compute_dtype:

@@ -13,6 +13,10 @@ Run (on the card, the default; without one it fails), after
 ``train.py --synthetic``:
     python -m padertorch_tpu_torch.contrib.examples.speech_enhancement.mask_estimator.evaluate \
         --model_path /path/to/storage_dir --synthetic
+On a CHiME-style ``JsonDatabase``: ``--database db.json --dataset
+et05_simu`` (``read_audio``: the channels' WAV files under
+``audio_path.observation``, the clean speech under
+``audio_path.speech_source``).
 Run on the CPU: add ``--device cpu``.
 """
 import argparse
@@ -22,7 +26,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from padertorch_tpu_torch.contrib.je.data.transforms import AudioReader
 from padertorch_tpu_torch.data.batch import example_to_device
+from padertorch_tpu_torch.data.database import JsonDatabase
 from padertorch_tpu_torch.evaluation import (
     split_managed, gather_merged, is_master, si_sdr, mir_eval_sdr, stoi,
 )
@@ -64,6 +70,31 @@ def synthetic_multichannel_database(num_examples=4, num_channels=4,
             'speech_source': speech.astype('float32'),
         }
     return lazy.from_dict(examples)
+
+
+def read_audio(example):
+    """A ``JsonDatabase`` example's WAV files read at the recipe's sample
+    rate: ``audio_path.observation`` (one file a channel, as a list or a
+    dict of channel names, or one multichannel file) into ``observation``
+    (C, T) and ``audio_path.speech_source`` into ``speech_source`` (T,).
+    An example that holds its signals already (the JAX recipe's
+    ``--database`` schema) is returned as it is."""
+    if 'audio_path' not in example:
+        return example
+    reader = AudioReader(target_sample_rate=SAMPLE_RATE)
+    paths = example['audio_path']
+    observation = paths['observation']
+    if isinstance(observation, dict):
+        observation = [observation[k] for k in sorted(observation)]
+    if isinstance(observation, (list, tuple)):
+        observation = np.stack([reader.read_file(p) for p in observation])
+    else:
+        observation = np.atleast_2d(reader.read_file(observation))
+    source = reader.read_file(paths['speech_source'])
+    if source.ndim == 2:
+        source = source[0]
+    return {'example_id': example['example_id'],
+            'observation': observation, 'speech_source': source}
 
 
 def beamform(Y, speech_mask, noise_mask, beamformer='mvdr_souden'):
@@ -136,17 +167,13 @@ def main():
     parser.add_argument('--model_path', required=True)
     parser.add_argument('--database', default=None)
     parser.add_argument('--synthetic', action='store_true')
+    parser.add_argument('--dataset', default='et05_simu')
     parser.add_argument('--checkpoint', default='ckpt_best_loss.ptt')
     parser.add_argument('--beamformer', default='mvdr_souden',
                         choices=('mvdr_souden', 'gev'))
     parser.add_argument('--device', default='cuda',
                         help="'cuda' (the default) or 'cpu'")
     args = parser.parse_args()
-
-    if args.database is not None:
-        raise NotImplementedError(
-            '--database waits for the JSON database reader (no such file '
-            'is in the repository yet); run with --synthetic')
 
     model_path = Path(args.model_path)
     model = SimpleMaskEstimator.from_storage_dir(
@@ -155,7 +182,11 @@ def main():
     print(f'device: {args.device}')
 
     stft = train_mod._stft
-    dataset = synthetic_multichannel_database()
+    if args.synthetic or args.database is None:
+        dataset = synthetic_multichannel_database()
+    else:
+        dataset = JsonDatabase(args.database).get_dataset(
+            args.dataset).map(read_audio)
 
     results = {}
     for example in split_managed(dataset, progress_bar=True):

@@ -20,6 +20,8 @@ import torch
 
 from padertorch_tpu_torch.data import dataset as lazy
 from padertorch_tpu_torch.data.utils import collate_fn, pad_batch
+from padertorch_tpu_torch.contrib.examples._makefile import (
+    evaluate_args_of, write_recipe_makefile)
 from padertorch_tpu_torch.io import dump_config
 from padertorch_tpu_torch.models.mask_estimator import SimpleMaskEstimator
 from padertorch_tpu_torch.ops._stft import HostSTFT as STFT
@@ -121,6 +123,13 @@ def main():
     torch.manual_seed(0)
     config = get_trainer_config(storage_dir, args.num_units, args.epochs)
     dump_config({'trainer': config}, storage_dir / 'config.json')
+    write_recipe_makefile(
+        storage_dir,
+        'padertorch_tpu_torch.contrib.examples.speech_enhancement'
+        '.mask_estimator.train',
+        evaluate_module='padertorch_tpu_torch.contrib.examples'
+                        '.speech_enhancement.mask_estimator.evaluate',
+        evaluate_args=evaluate_args_of(args))
     trainer = Trainer.from_config(config)
     trainer.to(args.device)
     print(f'device: {args.device}')

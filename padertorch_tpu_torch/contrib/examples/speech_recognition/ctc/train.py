@@ -5,10 +5,8 @@ train.py``: argparse entry point, synthetic tone-sequence data or a JSON
 database (``--database``, a ``JsonDatabase`` whose ``train`` and ``dev``
 splits hold ``audio_data``, ``seq_len`` and integer ``labels``), the
 trainer's config dumped to the storage dir, ``test_run`` before training.
-It leaves a storage dir that this package's ``evaluate.py`` loads.  The
-JAX recipe also writes a per-experiment Makefile
-(``write_recipe_makefile``); the port's recipes leave it out until the
-recipe Makefiles are ported with the rest of the real-data tooling.
+It leaves a storage dir, with its per-experiment ``Makefile``
+(``write_recipe_makefile``), that this package's ``evaluate.py`` loads.
 
 On the card the conformer's self-attention runs the flash attention
 kernels (forward with the log-sum-exp and backward in a training step),
@@ -26,6 +24,8 @@ from pathlib import Path
 
 import torch
 
+from padertorch_tpu_torch.contrib.examples._makefile import (
+    evaluate_args_of, write_recipe_makefile)
 from padertorch_tpu_torch.io import dump_config
 from padertorch_tpu_torch.train.optimizer import Adam
 from padertorch_tpu_torch.train.trainer import Trainer
@@ -129,6 +129,12 @@ def main():
         args.num_layers, args.num_heads, args.kernel_size, args.causal,
         args.epochs)
     dump_config({'trainer': config}, storage_dir / 'config.json')
+    write_recipe_makefile(
+        storage_dir,
+        'padertorch_tpu_torch.contrib.examples.speech_recognition.ctc.train',
+        evaluate_module='padertorch_tpu_torch.contrib.examples'
+                        '.speech_recognition.ctc.evaluate',
+        evaluate_args=evaluate_args_of(args))
     trainer = Trainer.from_config(config)
     trainer.to(args.device)
     print(f'device: {args.device}')

@@ -44,6 +44,14 @@ port):
   package (``cnn.0.weight`` here is ``cnn.layers.0.weight`` there; a
   ``ConvNet``'s nested ones, ``conv_blocks.0.1.conv.conv.weight`` here, are
   ``conv_blocks.layers.0.layers.1.conv.conv.weight`` there).
+- the stacks of ``contrib/je/modules/conv.py`` (``CNN1d``, ``CNN2d``) keep
+  the JAX attribute names: ``convs.{i}.conv`` (copied), ``convs.{i}.norm``
+  (a ``Normalization``, its running statistics with it) and the projection
+  ``residual_skip_convs.{src}->{dst}`` (an ``nn.ModuleDict``); the audio
+  tagger's ``WALNet``, both ``DistanceEstimator``s and the reference
+  family's ``CRNN``/``HybridCNN`` (``conv_layers.{i}.conv``, ``.bn``,
+  ``.conv_gate``, ``.bn_gate``; the ``GRU`` wrapper's ``gru.gru``) move
+  with the rules above.
 
 :func:`to_jax_state_dict` is the inverse of :func:`from_jax_state_dict`:
 the port's trainer writes its checkpoints' ``model`` entry with it, so

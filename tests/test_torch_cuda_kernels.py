@@ -660,6 +660,11 @@ GRU_ROUTE_CASES = {
     'rows beyond one register chunk': (2, 1000, 128, 5, 'ragged', 0.5,
                                        'resident'),
     'H=64 one direction, ragged': (1, 37, 64, 15, 'ragged', 0.5, 'resident'),
+    # the distance estimator's GRU: 8 rows of 128 frames pooled to 32
+    'distance estimator, one direction': (1, 8, 64, 32, 'ragged', 0.5,
+                                          'resident'),
+    'distance estimator, 128 steps': (1, 8, 64, 128, 'ragged', 0.5,
+                                      'resident'),
     'prefix padding, large h0': (2, 30, 128, 9, 'prefix', 3.0, 'resident'),
     'largest resident H': (2, 5, 138, 6, 'ragged', 0.5, 'resident'),
     'smallest cooperative H': (2, 5, 139, 6, 'ragged', 0.5, 'cooperative'),
@@ -760,6 +765,10 @@ GRU_BWD_ROUTE_CASES = {
                                      'resident'),
     'classifier recipe, one direction': (1, 8, 64, 15, 'ragged', 0.5,
                                          'resident'),
+    'distance estimator, one direction': (1, 8, 64, 32, 'ragged', 0.5,
+                                          'resident'),
+    'distance estimator, 128 steps': (1, 8, 64, 128, 'ragged', 0.5,
+                                      'resident'),
     'rows not a multiple of RB': (2, 263, 128, 7, 'ragged', 0.5, 'resident'),
     'rows beyond one register chunk': (2, 1000, 128, 5, 'ragged', 0.5,
                                        'resident'),

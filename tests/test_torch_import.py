@@ -415,3 +415,99 @@ def test_speech_recognition_paths_import_no_jax_and_launch_nothing():
     assert out['launches'] == [0] * 12
     assert out['heads'] == {head: [1, 2, 2, 2, True]
                             for head in ('ctc', 'transducer', 'aed')}
+
+
+REAL_AUDIO = r'''
+import json, sys, tempfile
+from pathlib import Path
+import numpy as np
+import torch
+torch.set_num_threads(2)
+from padertorch_tpu_torch import native
+from padertorch_tpu_torch.contrib.cb import io as cb_io
+from padertorch_tpu_torch.contrib.examples import _makefile, _wav_databases
+from padertorch_tpu_torch.contrib.examples.sound_recognition.audio_tagging \
+    import data as tag_data, evaluate as tag_evaluate, train as tag_train
+from padertorch_tpu_torch.contrib.examples.source_localization \
+    .distance_estimator import (create_jsons, data as de_data,
+                                evaluate as de_evaluate, model as de_model,
+                                train as de_train)
+from padertorch_tpu_torch.contrib.examples.source_separation.pit import (
+    data as pit_data)
+from padertorch_tpu_torch.contrib.je.data import transforms
+from padertorch_tpu_torch.contrib.je.modules import conv
+from padertorch_tpu_torch.evaluation import multilabel
+from padertorch_tpu_torch.ops.kernels.gru import gru_cell_scan
+from padertorch_tpu_torch.train import trainer
+
+torch.manual_seed(0)
+out = {'native': native.NATIVE_AVAILABLE}
+with tempfile.TemporaryDirectory() as tmp:
+    tmp = Path(tmp)
+    db = _wav_databases.write_audioset(tmp, examples_per_split=(4, 2, 2),
+                                       min_samples=3000)
+    splits = tag_data.get_datasets(
+        db, audio_reader={'target_sample_rate': 16000},
+        stft=dict(shift=160, size=512, window_length=400, pad=True,
+                  fading=None),
+        batch_size=2, storage_dir=tmp / 'tag', num_workers=0,
+        max_padding_rate=0.5)
+    config = tag_train.get_trainer_config(
+        tmp / 'tag', num_events=4,
+        updates={'model': {'cnn': {'out_channels': [4, 4, 4]}},
+                 'stop_trigger': (1, 'iteration')})
+    t = trainer.Trainer.from_config(config)
+    t.train(splits[0])
+    scores = tag_evaluate.score_batch(t.model.eval(), next(iter(splits[2])))
+    out['tagging'] = [t.iteration, len(scores)]
+    config = de_train.get_trainer_config(
+        tmp / 'de', 4, 129, updates={
+            'model': {'cnn': {'out_channels': [4, 4]}, 'hidden_size': 8},
+            'stop_trigger': (1, 'iteration')})
+    t = trainer.Trainer.from_config(config)
+    batches = de_data.prepare(de_data.synthetic_database(4, 4000),
+                              batch_size=2, shuffle=False)
+    t.train(batches)
+    served = de_evaluate.evaluate_batch(t.model.eval(), next(iter(batches)))
+    out['distance'] = [t.iteration, len(served)]
+    wsj = _wav_databases.write_wsj0_2mix(tmp, (2, 1, 1), min_samples=2000)
+    from padertorch_tpu_torch.data.database import JsonDatabase
+    example = next(iter(JsonDatabase(wsj).get_dataset(
+        'mix_2_spk_min_tr').map(pit_data.read_audio)))
+    out['read_audio'] = list(example['speech_source'].shape)
+    _makefile.write_recipe_makefile(tmp, 'some.train', 'some.evaluate')
+    out['makefile'] = (tmp / 'Makefile').exists()
+print(json.dumps({'modules': sorted(sys.modules),
+                  'launches': list(gru_cell_scan.launches.values()), **out}))
+'''
+
+
+def test_real_audio_paths_import_no_jax_and_launch_nothing():
+    """The real-audio slice: the native data prep, the transforms, a WAV
+    tree through the audio tagger's pipeline, one training step and one
+    served batch of the audio tagger and of the distance estimator, the
+    separation recipes' ``read_audio`` and a recipe Makefile, on the CPU
+    with no JAX module imported and no kernel launched."""
+    env = {**os.environ, 'PYTHONPATH': str(REPO), 'OMP_NUM_THREADS': '2'}
+    proc = subprocess.run(
+        [sys.executable, '-c', REAL_AUDIO], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    banned = ('jax', 'jaxlib', 'padertorch_tpu', 'tensorboardX', 'optax',
+              'matplotlib', 'triton')
+    assert [m for m in out['modules'] if m.split('.')[0] in banned] == []
+    for name in ('native.dataprep', 'contrib.je.data.transforms',
+                 'contrib.je.modules.conv', 'evaluation.multilabel',
+                 'contrib.cb.io', 'contrib.examples._makefile',
+                 'contrib.examples._wav_databases',
+                 'contrib.examples.sound_recognition.audio_tagging.data',
+                 'contrib.examples.source_localization.distance_estimator'
+                 '.model',
+                 'contrib.examples.source_localization.distance_estimator'
+                 '.create_jsons'):
+        assert f'padertorch_tpu_torch.{name}' in out['modules'], name
+    assert out['native'] is True
+    assert out['launches'] == [0] * len(out['launches'])
+    assert out['tagging'] == [1, 2] and out['distance'] == [1, 2]
+    assert out['read_audio'][0] == 2 and out['makefile']

@@ -164,10 +164,16 @@ def test_variant_configs_name_jax_classes(variant, tmp_path):
     assert model['separator']['num_blocks'] == 6
 
 
-def test_database_path_raises(monkeypatch):
-    with pytest.raises(NotImplementedError, match='--database'):
+def test_database_path_raises(tmp_path, monkeypatch):
+    """``--database`` reads the JSON it names (WAV files through the pit
+    recipe's ``read_audio``; ``test_torch_real_audio_recipes.py`` trains
+    on one): a path that does not exist raises, the recipe does not fall
+    back to the synthetic set."""
+    with pytest.raises(FileNotFoundError, match='missing.json'):
         _run_main(monkeypatch, f'padertorch_tpu_torch.{RECIPE}.train',
-                  '--database', 'x.json', '--device', 'cpu')
+                  '--storage_root', str(tmp_path), '--database',
+                  str(tmp_path / 'missing.json'), '--device', 'cpu',
+                  '--small')
 
 
 @pytest.mark.parametrize('entry', ['train', 'evaluate'])

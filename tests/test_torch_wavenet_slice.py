@@ -11,7 +11,9 @@ the weights both loaded are held exactly, through the teacher-forced logits
 of the two loaded models (1e-4).  Training runs on 4 synthetic utterances
 (the recipe's default is 12): the test is of the plumbing, not of learning.
 The speaker-classification recipe's run is ``test_torch_speaker_slice.py``;
-both recipes' entry points refuse ``--database`` and default to the card.
+both recipes' entry points raise for a ``--database`` that does not exist
+(``test_torch_real_audio_recipes.py`` runs them on WAV files) and default
+to the card.
 """
 import json
 
@@ -108,12 +110,41 @@ def test_wavenet_train_entry_point_and_both_evaluates(tmp_path):
     (WAVENET, 'train'), (WAVENET, 'evaluate'),
     (SPEAKER, 'train'), (SPEAKER, 'evaluate')])
 def test_database_path_raises(recipe, entry, tmp_path, monkeypatch):
-    args = ['--database', 'x.json', '--device', 'cpu']
+    """``--database`` reads the JSON it names: a path that does not exist
+    raises, the entry point does not fall back to the synthetic set (for
+    ``evaluate.py`` behind a storage dir of a tiny model that loads)."""
+    args = ['--database', str(tmp_path / 'missing.json'), '--device', 'cpu']
     if entry == 'evaluate':
+        _tiny_storage_dir(recipe, tmp_path)
         args += ['--model_path', str(tmp_path)]
-    with pytest.raises(NotImplementedError):
+    else:
+        args += ['--storage_root', str(tmp_path)]
+    with pytest.raises(FileNotFoundError, match='missing.json'):
         _run_main(monkeypatch, f'padertorch_tpu_torch.{recipe}.{entry}',
                   *args)
+    assert not (tmp_path / 'eval').exists()
+
+
+def _tiny_storage_dir(recipe, storage_dir):
+    """A config and one checkpoint of an untrained tiny model."""
+    from padertorch_tpu_torch.io import dump_config
+    from padertorch_tpu_torch.migrate import to_jax_state_dict
+    from padertorch_tpu_torch.serialize import dump_state
+    from padertorch_tpu_torch.train.trainer import Trainer
+    if recipe == WAVENET:
+        from padertorch_tpu_torch.contrib.examples.audio_synthesis.wavenet \
+            import train
+        config = train.get_trainer_config(storage_dir, {'model': train.SMALL})
+        name = 'ckpt_best_loss.ptt'
+    else:
+        from padertorch_tpu_torch.contrib.examples.speaker_classification \
+            .supervised import train
+        config = train.get_trainer_config(storage_dir, 4)
+        name = 'ckpt_best_accuracy.ptt'
+    dump_config({'trainer': config}, storage_dir / 'config.json')
+    model = Trainer.from_config(config).model
+    dump_state({'model': to_jax_state_dict(model)},
+               storage_dir / 'checkpoints' / name)
 
 
 @pytest.mark.parametrize('recipe', [WAVENET, SPEAKER])
