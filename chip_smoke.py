@@ -7,7 +7,8 @@ encoder-decoder), each served and trained; the transformer decoder's
 int8 KV-cache decoding and continuous batching, served; and real audio:
 the recipes trained and served from WAV files and JSON databases (uPIT,
 the speaker classifier, the audio tagger, the distance estimator, the
-vocoder).
+vocoder); and the rest of the Trainer: its hooks, optimizers, back-off,
+asynchronous checkpoints and adversarial mode, with the GAN vocoder.
 
     python3 chip_smoke.py [--profile]
 
@@ -428,6 +429,37 @@ Phases, one line each:
     kernels' launch counts are read around each run, each storage dir
     must hold its ``config.json``, checkpoints and ``Makefile``, and the
     evaluations' numbers must be finite.
+39. the rest of the Trainer.  39a: the uPIT flagship at full width (3 x
+    600 BLSTM, float32, the recipe's trainer, 2 batches of 4 an epoch, 3
+    epochs) with ``LRSchedulerHook`` (an exponential decay a step),
+    ``EMAHook`` (0.9), ``TorchProfilerHook`` over its first two steps and
+    the validation after them, ``track_emissions`` and validation: the
+    learning rate each step the schedule's, the average within 1e-6 of a
+    host recomputation from the parameters recorded after each step, the
+    trace naming the lean and training ``lstm_fwd_kernel`` and
+    ``lstm_bwd_kernel``, the energy hook's ``chip_watts`` the
+    ``nvidia-smi`` power limit, all three LSTM kernels launched; the time
+    ``save_checkpoint`` blocks, synchronous and with
+    ``async_checkpointing``; then the flagship with ``LRAnnealingHook``
+    and ``register_validation_hook(maximize=True, n_back_off=1,
+    back_off_patience=0, lr_update_factor=0.5)`` on the training batches:
+    the back-off after the first two steps, the parameters then those of
+    the best checkpoint bit for bit with ``ckpt_latest`` pointing at it,
+    the learning rate each step the annealed one, halved until the next
+    epoch.  39b: one batch's gradients of the flagship on the card;
+    ``Adadelta``, ``Adafactor`` (``lr=1e-3`` and ``lr=None``), ``Lion``
+    and ``Muon`` step three times on the card and on the CPU from the same
+    parameters and gradients (1e-6 of a tensor's largest entry, Muon 1e-5:
+    its Newton-Schulz products are summed in another order); two Trainer
+    steps with each (finite losses) and its flagship step timed.  39c: the
+    GAN vocoder recipe at its defaults (``base_channels=128``, upsampling
+    (5, 5, 4, 2)): ``train.py --synthetic --async_checkpointing``, a
+    resume from its asynchronous checkpoint, ``evaluate.py`` (finite
+    metrics, 4 WAVs); one adversarial SGD step on the card against the CPU
+    from the same weights and batch (1e-5), every parameter moved, a
+    discriminator loss weight of 0 leaving the generator's update and the
+    discriminator as they were; the adversarial step timed.  39d:
+    ``InteractiveTrainer`` takes two steps and prints its scalars.
 
 The line before the last is a JSON object with each kernel's launches on
 the main paths, the shape its numbers were taken at (``shape``; the other
@@ -465,6 +497,7 @@ import contextlib
 import copy
 import ctypes
 import functools
+import io
 import json
 import subprocess
 import sys
@@ -546,9 +579,14 @@ from padertorch_tpu_torch.ops.kernels.masked_istft import (
 from padertorch_tpu_torch.ops.kernels import wavenet as wavenet_kernels
 from padertorch_tpu_torch.ops.kernels.wavenet import (
     _gumbel, wavenet_sample, wavenet_sample_plain, wavenet_uniform)
-from padertorch_tpu_torch.train.hooks import Hook, ValidationHook
+from padertorch_tpu_torch.migrate import to_jax_state_dict
+from padertorch_tpu_torch.serialize import load_state
+from padertorch_tpu_torch.train import optimizer as train_optim
+from padertorch_tpu_torch.train.hooks import (
+    BackOffValidationHook, EMAHook, EnergyEstimateHook, Hook,
+    LRAnnealingHook, LRSchedulerHook, TorchProfilerHook, ValidationHook)
 from padertorch_tpu_torch.train.optimizer import Adam
-from padertorch_tpu_torch.train.trainer import Trainer
+from padertorch_tpu_torch.train.trainer import InteractiveTrainer, Trainer
 from padertorch_tpu_torch.contrib.mk.modules.transformer import (
     TransformerDecoder, autoregressive_generate)
 from padertorch_tpu_torch.ops.kernels import int8_matmul as int8_kernels
@@ -781,6 +819,8 @@ def phase_device():
          '--format=csv,noheader'],
         capture_output=True, text=True, check=True).stdout.strip()
     print(smi)
+    global CARD
+    CARD = smi
     # float32 is the package's decision, made where it is imported
     if (torch.backends.cuda.matmul.allow_tf32
             or torch.backends.cudnn.allow_tf32):
@@ -7279,6 +7319,449 @@ def phase_real_audio():
     return gru_rows, total, wavenet_routes
 
 
+# --------------------------------------------------------------------- #
+# phase 39: the rest of the Trainer                                      #
+# --------------------------------------------------------------------- #
+# card vs CPU after three steps, largest difference over a tensor's
+# largest entry: elementwise arithmetic is the same on both (the gradients
+# are copied across), Adafactor's means are summed in another order
+OPTIMIZER_RTOL = 1e-6
+# Muon: the quintic Newton-Schulz iteration multiplies a matrix's small
+# singular directions by up to 3.4445 ** 5 (about 480), so the rounding of
+# its float32 products, summed in another order by cuBLAS and the CPU's
+# BLAS, grows as much: the orthogonalized update of a (1200, 2400) matrix
+# differs by 2e-4 to 5e-4 of its largest entry between two BLAS orders on
+# one CPU and from float64; over three steps the parameters by less
+MUON_RTOL = 1e-4
+# one adversarial SGD step (lr 0.05) of the vocoder at full width, card vs
+# CPU, largest parameter difference: the gradients through 3
+# discriminators and the multi-resolution STFT loss, cuDNN's float32
+# convolutions (TF32 off) against the CPU's, summed in other orders
+GAN_STEP_TOL = 1e-5
+OPTIMIZER_CASES = [
+    ('Adadelta', {}),
+    ('Adafactor', {'lr': 1e-3}),
+    ('Adafactor lr=None', {'lr': None}),
+    ('Lion', {'lr': 1e-4, 'weight_decay': 0.1}),
+    ('Muon', {}),
+]
+CARD = ''   # nvidia-smi's name and power limit, set by phase 1
+
+
+def lr_schedule(count):
+    """Phase 39a's learning-rate schedule: an exponential decay."""
+    return 1e-3 * 0.8 ** count
+
+
+class TrainerRecorder(Hook):
+    """Per optimizer step the iteration, the learning rate and (with
+    ``params``) a host copy of the trained parameters; at the first
+    ``pre_step`` after a back-off, that the parameters are the best
+    checkpoint's, bit for bit, and that ``ckpt_latest`` points at it."""
+
+    def __init__(self, params=False):
+        self.rows = []
+        self.params = params
+        self.back_off = None
+
+    def pre_step(self, trainer):
+        if (self.back_off is not None or not self.rows
+                or trainer.iteration > self.rows[-1]['iteration']):
+            return
+        hook, = [h for h in trainer.hooks
+                 if isinstance(h, BackOffValidationHook)]
+        best = hook.ckpt_ranking[0][0]
+        latest = (trainer.checkpoint_dir / 'ckpt_latest.ptt').resolve().name
+        stored = load_state(trainer.checkpoint_dir / best)['model']
+        live = to_jax_state_dict(trainer.model)
+        if latest != best or stored.keys() != live.keys() or not all(
+                np.array_equal(live[k], v) for k, v in stored.items()):
+            fail(f'phase 39a: after the back-off ckpt_latest points at '
+                 f'{latest} and the model is not {best} bit for bit')
+        self.back_off = (trainer.iteration, best)
+
+    def post_optimize(self, trainer, summary):
+        row = {'iteration': trainer.iteration, 'lr': trainer.optimizer.lr}
+        if self.params:
+            row['params'] = {n: p.detach().to('cpu', copy=True)
+                             for n, p in trainer.model.named_parameters()
+                             if p.requires_grad}
+        self.rows.append(row)
+
+
+def flagship_trainer(root, name, **updates):
+    """The uPIT recipe's trainer at full width on the card: 3 x 600 BLSTM,
+    Adam, two batches of 4 an epoch."""
+    torch.manual_seed(0)
+    config = pit_train.get_trainer_config(
+        Path(root) / name, nested_merge(
+            {'stop_trigger': (3, 'epoch'),
+             'summary_trigger': (2, 'iteration')}, updates))
+    return Trainer.from_config(config).to('cuda')
+
+
+def flagship_data():
+    make = functools.partial(pit_data.prepare_dataset, batch_size=4,
+                             shuffle=False, prefetch=False)
+    return (make(pit_data.synthetic_database(num_examples=8)),
+            make(pit_data.synthetic_database(num_examples=8, seed=1)))
+
+
+def trace_kernels(path):
+    """The names of the card's kernels in a Chrome trace, and which of the
+    three ``lstm_cell_scan`` kernels (lean forward, training forward,
+    backward) they hold (demangled ``<false`` / ``<true`` or mangled
+    ``ILb0`` / ``ILb1`` as the first template argument)."""
+    events = json.loads(Path(path).read_text())['traceEvents']
+    names = {e.get('name', '') for e in events
+             if e.get('cat', '').lower() == 'kernel'}
+
+    def fwd(train):
+        flags = ('<true', 'ILb1') if train else ('<false', 'ILb0')
+        return any('lstm_fwd_kernel' in n and any(
+            n.split('lstm_fwd_kernel', 1)[1].startswith(f) for f in flags)
+            for n in names)
+    found = {'fwd': fwd(False), 'fwd_train': fwd(True),
+             'bwd': any('lstm_bwd_kernel' in n for n in names)}
+    return names, found
+
+
+def power_limit_watts():
+    out = subprocess.run(
+        ['nvidia-smi', '--query-gpu=power.limit',
+         '--format=csv,noheader,nounits', '-i', '0'],
+        capture_output=True, text=True, check=True).stdout
+    return float(out.strip())
+
+
+def phase_trainer_hooks(root):
+    """39a: the flagship under the schedule, EMA, profiler and energy
+    hooks, then under annealing and a back-off; the checkpoint's blocking
+    times.  Returns the LSTM launches."""
+    train, dev = flagship_data()
+    total = {'fwd': 0, 'fwd_train': 0, 'bwd': 0}
+
+    trainer = flagship_trainer(root, 'hooks')
+    ema = EMAHook(decay=0.9)
+    profiler = TorchProfilerHook((100, 'epoch'), num_steps=2)
+    recorder = TrainerRecorder(params=True)
+    trainer.register_hook([LRSchedulerHook(lr_schedule, (1, 'iteration')),
+                           ema, profiler, recorder])
+    trainer.register_validation_hook(dev)
+    reset_launches()
+    start = time.perf_counter()
+    trainer.train(train, track_emissions=True)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = dict(lstm_cell_scan.launches)
+    for name in total:
+        total[name] += launches[name]
+    lrs = [(row['iteration'], row['lr']) for row in recorder.rows]
+    if [lr for _, lr in lrs] != [lr_schedule(it) for it, _ in lrs] \
+            or len(lrs) != 6:
+        fail(f'phase 39a: the learning rates {lrs} are not the schedule\'s')
+    average = {n: p.detach().cpu() for n, p in ema.ema_params.items()}
+    expect = recorder.rows[0]['params']
+    for row in recorder.rows[1:]:
+        expect = {n: 0.9 * expect[n] + (1 - 0.9) * p
+                  for n, p in row['params'].items()}
+    ema_err = max(float((average[n] - expect[n]).abs().max())
+                  for n in expect)
+    names, found = trace_kernels(profiler.trace_path)
+    energy, = [h for h in trainer.hooks if isinstance(h, EnergyEstimateHook)]
+    watts = power_limit_watts()
+    print(f'phase 39a flagship with LRSchedulerHook, EMAHook, '
+          f'TorchProfilerHook, track_emissions and validation: '
+          f'{len(lrs)} steps in {seconds:.2f} s, learning rates {lrs}; EMA '
+          f'vs host recomputation {ema_err:.3e} (tol 1e-6); trace '
+          f'{profiler.trace_path.name}: {len(names)} kernel names, LSTM '
+          f'kernels {found}; energy hook chip_watts {energy.chip_watts} '
+          f'(nvidia-smi {watts}); LSTM launches {launches}')
+    if ema_err > 1e-6:
+        fail('phase 39a: the EMA is not the host recomputation')
+    if not all(found.values()):
+        fail(f'phase 39a: the profiler\'s trace lacks an lstm_cell_scan '
+             f'kernel: {found}; LSTM-like names '
+             f'{[n for n in names if "lstm" in n]}')
+    if energy.chip_watts != watts:
+        fail(f'phase 39a: the energy hook took {energy.chip_watts} W, the '
+             f'card\'s power limit is {watts} W')
+    if not all(launches[name] for name in total):
+        fail(f'phase 39a: an LSTM kernel was not launched: {launches}')
+
+    # the checkpoint's time on the caller's thread, synchronous and not
+    blocking = {}
+    for mode in (False, True):
+        trainer.async_checkpointing = mode
+        start = time.perf_counter()
+        trainer.save_checkpoint(Path(root) / f'save_{mode}.ptt')
+        blocked = time.perf_counter() - start
+        trainer.wait_for_checkpoint_writes()
+        blocking['async' if mode else 'sync'] = (
+            blocked * 1e3, (time.perf_counter() - start) * 1e3)
+    size = (Path(root) / 'save_False.ptt').stat().st_size / 2 ** 20
+    print(f'phase 39a save_checkpoint of the flagship ({size:.1f} MiB: '
+          f'model, Adam, EMA) blocks {blocking["sync"][0]:.1f} ms '
+          f'synchronous, {blocking["async"][0]:.1f} ms with '
+          f'async_checkpointing (written after {blocking["async"][1]:.1f} '
+          f'ms) on {CARD}')
+
+    # the back-off: maximize=True on the loss, so a falling validation
+    # loss is a degradation; validated on the training batches, whose loss
+    # the first two steps lower
+    trainer = flagship_trainer(root, 'back_off')
+    recorder = TrainerRecorder()
+    trainer.register_hook([LRAnnealingHook((1, 'epoch'), [(2, 0.5)],
+                                           'epoch'), recorder])
+    trainer.register_validation_hook(
+        train, maximize=True, n_back_off=1, back_off_patience=0,
+        lr_update_factor=0.5)
+    reset_launches()
+    trainer.train(train)
+    torch.cuda.synchronize()
+    launches = dict(lstm_cell_scan.launches)
+    for name in total:
+        total[name] += launches[name]
+    rows = [(row['iteration'], row['lr']) for row in recorder.rows]
+    want = [(0, 1e-3), (1, 1e-3), (0, 5e-4), (1, 5e-4), (2, 7.5e-4),
+            (3, 7.5e-4), (4, 5e-4), (5, 5e-4)]
+    print(f'phase 39a flagship with LRAnnealingHook and a back-off '
+          f'(maximize=True, patience 0, factor 0.5): (iteration, lr) per '
+          f'step {rows}; back-off to {recorder.back_off}; LSTM launches '
+          f'{launches}')
+    if recorder.back_off is None or len(rows) != len(want) or not all(
+            i == j and np.isclose(a, b, rtol=1e-12, atol=0)
+            for (i, a), (j, b) in zip(rows, want)):
+        fail(f'phase 39a: expected the steps {want} (the annealed rate, '
+             f'halved by the back-off until the next epoch)')
+    return total
+
+
+def optimizer_errors(params, grads, name, kwargs):
+    """Three steps of the optimizer on the card and on the CPU from the
+    same parameters and gradients (halved at each step): the largest
+    difference over a tensor's largest entry."""
+    cls = getattr(train_optim, name.split()[0])
+    out = {}
+    for device in ('cuda', 'cpu'):
+        tensors = {n: torch.nn.Parameter(p.to(device, copy=True))
+                   for n, p in params.items()}
+        opt = cls(**kwargs).set_parameters(tensors.items())
+        for i in range(3):
+            for n, t in tensors.items():
+                t.grad = (grads[n] * 0.5 ** i).to(device, copy=True)
+            opt.step()
+        out[device] = tensors
+    return max(float((out['cuda'][n].detach().cpu() - out['cpu'][n].detach()
+                      ).abs().max() / out['cpu'][n].detach().abs().max())
+               for n in params)
+
+
+def phase_trainer_optimizers(root):
+    """39b: the four optimizers at the flagship's shapes, card vs CPU, then
+    Trainer steps with each.  Returns the LSTM launches."""
+    train, _ = flagship_data()
+    batch = next(iter(train))
+    trainer = flagship_trainer(root, 'optimizers')
+    loss = trainer.train_step(trainer.model, batch)[0]
+    loss.backward()
+    params = {n: p.detach().clone() for n, p in
+              trainer.model.named_parameters() if p.requires_grad}
+    grads = {n: p.grad.detach().clone() for n, p in
+             trainer.model.named_parameters() if p.requires_grad}
+    total = {'fwd': 0, 'fwd_train': 0, 'bwd': 0}
+    rows = {}
+    for name, kwargs in OPTIMIZER_CASES:
+        err = optimizer_errors(params, grads, name, kwargs)
+        tol = MUON_RTOL if name == 'Muon' else OPTIMIZER_RTOL
+        with torch.no_grad():
+            for n, p in trainer.model.named_parameters():
+                if n in params:
+                    p.copy_(params[n])
+        stepper = Trainer(trainer.model, Path(root) / name.replace(' ', '_'),
+                          getattr(train_optim, name.split()[0])(**kwargs),
+                          loss_weights=trainer.loss_weights)
+        losses = []
+        for example in list(train)[:2]:
+            step_loss = stepper.train_step(stepper.model, example)[0]
+            step_loss.backward()
+            stepper.optimizer.step()
+            stepper.optimizer.zero_grad()
+            losses.append(float(step_loss.detach()))
+        times = timed_step(stepper, batch, loss_key='trainer')
+        add = dict(lstm_cell_scan.launches)
+        for n in total:
+            total[n] += add[n]
+        rows[name] = {'err': err, 'tol': tol, 'losses': losses,
+                      'step_ms': times['host_step'],
+                      'optimizer_ms': times['adam']}
+        print(f'phase 39b {name} {kwargs}: 3 steps card vs CPU, largest '
+              f'difference {err:.3e} of a tensor\'s largest entry (tol '
+              f'{tol:g}'
+              + ('; Muon: the Newton-Schulz iteration multiplies small '
+                 'singular directions by up to 3.4445 ** 5, and with them '
+                 'the rounding of its products, summed in another order by '
+                 'cuBLAS and the CPU' if name == 'Muon' else '')
+              + f'); two Trainer steps, losses {losses}; a flagship step '
+              f'B=4 {times["host_step"]:.3f} ms (host clock), of it the '
+              f'optimizer {times["adam"]:.3f} ms, clip {times["clip"]:.3f} '
+              f'ms (CUDA events) on {CARD}')
+        if not err <= tol:
+            fail(f'phase 39b: {name} on the card is not the CPU\'s')
+        if not np.isfinite(losses).all():
+            fail(f'phase 39b: {name}: non-finite loss {losses}')
+    return total, rows
+
+
+def phase_trainer_gan(root):
+    """39c: the GAN vocoder at the recipe's widths: train.py with
+    asynchronous checkpoints, a resume, evaluate.py, an adversarial step
+    against the CPU.  Returns the ms per adversarial step."""
+    from padertorch_tpu_torch.contrib.examples.audio_synthesis \
+        .gan_vocoder import (
+            data as gan_data, evaluate as gan_evaluate, model as gan_model,
+            train as gan_train)
+    from padertorch_tpu_torch.io import load_config
+    start = time.perf_counter()
+    run_main(gan_train, ['--storage_root', str(Path(root) / 'gan'),
+                         '--synthetic', '--epochs', '1', '--num_examples',
+                         '8', '--batch_size', '4', '--async_checkpointing'])
+    storage_dir = Path(root) / 'gan' / 'gan_vocoder' / '1'
+    check_recipe_dir('39c gan_vocoder', storage_dir)
+    config = load_config(storage_dir / 'config.json')['trainer']
+    config['stop_trigger'] = (2, 'epoch')
+    resumed = Trainer.from_config(config).to('cuda')
+    dev = gan_data.prepare_dataset(
+        gan_data.synthetic_database(num_examples=8, seed=1), batch_size=4,
+        shuffle=False, prefetch=False)
+    train = gan_data.prepare_dataset(
+        gan_data.synthetic_database(num_examples=8), batch_size=4)
+    resumed.register_validation_hook(dev)
+    resumed.train(train, resume=True)
+    if resumed.iteration != 4 or not resumed.async_checkpointing:
+        fail(f'phase 39c: the resume ran to iteration {resumed.iteration}')
+    run_main(gan_evaluate, ['--model_path', str(storage_dir),
+                            '--synthetic'])
+    means = means_of(storage_dir / 'eval' / 'means.json')
+    wavs = sorted(p.name for p in (storage_dir / 'eval' / 'audio').iterdir())
+    seconds = time.perf_counter() - start
+    print(f'phase 39c gan_vocoder train.py --async_checkpointing (2 '
+          f'iterations, test_run), resumed to iteration '
+          f'{resumed.iteration}, evaluate.py: {means}, {len(wavs)} WAVs; '
+          f'{seconds:.2f} s')
+    if not finite_numbers(means) or len(wavs) != 4:
+        fail('phase 39c: evaluate.py gave no finite metrics or WAVs')
+
+    # one adversarial step, card against CPU, from the same weights (a
+    # batch of 2 x 16000 samples, to keep the CPU's step short)
+    torch.manual_seed(0)
+    batch = next(iter(gan_data.prepare_dataset(
+        gan_data.synthetic_database(num_examples=2), batch_size=2,
+        shuffle=False, prefetch=False)))
+    start_model = gan_model.GANVocoder()
+    width = (start_model.generator.pre.out_channels,
+             start_model.generator.upsample_rates)
+    if width != (128, (5, 5, 4, 2)):
+        fail(f'phase 39c: not the recipe\'s widths: {width}')
+
+    def step(device, loss_weights=None, name='step'):
+        model = copy.deepcopy(start_model).to(device)
+        trainer = Trainer(
+            model, Path(root) / f'{name}_{device}',
+            {'generator': train_optim.SGD(lr=0.05, gradient_clipping=10.0),
+             'discriminator': train_optim.SGD(lr=0.05,
+                                              gradient_clipping=10.0)},
+            adversarial=True, loss_weights=loss_weights,
+            stop_trigger=(1, 'iteration'))
+        trainer.train([batch])
+        return trainer, {n: p.detach().cpu()
+                         for n, p in trainer.model.named_parameters()}
+
+    card, card_params = step('cuda')
+    _, cpu_params = step('cpu')
+    _, zero_params = step('cuda', {'generator': 1.0, 'discriminator': 0.0},
+                          'zero')
+    start_params = dict(start_model.named_parameters())
+    err = max(float((card_params[n] - cpu_params[n]).abs().max())
+              for n in cpu_params)
+    gen_err = max(float((zero_params[n] - card_params[n]).abs().max())
+                  for n in card_params if n.startswith('generator.'))
+    disc_still = all(torch.equal(zero_params[n], start_params[n].detach())
+                     for n in zero_params if n.startswith('discriminator.'))
+    moved = all(not torch.equal(card_params[n], start_params[n].detach())
+                for n in card_params)
+
+    # the adversarial step's time: one forward, a gradient per key, two
+    # optimizer steps
+    model = card.model
+    example = model.example_to_device(batch, 'cuda')
+    times = []
+    for i in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, weighted, _, _, _ = card._step(model, example, card.train_timer)
+        card._backward(loss, weighted)
+        for opt in card.optimizer.values():
+            opt.step()
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        if i:
+            times.append((time.perf_counter() - t0) * 1e3)
+    step_ms = float(np.median(times))
+    print(f'phase 39c one adversarial SGD step at base_channels 128, '
+          f'upsampling (5, 5, 4, 2), B=2 x 16000: card vs CPU {err:.3e} '
+          f'(tol {GAN_STEP_TOL:g}), every parameter moved {moved}; with '
+          f'the discriminator\'s loss weight 0 the generator\'s update '
+          f'{gen_err:.3e} from the full step\'s, the discriminator '
+          f'unchanged {disc_still}; an adversarial step {step_ms:.3f} ms '
+          f'(host clock, median of 5) on {CARD}')
+    if not (err <= GAN_STEP_TOL and moved and disc_still
+            and gen_err <= GAN_STEP_TOL):
+        fail('phase 39c: the adversarial step failed a check')
+    return step_ms
+
+
+def phase_trainer_interactive(root):
+    """39d: ``InteractiveTrainer`` prints its scalars."""
+    base = flagship_trainer(root, 'interactive_model')
+    trainer = InteractiveTrainer(
+        base.model, Path(root) / 'interactive', Adam(gradient_clipping=10.0),
+        loss_weights=base.loss_weights, summary_trigger=(1, 'iteration'),
+        stop_trigger=(2, 'iteration'))
+    train, _ = flagship_data()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        trainer.train(train)
+    lines = [line for line in out.getvalue().splitlines()
+             if line.startswith('[') and ('/loss:' in line
+                                          or 'grad_norm:' in line)]
+    print('phase 39d InteractiveTrainer, 2 steps on the card: '
+          + '; '.join(lines))
+    if not any('training/loss' in line for line in lines) or any(
+            'tfevents' in p.name for p in trainer.storage_dir.iterdir()):
+        fail('phase 39d: InteractiveTrainer printed no loss or wrote an '
+             'event file')
+
+
+def phase_trainer():
+    """Phase 39: the rest of the Trainer (see the module docstring).
+    Returns the LSTM launches of 39a and 39b, the optimizers' rows and the
+    ms per adversarial step."""
+    start = time.perf_counter()
+    total = {'fwd': 0, 'fwd_train': 0, 'bwd': 0}
+    with tempfile.TemporaryDirectory() as root:
+        for name, n in phase_trainer_hooks(root).items():
+            total[name] += n
+        launches, rows = phase_trainer_optimizers(root)
+        for name, n in launches.items():
+            total[name] += n
+        gan_ms = phase_trainer_gan(root)
+        phase_trainer_interactive(root)
+    seconds = time.perf_counter() - start
+    print(f'phase 39 in {seconds:.1f} s, LSTM launches {total}')
+    return total, rows, gan_ms
+
+
 def main():
     profile = '--profile' in sys.argv[1:]
     phase_device()
@@ -7336,6 +7819,8 @@ def main():
     asr_attention_rows, asr_lstm_rows, asr_launches_ = phase_asr()
     torch.cuda.empty_cache()
     distance_gru_rows, real_audio, real_wavenet_routes = phase_real_audio()
+    torch.cuda.empty_cache()
+    trainer_launches, optimizer_rows, gan_step_ms = phase_trainer()
     real_lstm = real_audio.get('lstm', {})
     real_gru = real_audio.get('gru', {})
     # the bf16 GRU kernels' launches on the main paths: the bgru DPRNN
@@ -7425,6 +7910,9 @@ def main():
     # and uPIT trained and served from WAV files (phase 38)
     for name in lstm_launches:
         lstm_launches[name] += real_lstm.get(name, 0)
+    # and the flagship under the hooks and optimizers of phase 39
+    for name in lstm_launches:
+        lstm_launches[name] += trainer_launches[name]
     for name, n in new_paths.items():
         if n == 0:
             fail(f'phases 34 to 36 never launched the lstm {name} kernel')
@@ -7449,7 +7937,13 @@ def main():
           f'estimator training {me_trained}, requests {me_served}; deep '
           f'clustering served {dc_served}, a step {dc_trained}); the '
           f'speech-recognition paths (phase 37) {asr_launches_}; the '
-          f'real-audio runs (phase 38) {real_audio}')
+          f'real-audio runs (phase 38) {real_audio}; the Trainer\'s hooks '
+          f'and optimizers (phase 39) {trainer_launches}')
+    print('phase 39 flagship step ms by optimizer (host clock, B=4) and the '
+          f'adversarial step on {CARD}: ' + json.dumps(
+              {name: round(row['step_ms'], 3)
+               for name, row in optimizer_rows.items()})
+          + f', GAN vocoder {gan_step_ms:.3f}')
     # every row's numbers are those of its ``shape``: the GRU rows those of
     # the intra-chunk shape, which six of a TasNet's twelve chunk RNNs run
     # (phase 8 prints the rows of the other shapes, the classifier's two

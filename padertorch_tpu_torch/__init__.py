@@ -32,8 +32,10 @@ from padertorch_tpu_torch import migrate
 from padertorch_tpu_torch import evaluation
 from padertorch_tpu_torch import summary
 from padertorch_tpu_torch import train
-from padertorch_tpu_torch.train.optimizer import Adam, AdamW, SGD
-from padertorch_tpu_torch.train.trainer import Trainer
+from padertorch_tpu_torch.train import (
+    Trainer, Optimizer, Adam, AdamW, SGD, Adadelta, Adafactor, Lion, Muon,
+)
+from padertorch_tpu_torch.train.trainer import InteractiveTrainer
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

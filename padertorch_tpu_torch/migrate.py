@@ -55,7 +55,12 @@ port):
 
 :func:`to_jax_state_dict` is the inverse of :func:`from_jax_state_dict`:
 the port's trainer writes its checkpoints' ``model`` entry with it, so
-one storage dir loads in both packages.  (``padertorch_tpu.migrate
+one storage dir loads in both packages.  The arrays of a submodule (the
+GAN vocoder's generator or discriminator) move with the submodule and
+the names below its prefix.  :func:`from_jax_arrays` converts a part of a
+JAX ``state_dict()``, such as the JAX ``EMAHook``'s average of the
+parameters, into tensors keyed by the port's names without touching the
+model (the port's ``EMAHook`` keeps its average so).  (``padertorch_tpu.migrate
 .import_torch_state_dict`` also maps the port's ``state_dict()`` onto the
 JAX model.)
 """
@@ -74,7 +79,7 @@ from padertorch_tpu_torch.modules.recurrent import GRU, _RNNBase
 from padertorch_tpu_torch.nn import RMSNorm
 from padertorch_tpu_torch.quantize import QuantizedLinear
 
-__all__ = ['from_jax_state_dict', 'to_jax_state_dict']
+__all__ = ['from_jax_state_dict', 'from_jax_arrays', 'to_jax_state_dict']
 
 
 def _swap01(a):
@@ -200,6 +205,23 @@ def from_jax_state_dict(model, sd):
                         f'{tuple(param.shape)}')
                 param.copy_(torch.tensor(value))
     return model
+
+
+def from_jax_arrays(model, sd):
+    """The JAX arrays ``sd`` (any part of the JAX model's ``state_dict()``,
+    e.g. an average of its parameters) in the port's layouts, as
+    ``{port parameter or buffer name: tensor}``; ``model`` is only read.
+
+    Raises ``KeyError`` for an array that has no target in ``model``."""
+    pairs = _jax_to_port(model)
+    names = {id(t): n for n, t in [*model.named_parameters(),
+                                   *model.named_buffers()]}
+    out = {}
+    for jax_name, value in sd.items():
+        for target, convert, *_ in pairs[jax_name]:
+            out[names[id(target)]] = torch.tensor(
+                np.ascontiguousarray(convert(np.asarray(value))))
+    return out
 
 
 def to_jax_state_dict(model):

@@ -13,3 +13,7 @@ from padertorch_tpu_torch.ops.losses.ctc import (
 from padertorch_tpu_torch.ops.losses.rnnt import (
     rnnt_loss, rnnt_greedy_decode, rnnt_beam_search,
 )
+from padertorch_tpu_torch.ops.losses.stft import (
+    spectral_convergence_loss, log_stft_magnitude_loss,
+    stft_magnitude_loss, multi_resolution_stft_loss,
+)

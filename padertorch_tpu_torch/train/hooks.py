@@ -10,16 +10,22 @@ Review values arriving in ``post_step`` are tensors on the model's device.
 They are accumulated as they are (detached, no host sync) and fetched to
 numpy only when a summary is finalized.
 
-Ported: ``SummaryHook``, ``CheckpointHook``, ``ValidationHook``,
-``StopTrainingHook``.  The back-off, learning-rate scheduler, progress
-bar, annealing, EMA, profiler and energy hooks of the JAX package are not
-ported yet.
+Every hook of the JAX package is here, with its uid and its state's keys,
+but ``JaxProfilerHook``, whose counterpart is :class:`TorchProfilerHook`.
+Two defaults differ: :class:`EnergyEstimateHook` reads the card's power
+limit where the JAX one assumes a TPU's budget, and :class:`EMAHook` keeps
+its average keyed by parameter name.
 """
+import bisect
 import json
 import re
+import subprocess
+import time
 import types
 from collections import defaultdict
+from contextlib import contextmanager
 from enum import IntEnum
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -33,8 +39,19 @@ __all__ = [
     'SummaryHook',
     'CheckpointHook',
     'ValidationHook',
+    'BackOffValidationHook',
+    'LRSchedulerHook',
+    'ProgressBarHook',
+    'TorchProfilerHook',
+    'EnergyEstimateHook',
+    'EmissionsTrackerHook',
+    'EMAHook',
     'StopTrainingHook',
     'StopTraining',
+    'AnnealingHook',
+    'LossWeightAnnealingHook',
+    'ModelAttributeAnnealingHook',
+    'LRAnnealingHook',
 ]
 
 CKPT_EXT = '.ptt'
@@ -421,6 +438,9 @@ class ValidationHook(SummaryHook):
         that very checkpoint.
         """
         score = self._validation_score(trainer)
+        # an asynchronous write in flight must commit before the pruning
+        # below reads the directory and the latest checkpoint's link
+        trainer.wait_for_checkpoint_writes()
         self._rank_checkpoint(
             trainer.checkpoint_dir,
             trainer.default_checkpoint_path().name,
@@ -515,6 +535,7 @@ class ValidationHook(SummaryHook):
         if trainer.iteration == self.last_validation:
             ckpt_dir = trainer.checkpoint_dir
             ckpt_path = trainer.default_checkpoint_path()
+            trainer.wait_for_checkpoint_writes()
             if not ckpt_path.exists():
                 raise RuntimeError(
                     'Before each validation the CheckpointHook has to '
@@ -550,6 +571,419 @@ class ValidationHook(SummaryHook):
                 (ckpt_name, -np.inf if self.maximize else np.inf))
 
 
+class BackOffValidationHook(ValidationHook):
+    """Validation + learning-rate back-off to the best checkpoint.
+
+    Reference parity: ``hooks.py:636``.  After ``back_off_patience``
+    degradations in a row (at most ``n_back_off`` times), ``ckpt_latest``
+    is pointed at the best checkpoint, the ranked checkpoints after it are
+    deleted, the trainer reloads it and every optimizer's learning rate is
+    multiplied by ``lr_update_factor``.
+    """
+
+    def __init__(
+            self, trigger, iterator, metric='loss', maximize=False,
+            max_checkpoints=1, early_stopping_patience=None, n_back_off=0,
+            lr_update_factor=1 / 10, back_off_patience=None,
+    ):
+        super().__init__(
+            trigger, iterator, metric=metric, maximize=maximize,
+            max_checkpoints=max_checkpoints,
+            early_stopping_patience=early_stopping_patience,
+        )
+        self.remaining_back_offs = n_back_off
+        self.lr_update_factor = lr_update_factor
+        if n_back_off > 0:
+            assert lr_update_factor < 1, lr_update_factor
+            assert back_off_patience is not None
+        self.back_off_patience = back_off_patience
+        if early_stopping_patience is not None \
+                and back_off_patience is not None:
+            assert early_stopping_patience >= back_off_patience, (
+                early_stopping_patience, back_off_patience)
+
+    def state_dict(self):
+        return {
+            'remaining_back_offs': self.remaining_back_offs,
+            **super().state_dict(),
+        }
+
+    def load_state_dict(self, state_dict):
+        super().load_state_dict(state_dict)
+        assert state_dict['remaining_back_offs'] <= self.remaining_back_offs
+        self.remaining_back_offs = int(state_dict['remaining_back_offs'])
+
+    def run_validation(self, trainer):
+        super().run_validation(trainer)
+        if (
+                self.remaining_back_offs > 0
+                and self.n_degradations > self.back_off_patience
+        ):
+            self._back_off(trainer)
+
+    def _back_off(self, trainer):
+        best_ckpt = self.ckpt_ranking[0][0]
+        print(f'Back off to {best_ckpt}.')
+        ckpt_dir = trainer.checkpoint_dir
+        latest = (ckpt_dir / f'ckpt_latest{CKPT_EXT}').absolute()
+        if latest.is_symlink():
+            latest.unlink()
+        latest.symlink_to(best_ckpt)
+
+        best_iter = int(Path(best_ckpt).stem[len('ckpt_'):])
+        for j in reversed(range(len(self.ckpt_ranking))):
+            ckpt = self.ckpt_ranking[j][0]
+            if int(Path(ckpt).stem[len('ckpt_'):]) > best_iter:
+                ckpt_path = ckpt_dir / ckpt
+                if ckpt_path.exists():
+                    ckpt_path.unlink()
+                self.ckpt_ranking.pop(j)
+
+        remaining_back_offs = self.remaining_back_offs
+        trainer.load_checkpoint()
+        self.n_degradations = 0
+        self.remaining_back_offs = remaining_back_offs - 1
+
+        optimizer = trainer.optimizer
+        for opt in (optimizer.values() if isinstance(optimizer, dict)
+                    else [optimizer]):
+            opt.lr = opt.lr * self.lr_update_factor
+
+
+class LRSchedulerHook(TriggeredHook):
+    """Applies a learning-rate schedule ``fn(step_count) -> lr``.
+
+    Counterpart of the JAX package's hook (reference ``hooks.py:745``):
+    any callable maps the trigger count to an absolute learning rate.  On
+    resume the restored count's rate is applied at once.
+    """
+
+    def __init__(self, lr_scheduler, trigger=(1, 'epoch'),
+                 optimizer_key=None):
+        super().__init__(trigger)
+        self.lr_scheduler = lr_scheduler
+        self.optimizer_key = optimizer_key
+        self._count = 0
+        self._apply_pending = False
+
+    def state_dict(self):
+        return {'count': self._count}
+
+    def load_state_dict(self, state_dict):
+        self._count = int(state_dict['count'])
+        self._apply_pending = True
+
+    def _optimizer(self, trainer):
+        opt = trainer.optimizer
+        if self.optimizer_key is not None:
+            opt = opt[self.optimizer_key]
+        return opt
+
+    def pre_step(self, trainer):
+        if self._apply_pending:
+            # the checkpoint's learning rate may predate a changed
+            # schedule, and the next firing may be a period away
+            self._apply_pending = False
+            self._optimizer(trainer).lr = float(
+                self.lr_scheduler(self._count))
+        if self.trigger(iteration=trainer.iteration, epoch=trainer.epoch):
+            if trainer.iteration > 0:
+                self._count += 1
+            self._optimizer(trainer).lr = float(
+                self.lr_scheduler(self._count))
+
+    def set_last(self, iteration, epoch):
+        super().set_last(iteration, epoch)
+        if hasattr(self.trigger, 'unit'):
+            if self.trigger.unit == 'epoch':
+                self._count = epoch // self.trigger.period
+            else:
+                self._count = iteration // self.trigger.period
+        # a composite trigger has no single period: the count stays
+
+
+class ProgressBarHook(TriggeredHook):
+    """tqdm progress bar. Reference parity: ``hooks.py:794``."""
+
+    def __init__(self, stop_trigger, max_it_len=None, update_interval=100):
+        super().__init__((update_interval, 'iteration'))
+        try:
+            from tqdm import tqdm
+        except ImportError as e:
+            raise ImportError(
+                'progress_bar=True (ProgressBarHook) needs the tqdm '
+                'package') from e
+        if isinstance(stop_trigger, EndTrigger):
+            length, unit = stop_trigger.period, stop_trigger.unit
+        elif isinstance(stop_trigger, (tuple, list)):
+            length, unit = stop_trigger
+        else:
+            raise ValueError(
+                f'stop_trigger must be a trigger or tuple, got '
+                f'{type(stop_trigger)}: {stop_trigger}')
+        if unit == 'iteration':
+            max_iteration = length
+        elif unit == 'epoch':
+            if max_it_len is not None:
+                max_iteration = length * max_it_len
+            else:
+                self.num_epochs = length
+                max_iteration = None
+        else:
+            raise ValueError(f'unit {unit} unknown')
+        self.pbar = tqdm(initial=1, total=max_iteration, smoothing=1)
+
+    @property
+    def priority(self):
+        return Priority.PROGRESS
+
+    def set_last(self, iteration, epoch):
+        super().set_last(iteration, epoch)
+        self.pbar.n = iteration
+
+    def pre_step(self, trainer):
+        iteration, epoch = trainer.iteration, trainer.epoch
+        if epoch == 1 and self.pbar.total is None:
+            if hasattr(self, 'num_epochs'):
+                self.pbar.total = (iteration + 1) * self.num_epochs
+        if self.trigger(iteration, epoch) and iteration > 1:
+            self.pbar.update(iteration - self.pbar.n)
+
+    def close(self, trainer):
+        self.pbar.close()
+
+
+class TorchProfilerHook(TriggeredHook):
+    """Record ``num_steps`` training steps with ``torch.profiler``.
+
+    The counterpart of the JAX package's ``JaxProfilerHook``
+    (``padertorch_tpu/train/hooks.py:969``): when the trigger fires, the
+    host's and (for a model on a CUDA card) the card's activity of the next
+    ``num_steps`` steps is recorded and written as a Chrome trace,
+    ``storage_dir/profile/trace_<iteration>.json`` (``trace_path``), which
+    ``chrome://tracing`` or Perfetto open.
+
+    >>> hook = TorchProfilerHook((500, 'iteration'), num_steps=3)
+    """
+
+    def __init__(self, trigger=(500, 'iteration'), num_steps=5,
+                 log_dir=None):
+        super().__init__(trigger)
+        self.num_steps = num_steps
+        self.log_dir = log_dir
+        self.trace_path = None
+        self._remaining = 0
+        self._profiler = None
+
+    def pre_step(self, trainer):
+        if self._profiler is not None:
+            self._remaining -= 1
+            if self._remaining <= 0:
+                self._stop(trainer)
+            return
+        if self.trigger(trainer.iteration, trainer.epoch):
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if trainer.device.type == 'cuda':
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            self._profiler = torch.profiler.profile(activities=activities)
+            self._profiler.start()
+            self._remaining = self.num_steps
+
+    def _dir(self, trainer):
+        if self.log_dir is not None:
+            return Path(self.log_dir)
+        return Path(trainer.storage_dir) / 'profile'
+
+    def _stop(self, trainer):
+        if trainer.device.type == 'cuda':
+            torch.cuda.synchronize(trainer.device)
+        self._profiler.stop()
+        directory = self._dir(trainer)
+        directory.mkdir(parents=True, exist_ok=True)
+        self.trace_path = directory / f'trace_{trainer.iteration}.json'
+        self._profiler.export_chrome_trace(str(self.trace_path))
+        self._profiler = None
+        print(f'TorchProfilerHook: trace written to {self.trace_path}')
+
+    def close(self, trainer):
+        if self._profiler is not None:
+            self._stop(trainer)
+
+
+def card_power_limit_watts(device):
+    """The power limit of the CUDA card ``device`` in watts, as
+    ``nvidia-smi --query-gpu=power.limit`` reads it (raises where it
+    cannot be read)."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    out = subprocess.run(
+        ['nvidia-smi', '--query-gpu=power.limit',
+         '--format=csv,noheader,nounits', '-i', str(index)],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    return float(out.strip())
+
+
+class EnergyEstimateHook(TriggeredHook):
+    """Dependency-free energy and CO2 estimate -> event-file scalars.
+
+    Counterpart of the JAX package's hook (there for the reference's
+    codecarbon ``EmissionsTrackerHook``, ``hooks.py:1032``): ``energy =
+    elapsed * (chip watts + host watts)``, ``co2 = energy * grid carbon
+    intensity``, an upper-bound proxy rather than a measurement.  With
+    ``chip_watts=None`` (the default) the card's power limit is read once,
+    through ``nvidia-smi``, for a model on a CUDA card; a model on the CPU
+    counts the host alone.
+
+    Writes ``<prefix>/energy_kwh``, ``<prefix>/co2_kg`` and
+    ``<prefix>/avg_power_watts`` at every trigger firing and at close.
+    """
+
+    def __init__(self, trigger=(1, 'epoch'), prefix='x_emissions',
+                 chip_watts=None, host_watts=100.0,
+                 grid_kg_co2_per_kwh=0.475):
+        super().__init__(trigger)
+        self.prefix = prefix
+        self.chip_watts = None if chip_watts is None else float(chip_watts)
+        self.host_watts = float(host_watts)
+        self.grid_kg_co2_per_kwh = float(grid_kg_co2_per_kwh)
+        self._start = None
+        self._kwh_before = 0.0
+
+    @property
+    def priority(self):
+        return Priority.SUMMARY
+
+    @property
+    def watts(self):
+        return self.chip_watts + self.host_watts
+
+    def state_dict(self):
+        # the consumed energy carries over a resume
+        return {'consumed_kwh_before': self._consumed_kwh()}
+
+    def load_state_dict(self, state_dict):
+        self._kwh_before = float(state_dict['consumed_kwh_before'])
+
+    def _consumed_kwh(self):
+        if self._start is None:
+            return self._kwh_before
+        elapsed_h = (time.monotonic() - self._start) / 3600.0
+        return self._kwh_before + elapsed_h * self.watts / 1000.0
+
+    def _report(self, trainer):
+        energy_kwh = self._consumed_kwh()
+        trainer.writer.add_scalar(
+            f'{self.prefix}/energy_kwh', energy_kwh, trainer.iteration)
+        trainer.writer.add_scalar(
+            f'{self.prefix}/co2_kg',
+            energy_kwh * self.grid_kg_co2_per_kwh, trainer.iteration)
+        trainer.writer.add_scalar(
+            f'{self.prefix}/avg_power_watts', self.watts,
+            trainer.iteration)
+
+    def pre_step(self, trainer):
+        if self.chip_watts is None:
+            device = trainer.device
+            self.chip_watts = (card_power_limit_watts(device)
+                               if device.type == 'cuda' else 0.0)
+        if self._start is None:
+            self._start = time.monotonic()
+        if self.trigger(iteration=trainer.iteration, epoch=trainer.epoch):
+            self._report(trainer)
+
+    def close(self, trainer):
+        if self._start is not None:
+            self._report(trainer)
+
+
+#: reference name for :class:`EnergyEstimateHook` (there
+#: ``EmissionsTrackerHook``, ``train/hooks.py:893``)
+EmissionsTrackerHook = EnergyEstimateHook
+
+
+class EMAHook(Hook):
+    """Exponential moving average of the trained parameters.
+
+    Counterpart of the JAX package's hook: after every optimizer step,
+    on the parameters' device, ``ema = decay * ema + (1 - decay) * p`` (that
+    expression, not ``lerp``, whose rounding differs); the first step
+    copies the parameters.  The average is keyed by parameter name, in the
+    trainer's checkpoints too, and restored at the first ``pre_step``
+    after a load.
+
+    Usage::
+
+        ema = EMAHook(decay=0.999)
+        trainer.register_hook(ema)
+        trainer.train(ds)
+        with ema.average_parameters(trainer.model):
+            evaluate(trainer.model)        # runs with the average
+    """
+
+    def __init__(self, decay=0.999):
+        assert 0.0 < decay < 1.0, decay
+        self.decay = decay
+        self.ema_params = None
+        self._loaded = None
+
+    @staticmethod
+    def _trained(model):
+        return {n: p for n, p in model.named_parameters() if p.requires_grad}
+
+    @torch.no_grad()
+    def post_optimize(self, trainer, summary):
+        params = self._trained(trainer.model)
+        if self.ema_params is None:
+            self.ema_params = {n: p.detach().clone()
+                               for n, p in params.items()}
+            return
+        average = list(self.ema_params.values())
+        torch._foreach_mul_(average, self.decay)
+        torch._foreach_add_(average, torch._foreach_mul(
+            [params[n] for n in self.ema_params], 1.0 - self.decay))
+
+    @contextmanager
+    def average_parameters(self, model):
+        """Swap the average into ``model`` for the block, then back."""
+        assert self.ema_params is not None, 'no optimizer step ran yet'
+        params = self._trained(model)
+        with torch.no_grad():
+            backup = {n: params[n].detach().clone() for n in self.ema_params}
+            for n, value in self.ema_params.items():
+                params[n].copy_(value)
+        try:
+            yield model
+        finally:
+            with torch.no_grad():
+                for n, value in backup.items():
+                    params[n].copy_(value)
+
+    def state_dict(self):
+        if self.ema_params is None:
+            return {'decay': self.decay}
+        return {'decay': self.decay, 'average': dict(self.ema_params)}
+
+    def load_state_dict(self, state):
+        self.decay = float(state['decay'])
+        self._loaded = state.get('average')
+
+    def pre_step(self, trainer):
+        # finish a restore once the model's devices are known
+        if self._loaded is not None:
+            params = self._trained(trainer.model)
+            self.ema_params = {n: _tensor_on(v, params[n].device)
+                               for n, v in self._loaded.items()}
+            self._loaded = None
+
+
+def _tensor_on(value, device):
+    """A copy of a checkpoint's array (or tensor) on ``device``."""
+    if isinstance(value, torch.Tensor):
+        return value.detach().to(device, copy=True)
+    return torch.tensor(np.asarray(value), device=device)
+
+
 class StopTrainingHook(TriggeredHook):
     """Raises StopTraining when the end trigger fires."""
 
@@ -569,3 +1003,110 @@ class StopTrainingHook(TriggeredHook):
 
 class StopTraining(Exception):
     """Signal to stop the training loop."""
+
+
+class AnnealingHook(TriggeredHook):
+    """Piecewise-linear annealing of a value, relative to its initial value.
+
+    Reference parity: ``hooks.py:884``.  Breakpoints are (x, y) pairs with
+    y relative to the initial value.
+    """
+
+    def __init__(self, trigger, breakpoints, unit, name):
+        super().__init__(trigger)
+        self.breakpoints = sorted(breakpoints, key=lambda x: x[0])
+        self.unit = unit
+        self.name = name
+        self.scale = None
+
+    @property
+    def uid(self):
+        return super().uid + f'({self.name})'
+
+    def get_value(self, trainer):
+        raise NotImplementedError
+
+    def set_value(self, trainer, value):
+        raise NotImplementedError
+
+    def state_dict(self):
+        return {'scale': self.scale}
+
+    def load_state_dict(self, state_dict):
+        self.scale = state_dict['scale']
+
+    def pre_step(self, trainer):
+        if self.trigger(iteration=trainer.iteration, epoch=trainer.epoch):
+            if self.scale is None:
+                self.scale = float(np.asarray(self.get_value(trainer)))
+            if self.unit == 'iteration':
+                x = trainer.iteration
+            elif self.unit == 'epoch':
+                x = trainer.epoch
+            else:
+                raise ValueError(f'{self.unit} is not a valid unit.')
+            self.set_value(trainer, self._interpolate(x) * self.scale)
+
+    def _interpolate(self, x):
+        """Piecewise-linear lookup over the sorted breakpoints; the
+        implicit origin is (0, 1.0) and the curve is flat past the end."""
+        xs = [bx for bx, _ in self.breakpoints]
+        i = bisect.bisect_right(xs, x)
+        if i == len(self.breakpoints):
+            return self.breakpoints[-1][1]
+        x0, y0 = (0, 1.0) if i == 0 else self.breakpoints[i - 1]
+        x1, y1 = self.breakpoints[i]
+        return y0 + (y1 - y0) * (x - x0) / (x1 - x0)
+
+
+class LossWeightAnnealingHook(AnnealingHook):
+    """Anneals an entry of ``trainer.loss_weights``."""
+
+    def get_value(self, trainer):
+        return trainer.loss_weights[self.name]
+
+    def set_value(self, trainer, value):
+        trainer.loss_weights[self.name] = value
+
+
+class ModelAttributeAnnealingHook(AnnealingHook):
+    """Anneals a (dotted) attribute of the trainer's model."""
+
+    def get_module(self, trainer):
+        module = trainer.model
+        for attr in self.name.split('.')[:-1]:
+            module = getattr(module, attr)
+        return module
+
+    def get_value(self, trainer):
+        return getattr(self.get_module(trainer), self.name.split('.')[-1])
+
+    def set_value(self, trainer, value):
+        setattr(self.get_module(trainer), self.name.split('.')[-1], value)
+
+
+class LRAnnealingHook(AnnealingHook):
+    """Anneals an optimizer's learning rate (of ``trainer.optimizer[name]``
+    for a dict of optimizers)."""
+
+    def __init__(self, trigger, breakpoints, unit, name=None):
+        super().__init__(trigger, breakpoints, unit, name)
+
+    @property
+    def uid(self):
+        if self.name is None:
+            return type(self).__qualname__
+        return super().uid
+
+    def _optimizer(self, trainer):
+        optimizer = trainer.optimizer
+        if self.name is not None:
+            assert isinstance(optimizer, dict), type(optimizer)
+            optimizer = optimizer[self.name]
+        return optimizer
+
+    def get_value(self, trainer):
+        return self._optimizer(trainer).lr
+
+    def set_value(self, trainer, value):
+        self._optimizer(trainer).lr = value

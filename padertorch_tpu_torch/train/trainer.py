@@ -29,15 +29,28 @@ step is eager PyTorch: ``forward``, ``review``, the weighted loss,
   ``Precision.cast_module`` (bf16 casts of float32 masters); the loss is
   cast to float32 before the backward, so gradients, clipping, the
   optimizer's moments and the checkpoints stay float32.
+- **A dict of optimizers** keyed by direct submodule: each optimizer gets
+  its submodule's parameters and clips, steps, reports and checkpoints
+  apart.  With ``adversarial=True`` each key ``k`` takes the gradient of
+  ``loss_weights[k] * losses[k]`` with respect to submodule ``k`` alone:
+  one forward, then ``torch.autograd.grad`` per key from the same graph
+  (a forward per key would update running statistics and draw dropout
+  twice, and ``backward`` per key would leak the generator's loss into
+  the discriminator), and only then does any optimizer step.
+- **Asynchronous checkpoints** (``async_checkpointing=True``): the state
+  is copied to the host before ``save_checkpoint`` returns (the live
+  parameters and optimizer state are changed in place by the next step,
+  so the writer thread must not see them), then written by a thread;
+  the next save, a load, validation and the end of training wait for it,
+  and a failed write raises there.
 
 Not ported (each raises ``NotImplementedError`` when asked for):
-``adversarial``, ``sharding``, ``async_checkpointing``,
-``checkpoint_format='orbax'``, ``MultiDeviceTrainer``,
-``InteractiveTrainer``.
+``sharding``, ``checkpoint_format='orbax'``, ``MultiDeviceTrainer``.
 """
 import itertools
 import re
 import sys
+import threading
 import time
 from collections import defaultdict
 from contextlib import contextmanager
@@ -56,14 +69,16 @@ from padertorch_tpu_torch.train.hooks import (
     SummaryHook,
     CheckpointHook,
     StopTrainingHook,
-    ValidationHook,
+    BackOffValidationHook,
+    EnergyEstimateHook,
+    ProgressBarHook,
     StopTraining,
 )
 from padertorch_tpu_torch.train.optimizer import Optimizer, Adam
 from padertorch_tpu_torch.train.precision import Precision
 
 __all__ = ['Trainer', 'ContextTimerDict', 'MultiDeviceTrainer',
-           'InteractiveTrainer']
+           'InteractiveTrainer', 'InteractiveWriter']
 
 CKPT_EXT = '.ptt'
 
@@ -124,9 +139,22 @@ class _TimerHandle:
 
 def _not_ported(what):
     raise NotImplementedError(
-        f'{what} is not ported yet: padertorch_tpu_torch trains one model '
-        'with one optimizer on one device and writes .ptt checkpoints '
-        'synchronously')
+        f'{what} is not ported yet: padertorch_tpu_torch trains on one '
+        'device and writes .ptt checkpoints')
+
+
+def _host_copy(state):
+    """``state`` with every tensor and array copied to the host and every
+    container rebuilt: nothing in it aliases what a later step changes."""
+    if isinstance(state, torch.Tensor):
+        return state.detach().to('cpu', copy=True)
+    if isinstance(state, np.ndarray):
+        return state.copy()
+    if isinstance(state, dict):
+        return {k: _host_copy(v) for k, v in state.items()}
+    if isinstance(state, (list, tuple)):
+        return type(state)(_host_copy(v) for v in state)
+    return state
 
 
 class Trainer(Configurable):
@@ -171,20 +199,37 @@ class Trainer(Configurable):
                 'padertorch_tpu_torch.Model.\n'
                 f'Got: type: {type(model)}\n{model}'
             )
-        if adversarial or isinstance(optimizer, dict):
-            _not_ported('adversarial training (a dict of optimizers)')
         if sharding is not None:
             _not_ported(f'sharding={sharding!r}')
-        if async_checkpointing:
-            _not_ported('async_checkpointing=True')
         if checkpoint_format != 'ptt':
             _not_ported(f'checkpoint_format={checkpoint_format!r}')
         self.model = model
-        assert isinstance(optimizer, Optimizer), optimizer
-        optimizer.set_parameters(model.named_parameters())
+        self.adversarial = bool(adversarial)
+        if self.adversarial and not isinstance(optimizer, dict):
+            raise TypeError(
+                'adversarial=True requires a dict of optimizers keyed by '
+                'submodule name (e.g. {"generator": ..., '
+                '"discriminator": ...}), got ' + repr(type(optimizer))
+            )
+        if isinstance(optimizer, dict):
+            # per-submodule optimizers: the keys name direct submodules
+            optimizer = {
+                k: opti for k, opti in optimizer.items() if opti is not None
+            }
+            for key, opti in optimizer.items():
+                assert isinstance(opti, Optimizer), opti
+                sub = getattr(model, key)
+                opti.set_parameters(sub.named_parameters(), module=sub)
+        else:
+            assert isinstance(optimizer, Optimizer), optimizer
+            optimizer.set_parameters(model.named_parameters(), module=model)
         self.optimizer = optimizer
 
         self.storage_dir = Path(storage_dir).expanduser().resolve()
+        self.async_checkpointing = bool(async_checkpointing)
+        self._ckpt_writer = None
+        self._ckpt_writer_error = None
+        self.writer_cls = SummaryWriter
         self.writer = None
         self.train_timer = ContextTimerDict()
         self.validate_timer = ContextTimerDict()
@@ -204,6 +249,8 @@ class Trainer(Configurable):
             CheckpointHook(checkpoint_trigger),
             StopTrainingHook(stop_trigger),
         ]
+        self._summary_trigger = summary_trigger
+        self._stop_trigger = stop_trigger
         self._checkpoint_trigger = checkpoint_trigger
         self._prev_loss = None  # one-step-delayed finite check
 
@@ -211,21 +258,32 @@ class Trainer(Configurable):
     def device(self):
         return next(self.model.parameters()).device
 
+    @property
+    def _optimizers(self):
+        """{key: optimizer}; the key of a single optimizer is ''."""
+        if isinstance(self.optimizer, dict):
+            return self.optimizer
+        return {'': self.optimizer}
+
     # ------------------------------------------------------------------ #
     # one step                                                            #
     # ------------------------------------------------------------------ #
     def _loss_and_review(self, model, example):
         """forward + review + loss weighting; the loss weights are read
-        now.  Returns (loss, model_out, review)."""
+        now.  Returns (loss, weighted, model_out, review): ``weighted`` is
+        the dict of weighted losses (``None`` for a review with one
+        ``loss``), which the adversarial step differentiates key by key."""
         loss_weights = self.loss_weights
         model_out = model(example)
         review = dict(model.review(example, model_out))
         review.setdefault('scalars', {})
         review['scalars'] = dict(review['scalars'])
+        weighted = None
         if 'losses' in review:
             assert 'loss' not in review, review
             losses = review.pop('losses')
-            if len(losses) != 1 and loss_weights is None:
+            if (len(losses) != 1 and loss_weights is None
+                    and not self.adversarial):
                 raise Exception(
                     'You can not have multiple losses without specifying '
                     f'loss_weights. losses: {losses}'
@@ -238,10 +296,12 @@ class Trainer(Configurable):
                     f'loss_weights: {loss_weights}'
                 )
             loss = 0.0
+            weighted = {}
             for key, value in losses.items():
                 weight = (loss_weights[key]
                           if loss_weights is not None else 1.0)
                 loss = loss + weight * value
+                weighted[key] = weight * value
                 review['scalars'][key] = value
                 review['scalars'][f'{key}_loss_weight'] = np.float32(weight)
         else:
@@ -249,7 +309,35 @@ class Trainer(Configurable):
             loss = review.pop('loss')
         assert loss.dim() == 0, loss
         review['scalars']['loss'] = loss
-        return loss, model_out, review
+        return loss, weighted, model_out, review
+
+    def _backward(self, loss, weighted):
+        """Add the step's gradients to ``.grad``: of the loss, or for
+        ``adversarial=True`` of each key's weighted loss with respect to
+        its submodule alone, all from the one forward's graph."""
+        if not self.adversarial:
+            loss.backward()
+            return
+        keys = list(self.optimizer)
+        if weighted is None or set(weighted) != set(keys):
+            raise Exception(
+                'adversarial=True requires review["losses"] keyed exactly '
+                'like the optimizer dict.\n'
+                f'optimizer keys: {sorted(keys)}\n'
+                f'losses keys: {sorted(weighted or {})}'
+            )
+        grads = {}
+        for i, key in enumerate(keys):
+            params = self.optimizer[key].parameters
+            grads[key] = torch.autograd.grad(
+                weighted[key].float(), params,
+                retain_graph=i < len(keys) - 1,
+                allow_unused=True, materialize_grads=True)
+        # every key's gradients come from the same parameters: none is
+        # written to .grad before all are taken
+        for key, key_grads in grads.items():
+            for p, g in zip(self.optimizer[key].parameters, key_grads):
+                p.grad = g if p.grad is None else p.grad + g
 
     def _check_prev_loss_finite(self):
         if self._prev_loss is None:
@@ -276,10 +364,12 @@ class Trainer(Configurable):
         ``train_dataset`` must be a re-iterable of examples (not a
         generator).
         """
-        if progress_bar:
-            _not_ported('progress_bar=True (ProgressBarHook)')
-        if track_emissions:
-            _not_ported('track_emissions=True (EnergyEstimateHook)')
+        if track_emissions and not any(
+                isinstance(h, EnergyEstimateHook) for h in self.hooks):
+            # in self.hooks, so that its state is checkpointed and
+            # restored; before load_checkpoint, which asserts that every
+            # saved hook state found its hook
+            self.hooks.append(EnergyEstimateHook(self._summary_trigger))
         if resume:
             assert resume is True, resume
             self.load_checkpoint()
@@ -292,12 +382,25 @@ class Trainer(Configurable):
             self.epoch = 0
 
         self.model.train()
-        self.writer = SummaryWriter(self.storage_dir)
-        hooks = sorted(self.hooks, key=lambda h: h.priority, reverse=True)
+        self.writer = self.writer_cls(self.storage_dir)
+        hooks = [*self.hooks]
+        if progress_bar:
+            try:
+                max_it_len = len(train_dataset)
+            except TypeError:
+                max_it_len = None
+            progress = ProgressBarHook(self._stop_trigger, max_it_len)
+            progress.set_last(self.iteration, self.epoch)
+            hooks.append(progress)
+        if track_emissions:
+            for hook in hooks:
+                if isinstance(hook, EnergyEstimateHook):
+                    hook.set_last(self.iteration, self.epoch)
+        hooks = sorted(hooks, key=lambda h: h.priority, reverse=True)
 
         assert self.virtual_minibatch_size >= 1, self.virtual_minibatch_size
         vbs = self.virtual_minibatch_size
-        self.optimizer.zero_grad()
+        self.model.zero_grad(set_to_none=True)
 
         try:
             train_iterable = None
@@ -330,10 +433,10 @@ class Trainer(Configurable):
                                 for hook in hooks:
                                     hook.pre_step(self)
 
-                        loss, example, model_out, review = self.train_step(
-                            self.model, example)
+                        loss, weighted, example, model_out, review = \
+                            self._step(self.model, example, self.train_timer)
                         with self.train_timer['time_per_backward']:
-                            loss.backward()
+                            self._backward(loss, weighted)
                         self._check_prev_loss_finite()
                         self._prev_loss = loss.detach()
 
@@ -341,14 +444,15 @@ class Trainer(Configurable):
                             for hook in hooks:
                                 hook.post_step(
                                     self, example, model_out, review)
-                        del example, model_out, review, loss
+                        del example, model_out, review, loss, weighted
 
                     if optimize:
                         with self.train_timer['time_per_optimize']:
-                            grad_norm = self.optimizer.step()
-                            self.optimizer.zero_grad()
+                            norms = {key: opt.step() for key, opt
+                                     in self._optimizers.items()}
+                            self.model.zero_grad(set_to_none=True)
                             optimizer_summary = self._optimizer_summary(
-                                grad_norm)
+                                norms)
                             for hook in hooks:
                                 hook.post_optimize(self, optimizer_summary)
                         self.iteration += 1
@@ -372,6 +476,9 @@ class Trainer(Configurable):
             try:
                 for hook in hooks:
                     hook.close(self)
+                # the last checkpoint may still be in flight: train()
+                # returns after it is written
+                self.wait_for_checkpoint_writes()
             except Exception:
                 print('Exception in finally. May hide actual exception!!!\n'
                       'You may comment this finally block for debugging.')
@@ -382,14 +489,20 @@ class Trainer(Configurable):
             if finite_exc is not None:
                 raise finite_exc
 
-    def _optimizer_summary(self, grad_norm):
-        return {
-            'scalars': {
-                'grad_norm': grad_norm,
-                'lr/param_group_0': self.optimizer.lr,
-            },
-            'histograms': {'grad_norm_': grad_norm.reshape(1)},
-        }
+    def _optimizer_summary(self, norms):
+        """Each optimizer's pre-clip gradient norm and learning rate (none
+        for ``Adafactor(lr=None)``), named as the JAX trainer names them."""
+        summary = {'scalars': {}, 'histograms': {}}
+        for key, norm in norms.items():
+            lr = self._optimizers[key].lr
+            prefix = f'{key}_' if key else ''
+            summary['scalars'][f'{prefix}grad_norm'] = norm
+            summary['histograms'][f'{prefix}grad_norm_'] = norm.reshape(1)
+            if lr is not None:
+                summary['scalars'][
+                    f'lr/{key}/param_group_0' if key
+                    else 'lr/param_group_0'] = lr
+        return summary
 
     # ------------------------------------------------------------------ #
     # validation                                                          #
@@ -441,6 +554,12 @@ class Trainer(Configurable):
         """Reference parity: ``trainer.py:541``.  Under ``precision`` the
         example is cast, the forward and review run on the model's casts
         (``Precision.cast_module``) and the loss is cast to float32."""
+        loss, _, example, model_out, review = self._step(
+            model, example, timer)
+        return loss, example, model_out, review
+
+    def _step(self, model, example, timer):
+        """:meth:`step` that also returns the weighted losses."""
         prec = self.precision
         with timer['time_per_to_device']:
             example = model.example_to_device(example, self.device)
@@ -448,14 +567,14 @@ class Trainer(Configurable):
                 example = prec.cast_floating(example)
         with timer['time_per_forward']:
             if prec is None:
-                loss, model_out, review = self._loss_and_review(
+                loss, weighted, model_out, review = self._loss_and_review(
                     model, example)
             else:
                 with prec.cast_module(model):
-                    loss, model_out, review = self._loss_and_review(
-                        model, example)
+                    loss, weighted, model_out, review = \
+                        self._loss_and_review(model, example)
                 loss = loss.float()
-        return loss, example, model_out, review
+        return loss, weighted, example, model_out, review
 
     def log_error_state(self, data_dict, folder='log', file=sys.stdout):
         """Dump debugging state to ``storage_dir/log/error_state_*.ptt``.
@@ -493,15 +612,15 @@ class Trainer(Configurable):
             back_off_patience=None, early_stopping_patience=None,
     ):
         """Reference parity: ``trainer.py:699``."""
-        if n_back_off:
-            _not_ported(f'n_back_off={n_back_off} (BackOffValidationHook)')
-        del lr_update_factor, back_off_patience
-        self.register_hook(ValidationHook(
+        self.register_hook(BackOffValidationHook(
             trigger=self._checkpoint_trigger,
             iterator=validation_iterator,
             metric=metric,
             maximize=maximize,
             max_checkpoints=max_checkpoints,
+            n_back_off=n_back_off,
+            lr_update_factor=lr_update_factor,
+            back_off_patience=back_off_patience,
             early_stopping_patience=early_stopping_patience,
         ))
 
@@ -519,11 +638,16 @@ class Trainer(Configurable):
         """``model`` in the JAX package's layout (numpy arrays),
         ``iteration``, ``epoch``, ``optimizer`` (this package's own) and
         ``hooks`` keyed by hook uid."""
+        if isinstance(self.optimizer, dict):
+            optimizer_state = {
+                k: o.state_dict() for k, o in self.optimizer.items()}
+        else:
+            optimizer_state = self.optimizer.state_dict()
         state = dict(
             model=to_jax_state_dict(self.model),
             iteration=self.iteration,
             epoch=self.epoch,
-            optimizer=self.optimizer.state_dict(),
+            optimizer=optimizer_state,
             hooks=dict(),
         )
         for hook in self.hooks:
@@ -534,21 +658,68 @@ class Trainer(Configurable):
                 state['hooks'][hook.uid] = hook_state
         return state
 
+    def wait_for_checkpoint_writes(self):
+        """Block until an asynchronous checkpoint write has committed (a
+        no-op for synchronous checkpoints); raise, once, the error of a
+        write that failed."""
+        writer = self._ckpt_writer
+        if writer is not None:
+            writer.join()
+            self._ckpt_writer = None
+        error = self._ckpt_writer_error
+        if error is not None:
+            self._ckpt_writer_error = None
+            raise RuntimeError(
+                'Asynchronous checkpoint write failed') from error
+
     def save_checkpoint(self, checkpoint_path=None):
         if checkpoint_path is None:
             checkpoint_path = self.default_checkpoint_path()
         checkpoint_path = Path(checkpoint_path)
-        dump_state(self.state_dict(), checkpoint_path)
+        # at most one write in flight
+        self.wait_for_checkpoint_writes()
+        state = self.state_dict()
+        if not self.async_checkpointing:
+            self._write_checkpoint(state, checkpoint_path, self.iteration)
+            return
+        # the model's and the optimizers' tensors (and, on the CPU, the
+        # model entry's arrays) alias what the next step changes in
+        # place: the thread gets host copies, made before returning
+        state = _host_copy(state)
+        iteration = self.iteration
+
+        def write():
+            try:
+                self._write_checkpoint(state, checkpoint_path, iteration)
+            except BaseException as e:  # raised by the next wait
+                self._ckpt_writer_error = e
+
+        self._ckpt_writer = threading.Thread(
+            target=write, name='ckpt-writer', daemon=True)
+        self._ckpt_writer.start()
+
+    @staticmethod
+    def _write_checkpoint(state, checkpoint_path, iteration):
+        """Dump ``state``, then repoint ``ckpt_latest`` (the file is
+        written to a temporary name and renamed, so the link moves only to
+        a whole checkpoint)."""
+        dump_state(state, checkpoint_path)
         latest = (checkpoint_path.parent / f'ckpt_latest{CKPT_EXT}').absolute()
         if latest.is_symlink():
             latest.unlink()
         latest.symlink_to(checkpoint_path.name)
         print(f'Saved model and optimizer state at iteration '
-              f'{self.iteration} to {checkpoint_path}')
+              f'{iteration} to {checkpoint_path}')
 
     def load_state_dict(self, state_dict):
         from_jax_state_dict(self.model, state_dict['model'])
-        self.optimizer.load_state_dict(state_dict['optimizer'])
+        if isinstance(self.optimizer, dict):
+            assert set(self.optimizer) == set(state_dict['optimizer']), (
+                set(self.optimizer), set(state_dict['optimizer']))
+            for key, opt in self.optimizer.items():
+                opt.load_state_dict(state_dict['optimizer'][key])
+        else:
+            self.optimizer.load_state_dict(state_dict['optimizer'])
         self.iteration = int(state_dict['iteration'])
         self.epoch = int(state_dict['epoch'])
         hook_states = dict(state_dict.get('hooks', {}))
@@ -559,6 +730,7 @@ class Trainer(Configurable):
         assert len(hook_states) == 0, hook_states.keys()
 
     def load_checkpoint(self):
+        self.wait_for_checkpoint_writes()
         checkpoint_path = self._resolve_checkpoint_path()
         self.load_state_dict(load_state(checkpoint_path))
         print(f'Loaded checkpoint {checkpoint_path!r} '
@@ -590,7 +762,8 @@ class Trainer(Configurable):
     # -- device ------------------------------------------------------------
     def to(self, device):
         self.model.to(device)
-        self.optimizer.to(device)
+        for opt in self._optimizers.values():
+            opt.to(device)
         return self
 
     def cpu(self):
@@ -637,8 +810,31 @@ class MultiDeviceTrainer(Trainer):
         _not_ported('MultiDeviceTrainer')
 
 
-class InteractiveTrainer(Trainer):
-    """Named in reference configs (``trainer.py:1048``); not ported."""
+class InteractiveWriter:
+    """Summary writer that prints scalars instead of writing event files.
+
+    Reference parity: ``trainer.py:1083``.
+    """
 
     def __init__(self, *args, **kwargs):
-        _not_ported('InteractiveTrainer')
+        pass
+
+    def add_scalar(self, tag, value, step):
+        print(f'[{step}] {tag}: {value}')
+
+    def __getattr__(self, name):
+        if name.startswith('add_') or name in ('close', 'flush'):
+            return lambda *args, **kwargs: None
+        raise AttributeError(name)
+
+
+class InteractiveTrainer(Trainer):
+    """Trainer for notebook use: prints scalars instead of writing an
+    event file (checkpoints as :class:`Trainer`).
+
+    Reference parity: ``trainer.py:1048``.
+    """
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.writer_cls = InteractiveWriter

@@ -23,6 +23,7 @@ from padertorch_tpu.models.bss import (
     PermutationInvariantTrainingModel as JaxPIT)
 from padertorch_tpu.serialize import load_state as jax_load_state
 from padertorch_tpu.summary import tfevents as jax_tfevents
+from padertorch_tpu.train import hooks as jax_hooks
 from padertorch_tpu.train import trigger as jax_trigger
 from padertorch_tpu.train.optimizer import Adam as JaxAdam
 from padertorch_tpu_torch import Model
@@ -35,7 +36,7 @@ from padertorch_tpu_torch.train import trigger
 from padertorch_tpu_torch.train.hooks import ValidationHook
 from padertorch_tpu_torch.train.optimizer import SGD, Adam
 from padertorch_tpu_torch.train.trainer import (
-    InteractiveTrainer, MultiDeviceTrainer, Trainer)
+    MultiDeviceTrainer, Trainer)
 
 torch.set_num_threads(2)
 
@@ -113,7 +114,11 @@ def test_storage_dir_contract(tmp_path):
     assert (state['iteration'], state['epoch']) == (6, 2)
     assert set(state['model']) == {'linear.weight', 'linear.bias'}
     assert state['model']['linear.weight'].shape == (4, 3)  # (in, out)
-    assert set(state['hooks']) == {'ValidationHook'}
+    # the JAX trainer's validation hook and uid: register_validation_hook
+    # takes the back-off hook, without back-offs here
+    assert set(state['hooks']) == {'BackOffValidationHook'}
+    assert state['hooks']['BackOffValidationHook']['remaining_back_offs'] \
+        == 0
 
 
 def test_validation_ranks_and_keeps_the_best(tmp_path):
@@ -334,21 +339,40 @@ def test_writer_refuses_what_it_does_not_write(tmp_path):
         writer.close()
 
 
+def _lr_schedule(count):
+    return 1e-3 * 0.5 ** count
+
+
 def test_storage_dir_loads_in_the_jax_package(tmp_path):
     """The checkpoint contract: ``model`` is in the JAX layout, so the JAX
     model loads a training of the port; the ``optimizer`` entry is the
-    port's own and shares no key with the JAX optimizer's state."""
+    port's own and shares no key with the JAX optimizer's state.  The run
+    has a learning-rate schedule, a loss-weight annealing and the energy
+    hook: the JAX package's hooks of the same settings take the stored
+    states under their own uids, and their states equal the port's."""
     size = {'units': 8, 'recurrent_layers': 2}
     config = pit_train.get_trainer_config(tmp_path, {
         'model': size, 'stop_trigger': (2, 'iteration')})
     from padertorch_tpu_torch.io import dump_config
+    from padertorch_tpu_torch.train import hooks
     dump_config({'trainer': config}, tmp_path / 'config.json')
     trainer = Trainer.from_config(config)
     batches = data.prepare_dataset(
         data.synthetic_database(num_examples=4, num_samples=3000),
         batch_size=2, shuffle=False, prefetch=False)
     trainer.register_validation_hook(batches)
-    trainer.train(batches)
+    settings = {
+        'LRSchedulerHook': ((_lr_schedule,), {'trigger': (1, 'iteration')}),
+        'LossWeightAnnealingHook(pit_mse_loss)': (
+            ((1, 'iteration'), [(0, 1.0), (2, 0.5)], 'iteration',
+             'pit_mse_loss'), {}),
+    }
+    for uid, (args, kwargs) in settings.items():
+        trainer.register_hook(
+            getattr(hooks, uid.split('(')[0])(*args, **kwargs))
+    trainer.train(batches, track_emissions=True)
+    assert trainer.optimizer.lr == _lr_schedule(2)
+    assert trainer.loss_weights['pit_mse_loss'] == 0.5
 
     stored = json.loads((tmp_path / 'config.json').read_text())
     assert stored['trainer']['model']['factory'] == \
@@ -371,6 +395,19 @@ def test_storage_dir_loads_in_the_jax_package(tmp_path):
     assert torch.equal(got, live)
 
     state = jax_load_state(tmp_path / 'checkpoints' / 'ckpt_latest.ptt')
+    assert set(state['hooks']) == {
+        'BackOffValidationHook', 'EnergyEstimateHook', *settings}
+    for uid, (args, kwargs) in settings.items():
+        theirs = getattr(jax_hooks, uid.split('(')[0])(*args, **kwargs)
+        assert theirs.uid == uid
+        theirs.load_state_dict(state['hooks'][uid])
+        mine, = [h for h in trainer.hooks if h.uid == uid]
+        assert theirs.state_dict() == mine.state_dict() \
+            == state['hooks'][uid], uid
+    assert state['hooks']['LRSchedulerHook'] == {'count': 2}
+    energy = jax_hooks.EnergyEstimateHook(chip_watts=0.0)
+    energy.load_state_dict(state['hooks']['EnergyEstimateHook'])
+    assert 0 < energy.state_dict()['consumed_kwh_before'] < 1e-3
     assert set(state['optimizer']) == {'state', 'hyperparams'}
     names = [n for n, p in port.named_parameters() if p.requires_grad]
     assert list(state['optimizer']['state']) == names
@@ -383,20 +420,12 @@ def test_storage_dir_loads_in_the_jax_package(tmp_path):
 
 
 @pytest.mark.parametrize('kwargs', [
-    {'adversarial': True}, {'sharding': 'data'},
-    {'async_checkpointing': True}, {'checkpoint_format': 'orbax'}])
+    {'sharding': 'data'}, {'checkpoint_format': 'orbax'}])
 def test_options_that_are_not_ported_raise(tmp_path, kwargs):
     with pytest.raises(NotImplementedError, match='not ported'):
         _trainer(tmp_path, **kwargs)
 
 
 def test_trainers_that_are_not_ported_raise(tmp_path):
-    for cls in (MultiDeviceTrainer, InteractiveTrainer):
-        with pytest.raises(NotImplementedError, match='not ported'):
-            cls(Regression(), tmp_path, SGD())
-    trainer = _trainer(tmp_path)
-    with pytest.raises(NotImplementedError, match='BackOff'):
-        trainer.register_validation_hook(_batches(2), n_back_off=1,
-                                         back_off_patience=1)
-    with pytest.raises(NotImplementedError, match='ProgressBar'):
-        trainer.train(_batches(2), progress_bar=True)
+    with pytest.raises(NotImplementedError, match='not ported'):
+        MultiDeviceTrainer(Regression(), tmp_path, SGD())
