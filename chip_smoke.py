@@ -7,8 +7,10 @@ encoder-decoder), each served and trained; the transformer decoder's
 int8 KV-cache decoding and continuous batching, served; and real audio:
 the recipes trained and served from WAV files and JSON databases (uPIT,
 the speaker classifier, the audio tagger, the distance estimator, the
-vocoder); and the rest of the Trainer: its hooks, optimizers, back-off,
-asynchronous checkpoints and adversarial mode, with the GAN vocoder.
+vocoder); the rest of the Trainer: its hooks, optimizers, back-off,
+asynchronous checkpoints and adversarial mode, with the GAN vocoder; and
+serving from exported artifacts, LoRA fine-tuning and online enhancement
+with the streaming STFT.
 
     python3 chip_smoke.py [--profile]
 
@@ -206,7 +208,12 @@ Phases, one line each:
     ``autoregressive_generate`` of 128 greedy tokens at B=1 with the
     kernel's launches counted (12,440: 97 per token and 24 for the cross
     K/V), then us per token for float32, bf16, bf16 int8 composed and
-    bf16 int8 kernel (best of 3 after a warm-up, host clock).
+    bf16 int8 kernel (best of 3 after a warm-up, host clock), and the
+    kernel route again with every kernel call through the ``ptt``
+    operators' dispatcher (``ops/kernels/_ops.py`` ``EAGER_DIRECT``
+    False, as an exported graph calls them) instead of the operators'
+    CUDA implementations called directly: the same logits and tokens bit
+    for bit.
 22. serving: a ``ContinuousBatcher`` of 8 slots on the bf16 int8 kernel
     decoder takes 16 requests (memory of 32 to 128 frames, 16 to 64 new
     tokens); requests per second, tokens per second, us per step, the
@@ -460,6 +467,41 @@ Phases, one line each:
     discriminator loss weight of 0 leaving the generator's update and the
     discriminator as they were; the adversarial step timed.  39d:
     ``InteractiveTrainer`` takes two steps and prints its scalars.
+40. serving from exported artifacts (``serve.py`` over ``torch.export``;
+    the six inference kernels are the ``ptt`` custom operators), LoRA and
+    streaming, each part's kernel launches read around it, every number
+    beside the card's name and power limit.  40a: the uPIT flagship (3 x
+    600 BLSTM, F=257, K=2, float32) through ``dump_exported`` with
+    symbolic batch and frames; ``forward.pt2`` loaded in a fresh process
+    that imports torch and the operator registrations only, one request
+    against the eager model; ``load_exported`` here and three requests of
+    other batch sizes and lengths against the eager model on the card
+    (3 lean LSTM launches each), a request's latency from the artifact
+    beside eager; the same under the bf16 policy (the bf16 lean kernel);
+    ``export_fn`` of a request's tensor part (the masks, then
+    ``STFT.masked_inverse``: ``masked_istft`` from the artifact).  40b:
+    bench.py's int8 decoder (d_model 1024, 12 layers, 16 heads, vocabulary
+    1024, 128 frames of memory) with ``apply_lora`` on ``q_proj`` and
+    ``v_proj``, ``mark_only_lora_trainable``, three float32 Adam steps on
+    the card (only the factors move; the attention kernels' training
+    pair), ``merge_lora`` against the adapted logits, bf16,
+    ``quantize_module``, ``export_generate`` of 16 greedy steps through
+    the first 2 of its layers (a depth cut: the unrolled trace grows with
+    steps times layers; its seconds, nodes and size printed), served at
+    B=1 and B=4 against eager ``autoregressive_generate`` of the same cut
+    (equal tokens but at near ties; 8 ``int8_matmul`` launches a layer
+    and one for the head a token, the cross K/V's 128 rows a request
+    composed inside the operator), and a teacher-forced scoring forward
+    of all 12 layers exported (the bf16 attention forward and
+    ``int8_matmul`` from one artifact).  40c: the speaker classifier at
+    the recipe's defaults with ``--on_device_features``, exported with
+    symbolic batch and samples,
+    three requests (``fused_logmel`` and the lean GRU forward).  40d: the
+    online enhancer at the flagship's widths with one direction:
+    ``StreamingSTFT`` (512/128), a 3 x 600 ``StatefulLSTM`` mask and
+    ``StreamingISTFT`` on 4 s of 16 kHz audio in chunks of 4 frames,
+    against the offline pipeline; ms a chunk, the real-time factor, and
+    chunks x 3 lean LSTM launches.
 
 The line before the last is a JSON object with each kernel's launches on
 the main paths, the shape its numbers were taken at (``shape``; the other
@@ -593,7 +635,14 @@ from padertorch_tpu_torch.ops.kernels import int8_matmul as int8_kernels
 from padertorch_tpu_torch.ops.kernels.int8_matmul import (
     int8_matmul, int8_matmul_plain)
 from padertorch_tpu_torch.quantize import QuantizedLinear, quantize_module
-from padertorch_tpu_torch.serve import ContinuousBatcher
+from padertorch_tpu_torch.serve import (
+    ContinuousBatcher, dump_exported, export_fn, export_generate,
+    export_model, load_exported)
+from padertorch_tpu_torch.lora import (
+    apply_lora, mark_only_lora_trainable, merge_lora)
+from padertorch_tpu_torch.modules.recurrent import StatefulLSTM
+from padertorch_tpu_torch.ops.kernels import _ops
+from padertorch_tpu_torch.ops.streaming import StreamingISTFT, StreamingSTFT
 
 # f32 sums in another order over 500 recurrent steps; about 20x the
 # difference the card shows, and far below what a TF32 recurrent product
@@ -3809,6 +3858,26 @@ def phase_decode(profile=False):
         torch.cuda.empty_cache()
     if not torch.equal(tokens['bf16 int8 kernel'], kernel_tokens):
         fail('two kernel generations of the same request differ')
+    # the same generation with every kernel call through the ptt
+    # operators' dispatcher, as a traced graph makes it, instead of the
+    # operators' CUDA implementations called directly (the eager route):
+    # the same function, so the same bits
+    set_int8_route((q_dec, q_head), True)
+    with torch.no_grad():
+        direct = q_head(q_dec(xs, memory16))
+    _ops.EAGER_DIRECT = False
+    try:
+        with torch.no_grad():
+            dispatched = q_head(q_dec(xs, memory16))
+        name = 'bf16 int8 kernel, operator dispatch'
+        results[name], tokens[name] = us_per_token(q_dec, q_head, emb16,
+                                                   memory16)
+    finally:
+        _ops.EAGER_DIRECT = True
+    if not (torch.equal(direct, dispatched)
+            and torch.equal(tokens[name], kernel_tokens)):
+        fail('the kernels through the operators\' dispatcher give other '
+             'bits than their CUDA implementations called directly')
     same = float((tokens['bf16 int8 kernel']
                   == tokens['bf16 int8 composed']).float().mean())
     print('phase 21 B=1 greedy decode of 128 tokens, us per token (best of '
@@ -7762,6 +7831,491 @@ def phase_trainer():
     return total, rows, gan_ms
 
 
+# phase 40: serving from exported artifacts (``serve.py`` over
+# ``torch.export``, the kernels as ``ptt`` custom operators), LoRA and the
+# online enhancer.  An artifact runs the eager model's kernels, in the
+# same order on the same shapes: its outputs equal the eager model's on
+# the card, within EXPORT_TOL of the largest output.
+EXPORT_TOL = 1e-6
+# the generation loop an artifact unrolls: its trace grows with the steps
+# times the layers (about 200 graph nodes a layer a step), so 16 steps of
+# the first GENERATE_LAYERS layers of the full-width decoder are exported
+# (all 12 layers took 800.6 s to export and 106.4 s to load on an H100's
+# host, PERF.md); the scoring artifact keeps all 12
+EXPORT_NEW_TOKENS = 16
+GENERATE_LAYERS = 2
+# the merged LoRA model against the adapted one, float32 forward logits,
+# relative to the largest
+LORA_MERGE_RTOL = 1e-4
+# the online enhancer (streaming STFT, StatefulLSTM mask, streaming iSTFT,
+# 4 frames a chunk) against the offline pipeline on the card: the streamed
+# STFT sums its frames in another order (the CPU tests see 2e-5 of frames
+# up to about 30), the mask and the synthesis carry that on
+ONLINE_TOL = 1e-4
+
+FRESH_PROCESS = r'''
+import json, sys
+import numpy as np
+import torch
+import padertorch_tpu_torch.ops.kernels
+from padertorch_tpu_torch.ops.kernels.lstm import lstm_cell_scan
+artifact, tmp = sys.argv[1:]
+program = torch.export.load(artifact)
+batch = {'Y_abs': torch.from_numpy(np.load(tmp + '/y.npy')).cuda(),
+         'num_frames': torch.from_numpy(np.load(tmp + '/n.npy')).cuda()}
+with torch.no_grad():
+    out = program.module()(batch)
+np.save(tmp + '/out.npy', out.cpu().numpy())
+print(json.dumps({'launches': lstm_cell_scan.launches['fwd']}))
+'''
+
+
+def served_requests(label, fn, eager, requests, counts, want_per_request):
+    """Each request through the artifact ``fn`` and the eager ``eager``;
+    the launches ``counts()`` reads must grow by ``want_per_request`` a
+    request.  Returns the largest difference relative to each request's
+    largest output."""
+    worst = 0.0
+    for batch in requests:
+        before = counts()
+        got = fn(batch)
+        torch.cuda.synchronize()
+        launched = {k: v - before[k] for k, v in counts().items()}
+        with torch.no_grad():
+            want = eager(batch)
+        if tuple(got.shape) != tuple(want.shape):
+            fail(f'{label}: artifact shape {tuple(got.shape)}, eager '
+                 f'{tuple(want.shape)}')
+        worst = max(worst, max_rel_err([got.float()], [want.float()]))
+        if launched != want_per_request:
+            fail(f'{label}: a request launched {launched}, expected '
+                 f'{want_per_request}')
+    return worst
+
+
+def phase_export_separator(tmp):
+    """40a: the uPIT flagship exported with symbolic batch and frames,
+    dumped, loaded in a fresh process and here, and served; the bf16
+    policy's artifact; one request's tensor part (model, masks, fused
+    iSTFT) as ``export_fn``.  Returns the launches of the served
+    requests."""
+    torch.manual_seed(0)
+    model = PermutationInvariantTrainingModel(
+        F=257, recurrent_layers=3, units=600, K=2).eval().cuda()
+    axes = {'Y_abs': {0: 'b', 1: 't'}, 'num_frames': {0: 'b'}}
+
+    def on_card(batch):
+        return {k: v.cuda() for k, v in batch.items()}
+
+    start = time.perf_counter()
+    path = dump_exported(model, on_card(ragged_batch(2, 200)),
+                         Path(tmp) / 'upit', dynamic_axes=axes)
+    export_s = time.perf_counter() - start
+    size = (path / 'forward.pt2').stat().st_size
+    # a fresh process with torch and the operator registrations only
+    request = ragged_batch(3, 317, seed=5)
+    np.save(Path(tmp) / 'y.npy', request['Y_abs'].numpy())
+    np.save(Path(tmp) / 'n.npy', request['num_frames'].numpy())
+    start = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, '-c', FRESH_PROCESS, str(path / 'forward.pt2'),
+         tmp], capture_output=True, text=True, timeout=300,
+        cwd=Path(__file__).resolve().parent)
+    fresh_s = time.perf_counter() - start
+    if proc.returncode != 0:
+        fail(f'the artifact did not load in a fresh process:\n'
+             f'{proc.stderr[-3000:]}')
+    fresh = json.loads(proc.stdout.strip().splitlines()[-1])
+    with torch.no_grad():
+        want = model(on_card(request)).cpu()
+    fresh_err = max_rel_err([torch.from_numpy(np.load(
+        Path(tmp) / 'out.npy'))], [want])
+    print(f'phase 40a uPIT flagship (3 x 600 BLSTM, F=257, K=2) exported '
+          f'with symbolic batch and frames in {export_s:.2f} s, '
+          f'forward.pt2 {size / 2**20:.1f} MiB; loaded and served in a '
+          f'fresh process (torch and the ptt operators only) in '
+          f'{fresh_s:.2f} s: lstm_cell_scan launches {fresh["launches"]}, '
+          f'against the eager model {fresh_err:.3e} (tol {EXPORT_TOL}) on '
+          f'{CARD}')
+    if fresh['launches'] != 3 or not fresh_err <= EXPORT_TOL:
+        fail(f'the fresh process served with {fresh["launches"]} launches, '
+             f'{fresh_err} from the eager model')
+    served = load_exported(path)
+    requests = [on_card(ragged_batch(b, t, seed=b))
+                for b, t in ((1, 500), (3, 317), (5, 240))]
+
+    def lstm_counts():
+        return dict(lstm_cell_scan.launches)
+
+    f32_err = served_requests(
+        '40a', served, model, requests, lstm_counts,
+        with_zeros(lstm_cell_scan.launches, {'fwd': 3}))
+    one = requests[0]
+    with torch.no_grad():
+        artifact_ms = cuda_ms(lambda: served(one), iters=10, warmup=2)
+        eager_ms = cuda_ms(lambda: model(one), iters=10, warmup=2)
+    model16 = set_rnn_backend(copy.deepcopy(model), 'pallas',
+                              compute_dtype='bfloat16')
+    start = time.perf_counter()
+    served16 = load_exported(export_model(
+        model16, on_card(ragged_batch(2, 200)), dynamic_axes=axes))
+    export16_s = time.perf_counter() - start
+    bf16_err = served_requests(
+        '40a bf16', served16, model16, requests, lstm_counts,
+        with_zeros(lstm_cell_scan.launches, {'fwd_bf16': 3}))
+    print(f'phase 40a artifact vs eager on 3 requests (B, T) = (1, 500), '
+          f'(3, 317), (5, 240): float32 {f32_err:.3e}, bf16 policy '
+          f'{bf16_err:.3e} (exported and loaded in {export16_s:.2f} s; tol '
+          f'{EXPORT_TOL}); 3 lean LSTM launches a request each; B=1 T=500 '
+          f'request {artifact_ms:.3f} ms from the artifact, {eager_ms:.3f} '
+          f'ms eager (CUDA events) on {CARD}')
+    if not max(f32_err, bf16_err) <= EXPORT_TOL:
+        fail(f'the artifacts disagree with the eager model: {f32_err}, '
+             f'{bf16_err}')
+    # one request's tensor part: masks, then the fused mask and iSTFT
+    stft = STFT(pit_data.STFT_SIZE, pit_data.STFT_SHIFT, fading='full',
+                complex_representation='stacked')
+
+    def separate(batch):
+        spec = batch['spec']
+        y_abs = torch.sqrt(spec[..., 0] ** 2 + spec[..., 1] ** 2)
+        masks = model({'Y_abs': y_abs, 'num_frames': batch['num_frames']})
+        return stft.masked_inverse(spec, masks.permute(2, 0, 1, 3))
+
+    def mixture(b, samples, seed):
+        audio = torch.from_numpy(np.random.RandomState(seed).randn(
+            b, samples).astype('float32') * 0.1).cuda()
+        spec = stft(audio)
+        return {'spec': spec,
+                'num_frames': torch.full((b,), spec.shape[1],
+                                         device='cuda')}
+
+    start = time.perf_counter()
+    separator = load_exported(export_fn(
+        separate, mixture(2, 16000, 0),
+        dynamic_axes={'spec': {0: 'b', 1: 't'}, 'num_frames': {0: 'b'}}))
+    request_s = time.perf_counter() - start
+
+    def request_counts():
+        return {'lstm': lstm_cell_scan.launches['fwd'],
+                'masked_istft': masked_istft.launches}
+
+    request_err = served_requests(
+        '40a request', separator, separate,
+        [mixture(1, 24000, 1), mixture(3, 12345, 2)], request_counts,
+        {'lstm': 3, 'masked_istft': 1})
+    print(f'phase 40a export_fn of a request (model, masks, fused mask and '
+          f'iSTFT) exported and loaded in {request_s:.2f} s, served 2 '
+          f'requests: against eager {request_err:.3e} (tol {EXPORT_TOL}), '
+          f'3 lean LSTM and 1 masked_istft launches a request')
+    if not request_err <= EXPORT_TOL:
+        fail(f'the request artifact disagrees with eager: {request_err}')
+    return {'fwd': 9 + 2 * 3, 'fwd_bf16': 9, 'masked_istft': 2}
+
+
+def phase_export_decoder():
+    """40b: LoRA on bench.py's int8 decoder at full width: three float32
+    Adam steps of the adapters, the merge, bf16, int8, the whole greedy
+    loop exported and served at B=1 and B=4 against eager generation; a
+    teacher-forced scoring forward exported (the bf16 attention forward
+    and the int8 products in one artifact).  Returns the launches."""
+    dec, head, emb, _, _ = full_width_decoder()
+    d_model = DECODER['d_model']
+    adapted = apply_lora(dec, rank=8, targets=('q_proj', 'v_proj'))
+    frozen = mark_only_lora_trainable(dec)
+    head.requires_grad_(False)
+    factors = [p for p in dec.parameters() if p.requires_grad]
+    base = [p.detach().clone() for p in dec.parameters()
+            if not p.requires_grad]
+    rng = np.random.RandomState(1)
+    tokens = torch.from_numpy(rng.randint(0, VOCAB, (2, 17))).cuda()
+    memory = torch.tensor(rng.randn(2, MEMORY_FRAMES, d_model),
+                          dtype=torch.float32, device='cuda')
+    x = emb[tokens[:, :-1]]
+    optimizer = torch.optim.Adam(factors, lr=1e-3)
+    reset_launches()
+    losses = []
+    dec.train()
+    for _ in range(3):
+        optimizer.zero_grad()
+        logits = head(dec(x, memory))
+        loss = torch.nn.functional.cross_entropy(
+            logits.reshape(-1, VOCAB), tokens[:, 1:].reshape(-1))
+        loss.backward()
+        optimizer.step()
+        losses.append(float(loss))
+    torch.cuda.synchronize()
+    train_launches = {k: flash_attention.launches[k]
+                      for k in ('fwd_train', 'bwd')}
+    dec.eval()
+    moved = sum(int((p.grad is not None) and bool(p.detach().abs().sum()))
+                for p in factors)
+    kept = all(torch.equal(a, b) for a, b in zip(
+        base, [p for p in dec.parameters() if not p.requires_grad]))
+    print(f'phase 40b LoRA (rank 8 on q_proj and v_proj: {adapted} '
+          f'adapters, {frozen} parameters frozen, '
+          f'{sum(p.numel() for p in factors)} trainable) on the full-width '
+          f'int8 decoder: 3 float32 Adam steps on the card, losses '
+          f'{[round(v, 4) for v in losses]}, factors with a gradient and '
+          f'a value {moved} of {len(factors)}, the frozen base unchanged '
+          f'{kept}; attention kernel launches {train_launches}')
+    if not (kept and np.isfinite(losses).all() and moved == len(factors)):
+        fail('the LoRA steps moved the base, left a factor, or diverged')
+    if min(train_launches.values()) < DECODER['num_layers']:
+        fail(f'the LoRA steps launched the attention kernels '
+             f'{train_launches} times')
+    del base, optimizer
+    with torch.no_grad():
+        want = head(dec(x, memory))
+        merged = merge_lora(dec)
+        got = head(dec(x, memory))
+    merge_err = max_rel_err([got], [want])
+    print(f'phase 40b merge_lora folded {merged} adapters: merged vs '
+          f'adapted logits {merge_err:.3e} relative (tol {LORA_MERGE_RTOL})')
+    if merged != adapted or not merge_err <= LORA_MERGE_RTOL:
+        fail(f'merge_lora: {merged} merged, {merge_err} from the adapted')
+    dec16 = dec.to(torch.bfloat16)
+    quantize_module(dec16)
+    q_head = QuantizedLinear.from_linear(head.to(torch.bfloat16))
+    emb16 = emb.to(torch.bfloat16)
+
+    def embed(t):
+        return emb16[t]
+
+    def memory16(b, seed):
+        return torch.tensor(np.random.RandomState(seed).randn(
+            b, MEMORY_FRAMES, d_model), dtype=torch.bfloat16, device='cuda')
+
+    # the depth cut: the merged, quantized decoder's first layers and its
+    # final norm (shared, not copied)
+    cut = TransformerDecoder(d_model, 0, DECODER['num_heads'])
+    cut.layers = torch.nn.ModuleList(list(dec16.layers)[:GENERATE_LAYERS])
+    cut.final_norm = dec16.final_norm
+    start = time.perf_counter()
+    blob = export_generate(cut, memory16(2, 2), embed=embed,
+                           logits_head=q_head, bos_id=0,
+                           max_len=EXPORT_NEW_TOKENS)
+    export_s = time.perf_counter() - start
+    start = time.perf_counter()
+    generate_fn = load_exported(blob)
+    load_s = time.perf_counter() - start
+    nodes = len(generate_fn.program.graph.nodes)
+    per_request = EXPORT_NEW_TOKENS * (8 * GENERATE_LAYERS + 1)
+    ties, int8_total = 0, 0
+    for b in (1, 4):
+        mem = memory16(b, 10 + b)
+        before = int8_matmul.launches
+        got_tokens, _ = generate_fn(mem)
+        torch.cuda.synchronize()
+        launched = int8_matmul.launches - before
+        int8_total += launched
+        seen = []
+
+        def recording_head(h, seen=seen):
+            out = q_head(h)
+            seen.append(out.float())
+            return out
+
+        want_tokens, _ = generate(
+            cut, recording_head, emb16, mem, max_len=EXPORT_NEW_TOKENS)
+        if launched != per_request:
+            fail(f'40b: the artifact launched int8_matmul {launched} times '
+                 f'at B={b}, expected {per_request} '
+                 f'({8 * GENERATE_LAYERS + 1} a token; the cross K/V '
+                 f'projections of {MEMORY_FRAMES * b} rows take the '
+                 f'composed route inside the operator)')
+        scale = max(float(s.abs().max()) for s in seen)
+        for row in range(b):
+            got_row = got_tokens[row].tolist()
+            want_row = want_tokens[row].tolist()
+            if got_row == want_row:
+                continue
+            n = next(i for i, (p, q) in enumerate(zip(got_row, want_row))
+                     if p != q)
+            if not bool(near_ties(seen[n][row], 2 * SERVE_LOGIT_RTOL
+                                  * scale)):
+                fail(f'40b B={b} row {row}: the artifact gives {got_row}, '
+                     f'eager {want_row}, not at a near tie')
+            ties += 1
+    print(f'phase 40b bf16 int8 decoder: export_generate of '
+          f'{EXPORT_NEW_TOKENS} greedy steps (unrolled, the first '
+          f'{GENERATE_LAYERS} of the {DECODER["num_layers"]} layers a '
+          f'step; {nodes} graph nodes) in {export_s:.1f} s, '
+          f'{len(blob) / 2**20:.1f} MiB, loaded in {load_s:.1f} s; served '
+          f'B=1 and B=4: tokens equal to eager autoregressive_generate but '
+          f'at {ties} near ties, int8_matmul {per_request} launches a '
+          f'request on {CARD}')
+    del blob, generate_fn
+    # teacher-forced scoring: the bf16 attention forward and the int8
+    # products in one artifact
+    def score(batch):
+        return q_head(dec16(batch['x'], batch['memory']))
+
+    def scoring_batch(b, seed):
+        ids = torch.from_numpy(np.random.RandomState(seed).randint(
+            0, VOCAB, (b, EXPORT_NEW_TOKENS))).cuda()
+        return {'x': emb16[ids], 'memory': memory16(b, seed)}
+
+    start = time.perf_counter()
+    scorer = load_exported(export_fn(
+        score, scoring_batch(2, 3),
+        dynamic_axes={'x': {0: 'b'}, 'memory': {0: 'b'}}))
+    score_s = time.perf_counter() - start
+
+    def score_counts():
+        return {'int8_matmul': int8_matmul.launches,
+                'fwd_bf16': flash_attention.launches['fwd_bf16']}
+
+    # per forward of 2 x 16 tokens: the self-attention's four products,
+    # the cross-attention's query and output, the FFN's two and the head
+    # on the kernel (97, as a decode step), the cross K/V projections of
+    # 2 x 128 rows composed inside the operator; two attention calls a
+    # layer
+    score_err = served_requests(
+        '40b scoring', scorer, score, [scoring_batch(2, 4)], score_counts,
+        {'int8_matmul': 8 * DECODER['num_layers'] + 1,
+         'fwd_bf16': 2 * DECODER['num_layers']})
+    print(f'phase 40b teacher-forced scoring exported and loaded in '
+          f'{score_s:.1f} s: logits against eager {score_err:.3e} (tol '
+          f'{EXPORT_TOL}); the bf16 attention forward and int8_matmul '
+          f'launched from the artifact')
+    if not score_err <= EXPORT_TOL:
+        fail(f'the scoring artifact disagrees with eager: {score_err}')
+    return {'int8_matmul': int8_total + 8 * DECODER['num_layers'] + 1,
+            'fwd_bf16': 2 * DECODER['num_layers'], **train_launches}
+
+
+def phase_export_classifier(tmp):
+    """40c: the speaker classifier at the recipe's defaults with the
+    on-device front end, exported with symbolic batch and samples and
+    served: ``fused_logmel`` and the lean GRU forward from the artifact.
+    Returns the launches."""
+    torch.manual_seed(0)
+    config = spk_train.get_trainer_config(Path(tmp) / 'clf', 8,
+                                          on_device_features=True)
+    model = Trainer.from_config(config).model.eval().cuda()
+
+    def batch(b, samples, seed):
+        return {k: torch.from_numpy(v).cuda() for k, v in speaker_batch(
+            b, samples, 8, seed).items() if k != 'speaker_id'}
+
+    start = time.perf_counter()
+    served = load_exported(export_model(
+        model, batch(2, 8000, 0),
+        dynamic_axes={'audio_data': {0: 'b', 1: 't'}, 'seq_len': {0: 'b'}}))
+    export_s = time.perf_counter() - start
+
+    def counts():
+        return {'fused_logmel': fused_logmel.launches,
+                'gru': gru_cell_scan.launches['fwd']}
+
+    requests = [batch(1, 16000, 1), batch(4, 12000, 2), batch(8, 8000, 3)]
+    err = served_requests('40c', served, model, requests, counts,
+                          {'fused_logmel': 1, 'gru': 1})
+    print(f'phase 40c speaker classifier (the recipe\'s (16, 32) channels, '
+          f'64 GRU units, --on_device_features) exported and loaded in '
+          f'{export_s:.2f} s; 3 requests (1 x 16000, 4 x 12000, 8 x 8000 '
+          f'samples) against eager {err:.3e} (tol {EXPORT_TOL}), one '
+          f'fused_logmel and one lean GRU launch a request')
+    if not err <= EXPORT_TOL:
+        fail(f'the classifier artifact disagrees with eager: {err}')
+    return {'fused_logmel': 3, 'fwd': 3}
+
+
+def phase_online_enhancer():
+    """40d: the online enhancer at the flagship's widths with one
+    direction: streaming STFT (512/128), a 3 x 600 ``StatefulLSTM`` mask,
+    streaming iSTFT, 4 s of 16 kHz audio in chunks of 4 frames, against
+    the offline pipeline on the card.  Returns the LSTM launches."""
+    stft = STFT(512, 128, complex_representation='stacked')
+    bins = 257
+    torch.manual_seed(0)
+    lstm = StatefulLSTM(bins, 600, num_layers=3).eval().cuda()
+    head = torch.nn.Linear(600, bins).cuda()
+    x = torch.from_numpy(np.random.RandomState(0).randn(
+        1, 4 * 16000).astype('float32') * 0.1).cuda()
+
+    def magnitude(frames):
+        return torch.sqrt(frames[..., 0] ** 2 + frames[..., 1] ** 2 + 1e-8)
+
+    def mask_net(frames):
+        return torch.sigmoid(head(lstm(magnitude(frames))))[..., None]
+
+    with torch.no_grad():
+        spec = stft(x)
+        want = stft.inverse(spec * mask_net(spec))
+        chunk = 4 * stft.shift
+
+        def stream():
+            del lstm.states
+            analysis, synthesis = StreamingSTFT(stft), StreamingISTFT(stft)
+            a_state = analysis.init_state((1,), device='cuda')
+            s_state = synthesis.init_state((1,), device='cuda')
+            outs = []
+            for start in range(0, x.shape[-1], chunk):
+                a_state, frames = analysis.step(
+                    a_state, x[..., start:start + chunk])
+                s_state, samples = synthesis.step(
+                    s_state, frames * mask_net(frames))
+                outs.append(samples)
+            tail = analysis.finalize(a_state)
+            s_state, samples = synthesis.step(s_state,
+                                              tail * mask_net(tail))
+            outs += [samples, synthesis.finalize(s_state)]
+            return torch.cat(outs, dim=-1)[..., synthesis.warmup_samples:]
+
+        chunks = x.shape[-1] // chunk + 1
+        before = lstm_cell_scan.launches['fwd']
+        got = stream()
+        torch.cuda.synchronize()
+        launches = lstm_cell_scan.launches['fwd'] - before
+        stream()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        stream()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+    err = max_err([got], [want])
+    print(f'phase 40d online enhancer (streaming STFT 512/128, 3 x 600 '
+          f'StatefulLSTM mask, streaming iSTFT): 4 s of 16 kHz audio in '
+          f'{chunks} chunks of 4 frames, {seconds / chunks * 1e3:.3f} ms a '
+          f'chunk (host clock), real-time factor {seconds / 4:.4f}; against '
+          f'the offline pipeline {err:.3e} (tol {ONLINE_TOL}); lean LSTM '
+          f'launches {launches} ({chunks} chunks x 3 layers) on {CARD}')
+    if got.shape != want.shape or not err <= ONLINE_TOL:
+        fail(f'the online enhancer disagrees with offline: {err}')
+    if launches != 3 * chunks:
+        fail(f'the online enhancer launched the lean LSTM {launches} times')
+    return launches
+
+
+def phase_export():
+    """Phase 40: serving from exported artifacts, LoRA, the online
+    enhancer; returns the launches by kernel."""
+    start = time.perf_counter()
+    reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        separator = phase_export_separator(tmp)
+        torch.cuda.empty_cache()
+        decoder = phase_export_decoder()
+        torch.cuda.empty_cache()
+        classifier = phase_export_classifier(tmp)
+    online = phase_online_enhancer()
+    launches = {
+        'lstm fwd': separator['fwd'] + online,
+        'lstm fwd_bf16': separator['fwd_bf16'],
+        'masked_istft': separator['masked_istft'],
+        'int8_matmul': decoder['int8_matmul'],
+        'attention fwd_bf16': decoder['fwd_bf16'],
+        'attention fwd_train': decoder['fwd_train'],
+        'attention bwd': decoder['bwd'],
+        'fused_logmel': classifier['fused_logmel'],
+        'gru fwd': classifier['fwd']}
+    print(f'phase 40 in {time.perf_counter() - start:.1f} s, launches '
+          f'{launches}')
+    return launches
+
+
 def main():
     profile = '--profile' in sys.argv[1:]
     phase_device()
@@ -7821,6 +8375,8 @@ def main():
     distance_gru_rows, real_audio, real_wavenet_routes = phase_real_audio()
     torch.cuda.empty_cache()
     trainer_launches, optimizer_rows, gan_step_ms = phase_trainer()
+    torch.cuda.empty_cache()
+    exported = phase_export()
     real_lstm = real_audio.get('lstm', {})
     real_gru = real_audio.get('gru', {})
     # the bf16 GRU kernels' launches on the main paths: the bgru DPRNN
@@ -7880,6 +8436,8 @@ def main():
     # the real-audio path
     for name in gru_launches:
         gru_launches[name] += real_gru.get(name, 0)
+    # and phase 40's: the classifier served from its artifact
+    gru_launches['fwd'] += exported['gru fwd']
     for name, n in gru_launches.items():
         if n == 0:
             fail(f'the TasNet paths never launched the gru {name} kernel')
@@ -7913,6 +8471,9 @@ def main():
     # and the flagship under the hooks and optimizers of phase 39
     for name in lstm_launches:
         lstm_launches[name] += trainer_launches[name]
+    # and phase 40's: the flagship served from its artifacts, the online
+    # enhancer's StatefulLSTM
+    lstm_launches['fwd'] += exported['lstm fwd']
     for name, n in new_paths.items():
         if n == 0:
             fail(f'phases 34 to 36 never launched the lstm {name} kernel')
@@ -7938,7 +8499,8 @@ def main():
           f'clustering served {dc_served}, a step {dc_trained}); the '
           f'speech-recognition paths (phase 37) {asr_launches_}; the '
           f'real-audio runs (phase 38) {real_audio}; the Trainer\'s hooks '
-          f'and optimizers (phase 39) {trainer_launches}')
+          f'and optimizers (phase 39) {trainer_launches}; the exported '
+          f'artifacts, LoRA and the online enhancer (phase 40) {exported}')
     print('phase 39 flagship step ms by optimizer (host clock, B=4) and the '
           f'adversarial step on {CARD}: ' + json.dumps(
               {name: round(row['step_ms'], 3)
@@ -7962,7 +8524,8 @@ def main():
         {'name': 'lstm_cell_scan', 'route': 'cuda',
          'source': 'padertorch_tpu_torch/csrc/lstm_cell_scan.cu',
          'replaces': 'padertorch_tpu/ops/pallas/lstm.py:275',
-         'launches': lstm_launches['fwd'], 'shape': flagship, **lstm,
+         'launches': lstm_launches['fwd'], 'op': 'ptt::lstm_cell_scan',
+         'shape': flagship, **lstm,
          'other_shapes': [rows['fwd'] for rows in me_rows.values()],
          'asr_shapes': [rows['fwd'] for rows in asr_lstm_rows.values()]},
         {'name': 'lstm_cell_scan_train', 'route': 'cuda',
@@ -7983,7 +8546,8 @@ def main():
         {'name': 'lstm_cell_scan_bf16', 'route': 'cuda',
          'source': 'padertorch_tpu_torch/csrc/lstm_cell_scan.cu',
          'replaces': 'padertorch_tpu/ops/pallas/lstm.py:275',
-         'launches': lstm_bf16_launches['fwd_bf16'],
+         'launches': lstm_bf16_launches['fwd_bf16']
+         + exported['lstm fwd_bf16'], 'op': 'ptt::lstm_cell_scan',
          'lstm_route': 'mma: bf16 mma.sync, W_hh in registers, h exchanged '
                        'as bf16',
          'shape': flagship + ' bf16', **bf16_rows['fwd']},
@@ -8004,7 +8568,8 @@ def main():
          'source': 'padertorch_tpu_torch/csrc/masked_istft.cu',
          'replaces': 'padertorch_tpu/ops/pallas/masked_istft.py:135',
          'launches': launches['masked_istft'] + me_served['masked_istft']
-         + real_audio['masked_istft'],
+         + real_audio['masked_istft'] + exported['masked_istft'],
+         'op': 'ptt::masked_istft',
          'launches_by_route': {
              **launches['masked_istft_routes'],
              # phases 35 and 38 check their route
@@ -8017,7 +8582,8 @@ def main():
         {'name': 'gru_cell_scan', 'route': 'cuda',
          'source': 'padertorch_tpu_torch/csrc/gru_cell_scan.cu',
          'replaces': 'padertorch_tpu/ops/pallas/gru.py:182',
-         'launches': gru_launches['fwd'], **gru_rows['fwd'],
+         'launches': gru_launches['fwd'], 'op': 'ptt::gru_cell_scan',
+         **gru_rows['fwd'],
          'distance_shapes': [rows['fwd']
                              for rows in distance_gru_rows.values()]},
         {'name': 'gru_cell_scan_train', 'route': 'cuda',
@@ -8059,7 +8625,8 @@ def main():
         {'name': 'flash_attention', 'route': 'cuda',
          'source': 'padertorch_tpu_torch/csrc/flash_attention.cu',
          'replaces': 'padertorch_tpu/ops/pallas/attention.py:328',
-         'launches': attention_launches['fwd'],
+         'launches': attention_launches['fwd']
+         + exported['attention fwd_train'], 'op': 'ptt::flash_attention',
          'attention_route': 'tensor cores, 3xTF32 mma.sync',
          'shape': ATTENTION_CASES[0][0], **attention_rows['fwd'],
          'asr_shapes': [{'shape': label, **rows['fwd']}
@@ -8067,7 +8634,8 @@ def main():
         {'name': 'flash_attention_bwd', 'route': 'cuda',
          'source': 'padertorch_tpu_torch/csrc/flash_attention_bwd.cu',
          'replaces': 'padertorch_tpu/ops/pallas/attention.py:351',
-         'launches': attention_launches['bwd'],
+         'launches': attention_launches['bwd']
+         + exported['attention bwd'],
          'shape': ATTENTION_CASES[0][0], **attention_rows['bwd'],
          'asr_shapes': [{'shape': label, **rows['bwd']}
                         for label, rows in asr_attention_rows.items()]},
@@ -8075,7 +8643,8 @@ def main():
          'source': 'padertorch_tpu_torch/csrc/flash_attention_fwd_bf16.cu',
          'replaces': 'padertorch_tpu/ops/pallas/attention.py:328',
          'launches': attention_bf16_launches['fwd_bf16']
-         + attention_bf16_launches['fwd_train_bf16'],
+         + attention_bf16_launches['fwd_train_bf16']
+         + exported['attention fwd_bf16'], 'op': 'ptt::flash_attention',
          'attention_route': 'tensor cores, bf16 wgmma from TMA tiles',
          'shape': ATTENTION_BF16_CASES[0][0] + ' bf16',
          **attention_bf16_rows['fwd']},
@@ -8095,12 +8664,14 @@ def main():
         {'name': 'fused_logmel', 'route': 'cuda',
          'source': 'padertorch_tpu_torch/csrc/fused_logmel.cu',
          'replaces': 'padertorch_tpu/ops/pallas/logmel.py:78',
-         'launches': speaker['fused_logmel'] + real_audio['fused_logmel'],
+         'launches': speaker['fused_logmel'] + real_audio['fused_logmel']
+         + exported['fused_logmel'], 'op': 'ptt::fused_logmel',
          **logmel},
         {'name': 'int8_matmul', 'route': 'cuda',
          'source': 'padertorch_tpu_torch/csrc/int8_matmul.cu',
          'replaces': 'padertorch_tpu/ops/pallas/int8_matmul.py:85',
-         'launches': int8_launches, 'shape': 'M=1 K=1024 N=4096 bf16',
+         'launches': int8_launches + exported['int8_matmul'],
+         'op': 'ptt::int8_matmul', 'shape': 'M=1 K=1024 N=4096 bf16',
          **int8_row},
     ]
     print('bench.py flash_attention_causal_train_ms counterpart (ms): '

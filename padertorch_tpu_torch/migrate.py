@@ -14,6 +14,13 @@ port):
   (a loaded ``torch.nn.GRU`` state) has no JAX counterpart and is refused;
 - ``Linear``: ``weight`` (in, out) -> (out, in), transposed; ``bias``
   copied;
+- ``LoRALinear``: the frozen ``weight`` (in, out) -> (out, in),
+  transposed, ``bias`` copied, and the factors ``lora_a`` (in, r) and
+  ``lora_b`` (r, out) copied (both packages keep that layout);
+- ``StatefulLSTM``: its ``lstm`` moves as an ``LSTM``, and the carried
+  state of a stream, the JAX ``_states.0`` and ``_states.1`` (h and c,
+  (num_layers * D, B, H) in both), moves to and from ``states`` (a JAX
+  state dict without them starts a new stream);
 - ``QuantizedLinear``: ``weight_q`` (in, out) int8, ``scale`` and ``bias``
   copied; a ``weight_q``/``scale`` that the JAX ``from_linear`` padded to
   128-lane tiles is cut to ``in_features`` x ``out_features`` (taken from
@@ -75,7 +82,8 @@ from padertorch_tpu_torch.contrib.mk.modules.transformer import (
 from padertorch_tpu_torch.modules.convnet import (
     ChannelwiseLayerNorm, GlobalLayerNorm)
 from padertorch_tpu_torch.modules.normalization import Normalization
-from padertorch_tpu_torch.modules.recurrent import GRU, _RNNBase
+from padertorch_tpu_torch.lora import LoRALinear
+from padertorch_tpu_torch.modules.recurrent import GRU, StatefulLSTM, _RNNBase
 from padertorch_tpu_torch.nn import RMSNorm
 from padertorch_tpu_torch.quantize import QuantizedLinear
 
@@ -152,6 +160,13 @@ def _jax_to_port(model):
                                             (p['bias_hh'], np.zeros_like)]
         elif isinstance(mod, QuantizedLinear):
             pairs.update(_quantized_pairs(mod, dot))
+        elif isinstance(mod, LoRALinear):
+            pairs[f'{dot}weight'] = [(mod.weight, np.transpose)]
+            if mod.bias is not None:
+                pairs[f'{dot}bias'] = [(mod.bias, np.asarray)]
+            for factor in ('lora_a', 'lora_b'):
+                pairs[f'{dot}{factor}'] = [(getattr(mod, factor),
+                                            np.asarray)]
         elif isinstance(mod, _COPIED_AS_THEY_ARE):
             for pname, p in [*mod.named_parameters(recurse=False),
                              *mod.named_buffers(recurse=False)]:
@@ -174,12 +189,24 @@ def _jax_to_port(model):
     if missed:
         raise NotImplementedError(
             f'no JAX layout known for the parameters {missed}: only LSTM, '
-            'GRU, Linear, QuantizedLinear, Embedding, Conv1d, Conv2d, '
+            'GRU, Linear, LoRALinear, QuantizedLinear, Embedding, Conv1d, Conv2d, '
             'ConvTranspose1d, LayerNorm, RMSNorm, PReLU, GlobalLayerNorm, '
             'ChannelwiseLayerNorm, DynamicTanh, RoPE, MultiheadAttention, '
             'Normalization, AutoPool and the feature extractors move '
             'between the packages yet')
     return pairs
+
+
+def _streams(model):
+    """{JAX name of the carried state: (StatefulLSTM, index)} for the
+    model's streaming LSTMs (``_states.0`` is h, ``_states.1`` c)."""
+    paths = _jax_paths(model)
+    streams = {}
+    for name, mod in model.named_modules():
+        if isinstance(mod, StatefulLSTM):
+            dot = f'{paths[name]}.' if name else ''
+            streams.update({f'{dot}_states.{i}': (mod, i) for i in (0, 1)})
+    return streams
 
 
 def from_jax_state_dict(model, sd):
@@ -189,6 +216,15 @@ def from_jax_state_dict(model, sd):
     Raises ``KeyError`` if a JAX array has no target or a parameter of
     ``model`` gets no value, and ``ValueError`` on a shape mismatch.
     """
+    streams = _streams(model)
+    states = {}
+    for name, (mod, i) in streams.items():
+        states.setdefault(mod, [None, None])[i] = sd.get(name)
+    for mod, (h, c) in states.items():
+        device = mod.lstm.weight_ih_l0.device
+        mod.states = None if h is None else tuple(
+            torch.tensor(np.asarray(a)).to(device) for a in (h, c))
+    sd = {name: value for name, value in sd.items() if name not in streams}
     pairs = _jax_to_port(model)
     unexpected = sorted(set(sd) - set(pairs))
     missing = sorted(set(pairs) - set(sd))
@@ -246,4 +282,7 @@ def to_jax_state_dict(model):
         params = [target[0].detach().cpu().numpy() for target in targets]
         invert = targets[0][-1]
         sd[name] = np.ascontiguousarray(invert(sum(params[1:], params[0])))
+    for name, (mod, i) in _streams(model).items():
+        if mod.states is not None:
+            sd[name] = mod.states[i].detach().cpu().numpy()
     return sd

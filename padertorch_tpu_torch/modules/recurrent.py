@@ -57,7 +57,7 @@ from padertorch_tpu_torch.ops.kernels.gru import gru_cell_scan
 from padertorch_tpu_torch.ops.kernels.lstm import (
     lstm_cell_scan, matmul_f32, product_dtype, sum_outer)
 
-__all__ = ['LSTM', 'GRU', 'project', 'set_rnn_backend']
+__all__ = ['LSTM', 'GRU', 'StatefulLSTM', 'project', 'set_rnn_backend']
 
 
 class _Project(torch.autograd.Function):
@@ -269,6 +269,52 @@ class GRU(_RNNBase):
         o_t, h_t = gru_cell_scan(gates_x, w_hh, mask_t, *init,
                                  compute_dtype=self.compute_dtype)
         return o_t, (h_t,)
+
+
+class StatefulLSTM(torch.nn.Module):
+    """An :class:`LSTM` that keeps its state across calls (streaming).
+
+    Counterpart of ``padertorch_tpu/modules/recurrent.py`` ``StatefulLSTM``:
+    each call continues from the final ``(h, c)`` of the call before
+    (``states``; None starts from zeros), through ``LSTM(...,
+    state=...)``, so one utterance fed chunk by chunk gives the outputs
+    of one call over the whole of it.  The states are the layer stack's,
+    (num_layers * D, B, H) each; ``del module.states`` starts a new
+    stream.  As in the JAX package, ``batch_first=False`` is not taken.
+    """
+
+    def __init__(self, input_size, hidden_size, num_layers=1,
+                 bidirectional=False, dropout=0.0, batch_first=True,
+                 save_states=True, compute_dtype=None):
+        super().__init__()
+        if not batch_first:
+            raise ValueError('batch_first=False is not supported')
+        self.lstm = LSTM(input_size, hidden_size, num_layers=num_layers,
+                         bidirectional=bidirectional, dropout=dropout,
+                         compute_dtype=compute_dtype)
+        self.hidden_size = hidden_size
+        self.bidirectional = bidirectional
+        self.num_layers = num_layers
+        self.batch_first = batch_first
+        self.save_states = save_states
+        self._states = None
+
+    @property
+    def states(self):
+        return self._states
+
+    @states.setter
+    def states(self, states):
+        self._states = states
+
+    @states.deleter
+    def states(self):
+        self._states = None
+
+    def forward(self, x):
+        h, states = self.lstm(x, state=self._states)
+        self._states = states if self.save_states else None
+        return h
 
 
 def set_rnn_backend(module, backend, remat=None, compute_dtype='keep'):

@@ -1,4 +1,5 @@
 from padertorch_tpu_torch.ops._stft import STFT, HostSTFT
+from padertorch_tpu_torch.ops.streaming import StreamingSTFT, StreamingISTFT
 from padertorch_tpu_torch.ops.mappings import ACTIVATION_FN_MAP
 from padertorch_tpu_torch.ops import losses
 from padertorch_tpu_torch.ops import sequence

@@ -15,7 +15,7 @@ from math import ceil
 import numpy as np
 import torch
 
-__all__ = ['STFT', 'HostSTFT', 'istft_rows']
+__all__ = ['STFT', 'HostSTFT', 'istft_rows', 'synthesis_rows', 'tables_on']
 
 
 def _get_window(window, symmetric_window, window_length):
@@ -111,19 +111,41 @@ def _sample_index_to_stft_frame_index(sample, size, shift, fading='full'):
     return max(frame, 0)
 
 
+def tables_on(cache, device, make):
+    """``make()``'s numpy arrays as a tuple of tensors on ``device``,
+    cached in the dict ``cache`` per device.  They are made as real
+    tensors even while ``torch.export`` traces (a fake tensor left in the
+    cache would poison every later eager call); the trace takes them as
+    constants."""
+    from torch.utils._python_dispatch import _disable_current_modes
+    device = torch.device(device)
+    if device not in cache:
+        with _disable_current_modes():
+            cache[device] = tuple(
+                torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                for a in make())
+    return cache[device]
+
+
 def istft_rows(re, im, stft):
     """Onesided (N, frames, F) real/imag parts -> (N, samples) signals,
     before the fading crop: the full-spectrum mirror, a matmul with the
     iSTFT kernels, and an overlap-add."""
-    k_real, k_imag = stft.kernels_on(re.device)[1:]
+    return synthesis_rows(re, im, *stft.kernels_on(re.device)[1:],
+                          stft.shift)
+
+
+def synthesis_rows(re, im, k_real, k_imag, shift):
+    """:func:`istft_rows` with the synthesis kernels (size, L) and the
+    shift given."""
     re_full = torch.cat([re, re[..., 1:-1].flip(-1)], dim=-1)
     im_full = torch.cat([im, -im[..., 1:-1].flip(-1)], dim=-1)
     contrib = re_full @ k_real + im_full @ k_imag        # (N, frames, L)
     n, frames, length = contrib.shape
-    total = (frames - 1) * stft.shift + length
+    total = (frames - 1) * shift + length
     out = torch.nn.functional.fold(
         contrib.transpose(1, 2), output_size=(1, total),
-        kernel_size=(1, length), stride=(1, stft.shift))
+        kernel_size=(1, length), stride=(1, shift))
     return out.reshape(n, total)
 
 
@@ -193,13 +215,9 @@ class STFT:
     def kernels_on(self, device):
         """(analysis, synthesis real, synthesis imag) float32 tensors on
         ``device``, cached per device."""
-        device = torch.device(device)
-        if device not in self._kernels_on_device:
-            self._kernels_on_device[device] = tuple(
-                torch.from_numpy(k).to(device) for k in (
-                    self.stft_kernel, self.istft_kernel_real,
-                    self.istft_kernel_imag))
-        return self._kernels_on_device[device]
+        return tables_on(self._kernels_on_device, device, lambda: (
+            self.stft_kernel, self.istft_kernel_real,
+            self.istft_kernel_imag))
 
     @property
     def _pad_widths(self):
@@ -222,11 +240,12 @@ class STFT:
         if lo or hi:
             x = torch.nn.functional.pad(x, (lo, hi))
         if self.pad:
-            if x.shape[-1] < length:
-                x = torch.nn.functional.pad(x, (0, length - x.shape[-1]))
-            elif stride != 1 and (x.shape[-1] + stride - length) % stride:
-                x = torch.nn.functional.pad(x, (
-                    0, stride - (x.shape[-1] + stride - length) % stride))
+            # up to one window, else to whole shifts past it; one
+            # expression without a test on the length, so that an
+            # exported program keeps a symbolic time axis
+            short = length - x.shape[-1]
+            x = torch.nn.functional.pad(
+                x, (0, torch.sym_max(short, short % stride)))
         frames = x.unfold(-1, length, stride)           # (B, frames, L)
         kernel = self.kernels_on(x.device)[0].to(self.dtype)
         encoded = frames @ kernel.T                     # (B, frames, 2F)

@@ -46,16 +46,17 @@ keeps it float32).  Fully masked query rows give 0 output and 0 gradient in
 both.
 """
 import math
+from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from padertorch_tpu_torch.ops.kernels import _build
+from padertorch_tpu_torch.ops.kernels import _build, _ops
 
 __all__ = ['flash_attention', 'flash_attention_plain',
            'flash_attention_fwd_plain', 'flash_attention_bwd_plain',
-           'FlashAttention', 'should_use_flash']
+           'FlashAttention', 'should_use_flash', 'flash_attention_op']
 
 _NEG = -1e30
 HEAD_SIZES = (16, 32, 64, 128, 256)
@@ -329,6 +330,16 @@ def _launch_bwd(q, k, v, lens, d_o, lse, delta, causal, left, right, scale):
     return dq, dk, dv
 
 
+def _padded(q, k, v):
+    """q, k, v with the head size zero-padded to the next of
+    ``HEAD_SIZES``, contiguous and 16-byte aligned, and that size."""
+    d = q.shape[-1]
+    d_p = next(size for size in HEAD_SIZES if size >= d)
+    if d_p != d:
+        q, k, v = (F.pad(x, (0, d_p - d)) for x in (q, k, v))
+    return _aligned(q), _aligned(k), _aligned(v), d_p
+
+
 class FlashAttention(torch.autograd.Function):
     """:func:`flash_attention` on CUDA tensors with a gradient: ``forward``
     is the forward kernel keeping the log-sum-exp, ``backward`` the dk/dv
@@ -378,7 +389,10 @@ def flash_attention(q, k, v, *, causal=False, key_padding_lens=None,
         CPU tensors run the plain version; CUDA tensors launch the kernels
         (or raise): the forward alone, or, when grad mode is on and an
         input requires a gradient, the forward that keeps the log-sum-exp,
-        whose ``backward`` is kernels too.  ``flash_attention.launches``
+        whose ``backward`` is kernels too.  Without a gradient the call is
+        the custom operator ``torch.ops.ptt.flash_attention``
+        (``ops/kernels/_ops.py``), which ``torch.export`` records.
+        ``flash_attention.launches``
         counts the launches (``fwd``, ``fwd_train``, ``bwd``, and for bf16
         tensors ``fwd_bf16``, ``fwd_train_bf16``, ``bwd_bf16``).
 
@@ -388,11 +402,18 @@ def flash_attention(q, k, v, *, causal=False, key_padding_lens=None,
     >>> out.shape, float(out[0].min()), float(out[1].abs().max())
     (torch.Size([2, 4, 5, 16]), 1.0, 0.0)
     """
+    records = torch.is_grad_enabled() and any(
+        x.requires_grad for x in (q, k, v))
+    if not records:
+        left, right = _norm_window(window)
+        lens = _lens_tensor(key_padding_lens, q.shape[0], q.device)
+        return _ops.call(flash_attention_op, q, k, v, lens, bool(causal),
+                         -1 if left is None else left,
+                         -1 if right is None else right)
     if q.device.type == 'cpu':
         masks = dict(causal=causal, key_padding_lens=key_padding_lens,
                      window=window)
-        if q.dtype == torch.bfloat16 and torch.is_grad_enabled() and any(
-                x.requires_grad for x in (q, k, v)):
+        if q.dtype == torch.bfloat16:
             return PlainFlashAttention.apply(q, k, v, masks)
         return flash_attention_plain(q, k, v, **masks)
     if q.device.type != 'cuda':
@@ -403,20 +424,55 @@ def flash_attention(q, k, v, *, causal=False, key_padding_lens=None,
     if tq == 0:
         return torch.zeros_like(q)
     lens = _lens_tensor(key_padding_lens, b, q.device)
-    scale = 1.0 / math.sqrt(d)
-    d_p = next(size for size in HEAD_SIZES if size >= d)
-    if d_p != d:
-        q, k, v = (F.pad(x, (0, d_p - d)) for x in (q, k, v))
-    q, k, v = _aligned(q), _aligned(k), _aligned(v)
-    if torch.is_grad_enabled() and any(
-            x.requires_grad for x in (q, k, v)):
-        o = FlashAttention.apply(q, k, v, lens, causal, left, right, scale)
-    else:
-        o, _ = _launch_fwd(q, k, v, lens, causal, left, right, scale,
-                           train=False)
+    q, k, v, d_p = _padded(q, k, v)
+    o = FlashAttention.apply(q, k, v, lens, causal, left, right,
+                             1.0 / math.sqrt(d))
     return o[..., :d] if d_p != d else o
 
 
 flash_attention.launches = {'fwd': 0, 'fwd_train': 0, 'bwd': 0,
                             'fwd_bf16': 0, 'fwd_train_bf16': 0,
                             'bwd_bf16': 0}
+
+
+def _op_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              lens: Optional[torch.Tensor], causal: bool, left: int,
+              right: int) -> torch.Tensor:
+    return flash_attention_plain(
+        q, k, v, causal=causal, key_padding_lens=lens,
+        window=_op_window(left, right))
+
+
+def _op_window(left, right):
+    """The operator's window ints (-1: unbounded) as ``window``."""
+    if left < 0 and right < 0:
+        return None
+    return (None if left < 0 else left, None if right < 0 else right)
+
+
+def _op_launch(q, k, v, lens, causal, left, right):
+    _check(q, k, v)
+    if lens is not None:
+        lens = lens.to(torch.int32).contiguous()
+    d = q.shape[-1]
+    if q.shape[2] == 0:
+        return torch.zeros(q.shape, dtype=q.dtype, device=q.device)
+    q, k, v, d_p = _padded(q, k, v)
+    o, _ = _launch_fwd(q, k, v, lens, causal, left, right,
+                       1.0 / math.sqrt(d), train=False)
+    return o[..., :d] if d_p != d else o
+
+
+def _op_fake(q, k, v, lens, causal, left, right):
+    b, h, tq, d = q.shape
+    d_p = next((size for size in HEAD_SIZES if size >= d), d)
+    if q.device.type == 'cuda' and d_p != d:
+        # the launch's output is a view of the padded heads' output
+        return q.new_empty((b, h, tq, d_p))[..., :d]
+    return q.new_empty((b, h, tq, d))
+
+
+# the forward as ``torch.ops.ptt.flash_attention(q, k, v, lens, causal,
+# left, right)`` (-1: an unbounded side of the window) -> o
+flash_attention_op = _ops.define('flash_attention', _op_plain, _op_launch,
+                                 _op_fake)

@@ -83,14 +83,14 @@ variant is ``bf16(h_{t-1})``, what the JAX backward rebuilds from its bf16
 """
 import ctypes
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
-from padertorch_tpu_torch.ops.kernels import _build
+from padertorch_tpu_torch.ops.kernels import _build, _ops
 from padertorch_tpu_torch.ops.kernels.lstm import (
-    MMA_THREADS, MMA_WARPS, _check, _norm_w, _packed, _recurrent_product,
-    _route, _variant, product_dtype, sum_outer)
+    MMA_THREADS, MMA_WARPS, _check, _contiguous, _norm_w, _packed,
+    _recurrent_product, _route, _variant, product_dtype, sum_outer)
 
 __all__ = ['gru_cell_scan', 'gru_cell_scan_plain', 'GRUCellScan',
            'gru_cell_scan_train_plain', 'gru_cell_scan_bwd_plain',
@@ -99,7 +99,7 @@ __all__ = ['gru_cell_scan', 'gru_cell_scan_plain', 'GRUCellScan',
            'MmaPlan', 'mma_plan', 'mma_smem', 'kernel_route',
            'device_mma_plan', 'device_limits', 'element_size',
            'ClusterPlan', 'cluster_shape', 'cluster_plan', 'cluster_smem',
-           'device_cluster_plan']
+           'device_cluster_plan', 'gru_cell_scan_op']
 
 
 def _cell(gx, gh, h, hdim):
@@ -699,7 +699,9 @@ def gru_cell_scan(gates_x, w_hh, mask, h0, compute_dtype=None):
         run the plain version; CUDA tensors launch the kernels (or raise):
         the lean forward, or, when grad mode is on and an input requires a
         gradient, the training forward, whose ``backward`` is a kernel
-        too.  The kernels take float32 streams with ``compute_dtype=None``
+        too.  Without a gradient the call is the custom operator
+        ``torch.ops.ptt.gru_cell_scan`` (``ops/kernels/_ops.py``), which
+        ``torch.export`` records.  The kernels take float32 streams with ``compute_dtype=None``
         and bfloat16 streams with ``compute_dtype='bfloat16'``; anything
         else raises.  ``gru_cell_scan.launches`` counts the launches per
         kernel (``fwd``, ``fwd_train``, ``bwd``, and ``fwd_bf16``,
@@ -710,17 +712,23 @@ def gru_cell_scan(gates_x, w_hh, mask, h0, compute_dtype=None):
         :func:`kernel_route`).
     """
     w, n_dir = _norm_w(w_hh)
+    cd = product_dtype(compute_dtype)
+    if not (torch.is_grad_enabled() and any(
+            x.requires_grad for x in (gates_x, w, h0))):
+        if gates_x.is_cuda and not torch.compiler.is_compiling():
+            # an eager call keeps the kernels' contract; the operator
+            # also takes the other strides a traced graph may give it
+            _check(gates_x, w, n_dir, mask, h0, n_gates=3,
+                   stream=torch.float32 if cd is None else cd)
+        return _ops.call(gru_cell_scan_op, gates_x, w, mask, h0,
+                         cd is not None)
     if gates_x.device.type == 'cpu':
         return gru_cell_scan_plain(gates_x, w_hh, mask, h0, compute_dtype)
     if gates_x.device.type != 'cuda':
         raise ValueError(f'no kernel for device {gates_x.device}')
-    cd = product_dtype(compute_dtype)
     _check(gates_x, w, n_dir, mask, h0, n_gates=3,
            stream=torch.float32 if cd is None else cd)
-    if torch.is_grad_enabled() and any(
-            x.requires_grad for x in (gates_x, w, h0)):
-        return GRUCellScan.apply(gates_x, w, mask, h0)
-    return _launch(gates_x, w, n_dir, mask, h0)
+    return GRUCellScan.apply(gates_x, w, mask, h0)
 
 
 gru_cell_scan.launches = {'fwd': 0, 'fwd_train': 0, 'bwd': 0,
@@ -729,3 +737,30 @@ gru_cell_scan.routes = {
     name: {'resident': 0, 'cooperative': 0, 'streamed': 0, 'mma': 0,
            'cluster': 0}
     for name in gru_cell_scan.launches}
+
+
+def _op_plain(gates_x: torch.Tensor, w: torch.Tensor,
+              mask: Optional[torch.Tensor], h0: torch.Tensor,
+              bf16_products: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    return gru_cell_scan_plain(gates_x, w, mask, h0,
+                               torch.bfloat16 if bf16_products else None)
+
+
+def _op_launch(gates_x, w, mask, h0, bf16_products):
+    gates_x, w, mask, h0 = _contiguous(gates_x, w, mask, h0)
+    n_dir = w.shape[0]
+    _check(gates_x, w, n_dir, mask, h0, n_gates=3,
+           stream=torch.bfloat16 if bf16_products else torch.float32)
+    return _launch(gates_x, w, n_dir, mask, h0)
+
+
+def _op_fake(gates_x, w, mask, h0, bf16_products):
+    t_len, rows, width = gates_x.shape
+    return (gates_x.new_empty((t_len, rows, width // 3)),
+            h0.new_empty((rows, width // 3), dtype=torch.float32))
+
+
+# the lean forward as ``torch.ops.ptt.gru_cell_scan(gates_x, w (D, H, 3H),
+# mask, h0, bf16_products)`` -> (out, h_T)
+gru_cell_scan_op = _ops.define('gru_cell_scan', _op_plain, _op_launch,
+                               _op_fake)

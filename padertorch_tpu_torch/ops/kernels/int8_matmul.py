@@ -21,14 +21,16 @@ Not ported: the JAX wrapper pads K and N to 128-lane tiles for the TPU;
 here nothing is padded.
 """
 import functools
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
-from padertorch_tpu_torch.ops.kernels import _build
+from padertorch_tpu_torch.ops.kernels import _build, _ops
 
-__all__ = ['int8_matmul', 'int8_matmul_plain', 'split_rows',
-           'bf16_split_rows', 'INT8_KERNEL_MAX_ROWS']
+__all__ = ['int8_matmul', 'int8_matmul_plain', 'matmul_rows', 'composed',
+           'split_rows', 'bf16_split_rows', 'INT8_KERNEL_MAX_ROWS',
+           'int8_matmul_op']
 
 # ``QuantizedLinear(use_kernel=None)`` on a CUDA tensor takes the kernel
 # for at most this many rows of x and the composed route (cuBLAS on the
@@ -239,17 +241,33 @@ def int8_matmul(x, w_q, scale, bias=None, *, out_features=None,
     Returns:
         (..., out_features) in ``x``'s type.  A CPU tensor runs
         :func:`int8_matmul_plain`; a CUDA tensor launches the kernel (or
-        raises).  ``int8_matmul.launches`` counts the kernel's calls.
+        raises).  The product is the custom operator
+        ``torch.ops.ptt.int8_matmul`` (``ops/kernels/_ops.py``), which
+        ``torch.export`` records.  ``int8_matmul.launches`` counts the kernel's calls.
     """
+    return matmul_rows(x, w_q, scale, bias, out_features=out_features,
+                       k_logical=k_logical)
+
+
+def matmul_rows(x, w_q, scale, bias=None, *, out_features=None,
+                k_logical=None, max_kernel_rows=-1):
+    """:func:`int8_matmul`, or, for more than ``max_kernel_rows`` rows of x
+    (-1: no limit), the composed route :func:`composed` (the one place
+    where the operator runs another product: ``QuantizedLinear``'s
+    dispatch by rows, decided where the rows are concrete)."""
     x2, w_q, scale, bias, lead, n_out = _prepare(
         x, w_q, scale, bias, out_features, k_logical)
-    if x2.device.type == 'cpu':
-        out = _plain_2d(x2, w_q, scale, bias)
-    elif x2.device.type == 'cuda':
-        out = _launch(x2, w_q, scale, bias)
-    else:
-        raise ValueError(f'no kernel for device {x2.device}')
+    out = _ops.call(int8_matmul_op, x2, w_q, scale, bias, max_kernel_rows)
     return _finish(out, lead, w_q.shape[1], n_out)
+
+
+def composed(x, w_q, scale, bias=None):
+    """``QuantizedLinear``'s composed route: ``x @ (w_q * scale)`` with the
+    weight dequantized to x's type, then the bias."""
+    y = x @ (w_q.to(x.dtype) * scale.to(x.dtype))
+    if bias is not None:
+        y = y + bias
+    return y
 
 
 def int8_matmul_plain(x, w_q, scale, bias=None, *, out_features=None,
@@ -266,3 +284,28 @@ def int8_matmul_plain(x, w_q, scale, bias=None, *, out_features=None,
 
 
 int8_matmul.launches = 0
+
+
+def _op_plain(x2: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
+              bias: Optional[torch.Tensor],
+              max_kernel_rows: int) -> torch.Tensor:
+    if 0 <= max_kernel_rows < x2.shape[0]:
+        return composed(x2, w_q, scale, bias).to(x2.dtype)
+    return _plain_2d(x2, w_q, scale, bias)
+
+
+def _op_launch(x2, w_q, scale, bias, max_kernel_rows):
+    if 0 <= max_kernel_rows < x2.shape[0]:
+        return composed(x2, w_q, scale, bias).to(x2.dtype)
+    return _launch(x2, w_q, scale, bias)
+
+
+def _op_fake(x2, w_q, scale, bias, max_kernel_rows):
+    return x2.new_empty((x2.shape[0], w_q.shape[1]))
+
+
+# the product as ``torch.ops.ptt.int8_matmul(x2 (M, K), w_q (K, N), scale,
+# bias, max_kernel_rows)`` -> (M, N) in x2's type; above
+# ``max_kernel_rows`` rows (-1: never) the composed route, its result cast
+# to x2's type
+int8_matmul_op = _ops.define('int8_matmul', _op_plain, _op_launch, _op_fake)

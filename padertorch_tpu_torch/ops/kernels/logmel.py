@@ -26,13 +26,14 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from padertorch_tpu_torch.ops._stft import get_stft_kernel, _get_window
-from padertorch_tpu_torch.ops.kernels import _build
+from padertorch_tpu_torch.ops._stft import (
+    _get_window, get_stft_kernel, tables_on)
+from padertorch_tpu_torch.ops.kernels import _build, _ops
 from padertorch_tpu_torch.ops.kernels.gru import device_limits
 
 __all__ = ['fused_logmel', 'fused_logmel_plain', 'LogMelFrontend',
            'LogMelPlan', 'logmel_plan', 'logmel_smem', 'mel_bands',
-           'kernel_basis', 'tf32_split']
+           'kernel_basis', 'tf32_split', 'pad_widths', 'fused_logmel_op']
 
 EPS = 1e-12
 
@@ -242,39 +243,19 @@ class LogMelFrontend:
         """(wr (L, F), wi (L, F), fbanks (F, M), the kernel's basis (see
         :func:`kernel_basis`)) float32 tensors on ``device``, cached per
         device."""
-        device = torch.device(device)
-        if device not in self._bases_on_device:
-            self._bases_on_device[device] = tuple(
-                torch.from_numpy(a).to(device) for a in self._bases_np)
-        return self._bases_on_device[device]
+        return tables_on(self._bases_on_device, device,
+                         lambda: self._bases_np)
 
     def bands_on(self, device):
         """The int32 table of :func:`mel_bands` on ``device``, cached per
         device."""
-        device = torch.device(device)
-        if device not in self._bands_on_device:
-            self._bands_on_device[device] = torch.from_numpy(
-                self._bands_np).to(device)
-        return self._bands_on_device[device]
+        return tables_on(self._bands_on_device, device,
+                         lambda: (self._bands_np,))[0]
 
     def _pad_widths(self, t):
         """(zeros before, zeros after) the fading pad puts around a signal
-        of ``t`` samples: whole frames of ``shift`` and at least one
-        window."""
-        lo = hi = 0
-        if self.fading == 'full':
-            lo = hi = self.window_length - self.shift
-        elif self.fading == 'half':
-            pad = self.window_length - self.shift
-            lo, hi = pad // 2, -(-pad // 2)
-        total = t + lo + hi
-        if total < self.window_length:
-            hi += self.window_length - total
-        else:
-            remainder = (total - self.window_length) % self.shift
-            if remainder:
-                hi += self.shift - remainder
-        return lo, hi
+        of ``t`` samples (:func:`pad_widths`)."""
+        return pad_widths(t, self.window_length, self.shift, self.fading)
 
     def _as_batch(self, signal):
         if signal.ndim == 1:
@@ -285,17 +266,21 @@ class LogMelFrontend:
         return signal.to(torch.float32)
 
     def _prepare(self, signal):
+        """The (B, T) float32 signal with the fading pad."""
         signal = self._as_batch(signal)
         return torch.nn.functional.pad(
             signal, self._pad_widths(signal.shape[-1]))
 
+    def _operands(self, signal):
+        """The operator's arguments for a (B, T) float32 ``signal``."""
+        wr, wi, fbanks, basis = self.bases_on(signal.device)
+        return (signal, wr, wi, fbanks, basis, self.bands_on(signal.device),
+                self.window_length, self.shift, self.n_mels,
+                self.n_partials, FADINGS.index(self.fading or None))
+
     def plain(self, signal):
         """The plain PyTorch version of :meth:`__call__`."""
-        signal = self._prepare(signal)
-        wr, wi, fbanks, _ = self.bases_on(signal.device)
-        frames = signal.unfold(-1, self.window_length, self.shift)
-        real, imag = frames @ wr, frames @ wi
-        return torch.log((real * real + imag * imag) @ fbanks + EPS)
+        return _op_plain(*self._operands(self._as_batch(signal)))
 
     def __call__(self, signal):
         if torch.is_grad_enabled() and signal.requires_grad:
@@ -303,43 +288,114 @@ class LogMelFrontend:
                 'fused_logmel is an inference-shaped front end without a '
                 'backward: audio that requires a gradient is not taken '
                 '(detach it, or use the composed path)')
-        if signal.device.type == 'cpu':
-            return self.plain(signal)
-        if signal.device.type != 'cuda':
-            raise ValueError(f'no kernel for device {signal.device}')
-        signal = self._as_batch(signal).contiguous()
-        n_bins = self.bases_on(signal.device)[2].shape[0]
-        b, t = signal.shape
-        lo, hi = self._pad_widths(t)
-        n_frames = (t + lo + hi - self.window_length) // self.shift + 1
-        out = torch.empty((b, n_frames, self.n_mels), dtype=torch.float32,
-                          device=signal.device)
-        stream, device = _build.stream_and_device(signal)
-        plan = logmel_plan(b, n_frames, self.window_length, self.shift,
-                           n_bins, self.n_partials, *device_limits(device))
-        return self._launch(signal, out, lo, n_frames, plan, device, stream)
+        return _ops.call(fused_logmel_op,
+                         *self._operands(self._as_batch(signal)))
 
     def _launch(self, signal, out, lo, n_frames, plan, device, stream):
         """One launch on ``plan`` (:func:`logmel_plan`; a test may force
         the other route with ``plan._replace``)."""
         _, _, fbanks, basis = self.bases_on(signal.device)
-        b, t = signal.shape
-        if plan is None:
-            raise ValueError(
-                f'fused_logmel has no plan for {n_frames} frames of '
-                f'{b} signals: shift={self.shift}, '
-                f'window_length={self.window_length}')
-        lib = _build.load_library()
-        err = lib.fused_logmel_fwd(
-            signal.data_ptr(), basis.data_ptr(), fbanks.data_ptr(),
-            self.bands_on(signal.device).data_ptr(), out.data_ptr(), b, t,
-            lo, n_frames, self.window_length, fbanks.shape[0], self.n_mels,
-            self.n_partials, self.shift, plan.CS, int(plan.sliced),
-            plan.smem, EPS, device, stream)
-        _build.check(lib, err, 'fused_logmel kernel')
-        fused_logmel.launches += 1
-        fused_logmel.routes['sliced' if plan.sliced else 'span'] += 1
-        return out
+        return _launch(signal, basis, fbanks, self.bands_on(signal.device),
+                       out, lo, n_frames, self.window_length, self.shift,
+                       self.n_mels, self.n_partials, plan, device, stream)
+
+
+def pad_widths(t, window_length, shift, fading):
+    """(zeros before, zeros after) the fading pad puts around a signal of
+    ``t`` samples: whole frames of ``shift`` and at least one window."""
+    lo, hi = _fading_pads(window_length, shift, fading)
+    total = t + lo + hi
+    if total < window_length:
+        hi += window_length - total
+    else:
+        remainder = (total - window_length) % shift
+        if remainder:
+            hi += shift - remainder
+    return lo, hi
+
+
+def _fading_pads(window_length, shift, fading):
+    """The zeros of the fading alone, before and after."""
+    pad = window_length - shift
+    if fading == 'full':
+        return pad, pad
+    if fading == 'half':
+        return pad // 2, -(-pad // 2)
+    return 0, 0
+
+
+def _launch(signal, basis, fbanks, bands, out, lo, n_frames, window_length,
+            shift, n_mels, n_partials, plan, device, stream):
+    b, t = signal.shape
+    if plan is None:
+        raise ValueError(
+            f'fused_logmel has no plan for {n_frames} frames of '
+            f'{b} signals: shift={shift}, window_length={window_length}')
+    lib = _build.load_library()
+    err = lib.fused_logmel_fwd(
+        signal.data_ptr(), basis.data_ptr(), fbanks.data_ptr(),
+        bands.data_ptr(), out.data_ptr(), b, t, lo, n_frames, window_length,
+        fbanks.shape[0], n_mels, n_partials, shift, plan.CS,
+        int(plan.sliced), plan.smem, EPS, device, stream)
+    _build.check(lib, err, 'fused_logmel kernel')
+    fused_logmel.launches += 1
+    fused_logmel.routes['sliced' if plan.sliced else 'span'] += 1
+    return out
+
+
+# the ``fading`` values, as the operator's int takes them
+FADINGS = (None, 'full', 'half')
+
+
+def _op_plain(signal: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
+              fbanks: torch.Tensor, basis: torch.Tensor, bands: torch.Tensor,
+              window_length: int, shift: int, n_mels: int, n_partials: int,
+              fading: int) -> torch.Tensor:
+    """pad -> frames -> two products -> power -> mel -> log."""
+    signal = torch.nn.functional.pad(signal, pad_widths(
+        signal.shape[-1], window_length, shift, FADINGS[fading]))
+    frames = signal.unfold(-1, window_length, shift)
+    real, imag = frames @ wr, frames @ wi
+    return torch.log((real * real + imag * imag) @ fbanks + EPS)
+
+
+def _op_launch(signal, wr, wi, fbanks, basis, bands, window_length, shift,
+               n_mels, n_partials, fading):
+    signal = signal.contiguous()
+    b, t = signal.shape
+    lo, hi = pad_widths(t, window_length, shift, FADINGS[fading])
+    n_frames = (t + lo + hi - window_length) // shift + 1
+    out = torch.empty((b, n_frames, n_mels), dtype=torch.float32,
+                      device=signal.device)
+    stream, device = _build.stream_and_device(signal)
+    plan = logmel_plan(b, n_frames, window_length, shift, fbanks.shape[0],
+                       n_partials, *device_limits(device))
+    return _launch(signal, basis, fbanks, bands, out, lo, n_frames,
+                   window_length, shift, n_mels, n_partials, plan, device,
+                   stream)
+
+
+def _op_fake(signal, wr, wi, fbanks, basis, bands, window_length, shift,
+             n_mels, n_partials, fading):
+    b, t = signal.shape
+    lo, hi = _fading_pads(window_length, shift, FADINGS[fading])
+    # frames of the padded signal, without a test on a symbolic t:
+    # ceil((t + lo + hi - window_length) / shift) + 1, at least 1 (the
+    # floor matters only where the fading pads alone are shorter than a
+    # window).  One floor division: torch.export can take it as a factor
+    # (a (B, frames) to (B * frames) reshape then holds for B = 1 too)
+    n_frames = (t + lo + hi - window_length + 2 * shift - 1) // shift
+    if lo + hi < window_length:
+        n_frames = torch.sym_max(n_frames, 1)
+    return signal.new_empty((b, n_frames, n_mels), dtype=torch.float32)
+
+
+# the front end as ``torch.ops.ptt.fused_logmel(signal (B, T) float32, wr,
+# wi, fbanks, basis, bands, window_length, shift, n_mels, n_partials,
+# fading)`` (the tables of ``LogMelFrontend.bases_on`` and ``bands_on``;
+# ``fading`` an index of FADINGS) -> (B, frames, n_mels)
+fused_logmel_op = _ops.define('fused_logmel', _op_plain, _op_launch,
+                              _op_fake)
 
 
 def fused_logmel(signal, **kwargs):

@@ -52,18 +52,19 @@ counts the launches by kernel and route.
 """
 import ctypes
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
-from padertorch_tpu_torch.ops.kernels import _build
+from padertorch_tpu_torch.ops.kernels import _build, _ops
 
 __all__ = ['lstm_cell_scan', 'lstm_cell_scan_plain', 'LSTMCellScan',
            'lstm_cell_scan_train_plain', 'lstm_cell_scan_bwd_plain',
            'recurrent_weight_grad', 'sum_outer', 'time_groups',
            'product_dtype', 'matmul_f32', 'ScanGrid', 'scan_grid',
            'scan_smem', 'device_grid', 'packed_bytes', 'MmaPlan',
-           'mma_plan', 'mma_smem', 'fwd_route', 'bwd_route']
+           'mma_plan', 'mma_smem', 'fwd_route', 'bwd_route',
+           'lstm_cell_scan_op']
 
 
 def _norm_w(w_hh):
@@ -738,7 +739,9 @@ def lstm_cell_scan(gates_x, w_hh, mask, h0, c0, compute_dtype=None):
         tensors run the plain version; CUDA tensors launch the kernels (or
         raise): the lean forward, or, when grad mode is on and an input
         requires a gradient, the training forward, whose ``backward`` is a
-        kernel too.  The kernels take float32 streams with
+        kernel too.  Without a gradient the call is the custom operator
+        ``torch.ops.ptt.lstm_cell_scan`` (``ops/kernels/_ops.py``), which
+        ``torch.export`` records.  The kernels take float32 streams with
         ``compute_dtype=None`` and bfloat16 streams with
         ``compute_dtype='bfloat16'``; anything else raises.
         ``lstm_cell_scan.launches`` counts the launches per kernel
@@ -749,18 +752,24 @@ def lstm_cell_scan(gates_x, w_hh, mask, h0, c0, compute_dtype=None):
         :func:`scan_grid`, :func:`fwd_route`, :func:`bwd_route`).
     """
     w, n_dir = _norm_w(w_hh)
+    cd = product_dtype(compute_dtype)
+    if not (torch.is_grad_enabled() and any(
+            x.requires_grad for x in (gates_x, w, h0, c0))):
+        if gates_x.is_cuda and not torch.compiler.is_compiling():
+            # an eager call keeps the kernels' contract; the operator
+            # also takes the other strides a traced graph may give it
+            _check(gates_x, w, n_dir, mask, h0, c0,
+                   stream=torch.float32 if cd is None else cd)
+        return _ops.call(lstm_cell_scan_op, gates_x, w, mask, h0, c0,
+                         cd is not None)
     if gates_x.device.type == 'cpu':
         return lstm_cell_scan_plain(gates_x, w_hh, mask, h0, c0,
                                     compute_dtype)
     if gates_x.device.type != 'cuda':
         raise ValueError(f'no kernel for device {gates_x.device}')
-    cd = product_dtype(compute_dtype)
     _check(gates_x, w, n_dir, mask, h0, c0,
            stream=torch.float32 if cd is None else cd)
-    if torch.is_grad_enabled() and any(
-            x.requires_grad for x in (gates_x, w, h0, c0)):
-        return LSTMCellScan.apply(gates_x, w, mask, h0, c0)
-    return _launch(gates_x, w, n_dir, mask, h0, c0)
+    return LSTMCellScan.apply(gates_x, w, mask, h0, c0)
 
 
 lstm_cell_scan.launches = {'fwd': 0, 'fwd_train': 0, 'bwd': 0,
@@ -769,3 +778,38 @@ lstm_cell_scan.launches = {'fwd': 0, 'fwd_train': 0, 'bwd': 0,
 lstm_cell_scan.routes = {
     name: {'cooperative': 0, 'streamed': 0, 'mma': 0}
     for name in lstm_cell_scan.launches}
+
+
+def _op_plain(gates_x: torch.Tensor, w: torch.Tensor,
+              mask: Optional[torch.Tensor], h0: torch.Tensor,
+              c0: torch.Tensor, bf16_products: bool
+              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return lstm_cell_scan_plain(gates_x, w, mask, h0, c0,
+                                torch.bfloat16 if bf16_products else None)
+
+
+def _op_launch(gates_x, w, mask, h0, c0, bf16_products):
+    # an exported graph drops a ``.contiguous()`` that was a no-op at the
+    # traced shapes, so the operator takes any strides
+    gates_x, w, mask, h0, c0 = _contiguous(gates_x, w, mask, h0, c0)
+    n_dir = w.shape[0]
+    _check(gates_x, w, n_dir, mask, h0, c0,
+           stream=torch.bfloat16 if bf16_products else torch.float32)
+    return _launch(gates_x, w, n_dir, mask, h0, c0)
+
+
+def _contiguous(*tensors):
+    return tuple(None if t is None else t.contiguous() for t in tensors)
+
+
+def _op_fake(gates_x, w, mask, h0, c0, bf16_products):
+    t_len, rows, width = gates_x.shape
+    state = h0.new_empty((rows, width // 4), dtype=torch.float32)
+    return (gates_x.new_empty((t_len, rows, width // 4)), state,
+            torch.empty_like(state))
+
+
+# the lean forward as ``torch.ops.ptt.lstm_cell_scan(gates_x, w (D, H, 4H),
+# mask, h0, c0, bf16_products)`` -> (out, h_T, c_T)
+lstm_cell_scan_op = _ops.define('lstm_cell_scan', _op_plain, _op_launch,
+                                _op_fake)

@@ -16,16 +16,17 @@ chosen from the geometry before the launch (:func:`route`):
 mirror, a matmul with the iSTFT kernels and an overlap-add.
 """
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from padertorch_tpu_torch.ops.kernels import _build
+from padertorch_tpu_torch.ops._stft import synthesis_rows, tables_on
+from padertorch_tpu_torch.ops.kernels import _build, _ops
 from padertorch_tpu_torch.ops.kernels.gru import device_limits
 
 __all__ = ['masked_istft', 'masked_istft_plain', 'route', 'fft_plan',
-           'dft_plan', 'FftPlan', 'DftPlan']
+           'dft_plan', 'FftPlan', 'DftPlan', 'masked_istft_op']
 
 # the fft route's sizes, and its kernel's limits (csrc/masked_istft.cu):
 # threads a block, output rows a block owns at most
@@ -214,81 +215,98 @@ def _split(stft_signal, mask, stft):
 def _on_device(stft, name, make, device):
     """``make()``'s numpy arrays as tensors on ``device``, cached on the
     stft object under ``name``."""
-    cache = stft.__dict__.setdefault(name, {})
-    if device not in cache:
-        cache[device] = tuple(torch.from_numpy(np.ascontiguousarray(a))
-                              .to(device) for a in make())
-    return cache[device]
+    return tables_on(stft.__dict__.setdefault(name, {}), device, make)
 
 
-def _geometry(stft, n_out, tf):
-    return (f'size {stft.size}, shift {stft.shift}, window_length '
-            f'{stft.window_length}, {n_out} signal rows of {tf} frames')
+def _geometry(size, shift, window_length, n_out, tf):
+    return (f'size {size}, shift {shift}, window_length {window_length}, '
+            f'{n_out} signal rows of {tf} frames')
+
+
+def _tables(stft, which, device):
+    """The ``which`` route's tables on ``device``: the twiddles and the
+    synthesis window (``fft``), or the folded synthesis matrices as one
+    (F, L, 2) tensor (``dft``); cached on the stft object."""
+    if which == 'fft':
+        return _on_device(stft, '_fft_tables_on_device',
+                          lambda: fft_tables(stft), device)
+    return _on_device(
+        stft, '_synthesis_on_device',
+        lambda: [np.stack(_fold_onesided(*stft._istft_kernel_np, stft.size),
+                          axis=-1)],
+        device)
 
 
 def _launch(re, im, mask, stft, plan=None, fast_twiddles=False):
     """Launch the kernel on the route of ``plan`` (by default
     :func:`route` and its planner's plan).  ``fast_twiddles`` takes the
     fft route's twiddles from ``__sincosf`` (a measurement control)."""
+    which = ('dft' if isinstance(plan, DftPlan)
+             else route(stft.size, stft.window_length))
+    return _launch_rows(re, im, mask, _tables(stft, which, re.device),
+                        stft.size, stft.shift, stft.window_length, which,
+                        plan, fast_twiddles)
+
+
+def _launch_rows(re, im, mask, tables, size, shift, window_length, which,
+                 plan=None, fast_twiddles=False):
     n_spec, tf, f = re.shape
-    shift = stft.shift
-    ratio = stft.window_length // shift
-    if f != stft.size // 2 + 1:
+    ratio = window_length // shift
+    if f != size // 2 + 1:
         raise ValueError(f'{f} frequency bins, the stft has '
-                         f'{stft.size // 2 + 1}')
+                         f'{size // 2 + 1}')
     n_out = n_spec if mask is None else mask.shape[0]
+    geometry = _geometry(size, shift, window_length, n_out, tf)
     out = torch.empty((n_out, (tf + ratio - 1) * shift),
                       dtype=torch.float32, device=re.device)
     lib = _build.load_library()
     stream, device = _build.stream_and_device(re)
     n_sm, max_smem = _device_limits(device)
-    which = ('dft' if isinstance(plan, DftPlan)
-             else route(stft.size, stft.window_length))
     if which == 'fft':
-        plan = plan or fft_plan(n_out, tf, stft.size, shift, ratio, n_sm,
+        plan = plan or fft_plan(n_out, tf, size, shift, ratio, n_sm,
                                 max_smem)
     elif isinstance(plan, FftPlan):
-        raise ValueError(f'the fft route does not take '
-                         f'{_geometry(stft, n_out, tf)}')
+        raise ValueError(f'the fft route does not take {geometry}')
     else:
         plan = plan or dft_plan(n_out, tf, f, shift, ratio, max_smem)
     if plan is None:
-        raise ValueError(f'masked_istft: no {which} plan for '
-                         f'{_geometry(stft, n_out, tf)} in {max_smem} bytes '
-                         f'of shared memory a block')
+        raise ValueError(f'masked_istft: no {which} plan for {geometry} in '
+                         f'{max_smem} bytes of shared memory a block')
     mask_ptr = None if mask is None else mask.data_ptr()
     if which == 'fft':
-        twiddles, window = _on_device(stft, '_fft_tables_on_device',
-                                      lambda: fft_tables(stft), re.device)
+        twiddles, window = tables
         err = lib.masked_istft_fft(
             re.data_ptr(), im.data_ptr(), mask_ptr, twiddles.data_ptr(),
             window.data_ptr(), out.data_ptr(), n_out, n_spec, tf,
-            stft.size // 2, shift, ratio, plan.rows, plan.frames,
+            size // 2, shift, ratio, plan.rows, plan.frames,
             plan.per_thread, plan.smem, int(fast_twiddles), device, stream)
     else:
-        s_ri, = _on_device(
-            stft, '_synthesis_on_device',
-            lambda: [np.stack(_fold_onesided(*stft._istft_kernel_np,
-                                             stft.size), axis=-1)],
-            re.device)
+        s_ri, = tables
         err = lib.masked_istft_dft(
             re.data_ptr(), im.data_ptr(), mask_ptr, s_ri.data_ptr(),
             out.data_ptr(), n_out, n_spec, tf, f, shift, ratio, plan.chunk,
             plan.threads, plan.smem, device, stream)
     _build.check(lib, err, f'masked_istft kernel ({which} route, '
-                 f'{_geometry(stft, n_out, tf)})')
+                 f'{geometry})')
     masked_istft.launches += 1
     masked_istft.routes[which] += 1
     return out
 
 
-def _rows_plain(re, im, mask, stft):
-    from padertorch_tpu_torch.ops._stft import istft_rows
+def _rows_plain(re, im, mask, k_real, k_imag, shift):
     if mask is not None:
         reps = mask.shape[0] // re.shape[0]
         re = re.repeat(reps, 1, 1) * mask
         im = im.repeat(reps, 1, 1) * mask
-    return istft_rows(re, im, stft)
+    return synthesis_rows(re, im, k_real, k_imag, shift)
+
+
+def _operands(re, im, mask, stft):
+    """The operator's arguments (see :data:`masked_istft_op`)."""
+    k_real, k_imag = stft.kernels_on(re.device)[1:]
+    tables = _tables(stft, route(stft.size, stft.window_length), re.device)
+    return (re, im, mask, k_real, k_imag, list(tables), stft.size,
+            stft.shift, stft.window_length)
 
 
 def masked_istft(stft_signal, mask=None, *, stft):
@@ -307,19 +325,16 @@ def masked_istft(stft_signal, mask=None, *, stft):
     Returns:
         Time signal, float32, of the shape ``stft.inverse`` gives.  CPU
         tensors run :func:`masked_istft_plain`; CUDA tensors launch the
-        kernel (or raise).
+        kernel (or raise).  The synthesis is the custom operator
+        ``torch.ops.ptt.masked_istft`` (``ops/kernels/_ops.py``), which
+        ``torch.export`` records.
     """
     _check_geometry(stft)
     re, im, mask, lead = _split(stft_signal, mask, stft)
     if mask is not None and mask.device != re.device:
         raise ValueError(f'mask on {mask.device}, spectrogram on '
                          f'{re.device}')
-    if re.device.type == 'cpu':
-        rows = _rows_plain(re, im, mask, stft)
-    elif re.device.type == 'cuda':
-        rows = _launch(re, im, mask, stft)
-    else:
-        raise ValueError(f'no kernel for device {re.device}')
+    rows = _ops.call(masked_istft_op, *_operands(re, im, mask, stft))
     return stft.crop_fading(rows.reshape(*lead, rows.shape[-1]))
 
 
@@ -327,8 +342,42 @@ def masked_istft_plain(stft_signal, mask=None, *, stft):
     """Plain PyTorch version of :func:`masked_istft` (same contract)."""
     _check_geometry(stft)
     re, im, mask, lead = _split(stft_signal, mask, stft)
-    rows = _rows_plain(re, im, mask, stft)
+    rows = _op_plain(*_operands(re, im, mask, stft))
     return stft.crop_fading(rows.reshape(*lead, rows.shape[-1]))
+
+
+def _op_plain(re: torch.Tensor, im: torch.Tensor,
+              mask: Optional[torch.Tensor], k_real: torch.Tensor,
+              k_imag: torch.Tensor, tables: list[torch.Tensor], size: int,
+              shift: int, window_length: int) -> torch.Tensor:
+    return _rows_plain(re, im, mask, k_real, k_imag, shift)
+
+
+def _op_launch(re, im, mask, k_real, k_imag, tables, size, shift,
+               window_length):
+    # an exported graph drops a ``.contiguous()`` that was a no-op at the
+    # traced shapes, so the operator takes any strides
+    re, im = re.contiguous(), im.contiguous()
+    mask = None if mask is None else mask.contiguous()
+    return _launch_rows(re, im, mask, tables, size, shift, window_length,
+                        route(size, window_length))
+
+
+def _op_fake(re, im, mask, k_real, k_imag, tables, size, shift,
+             window_length):
+    n_out = re.shape[0] if mask is None else mask.shape[0]
+    samples = (re.shape[1] + window_length // shift - 1) * shift
+    return re.new_empty((n_out, samples), dtype=torch.float32)
+
+
+# the synthesis as ``torch.ops.ptt.masked_istft(re, im, mask (or None),
+# k_real, k_imag, tables, size, shift, window_length)`` on the rows of
+# ``_split`` (signal row n reads spectrogram row n % N_spec) -> (rows,
+# samples) before the fading crop; ``k_real``, ``k_imag``: the stft's
+# synthesis kernels (the CPU implementation's), ``tables``: the kernel's
+# route's (:func:`_tables`)
+masked_istft_op = _ops.define('masked_istft', _op_plain, _op_launch,
+                              _op_fake)
 
 
 masked_istft.launches = 0

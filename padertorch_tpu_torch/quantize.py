@@ -33,7 +33,8 @@ import torch
 from padertorch_tpu_torch import nn
 from padertorch_tpu_torch.module import swap_submodules
 from padertorch_tpu_torch.ops.kernels.int8_matmul import (
-    INT8_KERNEL_MAX_ROWS, int8_matmul, int8_matmul_plain)
+    INT8_KERNEL_MAX_ROWS, composed, int8_matmul, int8_matmul_plain,
+    matmul_rows)
 
 __all__ = ['QuantizedLinear', 'quantize_module', 'quantization_error',
            'kernel_route']
@@ -44,7 +45,10 @@ def kernel_route(device, rows):
     for ``rows`` rows of x on ``device``: on a CUDA card up to
     ``INT8_KERNEL_MAX_ROWS`` rows (where the kernel's device time is at
     most the composed route's), the composed route above and on the CPU
-    (as the JAX package's ``None``).
+    (as the JAX package's ``None``).  ``QuantizedLinear`` applies the
+    rows' part inside the ``ptt::int8_matmul`` operator, where the rows are
+    concrete (an exported graph keeps them symbolic); above the limit the
+    operator casts the composed route's result to x's type.
 
     >>> [kernel_route(torch.device('cpu'), 1),
     ...  kernel_route(torch.device('cuda'), 1)]
@@ -113,15 +117,17 @@ class QuantizedLinear(nn.Float32Buffers):
         return mode
 
     def forward(self, x):
+        if self.use_kernel is None and x.device.type == 'cuda':
+            # the rows decide inside the operator, where they are
+            # concrete (an export keeps them symbolic)
+            return matmul_rows(x, self.weight_q, self.scale, self.bias,
+                               max_kernel_rows=INT8_KERNEL_MAX_ROWS)
         route = self._route(x)
         if route == 'interpret':
             return int8_matmul_plain(x, self.weight_q, self.scale, self.bias)
         if route:
             return int8_matmul(x, self.weight_q, self.scale, self.bias)
-        y = x @ (self.weight_q.to(x.dtype) * self.scale.to(x.dtype))
-        if self.bias is not None:
-            y = y + self.bias
-        return y
+        return composed(x, self.weight_q, self.scale, self.bias)
 
     def extra_repr(self):
         return (f'in_features={self.in_features}, '

@@ -1,17 +1,369 @@
-"""Serving: continuous batching over a KV-cache decoder.
+"""Serving: exported artifacts and continuous batching.
 
-Counterpart of ``padertorch_tpu/serve.py``, its ``ContinuousBatcher``.
+Counterpart of ``padertorch_tpu/serve.py``.  A model's forward pass (or any
+callable, or a whole greedy generation loop) is exported with
+``torch.export`` into a self-contained artifact that loads in any process
+without the Python model code, with symbolic batch (and, on request, other)
+axes.  The hand-written kernels are the custom operators
+``torch.ops.ptt.*`` (``ops/kernels/_ops.py``): the artifact records them as
+single nodes, and a loaded artifact launches the same kernels as the eager
+model, counted by the same counters.  Like the JAX package's lowering, an
+artifact takes the routes of the device it was traced on (a model traced
+on the card keeps ``QuantizedLinear``'s dispatch by rows inside the int8
+operator; one traced on the CPU keeps the composed route).
 
-Not ported yet (ROADMAP.md): ``export_model``, ``export_fn``,
-``export_generate``, ``dump_exported`` and ``load_exported``, which wait for
-``torch.export`` and kernels bound as ``torch.library`` custom ops.
+>>> class M(torch.nn.Module):
+...     def __init__(self):
+...         super().__init__()
+...         self.lin = torch.nn.Linear(4, 2)
+...     def forward(self, batch):
+...         return self.lin(batch['x'])
+>>> _ = torch.manual_seed(0)
+>>> m = M().eval()
+>>> blob = export_model(m, {'x': np.zeros((3, 4), 'float32')})
+>>> fn = load_exported(blob, device='cpu')
+>>> tuple(fn({'x': np.ones((5, 4), 'float32')}).shape)  # batch-polymorphic
+(5, 2)
+
+A loaded artifact runs on the card unless ``device`` asks for another; on
+a machine without one, asking for the card raises.  Serving a batch of 1
+from an artifact exported from a batch of 2 or more works (an example of
+size 1 would fix the axis: ``torch.export`` specializes sizes 0 and 1).
 """
 import collections
+import io
+import json
+from pathlib import Path
 
 import numpy as np
 import torch
 
-__all__ = ['ContinuousBatcher']
+__all__ = ['export_model', 'export_fn', 'export_generate', 'dump_exported',
+           'load_exported', 'ContinuousBatcher', 'PLATFORMS']
+
+# the device types an artifact may name in ``platforms``
+PLATFORMS = ('cuda', 'cpu')
+_FORMAT = 'padertorch_tpu_torch.serve.v1'
+_META = 'ptt_meta.json'
+
+
+def _tree_map(fn, tree):
+    return torch.utils._pytree.tree_map(fn, tree)
+
+
+def _leaves(tree):
+    return torch.utils._pytree.tree_leaves(tree)
+
+
+def _as_tensors(example, device):
+    """The example's arrays as tensors on ``device`` (None: where they
+    are; numpy arrays on the CPU)."""
+    def convert(x):
+        if isinstance(x, (np.ndarray, np.generic, int, float)):
+            x = torch.as_tensor(np.asarray(x))
+        if isinstance(x, torch.Tensor) and device is not None:
+            x = x.to(device)
+        return x
+    return _tree_map(convert, example)
+
+
+def _dynamic_shapes(example, polymorphic_batch, dynamic_axes):
+    """``torch.export``'s ``dynamic_shapes`` for the one argument
+    ``example``: with ``dynamic_axes`` ``{key: {axis: name}}`` a
+    ``torch.export.Dim`` per name, shared by equal names across inputs
+    (key None: a single-array example); else, with ``polymorphic_batch``,
+    one ``Dim('b')`` on axis 0 of every array; else None (static)."""
+    if dynamic_axes is not None:
+        dims = {name: torch.export.Dim(name)
+                for axes in dynamic_axes.values() for name in axes.values()}
+
+        def spec(axes):
+            def leaf(x):
+                if not isinstance(x, torch.Tensor):
+                    return None
+                return {axis % x.dim(): dims[name]
+                        for axis, name in axes.items()} or None
+            return leaf
+
+        if isinstance(example, dict):
+            return ({key: _tree_map(spec(dynamic_axes.get(key, {})), value)
+                     for key, value in example.items()},)
+        return (_tree_map(spec(dynamic_axes.get(None, {})), example),)
+    if polymorphic_batch:
+        batch = torch.export.Dim('b')
+        return (_tree_map(
+            lambda x: ({0: batch} if isinstance(x, torch.Tensor)
+                       and x.dim() else None), example),)
+    return None
+
+
+def _check_platforms(platforms):
+    platforms = tuple(platforms)
+    unknown = [p for p in platforms if p not in PLATFORMS]
+    if unknown or not platforms:
+        raise ValueError(
+            f'platforms={platforms!r}: the port exports for '
+            f'{PLATFORMS} (the JAX package\'s lowering platforms such as '
+            "'tpu' are not the port's)")
+    return platforms
+
+
+class _Call(torch.nn.Module):
+    """``fn(batch)`` as a module; tensors ``fn`` reaches through a closure
+    become the exported program's constants."""
+
+    def __init__(self, fn):
+        super().__init__()
+        self.fn = fn
+
+    def forward(self, batch):
+        return self.fn(batch)
+
+
+def _example_device(module, example):
+    for x in _leaves(example):
+        if isinstance(x, torch.Tensor):
+            return x.device
+    for x in [*module.parameters(), *module.buffers()]:
+        return x.device
+    return torch.device('cpu')
+
+
+def _trace(module, example, dynamic_shapes):
+    """``torch.export.export`` under no_grad.  Where the program holds only
+    for part of a symbolic axis's range (a fading crop needs a few frames,
+    say), the range is narrowed as ``torch.export`` suggests and the trace
+    repeated; an axis the program would fix to one size raises."""
+    from torch._dynamo.exc import UserError
+    from torch.export.dynamic_shapes import (
+        refine_dynamic_shapes_from_suggested_fixes)
+    for _ in range(3):
+        try:
+            with torch.no_grad():
+                return torch.export.export(
+                    module, (example,), dynamic_shapes=dynamic_shapes,
+                    prefer_deferred_runtime_asserts_over_guards=True)
+        except UserError as error:
+            if dynamic_shapes is None:
+                raise
+            message, _, tail = str(error).partition('Suggested fixes:')
+            fixes = [line for line in tail.splitlines() if ' = ' in line]
+            if not fixes:
+                raise
+            refined = refine_dynamic_shapes_from_suggested_fixes(
+                '\n'.join([message + 'Suggested fixes:', *fixes]),
+                dynamic_shapes)
+            static = [d for d in _leaves(refined)
+                      if not isinstance(d, torch.export.Dim)]
+            if static or refined == dynamic_shapes:
+                raise
+            dynamic_shapes = refined
+    raise RuntimeError('torch.export kept narrowing the symbolic axes')
+
+
+def _export(module, example, polymorphic_batch, dynamic_axes, platforms,
+            device):
+    example = _as_tensors(example, device)
+    device = _example_device(module, example)
+    if platforms is None:
+        platforms = (device.type,)
+    platforms = _check_platforms(platforms)
+    program = _trace(module, example, _dynamic_shapes(
+        example, polymorphic_batch, dynamic_axes))
+    meta = {'format': _FORMAT, 'traced_on': device.type,
+            'platforms': list(platforms)}
+    buffer = io.BytesIO()
+    torch.export.save(program, buffer,
+                      extra_files={_META: json.dumps(meta)})
+    return buffer.getvalue()
+
+
+def export_model(model, example, polymorphic_batch=True, *,
+                 dynamic_axes=None, platforms=None, device=None):
+    """Serialize ``model``'s forward to a ``torch.export`` artifact (bytes).
+
+    Args:
+        model: a ``torch.nn.Module`` called as ``model(batch)``; it is
+            exported in ``eval()`` mode (restored after) and under
+            ``torch.no_grad()``, its parameters and buffers baked in.
+        example: example input pytree (numpy arrays or tensors): dtypes
+            and the static sizes.  Give a batch of 2 or more where the
+            batch axis is symbolic.
+        polymorphic_batch: a symbolic leading (batch) axis, one size for
+            every input.
+        dynamic_axes: finer-grained alternative (overrides
+            ``polymorphic_batch``): ``{input_key: {axis: dim_name}}``
+            marks any axes symbolic, e.g. ``{'Y_abs': {0: 'b', 1: 't'},
+            'num_frames': {0: 'b'}}``; equal names are equal sizes.  Key
+            None for a single-array example.
+        platforms: device types the artifact may be loaded on, of
+            ``('cuda', 'cpu')`` (default: the device it is traced on);
+            another name, such as the JAX package's ``'tpu'``, raises.
+            The artifact keeps the routes of the device it was traced on.
+        device: where numpy examples are put for the trace (default: the
+            model's device).
+
+    Returns:
+        bytes for :func:`load_exported` (no model code needed to load).
+    """
+    was_training = model.training
+    model.eval()
+    try:
+        if device is None:
+            device = _example_device(model, ())
+        return _export(model, example, polymorphic_batch,
+                       dynamic_axes, platforms, device)
+    finally:
+        model.train(was_training)
+
+
+def export_fn(fn, example, polymorphic_batch=True, *, dynamic_axes=None,
+              platforms=None, device=None):
+    """Like :func:`export_model` for any callable taking one input pytree
+    (a closure over modules, a generation loop); the tensors it reaches
+    through the closure are baked in as constants.  ``device``: where
+    numpy examples are put (default: where the example's tensors are, or
+    the CPU)."""
+    return _export(_Call(fn), example, polymorphic_batch, dynamic_axes,
+                   platforms, device)
+
+
+def export_generate(decoder, example_memory, *, embed, logits_head,
+                    bos_id, max_len, eos_id=None, memory_seq_len=None,
+                    polymorphic_batch=True, dynamic_axes=None,
+                    platforms=None, device=None, **generate_kwargs):
+    """Export a whole greedy generation loop as one artifact.
+
+    The artifact maps encoder memory to ``(tokens, lengths)``: cache
+    set-up, every decode step (``max_len`` of them, unrolled: the loop of
+    ``autoregressive_generate`` reads nothing back from the device), the
+    head, the pick and the eos bookkeeping, so the serving side needs no
+    model code and no host loop per step.  The trace grows with
+    ``max_len`` times the decoder's layers (about 200 graph nodes a layer
+    a step), and so do the export's and the load's seconds.
+
+    Args:
+        decoder, embed, logits_head, bos_id, max_len, eos_id: as in
+            ``contrib/mk/modules/transformer.py``
+            ``autoregressive_generate`` (``embed`` and ``logits_head`` are
+            baked in).
+        example_memory: (B, S, d_memory) example encoder output, B >= 2
+            for a symbolic batch.
+        memory_seq_len: optionally a (B,) example; the artifact then
+            takes ``{'memory': ..., 'memory_seq_len': ...}``.
+
+    Returns:
+        bytes for :func:`load_exported`.
+    """
+    from padertorch_tpu_torch.contrib.mk.modules.transformer import (
+        autoregressive_generate)
+    # the loop without its no_grad decorator: the export runs under
+    # no_grad already, and the decorator's grad-mode switches would each be
+    # a node of the graph
+    generate = autoregressive_generate.__wrapped__
+
+    def run(memory, seq_len=None):
+        return generate(
+            decoder, memory, embed=embed, logits_head=logits_head,
+            bos_id=bos_id, max_len=max_len, eos_id=eos_id,
+            memory_seq_len=seq_len, **generate_kwargs)
+
+    if device is None:
+        device = _example_device(decoder, ())
+    if memory_seq_len is None:
+        example = example_memory
+
+        def fn(memory):
+            return run(memory)
+    else:
+        example = {'memory': example_memory,
+                   'memory_seq_len': np.asarray(memory_seq_len)
+                   if not isinstance(memory_seq_len, torch.Tensor)
+                   else memory_seq_len}
+
+        def fn(batch):
+            return run(batch['memory'], batch['memory_seq_len'])
+
+    was_training = decoder.training
+    decoder.eval()
+    try:
+        return export_fn(fn, example, polymorphic_batch,
+                         dynamic_axes=dynamic_axes, platforms=platforms,
+                         device=device)
+    finally:
+        decoder.train(was_training)
+
+
+def dump_exported(model, example, path, **kwargs):
+    """Write a serving artifact directory: ``forward.pt2`` (the
+    :func:`export_model` bytes) and ``meta.json`` (the model class, the
+    input shapes and dtypes, and the export options, for the serving
+    side's checks).  Load it with ``load_exported(path)``."""
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    blob = export_model(model, example, **kwargs)
+    (path / 'forward.pt2').write_bytes(blob)
+    leaves = [np.asarray(x.detach().cpu()) if isinstance(x, torch.Tensor)
+              else np.asarray(x) for x in _leaves(example)]
+    meta = {
+        'format': _FORMAT,
+        'model': type(model).__module__ + '.' + type(model).__name__,
+        'input_shapes': [list(x.shape) for x in leaves],
+        'input_dtypes': [x.dtype.name for x in leaves],
+        'options': {
+            k: (list(v) if isinstance(v, tuple) else v)
+            for k, v in kwargs.items()
+            if isinstance(v, (str, int, float, bool, tuple, list, dict,
+                              type(None)))
+        },
+    }
+    (path / 'meta.json').write_text(json.dumps(meta, indent=2, default=str))
+    return path
+
+
+def load_exported(blob, device='cuda'):
+    """Bytes, an artifact file or an artifact directory -> ``fn(batch)``.
+
+    Only the port's operator registrations are imported (no model code).
+    The program and its constants are moved to ``device`` (the card by
+    default; ``'cuda'`` without a card raises) with
+    ``torch.export.passes.move_to_device_pass``, and ``fn`` takes numpy
+    arrays or tensors, puts them there and returns tensors there.  A
+    device type outside the artifact's ``platforms`` raises.
+    """
+    # the ptt:: operators must exist before the program is deserialized
+    import padertorch_tpu_torch.ops.kernels  # noqa: F401
+    from torch.export.passes import move_to_device_pass
+
+    if isinstance(blob, (str, Path)):
+        blob = Path(blob)
+        if blob.is_dir():
+            blob = blob / 'forward.pt2'
+        blob = blob.read_bytes()
+    device = torch.device(device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError(
+            'load_exported: the artifact runs on the card by default and '
+            "no CUDA device is available; pass device='cpu' to run it on "
+            'the CPU')
+    extra = {_META: ''}
+    program = torch.export.load(io.BytesIO(bytes(blob)), extra_files=extra)
+    meta = json.loads(extra[_META]) if extra[_META] else {}
+    platforms = meta.get('platforms', list(PLATFORMS))
+    if device.type not in platforms:
+        raise ValueError(
+            f'the artifact was exported for {platforms}, not for '
+            f'{device.type}')
+    program = move_to_device_pass(program, device)
+    module = program.module()
+
+    def fn(batch):
+        with torch.no_grad():
+            return module(_as_tensors(batch, device))
+
+    fn.program = program
+    fn.meta = meta
+    return fn
 
 
 class ContinuousBatcher:

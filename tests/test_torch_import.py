@@ -511,3 +511,75 @@ def test_real_audio_paths_import_no_jax_and_launch_nothing():
     assert out['launches'] == [0] * len(out['launches'])
     assert out['tagging'] == [1, 2] and out['distance'] == [1, 2]
     assert out['read_audio'][0] == 2 and out['makefile']
+
+
+SERVING = r'''
+import json, sys, tempfile
+import numpy as np
+import torch
+torch.set_num_threads(2)
+from padertorch_tpu_torch import lora, serve
+from padertorch_tpu_torch.ops import streaming
+import padertorch_tpu_torch.ops.kernels
+from padertorch_tpu_torch.ops.kernels import _build
+from padertorch_tpu_torch.ops.kernels.lstm import lstm_cell_scan
+from padertorch_tpu_torch.ops.kernels.masked_istft import masked_istft
+from padertorch_tpu_torch.models.bss import PermutationInvariantTrainingModel
+from padertorch_tpu_torch.modules.recurrent import StatefulLSTM
+
+names = ('lstm_cell_scan', 'gru_cell_scan', 'flash_attention',
+         'fused_logmel', 'masked_istft', 'int8_matmul')
+has = torch._C._dispatch_has_kernel_for_dispatch_key
+registered = {name: [has(f'ptt::{name}', key) for key in ('CPU', 'CUDA')]
+              for name in names}
+torch.manual_seed(0)
+model = PermutationInvariantTrainingModel(
+    F=9, recurrent_layers=1, units=8, K=2).eval()
+lora.apply_lora(model, rank=2, targets=('linear1',))
+lora.merge_lora(model)
+with tempfile.TemporaryDirectory() as tmp:
+    serve.dump_exported(model, {'Y_abs': np.ones((2, 5, 9), 'float32')},
+                        tmp, dynamic_axes={'Y_abs': {0: 'b', 1: 't'}})
+    served = serve.load_exported(tmp, device='cpu')(
+        {'Y_abs': np.ones((3, 7, 9), 'float32')})
+stft = streaming.STFT(32, 8, complex_representation='stacked')
+analysis = streaming.StreamingSTFT(stft)
+state = analysis.init_state((1,))
+rnn = StatefulLSTM(17, 4)
+with torch.no_grad():
+    for start in range(0, 64, 16):
+        state, frames = analysis.step(state, torch.ones(1, 16))
+        rnn(frames[..., 0])
+print(json.dumps({
+    'modules': sorted(sys.modules), 'registered': registered,
+    'served': list(served.shape), 'states': list(rnn.states[0].shape),
+    'built': _build.load_library.cache_info().misses,
+    'launches': [*lstm_cell_scan.launches.values(),
+                 masked_istft.launches]}))
+'''
+
+
+def test_serving_paths_import_no_jax_and_build_nothing():
+    """``serve``, ``lora``, ``ops/streaming`` and the operator
+    registrations import without JAX; importing them registers the six
+    ``ptt`` operators (a CPU and a CUDA kernel each) without building
+    anything, and an exported, dumped and loaded separator with a merged
+    adapter and a streamed ``StatefulLSTM`` run on the CPU launch
+    nothing."""
+    env = {**os.environ, 'PYTHONPATH': str(REPO), 'OMP_NUM_THREADS': '2'}
+    proc = subprocess.run([sys.executable, '-c', SERVING], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    banned = ('jax', 'jaxlib', 'padertorch_tpu', 'tensorboardX', 'optax',
+              'matplotlib', 'triton')
+    assert [m for m in out['modules'] if m.split('.')[0] in banned] == []
+    for name in ('serve', 'lora', 'ops.streaming', 'ops.kernels._ops'):
+        assert f'padertorch_tpu_torch.{name}' in out['modules'], name
+    assert out['registered'] == {name: [True, True] for name in (
+        'lstm_cell_scan', 'gru_cell_scan', 'flash_attention',
+        'fused_logmel', 'masked_istft', 'int8_matmul')}
+    assert out['served'] == [3, 7, 2, 9] and out['states'] == [1, 1, 4]
+    assert out['built'] == 0
+    assert out['launches'] == [0] * len(out['launches'])
